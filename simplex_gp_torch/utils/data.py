@@ -1,0 +1,189 @@
+"""Dataset layer: Snelson 1-D, UCI regression (.mat), synthetic fallbacks.
+
+Mirrors the reference dataset layer (experiments/utils.py:21-168):
+
+  * UCI ``.mat`` files loaded via scipy (key "data", last column = target),
+    located under ``$DATADIR/uci/<name>/<name>.mat``;
+  * deterministic positional splits: first 80% train, last 20% test, last
+    20% of train as val (utils.py:64-71);
+  * z-scoring of x and y by TRAIN statistics only (utils.py:34-44);
+  * named size groups small/medium/large/huge (utils.py:115-159).
+
+Additionally (new capability): when a UCI file is absent, a seeded synthetic
+regression problem with the dataset's published (n, d) shape is generated so
+benchmarks and scaling tests run in sealed environments.
+"""
+
+from __future__ import annotations
+
+import os
+import pathlib
+from typing import NamedTuple, Optional
+
+import numpy as np
+
+__all__ = ["Dataset", "load_snelson", "load_uci", "prepare_dataset", "UCI_SHAPES", "DATASET_GROUPS"]
+
+_REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
+
+# Published (n, d) per UCI dataset (SURVEY.md section 6 / reference paper).
+UCI_SHAPES = {
+    "pol": (15000, 26),
+    "elevators": (16599, 18),
+    "bike": (17379, 17),
+    "kin40k": (40000, 8),
+    "protein": (45730, 9),
+    "keggdirected": (48827, 20),
+    "slice": (53500, 385),
+    "keggundirected": (63608, 27),
+    "3droad": (434874, 3),
+    "song": (515345, 90),
+    "buzz": (583250, 77),
+    "precipitation": (628474, 3),
+    "houseelectric": (2049280, 11),
+}
+
+# Reference size groups (experiments/utils.py:115-159).
+DATASET_GROUPS = {
+    "small": ["pol", "elevators", "bike", "kin40k", "protein"],
+    "medium": ["keggdirected", "slice", "keggundirected", "3droad"],
+    "large": ["song", "buzz", "precipitation"],
+    "huge": ["houseelectric"],
+}
+
+
+class Dataset(NamedTuple):
+    train_x: np.ndarray
+    train_y: np.ndarray
+    val_x: np.ndarray
+    val_y: np.ndarray
+    test_x: np.ndarray
+    test_y: np.ndarray
+    name: str
+
+
+def load_snelson(path: Optional[str] = None) -> tuple[np.ndarray, np.ndarray]:
+    """200-point 1-D Snelson regression set (reference notebooks/snelson.csv)."""
+    path = path or str(_REPO_ROOT / "data" / "snelson.csv")
+    arr = np.genfromtxt(path, delimiter=",", skip_header=1, dtype=np.float32)
+    return arr[:, :1], arr[:, 1]
+
+
+def _synthetic_uci(name: str, seed: int = 0) -> np.ndarray:
+    """Seeded stand-in with the dataset's published shape.
+
+    x is kept i.i.d. standard normal (so lattice occupancies / MVM timings are
+    stable across code revisions); y is a LOW-RANK (rank-3), long-lengthscale
+    target: in d~20 dimensions a unit-lengthscale random function is
+    information-theoretically unlearnable at n~1e4 (nearest-neighbour
+    distances are ~sqrt(2d) >> 1), which made training runs degenerate to
+    RMSE=1.  A rank-3 tanh ridge with lengthscale ~2 along the relevant
+    directions is learnable by an ARD GP (irrelevant dims -> long
+    lengthscales), so training evidence is meaningful while timings stay
+    comparable to earlier revisions.
+
+    ``<name>_clustered`` variants draw x from a 50-component mixture of
+    Gaussians (component scale 0.3) instead of i.i.d. normal: real UCI
+    marginals are clustered/manifold-like, and lattice discretization error
+    depends strongly on input geometry (VERDICT r3: houseelectric rel_err
+    0.331 on i.i.d. synthetic vs the reference's 0.053 on the real data).
+    The mixture is re-standardized so lengthscale heuristics stay comparable.
+
+    ``<name>_sparse`` variants use the clustered mixture for x AND restrict
+    the target's relevant directions to min(4, d) randomly-chosen INPUT
+    dims (instead of a dense rank-3 mixing of all d).  Rationale (r5
+    quality-gap attribution, analysis/QUALITY_GAP.md): with a dense mixing,
+    every input dim is equally relevant, ARD stays isotropic, and the
+    trained metric keeps all d dims embedded in the permutohedral lattice
+    -- the regime where the reference's own published MVM error is worst
+    (protein d=9: rel_err 0.506, BASELINE.md:22).  Real UCI tables are
+    anisotropic: ARD on them concentrates inverse lengthscales on a few
+    informative columns, which is precisely what makes lattice inference
+    accurate on the real data.  The sparse variant reproduces that
+    anisotropy so trained-ARD screening (SimplexGP.prune_thresh) has the
+    structure it exists for.
+    """
+    sparse = name.endswith("_sparse")
+    if sparse:
+        name = name[: -len("_sparse")]
+    clustered = sparse or name.endswith("_clustered")
+    if name.endswith("_clustered"):
+        name = name[: -len("_clustered")]
+    n, d = UCI_SHAPES[name]
+    # Stable content hash: Python's hash() is salted per process, which
+    # would silently give every run a different "dataset".  The sparse
+    # variant folds a tag in so its draws differ from plain _clustered.
+    import zlib
+
+    rng = np.random.default_rng(zlib.crc32((name + ("_sp" if sparse else "")).encode()) + seed)
+    if clustered:
+        k = 50
+        centers = rng.normal(size=(k, d)).astype(np.float32)
+        comp = rng.integers(0, k, size=n)
+        x = centers[comp] + 0.3 * rng.normal(size=(n, d)).astype(np.float32)
+        x = (x - x.mean(0)) / (x.std(0) + 1e-6)
+        x = x.astype(np.float32)
+    else:
+        x = rng.normal(size=(n, d)).astype(np.float32)
+    rank = min(3, d)
+    w1 = rng.normal(size=(d, rank)).astype(np.float32) / np.sqrt(d)
+    w2 = rng.normal(size=(rank,)).astype(np.float32)
+    if sparse:
+        # Anisotropic relevance: only k_rel input dims carry signal.
+        k_rel = min(4, d)
+        rel = rng.permutation(d)[:k_rel]
+        w1 = np.zeros((d, rank), np.float32)
+        w1[rel] = rng.normal(size=(k_rel, rank)).astype(np.float32) / np.sqrt(k_rel)
+    # tanh(z) (not tanh(z/2)): the sharper ridge keeps the LEARNED ARD
+    # lengthscales near ~2 in z-scored units -- the regime where the lattice
+    # discretization is accurate.  At ell >~ 4 (d ~ 20) the discretized
+    # operator turns indefinite and prediction quality collapses (for the
+    # reference's filter exactly as for ours); a target that drives ell there
+    # would make training runs measure solver pathology, not model quality.
+    y = np.tanh(x @ w1) @ w2 + 0.1 * rng.normal(size=n).astype(np.float32)
+    return np.concatenate([x, y[:, None]], axis=-1)
+
+
+def load_uci(name: str, data_dir: Optional[str] = None, allow_synthetic: bool = True) -> np.ndarray:
+    """Raw (n, d+1) data matrix; last column is the target."""
+    data_dir = data_dir or os.environ.get("DATADIR")
+    if data_dir:
+        mat_path = pathlib.Path(data_dir) / "uci" / name / f"{name}.mat"
+        if mat_path.exists():
+            from scipy.io import loadmat
+
+            return np.asarray(loadmat(str(mat_path))["data"], dtype=np.float32)
+    if not allow_synthetic:
+        raise FileNotFoundError(f"UCI dataset {name!r} not found under DATADIR={data_dir}")
+    return _synthetic_uci(name)
+
+
+def prepare_dataset(
+    data: np.ndarray,
+    name: str = "",
+    train_frac: float = 0.8,
+    val_frac: float = 0.8,
+    standardize: bool = True,
+) -> Dataset:
+    """Positional split + train-statistics z-scoring (utils.py:34-44,64-71)."""
+    x, y = data[:, :-1].astype(np.float32), data[:, -1].astype(np.float32)
+    n = x.shape[0]
+    n_train_total = int(train_frac * n)
+    n_train = int(val_frac * n_train_total)
+    train_x, train_y = x[:n_train], y[:n_train]
+    val_x, val_y = x[n_train:n_train_total], y[n_train:n_train_total]
+    test_x, test_y = x[n_train_total:], y[n_train_total:]
+
+    if standardize:
+        mu_x = train_x.mean(axis=0, keepdims=True)
+        sd_x = train_x.std(axis=0, keepdims=True) + 1e-6
+        mu_y = train_y.mean()
+        sd_y = train_y.std() + 1e-6
+        train_x = (train_x - mu_x) / sd_x
+        val_x = (val_x - mu_x) / sd_x
+        test_x = (test_x - mu_x) / sd_x
+        train_y = (train_y - mu_y) / sd_y
+        val_y = (val_y - mu_y) / sd_y
+        test_y = (test_y - mu_y) / sd_y
+
+    return Dataset(train_x, train_y, val_x, val_y, test_x, test_y, name)

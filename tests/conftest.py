@@ -28,3 +28,9 @@ import jax._src.xla_bridge as _xb  # noqa: E402
 assert not _xb._backends, "JAX backends initialized before conftest could force CPU"
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; compares a hand-written kernel with its plain version"
+    )

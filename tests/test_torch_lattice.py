@@ -1,0 +1,128 @@
+"""The port's lattice filter (plain twin, CPU) held against the JAX join engine.
+
+Same numpy inputs go through ``simplex_gp_tpu`` (JAX on the CPU) and
+``simplex_gp_torch`` (its plain PyTorch versions: the tensors lie on the
+CPU).  Tolerances:
+  * hashes exactly equal: the twin's elevation sums in another order than
+    XLA's dot, which could move a point lying within an ulp of a rounding
+    boundary to another simplex, but no such point occurs at these seeds;
+  * weights within 1e-6 (a few f32 ulps of the elevated coordinates);
+  * operator output rel < 2e-5 with equal n_lattice, the bound the JAX
+    package holds its own two engines to (test_chain_plan.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_parity import rel_err, seeded
+
+from simplex_gp_torch.kernels import lattice as t_kernels_lattice
+from simplex_gp_torch.ops import filter as t_filter
+from simplex_gp_torch.ops import kernels as t_kernels
+from simplex_gp_torch.ops import lattice as t_lattice
+from simplex_gp_tpu.ops import filter as j_filter
+from simplex_gp_tpu.ops import kernels as j_kernels
+from simplex_gp_tpu.ops import lattice as j_lattice
+from simplex_gp_tpu.ops.cpu_ref import available, filter_ref
+
+# The grid of test_chain_plan.py::test_chain_matches_join: d in {1,2,3,5,9,17},
+# orders 1-3, rbf and matern.
+GRID = [
+    (200, 1, 1, "rbf"),
+    (300, 3, 1, "rbf"),
+    (257, 5, 2, "rbf"),
+    (150, 2, 3, "matern"),
+    (400, 9, 1, "matern"),
+    (64, 17, 1, "rbf"),
+]
+
+
+def _kernels(kind, order):
+    if kind == "rbf":
+        return t_kernels.rbf_kernel(order), j_kernels.rbf_kernel(order)
+    return t_kernels.matern_kernel(1.5, order), j_kernels.matern_kernel(1.5, order)
+
+
+@pytest.mark.parametrize("n,d,order,kind", GRID)
+def test_geometry_matches_jax(n, d, order, kind):
+    x, _ = seeded(n, d, 1)
+    _, jdk = _kernels(kind, order)
+    E = j_lattice.build_rotation(d, jdk.variance)
+    a = j_lattice._hash_vectors(d)
+    jh1, jh2, jw = map(np.asarray, j_lattice._point_hashes(jnp.asarray(x), jnp.asarray(E), a))
+    th1, th2, tw = t_kernels_lattice.geometry_plain(torch.from_numpy(x), torch.from_numpy(E),
+                                                    torch.from_numpy(a))
+    np.testing.assert_array_equal(th1.numpy(), jh1)
+    np.testing.assert_array_equal(th2.numpy(), jh2)
+    np.testing.assert_allclose(tw.numpy(), jw, rtol=0, atol=1e-6)
+    jkeys, _ = j_lattice.lattice_simplex(jnp.asarray(x), jnp.asarray(E))
+    tkeys, _ = t_lattice.lattice_simplex(torch.from_numpy(x), torch.from_numpy(E))
+    np.testing.assert_array_equal(tkeys.numpy(), np.asarray(jkeys))
+
+
+@pytest.mark.parametrize("n,d,order,kind", GRID)
+def test_filter_matches_jax_join(n, d, order, kind):
+    x, v = seeded(n, d, 1)
+    tdk, jdk = _kernels(kind, order)
+    jplan = j_lattice.build_plan_join(jnp.asarray(x), jdk.coeffs, jdk.variance)
+    jout = np.asarray(j_lattice.apply_plan_join(jplan, jnp.asarray(v), jdk.coeffs))
+    tplan = t_lattice.build_plan_join(torch.from_numpy(x), tdk.coeffs, tdk.variance)
+    tout = t_lattice.apply_plan_join(tplan, torch.from_numpy(v), tdk.coeffs).numpy()
+    assert int(tplan.n_lattice) == int(jplan.n_lattice)
+    assert rel_err(tout, jout) < 2e-5
+    once = t_lattice.filter_once(torch.from_numpy(v), torch.from_numpy(x), tdk.coeffs, tdk.variance)
+    np.testing.assert_array_equal(once.numpy(), tout)
+
+
+@pytest.mark.parametrize("n,d,order,kind,c", [(300, 3, 1, "rbf", 8), (400, 9, 1, "matern", 101),
+                                              (150, 2, 3, "matern", 101)])
+def test_wide_filter_matches_jax_join(n, d, order, kind, c):
+    x, v = seeded(n, d, c, seed=1)
+    tdk, jdk = _kernels(kind, order)
+    jplan = j_lattice.build_plan_join(jnp.asarray(x), jdk.coeffs, jdk.variance)
+    jout = np.asarray(j_lattice.apply_plan_join(jplan, jnp.asarray(v), jdk.coeffs))
+    tout = t_filter.lattice_filter_any(torch.from_numpy(v), torch.from_numpy(x), tdk).numpy()
+    assert rel_err(tout, jout) < 2e-5
+
+
+def test_plan_rows_and_neighbors_are_consistent():
+    """Every live row has a key, neighbours are live rows or M, dead rows M."""
+    x, _ = seeded(300, 3, 1, seed=2)
+    tdk, _ = _kernels("rbf", 2)
+    plan = t_lattice.build_plan_join(torch.from_numpy(x), tdk.coeffs, tdk.variance)
+    nl = int(plan.n_lattice)
+    M = plan.neighbors.shape[1]
+    assert M == 300 * 4 and plan.neighbors.shape == (4, M, 4)
+    assert set(plan.seg_ids.unique().tolist()) == set(range(nl))
+    live = plan.neighbors[:, :nl]
+    assert bool(((live >= 0) & (live < nl) | (live == M)).all())
+    assert bool((plan.neighbors[:, nl:] == M).all())
+    assert bool((live != M).any())
+
+
+def test_lattice_filter_rect_matches_jax():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(200, 3)).astype(np.float32)
+    xt = rng.normal(size=(40, 3)).astype(np.float32)
+    v = rng.normal(size=(200, 3)).astype(np.float32)
+    tdk, jdk = _kernels("matern", 1)
+    jout = np.asarray(j_filter.lattice_filter_rect(jnp.asarray(v), jnp.asarray(x), jnp.asarray(xt), jdk))
+    tout = t_filter.lattice_filter_rect(torch.from_numpy(v), torch.from_numpy(x), torch.from_numpy(xt), tdk)
+    assert tout.shape == (40, 3)
+    assert rel_err(tout.numpy(), jout) < 2e-5
+
+
+@pytest.mark.parametrize("n,d,c,order,kind", [(100, 1, 1, 1, "rbf"), (150, 5, 3, 3, "matern"),
+                                              (200, 17, 1, 1, "matern")])
+def test_filter_matches_cpp_golden_model(n, d, c, order, kind):
+    if not available():
+        pytest.skip("g++ golden model unavailable")
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    v = rng.normal(size=(n, c)).astype(np.float32)
+    tdk, _ = _kernels(kind, order)
+    ours = t_lattice.filter_once(torch.from_numpy(v), torch.from_numpy(x), tdk.coeffs, tdk.variance)
+    gold = filter_ref(v, x, np.asarray(tdk.coeffs), tdk.variance)
+    # Same bound as tests/test_cpu_ref.py: f32 roundoff, other accumulation orders.
+    np.testing.assert_allclose(ours.numpy(), gold, rtol=2e-4, atol=2e-4)
