@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card, and check it.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -12,10 +12,18 @@ Phases, each printed as it runs:
   3. the slice: SimplexGP.posterior_cache on the 10,623 elevators training
      rows and predict_from_cache on the 3,320 test rows, with the trained
      parameters of runs/r5/simplexgp_elevators_s0/model_best.pkl, held
-     against the JAX-on-CPU golden file tests/fixtures/elevators_golden.npz.
+     against the JAX-on-CPU golden file tests/fixtures/elevators_golden.npz;
+  4. training at elevators, against the JAX-on-CPU golden file
+     tests/fixtures/elevators_train_golden.npz: K3 transposed and K5
+     lattice_filter_grad against their plain versions at the median-init
+     lengthscales (c = 11); SimplexGP.nlml and its raw gradients at the
+     median init and at model_best.pkl; three Adam steps (fit_adam, lr 0.1);
+     the trainer entry point ``simplex_gp_torch.train.main`` for two epochs
+     on the card; one warm training step and its stages by CUDA events.
 
 The line before the last is the card; the one before it a JSON object of
-the kernels (launches on the slice, errors, times).  The last line is
+the kernels (launches on the slice -- for K5, on the trainer run --,
+errors, times).  The last line is
 {"ok": true, "device": {...}} only if every phase passed; otherwise the
 script exits 1.  It exits 2 when no CUDA device is present.  It never
 imports jax.
@@ -29,9 +37,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = pathlib.Path(__file__).resolve().parent
 PARAMS = ROOT / "runs" / "r5" / "simplexgp_elevators_s0" / "model_best.pkl"
 GOLDEN = ROOT / "tests" / "fixtures" / "elevators_golden.npz"
+TRAIN_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_train_golden.npz"
+RAW_NAMES = ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")
 
 # Tolerances, each with its reason.
 # K1: kernel and plain version run the same IEEE operations in the same order.
@@ -61,12 +73,37 @@ PREDICT_MEAN_ATOL = 1e-3
 MEAN_RMS_ATOL = 0.2
 RMSE_ATOL = 1e-2
 NLL_ATOL = 5e-2
+# Training (phase 4).
+# K5 fed the same tables as its plain version: the same ranks (shared device
+# code with K1), f32 dots of width c and the E product summed in another
+# order, with cancellation in the differences gw[d-r] - gw[d+1-r]
+# (measured 1.6e-7 on the H100).
+K5_REL = 1e-4
+# NLML and raw gradients against JAX on the CPU, same probes: JAX runs the
+# sort-chain operator, the port the join operator with an atomic splat.
+# Measured on the H100 (PR 2): |dNLML| <= 7.6e-6, gradient rel <= 2.3e-3
+# (the mean's, a small sum of alpha), cos 1.000000; five repeats spread the
+# NLML by 1.4e-6.  At model_best.pkl the training CG stops after 11
+# iterations, not at the floor of 10; one iteration fewer moves the NLML by
+# 3.7e-4 (my CPU run), so the bound leaves room for that flip.
+NLML_ATOL = 1e-3
+GRAD_COS = 0.999
+GRAD_REL = 2e-2
+# Three Adam steps: per-step loss as the NLML (measured 1.1e-5); the raw
+# parameters move by about lr = 0.1 per step whatever the gradient's size,
+# so a small error in the gradients stays small in them (measured 1.3e-4).
+ADAM_LOSS_ATOL = 1e-3
+ADAM_PARAM_ATOL = 2e-3
+# The trainer after two epochs from the median init: finite, and better than
+# the prior mean (RMSE 1 on the standardized targets).
+ENTRY_RMSE_MAX = 1.0
 
 KERNEL_ROWS = {
     "lattice_geometry": ("simplex_gp_torch/csrc/geometry.cu", "simplex_gp_tpu/ops/lattice.py:141"),
     "lattice_dedup_neighbors": ("simplex_gp_torch/csrc/dedup.cu", "simplex_gp_tpu/ops/lattice.py:387"),
     "lattice_apply": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/lattice.py:470"),
     "pivot_column": ("simplex_gp_torch/csrc/pivot.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:106"),
+    "lattice_filter_grad": ("simplex_gp_torch/csrc/grad.cu", "simplex_gp_tpu/ops/filter.py:143"),
 }
 
 
@@ -89,6 +126,204 @@ def rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def cosine(a, b) -> float:
+    return float((a * b).sum() / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30))
+
+
+def training_phase(dev, ds, expect, timer):
+    """Phase 4: the training path at elevators.  Returns (K5's kernel row, the record)."""
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.kernels.pivot import pivot_column
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.cg import cg_solve
+    from simplex_gp_torch.linalg.lanczos import logdet_from_cg_tridiag
+    from simplex_gp_torch.linalg.pivoted_cholesky import precond_solve, precond_sqrt
+    from simplex_gp_torch.ops import lattice as L
+    from simplex_gp_torch.ops.filter import build_plan_any
+
+    golden = np.load(TRAIN_GOLDEN)
+    x = torch.from_numpy(ds.train_x).to(dev)
+    y = torch.from_numpy(ds.train_y).to(dev)
+    n, d = x.shape
+    cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100,
+                         precond_rank=100, num_probes=10, slq_mode="cg", grad_mode="exact")
+    model = simplex_gp_torch.SimplexGP(num_dims=d, kernel="matern", nu=1.5, order=1, min_noise=0.1,
+                                       bbmm=cfg, device=dev)
+    dk = model.dk
+
+    def point(tag):
+        return {k: golden[f"{tag}_{k}"] for k in RAW_NAMES}
+
+    def probes(seed):
+        z = np.random.default_rng(int(seed)).choice([-1.0, 1.0], size=(n, cfg.num_probes))
+        return torch.from_numpy(z.astype(np.float32)).to(dev)
+
+    record = {}
+    print("training 4.1: K3 transposed and K5 lattice_filter_grad vs plain (median init, c=11)")
+    model.load_raw(point("init"))
+    with torch.no_grad():
+        ref = (x * model.constrained()["inv_ell"]).contiguous()
+        seg, w, nb, nl = build_plan_any(ref, dk)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        v = torch.randn((n, 11), generator=gen, device=dev)
+        g = torch.randn((n, 11), generator=gen, device=dev)
+        taps, norm = list(dk.coeffs), L.SLICE_NORM(d)
+        E = torch.from_numpy(L.build_rotation(d, dk.variance)).to(dev)
+        _, tf_k = K.lattice_apply(seg, w, nb, nl, v, taps, norm, return_table=True)
+        gs_k, tb_k = K.lattice_apply(seg, w, nb, nl, g, taps, norm, transpose=True, return_table=True)
+        _, tf_p = K.apply_plain(seg, w, nb, v, taps, norm, return_table=True)
+        gs_p, tb_p = K.apply_plain(seg, w, nb, g, taps, norm, transpose=True, return_table=True)
+        rows = seg.long()  # the rows the slice and K5 read (rows past n_lattice are undefined)
+        r3 = max(rel(tb_k[rows], tb_p[rows]), rel(tf_k[rows], tf_p[rows]), rel(gs_k, gs_p))
+        expect(r3 <= K3_REL, f"K3 transposed: table and output rel error {r3:.3e} (limit {K3_REL})")
+        gr_k = K.lattice_filter_grad(ref, E, seg, v, g, tf_k, tb_k, norm)
+        gr_p = K.lattice_filter_grad_plain(ref, E, seg, v, g, tf_k, tb_k, norm)
+        r5 = rel(gr_k, gr_p)
+        expect(bool(torch.isfinite(gr_k).all()) and r5 <= K5_REL,
+               f"K5 vs plain on the same tables: rel error {r5:.3e} (limit {K5_REL})")
+        r5_route = rel(gr_k, K.lattice_filter_grad_plain(ref, E, seg, v, g, tf_p, tb_p, norm))
+        print(f"    K5 vs the all-plain route (plain tables too): rel {r5_route:.3e}")
+        k5 = dict(max_abs_err=float((gr_k - gr_p).abs().max()),
+                  ms=timer(lambda: K.lattice_filter_grad(ref, E, seg, v, g, tf_k, tb_k, norm), 50),
+                  plain_ms=timer(lambda: K.lattice_filter_grad_plain(ref, E, seg, v, g, tf_k, tb_k, norm), 10),
+                  shape=f"n={n}, d={d}, c=11")
+        k3t = (timer(lambda: K.lattice_apply(seg, w, nb, nl, g, taps, norm, transpose=True,
+                                             return_table=True), 20),
+               timer(lambda: K.apply_plain(seg, w, nb, g, taps, norm, transpose=True, return_table=True), 5))
+    print(f"    K5 {k5['ms']:.4f} ms, plain {k5['plain_ms']:.4f} ms; "
+          f"K3 transposed c=11 {k3t[0]:.4f} ms, plain {k3t[1]:.4f} ms")
+    record.update(k5_rel=r5, k5_route_rel=r5_route, k3_transposed_rel=r3, k3_transposed_ms=k3t[0],
+                  k3_transposed_plain_ms=k3t[1])
+
+    print("training 4.2: NLML and raw gradients vs JAX on the CPU (same probes)")
+    for tag in ("init", "best"):
+        model.load_raw(point(tag))
+        model.zero_grad(set_to_none=True)
+        stats = {}
+        loss = model.nlml(x, y, probes=probes(golden[f"seed_{tag}"]), stats=stats)
+        loss.backward()
+        dl = abs(float(loss.detach()) - float(golden[f"loss_{tag}"]))
+        expect(dl <= NLML_ATOL, f"{tag}: NLML {float(loss.detach()):.6f} vs JAX {float(golden[f'loss_{tag}']):.6f}"
+               f" (|diff| {dl:.2e}, limit {NLML_ATOL}); CG iterations {stats['cg_iters']}")
+        for k in RAW_NAMES:
+            a = getattr(model, k).grad.detach().cpu().numpy().astype(np.float64).ravel()
+            b = golden[f"grad_{tag}_{k}"].astype(np.float64).ravel()
+            c, r = cosine(a, b), float(np.linalg.norm(a - b) / np.linalg.norm(b))
+            expect(c >= GRAD_COS and r <= GRAD_REL,
+                   f"{tag}: d/d{k} cos {c:.6f} (limit {GRAD_COS}), rel {r:.2e} (limit {GRAD_REL})")
+            record[f"{tag}_grad_rel_{k}"] = r
+        record[f"{tag}_nlml_diff"] = dl
+    # Run to run: K3's atomic splat changes the last bits of every apply.
+    losses, grads = [], []
+    model.load_raw(point("init"))
+    for _ in range(5):
+        model.zero_grad(set_to_none=True)
+        loss = model.nlml(x, y, probes=probes(golden["seed_init"]))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append(torch.cat([getattr(model, k).grad.reshape(-1) for k in RAW_NAMES]).cpu().numpy())
+    spread = max(losses) - min(losses)
+    gspread = max(float(np.linalg.norm(gr - grads[0]) / np.linalg.norm(grads[0])) for gr in grads)
+    print(f"    5 repeats at the init point: NLML spread {spread:.3e}, gradient rel spread {gspread:.3e}")
+    record.update(repeat_nlml_spread=spread, repeat_grad_rel_spread=gspread)
+
+    print("training 4.3: three Adam steps (fit_adam, lr 0.1) vs the JAX trajectory")
+    model.load_raw(point("init"))
+    steps = iter([probes(golden["seed_adam"] + e) for e in range(3)])
+    cg_iters = []
+
+    def loss_fn(_gen):
+        stats = {}
+        loss = model.nlml(x, y, probes=next(steps), stats=stats)
+        cg_iters.append(stats["cg_iters"])
+        return loss
+
+    hist = simplex_gp_torch.fit_adam(loss_fn, model.parameters(), epochs=3, lr=0.1)
+    dl = float(np.abs(np.array(hist["loss"]) - golden["adam_loss"]).max())
+    expect(dl <= ADAM_LOSS_ATOL, f"Adam losses {hist['loss']} vs JAX {golden['adam_loss'].tolist()} "
+           f"(max |diff| {dl:.2e}, limit {ADAM_LOSS_ATOL}); CG iterations {cg_iters}")
+    dp = max(float(np.abs(getattr(model, k).detach().cpu().numpy() - golden[f"adam_{k}"][-1]).max())
+             for k in RAW_NAMES)
+    expect(dp <= ADAM_PARAM_ATOL, f"raw parameters after 3 steps: max |diff| {dp:.2e} (limit {ADAM_PARAM_ATOL})")
+    record.update(adam_loss_diff=dl, adam_param_diff=dp, adam_step_ms=hist["step_ms"], adam_cg_iters=cg_iters)
+
+    print("training 4.4: python -m simplex_gp_torch.train, two epochs at elevators")
+    kernels = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, pivot_column,
+               K.lattice_filter_grad)
+    for fn in kernels:
+        fn.launches = 0
+    final = trainer.main(["--dataset", "elevators", "--kernel", "matern", "--nu", "1.5", "--order", "1",
+                          "--min-noise", "0.1", "--ls-init", "median", "--cg-tol", "1.0", "--cg-iter", "500",
+                          "--lanc-iter", "100", "--pre-size", "100", "--num-probes", "10", "--epochs", "2",
+                          "--device", dev.type])
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"    launches on the trainer run: {launches}")
+    expect(all(v > 0 for v in launches.values()), "every kernel launched on the trainer run")
+    expect(all(np.isfinite(final["train/loss"])) and np.isfinite(final["test/nll"])
+           and final["test/rmse"] < ENTRY_RMSE_MAX,
+           f"trainer: losses {final['train/loss']}, test RMSE {final['test/rmse']:.4f} (limit "
+           f"{ENTRY_RMSE_MAX}), NLL {final['test/nll']:.4f}")
+    record.update(trainer=final, trainer_launches=launches)
+
+    print("training 4.5: one warm step and its stages")
+    model.load_raw(point("init"))
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+    z = probes(golden["seed_init"])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)] if dev.type == "cuda" else None
+
+    def mark(i):
+        if ev is not None:
+            ev[i].record()
+
+    opt.zero_grad(set_to_none=True)
+    with torch.no_grad():  # the forward's stages, one by one, as mll._solve_system runs them
+        mark(0)
+        params = model.constrained()
+        ref = x * params["inv_ell"]
+        plan = build_plan_any(ref, dk)
+        mark(1)
+        P = mll.build_precond(dk, cfg, params, ref, n)
+        mark(2)
+        s, noise = params["outputscale"], params["noise"]
+        b = precond_sqrt(P, z)
+        res = cg_solve(lambda V: s * L.apply_plan_join(plan, V, dk.coeffs) + noise * V,
+                       torch.cat([(y - params["mean"])[:, None], b], dim=-1), tol=cfg.cg_tolerance,
+                       max_iters=cfg.max_cg_iterations, precond=lambda V: precond_solve(P, V), tridiag_m=100)
+        mark(3)
+        logdet_from_cg_tridiag(res.alphas[:, 1:], res.betas[:, 1:], res.tmask[:, 1:], (z * z).sum(0))
+        mark(4)
+    loss = model.nlml(x, y, probes=z)
+    mark(5)
+    loss.backward()
+    mark(6)
+    if ev is not None:
+        torch.cuda.synchronize()
+        names = ("plan", "preconditioner", "cg", "slq_eigh", "forward", "backward")
+        stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
+        a0, a1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a0.record()
+        opt.step()
+        a1.record()
+        torch.cuda.synchronize()
+        stages["adam"] = a0.elapsed_time(a1)
+        stages["cg_iters"] = res.iterations
+        warm = timer(lambda: train_step(model, opt, x, y, z), 5)
+        print(f"    warm training step {warm:.2f} ms (CUDA events); stages (ms): "
+              + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+        record.update(step_ms=warm, stages=stages)
+    return k5, record
+
+
+def train_step(model, opt, x, y, z):
+    opt.zero_grad(set_to_none=True)
+    model.nlml(x, y, probes=z).backward()
+    opt.step()
+
+
 def main() -> int:
     import torch
 
@@ -96,8 +331,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    import numpy as np
-
     import simplex_gp_torch
     from simplex_gp_torch import convert
     from simplex_gp_torch.kernels import build, lattice as K
@@ -298,6 +531,12 @@ def main() -> int:
            f"(limit {MEAN_RMS_ATOL}), max {float(np.abs(dmean).max()):.3e}")
     print(f"  variance vs JAX (other omega): median rel diff "
           f"{float(np.median(np.abs(var_np - golden['var']) / golden['var'])):.3e}")
+
+    t_train = time.perf_counter()
+    rows["lattice_filter_grad"], training = training_phase(dev, ds, expect, cuda_ms)
+    launches["lattice_filter_grad"] = training["trainer_launches"]["lattice_filter_grad"]
+    print(f"training phase: {time.perf_counter() - t_train:.1f} s")
+    print("training: " + json.dumps(training))
 
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():

@@ -1,10 +1,12 @@
 """simplex_gp_torch: Simplex-GP in PyTorch, with hand-written Hopper kernels.
 
 The port of the JAX package ``simplex_gp_tpu`` (the reference it is tested
-against) to PyTorch and CUDA on an NVIDIA H100.  This slice is the serving
-path: ``SimplexGP.posterior_cache`` and ``predict_from_cache`` for the rbf
-and Matern lattice kernels.  Its kernels -- lattice geometry (K1), dedup and
-neighbours (K2), apply (K3) and the pivoted-Cholesky column (K6) -- live in
+against) to PyTorch and CUDA on an NVIDIA H100, for the rbf and Matern
+lattice kernels: training (``SimplexGP.nlml`` through ``lattice_nlml``,
+``fit_adam``, ``python -m simplex_gp_torch.train``) and serving
+(``SimplexGP.posterior_cache`` and ``predict_from_cache``).  Its kernels --
+lattice geometry (K1), dedup and neighbours (K2), apply (K3), the filter's
+position gradient (K5) and the pivoted-Cholesky column (K6) -- live in
 ``simplex_gp_torch/csrc`` and build at first use on a CUDA tensor; on CPU
 tensors their plain PyTorch versions run.
 
@@ -19,8 +21,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from .linalg.mll import BBMMConfig  # noqa: E402
-from .models.exact_gp import SimplexGP  # noqa: E402
+from .linalg.mll import BBMMConfig, lattice_nlml  # noqa: E402
+from .models.exact_gp import DenseGP, SimplexGP  # noqa: E402
+from .utils.training import EarlyStopper, fit_adam  # noqa: E402
 
 
 def RBFLattice(num_dims: int, order: int = 2, **kwargs) -> SimplexGP:
@@ -33,4 +36,13 @@ def MaternLattice(num_dims: int, nu: float = 1.5, order: int = 3, **kwargs) -> S
     return SimplexGP(num_dims=num_dims, kernel="matern", nu=nu, order=order, **kwargs)
 
 
-__all__ = ["BBMMConfig", "MaternLattice", "RBFLattice", "SimplexGP"]
+__all__ = [
+    "BBMMConfig",
+    "DenseGP",
+    "EarlyStopper",
+    "MaternLattice",
+    "RBFLattice",
+    "SimplexGP",
+    "fit_adam",
+    "lattice_nlml",
+]

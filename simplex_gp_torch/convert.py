@@ -1,4 +1,4 @@
-"""Carry trained parameters from the JAX package into the port.
+"""Carry trained parameters between the JAX package and the port.
 
 The JAX trainer saves its raw parameter dict (numpy arrays: raw_lengthscale,
 raw_outputscale, raw_noise, mean) with pickle, e.g.
@@ -12,7 +12,7 @@ import pickle
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "raw_params_from_numpy"]
+__all__ = ["load_jax_params", "raw_params_from_numpy", "raw_params_to_numpy"]
 
 # The only globals a saved raw dict of numpy arrays refers to.
 _ALLOWED = {
@@ -44,3 +44,8 @@ def load_jax_params(path) -> dict:
 def raw_params_from_numpy(d: dict, device=None) -> dict:
     """Map a raw dict of numpy arrays to float32 tensors on ``device``."""
     return {k: torch.as_tensor(np.asarray(v, np.float32), device=device) for k, v in d.items()}
+
+
+def raw_params_to_numpy(raw: dict) -> dict:
+    """Map a raw dict of tensors (e.g. ``model.raw()``) to float32 numpy arrays, JAX's raw dict."""
+    return {k: np.asarray(v.detach().cpu(), np.float32) for k, v in raw.items()}

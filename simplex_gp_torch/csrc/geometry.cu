@@ -8,7 +8,9 @@
 // and O(d^2) hash multiply-adds, against 4d bytes read and 12(d+1) written.
 // At d=18 it is compute- and latency-bound, not memory-bound.  Design: one
 // thread per point with the elevated, rank and barycentric arrays in local
-// memory (d+1 <= SGP_MAX_DP1), so no point waits on another.
+// memory (d+1 <= SGP_MAX_DP1), so no point waits on another.  The
+// elevation, rounding and ranks are sgp_simplex_rank (common.cuh), which
+// K5's kernel (grad.cu) calls too.
 //
 // Every float operation is an explicit round-to-nearest intrinsic, in the
 // order of the plain PyTorch twin (no FMA contraction): the elevation
@@ -25,46 +27,14 @@ __global__ void geometry_kernel(const float* __restrict__ x, const float* __rest
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const int dp1 = d + 1;
-  const float fdp1 = (float)dp1;
-  const float* xp = x + (long long)p * d;
-
+  int gdiv[SGP_MAX_DP1], rank[SGP_MAX_DP1];
   float elev[SGP_MAX_DP1];
-  for (int i = 0; i < dp1; ++i) {
-    float acc = __fmul_rn(xp[0], E[i * d]);
-    for (int k = 1; k < d; ++k) acc = __fadd_rn(acc, __fmul_rn(xp[k], E[i * d + k]));
-    elev[i] = acc;
-  }
+  sgp_simplex_rank(x + (long long)p * d, E, d, scale, elev, gdiv, rank);
 
-  // Nearest remainder-0 lattice point (strict < picks "down" on a tie).
-  int gdiv[SGP_MAX_DP1];
-  int csum = 0;
-  for (int i = 0; i < dp1; ++i) {
-    const float v = __fmul_rn(elev[i], scale);
-    const float up = ceilf(v), down = floorf(v);
-    const bool pick_up =
-        __fsub_rn(__fmul_rn(up, fdp1), elev[i]) < __fsub_rn(elev[i], __fmul_rn(down, fdp1));
-    gdiv[i] = (int)(pick_up ? up : down);
-    csum += gdiv[i];
-  }
-
-  // Rank of each differential: how many beat it, ties to the lower index.
-  float diff[SGP_MAX_DP1];
-  for (int i = 0; i < dp1; ++i) diff[i] = __fsub_rn(elev[i], __fmul_rn((float)gdiv[i], fdp1));
-  int rank[SGP_MAX_DP1];
-  for (int i = 0; i < dp1; ++i) {
-    int r = 0;
-    for (int j = 0; j < dp1; ++j) r += (diff[j] > diff[i]) || (diff[j] == diff[i] && j < i);
-    rank[i] = r;
-  }
-
-  // Off-hyperplane repair, then barycentric coordinates by rank.
+  // Barycentric coordinates by rank.
   float t_by_rank[SGP_MAX_DP1];
   for (int i = 0; i < dp1; ++i) t_by_rank[i] = 0.0f;
   for (int i = 0; i < dp1; ++i) {
-    const int r2 = rank[i] + csum;
-    const int hi = r2 > d, lo = r2 < 0;
-    gdiv[i] += lo - hi;
-    rank[i] = r2 - dp1 * hi + dp1 * lo;
     const float t = __fmul_rn(__fsub_rn(elev[i], (float)(gdiv[i] * dp1)), scale);
     if (rank[i] >= 0 && rank[i] <= d) t_by_rank[rank[i]] = t;
   }

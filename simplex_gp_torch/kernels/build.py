@@ -1,9 +1,10 @@
 """Build the Hopper kernels from ``simplex_gp_torch/csrc`` and bind them with ctypes.
 
-The first call compiles every ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, under
-``simplex_gp_torch/build/``, named by a hash of the sources and flags, so an
-edited source builds anew and an unchanged one loads at once.  Each C entry
+The first call compiles every ``csrc/*.cu`` with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and links the objects into one
+shared library with a plain C interface, under ``simplex_gp_torch/build/``,
+named by a hash of the sources and flags, so an edited source builds anew
+and an unchanged one loads at once.  Each C entry
 point takes device pointers and the CUDA stream as ``void*`` and returns
 ``cudaGetLastError()``; :func:`check` raises on anything but 0.
 
@@ -25,10 +26,8 @@ __all__ = ["library", "check", "require", "stream", "build_seconds"]
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
-_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream last).
@@ -40,6 +39,7 @@ _SIGNATURES = {
     "sgp_lattice_blur": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "sgp_lattice_slice": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
     "sgp_pivot_column": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sgp_lattice_filter_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
 }
 
 _lib = None
@@ -71,14 +71,25 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        objs = [so.with_name(f"{so.stem}_{src.stem}.{os.getpid()}.o") for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True,
-        )
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        procs = [subprocess.Popen([_nvcc(), *_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = []
+        for src, proc in zip(sources, procs):
+            out, _ = proc.communicate()
+            logs.append((src.name, out, proc.returncode))
+        if all(rc == 0 for *_, rc in logs):
+            link = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append(("link", link.stdout + link.stderr, link.returncode))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        text = "".join(f"== {name} (rc {rc})\n{out}" for name, out, rc in logs)
+        so.with_suffix(".log").write_text(text)
+        if any(rc != 0 for *_, rc in logs):
+            raise RuntimeError(f"nvcc failed:\n{text[-4000:]}")
         os.replace(tmp, so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))

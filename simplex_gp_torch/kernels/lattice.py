@@ -1,11 +1,11 @@
-"""Lattice kernels K1-K3: wrappers over the CUDA kernels, beside their plain versions.
+"""Lattice kernels K1-K3 and K5: wrappers over the CUDA kernels, beside their plain versions.
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches its
-kernel (``csrc/geometry.cu``, ``csrc/dedup.cu``, ``csrc/apply.cu``) for CUDA
-tensors, raising on a failed build or launch; there is no fallback.  Each
-counts its launches in a ``launches`` attribute.  The plain versions are the
-PyTorch twin of the JAX join engine (simplex_gp_tpu/ops/lattice.py) and run
-on either device.
+kernel (``csrc/geometry.cu``, ``csrc/dedup.cu``, ``csrc/apply.cu``,
+``csrc/grad.cu``) for CUDA tensors, raising on a failed build or launch;
+there is no fallback.  Each counts its launches in a ``launches`` attribute.
+The plain versions are the PyTorch twin of the JAX join engine
+(simplex_gp_tpu/ops/lattice.py) and run on either device.
 
 Integer hashes are int32 wrapping mod 2^32, as XLA's are; PyTorch has no
 wrapping int32 product, so the plain versions compute in int64 and mask.
@@ -28,6 +28,8 @@ __all__ = [
     "lattice_dedup_neighbors",
     "apply_plain",
     "lattice_apply",
+    "lattice_filter_grad_plain",
+    "lattice_filter_grad",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -46,19 +48,15 @@ def _elevate(x: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def lattice_simplex(x: torch.Tensor, E: torch.Tensor):
-    """Enclosing-simplex geometry: (keys (n, d+1, d) int32, weights (n, d+1) f32).
+def _simplex_rank(elevated: torch.Tensor, d: int):
+    """(greedy_div (n, d+1) int32, rank (n, d+1) int32) of elevated points.
 
-    Port of simplex_gp_tpu/ops/lattice.py::lattice_simplex (:141), with the
-    canonical simplex table ``can[v][r] = v if r < d+1-v else v-(d+1)``
-    (_canonical_simplex, :132) evaluated in place.
+    The nearest remainder-0 lattice point and the rank of each differential
+    after the off-hyperplane repair (lattice.py:157-182).  Both are piecewise
+    constant in the positions and carry no gradient.
     """
-    n, d = x.shape
     dp1 = d + 1
-    elevated = _elevate(x, E)
-
-    scale = 1.0 / dp1
-    v = elevated * scale
+    v = elevated * (1.0 / dp1)
     up = torch.ceil(v)
     down = torch.floor(v)
     pick_up = (up * dp1 - elevated) < (elevated - down * dp1)
@@ -68,24 +66,37 @@ def lattice_simplex(x: torch.Tensor, E: torch.Tensor):
     diff = elevated - greedy_div.to(elevated.dtype) * dp1
     di = diff[:, :, None]
     dj = diff[:, None, :]
-    idx = torch.arange(dp1, device=x.device)
+    idx = torch.arange(dp1, device=elevated.device)
     beats = (dj > di) | ((dj == di) & (idx[None, :] < idx[:, None]))
     rank = beats.sum(dim=-1, dtype=torch.int32)
 
     r2 = rank + coord_sum[:, None]
     too_hi = (r2 > d).to(torch.int32)
     too_lo = (r2 < 0).to(torch.int32)
-    greedy_div = greedy_div - too_hi + too_lo
-    rank = r2 - dp1 * too_hi + dp1 * too_lo
+    return greedy_div - too_hi + too_lo, r2 - dp1 * too_hi + dp1 * too_lo
+
+
+def lattice_simplex(x: torch.Tensor, E: torch.Tensor):
+    """Enclosing-simplex geometry: (keys (n, d+1, d) int32, weights (n, d+1) f32).
+
+    Port of simplex_gp_tpu/ops/lattice.py::lattice_simplex (:141), with the
+    canonical simplex table ``can[v][r] = v if r < d+1-v else v-(d+1)``
+    (_canonical_simplex, :132) evaluated in place.  Differentiable in ``x``
+    through the barycentric weights, as JAX's autodiff sees it.
+    """
+    n, d = x.shape
+    dp1 = d + 1
+    elevated = _elevate(x, E)
+    greedy_div, rank = _simplex_rank(elevated, d)
     greedy = greedy_div * dp1
 
-    t = (elevated - greedy.to(elevated.dtype)) * scale
+    t = (elevated - greedy.to(elevated.dtype)) * (1.0 / dp1)
     zeros = torch.zeros((n, d + 2), dtype=t.dtype, device=x.device)
     plus = zeros.scatter(1, (d - rank).long(), t)
     minus = zeros.scatter(1, (d + 1 - rank).long(), t)
     bary = plus - minus
-    bary[:, 0] += 1.0 + bary[:, d + 1]
-    weights = bary[:, :dp1]
+    # bary[0] += 1 + bary[d+1], in JAX's order of the two adds (lattice.py:190).
+    weights = torch.cat([bary[:, :1] + (1.0 + bary[:, d + 1 :]), bary[:, 1:dp1]], dim=1)
 
     rem = torch.arange(dp1, device=x.device, dtype=torch.int32)[None, :, None]
     can_sel = torch.where(rank[:, None, :d] < dp1 - rem, rem, rem - dp1)
@@ -198,8 +209,23 @@ def lattice_dedup_neighbors(h1, h2, oh1, oh2):
 lattice_dedup_neighbors.launches = 0
 
 
-def apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm):
-    """Plain K3 (apply_plan_join, :470): splat, d+1 axis blurs, slice."""
+def _blur_axes(dp1: int, transpose: bool):
+    """The order of the d+1 axis blurs: B = B_d...B_0, and B^T = B_0...B_d.
+
+    Each B_j is symmetric (symmetric taps; the neighbour at +t of row a is b
+    exactly when the neighbour at -t of b is a, by hash linearity), so the
+    transpose only reverses the order of the axes.
+    """
+    return range(dp1 - 1, -1, -1) if transpose else range(dp1)
+
+
+def apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm, transpose=False, return_table=False):
+    """Plain K3 (apply_plan_join, :470): splat, d+1 axis blurs, slice.
+
+    ``transpose`` applies ``slice_norm * S^T B^T S``; ``return_table`` also
+    returns the blurred (M, c) table before the slice (B S v, or B^T S v).
+    Differentiable by torch autograd in ``v`` and ``weights``.
+    """
     n, dp1 = seg_ids.shape
     M = neighbors.shape[1]
     order = neighbors.shape[2] // 2
@@ -208,24 +234,28 @@ def apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm):
     contrib = (v[:, None, :] * weights[:, :, None]).reshape(n * dp1, c)
     table = torch.zeros((M, c), dtype=torch.float32, device=v.device).index_add_(0, seg, contrib)
     tap_list = [t for t in range(-order, order + 1) if t != 0]
-    for j in range(dp1):
+    for j in _blur_axes(dp1, transpose):
         padded = torch.cat([table, torch.zeros((1, c), dtype=table.dtype, device=v.device)])
         acc = taps[order] * table
         for ti, t in enumerate(tap_list):
             acc = acc + taps[t + order] * padded[neighbors[j, :, ti].long()]
         table = acc
     gathered = table[seg_ids.long()]  # (n, d+1, c)
-    return (gathered * weights[:, :, None]).sum(dim=1) * slice_norm
+    out = (gathered * weights[:, :, None]).sum(dim=1) * slice_norm
+    return (out, table) if return_table else out
 
 
-def lattice_apply(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm):
+def lattice_apply(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, transpose=False,
+                  return_table=False):
     """K3: ``slice_norm * S^T B S v`` for v (n, c) over a built plan.
 
     ``taps`` is the sequence of 2r+1 filter taps; ``n_lattice`` the live row
-    count (a 0-d int32 tensor, read on the device).
+    count (a 0-d int32 tensor, read on the device).  ``transpose`` runs the
+    axis blurs in reverse order (S^T B^T S); ``return_table`` also returns
+    the blurred (M, c) table, whose rows past n_lattice are undefined.
     """
     if not v.is_cuda:
-        return apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm)
+        return apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm, transpose, return_table)
     build.require("lattice_apply", (seg_ids, torch.int32), (weights, torch.float32),
                   (neighbors, torch.int32), (n_lattice, torch.int32), (v, torch.float32))
     n, dp1 = seg_ids.shape
@@ -244,7 +274,7 @@ def lattice_apply(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm):
     st = build.stream()
     build.check(lib.sgp_lattice_splat(seg_ids.data_ptr(), weights.data_ptr(), v.data_ptr(), n,
                                       dp1, c, a.data_ptr(), st), "lattice_apply (splat)")
-    for j in range(dp1):
+    for j in _blur_axes(dp1, transpose):
         rc = lib.sgp_lattice_blur(a.data_ptr(), b.data_ptr(), neighbors[j].data_ptr(),
                                   ctypes.addressof(taps_host), M, c, order,
                                   n_lattice.data_ptr(), st)
@@ -254,7 +284,58 @@ def lattice_apply(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm):
                                       dp1, c, float(slice_norm), out.data_ptr(), st),
                 "lattice_apply (slice)")
     lattice_apply.launches += 1
-    return out
+    return (out, a) if return_table else out
 
 
 lattice_apply.launches = 0
+
+
+def lattice_filter_grad_plain(ref, E, seg_ids, v, g, table_f, table_b, slice_norm):
+    """Plain K5: the gradient of <g, slice_norm S^T B S v> in the positions ref (n, d).
+
+    ``table_f`` = B S v is the forward's blurred table and ``table_b`` =
+    B^T S g the transposed apply's.  The weight gradient is
+    gw[i,k] = slice_norm (g_i . table_f[seg_ik] + v_i . table_b[seg_ik]); it
+    is chained back through the barycentric weights -- w[k] = t_(d-k) -
+    t_(d+1-k) for k >= 1, w[0] = 1 + t_d - t_0, with t_r the scaled
+    differential of rank r -- and the elevation x @ E^T.  Ranks, rounding
+    and keys carry no gradient, as in JAX's autodiff.
+    """
+    n, d = ref.shape
+    dp1 = d + 1
+    seg = seg_ids.long()
+    gw = slice_norm * ((g[:, None, :] * table_f[seg]).sum(-1) + (v[:, None, :] * table_b[seg]).sum(-1))
+    _, rank = _simplex_rank(_elevate(ref, E), d)
+    r = torch.arange(dp1, device=ref.device)
+    grad_t_by_rank = gw[:, d - r] - gw[:, (d + 1 - r) % dp1]  # (n, d+1), by rank
+    grad_elev = grad_t_by_rank.gather(1, rank.long()) * (1.0 / dp1)
+    return grad_elev @ E
+
+
+def lattice_filter_grad(ref, E, seg_ids, v, g, table_f, table_b, slice_norm):
+    """K5: the filter's position gradient (see :func:`lattice_filter_grad_plain`), (n, d)."""
+    if not ref.is_cuda:
+        return lattice_filter_grad_plain(ref, E, seg_ids, v, g, table_f, table_b, slice_norm)
+    build.require("lattice_filter_grad", (ref, torch.float32), (E, torch.float32),
+                  (seg_ids, torch.int32), (v, torch.float32), (g, torch.float32),
+                  (table_f, torch.float32), (table_b, torch.float32))
+    n, d = ref.shape
+    c = v.shape[-1]
+    if d + 1 > 64:
+        raise ValueError(f"lattice_filter_grad: d={d} exceeds the kernel's limit of 63")
+    if (seg_ids.shape != (n, d + 1) or g.shape != v.shape or v.shape[0] != n
+            or table_f.shape != table_b.shape or table_f.shape[1] != c):
+        raise ValueError(f"lattice_filter_grad: shapes do not fit: ref {tuple(ref.shape)}, seg "
+                         f"{tuple(seg_ids.shape)}, v {tuple(v.shape)}, g {tuple(g.shape)}, tables "
+                         f"{tuple(table_f.shape)} / {tuple(table_b.shape)}")
+    lib = build.library()
+    grad_ref = torch.empty((n, d), dtype=torch.float32, device=ref.device)
+    rc = lib.sgp_lattice_filter_grad(ref.data_ptr(), E.data_ptr(), seg_ids.data_ptr(), v.data_ptr(),
+                                     g.data_ptr(), table_f.data_ptr(), table_b.data_ptr(), n, d, c,
+                                     float(slice_norm), grad_ref.data_ptr(), build.stream())
+    build.check(rc, "lattice_filter_grad")
+    lattice_filter_grad.launches += 1
+    return grad_ref
+
+
+lattice_filter_grad.launches = 0

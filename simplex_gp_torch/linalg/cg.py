@@ -5,8 +5,10 @@ every stopping rule of the JAX solver: the iteration floor, the "mean" and
 "column" stop modes, the stall guard, the breakdown freeze on pap <= 0 or
 rz < 0, the best-residual iterate, and no convergence at iteration 0.  The
 loop is a Python ``while`` over torch ops; its condition reads one boolean
-back from the device per iteration.  The Lanczos-tridiagonal record
-(``tridiag_m``) belongs to the training path and is not ported yet.
+back from the device per iteration.  With ``tridiag_m`` it also records
+the CG step and conjugacy coefficients of every column (the Lanczos
+tridiagonal the SLQ log-det of the training path reads), with JAX's
+liveness mask.
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ class CGResult(NamedTuple):
     x: torch.Tensor  # (n, t) best-residual iterate per column
     iterations: int  # iterations actually run
     residual_norm: torch.Tensor  # (t,) best relative residual norms
+    # Tridiagonal record (when tridiag_m > 0), as in the JAX CGResult:
+    # tmask[k, j] marks step k of column j as a live Lanczos step; dead
+    # steps keep (alpha 1, beta 0), a decoupled identity pad of T.
+    alphas: Optional[torch.Tensor] = None  # (m, t) step sizes rz/pAp
+    betas: Optional[torch.Tensor] = None  # (m, t) conjugacy coefficients rz'/rz
+    tmask: Optional[torch.Tensor] = None  # (m, t) bool live-step mask
 
 
 def cg_solve(
@@ -33,6 +41,7 @@ def cg_solve(
     min_iters: int = 10,
     stop_mode: str = "mean",
     stall_window: int = 50,
+    tridiag_m: int = 0,
 ) -> CGResult:
     """Solve ``A x = b`` for an SPD implicit operator, all columns at once.
 
@@ -43,7 +52,9 @@ def cg_solve(
     alone only once res < 1e-10) or "column" (each column at its own
     tolerance), and ``stall_window`` the number of iterations past the floor
     without a 1% gain in the mean best residual after which the solve stops
-    (0 disables).
+    (0 disables).  ``tridiag_m`` > 0 records the first ``tridiag_m``
+    coefficients per column (cg.py:191-205): T[k,k] = 1/alpha_k +
+    beta_{k-1}/alpha_{k-1}, T[k,k+1] = sqrt(beta_k)/alpha_k.
     """
     if stop_mode not in ("mean", "column"):
         raise ValueError(f"unknown stop_mode {stop_mode!r}")
@@ -71,7 +82,14 @@ def cg_solve(
     res_best = torch.sqrt(dot(r, r)) / b_norm
     best_mean = torch.tensor(float("inf"), device=b.device)
     since = torch.zeros((), dtype=torch.int32, device=b.device)
+    if tridiag_m:
+        t = b.shape[1]
+        A = torch.ones((tridiag_m, t), dtype=torch.float32, device=b.device)
+        B = torch.zeros((tridiag_m, t), dtype=torch.float32, device=b.device)
+        TM = torch.zeros((tridiag_m, t), dtype=torch.bool, device=b.device)
+        t_alive = torch.ones(t, dtype=torch.bool, device=b.device)
     while it < max_iters and not bool(done.all()):
+        done_before = done
         ap = matmul(p)
         pap = dot(p, ap)
         # Column breakdown (pap <= 0, or rz < 0 below) freezes the column at
@@ -102,6 +120,18 @@ def cg_solve(
             done = done | stop_all | stalled | (res < 1e-10) | broken
         else:
             done = done | ((res < tol) & (it + 1 >= floor)) | stalled | broken
+        if tridiag_m:
+            # A step is a valid Lanczos step only while the column has never
+            # converged or broken down; once either happens the record of
+            # that column stops for good (cg.py:192-204).
+            ok = t_alive & ~done_before & (pap > 0) & (rz > 0)
+            if it < tridiag_m:
+                A[it] = torch.where(ok, alpha, A[it])
+                B[it] = torch.where(ok, beta, B[it])
+                TM[it] = TM[it] | ok
+            t_alive = ok
         rz = rz_new
         it += 1
+    if tridiag_m:
+        return CGResult(x=x_best, iterations=it, residual_norm=res_best, alphas=A, betas=B, tmask=TM)
     return CGResult(x=x_best, iterations=it, residual_norm=res_best)

@@ -1,26 +1,65 @@
-"""Solver configuration and the preconditioner builder of the BBMM engine.
+"""Marginal-likelihood engine: inv_quad + logdet with stochastic gradients.
 
-Port of simplex_gp_tpu/linalg/mll.py::BBMMConfig and build_precond
-(:52-156).  The marginal-likelihood engine itself (lattice_nlml and its
-closed-form backward) belongs to the training path and is not ported yet.
+Port of simplex_gp_tpu/linalg/mll.py for one device.  For
+K_hat = s K + noise I:
+
+  forward:  inv_quad = y^T K_hat^{-1} y   by preconditioned batched CG
+            logdet   = log|K_hat|         by stochastic Lanczos quadrature
+  backward: d(inv_quad) = -alpha^T dK_hat alpha          (alpha = K_hat^{-1} y)
+            d(logdet)  ~= (1/p) sum_i (K_hat^{-1} b_i)^T dK_hat (P^{-1} b_i)
+
+Both backward terms are u^T dK_hat v forms with U = [-a alpha | (b/p) Z] and
+V = [alpha | P^{-1} b]; :class:`LatticeInvQuadLogdet` evaluates them in
+closed form (_iql_bwd, :243-272) from one forward apply of V that keeps its
+table, one transposed apply of s U, and K5 -- on the plan the forward built,
+with no nested autograd.  The forward runs with no graph, as JAX's custom
+VJP does, so no gradient flows through the preconditioner or the CG.
+
+Dropped from the JAX module: the ``axis_name`` (sharded) branches (ROADMAP
+item 1.12) and ``plan_capacity`` (item 1.9).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
-from .pivoted_cholesky import Preconditioner, make_preconditioner, pivoted_cholesky_features
+from ..ops.filter import apply_plan_any, build_plan_any, filter_backward, lattice_filter_any
+from ..ops.lattice import LatticePlan
+from .cg import cg_solve
+from .lanczos import logdet_from_cg_tridiag, slq_logdet
+from .pivoted_cholesky import (
+    Preconditioner,
+    make_preconditioner,
+    pivoted_cholesky_features,
+    precond_inv_sqrt,
+    precond_solve,
+    precond_sqrt,
+)
 
-__all__ = ["BBMMConfig", "build_precond"]
+__all__ = [
+    "BBMMConfig",
+    "build_precond",
+    "LatticeInvQuadLogdet",
+    "lattice_inv_quad_logdet",
+    "lattice_nlml",
+]
 
 
 @dataclasses.dataclass(frozen=True)
 class BBMMConfig:
     """Solver budget, mirroring the reference's gpytorch settings
-    (train_simplexgp.py:34-37)."""
+    (train_simplexgp.py:34-37).
+
+    ``slq_mode`` "cg" recovers the SLQ tridiagonals from the preconditioned
+    CG that gives the solves (GPyTorch's single pass); "lanczos" runs the
+    explicit reorthogonalized Lanczos.  ``grad_mode`` "exact" differentiates
+    the operator actually applied (K5); the reference-parity
+    "deriv_filter" needs K7, which is not ported.
+    """
 
     cg_tolerance: float = 1.0
     max_cg_iterations: int = 500
@@ -28,6 +67,17 @@ class BBMMConfig:
     # Pivoted-Cholesky preconditioner rank; 0 disables.  Clamped to n - 1.
     precond_rank: int = 100
     num_probes: int = 10
+    grad_mode: str = "exact"
+    slq_mode: str = "cg"
+
+    def __post_init__(self):
+        if self.slq_mode not in ("cg", "lanczos"):
+            raise ValueError(f"unknown slq_mode {self.slq_mode!r} (cg or lanczos)")
+        if self.grad_mode == "deriv_filter":
+            raise NotImplementedError("grad_mode='deriv_filter' needs the derivative-tap filter K7, "
+                                      "still to port (ROADMAP section 2, K7)")
+        if self.grad_mode != "exact":
+            raise ValueError(f"unknown grad_mode {self.grad_mode!r}")
 
 
 def build_precond(dk, config: BBMMConfig, params: dict, ref: torch.Tensor, n_global: int) -> Optional[Preconditioner]:
@@ -42,3 +92,122 @@ def build_precond(dk, config: BBMMConfig, params: dict, ref: torch.Tensor, n_glo
     diag = s * torch.ones(ref.shape[0], dtype=torch.float32, device=ref.device)
     pc = pivoted_cholesky_features(ref, diag, dk.nu, s, rank)
     return make_preconditioner(pc.L, noise, n_global)
+
+
+def _khat_matmul_diff(params: dict, x: torch.Tensor, dk, V: torch.Tensor) -> torch.Tensor:
+    """Differentiable K_hat(params) @ V (exact gradients through the filter), mll.py:92."""
+    ky = lattice_filter_any(V, x * params["inv_ell"], dk)
+    return params["outputscale"] * ky + params["noise"] * V
+
+
+class _System(NamedTuple):
+    solves: torch.Tensor  # (n, 1+p): alpha and the probe solves
+    logdet: torch.Tensor  # () log|K_hat| estimate
+    probes_right: torch.Tensor  # (n, p) right vectors of the trace backward
+    plan: LatticePlan  # the plan every apply of this loss evaluation uses
+    iterations: int  # CG iterations
+    residual: torch.Tensor  # (1+p,) best relative residuals
+
+
+def _solve_system(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torch.Tensor,
+                  probes: torch.Tensor) -> _System:
+    """Plan, preconditioner, CG solves and the log-det estimate (mll.py:159-240)."""
+    ref = x * params["inv_ell"]
+    plan = build_plan_any(ref, dk)
+    s, noise = params["outputscale"], params["noise"]
+
+    def mv(V):
+        return s * apply_plan_any(plan, V, dk) + noise * V
+
+    n = x.shape[0]
+    P = build_precond(dk, config, params, ref, n)
+    precond = None if P is None else (lambda V: precond_solve(P, V))
+    m = min(config.max_lanczos_iterations, n)
+    if config.slq_mode == "cg":
+        # One preconditioned CG over [y | P^{1/2} z] gives every solve and the
+        # SLQ tridiagonals; log|K_hat| = log|P| + quadrature.
+        b_probes = probes if P is None else precond_sqrt(P, probes)
+        res = cg_solve(mv, torch.cat([y[:, None], b_probes], dim=-1), tol=config.cg_tolerance,
+                       max_iters=config.max_cg_iterations, precond=precond,
+                       tridiag_m=min(m, config.max_cg_iterations))
+        logdet = logdet_from_cg_tridiag(res.alphas[:, 1:], res.betas[:, 1:], res.tmask[:, 1:],
+                                        (probes * probes).sum(dim=0))
+        if P is not None:
+            logdet = logdet + P.logdet
+        # E[(P^{-1} b) b^T] = I makes (K_hat^{-1} b)^T dK_hat (P^{-1} b) unbiased.
+        probes_right = probes if P is None else precond_solve(P, b_probes)
+        return _System(res.x, logdet, probes_right, plan, res.iterations, res.residual_norm)
+
+    res = cg_solve(mv, torch.cat([y[:, None], probes], dim=-1), tol=config.cg_tolerance,
+                   max_iters=config.max_cg_iterations, precond=precond)
+    if P is None:
+        logdet = slq_logdet(mv, probes, m)
+    else:
+        # Preconditioned SLQ: log|K_hat| = log|P| + log|P^{-1/2} K_hat P^{-1/2}|.
+        def mv_pre(V):
+            return precond_inv_sqrt(P, mv(precond_inv_sqrt(P, V)))
+
+        logdet = P.logdet + slq_logdet(mv_pre, probes, m)
+    return _System(res.x, logdet, probes, plan, res.iterations, res.residual_norm)
+
+
+class LatticeInvQuadLogdet(torch.autograd.Function):
+    """(y^T K_hat^{-1} y, log|K_hat|) with the closed-form backward of _iql_bwd.
+
+    Differentiable in inv_ell (d,), outputscale (), noise () and the
+    centered targets y (n,); x (n, d) and the Rademacher probes (n, p) get
+    no gradient.  ``stats``, when a dict, receives the CG iteration count
+    and mean final residual of the forward.
+    """
+
+    @staticmethod
+    def forward(ctx, inv_ell, outputscale, noise, y, x, probes, dk, config: BBMMConfig,
+                stats: Optional[dict] = None):
+        params = {"inv_ell": inv_ell, "outputscale": outputscale, "noise": noise}
+        sys_ = _solve_system(dk, config, params, x, y, probes)
+        alpha = sys_.solves[:, 0]
+        if stats is not None:
+            stats["cg_iters"] = sys_.iterations
+            stats["cg_res"] = float(sys_.residual.mean())
+        ctx.dk = dk
+        ctx.save_for_backward(inv_ell, outputscale, x, alpha, sys_.solves[:, 1:], sys_.probes_right,
+                              *sys_.plan)
+        return (y * alpha).sum(), sys_.logdet
+
+    @staticmethod
+    def backward(ctx, a, b):
+        inv_ell, s, x, alpha, z_solves, probes_right, *plan = ctx.saved_tensors
+        plan = LatticePlan(*plan)
+        p = probes_right.shape[-1]
+        U = torch.cat([(-a) * alpha[:, None], (b / p) * z_solves], dim=-1)
+        V = torch.cat([alpha[:, None], probes_right], dim=-1).contiguous()
+        ref = x * inv_ell
+        KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True)
+        # d/dref of s * K(ref) V against U: K5 with the cotangent s U.
+        _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f)
+        grad_inv_ell = (x * grad_ref).sum(dim=0)
+        grad_s = (U * KV).sum()
+        grad_noise = (U * V).sum()
+        grad_y = 2.0 * a * alpha
+        return grad_inv_ell, grad_s, grad_noise, grad_y, None, None, None, None, None
+
+
+def lattice_inv_quad_logdet(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torch.Tensor,
+                            probes: torch.Tensor, stats: Optional[dict] = None):
+    """(y^T K_hat^{-1} y, log|K_hat|) for centered y; differentiable in params and y."""
+    return LatticeInvQuadLogdet.apply(params["inv_ell"], params["outputscale"], params["noise"], y,
+                                      x, probes, dk, config, stats)
+
+
+def lattice_nlml(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torch.Tensor,
+                 probes: torch.Tensor, mean: Optional[torch.Tensor] = None,
+                 stats: Optional[dict] = None) -> torch.Tensor:
+    """Negative log marginal likelihood per datapoint (mll.py:278-292).
+
+    The mean is subtracted outside the Function, so autograd carries
+    d/d mean through the centered targets.
+    """
+    n = y.shape[0]
+    mu = params.get("mean", 0.0) if mean is None else mean
+    inv_quad, logdet = lattice_inv_quad_logdet(dk, config, params, x, y - mu, probes, stats)
+    return 0.5 * (inv_quad + logdet + n * math.log(2.0 * math.pi)) / n

@@ -1,21 +1,24 @@
-"""Simplex-GP serving: the posterior cache and prediction.
+"""Exact-GP models: lattice-accelerated (Simplex-GP) and the dense baseline.
 
-Port of the serving half of simplex_gp_tpu/models/exact_gp.py::SimplexGP
-for the rbf and Matern lattice kernels:
+Port of simplex_gp_tpu/models/exact_gp.py for the rbf and Matern lattice
+kernels:
 
     ConstantMean + ScaleKernel(RBFLattice/MaternLattice, ard_num_dims=d)
     + GaussianLikelihood(GreaterThan(min_noise))
 
+``SimplexGP.nlml`` is the training loss, through the BBMM engine
+(linalg/mll.py::lattice_nlml) and differentiable in every raw parameter.
 ``posterior_cache`` builds one lattice plan over the training positions,
 a rank-k pivoted-Cholesky preconditioner, solves alpha = K_hat^{-1} (y - mu)
 by preconditioned CG at the eval tolerance, and forms the LOVE root from a
 randomized range sketch.  ``predict_from_cache`` runs one rectangular filter
-of 1+m columns over [train; test].  Training (the NLML and its gradients)
-is not ported yet.
+of 1+m columns over [train; test].  ``DenseGP`` is the same model with dense
+Cholesky algebra, the dense side of the Snelson parity test.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -23,24 +26,58 @@ import torch
 from torch import nn
 
 from ..linalg.cg import cg_solve
-from ..linalg.mll import BBMMConfig, build_precond
+from ..linalg.mll import BBMMConfig, build_precond, lattice_nlml
 from ..linalg.pivoted_cholesky import precond_solve
 from ..ops.filter import apply_plan_any, build_plan_any, lattice_filter_rect
 from ..ops.kernels import DiscretizedKernel, matern_kernel, rbf_kernel
 from .components import constrain, init_raw_params
 
-__all__ = ["SimplexGP"]
+__all__ = ["SimplexGP", "DenseGP", "rademacher"]
 
 _RAW_NAMES = ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")
 
 
-class SimplexGP(nn.Module):
+def rademacher(shape, generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """float32 +-1 draws from ``generator`` (the NLML's Hutchinson / SLQ probes)."""
+    bits = torch.randint(0, 2, shape, generator=generator, device=device)
+    return (2 * bits - 1).to(torch.float32)
+
+
+class _RawParams(nn.Module):
+    """The raw (unconstrained) parameters, as ``nn.Parameter``s named as the
+    JAX package's raw dict: ``raw_lengthscale`` (d,), ``raw_outputscale``,
+    ``raw_noise`` and ``mean``."""
+
+    def __init__(self, num_dims: int, min_noise: float, device=None):
+        super().__init__()
+        self.num_dims = num_dims
+        self.min_noise = min_noise
+        for name, value in init_raw_params(num_dims, device=device).items():
+            setattr(self, name, nn.Parameter(value))
+
+    def raw(self) -> dict:
+        return {name: getattr(self, name) for name in _RAW_NAMES}
+
+    @torch.no_grad()
+    def load_raw(self, raw: dict):
+        """Copy a raw parameter dict (tensors or numpy arrays) into the module."""
+        for name in _RAW_NAMES:
+            p = getattr(self, name)
+            value = raw[name]
+            if not isinstance(value, torch.Tensor):
+                value = torch.from_numpy(np.array(value, dtype=np.float32))
+            p.copy_(value.reshape(p.shape))
+        return self
+
+    def constrained(self) -> dict:
+        return constrain(self.raw(), self.min_noise)
+
+
+class SimplexGP(_RawParams):
     """Lattice-accelerated exact GP regression model.
 
-    The raw (unconstrained) parameters are ``nn.Parameter``s named as the
-    JAX package's raw dict: ``raw_lengthscale`` (d,), ``raw_outputscale``,
-    ``raw_noise`` and ``mean``.  Every method runs on the device of the
-    module's parameters and of its inputs.
+    Every method runs on the device of the module's parameters and of its
+    inputs.
     """
 
     def __init__(
@@ -54,18 +91,14 @@ class SimplexGP(nn.Module):
         eval_cg_tolerance: float = 1e-2,
         device=None,
     ):
-        super().__init__()
         if kernel not in ("rbf", "matern"):
             raise ValueError(f"unknown kernel {kernel!r} (the port has rbf and matern)")
-        self.num_dims = num_dims
+        super().__init__(num_dims, min_noise, device)
         self.kernel = kernel
         self.nu = nu
         self.order = order
-        self.min_noise = min_noise
         self.bbmm = bbmm
         self.eval_cg_tolerance = eval_cg_tolerance
-        for name, value in init_raw_params(num_dims, device=device).items():
-            setattr(self, name, nn.Parameter(value))
 
     @property
     def dk(self) -> DiscretizedKernel:
@@ -73,22 +106,26 @@ class SimplexGP(nn.Module):
             return rbf_kernel(self.order)
         return matern_kernel(self.nu, self.order)
 
-    def raw(self) -> dict:
-        return {name: getattr(self, name) for name in _RAW_NAMES}
+    def nlml(
+        self,
+        x: torch.Tensor,
+        y: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        probes: Optional[torch.Tensor] = None,
+        stats: Optional[dict] = None,
+    ) -> torch.Tensor:
+        """Negative log marginal likelihood / n, the training loss (exact_gp.py:129-150).
 
-    @torch.no_grad()
-    def load_raw(self, raw: dict) -> "SimplexGP":
-        """Copy a raw parameter dict (tensors or numpy arrays) into the module."""
-        for name in _RAW_NAMES:
-            p = getattr(self, name)
-            value = raw[name]
-            if not isinstance(value, torch.Tensor):
-                value = torch.from_numpy(np.array(value, dtype=np.float32))
-            p.copy_(value.reshape(p.shape))
-        return self
-
-    def constrained(self) -> dict:
-        return constrain(self.raw(), self.min_noise)
+        The (n, num_probes) Rademacher probes are ``probes`` when given, else
+        drawn from ``generator`` on x's device.  Differentiable in every raw
+        parameter; ``stats`` (a dict) receives the CG iterations and residual.
+        """
+        shape = (x.shape[0], self.bbmm.num_probes)
+        if probes is None:
+            probes = rademacher(shape, generator, x.device)
+        elif tuple(probes.shape) != shape:
+            raise ValueError(f"probes have shape {tuple(probes.shape)}, expected {shape}")
+        return lattice_nlml(self.dk, self.bbmm, self.constrained(), x, y, probes, stats=stats)
 
     def _khat_mv(self, params: dict, plan):
         s, noise = params["outputscale"], params["noise"]
@@ -167,3 +204,62 @@ class SimplexGP(nn.Module):
     def predict(self, x, y, x_test, generator: Optional[torch.Generator] = None):
         """Posterior mean and variance at x_test: build the cache, predict once."""
         return self.predict_from_cache(self.posterior_cache(x, y, generator), x, x_test)
+
+
+class DenseGP(_RawParams):
+    """Dense exact GP (Cholesky), the KeOps-exact-baseline analog (exact_gp.py:392).
+
+    Same parameterization as :class:`SimplexGP`; O(n^2) memory, O(n^3) time.
+    """
+
+    def __init__(self, num_dims: int, kernel: str = "rbf", nu: float = 1.5, min_noise: float = 1e-4,
+                 device=None):
+        super().__init__(num_dims, min_noise, device)
+        self.kernel = kernel
+        self.nu = nu
+
+    def _kmat(self, params: dict, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        r1 = x1 * params["inv_ell"]
+        r2 = x2 * params["inv_ell"]
+        # Matmul-form squared distances, as exact_gp.py:413-416.
+        d2 = (r1 * r1).sum(-1)[:, None] + (r2 * r2).sum(-1)[None, :] - 2.0 * (r1 @ r2.T)
+        d2 = torch.clamp(d2, min=0.0)
+        if self.kernel == "rbf":
+            k = torch.exp(-d2)
+        elif self.kernel == "matern" and self.nu == 1.5:
+            d = torch.sqrt(d2 + 1e-12)
+            k = (1 + math.sqrt(3.0) * d) * torch.exp(-math.sqrt(3.0) * d)
+        elif self.kernel == "matern" and self.nu == 2.5:
+            d = torch.sqrt(d2 + 1e-12)
+            k = (1 + math.sqrt(5.0) * d + (5.0 / 3.0) * d2) * torch.exp(-math.sqrt(5.0) * d)
+        else:
+            raise ValueError(f"unsupported kernel {self.kernel}/{self.nu}")
+        return params["outputscale"] * k
+
+    def _factor(self, x: torch.Tensor, y: torch.Tensor):
+        params = self.constrained()
+        n = x.shape[0]
+        K = self._kmat(params, x, x) + params["noise"] * torch.eye(n, dtype=x.dtype, device=x.device)
+        L = torch.linalg.cholesky(K)
+        yc = y - params["mean"]
+        a = torch.cholesky_solve(yc[:, None], L)[:, 0]
+        return params, L, yc, a
+
+    def nlml(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Exact NLML / n by Cholesky."""
+        _, L, yc, a = self._factor(x, y)
+        n = x.shape[0]
+        logdet = 2 * torch.log(torch.diagonal(L)).sum()
+        return 0.5 * ((yc * a).sum() + logdet + n * math.log(2 * math.pi)) / n
+
+    @torch.no_grad()
+    def predict(self, x: torch.Tensor, y: torch.Tensor, x_test: torch.Tensor, block: int = 2048):
+        """Posterior mean and variance (with observation noise), blocked over test rows."""
+        params, L, _, a = self._factor(x, y)
+        means, variances = [], []
+        for i in range(0, x_test.shape[0], block):
+            Kst = self._kmat(params, x_test[i : i + block], x)
+            means.append(Kst @ a + params["mean"])
+            v = torch.linalg.solve_triangular(L, Kst.T, upper=False)
+            variances.append(params["outputscale"] + params["noise"] - (v * v).sum(dim=0))
+        return torch.cat(means), torch.clamp(torch.cat(variances), min=1e-8)

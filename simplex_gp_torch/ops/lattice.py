@@ -150,14 +150,22 @@ def build_plan_join(x: torch.Tensor, coeffs: tuple, blur_variance: float) -> Lat
     return LatticePlan(seg_ids.reshape(n, d + 1), weights, neighbors, n_lattice)
 
 
-def apply_plan_join(plan: LatticePlan, v: torch.Tensor, coeffs: tuple) -> torch.Tensor:
-    """Apply the lattice kernel operator: out ~= K(x, x) @ v, for v (n, c): K3."""
+def apply_plan_join(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, transpose: bool = False,
+                    return_table: bool = False):
+    """Apply the lattice kernel operator: out ~= K(x, x) @ v, for v (n, c): K3.
+
+    ``transpose`` applies K^T (the axis blurs in reverse order), the
+    operator's gradient in v; ``return_table`` returns ``(out, table)`` with
+    the blurred (M, c) table before the slice, which the filter's backward
+    (K5) reads.
+    """
     d = plan.seg_ids.shape[1] - 1
     if len(coeffs) != plan.neighbors.shape[2] + 1:
         raise ValueError(f"{len(coeffs)} taps do not fit a plan of order {plan.neighbors.shape[2] // 2}")
     return lattice_apply(
         plan.seg_ids, plan.weights, plan.neighbors, plan.n_lattice,
         v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(d),
+        transpose, return_table,
     )
 
 

@@ -8,8 +8,10 @@ jax, so they run where the port runs:
 
 Tolerances: K1 runs the plain version's IEEE operations in its order, so
 hashes and weights are equal; K3's splat adds with atomics in a run-to-run
-order (rel 1e-5); K6 sums d2 and L.l_piv in another order than torch's
-reductions (rel 1e-5 for one step).
+order (rel 1e-5), transposed or not; K5 fed the plain version's tables sums
+its dots and the E product in another order (rel 1e-4, with cancellation in
+the weight-gradient differences); K6 sums d2 and L.l_piv in another order
+than torch's reductions (rel 1e-5 for one step).
 """
 
 import pytest
@@ -91,3 +93,41 @@ def test_wrappers_refuse_wrong_inputs(cuda_device):
     piv = torch.zeros(4, dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError):
         pivot_column(ref, L, diag, torch.argmax(diag), 0, s, s, 1.0, piv)
+
+
+@pytest.mark.parametrize("c", [1, 11])
+@pytest.mark.parametrize("n,d,order,kind", GRID)
+def test_transposed_apply_and_filter_grad_match_plain(cuda_device, n, d, order, kind, c):
+    x, _ = seeded(n, d, 1, seed=5)
+    dk = _dk(kind, order)
+    ref = torch.from_numpy(x).to(cuda_device)
+    plan = t_lattice.build_plan_join(ref, dk.coeffs, dk.variance)
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    v = torch.randn((n, c), generator=gen, device=cuda_device)
+    g = torch.randn((n, c), generator=gen, device=cuda_device)
+    seg, w, nb, nl = plan
+    norm = t_lattice.SLICE_NORM(d)
+    E = torch.from_numpy(t_lattice.build_rotation(d, dk.variance)).to(cuda_device)
+    _, tf_k = K.lattice_apply(seg, w, nb, nl, v, dk.coeffs, norm, return_table=True)
+    gs_k, tb_k = K.lattice_apply(seg, w, nb, nl, g, dk.coeffs, norm, transpose=True, return_table=True)
+    _, tf_p = K.apply_plain(seg, w, nb, v, dk.coeffs, norm, return_table=True)
+    gs_p, tb_p = K.apply_plain(seg, w, nb, g, dk.coeffs, norm, transpose=True, return_table=True)
+    rows = seg.long()  # the rows that are read; rows past n_lattice are undefined in the kernel's table
+    for a, b in ((tf_k[rows], tf_p[rows]), (tb_k[rows], tb_p[rows]), (gs_k, gs_p)):
+        assert float((a - b).norm() / b.norm()) < 1e-5
+    before = K.lattice_filter_grad.launches
+    gr_k = K.lattice_filter_grad(ref, E, seg, v, g, tf_k, tb_k, norm)
+    gr_p = K.lattice_filter_grad_plain(ref, E, seg, v, g, tf_k, tb_k, norm)
+    torch.cuda.synchronize()
+    assert K.lattice_filter_grad.launches == before + 1
+    assert float((gr_k - gr_p).norm() / gr_p.norm()) < 1e-4
+
+
+def test_filter_grad_refuses_wrong_inputs(cuda_device):
+    ref = torch.zeros((10, 3), device=cuda_device)
+    E = torch.zeros((4, 3), device=cuda_device)
+    seg = torch.zeros((10, 4), dtype=torch.int64, device=cuda_device)
+    v = torch.zeros((10, 2), device=cuda_device)
+    table = torch.zeros((40, 2), device=cuda_device)
+    with pytest.raises(ValueError):
+        K.lattice_filter_grad(ref, E, seg, v, v, table, table, 1.0)

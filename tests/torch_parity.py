@@ -4,6 +4,12 @@ import numpy as np
 import pytest
 import torch
 
+# The suite runs in several worker processes at once, and torch's default of
+# one intra-op thread per core in each of them oversubscribes the cores: the
+# Snelson parity port, thousands of small ops, ran 50x slower under six
+# workers.  The port's CPU tests are small, so each worker takes one thread.
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda_device():
