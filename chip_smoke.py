@@ -19,10 +19,24 @@ Phases, each printed as it runs:
      lengthscales (c = 11); SimplexGP.nlml and its raw gradients at the
      median init and at model_best.pkl; three Adam steps (fit_adam, lr 0.1);
      the trainer entry point ``simplex_gp_torch.train.main`` for two epochs
-     on the card; one warm training step and its stages by CUDA events.
+     on the card; one warm training step and its stages by CUDA events;
+  5. the reference's filter entry points, against the JAX-on-CPU golden file
+     tests/fixtures/elevators_deriv_golden.npz: K4 lattice_filter_once
+     against its plain version at the median-init training positions (c = 1
+     and 11), with its capacity guard (capacity = occupancy gives the same
+     output, occupancy - 1 all NaN); K8 lattice_count against its plain
+     version at elevators, precipitation and houseelectric, and the guard at
+     houseelectric; K7 lattice_deriv_grad against its plain version (c = 11,
+     418 stacked columns); grad_mode="deriv_filter": NLML and raw gradients
+     at the median init and at model_best.pkl, three Adam steps, one warm
+     step and its stages; ``simplex_gp_torch.mvm_err.main`` for rbf order 1
+     at elevators, precipitation and houseelectric (seeded synthetic
+     stand-ins, full n); at each, K4 against its plain version at the
+     capacity mvm_err used, and the trimmed filter against the untrimmed one.
 
 The line before the last is the card; the one before it a JSON object of
-the kernels (launches on the slice -- for K5, on the trainer run --,
+the kernels (launches on the slice -- for K5, on the trainer run; for K7, on
+the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs --,
 errors, times).  The last line is
 {"ok": true, "device": {...}} only if every phase passed; otherwise the
 script exits 1.  It exits 2 when no CUDA device is present.  It never
@@ -43,6 +57,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PARAMS = ROOT / "runs" / "r5" / "simplexgp_elevators_s0" / "model_best.pkl"
 GOLDEN = ROOT / "tests" / "fixtures" / "elevators_golden.npz"
 TRAIN_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_train_golden.npz"
+DERIV_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_deriv_golden.npz"
 RAW_NAMES = ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")
 
 # Tolerances, each with its reason.
@@ -97,6 +112,19 @@ ADAM_PARAM_ATOL = 2e-3
 # The trainer after two epochs from the median init: finite, and better than
 # the prior mean (RMSE 1 on the standardized targets).
 ENTRY_RMSE_MAX = 1.0
+# Phase 5.  K4 is K3's operator with the same atomic splat: K3_REL, and the
+# occupancy is exact.  K7 fed the plain version's derivative plan: an atomic
+# splat of 418 columns, then a four-term difference with cancellation.
+K7_REL = 1e-4
+# Deriv-mode NLML, gradients and Adam steps: phase 4's bounds (NLML_ATOL,
+# GRAD_COS, GRAD_REL, ADAM_*); the backward adds one K4 and one K7, each
+# ~1e-6 from JAX's.
+# mvm_err at elevators against JAX on the CPU: the one-shot filters differ
+# by the chain-vs-join rel 2e-5, the dense products by f32 summation order.
+MVM_ERR_ATOL = 1e-3
+# The reference's one-shot filter, seconds per MVM on real data, on a GPU the
+# reference does not name (SURVEY.md section 6).
+REFERENCE_ONESHOT_S = {"elevators": 0.083, "precipitation": 0.082, "houseelectric": 1.756}
 
 KERNEL_ROWS = {
     "lattice_geometry": ("simplex_gp_torch/csrc/geometry.cu", "simplex_gp_tpu/ops/lattice.py:141"),
@@ -104,6 +132,9 @@ KERNEL_ROWS = {
     "lattice_apply": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/lattice.py:470"),
     "pivot_column": ("simplex_gp_torch/csrc/pivot.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:106"),
     "lattice_filter_grad": ("simplex_gp_torch/csrc/grad.cu", "simplex_gp_tpu/ops/filter.py:143"),
+    "filter_once": ("simplex_gp_torch/csrc/once.cu", "simplex_gp_tpu/ops/lattice.py:1166"),
+    "count_lattice_points": ("simplex_gp_torch/csrc/once.cu", "simplex_gp_tpu/ops/lattice.py:839"),
+    "lattice_deriv_grad": ("simplex_gp_torch/csrc/deriv.cu", "simplex_gp_tpu/ops/filter.py:261"),
 }
 
 
@@ -316,6 +347,237 @@ def training_phase(dev, ds, expect, timer):
               + json.dumps({k: round(v, 3) for k, v in stages.items()}))
         record.update(step_ms=warm, stages=stages)
     return k5, record
+
+
+def oneshot_phase(dev, ds, expect, timer):
+    """Phase 5: K4, K8, K7, deriv-mode training and mvm_err.  Returns (kernel rows, launches, record)."""
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch import mvm_err
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.ops import kernels as kern
+    from simplex_gp_torch.ops import lattice as L
+    from simplex_gp_torch.ops.filter import lattice_filter
+    from simplex_gp_torch.utils import data
+
+    golden = np.load(DERIV_GOLDEN)
+    x = torch.from_numpy(ds.train_x).to(dev)
+    y = torch.from_numpy(ds.train_y).to(dev)
+    n, d = x.shape
+    cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100,
+                         precond_rank=100, num_probes=10, slq_mode="cg", grad_mode="deriv_filter")
+    model = simplex_gp_torch.SimplexGP(num_dims=d, kernel="matern", nu=1.5, order=1, min_noise=0.1,
+                                       bbmm=cfg, device=dev)
+    dk = model.dk
+    rows, record = {}, {}
+
+    def point(tag):
+        return {k: golden[f"{tag}_{k}"] for k in RAW_NAMES}
+
+    def probes(seed):
+        z = np.random.default_rng(int(seed)).choice([-1.0, 1.0], size=(n, cfg.num_probes))
+        return torch.from_numpy(z.astype(np.float32)).to(dev)
+
+    print("one-shot 5.1: K4 lattice_filter_once vs plain (median-init training positions)")
+    model.load_raw(point("init"))
+    with torch.no_grad():
+        ref = (x * model.constrained()["inv_ell"]).contiguous()
+        E, a, oh1, oh2 = L._lattice_constants(d, dk.coeffs, dk.variance, dev)
+        taps, norm, N = list(dk.coeffs), L.SLICE_NORM(d), n * (d + 1)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        k4_err, k4_ms, k4_plain_ms = 0.0, {}, {}
+        for c in (1, 11):
+            v = torch.randn((n, c), generator=gen, device=dev)
+            kout, knl = K.lattice_filter_once(ref, E, a, oh1, oh2, v, taps, norm, N)
+            pout, pnl = K.filter_once_plain(ref, E, a, oh1, oh2, v, taps, norm, N)
+            occ = int(pnl)
+            expect(int(knl) == occ == int(golden["n_lattice_init"]),
+                   f"c={c}: occupancy kernel {int(knl)} plain {occ} JAX {int(golden['n_lattice_init'])}")
+            r = rel(kout, pout)
+            k4_err = max(k4_err, float((kout - pout).abs().max()))
+            expect(r <= K3_REL, f"c={c}: rel error {r:.3e} (limit {K3_REL})")
+            fit, _ = K.lattice_filter_once(ref, E, a, oh1, oh2, v, taps, norm, occ)
+            r_fit = rel(fit, pout)
+            expect(r_fit <= K3_REL, f"c={c}: capacity = occupancy: rel error {r_fit:.3e} (limit {K3_REL})")
+            under, _ = K.lattice_filter_once(ref, E, a, oh1, oh2, v, taps, norm, occ - 1)
+            expect(bool(torch.isnan(under).all()), f"c={c}: capacity = occupancy - 1 gives all NaN")
+            k4_ms[c] = timer(lambda: K.lattice_filter_once(ref, E, a, oh1, oh2, v, taps, norm, N), 20)
+            k4_plain_ms[c] = timer(lambda: K.filter_once_plain(ref, E, a, oh1, oh2, v, taps, norm, N), 3)
+            print(f"    c={c}: kernel {k4_ms[c]:.4f} ms, plain {k4_plain_ms[c]:.4f} ms")
+    rows["filter_once"] = dict(max_abs_err=k4_err, ms=k4_ms[11], plain_ms=k4_plain_ms[11],
+                               shape=f"n={n}, d={d}, c=11", ms_by_c=k4_ms, plain_ms_by_c=k4_plain_ms)
+
+    print("one-shot 5.2: K8 lattice_count vs plain (all rows of each dataset, rbf order 1)")
+    rbf = kern.rbf_kernel(1)
+    sets = {}
+    for name in ("elevators", "precipitation", "houseelectric"):
+        s = data.load_dataset(name)
+        xa = torch.from_numpy(np.concatenate([s.train_x, s.val_x, s.test_x])).to(dev)
+        ya = torch.from_numpy(np.concatenate([s.train_y, s.val_y, s.test_y])[:, None].copy()).to(dev)
+        sets[name] = (xa, ya)
+    k8_err, k8_ms, k8_plain_ms, occupancy = 0, {}, {}, {}
+    with torch.no_grad():
+        for name, (xa, _) in sets.items():
+            Ea, aa, _, _ = L._lattice_constants(xa.shape[1], rbf.coeffs, rbf.variance, dev)
+            kc, pc = int(K.lattice_count(xa, Ea, aa)), int(K.count_plain(xa, Ea, aa))
+            occupancy[name] = kc
+            k8_err = max(k8_err, abs(kc - pc))
+            expect(kc == pc, f"{name} {tuple(xa.shape)}: count kernel {kc} plain {pc}")
+            k8_ms[name] = timer(lambda: K.lattice_count(xa, Ea, aa), 5)
+            k8_plain_ms[name] = timer(lambda: K.count_plain(xa, Ea, aa), 2)
+            print(f"    {name}: occupancy {kc} of {xa.shape[0] * (xa.shape[1] + 1)}; kernel {k8_ms[name]:.4f} ms, "
+                  f"plain {k8_plain_ms[name]:.4f} ms")
+        xe = sets["elevators"][0]
+        k2 = int(L.build_plan_join(xe, rbf.coeffs, rbf.variance).n_lattice)
+        expect(occupancy["elevators"] == k2 == int(golden["mvm_n_lattice"]),
+               f"elevators: K8 {occupancy['elevators']} vs K2 n_lattice {k2} vs JAX {int(golden['mvm_n_lattice'])}")
+        xh, yh = sets["houseelectric"]
+        t0 = time.perf_counter()
+        guard = L.filter_once(yh, xh, rbf.coeffs, rbf.variance, occupancy["houseelectric"] - 1)
+        torch.cuda.synchronize()
+        guard_s = time.perf_counter() - t0
+        expect(bool(torch.isnan(guard).all()), f"houseelectric: capacity = occupancy - 1 gives all NaN "
+               f"({guard_s:.3f} s, no hang)")
+    rows["count_lattice_points"] = dict(max_abs_err=k8_err, ms=k8_ms["houseelectric"],
+                                        plain_ms=k8_plain_ms["houseelectric"], shape="houseelectric x (2049280, 11)",
+                                        ms_by_dataset=k8_ms, plain_ms_by_dataset=k8_plain_ms)
+    record.update(occupancy=occupancy, houseelectric_guard_s=guard_s)
+
+    print("one-shot 5.3: K7 lattice_deriv_grad vs plain (median init, c = 11, 418 stacked columns)")
+    with torch.no_grad():
+        src = torch.randn((n, 11), generator=gen, device=dev)
+        g = torch.randn((n, 11), generator=gen, device=dev)
+        dplan = L.build_plan_join(ref, dk.deriv_coeffs, dk.deriv_variance)
+        dtaps, scale = list(dk.deriv_coeffs), 2.0 * dk.dk0
+        gk = K.lattice_deriv_grad(*dplan, ref, src, g, dtaps, norm, scale)
+        gp = K.deriv_grad_plain(dplan.seg_ids, dplan.weights, dplan.neighbors, ref, src, g, dtaps, norm, scale)
+        r7 = rel(gk, gp)
+        expect(bool(torch.isfinite(gk).all()) and r7 <= K7_REL, f"K7 vs plain: rel error {r7:.3e} (limit {K7_REL})")
+        rows["lattice_deriv_grad"] = dict(
+            max_abs_err=float((gk - gp).abs().max()),
+            ms=timer(lambda: K.lattice_deriv_grad(*dplan, ref, src, g, dtaps, norm, scale), 10),
+            plain_ms=timer(lambda: K.deriv_grad_plain(dplan.seg_ids, dplan.weights, dplan.neighbors, ref, src, g,
+                                                      dtaps, norm, scale), 2),
+            shape=f"n={n}, d={d}, L=11, C=418, M={N}")
+        deriv_plan_ms = timer(lambda: L.build_plan_join(ref, dk.deriv_coeffs, dk.deriv_variance), 10)
+    st = src.clone().requires_grad_(True)
+    lattice_filter(st, ref, dk).backward(g)
+    with torch.no_grad():
+        r_src = rel(st.grad, L.filter_once(g, ref, dk.coeffs, dk.variance))
+    expect(r_src <= 2 * K3_REL, f"deriv-mode lattice_filter grad_src vs K4 of g: rel {r_src:.3e} "
+           f"(limit {2 * K3_REL}: two atomic splats)")
+    print(f"    K7 {rows['lattice_deriv_grad']['ms']:.4f} ms, plain {rows['lattice_deriv_grad']['plain_ms']:.4f} ms; "
+          f"deriv plan (K1 + K2) {deriv_plan_ms:.4f} ms")
+    record.update(k7_rel=r7, grad_src_rel=r_src, deriv_plan_ms=deriv_plan_ms)
+
+    print("one-shot 5.4: grad_mode=deriv_filter: NLML and raw gradients vs JAX on the CPU, three Adam steps")
+    for tag in ("init", "best"):
+        model.load_raw(point(tag))
+        model.zero_grad(set_to_none=True)
+        stats = {}
+        loss = model.nlml(x, y, probes=probes(golden[f"seed_{tag}"]), stats=stats)
+        loss.backward()
+        dl = abs(float(loss.detach()) - float(golden[f"loss_{tag}"]))
+        expect(dl <= NLML_ATOL, f"{tag}: NLML {float(loss.detach()):.6f} vs JAX {float(golden[f'loss_{tag}']):.6f}"
+               f" (|diff| {dl:.2e}, limit {NLML_ATOL}); CG iterations {stats['cg_iters']}")
+        for k in RAW_NAMES:
+            a_ = getattr(model, k).grad.detach().cpu().numpy().astype(np.float64).ravel()
+            b_ = golden[f"grad_{tag}_{k}"].astype(np.float64).ravel()
+            c_, r_ = cosine(a_, b_), float(np.linalg.norm(a_ - b_) / np.linalg.norm(b_))
+            expect(c_ >= GRAD_COS and r_ <= GRAD_REL,
+                   f"{tag}: d/d{k} cos {c_:.6f} (limit {GRAD_COS}), rel {r_:.2e} (limit {GRAD_REL})")
+            record[f"deriv_{tag}_grad_rel_{k}"] = r_
+        record[f"deriv_{tag}_nlml_diff"] = dl
+    model.load_raw(point("init"))
+    steps = iter([probes(golden["seed_adam"] + e) for e in range(3)])
+    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, K.lattice_filter_once,
+            K.lattice_deriv_grad)
+    for fn in path:
+        fn.launches = 0
+    hist = simplex_gp_torch.fit_adam(lambda _gen: model.nlml(x, y, probes=next(steps)), model.parameters(),
+                                     epochs=3, lr=0.1)
+    deriv_launches = {fn.__name__: fn.launches for fn in path}
+    print(f"    launches on the deriv-mode Adam steps: {deriv_launches}")
+    expect(all(v > 0 for v in deriv_launches.values()), "every kernel of the deriv-mode step launched")
+    dl = float(np.abs(np.array(hist["loss"]) - golden["adam_loss"]).max())
+    expect(dl <= ADAM_LOSS_ATOL, f"Adam losses {hist['loss']} vs JAX {golden['adam_loss'].tolist()} "
+           f"(max |diff| {dl:.2e}, limit {ADAM_LOSS_ATOL})")
+    dp = max(float(np.abs(getattr(model, k).detach().cpu().numpy() - golden[f"adam_{k}"][-1]).max())
+             for k in RAW_NAMES)
+    expect(dp <= ADAM_PARAM_ATOL, f"raw parameters after 3 steps: max |diff| {dp:.2e} (limit {ADAM_PARAM_ATOL})")
+    record.update(deriv_adam_loss_diff=dl, deriv_adam_param_diff=dp, deriv_adam_step_ms=hist["step_ms"],
+                  deriv_launches=deriv_launches)
+
+    model.load_raw(point("init"))
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+    z = probes(golden["seed_init"])
+    train_step(model, opt, x, y, z)  # warm-up
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    model.load_raw(point("init"))
+    ev[0].record()
+    opt.zero_grad(set_to_none=True)
+    loss = model.nlml(x, y, probes=z)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(("forward", "backward", "adam"))}
+    stages.update(k4_c11=k4_ms[11], deriv_plan=deriv_plan_ms, k7=rows["lattice_deriv_grad"]["ms"])
+    warm = timer(lambda: train_step(model, opt, x, y, z), 5)
+    print(f"    warm deriv-mode training step {warm:.2f} ms (CUDA events); stages (ms; the backward runs "
+          f"K4 at c = 11, the deriv plan and K7): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    record.update(deriv_step_ms=warm, deriv_stages=stages)
+
+    print("one-shot 5.5: python -m simplex_gp_torch.mvm_err, rbf order 1, full n")
+    for fn in (K.lattice_filter_once, K.lattice_count):
+        fn.launches = 0
+    mvm = {name: mvm_err.main(["--dataset", name, "--order", "1", "--device", dev.type]) for name in sets}
+    mvm_launches = {fn.__name__: fn.launches for fn in (K.lattice_filter_once, K.lattice_count)}
+    print(f"    launches on the mvm_err runs: {mvm_launches}")
+    expect(all(v > 0 for v in mvm_launches.values()), "K4 and K8 launched on the mvm_err runs")
+    e = mvm["elevators"]
+    for key in ("rel_err", "cos_err"):
+        diff = abs(e[key] - float(golden[f"mvm_{key}"]))
+        expect(diff <= MVM_ERR_ATOL, f"elevators {key} {e[key]:.6f} vs JAX {float(golden[f'mvm_{key}']):.6f} "
+               f"(|diff| {diff:.2e}, limit {MVM_ERR_ATOL})")
+    with torch.no_grad():
+        # K4 against its plain version at the shapes and capacities mvm_err gave it.
+        for name, (xa, ya) in sets.items():
+            da = xa.shape[1]
+            Ea, aa, oh1a, oh2a = L._lattice_constants(da, rbf.coeffs, rbf.variance, dev)
+            cap = mvm_err.trim_capacity(xa, rbf)
+            cap = xa.shape[0] * (da + 1) if cap is None else cap
+            args = (xa, Ea, aa, oh1a, oh2a, ya, list(rbf.coeffs), L.SLICE_NORM(da), cap)
+            kout, knl = K.lattice_filter_once(*args)
+            pout, pnl = K.filter_once_plain(*args)
+            r = rel(kout, pout)
+            expect(int(knl) == int(pnl) and bool(torch.isfinite(kout).all()) and r <= K3_REL,
+                   f"{name}: K4 vs plain at capacity {cap}: occupancy {int(knl)} vs {int(pnl)}, rel {r:.3e} "
+                   f"(limit {K3_REL}), finite")
+            record[f"{name}_k4_rel"] = r
+            del kout, pout
+        for name in ("precipitation", "houseelectric"):
+            xa, ya = sets[name]
+            cap = mvm_err.trim_capacity(xa, rbf)
+            full = L.filter_once(ya, xa, rbf.coeffs, rbf.variance)
+            trimmed = L.filter_once(ya, xa, rbf.coeffs, rbf.variance, cap)
+            r = rel(trimmed, full)
+            expect(cap is not None and bool(torch.isfinite(full).all() and torch.isfinite(trimmed).all())
+                   and r <= K3_REL, f"{name}: capacity {cap} of {xa.shape[0] * (xa.shape[1] + 1)}, trimmed vs "
+                   f"untrimmed rel {r:.3e} (limit {K3_REL}), both finite")
+            record[f"{name}_capacity"] = cap
+    for name, m in mvm.items():
+        print(f"    {name}: n={m['n']} d={m['d']} ts/lattice {m['ts/lattice']:.6f} s (the reference, real data, its "
+              f"unnamed GPU: {REFERENCE_ONESHOT_S[name]} s), rel_err {m['rel_err']:.4f}, cos_err {m['cos_err']:.4f}, "
+              f"ts/exact_subset {m['ts/exact_subset']:.6f} s on {m['exact_subset_n']} rows")
+    record.update(mvm_err=mvm)
+    launches = dict(filter_once=mvm_launches["lattice_filter_once"], count_lattice_points=mvm_launches["lattice_count"],
+                    lattice_deriv_grad=deriv_launches["lattice_deriv_grad"])
+    return rows, launches, record
 
 
 def train_step(model, opt, x, y, z):
@@ -537,6 +799,13 @@ def main() -> int:
     launches["lattice_filter_grad"] = training["trainer_launches"]["lattice_filter_grad"]
     print(f"training phase: {time.perf_counter() - t_train:.1f} s")
     print("training: " + json.dumps(training))
+
+    t_once = time.perf_counter()
+    once_rows, once_launches, oneshot = oneshot_phase(dev, ds, expect, cuda_ms)
+    rows.update(once_rows)
+    launches.update(once_launches)
+    print(f"one-shot phase: {time.perf_counter() - t_once:.1f} s")
+    print("one-shot: " + json.dumps(oneshot))
 
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():

@@ -3,12 +3,16 @@
 The port of the JAX package ``simplex_gp_tpu`` (the reference it is tested
 against) to PyTorch and CUDA on an NVIDIA H100, for the rbf and Matern
 lattice kernels: training (``SimplexGP.nlml`` through ``lattice_nlml``,
-``fit_adam``, ``python -m simplex_gp_torch.train``) and serving
-(``SimplexGP.posterior_cache`` and ``predict_from_cache``).  Its kernels --
-lattice geometry (K1), dedup and neighbours (K2), apply (K3), the filter's
-position gradient (K5) and the pivoted-Cholesky column (K6) -- live in
-``simplex_gp_torch/csrc`` and build at first use on a CUDA tensor; on CPU
-tensors their plain PyTorch versions run.
+``fit_adam``, ``python -m simplex_gp_torch.train``; exact or
+reference-parity ``grad_mode="deriv_filter"`` gradients), serving
+(``SimplexGP.posterior_cache`` and ``predict_from_cache``) and the
+reference's filter entry points (``filter_once``, ``count_lattice_points``,
+``lattice_filter``; ``python -m simplex_gp_torch.mvm_err``).  Its kernels --
+lattice geometry (K1), dedup and neighbours (K2), apply (K3), the one-shot
+filter (K4), the filter's position gradient (K5), the pivoted-Cholesky
+column (K6), the derivative-tap gradient (K7) and the occupancy count (K8)
+-- live in ``simplex_gp_torch/csrc`` and build at first use on a CUDA
+tensor; on CPU tensors their plain PyTorch versions run.
 
 Importing the package sets float32 matrix products to full precision (TF32
 off): the preconditioner's SPD guard was tuned to float32 error.  It never
@@ -23,6 +27,8 @@ torch.set_float32_matmul_precision("highest")
 
 from .linalg.mll import BBMMConfig, lattice_nlml  # noqa: E402
 from .models.exact_gp import DenseGP, SimplexGP  # noqa: E402
+from .ops.filter import lattice_filter  # noqa: E402
+from .ops.lattice import count_lattice_points, filter_once  # noqa: E402
 from .utils.training import EarlyStopper, fit_adam  # noqa: E402
 
 
@@ -43,6 +49,9 @@ __all__ = [
     "MaternLattice",
     "RBFLattice",
     "SimplexGP",
+    "count_lattice_points",
+    "filter_once",
     "fit_adam",
+    "lattice_filter",
     "lattice_nlml",
 ]

@@ -20,12 +20,6 @@
 // version's order, so given the same table they match it bit for bit.
 #include "common.cuh"
 
-// The 2r+1 filter taps, passed by value (no device buffer, no copy).
-#define SGP_MAX_TAPS 15
-struct SgpTaps {
-  float v[SGP_MAX_TAPS];
-};
-
 __global__ void splat_kernel(const int* __restrict__ seg, const float* __restrict__ w,
                              const float* __restrict__ v, int n, int dp1, int c,
                              float* __restrict__ table) {

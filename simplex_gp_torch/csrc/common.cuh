@@ -12,9 +12,24 @@ static inline unsigned int sgp_blocks(long long work) {
   return (unsigned int)((work + SGP_THREADS - 1) / SGP_THREADS);
 }
 
+// The 2r+1 filter taps, passed to a kernel by value (no device buffer, no
+// copy); order r <= 7.
+#define SGP_MAX_TAPS 15
+struct SgpTaps {
+  float v[SGP_MAX_TAPS];
+};
+
 // Key of a lattice point: its hash pair (h1, h2) packed into 64 bits.
 __device__ __forceinline__ unsigned long long sgp_pack(unsigned int h1, unsigned int h2) {
   return ((unsigned long long)h1 << 32) | (unsigned long long)h2;
+}
+
+__device__ __forceinline__ unsigned long long sgp_mix(unsigned long long z) {
+  // splitmix64 finalizer: spreads the linear hash over the slot bits of the
+  // open-addressing table (sgp_insert, below).
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
+  return z ^ (z >> 31);
 }
 
 // Empty slot of the dedup hash table.  Every hash multiplier is odd
@@ -22,6 +37,61 @@ __device__ __forceinline__ unsigned long long sgp_pack(unsigned int h1, unsigned
 // BOTH words: a live key or query always has h1 and h2 of equal parity.
 // This sentinel has h1 odd and h2 even, so no live key can equal it.
 #define SGP_EMPTY 0xFFFFFFFFFFFFFFFEULL
+
+// The open-addressing table of lattice points shared by K2 (dedup.cu), K4
+// and K8 (once.cu): mask+1 slots (a power of two) of packed keys, linear
+// probing from sgp_mix(key).  The thread whose atomicCAS claims an empty
+// slot takes the next dense row id from *count; row_of_slot maps a slot to
+// its row (-1 past the capacity) and row_h1/row_h2 hold each row's hash
+// pair.  Either may be null (K8 counts only).
+//
+// Inserts (h1, h2); returns its slot, or -1 once more than `capacity`
+// points are occupied: with kBounded, a thread stops at its next collision
+// after the counter passed the capacity (one uncached read of the counter
+// per collision), and a probe sequence ends after one lap of the table.
+// K2 inserts its n(d+1) keys into >= 2 n(d+1) slots, which never
+// overflows, so it passes capacity = n(d+1) and kBounded = false.
+template <bool kBounded>
+__device__ __forceinline__ int sgp_insert(unsigned int h1, unsigned int h2,
+                                          unsigned long long* table, unsigned int mask,
+                                          int capacity, int* row_of_slot, int* row_h1,
+                                          int* row_h2, int* count) {
+  const unsigned long long key = sgp_pack(h1, h2);
+  unsigned int s = (unsigned int)sgp_mix(key) & mask;
+  for (unsigned int probe = 0; probe <= mask; ++probe) {
+    const unsigned long long prev = atomicCAS(&table[s], SGP_EMPTY, key);
+    if (prev == SGP_EMPTY) {
+      const int id = atomicAdd(count, 1);
+      if (row_of_slot != nullptr) row_of_slot[s] = id < capacity ? id : -1;
+      if (row_h1 != nullptr && id < capacity) {
+        row_h1[id] = (int)h1;
+        row_h2[id] = (int)h2;
+      }
+      return (int)s;
+    }
+    if (prev == key) return (int)s;
+    if (kBounded && *(volatile int*)count > capacity) return -1;
+    s = (s + 1) & mask;
+  }
+  // One full lap: every slot is taken, so the count is past the capacity
+  // (the table has at least 2 * capacity slots).
+  return -1;
+}
+
+// Row id of the key q in a table that sgp_insert filled, or -1 if q is
+// absent.  Read-only; at most one lap.
+__device__ __forceinline__ int sgp_find(const unsigned long long* __restrict__ table,
+                                        unsigned int mask, const int* __restrict__ row_of_slot,
+                                        unsigned long long q) {
+  unsigned int s = (unsigned int)sgp_mix(q) & mask;
+  for (unsigned int probe = 0; probe <= mask; ++probe) {
+    const unsigned long long k = table[s];
+    if (k == q) return row_of_slot[s];
+    if (k == SGP_EMPTY) return -1;
+    s = (s + 1) & mask;
+  }
+  return -1;
+}
 
 // Enclosing simplex of one point, shared by K1 (geometry.cu) and K5
 // (grad.cu) so that both find the same ranks bit for bit.  Elevates the d
@@ -60,5 +130,44 @@ __device__ __forceinline__ void sgp_simplex_rank(const float* __restrict__ xp,
     const int hi = r2 > d, lo = r2 < 0;
     gdiv[i] += lo - hi;
     rank[i] = r2 - dp1 * hi + dp1 * lo;
+  }
+}
+
+// Vertex hash pairs and barycentric weights of one point's enclosing
+// simplex: K1's per-point work, shared with K4/K8 (once.cu) so that their
+// hashes are the plan's bit for bit.  a is the (2, d) multiplier table;
+// h1, h2 and w receive d+1 entries each.  Vertex v has key_k = greedy_k +
+// canonical[v][rank_k], hashed linearly (wrapping mod 2^32).
+__device__ __forceinline__ void sgp_point_geometry(const float* __restrict__ xp,
+                                                   const float* __restrict__ E,
+                                                   const int* __restrict__ a, int d, float scale,
+                                                   unsigned int* h1, unsigned int* h2, float* w) {
+  const int dp1 = d + 1;
+  int gdiv[SGP_MAX_DP1], rank[SGP_MAX_DP1];
+  float elev[SGP_MAX_DP1];
+  sgp_simplex_rank(xp, E, d, scale, elev, gdiv, rank);
+
+  // Barycentric coordinates by rank.
+  float t_by_rank[SGP_MAX_DP1];
+  for (int i = 0; i < dp1; ++i) t_by_rank[i] = 0.0f;
+  for (int i = 0; i < dp1; ++i) {
+    const float t = __fmul_rn(__fsub_rn(elev[i], (float)(gdiv[i] * dp1)), scale);
+    if (rank[i] >= 0 && rank[i] <= d) t_by_rank[rank[i]] = t;
+  }
+
+  const unsigned int* a1 = reinterpret_cast<const unsigned int*>(a);
+  const unsigned int* a2 = a1 + d;
+  for (int v = 0; v < dp1; ++v) {
+    unsigned int s1 = 0u, s2 = 0u;
+    for (int k = 0; k < d; ++k) {
+      const int can = rank[k] < dp1 - v ? v : v - dp1;
+      const unsigned int key = (unsigned int)(gdiv[k] * dp1 + can);
+      s1 += key * a1[k];
+      s2 += key * a2[k];
+    }
+    h1[v] = s1;
+    h2[v] = s2;
+    w[v] = v == 0 ? __fadd_rn(t_by_rank[d], __fadd_rn(1.0f, -t_by_rank[0]))
+                  : __fsub_rn(t_by_rank[d - v], t_by_rank[d + 1 - v]);
   }
 }

@@ -8,6 +8,8 @@
 // elevators scale N = 264,917 and the table is 8 MiB, resident in the 50 MB
 // L2, so probes are L2-latency-bound.  Design: the reference's own GPU hash
 // table (permutohedral_cuda_kernel.cu:173-201) instead of the TPU's sorts.
+// The table's insert and lookup are common.cuh's sgp_insert and sgp_find,
+// shared with K4 and K8 (once.cu).
 //   1. insert: open addressing with linear probing, atomicCAS of the packed
 //      64-bit key; the thread whose CAS claims an empty slot takes the next
 //      dense row id from an atomic counter and records the row's hash pair.
@@ -20,40 +22,24 @@
 // varies from run to run; the count n_lattice and the operator do not.
 #include "common.cuh"
 
-__device__ __forceinline__ unsigned long long sgp_mix(unsigned long long z) {
-  // splitmix64 finalizer: spreads the linear hash over the slot bits.
-  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
-  z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
-  return z ^ (z >> 31);
-}
-
 __global__ void insert_kernel(const int* __restrict__ h1, const int* __restrict__ h2, int N,
                               unsigned long long* table, unsigned int mask,
                               int* __restrict__ slot_of, int* row_of_slot, int* count,
                               int* row_h1, int* row_h2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const unsigned long long key = sgp_pack((unsigned int)h1[i], (unsigned int)h2[i]);
-  unsigned int s = (unsigned int)sgp_mix(key) & mask;
-  while (true) {
-    const unsigned long long prev = atomicCAS(&table[s], SGP_EMPTY, key);
-    if (prev == SGP_EMPTY) {
-      const int id = atomicAdd(count, 1);
-      row_of_slot[s] = id;
-      row_h1[id] = h1[i];
-      row_h2[id] = h2[i];
-      break;
-    }
-    if (prev == key) break;
-    s = (s + 1) & mask;
-  }
-  slot_of[i] = (int)s;
+  if (i < N)
+    slot_of[i] = sgp_insert<false>((unsigned int)h1[i], (unsigned int)h2[i], table, mask, N,
+                                   row_of_slot, row_h1, row_h2, count);
 }
 
 __global__ void seg_kernel(const int* __restrict__ slot_of, const int* __restrict__ row_of_slot,
-                           int N, int* __restrict__ seg_ids) {
+                           int N, const int* __restrict__ count, int capacity,
+                           int* __restrict__ seg_ids) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < N) seg_ids[i] = row_of_slot[slot_of[i]];
+  if (i >= N) return;
+  // Past the capacity (K4 only) every row id is replaced by 0, a valid row,
+  // so no later phase reads out of bounds; K4's guard then writes NaN.
+  seg_ids[i] = *count > capacity ? 0 : row_of_slot[slot_of[i]];
 }
 
 __global__ void neighbors_kernel(const unsigned long long* __restrict__ table, unsigned int mask,
@@ -68,20 +54,23 @@ __global__ void neighbors_kernel(const unsigned long long* __restrict__ table, u
   const int tap = (int)(idx % r2);
   const int row = (int)((idx / r2) % M);
   const int axis = (int)(idx / ((long long)r2 * M));
-  int found = M;
+  int found = -1;
   if (row < *count) {
     const unsigned int q1 = (unsigned int)row_h1[row] + (unsigned int)oh1[axis * r2 + tap];
     const unsigned int q2 = (unsigned int)row_h2[row] + (unsigned int)oh2[axis * r2 + tap];
-    const unsigned long long q = sgp_pack(q1, q2);
-    unsigned int s = (unsigned int)sgp_mix(q) & mask;
-    while (true) {
-      const unsigned long long k = table[s];
-      if (k == q) { found = row_of_slot[s]; break; }
-      if (k == SGP_EMPTY) break;
-      s = (s + 1) & mask;
-    }
+    found = sgp_find(table, mask, row_of_slot, sgp_pack(q1, q2));
   }
-  neighbors[idx] = found;
+  neighbors[idx] = found < 0 ? M : found;
+}
+
+// Row id of every contribution; shared with K4 (once.cu), whose capacity
+// may be short.  K2 passes capacity = N.
+extern "C" int sgp_dedup_seg(const int* slot_of, const int* row_of_slot, int N, const int* count,
+                             int capacity, int* seg_ids, void* stream) {
+  if (N > 0)
+    seg_kernel<<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(slot_of, row_of_slot, N,
+                                                                        count, capacity, seg_ids);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int sgp_dedup_insert(const int* h1, const int* h2, int N, unsigned long long* table,
@@ -101,9 +90,8 @@ extern "C" int sgp_dedup_finish(const int* slot_of, const int* row_of_slot, int 
                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (N > 0) {
-    seg_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(slot_of, row_of_slot, N, seg_ids);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    const int err = sgp_dedup_seg(slot_of, row_of_slot, N, count, N, seg_ids, stream);
+    if (err != (int)cudaSuccess) return err;
     neighbors_kernel<<<sgp_blocks((long long)dp1 * N * r2), SGP_THREADS, 0, st>>>(
         table, (unsigned int)mask, row_of_slot, count, row_h1, row_h2, oh1, oh2, N, dp1, r2,
         neighbors);

@@ -9,8 +9,9 @@
 // At d=18 it is compute- and latency-bound, not memory-bound.  Design: one
 // thread per point with the elevated, rank and barycentric arrays in local
 // memory (d+1 <= SGP_MAX_DP1), so no point waits on another.  The
-// elevation, rounding and ranks are sgp_simplex_rank (common.cuh), which
-// K5's kernel (grad.cu) calls too.
+// per-point work is sgp_point_geometry (common.cuh), which K4/K8 (once.cu)
+// call too; its elevation, rounding and ranks are sgp_simplex_rank, which
+// K5's kernel (grad.cu) calls.
 //
 // Every float operation is an explicit round-to-nearest intrinsic, in the
 // order of the plain PyTorch twin (no FMA contraction): the elevation
@@ -27,35 +28,14 @@ __global__ void geometry_kernel(const float* __restrict__ x, const float* __rest
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const int dp1 = d + 1;
-  int gdiv[SGP_MAX_DP1], rank[SGP_MAX_DP1];
-  float elev[SGP_MAX_DP1];
-  sgp_simplex_rank(x + (long long)p * d, E, d, scale, elev, gdiv, rank);
-
-  // Barycentric coordinates by rank.
-  float t_by_rank[SGP_MAX_DP1];
-  for (int i = 0; i < dp1; ++i) t_by_rank[i] = 0.0f;
-  for (int i = 0; i < dp1; ++i) {
-    const float t = __fmul_rn(__fsub_rn(elev[i], (float)(gdiv[i] * dp1)), scale);
-    if (rank[i] >= 0 && rank[i] <= d) t_by_rank[rank[i]] = t;
-  }
-
-  const unsigned int* a1 = reinterpret_cast<const unsigned int*>(a);
-  const unsigned int* a2 = a1 + d;
+  unsigned int s1[SGP_MAX_DP1], s2[SGP_MAX_DP1];
+  float wv[SGP_MAX_DP1];
+  sgp_point_geometry(x + (long long)p * d, E, a, d, scale, s1, s2, wv);
   const long long base = (long long)p * dp1;
   for (int v = 0; v < dp1; ++v) {
-    // Vertex v: key_k = greedy_k + canonical[v][rank_k], hashed linearly.
-    unsigned int s1 = 0u, s2 = 0u;
-    for (int k = 0; k < d; ++k) {
-      const int can = rank[k] < dp1 - v ? v : v - dp1;
-      const unsigned int key = (unsigned int)(gdiv[k] * dp1 + can);
-      s1 += key * a1[k];
-      s2 += key * a2[k];
-    }
-    h1[base + v] = (int)s1;
-    h2[base + v] = (int)s2;
-    w[base + v] = v == 0
-        ? __fadd_rn(t_by_rank[d], __fadd_rn(1.0f, -t_by_rank[0]))
-        : __fsub_rn(t_by_rank[d - v], t_by_rank[d + 1 - v]);
+    h1[base + v] = (int)s1[v];
+    h2[base + v] = (int)s2[v];
+    w[base + v] = wv[v];
   }
 }
 

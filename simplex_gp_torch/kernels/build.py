@@ -40,6 +40,11 @@ _SIGNATURES = {
     "sgp_lattice_slice": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
     "sgp_pivot_column": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sgp_lattice_filter_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "sgp_filter_once": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _F, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "sgp_lattice_count": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "sgp_deriv_splat": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "sgp_deriv_slice": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
 }
 
 _lib = None

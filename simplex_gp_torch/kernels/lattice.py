@@ -1,11 +1,12 @@
-"""Lattice kernels K1-K3 and K5: wrappers over the CUDA kernels, beside their plain versions.
+"""Lattice kernels K1-K5, K7 and K8: wrappers over the CUDA kernels, beside their plain versions.
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches its
 kernel (``csrc/geometry.cu``, ``csrc/dedup.cu``, ``csrc/apply.cu``,
-``csrc/grad.cu``) for CUDA tensors, raising on a failed build or launch;
-there is no fallback.  Each counts its launches in a ``launches`` attribute.
-The plain versions are the PyTorch twin of the JAX join engine
-(simplex_gp_tpu/ops/lattice.py) and run on either device.
+``csrc/grad.cu``, ``csrc/once.cu``, ``csrc/deriv.cu``) for CUDA tensors,
+raising on a failed build or launch; there is no fallback.  Each counts its
+launches in a ``launches`` attribute.  The plain versions are the PyTorch
+twin of the JAX join engine (simplex_gp_tpu/ops/lattice.py) and run on
+either device.
 
 Integer hashes are int32 wrapping mod 2^32, as XLA's are; PyTorch has no
 wrapping int32 product, so the plain versions compute in int64 and mask.
@@ -30,6 +31,12 @@ __all__ = [
     "lattice_apply",
     "lattice_filter_grad_plain",
     "lattice_filter_grad",
+    "filter_once_plain",
+    "lattice_filter_once",
+    "count_plain",
+    "lattice_count",
+    "deriv_grad_plain",
+    "lattice_deriv_grad",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -171,6 +178,14 @@ def dedup_neighbors_plain(h1, h2, oh1, oh2):
     return inverse.to(torch.int32), neighbors, n_lattice
 
 
+def _table_slots(keys: int) -> int:
+    """Slots of an open-addressing table for ``keys`` keys: a power of two >= 2 keys."""
+    slots = 1 << max(1, (2 * keys - 1).bit_length())
+    if slots > 2**31:
+        raise ValueError(f"{keys} keys exceed the hash table's index range")
+    return slots
+
+
 def lattice_dedup_neighbors(h1, h2, oh1, oh2):
     """K2: dedup the vertex hash pairs into rows; blur neighbours by hash linearity."""
     if not h1.is_cuda:
@@ -179,9 +194,7 @@ def lattice_dedup_neighbors(h1, h2, oh1, oh2):
                   (oh1, torch.int32), (oh2, torch.int32))
     N = h1.shape[0]
     dp1, r2 = oh1.shape
-    cap = 1 << max(1, (2 * N - 1).bit_length())  # power of two >= 2N
-    if cap > 2**31:
-        raise ValueError(f"lattice_dedup_neighbors: {N} keys exceed the table's index range")
+    cap = _table_slots(N)
     dev = h1.device
     lib = build.library()
     table = torch.full((cap,), -2, dtype=torch.int64, device=dev)  # SGP_EMPTY
@@ -339,3 +352,167 @@ def lattice_filter_grad(ref, E, seg_ids, v, g, table_f, table_b, slice_norm):
 
 
 lattice_filter_grad.launches = 0
+
+
+def filter_once_plain(x, E, a, oh1, oh2, v, taps, slice_norm, capacity):
+    """Plain K4 (filter_fused, :1166): K1 + K2 + K3 plain, with JAX's capacity guard.
+
+    Returns (out (n, c), n_lattice 0-d int32); ``out`` is all NaN when more
+    than ``capacity`` lattice points are occupied (lattice.py:1295).
+    """
+    n, d = x.shape
+    h1, h2, w = geometry_plain(x, E, a)
+    seg, nb, n_lattice = dedup_neighbors_plain(h1, h2, oh1, oh2)
+    out = apply_plain(seg.reshape(n, d + 1), w, nb, v, taps, slice_norm)
+    return torch.where(n_lattice <= capacity, out, float("nan")), n_lattice
+
+
+def lattice_filter_once(x, E, a, oh1, oh2, v, taps, slice_norm, capacity):
+    """K4: the one-shot filter ``slice_norm * S^T B S v`` of v (n, c) at positions x (n, d).
+
+    ``E``, ``a``, ``oh1``/``oh2`` are the elevation, the hash multipliers and
+    the (d+1, 2r) neighbour offset hashes; ``capacity`` (1..n(d+1)) bounds
+    the lattice table.  Returns (out, n_lattice as a 0-d int32 tensor).
+    When more than ``capacity`` points are occupied, ``out`` is all NaN and
+    the kernel's n_lattice is some count above the capacity (the plain
+    version's is the true occupancy).
+    """
+    if not x.is_cuda:
+        return filter_once_plain(x, E, a, oh1, oh2, v, taps, slice_norm, capacity)
+    build.require("lattice_filter_once", (x, torch.float32), (E, torch.float32), (a, torch.int32),
+                  (oh1, torch.int32), (oh2, torch.int32), (v, torch.float32))
+    n, d = x.shape
+    dp1 = d + 1
+    N = n * dp1
+    c = v.shape[-1]
+    r2 = oh1.shape[1]
+    if dp1 > 64:
+        raise ValueError(f"lattice_filter_once: d={d} exceeds the kernel's limit of 63")
+    if v.shape[0] != n or len(taps) != r2 + 1 or oh1.shape != (dp1, r2) or oh2.shape != oh1.shape:
+        raise ValueError(f"lattice_filter_once: v {tuple(v.shape)}, {len(taps)} taps, offsets "
+                         f"{tuple(oh1.shape)} do not fit positions {tuple(x.shape)}")
+    if not 1 <= capacity <= N:
+        raise ValueError(f"lattice_filter_once: capacity {capacity} outside 1..{N}")
+    slots = _table_slots(capacity)
+    dev = x.device
+    lib = build.library()
+    taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
+    i32 = dict(dtype=torch.int32, device=dev)
+    table = torch.full((slots,), -2, dtype=torch.int64, device=dev)  # SGP_EMPTY
+    row_of_slot = torch.empty(slots, **i32)
+    row_h1, row_h2 = torch.empty(capacity, **i32), torch.empty(capacity, **i32)
+    slot_of, seg = torch.empty(N, **i32), torch.empty(N, **i32)
+    w = torch.empty(N, dtype=torch.float32, device=dev)
+    count = torch.zeros((), **i32)
+    ta = torch.zeros((capacity, c), dtype=torch.float32, device=dev)
+    tb = torch.empty((capacity, c), dtype=torch.float32, device=dev)
+    out = torch.empty((n, c), dtype=torch.float32, device=dev)
+    rc = lib.sgp_filter_once(x.data_ptr(), E.data_ptr(), a.data_ptr(), n, d, oh1.data_ptr(),
+                             oh2.data_ptr(), ctypes.addressof(taps_host), r2 // 2, v.data_ptr(), c,
+                             float(slice_norm), capacity, slots - 1, table.data_ptr(),
+                             row_of_slot.data_ptr(), row_h1.data_ptr(), row_h2.data_ptr(),
+                             slot_of.data_ptr(), seg.data_ptr(), w.data_ptr(), count.data_ptr(),
+                             ta.data_ptr(), tb.data_ptr(), out.data_ptr(), build.stream())
+    build.check(rc, "lattice_filter_once")
+    lattice_filter_once.launches += 1
+    return out, count
+
+
+lattice_filter_once.launches = 0
+
+
+def count_plain(x, E, a):
+    """Plain K8 (count_lattice_points, :839): distinct vertex hash pairs, 0-d int32."""
+    h1, h2, _ = geometry_plain(x, E, a)
+    return torch.tensor(torch.unique(_pack(h1, h2)).numel(), dtype=torch.int32, device=x.device)
+
+
+def lattice_count(x, E, a):
+    """K8: the number of occupied lattice points of positions x (n, d), as a 0-d int32 tensor."""
+    if not x.is_cuda:
+        return count_plain(x, E, a)
+    build.require("lattice_count", (x, torch.float32), (E, torch.float32), (a, torch.int32))
+    n, d = x.shape
+    if d + 1 > 64:
+        raise ValueError(f"lattice_count: d={d} exceeds the kernel's limit of 63")
+    slots = _table_slots(n * (d + 1))
+    lib = build.library()
+    table = torch.full((slots,), -2, dtype=torch.int64, device=x.device)  # SGP_EMPTY
+    count = torch.zeros((), dtype=torch.int32, device=x.device)
+    rc = lib.sgp_lattice_count(x.data_ptr(), E.data_ptr(), a.data_ptr(), n, d, slots - 1,
+                               table.data_ptr(), count.data_ptr(), build.stream())
+    build.check(rc, "lattice_count")
+    lattice_count.launches += 1
+    return count
+
+
+lattice_count.launches = 0
+
+
+def deriv_grad_plain(seg_ids, weights, neighbors, ref, src, g, taps, slice_norm, scale):
+    """Plain K7 (filter.py::_bwd, :269-290): the derivative-tap position gradient (n, d).
+
+    Filters the stack [g, g (x) ref, src, src (x) ref] on the derivative plan
+    (``seg_ids``, ``weights``, ``neighbors``; ``taps`` the derivative taps)
+    and returns ``scale * sum_l (sf wg - src wgf + gf ws - g wsf)``, with
+    ``scale`` = 2 k'(0).
+    """
+    n, L = src.shape
+    d = ref.shape[1]
+    gf = g[:, :, None] * ref[:, None, :]
+    sf = src[:, :, None] * ref[:, None, :]
+    stacked = torch.cat([g, gf.reshape(n, L * d), src, sf.reshape(n, L * d)], dim=-1)
+    filtered = apply_plain(seg_ids, weights, neighbors, stacked, taps, slice_norm)
+    wg = filtered[:, :L]
+    wgf = filtered[:, L:L + L * d].reshape(n, L, d)
+    ws = filtered[:, L + L * d:2 * L + L * d]
+    wsf = filtered[:, 2 * L + L * d:].reshape(n, L, d)
+    return scale * (sf * wg[:, :, None] - src[:, :, None] * wgf + gf * ws[:, :, None]
+                    - g[:, :, None] * wsf).sum(dim=1)
+
+
+def lattice_deriv_grad(seg_ids, weights, neighbors, n_lattice, ref, src, g, taps, slice_norm, scale):
+    """K7: the derivative-tap position gradient (see :func:`deriv_grad_plain`), (n, d).
+
+    ``seg_ids`` (n, d+1), ``weights``, ``neighbors`` and ``n_lattice`` are
+    the derivative plan; ``src`` and ``g`` are (n, L), ``ref`` (n, d).
+    """
+    if not ref.is_cuda:
+        return deriv_grad_plain(seg_ids, weights, neighbors, ref, src, g, taps, slice_norm, scale)
+    build.require("lattice_deriv_grad", (seg_ids, torch.int32), (weights, torch.float32),
+                  (neighbors, torch.int32), (n_lattice, torch.int32), (ref, torch.float32),
+                  (src, torch.float32), (g, torch.float32))
+    n, d = ref.shape
+    L = src.shape[-1]
+    M = neighbors.shape[1]
+    order = neighbors.shape[2] // 2
+    C = 2 * L * (1 + d)
+    if (seg_ids.shape != (n, d + 1) or src.shape != (n, L) or g.shape != src.shape
+            or len(taps) != 2 * order + 1):
+        raise ValueError(f"lattice_deriv_grad: shapes do not fit: ref {tuple(ref.shape)}, seg "
+                         f"{tuple(seg_ids.shape)}, src {tuple(src.shape)}, g {tuple(g.shape)}, "
+                         f"{len(taps)} taps for order {order}")
+    dev = ref.device
+    lib = build.library()
+    taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
+    a = torch.zeros((M, C), dtype=torch.float32, device=dev)
+    b = torch.empty((M, C), dtype=torch.float32, device=dev)
+    grad_ref = torch.empty((n, d), dtype=torch.float32, device=dev)
+    st = build.stream()
+    build.check(lib.sgp_deriv_splat(seg_ids.data_ptr(), weights.data_ptr(), ref.data_ptr(),
+                                    src.data_ptr(), g.data_ptr(), n, d, L, a.data_ptr(), st),
+                "lattice_deriv_grad (splat)")
+    for j in range(d + 1):
+        rc = lib.sgp_lattice_blur(a.data_ptr(), b.data_ptr(), neighbors[j].data_ptr(),
+                                  ctypes.addressof(taps_host), M, C, order, n_lattice.data_ptr(), st)
+        build.check(rc, "lattice_deriv_grad (blur)")
+        a, b = b, a
+    build.check(lib.sgp_deriv_slice(a.data_ptr(), seg_ids.data_ptr(), weights.data_ptr(), ref.data_ptr(),
+                                    src.data_ptr(), g.data_ptr(), n, d, L, float(slice_norm),
+                                    float(scale), grad_ref.data_ptr(), st),
+                "lattice_deriv_grad (slice)")
+    lattice_deriv_grad.launches += 1
+    return grad_ref
+
+
+lattice_deriv_grad.launches = 0

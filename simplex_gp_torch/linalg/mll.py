@@ -10,10 +10,16 @@ K_hat = s K + noise I:
 
 Both backward terms are u^T dK_hat v forms with U = [-a alpha | (b/p) Z] and
 V = [alpha | P^{-1} b]; :class:`LatticeInvQuadLogdet` evaluates them in
-closed form (_iql_bwd, :243-272) from one forward apply of V that keeps its
-table, one transposed apply of s U, and K5 -- on the plan the forward built,
-with no nested autograd.  The forward runs with no graph, as JAX's custom
-VJP does, so no gradient flows through the preconditioner or the CG.
+closed form (_iql_bwd, :243-272), with no nested autograd, in one of two
+ways (``BBMMConfig.grad_mode``):
+  * "exact": one forward apply of V that keeps its table, one transposed
+    apply of s U, and K5 -- on the plan the forward built;
+  * "deriv_filter" (the reference's gradient, JAX's ``lattice_filter``):
+    K V by the one-shot filter K4, as JAX's forward inside the vjp runs it,
+    and the position gradient from the derivative-tap filter K7 with the
+    cotangent s U.
+The forward runs with no graph, as JAX's custom VJP does, so no gradient
+flows through the preconditioner or the CG.
 
 Dropped from the JAX module: the ``axis_name`` (sharded) branches (ROADMAP
 item 1.12) and ``plan_capacity`` (item 1.9).
@@ -27,7 +33,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.filter import apply_plan_any, build_plan_any, filter_backward, lattice_filter_any
+from ..ops.filter import (
+    _filter_plain,
+    apply_plan_any,
+    build_plan_any,
+    deriv_filter_grad,
+    filter_backward,
+    lattice_filter,
+    lattice_filter_any,
+)
 from ..ops.lattice import LatticePlan
 from .cg import cg_solve
 from .lanczos import logdet_from_cg_tridiag, slq_logdet
@@ -57,8 +71,8 @@ class BBMMConfig:
     ``slq_mode`` "cg" recovers the SLQ tridiagonals from the preconditioned
     CG that gives the solves (GPyTorch's single pass); "lanczos" runs the
     explicit reorthogonalized Lanczos.  ``grad_mode`` "exact" differentiates
-    the operator actually applied (K5); the reference-parity
-    "deriv_filter" needs K7, which is not ported.
+    the operator actually applied (K5); "deriv_filter" is the reference's
+    derivative-tap estimate of the dense kernel's gradient (K4 + K7).
     """
 
     cg_tolerance: float = 1.0
@@ -73,11 +87,8 @@ class BBMMConfig:
     def __post_init__(self):
         if self.slq_mode not in ("cg", "lanczos"):
             raise ValueError(f"unknown slq_mode {self.slq_mode!r} (cg or lanczos)")
-        if self.grad_mode == "deriv_filter":
-            raise NotImplementedError("grad_mode='deriv_filter' needs the derivative-tap filter K7, "
-                                      "still to port (ROADMAP section 2, K7)")
-        if self.grad_mode != "exact":
-            raise ValueError(f"unknown grad_mode {self.grad_mode!r}")
+        if self.grad_mode not in ("exact", "deriv_filter"):
+            raise ValueError(f"unknown grad_mode {self.grad_mode!r} (exact or deriv_filter)")
 
 
 def build_precond(dk, config: BBMMConfig, params: dict, ref: torch.Tensor, n_global: int) -> Optional[Preconditioner]:
@@ -94,9 +105,10 @@ def build_precond(dk, config: BBMMConfig, params: dict, ref: torch.Tensor, n_glo
     return make_preconditioner(pc.L, noise, n_global)
 
 
-def _khat_matmul_diff(params: dict, x: torch.Tensor, dk, V: torch.Tensor) -> torch.Tensor:
-    """Differentiable K_hat(params) @ V (exact gradients through the filter), mll.py:92."""
-    ky = lattice_filter_any(V, x * params["inv_ell"], dk)
+def _khat_matmul_diff(params: dict, x: torch.Tensor, dk, V: torch.Tensor, grad_mode: str = "exact") -> torch.Tensor:
+    """Differentiable K_hat(params) @ V; the filter's gradient per ``grad_mode`` (mll.py:92-113)."""
+    ref = x * params["inv_ell"]
+    ky = lattice_filter_any(V, ref, dk) if grad_mode == "exact" else lattice_filter(V, ref, dk)
     return params["outputscale"] * ky + params["noise"] * V
 
 
@@ -170,6 +182,7 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
             stats["cg_iters"] = sys_.iterations
             stats["cg_res"] = float(sys_.residual.mean())
         ctx.dk = dk
+        ctx.grad_mode = config.grad_mode
         ctx.save_for_backward(inv_ell, outputscale, x, alpha, sys_.solves[:, 1:], sys_.probes_right,
                               *sys_.plan)
         return (y * alpha).sum(), sys_.logdet
@@ -182,9 +195,15 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
         U = torch.cat([(-a) * alpha[:, None], (b / p) * z_solves], dim=-1)
         V = torch.cat([alpha[:, None], probes_right], dim=-1).contiguous()
         ref = x * inv_ell
-        KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True)
-        # d/dref of s * K(ref) V against U: K5 with the cotangent s U.
-        _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f)
+        if ctx.grad_mode == "exact":
+            KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True)
+            # d/dref of s * K(ref) V against U: K5 with the cotangent s U.
+            _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f)
+        else:
+            # lattice_filter's forward and derivative-tap backward, as JAX's
+            # vjp of _khat_matmul_diff runs them: K4, then K7 against s U.
+            KV = _filter_plain(V, ref, ctx.dk)
+            grad_ref = deriv_filter_grad(ref, ctx.dk, V, s * U)
         grad_inv_ell = (x * grad_ref).sum(dim=0)
         grad_s = (U * KV).sum()
         grad_noise = (U * V).sum()

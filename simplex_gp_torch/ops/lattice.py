@@ -14,6 +14,11 @@ the JAX package's join engine (build_plan_join / apply_plan_join); the TPU's
 sort-chain engine is not ported, because the card's gathers and atomics are
 fast where the TPU's are not.
 
+:func:`filter_once` is the reference's one-shot ``filter``: K4 builds and
+applies in one call, with no plan and an optional capacity bound (JAX's
+filter_fused, which runs the sort chain; the same operator up to 64-bit hash
+collisions).  :func:`count_lattice_points` is K8, K4's occupancy count.
+
 The host constants below are copied verbatim from the JAX module, where the
 tests hold them equal.
 """
@@ -21,14 +26,16 @@ tests hold them equal.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..kernels.lattice import (
     lattice_apply,
+    lattice_count,
     lattice_dedup_neighbors,
+    lattice_filter_once,
     lattice_geometry,
     lattice_simplex,
 )
@@ -41,6 +48,7 @@ __all__ = [
     "build_plan_join",
     "apply_plan_join",
     "filter_once",
+    "count_lattice_points",
 ]
 
 
@@ -135,17 +143,19 @@ class LatticePlan(NamedTuple):
     n_lattice: torch.Tensor
 
 
+def _lattice_constants(d: int, coeffs: tuple, blur_variance: float, device):
+    """(E, a, oh1, oh2) on ``device``: elevation, hash multipliers, neighbour offset hashes."""
+    a = _hash_vectors(d)
+    E = torch.from_numpy(build_rotation(d, blur_variance)).to(device)
+    oh1, oh2 = (torch.from_numpy(o).to(device) for o in _offset_hashes(d, (len(coeffs) - 1) // 2, a))
+    return E, torch.from_numpy(a).to(device), oh1, oh2
+
+
 def build_plan_join(x: torch.Tensor, coeffs: tuple, blur_variance: float) -> LatticePlan:
     """Build the filter plan for positions ``x`` (n, d) on ``x``'s device: K1 + K2."""
     n, d = x.shape
-    dev = x.device
-    order = (len(coeffs) - 1) // 2
-    a = _hash_vectors(d)
-    E = torch.from_numpy(build_rotation(d, blur_variance)).to(dev)
-    h1, h2, weights = lattice_geometry(
-        x.to(torch.float32).contiguous(), E, torch.from_numpy(a).to(dev)
-    )
-    oh1, oh2 = (torch.from_numpy(o).to(dev) for o in _offset_hashes(d, order, a))
+    E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x.device)
+    h1, h2, weights = lattice_geometry(x.to(torch.float32).contiguous(), E, a)
     seg_ids, neighbors, n_lattice = lattice_dedup_neighbors(h1, h2, oh1, oh2)
     return LatticePlan(seg_ids.reshape(n, d + 1), weights, neighbors, n_lattice)
 
@@ -169,6 +179,33 @@ def apply_plan_join(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, transpose
     )
 
 
-def filter_once(src: torch.Tensor, ref: torch.Tensor, coeffs: tuple, blur_variance: float) -> torch.Tensor:
-    """One-shot filter(src, ref, coeffs): build the plan and apply it once."""
-    return apply_plan_join(build_plan_join(ref, coeffs, blur_variance), src, coeffs)
+def filter_once(src: torch.Tensor, ref: torch.Tensor, coeffs: tuple, blur_variance: float,
+                capacity: Optional[int] = None) -> torch.Tensor:
+    """One-shot filter(src, ref, coeffs) of src (n, c) at positions ref (n, d): K4.
+
+    Port of lattice.py::filter_once (:529).  ``capacity`` bounds the lattice
+    table (None: n(d+1), the most a filter can occupy); when more points are
+    occupied the output is all NaN, as JAX's guard (:1295).  Pick it from
+    :func:`count_lattice_points`.
+    """
+    cs = np.asarray(coeffs, np.float64)
+    if not np.allclose(cs, cs[::-1]):
+        raise ValueError("one-shot filter requires symmetric filter taps")
+    n, d = ref.shape
+    M = n * (d + 1)
+    E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, ref.device)
+    out, _ = lattice_filter_once(
+        ref.to(torch.float32).contiguous(), E, a, oh1, oh2, src.to(torch.float32).contiguous(),
+        [float(c) for c in coeffs], SLICE_NORM(d), M if capacity is None else min(capacity, M),
+    )
+    return out
+
+
+def count_lattice_points(x: torch.Tensor, blur_variance: float, coeffs: tuple = (0.5, 1.0, 0.5)) -> torch.Tensor:
+    """Number of occupied lattice points of positions ``x`` (n, d), a 0-d int32 tensor: K8.
+
+    Port of lattice.py::count_lattice_points (:839), with its signature
+    (``coeffs`` does not change the count).
+    """
+    E, a, _, _ = _lattice_constants(x.shape[1], coeffs, blur_variance, x.device)
+    return lattice_count(x.to(torch.float32).contiguous(), E, a)

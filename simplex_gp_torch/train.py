@@ -27,7 +27,8 @@ import torch
 from .linalg.mll import BBMMConfig
 from .models.components import init_raw_params
 from .models.exact_gp import SimplexGP
-from .utils.data import load_snelson, load_uci, prepare_dataset
+from .utils.data import load_dataset
+from .utils.device import resolve_device
 from .utils.training import fit_adam
 
 __all__ = ["main", "median_lengthscale", "regression_metrics"]
@@ -72,31 +73,11 @@ def regression_metrics(mean: np.ndarray, var: np.ndarray, y: np.ndarray) -> dict
     }
 
 
-def _device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: torch.cuda.is_available() is false (pass --device cpu to "
-                           "train on the CPU)")
-    return dev
-
-
-def _load(args):
-    if args.dataset == "snelson":
-        x, y = load_snelson()
-        data = np.concatenate([x, y[:, None]], axis=-1)
-    else:
-        data = load_uci(args.dataset, args.data_dir)
-    ds = prepare_dataset(data, name=args.dataset, standardize=(args.dataset != "snelson"))
-    if args.max_n and ds.train_x.shape[0] > args.max_n:
-        ds = ds._replace(train_x=ds.train_x[: args.max_n], train_y=ds.train_y[: args.max_n])
-    return ds
-
-
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Train, evaluate on the test split, print JSON lines; returns the final record."""
     args = parse_args(argv)
-    dev = _device(args.device)
-    ds = _load(args)
+    dev = resolve_device(args.device)
+    ds = load_dataset(args.dataset, args.data_dir, args.max_n)
     model = SimplexGP(
         num_dims=ds.train_x.shape[-1], kernel=args.kernel, nu=args.nu, order=args.order,
         min_noise=args.min_noise,

@@ -1,1 +1,2 @@
-"""Datasets (a verbatim copy of simplex_gp_tpu/utils/data.py, which needs no jax)."""
+"""Datasets (``data``, simplex_gp_tpu/utils/data.py plus ``load_dataset``), the Adam loop
+(``training``) and the entry points' ``--device`` argument (``device``)."""

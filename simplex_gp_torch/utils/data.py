@@ -22,7 +22,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
-__all__ = ["Dataset", "load_snelson", "load_uci", "prepare_dataset", "UCI_SHAPES", "DATASET_GROUPS"]
+__all__ = ["Dataset", "load_snelson", "load_uci", "prepare_dataset", "load_dataset", "UCI_SHAPES",
+           "DATASET_GROUPS"]
 
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
 
@@ -187,3 +188,19 @@ def prepare_dataset(
         test_y = (test_y - mu_y) / sd_y
 
     return Dataset(train_x, train_y, val_x, val_y, test_x, test_y, name)
+
+
+def load_dataset(name: str, data_dir: Optional[str] = None, max_n: int = 0) -> Dataset:
+    """A named dataset, split and standardized, as experiments/common.py:81-92 loads it.
+
+    Snelson is not standardized; ``max_n`` > 0 caps the training rows.
+    """
+    if name == "snelson":
+        x, y = load_snelson()
+        data = np.concatenate([x, y[:, None]], axis=-1)
+    else:
+        data = load_uci(name, data_dir)
+    ds = prepare_dataset(data, name=name, standardize=(name != "snelson"))
+    if max_n and ds.train_x.shape[0] > max_n:
+        ds = ds._replace(train_x=ds.train_x[:max_n], train_y=ds.train_y[:max_n])
+    return ds

@@ -11,7 +11,11 @@ hashes and weights are equal; K3's splat adds with atomics in a run-to-run
 order (rel 1e-5), transposed or not; K5 fed the plain version's tables sums
 its dots and the E product in another order (rel 1e-4, with cancellation in
 the weight-gradient differences); K6 sums d2 and L.l_piv in another order
-than torch's reductions (rel 1e-5 for one step).
+than torch's reductions (rel 1e-5 for one step).  K4 is K3's operator with
+the same atomic splat (rel 1e-5), and its occupancy and K8's count are
+exact; K7's atomic splat of 2L(1+d) columns feeds a four-term difference
+with cancellation (rel 1e-4).  Positions at d >= 9 are scaled by 0.3, so
+the kernel reaches between points and the gradients are not roundoff.
 """
 
 import pytest
@@ -131,3 +135,69 @@ def test_filter_grad_refuses_wrong_inputs(cuda_device):
     table = torch.zeros((40, 2), device=cuda_device)
     with pytest.raises(ValueError):
         K.lattice_filter_grad(ref, E, seg, v, v, table, table, 1.0)
+
+
+def _positions(n, d, seed, device):
+    x, _ = seeded(n, d, 1, seed=seed)
+    return (torch.from_numpy(x) * (1.0 if d < 9 else 0.3)).to(device)
+
+
+@pytest.mark.parametrize("c", [1, 11])
+@pytest.mark.parametrize("n,d,order,kind", GRID)
+def test_filter_once_and_count_match_plain(cuda_device, n, d, order, kind, c):
+    dk = _dk(kind, order)
+    x = _positions(n, d, 6, cuda_device)
+    E, a, oh1, oh2 = t_lattice._lattice_constants(d, dk.coeffs, dk.variance, cuda_device)
+    v = torch.randn((n, c), generator=torch.Generator(device=cuda_device).manual_seed(c), device=cuda_device)
+    norm = t_lattice.SLICE_NORM(d)
+    before = (K.lattice_filter_once.launches, K.lattice_count.launches)
+    kout, knl = K.lattice_filter_once(x, E, a, oh1, oh2, v, dk.coeffs, norm, n * (d + 1))
+    pout, pnl = K.filter_once_plain(x, E, a, oh1, oh2, v, dk.coeffs, norm, n * (d + 1))
+    count = K.lattice_count(x, E, a)
+    torch.cuda.synchronize()
+    nl = int(pnl)
+    assert int(knl) == nl and int(count) == nl and int(K.count_plain(x, E, a)) == nl
+    assert float((kout - pout).norm() / pout.norm()) < 1e-5
+    exact_fit, fit_nl = K.lattice_filter_once(x, E, a, oh1, oh2, v, dk.coeffs, norm, nl)
+    assert int(fit_nl) == nl and float((exact_fit - pout).norm() / pout.norm()) < 1e-5
+    if nl >= 2:
+        under, under_nl = K.lattice_filter_once(x, E, a, oh1, oh2, v, dk.coeffs, norm, nl - 1)
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(under).all()) and int(under_nl) > nl - 1
+    assert K.lattice_count.launches == before[1] + 1
+    assert K.lattice_filter_once.launches == before[0] + (3 if nl >= 2 else 2)
+
+
+@pytest.mark.parametrize("L", [1, 11])
+@pytest.mark.parametrize("n,d,order,kind", GRID)
+def test_deriv_grad_matches_plain(cuda_device, n, d, order, kind, L):
+    dk = _dk(kind, order)
+    ref = _positions(n, d, 7, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    src = torch.randn((n, L), generator=gen, device=cuda_device)
+    g = torch.randn((n, L), generator=gen, device=cuda_device)
+    plan = t_lattice.build_plan_join(ref, dk.deriv_coeffs, dk.deriv_variance)
+    norm, scale = t_lattice.SLICE_NORM(d), 2.0 * dk.dk0
+    before = K.lattice_deriv_grad.launches
+    gk = K.lattice_deriv_grad(*plan, ref, src, g, dk.deriv_coeffs, norm, scale)
+    gp = K.deriv_grad_plain(plan.seg_ids, plan.weights, plan.neighbors, ref, src, g, dk.deriv_coeffs, norm,
+                            scale)
+    torch.cuda.synchronize()
+    assert K.lattice_deriv_grad.launches == before + 1
+    assert float((gk - gp).norm() / gp.norm()) < 1e-4
+
+
+def test_one_shot_wrappers_refuse_wrong_inputs(cuda_device):
+    dk = _dk("rbf", 1)
+    x = torch.zeros((10, 3), device=cuda_device)
+    E, a, oh1, oh2 = t_lattice._lattice_constants(3, dk.coeffs, dk.variance, cuda_device)
+    v = torch.zeros((10, 2), device=cuda_device)
+    with pytest.raises(ValueError):
+        K.lattice_filter_once(x, E, a, oh1, oh2, v, dk.coeffs, 1.0, 0)  # capacity below 1
+    with pytest.raises(ValueError):
+        K.lattice_filter_once(x, E, a, oh1, oh2, v.double(), dk.coeffs, 1.0, 40)
+    with pytest.raises(ValueError):
+        K.lattice_count(x.double(), E, a)
+    plan = t_lattice.build_plan_join(x, dk.deriv_coeffs, dk.deriv_variance)
+    with pytest.raises(ValueError):
+        K.lattice_deriv_grad(plan.seg_ids.long(), *plan[1:], x, v, v, dk.deriv_coeffs, 1.0, -2.0)

@@ -9,7 +9,10 @@ test_chain_plan.py).  Measured differences (my CPU runs): value <= 6e-7,
 gradients rel <= 5e-4, the largest on the mean at d = 1, where a rank-100
 preconditioner of a 150-point system is near rank-deficient and its f32
 Woodbury roundoff reaches the solves.  Bounds: value 1e-5, gradients rel
-2e-3.
+2e-3.  The same bounds hold in ``grad_mode="deriv_filter"``, where JAX's
+backward filters V with its one-shot sort-chain filter and the port with
+its one-shot join filter (K4), and both run the derivative-tap filter (K7)
+on a join plan.
 """
 
 import math
@@ -183,9 +186,11 @@ def test_lattice_nlml_matches_jax(n, d, kind, order, slq_mode, tol, rank):
 
 
 def test_config_rejects_unported_modes():
-    with pytest.raises(NotImplementedError, match="K7"):
-        t_mll.BBMMConfig(grad_mode="deriv_filter")
-    with pytest.raises(ValueError):
+    """Both gradient modes are ported; an unknown mode of either kind is refused."""
+    assert t_mll.BBMMConfig(grad_mode="deriv_filter").grad_mode == "deriv_filter"
+    with pytest.raises(ValueError, match="grad_mode"):
+        t_mll.BBMMConfig(grad_mode="deriv")
+    with pytest.raises(ValueError, match="slq_mode"):
         t_mll.BBMMConfig(slq_mode="exact")
 
 
@@ -210,3 +215,77 @@ def test_closed_form_backward_matches_autograd_through_khat():
     for got, want in zip(grads[:3], ref):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(grads[3], 2 * a * alpha[:, 0], rtol=1e-6, atol=0)
+
+
+# ---- grad_mode="deriv_filter" ------------------------------------------------------
+
+
+@pytest.mark.parametrize("tol,rank", [(1.0, 100), (1e-3, 20)])
+@pytest.mark.parametrize("n,d,kind,order", [(150, 1, "rbf", 2), (300, 3, "matern", 1), (400, 5, "rbf", 1)])
+def test_lattice_nlml_deriv_filter_matches_jax(n, d, kind, order, tol, rank):
+    """Value and reference-parity gradients on the same probes."""
+    x, y = _data(n, d)
+    probes = _probes(n, 8)
+    values = {"inv_ell": np.linspace(0.8, 1.5, d).astype(np.float32), "outputscale": np.float32(0.8),
+              "noise": np.float32(0.1), "mean": np.float32(0.05)}
+    kw = dict(cg_tolerance=tol, max_cg_iterations=300, max_lanczos_iterations=40, num_probes=8,
+              precond_rank=rank, grad_mode="deriv_filter")
+    jdk = j_kernels.rbf_kernel(order) if kind == "rbf" else j_kernels.matern_kernel(1.5, order)
+    tdk = t_kernels.rbf_kernel(order) if kind == "rbf" else t_kernels.matern_kernel(1.5, order)
+    j_val, j_grad = jax.value_and_grad(
+        lambda p: j_mll.lattice_nlml(jdk, j_mll.BBMMConfig(**kw), p, jnp.asarray(x.numpy()),
+                                     jnp.asarray(y.numpy()), jnp.asarray(probes.numpy())))(
+        {k: jnp.asarray(v) for k, v in values.items()})
+    t_params = {k: torch.tensor(v, requires_grad=True) for k, v in values.items()}
+    t_val, t_grad = _grads(lambda p: t_mll.lattice_nlml(tdk, t_mll.BBMMConfig(**kw), p, x, y, probes), t_params)
+    assert abs(t_val - float(j_val)) <= 1e-5
+    for k in values:
+        assert rel_err(t_grad[k], j_grad[k]) <= 2e-3, k
+
+
+def test_deriv_closed_form_backward_matches_autograd_through_khat():
+    """The deriv branch of the closed form = autograd of <U, K_hat(params) V> through lattice_filter."""
+    x, y = _data(n=200, d=3, seed=4)
+    dk = t_kernels.matern_kernel(1.5, 1)
+    cfg = t_mll.BBMMConfig(cg_tolerance=1e-3, num_probes=4, precond_rank=10, grad_mode="deriv_filter")
+    probes = _probes(200, 4)
+    params = _params(3, requires_grad=True)
+    yc = (y - params["mean"]).detach().requires_grad_(True)
+    iq, ld = t_mll.lattice_inv_quad_logdet(dk, cfg, params, x, yc, probes)
+    a, b = 0.7, -1.3
+    grads = torch.autograd.grad(a * iq + b * ld, [params["inv_ell"], params["outputscale"], params["noise"], yc])
+    with torch.no_grad():
+        sys_ = t_mll._solve_system(dk, cfg, params, x, yc, probes)
+    alpha, z = sys_.solves[:, :1], sys_.solves[:, 1:]
+    U = torch.cat([-a * alpha, (b / 4) * z], dim=-1)
+    V = torch.cat([alpha, sys_.probes_right], dim=-1)
+    form = (U * t_mll._khat_matmul_diff(params, x, dk, V, grad_mode="deriv_filter")).sum()
+    ref = torch.autograd.grad(form, [params["inv_ell"], params["outputscale"], params["noise"]])
+    for got, want in zip(grads[:3], ref):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(grads[3], 2 * a * alpha[:, 0], rtol=1e-6, atol=0)
+    exact = torch.autograd.grad((U * t_mll._khat_matmul_diff(params, x, dk, V)).sum(), params["inv_ell"])[0]
+    assert not torch.allclose(exact, ref[0], rtol=1e-3)  # the two modes are different estimates
+
+
+def test_simplex_gp_trains_with_deriv_filter():
+    """SimplexGP.nlml with grad_mode="deriv_filter" through fit_adam, and its raw gradients against JAX."""
+    import simplex_gp_torch as T
+    import simplex_gp_tpu as J
+
+    x, y = _data(n=200, d=2, seed=8)
+    raw = {"raw_lengthscale": np.zeros(2, np.float32), "raw_outputscale": np.float32(0.0),
+           "raw_noise": np.float32(-1.0), "mean": np.float32(0.0)}
+    kw = dict(num_dims=2, kernel="matern", nu=1.5, order=1, min_noise=0.01)
+    bbmm = dict(num_probes=6, precond_rank=20, grad_mode="deriv_filter")
+    probes = _probes(200, 6, seed=3)
+    jm = J.SimplexGP(**kw, bbmm=J.BBMMConfig(**bbmm))
+    j_grad = jax.grad(lambda r: j_mll.lattice_nlml(jm.dk, jm.bbmm, jm.constrained(r), jnp.asarray(x.numpy()),
+                                                   jnp.asarray(y.numpy()), jnp.asarray(probes.numpy())))(
+        {k: jnp.asarray(v) for k, v in raw.items()})
+    model = T.SimplexGP(**kw, bbmm=T.BBMMConfig(**bbmm)).load_raw(raw)
+    model.nlml(x, y, probes=probes).backward()
+    for k in raw:
+        assert rel_err(getattr(model, k).grad, j_grad[k]) <= 2e-3, k
+    hist = T.fit_adam(lambda gen: model.nlml(x, y, generator=gen), model.parameters(), epochs=15, lr=0.1)
+    assert hist["loss"][-1] < hist["loss"][0] - 0.05
