@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one CUDA card, and check them.
+"""Drive the PyTorch port's serving, training and large-n paths once on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -32,12 +32,27 @@ Phases, each printed as it runs:
      step and its stages; ``simplex_gp_torch.mvm_err.main`` for rbf order 1
      at elevators, precipitation and houseelectric (seeded synthetic
      stand-ins, full n); at each, K4 against its plain version at the
-     capacity mvm_err used, and the trimmed filter against the untrimmed one.
+     capacity mvm_err used, and the trimmed filter against the untrimmed one;
+  6. the large-n path at houseelectric (the seeded stand-in, 1,311,539
+     training rows), against the JAX-on-CPU golden file
+     tests/fixtures/houseelectric_golden.npz: K9 lattice_apply_cols against
+     its plain version at --max-n 360,000 (c = 100 on the trimmed training
+     plan, c = 101 on the untrimmed [train; val] plan) and against the
+     unchunked K3 at full n (times and peak memories of both); K8's count and
+     the autotrimmed capacity against JAX's; the bounded K2 at capacity =
+     occupancy (the untrimmed output) and occupancy - 1 (all NaN), and
+     against its plain version at 360,000; the NLML and raw gradients at
+     360,000 with that run's capacity, and five Adam steps from there (the
+     first held to JAX's, the rest printed); then ``simplex_gp_torch.train.main``
+     with the round-5 houseelectric flags for two epochs, one validation
+     eval and the test predict, all through K9.
 
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- for K5, on the trainer run; for K7, on
-the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs --,
-errors, times).  The last line is
+the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9
+and the bounded K2, on the houseelectric trainer run --, errors, times, and
+each kernel's bound: the larger of the bytes it must move over the card's
+memory rate and its float operations over the card's float32 rate).  The last line is
 {"ok": true, "device": {...}} only if every phase passed; otherwise the
 script exits 1.  It exits 2 when no CUDA device is present.  It never
 imports jax.
@@ -58,6 +73,7 @@ PARAMS = ROOT / "runs" / "r5" / "simplexgp_elevators_s0" / "model_best.pkl"
 GOLDEN = ROOT / "tests" / "fixtures" / "elevators_golden.npz"
 TRAIN_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_train_golden.npz"
 DERIV_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_deriv_golden.npz"
+HOUSE_GOLDEN = ROOT / "tests" / "fixtures" / "houseelectric_golden.npz"
 RAW_NAMES = ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")
 
 # Tolerances, each with its reason.
@@ -122,6 +138,31 @@ K7_REL = 1e-4
 # mvm_err at elevators against JAX on the CPU: the one-shot filters differ
 # by the chain-vs-join rel 2e-5, the dense products by f32 summation order.
 MVM_ERR_ATOL = 1e-3
+# Phase 6.  At the median init a houseelectric lattice row sums ~790
+# contributions (1.31M points x 12 vertices over 19,919 rows), so the
+# splat's atomic order moves outputs by rel ~5e-6 from run to run (two runs
+# of the same K3 on the same plan: printed in 6.3; K9 vs K3 measured 5.3e-6,
+# the bounded plan vs the untrimmed one 8.1e-6 on the H100).  Every operator
+# comparison of the phase takes the chain-vs-join bound, rel 2e-5.
+LARGE_N_REL = 2e-5
+# JAX elevates the positions by a matmul (x @ E.T), the port by K1's
+# sequential sum (bit-equal to its plain version); in the last bits they
+# differ for nearly every point, and at 1.31M points one point lands in
+# another simplex: occupancy 19,919 against JAX's 19,918 (the port's plain
+# version on the CPU gives 19,919 too).
+OCC_REL = 1e-4
+# The round-5 houseelectric run's flags (experiments/queue_r5_stage9.sh:15-18,
+# without --host-loop, which is not ported).
+HOUSE_FLAGS = ["--dataset", "houseelectric", "--kernel", "matern", "--nu", "1.5", "--order", "1", "--min-noise",
+               "0.1", "--ls-init", "median", "--plan-capacity", "-1", "--cg-tol", "1.0"]
+EPOCH_KEYS = {"epoch", "train/mll", "train/loss_ts", "hyp/noise", "hyp/outputscale", "hyp/ell_mean",
+              "hyp/ell_min", "hyp/ell_max", "hyp/d_eff_30"}
+VAL_KEYS = {"val/rmse", "val/mae", "val/nll", "val/pred_ts"}
+TEST_KEYS = {"test/rmse", "test/mae", "test/nll", "test/pred_ts"}
+# One NVIDIA H100 SXM at its full 700 W (NVIDIA's data sheet): device memory
+# rate and float32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 # The reference's one-shot filter, seconds per MVM on real data, on a GPU the
 # reference does not name (SURVEY.md section 6).
 REFERENCE_ONESHOT_S = {"elevators": 0.083, "precipitation": 0.082, "houseelectric": 1.756}
@@ -135,7 +176,38 @@ KERNEL_ROWS = {
     "filter_once": ("simplex_gp_torch/csrc/once.cu", "simplex_gp_tpu/ops/lattice.py:1166"),
     "count_lattice_points": ("simplex_gp_torch/csrc/once.cu", "simplex_gp_tpu/ops/lattice.py:839"),
     "lattice_deriv_grad": ("simplex_gp_torch/csrc/deriv.cu", "simplex_gp_tpu/ops/filter.py:261"),
+    "lattice_apply_cols": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/filter.py:65"),
+    "lattice_dedup_neighbors_bounded": ("simplex_gp_torch/csrc/dedup.cu", "simplex_gp_tpu/ops/lattice.py:693"),
 }
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms and bound_by: the larger of bytes over the memory rate and float ops over the f32 rate.
+
+    Each input is counted read once and each output written once; the hash
+    tables, lattice tables and atomics inside a kernel are its own traffic,
+    not the function's.  Integer hashing is not counted as operations.
+    """
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def geometry_ops(n: int, d: int) -> int:
+    """Float operations of K1's per-point work: elevation, rounding, ranks, weights."""
+    return n * (d + 1) * (3 * d + 9)
+
+
+def apply_cost(n: int, d: int, c: int, n_lattice: int, order: int) -> tuple:
+    """(bytes, ops) of K3 / K9: seg ids, weights and the live neighbour rows in, v in, out written;
+    splat and slice multiply-adds, and (2r+1) taps per live row, column and axis."""
+    N = n * (d + 1)
+    nbytes = 4 * (2 * N + (d + 1) * n_lattice * 2 * order + 2 * n * c)
+    return nbytes, 4 * N * c + 2 * (2 * order + 1) * (d + 1) * n_lattice * c + n * c
+
+
+def dedup_bytes(N: int, M: int, dp1: int, order: int) -> int:
+    """K2: the N hash pairs in, the N seg ids and the (d+1, M, 2r) neighbours out."""
+    return 4 * (2 * N + N + dp1 * M * 2 * order)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -163,6 +235,8 @@ def cosine(a, b) -> float:
 
 def training_phase(dev, ds, expect, timer):
     """Phase 4: the training path at elevators.  Returns (K5's kernel row, the record)."""
+    import tempfile
+
     import torch
 
     import simplex_gp_torch
@@ -218,10 +292,13 @@ def training_phase(dev, ds, expect, timer):
                f"K5 vs plain on the same tables: rel error {r5:.3e} (limit {K5_REL})")
         r5_route = rel(gr_k, K.lattice_filter_grad_plain(ref, E, seg, v, g, tf_p, tb_p, norm))
         print(f"    K5 vs the all-plain route (plain tables too): rel {r5_route:.3e}")
+        N, nl5 = n * (d + 1), int(nl)
         k5 = dict(max_abs_err=float((gr_k - gr_p).abs().max()),
                   ms=timer(lambda: K.lattice_filter_grad(ref, E, seg, v, g, tf_k, tb_k, norm), 50),
                   plain_ms=timer(lambda: K.lattice_filter_grad_plain(ref, E, seg, v, g, tf_k, tb_k, norm), 10),
-                  shape=f"n={n}, d={d}, c=11")
+                  # ref, seg, v, g and the live rows of both tables in; grad_ref out.
+                  **bound(4 * (2 * n * d + N + 2 * n * 11 + 2 * nl5 * 11), 4 * N * 11 + N * (3 * d + 1)),
+                  library_ms=None, shape=f"n={n}, d={d}, c=11, n_lattice={nl5}")
         k3t = (timer(lambda: K.lattice_apply(seg, w, nb, nl, g, taps, norm, transpose=True,
                                              return_table=True), 20),
                timer(lambda: K.apply_plain(seg, w, nb, g, taps, norm, transpose=True, return_table=True), 5))
@@ -287,18 +364,19 @@ def training_phase(dev, ds, expect, timer):
                K.lattice_filter_grad)
     for fn in kernels:
         fn.launches = 0
-    final = trainer.main(["--dataset", "elevators", "--kernel", "matern", "--nu", "1.5", "--order", "1",
-                          "--min-noise", "0.1", "--ls-init", "median", "--cg-tol", "1.0", "--cg-iter", "500",
-                          "--lanc-iter", "100", "--pre-size", "100", "--num-probes", "10", "--epochs", "2",
-                          "--device", dev.type])
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = trainer.main(["--dataset", "elevators", "--kernel", "matern", "--nu", "1.5", "--order", "1",
+                                "--min-noise", "0.1", "--ls-init", "median", "--cg-tol", "1.0", "--cg-iter", "500",
+                                "--lanc-iter", "100", "--pre-size", "100", "--num-probes", "10", "--epochs", "2",
+                                "--out", tmp, "--device", dev.type])
     launches = {fn.__name__: fn.launches for fn in kernels}
     print(f"    launches on the trainer run: {launches}")
     expect(all(v > 0 for v in launches.values()), "every kernel launched on the trainer run")
-    expect(all(np.isfinite(final["train/loss"])) and np.isfinite(final["test/nll"])
-           and final["test/rmse"] < ENTRY_RMSE_MAX,
-           f"trainer: losses {final['train/loss']}, test RMSE {final['test/rmse']:.4f} (limit "
+    losses, final = [-r["train/mll"] for r in summary["records"]], summary["final"]
+    expect(all(np.isfinite(losses)) and np.isfinite(final["test/nll"]) and final["test/rmse"] < ENTRY_RMSE_MAX,
+           f"trainer: losses {losses}, test RMSE {final['test/rmse']:.4f} (limit "
            f"{ENTRY_RMSE_MAX}), NLL {final['test/nll']:.4f}")
-    record.update(trainer=final, trainer_launches=launches)
+    record.update(trainer=summary, trainer_launches=launches)
 
     print("training 4.5: one warm step and its stages")
     model.load_raw(point("init"))
@@ -406,8 +484,12 @@ def oneshot_phase(dev, ds, expect, timer):
             k4_ms[c] = timer(lambda: K.lattice_filter_once(ref, E, a, oh1, oh2, v, taps, norm, N), 20)
             k4_plain_ms[c] = timer(lambda: K.filter_once_plain(ref, E, a, oh1, oh2, v, taps, norm, N), 3)
             print(f"    c={c}: kernel {k4_ms[c]:.4f} ms, plain {k4_plain_ms[c]:.4f} ms")
+    # x and v in, out written; K1's geometry, then K3's operations (the tables are K4's own).
+    _, k4_ops = apply_cost(n, d, 11, occ, dk.order)
     rows["filter_once"] = dict(max_abs_err=k4_err, ms=k4_ms[11], plain_ms=k4_plain_ms[11],
-                               shape=f"n={n}, d={d}, c=11", ms_by_c=k4_ms, plain_ms_by_c=k4_plain_ms)
+                               **bound(4 * (n * d + 2 * n * 11), geometry_ops(n, d) + k4_ops), library_ms=None,
+                               shape=f"n={n}, d={d}, c=11, n_lattice={occ}", ms_by_c=k4_ms,
+                               plain_ms_by_c=k4_plain_ms)
 
     print("one-shot 5.2: K8 lattice_count vs plain (all rows of each dataset, rbf order 1)")
     rbf = kern.rbf_kernel(1)
@@ -440,8 +522,16 @@ def oneshot_phase(dev, ds, expect, timer):
         guard_s = time.perf_counter() - t0
         expect(bool(torch.isnan(guard).all()), f"houseelectric: capacity = occupancy - 1 gives all NaN "
                f"({guard_s:.3f} s, no hang)")
+        Eh, ah, _, _ = L._lattice_constants(xh.shape[1], rbf.coeffs, rbf.variance, dev)
+        hh1, hh2, _ = K.lattice_geometry(xh, Eh, ah)
+        # torch.unique of the packed keys: the dedup stage alone, given K1's hashes.
+        k8_unique_ms = timer(lambda: torch.unique(K._pack(hh1, hh2)).numel(), 3)
+        del hh1, hh2
+    nh, dh = xh.shape
     rows["count_lattice_points"] = dict(max_abs_err=k8_err, ms=k8_ms["houseelectric"],
-                                        plain_ms=k8_plain_ms["houseelectric"], shape="houseelectric x (2049280, 11)",
+                                        plain_ms=k8_plain_ms["houseelectric"],
+                                        **bound(4 * nh * dh + 4, geometry_ops(nh, dh)), library_ms=None,
+                                        unique_ms=k8_unique_ms, shape=f"houseelectric x ({nh}, {dh})",
                                         ms_by_dataset=k8_ms, plain_ms_by_dataset=k8_plain_ms)
     record.update(occupancy=occupancy, houseelectric_guard_s=guard_s)
 
@@ -455,7 +545,12 @@ def oneshot_phase(dev, ds, expect, timer):
         gp = K.deriv_grad_plain(dplan.seg_ids, dplan.weights, dplan.neighbors, ref, src, g, dtaps, norm, scale)
         r7 = rel(gk, gp)
         expect(bool(torch.isfinite(gk).all()) and r7 <= K7_REL, f"K7 vs plain: rel error {r7:.3e} (limit {K7_REL})")
+        nl7, C = int(dplan.n_lattice), 2 * 11 * (1 + d)
         rows["lattice_deriv_grad"] = dict(
+            # seg, weights, live neighbour rows, ref, src and g in; grad_ref out.
+            **bound(4 * (2 * N + (d + 1) * nl7 * 2 * dk.order + 2 * n * d + 2 * n * 11),
+                    4 * N * C + 2 * (2 * dk.order + 1) * (d + 1) * nl7 * C + 8 * n * d * 11),
+            library_ms=None,
             max_abs_err=float((gk - gp).abs().max()),
             ms=timer(lambda: K.lattice_deriv_grad(*dplan, ref, src, g, dtaps, norm, scale), 10),
             plain_ms=timer(lambda: K.deriv_grad_plain(dplan.seg_ids, dplan.weights, dplan.neighbors, ref, src, g,
@@ -580,6 +675,405 @@ def oneshot_phase(dev, ds, expect, timer):
     return rows, launches, record
 
 
+def large_n_phase(dev, expect, timer):
+    """Phase 6: the houseelectric path: K9, the bounded K2 and its guard, the trainer.
+
+    Returns (kernel rows, launches on the trainer run, the record).
+    """
+    import tempfile
+
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.kernels.pivot import pivot_column
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.ops import filter as F
+    from simplex_gp_torch.ops import lattice as L
+    from simplex_gp_torch.utils import data
+
+    golden = np.load(HOUSE_GOLDEN)
+    ds = data.load_dataset("houseelectric")
+    cut = int(golden["max_n"])
+    dk = simplex_gp_torch.SimplexGP(num_dims=11, kernel="matern", nu=1.5, order=1).dk
+    n, d = ds.train_x.shape
+    taps, norm, order, chunk = list(dk.coeffs), L.SLICE_NORM(d), dk.order, F._WIDE_CHUNK
+    E, a, oh1, oh2 = L._lattice_constants(d, dk.coeffs, dk.variance, dev)
+    rows, record = {}, {}
+    ell = {tag: trainer.median_lengthscale(x) for tag, x in (("full", ds.train_x), ("cut", ds.train_x[:cut]))}
+    for tag in ell:
+        expect(np.float32(ell[tag]) == golden[f"{tag}_ls_init"],
+               f"{tag}: median-init lengthscale {ell[tag]:.6f} vs JAX {float(golden[f'{tag}_ls_init']):.6f}")
+
+    def positions(x_np, tag):  # the training positions at the median init, as the autotrim sees them
+        return (torch.from_numpy(x_np).to(dev) / ell[tag]).contiguous()
+
+    def plain_plan(pts, cap):
+        h1, h2, w = K.geometry_plain(pts, E, a)
+        seg, nb, nl = K.dedup_neighbors_plain(h1, h2, oh1, oh2, cap)
+        return L.LatticePlan(seg.reshape(-1, d + 1), w, nb, nl)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    print("large n 6.1: K9 lattice_apply_cols vs plain (houseelectric --max-n 360,000, median init)")
+    xc = positions(ds.train_x[:cut], "cut")
+    cap_cut = int(golden["cut_capacity"])
+    k9_err = 0.0
+    with torch.no_grad():
+        cases = (("train, trimmed", xc, 100, cap_cut),
+                 ("[train; 4,096 val], untrimmed", torch.cat([xc, positions(ds.val_x[:4096], "cut")]), 101, None))
+        for name, pts, c, cap in cases:
+            expect(pts.shape[0] * (d + 1) > F._JOIN_MAX_ROWS, f"{name}: {pts.shape[0] * (d + 1)} contribution rows, "
+                   f"above the chunking threshold {F._JOIN_MAX_ROWS}")
+            v = torch.randn((pts.shape[0], c), generator=gen, device=dev)
+            kplan, pplan = L.build_plan_join(pts, dk.coeffs, dk.variance, cap), plain_plan(pts, cap)
+            kout = K.lattice_apply_cols(*kplan, v, taps, norm, chunk)
+            same = K.apply_cols_plain(*kplan, v, taps, norm, chunk)
+            route = K.apply_cols_plain(*pplan, v, taps, norm, chunk)
+            r_same, r_route = rel(kout, same), rel(kout, route)
+            k9_err = max(k9_err, float((kout - same).abs().max()))
+            expect(int(kplan.n_lattice) == int(pplan.n_lattice) and max(r_same, r_route) <= LARGE_N_REL,
+                   f"{name}, c={c}: n_lattice kernel {int(kplan.n_lattice)} plain {int(pplan.n_lattice)}; rel "
+                   f"{r_same:.3e} on the same plan, {r_route:.3e} against the all-plain route (limit {LARGE_N_REL})")
+            record[f"k9_rel_{c}"] = r_route
+            del kplan, pplan, kout, same, route
+
+    print("large n 6.2: K9 vs the unchunked K3, c = 100 over all 1,311,539 training rows (untrimmed plan)")
+    xf = positions(ds.train_x, "full")
+    with torch.no_grad():
+        plan_u = L.build_plan_join(xf, dk.coeffs, dk.variance)
+        nl_u = int(plan_u.n_lattice)
+        v100 = torch.randn((n, 100), generator=gen, device=dev)
+
+        def peak_gb(fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+        k9_out, k9_gb = peak_gb(lambda: K.lattice_apply_cols(*plan_u, v100, taps, norm, chunk))
+        k3_out, k3_gb = peak_gb(lambda: K.lattice_apply(*plan_u, v100, taps, norm))
+        r93 = rel(k9_out, k3_out)
+        expect(r93 <= LARGE_N_REL, f"K9 vs K3: rel {r93:.3e} (limit {LARGE_N_REL})")
+        del k3_out
+        k9_ms = timer(lambda: K.lattice_apply_cols(*plan_u, v100, taps, norm, chunk), 3)
+        k3_ms = timer(lambda: K.lattice_apply(*plan_u, v100, taps, norm), 3)
+        k9_plain_ms = timer(lambda: K.apply_cols_plain(*plan_u, v100, taps, norm, chunk), 1)
+        print(f"    n_lattice {nl_u} of {n * (d + 1)}: K9 {k9_ms:.3f} ms, peak {k9_gb:.3f} GB; unchunked K3 "
+              f"{k3_ms:.3f} ms, peak {k3_gb:.3f} GB; K9 plain {k9_plain_ms:.3f} ms (CUDA events)")
+        record.update(k9_k3_rel=r93, k9_ms=k9_ms, k9_peak_gb=k9_gb, k3_c100_ms=k3_ms, k3_c100_peak_gb=k3_gb,
+                      houseelectric_untrimmed_n_lattice=nl_u)
+
+    print("large n 6.3: K8 count, autotrim, the bounded K2 and its guard (all training rows, median init)")
+    with torch.no_grad():
+        occ, occ_plain = int(K.lattice_count(xf, E, a)), int(K.count_plain(xf, E, a))
+        occ_jax = int(golden["full_occupancy"])
+        cap = trainer.trim_capacity(occ, n, d)
+        expect(occ == occ_plain and abs(occ - occ_jax) <= OCC_REL * occ_jax and cap == int(golden["full_capacity"]),
+               f"occupancy {occ} (plain {occ_plain}, JAX {occ_jax}, limit {OCC_REL} relative), autotrimmed capacity "
+               f"{cap} (JAX {int(golden['full_capacity'])})")
+        h1, h2, w = K.lattice_geometry(xf, E, a)
+        v11 = torch.randn((n, 11), generator=gen, device=dev)
+        full = K.lattice_apply(*plan_u, v11, taps, norm)
+        spread = rel(K.lattice_apply(*plan_u, v11, taps, norm), full)
+        seg, nb, nl = K.lattice_dedup_neighbors(h1, h2, oh1, oh2, occ)
+        fit = K.lattice_apply(seg.reshape(n, d + 1), w, nb, nl, v11, taps, norm)
+        r_fit = rel(fit, full)
+        expect(int(nl) == occ and tuple(nb.shape) == (d + 1, occ, 2 * order) and r_fit <= LARGE_N_REL,
+               f"capacity = occupancy: n_lattice {int(nl)}, neighbours {tuple(nb.shape)}, rel {r_fit:.3e} against "
+               f"the untrimmed plan (limit {LARGE_N_REL}; two runs of the untrimmed K3 differ by {spread:.3e})")
+        # K9 on this plan: the same points and n_lattice as 6.2's, M = occupancy rows in place of n(d+1).
+        k9_fit_ms = timer(lambda: K.lattice_apply_cols(seg.reshape(n, d + 1), w, nb, nl, v100, taps, norm, chunk), 3)
+        print(f"    K9 at c = 100 on the plan of capacity = occupancy: {k9_fit_ms:.3f} ms (untrimmed, 6.2: "
+              f"{k9_ms:.3f} ms)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg, nb, nl = K.lattice_dedup_neighbors(h1, h2, oh1, oh2, occ - 1)
+        seg = seg.reshape(n, d + 1)
+        under, table = K.lattice_apply(seg, w, nb, nl, v11, taps, norm, return_table=True)
+        under9 = K.lattice_apply_cols(seg, w, nb, nl, v100, taps, norm, chunk)
+        grad = K.lattice_filter_grad(xf, E, seg, v11, v11, table, table, norm)
+        torch.cuda.synchronize()
+        guard_s = time.perf_counter() - t0
+        expect(int(nl) > occ - 1 and bool(torch.isnan(under).all() and torch.isnan(under9).all())
+               and grad.shape == (n, d),
+               f"capacity = occupancy - 1: bounded K2, K3, K9 and K5 in {guard_s:.3f} s (host clock, no hang, no "
+               f"fault); K3 and K9 all NaN; count {int(nl)}")
+        del under, under9, table, grad, fit
+        bounded_ms = timer(lambda: K.lattice_dedup_neighbors(h1, h2, oh1, oh2, cap), 5)
+        unbounded_ms = timer(lambda: K.lattice_dedup_neighbors(h1, h2, oh1, oh2), 5)
+        bounded_plain_ms = timer(lambda: K.dedup_neighbors_plain(h1, h2, oh1, oh2, cap), 2)
+        print(f"    K2 bounded (capacity {cap}) {bounded_ms:.3f} ms, unbounded {unbounded_ms:.3f} ms, bounded plain "
+              f"{bounded_plain_ms:.3f} ms; guard run {guard_s:.3f} s")
+        hc1, hc2, wc = K.lattice_geometry(xc, E, a)
+        kseg, knb, knl = K.lattice_dedup_neighbors(hc1, hc2, oh1, oh2, cap_cut)
+        pseg, pnb, pnl = K.dedup_neighbors_plain(hc1, hc2, oh1, oh2, cap_cut)
+        vc = torch.randn((xc.shape[0], 11), generator=gen, device=dev)
+        r_b = rel(K.lattice_apply(kseg.reshape(-1, d + 1), wc, knb, knl, vc, taps, norm),
+                  K.apply_plain(pseg.reshape(-1, d + 1), wc, pnb, vc, taps, norm, n_lattice=pnl))
+        k2b_err = abs(int(knl) - int(pnl))
+        expect(int(knl) == int(pnl) == int(golden["cut_occupancy"]) and r_b <= LARGE_N_REL,
+               f"bounded K2 vs plain at n={cut}, capacity {cap_cut}: n_lattice {int(knl)} / {int(pnl)} (JAX "
+               f"{int(golden['cut_occupancy'])}); K3 on each, rel {r_b:.3e} (limit {LARGE_N_REL})")
+        del hc1, hc2, wc, kseg, knb, pseg, pnb
+    rows["lattice_dedup_neighbors_bounded"] = dict(
+        max_abs_err=k2b_err, ms=bounded_ms, plain_ms=bounded_plain_ms,
+        **bound(dedup_bytes(n * (d + 1), cap, d + 1, order), 0), library_ms=None,
+        shape=f"houseelectric N={n * (d + 1)} hash pairs, capacity {cap}", unbounded_ms=unbounded_ms)
+    record.update(occupancy=occ, occupancy_jax=occ_jax, capacity=cap, trim_rel=r_fit, k3_repeat_rel=spread,
+                  guard_s=guard_s, bounded_k2_rel=r_b, k9_capacity_occupancy_ms=k9_fit_ms)
+
+    print(f"    NLML and raw gradients at n={cut}, capacity {cap_cut}, vs JAX on the CPU (same probes)")
+    xcut, ycut = torch.from_numpy(ds.train_x[:cut]).to(dev), torch.from_numpy(ds.train_y[:cut]).to(dev)
+    z = torch.from_numpy(np.random.default_rng(int(golden["seed"])).choice([-1.0, 1.0], size=(xcut.shape[0], 10))
+                         .astype(np.float32)).to(dev)
+    # "init": the training CG at tolerance 1.0, whose stop after 10, 11 or 12 iterations turns on f32
+    # noise at the tolerance (K3's atomic order): the NLML is held, the gradients printed.  "fixed":
+    # exactly JAX's iteration count on both sides, NLML and gradients held.  At this point the
+    # outputscale and lengthscale gradients nearly cancel (|d/draw_outputscale| ~5e-4 against
+    # |d/draw_noise| ~0.30), so each group's error is taken relative to the whole raw gradient's
+    # norm; against their own norms the port on the CPU (plain versions, deterministic) is 0.117
+    # (outputscale) and 0.037 (lengthscales) from JAX, the chain-vs-join operator difference
+    # amplified by the cancellation, with or without the capacity.
+    for tag, tol, iters in (("init", 1.0, 500), ("fixed", 0.0, int(golden["cg_iters_fixed"]))):
+        cfg = mll.BBMMConfig(cg_tolerance=tol, max_cg_iterations=iters, max_lanczos_iterations=100,
+                             precond_rank=100, num_probes=10, plan_capacity=cap_cut)
+        model = simplex_gp_torch.SimplexGP(num_dims=d, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                           device=dev)
+        model.load_raw({k: golden[f"init_{k}"] for k in RAW_NAMES})
+        stats = {}
+        loss = model.nlml(xcut, ycut, probes=z, stats=stats)
+        loss.backward()
+        dl = abs(float(loss.detach()) - float(golden[f"loss_{tag}"]))
+        jax_iters = int(golden[f"cg_iters_{tag}"])
+        expect(dl <= NLML_ATOL and (tag == "init" or stats["cg_iters"] == jax_iters),
+               f"{tag}: NLML {float(loss.detach()):.6f} vs JAX {float(golden[f'loss_{tag}']):.6f} (|diff| {dl:.2e}, "
+               f"limit {NLML_ATOL}); CG iterations {stats['cg_iters']} (JAX {jax_iters})")
+        ga = {k: getattr(model, k).grad.detach().cpu().numpy().astype(np.float64).ravel() for k in RAW_NAMES}
+        gb = {k: golden[f"grad_{tag}_{k}"].astype(np.float64).ravel() for k in RAW_NAMES}
+        whole_a, whole_b = (np.concatenate([g_[k] for k in RAW_NAMES]) for g_ in (ga, gb))
+        scale = np.linalg.norm(whole_b)
+        c_ = cosine(whole_a, whole_b)
+        worst = max(float(np.linalg.norm(ga[k] - gb[k]) / scale) for k in RAW_NAMES)
+        own = {k: float(np.linalg.norm(ga[k] - gb[k]) / np.linalg.norm(gb[k])) for k in RAW_NAMES}
+        what = (f"{tag}: raw gradient cos {c_:.6f} (limit {GRAD_COS}); worst group error {worst:.2e} of the whole "
+                f"gradient's norm (limit {GRAD_REL}); each group against its own norm: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in own.items()))
+        if tag == "fixed":
+            expect(c_ >= GRAD_COS and worst <= GRAD_REL, what)
+        else:
+            print(f"    {what}")
+        record.update({f"cut_{tag}_grad_rel_{k}": v for k, v in own.items()})
+        record[f"cut_{tag}_grad_worst_of_whole"] = worst
+        record.update({f"cut_{tag}_nlml_diff": dl, f"cut_{tag}_cg_iters": stats["cg_iters"]})
+    steps = len(golden["adam_loss"])
+    print(f"    {steps} Adam steps at n={cut} (fit_adam, lr 0.1, CG tolerance 1.0) vs the JAX trajectory (same probes)")
+    model.bbmm = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100,
+                                precond_rank=100, num_probes=10, plan_capacity=cap_cut)
+    model.load_raw({k: golden[f"init_{k}"] for k in RAW_NAMES})
+    zs = iter([torch.from_numpy(np.random.default_rng(int(golden["seed"]) + 1 + e).choice(
+        [-1.0, 1.0], size=(xcut.shape[0], 10)).astype(np.float32)).to(dev) for e in range(steps)])
+    traj, iters, st = [], [], {}
+
+    def after_step(*_):
+        traj.append({k: getattr(model, k).detach().cpu().numpy() for k in RAW_NAMES})
+        iters.append(st["cg_iters"])
+
+    hist = simplex_gp_torch.fit_adam(lambda _gen: model.nlml(xcut, ycut, probes=next(zs), stats=st),
+                                     model.parameters(), epochs=steps, lr=0.1, callback=after_step)
+    # Adam's first step moves each raw parameter by lr times the sign of its gradient, so it matches
+    # JAX's while every sign does; the loss of step 1 is then the NLML at the same point.  Later steps
+    # are printed, not held: the lengthscale gradients here are ~1e-4 against 0.3 for the noise and
+    # carry ~2e-2 of their own norm in f32 noise (the per-group errors above), which Adam turns into
+    # moves of up to lr once a gradient nears zero, so two correct runs part (PERF.md section 6, PR 4).
+    losses = np.array(hist["loss"])
+    dl2 = float(np.abs(losses[:2] - golden["adam_loss"][:2]).max())
+    dp1 = max(float(np.abs(traj[0][k] - golden[f"adam_{k}"][0]).max()) for k in RAW_NAMES)
+    expect(dl2 <= ADAM_LOSS_ATOL and dp1 <= ADAM_PARAM_ATOL,
+           f"first Adam step: raw parameters max |diff| {dp1:.2e} (limit {ADAM_PARAM_ATOL}); losses of steps 0-1 "
+           f"max |diff| {dl2:.2e} (limit {ADAM_LOSS_ATOL})")
+    jl = golden["adam_raw_lengthscale"]
+    pl = np.stack([t["raw_lengthscale"] for t in traj])
+    moves = np.sign(np.diff(np.concatenate([golden["init_raw_lengthscale"][None], pl]), axis=0))
+    jmoves = np.sign(np.diff(np.concatenate([golden["init_raw_lengthscale"][None], jl]), axis=0))
+    agree = int((moves == jmoves).sum())
+    dp = np.abs(pl - jl).max(axis=1)
+    print(f"    losses {np.round(losses, 6).tolist()} (JAX {np.round(golden['adam_loss'], 6).tolist()}), CG "
+          f"iterations {iters}; raw lengthscales max |diff| per step {np.round(dp, 4).tolist()}; the sign of "
+          f"each step's move agrees with JAX's in {agree} of {moves.size}")
+    record.update(adam_losses=losses.tolist(), adam_cg_iters=iters, adam_first_step_param_diff=dp1,
+                  adam_lengthscale_diff_per_step=dp.tolist(), adam_move_signs_agree=agree,
+                  adam_move_signs=int(moves.size))
+    del model, loss, plan_u, v100, k9_out, h1, h2, w, seg, nb
+
+    print("large n 6.4: python -m simplex_gp_torch.train at houseelectric, the round-5 flags, two epochs")
+    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, K.lattice_apply_cols, pivot_column,
+            K.lattice_filter_grad, K.lattice_count)
+    predictions = []
+    real_predict = simplex_gp_torch.SimplexGP.predict_from_cache
+
+    def recording_predict(self, cache, x, x_test):
+        mean, var = real_predict(self, cache, x, x_test)
+        predictions.append(dict(rows=x_test.shape[0], shape_ok=mean.shape == var.shape == (x_test.shape[0],),
+                                finite=bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+                                positive=bool((var > 0).all())))
+        return mean, var
+
+    for fn in path:
+        fn.launches = 0
+    K.lattice_dedup_neighbors.bounded_launches = 0
+    simplex_gp_torch.SimplexGP.predict_from_cache = recording_predict
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            summary = trainer.main([*HOUSE_FLAGS, "--epochs", "2", "--log-int", "2", "--out", tmp,
+                                    "--device", dev.type])
+            lines = [json.loads(line) for line in
+                     (pathlib.Path(summary["out_dir"]) / "metrics.jsonl").read_text().splitlines()]
+    finally:
+        simplex_gp_torch.SimplexGP.predict_from_cache = real_predict
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in path}
+    launches["lattice_dedup_neighbors_bounded"] = K.lattice_dedup_neighbors.bounded_launches
+    print(f"    launches on the trainer run: {launches}")
+    expect(all(v > 0 for v in launches.values()), "every kernel of the path launched on the trainer run")
+    expect(launches["lattice_apply_cols"] == 4, f"K9 launched {launches['lattice_apply_cols']} times: expected "
+           f"the two sketch MVMs of the val eval's posterior_cache, its rect predict and the test predict")
+    recs = summary["records"]
+    expect(all(np.isfinite(r["train/mll"]) for r in recs), f"finite losses {[r['train/mll'] for r in recs]}")
+    expect(summary["plan_capacity"] == cap, f"the trainer's capacity {summary['plan_capacity']} (phase 6.3: {cap})")
+    sizes = [ds.val_x.shape[0], ds.test_x.shape[0]]
+    expect([p_["rows"] for p_ in predictions] == sizes and all(p_["shape_ok"] and p_["finite"] and p_["positive"]
+                                                               for p_ in predictions),
+           f"val and test predictions: {predictions} (one finite mean and positive variance per row of {sizes})")
+    final = summary["final"]
+    val_rmse = recs[-1].get("val/rmse", float("nan"))
+    expect(val_rmse < ENTRY_RMSE_MAX and final.get("test/rmse", float("nan")) < ENTRY_RMSE_MAX,
+           f"val RMSE {val_rmse:.4f}, test RMSE {final.get('test/rmse', float('nan')):.4f} (limit {ENTRY_RMSE_MAX}), "
+           f"test NLL {final.get('test/nll', float('nan')):.4f}")
+    epoch_lines = [r for r in lines if "epoch" in r]
+    keys_ok = (sorted(lines[0]) == ["config", "model"] and set(epoch_lines[0]) == EPOCH_KEYS
+               and set(epoch_lines[-1]) == EPOCH_KEYS | VAL_KEYS and set(lines[-1]) == TEST_KEYS)
+    expect(keys_ok, f"metrics.jsonl keys: {[sorted(r) for r in lines]}")
+    step_ms = [1e3 * r["train/loss_ts"] for r in recs]
+    print(f"    steps {[round(t, 1) for t in step_ms]} ms (host clock, synchronised); val eval "
+          f"{recs[-1]['val/pred_ts']:.3f} s with {recs[-1]['val/cg_iters']} eval CG iterations; test predict "
+          f"{final['test/pred_ts']:.3f} s; outputscale {recs[-1]['hyp/outputscale']:.4f}, lengthscales "
+          f"{recs[-1]['hyp/ell_min']:.3f}..{recs[-1]['hyp/ell_max']:.3f}; phase wall time {wall_s:.1f} s")
+    record.update(trainer=summary, trainer_wall_s=wall_s, trainer_launches=launches)
+
+    print("large n 6.5: one warm training step and one eval at houseelectric, stage by stage (CUDA events)")
+    stages, evals, peaks = houseelectric_stages(dev, ds, dk, cap, ell["full"])
+    print("    training step (ms): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    print("    eval (ms): " + json.dumps({k: round(v, 3) for k, v in evals.items()}))
+    print(f"    peak device memory (GB): {json.dumps({k: round(v, 3) for k, v in peaks.items()})}")
+    record.update(step_stages=stages, eval_stages=evals, peak_gb=peaks)
+
+    rows["lattice_apply_cols"] = dict(max_abs_err=k9_err, ms=k9_ms, plain_ms=k9_plain_ms,
+                                      **bound(*apply_cost(n, d, 100, nl_u, order)),
+                                      library_ms=None, shape=f"houseelectric n={n}, c=100, n_lattice={nl_u}, "
+                                      f"untrimmed", peak_gb=k9_gb, unchunked_k3_ms=k3_ms, unchunked_k3_peak_gb=k3_gb,
+                                      capacity_occupancy_ms=k9_fit_ms)
+    return rows, launches, record
+
+
+def houseelectric_stages(dev, ds, dk, cap, ell):
+    """Phase 6.5: a warm training step and an eval (posterior cache + val predict) by stage.
+
+    The stages are those of mll._solve_system and SimplexGP.posterior_cache /
+    predict_from_cache, run one by one between CUDA events.
+    """
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.cg import cg_solve
+    from simplex_gp_torch.linalg.lanczos import logdet_from_cg_tridiag
+    from simplex_gp_torch.linalg.pivoted_cholesky import precond_solve, precond_sqrt
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.models.exact_gp import rademacher
+    from simplex_gp_torch.ops.filter import apply_plan_wide, build_plan_any, lattice_filter_rect
+    from simplex_gp_torch.ops.lattice import apply_plan_join
+
+    cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                         num_probes=10, plan_capacity=cap)
+    model = simplex_gp_torch.SimplexGP(num_dims=11, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                       device=dev)
+    model.load_raw(init_raw_params(11, lengthscale=ell))
+    x, y = torch.from_numpy(ds.train_x).to(dev), torch.from_numpy(ds.train_y).to(dev)
+    xv = torch.from_numpy(ds.val_x).to(dev)
+    n = x.shape[0]
+    z = rademacher((n, 10), torch.Generator(device=dev).manual_seed(7), dev)
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+    train_step(model, opt, x, y, z)  # warm-up
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    peaks = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        ev[0].record()
+        params = model.constrained()
+        ref = x * params["inv_ell"]
+        plan = build_plan_any(ref, dk, cap)
+        ev[1].record()
+        P = mll.build_precond(dk, cfg, params, ref, n)
+        ev[2].record()
+        s, noise = params["outputscale"], params["noise"]
+        res = cg_solve(lambda V: s * apply_plan_join(plan, V, dk.coeffs) + noise * V,
+                       torch.cat([(y - params["mean"])[:, None], precond_sqrt(P, z)], dim=-1), tol=1.0,
+                       max_iters=500, precond=lambda V: precond_solve(P, V), tridiag_m=100)
+        ev[3].record()
+        logdet_from_cg_tridiag(res.alphas[:, 1:], res.betas[:, 1:], res.tmask[:, 1:], (z * z).sum(0))
+        ev[4].record()
+    loss = model.nlml(x, y, probes=z)
+    ev[5].record()
+    loss.backward()
+    ev[6].record()
+    opt.step()
+    ev[7].record()
+    torch.cuda.synchronize()
+    peaks["training_step"] = torch.cuda.max_memory_allocated() / 1e9
+    names = ("plan", "preconditioner", "cg", "slq_eigh", "forward", "backward", "adam")
+    stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
+    stages["cg_iters"] = res.iterations
+    stages["warm_step"] = cuda_ms(lambda: train_step(model, opt, x, y, z), 2)
+    del plan, P, res, loss
+
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    with torch.no_grad():
+        ev[0].record()
+        params = model.constrained()
+        ref = x * params["inv_ell"]
+        plan = build_plan_any(ref, dk, cap)
+        ev[1].record()
+        P = mll.build_precond(dk, cfg, params, ref, n)
+        ev[2].record()
+        s, noise = params["outputscale"], params["noise"]
+        sol = cg_solve(lambda V: s * apply_plan_join(plan, V, dk.coeffs) + noise * V,
+                       (y - params["mean"])[:, None], tol=model.eval_cg_tolerance, max_iters=500,
+                       precond=lambda V: precond_solve(P, V))
+        ev[3].record()
+        omega = torch.randn((n, 100), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+        Q, _ = torch.linalg.qr(s * apply_plan_wide(plan, omega, dk) + noise * omega)
+        T = Q.T @ (s * apply_plan_wide(plan, Q, dk) + noise * Q)
+        evals_, evecs = torch.linalg.eigh(0.5 * (T + T.T))
+        root_inv = Q @ (evecs / torch.sqrt(torch.clamp(evals_, min=1e-8))[None, :])
+        ev[4].record()
+        cols = torch.cat([sol.x[:, :1], root_inv], dim=-1)
+        lattice_filter_rect(cols, ref, xv * params["inv_ell"], dk)
+        ev[5].record()
+    torch.cuda.synchronize()
+    peaks["eval"] = torch.cuda.max_memory_allocated() / 1e9
+    names = ("plan", "preconditioner", "eval_cg", "range_sketch", "predict_val")
+    evals = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
+    evals["eval_cg_iters"] = sol.iterations
+    return stages, evals, peaks
+
+
 def train_step(model, opt, x, y, z):
     opt.zero_grad(set_to_none=True)
     model.nlml(x, y, probes=z).backward()
@@ -609,6 +1103,7 @@ def main() -> int:
         if not ok:
             failures.append(what)
 
+    t_start = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -664,6 +1159,8 @@ def main() -> int:
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: K.lattice_geometry(ref, E, a), 20),
         plain_ms=cuda_ms(lambda: K.geometry_plain(ref, E, a), 5),
+        **bound(4 * n * d + 12 * n * (d + 1), geometry_ops(n, d)),  # x in; h1, h2, weights out
+        library_ms=None,
         shape=f"x ({n}, {d})",
     )
 
@@ -682,7 +1179,7 @@ def main() -> int:
         golden_nl = int(golden[f"n_lattice_{name}"])
         expect(int(knl) == golden_nl, f"{name}: n_lattice {int(knl)} vs JAX join plan {golden_nl}")
         if name == "train":
-            k2_case = (h1, h2)
+            k2_case, train_nl = (h1, h2), int(knl)
         kseg, pseg = kseg.reshape(-1, d + 1), pseg.reshape(-1, d + 1)
         for c in widths:
             v = torch.randn((pts.shape[0], c), generator=gen, device=dev)
@@ -701,11 +1198,16 @@ def main() -> int:
         max_abs_err=k2_err,  # |n_lattice kernel - plain|; the operator is checked through K3
         ms=cuda_ms(lambda: K.lattice_dedup_neighbors(h1, h2, oh1, oh2), 20),
         plain_ms=cuda_ms(lambda: K.dedup_neighbors_plain(h1, h2, oh1, oh2), 5),
+        **bound(dedup_bytes(h1.shape[0], h1.shape[0], d + 1, order), 0),
+        library_ms=None,
+        # torch.unique with the inverse: the seg ids alone, not the neighbours.
+        unique_ms=cuda_ms(lambda: torch.unique(K._pack(h1, h2), return_inverse=True), 5),
         shape=f"N={h1.shape[0]} hash pairs",
     )
     rows["lattice_apply"] = dict(
-        max_abs_err=k3_err, ms=k3_ms[1], plain_ms=k3_plain_ms[1], shape="train, c=1",
-        ms_by_c=k3_ms, plain_ms_by_c=k3_plain_ms,
+        max_abs_err=k3_err, ms=k3_ms[1], plain_ms=k3_plain_ms[1],
+        **bound(*apply_cost(n, d, 1, train_nl, order)), library_ms=None,
+        shape=f"train, c=1, n_lattice={train_nl}", ms_by_c=k3_ms, plain_ms_by_c=k3_plain_ms,
     )
 
     # ---- K6 ------------------------------------------------------------------
@@ -739,6 +1241,9 @@ def main() -> int:
     r_step = max(rel(La[:, k - 1], Lb[:, k - 1]), rel(da, db))
     expect(r_step <= K6_STEP_REL, f"single step j={k - 1}: rel error {r_step:.3e} (limit {K6_STEP_REL})")
     rows["pivot_column"] = dict(
+        # ref, L[:, :j] and the diagonal in; L[:, j] and the diagonal out; d2, the kernel, the dot.
+        **bound(4 * (n * d + n * (k - 1) + 3 * n), n * (3 * d + 2 * (k - 1) + 12)),
+        library_ms=None,
         max_abs_err=float((La[:, k - 1] - Lb[:, k - 1]).abs().max()),
         ms=cuda_ms(lambda: pivot_column(ref, La, dg0, piv0, k - 1, s, d0, dk.nu, pa), 50),
         plain_ms=cuda_ms(lambda: pivot_column_plain(ref, Lb, dg0, piv0, k - 1, s, d0, dk.nu, pb), 20),
@@ -807,6 +1312,13 @@ def main() -> int:
     print(f"one-shot phase: {time.perf_counter() - t_once:.1f} s")
     print("one-shot: " + json.dumps(oneshot))
 
+    t_large = time.perf_counter()
+    large_rows, large_launches, large = large_n_phase(dev, expect, cuda_ms)
+    rows.update(large_rows)
+    launches.update({k: large_launches[k] for k in large_rows})
+    print(f"large-n phase: {time.perf_counter() - t_large:.1f} s")
+    print("large n: " + json.dumps(large))
+
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -815,6 +1327,7 @@ def main() -> int:
         posterior_cache_ms=cache_ms, predict_ms=predict_ms, cg_iters=cache["cg_iters"],
         cg_res=float(cache["cg_res"]), rmse=rmse, nll=nll, mean_rms_diff=mean_rms,
         predict_max_abs_diff=dpred)))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernel build included")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures, sep="\n  ", file=sys.stderr)
         return 1

@@ -3,16 +3,19 @@
 The port of the JAX package ``simplex_gp_tpu`` (the reference it is tested
 against) to PyTorch and CUDA on an NVIDIA H100, for the rbf and Matern
 lattice kernels: training (``SimplexGP.nlml`` through ``lattice_nlml``,
-``fit_adam``, ``python -m simplex_gp_torch.train``; exact or
-reference-parity ``grad_mode="deriv_filter"`` gradients), serving
-(``SimplexGP.posterior_cache`` and ``predict_from_cache``) and the
+``fit_adam``, ``python -m simplex_gp_torch.train`` with periodic evaluation,
+early stopping, checkpoints and resume; exact or reference-parity
+``grad_mode="deriv_filter"`` gradients; a capacity-bounded training plan,
+``BBMMConfig.plan_capacity``), serving (``SimplexGP.posterior_cache`` and
+``predict_from_cache``, chunked above 4M contribution rows) and the
 reference's filter entry points (``filter_once``, ``count_lattice_points``,
 ``lattice_filter``; ``python -m simplex_gp_torch.mvm_err``).  Its kernels --
-lattice geometry (K1), dedup and neighbours (K2), apply (K3), the one-shot
-filter (K4), the filter's position gradient (K5), the pivoted-Cholesky
-column (K6), the derivative-tap gradient (K7) and the occupancy count (K8)
--- live in ``simplex_gp_torch/csrc`` and build at first use on a CUDA
-tensor; on CPU tensors their plain PyTorch versions run.
+lattice geometry (K1), dedup and neighbours (K2, optionally bounded), apply
+(K3, with the capacity guard), the one-shot filter (K4), the filter's
+position gradient (K5), the pivoted-Cholesky column (K6), the
+derivative-tap gradient (K7), the occupancy count (K8) and the chunked wide
+apply (K9) -- live in ``simplex_gp_torch/csrc`` and build at first use on a
+CUDA tensor; on CPU tensors their plain PyTorch versions run.
 
 Importing the package sets float32 matrix products to full precision (TF32
 off): the preconditioner's SPD guard was tuned to float32 error.  It never

@@ -1,6 +1,11 @@
-// K3 lattice_apply: out = SLICE_NORM * S^T B_d ... B_0 S v for v (n, c).
+// K3 lattice_apply: out = SLICE_NORM * S^T B_d ... B_0 S v for v (n, c);
+// and K9 lattice_apply_cols: the same operator over a wide v, one column
+// window at a time.
 //
-// Replaces simplex_gp_tpu/ops/lattice.py::apply_plan_join (:470).
+// K3 replaces simplex_gp_tpu/ops/lattice.py::apply_plan_join (:470), with
+// the capacity guard of apply_plan_chain (:1093-1100); K9 replaces
+// simplex_gp_tpu/ops/filter.py::lattice_filter_wide_chunked (:65) and
+// make_wide_filter (:87), the chunked apply above 4M contribution rows.
 //
 // Bound: memory traffic.  Splat moves n(d+1)c weighted values into the
 // (M, c) table, each of the d+1 blurs reads (2r+1) rows and writes one per
@@ -18,17 +23,35 @@
 //   slice: one thread per (point, column): barycentric sum of d+1 rows.
 // Blur and slice use explicit round-to-nearest operations in the plain
 // version's order, so given the same table they match it bit for bit.
+//
+// Capacity guard.  A plan built with a capacity (K2 bounded, dedup.cu) has
+// M = capacity rows, and its live count may pass M; every contribution then
+// points at row 0.  Splat and blur read the count on the device and do
+// nothing once it passes M, so no launch touches a row at or past M, and the
+// slice writes NaN (JAX's guard).  The host never reads the count.  An
+// untrimmed plan (M = n(d+1)) passes no count to splat and slice.
+//
+// K9.  At houseelectric's eval sizes (19.7M contribution rows, 101 columns)
+// two (M, c) tables would take 16 GB.  lattice_apply_cols keeps one pair of
+// (M, w) tables, w = 8, and runs splat, blurs and slice once per window
+// [c0, c0 + w) of the columns: the splat reads the window in place with v's
+// row stride c and the slice writes it in place into out, so no (n, w) copy
+// of a window is made and no column is padded (the last window is
+// narrower).  Each window re-reads the plan (seg ids, weights, neighbours);
+// that costs ceil(c / w) plan reads against one, for 1/13 of the tables.
 #include "common.cuh"
 
 __global__ void splat_kernel(const int* __restrict__ seg, const float* __restrict__ w,
-                             const float* __restrict__ v, int n, int dp1, int c,
-                             float* __restrict__ table) {
+                             const float* __restrict__ v, int n, int dp1, int wd, int ldv,
+                             int c0, float* __restrict__ table, const int* __restrict__ count,
+                             int capacity) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n * dp1 * c) return;
-  const int col = (int)(idx % c);
-  const long long e = idx / c;  // contribution = point * dp1 + vertex
+  if (idx >= (long long)n * dp1 * wd) return;
+  if (count != nullptr && *count > capacity) return;
+  const int col = (int)(idx % wd);
+  const long long e = idx / wd;  // contribution = point * dp1 + vertex
   const long long p = e / dp1;
-  atomicAdd(&table[(long long)seg[e] * c + col], __fmul_rn(v[p * c + col], w[e]));
+  atomicAdd(&table[(long long)seg[e] * wd + col], __fmul_rn(v[p * ldv + c0 + col], w[e]));
 }
 
 __global__ void blur_kernel(const float* __restrict__ in, float* __restrict__ out,
@@ -36,7 +59,8 @@ __global__ void blur_kernel(const float* __restrict__ in, float* __restrict__ ou
                             int c, int order, const int* __restrict__ count) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = idx / c;
-  if (row >= *count) return;
+  const int live = *count;
+  if (live > M || row >= live) return;  // a tripped guard, or a row past the live ones
   const int col = (int)(idx % c);
   const int r2 = 2 * order;
   float acc = __fmul_rn(taps.v[order], in[idx]);
@@ -48,27 +72,41 @@ __global__ void blur_kernel(const float* __restrict__ in, float* __restrict__ ou
 }
 
 __global__ void slice_kernel(const float* __restrict__ table, const int* __restrict__ seg,
-                             const float* __restrict__ w, int n, int dp1, int c, float norm,
-                             float* __restrict__ out) {
+                             const float* __restrict__ w, int n, int dp1, int wd, float norm,
+                             float* __restrict__ out, int ldo, int c0,
+                             const int* __restrict__ count, int capacity) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n * c) return;
-  const int col = (int)(idx % c);
-  const long long p = idx / c;
+  if (idx >= (long long)n * wd) return;
+  const int col = (int)(idx % wd);
+  const long long p = idx / wd;
+  float* dst = out + p * ldo + c0 + col;
+  if (count != nullptr && *count > capacity) {
+    *dst = __int_as_float(0x7fc00000);  // quiet NaN
+    return;
+  }
   float acc = 0.0f;
   for (int v = 0; v < dp1; ++v) {
     const long long e = p * dp1 + v;
-    acc = __fadd_rn(acc, __fmul_rn(table[(long long)seg[e] * c + col], w[e]));
+    acc = __fadd_rn(acc, __fmul_rn(table[(long long)seg[e] * wd + col], w[e]));
   }
-  out[idx] = __fmul_rn(acc, norm);
+  *dst = __fmul_rn(acc, norm);
 }
 
+// count (nullable): the guard's live count, against capacity.
 extern "C" int sgp_lattice_splat(const int* seg, const float* w, const float* v, int n, int dp1,
-                                 int c, float* table, void* stream) {
+                                 int c, float* table, const int* count, int capacity,
+                                 void* stream) {
   const long long work = (long long)n * dp1 * c;
   if (work > 0)
-    splat_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(seg, w, v, n, dp1,
-                                                                              c, table);
+    splat_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+        seg, w, v, n, dp1, c, c, 0, table, count, capacity);
   return (int)cudaGetLastError();
+}
+
+static SgpTaps sgp_taps(const float* taps_host, int order) {
+  SgpTaps taps = {};
+  for (int t = 0; t < 2 * order + 1; ++t) taps.v[t] = taps_host[t];
+  return taps;
 }
 
 // taps_host: 2*order+1 floats in host memory, copied into the launch.
@@ -76,20 +114,55 @@ extern "C" int sgp_lattice_blur(const float* in, float* out, const int* nb,
                                 const float* taps_host, int M, int c, int order,
                                 const int* count, void* stream) {
   if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
-  SgpTaps taps = {};
-  for (int t = 0; t < 2 * order + 1; ++t) taps.v[t] = taps_host[t];
   const long long work = (long long)M * c;
   if (work > 0)
-    blur_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(in, out, nb, taps, M,
-                                                                             c, order, count);
+    blur_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+        in, out, nb, sgp_taps(taps_host, order), M, c, order, count);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sgp_lattice_slice(const float* table, const int* seg, const float* w, int n,
-                                 int dp1, int c, float norm, float* out, void* stream) {
+                                 int dp1, int c, float norm, float* out, const int* count,
+                                 int capacity, void* stream) {
   const long long work = (long long)n * c;
   if (work > 0)
-    slice_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(table, seg, w, n,
-                                                                              dp1, c, norm, out);
+    slice_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+        table, seg, w, n, dp1, c, norm, out, c, 0, count, capacity);
   return (int)cudaGetLastError();
+}
+
+// K9.  v and out are (n, c) row-major; nb is the plan's (dp1, M, 2r)
+// neighbour array; n_lattice its live count; guard (nullable) as for
+// splat and slice.  ta and tb hold M * chunk floats each; ta need not be
+// zeroed (each window zeroes it).
+extern "C" int sgp_lattice_apply_cols(const int* seg, const float* w, const int* nb,
+                                      const int* n_lattice, const float* v, int n, int dp1,
+                                      int c, int chunk, int M, const float* taps_host, int order,
+                                      float norm, const int* guard, float* ta, float* tb,
+                                      float* out, void* stream) {
+  if (2 * order + 1 > SGP_MAX_TAPS || chunk <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || c <= 0 || M <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const SgpTaps taps = sgp_taps(taps_host, order);
+  const long long nbs = (long long)M * 2 * order;  // one axis of nb
+  cudaError_t err;
+  for (int c0 = 0; c0 < c; c0 += chunk) {
+    const int wd = c - c0 < chunk ? c - c0 : chunk;
+    if ((err = cudaMemsetAsync(ta, 0, sizeof(float) * (size_t)M * wd, st)) != cudaSuccess)
+      return (int)err;
+    splat_kernel<<<sgp_blocks((long long)n * dp1 * wd), SGP_THREADS, 0, st>>>(
+        seg, w, v, n, dp1, wd, c, c0, ta, guard, M);
+    float *a = ta, *b = tb;
+    for (int j = 0; j < dp1; ++j) {
+      blur_kernel<<<sgp_blocks((long long)M * wd), SGP_THREADS, 0, st>>>(a, b, nb + j * nbs, taps,
+                                                                          M, wd, order, n_lattice);
+      float* t = a;
+      a = b;
+      b = t;
+    }
+    slice_kernel<<<sgp_blocks((long long)n * wd), SGP_THREADS, 0, st>>>(a, seg, w, n, dp1, wd, norm,
+                                                                        out, c, c0, guard, M);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

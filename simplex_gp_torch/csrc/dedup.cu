@@ -20,16 +20,29 @@
 //      neighbour is not occupied.  Rows past the live count write M.
 // Row numbering follows the order in which threads win their CAS, so it
 // varies from run to run; the count n_lattice and the operator do not.
+//
+// Bounded (a capacity below N, the training plan of a trimmed run; JAX's
+// build_plan(capacity), lattice.py:857-892 and _chain_core :733): the hash
+// table has >= 2 capacity slots and M = capacity rows, and the insert is
+// sgp_insert<true> -- a thread stops at its next collision once the counter
+// has passed the capacity, and one lap ends any probe sequence.  On that
+// overflow every seg id is 0 (a valid row), the neighbour pass writes M
+// everywhere, and the count is left past the capacity, which K3's guard
+// (apply.cu) reads.  The untrimmed K2 keeps sgp_insert<false>: the counter
+// read on each collision cost it 7-18% on the H100.
 #include "common.cuh"
 
+template <bool kBounded>
 __global__ void insert_kernel(const int* __restrict__ h1, const int* __restrict__ h2, int N,
-                              unsigned long long* table, unsigned int mask,
+                              unsigned long long* table, unsigned int mask, int capacity,
                               int* __restrict__ slot_of, int* row_of_slot, int* count,
                               int* row_h1, int* row_h2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < N)
-    slot_of[i] = sgp_insert<false>((unsigned int)h1[i], (unsigned int)h2[i], table, mask, N,
-                                   row_of_slot, row_h1, row_h2, count);
+  if (i >= N) return;
+  slot_of[i] = kBounded && *(volatile int*)count > capacity
+                   ? -1
+                   : sgp_insert<kBounded>((unsigned int)h1[i], (unsigned int)h2[i], table, mask,
+                                          capacity, row_of_slot, row_h1, row_h2, count);
 }
 
 __global__ void seg_kernel(const int* __restrict__ slot_of, const int* __restrict__ row_of_slot,
@@ -37,8 +50,8 @@ __global__ void seg_kernel(const int* __restrict__ slot_of, const int* __restric
                            int* __restrict__ seg_ids) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
-  // Past the capacity (K4 only) every row id is replaced by 0, a valid row,
-  // so no later phase reads out of bounds; K4's guard then writes NaN.
+  // Past the capacity (bounded K2 and K4) every row id is replaced by 0, a
+  // valid row, so no later phase reads out of bounds; the guard writes NaN.
   seg_ids[i] = *count > capacity ? 0 : row_of_slot[slot_of[i]];
 }
 
@@ -55,7 +68,8 @@ __global__ void neighbors_kernel(const unsigned long long* __restrict__ table, u
   const int row = (int)((idx / r2) % M);
   const int axis = (int)(idx / ((long long)r2 * M));
   int found = -1;
-  if (row < *count) {
+  const int live = *count;
+  if (live <= M && row < live) {  // nothing to find once a bounded table overflowed
     const unsigned int q1 = (unsigned int)row_h1[row] + (unsigned int)oh1[axis * r2 + tap];
     const unsigned int q2 = (unsigned int)row_h2[row] + (unsigned int)oh2[axis * r2 + tap];
     found = sgp_find(table, mask, row_of_slot, sgp_pack(q1, q2));
@@ -63,8 +77,8 @@ __global__ void neighbors_kernel(const unsigned long long* __restrict__ table, u
   neighbors[idx] = found < 0 ? M : found;
 }
 
-// Row id of every contribution; shared with K4 (once.cu), whose capacity
-// may be short.  K2 passes capacity = N.
+// Row id of every contribution; shared with K4 (once.cu).  Past the
+// capacity every id is 0.
 extern "C" int sgp_dedup_seg(const int* slot_of, const int* row_of_slot, int N, const int* count,
                              int capacity, int* seg_ids, void* stream) {
   if (N > 0)
@@ -73,28 +87,36 @@ extern "C" int sgp_dedup_seg(const int* slot_of, const int* row_of_slot, int N, 
   return (int)cudaGetLastError();
 }
 
+// capacity (1..N): the table's rows.  Below N the insert is the bounded
+// one (sgp_insert<true>); at N it cannot overflow and skips the check.
 extern "C" int sgp_dedup_insert(const int* h1, const int* h2, int N, unsigned long long* table,
-                                int mask, int* slot_of, int* row_of_slot, int* count,
-                                int* row_h1, int* row_h2, void* stream) {
+                                int mask, int capacity, int* slot_of, int* row_of_slot,
+                                int* count, int* row_h1, int* row_h2, void* stream) {
   if (N > 0) {
-    insert_kernel<<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(
-        h1, h2, N, table, (unsigned int)mask, slot_of, row_of_slot, count, row_h1, row_h2);
+    if (capacity < N)
+      insert_kernel<true><<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+          h1, h2, N, table, (unsigned int)mask, capacity, slot_of, row_of_slot, count, row_h1,
+          row_h2);
+    else
+      insert_kernel<false><<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+          h1, h2, N, table, (unsigned int)mask, N, slot_of, row_of_slot, count, row_h1, row_h2);
   }
   return (int)cudaGetLastError();
 }
 
+// neighbors is (dp1, capacity, r2); capacity as for sgp_dedup_insert.
 extern "C" int sgp_dedup_finish(const int* slot_of, const int* row_of_slot, int N,
-                                const unsigned long long* table, int mask, const int* count,
-                                const int* row_h1, const int* row_h2, const int* oh1,
-                                const int* oh2, int* seg_ids, int dp1, int r2, int* neighbors,
-                                void* stream) {
+                                const unsigned long long* table, int mask, int capacity,
+                                const int* count, const int* row_h1, const int* row_h2,
+                                const int* oh1, const int* oh2, int* seg_ids, int dp1, int r2,
+                                int* neighbors, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (N > 0) {
-    const int err = sgp_dedup_seg(slot_of, row_of_slot, N, count, N, seg_ids, stream);
+    const int err = sgp_dedup_seg(slot_of, row_of_slot, N, count, capacity, seg_ids, stream);
     if (err != (int)cudaSuccess) return err;
-    neighbors_kernel<<<sgp_blocks((long long)dp1 * N * r2), SGP_THREADS, 0, st>>>(
-        table, (unsigned int)mask, row_of_slot, count, row_h1, row_h2, oh1, oh2, N, dp1, r2,
-        neighbors);
+    neighbors_kernel<<<sgp_blocks((long long)dp1 * capacity * r2), SGP_THREADS, 0, st>>>(
+        table, (unsigned int)mask, row_of_slot, count, row_h1, row_h2, oh1, oh2, capacity, dp1,
+        r2, neighbors);
   }
   return (int)cudaGetLastError();
 }

@@ -20,14 +20,14 @@
 //      pair.
 //   2. seg: K2's (dedup.cu), every contribution reads the row id of its slot.
 //   3. splat: K3's (apply.cu), atomicAdd of w * v into the (capacity, c)
-//      value table.
+//      value table; it does nothing once the count is past the capacity.
 //   4. blur: one launch per lattice axis, one thread per live row: it finds
 //      its +-1..r neighbours by looking up (h1 + oh1, h2 + oh2) (sgp_find,
 //      as K2's neighbour pass) -- hash
 //      linearity makes that the neighbour key's hash -- and runs the
 //      (2r+1)-tap stencil over its c columns; a missing neighbour counts as
 //      zero.  Ping-pong between two value tables.
-//   5. slice: K3's, then the capacity guard.
+//   5. slice: K3's, with its capacity guard.
 // The blur uses explicit round-to-nearest operations in the order of K3's,
 // so given the same table it matches the plain version bit for bit; the
 // splat's atomic order varies from run to run.
@@ -37,7 +37,7 @@
 // occupied the counter passes the capacity: rows past it are not recorded,
 // every thread stops probing at its next collision, a full table ends a
 // probe sequence after one lap, every contribution is sent to row 0, the
-// blur does nothing, and the guard writes NaN everywhere (JAX's guard,
+// splat and the blur do nothing, and the slice writes NaN everywhere (JAX's guard,
 // lattice.py:1295).  The counter then reports at least capacity + 1,
 // not the true occupancy.  No loop runs longer than one lap of the table.
 //
@@ -101,19 +101,15 @@ __global__ void once_blur_kernel(const float* __restrict__ in, float* __restrict
   }
 }
 
-__global__ void once_guard_kernel(float* __restrict__ out, long long size,
-                                  const int* __restrict__ count, int capacity) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < size && *count > capacity) out[idx] = __int_as_float(0x7fc00000);  // quiet NaN
-}
-
 // K2's seg pass (dedup.cu) and K3's splat and slice (apply.cu).
 extern "C" int sgp_dedup_seg(const int* slot_of, const int* row_of_slot, int N, const int* count,
                              int capacity, int* seg_ids, void* stream);
 extern "C" int sgp_lattice_splat(const int* seg, const float* w, const float* v, int n, int dp1,
-                                 int c, float* table, void* stream);
+                                 int c, float* table, const int* count, int capacity,
+                                 void* stream);
 extern "C" int sgp_lattice_slice(const float* table, const int* seg, const float* w, int n,
-                                 int dp1, int c, float norm, float* out, void* stream);
+                                 int dp1, int c, float norm, float* out, const int* count,
+                                 int capacity, void* stream);
 
 // K4.  Buffers, all allocated by the caller:
 //   table (mask+1) int64 filled with SGP_EMPTY; row_of_slot (mask+1) int32;
@@ -146,7 +142,7 @@ extern "C" int sgp_filter_once(const float* x, const float* E, const int* a, int
   if ((err = (cudaError_t)sgp_dedup_seg(slot_of, row_of_slot, N, count, capacity, seg, stream)) !=
       cudaSuccess)
     return (int)err;
-  if ((err = (cudaError_t)sgp_lattice_splat(seg, w, v, n, dp1, c, ta, stream)) != cudaSuccess)
+  if ((err = (cudaError_t)sgp_lattice_splat(seg, w, v, n, dp1, c, ta, count, capacity, stream)) != cudaSuccess)
     return (int)err;
   const int r2 = 2 * order;
   for (int j = 0; j < dp1; ++j) {
@@ -158,12 +154,9 @@ extern "C" int sgp_filter_once(const float* x, const float* E, const int* a, int
     ta = tb;
     tb = t;
   }
-  if ((err = (cudaError_t)sgp_lattice_slice(ta, seg, w, n, dp1, c, norm, out, stream)) != cudaSuccess)
-    return (int)err;
-  once_guard_kernel<<<sgp_blocks((long long)n * c), SGP_THREADS, 0, st>>>(out, (long long)n * c,
-                                                                           count, capacity);
+  err = (cudaError_t)sgp_lattice_slice(ta, seg, w, n, dp1, c, norm, out, count, capacity, stream);
 #undef SGP_CHECK
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 // K8: occupancy only.  table (mask+1) int64 filled with SGP_EMPTY, mask+1 >=

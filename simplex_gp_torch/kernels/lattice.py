@@ -1,4 +1,4 @@
-"""Lattice kernels K1-K5, K7 and K8: wrappers over the CUDA kernels, beside their plain versions.
+"""Lattice kernels K1-K5 and K7-K9: wrappers over the CUDA kernels, beside their plain versions.
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches its
 kernel (``csrc/geometry.cu``, ``csrc/dedup.cu``, ``csrc/apply.cu``,
@@ -29,6 +29,8 @@ __all__ = [
     "lattice_dedup_neighbors",
     "apply_plain",
     "lattice_apply",
+    "apply_cols_plain",
+    "lattice_apply_cols",
     "lattice_filter_grad_plain",
     "lattice_filter_grad",
     "filter_once_plain",
@@ -153,17 +155,34 @@ def _pack(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
     return h1.long() * 2**32 | (h2.long() & _MASK32)
 
 
-def dedup_neighbors_plain(h1, h2, oh1, oh2):
+def _rows(N: int, capacity) -> int:
+    """Table rows M of a plan over N contributions: min(capacity, N), or N untrimmed."""
+    if capacity is None:
+        return N
+    if capacity < 1:
+        raise ValueError(f"capacity {capacity} is below 1")
+    return min(int(capacity), N)
+
+
+def dedup_neighbors_plain(h1, h2, oh1, oh2, capacity=None):
     """Plain K2 (_plan_tables, :387) by sort-unique and binary search.
 
-    Returns seg_ids (N,) int32, neighbors (d+1, N, 2r) int32 with N for a
+    Returns seg_ids (N,) int32, neighbors (d+1, M, 2r) int32 with M for a
     missing neighbour (and for every row past the live count), and
     n_lattice as a 0-d int32 tensor.  Rows are numbered in sorted key order.
+    M is min(capacity, N) (JAX's build_plan(capacity), lattice.py:733);
+    when more than M points are occupied every seg id is 0, every neighbour
+    M, and n_lattice the true occupancy, which the apply's guard reads.
     """
     N = h1.shape[0]
+    M = _rows(N, capacity)
     dp1, r2 = oh1.shape
     keys, inverse = torch.unique(_pack(h1, h2), sorted=True, return_inverse=True)
     n_lat = keys.shape[0]
+    n_lattice = torch.tensor(n_lat, dtype=torch.int32, device=h1.device)
+    neighbors = torch.full((dp1, M, r2), M, dtype=torch.int32, device=h1.device)
+    if n_lat > M:
+        return torch.zeros(N, dtype=torch.int32, device=h1.device), neighbors, n_lattice
     u1 = keys >> 32
     u2 = keys & _MASK32
     q1 = _wrap32(u1[None, None, :] + oh1.long()[:, :, None]).long()
@@ -171,10 +190,7 @@ def dedup_neighbors_plain(h1, h2, oh1, oh2):
     q = q1 * 2**32 | q2  # (d+1, 2r, n_lat)
     pos = torch.searchsorted(keys, q)
     hit = keys[pos.clamp(max=n_lat - 1)] == q
-    found = torch.where(hit, pos, N).to(torch.int32)
-    neighbors = torch.full((dp1, N, r2), N, dtype=torch.int32, device=h1.device)
-    neighbors[:, :n_lat, :] = found.permute(0, 2, 1)
-    n_lattice = torch.tensor(n_lat, dtype=torch.int32, device=h1.device)
+    neighbors[:, :n_lat, :] = torch.where(hit, pos, M).to(torch.int32).permute(0, 2, 1)
     return inverse.to(torch.int32), neighbors, n_lattice
 
 
@@ -186,40 +202,51 @@ def _table_slots(keys: int) -> int:
     return slots
 
 
-def lattice_dedup_neighbors(h1, h2, oh1, oh2):
-    """K2: dedup the vertex hash pairs into rows; blur neighbours by hash linearity."""
+def lattice_dedup_neighbors(h1, h2, oh1, oh2, capacity=None):
+    """K2: dedup the vertex hash pairs into rows; blur neighbours by hash linearity.
+
+    With a ``capacity`` below N = len(h1), the bounded K2: a table of M =
+    capacity rows, counted in ``bounded_launches`` (the untrimmed one in
+    ``launches``).  When more than M points are occupied, the kernel's
+    n_lattice is some count above M, not the true occupancy (the plain
+    version's is), and the apply's guard turns the output into NaN.
+    """
     if not h1.is_cuda:
-        return dedup_neighbors_plain(h1, h2, oh1, oh2)
+        return dedup_neighbors_plain(h1, h2, oh1, oh2, capacity)
     build.require("lattice_dedup_neighbors", (h1, torch.int32), (h2, torch.int32),
                   (oh1, torch.int32), (oh2, torch.int32))
     N = h1.shape[0]
+    M = _rows(N, capacity)
     dp1, r2 = oh1.shape
-    cap = _table_slots(N)
+    slots = _table_slots(M)
     dev = h1.device
     lib = build.library()
-    table = torch.full((cap,), -2, dtype=torch.int64, device=dev)  # SGP_EMPTY
-    slot_of = torch.empty(N, dtype=torch.int32, device=dev)
-    row_of_slot = torch.empty(cap, dtype=torch.int32, device=dev)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
-    row_h1 = torch.empty(N, dtype=torch.int32, device=dev)
-    row_h2 = torch.empty(N, dtype=torch.int32, device=dev)
-    seg_ids = torch.empty(N, dtype=torch.int32, device=dev)
-    neighbors = torch.empty((dp1, N, r2), dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    table = torch.full((slots,), -2, dtype=torch.int64, device=dev)  # SGP_EMPTY
+    slot_of, seg_ids = torch.empty(N, **i32), torch.empty(N, **i32)
+    row_of_slot = torch.empty(slots, **i32)
+    count = torch.zeros((), **i32)
+    row_h1, row_h2 = torch.empty(M, **i32), torch.empty(M, **i32)
+    neighbors = torch.empty((dp1, M, r2), **i32)
     st = build.stream()
-    rc = lib.sgp_dedup_insert(h1.data_ptr(), h2.data_ptr(), N, table.data_ptr(), cap - 1,
+    rc = lib.sgp_dedup_insert(h1.data_ptr(), h2.data_ptr(), N, table.data_ptr(), slots - 1, M,
                               slot_of.data_ptr(), row_of_slot.data_ptr(), count.data_ptr(),
                               row_h1.data_ptr(), row_h2.data_ptr(), st)
     build.check(rc, "lattice_dedup_neighbors (insert)")
     rc = lib.sgp_dedup_finish(slot_of.data_ptr(), row_of_slot.data_ptr(), N, table.data_ptr(),
-                              cap - 1, count.data_ptr(), row_h1.data_ptr(), row_h2.data_ptr(),
+                              slots - 1, M, count.data_ptr(), row_h1.data_ptr(), row_h2.data_ptr(),
                               oh1.data_ptr(), oh2.data_ptr(), seg_ids.data_ptr(), dp1, r2,
                               neighbors.data_ptr(), st)
     build.check(rc, "lattice_dedup_neighbors (neighbors)")
-    lattice_dedup_neighbors.launches += 1
+    if M < N:
+        lattice_dedup_neighbors.bounded_launches += 1
+    else:
+        lattice_dedup_neighbors.launches += 1
     return seg_ids, neighbors, count
 
 
 lattice_dedup_neighbors.launches = 0
+lattice_dedup_neighbors.bounded_launches = 0
 
 
 def _blur_axes(dp1: int, transpose: bool):
@@ -232,12 +259,15 @@ def _blur_axes(dp1: int, transpose: bool):
     return range(dp1 - 1, -1, -1) if transpose else range(dp1)
 
 
-def apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm, transpose=False, return_table=False):
+def apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm, transpose=False, return_table=False,
+                n_lattice=None):
     """Plain K3 (apply_plan_join, :470): splat, d+1 axis blurs, slice.
 
     ``transpose`` applies ``slice_norm * S^T B^T S``; ``return_table`` also
     returns the blurred (M, c) table before the slice (B S v, or B^T S v).
-    Differentiable by torch autograd in ``v`` and ``weights``.
+    With ``n_lattice``, the output is all NaN when it exceeds the M table
+    rows (the capacity guard, lattice.py:1093-1100).  Differentiable by
+    torch autograd in ``v`` and ``weights``.
     """
     n, dp1 = seg_ids.shape
     M = neighbors.shape[1]
@@ -255,6 +285,8 @@ def apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm, transpose=Fals
         table = acc
     gathered = table[seg_ids.long()]  # (n, d+1, c)
     out = (gathered * weights[:, :, None]).sum(dim=1) * slice_norm
+    if n_lattice is not None:
+        out = torch.where(n_lattice <= M, out, float("nan"))
     return (out, table) if return_table else out
 
 
@@ -265,10 +297,13 @@ def lattice_apply(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, t
     ``taps`` is the sequence of 2r+1 filter taps; ``n_lattice`` the live row
     count (a 0-d int32 tensor, read on the device).  ``transpose`` runs the
     axis blurs in reverse order (S^T B^T S); ``return_table`` also returns
-    the blurred (M, c) table, whose rows past n_lattice are undefined.
+    the blurred (M, c) table, whose rows past n_lattice are undefined.  A
+    plan trimmed to M < n(d+1) rows gives all NaN once n_lattice passes M
+    (the guard, read on the device); an untrimmed plan runs unguarded.
     """
     if not v.is_cuda:
-        return apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm, transpose, return_table)
+        return apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm, transpose, return_table,
+                           n_lattice)
     build.require("lattice_apply", (seg_ids, torch.int32), (weights, torch.float32),
                   (neighbors, torch.int32), (n_lattice, torch.int32), (v, torch.float32))
     n, dp1 = seg_ids.shape
@@ -284,9 +319,10 @@ def lattice_apply(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, t
     a = torch.zeros((M, c), dtype=torch.float32, device=dev)
     b = torch.empty((M, c), dtype=torch.float32, device=dev)
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
+    guard = n_lattice.data_ptr() if M < n * dp1 else None
     st = build.stream()
     build.check(lib.sgp_lattice_splat(seg_ids.data_ptr(), weights.data_ptr(), v.data_ptr(), n,
-                                      dp1, c, a.data_ptr(), st), "lattice_apply (splat)")
+                                      dp1, c, a.data_ptr(), guard, M, st), "lattice_apply (splat)")
     for j in _blur_axes(dp1, transpose):
         rc = lib.sgp_lattice_blur(a.data_ptr(), b.data_ptr(), neighbors[j].data_ptr(),
                                   ctypes.addressof(taps_host), M, c, order,
@@ -294,13 +330,67 @@ def lattice_apply(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, t
         build.check(rc, "lattice_apply (blur)")
         a, b = b, a
     build.check(lib.sgp_lattice_slice(a.data_ptr(), seg_ids.data_ptr(), weights.data_ptr(), n,
-                                      dp1, c, float(slice_norm), out.data_ptr(), st),
+                                      dp1, c, float(slice_norm), out.data_ptr(), guard, M, st),
                 "lattice_apply (slice)")
     lattice_apply.launches += 1
     return (out, a) if return_table else out
 
 
 lattice_apply.launches = 0
+
+
+def apply_cols_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk):
+    """Plain K9 (lattice_filter_wide_chunked, filter.py:65-84): K3 on ``chunk``-column blocks.
+
+    Pads v (n, c) with zero columns to a multiple of ``chunk``, as JAX
+    does, applies the plain K3 with its guard to each block and keeps the
+    first c columns.
+    """
+    n, c = v.shape
+    g = -(-c // chunk)
+    pad = g * chunk - c
+    vp = torch.cat([v, v.new_zeros((n, pad))], dim=1) if pad else v
+    out = torch.cat([apply_plain(seg_ids, weights, neighbors, vp[:, k * chunk:(k + 1) * chunk], taps,
+                                 slice_norm, n_lattice=n_lattice) for k in range(g)], dim=1)
+    return out[:, :c]
+
+
+def lattice_apply_cols(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk):
+    """K9: K3's ``slice_norm * S^T B S v`` of a wide v (n, c), ``chunk`` columns at a time.
+
+    One pair of (M, chunk) tables serves every column window; the kernel
+    reads each window of v and writes it into the output in place (row
+    stride c).  The guard is K3's.
+    """
+    if not v.is_cuda:
+        return apply_cols_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk)
+    build.require("lattice_apply_cols", (seg_ids, torch.int32), (weights, torch.float32),
+                  (neighbors, torch.int32), (n_lattice, torch.int32), (v, torch.float32))
+    n, dp1 = seg_ids.shape
+    M = neighbors.shape[1]
+    order = neighbors.shape[2] // 2
+    c = v.shape[-1]
+    if v.shape[0] != n or len(taps) != 2 * order + 1 or chunk < 1:
+        raise ValueError(f"lattice_apply_cols: v {tuple(v.shape)} / {len(taps)} taps / chunk {chunk} do "
+                         f"not fit a plan of {n} points and order {order}")
+    dev = v.device
+    lib = build.library()
+    taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
+    w = min(chunk, c)
+    ta = torch.empty((M, w), dtype=torch.float32, device=dev)
+    tb = torch.empty((M, w), dtype=torch.float32, device=dev)
+    out = torch.empty((n, c), dtype=torch.float32, device=dev)
+    guard = n_lattice.data_ptr() if M < n * dp1 else None
+    rc = lib.sgp_lattice_apply_cols(seg_ids.data_ptr(), weights.data_ptr(), neighbors.data_ptr(),
+                                    n_lattice.data_ptr(), v.data_ptr(), n, dp1, c, chunk, M,
+                                    ctypes.addressof(taps_host), order, float(slice_norm), guard,
+                                    ta.data_ptr(), tb.data_ptr(), out.data_ptr(), build.stream())
+    build.check(rc, "lattice_apply_cols")
+    lattice_apply_cols.launches += 1
+    return out
+
+
+lattice_apply_cols.launches = 0
 
 
 def lattice_filter_grad_plain(ref, E, seg_ids, v, g, table_f, table_b, slice_norm):

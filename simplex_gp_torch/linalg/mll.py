@@ -21,8 +21,16 @@ ways (``BBMMConfig.grad_mode``):
 The forward runs with no graph, as JAX's custom VJP does, so no gradient
 flows through the preconditioner or the CG.
 
-Dropped from the JAX module: the ``axis_name`` (sharded) branches (ROADMAP
-item 1.12) and ``plan_capacity`` (item 1.9).
+``BBMMConfig.plan_capacity`` bounds the training plan's table (JAX's
+mll.py:65-71): the CG plan, and the exact backward that reuses it; the
+"deriv_filter" backward filters untrimmed, as JAX's ``lattice_filter``.  An
+overflow (more occupied lattice points than the capacity, e.g. after the
+lengthscales shrank) makes every apply on that plan NaN.  The NLML does not
+become NaN, in JAX as here: every CG residual is NaN, so the best iterate
+stays the zero start and the loss a finite value of no meaning; the exact
+backward's outputscale gradient is NaN (as JAX's host loop gives it,
+host_loop.py:222-224).  Dropped from the JAX module: the
+``axis_name`` (sharded) branches (ROADMAP item 1.12).
 """
 
 from __future__ import annotations
@@ -73,6 +81,9 @@ class BBMMConfig:
     explicit reorthogonalized Lanczos.  ``grad_mode`` "exact" differentiates
     the operator actually applied (K5); "deriv_filter" is the reference's
     derivative-tap estimate of the dense kernel's gradient (K4 + K7).
+    ``plan_capacity`` (None: n(d+1)) bounds the training plan's lattice
+    table; measure the occupancy once (count_lattice_points) and leave
+    headroom for lengthscale drift.
     """
 
     cg_tolerance: float = 1.0
@@ -83,6 +94,7 @@ class BBMMConfig:
     num_probes: int = 10
     grad_mode: str = "exact"
     slq_mode: str = "cg"
+    plan_capacity: Optional[int] = None
 
     def __post_init__(self):
         if self.slq_mode not in ("cg", "lanczos"):
@@ -105,10 +117,11 @@ def build_precond(dk, config: BBMMConfig, params: dict, ref: torch.Tensor, n_glo
     return make_preconditioner(pc.L, noise, n_global)
 
 
-def _khat_matmul_diff(params: dict, x: torch.Tensor, dk, V: torch.Tensor, grad_mode: str = "exact") -> torch.Tensor:
+def _khat_matmul_diff(params: dict, x: torch.Tensor, dk, V: torch.Tensor, grad_mode: str = "exact",
+                      capacity: Optional[int] = None) -> torch.Tensor:
     """Differentiable K_hat(params) @ V; the filter's gradient per ``grad_mode`` (mll.py:92-113)."""
     ref = x * params["inv_ell"]
-    ky = lattice_filter_any(V, ref, dk) if grad_mode == "exact" else lattice_filter(V, ref, dk)
+    ky = lattice_filter_any(V, ref, dk, capacity) if grad_mode == "exact" else lattice_filter(V, ref, dk)
     return params["outputscale"] * ky + params["noise"] * V
 
 
@@ -125,7 +138,7 @@ def _solve_system(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torc
                   probes: torch.Tensor) -> _System:
     """Plan, preconditioner, CG solves and the log-det estimate (mll.py:159-240)."""
     ref = x * params["inv_ell"]
-    plan = build_plan_any(ref, dk)
+    plan = build_plan_any(ref, dk, config.plan_capacity)
     s, noise = params["outputscale"], params["noise"]
 
     def mv(V):

@@ -8,12 +8,15 @@ kernels:
 
 ``SimplexGP.nlml`` is the training loss, through the BBMM engine
 (linalg/mll.py::lattice_nlml) and differentiable in every raw parameter.
-``posterior_cache`` builds one lattice plan over the training positions,
-a rank-k pivoted-Cholesky preconditioner, solves alpha = K_hat^{-1} (y - mu)
-by preconditioned CG at the eval tolerance, and forms the LOVE root from a
-randomized range sketch.  ``predict_from_cache`` runs one rectangular filter
-of 1+m columns over [train; test].  ``DenseGP`` is the same model with dense
-Cholesky algebra, the dense side of the Snelson parity test.
+``posterior_cache`` builds one lattice plan over the training positions
+(bounded by ``BBMMConfig.plan_capacity``), a rank-k pivoted-Cholesky
+preconditioner, solves alpha = K_hat^{-1} (y - mu) by preconditioned CG at
+the eval tolerance, and forms the LOVE root from a randomized range sketch
+whose two 100-column MVMs reuse that plan (K9, the chunked apply, above 4M
+contribution rows).  ``predict_from_cache`` runs one rectangular filter of
+1+m columns over [train; test], untrimmed, chunked at the same size.
+``DenseGP`` is the same model with dense Cholesky algebra, the dense side
+of the Snelson parity test.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from torch import nn
 from ..linalg.cg import cg_solve
 from ..linalg.mll import BBMMConfig, build_precond, lattice_nlml
 from ..linalg.pivoted_cholesky import precond_solve
-from ..ops.filter import apply_plan_any, build_plan_any, lattice_filter_rect
+from ..ops.filter import apply_plan_any, apply_plan_wide, build_plan_any, lattice_filter_rect
 from ..ops.kernels import DiscretizedKernel, matern_kernel, rbf_kernel
 from .components import constrain, init_raw_params
 
@@ -100,6 +103,10 @@ class SimplexGP(_RawParams):
         self.bbmm = bbmm
         self.eval_cg_tolerance = eval_cg_tolerance
 
+    def extra_repr(self) -> str:
+        return (f"num_dims={self.num_dims}, kernel={self.kernel!r}, nu={self.nu}, order={self.order}, "
+                f"min_noise={self.min_noise}, bbmm={self.bbmm}, eval_cg_tolerance={self.eval_cg_tolerance}")
+
     @property
     def dk(self) -> DiscretizedKernel:
         if self.kernel == "rbf":
@@ -149,12 +156,14 @@ class SimplexGP(_RawParams):
         The root comes from a randomized range sketch: Y = K_hat Omega,
         Q = qr(Y), T = Q^T K_hat Q, root_inv = Q U L^{-1/2} for T = U L U^T.
         ``Omega`` (n, m) is ``omega`` when given, else standard normal draws
-        from ``generator``.  Both sketch MVMs reuse the CG's plan.  The cache
-        also records the CG iteration count and mean final residual.
+        from ``generator``.  Both sketch MVMs reuse the CG's plan (JAX builds
+        a second one with the same positions and capacity, exact_gp.py:339)
+        and take JAX's wide dispatch: K9 above 4M contribution rows, else K3.
+        The cache also records the CG iteration count and mean final residual.
         """
         params = self.constrained()
         ref = x * params["inv_ell"]
-        plan = build_plan_any(ref, self.dk)
+        plan = build_plan_any(ref, self.dk, self.bbmm.plan_capacity)
         mv = self._khat_mv(params, plan)
         yc = y - params["mean"]
 
@@ -172,8 +181,13 @@ class SimplexGP(_RawParams):
             omega = torch.randn((n, m), generator=generator, dtype=torch.float32, device=x.device)
         elif omega.shape != (n, m):
             raise ValueError(f"omega has shape {tuple(omega.shape)}, expected {(n, m)}")
-        Q, _ = torch.linalg.qr(mv(omega))
-        T = Q.T @ mv(Q)
+        s, noise = params["outputscale"], params["noise"]
+
+        def mv_wide(V):
+            return s * apply_plan_wide(plan, V, self.dk) + noise * V
+
+        Q, _ = torch.linalg.qr(mv_wide(omega))
+        T = Q.T @ mv_wide(Q)
         T = 0.5 * (T + T.T)
         evals, evecs = torch.linalg.eigh(T)
         evals = torch.clamp(evals, min=1e-8)

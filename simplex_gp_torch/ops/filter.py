@@ -1,11 +1,14 @@
 """The lattice filter's entry points and its autograd bridges (reference L2).
 
 Port of simplex_gp_tpu/ops/filter.py for a single DiscretizedKernel.
-:func:`_filter_plain` keeps JAX's width dispatch (:120-140): values of up to
+:func:`_filter_plain` keeps JAX's dispatch (:120-140): values of up to
 ``_WIDE_COLS`` = 16 columns go to the one-shot filter K4
-(``filter_once``), wider ones to the join plan (K1 + K2 build, K3 apply).
-JAX's third branch, the chunked sort-chain filter for wide values above
-4M contribution rows (K9), is not ported (ROADMAP).
+(``filter_once``); wider ones to the join plan (K1 + K2 build, K3 apply),
+or, above ``_JOIN_MAX_ROWS`` contribution rows n(d+1), to one plan applied
+``_WIDE_CHUNK`` columns at a time by K9 (:func:`lattice_filter_wide_chunked`,
+:func:`make_wide_filter`; JAX's chunked sort-chain filter, here the join
+plan, so the same operator up to 64-bit hash collisions).  ``capacity``
+bounds the plan's table as in JAX (:143-193).
 
 Two gradients of ``K(ref, ref) @ src``:
   * :class:`LatticeFilterExactGrad` is the exact gradient of the operator
@@ -24,19 +27,37 @@ Mixtures are not ported (ROADMAP item 10).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..kernels.lattice import lattice_deriv_grad, lattice_filter_grad
 from .kernels import DiscretizedKernel
-from .lattice import SLICE_NORM, LatticePlan, apply_plan_join, build_plan_join, build_rotation, filter_once
+from .lattice import (
+    SLICE_NORM,
+    LatticePlan,
+    apply_plan_cols,
+    apply_plan_join,
+    build_plan_join,
+    build_rotation,
+    filter_once,
+)
 
 # Widest value block for the one-shot filter; wider blocks take the join plan
 # (filter.py:54, :133).
 _WIDE_COLS = 16
+# Above this many contribution rows n(d+1) a wide block is applied in
+# _WIDE_CHUNK-column windows (filter.py:61-62): two (M, 101) tables of the
+# houseelectric eval would take 16 GB, two (M, 8) ones 1.3 GB.
+_JOIN_MAX_ROWS = 4 * 1024 * 1024
+_WIDE_CHUNK = 8
 
 __all__ = [
     "build_plan_any",
     "apply_plan_any",
+    "apply_plan_wide",
+    "lattice_filter_wide_chunked",
+    "make_wide_filter",
     "filter_backward",
     "LatticeFilterExactGrad",
     "lattice_filter_exact_grad",
@@ -48,15 +69,50 @@ __all__ = [
 ]
 
 
-def build_plan_any(ref: torch.Tensor, dk: DiscretizedKernel) -> LatticePlan:
+def build_plan_any(ref: torch.Tensor, dk: DiscretizedKernel, capacity: Optional[int] = None) -> LatticePlan:
     """Reusable filter plan of ``dk`` at positions ``ref``; pair with :func:`apply_plan_any`."""
-    return build_plan_join(ref, dk.coeffs, dk.variance)
+    return build_plan_join(ref, dk.coeffs, dk.variance, capacity)
 
 
 def apply_plan_any(plan: LatticePlan, V: torch.Tensor, dk: DiscretizedKernel, transpose: bool = False,
                    return_table: bool = False):
     """K @ V (or K^T @ V) through a plan from :func:`build_plan_any` (no outputscale or noise)."""
     return apply_plan_join(plan, V, dk.coeffs, transpose, return_table)
+
+
+def _chunked(n: int, d: int, c: int) -> bool:
+    """JAX's third branch (filter.py:133-135): more than 16 columns over more than _JOIN_MAX_ROWS rows."""
+    return c > _WIDE_COLS and n * (d + 1) > _JOIN_MAX_ROWS
+
+
+def apply_plan_wide(plan: LatticePlan, V: torch.Tensor, dk: DiscretizedKernel) -> torch.Tensor:
+    """K @ V through a plan, engine by JAX's dispatch: K9 for a wide block on a large plan, else K3."""
+    n, dp1 = plan.seg_ids.shape
+    if _chunked(n, dp1 - 1, V.shape[-1]):
+        return apply_plan_cols(plan, V, dk.coeffs, _WIDE_CHUNK)
+    return apply_plan_join(plan, V, dk.coeffs)
+
+
+def lattice_filter_wide_chunked(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel,
+                                capacity: Optional[int] = None) -> torch.Tensor:
+    """K(ref, ref) @ src for a wide src at very large n (filter.py:65-84): one plan, K9.
+
+    Peak memory is the plan and two (M, _WIDE_CHUNK) tables, whatever the
+    column count.  No gradient (the differentiable route is
+    :func:`lattice_filter_exact_grad`, which takes the same branch).
+    """
+    return apply_plan_cols(build_plan_any(ref, dk, capacity), src, dk.coeffs, _WIDE_CHUNK)
+
+
+def make_wide_filter(ref: torch.Tensor, dk: DiscretizedKernel, capacity: Optional[int] = None):
+    """Reusable ``mv(V) -> K(ref, ref) @ V`` for wide value blocks (filter.py:87-117).
+
+    One plan, built now: above ``_JOIN_MAX_ROWS`` with ``capacity`` and
+    applied by K9; below, untrimmed and applied by K3, as JAX's join branch.
+    """
+    large = ref.shape[0] * (ref.shape[-1] + 1) > _JOIN_MAX_ROWS
+    plan = build_plan_any(ref, dk, capacity if large else None)
+    return lambda V: apply_plan_wide(plan, V, dk)
 
 
 def filter_backward(plan: LatticePlan, ref: torch.Tensor, dk: DiscretizedKernel, src: torch.Tensor,
@@ -78,16 +134,23 @@ def filter_backward(plan: LatticePlan, ref: torch.Tensor, dk: DiscretizedKernel,
 class LatticeFilterExactGrad(torch.autograd.Function):
     """K(ref, ref) @ src with its exact gradient in both src and ref.
 
-    Forward: one plan build and one apply that keeps its blurred table.
+    Forward: one plan build and one apply that keeps its blurred table, or,
+    for a wide src above ``_JOIN_MAX_ROWS``, K9, which keeps none.
     Backward: :func:`filter_backward` on the same plan, so the positions are
-    not hashed twice.  Second derivatives are not defined (as in JAX's
+    not hashed twice; after K9 it runs per ``_WIDE_CHUNK``-column window
+    (each window's apply again, for its table), and the position gradients
+    of the windows add up.  Second derivatives are not defined (as in JAX's
     custom VJP filter).
     """
 
     @staticmethod
-    def forward(ctx, src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel):
-        plan = build_plan_any(ref, dk)
-        out, table_f = apply_plan_any(plan, src, dk, return_table=True)
+    def forward(ctx, src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel,
+                capacity: Optional[int] = None):
+        plan = build_plan_any(ref, dk, capacity)
+        if _chunked(*ref.shape, src.shape[-1]):
+            out, table_f = apply_plan_cols(plan, src, dk.coeffs, _WIDE_CHUNK), None
+        else:
+            out, table_f = apply_plan_any(plan, src, dk, return_table=True)
         ctx.dk = dk
         ctx.save_for_backward(src, ref, table_f, *plan)
         return out
@@ -95,21 +158,33 @@ class LatticeFilterExactGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         src, ref, table_f, *plan = ctx.saved_tensors
-        grad_src, grad_ref = filter_backward(LatticePlan(*plan), ref, ctx.dk, src, g, table_f)
-        return grad_src, grad_ref, None
+        plan = LatticePlan(*plan)
+        if table_f is not None:
+            grad_src, grad_ref = filter_backward(plan, ref, ctx.dk, src, g, table_f)
+            return grad_src, grad_ref, None, None
+        grad_src, grad_ref = [], 0.0
+        for c0 in range(0, src.shape[-1], _WIDE_CHUNK):
+            s_k = src[:, c0:c0 + _WIDE_CHUNK].to(torch.float32).contiguous()
+            _, t_k = apply_plan_any(plan, s_k, ctx.dk, return_table=True)
+            gs_k, gr_k = filter_backward(plan, ref, ctx.dk, s_k, g[:, c0:c0 + _WIDE_CHUNK], t_k)
+            grad_src.append(gs_k)
+            grad_ref = grad_ref + gr_k
+        return torch.cat(grad_src, dim=-1), grad_ref, None, None
 
 
-def lattice_filter_exact_grad(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel) -> torch.Tensor:
+def lattice_filter_exact_grad(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel,
+                              capacity: Optional[int] = None) -> torch.Tensor:
     """K(ref, ref) @ src, differentiable in src and ref by the exact operator gradient."""
-    return LatticeFilterExactGrad.apply(src, ref, dk)
+    return LatticeFilterExactGrad.apply(src, ref, dk, capacity)
 
 
-def lattice_filter_any(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel) -> torch.Tensor:
+def lattice_filter_any(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel,
+                       capacity: Optional[int] = None) -> torch.Tensor:
     """K(ref, ref) @ src: one plan build and one apply, differentiable (exact gradients).
 
     In JAX this also takes a MixtureKernel; mixtures are not ported (ROADMAP item 10).
     """
-    return lattice_filter_exact_grad(src, ref, dk)
+    return lattice_filter_exact_grad(src, ref, dk, capacity)
 
 
 def lattice_filter_rect(src: torch.Tensor, x_from: torch.Tensor, x_to: torch.Tensor,
@@ -127,8 +202,15 @@ def lattice_filter_rect(src: torch.Tensor, x_from: torch.Tensor, x_to: torch.Ten
 
 
 def _filter_plain(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel) -> torch.Tensor:
-    """K(ref, ref) @ src, engine chosen by width (filter.py:120-140): K4 up to 16 columns, else join."""
+    """K(ref, ref) @ src, untrimmed, engine by width and size (filter.py:120-140).
+
+    K4 up to 16 columns; wider, K9 above ``_JOIN_MAX_ROWS`` rows, else a
+    join plan and K3.  JAX's ``capacity`` argument is left out: no caller
+    here trims these filters.
+    """
     if src.shape[-1] > _WIDE_COLS:
+        if _chunked(*ref.shape, src.shape[-1]):
+            return lattice_filter_wide_chunked(src, ref, dk)
         return apply_plan_join(build_plan_join(ref, dk.coeffs, dk.variance), src, dk.coeffs)
     return filter_once(src, ref, dk.coeffs, dk.variance)
 

@@ -12,7 +12,11 @@ K1 (lattice_geometry: vertex hashes and weights) and K2
 K3 (lattice_apply), all in :mod:`simplex_gp_torch.kernels.lattice`.  This is
 the JAX package's join engine (build_plan_join / apply_plan_join); the TPU's
 sort-chain engine is not ported, because the card's gathers and atomics are
-fast where the TPU's are not.
+fast where the TPU's are not.  ``build_plan_join``'s ``capacity`` takes the
+chain plan's semantics (JAX's build_plan(capacity), :857-892): the table has
+min(capacity, n(d+1)) rows, and an apply returns all NaN when more points are
+occupied (:1093-1100).  :func:`apply_plan_cols` is K9, the apply of a wide
+value block a few columns at a time.
 
 :func:`filter_once` is the reference's one-shot ``filter``: K4 builds and
 applies in one call, with no plan and an optional capacity bound (JAX's
@@ -33,6 +37,7 @@ import torch
 
 from ..kernels.lattice import (
     lattice_apply,
+    lattice_apply_cols,
     lattice_count,
     lattice_dedup_neighbors,
     lattice_filter_once,
@@ -47,6 +52,7 @@ __all__ = [
     "lattice_simplex",
     "build_plan_join",
     "apply_plan_join",
+    "apply_plan_cols",
     "filter_once",
     "count_lattice_points",
 ]
@@ -128,11 +134,13 @@ def _offset_hashes(d: int, order: int, a: np.ndarray):
 class LatticePlan(NamedTuple):
     """Position-dependent, value-independent filter state, reusable across MVMs.
 
-    Shapes: n points, d input dims, M = n*(d+1) lattice capacity, r = order.
+    Shapes: n points, d input dims, M lattice rows (n*(d+1), or a smaller
+    capacity), r = order.
       seg_ids:   (n, d+1) int32   lattice row of each splat target
       weights:   (n, d+1) float32 barycentric splat/slice weights
       neighbors: (d+1, M, 2r) int32 blur gather indices (M == missing -> zero)
-      n_lattice: () int32         number of occupied lattice points (<= M)
+      n_lattice: () int32         number of occupied lattice points (> M: the
+                                  capacity overflowed, and every apply is NaN)
     Row numbering is the engine's own (it differs between the kernel and the
     plain version, and from JAX's); n_lattice and the operator do not.
     """
@@ -151,12 +159,17 @@ def _lattice_constants(d: int, coeffs: tuple, blur_variance: float, device):
     return E, torch.from_numpy(a).to(device), oh1, oh2
 
 
-def build_plan_join(x: torch.Tensor, coeffs: tuple, blur_variance: float) -> LatticePlan:
-    """Build the filter plan for positions ``x`` (n, d) on ``x``'s device: K1 + K2."""
+def build_plan_join(x: torch.Tensor, coeffs: tuple, blur_variance: float,
+                    capacity: Optional[int] = None) -> LatticePlan:
+    """Build the filter plan for positions ``x`` (n, d) on ``x``'s device: K1 + K2.
+
+    ``capacity`` (None: n(d+1), the most a plan can occupy) bounds the
+    table; pick it from :func:`count_lattice_points` with headroom.
+    """
     n, d = x.shape
     E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x.device)
     h1, h2, weights = lattice_geometry(x.to(torch.float32).contiguous(), E, a)
-    seg_ids, neighbors, n_lattice = lattice_dedup_neighbors(h1, h2, oh1, oh2)
+    seg_ids, neighbors, n_lattice = lattice_dedup_neighbors(h1, h2, oh1, oh2, capacity)
     return LatticePlan(seg_ids.reshape(n, d + 1), weights, neighbors, n_lattice)
 
 
@@ -177,6 +190,20 @@ def apply_plan_join(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, transpose
         v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(d),
         transpose, return_table,
     )
+
+
+def apply_plan_cols(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, chunk: int) -> torch.Tensor:
+    """K @ v through ``plan`` for a wide v (n, c), ``chunk`` columns at a time: K9.
+
+    The same operator as :func:`apply_plan_join`, with (M, chunk) tables in
+    place of (M, c) ones (filter.py:65-117).
+    """
+    d = plan.seg_ids.shape[1] - 1
+    if len(coeffs) != plan.neighbors.shape[2] + 1:
+        raise ValueError(f"{len(coeffs)} taps do not fit a plan of order {plan.neighbors.shape[2] // 2}")
+    return lattice_apply_cols(plan.seg_ids, plan.weights, plan.neighbors, plan.n_lattice,
+                              v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(d),
+                              chunk)
 
 
 def filter_once(src: torch.Tensor, ref: torch.Tensor, coeffs: tuple, blur_variance: float,

@@ -1,37 +1,62 @@
 """Simplex-GP trainer: ``python -m simplex_gp_torch.train``.
 
-Port of experiments/train_simplexgp.py with the parts of
-experiments/common.py:27-116 that the training path needs: load a dataset,
-build the model, take ``--epochs`` Adam steps on the NLML (one JSON line per
-epoch: loss, step ms, CG iterations), then build the posterior cache and
-print the test RMSE and NLL.  Example, the elevators configuration of the
-round-5 run (runs/r5/simplexgp_elevators_s0)::
+Port of experiments/train_simplexgp.py and the trainer loop of
+experiments/common.py (``run_training``, :116-319): load a dataset, build the
+model, take ``--epochs`` Adam steps on the NLML; every ``--log-int`` epochs
+(and at the last) build the posterior cache and predict the validation
+rows, step the early stopper on the validation RMSE, write
+``model_best.pkl`` at a new best and a checkpoint; then predict the test
+rows from the best epoch's cache and write ``model_final.pkl``.  Files go to
+``<--out>/simplexgp_<dataset>_s<seed>/`` (``runs/torch`` by default): ``metrics.jsonl`` opens with a
+config line, then one record per epoch with JAX's keys (``epoch``,
+``train/mll``, ``train/loss_ts``, ``hyp/*``, and ``val/*`` at eval epochs),
+then ``early_stop`` if it fired and the ``test/*`` record.  Standard output
+carries the same lines, with the CG iteration counts added (``cg_iters``,
+``val/cg_iters``, ``test/cg_iters``).  The model files are pickles of the
+raw numpy parameter dict, the JAX trainer's format; the checkpoint
+(``checkpoint.pt``) is torch's own: raw parameters, Adam state, epoch, the
+generator's state and the stopper's.  ``--resume`` continues from it.
 
-    python -m simplex_gp_torch.train --dataset elevators --kernel matern \\
-        --nu 1.5 --order 1 --min-noise 0.1 --ls-init median --device cuda
+``--plan-capacity``: 0 keeps the training plan untrimmed (n(d+1) rows), a
+value above 0 bounds it, and -1 counts the occupancy at the initial
+lengthscale (K8) and takes ceil(1.25 occ / 8192) 8192 rows, at most
+n(d+1) (train_simplexgp.py:53-67).  The houseelectric configuration of the
+round-5 run (runs/r5/simplexgp_houseelectric_s0)::
 
-``--device`` has no fallback: ``cuda`` without a card is an error.
-Periodic evaluation, early stopping, checkpoints and resume, the host loop,
-the plan capacity, mixtures and ARD screening are not ported (ROADMAP).
+    python -m simplex_gp_torch.train --dataset houseelectric --kernel matern \\
+        --nu 1.5 --order 1 --min-noise 0.1 --ls-init median --plan-capacity -1 \\
+        --log-int 10 --epochs 30
+
+``--device`` has no fallback: ``cuda`` (the default) without a card is an
+error.  Not ported: ``predict_padded``'s power-of-two padding of the eval
+rows (common.py:206-227), a trick for XLA's compile buckets whose duplicate
+rows change no real row; ``--host-loop`` (a TPU compile workaround); and
+``--prune-thresh`` and mixtures (ROADMAP items 1.7 and 1.10).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import pathlib
+import pickle
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from .convert import raw_params_to_numpy
 from .linalg.mll import BBMMConfig
 from .models.components import init_raw_params
 from .models.exact_gp import SimplexGP
+from .ops.lattice import count_lattice_points
 from .utils.data import load_dataset
 from .utils.device import resolve_device
-from .utils.training import fit_adam
+from .utils.training import EarlyStopper
 
-__all__ = ["main", "median_lengthscale", "regression_metrics"]
+__all__ = ["main", "median_lengthscale", "regression_metrics", "trim_capacity"]
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -41,10 +66,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log-int", type=int, default=5, help="evaluate every k epochs (and at the last)")
+    p.add_argument("--patience", type=int, default=20, help="evals without a better val RMSE before stopping")
     p.add_argument("--min-noise", type=float, default=1e-4)
+    p.add_argument("--out", default="runs/torch",
+                   help="runs go to <out>/simplexgp_<dataset>_s<seed>/ (the JAX trainer's runs/ is left alone)")
     p.add_argument("--max-n", type=int, default=0, help="optional training-subset cap")
     p.add_argument("--ls-init", default="default", choices=["default", "median"],
                    help="lengthscale init: softplus(0) = 0.693, or the median pairwise distance / sqrt(2)")
+    p.add_argument("--plan-capacity", type=int, default=0,
+                   help="training plan rows: 0 = n(d+1), -1 = 1.25x the occupancy at the initial "
+                        "lengthscale, rounded up to 8192 (an overflow makes the loss NaN), >0 = explicit")
+    p.add_argument("--no-eval", action="store_true", help="skip the val and test predictions")
+    p.add_argument("--resume", action="store_true", help="continue from the run directory's checkpoint.pt")
     p.add_argument("--kernel", default="rbf", choices=["rbf", "matern"])
     p.add_argument("--nu", type=float, default=1.5)
     p.add_argument("--order", type=int, default=1)
@@ -54,7 +88,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--pre-size", type=int, default=100)
     p.add_argument("--num-probes", type=int, default=10)
     p.add_argument("--device", default="cuda", help="cuda (default; an error without a card) or cpu")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.plan_capacity < -1:
+        p.error("--plan-capacity takes -1, 0 or a positive row count")
+    return args
 
 
 def median_lengthscale(x: np.ndarray) -> float:
@@ -62,6 +99,11 @@ def median_lengthscale(x: np.ndarray) -> float:
     sub = x[np.random.default_rng(0).permutation(x.shape[0])[:2000]]
     d2 = ((sub[:, None, :] - sub[None, :, :]) ** 2).sum(-1)
     return float(np.sqrt(np.median(d2[d2 > 0]))) / np.sqrt(2.0)
+
+
+def trim_capacity(occupancy: int, n: int, d: int) -> int:
+    """1.25x the occupancy rounded up to a multiple of 8192, at most n(d+1) (train_simplexgp.py:65)."""
+    return min(-(-int(occupancy * 1.25) // 8192) * 8192, n * (d + 1))
 
 
 def regression_metrics(mean: np.ndarray, var: np.ndarray, y: np.ndarray) -> dict:
@@ -73,45 +115,133 @@ def regression_metrics(mean: np.ndarray, var: np.ndarray, y: np.ndarray) -> dict
     }
 
 
+def hyp_summary(model: SimplexGP) -> dict:
+    """The per-epoch hyperparameter record (common.py:240-260)."""
+    with torch.no_grad():
+        p = model.constrained()
+        inv = p["inv_ell"].detach().cpu().numpy().astype(np.float64).ravel()
+    ell = 1.0 / np.maximum(inv, 1e-12)
+    return {"hyp/noise": float(p["noise"]), "hyp/outputscale": float(p["outputscale"]),
+            "hyp/ell_mean": float(ell.mean()), "hyp/ell_min": float(ell.min()),
+            "hyp/ell_max": float(ell.max()), "hyp/d_eff_30": int((inv >= 0.3 * inv.max()).sum())}
+
+
+def _plan_capacity(args, x: torch.Tensor, dk, ell: float) -> Optional[int]:
+    """The training plan's capacity from ``--plan-capacity`` (train_simplexgp.py:53-69)."""
+    if args.plan_capacity == 0:
+        return None
+    if args.plan_capacity > 0:
+        return args.plan_capacity
+    n, d = x.shape
+    occ = int(count_lattice_points(x / ell, dk.variance, dk.coeffs))
+    cap = trim_capacity(occ, n, d)
+    print(json.dumps({"plan_capacity": cap, "occupancy": occ, "worst_case": n * (d + 1)}), flush=True)
+    return cap
+
+
+def _emit(log_f, rec: dict, extra: Optional[dict] = None):
+    """One record: to metrics.jsonl as is, to standard output with ``extra``."""
+    log_f.write(json.dumps(rec) + "\n")
+    log_f.flush()
+    print(json.dumps({**rec, **(extra or {})}), flush=True)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Train, evaluate on the test split, print JSON lines; returns the final record."""
+    """Train with periodic evaluation; returns the epoch records, the test record and the run's paths."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
     ds = load_dataset(args.dataset, args.data_dir, args.max_n)
-    model = SimplexGP(
-        num_dims=ds.train_x.shape[-1], kernel=args.kernel, nu=args.nu, order=args.order,
-        min_noise=args.min_noise,
-        bbmm=BBMMConfig(cg_tolerance=args.cg_tol, max_cg_iterations=args.cg_iter,
-                        max_lanczos_iterations=args.lanc_iter, precond_rank=args.pre_size,
-                        num_probes=args.num_probes),
-        device=dev,
-    )
-    if args.ls_init == "median":
-        model.load_raw(init_raw_params(model.num_dims, lengthscale=median_lengthscale(ds.train_x)))
-    print(json.dumps({"config": vars(args), "device": str(dev), "n_train": int(ds.train_x.shape[0]),
-                      "d": int(ds.train_x.shape[1])}), flush=True)
     x = torch.from_numpy(ds.train_x).to(dev)
     y = torch.from_numpy(ds.train_y).to(dev)
-    stats = {}
+    bbmm = BBMMConfig(cg_tolerance=args.cg_tol, max_cg_iterations=args.cg_iter,
+                      max_lanczos_iterations=args.lanc_iter, precond_rank=args.pre_size,
+                      num_probes=args.num_probes)
+    model = SimplexGP(num_dims=x.shape[-1], kernel=args.kernel, nu=args.nu, order=args.order,
+                      min_noise=args.min_noise, bbmm=bbmm, device=dev)
+    ell = median_lengthscale(ds.train_x) if args.ls_init == "median" else None
+    if ell is not None:
+        model.load_raw(init_raw_params(model.num_dims, lengthscale=ell))
+    model.bbmm = dataclasses.replace(bbmm, plan_capacity=_plan_capacity(args, x, model.dk, ell or 0.6931))
 
-    def loss_fn(gen):
-        return model.nlml(x, y, generator=gen, stats=stats)
+    out_dir = pathlib.Path(args.out) / f"simplexgp_{args.dataset}_s{args.seed}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    log_f = open(out_dir / "metrics.jsonl", "a")
+    _emit(log_f, {"config": vars(args), "model": repr(model)}, {"device": str(dev)})
 
-    def log(epoch, loss, step_ms):
-        print(json.dumps({"epoch": epoch, "train/mll": -loss, "train/step_ms": step_ms,
-                          "cg_iters": stats["cg_iters"]}), flush=True)
+    opt = torch.optim.Adam(model.parameters(), lr=args.lr)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)  # NLML probes, then each eval's omega
+    stopper = EarlyStopper(patience=args.patience)
+    start_epoch = 0
+    ckpt_path = out_dir / "checkpoint.pt"
+    if args.resume and ckpt_path.exists():
+        ck = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        model.load_raw(ck["raw"])
+        opt.load_state_dict(ck["opt"])
+        gen.set_state(ck["generator"])
+        stopper.load_state_dict(ck["stopper"])
+        start_epoch = ck["epoch"] + 1
+        print(json.dumps({"resumed_from_epoch": ck["epoch"]}), flush=True)
 
-    history = fit_adam(loss_fn, model.parameters(), epochs=args.epochs, lr=args.lr, seed=args.seed,
-                       callback=log)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    cache = model.posterior_cache(x, y, generator=gen)
-    mean, var = model.predict_from_cache(cache, x, torch.from_numpy(ds.test_x).to(dev))
-    final = {f"test/{k}": v for k, v in
-             regression_metrics(mean.cpu().numpy(), var.cpu().numpy(), ds.test_y).items()}
-    final.update({"eval_cg_iters": cache["cg_iters"], "train/loss": history["loss"],
-                  "train/step_ms": history["step_ms"], "clock": history["clock"]})
-    print(json.dumps(final), flush=True)
-    return final
+    def raw_cpu() -> dict:
+        return {k: v.detach().cpu().clone() for k, v in model.raw().items()}
+
+    def save_params(name: str, raw: dict):
+        with open(out_dir / name, "wb") as f:
+            pickle.dump(raw_params_to_numpy(raw), f)
+
+    def predict(cache, x_eval: np.ndarray):
+        mean, var = model.predict_from_cache(cache, x, torch.from_numpy(x_eval).to(dev))
+        return mean.cpu().numpy(), var.cpu().numpy()
+
+    records, best_cache, stopped_at = [], None, None
+    for epoch in range(start_epoch, args.epochs):
+        t0 = time.perf_counter()
+        stats = {}
+        opt.zero_grad(set_to_none=True)
+        loss = model.nlml(x, y, generator=gen, stats=stats)
+        loss.backward()
+        opt.step()
+        loss = float(loss.detach())
+        rec = {"epoch": epoch, "train/mll": -loss, "train/loss_ts": time.perf_counter() - t0}
+        rec.update(hyp_summary(model))
+        extra = {"cg_iters": stats["cg_iters"]}
+
+        if ((epoch + 1) % args.log_int == 0 or epoch == args.epochs - 1) and not args.no_eval:
+            t0 = time.perf_counter()
+            cache = model.posterior_cache(x, y, generator=gen)
+            vm, vv = predict(cache, ds.val_x)
+            rec.update({f"val/{k}": v for k, v in regression_metrics(vm, vv, ds.val_y).items()})
+            rec["val/pred_ts"] = time.perf_counter() - t0
+            extra["val/cg_iters"] = cache["cg_iters"]
+            if stopper.step(rec["val/rmse"], raw_cpu()):
+                stopped_at = epoch
+            if stopper.is_best:
+                best_cache = cache
+                save_params("model_best.pkl", stopper.best_state)
+            torch.save({"raw": raw_cpu(), "opt": opt.state_dict(), "epoch": epoch, "generator": gen.get_state(),
+                        "stopper": stopper.state_dict()}, ckpt_path)
+
+        _emit(log_f, rec, extra)
+        records.append({**rec, **extra})
+        if stopped_at is not None:
+            _emit(log_f, {"early_stop": epoch})
+            break
+
+    if stopper.best_state is not None:
+        model.load_raw(stopper.best_state)
+    final = {}
+    if not args.no_eval:
+        t0 = time.perf_counter()
+        # The best epoch's val cache is the posterior at the best parameters.
+        cache = best_cache if best_cache is not None else model.posterior_cache(x, y, generator=gen)
+        tm, tv = predict(cache, ds.test_x)
+        final = {f"test/{k}": v for k, v in regression_metrics(tm, tv, ds.test_y).items()}
+        final["test/pred_ts"] = time.perf_counter() - t0
+        _emit(log_f, final, {"test/cg_iters": cache["cg_iters"]})
+    log_f.close()
+    save_params("model_final.pkl", model.raw())
+    return {"records": records, "final": final, "out_dir": str(out_dir),
+            "plan_capacity": model.bbmm.plan_capacity, "early_stop": stopped_at}
 
 
 if __name__ == "__main__":

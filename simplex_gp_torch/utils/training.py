@@ -3,7 +3,8 @@
 Port of simplex_gp_tpu/utils/training.py (:23-87): the Adam NLML loop of
 the reference (train_simplexgp.py:29-57) on ``torch.optim.Adam``, whose
 defaults (betas 0.9/0.999, eps 1e-8 outside the square root) are optax's,
-and the EarlyStopper of experiments/utils.py:170-199.
+and the EarlyStopper of experiments/utils.py:170-199, whose state goes to
+and from the trainer's checkpoint.
 """
 
 from __future__ import annotations
@@ -92,3 +93,14 @@ class EarlyStopper:
     @property
     def is_best(self) -> bool:
         return self.counter == 0
+
+    def state_dict(self) -> dict:
+        """Everything but the patience, for a checkpoint (experiments/common.py:187-192)."""
+        return {"min_delta": self.min_delta, "best_score": self.best_score, "counter": self.counter,
+                "best_state": self.best_state}
+
+    def load_state_dict(self, state: dict) -> "EarlyStopper":
+        """Restore :meth:`state_dict`'s fields in place; returns self."""
+        for key in ("min_delta", "best_score", "counter", "best_state"):
+            setattr(self, key, state[key])
+        return self

@@ -14,8 +14,13 @@ the weight-gradient differences); K6 sums d2 and L.l_piv in another order
 than torch's reductions (rel 1e-5 for one step).  K4 is K3's operator with
 the same atomic splat (rel 1e-5), and its occupancy and K8's count are
 exact; K7's atomic splat of 2L(1+d) columns feeds a four-term difference
-with cancellation (rel 1e-4).  Positions at d >= 9 are scaled by 0.3, so
-the kernel reaches between points and the gradients are not roundoff.
+with cancellation (rel 1e-4).  K9 is K3 per column window with the same
+atomic splat (rel 1e-5, against its plain version and the unchunked K3).
+The bounded K2 numbers its rows as it likes but gives the plain version's
+occupancy, and K3 on it the plain operator (rel 1e-5); one row short of
+the occupancy, every output is NaN and no launch leaves its table.
+Positions at d >= 9 are scaled by 0.3, so the kernel reaches between points
+and the gradients are not roundoff.
 """
 
 import pytest
@@ -201,3 +206,107 @@ def test_one_shot_wrappers_refuse_wrong_inputs(cuda_device):
     plan = t_lattice.build_plan_join(x, dk.deriv_coeffs, dk.deriv_variance)
     with pytest.raises(ValueError):
         K.lattice_deriv_grad(plan.seg_ids.long(), *plan[1:], x, v, v, dk.deriv_coeffs, 1.0, -2.0)
+
+
+@pytest.mark.parametrize("c", [8, 20, 101])
+@pytest.mark.parametrize("n,d,order,kind", GRID)
+def test_apply_cols_matches_plain_and_the_unchunked_apply(cuda_device, n, d, order, kind, c):
+    dk = _dk(kind, order)
+    x = _positions(n, d, 8, cuda_device)
+    plan = t_lattice.build_plan_join(x, dk.coeffs, dk.variance)
+    v = torch.randn((n, c), generator=torch.Generator(device=cuda_device).manual_seed(c), device=cuda_device)
+    norm = t_lattice.SLICE_NORM(d)
+    before = K.lattice_apply_cols.launches
+    kout = K.lattice_apply_cols(*plan, v, dk.coeffs, norm, 8)
+    pout = K.apply_cols_plain(*plan, v, dk.coeffs, norm, 8)
+    whole = K.lattice_apply(*plan, v, dk.coeffs, norm)
+    torch.cuda.synchronize()
+    assert K.lattice_apply_cols.launches == before + 1
+    assert float((kout - pout).norm() / pout.norm()) < 1e-5
+    assert float((kout - whole).norm() / whole.norm()) < 1e-5
+
+
+@pytest.mark.parametrize("n,d,order,kind", GRID)
+def test_bounded_dedup_and_guard_match_plain(cuda_device, n, d, order, kind):
+    dk = _dk(kind, order)
+    x = _positions(n, d, 9, cuda_device)
+    E, a, oh1, oh2 = t_lattice._lattice_constants(d, dk.coeffs, dk.variance, cuda_device)
+    h1, h2, w = K.lattice_geometry(x, E, a)
+    occ = int(K.count_plain(x, E, a))
+    norm = t_lattice.SLICE_NORM(d)
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    v = torch.randn((n, 11), generator=gen, device=cuda_device)
+    wide = torch.randn((n, 20), generator=gen, device=cuda_device)
+    full = K.lattice_apply(*t_lattice.build_plan_join(x, dk.coeffs, dk.variance), v, dk.coeffs, norm)
+    before = K.lattice_dedup_neighbors.bounded_launches
+    for cap in (occ + 5, occ, occ - 1):
+        if cap < 1 or cap >= n * (d + 1):
+            continue
+        kseg, knb, knl = K.lattice_dedup_neighbors(h1, h2, oh1, oh2, cap)
+        pseg, pnb, pnl = K.dedup_neighbors_plain(h1, h2, oh1, oh2, cap)
+        kseg, pseg = kseg.reshape(n, d + 1), pseg.reshape(n, d + 1)
+        kout = K.lattice_apply(kseg, w, knb, knl, v, dk.coeffs, norm)
+        kcols = K.lattice_apply_cols(kseg, w, knb, knl, wide, dk.coeffs, norm, 8)
+        pout = K.apply_plain(pseg, w, pnb, v, dk.coeffs, norm, n_lattice=pnl)
+        torch.cuda.synchronize()
+        assert tuple(knb.shape) == (d + 1, cap, 2 * order) and int(pnl) == occ
+        if cap >= occ:
+            assert int(knl) == occ
+            for got in (kout, full):
+                assert float((got - pout).norm() / pout.norm()) < 1e-5
+            pcols = K.apply_cols_plain(pseg, w, pnb, pnl, wide, dk.coeffs, norm, 8)
+            assert float((kcols - pcols).norm() / pcols.norm()) < 1e-5
+        else:
+            # Tripped: every launch stays in bounds (K5 reads the tables at the seg ids) and
+            # every output is NaN.
+            assert int(knl) > cap and int(kseg.max()) < cap
+            _, tf = K.lattice_apply(kseg, w, knb, knl, v, dk.coeffs, norm, return_table=True)
+            gr = K.lattice_filter_grad(x, E, kseg, kout, v, tf, tf, norm)
+            torch.cuda.synchronize()
+            assert bool(torch.isnan(kout).all() and torch.isnan(kcols).all() and torch.isnan(pout).all())
+            assert bool(torch.isnan(gr).all())
+    assert K.lattice_dedup_neighbors.bounded_launches > before
+
+
+@pytest.mark.parametrize("tag", ["init", "fixed"])
+def test_houseelectric_nlml_matches_the_jax_golden_file(cuda_device, tag):
+    """NLML and raw gradients at --max-n 360,000, median init, the autotrimmed capacity (K1, bounded K2,
+    K3, K5, K6), against tests/fixtures/houseelectric_golden.npz, with chip_smoke.py phase 4's bounds.
+    "init": the training CG at tolerance 1.0, the NLML only -- whether it stops after 10, 11 or 12
+    iterations turns on f32 noise at the tolerance; "fixed": the CG run for JAX's iteration count,
+    NLML and gradients.  The outputscale and lengthscale gradients nearly cancel at this point, so
+    each group's error is taken against the whole raw gradient's norm (chip_smoke.py, phase 6.3)."""
+    import pathlib
+
+    import numpy as np
+
+    import simplex_gp_torch
+    from simplex_gp_torch.linalg.mll import BBMMConfig
+    from simplex_gp_torch.utils import data
+
+    golden = np.load(pathlib.Path(__file__).resolve().parent / "fixtures" / "houseelectric_golden.npz")
+    cut = int(golden["max_n"])
+    ds = data.load_dataset("houseelectric", max_n=cut)
+    tol, iters = (1.0, 500) if tag == "init" else (0.0, int(golden["cg_iters_fixed"]))
+    cfg = BBMMConfig(cg_tolerance=tol, max_cg_iterations=iters, max_lanczos_iterations=100, precond_rank=100,
+                     num_probes=10, plan_capacity=int(golden["cut_capacity"]))
+    model = simplex_gp_torch.SimplexGP(num_dims=11, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                       device=cuda_device)
+    names = ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")
+    model.load_raw({k: golden[f"init_{k}"] for k in names})
+    z = np.random.default_rng(int(golden["seed"])).choice([-1.0, 1.0], size=(cut, 10)).astype(np.float32)
+    x, y = (torch.from_numpy(a).to(cuda_device) for a in (ds.train_x, ds.train_y))
+    stats = {}
+    loss = model.nlml(x, y, probes=torch.from_numpy(z).to(cuda_device), stats=stats)
+    loss.backward()
+    assert abs(float(loss.detach()) - float(golden[f"loss_{tag}"])) <= 1e-3
+    if tag == "init":
+        return
+    assert stats["cg_iters"] == int(golden["cg_iters_fixed"])
+    ga = [getattr(model, k).grad.detach().cpu().numpy().astype(np.float64).ravel() for k in names]
+    gb = [golden[f"grad_{tag}_{k}"].astype(np.float64).ravel() for k in names]
+    scale = np.linalg.norm(np.concatenate(gb))
+    for k, a, b in zip(names, ga, gb):
+        assert float(np.linalg.norm(a - b) / scale) <= 2e-2, k
+    whole_a, whole_b = np.concatenate(ga), np.concatenate(gb)
+    assert float(whole_a @ whole_b / (np.linalg.norm(whole_a) * scale)) >= 0.999
