@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and large-n paths once on one CUDA card, and check them.
+"""Drive the PyTorch port's serving, training, large-n and data-parallel paths on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -45,17 +45,38 @@ Phases, each printed as it runs:
      360,000 with that run's capacity, and five Adam steps from there (the
      first held to JAX's, the rest printed); then ``simplex_gp_torch.train.main``
      with the round-5 houseelectric flags for two epochs, one validation
-     eval and the test predict, all through K9.
+     eval and the test predict, all through K9;
+  7. the data-parallel training path at elevators' width (the 10,622 rows
+     shard_batch keeps at P = 2, median init, 10 probes): K11a
+     lattice_dedup_ordered against its plain version (bit-equal) and K2
+     (occupancy, time); K11b lattice_apply_sharded and K6' (pivot_column
+     given the pivot's rows) against their plain versions on one NCCL rank;
+     two gloo ranks sharing the card (``simplex_gp_torch.parallel.launch``):
+     K11b and one K6' step against their plain versions on each rank, the
+     rank-100 sharded factor against one process's, the sharded filter
+     against K3 on one process, the NLML and raw gradients of
+     ``data_parallel_loss_fn`` against one process with the same probes, the
+     CG iteration counts, one Adam step (parameters bit-equal on both
+     ranks), the step's stages with the transport apart; and
+     ``simplex_gp_torch.scaling``'s records on one NCCL rank and on the two
+     gloo ranks.  Then one line of K10 (the CG iteration) times.
 
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- for K5, on the trainer run; for K7, on
 the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9
-and the bounded K2, on the houseelectric trainer run --, errors, times, and
+and the bounded K2, on the houseelectric trainer run; for K11a, K11b and K6',
+on the two ranks' data-parallel NLML step --, errors, times, and
 each kernel's bound: the larger of the bytes it must move over the card's
 memory rate and its float operations over the card's float32 rate).  The last line is
 {"ok": true, "device": {...}} only if every phase passed; otherwise the
 script exits 1.  It exits 2 when no CUDA device is present.  It never
 imports jax.
+
+    python3 chip_smoke.py --ranks 4
+
+runs only phase 7.3-7.4b, over four NCCL ranks on four cards of one host
+(its elevators rows cut to a multiple of 4), against one process on the
+first card.
 """
 
 from __future__ import annotations
@@ -151,6 +172,15 @@ LARGE_N_REL = 2e-5
 # another simplex: occupancy 19,919 against JAX's 19,918 (the port's plain
 # version on the CPU gives 19,919 too).
 OCC_REL = 1e-4
+# Phase 7.  The sharded filter over two ranks against K3 on one process: the
+# same operator (K11a numbers the rows otherwise, K2's order is the CAS
+# order), both atomic splats, and the two ranks' partial tables summed by the
+# reduce-scatter; the chain-vs-join bound, rel 2e-5, as in phase 6.  The
+# data-parallel NLML and gradients take phase 4's NLML_ATOL / GRAD_COS /
+# GRAD_REL against one process on the same 10,622 rows and probes, K11a is
+# held bit-equal to its plain version, K11b and K6' take K3_REL and the K6
+# bounds.
+PARALLEL_FILTER_REL = 2e-5
 # The round-5 houseelectric run's flags (experiments/queue_r5_stage9.sh:15-18,
 # without --host-loop, which is not ported).
 HOUSE_FLAGS = ["--dataset", "houseelectric", "--kernel", "matern", "--nu", "1.5", "--order", "1", "--min-noise",
@@ -178,6 +208,10 @@ KERNEL_ROWS = {
     "lattice_deriv_grad": ("simplex_gp_torch/csrc/deriv.cu", "simplex_gp_tpu/ops/filter.py:261"),
     "lattice_apply_cols": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/filter.py:65"),
     "lattice_dedup_neighbors_bounded": ("simplex_gp_torch/csrc/dedup.cu", "simplex_gp_tpu/ops/lattice.py:693"),
+    "lattice_dedup_ordered": ("simplex_gp_torch/csrc/dedup.cu", "simplex_gp_tpu/parallel/shard_filter.py:118"),
+    "lattice_apply_sharded": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/lattice.py:499"),
+    # K6' is pivot_column given the pivot's rows; its launches are the wrapper's sharded_launches.
+    "pivot_column_at": ("simplex_gp_torch/csrc/pivot.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:129"),
 }
 
 
@@ -208,6 +242,12 @@ def apply_cost(n: int, d: int, c: int, n_lattice: int, order: int) -> tuple:
 def dedup_bytes(N: int, M: int, dp1: int, order: int) -> int:
     """K2: the N hash pairs in, the N seg ids and the (d+1, M, 2r) neighbours out."""
     return 4 * (2 * N + N + dp1 * M * 2 * order)
+
+
+def cg_iteration_bytes(n: int, c: int, k: int) -> int:
+    """K10: one CG iteration's vector updates over (n, c) -- x, r, p and the best iterate read and
+    written, r z and r r read for the dots -- and the Woodbury solve's two reads of U (n, k)."""
+    return 4 * (17 * n * c + 2 * n * k)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -524,14 +564,17 @@ def oneshot_phase(dev, ds, expect, timer):
                f"({guard_s:.3f} s, no hang)")
         Eh, ah, _, _ = L._lattice_constants(xh.shape[1], rbf.coeffs, rbf.variance, dev)
         hh1, hh2, _ = K.lattice_geometry(xh, Eh, ah)
-        # torch.unique of the packed keys: the dedup stage alone, given K1's hashes.
+        # torch.unique of the packed keys: the dedup stage alone, given K1's hashes; with K1's time,
+        # the two-call route that counts the same points.
         k8_unique_ms = timer(lambda: torch.unique(K._pack(hh1, hh2)).numel(), 3)
+        k8_k1_ms = timer(lambda: K.lattice_geometry(xh, Eh, ah), 3)
         del hh1, hh2
     nh, dh = xh.shape
     rows["count_lattice_points"] = dict(max_abs_err=k8_err, ms=k8_ms["houseelectric"],
                                         plain_ms=k8_plain_ms["houseelectric"],
                                         **bound(4 * nh * dh + 4, geometry_ops(nh, dh)), library_ms=None,
-                                        unique_ms=k8_unique_ms, shape=f"houseelectric x ({nh}, {dh})",
+                                        unique_ms=k8_unique_ms, geometry_ms=k8_k1_ms,
+                                        shape=f"houseelectric x ({nh}, {dh})",
                                         ms_by_dataset=k8_ms, plain_ms_by_dataset=k8_plain_ms)
     record.update(occupancy=occupancy, houseelectric_guard_s=guard_s)
 
@@ -969,7 +1012,7 @@ def large_n_phase(dev, expect, timer):
     print("    training step (ms): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
     print("    eval (ms): " + json.dumps({k: round(v, 3) for k, v in evals.items()}))
     print(f"    peak device memory (GB): {json.dumps({k: round(v, 3) for k, v in peaks.items()})}")
-    record.update(step_stages=stages, eval_stages=evals, peak_gb=peaks)
+    record.update(step_stages=stages, eval_stages=evals, peak_gb=peaks, houseelectric_n=n)
 
     rows["lattice_apply_cols"] = dict(max_abs_err=k9_err, ms=k9_ms, plain_ms=k9_plain_ms,
                                       **bound(*apply_cost(n, d, 100, nl_u, order)),
@@ -1074,15 +1117,431 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     return stages, evals, peaks
 
 
+def parallel_rank(axis, case):
+    """Phase 7.3's rank body, on each of two gloo ranks sharing the card.
+
+    The sharded filter at c = 11; K11b against its plain version (forward
+    and transposed, outputs and blurred tables) and one K6' step against its
+    plain version at this rank's shapes, with the pivot held by whichever
+    rank wins it (-1 on the others); the rank-100 sharded factor, whose rows
+    the parent holds against one process's; the data-parallel NLML and
+    gradients (``data_parallel_loss_fn``) with the kernels' launch counts of
+    that run; one Adam step; the step's stages by CUDA events and its
+    transport by the axis's timed collectives; then
+    ``simplex_gp_torch.scaling``'s records.  Returns numpy arrays and numbers.
+    """
+    import dataclasses
+
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch import scaling
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.kernels.pivot import pivot_column, pivot_column_plain
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.cg import cg_solve
+    from simplex_gp_torch.linalg.pivoted_cholesky import (
+        pivoted_cholesky_features,
+        precond_solve,
+        precond_sqrt,
+        sharded_pivot,
+    )
+    from simplex_gp_torch.ops import lattice as L
+    from simplex_gp_torch.parallel import build_plan_sharded_join, data_parallel_loss_fn, replicate, shard_batch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = mll.BBMMConfig(**case["cfg"])
+    model = simplex_gp_torch.SimplexGP(num_dims=case["d"], kernel="matern", nu=1.5, order=1, min_noise=0.1,
+                                       bbmm=cfg, device=dev)
+    model.load_raw(case["raw"])
+    replicate(axis, model)
+    x, y, z, v = shard_batch(axis, case["x"], case["y"], case["z"], case["v"])
+    dk = model.dk
+    out = dict(transport=axis.transport)
+    with torch.no_grad():
+        ref = (x * model.constrained()["inv_ell"]).contiguous()
+        plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
+        out["filter"] = L.apply_plan_join(plan, v, dk.coeffs, axis=axis).cpu().numpy()
+        out["n_lattice"] = int(plan.n_lattice)
+        taps, norm = list(dk.coeffs), L.SLICE_NORM(case["d"])
+        rows_read = plan.seg_ids.long()  # rows past n_lattice are undefined in the kernel's table
+        out["k11b_rel"] = 0.0
+        for transpose in (False, True):
+            kout, ktab = K.lattice_apply_sharded(*plan, v, taps, norm, axis, transpose, True)
+            pout, ptab = K.apply_sharded_plain(plan.seg_ids, plan.weights, plan.neighbors, v, taps, norm, axis,
+                                               transpose, True)
+            out["k11b_rel"] = max(out["k11b_rel"], rel(kout, pout), rel(ktab[rows_read], ptab[rows_read]))
+        out["apply_ms"] = cuda_ms(lambda: L.apply_plan_join(plan, v, dk.coeffs, axis=axis), 5)
+        # The whole apply and its collectives from the same calls, each collective between two synchronises.
+        axis.timing = True
+        axis.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            L.apply_plan_join(plan, v, dk.coeffs, axis=axis)
+        torch.cuda.synchronize()
+        out["apply_timed_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+        out["apply_transport_ms"] = 1e3 * axis.stats["seconds"] / 5
+        axis.timing = False
+
+        # The rank-100 sharded factor, and one K6' step on its first 99 columns: the winner's rows come
+        # from sharded_pivot, so one of the two ranks runs with piv = -1.
+        s = model.constrained()["outputscale"].reshape(()).contiguous()
+        k = cfg.precond_rank
+        diag = s * torch.ones(ref.shape[0], device=dev)
+        pc = pivoted_cholesky_features(ref, diag, dk.nu, s, k, axis)
+        out["factor_L"] = pc.L.cpu().numpy()
+        L0 = pc.L.clone()
+        L0[:, k - 1] = 0.0
+        dg = torch.clamp(diag - (L0 * L0).sum(dim=-1), min=0.0)
+        piv, row = sharded_pivot(ref, L0, dg, axis)
+        La, Lb = L0.clone(), L0.clone()
+        pa, pb = pc.pivots.clone(), pc.pivots.clone()
+        d0 = axis.pmax(diag.max())
+        da = pivot_column(ref, La, dg, piv, k - 1, s, d0, dk.nu, pa, row)
+        db = pivot_column_plain(ref, Lb, dg, piv, k - 1, s, d0, dk.nu, pb, row)
+        out.update(k6_step_rel=max(rel(La[:, k - 1], Lb[:, k - 1]), rel(da, db)), k6_step_piv=int(piv),
+                   k6_step_pivots_equal=bool(torch.equal(pa, pb)))
+
+    path = (K.lattice_geometry, K.lattice_dedup_ordered, K.lattice_apply_sharded, K.lattice_filter_grad)
+    for fn in path:
+        fn.launches = 0
+    pivot_column.sharded_launches = 0
+    step = data_parallel_loss_fn(model, axis)
+    stats = {}
+    loss, grads = step(x, y, probes=z, stats=stats)
+    out["launches"] = {fn.__name__: fn.launches for fn in path}
+    out["launches"]["pivot_column_at"] = pivot_column.sharded_launches
+    out.update(loss=float(loss), grads={k: g.cpu().numpy() for k, g in grads.items()}, cg_iters=stats["cg_iters"])
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+    opt.step()
+    out["params"] = {k: p.detach().cpu().numpy() for k, p in model.named_parameters()}
+
+    # The stages of one step, as mll._solve_system and data_parallel_loss_fn run them.
+    acfg = dataclasses.replace(cfg, axis=axis)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+    model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        ev[0].record()
+        params = model.constrained()
+        ref = x * params["inv_ell"]
+        plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
+        ev[1].record()
+        P = mll.build_precond(dk, acfg, params, ref, axis.n_global(x.shape[0]))
+        ev[2].record()
+        s, noise = params["outputscale"], params["noise"]
+        res = cg_solve(lambda V: s * L.apply_plan_join(plan, V, dk.coeffs, axis=axis) + noise * V,
+                       torch.cat([(y - params["mean"])[:, None], precond_sqrt(P, z, axis)], dim=-1),
+                       tol=cfg.cg_tolerance, max_iters=cfg.max_cg_iterations,
+                       precond=lambda V: precond_solve(P, V, axis), tridiag_m=100, axis=axis)
+        ev[3].record()
+    ev[4].record()
+    loss = model.nlml(x, y, probes=z, axis=axis)
+    ev[5].record()
+    loss.backward()
+    ev[6].record()
+    named = list(model.named_parameters())
+    flat = axis.psum(torch.cat([p.grad.reshape(-1) for _, p in named]))
+    for p, g in zip((p for _, p in named), flat.split([p.numel() for _, p in named])):
+        p.grad = g.reshape(p.shape)
+    ev[7].record()
+    opt.step()
+    ev[8].record()
+    torch.cuda.synchronize()
+    names = ("plan", "preconditioner", "cg", None, "forward", "backward", "grad_psum", "adam")
+    stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names) if nm}
+    stages["cg_iters"] = res.iterations
+
+    def train_step_():
+        step(x, y, probes=z)
+        opt.step()
+
+    stages["warm_step"] = cuda_ms(train_step_, 3)
+    axis.timing = True
+    axis.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_step_()
+    torch.cuda.synchronize()
+    timed_ms = 1e3 * (time.perf_counter() - t0)
+    axis.timing = False
+    comm = dict(axis.stats)
+    stages.update(timed_step_ms=timed_ms, transport_ms=1e3 * comm["seconds"],
+                  kernels_and_host_ms=timed_ms - 1e3 * comm["seconds"], collectives=comm["calls"],
+                  transport_bytes=comm["bytes"])
+    out["stages"] = stages
+    out["scaling"] = scaling.records(axis, case["scaling_argv"])
+    return out
+
+
+def parallel_case(ds, nprocs: int) -> dict:
+    """Phase 7's problem: the elevators rows shard_batch keeps over ``nprocs`` ranks, the median init of
+    elevators_train_golden.npz, its probes, and 11 filter columns, as numpy arrays."""
+    golden = np.load(TRAIN_GOLDEN)
+    n = (ds.train_x.shape[0] // nprocs) * nprocs
+    return dict(d=ds.train_x.shape[1], x=ds.train_x[:n], y=ds.train_y[:n],
+                z=np.random.default_rng(int(golden["seed_init"])).choice([-1.0, 1.0], size=(n, 10)).astype(np.float32),
+                v=np.random.default_rng(7).normal(size=(n, 11)).astype(np.float32),
+                raw={k: golden[f"init_{k}"] for k in RAW_NAMES},
+                cfg=dict(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                         num_probes=10),
+                scaling_argv=["--rows", str(n), "-d", str(ds.train_x.shape[1]), "--cols", "11", "--reps", "3"])
+
+
+def parallel_model(case, dev):
+    import simplex_gp_torch
+    from simplex_gp_torch.linalg import mll
+
+    model = simplex_gp_torch.SimplexGP(num_dims=case["d"], kernel="matern", nu=1.5, order=1, min_noise=0.1,
+                                       bbmm=mll.BBMMConfig(**case["cfg"]), device=dev)
+    model.load_raw(case["raw"])
+    return model
+
+
+def parallel_phase(dev, ds, expect, timer):
+    """Phase 7: the data-parallel training path at elevators' width.  Returns (kernel rows, launches, record)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from simplex_gp_torch import scaling
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.kernels.pivot import pivot_column, pivot_column_plain
+    from simplex_gp_torch.linalg.pivoted_cholesky import pivoted_cholesky_features
+    from simplex_gp_torch.ops import lattice as L
+    from simplex_gp_torch.parallel import build_plan_sharded_join, initialize_distributed, make_mesh
+
+    case = parallel_case(ds, 2)
+    model = parallel_model(case, dev)
+    dk = model.dk
+    n, d = case["x"].shape
+    order, taps, norm = dk.order, list(dk.coeffs), L.SLICE_NORM(d)
+    x = torch.from_numpy(case["x"]).to(dev)
+    v = torch.from_numpy(case["v"]).to(dev)
+    E, a, oh1, oh2 = L._lattice_constants(d, dk.coeffs, dk.variance, dev)
+    rows, record = {}, {}
+    with torch.no_grad():
+        params = model.constrained()
+        ref = (x * params["inv_ell"]).contiguous()
+
+    print(f"parallel 7.1: K11a lattice_dedup_ordered vs plain and K2 (elevators median init, {n} rows)")
+    with torch.no_grad():
+        h1, h2, w = K.lattice_geometry(ref, E, a)
+        N = h1.shape[0]
+        kseg, knb, knl = K.lattice_dedup_ordered(h1, h2, oh1, oh2)
+        aseg, anb, _ = K.lattice_dedup_ordered(h1, h2, oh1, oh2)
+        pseg, pnb, pnl = K.dedup_ordered_plain(h1, h2, oh1, oh2)
+        _, _, nl2 = K.lattice_dedup_neighbors(h1, h2, oh1, oh2)
+        diff = int((kseg != pseg).sum()) + int((knb != pnb).sum())
+        twice = bool(torch.equal(aseg, kseg) and torch.equal(anb, knb))
+        expect(diff == 0 and twice and int(knl) == int(pnl) == int(nl2),
+               f"N={N}: {diff} seg/neighbour entries differ from the plain version (limit 0, bit-equal); two builds "
+               f"equal: {twice}; n_lattice {int(knl)} (plain {int(pnl)}, K2 {int(nl2)})")
+        k11a = dict(ms=timer(lambda: K.lattice_dedup_ordered(h1, h2, oh1, oh2), 20),
+                    plain_ms=timer(lambda: K.dedup_ordered_plain(h1, h2, oh1, oh2), 5),
+                    k2_ms=timer(lambda: K.lattice_dedup_neighbors(h1, h2, oh1, oh2), 20))
+        print(f"    K11a {k11a['ms']:.4f} ms, plain {k11a['plain_ms']:.4f} ms, K2 {k11a['k2_ms']:.4f} ms")
+        nl = int(knl)
+        single = K.lattice_apply(*L.build_plan_join(ref, dk.coeffs, dk.variance), v, taps, norm)
+    rows["lattice_dedup_ordered"] = dict(max_abs_err=diff, **{k: k11a[k] for k in ("ms", "plain_ms")},
+                                         **bound(dedup_bytes(N, N, d + 1, order), 0), library_ms=None,
+                                         shape=f"N={N} hash pairs (elevators at P = 2)", k2_ms=k11a["k2_ms"])
+    del kseg, knb, aseg, anb, pseg, pnb
+
+    print("parallel 7.2: K11b lattice_apply_sharded and K6' (pivot_column given the pivot's rows) vs plain, one NCCL "
+          "rank")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    initialize_distributed(backend="nccl", init_method="file://" + os.path.join(tmp, "store"), rank=0,
+                           world_size=1, device="cuda")
+    try:
+        axis = make_mesh()
+        with torch.no_grad():
+            plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
+            rows_read = plan.seg_ids.long()  # rows past n_lattice are undefined in the kernel's table
+            k11b_err, r11b = 0.0, 0.0
+            for transpose in (False, True):
+                kout, ktab = K.lattice_apply_sharded(*plan, v, taps, norm, axis, transpose, True)
+                pout, ptab = K.apply_sharded_plain(plan.seg_ids, plan.weights, plan.neighbors, v, taps, norm, axis,
+                                                   transpose, True)
+                r11b = max(r11b, rel(kout, pout), rel(ktab[rows_read], ptab[rows_read]))
+                k11b_err = max(k11b_err, float((kout - pout).abs().max()))
+                if not transpose:
+                    r_k3 = rel(kout, single)
+            expect(r11b <= K3_REL and r_k3 <= K3_REL,
+                   f"c=11, forward and transposed: rel {r11b:.3e} against the plain version, {r_k3:.3e} against K3 "
+                   f"on one process (limit {K3_REL})")
+            k11b = dict(ms=timer(lambda: K.lattice_apply_sharded(*plan, v, taps, norm, axis), 20),
+                        plain_ms=timer(lambda: K.apply_sharded_plain(plan.seg_ids, plan.weights, plan.neighbors, v,
+                                                                     taps, norm, axis), 5),
+                        k3_ms=timer(lambda: K.lattice_apply(*plan, v, taps, norm), 20))
+            print(f"    K11b c=11 {k11b['ms']:.4f} ms, plain {k11b['plain_ms']:.4f} ms, K3 on the same plan "
+                  f"{k11b['k3_ms']:.4f} ms")
+
+            s = params["outputscale"].reshape(()).contiguous()
+            k = case["cfg"]["precond_rank"]
+            diag = s * torch.ones(n, device=dev)
+            pc_at = pivoted_cholesky_features(ref, diag, dk.nu, s, k, axis)
+            pc = pivoted_cholesky_features(ref, diag, dk.nu, s, k)
+            zz = torch.randn((n, 4), generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+            r_llt = rel(pc_at.L @ (pc_at.L.T @ zz), pc.L @ (pc.L.T @ zz))
+            same = bool(torch.equal(pc_at.L, pc.L))
+            expect(r_llt <= K6_LLT_REL, f"rank-{k} factor through K6' vs K6: L L^T z rel {r_llt:.3e} (limit "
+                   f"{K6_LLT_REL}); bit-equal L: {same}")
+            L0 = torch.zeros((n, k), device=dev)
+            piv = torch.zeros(k, dtype=torch.int64, device=dev)
+            dg, d0 = diag.clone(), diag.max()
+            for j in range(k - 1):
+                dg = pivot_column_plain(ref, L0, dg, torch.argmax(dg), j, s, d0, dk.nu, piv)
+            p = torch.argmax(dg)
+            row = (ref[p].clone(), L0[p].clone(), dg[p].reshape(1).clone())
+            La, Lb = L0.clone(), L0.clone()
+            pa, pb = piv.clone(), piv.clone()
+            da = pivot_column(ref, La, dg, p, k - 1, s, d0, dk.nu, pa, row)
+            db = pivot_column_plain(ref, Lb, dg, p, k - 1, s, d0, dk.nu, pb, row)
+            r_step = max(rel(La[:, k - 1], Lb[:, k - 1]), rel(da, db))
+            expect(r_step <= K6_STEP_REL, f"K6' single step j={k - 1}: rel {r_step:.3e} (limit {K6_STEP_REL})")
+            k6 = dict(max_abs_err=float((La[:, k - 1] - Lb[:, k - 1]).abs().max()),
+                      ms=timer(lambda: pivot_column(ref, La, dg, p, k - 1, s, d0, dk.nu, pa, row), 50),
+                      plain_ms=timer(lambda: pivot_column_plain(ref, Lb, dg, p, k - 1, s, d0, dk.nu, pb, row), 20))
+            print(f"    K6' {k6['ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms")
+        argv = case["scaling_argv"]
+        print("parallel 7.4a: python -m simplex_gp_torch.scaling " + " ".join(argv) + ", one NCCL rank")
+        scaling_nccl = scaling.records(axis, argv)
+        for rec in scaling_nccl:
+            print("    " + json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows["lattice_apply_sharded"] = dict(max_abs_err=k11b_err, ms=k11b["ms"], plain_ms=k11b["plain_ms"],
+                                         **bound(*apply_cost(n, d, 11, nl, order)), library_ms=None,
+                                         shape=f"n={n}, d={d}, c=11, n_lattice={nl}, P = 1 (NCCL)",
+                                         k3_same_plan_ms=k11b["k3_ms"])
+    # ref and L[:, :j], the diagonal and the pivot's rows in; L[:, j] and the diagonal out.
+    rows["pivot_column_at"] = dict(**k6, **bound(4 * (n * d + n * (k - 1) + 3 * n + d + k),
+                                                 n * (3 * d + 2 * (k - 1) + 12)),
+                                   library_ms=None, shape=f"n={n}, dim={d}, k={k}, j={k - 1}, P = 1 (NCCL)")
+    record.update(k11a=k11a, k11b_rel=r11b, k11b_k3_rel=r_k3, k6_at_llt_rel=r_llt, k6_at_bit_equal=same,
+                  k6_at_step_rel=r_step, scaling_nccl=scaling_nccl)
+
+    t0 = time.perf_counter()
+    row_p2, launches, rec_p2 = ranks_phase(dev, ds, expect, 2, "gloo")
+    rows["lattice_apply_sharded"].update(gloo_p2_ms=row_p2["ranks_ms"], gloo_p2_timed_ms=row_p2["ranks_timed_ms"],
+                                         gloo_p2_transport_ms=row_p2["ranks_transport_ms"])
+    record.update(rec_p2, launch_wall_s=time.perf_counter() - t0)
+    return rows, launches, record
+
+
+def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
+    """Phase 7.3-7.4b: ``nprocs`` ranks (gloo ranks sharing card 0, or NCCL ranks, one per card) against
+    one process on card 0.  Returns (K11b's times on the ranks, launches summed over the ranks, the record)."""
+    import torch
+
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.linalg.pivoted_cholesky import pivoted_cholesky_features
+    from simplex_gp_torch.ops import lattice as L
+    from simplex_gp_torch.parallel import launch
+
+    case = parallel_case(ds, nprocs)
+    model = parallel_model(case, dev)
+    dk = model.dk
+    x, y, z, v = (torch.from_numpy(case[k]).to(dev) for k in ("x", "y", "z", "v"))
+    with torch.no_grad():
+        ref = (x * model.constrained()["inv_ell"]).contiguous()
+        plan = L.build_plan_join(ref, dk.coeffs, dk.variance)
+        single = K.lattice_apply(*plan, v, list(dk.coeffs), L.SLICE_NORM(case["d"]))
+    where = "sharing card 0" if backend == "gloo" else "one per card"
+    print(f"parallel 7.3: {nprocs} {backend} ranks ({where}), {x.shape[0]} rows: the sharded filter, NLML and "
+          f"gradients, one Adam step")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(parallel_rank, nprocs, (case,), backend=backend, device="cuda", timeout=600)
+    print(f"    transport: {ranks[0]['transport']}; the launch took {time.perf_counter() - t0:.1f} s (host clock)")
+    out = torch.from_numpy(np.concatenate([r["filter"] for r in ranks])).to(dev)
+    r_f = rel(out, single)
+    nl = int(plan.n_lattice)
+    expect(r_f <= PARALLEL_FILTER_REL and all(r["n_lattice"] == nl for r in ranks),
+           f"sharded filter vs K3 on one process, c=11: rel {r_f:.3e} (limit {PARALLEL_FILTER_REL}); n_lattice "
+           f"{[r['n_lattice'] for r in ranks]} (one process {nl})")
+    r11b = [r["k11b_rel"] for r in ranks]
+    expect(max(r11b) <= K3_REL, f"K11b vs its plain version on each rank ({x.shape[0] // nprocs} rows, c=11 in "
+           f"blocks of {-(-11 // nprocs)} columns), forward and transposed, outputs and tables: rel "
+           f"{', '.join(f'{r_:.3e}' for r_ in r11b)} (limit {K3_REL})")
+    steps, pivs = [r["k6_step_rel"] for r in ranks], [r["k6_step_piv"] for r in ranks]
+    expect(max(steps) <= K6_STEP_REL and sum(p_ >= 0 for p_ in pivs) == 1
+           and all(r["k6_step_pivots_equal"] for r in ranks),
+           f"K6' step j={case['cfg']['precond_rank'] - 1} vs its plain version on each rank: rel "
+           f"{', '.join(f'{r_:.3e}' for r_ in steps)} (limit {K6_STEP_REL}); local pivot index {pivs} (one rank "
+           f"holds it, the others pass -1)")
+    with torch.no_grad():
+        k = case["cfg"]["precond_rank"]
+        s = model.constrained()["outputscale"].reshape(()).contiguous()
+        pc = pivoted_cholesky_features(ref, s * torch.ones(x.shape[0], device=dev), dk.nu, s, k)
+        L_ranks = torch.from_numpy(np.concatenate([r["factor_L"] for r in ranks])).to(dev)
+        zz = torch.randn((x.shape[0], 4), generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+        r_llt = rel(L_ranks @ (L_ranks.T @ zz), pc.L @ (pc.L.T @ zz))
+        same_L = bool(torch.equal(L_ranks, pc.L))
+    expect(r_llt <= K6_LLT_REL, f"rank-{k} sharded factor (K6' on {nprocs} ranks) vs K6 on one process: L L^T z "
+           f"rel {r_llt:.3e} (limit {K6_LLT_REL}); bit-equal L: {same_L}")
+    stats = {}
+    model.zero_grad(set_to_none=True)
+    loss = model.nlml(x, y, probes=z, stats=stats)
+    loss.backward()
+    losses = [r["loss"] for r in ranks]
+    dl = abs(losses[0] - float(loss.detach()))
+    iters = [r["cg_iters"] for r in ranks]
+    expect(len(set(losses)) == 1 and dl <= NLML_ATOL and len(set(iters)) == 1,
+           f"NLML {losses} on the ranks vs {float(loss.detach()):.6f} on one process (|diff| {dl:.2e}, limit "
+           f"{NLML_ATOL}); CG iterations {iters} (one process {stats['cg_iters']})")
+    record = {}
+    for name in RAW_NAMES:
+        gb = getattr(model, name).grad.detach().cpu().numpy().astype(np.float64).ravel()
+        ga = ranks[0]["grads"][name].astype(np.float64).ravel()
+        same = all(np.array_equal(r["grads"][name], ranks[0]["grads"][name]) for r in ranks)
+        c_, r_ = cosine(ga, gb), float(np.linalg.norm(ga - gb) / np.linalg.norm(gb))
+        expect(c_ >= GRAD_COS and r_ <= GRAD_REL and same,
+               f"d/d{name} on the ranks (bit-equal across ranks: {same}) vs one process: cos {c_:.6f} (limit "
+               f"{GRAD_COS}), rel {r_:.2e} (limit {GRAD_REL})")
+        record[f"grad_rel_{name}"] = r_
+    equal = all(np.array_equal(r["params"][k], ranks[0]["params"][k]) for r in ranks for k in RAW_NAMES)
+    expect(equal, "after one Adam step the raw parameters are bit-equal on every rank")
+    launches = {name: sum(r["launches"][name] for r in ranks) for name in ranks[0]["launches"]}
+    print(f"    launches on the data-parallel NLML step, all ranks: {launches}")
+    expect(all(r["launches"][name] > 0 for r in ranks for name in launches),
+           "every kernel of the path launched on each rank")
+    for i, r in enumerate(ranks):
+        print(f"    rank {i}: step stages (ms) " + json.dumps({k_: round(v_, 3) if isinstance(v_, float) else v_
+                                                              for k_, v_ in r["stages"].items()})
+              + f"; K11b apply at c=11 {r['apply_ms']:.3f} ms (CUDA events); with a synchronise around each "
+              f"collective {r['apply_timed_ms']:.3f} ms, of which transport {r['apply_transport_ms']:.3f} ms")
+    print(f"parallel 7.4b: simplex_gp_torch.scaling over the {nprocs} {backend} ranks")
+    for rec in ranks[0]["scaling"]:
+        print("    " + json.dumps(rec))
+    record.update(ranks=nprocs, backend=backend, filter_rel=r_f, k11b_rel=r11b, k6_step_rel=steps, k6_step_piv=pivs,
+                  factor_llt_rel=r_llt, factor_bit_equal=same_L, nlml_diff=dl, losses=losses, cg_iters=iters,
+                  cg_iters_single=stats["cg_iters"], params_equal=equal, launches=launches,
+                  stages=[r["stages"] for r in ranks], scaling=ranks[0]["scaling"])
+    return (dict(ranks_ms=[r["apply_ms"] for r in ranks], ranks_timed_ms=[r["apply_timed_ms"] for r in ranks],
+                 ranks_transport_ms=[r["apply_transport_ms"] for r in ranks]), launches, record)
+
+
 def train_step(model, opt, x, y, z):
     opt.zero_grad(set_to_none=True)
     model.nlml(x, y, probes=z).backward()
     opt.step()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--ranks", type=int, default=1,
+                        help="P > 1: only phase 7.3-7.4b, over P NCCL ranks, one per card (needs P cards)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
         return 2
@@ -1118,6 +1577,10 @@ def main() -> int:
     # The golden file was made from the seeded synthetic stand-in of
     # elevators (no DATADIR), so take it directly.
     ds = data.prepare_dataset(data._synthetic_uci("elevators"), "elevators")
+    if args.ranks > 1:
+        _, _, par = ranks_phase(dev, ds, expect, args.ranks, "nccl")
+        print("parallel: " + json.dumps(par))
+        return finish(t_start, failures, card, None)
     golden = np.load(GOLDEN)
     model = simplex_gp_torch.SimplexGP(
         num_dims=18, kernel="matern", nu=1.5, order=1, min_noise=0.1,
@@ -1319,6 +1782,24 @@ def main() -> int:
     print(f"large-n phase: {time.perf_counter() - t_large:.1f} s")
     print("large n: " + json.dumps(large))
 
+    t_par = time.perf_counter()
+    par_rows, par_launches, par = parallel_phase(dev, ds, expect, cuda_ms)
+    rows.update(par_rows)
+    launches.update({k: par_launches[k] for k in par_rows})
+    print(f"parallel phase: {time.perf_counter() - t_par:.1f} s")
+    print("parallel: " + json.dumps(par))
+
+    # K10, the CG body, stays plain torch ops: one iteration's time (the MVM included) from the stage
+    # times of 4.5 and 6.5, against the bound of its vector updates alone.
+    k10 = {}
+    for tag, stage_ms, iters, n_, c_ in (
+            ("elevators training, c=11", training["stages"]["cg"], training["stages"]["cg_iters"], n, 11),
+            ("houseelectric eval, c=1", large["eval_stages"]["eval_cg"], large["eval_stages"]["eval_cg_iters"],
+             large["houseelectric_n"], 1)):
+        k10[tag] = dict(iteration_ms=stage_ms / iters, iterations=iters,
+                        **bound(cg_iteration_bytes(n_, c_, 100), 0))
+    print("K10 cg iteration: " + json.dumps(k10))
+
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1327,11 +1808,19 @@ def main() -> int:
         posterior_cache_ms=cache_ms, predict_ms=predict_ms, cg_iters=cache["cg_iters"],
         cg_res=float(cache["cg_res"]), rmse=rmse, nll=nll, mean_rms_diff=mean_rms,
         predict_max_abs_diff=dpred)))
+    return finish(t_start, failures, card, kernels)
+
+
+def finish(t_start, failures, card, kernels) -> int:
+    """The closing lines: the time, then the failures (exit 1) or the kernels line, the card and ok."""
+    import torch
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernel build included")
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures, sep="\n  ", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": kernels}))
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -39,6 +39,26 @@
 // of a window is made and no column is padded (the last window is
 // narrower).  Each window re-reads the plan (seg ids, weights, neighbours);
 // that costs ceil(c / w) plan reads against one, for 1/13 of the tables.
+//
+// K11b, the sharded apply (apply_plan_join's sharded branch, ops/lattice.py
+// :499-521): each of P ranks holds n_loc points of a global plan of M rows.
+// The column block b of c_pad = P cb columns (c rounded up to a multiple of
+// P; the padding columns stay zero) is rank b's to blur.
+//   splat_blocks: this rank's contributions into a zeroed (P, M, cb) block
+//     buffer, column col to block col / cb, one thread per (contribution,
+//     column) with atomics as K3's splat; reduce-scatter over the blocks
+//     (the wrapper, torch.distributed) leaves rank b the sum of every rank's
+//     block b;
+//   blur: K3's blur on the rank's (M, cb) block, d+1 launches;
+//   slice_blocks: after the all-gather of the blurred blocks, one thread per
+//     (point, column) reads block col / cb at column col % cb and writes out
+//     (n_loc, c) in place, skipping the padding.
+// Per apply each rank sends P-1 blocks of M cb floats in the reduce-scatter
+// and receives P-1 in the all-gather; the blur's traffic is K3's at cb =
+// c_pad / P columns.  K3's splat and slice read and write a column window in
+// place too, but index the table with the window's own width as its row
+// stride; the last block is narrower than cb when P does not divide c, so
+// the block kernels take cb as the stride and cover every block in one launch.
 #include "common.cuh"
 
 __global__ void splat_kernel(const int* __restrict__ seg, const float* __restrict__ w,
@@ -90,6 +110,57 @@ __global__ void slice_kernel(const float* __restrict__ table, const int* __restr
     acc = __fadd_rn(acc, __fmul_rn(table[(long long)seg[e] * wd + col], w[e]));
   }
   *dst = __fmul_rn(acc, norm);
+}
+
+__global__ void splat_blocks_kernel(const int* __restrict__ seg, const float* __restrict__ w,
+                                    const float* __restrict__ v, int n, int dp1, int c, int cb,
+                                    int M, float* __restrict__ blocks) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)n * dp1 * c) return;
+  const int col = (int)(idx % c);
+  const long long e = idx / c;  // contribution = point * dp1 + vertex
+  const long long p = e / dp1;
+  const int b = col / cb;
+  atomicAdd(&blocks[((long long)b * M + seg[e]) * cb + (col - b * cb)], __fmul_rn(v[p * c + col], w[e]));
+}
+
+__global__ void slice_blocks_kernel(const float* __restrict__ blocks, const int* __restrict__ seg,
+                                    const float* __restrict__ w, int n, int dp1, int c, int cb,
+                                    int M, float norm, float* __restrict__ out) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)n * c) return;
+  const int col = (int)(idx % c);
+  const long long p = idx / c;
+  const int b = col / cb;
+  const float* table = blocks + (long long)b * M * cb + (col - b * cb);
+  float acc = 0.0f;
+  for (int v = 0; v < dp1; ++v) {
+    const long long e = p * dp1 + v;
+    acc = __fadd_rn(acc, __fmul_rn(table[(long long)seg[e] * cb], w[e]));
+  }
+  out[idx] = __fmul_rn(acc, norm);
+}
+
+// K11b.  v and out are (n, c); blocks is (c_pad / cb, M, cb), zeroed.
+extern "C" int sgp_lattice_splat_blocks(const int* seg, const float* w, const float* v, int n, int dp1,
+                                        int c, int cb, int M, float* blocks, void* stream) {
+  if (cb <= 0) return (int)cudaErrorInvalidValue;
+  const long long work = (long long)n * dp1 * c;
+  if (work > 0)
+    splat_blocks_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(seg, w, v, n, dp1, c,
+                                                                                   cb, M, blocks);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sgp_lattice_slice_blocks(const float* blocks, const int* seg, const float* w, int n,
+                                        int dp1, int c, int cb, int M, float norm, float* out,
+                                        void* stream) {
+  if (cb <= 0) return (int)cudaErrorInvalidValue;
+  const long long work = (long long)n * c;
+  if (work > 0)
+    slice_blocks_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(blocks, seg, w, n, dp1,
+                                                                                   c, cb, M, norm, out);
+  return (int)cudaGetLastError();
 }
 
 // count (nullable): the guard's live count, against capacity.

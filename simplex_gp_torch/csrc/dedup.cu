@@ -30,6 +30,26 @@
 // everywhere, and the count is left past the capacity, which K3's guard
 // (apply.cu) reads.  The untrimmed K2 keeps sgp_insert<false>: the counter
 // read on each collision cost it 7-18% on the H100.
+//
+// K11a, the ordered dedup of the sharded plan (build_plan_sharded_join,
+// simplex_gp_tpu/parallel/shard_filter.py:118-143): every rank builds the
+// global plan from the same all-gathered hashes, and the partial lattice
+// tables of the ranks are summed row by row (apply.cu, K11b), so a row must
+// be the same lattice point on every rank.  The CAS order above differs from
+// rank to rank; K11a numbers rows by their first contributing vertex in
+// global vertex order instead, which any two runs on the same hashes agree on
+// (JAX numbers them in sorted hash order, _plan_tables :404-408; any fixed
+// order gives the same operator).
+//   1. insert as K2 (sgp_insert<false>);
+//   2. first: atomicMin of the vertex index into its slot, then a flag on
+//      each vertex that is its slot's first;
+//   3. the wrapper's inclusive scan of the flags (torch.cumsum) gives each
+//      first vertex its row, scan - 1;
+//   4. remap: each first vertex writes its row into row_of_slot and its hash
+//      pair into row_h1/row_h2, replacing the CAS-order ids;
+//   5. seg and neighbours as K2 (sgp_dedup_finish), on the new ids.
+// The extra passes are three coalesced sweeps over the N vertices and one
+// scattered atomic per vertex into the L2-resident slot array.
 #include "common.cuh"
 
 template <bool kBounded>
@@ -75,6 +95,50 @@ __global__ void neighbors_kernel(const unsigned long long* __restrict__ table, u
     found = sgp_find(table, mask, row_of_slot, sgp_pack(q1, q2));
   }
   neighbors[idx] = found < 0 ? M : found;
+}
+
+__global__ void first_kernel(const int* __restrict__ slot_of, int N, int* first_of_slot) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < N) atomicMin(&first_of_slot[slot_of[i]], i);
+}
+
+__global__ void flag_kernel(const int* __restrict__ slot_of, const int* __restrict__ first_of_slot,
+                            int N, int* __restrict__ flag) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < N) flag[i] = first_of_slot[slot_of[i]] == i ? 1 : 0;
+}
+
+__global__ void remap_kernel(const int* __restrict__ h1, const int* __restrict__ h2,
+                             const int* __restrict__ slot_of, const int* __restrict__ flag,
+                             const int* __restrict__ scan, int N, int* __restrict__ row_of_slot,
+                             int* __restrict__ row_h1, int* __restrict__ row_h2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N || !flag[i]) return;
+  const int id = scan[i] - 1;
+  row_of_slot[slot_of[i]] = id;
+  row_h1[id] = h1[i];
+  row_h2[id] = h2[i];
+}
+
+// K11a step 2.  first_of_slot (one int per slot) must hold INT_MAX.
+extern "C" int sgp_dedup_first(const int* slot_of, int N, int* first_of_slot, int* flag,
+                               void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N > 0) {
+    first_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(slot_of, N, first_of_slot);
+    flag_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(slot_of, first_of_slot, N, flag);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K11a step 4.  scan is the inclusive prefix sum of flag.
+extern "C" int sgp_dedup_remap(const int* h1, const int* h2, const int* slot_of, const int* flag,
+                               const int* scan, int N, int* row_of_slot, int* row_h1, int* row_h2,
+                               void* stream) {
+  if (N > 0)
+    remap_kernel<<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+        h1, h2, slot_of, flag, scan, N, row_of_slot, row_h1, row_h2);
+  return (int)cudaGetLastError();
 }
 
 // Row id of every contribution; shared with K4 (once.cu).  Past the

@@ -16,6 +16,15 @@
 // (torch.argmax output), so no step waits on the host.  The diagonal is
 // double-buffered: every thread reads the pivot's old value d_in[p] while
 // the pivot's own thread zeroes d_out[p].
+//
+// K6', the sharded step (pivoted_cholesky.py:129-140, :152-162), is the
+// same kernel: the rows of ref, L and the diagonal are this rank's, and the
+// pivot may live on another rank.  Each rank all-gathers one candidate (its
+// local maximum of the diagonal, that row of ref and that row of L), and
+// every rank picks the same winner.  The caller passes the winner's x row, L
+// row and pivot value as device vectors (null for K6, which reads row p),
+// and the pivot's local index, or -1 on the ranks that lost: only the
+// winner writes sqrt(pivot) into L and zeroes its diagonal entry.
 #include "common.cuh"
 
 __device__ __forceinline__ float sgp_kernel_value(float d2, float nu) {
@@ -31,19 +40,22 @@ __device__ __forceinline__ float sgp_kernel_value(float d2, float nu) {
 
 __global__ void pivot_column_kernel(const float* __restrict__ ref, float* L,
                                     const float* __restrict__ d_in, float* __restrict__ d_out,
-                                    const long long* __restrict__ piv,
+                                    const float* __restrict__ x_piv, const float* __restrict__ l_piv,
+                                    const float* __restrict__ pv, const long long* __restrict__ piv,
                                     const float* __restrict__ s, const float* __restrict__ d0max,
                                     long long* __restrict__ pivots, int n, int dim, int k, int j,
                                     float nu) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const long long p = *piv;
-  const float pv_raw = d_in[p];
+  const long long p = *piv;  // -1 on a rank that does not hold the pivot
+  // The pivot's rows: given (K6'), or row p of ref, L and the diagonal (K6).
+  const float* rp = x_piv ? x_piv : ref + p * dim;
+  const float* Lp = l_piv ? l_piv : L + p * k;
+  const float pv_raw = pv ? *pv : d_in[p];
   const bool alive = pv_raw > __fmul_rn(1e-6f, *d0max);
   const float root = sqrtf(fmaxf(pv_raw, 1e-12f));
 
   const float* ri = ref + (long long)i * dim;
-  const float* rp = ref + p * dim;
   float d2 = 0.0f;
   for (int q = 0; q < dim; ++q) {
     const float diff = __fsub_rn(ri[q], rp[q]);
@@ -51,7 +63,6 @@ __global__ void pivot_column_kernel(const float* __restrict__ ref, float* L,
   }
   float col = __fmul_rn(*s, sgp_kernel_value(d2, nu));
   const float* Li = L + (long long)i * k;
-  const float* Lp = L + p * k;
   float dot = 0.0f;
   for (int q = 0; q < j; ++q) dot = __fadd_rn(dot, __fmul_rn(Li[q], Lp[q]));
   col = __fsub_rn(col, dot);
@@ -64,11 +75,12 @@ __global__ void pivot_column_kernel(const float* __restrict__ ref, float* L,
 }
 
 extern "C" int sgp_pivot_column(const float* ref, float* L, const float* d_in, float* d_out,
+                                const float* x_piv, const float* l_piv, const float* pv,
                                 const long long* piv, const float* s, const float* d0max,
                                 long long* pivots, int n, int dim, int k, int j, float nu,
                                 void* stream) {
   if (n > 0)
     pivot_column_kernel<<<sgp_blocks(n), SGP_THREADS, 0, (cudaStream_t)stream>>>(
-        ref, L, d_in, d_out, piv, s, d0max, pivots, n, dim, k, j, nu);
+        ref, L, d_in, d_out, x_piv, l_piv, pv, piv, s, d0max, pivots, n, dim, k, j, nu);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
 (K1 ``lattice_geometry``, K2 ``lattice_dedup_neighbors``, K3
-``lattice_apply``, K4 ``lattice_filter_once``).  Inputs are seeded normal
+``lattice_apply``, K4 ``lattice_filter_once``, K6 ``pivot_column``: one
+step at j = 99 after 99 pivots, as the rank-100 preconditioner's last).  Inputs are seeded normal
 positions of the elevators training shape (10,623 x 18) scaled to the
 median-init lengthscale, and, for K3 at c = 1 with the device busy, 200,000
 seeded points in 11 dims; times are CUDA events over repeated launches after
@@ -36,6 +37,7 @@ def _ms(fn, reps: int) -> float:
 def main() -> dict:
     import simplex_gp_torch
     from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.kernels.pivot import pivot_column
     from simplex_gp_torch.ops import kernels, lattice as L
 
     if not torch.cuda.is_available():
@@ -55,6 +57,13 @@ def main() -> dict:
            "tree": simplex_gp_torch.__file__, "n_lattice": int(nl),
            "k1": _ms(lambda: K.lattice_geometry(x, E, a), 50),
            "k2": _ms(lambda: K.lattice_dedup_neighbors(h1, h2, oh1, oh2), 50)}
+    k, s = 100, torch.tensor(1.0, device=dev)
+    diag, Lf = torch.ones(n, device=dev), torch.zeros((n, k), device=dev)
+    piv, d0 = torch.zeros(k, dtype=torch.int64, device=dev), diag.max()
+    for j in range(k - 1):
+        diag = pivot_column(x, Lf, diag, torch.argmax(diag), j, s, d0, dk.nu, piv)
+    p = torch.argmax(diag)
+    out["k6"] = _ms(lambda: pivot_column(x, Lf, diag, p, k - 1, s, d0, dk.nu, piv), 200)
     for c in (1, 11, 100):
         v = torch.randn((n, c), generator=gen, device=dev)
         out[f"k3_c{c}"] = _ms(lambda: K.lattice_apply(seg, w, nb, nl, v, taps, norm), 50)

@@ -35,11 +35,15 @@ _SIGNATURES = {
     "sgp_lattice_geometry": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "sgp_dedup_insert": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "sgp_dedup_finish": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "sgp_dedup_first": [_P, _I, _P, _P, _P],
+    "sgp_dedup_remap": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "sgp_lattice_splat": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
     "sgp_lattice_blur": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "sgp_lattice_slice": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _P],
+    "sgp_lattice_splat_blocks": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "sgp_lattice_slice_blocks": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
     "sgp_lattice_apply_cols": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P],
-    "sgp_pivot_column": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sgp_pivot_column": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sgp_lattice_filter_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     "sgp_filter_once": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _F, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],

@@ -1,4 +1,4 @@
-"""Lattice kernels K1-K5 and K7-K9: wrappers over the CUDA kernels, beside their plain versions.
+"""Lattice kernels K1-K5, K7-K9 and K11a-b: wrappers over the CUDA kernels, beside their plain versions.
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches its
 kernel (``csrc/geometry.cu``, ``csrc/dedup.cu``, ``csrc/apply.cu``,
@@ -27,10 +27,14 @@ __all__ = [
     "lattice_geometry",
     "dedup_neighbors_plain",
     "lattice_dedup_neighbors",
+    "dedup_ordered_plain",
+    "lattice_dedup_ordered",
     "apply_plain",
     "lattice_apply",
     "apply_cols_plain",
     "lattice_apply_cols",
+    "apply_sharded_plain",
+    "lattice_apply_sharded",
     "lattice_filter_grad_plain",
     "lattice_filter_grad",
     "filter_once_plain",
@@ -164,6 +168,21 @@ def _rows(N: int, capacity) -> int:
     return min(int(capacity), N)
 
 
+def _neighbor_rows(keys, row_keys, oh1, oh2):
+    """(d+1, 2r, rows) positions in the sorted ``keys`` of each row's neighbour keys, and hit flags.
+
+    The neighbour of a key (u1, u2) along axis j at tap t has the key
+    (u1 + oh1[j, t], u2 + oh2[j, t]) mod 2^32, by hash linearity.
+    """
+    u1 = row_keys >> 32
+    u2 = row_keys & _MASK32
+    q1 = _wrap32(u1[None, None, :] + oh1.long()[:, :, None]).long()
+    q2 = (u2[None, None, :] + oh2.long()[:, :, None]) & _MASK32
+    q = q1 * 2**32 | q2  # (d+1, 2r, rows)
+    pos = torch.searchsorted(keys, q)
+    return pos, keys[pos.clamp(max=keys.shape[0] - 1)] == q
+
+
 def dedup_neighbors_plain(h1, h2, oh1, oh2, capacity=None):
     """Plain K2 (_plan_tables, :387) by sort-unique and binary search.
 
@@ -183,13 +202,7 @@ def dedup_neighbors_plain(h1, h2, oh1, oh2, capacity=None):
     neighbors = torch.full((dp1, M, r2), M, dtype=torch.int32, device=h1.device)
     if n_lat > M:
         return torch.zeros(N, dtype=torch.int32, device=h1.device), neighbors, n_lattice
-    u1 = keys >> 32
-    u2 = keys & _MASK32
-    q1 = _wrap32(u1[None, None, :] + oh1.long()[:, :, None]).long()
-    q2 = (u2[None, None, :] + oh2.long()[:, :, None]) & _MASK32
-    q = q1 * 2**32 | q2  # (d+1, 2r, n_lat)
-    pos = torch.searchsorted(keys, q)
-    hit = keys[pos.clamp(max=n_lat - 1)] == q
+    pos, hit = _neighbor_rows(keys, keys, oh1, oh2)
     neighbors[:, :n_lat, :] = torch.where(hit, pos, M).to(torch.int32).permute(0, 2, 1)
     return inverse.to(torch.int32), neighbors, n_lattice
 
@@ -249,6 +262,80 @@ lattice_dedup_neighbors.launches = 0
 lattice_dedup_neighbors.bounded_launches = 0
 
 
+def dedup_ordered_plain(h1, h2, oh1, oh2):
+    """Plain K11a: K2 with rows numbered by their first contributing vertex.
+
+    Row r is the r-th distinct key in the order of first appearance in
+    (h1, h2); seg_ids (N,), neighbors (d+1, N, 2r) and n_lattice as
+    :func:`dedup_neighbors_plain` (untrimmed).  Any two builds on the same
+    hashes, on any rank and by the kernel, give the same bits.
+    """
+    N = h1.shape[0]
+    dp1, r2 = oh1.shape
+    dev = h1.device
+    keys, inverse = torch.unique(_pack(h1, h2), sorted=True, return_inverse=True)
+    n_lat = keys.shape[0]
+    first = torch.full((n_lat,), N, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, inverse, torch.arange(N, device=dev), reduce="amin")
+    order = torch.argsort(first)  # row -> sorted key
+    row_of_key = torch.empty_like(order)
+    row_of_key[order] = torch.arange(n_lat, device=dev)
+    pos, hit = _neighbor_rows(keys, keys[order], oh1, oh2)
+    neighbors = torch.full((dp1, N, r2), N, dtype=torch.int32, device=dev)
+    nb = torch.where(hit, row_of_key[pos.clamp(max=n_lat - 1)], N)
+    neighbors[:, :n_lat, :] = nb.to(torch.int32).permute(0, 2, 1)
+    return (row_of_key[inverse].to(torch.int32), neighbors,
+            torch.tensor(n_lat, dtype=torch.int32, device=dev))
+
+
+def lattice_dedup_ordered(h1, h2, oh1, oh2):
+    """K11a: K2 with rows numbered by their first contributing vertex, the same on every rank.
+
+    K2 numbers rows in the order in which threads win their CAS, which
+    differs between two builds; the sharded plan sums the ranks' tables row
+    by row, so every rank must number a lattice point alike.  Returns
+    (seg_ids (N,), neighbors (d+1, N, 2r), n_lattice 0-d), bit-equal to
+    :func:`dedup_ordered_plain`.
+    """
+    if not h1.is_cuda:
+        return dedup_ordered_plain(h1, h2, oh1, oh2)
+    build.require("lattice_dedup_ordered", (h1, torch.int32), (h2, torch.int32),
+                  (oh1, torch.int32), (oh2, torch.int32))
+    N = h1.shape[0]
+    dp1, r2 = oh1.shape
+    slots = _table_slots(N)
+    dev = h1.device
+    lib = build.library()
+    i32 = dict(dtype=torch.int32, device=dev)
+    table = torch.full((slots,), -2, dtype=torch.int64, device=dev)  # SGP_EMPTY
+    slot_of, seg_ids, flag = torch.empty(N, **i32), torch.empty(N, **i32), torch.empty(N, **i32)
+    row_of_slot = torch.empty(slots, **i32)
+    first_of_slot = torch.full((slots,), 2**31 - 1, **i32)
+    count = torch.zeros((), **i32)
+    row_h1, row_h2 = torch.empty(N, **i32), torch.empty(N, **i32)
+    neighbors = torch.empty((dp1, N, r2), **i32)
+    st = build.stream()
+    build.check(lib.sgp_dedup_insert(h1.data_ptr(), h2.data_ptr(), N, table.data_ptr(), slots - 1, N,
+                                     slot_of.data_ptr(), row_of_slot.data_ptr(), count.data_ptr(),
+                                     row_h1.data_ptr(), row_h2.data_ptr(), st),
+                "lattice_dedup_ordered (insert)")
+    build.check(lib.sgp_dedup_first(slot_of.data_ptr(), N, first_of_slot.data_ptr(), flag.data_ptr(), st),
+                "lattice_dedup_ordered (first)")
+    scan = torch.cumsum(flag, 0, dtype=torch.int32)
+    build.check(lib.sgp_dedup_remap(h1.data_ptr(), h2.data_ptr(), slot_of.data_ptr(), flag.data_ptr(),
+                                    scan.data_ptr(), N, row_of_slot.data_ptr(), row_h1.data_ptr(),
+                                    row_h2.data_ptr(), st), "lattice_dedup_ordered (remap)")
+    build.check(lib.sgp_dedup_finish(slot_of.data_ptr(), row_of_slot.data_ptr(), N, table.data_ptr(),
+                                     slots - 1, N, count.data_ptr(), row_h1.data_ptr(), row_h2.data_ptr(),
+                                     oh1.data_ptr(), oh2.data_ptr(), seg_ids.data_ptr(), dp1, r2,
+                                     neighbors.data_ptr(), st), "lattice_dedup_ordered (neighbors)")
+    lattice_dedup_ordered.launches += 1
+    return seg_ids, neighbors, count
+
+
+lattice_dedup_ordered.launches = 0
+
+
 def _blur_axes(dp1: int, transpose: bool):
     """The order of the d+1 axis blurs: B = B_d...B_0, and B^T = B_0...B_d.
 
@@ -257,6 +344,20 @@ def _blur_axes(dp1: int, transpose: bool):
     transpose only reverses the order of the axes.
     """
     return range(dp1 - 1, -1, -1) if transpose else range(dp1)
+
+
+def _blur_plain(table, neighbors, taps, transpose):
+    """The d+1 axis blurs of an (M, c) table (B, or B^T with ``transpose``); a missing neighbour is zero."""
+    order = neighbors.shape[2] // 2
+    tap_list = [t for t in range(-order, order + 1) if t != 0]
+    zero_row = torch.zeros((1, table.shape[1]), dtype=table.dtype, device=table.device)
+    for j in _blur_axes(neighbors.shape[0], transpose):
+        padded = torch.cat([table, zero_row])
+        acc = taps[order] * table
+        for ti, t in enumerate(tap_list):
+            acc = acc + taps[t + order] * padded[neighbors[j, :, ti].long()]
+        table = acc
+    return table
 
 
 def apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm, transpose=False, return_table=False,
@@ -271,18 +372,11 @@ def apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm, transpose=Fals
     """
     n, dp1 = seg_ids.shape
     M = neighbors.shape[1]
-    order = neighbors.shape[2] // 2
     c = v.shape[-1]
     seg = seg_ids.reshape(-1).long()
     contrib = (v[:, None, :] * weights[:, :, None]).reshape(n * dp1, c)
-    table = torch.zeros((M, c), dtype=torch.float32, device=v.device).index_add_(0, seg, contrib)
-    tap_list = [t for t in range(-order, order + 1) if t != 0]
-    for j in _blur_axes(dp1, transpose):
-        padded = torch.cat([table, torch.zeros((1, c), dtype=table.dtype, device=v.device)])
-        acc = taps[order] * table
-        for ti, t in enumerate(tap_list):
-            acc = acc + taps[t + order] * padded[neighbors[j, :, ti].long()]
-        table = acc
+    table = _blur_plain(torch.zeros((M, c), dtype=torch.float32, device=v.device).index_add_(0, seg, contrib),
+                        neighbors, taps, transpose)
     gathered = table[seg_ids.long()]  # (n, d+1, c)
     out = (gathered * weights[:, :, None]).sum(dim=1) * slice_norm
     if n_lattice is not None:
@@ -391,6 +485,95 @@ def lattice_apply_cols(seg_ids, weights, neighbors, n_lattice, v, taps, slice_no
 
 
 lattice_apply_cols.launches = 0
+
+
+def _block_cols(c: int, size: int) -> int:
+    """Columns of each rank's block: c rounded up to a multiple of the axis size, over it (:502-507)."""
+    return -(-c // size)
+
+
+def apply_sharded_plain(seg_ids, weights, neighbors, v, taps, slice_norm, axis, transpose=False,
+                        return_table=False):
+    """Plain K11b (apply_plan_join's sharded branch, :499-521), collectives included.
+
+    This rank's splat into an (M, c_pad) table, seen as a (P, M, cb) block
+    buffer; the reduce-scatter over the blocks; the d+1 blurs of this rank's
+    (M, cb) block; the all-gather of the blocks; the slice of this rank's
+    points.  ``return_table`` also returns the blurred (M, c) table, every
+    rank's blocks side by side.
+    """
+    n, dp1 = seg_ids.shape
+    M = neighbors.shape[1]
+    c = v.shape[-1]
+    P, cb = axis.size, _block_cols(c, axis.size)
+    contrib = (v[:, None, :] * weights[:, :, None]).reshape(n * dp1, c)
+    table = torch.zeros((M, P * cb), dtype=torch.float32, device=v.device)
+    table[:, :c].index_add_(0, seg_ids.reshape(-1).long(), contrib)
+    mine = _blur_plain(axis.psum_scatter(table.reshape(M, P, cb).permute(1, 0, 2)), neighbors, taps, transpose)
+    full = axis.all_gather_blocks(mine).permute(1, 0, 2).reshape(M, P * cb)[:, :c]
+    out = (full[seg_ids.long()] * weights[:, :, None]).sum(dim=1) * slice_norm
+    return (out, full.contiguous()) if return_table else out
+
+
+def lattice_apply_sharded(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, axis,
+                          transpose=False, return_table=False):
+    """K11b: ``slice_norm * S^T B S v`` over a sharded plan, for this rank's rows v (n_loc, c).
+
+    ``seg_ids`` (n_loc, d+1) and ``weights`` are this rank's points of a
+    global plan whose ``neighbors`` (d+1, M, 2r) and ``n_lattice`` every rank
+    holds alike (K11a); ``axis`` is the
+    :class:`~simplex_gp_torch.parallel.comm.DataAxis`.  The kernels splat
+    into a (P, M, cb) block buffer, the axis reduce-scatters it, K3's blur
+    runs on this rank's (M, cb) block (``transpose``: the axes reversed),
+    the axis all-gathers the blocks, and the kernel slices this rank's
+    points from them.  ``return_table`` also returns the blurred (M, c)
+    table in K5's row-major layout (rows past n_lattice undefined): the
+    gathered blocks are permuted into it, one (M, c) copy (9.7 MB at
+    elevators), so that K5 stays the single-device kernel.  A
+    sharded plan is untrimmed (M = n_loc (d+1) P), so there is no guard.
+    """
+    if not v.is_cuda:
+        return apply_sharded_plain(seg_ids, weights, neighbors, v, taps, slice_norm, axis, transpose,
+                                   return_table)
+    build.require("lattice_apply_sharded", (seg_ids, torch.int32), (weights, torch.float32),
+                  (neighbors, torch.int32), (n_lattice, torch.int32), (v, torch.float32))
+    n, dp1 = seg_ids.shape
+    M = neighbors.shape[1]
+    order = neighbors.shape[2] // 2
+    c = v.shape[-1]
+    if v.shape[0] != n or len(taps) != 2 * order + 1:
+        raise ValueError(f"lattice_apply_sharded: v {tuple(v.shape)} / {len(taps)} taps do not fit a "
+                         f"plan of {n} points and order {order}")
+    if M != n * dp1 * axis.size:
+        raise ValueError(f"lattice_apply_sharded: a plan of {M} rows for {axis.size} ranks of {n} points "
+                         f"(a sharded plan is untrimmed)")
+    lib = build.library()
+    taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
+    P, cb = axis.size, _block_cols(c, axis.size)
+    blocks = torch.zeros((P, M, cb), dtype=torch.float32, device=v.device)
+    build.check(lib.sgp_lattice_splat_blocks(seg_ids.data_ptr(), weights.data_ptr(), v.data_ptr(), n, dp1,
+                                             c, cb, M, blocks.data_ptr(), build.stream()),
+                "lattice_apply_sharded (splat)")
+    a = axis.psum_scatter(blocks)
+    b = torch.empty_like(a)
+    st = build.stream()
+    for j in _blur_axes(dp1, transpose):
+        rc = lib.sgp_lattice_blur(a.data_ptr(), b.data_ptr(), neighbors[j].data_ptr(),
+                                  ctypes.addressof(taps_host), M, cb, order, n_lattice.data_ptr(), st)
+        build.check(rc, "lattice_apply_sharded (blur)")
+        a, b = b, a
+    gathered = axis.all_gather_blocks(a)
+    out = torch.empty((n, c), dtype=torch.float32, device=v.device)
+    build.check(lib.sgp_lattice_slice_blocks(gathered.data_ptr(), seg_ids.data_ptr(), weights.data_ptr(), n,
+                                             dp1, c, cb, M, float(slice_norm), out.data_ptr(), build.stream()),
+                "lattice_apply_sharded (slice)")
+    lattice_apply_sharded.launches += 1
+    if return_table:
+        return out, gathered.permute(1, 0, 2).reshape(M, P * cb)[:, :c].contiguous()
+    return out
+
+
+lattice_apply_sharded.launches = 0
 
 
 def lattice_filter_grad_plain(ref, E, seg_ids, v, g, table_f, table_b, slice_norm):

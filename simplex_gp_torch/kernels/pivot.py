@@ -1,9 +1,11 @@
-"""K6 pivot_column: one pivoted-Cholesky step, wrapper over ``csrc/pivot.cu``.
+"""K6 pivot_column: one pivoted-Cholesky step, a wrapper over ``csrc/pivot.cu``.
 
 The wrapper takes the plain PyTorch version for CPU tensors and launches the
 kernel for CUDA tensors (raising on a failed build or launch).  It counts its
-launches in ``pivot_column.launches``.  Both versions write column ``j`` of
-``L`` in place and return the updated residual diagonal as a new tensor.
+launches in ``launches``.  Both versions write column ``j`` of ``L`` in place
+and return the updated residual diagonal as a new tensor.  K6', the step of
+the sharded factor, whose pivot row may live on another rank, is the same
+kernel given the pivot's rows (``pivot_row``).
 """
 
 from __future__ import annotations
@@ -35,53 +37,67 @@ def stationary_value(d2: torch.Tensor, nu: float) -> torch.Tensor:
     raise ValueError(f"Matern nu={nu} not supported (use 0.5, 1.5, 2.5)")
 
 
-def pivot_column_plain(ref, L, diag, piv, j, outputscale, d0_max, nu, pivots):
-    """Plain K6: the body of pivoted_cholesky_features (pivoted_cholesky.py:126-163)."""
-    x_piv = ref[piv]
-    l_piv = L[piv]
-    pivot_val = diag[piv]
+def pivot_column_plain(ref, L, diag, piv, j, outputscale, d0_max, nu, pivots, pivot_row=None):
+    """Plain K6: the body of pivoted_cholesky_features (pivoted_cholesky.py:126-163).
+
+    ``pivot_row`` is K6's: ``(x_piv, l_piv, pivot_val)`` of shapes (dim,),
+    (k,), (1,), the pivot's rows of ref and L and its residual diagonal, for
+    a sharded factor (:129-162) whose pivot may live on another rank; then
+    ``piv`` is the pivot's index in this rank's rows, or -1.  Without it they
+    are row ``piv`` of ref, L and diag.  No value is read back to the host.
+    """
+    x_piv, l_piv, pivot_val = (ref[piv], L[piv], diag[piv]) if pivot_row is None else pivot_row
     col = outputscale * stationary_value(((ref - x_piv[None, :]) ** 2).sum(dim=-1), nu)
     mask = (torch.arange(L.shape[1], device=L.device) < j).to(L.dtype)
     col = col - (L * (l_piv * mask)[None, :]).sum(dim=-1)
+    pivot_val = pivot_val.reshape(())
     alive = pivot_val > 1e-6 * d0_max
-    pivot_val = torch.clamp(pivot_val, min=1e-12)
-    ell = torch.where(alive, col / torch.sqrt(pivot_val), 0.0)
-    ell[piv] = torch.where(alive, torch.sqrt(pivot_val), 0.0)
+    root = torch.sqrt(torch.clamp(pivot_val, min=1e-12))
+    at = torch.arange(ref.shape[0], device=ref.device) == piv
+    ell = torch.where(alive, col / root, 0.0)
+    ell = torch.where(at, torch.where(alive, root, 0.0), ell)
     L[:, j] = ell
-    new_diag = torch.clamp(diag - ell * ell, min=0.0)
-    new_diag[piv] = 0.0
     pivots[j] = piv
-    return new_diag
+    return torch.where(at, 0.0, torch.clamp(diag - ell * ell, min=0.0))
 
 
-def pivot_column(ref, L, diag, piv, j, outputscale, d0_max, nu, pivots):
+def pivot_column(ref, L, diag, piv, j, outputscale, d0_max, nu, pivots, pivot_row=None):
     """K6: write column j of the pivoted Cholesky factor ``L`` (n, k) in place.
 
     ``piv`` is the pivot index as a 0-d int64 tensor (``torch.argmax`` of
     ``diag``), ``outputscale`` and ``d0_max`` are 0-d f32 tensors, ``nu`` is
     0 for rbf or the Matern smoothness.  Records ``piv`` in ``pivots[j]`` and
-    returns the updated diagonal.
+    returns the updated diagonal.  With ``pivot_row`` (f32 device tensors,
+    as in :func:`pivot_column_plain`) it is K6', the step of a sharded
+    factor, and also counts in ``sharded_launches``.
     """
     if not ref.is_cuda:
-        return pivot_column_plain(ref, L, diag, piv, j, outputscale, d0_max, nu, pivots)
+        return pivot_column_plain(ref, L, diag, piv, j, outputscale, d0_max, nu, pivots, pivot_row)
     n, dim = ref.shape
     k = L.shape[1]
     build.require("pivot_column", (ref, torch.float32), (L, torch.float32), (diag, torch.float32),
                   (piv, torch.int64), (outputscale, torch.float32), (d0_max, torch.float32),
-                  (pivots, torch.int64))
+                  (pivots, torch.int64), *((t, torch.float32) for t in pivot_row or ()))
     if L.shape[0] != n or diag.shape != (n,) or not 0 <= j < k:
         raise ValueError(f"pivot_column: L {tuple(L.shape)}, diag {tuple(diag.shape)}, j={j} "
                          f"do not fit ref {tuple(ref.shape)}")
+    if pivot_row is not None and tuple(t.numel() for t in pivot_row) != (dim, k, 1):
+        raise ValueError(f"pivot_column: pivot rows of {[t.numel() for t in pivot_row]} entries, "
+                         f"expected {[dim, k, 1]}")
     if nu not in (0.0, 0.5, 1.5, 2.5):
         raise ValueError(f"pivot_column: nu={nu} not supported (0 for rbf, or 0.5, 1.5, 2.5)")
     lib = build.library()
     new_diag = torch.empty_like(diag)
+    x_piv, l_piv, pv = (None, None, None) if pivot_row is None else (t.data_ptr() for t in pivot_row)
     rc = lib.sgp_pivot_column(ref.data_ptr(), L.data_ptr(), diag.data_ptr(), new_diag.data_ptr(),
-                              piv.data_ptr(), outputscale.data_ptr(), d0_max.data_ptr(),
+                              x_piv, l_piv, pv, piv.data_ptr(), outputscale.data_ptr(), d0_max.data_ptr(),
                               pivots.data_ptr(), n, dim, k, j, float(nu), build.stream())
     build.check(rc, "pivot_column")
     pivot_column.launches += 1
+    if pivot_row is not None:
+        pivot_column.sharded_launches += 1
     return new_diag
 
 
 pivot_column.launches = 0
+pivot_column.sharded_launches = 0

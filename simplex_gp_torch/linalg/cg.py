@@ -1,14 +1,19 @@
 """Batched preconditioned conjugate gradients in PyTorch.
 
-Port of simplex_gp_tpu/linalg/cg.py::cg_solve (:43) for one device, with
-every stopping rule of the JAX solver: the iteration floor, the "mean" and
-"column" stop modes, the stall guard, the breakdown freeze on pap <= 0 or
-rz < 0, the best-residual iterate, and no convergence at iteration 0.  The
-loop is a Python ``while`` over torch ops; its condition reads one boolean
-back from the device per iteration.  With ``tridiag_m`` it also records
-the CG step and conjugacy coefficients of every column (the Lanczos
-tridiagonal the SLQ log-det of the training path reads), with JAX's
-liveness mask.
+Port of simplex_gp_tpu/linalg/cg.py::cg_solve (:43), with every stopping
+rule of the JAX solver: the iteration floor, the "mean" and "column" stop
+modes, the stall guard, the breakdown freeze on pap <= 0 or rz < 0, the
+best-residual iterate, and no convergence at iteration 0.  The loop is a
+Python ``while`` over torch ops; its condition reads one boolean back from
+the device per iteration.  With ``tridiag_m`` it also records the CG step
+and conjugacy coefficients of every column (the Lanczos tridiagonal the SLQ
+log-det of the training path reads), with JAX's liveness mask.
+
+With ``axis`` (a DataAxis) the rows are sharded over the ranks: every
+column dot product is an all-reduce (cg.py:113-115), and every stop
+decision reads only values derived from those sums, which are the same bits
+on every rank, so all ranks run the same number of iterations; a rank that
+stopped alone would leave the others waiting in a collective.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ def cg_solve(
     stop_mode: str = "mean",
     stall_window: int = 50,
     tridiag_m: int = 0,
+    axis=None,
 ) -> CGResult:
     """Solve ``A x = b`` for an SPD implicit operator, all columns at once.
 
@@ -54,7 +60,9 @@ def cg_solve(
     without a 1% gain in the mean best residual after which the solve stops
     (0 disables).  ``tridiag_m`` > 0 records the first ``tridiag_m``
     coefficients per column (cg.py:191-205): T[k,k] = 1/alpha_k +
-    beta_{k-1}/alpha_{k-1}, T[k,k+1] = sqrt(beta_k)/alpha_k.
+    beta_{k-1}/alpha_{k-1}, T[k,k+1] = sqrt(beta_k)/alpha_k.  ``axis``: b
+    holds this rank's rows, and ``matmul`` and ``precond`` must be the
+    sharded operators.
     """
     if stop_mode not in ("mean", "column"):
         raise ValueError(f"unknown stop_mode {stop_mode!r}")
@@ -62,7 +70,8 @@ def cg_solve(
         precond = lambda v: v
 
     def dot(u, v):
-        return (u * v).sum(dim=0)
+        s = (u * v).sum(dim=0)
+        return s if axis is None else axis.psum(s)
 
     b = b.to(torch.float32)
     b_norm = torch.sqrt(dot(b, b))

@@ -1,12 +1,14 @@
 """Batched Lanczos tridiagonalization and stochastic Lanczos quadrature.
 
-Port of simplex_gp_tpu/linalg/lanczos.py for one device: every probe runs
+Port of simplex_gp_tpu/linalg/lanczos.py: every probe runs
 its Lanczos recurrence at once as one (n, p) block, with CGS2 full
 reorthogonalization and the breakdown freeze of the JAX package; the small
 (p, m, m) tridiagonal eigenproblems go to batched ``torch.linalg.eigh`` in
 float32 with the same 1e-10 clamp.  ``logdet_from_cg_tridiag`` reads the
 tridiagonals that ``cg_solve(..., tridiag_m=m)`` records, which is the
-training path's log-det (slq_mode "cg").
+training path's log-det (slq_mode "cg").  With ``axis`` (a DataAxis) the
+rows are sharded: every reduction over n is an all-reduce (lanczos.py:50-51,
+:134-135), so the recurrence's scalars are the same on every rank.
 """
 
 from __future__ import annotations
@@ -36,12 +38,17 @@ def lanczos(
     z: torch.Tensor,
     num_iters: int,
     reorthogonalize: bool = True,
+    axis=None,
 ) -> LanczosResult:
     """Run ``num_iters`` Lanczos steps for every column of z (n, p) at once (lanczos.py:32)."""
     n, p = z.shape
     m = num_iters
     z = z.to(torch.float32)
-    q = z / torch.sqrt((z * z).sum(dim=0, keepdim=True))
+
+    def rowsum(t):  # a sum over the (sharded) rows
+        return t if axis is None else axis.psum(t)
+
+    q = z / torch.sqrt(rowsum((z * z).sum(dim=0, keepdim=True)))
     q_prev = torch.zeros_like(q)
     beta_prev = torch.zeros(p, dtype=torch.float32, device=z.device)
     alive = torch.ones(p, dtype=torch.bool, device=z.device)
@@ -49,17 +56,17 @@ def lanczos(
     alphas, betas = [], []
     for i in range(m):
         aq = matmul(q)
-        alpha = (q * aq).sum(dim=0)
+        alpha = rowsum((q * aq).sum(dim=0))
         r = aq - alpha * q - beta_prev * q_prev
         if reorthogonalize:
             # CGS2: r <- r - V (V^T r), twice (lanczos.py:61-68).
             for _ in range(2):
-                coeff = torch.einsum("mnp,np->mp", basis, r)
+                coeff = rowsum(torch.einsum("mnp,np->mp", basis, r))
                 r = r - torch.einsum("mnp,mp->np", basis, coeff)
-        beta = torch.sqrt((r * r).sum(dim=0))
+        beta = torch.sqrt(rowsum((r * r).sum(dim=0)))
         # Breakdown freeze: a column whose Krylov space is exhausted records
         # alpha 1 / beta 0 from there on (lanczos.py:70-82).
-        aq_norm = torch.sqrt((aq * aq).sum(dim=0))
+        aq_norm = torch.sqrt(rowsum((aq * aq).sum(dim=0)))
         alive_next = alive & (beta > 1e-3 * torch.clamp(aq_norm, min=1e-30))
         alphas.append(torch.where(alive, alpha, 1.0))
         beta_rec = torch.where(alive_next, beta, 0.0)
@@ -90,11 +97,13 @@ def slq_logdet(
     matmul: Callable[[torch.Tensor], torch.Tensor],
     z: torch.Tensor,
     num_iters: int = 100,
+    axis=None,
 ) -> torch.Tensor:
     """Stochastic Lanczos quadrature estimate of log|A| from probes z (n, p) (lanczos.py:113)."""
-    res = lanczos(matmul, z, num_iters)
+    res = lanczos(matmul, z, num_iters, axis=axis)
     quad = _quadrature(tridiag_matrices(res.alphas, res.betas))
-    return ((z * z).sum(dim=0) * quad).mean()
+    z_norm2 = (z * z).sum(dim=0)
+    return ((z_norm2 if axis is None else axis.psum(z_norm2)) * quad).mean()
 
 
 def logdet_from_cg_tridiag(

@@ -1,6 +1,6 @@
 """Marginal-likelihood engine: inv_quad + logdet with stochastic gradients.
 
-Port of simplex_gp_tpu/linalg/mll.py for one device.  For
+Port of simplex_gp_tpu/linalg/mll.py.  For
 K_hat = s K + noise I:
 
   forward:  inv_quad = y^T K_hat^{-1} y   by preconditioned batched CG
@@ -29,8 +29,17 @@ lengthscales shrank) makes every apply on that plan NaN.  The NLML does not
 become NaN, in JAX as here: every CG residual is NaN, so the best iterate
 stays the zero start and the loss a finite value of no meaning; the exact
 backward's outputscale gradient is NaN (as JAX's host loop gives it,
-host_loop.py:222-224).  Dropped from the JAX module: the
-``axis_name`` (sharded) branches (ROADMAP item 1.12).
+host_loop.py:222-224).
+
+``BBMMConfig.axis`` (a DataAxis; JAX's ``axis_name``) runs the engine
+data-sharded: x, y and the probes hold this rank's rows, the plan is the
+sharded one (ops/lattice.py::build_plan_sharded_join), every reduction
+over n is an all-reduce, n is the global count, and the loss is global on
+every rank while the backward returns this rank's partial gradients, which
+``parallel.mesh.data_parallel_loss_fn`` all-reduces once.  As in JAX, the
+sharded engine ignores two settings: ``grad_mode="deriv_filter"`` runs the
+exact gradient (mll.py:95-106), and ``plan_capacity`` is not applied
+(mll.py:161-172).
 """
 
 from __future__ import annotations
@@ -49,8 +58,10 @@ from ..ops.filter import (
     filter_backward,
     lattice_filter,
     lattice_filter_any,
+    lattice_filter_exact_grad,
 )
-from ..ops.lattice import LatticePlan
+from ..ops.kernels import DiscretizedKernel
+from ..ops.lattice import LatticePlan, build_plan_sharded_join
 from .cg import cg_solve
 from .lanczos import logdet_from_cg_tridiag, slq_logdet
 from .pivoted_cholesky import (
@@ -83,7 +94,8 @@ class BBMMConfig:
     derivative-tap estimate of the dense kernel's gradient (K4 + K7).
     ``plan_capacity`` (None: n(d+1)) bounds the training plan's lattice
     table; measure the occupancy once (count_lattice_points) and leave
-    headroom for lengthscale drift.
+    headroom for lengthscale drift.  ``axis`` (a DataAxis, default None: one
+    process) shards the rows over its ranks.
     """
 
     cg_tolerance: float = 1.0
@@ -95,6 +107,7 @@ class BBMMConfig:
     grad_mode: str = "exact"
     slq_mode: str = "cg"
     plan_capacity: Optional[int] = None
+    axis: Optional[object] = None
 
     def __post_init__(self):
         if self.slq_mode not in ("cg", "lanczos"):
@@ -106,22 +119,31 @@ class BBMMConfig:
 def build_precond(dk, config: BBMMConfig, params: dict, ref: torch.Tensor, n_global: int) -> Optional[Preconditioner]:
     """Rank-k pivoted-Cholesky preconditioner of K_hat from exact kernel columns.
 
-    Returns None when disabled or when rank >= n (dense regime).
+    Returns None when disabled or when rank >= n (dense regime).  With
+    ``config.axis``, ref holds this rank's rows and n_global counts all.
     """
     rank = min(config.precond_rank, n_global - 1)
     if rank <= 0:
         return None
     s, noise = params["outputscale"], params["noise"]
     diag = s * torch.ones(ref.shape[0], dtype=torch.float32, device=ref.device)
-    pc = pivoted_cholesky_features(ref, diag, dk.nu, s, rank)
-    return make_preconditioner(pc.L, noise, n_global)
+    pc = pivoted_cholesky_features(ref, diag, dk.nu, s, rank, config.axis)
+    return make_preconditioner(pc.L, noise, n_global, config.axis)
 
 
 def _khat_matmul_diff(params: dict, x: torch.Tensor, dk, V: torch.Tensor, grad_mode: str = "exact",
-                      capacity: Optional[int] = None) -> torch.Tensor:
-    """Differentiable K_hat(params) @ V; the filter's gradient per ``grad_mode`` (mll.py:92-113)."""
+                      capacity: Optional[int] = None, axis=None) -> torch.Tensor:
+    """Differentiable K_hat(params) @ V; the filter's gradient per ``grad_mode`` (mll.py:92-113).
+
+    With ``axis`` the sharded filter, always with the exact gradient (:95-106).
+    """
     ref = x * params["inv_ell"]
-    ky = lattice_filter_any(V, ref, dk, capacity) if grad_mode == "exact" else lattice_filter(V, ref, dk)
+    if axis is not None:
+        ky = lattice_filter_exact_grad(V, ref, dk, axis=axis)
+    elif grad_mode == "exact":
+        ky = lattice_filter_any(V, ref, dk, capacity)
+    else:
+        ky = lattice_filter(V, ref, dk)
     return params["outputscale"] * ky + params["noise"] * V
 
 
@@ -134,45 +156,58 @@ class _System(NamedTuple):
     residual: torch.Tensor  # (1+p,) best relative residuals
 
 
+def _n_global(config: BBMMConfig, n: int) -> int:
+    """Rows over every rank (mll.py:178-180, :287-288)."""
+    return n if config.axis is None else config.axis.n_global(n)
+
+
 def _solve_system(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torch.Tensor,
                   probes: torch.Tensor) -> _System:
     """Plan, preconditioner, CG solves and the log-det estimate (mll.py:159-240)."""
+    axis = config.axis
     ref = x * params["inv_ell"]
-    plan = build_plan_any(ref, dk, config.plan_capacity)
+    if axis is None:
+        plan = build_plan_any(ref, dk, config.plan_capacity)
+    elif not isinstance(dk, DiscretizedKernel):
+        raise NotImplementedError("the sharded engine takes one DiscretizedKernel: mixture kernels are not "
+                                  "ported (ROADMAP item 10)")
+    else:  # JAX's sharded plan has no capacity (mll.py:161-172)
+        plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
     s, noise = params["outputscale"], params["noise"]
 
     def mv(V):
-        return s * apply_plan_any(plan, V, dk) + noise * V
+        return s * apply_plan_any(plan, V, dk, axis=axis) + noise * V
 
-    n = x.shape[0]
+    n = _n_global(config, x.shape[0])
     P = build_precond(dk, config, params, ref, n)
-    precond = None if P is None else (lambda V: precond_solve(P, V))
+    precond = None if P is None else (lambda V: precond_solve(P, V, axis))
     m = min(config.max_lanczos_iterations, n)
     if config.slq_mode == "cg":
         # One preconditioned CG over [y | P^{1/2} z] gives every solve and the
         # SLQ tridiagonals; log|K_hat| = log|P| + quadrature.
-        b_probes = probes if P is None else precond_sqrt(P, probes)
+        b_probes = probes if P is None else precond_sqrt(P, probes, axis)
         res = cg_solve(mv, torch.cat([y[:, None], b_probes], dim=-1), tol=config.cg_tolerance,
                        max_iters=config.max_cg_iterations, precond=precond,
-                       tridiag_m=min(m, config.max_cg_iterations))
+                       tridiag_m=min(m, config.max_cg_iterations), axis=axis)
+        z_norm2 = (probes * probes).sum(dim=0)
         logdet = logdet_from_cg_tridiag(res.alphas[:, 1:], res.betas[:, 1:], res.tmask[:, 1:],
-                                        (probes * probes).sum(dim=0))
+                                        z_norm2 if axis is None else axis.psum(z_norm2))
         if P is not None:
             logdet = logdet + P.logdet
         # E[(P^{-1} b) b^T] = I makes (K_hat^{-1} b)^T dK_hat (P^{-1} b) unbiased.
-        probes_right = probes if P is None else precond_solve(P, b_probes)
+        probes_right = probes if P is None else precond_solve(P, b_probes, axis)
         return _System(res.x, logdet, probes_right, plan, res.iterations, res.residual_norm)
 
     res = cg_solve(mv, torch.cat([y[:, None], probes], dim=-1), tol=config.cg_tolerance,
-                   max_iters=config.max_cg_iterations, precond=precond)
+                   max_iters=config.max_cg_iterations, precond=precond, axis=axis)
     if P is None:
-        logdet = slq_logdet(mv, probes, m)
+        logdet = slq_logdet(mv, probes, m, axis)
     else:
         # Preconditioned SLQ: log|K_hat| = log|P| + log|P^{-1/2} K_hat P^{-1/2}|.
         def mv_pre(V):
-            return precond_inv_sqrt(P, mv(precond_inv_sqrt(P, V)))
+            return precond_inv_sqrt(P, mv(precond_inv_sqrt(P, V, axis)), axis)
 
-        logdet = P.logdet + slq_logdet(mv_pre, probes, m)
+        logdet = P.logdet + slq_logdet(mv_pre, probes, m, axis)
     return _System(res.x, logdet, probes, plan, res.iterations, res.residual_norm)
 
 
@@ -182,7 +217,9 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
     Differentiable in inv_ell (d,), outputscale (), noise () and the
     centered targets y (n,); x (n, d) and the Rademacher probes (n, p) get
     no gradient.  ``stats``, when a dict, receives the CG iteration count
-    and mean final residual of the forward.
+    and mean final residual of the forward.  With ``config.axis`` both
+    outputs are global and the backward's gradients are this rank's partial
+    sums (JAX mll.py:267-269): the ranks' gradients add up to the whole.
     """
 
     @staticmethod
@@ -196,9 +233,11 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
             stats["cg_res"] = float(sys_.residual.mean())
         ctx.dk = dk
         ctx.grad_mode = config.grad_mode
+        ctx.axis = config.axis
         ctx.save_for_backward(inv_ell, outputscale, x, alpha, sys_.solves[:, 1:], sys_.probes_right,
                               *sys_.plan)
-        return (y * alpha).sum(), sys_.logdet
+        inv_quad = (y * alpha).sum()
+        return inv_quad if config.axis is None else config.axis.psum(inv_quad), sys_.logdet
 
     @staticmethod
     def backward(ctx, a, b):
@@ -208,10 +247,10 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
         U = torch.cat([(-a) * alpha[:, None], (b / p) * z_solves], dim=-1)
         V = torch.cat([alpha[:, None], probes_right], dim=-1).contiguous()
         ref = x * inv_ell
-        if ctx.grad_mode == "exact":
-            KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True)
+        if ctx.grad_mode == "exact" or ctx.axis is not None:
+            KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True, axis=ctx.axis)
             # d/dref of s * K(ref) V against U: K5 with the cotangent s U.
-            _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f)
+            _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f, ctx.axis)
         else:
             # lattice_filter's forward and derivative-tap backward, as JAX's
             # vjp of _khat_matmul_diff runs them: K4, then K7 against s U.
@@ -237,9 +276,9 @@ def lattice_nlml(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torch
     """Negative log marginal likelihood per datapoint (mll.py:278-292).
 
     The mean is subtracted outside the Function, so autograd carries
-    d/d mean through the centered targets.
+    d/d mean through the centered targets.  n is the global row count.
     """
-    n = y.shape[0]
+    n = _n_global(config, y.shape[0])
     mu = params.get("mean", 0.0) if mean is None else mean
     inv_quad, logdet = lattice_inv_quad_logdet(dk, config, params, x, y - mu, probes, stats)
     return 0.5 * (inv_quad + logdet + n * math.log(2.0 * math.pi)) / n

@@ -1,10 +1,19 @@
 """Partial pivoted Cholesky preconditioner for preconditioned CG.
 
-Port of simplex_gp_tpu/linalg/pivoted_cholesky.py for one device: the factor
-is built from exact kernel columns, s * k(||ref_i - ref_piv||^2), one pivot
-at a time by K6 (:mod:`simplex_gp_torch.kernels.pivot`).  The k x k
-eigendecompositions and the (n, k) products stay torch.linalg / torch.matmul,
-as the JAX package leaves them to XLA.
+Port of simplex_gp_tpu/linalg/pivoted_cholesky.py: the factor is built from
+exact kernel columns, s * k(||ref_i - ref_piv||^2), one pivot at a time by
+K6 (:mod:`simplex_gp_torch.kernels.pivot`).  The k x k eigendecompositions
+and the (n, k) products stay torch.linalg / torch.matmul, as the JAX package
+leaves them to XLA.
+
+With ``axis`` (a DataAxis) the rows are sharded (JAX's ``axis_name``,
+:129-140, :168-169, :219, :235-238): each pivot all-gathers one candidate
+per rank, (its local largest residual diagonal, that row of ref, that row
+of L), every rank takes the first largest in rank order -- the global
+argmax, ties to the lowest global index as on one device -- and K6 writes
+the column against the winner's rows (K6'), without a read back to the
+host.  The initial maximum is a pmax, the Gram matrices L^T L and U^T U and
+every U^T V are all-reduces, and each rank keeps its own rows of L and U.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from ..kernels.pivot import pivot_column
 __all__ = [
     "PivotedCholesky",
     "pivoted_cholesky_features",
+    "sharded_pivot",
     "Preconditioner",
     "make_preconditioner",
     "precond_solve",
@@ -37,6 +47,7 @@ def pivoted_cholesky_features(
     nu: float,
     outputscale: torch.Tensor,
     rank: int,
+    axis=None,
 ) -> PivotedCholesky:
     """Pivoted Cholesky of ``outputscale * k(d2(ref, ref))``.
 
@@ -49,17 +60,41 @@ def pivoted_cholesky_features(
 
     A pivot whose residual diagonal is at most 1e-6 of the largest initial
     diagonal gets a zero column (the relative threshold of the JAX package).
+    With ``axis``, ref and diag are this rank's rows, so is L, and
+    ``pivots[j]`` is the pivot's index among this rank's rows, or -1 where
+    another rank holds it.
     """
-    n = ref.shape[0]
+    n, dim = ref.shape
     ref = ref.to(torch.float32).contiguous()
     L = torch.zeros((n, rank), dtype=torch.float32, device=ref.device)
     pivots = torch.zeros(rank, dtype=torch.int64, device=ref.device)
     d = diag.to(torch.float32).contiguous()
-    d0_max = d.max()
+    d0_max = d.max() if axis is None else axis.pmax(d.max())
     s = outputscale.to(torch.float32).reshape(())
     for j in range(rank):
-        d = pivot_column(ref, L, d, torch.argmax(d), j, s, d0_max, nu, pivots)
+        if axis is None:
+            d = pivot_column(ref, L, d, torch.argmax(d), j, s, d0_max, nu, pivots)
+        else:
+            piv, row = sharded_pivot(ref, L, d, axis)
+            d = pivot_column(ref, L, d, piv, j, s, d0_max, nu, pivots, row)
     return PivotedCholesky(L=L, pivots=pivots)
+
+
+def sharded_pivot(ref: torch.Tensor, L: torch.Tensor, d: torch.Tensor, axis):
+    """The next pivot of a sharded factor: (its index in this rank's rows or -1, its rows for K6').
+
+    One all-gather of a (1 + dim + k) candidate per rank -- the local largest
+    residual diagonal, that row of ref, that row of L -- and the first
+    largest in rank order wins, on every rank alike (:129-140).
+    """
+    dim = ref.shape[1]
+    arg = torch.argmax(d)
+    at = arg.reshape(1)
+    cands = axis.all_gather(torch.cat([d.index_select(0, at), ref.index_select(0, at)[0],
+                                       L.index_select(0, at)[0]])[None])  # (P, 1 + dim + k)
+    win = torch.argmax(cands[:, 0])  # the first largest, in rank order
+    c = cands.index_select(0, win.reshape(1))[0]
+    return torch.where(win == axis.rank, arg, -1), (c[1:1 + dim], c[1 + dim:], c[:1])
 
 
 class Preconditioner(NamedTuple):
@@ -76,33 +111,41 @@ class Preconditioner(NamedTuple):
     gamma: torch.Tensor  # () SPD guard
 
 
-def make_preconditioner(L: torch.Tensor, noise: torch.Tensor, n_global: int) -> Preconditioner:
-    """Diagonalize L L^T + noise I: one k x k eigh, a Newton-Schulz polish, gamma."""
-    s2, V = torch.linalg.eigh(L.T @ L)
+def _rowsum(t: torch.Tensor, axis) -> torch.Tensor:
+    """A sum over the rows that ``axis`` shards (unchanged without one)."""
+    return t if axis is None else axis.psum(t)
+
+
+def make_preconditioner(L: torch.Tensor, noise: torch.Tensor, n_global: int, axis=None) -> Preconditioner:
+    """Diagonalize L L^T + noise I: one k x k eigh, a Newton-Schulz polish, gamma.
+
+    With ``axis``, L holds this rank's rows and the Gram matrices are all-reduced (:217-219).
+    """
+    s2, V = torch.linalg.eigh(_rowsum(L.T @ L, axis))
     s2 = torch.clamp(s2, min=0.0)
     denom = torch.sqrt(torch.clamp(s2, min=1e-12))
     U = L @ (V / denom[None, :])
-    G2 = U.T @ U
+    G2 = _rowsum(U.T @ U, axis)
     k = G2.shape[0]
     U = U @ (1.5 * torch.eye(k, dtype=U.dtype, device=U.device) - 0.5 * G2)
-    gamma = torch.clamp(torch.linalg.eigvalsh(U.T @ U)[-1], min=1.0)
+    gamma = torch.clamp(torch.linalg.eigvalsh(_rowsum(U.T @ U, axis))[-1], min=1.0)
     logdet = torch.log1p(s2 / noise).sum() + n_global * torch.log(noise)
     return Preconditioner(U=U, s2=s2, noise=noise, logdet=logdet, gamma=gamma)
 
 
-def precond_solve(P: Preconditioner, V: torch.Tensor) -> torch.Tensor:
+def precond_solve(P: Preconditioner, V: torch.Tensor, axis=None) -> torch.Tensor:
     """P^{-1} V via Woodbury in the eigenbasis, U-term divided by gamma: O(n k t)."""
     w = P.s2 / (P.noise * (P.noise + P.s2)) / P.gamma
-    return V / P.noise - P.U @ (w[:, None] * (P.U.T @ V))
+    return V / P.noise - P.U @ (w[:, None] * _rowsum(P.U.T @ V, axis))
 
 
-def precond_inv_sqrt(P: Preconditioner, V: torch.Tensor) -> torch.Tensor:
+def precond_inv_sqrt(P: Preconditioner, V: torch.Tensor, axis=None) -> torch.Tensor:
     """P^{-1/2} V = noise^{-1/2} V + U ((noise+s2)^{-1/2} - noise^{-1/2}) / gamma U^T V."""
     w = (torch.rsqrt(P.noise + P.s2) - torch.rsqrt(P.noise)) / P.gamma
-    return V * torch.rsqrt(P.noise) + P.U @ (w[:, None] * (P.U.T @ V))
+    return V * torch.rsqrt(P.noise) + P.U @ (w[:, None] * _rowsum(P.U.T @ V, axis))
 
 
-def precond_sqrt(P: Preconditioner, V: torch.Tensor) -> torch.Tensor:
+def precond_sqrt(P: Preconditioner, V: torch.Tensor, axis=None) -> torch.Tensor:
     """P^{1/2} V = noise^{1/2} V + U (sqrt(noise+s2) - sqrt(noise)) / gamma U^T V."""
     w = (torch.sqrt(P.noise + P.s2) - torch.sqrt(P.noise)) / P.gamma
-    return V * torch.sqrt(P.noise) + P.U @ (w[:, None] * (P.U.T @ V))
+    return V * torch.sqrt(P.noise) + P.U @ (w[:, None] * _rowsum(P.U.T @ V, axis))

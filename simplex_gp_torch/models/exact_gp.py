@@ -21,6 +21,7 @@ of the Snelson parity test.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -35,7 +36,7 @@ from ..ops.filter import apply_plan_any, apply_plan_wide, build_plan_any, lattic
 from ..ops.kernels import DiscretizedKernel, matern_kernel, rbf_kernel
 from .components import constrain, init_raw_params
 
-__all__ = ["SimplexGP", "DenseGP", "rademacher"]
+__all__ = ["SimplexGP", "DenseGP", "rademacher", "rank_generator"]
 
 _RAW_NAMES = ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")
 
@@ -44,6 +45,12 @@ def rademacher(shape, generator: Optional[torch.Generator] = None, device=None) 
     """float32 +-1 draws from ``generator`` (the NLML's Hutchinson / SLQ probes)."""
     bits = torch.randint(0, 2, shape, generator=generator, device=device)
     return (2 * bits - 1).to(torch.float32)
+
+
+def rank_generator(seed: int, rank: int, device=None) -> torch.Generator:
+    """A generator seeded from (seed, rank): each rank's own probe stream (JAX's fold_in, exact_gp.py:146-147)."""
+    state = np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state) & (2**63 - 1))
 
 
 class _RawParams(nn.Module):
@@ -120,19 +127,33 @@ class SimplexGP(_RawParams):
         generator: Optional[torch.Generator] = None,
         probes: Optional[torch.Tensor] = None,
         stats: Optional[dict] = None,
+        axis=None,
+        seed: int = 0,
     ) -> torch.Tensor:
         """Negative log marginal likelihood / n, the training loss (exact_gp.py:129-150).
 
         The (n, num_probes) Rademacher probes are ``probes`` when given, else
         drawn from ``generator`` on x's device.  Differentiable in every raw
         parameter; ``stats`` (a dict) receives the CG iterations and residual.
+        With ``axis`` (a DataAxis) x and y are this rank's rows and the
+        engine runs sharded: the loss is the global one, and the gradients
+        each rank's part (``parallel.data_parallel_loss_fn`` sums them).
+        Each rank then draws its own probes from a generator seeded from
+        (``seed``, rank), as JAX folds the shard index into the key: the same
+        probe block on every rank would bias the trace estimator.
         """
         shape = (x.shape[0], self.bbmm.num_probes)
+        cfg = self.bbmm
+        if axis is not None:
+            if generator is not None:
+                raise ValueError("with an axis each rank's probes come from (seed, rank): pass seed, not a generator")
+            cfg = dataclasses.replace(cfg, axis=axis)
+            generator = rank_generator(seed, axis.rank, x.device) if probes is None else None
         if probes is None:
             probes = rademacher(shape, generator, x.device)
         elif tuple(probes.shape) != shape:
             raise ValueError(f"probes have shape {tuple(probes.shape)}, expected {shape}")
-        return lattice_nlml(self.dk, self.bbmm, self.constrained(), x, y, probes, stats=stats)
+        return lattice_nlml(self.dk, cfg, self.constrained(), x, y, probes, stats=stats)
 
     def _khat_mv(self, params: dict, plan):
         s, noise = params["outputscale"], params["noise"]

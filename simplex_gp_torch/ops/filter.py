@@ -39,6 +39,7 @@ from .lattice import (
     apply_plan_cols,
     apply_plan_join,
     build_plan_join,
+    build_plan_sharded_join,
     build_rotation,
     filter_once,
 )
@@ -75,9 +76,12 @@ def build_plan_any(ref: torch.Tensor, dk: DiscretizedKernel, capacity: Optional[
 
 
 def apply_plan_any(plan: LatticePlan, V: torch.Tensor, dk: DiscretizedKernel, transpose: bool = False,
-                   return_table: bool = False):
-    """K @ V (or K^T @ V) through a plan from :func:`build_plan_any` (no outputscale or noise)."""
-    return apply_plan_join(plan, V, dk.coeffs, transpose, return_table)
+                   return_table: bool = False, axis=None):
+    """K @ V (or K^T @ V) through a plan from :func:`build_plan_any`, or a sharded plan with ``axis``.
+
+    No outputscale or noise.
+    """
+    return apply_plan_join(plan, V, dk.coeffs, transpose, return_table, axis)
 
 
 def _chunked(n: int, d: int, c: int) -> bool:
@@ -116,15 +120,18 @@ def make_wide_filter(ref: torch.Tensor, dk: DiscretizedKernel, capacity: Optiona
 
 
 def filter_backward(plan: LatticePlan, ref: torch.Tensor, dk: DiscretizedKernel, src: torch.Tensor,
-                    g: torch.Tensor, table_f: torch.Tensor):
+                    g: torch.Tensor, table_f: torch.Tensor, axis=None):
     """(grad_src, grad_ref) of ``<g, K(ref) @ src>``: transposed K3, then K5.
 
     ``table_f`` is the blurred table of the forward apply of ``src`` on
-    ``plan`` (``apply_plan_any(..., return_table=True)``).
+    ``plan`` (``apply_plan_any(..., return_table=True)``).  With ``axis``
+    the plan is sharded: the transposed apply is K11b's, which splats every
+    rank's g, and K5 runs on this rank's points against the two global
+    tables, so grad_ref holds this rank's rows of the whole gradient.
     """
     d = ref.shape[1]
     g = g.to(torch.float32).contiguous()
-    grad_src, table_b = apply_plan_any(plan, g, dk, transpose=True, return_table=True)
+    grad_src, table_b = apply_plan_any(plan, g, dk, transpose=True, return_table=True, axis=axis)
     E = torch.from_numpy(build_rotation(d, dk.variance)).to(ref.device)
     grad_ref = lattice_filter_grad(ref.to(torch.float32).contiguous(), E, plan.seg_ids,
                                    src.to(torch.float32).contiguous(), g, table_f, table_b, SLICE_NORM(d))
@@ -139,19 +146,27 @@ class LatticeFilterExactGrad(torch.autograd.Function):
     Backward: :func:`filter_backward` on the same plan, so the positions are
     not hashed twice; after K9 it runs per ``_WIDE_CHUNK``-column window
     (each window's apply again, for its table), and the position gradients
-    of the windows add up.  Second derivatives are not defined (as in JAX's
-    custom VJP filter).
+    of the windows add up.  With ``axis`` (a DataAxis; src and ref this
+    rank's rows) the plan is the sharded one and the applies are K11b's, the
+    transposed one included, as JAX's autodiff transposes the collectives
+    of filter_sharded (shard_filter.py:146-155); no capacity, no chunking.
+    Second derivatives are not defined (as in JAX's custom VJP filter).
     """
 
     @staticmethod
     def forward(ctx, src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel,
-                capacity: Optional[int] = None):
-        plan = build_plan_any(ref, dk, capacity)
-        if _chunked(*ref.shape, src.shape[-1]):
-            out, table_f = apply_plan_cols(plan, src, dk.coeffs, _WIDE_CHUNK), None
+                capacity: Optional[int] = None, axis=None):
+        if axis is not None:
+            plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
+            out, table_f = apply_plan_any(plan, src, dk, return_table=True, axis=axis)
         else:
-            out, table_f = apply_plan_any(plan, src, dk, return_table=True)
+            plan = build_plan_any(ref, dk, capacity)
+            if _chunked(*ref.shape, src.shape[-1]):
+                out, table_f = apply_plan_cols(plan, src, dk.coeffs, _WIDE_CHUNK), None
+            else:
+                out, table_f = apply_plan_any(plan, src, dk, return_table=True)
         ctx.dk = dk
+        ctx.axis = axis
         ctx.save_for_backward(src, ref, table_f, *plan)
         return out
 
@@ -160,8 +175,8 @@ class LatticeFilterExactGrad(torch.autograd.Function):
         src, ref, table_f, *plan = ctx.saved_tensors
         plan = LatticePlan(*plan)
         if table_f is not None:
-            grad_src, grad_ref = filter_backward(plan, ref, ctx.dk, src, g, table_f)
-            return grad_src, grad_ref, None, None
+            grad_src, grad_ref = filter_backward(plan, ref, ctx.dk, src, g, table_f, ctx.axis)
+            return grad_src, grad_ref, None, None, None
         grad_src, grad_ref = [], 0.0
         for c0 in range(0, src.shape[-1], _WIDE_CHUNK):
             s_k = src[:, c0:c0 + _WIDE_CHUNK].to(torch.float32).contiguous()
@@ -169,13 +184,17 @@ class LatticeFilterExactGrad(torch.autograd.Function):
             gs_k, gr_k = filter_backward(plan, ref, ctx.dk, s_k, g[:, c0:c0 + _WIDE_CHUNK], t_k)
             grad_src.append(gs_k)
             grad_ref = grad_ref + gr_k
-        return torch.cat(grad_src, dim=-1), grad_ref, None, None
+        return torch.cat(grad_src, dim=-1), grad_ref, None, None, None
 
 
 def lattice_filter_exact_grad(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel,
-                              capacity: Optional[int] = None) -> torch.Tensor:
-    """K(ref, ref) @ src, differentiable in src and ref by the exact operator gradient."""
-    return LatticeFilterExactGrad.apply(src, ref, dk, capacity)
+                              capacity: Optional[int] = None, axis=None) -> torch.Tensor:
+    """K(ref, ref) @ src, differentiable in src and ref by the exact operator gradient.
+
+    With ``axis``, src and ref are this rank's rows and the filter is the
+    sharded one (``capacity`` does not apply).
+    """
+    return LatticeFilterExactGrad.apply(src, ref, dk, capacity, axis)
 
 
 def lattice_filter_any(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel,

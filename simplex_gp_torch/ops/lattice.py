@@ -9,7 +9,9 @@ A :class:`LatticePlan` holds everything that depends only on positions, so
 a CG solve builds it once and applies it many times.  The plan is built by
 K1 (lattice_geometry: vertex hashes and weights) and K2
 (lattice_dedup_neighbors: lattice rows and blur neighbours), and applied by
-K3 (lattice_apply), all in :mod:`simplex_gp_torch.kernels.lattice`.  This is
+K3 (lattice_apply), all in :mod:`simplex_gp_torch.kernels.lattice`; the
+sharded plan of the data-parallel engine by K1 and K11a, and its apply by
+K11b (``axis``).  This is
 the JAX package's join engine (build_plan_join / apply_plan_join); the TPU's
 sort-chain engine is not ported, because the card's gathers and atomics are
 fast where the TPU's are not.  ``build_plan_join``'s ``capacity`` takes the
@@ -38,8 +40,10 @@ import torch
 from ..kernels.lattice import (
     lattice_apply,
     lattice_apply_cols,
+    lattice_apply_sharded,
     lattice_count,
     lattice_dedup_neighbors,
+    lattice_dedup_ordered,
     lattice_filter_once,
     lattice_geometry,
     lattice_simplex,
@@ -51,6 +55,7 @@ __all__ = [
     "build_rotation",
     "lattice_simplex",
     "build_plan_join",
+    "build_plan_sharded_join",
     "apply_plan_join",
     "apply_plan_cols",
     "filter_once",
@@ -173,23 +178,48 @@ def build_plan_join(x: torch.Tensor, coeffs: tuple, blur_variance: float,
     return LatticePlan(seg_ids.reshape(n, d + 1), weights, neighbors, n_lattice)
 
 
+def build_plan_sharded_join(x_local: torch.Tensor, coeffs: tuple, blur_variance: float, axis) -> LatticePlan:
+    """The global join plan over every rank's points, with this rank's seg ids and weights.
+
+    Port of simplex_gp_tpu/parallel/shard_filter.py::build_plan_sharded_join
+    (:118-143).  ``axis`` is a DataAxis: K1 runs on this rank's points, the
+    hash pairs are all-gathered in rank order, and K11a builds the global
+    plan from them with rows numbered alike on every rank.  ``seg_ids``
+    (n_loc, d+1) and ``weights`` are this rank's points; ``neighbors``
+    (d+1, M, 2r) and ``n_lattice`` are the global plan's, the same bits on
+    every rank (M = n_loc (d+1) P, untrimmed).  Every rank must pass the same
+    number of points.
+    """
+    n_loc, d = x_local.shape
+    dp1 = d + 1
+    E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x_local.device)
+    h1, h2, weights = lattice_geometry(x_local.to(torch.float32).contiguous(), E, a)
+    seg_all, neighbors, n_lattice = lattice_dedup_ordered(axis.all_gather(h1), axis.all_gather(h2), oh1, oh2)
+    start = axis.rank * n_loc * dp1
+    seg_local = seg_all[start:start + n_loc * dp1].reshape(n_loc, dp1)
+    return LatticePlan(seg_local, weights, neighbors, n_lattice)
+
+
 def apply_plan_join(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, transpose: bool = False,
-                    return_table: bool = False):
+                    return_table: bool = False, axis=None):
     """Apply the lattice kernel operator: out ~= K(x, x) @ v, for v (n, c): K3.
 
     ``transpose`` applies K^T (the axis blurs in reverse order), the
     operator's gradient in v; ``return_table`` returns ``(out, table)`` with
     the blurred (M, c) table before the slice, which the filter's backward
-    (K5) reads.
+    (K5) reads.  With ``axis`` (a DataAxis), ``plan`` is a sharded plan
+    (:func:`build_plan_sharded_join`), v holds this rank's rows, and the apply is
+    K11b: the ranks' partial tables are reduce-scattered by column blocks,
+    blurred one block per rank and all-gathered back (:499-521).
     """
     d = plan.seg_ids.shape[1] - 1
     if len(coeffs) != plan.neighbors.shape[2] + 1:
         raise ValueError(f"{len(coeffs)} taps do not fit a plan of order {plan.neighbors.shape[2] // 2}")
-    return lattice_apply(
-        plan.seg_ids, plan.weights, plan.neighbors, plan.n_lattice,
-        v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(d),
-        transpose, return_table,
-    )
+    args = (plan.seg_ids, plan.weights, plan.neighbors, plan.n_lattice, v.to(torch.float32).contiguous(),
+            [float(c) for c in coeffs], SLICE_NORM(d))
+    if axis is not None:
+        return lattice_apply_sharded(*args, axis, transpose, return_table)
+    return lattice_apply(*args, transpose, return_table)
 
 
 def apply_plan_cols(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, chunk: int) -> torch.Tensor:

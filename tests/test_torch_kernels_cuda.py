@@ -19,6 +19,10 @@ atomic splat (rel 1e-5, against its plain version and the unchunked K3).
 The bounded K2 numbers its rows as it likes but gives the plain version's
 occupancy, and K3 on it the plain operator (rel 1e-5); one row short of
 the occupancy, every output is NaN and no launch leaves its table.
+K11a numbers its rows as its plain version does, bit for bit; K11b is K3's
+splat, blur and slice over column blocks (rel 1e-5, on one rank and over two
+gloo ranks sharing the card); K6' with the pivot's rows passed in is K6's
+arithmetic, bit for bit.
 Positions at d >= 9 are scaled by 0.3, so the kernel reaches between points
 and the gradients are not roundoff.
 """
@@ -310,3 +314,122 @@ def test_houseelectric_nlml_matches_the_jax_golden_file(cuda_device, tag):
         assert float(np.linalg.norm(a - b) / scale) <= 2e-2, k
     whole_a, whole_b = np.concatenate(ga), np.concatenate(gb)
     assert float(whole_a @ whole_b / (np.linalg.norm(whole_a) * scale)) >= 0.999
+
+
+@pytest.mark.parametrize("n,d,order,kind", GRID)
+def test_ordered_dedup_matches_plain_bit_for_bit(cuda_device, n, d, order, kind):
+    """K11a: seg ids and neighbours equal to the plain version's, in two builds; K2's occupancy and operator."""
+    dk = _dk(kind, order)
+    x = _positions(n, d, 10, cuda_device)
+    E, a, oh1, oh2 = t_lattice._lattice_constants(d, dk.coeffs, dk.variance, cuda_device)
+    h1, h2, w = K.lattice_geometry(x, E, a)
+    before = K.lattice_dedup_ordered.launches
+    kseg, knb, knl = K.lattice_dedup_ordered(h1, h2, oh1, oh2)
+    again = K.lattice_dedup_ordered(h1, h2, oh1, oh2)
+    pseg, pnb, pnl = K.dedup_ordered_plain(h1, h2, oh1, oh2)
+    torch.cuda.synchronize()
+    assert K.lattice_dedup_ordered.launches == before + 2
+    assert torch.equal(kseg, pseg) and torch.equal(knb, pnb) and int(knl) == int(pnl)
+    assert torch.equal(again[0], kseg) and torch.equal(again[1], knb)
+    sseg, snb, snl = K.lattice_dedup_neighbors(h1, h2, oh1, oh2)
+    assert int(snl) == int(knl)
+    v = torch.randn((n, 11), generator=torch.Generator(device=cuda_device).manual_seed(n), device=cuda_device)
+    norm = t_lattice.SLICE_NORM(d)
+    ordered = K.lattice_apply(kseg.reshape(n, d + 1), w, knb, knl, v, dk.coeffs, norm)
+    unordered = K.lattice_apply(sseg.reshape(n, d + 1), w, snb, snl, v, dk.coeffs, norm)
+    assert float((ordered - unordered).norm() / unordered.norm()) < 1e-5
+
+
+class _OneRank:
+    """The collectives of a one-rank axis: a reduce-scatter or all-gather over one rank is the identity."""
+
+    rank, size = 0, 1
+
+    def psum_scatter(self, blocks):
+        return blocks[0]
+
+    def all_gather_blocks(self, t):
+        return t[None]
+
+
+@pytest.mark.parametrize("c", [1, 11])
+@pytest.mark.parametrize("n,d,order,kind", GRID)
+def test_sharded_apply_one_rank_matches_plain_and_k3(cuda_device, n, d, order, kind, c):
+    """K11b on one rank: its plain version and K3 (rel 1e-5, the atomic splat), forward and transposed."""
+    dk = _dk(kind, order)
+    x = _positions(n, d, 11, cuda_device)
+    E, a, oh1, oh2 = t_lattice._lattice_constants(d, dk.coeffs, dk.variance, cuda_device)
+    h1, h2, w = K.lattice_geometry(x, E, a)
+    seg, nb, nl = K.lattice_dedup_ordered(h1, h2, oh1, oh2)
+    seg = seg.reshape(n, d + 1)
+    v = torch.randn((n, c), generator=torch.Generator(device=cuda_device).manual_seed(c), device=cuda_device)
+    norm, axis = t_lattice.SLICE_NORM(d), _OneRank()
+    before = K.lattice_apply_sharded.launches
+    for transpose in (False, True):
+        kout, ktab = K.lattice_apply_sharded(seg, w, nb, nl, v, dk.coeffs, norm, axis, transpose, True)
+        pout, ptab = K.apply_sharded_plain(seg, w, nb, v, dk.coeffs, norm, axis, transpose, True)
+        whole, wtab = K.lattice_apply(seg, w, nb, nl, v, dk.coeffs, norm, transpose, True)
+        torch.cuda.synchronize()
+        rows = seg.long()  # rows past n_lattice are undefined in the kernels' tables
+        for got, want in ((kout, pout), (kout, whole), (ktab[rows], ptab[rows]), (ktab[rows], wtab[rows])):
+            assert float((got - want).norm() / want.norm()) < 1e-5
+    assert K.lattice_apply_sharded.launches == before + 2
+
+
+def test_sharded_apply_two_gloo_ranks_on_the_card(cuda_device):
+    """K11b over two gloo ranks sharing the card, c = 5 (padded to 6) and 11: each rank against its plain
+    version, and the ranks' rows against K3 on one process (rel 1e-5); the same plan on both ranks."""
+    import numpy as np
+    from torch_dist_bodies import card_sharded_apply
+
+    from simplex_gp_torch.parallel import launch
+
+    n, d = 600, 5
+    x, _ = seeded(n, d, 1, seed=12)
+    v = np.random.default_rng(13).normal(size=(n, 11)).astype(np.float32)
+    ranks = launch(card_sharded_apply, 2, (x, v), backend="gloo", device="cuda", timeout=300)
+    dk = _dk("rbf", 1)
+    plan = t_lattice.build_plan_join(torch.from_numpy(x).to(cuda_device), dk.coeffs, dk.variance)
+    for c in (5, 11):
+        for transpose in (False, True):
+            whole = K.lattice_apply(*plan, torch.from_numpy(v[:, :c]).to(cuda_device), dk.coeffs,
+                                    t_lattice.SLICE_NORM(d), transpose).cpu().numpy()
+            got = np.concatenate([r[(c, transpose)]["kernel"] for r in ranks])
+            assert np.linalg.norm(got - whole) / np.linalg.norm(whole) < 1e-5
+            for r in ranks:
+                k, p = r[(c, transpose)]["kernel"], r[(c, transpose)]["plain"]
+                assert np.linalg.norm(k - p) / np.linalg.norm(p) < 1e-5
+    assert np.array_equal(ranks[0]["neighbors"], ranks[1]["neighbors"])
+    assert all(r["launches"] == 4 for r in ranks)
+
+
+@pytest.mark.parametrize("nu", [0.0, 0.5, 1.5, 2.5])
+def test_pivot_column_at_matches_plain_and_k6(cuda_device, nu):
+    """K6' (K6 given the pivot's rows): with the pivot held here, K6 bit for bit (the same arithmetic
+    on copies of the pivot's rows); on a rank without it (-1), the plain version (rel 1e-5), with -1
+    recorded as the pivot."""
+    n, k = 3000, 40
+    ref = torch.from_numpy(seeded(n, 5, 1, seed=3)[0]).to(cuda_device)
+    s = torch.tensor(1.3, device=cuda_device)
+    diag = s * torch.ones(n, device=cuda_device)
+    d0 = diag.max()
+    L = torch.zeros((n, k), device=cuda_device)
+    piv = torch.zeros(k, dtype=torch.int64, device=cuda_device)
+    for j in range(k - 1):
+        diag = pivot_column_plain(ref, L, diag, torch.argmax(diag), j, s, d0, nu, piv)
+    p = torch.argmax(diag)
+    row = (ref[p].clone(), L[p].clone(), diag[p].reshape(1).clone())
+    La, Lb, pa, pb = L.clone(), L.clone(), piv.clone(), piv.clone()
+    before, sharded = pivot_column.launches, pivot_column.sharded_launches
+    da = pivot_column(ref, La, diag, p, k - 1, s, d0, nu, pa, row)
+    db = pivot_column(ref, Lb, diag, p, k - 1, s, d0, nu, pb)
+    torch.cuda.synchronize()
+    assert pivot_column.launches == before + 2 and pivot_column.sharded_launches == sharded + 1
+    assert torch.equal(La, Lb) and torch.equal(da, db) and torch.equal(pa, pb)
+    away = torch.tensor(-1, dtype=torch.int64, device=cuda_device)
+    Lc, Ld, pc, pd = L.clone(), L.clone(), piv.clone(), piv.clone()
+    dc = pivot_column(ref, Lc, diag, away, k - 1, s, d0, nu, pc, row)
+    dd = pivot_column_plain(ref, Ld, diag, away, k - 1, s, d0, nu, pd, row)
+    torch.cuda.synchronize()
+    assert float((Lc - Ld).norm() / Ld.norm()) < 1e-5 and float((dc - dd).norm() / dd.norm()) < 1e-5
+    assert int(pc[k - 1]) == -1 and int(pd[k - 1]) == -1
