@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, large-n and data-parallel paths on one CUDA card, and check them.
+"""Drive the PyTorch port's serving, training, large-n, data-parallel and mixture paths on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -59,13 +59,31 @@ Phases, each printed as it runs:
      CG iteration counts, one Adam step (parameters bit-equal on both
      ranks), the step's stages with the transport apart; and
      ``simplex_gp_torch.scaling``'s records on one NCCL rank and on the two
-     gloo ranks.  Then one line of K10 (the CG iteration) times.
+     gloo ranks.  Then one line of K10 (the CG iteration) times;
+  8. the Gaussian-mixture kernel path at elevators' width (J = 8 RBF
+     components of order 1 targeting Matern-1.5, the configuration of
+     runs/r5/simplexgp_elevators_s0 with --kernel mixture), against the
+     JAX-on-CPU golden file tests/fixtures/elevators_mixture_golden.npz:
+     K12 lattice_mixture_apply against its plain version at the median-init
+     positions with JAX's weights (c = 1 and 11, forward and transposed,
+     outputs and stacked tables), against the J-fold K3 loop on the same
+     plans (times of both) and against JAX's mixture MVM; the mixture
+     position gradient (K5 on the stacked problem) against its plain
+     version; the port's subset fit against JAX's weights through the
+     operator; the NLML and raw gradients at the median init, three Adam
+     steps, one warm step and its stages; posterior_cache +
+     predict_from_cache at model_best.pkl (with JAX's weights refit at its
+     lengthscales) on the test rows;
+     ``simplex_gp_torch.train.main --kernel mixture`` for two epochs and
+     one eval; ``simplex_gp_torch.mvm_err.main --kernel mixture`` at
+     elevators.
 
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- for K5, on the trainer run; for K7, on
 the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9
 and the bounded K2, on the houseelectric trainer run; for K11a, K11b and K6',
-on the two ranks' data-parallel NLML step --, errors, times, and
+on the two ranks' data-parallel NLML step; for K12, on the mixture trainer
+run --, errors, times, and
 each kernel's bound: the larger of the bytes it must move over the card's
 memory rate and its float operations over the card's float32 rate).  The last line is
 {"ok": true, "device": {...}} only if every phase passed; otherwise the
@@ -95,6 +113,7 @@ GOLDEN = ROOT / "tests" / "fixtures" / "elevators_golden.npz"
 TRAIN_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_train_golden.npz"
 DERIV_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_deriv_golden.npz"
 HOUSE_GOLDEN = ROOT / "tests" / "fixtures" / "houseelectric_golden.npz"
+MIXTURE_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_mixture_golden.npz"
 RAW_NAMES = ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")
 
 # Tolerances, each with its reason.
@@ -181,6 +200,16 @@ OCC_REL = 1e-4
 # held bit-equal to its plain version, K11b and K6' take K3_REL and the K6
 # bounds.
 PARALLEL_FILTER_REL = 2e-5
+# Phase 8.  K12 against its plain version: K3's atomic splat over the stacked
+# table (K3_REL); against JAX's mixture MVM, the chain-vs-join bound
+# (LARGE_N_REL); the stacked K5, K5_REL.  The NLML, gradients, Adam steps and
+# serving take phase 4's and phase 3's bounds with JAX's weights fed in.
+# The port's own subset fit: NNLS can change its active set on a
+# rounding-level change of its columns (the port's filters differ from JAX's
+# by ~1e-6), so the fit is held through the operator it gives on a probe
+# against the operator of JAX's weights: both are least-squares fits of one
+# target over nearly the same columns, rel 1e-2.
+MIX_FIT_REL = 1e-2
 # The round-5 houseelectric run's flags (experiments/queue_r5_stage9.sh:15-18,
 # without --host-loop, which is not ported).
 HOUSE_FLAGS = ["--dataset", "houseelectric", "--kernel", "matern", "--nu", "1.5", "--order", "1", "--min-noise",
@@ -212,6 +241,7 @@ KERNEL_ROWS = {
     "lattice_apply_sharded": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/lattice.py:499"),
     # K6' is pivot_column given the pivot's rows; its launches are the wrapper's sharded_launches.
     "pivot_column_at": ("simplex_gp_torch/csrc/pivot.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:129"),
+    "lattice_mixture_apply": ("simplex_gp_torch/csrc/mixture.cu", "simplex_gp_tpu/ops/filter.py:167"),
 }
 
 
@@ -1527,6 +1557,258 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
                  ranks_transport_ms=[r["apply_transport_ms"] for r in ranks]), launches, record)
 
 
+def mixture_phase(dev, ds, expect, timer):
+    """Phase 8: the Gaussian-mixture kernel path at elevators (J = 8).  Returns (K12's row, launches, record)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch import convert, mvm_err
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.kernels import mixture as KM
+    from simplex_gp_torch.kernels.pivot import pivot_column
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.cg import cg_solve
+    from simplex_gp_torch.linalg.lanczos import logdet_from_cg_tridiag
+    from simplex_gp_torch.linalg.pivoted_cholesky import precond_solve, precond_sqrt
+    from simplex_gp_torch.ops import filter as F
+    from simplex_gp_torch.ops import lattice as L
+
+    golden = np.load(MIXTURE_GOLDEN)
+    x = torch.from_numpy(ds.train_x).to(dev)
+    y = torch.from_numpy(ds.train_y).to(dev)
+    xt = torch.from_numpy(ds.test_x).to(dev)
+    n, d = x.shape
+    cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                         num_probes=10, slq_mode="cg", grad_mode="exact")
+    kw = dict(nu=1.5, order=1, min_noise=0.1, bbmm=cfg, eval_cg_tolerance=0.01, device=dev)
+    init = {k: golden[f"init_{k}"] for k in RAW_NAMES}
+    model = convert.mixture_model_from_jax(init, golden["weights"], **kw)
+    dk = model.dk
+    J = len(dk.alphas)
+    expect(dk.alphas == tuple(float(a) for a in golden["alphas"]) and J == 8,
+           f"the J = {J} alphas equal JAX's, bit for bit")
+    taps, norm, order = list(dk.base.coeffs), L.SLICE_NORM(d), dk.order
+    E = torch.from_numpy(L.build_rotation(d, dk.base.variance)).to(dev)
+
+    def probes(seed):
+        z = np.random.default_rng(int(seed)).choice([-1.0, 1.0], size=(n, cfg.num_probes))
+        return torch.from_numpy(z.astype(np.float32)).to(dev)
+
+    def k3_loop(plan, v):
+        """The J-fold K3 loop on the same component plans: JAX's apply_plan_any, one apply per component."""
+        out = None
+        for j, w in enumerate(dk.weights):
+            term = w * K.lattice_apply(*L.mixture_component(plan, j), v, taps, norm)
+            out = term if out is None else out + term
+        return out
+
+    record, row = {}, {}
+    print("mixture 8.1: K12 lattice_mixture_apply vs plain (median init, JAX's weights, c = 1 and 11)")
+    with torch.no_grad():
+        ref = (x * model.constrained()["inv_ell"]).contiguous()
+        plan = L.build_plan_mixture(ref, dk.alphas, dk.base.coeffs, dk.base.variance)
+        live = plan.live.tolist()
+        M = plan.neighbors.shape[1] // J
+        print(f"    J = {J}, M = {M} rows a component, live rows {live} ({sum(live)} of {J * M})")
+        expect(len(set(live)) > 1 and max(live) <= M, "the components' live counts differ, each within M")
+        gen = torch.Generator(device=dev).manual_seed(8)
+        args = (plan.seg_ids, plan.weights, plan.neighbors)
+        rows_read = plan.seg_ids.reshape(-1).long()
+        err, ms, plain_ms, loop_ms, tables = 0.0, {}, {}, {}, {}
+        for c in (1, 11):
+            v = torch.randn((n, c), generator=gen, device=dev)
+            g = torch.randn((n, c), generator=gen, device=dev)
+            for u, tr in ((v, False), (g, True)):
+                k_out, k_tab = KM.lattice_mixture_apply(*args, plan.live, u, taps, norm, dk.weights, tr, True)
+                p_out, p_tab = KM.mixture_apply_plain(*args, u, taps, norm, dk.weights, tr, True)
+                r = max(rel(k_out, p_out), rel(k_tab[rows_read], p_tab[rows_read]))
+                err = max(err, float((k_out - p_out).abs().max()))
+                expect(r <= K3_REL, f"c={c}{' transposed' if tr else ''}: output and table rel {r:.3e} "
+                       f"(limit {K3_REL})")
+                tables[(c, tr)] = k_tab
+            r_loop = rel(KM.lattice_mixture_apply(*args, plan.live, v, taps, norm, dk.weights), k3_loop(plan, v))
+            expect(r_loop <= K3_REL, f"c={c}: K12 vs the J-fold K3 loop on the same plans rel {r_loop:.3e} "
+                   f"(limit {K3_REL})")
+            ms[c] = timer(lambda: KM.lattice_mixture_apply(*args, plan.live, v, taps, norm, dk.weights), 20)
+            plain_ms[c] = timer(lambda: KM.mixture_apply_plain(*args, v, taps, norm, dk.weights), 3)
+            loop_ms[c] = timer(lambda: k3_loop(plan, v), 10)
+            print(f"    c={c}: K12 {ms[c]:.4f} ms, plain {plain_ms[c]:.4f} ms, the J-fold K3 loop {loop_ms[c]:.4f} ms")
+        v1 = torch.from_numpy(np.random.default_rng(int(golden["mvm_seed"])).normal(size=(n, 1)).astype(np.float32))
+        r_jax = rel(F.apply_plan_any(plan, v1.to(dev), dk).cpu(), torch.from_numpy(golden["mvm_out"]))
+        expect(r_jax <= LARGE_N_REL, f"K12 vs JAX's lattice_filter_any (CPU golden), c=1: rel {r_jax:.3e} "
+               f"(limit {LARGE_N_REL}, the chain-vs-join bound)")
+        nbytes, ops = 0, 0
+        for nl_j in live:  # Sum over the components of K3's cost on each plan (apply_cost)
+            b_j, o_j = apply_cost(n, d, 1, nl_j, order)
+            nbytes, ops = nbytes + b_j, ops + o_j
+        row = dict(max_abs_err=err, ms=ms[1], plain_ms=plain_ms[1], **bound(nbytes, ops), library_ms=None,
+                   shape=f"n={n}, d={d}, J={J}, c=1, live rows {sum(live)}", ms_by_c=ms, plain_ms_by_c=plain_ms,
+                   k3_loop_ms_by_c=loop_ms)
+        record.update(k12_jax_rel=r_jax, live=live)
+
+        print("mixture 8.2: the mixture position gradient (K5 on the stacked problem) vs plain (c = 11)")
+        gen = torch.Generator(device=dev).manual_seed(8)
+        v, g = (torch.randn((n, 11), generator=gen, device=dev) for _ in range(2))
+        tf, tb = tables[(11, False)], tables[(11, True)]
+        before = K.lattice_filter_grad.launches
+        gr_k = F.mixture_position_grad(plan, ref, dk, v, g, tf, tb)
+        expect(K.lattice_filter_grad.launches == before + 1, "one K5 launch covers the J components")
+        stacked = K.lattice_filter_grad_plain(L.mixture_positions(ref, dk.alphas), E, plan.seg_ids.reshape(J * n, d + 1),
+                                              v.repeat(J, 1), g.repeat(J, 1), tf, tb, norm).reshape(J, n, d)
+        gr_p = sum(w * a * stacked[j] for j, (w, a) in enumerate(zip(dk.weights, dk.alphas)))
+        r5 = rel(gr_k, gr_p)
+        expect(bool(torch.isfinite(gr_k).all()) and r5 <= K5_REL,
+               f"stacked K5 vs plain on the same tables: rel {r5:.3e} (limit {K5_REL})")
+        grad_ms = (timer(lambda: F.mixture_position_grad(plan, ref, dk, v, g, tf, tb), 20),
+                   timer(lambda: K.lattice_filter_grad_plain(L.mixture_positions(ref, dk.alphas), E,
+                                                             plan.seg_ids.reshape(J * n, d + 1), v.repeat(J, 1),
+                                                             g.repeat(J, 1), tf, tb, norm), 5))
+        print(f"    mixture position gradient {grad_ms[0]:.4f} ms (stacked K5), plain K5 {grad_ms[1]:.4f} ms")
+        record.update(grad_rel=r5, grad_ms=grad_ms[0], grad_plain_ms=grad_ms[1])
+
+        print("mixture 8.3: the port's subset fit vs JAX's weights, through the operator")
+        fitted = convert.mixture_model_from_jax(init, golden["weights"], **kw).with_fitted_mixture(x)
+        probe = torch.randn((n, 2), generator=gen, device=dev)
+        r_fit = rel(F.apply_plan_any(plan, probe, fitted.dk), F.apply_plan_any(plan, probe, dk))
+        print(f"    weights: port {np.round(fitted.mix_weights, 5).tolist()}, JAX "
+              f"{np.round(golden['weights'], 5).tolist()}")
+        expect(r_fit <= MIX_FIT_REL, f"K_mix(port's weights) vs K_mix(JAX's) on a probe: rel {r_fit:.3e} "
+               f"(limit {MIX_FIT_REL})")
+        record.update(fit_op_rel=r_fit, port_weights=list(fitted.mix_weights))
+
+    print("mixture 8.4: NLML and raw gradients vs JAX on the CPU (median init, JAX's weights, same probes)")
+    model.zero_grad(set_to_none=True)
+    stats = {}
+    loss = model.nlml(x, y, probes=probes(golden["seed_init"]), stats=stats)
+    loss.backward()
+    dl = abs(float(loss.detach()) - float(golden["loss_init"]))
+    expect(dl <= NLML_ATOL, f"NLML {float(loss.detach()):.6f} vs JAX {float(golden['loss_init']):.6f} "
+           f"(|diff| {dl:.2e}, limit {NLML_ATOL}); CG iterations {stats['cg_iters']}")
+    for k in RAW_NAMES:
+        a = getattr(model, k).grad.detach().cpu().numpy().astype(np.float64).ravel()
+        b = golden[f"grad_init_{k}"].astype(np.float64).ravel()
+        c, r = cosine(a, b), float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        expect(c >= GRAD_COS and r <= GRAD_REL, f"d/d{k} cos {c:.6f} (limit {GRAD_COS}), rel {r:.2e} "
+               f"(limit {GRAD_REL})")
+        record[f"grad_rel_{k}"] = r
+    record["nlml_diff"] = dl
+
+    print("mixture 8.5: three Adam steps (fit_adam, lr 0.1) vs the JAX trajectory")
+    steps = iter([probes(golden["seed_adam"] + e) for e in range(3)])
+    hist = simplex_gp_torch.fit_adam(lambda _gen: model.nlml(x, y, probes=next(steps)), model.parameters(), epochs=3,
+                                     lr=0.1)
+    dl = float(np.abs(np.array(hist["loss"]) - golden["adam_loss"]).max())
+    expect(dl <= ADAM_LOSS_ATOL, f"Adam losses {hist['loss']} vs JAX {golden['adam_loss'].tolist()} "
+           f"(max |diff| {dl:.2e}, limit {ADAM_LOSS_ATOL})")
+    dp = max(float(np.abs(getattr(model, k).detach().cpu().numpy() - golden[f"adam_{k}"][-1]).max())
+             for k in RAW_NAMES)
+    expect(dp <= ADAM_PARAM_ATOL, f"raw parameters after 3 steps: max |diff| {dp:.2e} (limit {ADAM_PARAM_ATOL})")
+    record.update(adam_loss_diff=dl, adam_param_diff=dp, adam_step_ms=hist["step_ms"])
+
+    print("mixture 8.6: one warm step and its stages")
+    model.load_raw(convert.raw_params_from_numpy(init, device=dev))
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+    z = probes(golden["seed_init"])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    opt.zero_grad(set_to_none=True)
+    with torch.no_grad():  # the forward's stages, one by one, as mll._solve_system runs them
+        ev[0].record()
+        params = model.constrained()
+        ref = x * params["inv_ell"]
+        splan = F.build_plan_any(ref, dk)
+        ev[1].record()
+        P = mll.build_precond(dk, cfg, params, ref, n)
+        ev[2].record()
+        s, noise = params["outputscale"], params["noise"]
+        res = cg_solve(lambda V: s * F.apply_plan_any(splan, V, dk) + noise * V,
+                       torch.cat([(y - params["mean"])[:, None], precond_sqrt(P, z)], dim=-1),
+                       tol=cfg.cg_tolerance, max_iters=cfg.max_cg_iterations, precond=lambda V: precond_solve(P, V),
+                       tridiag_m=100)
+        ev[3].record()
+        logdet_from_cg_tridiag(res.alphas[:, 1:], res.betas[:, 1:], res.tmask[:, 1:], (z * z).sum(0))
+        ev[4].record()
+    loss = model.nlml(x, y, probes=z)
+    ev[5].record()
+    loss.backward()
+    ev[6].record()
+    torch.cuda.synchronize()
+    stages = {nm: ev[i].elapsed_time(ev[i + 1])
+              for i, nm in enumerate(("plan", "preconditioner", "cg", "slq_eigh", "forward", "backward"))}
+    stages["cg_iters"] = res.iterations
+    path = (K.lattice_geometry, K.lattice_dedup_neighbors, KM.lattice_mixture_apply, K.lattice_filter_grad,
+            pivot_column)
+    for fn in path:
+        fn.launches = 0
+    warm = timer(lambda: train_step(model, opt, x, y, z), 5)
+    step_launches = {fn.__name__: fn.launches / 6 for fn in path}  # warm-up + 5 timed steps
+    print(f"    warm mixture training step {warm:.2f} ms (CUDA events); launches a step {step_launches}; stages "
+          f"(ms): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    record.update(step_ms=warm, stages=stages, step_launches=step_launches)
+
+    print("mixture 8.7: posterior_cache + predict_from_cache (model_best.pkl, JAX's weights refit there)")
+    best = {k: golden[f"best_{k}"] for k in RAW_NAMES}
+    smodel = convert.mixture_model_from_jax(best, golden["serve_weights"], **kw)
+    smodel.predict_from_cache(smodel.posterior_cache(x, y, generator=torch.Generator(device=dev)), x, xt)  # warm
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    cache = smodel.posterior_cache(x, y, generator=torch.Generator(device=dev).manual_seed(0))
+    ev[1].record()
+    mean, var = smodel.predict_from_cache(cache, x, xt)
+    ev[2].record()
+    torch.cuda.synchronize()
+    cache_ms, predict_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    mean_np, var_np = mean.cpu().numpy(), var.cpu().numpy()
+    err_ = mean_np - ds.test_y
+    rmse = float(np.sqrt((err_**2).mean()))
+    nll = float(0.5 * (np.log(2 * np.pi * var_np) + err_**2 / var_np).mean())
+    mean_j, _ = smodel.predict_from_cache(dict(cache, alpha=torch.from_numpy(golden["alpha"]).to(dev)), x, xt)
+    dpred = float(np.abs(mean_j.cpu().numpy() - golden["mean"]).max())
+    mean_rms = float(np.sqrt(((mean_np - golden["mean"]) ** 2).mean()))
+    print(f"    posterior_cache {cache_ms:.1f} ms, predict_from_cache {predict_ms:.1f} ms (CUDA events); CG "
+          f"iterations {cache['cg_iters']} (JAX {int(golden['cg_iters'])}), residual {float(cache['cg_res']):.3e} "
+          f"(JAX {float(golden['cg_res']):.3e})")
+    expect(bool(np.isfinite(mean_np).all() and np.isfinite(var_np).all() and (var_np > 0).all())
+           and mean_np.shape == ds.test_y.shape, "finite mean and positive variance, one per test row")
+    expect(abs(rmse - float(golden["rmse"])) <= RMSE_ATOL,
+           f"test RMSE {rmse:.4f} vs JAX {float(golden['rmse']):.4f} (limit {RMSE_ATOL})")
+    expect(abs(nll - float(golden["nll"])) <= NLL_ATOL,
+           f"test NLL {nll:.4f} vs JAX {float(golden['nll']):.4f} (limit {NLL_ATOL})")
+    expect(dpred <= PREDICT_MEAN_ATOL, f"predict_from_cache with JAX's alpha vs JAX mean, row by row: max |diff| "
+           f"{dpred:.3e} (limit {PREDICT_MEAN_ATOL})")
+    expect(mean_rms <= MEAN_RMS_ATOL, f"mean vs JAX row by row: rms diff {mean_rms:.3e} (limit {MEAN_RMS_ATOL})")
+    record.update(posterior_cache_ms=cache_ms, predict_ms=predict_ms, cg_iters=cache["cg_iters"],
+                  cg_res=float(cache["cg_res"]), rmse=rmse, nll=nll, mean_rms_diff=mean_rms, predict_max_abs_diff=dpred)
+
+    print("mixture 8.8: python -m simplex_gp_torch.train --kernel mixture, two epochs and one eval at elevators")
+    for fn in path:
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = trainer.main(["--dataset", "elevators", "--kernel", "mixture", "--mix-components", "8", "--nu",
+                                "1.5", "--order", "1", "--min-noise", "0.1", "--ls-init", "median", "--cg-tol", "1.0",
+                                "--epochs", "2", "--log-int", "2", "--out", tmp, "--device", dev.type])
+    launches = {fn.__name__: fn.launches for fn in path}
+    print(f"    launches on the trainer run: {launches}")
+    expect(all(v > 0 for v in launches.values()), "every kernel of the mixture path launched on the trainer run")
+    losses, final = [-r["train/mll"] for r in summary["records"]], summary["final"]
+    expect(all(np.isfinite(losses)) and np.isfinite(final["test/nll"]) and final["test/rmse"] < ENTRY_RMSE_MAX,
+           f"trainer: losses {losses}, test RMSE {final['test/rmse']:.4f} (limit {ENTRY_RMSE_MAX}), NLL "
+           f"{final['test/nll']:.4f}")
+    record.update(trainer=summary, trainer_launches=launches)
+
+    print("mixture 8.9: python -m simplex_gp_torch.mvm_err --kernel mixture at elevators")
+    m = mvm_err.main(["--dataset", "elevators", "--kernel", "mixture", "--order", "1", "--device", dev.type])
+    for key in ("rel_err", "cos_err"):
+        diff = abs(m[key] - float(golden[f"mvm_{key}"]))
+        expect(diff <= MVM_ERR_ATOL, f"elevators mixture {key} {m[key]:.6f} vs JAX {float(golden[f'mvm_{key}']):.6f} "
+               f"(|diff| {diff:.2e}, limit {MVM_ERR_ATOL})")
+    record.update(mvm_err=m)
+    return row, launches["lattice_mixture_apply"], record
+
+
 def train_step(model, opt, x, y, z):
     opt.zero_grad(set_to_none=True)
     model.nlml(x, y, probes=z).backward()
@@ -1788,6 +2070,11 @@ def main(argv=None) -> int:
     launches.update({k: par_launches[k] for k in par_rows})
     print(f"parallel phase: {time.perf_counter() - t_par:.1f} s")
     print("parallel: " + json.dumps(par))
+
+    t_mix = time.perf_counter()
+    rows["lattice_mixture_apply"], launches["lattice_mixture_apply"], mix = mixture_phase(dev, ds, expect, cuda_ms)
+    print(f"mixture phase: {time.perf_counter() - t_mix:.1f} s")
+    print("mixture: " + json.dumps(mix))
 
     # K10, the CG body, stays plain torch ops: one iteration's time (the MVM included) from the stage
     # times of 4.5 and 6.5, against the bound of its vector updates alone.

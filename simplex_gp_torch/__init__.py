@@ -1,8 +1,8 @@
 """simplex_gp_torch: Simplex-GP in PyTorch, with hand-written Hopper kernels.
 
 The port of the JAX package ``simplex_gp_tpu`` (the reference it is tested
-against) to PyTorch and CUDA on an NVIDIA H100, for the rbf and Matern
-lattice kernels: training (``SimplexGP.nlml`` through ``lattice_nlml``,
+against) to PyTorch and CUDA on an NVIDIA H100, for the rbf, Matern and
+Gaussian-mixture (``MixtureLattice``) lattice kernels: training (``SimplexGP.nlml`` through ``lattice_nlml``,
 ``fit_adam``, ``python -m simplex_gp_torch.train`` with periodic evaluation,
 early stopping, checkpoints and resume; exact or reference-parity
 ``grad_mode="deriv_filter"`` gradients; a capacity-bounded training plan,
@@ -13,8 +13,8 @@ reference's filter entry points (``filter_once``, ``count_lattice_points``,
 lattice geometry (K1), dedup and neighbours (K2, optionally bounded), apply
 (K3, with the capacity guard), the one-shot filter (K4), the filter's
 position gradient (K5), the pivoted-Cholesky column (K6), the
-derivative-tap gradient (K7), the occupancy count (K8) and the chunked wide
-apply (K9) -- live in ``simplex_gp_torch/csrc`` and build at first use on a
+derivative-tap gradient (K7), the occupancy count (K8), the chunked wide
+apply (K9) and the stacked mixture apply (K12) -- live in ``simplex_gp_torch/csrc`` and build at first use on a
 CUDA tensor; on CPU tensors their plain PyTorch versions run.
 
 Importing the package sets float32 matrix products to full precision (TF32
@@ -45,11 +45,23 @@ def MaternLattice(num_dims: int, nu: float = 1.5, order: int = 3, **kwargs) -> S
     return SimplexGP(num_dims=num_dims, kernel="matern", nu=nu, order=order, **kwargs)
 
 
+def MixtureLattice(num_dims: int, nu: float = 1.5, order: int = 1, components: int = 8, **kwargs) -> SimplexGP:
+    """Gaussian-mixture lattice GP targeting Matern-``nu`` (simplex_gp_tpu/__init__.py:36-51).
+
+    ``components`` RBF lattices at scaled positions with nonnegative
+    host-fit weights, applied together by K12; an accuracy mode beyond the
+    reference, at about ``components`` times the apply cost.
+    """
+    return SimplexGP(num_dims=num_dims, kernel="mixture", nu=nu, order=order, mix_components=components,
+                     **kwargs)
+
+
 __all__ = [
     "BBMMConfig",
     "DenseGP",
     "EarlyStopper",
     "MaternLattice",
+    "MixtureLattice",
     "RBFLattice",
     "SimplexGP",
     "count_lattice_points",

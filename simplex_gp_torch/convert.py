@@ -3,6 +3,9 @@
 The JAX trainer saves its raw parameter dict (numpy arrays: raw_lengthscale,
 raw_outputscale, raw_noise, mean) with pickle, e.g.
 ``runs/r5/simplexgp_elevators_s0/model_best.pkl``.  Loading needs no jax.
+A JAX mixture model is that dict plus its ``mix_weights`` tuple (the
+model's static field, fit on the host); :func:`mixture_model_from_jax`
+builds the port's model from both.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import pickle
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "raw_params_from_numpy", "raw_params_to_numpy"]
+__all__ = ["load_jax_params", "raw_params_from_numpy", "raw_params_to_numpy", "mixture_model_from_jax"]
 
 # The only globals a saved raw dict of numpy arrays refers to.
 _ALLOWED = {
@@ -49,3 +52,17 @@ def raw_params_from_numpy(d: dict, device=None) -> dict:
 def raw_params_to_numpy(raw: dict) -> dict:
     """Map a raw dict of tensors (e.g. ``model.raw()``) to float32 numpy arrays, JAX's raw dict."""
     return {k: np.asarray(v.detach().cpu(), np.float32) for k, v in raw.items()}
+
+
+def mixture_model_from_jax(raw: dict, mix_weights, device=None, **model_kwargs):
+    """The port's mixture SimplexGP of a JAX mixture model: its raw dict and its ``mix_weights``.
+
+    ``model_kwargs`` are the other SimplexGP settings (nu, order, min_noise,
+    bbmm, eval_cg_tolerance); the number of components is that of the weights.
+    """
+    from .models.exact_gp import SimplexGP
+
+    weights = tuple(float(w) for w in np.asarray(mix_weights, np.float64).ravel())
+    model = SimplexGP(num_dims=int(np.asarray(raw["raw_lengthscale"]).size), kernel="mixture",
+                      mix_components=len(weights), mix_weights=weights, device=device, **model_kwargs)
+    return model.load_raw(raw_params_from_numpy(raw, device=device))

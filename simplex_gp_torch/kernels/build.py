@@ -50,6 +50,9 @@ _SIGNATURES = {
     "sgp_lattice_count": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "sgp_deriv_splat": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "sgp_deriv_slice": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
+    "sgp_mixture_splat": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "sgp_mixture_blur": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "sgp_mixture_slice": [_P, _P, _P, _I, _I, _I, _I, _P, _F, _P, _P],
 }
 
 _lib = None

@@ -40,6 +40,14 @@ every rank while the backward returns this rank's partial gradients, which
 sharded engine ignores two settings: ``grad_mode="deriv_filter"`` runs the
 exact gradient (mll.py:95-106), and ``plan_capacity`` is not applied
 (mll.py:161-172).
+
+A MixtureKernel (JAX :100-110) takes the stacked mixture plan and K12 for
+every apply, ignores ``plan_capacity``, and always runs the exact gradient,
+whatever ``grad_mode`` says: the backward re-applies through the saved
+MixturePlan (K12, transposed K12, K5 on the stacked problem).  Its
+preconditioner's exact columns are those of its Matern target
+(``dk.nu``).  The sharded engine takes no mixture: JAX's sharded mixture
+branch (:100-104, :164-168) is not ported.
 """
 
 from __future__ import annotations
@@ -60,8 +68,8 @@ from ..ops.filter import (
     lattice_filter_any,
     lattice_filter_exact_grad,
 )
-from ..ops.kernels import DiscretizedKernel
-from ..ops.lattice import LatticePlan, build_plan_sharded_join
+from ..ops.kernels import DiscretizedKernel, MixtureKernel
+from ..ops.lattice import build_plan_sharded_join
 from .cg import cg_solve
 from .lanczos import logdet_from_cg_tridiag, slq_logdet
 from .pivoted_cholesky import (
@@ -119,8 +127,11 @@ class BBMMConfig:
 def build_precond(dk, config: BBMMConfig, params: dict, ref: torch.Tensor, n_global: int) -> Optional[Preconditioner]:
     """Rank-k pivoted-Cholesky preconditioner of K_hat from exact kernel columns.
 
-    Returns None when disabled or when rank >= n (dense regime).  With
-    ``config.axis``, ref holds this rank's rows and n_global counts all.
+    The columns are those of ``dk.nu``'s kernel (0: rbf, else Matern-nu); a
+    MixtureKernel's nu is its Matern target, as JAX's kernel_value_jnp
+    gives it (kernels.py:281-282).  Returns None when disabled or when rank
+    >= n (dense regime).  With ``config.axis``, ref holds this rank's rows
+    and n_global counts all.
     """
     rank = min(config.precond_rank, n_global - 1)
     if rank <= 0:
@@ -135,12 +146,13 @@ def _khat_matmul_diff(params: dict, x: torch.Tensor, dk, V: torch.Tensor, grad_m
                       capacity: Optional[int] = None, axis=None) -> torch.Tensor:
     """Differentiable K_hat(params) @ V; the filter's gradient per ``grad_mode`` (mll.py:92-113).
 
-    With ``axis`` the sharded filter, always with the exact gradient (:95-106).
+    With ``axis`` the sharded filter, always with the exact gradient
+    (:95-106); a mixture always takes the exact gradient (:107-110).
     """
     ref = x * params["inv_ell"]
     if axis is not None:
         ky = lattice_filter_exact_grad(V, ref, dk, axis=axis)
-    elif grad_mode == "exact":
+    elif grad_mode == "exact" or isinstance(dk, MixtureKernel):
         ky = lattice_filter_any(V, ref, dk, capacity)
     else:
         ky = lattice_filter(V, ref, dk)
@@ -151,7 +163,7 @@ class _System(NamedTuple):
     solves: torch.Tensor  # (n, 1+p): alpha and the probe solves
     logdet: torch.Tensor  # () log|K_hat| estimate
     probes_right: torch.Tensor  # (n, p) right vectors of the trace backward
-    plan: LatticePlan  # the plan every apply of this loss evaluation uses
+    plan: tuple  # the LatticePlan or MixturePlan every apply of this loss evaluation uses
     iterations: int  # CG iterations
     residual: torch.Tensor  # (1+p,) best relative residuals
 
@@ -169,8 +181,8 @@ def _solve_system(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torc
     if axis is None:
         plan = build_plan_any(ref, dk, config.plan_capacity)
     elif not isinstance(dk, DiscretizedKernel):
-        raise NotImplementedError("the sharded engine takes one DiscretizedKernel: mixture kernels are not "
-                                  "ported (ROADMAP item 10)")
+        raise NotImplementedError("the sharded engine takes one DiscretizedKernel: its mixture branch "
+                                  "(JAX mll.py:100-104, :164-168) is not ported")
     else:  # JAX's sharded plan has no capacity (mll.py:161-172)
         plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
     s, noise = params["outputscale"], params["noise"]
@@ -234,6 +246,7 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
         ctx.dk = dk
         ctx.grad_mode = config.grad_mode
         ctx.axis = config.axis
+        ctx.plan_type = type(sys_.plan)
         ctx.save_for_backward(inv_ell, outputscale, x, alpha, sys_.solves[:, 1:], sys_.probes_right,
                               *sys_.plan)
         inv_quad = (y * alpha).sum()
@@ -242,12 +255,12 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
     @staticmethod
     def backward(ctx, a, b):
         inv_ell, s, x, alpha, z_solves, probes_right, *plan = ctx.saved_tensors
-        plan = LatticePlan(*plan)
+        plan = ctx.plan_type(*plan)
         p = probes_right.shape[-1]
         U = torch.cat([(-a) * alpha[:, None], (b / p) * z_solves], dim=-1)
         V = torch.cat([alpha[:, None], probes_right], dim=-1).contiguous()
         ref = x * inv_ell
-        if ctx.grad_mode == "exact" or ctx.axis is not None:
+        if ctx.grad_mode == "exact" or ctx.axis is not None or isinstance(ctx.dk, MixtureKernel):
             KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True, axis=ctx.axis)
             # d/dref of s * K(ref) V against U: K5 with the cotangent s U.
             _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f, ctx.axis)

@@ -14,11 +14,16 @@ argmax, ties to the lowest global index as on one device -- and K6 writes
 the column against the winner's rows (K6'), without a read back to the
 host.  The initial maximum is a pmax, the Gram matrices L^T L and U^T U and
 every U^T V are all-reduces, and each rank keeps its own rows of L and U.
+
+:func:`pivoted_cholesky` is JAX's generic column-oracle form (:56-103), for
+operators without feature structure and as the tests' oracle;
+:func:`woodbury_solve` and :func:`woodbury_logdet` (:289-305) solve with
+and take the log-determinant of L L^T + noise I directly from a factor.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -26,6 +31,7 @@ from ..kernels.pivot import pivot_column
 
 __all__ = [
     "PivotedCholesky",
+    "pivoted_cholesky",
     "pivoted_cholesky_features",
     "sharded_pivot",
     "Preconditioner",
@@ -33,12 +39,45 @@ __all__ = [
     "precond_solve",
     "precond_inv_sqrt",
     "precond_sqrt",
+    "woodbury_solve",
+    "woodbury_logdet",
 ]
 
 
 class PivotedCholesky(NamedTuple):
     L: torch.Tensor  # (n, k) partial Cholesky factor of K (without noise)
     pivots: torch.Tensor  # (k,) int64 chosen pivot indices
+
+
+def pivoted_cholesky(diag: torch.Tensor, col_fn: Callable[[torch.Tensor], torch.Tensor],
+                     rank: int) -> PivotedCholesky:
+    """Rank-``rank`` pivoted Cholesky of an SPSD matrix given by its columns (pivoted_cholesky.py:56-103).
+
+    ``diag`` (n,) is the matrix diagonal and ``col_fn(i)`` its column i as
+    an (n,) tensor, for a 0-d int64 index tensor (no read back to the
+    host).  A pivot whose residual diagonal is at most 1e-6 of the largest
+    initial diagonal gets a zero column, as in
+    :func:`pivoted_cholesky_features`.
+    """
+    n = diag.shape[0]
+    d = diag.to(torch.float32)
+    L = torch.zeros((n, rank), dtype=torch.float32, device=diag.device)
+    pivots = torch.zeros(rank, dtype=torch.int64, device=diag.device)
+    d0_max = d.max()
+    rows = torch.arange(n, device=diag.device)
+    for j in range(rank):
+        piv = torch.argmax(d)
+        mask = (torch.arange(rank, device=diag.device) < j).to(L.dtype)
+        col = col_fn(piv).to(torch.float32) - (L * (L[piv] * mask)[None, :]).sum(dim=-1)
+        pivot_val = d[piv]
+        alive = pivot_val > 1e-6 * d0_max
+        root = torch.sqrt(torch.clamp(pivot_val, min=1e-12))
+        ell = torch.where(alive, col / root, 0.0)
+        ell = torch.where(rows == piv, torch.where(alive, root, 0.0), ell)
+        L[:, j] = ell
+        d = torch.where(rows == piv, 0.0, torch.clamp(d - ell * ell, min=0.0))
+        pivots[j] = piv
+    return PivotedCholesky(L=L, pivots=pivots)
 
 
 def pivoted_cholesky_features(
@@ -149,3 +188,18 @@ def precond_sqrt(P: Preconditioner, V: torch.Tensor, axis=None) -> torch.Tensor:
     """P^{1/2} V = noise^{1/2} V + U (sqrt(noise+s2) - sqrt(noise)) / gamma U^T V."""
     w = (torch.sqrt(P.noise + P.s2) - torch.sqrt(P.noise)) / P.gamma
     return V * torch.sqrt(P.noise) + P.U @ (w[:, None] * _rowsum(P.U.T @ V, axis))
+
+
+def woodbury_solve(L: torch.Tensor, noise: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """(L L^T + noise I)^{-1} V by Woodbury, O(n k^2 + n k t) (pivoted_cholesky.py:289-296)."""
+    k = L.shape[1]
+    inner = noise * torch.eye(k, dtype=L.dtype, device=L.device) + L.T @ L
+    sol = torch.cholesky_solve(L.T @ V, torch.linalg.cholesky(inner))
+    return (V - L @ sol) / noise
+
+
+def woodbury_logdet(L: torch.Tensor, noise: torch.Tensor, n: int) -> torch.Tensor:
+    """log|L L^T + noise I| by the matrix determinant lemma (pivoted_cholesky.py:299-305)."""
+    k = L.shape[1]
+    chol = torch.linalg.cholesky(torch.eye(k, dtype=L.dtype, device=L.device) + (L.T @ L) / noise)
+    return 2.0 * torch.log(torch.diagonal(chol)).sum() + n * torch.log(noise)

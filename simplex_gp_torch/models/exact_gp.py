@@ -1,10 +1,10 @@
 """Exact-GP models: lattice-accelerated (Simplex-GP) and the dense baseline.
 
-Port of simplex_gp_tpu/models/exact_gp.py for the rbf and Matern lattice
-kernels:
+Port of simplex_gp_tpu/models/exact_gp.py for the rbf, Matern and
+Gaussian-mixture lattice kernels:
 
-    ConstantMean + ScaleKernel(RBFLattice/MaternLattice, ard_num_dims=d)
-    + GaussianLikelihood(GreaterThan(min_noise))
+    ConstantMean + ScaleKernel(RBFLattice/MaternLattice/MixtureLattice,
+    ard_num_dims=d) + GaussianLikelihood(GreaterThan(min_noise))
 
 ``SimplexGP.nlml`` is the training loss, through the BBMM engine
 (linalg/mll.py::lattice_nlml) and differentiable in every raw parameter.
@@ -15,6 +15,10 @@ the eval tolerance, and forms the LOVE root from a randomized range sketch
 whose two 100-column MVMs reuse that plan (K9, the chunked apply, above 4M
 contribution rows).  ``predict_from_cache`` runs one rectangular filter of
 1+m columns over [train; test], untrimmed, chunked at the same size.
+``kernel="mixture"`` is J RBF lattices at scaled positions targeting
+Matern-nu (ops/kernels.py MixtureKernel), applied together by K12; its
+weights are the profile fit, ``mix_weights`` when set, and
+:meth:`SimplexGP.with_fitted_mixture` refits them on a data subset.
 ``DenseGP`` is the same model with dense Cholesky algebra, the dense side
 of the Snelson parity test.
 """
@@ -33,7 +37,7 @@ from ..linalg.cg import cg_solve
 from ..linalg.mll import BBMMConfig, build_precond, lattice_nlml
 from ..linalg.pivoted_cholesky import precond_solve
 from ..ops.filter import apply_plan_any, apply_plan_wide, build_plan_any, lattice_filter_rect
-from ..ops.kernels import DiscretizedKernel, matern_kernel, rbf_kernel
+from ..ops.kernels import fit_mixture_weights_subset, matern_kernel, mixture_kernel, rbf_kernel
 from .components import constrain, init_raw_params
 
 __all__ = ["SimplexGP", "DenseGP", "rademacher", "rank_generator"]
@@ -87,7 +91,9 @@ class SimplexGP(_RawParams):
     """Lattice-accelerated exact GP regression model.
 
     Every method runs on the device of the module's parameters and of its
-    inputs.
+    inputs.  ``kernel`` is "rbf", "matern" or "mixture"; a mixture has
+    ``mix_components`` components and the weights ``mix_weights`` (None:
+    the profile fit of ``mixture_kernel``).
     """
 
     def __init__(
@@ -99,26 +105,49 @@ class SimplexGP(_RawParams):
         min_noise: float = 1e-4,
         bbmm: BBMMConfig = BBMMConfig(),
         eval_cg_tolerance: float = 1e-2,
+        mix_components: int = 8,
+        mix_weights: Optional[tuple] = None,
         device=None,
     ):
-        if kernel not in ("rbf", "matern"):
-            raise ValueError(f"unknown kernel {kernel!r} (the port has rbf and matern)")
+        if kernel not in ("rbf", "matern", "mixture"):
+            raise ValueError(f"unknown kernel {kernel!r} (rbf, matern or mixture)")
         super().__init__(num_dims, min_noise, device)
         self.kernel = kernel
         self.nu = nu
         self.order = order
+        self.mix_components = mix_components
+        self.mix_weights = None if mix_weights is None else tuple(float(w) for w in mix_weights)
         self.bbmm = bbmm
         self.eval_cg_tolerance = eval_cg_tolerance
 
     def extra_repr(self) -> str:
+        mix = (f", mix_components={self.mix_components}, mix_weights={self.mix_weights}"
+               if self.kernel == "mixture" else "")
         return (f"num_dims={self.num_dims}, kernel={self.kernel!r}, nu={self.nu}, order={self.order}, "
-                f"min_noise={self.min_noise}, bbmm={self.bbmm}, eval_cg_tolerance={self.eval_cg_tolerance}")
+                f"min_noise={self.min_noise}, bbmm={self.bbmm}, eval_cg_tolerance={self.eval_cg_tolerance}{mix}")
 
     @property
-    def dk(self) -> DiscretizedKernel:
+    def dk(self):
+        """The DiscretizedKernel, or for "mixture" the MixtureKernel with ``mix_weights`` (exact_gp.py:93-104)."""
         if self.kernel == "rbf":
             return rbf_kernel(self.order)
-        return matern_kernel(self.nu, self.order)
+        if self.kernel == "matern":
+            return matern_kernel(self.nu, self.order)
+        mk = mixture_kernel(self.nu, self.order, self.mix_components)
+        return mk if self.mix_weights is None else dataclasses.replace(mk, weights=self.mix_weights)
+
+    @torch.no_grad()
+    def with_fitted_mixture(self, x: torch.Tensor, m: int = 1024, seed: int = 0) -> "SimplexGP":
+        """Refit the mixture weights on an m-point subset at the current lengthscales (exact_gp.py:106-119).
+
+        The weights go into ``mix_weights`` of this model, which is returned
+        (JAX returns a new static model; here the parameters live in the
+        module, so it is updated in place).  No-op for the other kernels.
+        """
+        if self.kernel == "mixture":
+            ref = x * self.constrained()["inv_ell"]
+            self.mix_weights = fit_mixture_weights_subset(self.dk, ref, m=m, seed=seed).weights
+        return self
 
     def nlml(
         self,

@@ -1,9 +1,12 @@
 """Stationary kernel functions (of squared distance) and their discretizations.
 
-Port of simplex_gp_tpu/ops/kernels.py (:35-132, :268-295).  The numpy forms
-feed the host-side tap search in :mod:`coeffs`; :func:`kernel_value` is the
-exact kernel on torch tensors, for pivoted-Cholesky columns.  The Gaussian
-mixture kernel is not ported yet.
+Port of simplex_gp_tpu/ops/kernels.py.  The numpy forms feed the host-side
+tap search in :mod:`coeffs`; :func:`kernel_value` is the exact kernel on
+torch tensors, for pivoted-Cholesky columns.  :class:`MixtureKernel` is the
+Gaussian-mixture discretization of a Matern kernel (:135-265): its host
+constants (alphas and profile-fit weights) are computed here as in JAX, with
+scipy's ``nnls``, and :func:`fit_mixture_weights_subset` refits the weights
+on the port's own filter.
 """
 
 from __future__ import annotations
@@ -17,7 +20,15 @@ import torch
 from ..kernels.pivot import stationary_value
 from .coeffs import get_coeffs, tap_variance
 
-__all__ = ["DiscretizedKernel", "rbf_kernel", "matern_kernel", "kernel_value"]
+__all__ = [
+    "DiscretizedKernel",
+    "MixtureKernel",
+    "rbf_kernel",
+    "matern_kernel",
+    "mixture_kernel",
+    "fit_mixture_weights_subset",
+    "kernel_value",
+]
 
 
 def _rbf(d2: np.ndarray) -> np.ndarray:
@@ -115,8 +126,102 @@ def matern_kernel(nu: float = 1.5, order: int = 3) -> DiscretizedKernel:
     )
 
 
-def kernel_value(dk: DiscretizedKernel, d2: torch.Tensor) -> torch.Tensor:
-    """Exact (undiscretized) kernel value k(d2) of ``dk`` on torch tensors."""
+@dataclasses.dataclass(frozen=True)
+class MixtureKernel:
+    """Gaussian-mixture discretization of a stationary kernel (kernels.py:135-176).
+
+    k(r) ~= sum_j w_j exp(-(alpha_j r)^2), w_j >= 0: each component is the
+    plain RBF lattice filter at the scaled positions ``ref * alpha_j``, and
+    the nonnegative weights keep the operator PSD.  The weights are fit on
+    the host (profile NNLS at construction, or a subset refit against the
+    dense target, :func:`fit_mixture_weights_subset`).
+    """
+
+    name: str
+    order: int
+    alphas: tuple  # per-component inverse-lengthscale multipliers
+    weights: tuple  # nonnegative mixture weights
+    base: DiscretizedKernel  # the shared RBF taps
+    nu: float = 1.5  # target Matern smoothness
+
+    @property
+    def coeffs(self):
+        return self.base.coeffs
+
+    @property
+    def variance(self):
+        return self.base.variance
+
+
+def _fit_profile_weights(kernel_fn, alphas: np.ndarray, r_max: float = 8.0, n_grid: int = 512) -> np.ndarray:
+    """Nonnegative LSQ fit of ``kernel_fn(r^2)`` by sum_j w_j exp(-(a_j r)^2) on [0, r_max], sum 1."""
+    from scipy.optimize import nnls
+
+    r = np.linspace(0.0, r_max, n_grid)
+    target = np.asarray(kernel_fn(r**2), dtype=np.float64)
+    comp = np.exp(-np.outer(r**2, np.asarray(alphas, np.float64) ** 2))
+    w, _ = nnls(comp, target)
+    return w / max(w.sum(), 1e-12)
+
+
+@functools.lru_cache(maxsize=None)
+def mixture_kernel(nu: float = 1.5, order: int = 1, n_components: int = 8,
+                   alpha_range: tuple = (0.25, 4.0)) -> MixtureKernel:
+    """Gaussian-mixture discretization targeting Matern-``nu`` (kernels.py:201-218)."""
+    alphas = np.geomspace(alpha_range[0], alpha_range[1], n_components)
+    w = _fit_profile_weights(lambda d2: _matern(d2, nu), alphas)
+    return MixtureKernel(
+        name=f"mixture:matern{nu}",
+        order=order,
+        alphas=tuple(float(a) for a in alphas),
+        weights=tuple(float(x) for x in w),
+        base=rbf_kernel(order),
+        nu=nu,
+    )
+
+
+def fit_mixture_weights_subset(mk: MixtureKernel, ref, m: int = 1024, n_probe: int = 8,
+                               seed: int = 0) -> MixtureKernel:
+    """Refit the mixture weights against the dense target on a data subset (kernels.py:221-265).
+
+    ``ref`` (n, d) are the lengthscale-scaled positions, a numpy array or a
+    tensor (the filters run on its device).  The seeded subset, probes and
+    dense target are numpy, as in JAX; each component's filter is the
+    port's (K4, ``filter_once``, at ``ref * alpha_j``); the weights come from
+    ``nnls`` and are not renormalized: each lattice component delivers less
+    mass than its ideal Gaussian, so the weights sum above 1 to make the
+    operator match the unit-diagonal target.
+    """
+    from scipy.optimize import nnls
+
+    from .filter import _filter_plain
+
+    dev = ref.device if isinstance(ref, torch.Tensor) else torch.device("cpu")
+    ref = ref.detach().cpu().numpy() if isinstance(ref, torch.Tensor) else np.asarray(ref)
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(ref.shape[0])[: min(m, ref.shape[0])]
+    rs = ref[idx]
+    d2 = (rs * rs).sum(-1)[:, None] + (rs * rs).sum(-1)[None, :] - 2.0 * (rs @ rs.T)
+    d2 = np.maximum(d2, 0.0)
+    target = np.asarray(_matern(d2, mk.nu))
+    v = rng.normal(size=(rs.shape[0], n_probe)).astype(np.float32)
+    b = (target @ v).ravel()
+    rt, vt = torch.from_numpy(np.ascontiguousarray(rs)).to(dev), torch.from_numpy(v).to(dev)
+    with torch.no_grad():
+        cols = [_filter_plain(vt, rt * float(a), mk.base).cpu().numpy().ravel() for a in mk.alphas]
+    w, _ = nnls(np.stack(cols, axis=1), b)
+    return dataclasses.replace(mk, weights=tuple(float(x) for x in w))
+
+
+def kernel_value(dk, d2: torch.Tensor) -> torch.Tensor:
+    """Exact (undiscretized) kernel value k(d2) of ``dk`` on torch tensors.
+
+    For a :class:`MixtureKernel` this is the target Matern-nu, not the sum
+    of Gaussians (kernels.py:268-282): the preconditioner's exact columns
+    are those of the kernel the operator approximates.
+    """
+    if isinstance(dk, MixtureKernel):
+        dk = matern_kernel(dk.nu, dk.order)
     if dk.name != "rbf" and not dk.name.startswith("matern"):
         raise ValueError(f"unknown kernel {dk.name!r}")
     return stationary_value(d2, dk.nu)

@@ -25,6 +25,12 @@ applies in one call, with no plan and an optional capacity bound (JAX's
 filter_fused, which runs the sort chain; the same operator up to 64-bit hash
 collisions).  :func:`count_lattice_points` is K8, K4's occupancy count.
 
+A :class:`MixturePlan` is the plan of a Gaussian-mixture kernel: J
+component plans of the scaled positions ``x * alpha_j`` (one K1 launch over
+the stacked positions, then K2 per component), stacked into one table, and
+:func:`apply_plan_mixture` applies all J components at once by K12
+(``kernels/mixture.py``).
+
 The host constants below are copied verbatim from the JAX module, where the
 tests hold them equal.
 """
@@ -48,9 +54,11 @@ from ..kernels.lattice import (
     lattice_geometry,
     lattice_simplex,
 )
+from ..kernels.mixture import lattice_mixture_apply
 
 __all__ = [
     "LatticePlan",
+    "MixturePlan",
     "SLICE_NORM",
     "build_rotation",
     "lattice_simplex",
@@ -58,6 +66,10 @@ __all__ = [
     "build_plan_sharded_join",
     "apply_plan_join",
     "apply_plan_cols",
+    "build_plan_mixture",
+    "apply_plan_mixture",
+    "mixture_component",
+    "mixture_positions",
     "filter_once",
     "count_lattice_points",
 ]
@@ -156,6 +168,23 @@ class LatticePlan(NamedTuple):
     n_lattice: torch.Tensor
 
 
+class MixturePlan(NamedTuple):
+    """The J component plans of a mixture kernel, stacked component-major (J M rows, M = n(d+1)).
+
+      seg_ids:   (J, n, d+1) int32   stacked row j M + (component j's own row)
+      weights:   (J, n, d+1) float32 barycentric weights at x * alpha_j
+      neighbors: (d+1, J M, 2r) int32 each component's own row ids, M = missing
+      live:      (J,) int32          each component's occupied row count
+    Each component is an untrimmed plan as K2 built it: mixture plans ignore
+    capacity (filter.py:174-176), and no row is renumbered.
+    """
+
+    seg_ids: torch.Tensor
+    weights: torch.Tensor
+    neighbors: torch.Tensor
+    live: torch.Tensor
+
+
 def _lattice_constants(d: int, coeffs: tuple, blur_variance: float, device):
     """(E, a, oh1, oh2) on ``device``: elevation, hash multipliers, neighbour offset hashes."""
     a = _hash_vectors(d)
@@ -176,6 +205,57 @@ def build_plan_join(x: torch.Tensor, coeffs: tuple, blur_variance: float,
     h1, h2, weights = lattice_geometry(x.to(torch.float32).contiguous(), E, a)
     seg_ids, neighbors, n_lattice = lattice_dedup_neighbors(h1, h2, oh1, oh2, capacity)
     return LatticePlan(seg_ids.reshape(n, d + 1), weights, neighbors, n_lattice)
+
+
+def mixture_positions(x: torch.Tensor, alphas) -> torch.Tensor:
+    """The (J n, d) stacked component positions x * alpha_j, component-major."""
+    x = x.to(torch.float32)
+    return torch.cat([x * float(a) for a in alphas]).contiguous()
+
+
+def build_plan_mixture(x: torch.Tensor, alphas, coeffs: tuple, blur_variance: float) -> MixturePlan:
+    """The stacked plan of the J components at positions ``x * alpha_j``: one K1, then K2 per component.
+
+    JAX builds one plan per component (filter.py:186-193); K1 is per point,
+    so one launch covers the J n stacked positions, and each component's K2
+    dedups its own n(d+1) hash pairs.  The stacking (seg offsets, weights,
+    neighbours, live counts) stays on the device.
+    """
+    n, d = x.shape
+    J, N = len(alphas), n * (d + 1)
+    E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x.device)
+    h1, h2, weights = lattice_geometry(mixture_positions(x, alphas), E, a)
+    segs, nbs, lives = [], [], []
+    for j in range(J):
+        seg, nb, live = lattice_dedup_neighbors(h1[j * N:(j + 1) * N], h2[j * N:(j + 1) * N], oh1, oh2)
+        segs.append(seg + j * N)
+        nbs.append(nb)
+        lives.append(live)
+    return MixturePlan(torch.stack(segs).reshape(J, n, d + 1), weights.reshape(J, n, d + 1),
+                       torch.cat(nbs, dim=1), torch.stack(lives))
+
+
+def apply_plan_mixture(plan: MixturePlan, v: torch.Tensor, coeffs: tuple, mix_weights, transpose: bool = False,
+                       return_table: bool = False):
+    """The mixture operator sum_j w_j K_j(x) @ v for v (n, c) through a stacked plan: K12.
+
+    ``transpose`` applies the transpose (the axis blurs reversed);
+    ``return_table`` returns ``(out, table)`` with the stacked blurred
+    (J M, c) table before the slice, unweighted, which the backward reads.
+    """
+    d = plan.seg_ids.shape[2] - 1
+    if len(coeffs) != plan.neighbors.shape[2] + 1:
+        raise ValueError(f"{len(coeffs)} taps do not fit a plan of order {plan.neighbors.shape[2] // 2}")
+    return lattice_mixture_apply(plan.seg_ids, plan.weights, plan.neighbors, plan.live,
+                                 v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(d),
+                                 [float(w) for w in mix_weights], transpose, return_table)
+
+
+def mixture_component(plan: MixturePlan, j: int) -> LatticePlan:
+    """Component j of a stacked plan as a LatticePlan of its own (local rows; a copy of its neighbours)."""
+    M = plan.neighbors.shape[1] // plan.seg_ids.shape[0]
+    return LatticePlan(plan.seg_ids[j] - j * M, plan.weights[j].contiguous(),
+                       plan.neighbors[:, j * M:(j + 1) * M].contiguous(), plan.live[j])
 
 
 def build_plan_sharded_join(x_local: torch.Tensor, coeffs: tuple, blur_variance: float, axis) -> LatticePlan:

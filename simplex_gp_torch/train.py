@@ -20,7 +20,12 @@ generator's state and the stopper's.  ``--resume`` continues from it.
 ``--plan-capacity``: 0 keeps the training plan untrimmed (n(d+1) rows), a
 value above 0 bounds it, and -1 counts the occupancy at the initial
 lengthscale (K8) and takes ceil(1.25 occ / 8192) 8192 rows, at most
-n(d+1) (train_simplexgp.py:53-67).  The houseelectric configuration of the
+n(d+1) (train_simplexgp.py:53-67).  ``--kernel mixture`` (with
+``--mix-components``, 8 by default) fits the mixture weights on a 1,024-row
+subset at the initial lengthscales (train_simplexgp.py:88-93) and keeps
+them for the run; they appear in the config line's model and on a line of
+their own.  Its plans ignore the capacity (counted with the Matern taps,
+as JAX counts it).  The houseelectric configuration of the
 round-5 run (runs/r5/simplexgp_houseelectric_s0)::
 
     python -m simplex_gp_torch.train --dataset houseelectric --kernel matern \\
@@ -31,7 +36,7 @@ round-5 run (runs/r5/simplexgp_houseelectric_s0)::
 error.  Not ported: ``predict_padded``'s power-of-two padding of the eval
 rows (common.py:206-227), a trick for XLA's compile buckets whose duplicate
 rows change no real row; ``--host-loop`` (a TPU compile workaround); and
-``--prune-thresh`` and mixtures (ROADMAP items 1.7 and 1.10).
+``--prune-thresh`` (ARD screening).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from .convert import raw_params_to_numpy
 from .linalg.mll import BBMMConfig
 from .models.components import init_raw_params
 from .models.exact_gp import SimplexGP
+from .ops.kernels import matern_kernel, rbf_kernel
 from .ops.lattice import count_lattice_points
 from .utils.data import load_dataset
 from .utils.device import resolve_device
@@ -79,9 +85,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "lengthscale, rounded up to 8192 (an overflow makes the loss NaN), >0 = explicit")
     p.add_argument("--no-eval", action="store_true", help="skip the val and test predictions")
     p.add_argument("--resume", action="store_true", help="continue from the run directory's checkpoint.pt")
-    p.add_argument("--kernel", default="rbf", choices=["rbf", "matern"])
+    p.add_argument("--kernel", default="rbf", choices=["rbf", "matern", "mixture"],
+                   help="mixture: Gaussian-mixture lattice targeting Matern-nu, weights subset-fit at the "
+                        "initial lengthscales")
     p.add_argument("--nu", type=float, default=1.5)
     p.add_argument("--order", type=int, default=1)
+    p.add_argument("--mix-components", type=int, default=8)
     p.add_argument("--cg-tol", type=float, default=1.0)
     p.add_argument("--cg-iter", type=int, default=500)
     p.add_argument("--lanc-iter", type=int, default=100)
@@ -157,11 +166,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                       max_lanczos_iterations=args.lanc_iter, precond_rank=args.pre_size,
                       num_probes=args.num_probes)
     model = SimplexGP(num_dims=x.shape[-1], kernel=args.kernel, nu=args.nu, order=args.order,
-                      min_noise=args.min_noise, bbmm=bbmm, device=dev)
+                      min_noise=args.min_noise, bbmm=bbmm, mix_components=args.mix_components, device=dev)
     ell = median_lengthscale(ds.train_x) if args.ls_init == "median" else None
     if ell is not None:
         model.load_raw(init_raw_params(model.num_dims, lengthscale=ell))
-    model.bbmm = dataclasses.replace(bbmm, plan_capacity=_plan_capacity(args, x, model.dk, ell or 0.6931))
+    # A mixture's capacity is counted with the Matern taps (train_simplexgp.py:60); its plans ignore it.
+    count_dk = rbf_kernel(args.order) if args.kernel == "rbf" else matern_kernel(args.nu, args.order)
+    model.bbmm = dataclasses.replace(bbmm, plan_capacity=_plan_capacity(args, x, count_dk, ell or 0.6931))
+    if args.kernel == "mixture":
+        model.with_fitted_mixture(x)
+        print(json.dumps({"mix_weights": list(model.mix_weights)}), flush=True)
 
     out_dir = pathlib.Path(args.out) / f"simplexgp_{args.dataset}_s{args.seed}"
     out_dir.mkdir(parents=True, exist_ok=True)

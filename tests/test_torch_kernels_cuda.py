@@ -22,7 +22,12 @@ the occupancy, every output is NaN and no launch leaves its table.
 K11a numbers its rows as its plain version does, bit for bit; K11b is K3's
 splat, blur and slice over column blocks (rel 1e-5, on one rank and over two
 gloo ranks sharing the card); K6' with the pivot's rows passed in is K6's
-arithmetic, bit for bit.
+arithmetic, bit for bit.  K12, the stacked mixture apply, is K3's splat,
+blur and slice over J stacked component tables, with the weighted sum over
+components in the slice (rel 1e-5, forward and transposed, outputs and the
+read rows of its table); the mixture position gradient is K5 on the stacked
+problem (rel 1e-4).  The Snelson gate (test_torch_snelson.py's prediction
+test) runs on the card too, through the kernels.
 Positions at d >= 9 are scaled by 0.3, so the kernel reaches between points
 and the gradients are not roundoff.
 """
@@ -32,7 +37,9 @@ import torch
 from torch_parity import cuda_device, seeded  # noqa: F401 (fixture)
 
 from simplex_gp_torch.kernels import lattice as K
+from simplex_gp_torch.kernels import mixture as KM
 from simplex_gp_torch.kernels.pivot import pivot_column, pivot_column_plain
+from simplex_gp_torch.ops import filter as t_filter
 from simplex_gp_torch.ops import kernels as t_kernels
 from simplex_gp_torch.ops import lattice as t_lattice
 
@@ -433,3 +440,67 @@ def test_pivot_column_at_matches_plain_and_k6(cuda_device, nu):
     torch.cuda.synchronize()
     assert float((Lc - Ld).norm() / Ld.norm()) < 1e-5 and float((dc - dd).norm() / dd.norm()) < 1e-5
     assert int(pc[k - 1]) == -1 and int(pd[k - 1]) == -1
+
+
+@pytest.mark.parametrize("c", [1, 11])
+@pytest.mark.parametrize("n,d,J", [(300, 3, 6), (400, 9, 8), (2000, 17, 8)])
+def test_mixture_apply_and_grad_match_plain(cuda_device, n, d, J, c):
+    """K12 forward and transposed, with its stacked table, and the stacked K5, against the plain versions."""
+    mk = t_kernels.mixture_kernel(1.5, 1, J)
+    ref = _positions(n, d, 11, cuda_device)
+    plan = t_lattice.build_plan_mixture(ref, mk.alphas, mk.base.coeffs, mk.base.variance)
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    v = torch.randn((n, c), generator=gen, device=cuda_device)
+    g = torch.randn((n, c), generator=gen, device=cuda_device)
+    args = (plan.seg_ids, plan.weights, plan.neighbors)
+    norm, taps = t_lattice.SLICE_NORM(d), list(mk.base.coeffs)
+    rows = plan.seg_ids.reshape(-1).long()  # the rows that are read; rows past a live count are undefined
+    tables = []
+    for u, transpose in ((v, False), (g, True)):
+        before = KM.lattice_mixture_apply.launches
+        k_out, k_tab = KM.lattice_mixture_apply(*args, plan.live, u, taps, norm, mk.weights, transpose, True)
+        p_out, p_tab = KM.mixture_apply_plain(*args, u, taps, norm, mk.weights, transpose, True)
+        torch.cuda.synchronize()
+        assert KM.lattice_mixture_apply.launches == before + 1
+        assert float((k_out - p_out).norm() / p_out.norm()) < 1e-5
+        assert float((k_tab[rows] - p_tab[rows]).norm() / p_tab[rows].norm()) < 1e-5
+        tables.append(k_tab)
+    gr_k = t_filter.mixture_position_grad(plan, ref, mk, v, g, *tables)
+    cpu = [t.cpu() for t in (ref, v, g, *tables)]
+    gr_p = t_filter.mixture_position_grad(t_lattice.MixturePlan(*(t.cpu() for t in plan)), cpu[0], mk, *cpu[1:])
+    torch.cuda.synchronize()
+    assert float((gr_k.cpu() - gr_p).norm() / gr_p.norm()) < 1e-4
+
+
+def test_mixture_apply_refuses_wrong_inputs(cuda_device):
+    mk = t_kernels.mixture_kernel(1.5, 1, 4)
+    ref = _positions(50, 3, 1, cuda_device)
+    plan = t_lattice.build_plan_mixture(ref, mk.alphas, mk.base.coeffs, mk.base.variance)
+    v = torch.zeros((50, 2), device=cuda_device)
+    taps = list(mk.base.coeffs)
+    with pytest.raises(ValueError):  # the live counts on the host
+        KM.lattice_mixture_apply(plan.seg_ids, plan.weights, plan.neighbors, plan.live.cpu(), v, taps, 1.0,
+                                 mk.weights)
+    with pytest.raises(ValueError):  # one weight short
+        KM.lattice_mixture_apply(plan.seg_ids, plan.weights, plan.neighbors, plan.live, v, taps, 1.0,
+                                 mk.weights[:3])
+
+
+def test_snelson_prediction_quality_on_the_card(cuda_device):
+    """test_torch_snelson.py::test_snelson_prediction_quality on the card, through K1-K3, K5 and K6."""
+    import simplex_gp_torch as T
+    from simplex_gp_torch.utils.data import load_snelson
+
+    xs, ys = load_snelson()
+    x, y = torch.from_numpy(xs).to(cuda_device), torch.from_numpy(ys).to(cuda_device)
+    xt, yt, xe, ye = x[::2], y[::2], x[1::2], y[1::2]
+    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, K.lattice_filter_grad, pivot_column)
+    before = [fn.launches for fn in path]
+    simplex = T.SimplexGP(num_dims=1, kernel="rbf", order=1, min_noise=1e-4, device=cuda_device,
+                          bbmm=T.BBMMConfig(cg_tolerance=1e-4, max_lanczos_iterations=100))
+    T.fit_adam(lambda g: simplex.nlml(xt, yt, generator=g), simplex.parameters(), epochs=60, lr=0.1)
+    mean, var = simplex.predict(xt, yt, xe, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    assert all(fn.launches > b for fn, b in zip(path, before))
+    assert float(torch.sqrt(((mean - ye) ** 2).mean())) < 0.35
+    assert bool((var > 0).all())
+    assert float((((mean - ye).abs() / torch.sqrt(var)) < 3).float().mean()) > 0.9

@@ -9,6 +9,8 @@ CPU).  Tolerances:
   * weights within 1e-6 (a few f32 ulps of the elevated coordinates);
   * operator output rel < 2e-5 with equal n_lattice, the bound the JAX
     package holds its own two engines to (test_chain_plan.py).
+The ports of tests/test_lattice.py's accuracy and operator tests run on
+the port alone, with the JAX tests' bounds.
 """
 
 import jax.numpy as jnp
@@ -126,3 +128,58 @@ def test_filter_matches_cpp_golden_model(n, d, c, order, kind):
     gold = filter_ref(v, x, np.asarray(tdk.coeffs), tdk.variance)
     # Same bound as tests/test_cpu_ref.py: f32 roundoff, other accumulation orders.
     np.testing.assert_allclose(ours.numpy(), gold, rtol=2e-4, atol=2e-4)
+
+
+def _dense_mvm(x, v, kind):
+    d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    if kind == "rbf":
+        kmat = np.exp(-d2)
+    else:
+        d = np.sqrt(d2)
+        kmat = (1 + np.sqrt(3) * d) * np.exp(-np.sqrt(3) * d)
+    return kmat @ v
+
+
+@pytest.mark.parametrize("n,d,kind,order,tol_rel,tol_cos", [
+    (50, 1, "rbf", 1, 0.2, 0.98),
+    (50, 1, "rbf", 2, 0.2, 0.98),
+    (200, 3, "rbf", 2, 0.45, 0.90),
+    (50, 1, "matern", 3, 0.1, 0.99),
+    (200, 3, "matern", 3, 0.25, 0.97),
+    (400, 9, "rbf", 1, 0.30, 0.95),
+    (400, 9, "matern", 1, 0.60, 0.80),
+    (300, 17, "matern", 1, 0.25, 0.97),
+])
+def test_mvm_accuracy(n, d, kind, order, tol_rel, tol_cos):
+    """Port of test_lattice.py::test_mvm_accuracy: the one-shot filter against the dense kernel product."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    v = rng.normal(size=(n, 2)).astype(np.float32)
+    dk = _kernels(kind, order)[0]
+    out = t_lattice.filter_once(torch.from_numpy(v), torch.from_numpy(x), dk.coeffs, dk.variance).numpy()
+    exact = _dense_mvm(x, v, kind)
+    scale = (out * exact).sum() / (out * out).sum()  # mvm_err.py:94's global scale correction
+    rel = np.linalg.norm(scale * out - exact) / np.linalg.norm(exact)
+    cos = (out * exact).sum() / (np.linalg.norm(out) * np.linalg.norm(exact))
+    assert rel < tol_rel, f"rel err {rel}"
+    assert cos > tol_cos, f"cos {cos}"
+
+
+def test_operator_linear_and_symmetric():
+    """Port of test_lattice.py::test_operator_linear_and_symmetric on the join plan.
+
+    u^T K v = v^T K u up to the commutator error of the per-axis blurs
+    (rtol 2e-2, as the JAX test); K is linear in v (1e-4).
+    """
+    rng = np.random.default_rng(1)
+    n, d = 80, 2
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    dk = t_kernels.rbf_kernel(1)
+    plan = t_lattice.build_plan_join(x, dk.coeffs, dk.variance)
+    u = torch.from_numpy(rng.normal(size=(n, 1)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(n, 1)).astype(np.float32))
+    Ku = t_lattice.apply_plan_join(plan, u, dk.coeffs)
+    Kv = t_lattice.apply_plan_join(plan, v, dk.coeffs)
+    np.testing.assert_allclose(float((u * Kv).sum()), float((v * Ku).sum()), rtol=2e-2)
+    Kuv = t_lattice.apply_plan_join(plan, 2.0 * u + v, dk.coeffs)
+    np.testing.assert_allclose(Kuv.numpy(), (2.0 * Ku + Kv).numpy(), rtol=1e-4, atol=1e-4)

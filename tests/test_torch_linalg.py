@@ -168,3 +168,47 @@ def test_cg_zero_rhs_column():
     assert tr.iterations == int(jr.iterations)
     assert float(tr.x[:, 1].abs().max()) == 0.0
     assert jax.numpy.abs(jr.x[:, 1]).max() == 0.0
+
+
+def test_pivoted_cholesky_low_rank_recovery():
+    """Port of test_linalg.py::test_pivoted_cholesky_low_rank_recovery: rank 8 recovers an exactly rank-8 K."""
+    n, k = 50, 8
+    rng = np.random.default_rng(8)
+    L0 = rng.normal(size=(n, k))
+    K = torch.from_numpy((L0 @ L0.T).astype(np.float32))
+    pc = t_pc.pivoted_cholesky(torch.diagonal(K), lambda i: K[:, i], rank=k)
+    np.testing.assert_allclose((pc.L @ pc.L.T).numpy(), K.numpy(), rtol=1e-3, atol=1e-2)
+
+
+def test_pivoted_cholesky_matches_jax_and_the_features_form():
+    """The column oracle against JAX's on the same kernel matrix, and against the exact-row factorization."""
+    n, d, k = 60, 3, 12
+    ref = np.random.default_rng(10).normal(size=(n, d)).astype(np.float32)
+    rt = torch.from_numpy(ref)
+    Kt = torch.exp(-((rt[:, None, :] - rt[None, :, :]) ** 2).sum(-1))
+    pc = t_pc.pivoted_cholesky(torch.ones(n), lambda i: Kt[:, i], rank=k)
+    Kj = jnp.asarray(Kt.numpy())
+    jpc = j_pc.pivoted_cholesky(jnp.ones(n), lambda i: Kj[:, i], rank=k)
+    assert pc.pivots.tolist() == np.asarray(jpc.pivots).tolist()
+    np.testing.assert_allclose(pc.L.numpy(), np.asarray(jpc.L), rtol=1e-4, atol=1e-5)
+    feat = t_pc.pivoted_cholesky_features(rt, torch.ones(n), 0.0, torch.tensor(1.0), k)
+    assert pc.pivots.tolist() == feat.pivots.tolist()
+    np.testing.assert_allclose(pc.L.numpy(), feat.L.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_woodbury_solve_and_logdet():
+    """Port of test_linalg.py::test_woodbury_solve_and_logdet, and against JAX's."""
+    n, k = 40, 6
+    rng = np.random.default_rng(9)
+    L = rng.normal(size=(n, k)).astype(np.float32)
+    V = rng.normal(size=(n, 2)).astype(np.float32)
+    P = L.astype(np.float64) @ L.T + 0.5 * np.eye(n)
+    noise = torch.tensor(0.5)
+    got = t_pc.woodbury_solve(torch.from_numpy(L), noise, torch.from_numpy(V)).numpy()
+    np.testing.assert_allclose(got, np.linalg.solve(P, V), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got, np.asarray(j_pc.woodbury_solve(jnp.asarray(L), jnp.float32(0.5),
+                                                                   jnp.asarray(V))), rtol=1e-4, atol=1e-5)
+    logdet = float(t_pc.woodbury_logdet(torch.from_numpy(L), noise, n))
+    np.testing.assert_allclose(logdet, np.linalg.slogdet(P)[1], rtol=1e-4)
+    np.testing.assert_allclose(logdet, float(j_pc.woodbury_logdet(jnp.asarray(L), jnp.float32(0.5), n)),
+                               rtol=1e-5)

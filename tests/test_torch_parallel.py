@@ -333,7 +333,7 @@ def test_rank_probe_streams_differ_by_rank_and_repeat_by_seed():
 
 
 def test_sharded_engine_refuses_mixtures():
-    """Mixture kernels are not ported: the sharded engine says so before any collective."""
+    """The sharded engine's mixture branch is not ported: it says so before any collective."""
     cfg = t_mll.BBMMConfig(axis=types.SimpleNamespace(rank=0, size=2))
     params = {"inv_ell": torch.ones(2), "outputscale": torch.tensor(1.0), "noise": torch.tensor(0.1)}
     with pytest.raises(NotImplementedError, match="mixture"):

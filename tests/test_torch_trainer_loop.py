@@ -3,9 +3,9 @@
 Its files against experiments/common.py::run_training's (the JAX trainer,
 run here on the CPU for two epochs): the same metrics.jsonl record keys.
 Then the loop's own rules: early stopping after patience + 1 evaluations
-without a better validation RMSE, model_best.pkl at the best one, and
+without a better validation RMSE, model_best.pkl at the best one,
 ``--resume``, which on the CPU (deterministic) reproduces an uninterrupted
-run exactly.
+run exactly, and ``--kernel mixture``.
 """
 
 import argparse
@@ -119,6 +119,33 @@ def test_model_files_load_as_jax_parameter_files(tmp_path):
         raw = pickle.load(f)
     assert sorted(raw) == ["mean", "raw_lengthscale", "raw_noise", "raw_outputscale"]
     assert all(isinstance(v, np.ndarray) and v.dtype == np.float32 for v in raw.values())
+
+
+def test_mixture_kernel_trains_two_epochs(tmp_path):
+    """``--kernel mixture``: weights subset-fit at the initial lengthscales, on the config line, two epochs.
+
+    The records carry the rbf run's keys; the weights are the port's own fit
+    at the initial lengthscales (the same call on a fresh model gives them
+    again), and an autotrimmed capacity is counted with the Matern taps and
+    left unused by the mixture plans.
+    """
+    from simplex_gp_torch.models.exact_gp import SimplexGP
+    from simplex_gp_torch.utils.data import load_dataset
+
+    summary = _run(tmp_path / "mix", "--kernel", "mixture", "--mix-components", "6", "--epochs", "2",
+                   "--log-int", "2", "--plan-capacity", "-1")
+    lines = _lines(summary["out_dir"])
+    rbf = _lines(_run(tmp_path / "rbf", "--epochs", "2", "--log-int", "2")["out_dir"])
+    assert [sorted(r) for r in lines] == [sorted(r) for r in rbf]
+    assert lines[0]["config"]["kernel"] == "mixture" and lines[0]["config"]["mix_components"] == 6
+    ds = load_dataset("snelson")
+    fresh = SimplexGP(num_dims=1, kernel="mixture", mix_components=6).with_fitted_mixture(
+        torch.from_numpy(ds.train_x))
+    assert f"mix_weights={fresh.mix_weights}" in lines[0]["model"]
+    assert all(w >= 0 for w in fresh.mix_weights) and len(fresh.mix_weights) == 6
+    assert summary["plan_capacity"] is not None  # counted, as JAX's trainer counts it, then ignored
+    losses = [-r["train/mll"] for r in summary["records"]]
+    assert all(np.isfinite(losses)) and summary["final"]["test/rmse"] < 1.0
 
 
 def test_plan_capacity_flag_refuses_other_negatives():
