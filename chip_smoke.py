@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, large-n, data-parallel and mixture paths on one CUDA card, and check them.
+"""Drive the PyTorch port's serving, training, large-n, data-parallel, mixture and baseline paths on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -76,14 +76,31 @@ Phases, each printed as it runs:
      lengthscales) on the test rows;
      ``simplex_gp_torch.train.main --kernel mixture`` for two epochs and
      one eval; ``simplex_gp_torch.mvm_err.main --kernel mixture`` at
-     elevators.
+     elevators;
+  9. the baselines at precipitation (the seeded stand-in: 402,223 training
+     rows, the first 65,536 as the round-5 runs' --max-n, 125,695 test
+     rows; Matern-1.5, min_noise 0.1, the median-init lengthscale), against
+     the JAX-on-CPU golden file tests/fixtures/precipitation_baselines_golden.npz:
+     K13 (SKIP's root: ski_interp and its backward scatter, ski_kr_matmul,
+     ski_kr_gram, ski_kr_adjoint) against its plain versions at the training
+     root and the joint [train; test] root, g = 100, r = 64, with JAX's
+     Omega, beside one einsum each for K13b and K13c; SKIP's NLML, raw
+     gradients and R R^T at the median init and at
+     runs/r5/skip_precipitation_s0/model_best.pkl, and its serving there;
+     SGPR's NLML, raw gradients (the 512 inducing rows' too) and serving at
+     runs/r5/sgpr_precipitation_s0/model_best.pkl; one warm SKIP step and
+     one warm SGPR step by stage; SKIP's NLML and backward at all 402,223
+     training rows through K13 and through JAX's materialised (n, r^2)
+     product, with their peak memories; then
+     ``simplex_gp_torch.train_{skip,sgpr,exact}`` for two epochs and one
+     eval each with the round-5 flags.
 
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- for K5, on the trainer run; for K7, on
 the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9
 and the bounded K2, on the houseelectric trainer run; for K11a, K11b and K6',
 on the two ranks' data-parallel NLML step; for K12, on the mixture trainer
-run --, errors, times, and
+run; for K13, on the SKIP trainer run --, errors, times, and
 each kernel's bound: the larger of the bytes it must move over the card's
 memory rate and its float operations over the card's float32 rate).  The last line is
 {"ok": true, "device": {...}} only if every phase passed; otherwise the
@@ -114,6 +131,8 @@ TRAIN_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_train_golden.npz"
 DERIV_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_deriv_golden.npz"
 HOUSE_GOLDEN = ROOT / "tests" / "fixtures" / "houseelectric_golden.npz"
 MIXTURE_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_mixture_golden.npz"
+PRECIP_GOLDEN = ROOT / "tests" / "fixtures" / "precipitation_baselines_golden.npz"
+R5_RUNS = ROOT / "runs" / "r5"
 RAW_NAMES = ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")
 
 # Tolerances, each with its reason.
@@ -210,6 +229,40 @@ PARALLEL_FILTER_REL = 2e-5
 # against the operator of JAX's weights: both are least-squares fits of one
 # target over nearly the same columns, rel 1e-2.
 MIX_FIT_REL = 1e-2
+# Phase 9.  K13b, K13c and K13d against their plain versions: float32 sums of
+# r or r k products (and of the rows, in 1,024-row chunks, for K13c) in
+# another order; K13a the same float32 formula, with nvcc's contractions;
+# K13a's backward scatter adds with atomics in a run-to-run order.
+K13_REL = 1e-5
+# SKIP against JAX on the CPU (golden, JAX's Omega, JAX's signs matched to
+# the port's).  The grid kernels' 30-odd smallest kept eigenvalues lie
+# within float32 roundoff of each other, so two LAPACKs return other
+# eigenvectors for them (rotations within that cluster, not signs) and the
+# fixed Omega sketches another subspace.  Measured between torch's and JAX's
+# CPU LAPACKs at these 65,536 rows: |dNLML| 3.2e-5 (init) and 1.7e-4
+# (model_best); R R^T on 256 rows rel 1.1e-2 / 3.9e-3; the served mean rms
+# 0.071 (max 0.46) over the 4,096 golden rows, RMSE 0.3210 against 0.3215.
+# The sign convention alone moves JAX's own NLML by 6e-3 (init) and 3e-3
+# (best) and its model_best lengthscale gradient from [0.046, -0.030,
+# -0.0009] to [0.0001, 0.0032, 0.0003]: there eigh's backward divides by
+# roundoff-sized gaps, and the port's CPU run gives [0.025, -0.020,
+# -0.0009].  So: NLML 1e-3 at both points; the whole raw gradient cos / rel
+# (GRAD_COS, GRAD_REL) at the median init, where it is well conditioned
+# (measured rel 7e-3); at model_best only the noise gradient (rel
+# GRAD_REL; measured 3.4e-3), the rest printed; R R^T rel 0.05; the served
+# mean rms 0.15; the test RMSE within 0.005 of round 5's 0.3196 (the NLL
+# is the reference's broken variance, ROADMAP section 3: printed only).
+SKIP_RRT_REL = 5e-2
+SKIP_MEAN_RMS = 0.15
+BASELINE_RMSE_ATOL = 5e-3
+# SGPR against JAX on the CPU with JAX's inducing rows: float32 Cholesky
+# factors and solves in another order (measured on the CPU: |dNLML| 2e-6,
+# the whole raw gradient rel 1.7e-4, mean rms 1.3e-5).  NLL within 0.02.
+SGPR_NLL_ATOL = 2e-2
+SGPR_MEAN_RMS = 1e-3
+# The round-5 baseline runs' flags (runs/r5/{skip,sgpr,exact}_precipitation_s0).
+BASELINE_FLAGS = ["--dataset", "precipitation", "--kernel", "matern", "--nu", "1.5", "--min-noise", "0.1",
+                  "--ls-init", "median"]
 # The round-5 houseelectric run's flags (experiments/queue_r5_stage9.sh:15-18,
 # without --host-loop, which is not ported).
 HOUSE_FLAGS = ["--dataset", "houseelectric", "--kernel", "matern", "--nu", "1.5", "--order", "1", "--min-noise",
@@ -242,6 +295,11 @@ KERNEL_ROWS = {
     # K6' is pivot_column given the pivot's rows; its launches are the wrapper's sharded_launches.
     "pivot_column_at": ("simplex_gp_torch/csrc/pivot.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:129"),
     "lattice_mixture_apply": ("simplex_gp_torch/csrc/mixture.cu", "simplex_gp_tpu/ops/filter.py:167"),
+    "ski_interp": ("simplex_gp_torch/csrc/ski.cu", "simplex_gp_tpu/models/ski.py:108"),
+    "ski_interp_backward": ("simplex_gp_torch/csrc/ski.cu", "simplex_gp_tpu/models/ski.py:108"),
+    "ski_kr_matmul": ("simplex_gp_torch/csrc/ski.cu", "simplex_gp_tpu/models/ski.py:119"),
+    "ski_kr_gram": ("simplex_gp_torch/csrc/ski.cu", "simplex_gp_tpu/models/ski.py:121"),
+    "ski_kr_adjoint": ("simplex_gp_torch/csrc/ski.cu", "simplex_gp_tpu/models/ski.py:114"),
 }
 
 
@@ -1809,6 +1867,319 @@ def mixture_phase(dev, ds, expect, timer):
     return row, launches["lattice_mixture_apply"], record
 
 
+class Stages:
+    """Device time by stage name, from CUDA event pairs summed after one synchronize."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def __call__(self, name: str, fn):
+        import torch
+
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        self.pairs.append((name, start, end))
+        return out
+
+    def totals(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for name, start, end in self.pairs:
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        return out
+
+
+def k13_cost(name: str, m: int, g: int, r: int, k: int) -> tuple:
+    """(bytes, ops) of one K13 call on m rows: each input read once, each output written once; the
+    multiply-adds of the Khatri-Rao contractions (2 m r^2 k) and of the products beside them."""
+    return {
+        "ski_interp": (4 * (m + g * r + m * r), 8 * m * r + 30 * m),
+        "ski_interp_backward": (4 * (m + m * r + g * r), 8 * m * r + 30 * m),
+        "ski_kr_matmul": (4 * (2 * m * r + r * r * k + m * k), 2 * m * r * r * k + 2 * m * r * k),
+        "ski_kr_gram": (4 * (m * k + 2 * m * r + k * r * r), 2 * m * k * r * r + m * r * r),
+        "ski_kr_adjoint": (4 * (2 * m * r + r * r * k + m * k + 2 * m * r), 2 * m * k * r * r + 4 * m * r * r),
+    }[name]
+
+
+def materialised_hadamard_step(R, F, omega):
+    """JAX's Hadamard step as written (ski.py:114-123): M = R (.) F formed as (n, r^2), under autograd."""
+    import torch
+
+    from simplex_gp_torch.models.ski import fix_signs
+
+    n, r = R.shape
+    M = (R[:, :, None] * F[:, None, :]).reshape(n, -1)
+    Q = fix_signs(torch.linalg.qr(M @ omega)[0])
+    Ub, sb, _ = torch.linalg.svd(Q.T @ M, full_matrices=False)
+    return (Q @ fix_signs(Ub[:, :r])) * sb[:r][None, :]
+
+
+def baselines_phase(dev, expect, timer):
+    """Phase 9: SKIP, SGPR and the exact GP at precipitation.  Returns (K13's rows, their launches, record)."""
+    import tempfile
+
+    import torch
+
+    from simplex_gp_torch import convert, train_exact, train_sgpr, train_skip
+    from simplex_gp_torch.kernels import ski as KS
+    from simplex_gp_torch.models import ski as MS
+    from simplex_gp_torch.utils import data
+
+    golden = np.load(PRECIP_GOLDEN)
+    full = data.load_dataset("precipitation")
+    n, g, r = 65536, 100, 64
+    x = torch.from_numpy(full.train_x[:n]).to(dev)
+    y = torch.from_numpy(full.train_y[:n]).to(dev)
+    xt = torch.from_numpy(full.test_x).to(dev)
+    kw = dict(kernel="matern", nu=1.5, min_noise=0.1, device=dev)
+    skw = dict(grid_size=g, rank=r, omegas=[golden["omega_1"], golden["omega_2"]], **kw)
+    init = {k: golden[f"skip_init_{k}"] for k in RAW_NAMES}
+    best = convert.load_jax_params(R5_RUNS / "skip_precipitation_s0" / "model_best.pkl")
+    k13 = (KS.ski_interp, KS.ski_interp_backward, KS.ski_kr_matmul, KS.ski_kr_gram, KS.ski_kr_adjoint)
+    print(f"precipitation: {full.train_x.shape[0]} training rows ({n} as --max-n), {xt.shape[0]} test rows, d = 3; "
+          f"SKIP g = {g}, r = {r}; SGPR m = 512")
+    record, rows = {}, {}
+
+    print("baselines 9.1: K13 vs plain (SKIP's first Hadamard step at the median init; the train and joint roots)")
+    model = convert.skip_model_from_jax(init, **skw)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for tag, xs in (("train", x), ("joint", torch.cat([x, xt]))):
+        m = xs.shape[0]
+        with torch.no_grad():
+            (m0, s0, U0), (m1, s1, U1) = model.grid_factors(model.constrained(), xs, r)[:2]
+            x0, x1 = xs[:, 0].contiguous(), xs[:, 1].contiguous()
+            R, F = KS.ski_interp(x0, m0, s0, U0), KS.ski_interp(x1, m1, s1, U1)
+            W = model.omega(1, r, dev)
+            Q = torch.linalg.qr(KS.ski_kr_matmul(R, F, W))[0].contiguous()
+            dF, G = (torch.randn((m, r), generator=gen, device=dev) for _ in range(2))
+            cases = {
+                "ski_interp": (lambda: KS.ski_interp(x1, m1, s1, U1), lambda: KS.interp_plain(x1, m1, s1, U1),
+                               None),
+                "ski_interp_backward": (lambda: KS.ski_interp_backward(x1, m1, s1, dF, g),
+                                        lambda: KS.interp_backward_plain(x1, m1, s1, dF, g), None),
+                "ski_kr_matmul": (lambda: KS.ski_kr_matmul(R, F, W), lambda: KS.kr_matmul_plain(R, F, W),
+                                  lambda: torch.einsum("ia,ib,abk->ik", R, F, W.view(r, r, r))),
+                "ski_kr_gram": (lambda: KS.ski_kr_gram(Q, R, F), lambda: KS.kr_gram_plain(Q, R, F),
+                                lambda: torch.einsum("ip,ia,ib->pab", Q, R, F).reshape(r, r * r)),
+                "ski_kr_adjoint": (lambda: KS.ski_kr_adjoint(R, F, W, G), lambda: KS.kr_adjoint_plain(R, F, W, G),
+                                   None),
+            }
+            for name, (kern, plain, library) in cases.items():
+                got, want = kern(), plain()
+                got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+                err = max(rel(a, b) for a, b in zip(got, want))
+                expect(err <= K13_REL, f"{name} {tag} ({m} rows): rel {err:.3e} (limit {K13_REL})")
+                if library is not None:
+                    lib_err = rel(library(), want[0])
+                    print(f"    {name} {tag}: the einsum vs plain rel {lib_err:.3e}")
+                cell = dict(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
+                            ms=timer(kern, 10), plain_ms=timer(plain, 3),
+                            library_ms=None if library is None else timer(library, 3),
+                            **bound(*k13_cost(name, m, g, r, r)), shape=f"{tag}: {m} rows, g={g}, r={r}, k={r}")
+                print(f"    {name} {tag}: kernel {cell['ms']:.4f} ms, plain {cell['plain_ms']:.4f} ms, library "
+                      f"{cell['library_ms']} ms, bound {cell['bound_ms']:.4f} ms ({cell['bound_by']})")
+                if tag == "train":
+                    rows[name] = cell
+                else:
+                    rows[name].update(joint={k: cell[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                                      max_abs_err=max(rows[name]["max_abs_err"], cell["max_abs_err"]))
+    del R, F, Q, dF, G
+
+    print("baselines 9.2: SKIP NLML, raw gradients and R R^T vs JAX on the CPU (golden, JAX's Omega)")
+    for tag, raw in (("init", init), ("best", best)):
+        sk = convert.skip_model_from_jax(raw, **skw)
+        loss = sk.nlml(x, y)
+        loss.backward()
+        dl = abs(float(loss.detach()) - float(golden[f"skip_loss_{tag}"]))
+        expect(dl <= NLML_ATOL, f"{tag}: NLML {float(loss.detach()):.6f} vs JAX {float(golden[f'skip_loss_{tag}']):.6f} "
+               f"(|diff| {dl:.2e}, limit {NLML_ATOL}; JAX with LAPACK's own signs "
+               f"{float(golden[f'native_skip_loss_{tag}']):.6f})")
+        got = {k: getattr(sk, k).grad.detach().cpu().numpy().astype(np.float64).ravel() for k in RAW_NAMES}
+        want = {k: golden[f"skip_grad_{tag}_{k}"].astype(np.float64).ravel() for k in RAW_NAMES}
+        for k in RAW_NAMES:
+            print(f"    d/d{k}: port {np.round(got[k], 6).tolist()}, JAX {np.round(want[k], 6).tolist()}, JAX with "
+                  f"LAPACK's signs {np.round(golden[f'native_skip_grad_{tag}_{k}'], 6).tolist()}")
+        keys = RAW_NAMES if tag == "init" else ("raw_noise",)
+        a, b = (np.concatenate([v[k] for k in keys]) for v in (got, want))
+        c, rr = cosine(a, b), float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        expect(c >= GRAD_COS and rr <= GRAD_REL, f"{tag}: the gradient in {', '.join(keys)}: cos {c:.6f} "
+               f"(limit {GRAD_COS}), rel {rr:.2e} (limit {GRAD_REL})")
+        with torch.no_grad():
+            R = sk.root(sk.constrained(), x)[:256].cpu().numpy().astype(np.float64)
+        Rg = golden[f"skip_root_{tag}"].astype(np.float64)
+        r_rrt = float(np.linalg.norm(R @ R.T - Rg @ Rg.T) / np.linalg.norm(Rg @ Rg.T))
+        expect(r_rrt <= SKIP_RRT_REL, f"{tag}: R R^T on the first 256 rows rel {r_rrt:.3e} (limit {SKIP_RRT_REL})")
+        record[f"skip_{tag}"] = dict(nlml=float(loss.detach()), nlml_diff=dl, grad_cos=c, grad_rel=rr, rrt_rel=r_rrt,
+                                     grads={k: v.tolist() for k, v in got.items()})
+
+    def metrics(mean, var, yt):
+        err = mean - yt
+        return float(np.sqrt((err**2).mean())), float(0.5 * (np.log(2 * np.pi * var) + err**2 / var).mean())
+
+    def serve(mdl, tag, rmse_ref):
+        mdl.predict(x, y, xt)  # warm
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        mean, var = mdl.predict(x, y, xt)
+        ev[1].record()
+        torch.cuda.synchronize()
+        mean, var = mean.cpu().numpy(), var.cpu().numpy()
+        rmse, nll = metrics(mean, var, full.test_y)
+        mean_rms = float(np.sqrt(((mean[:4096] - golden[f"{tag}_mean"]) ** 2).mean()))
+        expect(bool(np.isfinite(mean).all() and (var > 0).all()) and mean.shape == full.test_y.shape,
+               f"{tag}: finite mean and positive variance, one per test row")
+        expect(abs(rmse - rmse_ref) <= BASELINE_RMSE_ATOL,
+               f"{tag}: test RMSE {rmse:.4f} vs {rmse_ref:.4f} (limit {BASELINE_RMSE_ATOL}; JAX with the port's signs "
+               f"{float(golden[f'{tag}_rmse']):.4f})")
+        return dict(predict_ms=ev[0].elapsed_time(ev[1]), rmse=rmse, nll=nll, mean_rms_diff=mean_rms)
+
+    print("baselines 9.3: SKIP serving at model_best.pkl (joint root over the training and all test rows)")
+    sk = convert.skip_model_from_jax(best, **skw)
+    rec = serve(sk, "skip", float(golden["native_skip_rmse"]))
+    expect(rec["mean_rms_diff"] <= SKIP_MEAN_RMS, f"skip: mean vs JAX over 4,096 rows: rms diff "
+           f"{rec['mean_rms_diff']:.3e} (limit {SKIP_MEAN_RMS})")
+    print(f"    predict {rec['predict_ms']:.1f} ms; test NLL {rec['nll']:.3f} (JAX {float(golden['skip_nll']):.3f}, with "
+          f"LAPACK's signs {float(golden['native_skip_nll']):.3f}: the reference's variance, not gated)")
+    record["skip_serving"] = rec
+
+    print("baselines 9.4: SGPR NLML, raw gradients and serving at model_best.pkl vs JAX on the CPU (golden)")
+    sraw = convert.load_jax_params(R5_RUNS / "sgpr_precipitation_s0" / "model_best.pkl")
+    sg = convert.sgpr_model_from_jax(sraw, **kw)
+    loss = sg.nlml(x, y)
+    loss.backward()
+    dl = abs(float(loss.detach()) - float(golden["sgpr_loss_best"]))
+    expect(dl <= NLML_ATOL, f"NLML {float(loss.detach()):.6f} vs JAX {float(golden['sgpr_loss_best']):.6f} "
+           f"(|diff| {dl:.2e}, limit {NLML_ATOL})")
+    keys = (*RAW_NAMES, "inducing")
+    a = np.concatenate([getattr(sg, k).grad.detach().cpu().numpy().astype(np.float64).ravel() for k in keys])
+    b = np.concatenate([golden[f"sgpr_grad_best_{k}"].astype(np.float64).ravel() for k in keys])
+    c, rr = cosine(a, b), float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    expect(c >= GRAD_COS and rr <= GRAD_REL, f"the raw gradient, the 512 x 3 inducing rows' included: cos {c:.6f} "
+           f"(limit {GRAD_COS}), rel {rr:.2e} (limit {GRAD_REL})")
+    srec = serve(sg, "sgpr", float(golden["sgpr_rmse"]))
+    expect(abs(srec["nll"] - float(golden["sgpr_nll"])) <= SGPR_NLL_ATOL,
+           f"sgpr: test NLL {srec['nll']:.4f} vs JAX {float(golden['sgpr_nll']):.4f} (limit {SGPR_NLL_ATOL})")
+    expect(srec["mean_rms_diff"] <= SGPR_MEAN_RMS, f"sgpr: mean vs JAX over 4,096 rows: rms diff "
+           f"{srec['mean_rms_diff']:.3e} (limit {SGPR_MEAN_RMS})")
+    print(f"    predict {srec['predict_ms']:.1f} ms")
+    record["sgpr"] = dict(nlml=float(loss.detach()), nlml_diff=dl, grad_cos=c, grad_rel=rr, serving=srec)
+
+    print("baselines 9.5: one warm SKIP step and one warm SGPR step at 65,536 rows, by stage; SKIP at 402,223 rows")
+    sk = convert.skip_model_from_jax(init, **skw)
+    opt = torch.optim.Adam(sk.parameters(), lr=0.1)
+
+    def skip_step():
+        opt.zero_grad(set_to_none=True)
+        sk.nlml(x, y).backward()
+        opt.step()
+
+    for fn in k13:
+        fn.launches = 0
+    step_ms = timer(skip_step, 3)
+    step_launches = {fn.__name__: fn.launches / 4 for fn in k13}  # warm-up + 3 timed steps
+    st = Stages()
+    with torch.no_grad():  # the root's stages, as SKIP.root runs them
+        R = None
+        factors = st("grid_eigh", lambda: sk.grid_factors(sk.constrained(), x, r))
+        for j, (gmin, step, U) in enumerate(factors):
+            xj = x[:, j].contiguous()
+            F = st("k13", lambda: KS.ski_interp(xj, gmin, step, U))
+            if R is None:
+                R = F
+                continue
+            Y = st("k13", lambda: KS.ski_kr_matmul(R, F, sk.omega(j, r, dev)))
+            Q = st("qr", lambda: MS.fix_signs(torch.linalg.qr(Y)[0]).contiguous())
+            B = st("k13", lambda: KS.ski_kr_gram(Q, R, F))
+            R = st("svd", lambda: (lambda u, s: (Q @ MS.fix_signs(u[:, :r])) * s[:r][None, :])(
+                *torch.linalg.svd(B, full_matrices=False)[:2]))
+    opt.zero_grad(set_to_none=True)
+    loss = st("forward", lambda: sk.nlml(x, y))
+    st("backward", loss.backward)
+    st("adam", opt.step)
+    stages = st.totals()
+    print(f"    warm SKIP step {step_ms:.2f} ms (CUDA events); launches a step {step_launches}; stages (ms): "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    record["skip_step"] = dict(step_ms=step_ms, stages=stages, launches=step_launches)
+
+    sg = convert.sgpr_model_from_jax(sraw, **kw)
+    sopt = torch.optim.Adam(sg.parameters(), lr=0.1)
+
+    def sgpr_step():
+        sopt.zero_grad(set_to_none=True)
+        sg.nlml(x, y).backward()
+        sopt.step()
+
+    sstep_ms = timer(sgpr_step, 3)
+    st = Stages()
+    with torch.no_grad():
+        params = sg.constrained()
+        z = params["inducing"]
+        st("kernel_matrices", lambda: (sg._k(params, z, z), sg._k(params, z, x)))
+        st("factors", lambda: sg._common(params, x, y))
+    sopt.zero_grad(set_to_none=True)
+    loss = st("forward", lambda: sg.nlml(x, y))
+    st("backward", loss.backward)
+    st("adam", sopt.step)
+    sstages = st.totals()
+    print(f"    warm SGPR step {sstep_ms:.2f} ms (CUDA events); stages (ms): "
+          + json.dumps({k: round(v, 3) for k, v in sstages.items()}))
+    record["sgpr_step"] = dict(step_ms=sstep_ms, stages=sstages)
+
+    xf = torch.from_numpy(full.train_x).to(dev)
+    yf = torch.from_numpy(full.train_y).to(dev)
+    big, kernel_step = {}, MS.SKIP.hadamard_step
+    for path in ("k13", "materialised"):
+        sk = convert.skip_model_from_jax(init, **skw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if path == "materialised":
+            MS.SKIP.hadamard_step = staticmethod(materialised_hadamard_step)
+        try:
+            st = Stages()
+            loss = st("forward", lambda: sk.nlml(xf, yf))
+            st("backward", loss.backward)
+            big[path] = dict(nlml=float(loss.detach()), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                             **st.totals())
+        except torch.cuda.OutOfMemoryError:
+            big[path] = dict(fits=False)
+        finally:
+            MS.SKIP.hadamard_step = staticmethod(kernel_step)
+        del sk, loss
+        print(f"    {path}: NLML + backward at {xf.shape[0]} rows: {big[path]}")
+    expect("nlml" in big["k13"] and np.isfinite(big["k13"]["nlml"]), "SKIP NLML + backward through K13 at the full "
+           "402,223 training rows: finite")
+    record["skip_full_n"] = big
+
+    print("baselines 9.6: python -m simplex_gp_torch.train_{skip,sgpr,exact}, two epochs and one eval each")
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        common = [*BASELINE_FLAGS, "--epochs", "2", "--log-int", "2", "--out", tmp, "--device", dev.type]
+        for fn in k13:
+            fn.launches = 0
+        runs["skip"] = train_skip.main([*common, "--max-n", "65536"])
+        launches = {fn.__name__: fn.launches for fn in k13}
+        runs["sgpr"] = train_sgpr.main([*common, "--max-n", "65536"])
+        runs["exact"] = train_exact.main([*common, "--max-n", "16384", "--patience", "30"])
+    print(f"    K13 launches on the SKIP trainer run: {launches}")
+    expect(all(v > 0 for v in launches.values()), "every K13 kernel launched on the SKIP trainer run")
+    for name, summary in runs.items():
+        losses = [-rec_["train/mll"] for rec_ in summary["records"]]
+        val = summary["records"][-1].get("val/rmse", float("nan"))
+        final = summary["final"]
+        expect(len(losses) == 2 and all(np.isfinite(losses)) and np.isfinite(val)
+               and all(np.isfinite(final[k]) for k in ("test/rmse", "test/nll")),
+               f"{name} trainer: losses {losses}, val RMSE {val:.4f}, test RMSE {final['test/rmse']:.4f}, NLL "
+               f"{final['test/nll']:.4f}, a step {summary['records'][-1]['train/loss_ts'] * 1e3:.1f} ms")
+        record[f"trainer_{name}"] = dict(losses=losses, val_rmse=val, final=final,
+                                         step_s=[rec_["train/loss_ts"] for rec_ in summary["records"]])
+    return rows, launches, record
+
+
 def train_step(model, opt, x, y, z):
     opt.zero_grad(set_to_none=True)
     model.nlml(x, y, probes=z).backward()
@@ -2075,6 +2446,13 @@ def main(argv=None) -> int:
     rows["lattice_mixture_apply"], launches["lattice_mixture_apply"], mix = mixture_phase(dev, ds, expect, cuda_ms)
     print(f"mixture phase: {time.perf_counter() - t_mix:.1f} s")
     print("mixture: " + json.dumps(mix))
+
+    t_base = time.perf_counter()
+    base_rows, base_launches, base = baselines_phase(dev, expect, cuda_ms)
+    rows.update(base_rows)
+    launches.update(base_launches)
+    print(f"baselines phase: {time.perf_counter() - t_base:.1f} s")
+    print("baselines: " + json.dumps(base))
 
     # K10, the CG body, stays plain torch ops: one iteration's time (the MVM included) from the stage
     # times of 4.5 and 6.5, against the bound of its vector updates alone.

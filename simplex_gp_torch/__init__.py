@@ -9,12 +9,16 @@ early stopping, checkpoints and resume; exact or reference-parity
 ``BBMMConfig.plan_capacity``), serving (``SimplexGP.posterior_cache`` and
 ``predict_from_cache``, chunked above 4M contribution rows) and the
 reference's filter entry points (``filter_once``, ``count_lattice_points``,
-``lattice_filter``; ``python -m simplex_gp_torch.mvm_err``).  Its kernels --
+``lattice_filter``; ``python -m simplex_gp_torch.mvm_err``), and the
+baselines ``models.ski.SKIP``, ``models.sgpr.SGPR`` and ``DenseGP`` with
+their trainers (``python -m simplex_gp_torch.train_{skip,sgpr,exact}``).
+Its kernels --
 lattice geometry (K1), dedup and neighbours (K2, optionally bounded), apply
 (K3, with the capacity guard), the one-shot filter (K4), the filter's
 position gradient (K5), the pivoted-Cholesky column (K6), the
 derivative-tap gradient (K7), the occupancy count (K8), the chunked wide
-apply (K9) and the stacked mixture apply (K12) -- live in ``simplex_gp_torch/csrc`` and build at first use on a
+apply (K9), the stacked mixture apply (K12) and SKIP's root (K13) -- live
+in ``simplex_gp_torch/csrc`` and build at first use on a
 CUDA tensor; on CPU tensors their plain PyTorch versions run.
 
 Importing the package sets float32 matrix products to full precision (TF32

@@ -5,7 +5,10 @@ raw_outputscale, raw_noise, mean) with pickle, e.g.
 ``runs/r5/simplexgp_elevators_s0/model_best.pkl``.  Loading needs no jax.
 A JAX mixture model is that dict plus its ``mix_weights`` tuple (the
 model's static field, fit on the host); :func:`mixture_model_from_jax`
-builds the port's model from both.
+builds the port's model from both.  JAX's SKIP and SGPR files are the same
+dict (SGPR's with ``inducing`` (m, d) beside it);
+:func:`skip_model_from_jax` and :func:`sgpr_model_from_jax` build the
+port's models from them.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import pickle
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "raw_params_from_numpy", "raw_params_to_numpy", "mixture_model_from_jax"]
+__all__ = ["load_jax_params", "raw_params_from_numpy", "raw_params_to_numpy", "mixture_model_from_jax",
+           "skip_model_from_jax", "sgpr_model_from_jax"]
 
 # The only globals a saved raw dict of numpy arrays refers to.
 _ALLOWED = {
@@ -54,6 +58,10 @@ def raw_params_to_numpy(raw: dict) -> dict:
     return {k: np.asarray(v.detach().cpu(), np.float32) for k, v in raw.items()}
 
 
+def _num_dims(raw: dict) -> int:
+    return int(np.asarray(raw["raw_lengthscale"]).size)
+
+
 def mixture_model_from_jax(raw: dict, mix_weights, device=None, **model_kwargs):
     """The port's mixture SimplexGP of a JAX mixture model: its raw dict and its ``mix_weights``.
 
@@ -63,6 +71,25 @@ def mixture_model_from_jax(raw: dict, mix_weights, device=None, **model_kwargs):
     from .models.exact_gp import SimplexGP
 
     weights = tuple(float(w) for w in np.asarray(mix_weights, np.float64).ravel())
-    model = SimplexGP(num_dims=int(np.asarray(raw["raw_lengthscale"]).size), kernel="mixture",
-                      mix_components=len(weights), mix_weights=weights, device=device, **model_kwargs)
+    model = SimplexGP(num_dims=_num_dims(raw), kernel="mixture", mix_components=len(weights), mix_weights=weights,
+                      device=device, **model_kwargs)
     return model.load_raw(raw_params_from_numpy(raw, device=device))
+
+
+def skip_model_from_jax(raw: dict, device=None, **model_kwargs):
+    """The port's SKIP with a JAX SKIP raw dict loaded; ``model_kwargs`` are grid_size, rank, kernel, nu,
+    min_noise and omegas."""
+    from .models.ski import SKIP
+
+    return SKIP(num_dims=_num_dims(raw), device=device, **model_kwargs).load_raw(
+        raw_params_from_numpy(raw, device=device))
+
+
+def sgpr_model_from_jax(raw: dict, device=None, **model_kwargs):
+    """The port's SGPR with a JAX SGPR raw dict loaded, its ``inducing`` points included; ``model_kwargs`` are
+    kernel, nu and min_noise (the number of inducing points is that of the file)."""
+    from .models.sgpr import SGPR
+
+    z = np.asarray(raw["inducing"])
+    return SGPR(num_dims=_num_dims(raw), num_inducing=z.shape[0], device=device, **model_kwargs).load_raw(
+        raw_params_from_numpy(raw, device=device))

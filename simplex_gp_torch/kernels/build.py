@@ -53,6 +53,11 @@ _SIGNATURES = {
     "sgp_mixture_splat": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "sgp_mixture_blur": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "sgp_mixture_slice": [_P, _P, _P, _I, _I, _I, _I, _P, _F, _P, _P],
+    "sgp_ski_interp": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "sgp_ski_interp_scatter": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "sgp_ski_kr_matmul": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "sgp_ski_kr_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "sgp_ski_kr_adjoint": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None

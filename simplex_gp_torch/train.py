@@ -62,11 +62,12 @@ from .utils.data import load_dataset
 from .utils.device import resolve_device
 from .utils.training import EarlyStopper
 
-__all__ = ["main", "median_lengthscale", "regression_metrics", "trim_capacity"]
+__all__ = ["main", "run_training", "add_common_args", "add_device_arg", "init_lengthscale", "median_lengthscale",
+           "regression_metrics", "trim_capacity"]
 
 
-def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(prog="python -m simplex_gp_torch.train", description=__doc__.split("\n")[0])
+def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The trainers' shared flags, experiments/common.py::add_common_args (:27-78) without ``--host-loop``."""
     p.add_argument("--dataset", default="snelson")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--epochs", type=int, default=100)
@@ -76,15 +77,27 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--patience", type=int, default=20, help="evals without a better val RMSE before stopping")
     p.add_argument("--min-noise", type=float, default=1e-4)
     p.add_argument("--out", default="runs/torch",
-                   help="runs go to <out>/simplexgp_<dataset>_s<seed>/ (the JAX trainer's runs/ is left alone)")
+                   help="runs go to <out>/<model>_<dataset>_s<seed>/ (the JAX trainer's runs/ is left alone)")
     p.add_argument("--max-n", type=int, default=0, help="optional training-subset cap")
     p.add_argument("--ls-init", default="default", choices=["default", "median"],
                    help="lengthscale init: softplus(0) = 0.693, or the median pairwise distance / sqrt(2)")
     p.add_argument("--plan-capacity", type=int, default=0,
                    help="training plan rows: 0 = n(d+1), -1 = 1.25x the occupancy at the initial "
-                        "lengthscale, rounded up to 8192 (an overflow makes the loss NaN), >0 = explicit")
+                        "lengthscale, rounded up to 8192 (an overflow makes the loss NaN), >0 = explicit; "
+                        "lattice models only")
     p.add_argument("--no-eval", action="store_true", help="skip the val and test predictions")
     p.add_argument("--resume", action="store_true", help="continue from the run directory's checkpoint.pt")
+    return p
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    p.add_argument("--device", default="cuda", help="cuda (default; an error without a card) or cpu")
+    return p
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(prog="python -m simplex_gp_torch.train", description=__doc__.split("\n")[0])
+    add_common_args(p)
     p.add_argument("--kernel", default="rbf", choices=["rbf", "matern", "mixture"],
                    help="mixture: Gaussian-mixture lattice targeting Matern-nu, weights subset-fit at the "
                         "initial lengthscales")
@@ -96,7 +109,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--lanc-iter", type=int, default=100)
     p.add_argument("--pre-size", type=int, default=100)
     p.add_argument("--num-probes", type=int, default=10)
-    p.add_argument("--device", default="cuda", help="cuda (default; an error without a card) or cpu")
+    add_device_arg(p)
     args = p.parse_args(argv)
     if args.plan_capacity < -1:
         p.error("--plan-capacity takes -1, 0 or a positive row count")
@@ -124,15 +137,17 @@ def regression_metrics(mean: np.ndarray, var: np.ndarray, y: np.ndarray) -> dict
     }
 
 
-def hyp_summary(model: SimplexGP) -> dict:
-    """The per-epoch hyperparameter record (common.py:240-260)."""
+def hyp_summary(model) -> dict:
+    """The per-epoch hyperparameter record, of the keys the model's parameters have (common.py:240-260)."""
     with torch.no_grad():
         p = model.constrained()
+    out = {f"hyp/{k}": float(p[k]) for k in ("noise", "outputscale") if k in p}
+    if "inv_ell" in p:
         inv = p["inv_ell"].detach().cpu().numpy().astype(np.float64).ravel()
-    ell = 1.0 / np.maximum(inv, 1e-12)
-    return {"hyp/noise": float(p["noise"]), "hyp/outputscale": float(p["outputscale"]),
-            "hyp/ell_mean": float(ell.mean()), "hyp/ell_min": float(ell.min()),
-            "hyp/ell_max": float(ell.max()), "hyp/d_eff_30": int((inv >= 0.3 * inv.max()).sum())}
+        ell = 1.0 / np.maximum(inv, 1e-12)
+        out.update({"hyp/ell_mean": float(ell.mean()), "hyp/ell_min": float(ell.min()),
+                    "hyp/ell_max": float(ell.max()), "hyp/d_eff_30": int((inv >= 0.3 * inv.max()).sum())})
+    return out
 
 
 def _plan_capacity(args, x: torch.Tensor, dk, ell: float) -> Optional[int]:
@@ -155,29 +170,53 @@ def _emit(log_f, rec: dict, extra: Optional[dict] = None):
     print(json.dumps({**rec, **(extra or {})}), flush=True)
 
 
+def init_lengthscale(model, args, ds) -> Optional[float]:
+    """With ``--ls-init median``, load raw parameters at the median lengthscale (common.py:95-103); returns it."""
+    if args.ls_init != "median":
+        return None
+    ell = median_lengthscale(ds.train_x)
+    model.load_raw(init_raw_params(model.num_dims, lengthscale=ell))
+    return ell
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Train with periodic evaluation; returns the epoch records, the test record and the run's paths."""
+    """Train a SimplexGP with periodic evaluation; returns run_training's summary and the plan capacity."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
     ds = load_dataset(args.dataset, args.data_dir, args.max_n)
     x = torch.from_numpy(ds.train_x).to(dev)
-    y = torch.from_numpy(ds.train_y).to(dev)
     bbmm = BBMMConfig(cg_tolerance=args.cg_tol, max_cg_iterations=args.cg_iter,
                       max_lanczos_iterations=args.lanc_iter, precond_rank=args.pre_size,
                       num_probes=args.num_probes)
     model = SimplexGP(num_dims=x.shape[-1], kernel=args.kernel, nu=args.nu, order=args.order,
                       min_noise=args.min_noise, bbmm=bbmm, mix_components=args.mix_components, device=dev)
-    ell = median_lengthscale(ds.train_x) if args.ls_init == "median" else None
-    if ell is not None:
-        model.load_raw(init_raw_params(model.num_dims, lengthscale=ell))
+    ell = init_lengthscale(model, args, ds)
     # A mixture's capacity is counted with the Matern taps (train_simplexgp.py:60); its plans ignore it.
     count_dk = rbf_kernel(args.order) if args.kernel == "rbf" else matern_kernel(args.nu, args.order)
     model.bbmm = dataclasses.replace(bbmm, plan_capacity=_plan_capacity(args, x, count_dk, ell or 0.6931))
     if args.kernel == "mixture":
         model.with_fitted_mixture(x)
         print(json.dumps({"mix_weights": list(model.mix_weights)}), flush=True)
+    return {**run_training(model, ds, args, "simplexgp"), "plan_capacity": model.bbmm.plan_capacity}
 
-    out_dir = pathlib.Path(args.out) / f"simplexgp_{args.dataset}_s{args.seed}"
+
+def run_training(model, ds, args, name: str) -> dict:
+    """The Adam loop with periodic evaluation and early stopping (common.py::run_training, :116-319).
+
+    ``model`` is an ``nn.Module`` of raw parameters on its device, with
+    ``nlml`` and either ``posterior_cache`` / ``predict_from_cache`` (the
+    lattice models: their NLML draws probes from the run's generator and
+    reports CG iterations, and an eval builds one cache, reused for the test
+    rows at the best epoch) or a one-shot ``predict(x, y, x_eval)`` (SKIP,
+    SGPR, the dense GP; common.py:203, :229-231, :310-311).  Files go to
+    ``<args.out>/<name>_<dataset>_s<seed>/``.  Returns the epoch records, the
+    test record, the run directory and the early-stop epoch.
+    """
+    dev = next(model.parameters()).device
+    x = torch.from_numpy(ds.train_x).to(dev)
+    y = torch.from_numpy(ds.train_y).to(dev)
+    has_cache = hasattr(model, "posterior_cache")
+    out_dir = pathlib.Path(args.out) / f"{name}_{args.dataset}_s{args.seed}"
     out_dir.mkdir(parents=True, exist_ok=True)
     log_f = open(out_dir / "metrics.jsonl", "a")
     _emit(log_f, {"config": vars(args), "model": repr(model)}, {"device": str(dev)})
@@ -199,34 +238,40 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     def raw_cpu() -> dict:
         return {k: v.detach().cpu().clone() for k, v in model.raw().items()}
 
-    def save_params(name: str, raw: dict):
-        with open(out_dir / name, "wb") as f:
+    def save_params(fname: str, raw: dict):
+        with open(out_dir / fname, "wb") as f:
             pickle.dump(raw_params_to_numpy(raw), f)
 
-    def predict(cache, x_eval: np.ndarray):
-        mean, var = model.predict_from_cache(cache, x, torch.from_numpy(x_eval).to(dev))
-        return mean.cpu().numpy(), var.cpu().numpy()
+    def evaluate(x_eval: np.ndarray, cache=None):
+        """(cache, mean, var) at x_eval: from ``cache`` or a new one, or the model's one-shot predict."""
+        xe = torch.from_numpy(x_eval).to(dev)
+        if not has_cache:
+            mean, var = model.predict(x, y, xe)
+        else:
+            cache = cache if cache is not None else model.posterior_cache(x, y, generator=gen)
+            mean, var = model.predict_from_cache(cache, x, xe)
+        return cache, mean.cpu().numpy(), var.cpu().numpy()
 
     records, best_cache, stopped_at = [], None, None
     for epoch in range(start_epoch, args.epochs):
         t0 = time.perf_counter()
         stats = {}
         opt.zero_grad(set_to_none=True)
-        loss = model.nlml(x, y, generator=gen, stats=stats)
+        loss = model.nlml(x, y, generator=gen, stats=stats) if has_cache else model.nlml(x, y)
         loss.backward()
         opt.step()
         loss = float(loss.detach())
         rec = {"epoch": epoch, "train/mll": -loss, "train/loss_ts": time.perf_counter() - t0}
         rec.update(hyp_summary(model))
-        extra = {"cg_iters": stats["cg_iters"]}
+        extra = {"cg_iters": stats["cg_iters"]} if has_cache else {}
 
         if ((epoch + 1) % args.log_int == 0 or epoch == args.epochs - 1) and not args.no_eval:
             t0 = time.perf_counter()
-            cache = model.posterior_cache(x, y, generator=gen)
-            vm, vv = predict(cache, ds.val_x)
+            cache, vm, vv = evaluate(ds.val_x)
             rec.update({f"val/{k}": v for k, v in regression_metrics(vm, vv, ds.val_y).items()})
             rec["val/pred_ts"] = time.perf_counter() - t0
-            extra["val/cg_iters"] = cache["cg_iters"]
+            if has_cache:
+                extra["val/cg_iters"] = cache["cg_iters"]
             if stopper.step(rec["val/rmse"], raw_cpu()):
                 stopped_at = epoch
             if stopper.is_best:
@@ -247,15 +292,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if not args.no_eval:
         t0 = time.perf_counter()
         # The best epoch's val cache is the posterior at the best parameters.
-        cache = best_cache if best_cache is not None else model.posterior_cache(x, y, generator=gen)
-        tm, tv = predict(cache, ds.test_x)
+        cache, tm, tv = evaluate(ds.test_x, best_cache)
         final = {f"test/{k}": v for k, v in regression_metrics(tm, tv, ds.test_y).items()}
         final["test/pred_ts"] = time.perf_counter() - t0
-        _emit(log_f, final, {"test/cg_iters": cache["cg_iters"]})
+        _emit(log_f, final, {"test/cg_iters": cache["cg_iters"]} if has_cache else None)
     log_f.close()
     save_params("model_final.pkl", model.raw())
-    return {"records": records, "final": final, "out_dir": str(out_dir),
-            "plan_capacity": model.bbmm.plan_capacity, "early_stop": stopped_at}
+    return {"records": records, "final": final, "out_dir": str(out_dir), "early_stop": stopped_at}
 
 
 if __name__ == "__main__":

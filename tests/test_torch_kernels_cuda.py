@@ -504,3 +504,67 @@ def test_snelson_prediction_quality_on_the_card(cuda_device):
     assert float(torch.sqrt(((mean - ye) ** 2).mean())) < 0.35
     assert bool((var > 0).all())
     assert float((((mean - ye).abs() / torch.sqrt(var)) < 3).float().mean()) > 0.9
+
+
+def _ski_inputs(n, r, k, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=gen).to(device) for s in ((n, r), (n, r), (r * r, k), (n, k))]
+
+
+@pytest.mark.parametrize("n,r,k", [(257, 5, 7), (1000, 64, 64), (70001, 64, 64)])
+def test_ski_kr_kernels_match_plain(cuda_device, n, r, k):
+    """K13b, K13c (split over row chunks at n > 1,024, the chunks added in a second pass) and K13d."""
+    from simplex_gp_torch.kernels import ski as KS
+
+    R, F, W, G = _ski_inputs(n, r, k, cuda_device)
+    before = [fn.launches for fn in (KS.ski_kr_matmul, KS.ski_kr_gram, KS.ski_kr_adjoint)]
+    pairs = [(KS.ski_kr_matmul(R, F, W), KS.kr_matmul_plain(R, F, W)),
+             (KS.ski_kr_gram(G, R, F), KS.kr_gram_plain(G, R, F)),
+             *zip(KS.ski_kr_adjoint(R, F, W, G), KS.kr_adjoint_plain(R, F, W, G))]
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip((KS.ski_kr_matmul, KS.ski_kr_gram, KS.ski_kr_adjoint), before)] == [1] * 3
+    for got, want in pairs:
+        assert float((got - want).norm() / want.norm()) < 1e-5
+    assert torch.equal(KS.ski_kr_gram(G, R, F), pairs[1][0])  # no atomics: bit for bit
+
+
+@pytest.mark.parametrize("n,g,r", [(3000, 100, 64), (517, 9, 5)])
+def test_ski_interp_and_scatter_match_plain(cuda_device, n, g, r):
+    """K13a and its backward scatter (shared-memory tables, then global atomics: rel 1e-5)."""
+    from simplex_gp_torch.kernels import ski as KS
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(n, generator=gen).to(cuda_device)
+    U, dF = torch.randn((g, r), generator=gen).to(cuda_device), torch.randn((n, r), generator=gen).to(cuda_device)
+    step = ((x.max() - x.min()) / (g - 5) + 1e-12).contiguous()
+    gmin = (x.min() - 2 * step).contiguous()
+    F = KS.ski_interp(x, gmin, step, U)
+    dU = KS.ski_interp_backward(x, gmin, step, dF, g)
+    torch.cuda.synchronize()
+    assert float((F - KS.interp_plain(x, gmin, step, U)).abs().max()) < 1e-5
+    want = KS.interp_backward_plain(x, gmin, step, dF, g)
+    assert float((dU - want).norm() / want.norm()) < 1e-5
+
+
+def test_skip_root_and_nlml_through_k13(cuda_device):
+    """SKIP's NLML and gradients on the card through K13 against the plain path on the CPU (rank 16: the kept
+    eigenvalues are well separated, so cuSOLVER's and LAPACK's eigenvectors agree up to the fixed signs)."""
+    from simplex_gp_torch.kernels import ski as KS
+    from simplex_gp_torch.models.ski import SKIP
+
+    gen = torch.Generator().manual_seed(4)
+    x, y = torch.randn((4000, 3), generator=gen), torch.randn(4000, generator=gen)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        m = SKIP(num_dims=3, grid_size=100, rank=16, kernel="matern", min_noise=0.1, device=dev)
+        before = [fn.launches for fn in (KS.ski_interp, KS.ski_kr_matmul, KS.ski_kr_gram, KS.ski_kr_adjoint,
+                                         KS.ski_interp_backward)]
+        loss = m.nlml(x.to(dev), y.to(dev))
+        loss.backward()
+        if dev.type == "cuda":
+            after = [fn.launches for fn in (KS.ski_interp, KS.ski_kr_matmul, KS.ski_kr_gram, KS.ski_kr_adjoint,
+                                            KS.ski_interp_backward)]
+            assert [a - b for a, b in zip(after, before)] == [3, 4, 2, 4, 3]
+        out.append((float(loss.detach()), torch.cat([p.grad.reshape(-1).cpu() for p in m.parameters()])))
+    (lk, gk), (lp, gp) = out
+    assert abs(lk - lp) < 1e-5 and float((gk - gp).norm() / gp.norm()) < 1e-3
