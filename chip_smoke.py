@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, large-n, data-parallel, mixture and baseline paths on one CUDA card, and check them.
+"""Drive the PyTorch port's serving, training, large-n, data-parallel, mixture, baseline and sort-chain paths on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -93,14 +93,29 @@ Phases, each printed as it runs:
      training rows through K13 and through JAX's materialised (n, r^2)
      product, with their peak memories; then
      ``simplex_gp_torch.train_{skip,sgpr,exact}`` for two epochs and one
-     eval each with the round-5 flags.
+     eval each with the round-5 flags;
+ 10. the sort-chain plan K3' (csrc/chain.cu), the single-device CG plan that
+     phases 3, 4 and 6 already ran through SimplexGP.nlml and
+     posterior_cache: K3'a chain_build and K3'b-d chain_splat, chain_axis,
+     chain_slice against their plain versions (the plan field by field, the
+     apply at c = 1 and 11) and against the join plan on the same positions,
+     at elevators' median-init and trained positions and at houseelectric
+     with its autotrimmed capacity 32,768; two builds and two applies bit
+     for bit; the build and apply times beside K1 + K2 and K3; each kernel's
+     time, plain time, bound and one torch.sparse CSR product of the same
+     function; the kernels' launches in one elevators training step; whether
+     two NLML evaluations and two posterior_cache calls repeat bit for bit
+     (and which stage differs if not); the elevators training CG and the
+     houseelectric eval CG on the chain plan and on the join plan of the
+     same positions, in turns; the stage times of phases 3, 4.5 and 6.5.
 
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- for K5, on the trainer run; for K7, on
 the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9
 and the bounded K2, on the houseelectric trainer run; for K11a, K11b and K6',
 on the two ranks' data-parallel NLML step; for K12, on the mixture trainer
-run; for K13, on the SKIP trainer run --, errors, times, and
+run; for K13, on the SKIP trainer run; for K3', in one training step --,
+errors, times, and
 each kernel's bound: the larger of the bytes it must move over the card's
 memory rate and its float operations over the card's float32 rate).  The last line is
 {"ok": true, "device": {...}} only if every phase passed; otherwise the
@@ -229,6 +244,14 @@ PARALLEL_FILTER_REL = 2e-5
 # against the operator of JAX's weights: both are least-squares fits of one
 # target over nearly the same columns, rel 1e-2.
 MIX_FIT_REL = 1e-2
+# Phase 10.  K3', the sort chain, has no atomics: its build is the plain
+# build bit for bit (the same torch.sort calls on the same keys), its splat
+# sums each row in its plain version's order and its stencils and slice use
+# the plain version's IEEE operations in their order, so kernel and plain
+# are expected bit-equal; the gate is rel 1e-6.  Against the join (K1 + K2,
+# K3) on the same positions, the chain-vs-join bound (LARGE_N_REL).  Two
+# builds and two applies must repeat bit for bit.
+CHAIN_REL = 1e-6
 # Phase 9.  K13b, K13c and K13d against their plain versions: float32 sums of
 # r or r k products (and of the rows, in 1,024-row chunks, for K13c) in
 # another order; K13a the same float32 formula, with nvcc's contractions;
@@ -300,7 +323,18 @@ KERNEL_ROWS = {
     "ski_kr_matmul": ("simplex_gp_torch/csrc/ski.cu", "simplex_gp_tpu/models/ski.py:119"),
     "ski_kr_gram": ("simplex_gp_torch/csrc/ski.cu", "simplex_gp_tpu/models/ski.py:121"),
     "ski_kr_adjoint": ("simplex_gp_torch/csrc/ski.cu", "simplex_gp_tpu/models/ski.py:114"),
+    "chain_build": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:857"),
+    "chain_splat": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1030"),
+    "chain_axis": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1064"),
+    "chain_slice": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1077"),
 }
+
+
+def chain_kernels() -> tuple:
+    """K3'a-d's wrappers (imported when called: the script must fail without the repo)."""
+    from simplex_gp_torch.kernels import chain as KC
+
+    return KC.chain_build, KC.chain_splat, KC.chain_axis, KC.chain_slice
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -353,6 +387,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` in ms: ``reps`` calls captured in one CUDA graph and replayed, so the
+    host's work between launches (Python, argument checks) is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
@@ -400,7 +458,7 @@ def training_phase(dev, ds, expect, timer):
     model.load_raw(point("init"))
     with torch.no_grad():
         ref = (x * model.constrained()["inv_ell"]).contiguous()
-        seg, w, nb, nl = build_plan_any(ref, dk)
+        seg, w, nb, nl = L.build_plan_join(ref, dk.coeffs, dk.variance)  # the exact backward's plan
         gen = torch.Generator(device=dev).manual_seed(4)
         v = torch.randn((n, 11), generator=gen, device=dev)
         g = torch.randn((n, 11), generator=gen, device=dev)
@@ -453,7 +511,7 @@ def training_phase(dev, ds, expect, timer):
                    f"{tag}: d/d{k} cos {c:.6f} (limit {GRAD_COS}), rel {r:.2e} (limit {GRAD_REL})")
             record[f"{tag}_grad_rel_{k}"] = r
         record[f"{tag}_nlml_diff"] = dl
-    # Run to run: K3's atomic splat changes the last bits of every apply.
+    # Run to run: the CG runs on the chain (no atomics); the backward's K3 splat adds with atomics.
     losses, grads = [], []
     model.load_raw(point("init"))
     for _ in range(5):
@@ -489,7 +547,7 @@ def training_phase(dev, ds, expect, timer):
 
     print("training 4.4: python -m simplex_gp_torch.train, two epochs at elevators")
     kernels = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, pivot_column,
-               K.lattice_filter_grad)
+               K.lattice_filter_grad, *chain_kernels())
     for fn in kernels:
         fn.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -521,13 +579,13 @@ def training_phase(dev, ds, expect, timer):
         mark(0)
         params = model.constrained()
         ref = x * params["inv_ell"]
-        plan = build_plan_any(ref, dk)
+        plan = build_plan_any(ref, dk)  # the chain plan, as the engine builds it
         mark(1)
         P = mll.build_precond(dk, cfg, params, ref, n)
         mark(2)
         s, noise = params["outputscale"], params["noise"]
         b = precond_sqrt(P, z)
-        res = cg_solve(lambda V: s * L.apply_plan_join(plan, V, dk.coeffs) + noise * V,
+        res = cg_solve(lambda V: s * L.apply_plan_chain(plan, V, dk.coeffs) + noise * V,
                        torch.cat([(y - params["mean"])[:, None], b], dim=-1), tol=cfg.cg_tolerance,
                        max_iters=cfg.max_cg_iterations, precond=lambda V: precond_solve(P, V), tridiag_m=100)
         mark(3)
@@ -718,7 +776,7 @@ def oneshot_phase(dev, ds, expect, timer):
         record[f"deriv_{tag}_nlml_diff"] = dl
     model.load_raw(point("init"))
     steps = iter([probes(golden["seed_adam"] + e) for e in range(3)])
-    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, K.lattice_filter_once,
+    path = (K.lattice_geometry, K.lattice_dedup_neighbors, *chain_kernels(), K.lattice_filter_once,
             K.lattice_deriv_grad)
     for fn in path:
         fn.launches = 0
@@ -1041,7 +1099,7 @@ def large_n_phase(dev, expect, timer):
 
     print("large n 6.4: python -m simplex_gp_torch.train at houseelectric, the round-5 flags, two epochs")
     path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, K.lattice_apply_cols, pivot_column,
-            K.lattice_filter_grad, K.lattice_count)
+            K.lattice_filter_grad, K.lattice_count, *chain_kernels())
     predictions = []
     real_predict = simplex_gp_torch.SimplexGP.predict_from_cache
 
@@ -1114,7 +1172,9 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     """Phase 6.5: a warm training step and an eval (posterior cache + val predict) by stage.
 
     The stages are those of mll._solve_system and SimplexGP.posterior_cache /
-    predict_from_cache, run one by one between CUDA events.
+    predict_from_cache, run one by one between CUDA events: the chain plan
+    (K1 + K3'a) and the CGs on it, the range sketch on a join plan of its
+    own (its build included).
     """
     import torch
 
@@ -1125,8 +1185,7 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     from simplex_gp_torch.linalg.pivoted_cholesky import precond_solve, precond_sqrt
     from simplex_gp_torch.models.components import init_raw_params
     from simplex_gp_torch.models.exact_gp import rademacher
-    from simplex_gp_torch.ops.filter import apply_plan_wide, build_plan_any, lattice_filter_rect
-    from simplex_gp_torch.ops.lattice import apply_plan_join
+    from simplex_gp_torch.ops.filter import apply_plan_any, build_plan_any, lattice_filter_rect, make_wide_filter
 
     cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
                          num_probes=10, plan_capacity=cap)
@@ -1153,7 +1212,7 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
         P = mll.build_precond(dk, cfg, params, ref, n)
         ev[2].record()
         s, noise = params["outputscale"], params["noise"]
-        res = cg_solve(lambda V: s * apply_plan_join(plan, V, dk.coeffs) + noise * V,
+        res = cg_solve(lambda V: s * apply_plan_any(plan, V, dk) + noise * V,
                        torch.cat([(y - params["mean"])[:, None], precond_sqrt(P, z)], dim=-1), tol=1.0,
                        max_iters=500, precond=lambda V: precond_solve(P, V), tridiag_m=100)
         ev[3].record()
@@ -1184,13 +1243,14 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
         P = mll.build_precond(dk, cfg, params, ref, n)
         ev[2].record()
         s, noise = params["outputscale"], params["noise"]
-        sol = cg_solve(lambda V: s * apply_plan_join(plan, V, dk.coeffs) + noise * V,
+        sol = cg_solve(lambda V: s * apply_plan_any(plan, V, dk) + noise * V,
                        (y - params["mean"])[:, None], tol=model.eval_cg_tolerance, max_iters=500,
                        precond=lambda V: precond_solve(P, V))
         ev[3].record()
         omega = torch.randn((n, 100), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
-        Q, _ = torch.linalg.qr(s * apply_plan_wide(plan, omega, dk) + noise * omega)
-        T = Q.T @ (s * apply_plan_wide(plan, Q, dk) + noise * Q)
+        kmv = make_wide_filter(ref, dk, cap)  # the sketch's own join plan, as posterior_cache builds it
+        Q, _ = torch.linalg.qr(s * kmv(omega) + noise * omega)
+        T = Q.T @ (s * kmv(Q) + noise * Q)
         evals_, evecs = torch.linalg.eigh(0.5 * (T + T.T))
         root_inv = Q @ (evecs / torch.sqrt(torch.clamp(evals_, min=1e-8))[None, :])
         ev[4].record()
@@ -2180,6 +2240,307 @@ def baselines_phase(dev, expect, timer):
     return rows, launches, record
 
 
+def chain_library_ops(plan, taps):
+    """One sparse CSR matrix per K3'b-d function, for the library yardstick: S (Mc, n) with the splat
+    weights, axis 0's stencil with its transition gather (Mc, Mc), and SLICE_NORM S^T (n, Mc)."""
+    import torch
+
+    from simplex_gp_torch.ops import lattice as L
+
+    n, dp1 = plan.weights.shape
+    Mc, r = plan.cnt.shape[0], plan.tapw.shape[1]
+    dev = plan.cnt.device
+    live = min(int(plan.n_lattice), Mc)
+    crow = torch.cat([plan.cnt.new_zeros(1), plan.cnt]).long()
+    splat = torch.sparse_csr_tensor(crow, plan.splat_points.long(), plan.splat_weights, size=(Mc, n))
+    q = torch.arange(live, device=dev)
+    p = plan.gather[0, :live].long()
+    rows, cols, vals = [q], [p], [torch.full((live,), taps[r], device=dev)]
+    for k in range(1, r + 1):
+        w = plan.tapw[0, k - 1]
+        fwd, bwd = p + k < live, p - k >= 0
+        rows += [q[fwd], q[bwd]]
+        cols += [p[fwd] + k, p[bwd] - k]
+        vals += [w[p[fwd]], w[p[bwd] - k]]
+    axis = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+                                   size=(Mc, Mc)).coalesce().to_sparse_csr()
+    prow = torch.arange(0, n * dp1 + 1, dp1, device=dev)
+    slc = torch.sparse_csr_tensor(prow, plan.slice_idx.reshape(-1).long(),
+                                  plan.weights.reshape(-1) * L.SLICE_NORM(dp1 - 1), size=(n, Mc))
+    return splat, axis, slc
+
+
+def chain_phase(dev, ds, expect, timer, stage_times):
+    """Phase 10: the sort-chain plan K3' (build, splat, axis stencils, slice).
+
+    Returns (kernel rows, launches per training step, the record).
+    """
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch import convert
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import chain as KC
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.cg import cg_solve
+    from simplex_gp_torch.linalg.pivoted_cholesky import precond_solve, precond_sqrt
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.ops import lattice as L
+    from simplex_gp_torch.utils import data
+
+    tg = np.load(TRAIN_GOLDEN)
+    cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                         num_probes=10)
+    model = simplex_gp_torch.SimplexGP(num_dims=18, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                       eval_cg_tolerance=0.01, device=dev)
+    dk = model.dk
+    taps, order = [float(t) for t in dk.coeffs], dk.order
+    x = torch.from_numpy(ds.train_x).to(dev)
+    y = torch.from_numpy(ds.train_y).to(dev)
+    n = x.shape[0]
+    init = {k: tg[f"init_{k}"] for k in RAW_NAMES}
+    best = convert.raw_params_from_numpy(convert.load_jax_params(PARAMS), device=dev)
+    z = torch.from_numpy(np.random.default_rng(int(tg["seed_init"])).choice(
+        [-1.0, 1.0], size=(n, cfg.num_probes)).astype(np.float32)).to(dev)
+
+    def positions(raw):
+        model.load_raw(raw)
+        with torch.no_grad():
+            return (x * model.constrained()["inv_ell"]).contiguous()
+
+    house = data.load_dataset("houseelectric")
+    xh = torch.from_numpy(house.train_x).to(dev) / trainer.median_lengthscale(house.train_x)
+    cases = (("elevators, median init", positions(init), None),
+             ("elevators, trained", positions(best), None),
+             ("houseelectric, median init", xh.contiguous(), int(np.load(HOUSE_GOLDEN)["full_capacity"])))
+    del xh
+    record, gen = {}, torch.Generator(device=dev).manual_seed(10)
+    print("chain 10.1: K3'a-d vs plain, vs the join plan on the same positions, two builds and applies")
+    errs = dict(chain_build=0, chain_splat=0.0, chain_axis=0.0, chain_slice=0.0)
+    main_case = None
+    for name, pts, cap in cases:
+        nd = pts.shape[1]
+        E = torch.from_numpy(L.build_rotation(nd, dk.variance)).to(dev)
+        a = torch.from_numpy(L._hash_vectors(nd)).to(dev)
+        consts = torch.from_numpy(L._chain_consts(nd)).to(dev)
+        h1, h2, w, sums = K.lattice_geometry(pts, E, a, with_s=True)
+        kplan = KC.chain_build(h1, h2, sums, w, consts, taps, cap)
+        pplan = KC.chain_build_plain(h1, h2, sums, w, consts, taps, cap)
+        again = KC.chain_build(h1, h2, sums, w, consts, taps, cap)
+        differ = [f for f in KC.ChainPlan._fields if not torch.equal(getattr(kplan, f), getattr(pplan, f))]
+        errs["chain_build"] += len(differ)
+        nl, Mc = int(kplan.n_lattice), kplan.cnt.shape[0]
+        expect(not differ, f"{name}: K3'a == plain in every field (n_lattice {nl}, Mc {Mc}, "
+               f"{int(kplan.n_long)} runs past {KC.PIECE} in {int(kplan.n_pieces)} pieces); differing: {differ}")
+        expect(all(torch.equal(u, v) for u, v in zip(kplan, again)), f"{name}: two K3'a builds bit-equal")
+        jplan = L.build_plan_join(pts, dk.coeffs, dk.variance, cap)
+        njl = int(jplan.n_lattice)
+        if name.startswith("elevators"):
+            expect(nl == njl, f"{name}: n_lattice chain {nl} = join {njl}")
+        else:
+            print(f"    {name}: n_lattice chain {nl}, join {njl}")
+        case = dict(n_lattice=nl, join_n_lattice=njl, capacity=Mc, long_runs=int(kplan.n_long),
+                    pieces=int(kplan.n_pieces))
+        for c in (1, 11):
+            v = torch.randn((pts.shape[0], c), generator=gen, device=dev)
+            kout = L.apply_plan_chain(kplan, v, dk.coeffs)
+            pout = KC.chain_apply_plain(pplan, v, taps, L.SLICE_NORM(nd))
+            r = rel(kout, pout)
+            expect(r <= CHAIN_REL, f"{name} c={c}: K3'b-d apply vs plain rel {r:.3e} (limit {CHAIN_REL}; "
+                   f"bit-equal {torch.equal(kout, pout)})")
+            expect(torch.equal(kout, L.apply_plan_chain(kplan, v, dk.coeffs)), f"{name} c={c}: two applies bit-equal")
+            # The join's operator in float64 (its plain version on K2's plan): K3's float32 atomic sums over
+            # houseelectric's long rows (up to 1.17M contributions) err by ~1e-5 themselves.
+            exact = K.apply_plain(jplan.seg_ids, jplan.weights, jplan.neighbors, v.double(), taps,
+                                  L.SLICE_NORM(nd), n_lattice=jplan.n_lattice)
+            jout = L.apply_plan_join(jplan, v, dk.coeffs)
+            rj, rx = rel(kout.double(), exact), rel(jout.double(), exact)
+            expect(rj <= LARGE_N_REL, f"{name} c={c}: chain vs the join's operator (float64) rel {rj:.3e} (limit "
+                   f"{LARGE_N_REL}); K3 (float32) vs it {rx:.3e}, chain vs K3 {rel(kout, jout):.3e}")
+            del exact
+            case[f"c{c}"] = dict(
+                plain_rel=r, plain_bit_equal=torch.equal(kout, pout), join_rel=rj, k3_join_rel=rx,
+                chain_k3_rel=rel(kout, jout),
+                apply_ms=timer(lambda: L.apply_plan_chain(kplan, v, dk.coeffs), 20),
+                k3_ms=timer(lambda: L.apply_plan_join(jplan, v, dk.coeffs), 20),
+                apply_graph_ms=graph_ms(lambda: L.apply_plan_chain(kplan, v, dk.coeffs), 10),
+                k3_graph_ms=graph_ms(lambda: L.apply_plan_join(jplan, v, dk.coeffs), 10),
+                splat_graph_ms=graph_ms(lambda: KC.chain_splat(kplan, v), 10))
+        case.update(build_ms=timer(lambda: L.build_plan_chain(pts, dk.coeffs, dk.variance, cap), 5),
+                    join_build_ms=timer(lambda: L.build_plan_join(pts, dk.coeffs, dk.variance, cap), 5),
+                    k1_ms=timer(lambda: K.lattice_geometry(pts, E, a, with_s=True), 10))
+        print(f"    {name}: build {case['build_ms']:.3f} ms (K1 {case['k1_ms']:.3f}) vs K1 + K2 "
+              f"{case['join_build_ms']:.3f} ms; apply (events / graph replay, ms) "
+              + "; ".join(f"c={c}: chain {case[f'c{c}']['apply_ms']:.4f} / {case[f'c{c}']['apply_graph_ms']:.4f} "
+                          f"(splat {case[f'c{c}']['splat_graph_ms']:.4f}), K3 {case[f'c{c}']['k3_ms']:.4f} / "
+                          f"{case[f'c{c}']['k3_graph_ms']:.4f}" for c in (1, 11)))
+        record[name] = case
+        if main_case is None:
+            main_case = (pts, h1, h2, sums, w, consts, kplan, pplan)
+        del kplan, pplan, again, jplan, h1, h2, w, sums
+
+    print("chain 10.2: each kernel vs plain and its yardstick (elevators, median init, c=11)")
+    pts, h1, h2, sums, w, consts, plan, pplan = main_case
+    d, N = pts.shape[1], h1.shape[0]
+    nl, Mc = int(plan.n_lattice), plan.cnt.shape[0]
+    v = torch.randn((n, 11), generator=gen, device=dev)
+    tk = KC.chain_splat(plan, v)
+    tp = KC.chain_splat_plain(plan, v)
+    errs["chain_splat"] = float((tk[:nl] - tp[:nl]).abs().max())
+    ak = KC.chain_axis(tp, plan.tapw[0], plan.gather[0], plan.n_lattice, taps)
+    ap = KC.chain_axis_plain(tp, plan.tapw[0], plan.gather[0], taps)
+    errs["chain_axis"] = float((ak[:nl] - ap[:nl]).abs().max())
+    final = tp.clone()
+    sk = KC.chain_slice(final, plan, L.SLICE_NORM(d))
+    sp = KC.chain_slice_plain(final, plan.slice_idx, plan.weights, plan.n_lattice, L.SLICE_NORM(d))
+    errs["chain_slice"] = float((sk - sp).abs().max())
+    for key in ("chain_splat", "chain_axis", "chain_slice"):
+        expect(errs[key] <= CHAIN_REL * 10, f"{key} vs plain on the same input: max |diff| {errs[key]:.3e}")
+    s_splat, s_axis, s_slice = chain_library_ops(plan, taps)
+    lib_err = max(rel(s_splat @ v, tp[:Mc]), rel((s_axis @ tp)[:nl], ap[:nl]), rel(s_slice @ final, sp))
+    expect(lib_err <= 1e-5, f"the CSR yardsticks compute the same functions: rel {lib_err:.3e}")
+    r = order
+    rows = {
+        "chain_build": dict(
+            max_abs_err=errs["chain_build"],  # fields that differ from the plain build
+            ms=timer(lambda: KC.chain_build(h1, h2, sums, w, consts, taps), 10),
+            plain_ms=timer(lambda: KC.chain_build_plain(h1, h2, sums, w, consts, taps), 3),
+            # h1, h2, s, w in; splat points, weights and slice_idx (N each), cnt, gathers and taps of the
+            # live rows out.  The sorts and prefix sums inside are the build's own traffic.
+            **bound(4 * (4 * N + 3 * N + nl * (1 + d + (d + 1) * r)), 0),
+            library_ms=None, shape=f"N={N}, d={d}, n_lattice={nl}",
+            join_build_ms=record["elevators, median init"]["join_build_ms"]),
+        "chain_splat": dict(
+            max_abs_err=errs["chain_splat"], ms=timer(lambda: KC.chain_splat(plan, v), 50),
+            plain_ms=timer(lambda: KC.chain_splat_plain(plan, v), 5),
+            **bound(4 * (2 * N + nl + n * 11 + nl * 11), 2 * N * 11),  # plan, v in; the live table out
+            library_ms=timer(lambda: s_splat @ v, 20), shape=f"N={N}, c=11, n_lattice={nl}"),
+        "chain_axis": dict(
+            max_abs_err=errs["chain_axis"],
+            ms=timer(lambda: KC.chain_axis(tp, plan.tapw[0], plan.gather[0], plan.n_lattice, taps), 50),
+            plain_ms=timer(lambda: KC.chain_axis_plain(tp, plan.tapw[0], plan.gather[0], taps), 5),
+            # one axis: the live table, its taps and gather in, the table out
+            **bound(4 * (2 * nl * 11 + r * nl + nl), 2 * (2 * r + 1) * nl * 11),
+            library_ms=timer(lambda: s_axis @ tp, 20), shape=f"one axis, c=11, n_lattice={nl}"),
+        "chain_slice": dict(
+            max_abs_err=errs["chain_slice"], ms=timer(lambda: KC.chain_slice(final, plan, L.SLICE_NORM(d)), 50),
+            plain_ms=timer(lambda: KC.chain_slice_plain(final, plan.slice_idx, plan.weights, plan.n_lattice,
+                                                        L.SLICE_NORM(d)), 5),
+            **bound(4 * (nl * 11 + 2 * N + n * 11), 2 * N * 11),  # the live table, slice_idx, weights in; out
+            library_ms=timer(lambda: s_slice @ final, 20), shape=f"n={n}, c=11"),
+    }
+    rows["chain_splat"]["graph_ms"] = graph_ms(lambda: KC.chain_splat(plan, v), 20)
+    rows["chain_axis"]["graph_ms"] = graph_ms(
+        lambda: KC.chain_axis(tp, plan.tapw[0], plan.gather[0], plan.n_lattice, taps), 20)
+    rows["chain_slice"]["graph_ms"] = graph_ms(lambda: KC.chain_slice(final, plan, L.SLICE_NORM(d)), 20)
+    for key, row in rows.items():
+        print(f"    {key}: {row['ms']:.4f} ms (graph replay {row.get('graph_ms', float('nan')):.4f}), plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, library {row['library_ms']} ms")
+    del s_splat, s_axis, s_slice, main_case, pplan
+
+    print("chain 10.3: launches in one training step (elevators, median init, exact mode)")
+    model.load_raw(init)
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+    train_step(model, opt, x, y, z)  # warm-up
+    model.load_raw(init)
+    for fn in chain_kernels():
+        fn.launches = 0
+    train_step(model, opt, x, y, z)
+    launches = {fn.__name__: fn.launches for fn in chain_kernels()}
+    print(f"    launches: {launches}")
+    expect(all(v_ > 0 for v_ in launches.values()), "every K3' kernel launched in the training step")
+
+    print("chain 10.4: repeatability (reported; the build and the apply are gated in 10.1)")
+    model.load_raw(init)
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        stats = {}
+        loss = model.nlml(x, y, probes=z, stats=stats)
+        loss.backward()
+        runs.append((loss.detach().clone(), stats["cg_iters"],
+                     torch.cat([getattr(model, k).grad.reshape(-1) for k in RAW_NAMES])))
+    with torch.no_grad():
+        params = model.constrained()
+        ref = (x * params["inv_ell"]).contiguous()
+        P = [mll.build_precond(dk, cfg, params, ref, n) for _ in range(2)]
+        sy = [mll._solve_system(dk, cfg, params, x, y - params["mean"], z) for _ in range(2)]
+    rep = dict(
+        nlml_bit_equal=torch.equal(runs[0][0], runs[1][0]), nlml=[float(r_[0]) for r_ in runs],
+        cg_iters=[r_[1] for r_ in runs],
+        grad_rel_diff=rel(runs[1][2], runs[0][2]),
+        preconditioner_bit_equal=all(torch.equal(u, v_) for u, v_ in zip(P[0], P[1])),
+        cg_solves_bit_equal=torch.equal(sy[0].solves, sy[1].solves),
+        slq_logdet_bit_equal=torch.equal(sy[0].logdet, sy[1].logdet))
+    print(f"    NLML at the median init twice: bit-equal {rep['nlml_bit_equal']} ({rep['nlml']}), CG iterations "
+          f"{rep['cg_iters']}; stages bit-equal: preconditioner {rep['preconditioner_bit_equal']}, CG "
+          f"{rep['cg_solves_bit_equal']}, SLQ {rep['slq_logdet_bit_equal']}; gradients rel diff "
+          f"{rep['grad_rel_diff']:.3e} (not expected to repeat: the exact backward's K3 splat adds with atomics)")
+    model.load_raw(best)
+    caches = [model.posterior_cache(x, y, generator=torch.Generator(device=dev).manual_seed(0)) for _ in range(2)]
+    rep.update(eval_cg_iters=[c_["cg_iters"] for c_ in caches],
+               eval_alpha_bit_equal=torch.equal(caches[0]["alpha"], caches[1]["alpha"]),
+               eval_alpha_rel_diff=rel(caches[1]["alpha"], caches[0]["alpha"]))
+    if not rep["eval_alpha_bit_equal"]:
+        with torch.no_grad():
+            params = model.constrained()
+            ref = (x * params["inv_ell"]).contiguous()
+            P = [mll.build_precond(dk, cfg, params, ref, n) for _ in range(2)]
+            plan = L.build_plan_chain(ref, dk.coeffs, dk.variance)
+            sol = [cg_solve(lambda V: params["outputscale"] * L.apply_plan_chain(plan, V, dk.coeffs)
+                            + params["noise"] * V, (y - params["mean"])[:, None], tol=0.01, max_iters=500,
+                            precond=lambda V, P_=P_: precond_solve(P_, V)).x for P_ in P]
+        rep.update(eval_preconditioner_bit_equal=all(torch.equal(u, v_) for u, v_ in zip(P[0], P[1])),
+                   eval_cg_bit_equal=torch.equal(sol[0], sol[1]))
+    print(f"    posterior_cache at model_best.pkl twice: eval CG iterations {rep['eval_cg_iters']}, alpha bit-equal "
+          f"{rep['eval_alpha_bit_equal']} (rel diff {rep['eval_alpha_rel_diff']:.3e})"
+          + ("" if rep["eval_alpha_bit_equal"] else f"; preconditioner bit-equal "
+             f"{rep['eval_preconditioner_bit_equal']}, CG bit-equal {rep['eval_cg_bit_equal']}"))
+    record["repeatability"] = rep
+
+    print("chain 10.5: one CG on the chain plan and on the join plan of the same positions, in turns")
+    house_model = simplex_gp_torch.SimplexGP(num_dims=11, kernel="matern", nu=1.5, order=1, min_noise=0.1,
+                                             bbmm=cfg, eval_cg_tolerance=0.01, device=dev)
+    house_model.load_raw(init_raw_params(11, lengthscale=trainer.median_lengthscale(house.train_x)))
+    model.load_raw(init)
+    turns = {}
+    for tag, m_, xs, ys, cap, tol in (
+            ("elevators training CG (median init, c=11)", model, x, y, None, cfg.cg_tolerance),
+            ("houseelectric eval CG (median init, capacity 32,768, c=1)", house_model,
+             torch.from_numpy(house.train_x).to(dev), torch.from_numpy(house.train_y).to(dev), cases[2][2], 0.01)):
+        with torch.no_grad():
+            params = m_.constrained()
+            ref = (xs * params["inv_ell"]).contiguous()
+            P = mll.build_precond(dk, cfg, params, ref, xs.shape[0])
+            rhs = (ys - params["mean"])[:, None]
+            if xs.shape[0] == n:  # training: [y | P^1/2 z]
+                rhs = torch.cat([rhs, precond_sqrt(P, z)], dim=-1)
+            plans = dict(chain=L.build_plan_chain(ref, dk.coeffs, dk.variance, cap),
+                         join=L.build_plan_join(ref, dk.coeffs, dk.variance, cap))
+            runs = []
+            for engine in ("chain", "join", "join", "chain"):
+                plan = plans[engine]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = cg_solve(lambda V: params["outputscale"] * L.apply_plan(plan, V, dk.coeffs) + params["noise"] * V,
+                               rhs, tol=tol, max_iters=500, precond=lambda V: precond_solve(P, V))
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                runs.append(dict(engine=engine, ms=ms, iterations=res.iterations, ms_per_iteration=ms / res.iterations))
+        turns[tag] = runs
+        print(f"    {tag}: " + "; ".join(f"{r_['engine']} {r_['ms']:.1f} ms / {r_['iterations']} it = "
+                                         f"{r_['ms_per_iteration']:.3f}" for r_ in runs))
+    record["cg_turns"] = turns
+    del house_model, plans, P
+
+    print("chain 10.6: stage times with the chain as the CG plan (phases 3, 4.5 and 6.5)")
+    for key, val in stage_times.items():
+        print(f"    {key}: " + json.dumps(val))
+    record["stage_times"] = stage_times
+    return rows, launches, record
+
+
 def train_step(model, opt, x, y, z):
     opt.zero_grad(set_to_none=True)
     model.nlml(x, y, probes=z).backward()
@@ -2373,7 +2734,8 @@ def main(argv=None) -> int:
     # One untimed pass first, so the timed one finds cuSOLVER and the
     # allocator warm; the launch counts are those of the timed pass alone.
     model.predict_from_cache(model.posterior_cache(x, y, generator=torch.Generator(device=dev)), x, xt)
-    for fn in (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, pivot_column):
+    slice_kernels = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, pivot_column, *chain_kernels())
+    for fn in slice_kernels:
         fn.launches = 0
     torch.cuda.synchronize()
     g = torch.Generator(device=dev).manual_seed(0)
@@ -2384,8 +2746,7 @@ def main(argv=None) -> int:
     mean, var = model.predict_from_cache(cache, x, xt)
     ev[2].record()
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in
-                (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, pivot_column)}
+    launches = {fn.__name__: fn.launches for fn in slice_kernels}
     cache_ms, predict_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
 
     mean_np, var_np = mean.cpu().numpy(), var.cpu().numpy()
@@ -2453,6 +2814,18 @@ def main(argv=None) -> int:
     launches.update(base_launches)
     print(f"baselines phase: {time.perf_counter() - t_base:.1f} s")
     print("baselines: " + json.dumps(base))
+
+    t_chain = time.perf_counter()
+    stage_times = {
+        "elevators warm training step, exact (ms)": dict(step=training.get("step_ms"), **training.get("stages", {})),
+        "elevators serving eval (ms)": dict(posterior_cache=cache_ms, predict=predict_ms, eval_cg_iters=cache["cg_iters"]),
+        "houseelectric warm training step, capacity 32,768 (ms)": large["step_stages"],
+        "houseelectric eval (ms)": large["eval_stages"]}
+    chain_rows, chain_launches, chain = chain_phase(dev, ds, expect, cuda_ms, stage_times)
+    rows.update(chain_rows)
+    launches.update(chain_launches)
+    print(f"chain phase: {time.perf_counter() - t_chain:.1f} s")
+    print("chain: " + json.dumps(chain))
 
     # K10, the CG body, stays plain torch ops: one iteration's time (the MVM included) from the stage
     # times of 4.5 and 6.5, against the bound of its vector updates alone.

@@ -14,7 +14,9 @@ baselines ``models.ski.SKIP``, ``models.sgpr.SGPR`` and ``DenseGP`` with
 their trainers (``python -m simplex_gp_torch.train_{skip,sgpr,exact}``).
 Its kernels --
 lattice geometry (K1), dedup and neighbours (K2, optionally bounded), apply
-(K3, with the capacity guard), the one-shot filter (K4), the filter's
+(K3, with the capacity guard), the sort-chain plan that the single-device
+CG runs on (K3': build, splat, axis stencils, slice; no atomics), the
+one-shot filter (K4), the filter's
 position gradient (K5), the pivoted-Cholesky column (K6), the
 derivative-tap gradient (K7), the occupancy count (K8), the chunked wide
 apply (K9), the stacked mixture apply (K12) and SKIP's root (K13) -- live
@@ -35,7 +37,15 @@ torch.set_float32_matmul_precision("highest")
 from .linalg.mll import BBMMConfig, lattice_nlml  # noqa: E402
 from .models.exact_gp import DenseGP, SimplexGP  # noqa: E402
 from .ops.filter import lattice_filter  # noqa: E402
-from .ops.lattice import count_lattice_points, filter_once  # noqa: E402
+from .ops.lattice import (  # noqa: E402
+    ChainPlan,
+    apply_plan,
+    apply_plan_chain,
+    build_plan,
+    build_plan_chain,
+    count_lattice_points,
+    filter_once,
+)
 from .utils.training import EarlyStopper, fit_adam  # noqa: E402
 
 
@@ -62,12 +72,17 @@ def MixtureLattice(num_dims: int, nu: float = 1.5, order: int = 1, components: i
 
 __all__ = [
     "BBMMConfig",
+    "ChainPlan",
     "DenseGP",
     "EarlyStopper",
     "MaternLattice",
     "MixtureLattice",
     "RBFLattice",
     "SimplexGP",
+    "apply_plan",
+    "apply_plan_chain",
+    "build_plan",
+    "build_plan_chain",
     "count_lattice_points",
     "filter_once",
     "fit_adam",

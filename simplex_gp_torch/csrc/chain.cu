@@ -1,0 +1,533 @@
+// K3' the sort-chain plan: build (K3'a chain_build) and apply (K3'b
+// chain_splat, K3'c chain_axis, K3'd chain_slice).
+//
+// Replaces simplex_gp_tpu/ops/lattice.py::build_plan_chain (:857, its core
+// _chain_core :693) and apply_plan_chain (:943, single-device branches).
+// The operator is K2/K3's, S^T B_d ... B_0 S: every lattice axis j splits
+// the lattice into 1-D chains {key + t o_j}; sorted by (chain word, packed
+// coordinate sum), a chain's points are adjacent rows in chain order, and
+// the axis blur is a (2r+1)-tap stencil over neighbouring rows.
+//
+// Chain words (_chain_words, :648-663): c1 = mult_j h1 - s oh1_j and
+// c2 = mult_j h2 - s oh2_j, wrapping mod 2^32 (uint32 here: signed overflow
+// is undefined in C++), and the packed word (_pack, :638) keeps the top 11
+// bits of c2 over the coordinate sum s + 2^20 clipped into the low 21 bits.
+// A sort key is the int64 whose high word is c1 and whose low word is the
+// packed word with its sign bit flipped, so int64 order is the signed
+// lexicographic order of (c1, packed) that lax.sort gives.  Two rows share
+// a chain when their keys agree above bit 21; the low 21 bits are the
+// biased coordinate sum.
+//
+// Build, once per loss evaluation.  The wrapper (kernels/chain.py) runs the
+// sorts and prefix sums as torch.sort(stable=True) / torch.cumsum, which
+// stand for JAX's lax.sort / jnp.cumsum; everything else is here.
+//   [sort]   the contributions stable by h2;
+//   keys:    the axis-0 key of every contribution (vertex of a point), in
+//            that order;
+//   [sort]   stable by the key: lexicographic on (c1, packed, h2), so
+//            equal lattice points are contiguous (JAX splits groups on the
+//            same triple after an unstable sort, :720-731), and the
+//            contributions of one point keep their vertex order.
+//   groups:  the composed order, and a flag where a new lattice point
+//            starts; [cumsum] numbers them.
+//   compact: the first sorted position of each of the first Mc points, and
+//            for every sorted position its point id and weight (the splat
+//            reads both in table order) and for every contribution its row.
+//   rows:    per table row (the table is in axis-0 order): cnt, JAX's
+//            cumulative contribution end (:752-756); the row's h1, h2 and s
+//            (:758-764); its key along every axis 0..d, INT64_MAX for a row
+//            past the live count, so dead rows sort last in every axis order
+//            (JAX's pad rows sort among the live ones; with no tap to them,
+//            their place does not change the operator); for a row whose
+//            run is longer than CHAIN_PIECE, a flag and its number of
+//            pieces of CHAIN_PIECE contributions.
+//   [sort]   the d axis-j keys, j = 1..d, in one batched stable sort.
+//   taps:    tapw[j, k-1, p], the tap linking sorted rows p and p+k of axis
+//            j (_axis_tap_weights, :666-690): taps[r + t] when both are live,
+//            share a chain and their biased sums differ by t step (step 1
+//            for j < d, d for axis d), for some t in [k, r]; else 0.
+//   finish:  the inverse of each axis order; the gather of each transition,
+//            position q of axis j+1 reads position g_j[q] of axis j (JAX
+//            sorts the table by the same fixed keys in every apply, :1023-
+//            1027); slice_idx, each contribution's final position (:894);
+//            from the [cumsum] of the long rows' flags and piece counts, the
+//            list of long rows with their first pieces, and each piece's row
+//            and first contribution.
+// No atomics and no host read: two builds give the same bits.
+//
+// Apply, d + 4 launches from one host call (sgp_chain_apply), no atomics,
+// no host read.  The live count stays on
+// the device: threads of rows at or past min(n_lattice, Mc) return at
+// once, so every grid spans Mc rows, and the slice writes NaN when
+// n_lattice > Mc (JAX's guard, :1093-1100).  Tables are (Mc, c) row-major.
+//   splat (K3'b): row g is the sum of its contiguous run of sorted
+//     contributions, w * v[point], in a fixed order: one warp per run, each
+//     lane summing every 32nd contribution, then a butterfly of shuffles,
+//     eight columns at a time.  Runs are very uneven (one elevators row
+//     holds ~10k of 201,837 contributions, one houseelectric row 1.17M of
+//     15.7M), so a run longer than CHAIN_PIECE is cut into fixed pieces of
+//     CHAIN_PIECE, a warp each, and a second launch sums each long row's
+//     pieces the same way, a warp per row.  No warp sums more than
+//     CHAIN_PIECE values.  (JAX's cumsum-and-difference, :1008-1009, is TPU
+//     mechanics and loses f32 precision over long prefixes.)
+//   axis (K3'c): the stencil of axis j at position p (_chain_stencil_1d,
+//     :915-922, in its order of operations), written at the position q of
+//     axis j+1 with g_j[q] = p; the last axis writes in its own (final)
+//     order.  One thread per (position, column).
+//   slice (K3'd): the d+1 vertices of a point gathered at slice_idx,
+//     weighted, summed in vertex order and scaled by SLICE_NORM.
+//
+// Bound: memory traffic.  At elevators (n = 10,623, d = 18, c = 11, Mc =
+// 201,837) the splat reads 8 bytes of plan and 4c of v per contribution and
+// writes the live table, each axis reads and writes a table and reads its
+// taps and gather, and the slice reads d+1 rows per point: ~0.4 GB an apply,
+// about 0.12 ms at 3.35 TB/s.  A simple first design: the axis kernels'
+// 64-bit divisions by c and the gathers are the suspects if it is slow.
+#include "common.cuh"
+
+#include <limits.h>
+
+#define CHAIN_S_MASK 0x1FFFFFu   // _S_MASK, the low 21 bits
+#define CHAIN_S_BIAS (1 << 20)   // _S_BIAS
+#define CHAIN_TOP_MASK 0xFFE00000u  // _TOP_MASK
+#define CHAIN_DEAD LLONG_MAX     // the key of a row past the live count
+// A run of more contributions than this is summed in pieces of this many.
+#define CHAIN_PIECE 1024
+#define CHAIN_WARPS 8  // warps of a splat block, one run or piece each
+#define CHAIN_COLS 8   // columns a splat pass carries
+
+__device__ __forceinline__ long long chain_key(unsigned int c1, unsigned int c2, int s) {
+  int sb = s + CHAIN_S_BIAS;
+  sb = sb < 0 ? 0 : (sb > (int)CHAIN_S_MASK ? (int)CHAIN_S_MASK : sb);
+  const unsigned int packed = (c2 & CHAIN_TOP_MASK) | (unsigned int)sb;
+  return (long long)(((unsigned long long)c1 << 32) | (packed ^ 0x80000000u));
+}
+
+// ---- build ------------------------------------------------------------------
+
+// Axis 0: the multiplier of every axis j < d is 1 (_axis_dir), so
+// c1 = h1 - s oh1_0, c2 = h2 - s oh2_0.
+// key[q]: the key of contribution order[q].
+__global__ void chain_keys_kernel(const int* __restrict__ h1, const int* __restrict__ h2,
+                                  const int* __restrict__ s, const long long* __restrict__ order, int N,
+                                  const int* __restrict__ consts, int dp1, long long* __restrict__ key) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= N) return;
+  const long long e = order[q];
+  const unsigned int se = (unsigned int)s[e];
+  const unsigned int oh1 = (unsigned int)consts[0], oh2 = (unsigned int)consts[dp1];
+  key[q] = chain_key((unsigned int)h1[e] - se * oh1, (unsigned int)h2[e] - se * oh2, s[e]);
+}
+
+// perm = p1[p2], the contributions in key order; flag where a group starts.
+__global__ void chain_groups_kernel(const long long* __restrict__ p1, const long long* __restrict__ p2,
+                                    const long long* __restrict__ key, const int* __restrict__ h2, int N,
+                                    long long* __restrict__ perm, int* __restrict__ flag) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= N) return;
+  const long long e = p1[p2[q]];
+  perm[q] = e;
+  flag[q] = q == 0 || key[q] != key[q - 1] || h2[e] != h2[p1[p2[q - 1]]];
+}
+
+__global__ void chain_compact_kernel(const long long* __restrict__ perm, const float* __restrict__ w,
+                                     const int* __restrict__ seg, const int* __restrict__ flag, int N,
+                                     int Mc, int dp1, int* __restrict__ u_pos, int* __restrict__ sp,
+                                     float* __restrict__ sw, int* __restrict__ row_of,
+                                     int* __restrict__ n_lattice) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= N) return;
+  if (q == N - 1) *n_lattice = seg[q];
+  const int g = seg[q] - 1;
+  const long long e = perm[q];
+  if (flag[q] && g < Mc) u_pos[g] = q;
+  sp[q] = (int)(e / dp1);
+  sw[q] = w[e];
+  row_of[e] = g < Mc ? g : Mc - 1;  // past the capacity the slice writes NaN
+}
+
+// consts: (3, d+1) int32, the rows oh1, oh2 and mult of every axis.
+__global__ void chain_rows_kernel(const int* __restrict__ u_pos, const long long* __restrict__ key,
+                                  const int* __restrict__ h2, const long long* __restrict__ perm,
+                                  const int* __restrict__ n_lattice, int N, int Mc, int d,
+                                  const int* __restrict__ consts, int* __restrict__ cnt,
+                                  long long* __restrict__ keys, int* __restrict__ long_info) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= Mc) return;
+  const int dp1 = d + 1;
+  const int nl = *n_lattice;
+  const int live = nl < Mc ? nl : Mc;
+  cnt[g] = g + 1 < live ? u_pos[g + 1] : N;
+  if (g >= live) {
+    for (int j = 0; j < dp1; ++j) keys[(long long)j * Mc + g] = CHAIN_DEAD;
+    long_info[g] = long_info[Mc + g] = 0;
+    return;
+  }
+  const int q = u_pos[g];
+  const int len = (g + 1 < live ? u_pos[g + 1] : N) - q;
+  long_info[g] = len > CHAIN_PIECE;  // (2, Mc): the long flag, the number of pieces
+  long_info[Mc + g] = len > CHAIN_PIECE ? (len + CHAIN_PIECE - 1) / CHAIN_PIECE : 0;
+  const long long k0 = key[q];
+  const unsigned int c1 = (unsigned int)(k0 >> 32);
+  const int us = (int)(((unsigned int)k0) & CHAIN_S_MASK) - CHAIN_S_BIAS;
+  const unsigned int uh1 = c1 + (unsigned int)us * (unsigned int)consts[0];
+  const unsigned int uh2 = (unsigned int)h2[perm[q]];
+  for (int j = 0; j < dp1; ++j) {
+    const unsigned int m = (unsigned int)consts[2 * dp1 + j];
+    keys[(long long)j * Mc + g] = chain_key(m * uh1 - (unsigned int)us * (unsigned int)consts[j],
+                                            m * uh2 - (unsigned int)us * (unsigned int)consts[dp1 + j], us);
+  }
+}
+
+// One thread per (axis j, position p): key0 is axis 0's keys (the table's
+// own order), sorted the d sorted key rows of axes 1..d.
+__global__ void chain_taps_kernel(const long long* __restrict__ key0, const long long* __restrict__ sorted,
+                                  const int* __restrict__ n_lattice, int Mc, int d, int order, SgpTaps taps,
+                                  float* __restrict__ tapw) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)(d + 1) * Mc) return;
+  const int j = (int)(idx / Mc);
+  const int p = (int)(idx - (long long)j * Mc);
+  const int nl = *n_lattice;
+  const int live = nl < Mc ? nl : Mc;
+  const long long* k = j == 0 ? key0 : sorted + (long long)(j - 1) * Mc;
+  const int step = j < d ? 1 : d;
+  for (int kk = 1; kk <= order; ++kk) {
+    float w = 0.0f;
+    if (p + kk < live) {
+      const long long a = k[p], b = k[p + kk];
+      if ((a >> 21) == (b >> 21)) {
+        const int ds = (int)(b & CHAIN_S_MASK) - (int)(a & CHAIN_S_MASK);
+        for (int t = kk; t <= order; ++t)
+          if (ds == t * step) w = taps.v[order + t];
+      }
+    }
+    tapw[((long long)j * order + kk - 1) * Mc + p] = w;
+  }
+}
+
+__global__ void chain_invert_kernel(const long long* __restrict__ perm, long long total, int Mc,
+                                    int* __restrict__ pos) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const long long j = idx / Mc;
+  pos[j * Mc + perm[idx]] = (int)(idx - j * Mc);
+}
+
+// gather[0] = perm of axis 1; gather[j] = pos_j[perm_{j+1}] for j = 1..d-1.
+__global__ void chain_gather_kernel(const long long* __restrict__ perm, const int* __restrict__ pos,
+                                    long long total, int Mc, int* __restrict__ gather) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const long long j = idx / Mc;
+  const long long row = perm[idx];
+  gather[idx] = j == 0 ? (int)row : pos[(j - 1) * Mc + row];
+}
+
+__global__ void chain_slice_idx_kernel(const int* __restrict__ row_of, const int* __restrict__ pos_d,
+                                       int N, int* __restrict__ slice_idx) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < N) slice_idx[e] = pos_d[row_of[e]];
+}
+
+// long_info and its inclusive scan along the rows, (2, Mc) each: long row
+// li = scan - 1 owns pieces [first, end) with end its scanned piece count;
+// long_first (zeroed) receives each long row's end at li + 1.
+__global__ void chain_long_kernel(const int* __restrict__ long_info, const int* __restrict__ scan,
+                                  const int* __restrict__ cnt, int Mc, int* __restrict__ long_rows,
+                                  int* __restrict__ long_first, int* __restrict__ piece_row,
+                                  int* __restrict__ piece_start, int* __restrict__ n_long,
+                                  int* __restrict__ n_pieces) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g == Mc - 1) {
+    *n_long = scan[g];
+    *n_pieces = scan[Mc + g];
+  }
+  if (g >= Mc || !long_info[g]) return;
+  const int li = scan[g] - 1, end = scan[Mc + g], pieces = long_info[Mc + g];
+  const int start = g == 0 ? 0 : cnt[g - 1];
+  long_rows[li] = g;
+  long_first[li + 1] = end;
+  for (int k = 0; k < pieces; ++k) {
+    piece_row[end - pieces + k] = g;
+    piece_start[end - pieces + k] = start + k * CHAIN_PIECE;
+  }
+}
+
+// consts: (3, d+1) int32, the rows oh1, oh2 and mult of every axis.
+extern "C" int sgp_chain_keys(const int* h1, const int* h2, const int* s, const long long* order, int N,
+                              const int* consts, int dp1, long long* key, void* stream) {
+  if (N > 0)
+    chain_keys_kernel<<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(h1, h2, s, order, N, consts,
+                                                                              dp1, key);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sgp_chain_groups(const long long* p1, const long long* p2, const long long* key, const int* h2,
+                                int N, long long* perm, int* flag, void* stream) {
+  if (N > 0)
+    chain_groups_kernel<<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(p1, p2, key, h2, N, perm,
+                                                                                flag);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sgp_chain_compact(const long long* perm, const float* w, const int* seg, const int* flag,
+                                 int N, int Mc, int dp1, int* u_pos, int* sp, float* sw, int* row_of,
+                                 int* n_lattice, void* stream) {
+  if (N > 0)
+    chain_compact_kernel<<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+        perm, w, seg, flag, N, Mc, dp1, u_pos, sp, sw, row_of, n_lattice);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sgp_chain_rows(const int* u_pos, const long long* key, const int* h2, const long long* perm,
+                              const int* n_lattice, int N, int Mc, int d, const int* consts, int* cnt,
+                              long long* keys, int* long_info, void* stream) {
+  if (Mc > 0)
+    chain_rows_kernel<<<sgp_blocks(Mc), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+        u_pos, key, h2, perm, n_lattice, N, Mc, d, consts, cnt, keys, long_info);
+  return (int)cudaGetLastError();
+}
+
+static SgpTaps chain_taps_of(const float* taps_host, int order) {
+  SgpTaps taps = {};
+  for (int t = 0; t < 2 * order + 1; ++t) taps.v[t] = taps_host[t];
+  return taps;
+}
+
+extern "C" int sgp_chain_taps(const long long* key0, const long long* sorted, const int* n_lattice, int Mc,
+                              int d, int order, const float* taps_host, float* tapw, void* stream) {
+  if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
+  const long long work = (long long)(d + 1) * Mc;
+  if (work > 0 && order > 0)
+    chain_taps_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+        key0, sorted, n_lattice, Mc, d, order, chain_taps_of(taps_host, order), tapw);
+  return (int)cudaGetLastError();
+}
+
+// perm: (d, Mc) int64, the sorted order of axes 1..d; pos: (d, Mc) scratch.
+extern "C" int sgp_chain_finish(const long long* perm, const int* row_of, const int* long_info,
+                                const int* long_scan, const int* cnt, int N, int Mc, int d, int* pos,
+                                int* gather, int* slice_idx, int* long_rows, int* long_first, int* piece_row,
+                                int* piece_start, int* n_long, int* n_pieces, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long total = (long long)d * Mc;
+  if (total > 0) {
+    chain_invert_kernel<<<sgp_blocks(total), SGP_THREADS, 0, st>>>(perm, total, Mc, pos);
+    chain_gather_kernel<<<sgp_blocks(total), SGP_THREADS, 0, st>>>(perm, pos, total, Mc, gather);
+  }
+  if (N > 0)
+    chain_slice_idx_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(row_of, pos + (long long)(d - 1) * Mc, N,
+                                                                  slice_idx);
+  if (Mc > 0)
+    chain_long_kernel<<<sgp_blocks(Mc), SGP_THREADS, 0, st>>>(long_info, long_scan, cnt, Mc, long_rows,
+                                                              long_first, piece_row, piece_start, n_long,
+                                                              n_pieces);
+  return (int)cudaGetLastError();
+}
+
+// ---- apply ------------------------------------------------------------------
+
+__device__ __forceinline__ float chain_warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// acc[k] (all lanes) = the sum of w * v[point, c0 + k] over the run
+// [start, end), lane l adding the contributions start + l, start + l + 32,
+// ... in turn, then the butterfly.
+__device__ __forceinline__ void chain_warp_run(const int* __restrict__ sp, const float* __restrict__ sw,
+                                               const float* __restrict__ v, int c, int c0, int cw, int start,
+                                               int end, int lane, float* acc) {
+#pragma unroll
+  for (int k = 0; k < CHAIN_COLS; ++k) acc[k] = 0.0f;
+  for (int q = start + lane; q < end; q += 32) {
+    const float w = sw[q];
+    const float* vp = v + (long long)sp[q] * c + c0;
+#pragma unroll
+    for (int k = 0; k < CHAIN_COLS; ++k)
+      if (k < cw) acc[k] = __fadd_rn(acc[k], __fmul_rn(w, vp[k]));
+  }
+#pragma unroll
+  for (int k = 0; k < CHAIN_COLS; ++k) acc[k] = chain_warp_sum(acc[k]);
+}
+
+// A warp per run: blocks [0, n_row_blocks) take the rows (those of at most
+// CHAIN_PIECE contributions, into the table), the blocks after them the
+// pieces of the long rows (into part, (pieces, c)).
+__global__ void chain_splat_kernel(const int* __restrict__ sp, const float* __restrict__ sw,
+                                   const int* __restrict__ cnt, const int* __restrict__ piece_row,
+                                   const int* __restrict__ piece_start, const int* __restrict__ n_pieces,
+                                   const int* __restrict__ n_lattice, const float* __restrict__ v, int c, int Mc,
+                                   int n_row_blocks, float* __restrict__ table, float* __restrict__ part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int start, end;
+  float* dst;
+  if ((int)blockIdx.x < n_row_blocks) {
+    const int nl = *n_lattice;
+    const int g = blockIdx.x * CHAIN_WARPS + warp;
+    if (g >= (nl < Mc ? nl : Mc)) return;  // the whole warp: g is the same on every lane
+    start = g == 0 ? 0 : cnt[g - 1];
+    end = cnt[g];
+    if (end - start > CHAIN_PIECE) return;  // summed in pieces
+    dst = table + (long long)g * c;
+  } else {
+    const int i = (blockIdx.x - n_row_blocks) * CHAIN_WARPS + warp;
+    if (i >= *n_pieces) return;
+    start = piece_start[i];
+    end = min(start + CHAIN_PIECE, cnt[piece_row[i]]);
+    dst = part + (long long)i * c;
+  }
+  float acc[CHAIN_COLS];
+  for (int c0 = 0; c0 < c; c0 += CHAIN_COLS) {
+    const int cw = c - c0 < CHAIN_COLS ? c - c0 : CHAIN_COLS;
+    chain_warp_run(sp, sw, v, c, c0, cw, start, end, lane, acc);
+    if (lane == 0)
+      for (int k = 0; k < cw; ++k) dst[c0 + k] = acc[k];
+  }
+}
+
+// A warp per long row: the sum of its pieces' partial sums, lane l adding
+// pieces l, l + 32, ... in turn, then the butterfly.
+__global__ void chain_combine_kernel(const int* __restrict__ long_rows, const int* __restrict__ long_first,
+                                     const int* __restrict__ n_long, const float* __restrict__ part, int c,
+                                     float* __restrict__ table) {
+  const int lane = threadIdx.x & 31;
+  const int li = blockIdx.x * CHAIN_WARPS + (threadIdx.x >> 5);
+  if (li >= *n_long) return;
+  const int first = long_first[li], last = long_first[li + 1];
+  float* dst = table + (long long)long_rows[li] * c;
+  for (int c0 = 0; c0 < c; c0 += CHAIN_COLS) {
+    const int cw = c - c0 < CHAIN_COLS ? c - c0 : CHAIN_COLS;
+    float acc[CHAIN_COLS];
+#pragma unroll
+    for (int k = 0; k < CHAIN_COLS; ++k) acc[k] = 0.0f;
+    for (int i = first + lane; i < last; i += 32) {
+      const float* pp = part + (long long)i * c + c0;
+#pragma unroll
+      for (int k = 0; k < CHAIN_COLS; ++k)
+        if (k < cw) acc[k] = __fadd_rn(acc[k], pp[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < CHAIN_COLS; ++k) acc[k] = chain_warp_sum(acc[k]);
+    if (lane == 0)
+      for (int k = 0; k < cw; ++k) dst[c0 + k] = acc[k];
+  }
+}
+
+// tapw: this axis's (r, Mc) taps; gather: (Mc,) or null for the last axis.
+__global__ void chain_axis_kernel(const float* __restrict__ in, float* __restrict__ out,
+                                  const float* __restrict__ tapw, const int* __restrict__ gather,
+                                  const int* __restrict__ n_lattice, int Mc, int c, int order, float center) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int nl = *n_lattice;
+  const int live = nl < Mc ? nl : Mc;
+  if (idx >= (long long)live * c) return;
+  const int q = (int)(idx / c);
+  const int col = (int)(idx - (long long)q * c);
+  const int p = gather == nullptr ? q : gather[q];
+  const float* t = in + col;
+  float acc = __fmul_rn(center, t[(long long)p * c]);
+  for (int k = 1; k <= order; ++k) {
+    const float* wk = tapw + (long long)(k - 1) * Mc;
+    if (p + k < live) acc = __fadd_rn(acc, __fmul_rn(wk[p], t[(long long)(p + k) * c]));
+    if (p - k >= 0) acc = __fadd_rn(acc, __fmul_rn(wk[p - k], t[(long long)(p - k) * c]));
+  }
+  out[idx] = acc;
+}
+
+__global__ void chain_slice_kernel(const float* __restrict__ table, const int* __restrict__ slice_idx,
+                                   const float* __restrict__ w, const int* __restrict__ n_lattice, int n,
+                                   int dp1, int c, int Mc, float norm, float* __restrict__ out) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)n * c) return;
+  if (*n_lattice > Mc) {
+    out[idx] = __int_as_float(0x7fc00000);  // quiet NaN: the capacity overflowed
+    return;
+  }
+  const long long p = idx / c;
+  const int col = (int)(idx - p * c);
+  float acc = 0.0f;
+  for (int v = 0; v < dp1; ++v) {
+    const long long e = p * dp1 + v;
+    acc = __fadd_rn(acc, __fmul_rn(table[(long long)slice_idx[e] * c + col], w[e]));
+  }
+  out[idx] = __fmul_rn(acc, norm);
+}
+
+// The splat's two launches.  nl_max, np_max: the lengths of long_rows and
+// piece_row (bounds fixed by the plan's shapes); part holds np_max * c floats.
+static cudaError_t chain_launch_splat(const int* sp, const float* sw, const int* cnt, const int* long_rows,
+                                      const int* long_first, const int* piece_row, const int* piece_start,
+                                      const int* n_long, const int* n_pieces, int nl_max, int np_max,
+                                      const int* n_lattice, const float* v, int c, int Mc, float* table,
+                                      float* part, cudaStream_t st) {
+  const int n_row_blocks = (Mc + CHAIN_WARPS - 1) / CHAIN_WARPS;
+  const int n_piece_blocks = (np_max + CHAIN_WARPS - 1) / CHAIN_WARPS;
+  if (Mc > 0 && c > 0) {
+    chain_splat_kernel<<<n_row_blocks + n_piece_blocks, CHAIN_WARPS * 32, 0, st>>>(
+        sp, sw, cnt, piece_row, piece_start, n_pieces, n_lattice, v, c, Mc, n_row_blocks, table, part);
+    if (nl_max > 0)
+      chain_combine_kernel<<<(nl_max + CHAIN_WARPS - 1) / CHAIN_WARPS, CHAIN_WARPS * 32, 0, st>>>(
+          long_rows, long_first, n_long, part, c, table);
+  }
+  return cudaGetLastError();
+}
+
+extern "C" int sgp_chain_splat(const int* sp, const float* sw, const int* cnt, const int* long_rows,
+                               const int* long_first, const int* piece_row, const int* piece_start,
+                               const int* n_long, const int* n_pieces, int nl_max, int np_max,
+                               const int* n_lattice, const float* v, int c, int Mc, float* table, float* part,
+                               void* stream) {
+  return (int)chain_launch_splat(sp, sw, cnt, long_rows, long_first, piece_row, piece_start, n_long, n_pieces,
+                                 nl_max, np_max, n_lattice, v, c, Mc, table, part, (cudaStream_t)stream);
+}
+
+extern "C" int sgp_chain_axis(const float* in, float* out, const float* tapw, const int* gather,
+                              const int* n_lattice, int Mc, int c, int order, float center, void* stream) {
+  const long long work = (long long)Mc * c;
+  if (work > 0)
+    chain_axis_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+        in, out, tapw, gather, n_lattice, Mc, c, order, center);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sgp_chain_slice(const float* table, const int* slice_idx, const float* w, const int* n_lattice,
+                               int n, int dp1, int c, int Mc, float norm, float* out, void* stream) {
+  const long long work = (long long)n * c;
+  if (work > 0)
+    chain_slice_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+        table, slice_idx, w, n_lattice, n, dp1, c, Mc, norm, out);
+  return (int)cudaGetLastError();
+}
+
+// The whole apply from one host call: the splat into ta, the d + 1 axes
+// between ta and tb (gather: (d, Mc); tapw: (d + 1, r, Mc)), the slice of
+// the final table into out (n, c).  ta and tb hold Mc * c floats.
+extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, const int* long_rows,
+                               const int* long_first, const int* piece_row, const int* piece_start,
+                               const int* n_long, const int* n_pieces, int nl_max, int np_max,
+                               const int* n_lattice, const float* v, int n, int c, int Mc, int d,
+                               const int* gather, const float* tapw, int order, const float* taps_host,
+                               const int* slice_idx, const float* w, float norm, float* ta, float* tb,
+                               float* part, float* out, void* stream) {
+  if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || c <= 0 || Mc <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = chain_launch_splat(sp, sw, cnt, long_rows, long_first, piece_row, piece_start, n_long,
+                                       n_pieces, nl_max, np_max, n_lattice, v, c, Mc, ta, part, st);
+  if (err != cudaSuccess) return (int)err;
+  const long long work = (long long)Mc * c;
+  float *a = ta, *b = tb;
+  for (int j = 0; j <= d; ++j) {
+    chain_axis_kernel<<<sgp_blocks(work), SGP_THREADS, 0, st>>>(
+        a, b, tapw + (long long)j * order * Mc, j < d ? gather + (long long)j * Mc : nullptr, n_lattice, Mc, c,
+        order, taps_host[order]);
+    float* t = a;
+    a = b;
+    b = t;
+  }
+  chain_slice_kernel<<<sgp_blocks((long long)n * c), SGP_THREADS, 0, st>>>(a, slice_idx, w, n_lattice, n, d + 1,
+                                                                          c, Mc, norm, out);
+  return (int)cudaGetLastError();
+}

@@ -136,12 +136,15 @@ __device__ __forceinline__ void sgp_simplex_rank(const float* __restrict__ xp,
 // Vertex hash pairs and barycentric weights of one point's enclosing
 // simplex: K1's per-point work, shared with K4/K8 (once.cu) so that their
 // hashes are the plan's bit for bit.  a is the (2, d) multiplier table;
-// h1, h2 and w receive d+1 entries each.  Vertex v has key_k = greedy_k +
-// canonical[v][rank_k], hashed linearly (wrapping mod 2^32).
+// h1, h2 and w receive d+1 entries each, and ssum, when not null, the sum
+// of each vertex key's d stored coordinates (the chain plan's s, K3').
+// Vertex v has key_k = greedy_k + canonical[v][rank_k], hashed linearly
+// (wrapping mod 2^32).
 __device__ __forceinline__ void sgp_point_geometry(const float* __restrict__ xp,
                                                    const float* __restrict__ E,
                                                    const int* __restrict__ a, int d, float scale,
-                                                   unsigned int* h1, unsigned int* h2, float* w) {
+                                                   unsigned int* h1, unsigned int* h2, float* w,
+                                                   int* ssum = nullptr) {
   const int dp1 = d + 1;
   int gdiv[SGP_MAX_DP1], rank[SGP_MAX_DP1];
   float elev[SGP_MAX_DP1];
@@ -159,14 +162,17 @@ __device__ __forceinline__ void sgp_point_geometry(const float* __restrict__ xp,
   const unsigned int* a2 = a1 + d;
   for (int v = 0; v < dp1; ++v) {
     unsigned int s1 = 0u, s2 = 0u;
+    int ks = 0;
     for (int k = 0; k < d; ++k) {
       const int can = rank[k] < dp1 - v ? v : v - dp1;
-      const unsigned int key = (unsigned int)(gdiv[k] * dp1 + can);
-      s1 += key * a1[k];
-      s2 += key * a2[k];
+      const int key = gdiv[k] * dp1 + can;
+      ks += key;
+      s1 += (unsigned int)key * a1[k];
+      s2 += (unsigned int)key * a2[k];
     }
     h1[v] = s1;
     h2[v] = s2;
+    if (ssum != nullptr) ssum[v] = ks;
     w[v] = v == 0 ? __fadd_rn(t_by_rank[d], __fadd_rn(1.0f, -t_by_rank[0]))
                   : __fsub_rn(t_by_rank[d - v], t_by_rank[d + 1 - v]);
   }

@@ -32,7 +32,7 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream last).
 _SIGNATURES = {
-    "sgp_lattice_geometry": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "sgp_lattice_geometry": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "sgp_dedup_insert": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "sgp_dedup_finish": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "sgp_dedup_first": [_P, _I, _P, _P, _P],
@@ -58,6 +58,17 @@ _SIGNATURES = {
     "sgp_ski_kr_matmul": [_P, _P, _P, _I, _I, _I, _P, _P],
     "sgp_ski_kr_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "sgp_ski_kr_adjoint": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "sgp_chain_keys": [_P, _P, _P, _P, _I, _P, _I, _P, _P],
+    "sgp_chain_groups": [_P, _P, _P, _P, _I, _P, _P, _P],
+    "sgp_chain_compact": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "sgp_chain_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sgp_chain_taps": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "sgp_chain_finish": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "sgp_chain_splat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    "sgp_chain_axis": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "sgp_chain_slice": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+    "sgp_chain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P,
+                        _P, _P, _F, _P, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -124,18 +124,23 @@ def hash_pair(flat: torch.Tensor, a: torch.Tensor):
     return _wrap32((f * a64[0]).sum(-1)), _wrap32((f * a64[1]).sum(-1))
 
 
-def geometry_plain(x: torch.Tensor, E: torch.Tensor, a: torch.Tensor):
-    """(h1, h2 (n(d+1),) int32, weights (n, d+1) f32): plain K1 (_point_hashes, :330)."""
+def geometry_plain(x: torch.Tensor, E: torch.Tensor, a: torch.Tensor, with_s: bool = False):
+    """(h1, h2 (n(d+1),) int32, weights (n, d+1) f32): plain K1 (_point_hashes, :330).
+
+    ``with_s`` appends s (n(d+1),) int32, the sum of each vertex key's d
+    stored coordinates (_geometry_hs, :353-384).
+    """
     n, d = x.shape
     keys, weights = lattice_simplex(x, E)
-    h1, h2 = hash_pair(keys.reshape(n * (d + 1), d), a)
-    return h1, h2, weights
+    flat = keys.reshape(n * (d + 1), d)
+    h1, h2 = hash_pair(flat, a)
+    return (h1, h2, weights, flat.sum(-1, dtype=torch.int32)) if with_s else (h1, h2, weights)
 
 
-def lattice_geometry(x: torch.Tensor, E: torch.Tensor, a: torch.Tensor):
-    """K1: per-point hash pairs of the d+1 simplex vertices, and barycentric weights."""
+def lattice_geometry(x: torch.Tensor, E: torch.Tensor, a: torch.Tensor, with_s: bool = False):
+    """K1: per-point hash pairs of the d+1 simplex vertices, and barycentric weights (and s: ``with_s``)."""
     if not x.is_cuda:
-        return geometry_plain(x, E, a)
+        return geometry_plain(x, E, a, with_s)
     n, d = x.shape
     if d + 1 > 64:
         raise ValueError(f"lattice_geometry: d={d} exceeds the kernel's limit of 63")
@@ -143,12 +148,14 @@ def lattice_geometry(x: torch.Tensor, E: torch.Tensor, a: torch.Tensor):
     lib = build.library()
     h1 = torch.empty(n * (d + 1), dtype=torch.int32, device=x.device)
     h2 = torch.empty_like(h1)
+    s = torch.empty_like(h1) if with_s else None
     w = torch.empty((n, d + 1), dtype=torch.float32, device=x.device)
-    rc = lib.sgp_lattice_geometry(x.data_ptr(), E.data_ptr(), a.data_ptr(), n, d,
-                                  h1.data_ptr(), h2.data_ptr(), w.data_ptr(), build.stream())
+    rc = lib.sgp_lattice_geometry(x.data_ptr(), E.data_ptr(), a.data_ptr(), n, d, h1.data_ptr(),
+                                  h2.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
+                                  build.stream())
     build.check(rc, "lattice_geometry")
     lattice_geometry.launches += 1
-    return h1, h2, w
+    return (h1, h2, w, s) if with_s else (h1, h2, w)
 
 
 lattice_geometry.launches = 0
@@ -368,14 +375,15 @@ def apply_plain(seg_ids, weights, neighbors, v, taps, slice_norm, transpose=Fals
     returns the blurred (M, c) table before the slice (B S v, or B^T S v).
     With ``n_lattice``, the output is all NaN when it exceeds the M table
     rows (the capacity guard, lattice.py:1093-1100).  Differentiable by
-    torch autograd in ``v`` and ``weights``.
+    torch autograd in ``v`` and ``weights``; a float64 v gives the operator
+    in float64.
     """
     n, dp1 = seg_ids.shape
     M = neighbors.shape[1]
     c = v.shape[-1]
     seg = seg_ids.reshape(-1).long()
     contrib = (v[:, None, :] * weights[:, :, None]).reshape(n * dp1, c)
-    table = _blur_plain(torch.zeros((M, c), dtype=torch.float32, device=v.device).index_add_(0, seg, contrib),
+    table = _blur_plain(torch.zeros((M, c), dtype=contrib.dtype, device=v.device).index_add_(0, seg, contrib),
                         neighbors, taps, transpose)
     gathered = table[seg_ids.long()]  # (n, d+1, c)
     out = (gathered * weights[:, :, None]).sum(dim=1) * slice_norm

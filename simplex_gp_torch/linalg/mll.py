@@ -13,7 +13,9 @@ V = [alpha | P^{-1} b]; :class:`LatticeInvQuadLogdet` evaluates them in
 closed form (_iql_bwd, :243-272), with no nested autograd, in one of two
 ways (``BBMMConfig.grad_mode``):
   * "exact": one forward apply of V that keeps its table, one transposed
-    apply of s U, and K5 -- on the plan the forward built;
+    apply of s U, and K5 -- on a join plan of the same positions, built
+    afresh, as JAX's backward filters afresh (mll.py:262-265; the CG's
+    chain plan has no transpose and keeps no table);
   * "deriv_filter" (the reference's gradient, JAX's ``lattice_filter``):
     K V by the one-shot filter K4, as JAX's forward inside the vjp runs it,
     and the position gradient from the derivative-tap filter K7 with the
@@ -21,15 +23,17 @@ ways (``BBMMConfig.grad_mode``):
 The forward runs with no graph, as JAX's custom VJP does, so no gradient
 flows through the preconditioner or the CG.
 
-``BBMMConfig.plan_capacity`` bounds the training plan's table (JAX's
-mll.py:65-71): the CG plan, and the exact backward that reuses it; the
+The single-device CG runs on the sort-chain plan (K3'), JAX's engine of
+record (mll.py:172, filter.py:186-193).  ``BBMMConfig.plan_capacity``
+bounds the training plan's table (JAX's mll.py:65-71): the CG's chain
+plan, and the exact backward's join plan of the same positions; the
 "deriv_filter" backward filters untrimmed, as JAX's ``lattice_filter``.  An
 overflow (more occupied lattice points than the capacity, e.g. after the
-lengthscales shrank) makes every apply on that plan NaN.  The NLML does not
-become NaN, in JAX as here: every CG residual is NaN, so the best iterate
-stays the zero start and the loss a finite value of no meaning; the exact
-backward's outputscale gradient is NaN (as JAX's host loop gives it,
-host_loop.py:222-224).
+lengthscales shrank) makes every apply on either plan NaN.  The NLML does
+not become NaN, in JAX as here: every CG residual is NaN, so the best
+iterate stays the zero start and the loss a finite value of no meaning;
+the exact backward's outputscale gradient is NaN (as JAX's host loop gives
+it, host_loop.py:222-224).
 
 ``BBMMConfig.axis`` (a DataAxis; JAX's ``axis_name``) runs the engine
 data-sharded: x, y and the probes hold this rank's rows, the plan is the
@@ -43,8 +47,9 @@ exact gradient (mll.py:95-106), and ``plan_capacity`` is not applied
 
 A MixtureKernel (JAX :100-110) takes the stacked mixture plan and K12 for
 every apply, ignores ``plan_capacity``, and always runs the exact gradient,
-whatever ``grad_mode`` says: the backward re-applies through the saved
-MixturePlan (K12, transposed K12, K5 on the stacked problem).  Its
+whatever ``grad_mode`` says: the backward re-applies through the CG's
+MixturePlan, saved for it (K12, transposed K12, K5 on the stacked
+problem), as the sharded engine reuses its sharded plan.  Its
 preconditioner's exact columns are those of its Matern target
 (``dk.nu``).  The sharded engine takes no mixture: JAX's sharded mixture
 branch (:100-104, :164-168) is not ported.
@@ -61,6 +66,7 @@ import torch
 from ..ops.filter import (
     _filter_plain,
     apply_plan_any,
+    build_join_plan_any,
     build_plan_any,
     deriv_filter_grad,
     filter_backward,
@@ -69,7 +75,7 @@ from ..ops.filter import (
     lattice_filter_exact_grad,
 )
 from ..ops.kernels import DiscretizedKernel, MixtureKernel
-from ..ops.lattice import build_plan_sharded_join
+from ..ops.lattice import ChainPlan, build_plan_sharded_join
 from .cg import cg_solve
 from .lanczos import logdet_from_cg_tridiag, slq_logdet
 from .pivoted_cholesky import (
@@ -163,7 +169,7 @@ class _System(NamedTuple):
     solves: torch.Tensor  # (n, 1+p): alpha and the probe solves
     logdet: torch.Tensor  # () log|K_hat| estimate
     probes_right: torch.Tensor  # (n, p) right vectors of the trace backward
-    plan: tuple  # the LatticePlan or MixturePlan every apply of this loss evaluation uses
+    plan: tuple  # the CG's plan: a ChainPlan, a MixturePlan, or a sharded LatticePlan
     iterations: int  # CG iterations
     residual: torch.Tensor  # (1+p,) best relative residuals
 
@@ -246,21 +252,26 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
         ctx.dk = dk
         ctx.grad_mode = config.grad_mode
         ctx.axis = config.axis
+        ctx.capacity = config.plan_capacity
         ctx.plan_type = type(sys_.plan)
-        ctx.save_for_backward(inv_ell, outputscale, x, alpha, sys_.solves[:, 1:], sys_.probes_right,
-                              *sys_.plan)
+        # A chain plan is not kept: the exact backward builds a join plan (JAX re-filters).
+        kept = () if isinstance(sys_.plan, ChainPlan) else tuple(sys_.plan)
+        ctx.save_for_backward(inv_ell, outputscale, x, alpha, sys_.solves[:, 1:], sys_.probes_right, *kept)
         inv_quad = (y * alpha).sum()
         return inv_quad if config.axis is None else config.axis.psum(inv_quad), sys_.logdet
 
     @staticmethod
     def backward(ctx, a, b):
-        inv_ell, s, x, alpha, z_solves, probes_right, *plan = ctx.saved_tensors
-        plan = ctx.plan_type(*plan)
+        inv_ell, s, x, alpha, z_solves, probes_right, *kept = ctx.saved_tensors
         p = probes_right.shape[-1]
         U = torch.cat([(-a) * alpha[:, None], (b / p) * z_solves], dim=-1)
         V = torch.cat([alpha[:, None], probes_right], dim=-1).contiguous()
         ref = x * inv_ell
         if ctx.grad_mode == "exact" or ctx.axis is not None or isinstance(ctx.dk, MixtureKernel):
+            if kept:
+                plan = ctx.plan_type(*kept)
+            else:  # the same positions and capacity as the CG's chain plan; an overflow trips both
+                plan = build_join_plan_any(ref.detach().contiguous(), ctx.dk, ctx.capacity)
             KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True, axis=ctx.axis)
             # d/dref of s * K(ref) V against U: K5 with the cotangent s U.
             _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f, ctx.axis)

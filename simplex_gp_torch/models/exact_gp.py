@@ -36,7 +36,7 @@ from torch import nn
 from ..linalg.cg import cg_solve
 from ..linalg.mll import BBMMConfig, build_precond, lattice_nlml
 from ..linalg.pivoted_cholesky import precond_solve
-from ..ops.filter import apply_plan_any, apply_plan_wide, build_plan_any, lattice_filter_rect
+from ..ops.filter import apply_plan_any, build_plan_any, lattice_filter_rect, make_wide_filter
 from ..ops.kernels import fit_mixture_weights_subset, matern_kernel, mixture_kernel, rbf_kernel
 from .components import constrain, init_raw_params
 
@@ -206,10 +206,12 @@ class SimplexGP(_RawParams):
         The root comes from a randomized range sketch: Y = K_hat Omega,
         Q = qr(Y), T = Q^T K_hat Q, root_inv = Q U L^{-1/2} for T = U L U^T.
         ``Omega`` (n, m) is ``omega`` when given, else standard normal draws
-        from ``generator``.  Both sketch MVMs reuse the CG's plan (JAX builds
-        a second one with the same positions and capacity, exact_gp.py:339)
-        and take JAX's wide dispatch: K9 above 4M contribution rows, else K3.
-        The cache also records the CG iteration count and mean final residual.
+        from ``generator``.  The eval CG runs on the sort-chain plan (K3'),
+        as JAX's does; both sketch MVMs share one wide filter of their own
+        (make_wide_filter with the same positions and capacity, as JAX's,
+        exact_gp.py:339), a join plan applied by K9 above 4M contribution
+        rows, else by K3.  The cache also records the CG iteration count and
+        mean final residual.
         """
         params = self.constrained()
         ref = x * params["inv_ell"]
@@ -233,8 +235,10 @@ class SimplexGP(_RawParams):
             raise ValueError(f"omega has shape {tuple(omega.shape)}, expected {(n, m)}")
         s, noise = params["outputscale"], params["noise"]
 
+        kmv = make_wide_filter(ref, self.dk, self.bbmm.plan_capacity)
+
         def mv_wide(V):
-            return s * apply_plan_wide(plan, V, self.dk) + noise * V
+            return s * kmv(V) + noise * V
 
         Q, _ = torch.linalg.qr(mv_wide(omega))
         T = Q.T @ mv_wide(Q)

@@ -1,10 +1,14 @@
 """The lattice filter's entry points and its autograd bridges (reference L2).
 
-Port of simplex_gp_tpu/ops/filter.py.  :func:`_filter_plain` keeps JAX's
-dispatch (:120-140): values of up to ``_WIDE_COLS`` = 16 columns go to the
-one-shot filter K4 (``filter_once``); wider ones to the join plan (K1 + K2
-build, K3 apply), or, above ``_JOIN_MAX_ROWS`` contribution rows n(d+1), to one plan applied
-``_WIDE_CHUNK`` columns at a time by K9 (:func:`lattice_filter_wide_chunked`,
+Port of simplex_gp_tpu/ops/filter.py.  :func:`build_plan_any` keeps JAX's
+dispatch (:186-193): the reusable plan of the CG solves is the sort-chain
+plan (K1 + K3'a build, K3'b-d apply) for a DiscretizedKernel, and
+:func:`apply_plan_any` applies a plan by its type.  :func:`_filter_plain`
+keeps JAX's one-shot dispatch (:120-140): values of up to ``_WIDE_COLS`` =
+16 columns go to the one-shot filter K4 (``filter_once``); wider ones to
+the join plan (K1 + K2 build, K3 apply), or, above ``_JOIN_MAX_ROWS``
+contribution rows n(d+1), to one join plan applied ``_WIDE_CHUNK`` columns
+at a time by K9 (:func:`lattice_filter_wide_chunked`,
 :func:`make_wide_filter`; JAX's chunked sort-chain filter, here the join
 plan, so the same operator up to 64-bit hash collisions).  ``capacity``
 bounds the plan's table as in JAX (:143-193).
@@ -42,11 +46,13 @@ from ..kernels.lattice import lattice_deriv_grad, lattice_filter_grad
 from .kernels import DiscretizedKernel, MixtureKernel
 from .lattice import (
     SLICE_NORM,
-    LatticePlan,
+    ChainPlan,
     MixturePlan,
+    apply_plan_chain,
     apply_plan_cols,
     apply_plan_join,
     apply_plan_mixture,
+    build_plan,
     build_plan_join,
     build_plan_mixture,
     build_plan_sharded_join,
@@ -67,6 +73,7 @@ _WIDE_CHUNK = 8
 
 __all__ = [
     "build_plan_any",
+    "build_join_plan_any",
     "apply_plan_any",
     "apply_plan_wide",
     "lattice_filter_wide_chunked",
@@ -86,8 +93,20 @@ __all__ = [
 def build_plan_any(ref: torch.Tensor, dk, capacity: Optional[int] = None):
     """Reusable filter plan of ``dk`` at positions ``ref``; pair with :func:`apply_plan_any`.
 
-    A LatticePlan, or for a MixtureKernel the stacked MixturePlan of its
-    components, which ignores ``capacity`` (filter.py:186-193).
+    The sort-chain ChainPlan (JAX's build_plan), or for a MixtureKernel the
+    stacked MixturePlan of its components, which ignores ``capacity``
+    (filter.py:186-193).
+    """
+    if isinstance(dk, MixtureKernel):
+        return build_plan_mixture(ref, dk.alphas, dk.base.coeffs, dk.base.variance)
+    return build_plan(ref, dk.coeffs, dk.variance, capacity)
+
+
+def build_join_plan_any(ref: torch.Tensor, dk, capacity: Optional[int] = None):
+    """The join-engine plan of ``dk`` at ``ref``: a LatticePlan, or a mixture's stacked MixturePlan.
+
+    The plan whose applies keep a blurred table for the exact backward (K5)
+    and whose wide applies take K9.
     """
     if isinstance(dk, MixtureKernel):
         return build_plan_mixture(ref, dk.alphas, dk.base.coeffs, dk.base.variance)
@@ -95,11 +114,18 @@ def build_plan_any(ref: torch.Tensor, dk, capacity: Optional[int] = None):
 
 
 def apply_plan_any(plan, V: torch.Tensor, dk, transpose: bool = False, return_table: bool = False, axis=None):
-    """K @ V (or K^T @ V) through a plan from :func:`build_plan_any`, or a sharded plan with ``axis``.
+    """K @ V (or K^T @ V) through a plan from :func:`build_plan_any` or :func:`build_join_plan_any`,
+    or a sharded plan with ``axis``.
 
-    No outputscale or noise.  A mixture applies all its components by K12
-    (filter.py:196-204); the sharded engine takes no mixture.
+    No outputscale or noise.  A ChainPlan applies by K3'b-d (apply_plan,
+    lattice.py:1305-1314) and has neither a transpose nor a table to
+    return; a mixture applies all its components by K12 (filter.py:196-204);
+    the sharded engine takes no mixture.
     """
+    if isinstance(plan, ChainPlan):
+        if transpose or return_table or axis is not None:
+            raise NotImplementedError("a chain plan applies forward on one device: no transpose, table or axis")
+        return apply_plan_chain(plan, V, dk.coeffs)
     if isinstance(dk, MixtureKernel):
         if axis is not None:
             raise NotImplementedError("the sharded filter takes one DiscretizedKernel, not a mixture")
@@ -113,7 +139,7 @@ def _chunked(n: int, d: int, c: int) -> bool:
 
 
 def apply_plan_wide(plan, V: torch.Tensor, dk) -> torch.Tensor:
-    """K @ V through a plan, engine by JAX's dispatch: K9 for a wide block on a large plan, else K3.
+    """K @ V through a join plan, engine by JAX's dispatch: K9 for a wide block on a large plan, else K3.
 
     A mixture's plan goes to K12, or above ``_JOIN_MAX_ROWS`` to K9 one
     component at a time (make_wide_filter_any, filter.py:207-220).
@@ -138,13 +164,13 @@ def lattice_filter_wide_chunked(src: torch.Tensor, ref: torch.Tensor, dk: Discre
     column count.  No gradient (the differentiable route is
     :func:`lattice_filter_exact_grad`, which takes the same branch).
     """
-    return apply_plan_cols(build_plan_any(ref, dk, capacity), src, dk.coeffs, _WIDE_CHUNK)
+    return apply_plan_cols(build_join_plan_any(ref, dk, capacity), src, dk.coeffs, _WIDE_CHUNK)
 
 
 def make_wide_filter(ref: torch.Tensor, dk, capacity: Optional[int] = None):
     """Reusable ``mv(V) -> K(ref, ref) @ V`` for wide value blocks (filter.py:87-117).
 
-    One plan, built now: above ``_JOIN_MAX_ROWS`` with ``capacity`` and
+    One join plan, built now: above ``_JOIN_MAX_ROWS`` with ``capacity`` and
     applied by K9; below, untrimmed and applied by K3, as JAX's join branch.
     A mixture builds its stacked plan (K12), or above ``_JOIN_MAX_ROWS`` one
     untrimmed K9 filter per component (make_wide_filter_any, :207-220).
@@ -153,7 +179,7 @@ def make_wide_filter(ref: torch.Tensor, dk, capacity: Optional[int] = None):
     if isinstance(dk, MixtureKernel) and large:
         mvs = [make_wide_filter(ref * a, dk.base) for a in dk.alphas]
         return lambda V: sum(w * f(V) for w, f in zip(dk.weights, mvs))
-    plan = build_plan_any(ref, dk, capacity if large else None)
+    plan = build_join_plan_any(ref, dk, capacity if large else None)
     return lambda V: apply_plan_wide(plan, V, dk)
 
 
@@ -222,13 +248,13 @@ class LatticeFilterExactGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src: torch.Tensor, ref: torch.Tensor, dk, capacity: Optional[int] = None, axis=None):
         if isinstance(dk, MixtureKernel):
-            plan = build_plan_any(ref, dk)
+            plan = build_join_plan_any(ref, dk)
             out, table_f = apply_plan_any(plan, src, dk, return_table=True)
         elif axis is not None:
             plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
             out, table_f = apply_plan_any(plan, src, dk, return_table=True, axis=axis)
         else:
-            plan = build_plan_any(ref, dk, capacity)
+            plan = build_join_plan_any(ref, dk, capacity)
             if _chunked(*ref.shape, src.shape[-1]):
                 out, table_f = apply_plan_cols(plan, src, dk.coeffs, _WIDE_CHUNK), None
             else:

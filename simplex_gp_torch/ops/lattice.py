@@ -5,20 +5,31 @@ permutohedral lattice with barycentric weights, B is the product of d+1
 banded blurs along the lattice axes, and S^T slices back.  It approximates
 ``K(x, x) @ v`` for a stationary kernel (simplex_gp_tpu/ops/lattice.py).
 
-A :class:`LatticePlan` holds everything that depends only on positions, so
-a CG solve builds it once and applies it many times.  The plan is built by
-K1 (lattice_geometry: vertex hashes and weights) and K2
-(lattice_dedup_neighbors: lattice rows and blur neighbours), and applied by
-K3 (lattice_apply), all in :mod:`simplex_gp_torch.kernels.lattice`; the
-sharded plan of the data-parallel engine by K1 and K11a, and its apply by
-K11b (``axis``).  This is
-the JAX package's join engine (build_plan_join / apply_plan_join); the TPU's
-sort-chain engine is not ported, because the card's gathers and atomics are
-fast where the TPU's are not.  ``build_plan_join``'s ``capacity`` takes the
-chain plan's semantics (JAX's build_plan(capacity), :857-892): the table has
-min(capacity, n(d+1)) rows, and an apply returns all NaN when more points are
-occupied (:1093-1100).  :func:`apply_plan_cols` is K9, the apply of a wide
-value block a few columns at a time.
+A plan holds everything that depends only on positions, so a CG solve
+builds it once and applies it many times.  There are two engines, as in JAX:
+
+* the sort chain (:class:`ChainPlan`, :func:`build_plan_chain` /
+  :func:`apply_plan_chain`, JAX's default plan and so :func:`build_plan`):
+  every lattice axis splits the lattice into 1-D chains that sort into
+  adjacent rows, so each axis blur is a stencil over neighbouring rows, and
+  the move from one axis order to the next a fixed gather.  Built by K1
+  (with the coordinate sums) and K3'a (chain_build), applied by K3'b-d
+  (chain_splat, chain_axis, chain_slice), in
+  :mod:`simplex_gp_torch.kernels.chain`, with no atomics, so two applies
+  give the same bits.  The single-device CG runs on it.
+* the join (:class:`LatticePlan`, build_plan_join / apply_plan_join): K1
+  and K2 (lattice_dedup_neighbors: lattice rows and blur neighbours) build
+  it, K3 (lattice_apply, atomic splat) applies it, K3 transposed and K5
+  differentiate it, all in :mod:`simplex_gp_torch.kernels.lattice`; the
+  sharded plan of the data-parallel engine is K1 and K11a, applied by K11b
+  (``axis``).
+
+Both compute the same operator (up to 64-bit hash collisions and the chain's
+43-bit packed words, lattice.py:583-587), and both take the chain plan's
+``capacity`` semantics (JAX's build_plan(capacity), :857-892): the table has
+min(capacity, n(d+1)) rows, and an apply returns all NaN when more points
+are occupied (:1093-1100).  :func:`apply_plan_cols` is K9, the join apply of
+a wide value block a few columns at a time.
 
 :func:`filter_once` is the reference's one-shot ``filter``: K4 builds and
 applies in one call, with no plan and an optional capacity bound (JAX's
@@ -54,14 +65,20 @@ from ..kernels.lattice import (
     lattice_geometry,
     lattice_simplex,
 )
+from ..kernels.chain import ChainPlan, chain_apply, chain_build
 from ..kernels.mixture import lattice_mixture_apply
 
 __all__ = [
     "LatticePlan",
+    "ChainPlan",
     "MixturePlan",
     "SLICE_NORM",
     "build_rotation",
     "lattice_simplex",
+    "build_plan",
+    "apply_plan",
+    "build_plan_chain",
+    "apply_plan_chain",
     "build_plan_join",
     "build_plan_sharded_join",
     "apply_plan_join",
@@ -148,6 +165,46 @@ def _offset_hashes(d: int, order: int, a: np.ndarray):
     return wrap((offsets * a64[0]).sum(-1)), wrap((offsets * a64[1]).sum(-1))
 
 
+# Sort-chain constants (lattice.py:583-593).  s, the coordinate sum, is
+# packed into the low 21 bits of the second chain word; its top 11 bits
+# still identify the chain (43 hash bits in all).  JAX gives the table's pad
+# rows the hash pair (_PAD_H1, _PAD_H2); the port gives them the sort key
+# INT64_MAX instead, so that they sort last in every axis order
+# (kernels/chain.py).
+_S_BITS = 21
+_S_BIAS = np.int32(1 << 20)
+_S_MASK = np.int32((1 << _S_BITS) - 1)
+_TOP_MASK = np.int32(-(1 << _S_BITS))  # ~_S_MASK
+_PAD_H1 = np.int32(0x7FFFFFF1)
+_PAD_H2 = np.int32(0x7FFFFFF2)
+
+
+def _axis_dir(d: int):
+    """Along-axis +1-tap key offset per lattice axis and its coordinate sum.
+
+    Axis j < d: stored coordinate j moves by +d, all others by -1 (coordinate
+    sum +1).  Axis d (the implicit coordinate): all stored coordinates move
+    by -1 (coordinate sum -d).  Same geometry as permutohedral.h:539-541.
+    """
+    off = np.full((d + 1, d), -1, dtype=np.int64)
+    for j in range(d):
+        off[j, j] = d
+    return off, off.sum(-1)  # (d+1, d), (d+1,)
+
+
+def _chain_consts(d: int) -> np.ndarray:
+    """(3, d+1) int32: the per-axis chain-word constants oh1, oh2 and mult of _chain_words (:648-663).
+
+    For axis direction o, c(key) = s(o) h(key) - s(key) h(o) is constant
+    along the chain {key + t o} by hash linearity (mod 2^32): oh = h(o),
+    mult = s(o).
+    """
+    off, so = _axis_dir(d)
+    a = _hash_vectors(d).astype(np.int64)
+    wrap = lambda v: ((v & 0xFFFFFFFF).astype(np.uint32)).view(np.int32)
+    return np.stack([wrap((off * a[0]).sum(-1)), wrap((off * a[1]).sum(-1)), so.astype(np.int32)])
+
+
 class LatticePlan(NamedTuple):
     """Position-dependent, value-independent filter state, reusable across MVMs.
 
@@ -191,6 +248,49 @@ def _lattice_constants(d: int, coeffs: tuple, blur_variance: float, device):
     E = torch.from_numpy(build_rotation(d, blur_variance)).to(device)
     oh1, oh2 = (torch.from_numpy(o).to(device) for o in _offset_hashes(d, (len(coeffs) - 1) // 2, a))
     return E, torch.from_numpy(a).to(device), oh1, oh2
+
+
+def build_plan_chain(x: torch.Tensor, coeffs: tuple, blur_variance: float,
+                     capacity: Optional[int] = None) -> ChainPlan:
+    """Build the sort-chain plan for positions ``x`` (n, d) on ``x``'s device: K1 + K3'a.
+
+    Port of lattice.py::build_plan_chain (:857).  ``capacity`` (None:
+    n(d+1)) bounds the table as in :func:`build_plan_join`.  The taps must
+    be symmetric (:872-874).
+    """
+    cs = np.asarray(coeffs, np.float64)
+    if not np.allclose(cs, cs[::-1]):
+        raise ValueError("chain plan requires symmetric filter taps")
+    d = x.shape[1]
+    E = torch.from_numpy(build_rotation(d, blur_variance)).to(x.device)
+    a = torch.from_numpy(_hash_vectors(d)).to(x.device)
+    h1, h2, weights, s = lattice_geometry(x.to(torch.float32).contiguous(), E, a, with_s=True)
+    consts = torch.from_numpy(_chain_consts(d)).to(x.device)
+    return chain_build(h1, h2, s, weights, consts, [float(c) for c in coeffs], capacity)
+
+
+def apply_plan_chain(plan: ChainPlan, v: torch.Tensor, coeffs: tuple) -> torch.Tensor:
+    """K(x, x) @ v for v (n, c) through a sort-chain plan: K3'b splat, d+1 K3'c axes, K3'd slice.
+
+    Port of lattice.py::apply_plan_chain (:943) on one device; all NaN when
+    the plan's capacity overflowed (:1093-1100).
+    """
+    dp1, order = plan.tapw.shape[:2]
+    if len(coeffs) != 2 * order + 1:
+        raise ValueError(f"{len(coeffs)} taps do not fit a plan of order {order}")
+    return chain_apply(plan, v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(dp1 - 1))
+
+
+def build_plan(x: torch.Tensor, coeffs: tuple, blur_variance: float, capacity: Optional[int] = None) -> ChainPlan:
+    """Default plan builder: the sort-chain plan (lattice.py:1298-1302)."""
+    return build_plan_chain(x, coeffs, blur_variance, capacity)
+
+
+def apply_plan(plan, v: torch.Tensor, coeffs: tuple) -> torch.Tensor:
+    """Apply a ChainPlan or a LatticePlan, by its type (lattice.py:1305-1314)."""
+    if isinstance(plan, ChainPlan):
+        return apply_plan_chain(plan, v, coeffs)
+    return apply_plan_join(plan, v, coeffs)
 
 
 def build_plan_join(x: torch.Tensor, coeffs: tuple, blur_variance: float,

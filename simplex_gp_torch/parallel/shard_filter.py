@@ -16,10 +16,12 @@ ranks holds n_loc of the n = P n_loc input points:
 Per apply each rank sends and receives (P-1)/P of an (M, c_pad) table; per
 plan build it gathers 8 bytes per vertex.
 
-JAX's ``build_plan_sharded`` is the sort-chain engine; the chain is not
-ported (ROADMAP "Not to port"), so here it is the join engine, as JAX's
-``build_plan_sharded_join``, which lives beside the single-device plan
-builder in ops/lattice.py and is re-exported here.
+JAX's ``build_plan_sharded`` is the sort-chain engine (its column-split
+apply_plan_chain branch, lattice.py:1040-1061).  The port's sort chain
+(K3') runs on one device only, so the sharded plan here is the join
+engine, as JAX's ``build_plan_sharded_join``, which lives beside the
+single-device plan builders in ops/lattice.py and is re-exported here; the
+sharded chain is queued (ROADMAP section 2).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ __all__ = ["build_plan_sharded", "build_plan_sharded_join", "filter_sharded"]
 
 def build_plan_sharded(x_local: torch.Tensor, coeffs: tuple, blur_variance: float,
                        axis: DataAxis) -> LatticePlan:
-    """The sharded plan: :func:`build_plan_sharded_join` (JAX's is the sort chain, not ported)."""
+    """The sharded plan: :func:`build_plan_sharded_join` (JAX's is the sharded sort chain, not ported)."""
     return build_plan_sharded_join(x_local, coeffs, blur_variance, axis)
 
 

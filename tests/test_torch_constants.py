@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from simplex_gp_torch.kernels import chain as t_chain
 from simplex_gp_torch.ops import coeffs as t_coeffs
 from simplex_gp_torch.ops import kernels as t_kernels
 from simplex_gp_torch.ops import lattice as t_lattice
@@ -85,3 +86,46 @@ def test_elevators_data_equal():
         np.testing.assert_array_equal(a, b)
     assert t.train_x.shape == (10623, 18) and t.test_x.shape == (3320, 18)
     assert t_data.UCI_SHAPES == j_data.UCI_SHAPES
+
+
+@pytest.mark.parametrize("d", DIMS)
+def test_chain_constants_equal(d):
+    """The sort chain's packing constants, axis directions and per-axis chain-word constants."""
+    for name in ("_S_BITS", "_S_BIAS", "_S_MASK", "_TOP_MASK", "_PAD_H1", "_PAD_H2"):
+        ours, theirs = getattr(t_lattice, name), getattr(j_lattice, name)
+        assert ours == theirs and type(ours) is type(theirs), name
+    assert (t_chain._S_BIAS, t_chain._S_MASK, t_chain._TOP_MASK) == (
+        int(j_lattice._S_BIAS), int(j_lattice._S_MASK), int(j_lattice._TOP_MASK))
+    for ours, theirs in zip(t_lattice._axis_dir(d), j_lattice._axis_dir(d)):
+        np.testing.assert_array_equal(ours, theirs)
+    oh1, oh2, mult = j_lattice._axis_hash_consts(d)  # _chain_words' oh1, oh2, mult for every axis
+    consts = t_lattice._chain_consts(d)
+    assert consts.dtype == np.int32
+    np.testing.assert_array_equal(consts, np.array([oh1, oh2, mult], np.int32))
+
+
+@pytest.mark.parametrize("d", [1, 5, 18])
+def test_chain_keys_pack_jax_chain_words(d):
+    """The port's int64 sort key holds JAX's chain word c1 over its packed word (_pack, :638) with the
+    sign bit flipped, for every axis, on wrapping hashes and clipped coordinate sums."""
+    rng = np.random.default_rng(d)
+    N = 4096
+    h1 = rng.integers(-2**31, 2**31, size=N, dtype=np.int64).astype(np.int32)
+    h2 = rng.integers(-2**31, 2**31, size=N, dtype=np.int64).astype(np.int32)
+    s = np.concatenate([rng.integers(-3000, 3000, size=N - 4), [-2**21, 2**21, -2**20, 2**20 - 1]]).astype(np.int32)
+    c1, c2 = j_lattice._chain_words(jnp.asarray(h1), jnp.asarray(h2), jnp.asarray(s), np.arange(d + 1), d)
+    packed = np.asarray(j_lattice._pack(c2, jnp.asarray(s)[None, :]))
+    oh1, oh2, mult = (torch.from_numpy(r).long()[:, None] for r in t_lattice._chain_consts(d))
+    h1t, h2t, st = (torch.from_numpy(a).long()[None, :] for a in (h1, h2, s))
+    key = t_chain._key(mult * h1t - st * oh1, mult * h2t - st * oh2, st.expand(d + 1, N)).numpy()
+    np.testing.assert_array_equal((key >> 32).astype(np.int32), np.asarray(c1))
+    np.testing.assert_array_equal(((key & 0xFFFFFFFF) ^ 0x80000000).astype(np.uint32).view(np.int32), packed)
+
+
+def test_chain_plan_refuses_asymmetric_taps():
+    taps = (0.2, 1.0, 0.5)
+    x = np.random.default_rng(0).normal(size=(16, 2)).astype(np.float32)
+    with pytest.raises(ValueError, match="symmetric"):
+        j_lattice.build_plan_chain(jnp.asarray(x), taps, 0.5)
+    with pytest.raises(ValueError, match="chain plan requires symmetric filter taps"):
+        t_lattice.build_plan_chain(torch.from_numpy(x), taps, 0.5)

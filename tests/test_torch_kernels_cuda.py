@@ -26,8 +26,14 @@ arithmetic, bit for bit.  K12, the stacked mixture apply, is K3's splat,
 blur and slice over J stacked component tables, with the weighted sum over
 components in the slice (rel 1e-5, forward and transposed, outputs and the
 read rows of its table); the mixture position gradient is K5 on the stacked
-problem (rel 1e-4).  The Snelson gate (test_torch_snelson.py's prediction
-test) runs on the card too, through the kernels.
+problem (rel 1e-4).  K3', the sort chain, has no atomics: its build is the
+plain build bit for bit (the same torch.sort calls on the same keys), its
+splat sums each row in the order its plain version does, and its axis
+stencils and slice use the plain version's IEEE operations in their order,
+so the applies are bit-equal too, and two builds or two applies repeat
+bit for bit; against K3 it takes the chain-vs-join bound, rel 2e-5.  The
+Snelson gate (test_torch_snelson.py's prediction test) runs on the card
+too, through the kernels.
 Positions at d >= 9 are scaled by 0.3, so the kernel reaches between points
 and the gradients are not roundoff.
 """
@@ -36,6 +42,7 @@ import pytest
 import torch
 from torch_parity import cuda_device, seeded  # noqa: F401 (fixture)
 
+from simplex_gp_torch.kernels import chain as KC
 from simplex_gp_torch.kernels import lattice as K
 from simplex_gp_torch.kernels import mixture as KM
 from simplex_gp_torch.kernels.pivot import pivot_column, pivot_column_plain
@@ -568,3 +575,61 @@ def test_skip_root_and_nlml_through_k13(cuda_device):
         out.append((float(loss.detach()), torch.cat([p.grad.reshape(-1).cpu() for p in m.parameters()])))
     (lk, gk), (lp, gp) = out
     assert abs(lk - lp) < 1e-5 and float((gk - gp).norm() / gp.norm()) < 1e-3
+
+
+@pytest.mark.parametrize("n,d,order,kind", GRID + [(10623, 18, 1, "matern"), (3000, 2, 1, "rbf")])
+def test_chain_build_and_apply_match_plain_bit_for_bit(cuda_device, n, d, order, kind):
+    """K3'a-d against their plain versions at the grid and at elevators width (d = 18), trimmed and
+    untrimmed; (3000, 2) at a small scale has rows past PIECE, summed in pieces."""
+    dk = _dk(kind, order)
+    x = _positions(n, d, 10, cuda_device)
+    if n == 3000:
+        x = 0.02 * x
+    E = torch.from_numpy(t_lattice.build_rotation(d, dk.variance)).to(cuda_device)
+    a = torch.from_numpy(t_lattice._hash_vectors(d)).to(cuda_device)
+    h1, h2, w, s = K.lattice_geometry(x, E, a, with_s=True)
+    ph1, ph2, pw, ps = K.geometry_plain(x, E, a, with_s=True)
+    assert torch.equal(h1, ph1) and torch.equal(h2, ph2) and torch.equal(s, ps)
+    consts = torch.from_numpy(t_lattice._chain_consts(d)).to(cuda_device)
+    taps = [float(t) for t in dk.coeffs]
+    occ = int(KC.chain_build_plain(h1, h2, s, w, consts, taps).n_lattice)
+    join = t_lattice.build_plan_join(x, dk.coeffs, dk.variance)
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    for cap in (None, occ + 3, occ - 1):
+        kplan = KC.chain_build(h1, h2, s, w, consts, taps, cap)
+        pplan = KC.chain_build_plain(h1, h2, s, w, consts, taps, cap)
+        again = KC.chain_build(h1, h2, s, w, consts, taps, cap)
+        torch.cuda.synchronize()
+        for f in KC.ChainPlan._fields:
+            assert torch.equal(getattr(kplan, f), getattr(pplan, f)), f
+            assert torch.equal(getattr(kplan, f), getattr(again, f)), f
+        if n == 3000 and cap is None:
+            assert int(kplan.n_long) > 0 and int(kplan.n_pieces) > int(kplan.n_long)
+        for c in (1, 11):
+            v = torch.randn((n, c), generator=gen, device=cuda_device)
+            kout = t_lattice.apply_plan_chain(kplan, v, dk.coeffs)
+            pout = KC.chain_apply_plain(pplan, v, taps, t_lattice.SLICE_NORM(d))
+            torch.cuda.synchronize()
+            if cap is not None and cap < occ:
+                assert bool(torch.isnan(kout).all() and torch.isnan(pout).all())
+                continue
+            assert torch.equal(kout, pout)
+            assert torch.equal(kout, t_lattice.apply_plan_chain(kplan, v, dk.coeffs))
+            jout = t_lattice.apply_plan_join(join, v, dk.coeffs)
+            assert float((kout - jout).norm() / jout.norm()) < 2e-5
+
+
+def test_chain_wrappers_refuse_wrong_inputs(cuda_device):
+    dk = _dk("rbf", 1)
+    x = _positions(50, 3, 11, cuda_device)
+    plan = t_lattice.build_plan_chain(x, dk.coeffs, dk.variance)
+    with pytest.raises(ValueError):
+        KC.chain_splat(plan, torch.zeros((49, 2), device=cuda_device))
+    with pytest.raises(ValueError):
+        KC.chain_splat(plan, torch.zeros((50, 2), dtype=torch.float64, device=cuda_device))
+    table = KC.chain_splat(plan, torch.zeros((50, 2), device=cuda_device))
+    with pytest.raises(ValueError):
+        KC.chain_axis(table, plan.tapw[0], plan.gather[0], plan.n_lattice, [0.5, 1.0, 0.5, 0.1, 0.1])
+    with pytest.raises(ValueError):
+        KC.chain_build(plan.slice_idx.reshape(-1), plan.slice_idx.reshape(-1), plan.slice_idx.reshape(-1),
+                       plan.weights, torch.zeros((3, 3), dtype=torch.int32, device=cuda_device), list(dk.coeffs))

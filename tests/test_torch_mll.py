@@ -2,17 +2,20 @@
 
 Ports of the five tests of tests/test_mll.py (the same data, probes and
 bounds, on the port), and the port's ``lattice_nlml`` value and gradients
-against JAX's on the same numpy probes, in both slq modes.  JAX runs the
-sort-chain engine for its CG and the one-shot fused filter for its backward;
-the port runs the join engine for both (the same operator to rel 2e-5,
-test_chain_plan.py).  Measured differences (my CPU runs): value <= 6e-7,
-gradients rel <= 5e-4, the largest on the mean at d = 1, where a rank-100
-preconditioner of a 150-point system is near rank-deficient and its f32
-Woodbury roundoff reaches the solves.  Bounds: value 1e-5, gradients rel
-2e-3.  The same bounds hold in ``grad_mode="deriv_filter"``, where JAX's
-backward filters V with its one-shot sort-chain filter and the port with
-its one-shot join filter (K4), and both run the derivative-tap filter (K7)
-on a join plan.
+against JAX's on the same numpy probes, in both slq modes.  Both run the
+sort-chain engine for the CG; JAX's backward runs the one-shot fused filter
+(the chain operator), the port's a join plan (the same operator to rel
+2e-5, test_chain_plan.py).  The port's chain sums each row of its splat in
+its kernel's order where JAX differences a running sum.  Measured (CPU),
+value <= 5e-7, gradients rel <= 3e-4, the largest on the mean
+at d = 1, where 150 points occupy 7 lattice points, a rank-20
+preconditioner of the exact kernel is near rank-deficient, and its f32
+Woodbury roundoff reaches the solves: there a 1e-7 relative change of the
+filter's output moves the mean's gradient by 1e-3 to 1e-2 against JAX.
+Bounds: value 1e-5, gradients rel 2e-3.  The same bounds hold in
+``grad_mode="deriv_filter"``, where JAX's backward filters V with its
+one-shot sort-chain filter and the port with its one-shot join filter (K4),
+and both run the derivative-tap filter (K7) on a join plan.
 """
 
 import math

@@ -11,9 +11,10 @@ engine, on the same numpy inputs.
 Bounds, those of tests/test_parallel.py: the filter rtol 1e-5 / atol 1e-5,
 the loss rtol 1e-4, gradients rtol 1e-3 / atol 1e-4.  JAX's sharded plan is
 the sort chain, the port's the join plan (the same operator to rel 2e-5,
-test_chain_plan.py).  The port's sharded and single-device runs differ only
-in the order of the sums over rows (measured: filter rel <= 7e-8, loss 2.4e-7,
-gradients rel <= 2.3e-6, the same CG iteration counts).  The sharded
+test_chain_plan.py).  The port's single-device engine runs its CG on the
+sort chain (K3'), its sharded engine on the join; the two differ in the
+order of the sums over rows and in the splat's summation (measured: filter
+rel <= 7e-8, the same CG iteration counts).  The sharded
 pivoted-Cholesky factor equals the single-device one bit for bit: every row
 runs the same operations, and the winner of the gathered candidates is the
 global first maximum, as the single-device argmax.  K11a's plans are the same

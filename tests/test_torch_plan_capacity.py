@@ -5,9 +5,10 @@ plain kernel versions on the CPU) against JAX's ``build_plan(capacity)`` +
 ``apply_plan`` (the sort chain), on the same numpy inputs: equal up to the
 chain-vs-join bound (rel < 2e-5, test_chain_plan.py::test_chain_matches_join)
 when the capacity holds the occupancy, all NaN in both at occupancy - 1
-(lattice.py:1093-1100).  The NLML with ``plan_capacity`` equals the untrimmed
-NLML (same operator, same probes) when the capacity holds, and JAX's on an
-overflow.  The trainer's autotrim equals train_simplexgp.py:53-67.
+(lattice.py:1093-1100).  The NLML with ``plan_capacity`` (its CG on the
+port's trimmed chain plan, its backward on a trimmed join plan) equals the
+untrimmed NLML (same operator, same probes) when the capacity holds, and
+JAX's on an overflow.  The trainer's autotrim equals train_simplexgp.py:53-67.
 """
 
 import argparse

@@ -3,8 +3,9 @@
 The port on the CPU (plain kernel versions) against the JAX package on the
 same raw parameters and numpy probes.  Tolerances, each with its reason:
   * SimplexGP.nlml against JAX's lattice_nlml on model.constrained(raw):
-    the same engine on the join instead of the sort-chain operator (rel 2e-5
-    apart), value 1e-5 and raw gradients rel 2e-3, as tests/test_torch_mll.py;
+    both run the CG on the sort chain, the port's backward on the join
+    operator (rel 2e-5 apart), value 1e-5 and raw gradients rel 2e-3, as
+    tests/test_torch_mll.py;
   * DenseGP: dense f32 Cholesky on both sides, value rel 1e-5, gradients
     rel 1e-4;
   * the Snelson parity port keeps the reference's bound, |delta MLL| < 0.1
