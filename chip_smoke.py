@@ -25,8 +25,9 @@ Phases, each printed as it runs:
      against its plain version at the median-init training positions (c = 1
      and 11), with its capacity guard (capacity = occupancy gives the same
      output, occupancy - 1 all NaN); K8 lattice_count against its plain
-     version at elevators, precipitation and houseelectric, and the guard at
-     houseelectric; K7 lattice_deriv_grad against its plain version (c = 11,
+     version at elevators, precipitation, houseelectric and houseelectric's
+     size with one point repeated, timed beside K1 + torch.unique of its
+     keys, and the guard at houseelectric; K7 lattice_deriv_grad against its plain version (c = 11,
      418 stacked columns); grad_mode="deriv_filter": NLML and raw gradients
      at the median init and at model_best.pkl, three Adam steps, one warm
      step and its stages; ``simplex_gp_torch.mvm_err.main`` for rbf order 1
@@ -98,14 +99,17 @@ Phases, each printed as it runs:
      phases 3, 4 and 6 already ran through SimplexGP.nlml and
      posterior_cache: K3'a chain_build and K3'b-d chain_splat, chain_axis,
      chain_slice against their plain versions (the plan field by field, the
-     apply at c = 1 and 11) and against the join plan on the same positions,
-     at elevators' median-init and trained positions and at houseelectric
-     with its autotrimmed capacity 32,768; two builds and two applies bit
-     for bit; the build and apply times beside K1 + K2 and K3; each kernel's
-     time, plain time, bound and one torch.sparse CSR product of the same
-     function; the kernels' launches in one elevators training step; whether
-     two NLML evaluations and two posterior_cache calls repeat bit for bit
-     (and which stage differs if not); the elevators training CG and the
+     splat and the apply at c = 1 and 11, bit for bit) and against the join
+     plan on the same positions, at elevators' median-init and trained
+     positions and at houseelectric with its autotrimmed capacity 32,768,
+     untrimmed and one row short of its occupancy; two builds and two
+     applies bit for bit; the build and apply times beside K1 + K2 and K3;
+     K3'b's time beside one torch.sparse CSR product at c = 1 and 11 in
+     each of the first three cases; each kernel's time, plain time, bound
+     and one CSR product of the same function; the kernels' launches in one
+     elevators training step; that two NLML evaluations and two
+     posterior_cache calls repeat bit for bit (and which stage differs if
+     not); the elevators training CG and the
      houseelectric eval CG on the chain plan and on the join plan of the
      same positions, in turns; the stage times of phases 3, 4.5 and 6.5.
 
@@ -248,9 +252,11 @@ MIX_FIT_REL = 1e-2
 # build bit for bit (the same torch.sort calls on the same keys), its splat
 # sums each row in its plain version's order and its stencils and slice use
 # the plain version's IEEE operations in their order, so kernel and plain
-# are expected bit-equal; the gate is rel 1e-6.  Against the join (K1 + K2,
-# K3) on the same positions, the chain-vs-join bound (LARGE_N_REL).  Two
-# builds and two applies must repeat bit for bit.
+# are bit-equal: the build, the splat and the apply are gated bit for bit
+# (the axis and slice alone on one input at max |diff| 10 CHAIN_REL).
+# Against the join (K1 + K2, K3) on the same positions, the chain-vs-join
+# bound (LARGE_N_REL).  Two builds and two applies must repeat bit for bit,
+# and so must the NLML and the eval CG built on them.
 CHAIN_REL = 1e-6
 # Phase 9.  K13b, K13c and K13d against their plain versions: float32 sums of
 # r or r k products (and of the rows, in 1,024-row chunks, for K13c) in
@@ -709,17 +715,31 @@ def oneshot_phase(dev, ds, expect, timer):
         expect(bool(torch.isnan(guard).all()), f"houseelectric: capacity = occupancy - 1 gives all NaN "
                f"({guard_s:.3f} s, no hang)")
         Eh, ah, _, _ = L._lattice_constants(xh.shape[1], rbf.coeffs, rbf.variance, dev)
+        # The hot-key case: every houseelectric row replaced by the first, so each block's keys are
+        # the same d+1 and every insert finds its key taken.
+        xhot = xh[:1].expand(xh.shape[0], -1).contiguous()
+        kc, pc = int(K.lattice_count(xhot, Eh, ah)), int(K.count_plain(xhot, Eh, ah))
+        k8_err = max(k8_err, abs(kc - pc))
+        expect(kc == pc == xh.shape[1] + 1, f"houseelectric size, one point repeated: count kernel {kc} plain {pc} "
+               f"(d+1 = {xh.shape[1] + 1})")
+        k8_ms["houseelectric, one point repeated"] = timer(lambda: K.lattice_count(xhot, Eh, ah), 5)
+        del xhot
         hh1, hh2, _ = K.lattice_geometry(xh, Eh, ah)
         # torch.unique of the packed keys: the dedup stage alone, given K1's hashes; with K1's time,
         # the two-call route that counts the same points.
         k8_unique_ms = timer(lambda: torch.unique(K._pack(hh1, hh2)).numel(), 3)
         k8_k1_ms = timer(lambda: K.lattice_geometry(xh, Eh, ah), 3)
         del hh1, hh2
+        k8_again_ms = timer(lambda: K.lattice_count(xh, Eh, ah), 5)
     nh, dh = xh.shape
+    print(f"    houseelectric: K8 {k8_ms['houseelectric']:.4f} / {k8_again_ms:.4f} ms against K1 {k8_k1_ms:.4f} + "
+          f"torch.unique {k8_unique_ms:.4f} = {k8_k1_ms + k8_unique_ms:.4f} ms; one point repeated: K8 "
+          f"{k8_ms['houseelectric, one point repeated']:.4f} ms")
     rows["count_lattice_points"] = dict(max_abs_err=k8_err, ms=k8_ms["houseelectric"],
                                         plain_ms=k8_plain_ms["houseelectric"],
                                         **bound(4 * nh * dh + 4, geometry_ops(nh, dh)), library_ms=None,
                                         unique_ms=k8_unique_ms, geometry_ms=k8_k1_ms,
+                                        geometry_unique_ms=k8_k1_ms + k8_unique_ms, ms_after=k8_again_ms,
                                         shape=f"houseelectric x ({nh}, {dh})",
                                         ms_by_dataset=k8_ms, plain_ms_by_dataset=k8_plain_ms)
     record.update(occupancy=occupancy, houseelectric_guard_s=guard_s)
@@ -2240,6 +2260,23 @@ def baselines_phase(dev, expect, timer):
     return rows, launches, record
 
 
+def splat_cost(plan, c: int) -> tuple:
+    """(bytes, ops) of K3'b: the plan's points and weights and v (n, c) in, the live table out; a
+    multiply-add per contribution and column."""
+    N, n = plan.splat_points.shape[0], plan.weights.shape[0]
+    live = min(int(plan.n_lattice), plan.cnt.shape[0])
+    return 4 * (2 * N + live + n * c + live * c), 2 * N * c
+
+
+def chain_splat_csr(plan):
+    """K3'b's function as one sparse CSR matrix S (Mc, n) of the splat weights, for the library yardstick."""
+    import torch
+
+    crow = torch.cat([plan.cnt.new_zeros(1), plan.cnt]).long()
+    return torch.sparse_csr_tensor(crow, plan.splat_points.long(), plan.splat_weights,
+                                   size=(plan.cnt.shape[0], plan.weights.shape[0]))
+
+
 def chain_library_ops(plan, taps):
     """One sparse CSR matrix per K3'b-d function, for the library yardstick: S (Mc, n) with the splat
     weights, axis 0's stencil with its transition gather (Mc, Mc), and SLICE_NORM S^T (n, Mc)."""
@@ -2251,8 +2288,7 @@ def chain_library_ops(plan, taps):
     Mc, r = plan.cnt.shape[0], plan.tapw.shape[1]
     dev = plan.cnt.device
     live = min(int(plan.n_lattice), Mc)
-    crow = torch.cat([plan.cnt.new_zeros(1), plan.cnt]).long()
-    splat = torch.sparse_csr_tensor(crow, plan.splat_points.long(), plan.splat_weights, size=(Mc, n))
+    splat = chain_splat_csr(plan)
     q = torch.arange(live, device=dev)
     p = plan.gather[0, :live].long()
     rows, cols, vals = [q], [p], [torch.full((live,), taps[r], device=dev)]
@@ -2340,15 +2376,18 @@ def chain_phase(dev, ds, expect, timer, stage_times):
             expect(nl == njl, f"{name}: n_lattice chain {nl} = join {njl}")
         else:
             print(f"    {name}: n_lattice chain {nl}, join {njl}")
+        live = min(nl, Mc)
         case = dict(n_lattice=nl, join_n_lattice=njl, capacity=Mc, long_runs=int(kplan.n_long),
-                    pieces=int(kplan.n_pieces))
+                    pieces=int(kplan.n_pieces), mid_runs=int(kplan.n_mid))
+        csr = chain_splat_csr(kplan)
         for c in (1, 11):
             v = torch.randn((pts.shape[0], c), generator=gen, device=dev)
+            splat_equal = torch.equal(KC.chain_splat(kplan, v)[:live], KC.chain_splat_plain(pplan, v)[:live])
+            expect(splat_equal, f"{name} c={c}: K3'b == plain bit for bit over the {live} live rows")
             kout = L.apply_plan_chain(kplan, v, dk.coeffs)
             pout = KC.chain_apply_plain(pplan, v, taps, L.SLICE_NORM(nd))
             r = rel(kout, pout)
-            expect(r <= CHAIN_REL, f"{name} c={c}: K3'b-d apply vs plain rel {r:.3e} (limit {CHAIN_REL}; "
-                   f"bit-equal {torch.equal(kout, pout)})")
+            expect(torch.equal(kout, pout), f"{name} c={c}: K3'b-d apply == plain bit for bit (rel {r:.3e})")
             expect(torch.equal(kout, L.apply_plan_chain(kplan, v, dk.coeffs)), f"{name} c={c}: two applies bit-equal")
             # The join's operator in float64 (its plain version on K2's plan): K3's float32 atomic sums over
             # houseelectric's long rows (up to 1.17M contributions) err by ~1e-5 themselves.
@@ -2366,19 +2405,59 @@ def chain_phase(dev, ds, expect, timer, stage_times):
                 k3_ms=timer(lambda: L.apply_plan_join(jplan, v, dk.coeffs), 20),
                 apply_graph_ms=graph_ms(lambda: L.apply_plan_chain(kplan, v, dk.coeffs), 10),
                 k3_graph_ms=graph_ms(lambda: L.apply_plan_join(jplan, v, dk.coeffs), 10),
-                splat_graph_ms=graph_ms(lambda: KC.chain_splat(kplan, v), 10))
+                splat_bit_equal=splat_equal, splat_ms=timer(lambda: KC.chain_splat(kplan, v), 50),
+                splat_graph_ms=graph_ms(lambda: KC.chain_splat(kplan, v), 10),
+                splat_csr_ms=timer(lambda: csr @ v, 20),
+                **{f"splat_{k}": x_ for k, x_ in bound(*splat_cost(kplan, c)).items()})
         case.update(build_ms=timer(lambda: L.build_plan_chain(pts, dk.coeffs, dk.variance, cap), 5),
                     join_build_ms=timer(lambda: L.build_plan_join(pts, dk.coeffs, dk.variance, cap), 5),
                     k1_ms=timer(lambda: K.lattice_geometry(pts, E, a, with_s=True), 10))
         print(f"    {name}: build {case['build_ms']:.3f} ms (K1 {case['k1_ms']:.3f}) vs K1 + K2 "
               f"{case['join_build_ms']:.3f} ms; apply (events / graph replay, ms) "
               + "; ".join(f"c={c}: chain {case[f'c{c}']['apply_ms']:.4f} / {case[f'c{c}']['apply_graph_ms']:.4f} "
-                          f"(splat {case[f'c{c}']['splat_graph_ms']:.4f}), K3 {case[f'c{c}']['k3_ms']:.4f} / "
-                          f"{case[f'c{c}']['k3_graph_ms']:.4f}" for c in (1, 11)))
+                          f"(K3'b {case[f'c{c}']['splat_ms']:.4f} / {case[f'c{c}']['splat_graph_ms']:.4f}, CSR "
+                          f"{case[f'c{c}']['splat_csr_ms']:.4f}, bound {case[f'c{c}']['splat_bound_ms']:.4f}), K3 "
+                          f"{case[f'c{c}']['k3_ms']:.4f} / {case[f'c{c}']['k3_graph_ms']:.4f}" for c in (1, 11)))
         record[name] = case
         if main_case is None:
             main_case = (pts, h1, h2, sums, w, consts, kplan, pplan)
-        del kplan, pplan, again, jplan, h1, h2, w, sums
+        del kplan, pplan, again, jplan, h1, h2, w, sums, csr
+
+    # Houseelectric untrimmed (Mc = N = 15.7M rows, ~20k live) and one row short of the occupancy (the
+    # slice's guard): the plan, the splat and the apply against their plain versions, bit for bit.
+    pts, occ = cases[2][1], record["houseelectric, median init"]["n_lattice"]
+    E = torch.from_numpy(L.build_rotation(pts.shape[1], dk.variance)).to(dev)
+    a = torch.from_numpy(L._hash_vectors(pts.shape[1])).to(dev)
+    consts = torch.from_numpy(L._chain_consts(pts.shape[1])).to(dev)
+    h1, h2, w, sums = K.lattice_geometry(pts, E, a, with_s=True)
+    for name, cap in (("houseelectric, untrimmed", None), ("houseelectric, overflowing", occ - 1)):
+        kplan = KC.chain_build(h1, h2, sums, w, consts, taps, cap)
+        pplan = KC.chain_build_plain(h1, h2, sums, w, consts, taps, cap)
+        differ = [f for f in KC.ChainPlan._fields if not torch.equal(getattr(kplan, f), getattr(pplan, f))]
+        errs["chain_build"] += len(differ)
+        Mc = kplan.cnt.shape[0]
+        live = min(int(kplan.n_lattice), Mc)
+        expect(not differ, f"{name}: K3'a == plain in every field (n_lattice {int(kplan.n_lattice)}, Mc {Mc}); "
+               f"differing: {differ}")
+        case = dict(n_lattice=int(kplan.n_lattice), capacity=Mc, mid_runs=int(kplan.n_mid),
+                    long_runs=int(kplan.n_long), pieces=int(kplan.n_pieces))
+        for c in (1, 11):
+            v = torch.randn((pts.shape[0], c), generator=gen, device=dev)
+            splat_equal = torch.equal(KC.chain_splat(kplan, v)[:live], KC.chain_splat_plain(pplan, v)[:live])
+            expect(splat_equal, f"{name} c={c}: K3'b == plain bit for bit over the {live} live rows")
+            kout = L.apply_plan_chain(kplan, v, dk.coeffs)
+            pout = KC.chain_apply_plain(pplan, v, taps, L.SLICE_NORM(pts.shape[1]))
+            if cap is None:
+                expect(torch.equal(kout, pout), f"{name} c={c}: K3'b-d apply == plain bit for bit")
+            else:
+                expect(bool(torch.isnan(kout).all() and torch.isnan(pout).all()),
+                       f"{name} c={c}: the apply past the capacity is all NaN, kernel and plain")
+            case[f"c{c}"] = dict(splat_bit_equal=splat_equal, splat_ms=timer(lambda: KC.chain_splat(kplan, v), 10))
+        print(f"    {name}: n_lattice {case['n_lattice']}, Mc {Mc}; K3'b "
+              + ", ".join(f"c={c} {case[f'c{c}']['splat_ms']:.4f} ms" for c in (1, 11)))
+        record[name] = case
+        del kplan, pplan
+    del h1, h2, w, sums
 
     print("chain 10.2: each kernel vs plain and its yardstick (elevators, median init, c=11)")
     pts, h1, h2, sums, w, consts, plan, pplan = main_case
@@ -2388,6 +2467,7 @@ def chain_phase(dev, ds, expect, timer, stage_times):
     tk = KC.chain_splat(plan, v)
     tp = KC.chain_splat_plain(plan, v)
     errs["chain_splat"] = float((tk[:nl] - tp[:nl]).abs().max())
+    expect(torch.equal(tk[:nl], tp[:nl]), "K3'b == plain bit for bit on the timed input")
     ak = KC.chain_axis(tp, plan.tapw[0], plan.gather[0], plan.n_lattice, taps)
     ap = KC.chain_axis_plain(tp, plan.tapw[0], plan.gather[0], taps)
     errs["chain_axis"] = float((ak[:nl] - ap[:nl]).abs().max())
@@ -2414,8 +2494,12 @@ def chain_phase(dev, ds, expect, timer, stage_times):
         "chain_splat": dict(
             max_abs_err=errs["chain_splat"], ms=timer(lambda: KC.chain_splat(plan, v), 50),
             plain_ms=timer(lambda: KC.chain_splat_plain(plan, v), 5),
-            **bound(4 * (2 * N + nl + n * 11 + nl * 11), 2 * N * 11),  # plan, v in; the live table out
-            library_ms=timer(lambda: s_splat @ v, 20), shape=f"N={N}, c=11, n_lattice={nl}"),
+            **bound(*splat_cost(plan, 11)), library_ms=timer(lambda: s_splat @ v, 20),
+            shape=f"N={N}, c=11, n_lattice={nl}",
+            by_case={f"{name}, c={c}": {k: record[name][f"c{c}"][k] for k in
+                                         ("splat_ms", "splat_graph_ms", "splat_csr_ms", "splat_bound_ms")}
+                     for name in ("elevators, median init", "elevators, trained", "houseelectric, median init")
+                     for c in (1, 11)}),
         "chain_axis": dict(
             max_abs_err=errs["chain_axis"],
             ms=timer(lambda: KC.chain_axis(tp, plan.tapw[0], plan.gather[0], plan.n_lattice, taps), 50),
@@ -2451,7 +2535,7 @@ def chain_phase(dev, ds, expect, timer, stage_times):
     print(f"    launches: {launches}")
     expect(all(v_ > 0 for v_ in launches.values()), "every K3' kernel launched in the training step")
 
-    print("chain 10.4: repeatability (reported; the build and the apply are gated in 10.1)")
+    print("chain 10.4: repeatability (the NLML and the eval CG gated; the build and the apply in 10.1)")
     model.load_raw(init)
     runs = []
     for _ in range(2):
@@ -2493,6 +2577,10 @@ def chain_phase(dev, ds, expect, timer, stage_times):
                             precond=lambda V, P_=P_: precond_solve(P_, V)).x for P_ in P]
         rep.update(eval_preconditioner_bit_equal=all(torch.equal(u, v_) for u, v_ in zip(P[0], P[1])),
                    eval_cg_bit_equal=torch.equal(sol[0], sol[1]))
+    expect(rep["nlml_bit_equal"] and rep["cg_iters"][0] == rep["cg_iters"][1],
+           f"the NLML at the median init twice: bit-equal, CG iterations {rep['cg_iters']}")
+    expect(rep["eval_cg_iters"][0] == rep["eval_cg_iters"][1] and rep["eval_alpha_bit_equal"],
+           f"posterior_cache at model_best.pkl twice: eval CG iterations {rep['eval_cg_iters']}, alpha bit-equal")
     print(f"    posterior_cache at model_best.pkl twice: eval CG iterations {rep['eval_cg_iters']}, alpha bit-equal "
           f"{rep['eval_alpha_bit_equal']} (rel diff {rep['eval_alpha_rel_diff']:.3e})"
           + ("" if rep["eval_alpha_bit_equal"] else f"; preconditioner bit-equal "

@@ -50,26 +50,40 @@
 //            position q of axis j+1 reads position g_j[q] of axis j (JAX
 //            sorts the table by the same fixed keys in every apply, :1023-
 //            1027); slice_idx, each contribution's final position (:894);
-//            from the [cumsum] of the long rows' flags and piece counts, the
-//            list of long rows with their first pieces, and each piece's row
-//            and first contribution.
+//            from the [cumsum] of the long rows' flags and piece counts and
+//            the mid rows' flags, the list of long rows with their first
+//            pieces, each piece's row and first contribution, and the list
+//            of mid rows (runs of CHAIN_SHORT+1 .. CHAIN_PIECE).
 // No atomics and no host read: two builds give the same bits.
 //
-// Apply, d + 4 launches from one host call (sgp_chain_apply), no atomics,
-// no host read.  The live count stays on
-// the device: threads of rows at or past min(n_lattice, Mc) return at
-// once, so every grid spans Mc rows, and the slice writes NaN when
-// n_lattice > Mc (JAX's guard, :1093-1100).  Tables are (Mc, c) row-major.
+// Apply, d + 4 launches from one host call (sgp_chain_apply; d + 3 where
+// the plan has too few contributions for a long row), no atomics, no host
+// read.  The live count stays on the device: threads of rows at or past
+// min(n_lattice, Mc) return at once, so every grid spans Mc rows, and the
+// slice writes NaN when n_lattice > Mc (JAX's guard, :1093-1100).  Tables
+// are (Mc, c) row-major.
 //   splat (K3'b): row g is the sum of its contiguous run of sorted
-//     contributions, w * v[point], in a fixed order: one warp per run, each
-//     lane summing every 32nd contribution, then a butterfly of shuffles,
-//     eight columns at a time.  Runs are very uneven (one elevators row
-//     holds ~10k of 201,837 contributions, one houseelectric row 1.17M of
-//     15.7M), so a run longer than CHAIN_PIECE is cut into fixed pieces of
-//     CHAIN_PIECE, a warp each, and a second launch sums each long row's
-//     pieces the same way, a warp per row.  No warp sums more than
-//     CHAIN_PIECE values.  (JAX's cumsum-and-difference, :1008-1009, is TPU
-//     mechanics and loses f32 precision over long prefixes.)
+//     contributions, w * v[point], in one fixed order, the warp order: each
+//     of 32 lanes sums every 32nd contribution, then a butterfly of
+//     shuffles.  Runs are very uneven (elevators: ~2 contributions a row,
+//     one row ~10k; houseelectric: ~790 a row, one row 1.17M of 15.7M), so
+//     the work is split by run length, each class in the warp order:
+//       short (<= CHAIN_SHORT): one thread per (row, column) holds the
+//         run's lane values in registers and folds them in halves, which is
+//         the butterfly's order (lanes past the run hold +0 and a fold step
+//         over them adds nothing, so it is skipped): no idle lanes, all c
+//         columns in one pass, coalesced writes;
+//       mid (up to CHAIN_PIECE, listed by the build): one warp per row, all
+//         columns in one pass of up to CHAIN_TILE columns in registers, so
+//         each contribution's point and weight are read once;
+//       long: fixed pieces of CHAIN_PIECE, a warp each into a partial
+//         table; then, in a second launch, one warp per long row sums its
+//         pieces the same way.
+//     No warp sums more than CHAIN_PIECE values.  The short and warp parts
+//     share one launch and stride over the live rows and the listed items
+//     with a grid fixed by the plan's shapes.  (JAX's cumsum-and-
+//     difference, :1008-1009, is TPU mechanics and loses f32 precision over
+//     long prefixes.)
 //   axis (K3'c): the stencil of axis j at position p (_chain_stencil_1d,
 //     :915-922, in its order of operations), written at the position q of
 //     axis j+1 with g_j[q] = p; the last axis writes in its own (final)
@@ -81,8 +95,10 @@
 // 201,837) the splat reads 8 bytes of plan and 4c of v per contribution and
 // writes the live table, each axis reads and writes a table and reads its
 // taps and gather, and the slice reads d+1 rows per point: ~0.4 GB an apply,
-// about 0.12 ms at 3.35 TB/s.  A simple first design: the axis kernels'
-// 64-bit divisions by c and the gathers are the suspects if it is slow.
+// about 0.12 ms at 3.35 TB/s.  The splat's time goes to its gathers of v's
+// rows (15.7M random rows at houseelectric, where a CSR product of the same
+// matrix takes as long at c = 1: PERF.md section 6); the axis kernels'
+// 64-bit divisions by c and the gathers are the suspects if those are slow.
 #include "common.cuh"
 
 #include <limits.h>
@@ -93,8 +109,24 @@
 #define CHAIN_DEAD LLONG_MAX     // the key of a row past the live count
 // A run of more contributions than this is summed in pieces of this many.
 #define CHAIN_PIECE 1024
-#define CHAIN_WARPS 8  // warps of a splat block, one run or piece each
-#define CHAIN_COLS 8   // columns a splat pass carries
+// A run of at most this many contributions is summed by one thread per
+// column (a warp's lanes folded in registers), a longer one by a warp.
+#define CHAIN_SHORT 32
+#define CHAIN_TILE 16   // columns a warp's pass carries in registers
+// Contributions a lane loads ahead in a warp's pass: of one column, and of
+// more in a plan of fewer than CHAIN_DEEP contributions, whose few warp
+// items each wait on a chain of loads.  A larger plan keeps the card busy
+// with items and loads none ahead (fewer registers, more warps resident):
+// on an H100, DEPTH 2 against 1 at c = 11 took 0.031 / 0.055 ms at 0.2M
+// contributions, 0.048 / 0.051 at 1.6M, 0.119 / 0.120 at 4.2M and 0.520 /
+// 0.461 at 15.7M (kernel_times.py --count-splat; PERF.md section 6).
+#define CHAIN_DEPTH1 8
+#define CHAIN_DEPTH 2
+#define CHAIN_DEEP (1 << 22)
+// Most blocks of the splat's warp and short regions (8 of 256 threads per
+// SM of an H100 is 1,056 blocks).
+#define CHAIN_WARP_GRID 4224
+#define CHAIN_SHORT_GRID 1056
 
 __device__ __forceinline__ long long chain_key(unsigned int c1, unsigned int c2, int s) {
   int sb = s + CHAIN_S_BIAS;
@@ -160,13 +192,15 @@ __global__ void chain_rows_kernel(const int* __restrict__ u_pos, const long long
   cnt[g] = g + 1 < live ? u_pos[g + 1] : N;
   if (g >= live) {
     for (int j = 0; j < dp1; ++j) keys[(long long)j * Mc + g] = CHAIN_DEAD;
-    long_info[g] = long_info[Mc + g] = 0;
+    long_info[g] = long_info[Mc + g] = long_info[2 * Mc + g] = 0;
     return;
   }
   const int q = u_pos[g];
   const int len = (g + 1 < live ? u_pos[g + 1] : N) - q;
-  long_info[g] = len > CHAIN_PIECE;  // (2, Mc): the long flag, the number of pieces
+  // (3, Mc): the long flag, the number of pieces, the mid flag
+  long_info[g] = len > CHAIN_PIECE;
   long_info[Mc + g] = len > CHAIN_PIECE ? (len + CHAIN_PIECE - 1) / CHAIN_PIECE : 0;
+  long_info[2 * Mc + g] = len > CHAIN_SHORT && len <= CHAIN_PIECE;
   const long long k0 = key[q];
   const unsigned int c1 = (unsigned int)(k0 >> 32);
   const int us = (int)(((unsigned int)k0) & CHAIN_S_MASK) - CHAIN_S_BIAS;
@@ -230,20 +264,25 @@ __global__ void chain_slice_idx_kernel(const int* __restrict__ row_of, const int
   if (e < N) slice_idx[e] = pos_d[row_of[e]];
 }
 
-// long_info and its inclusive scan along the rows, (2, Mc) each: long row
+// long_info and its inclusive scan along the rows, (3, Mc) each: long row
 // li = scan - 1 owns pieces [first, end) with end its scanned piece count;
-// long_first (zeroed) receives each long row's end at li + 1.
+// long_first (zeroed) receives each long row's end at li + 1; mid row mi =
+// scan - 1 of the third row is mid_rows[mi].
 __global__ void chain_long_kernel(const int* __restrict__ long_info, const int* __restrict__ scan,
                                   const int* __restrict__ cnt, int Mc, int* __restrict__ long_rows,
                                   int* __restrict__ long_first, int* __restrict__ piece_row,
                                   int* __restrict__ piece_start, int* __restrict__ n_long,
-                                  int* __restrict__ n_pieces) {
+                                  int* __restrict__ n_pieces, int* __restrict__ mid_rows,
+                                  int* __restrict__ n_mid) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g == Mc - 1) {
     *n_long = scan[g];
     *n_pieces = scan[Mc + g];
+    *n_mid = scan[2 * Mc + g];
   }
-  if (g >= Mc || !long_info[g]) return;
+  if (g >= Mc) return;
+  if (long_info[2 * Mc + g]) mid_rows[scan[2 * Mc + g] - 1] = g;
+  if (!long_info[g]) return;
   const int li = scan[g] - 1, end = scan[Mc + g], pieces = long_info[Mc + g];
   const int start = g == 0 ? 0 : cnt[g - 1];
   long_rows[li] = g;
@@ -309,7 +348,8 @@ extern "C" int sgp_chain_taps(const long long* key0, const long long* sorted, co
 extern "C" int sgp_chain_finish(const long long* perm, const int* row_of, const int* long_info,
                                 const int* long_scan, const int* cnt, int N, int Mc, int d, int* pos,
                                 int* gather, int* slice_idx, int* long_rows, int* long_first, int* piece_row,
-                                int* piece_start, int* n_long, int* n_pieces, void* stream) {
+                                int* piece_start, int* n_long, int* n_pieces, int* mid_rows, int* n_mid,
+                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long total = (long long)d * Mc;
   if (total > 0) {
@@ -322,7 +362,7 @@ extern "C" int sgp_chain_finish(const long long* perm, const int* row_of, const 
   if (Mc > 0)
     chain_long_kernel<<<sgp_blocks(Mc), SGP_THREADS, 0, st>>>(long_info, long_scan, cnt, Mc, long_rows,
                                                               long_first, piece_row, piece_start, n_long,
-                                                              n_pieces);
+                                                              n_pieces, mid_rows, n_mid);
   return (int)cudaGetLastError();
 }
 
@@ -333,85 +373,177 @@ __device__ __forceinline__ float chain_warp_sum(float x) {
   return x;
 }
 
+// A short run (len <= CHAIN_SHORT) of one column, by one thread, in the
+// warp order: the warp put contribution i on lane i as 0 + w * v (never
+// -0, so adding a lane of +0 is exact) and folded the lanes in halves by
+// its butterfly (x_i + x_{i+16}, then + x_{i+8}, ...).  A fold step of half
+// h only adds zeros when len <= h, so it is skipped.  Every index is a
+// constant after unrolling, so x stays in registers.
+__device__ __forceinline__ float chain_short_sum(const int* __restrict__ sp, const float* __restrict__ sw,
+                                                 const float* __restrict__ v, int c, int col, int start,
+                                                 int len) {
+  float x[CHAIN_SHORT];
+#pragma unroll
+  for (int i = 0; i < CHAIN_SHORT; ++i)
+    x[i] = i < len ? __fadd_rn(0.0f, __fmul_rn(__ldcs(sw + start + i), v[(long long)__ldcs(sp + start + i) * c + col]))
+                   : 0.0f;
+#pragma unroll
+  for (int step = 4; step >= 0; --step) {
+    const int h = 1 << step;
+    if (len > h) {
+#pragma unroll
+      for (int i = 0; i < h; ++i) x[i] = __fadd_rn(x[i], x[i + h]);
+    }
+  }
+  return x[0];
+}
+
 // acc[k] (all lanes) = the sum of w * v[point, c0 + k] over the run
-// [start, end), lane l adding the contributions start + l, start + l + 32,
-// ... in turn, then the butterfly.
+// [start, end), k < cw <= TILE, lane l adding the contributions start + l,
+// start + l + 32, ... in turn, then the butterfly.  DEPTH contributions a
+// lane are loaded before any of them is added, so a run of CHAIN_PIECE
+// waits on CHAIN_PIECE / (32 DEPTH) round trips to memory, not 32.  The
+// plan's points and weights are read once, as a stream (__ldcs), so that
+// they do not push the rows of v out of L2.
+template <int TILE, int DEPTH>
 __device__ __forceinline__ void chain_warp_run(const int* __restrict__ sp, const float* __restrict__ sw,
                                                const float* __restrict__ v, int c, int c0, int cw, int start,
-                                               int end, int lane, float* acc) {
+                                               int end, int lane, float (&acc)[TILE]) {
 #pragma unroll
-  for (int k = 0; k < CHAIN_COLS; ++k) acc[k] = 0.0f;
-  for (int q = start + lane; q < end; q += 32) {
-    const float w = sw[q];
-    const float* vp = v + (long long)sp[q] * c + c0;
+  for (int k = 0; k < TILE; ++k) acc[k] = 0.0f;
+  int q = start + lane;
+  for (; q + 32 * (DEPTH - 1) < end; q += 32 * DEPTH) {
+    float w[DEPTH], x[DEPTH][TILE];
 #pragma unroll
-    for (int k = 0; k < CHAIN_COLS; ++k)
+    for (int u = 0; u < DEPTH; ++u) {
+      w[u] = __ldcs(sw + q + 32 * u);
+      const float* vp = v + (long long)__ldcs(sp + q + 32 * u) * c + c0;
+#pragma unroll
+      for (int k = 0; k < TILE; ++k) x[u][k] = k < cw ? vp[k] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u)
+#pragma unroll
+      for (int k = 0; k < TILE; ++k)
+        if (k < cw) acc[k] = __fadd_rn(acc[k], __fmul_rn(w[u], x[u][k]));
+  }
+  for (; q < end; q += 32) {
+    const float w = __ldcs(sw + q);
+    const float* vp = v + (long long)__ldcs(sp + q) * c + c0;
+#pragma unroll
+    for (int k = 0; k < TILE; ++k)
       if (k < cw) acc[k] = __fadd_rn(acc[k], __fmul_rn(w, vp[k]));
   }
 #pragma unroll
-  for (int k = 0; k < CHAIN_COLS; ++k) acc[k] = chain_warp_sum(acc[k]);
+  for (int k = 0; k < TILE; ++k) acc[k] = chain_warp_sum(acc[k]);
 }
 
-// A warp per run: blocks [0, n_row_blocks) take the rows (those of at most
-// CHAIN_PIECE contributions, into the table), the blocks after them the
-// pieces of the long rows (into part, (pieces, c)).
-__global__ void chain_splat_kernel(const int* __restrict__ sp, const float* __restrict__ sw,
-                                   const int* __restrict__ cnt, const int* __restrict__ piece_row,
-                                   const int* __restrict__ piece_start, const int* __restrict__ n_pieces,
-                                   const int* __restrict__ n_lattice, const float* __restrict__ v, int c, int Mc,
-                                   int n_row_blocks, float* __restrict__ table, float* __restrict__ part) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int start, end;
-  float* dst;
-  if ((int)blockIdx.x < n_row_blocks) {
-    const int nl = *n_lattice;
-    const int g = blockIdx.x * CHAIN_WARPS + warp;
-    if (g >= (nl < Mc ? nl : Mc)) return;  // the whole warp: g is the same on every lane
-    start = g == 0 ? 0 : cnt[g - 1];
-    end = cnt[g];
-    if (end - start > CHAIN_PIECE) return;  // summed in pieces
-    dst = table + (long long)g * c;
-  } else {
-    const int i = (blockIdx.x - n_row_blocks) * CHAIN_WARPS + warp;
-    if (i >= *n_pieces) return;
-    start = piece_start[i];
-    end = min(start + CHAIN_PIECE, cnt[piece_row[i]]);
-    dst = part + (long long)i * c;
-  }
-  float acc[CHAIN_COLS];
-  for (int c0 = 0; c0 < c; c0 += CHAIN_COLS) {
-    const int cw = c - c0 < CHAIN_COLS ? c - c0 : CHAIN_COLS;
-    chain_warp_run(sp, sw, v, c, c0, cw, start, end, lane, acc);
-    if (lane == 0)
-      for (int k = 0; k < cw; ++k) dst[c0 + k] = acc[k];
-  }
-}
-
-// A warp per long row: the sum of its pieces' partial sums, lane l adding
-// pieces l, l + 32, ... in turn, then the butterfly.
+// A warp per long row li: the sum of its pieces part[long_first[li] ..
+// long_first[li + 1]) into its row of the table: lane l adds the pieces
+// l, l + 32, ... in turn (DEPTH of them loaded ahead), then the butterfly.
+template <int TILE, int DEPTH>
 __global__ void chain_combine_kernel(const int* __restrict__ long_rows, const int* __restrict__ long_first,
                                      const int* __restrict__ n_long, const float* __restrict__ part, int c,
                                      float* __restrict__ table) {
-  const int lane = threadIdx.x & 31;
-  const int li = blockIdx.x * CHAIN_WARPS + (threadIdx.x >> 5);
+  const int li = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (li >= *n_long) return;
+  const int lane = threadIdx.x & 31;
   const int first = long_first[li], last = long_first[li + 1];
   float* dst = table + (long long)long_rows[li] * c;
-  for (int c0 = 0; c0 < c; c0 += CHAIN_COLS) {
-    const int cw = c - c0 < CHAIN_COLS ? c - c0 : CHAIN_COLS;
-    float acc[CHAIN_COLS];
+  for (int c0 = 0; c0 < c; c0 += TILE) {
+    const int cw = c - c0 < TILE ? c - c0 : TILE;
+    float acc[TILE];
 #pragma unroll
-    for (int k = 0; k < CHAIN_COLS; ++k) acc[k] = 0.0f;
-    for (int i = first + lane; i < last; i += 32) {
-      const float* pp = part + (long long)i * c + c0;
+    for (int k = 0; k < TILE; ++k) acc[k] = 0.0f;
+    int i = first + lane;
+    for (; i + 32 * (DEPTH - 1) < last; i += 32 * DEPTH) {
+      float x[DEPTH][TILE];
 #pragma unroll
-      for (int k = 0; k < CHAIN_COLS; ++k)
-        if (k < cw) acc[k] = __fadd_rn(acc[k], pp[k]);
+      for (int u = 0; u < DEPTH; ++u)
+#pragma unroll
+        for (int k = 0; k < TILE; ++k) x[u][k] = k < cw ? part[(long long)(i + 32 * u) * c + c0 + k] : 0.0f;
+#pragma unroll
+      for (int u = 0; u < DEPTH; ++u)
+#pragma unroll
+        for (int k = 0; k < TILE; ++k)
+          if (k < cw) acc[k] = __fadd_rn(acc[k], x[u][k]);
+    }
+    for (; i < last; i += 32) {
+#pragma unroll
+      for (int k = 0; k < TILE; ++k)
+        if (k < cw) acc[k] = __fadd_rn(acc[k], part[(long long)i * c + c0 + k]);
     }
 #pragma unroll
-    for (int k = 0; k < CHAIN_COLS; ++k) acc[k] = chain_warp_sum(acc[k]);
-    if (lane == 0)
-      for (int k = 0; k < cw; ++k) dst[c0 + k] = acc[k];
+    for (int k = 0; k < TILE; ++k) {
+      acc[k] = chain_warp_sum(acc[k]);
+      if (k < cw && lane == k) dst[c0 + k] = acc[k];
+    }
+  }
+}
+
+// Blocks [0, n_warp_blocks): one warp per work item, striding over the mid
+// rows (into the table) and then the pieces of the long rows (into part,
+// (pieces, c)), one pass per TILE columns; they come first, so the runs
+// that take longest start first.  The blocks after them: the short rows, one
+// thread per (row, column), striding over the live rows (rows_per rows of c
+// columns a block and step).  The live count and the item counts are read
+// on the device, so the grid is fixed by the plan's shapes and blocks past
+// the work return at once.
+template <int TILE, int DEPTH>
+__global__ void chain_splat_kernel(const int* __restrict__ sp, const float* __restrict__ sw,
+                                   const int* __restrict__ cnt, const int* __restrict__ mid_rows,
+                                   const int* __restrict__ n_mid, const int* __restrict__ piece_row,
+                                   const int* __restrict__ piece_start, const int* __restrict__ n_pieces,
+                                   const int* __restrict__ n_lattice, const float* __restrict__ v, int c, int Mc,
+                                   int n_warp_blocks, int rows_per, float* __restrict__ table,
+                                   float* __restrict__ part) {
+  if ((int)blockIdx.x >= n_warp_blocks) {
+    const int n_short_blocks = gridDim.x - n_warp_blocks, b = blockIdx.x - n_warp_blocks;
+    const int nl = *n_lattice;
+    const int live = nl < Mc ? nl : Mc;
+    const int items = rows_per * c;  // <= blockDim.x unless c > blockDim.x (then rows_per = 1)
+    for (int g0 = b * rows_per; g0 < live; g0 += n_short_blocks * rows_per) {
+      for (int t = threadIdx.x; t < items; t += blockDim.x) {
+        const int dg = t / c;
+        const int g = g0 + dg;
+        if (g >= live) break;
+        const int start = g == 0 ? 0 : cnt[g - 1];
+        const int len = cnt[g] - start;
+        if (len > CHAIN_SHORT) continue;  // a mid or long row: a warp's
+        const int col = t - dg * c;
+        table[(long long)g * c + col] = chain_short_sum(sp, sw, v, c, col, start, len);
+      }
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warps = n_warp_blocks * (blockDim.x >> 5);
+  const int nm = *n_mid, total = nm + *n_pieces;
+  float acc[TILE];
+  for (int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); i < total; i += warps) {
+    if (i < nm) {  // a mid row into the table; the whole warp: i is the same on every lane
+      const int g = mid_rows[i];
+      const int start = g == 0 ? 0 : cnt[g - 1], end = cnt[g];
+      float* dst = table + (long long)g * c;
+      for (int c0 = 0; c0 < c; c0 += TILE) {
+        const int cw = c - c0 < TILE ? c - c0 : TILE;
+        chain_warp_run<TILE, DEPTH>(sp, sw, v, c, c0, cw, start, end, lane, acc);
+#pragma unroll
+        for (int k = 0; k < TILE; ++k)
+          if (k < cw && lane == k) dst[c0 + k] = acc[k];
+      }
+      continue;
+    }
+    const int pi = i - nm;  // a piece of a long row into part
+    const int start = piece_start[pi], end = min(start + CHAIN_PIECE, cnt[piece_row[pi]]);
+    float* dst = part + (long long)pi * c;
+    for (int c0 = 0; c0 < c; c0 += TILE) {
+      const int cw = c - c0 < TILE ? c - c0 : TILE;
+      chain_warp_run<TILE, DEPTH>(sp, sw, v, c, c0, cw, start, end, lane, acc);
+#pragma unroll
+      for (int k = 0; k < TILE; ++k)
+        if (k < cw && lane == 0) dst[c0 + k] = acc[k];
+    }
   }
 }
 
@@ -455,32 +587,59 @@ __global__ void chain_slice_kernel(const float* __restrict__ table, const int* _
   out[idx] = __fmul_rn(acc, norm);
 }
 
-// The splat's two launches.  nl_max, np_max: the lengths of long_rows and
-// piece_row (bounds fixed by the plan's shapes); part holds np_max * c floats.
+// The splat.  nl_max, nm_max, np_max: the lengths of long_rows, mid_rows
+// and piece_row (bounds fixed by the plan's shapes); N the contributions;
+// part holds np_max * c floats.  The first launch sums the short and mid
+// rows and the pieces, the second the long rows from their pieces.
+template <int TILE, int DEPTH>
+static void chain_splat_launch(int n_warp, int n_short, int rows_per, const int* sp, const float* sw,
+                               const int* cnt, const int* long_rows, const int* long_first, const int* n_long,
+                               const int* piece_row, const int* piece_start, const int* n_pieces,
+                               const int* mid_rows, const int* n_mid, int nl_max, const int* n_lattice,
+                               const float* v, int c, int Mc, float* table, float* part, cudaStream_t st) {
+  chain_splat_kernel<TILE, DEPTH><<<n_warp + n_short, SGP_THREADS, 0, st>>>(
+      sp, sw, cnt, mid_rows, n_mid, piece_row, piece_start, n_pieces, n_lattice, v, c, Mc, n_warp, rows_per, table,
+      part);
+  if (nl_max > 0)
+    chain_combine_kernel<TILE, DEPTH><<<(nl_max + SGP_THREADS / 32 - 1) / (SGP_THREADS / 32), SGP_THREADS, 0, st>>>(
+        long_rows, long_first, n_long, part, c, table);
+}
+
 static cudaError_t chain_launch_splat(const int* sp, const float* sw, const int* cnt, const int* long_rows,
-                                      const int* long_first, const int* piece_row, const int* piece_start,
-                                      const int* n_long, const int* n_pieces, int nl_max, int np_max,
-                                      const int* n_lattice, const float* v, int c, int Mc, float* table,
-                                      float* part, cudaStream_t st) {
-  const int n_row_blocks = (Mc + CHAIN_WARPS - 1) / CHAIN_WARPS;
-  const int n_piece_blocks = (np_max + CHAIN_WARPS - 1) / CHAIN_WARPS;
-  if (Mc > 0 && c > 0) {
-    chain_splat_kernel<<<n_row_blocks + n_piece_blocks, CHAIN_WARPS * 32, 0, st>>>(
-        sp, sw, cnt, piece_row, piece_start, n_pieces, n_lattice, v, c, Mc, n_row_blocks, table, part);
-    if (nl_max > 0)
-      chain_combine_kernel<<<(nl_max + CHAIN_WARPS - 1) / CHAIN_WARPS, CHAIN_WARPS * 32, 0, st>>>(
-          long_rows, long_first, n_long, part, c, table);
-  }
+                                      const int* long_first, const int* n_long, const int* piece_row,
+                                      const int* piece_start, const int* n_pieces, const int* mid_rows,
+                                      const int* n_mid, int nl_max, int nm_max, int np_max, int N,
+                                      const int* n_lattice, const float* v, int c, int Mc, float* table, float* part,
+                                      cudaStream_t st) {
+  if (Mc <= 0 || c <= 0) return cudaGetLastError();
+  const int rows_per = c < SGP_THREADS ? SGP_THREADS / c : 1;
+  const long long short_blocks = ((long long)Mc + rows_per - 1) / rows_per;
+  const long long warp_blocks = ((long long)nm_max + np_max + SGP_THREADS / 32 - 1) / (SGP_THREADS / 32);
+  const int n_short = (int)(short_blocks < CHAIN_SHORT_GRID ? short_blocks : CHAIN_SHORT_GRID);
+  const int n_warp = (int)(warp_blocks < CHAIN_WARP_GRID ? warp_blocks : CHAIN_WARP_GRID);
+  if (c == 1)
+    chain_splat_launch<1, CHAIN_DEPTH1>(n_warp, n_short, rows_per, sp, sw, cnt, long_rows, long_first, n_long,
+                                        piece_row, piece_start, n_pieces, mid_rows, n_mid, nl_max, n_lattice, v, c,
+                                        Mc, table, part, st);
+  else if (N < CHAIN_DEEP)
+    chain_splat_launch<CHAIN_TILE, CHAIN_DEPTH>(n_warp, n_short, rows_per, sp, sw, cnt, long_rows, long_first,
+                                                n_long, piece_row, piece_start, n_pieces, mid_rows, n_mid, nl_max,
+                                                n_lattice, v, c, Mc, table, part, st);
+  else
+    chain_splat_launch<CHAIN_TILE, 1>(n_warp, n_short, rows_per, sp, sw, cnt, long_rows, long_first, n_long,
+                                      piece_row, piece_start, n_pieces, mid_rows, n_mid, nl_max, n_lattice, v, c, Mc,
+                                      table, part, st);
   return cudaGetLastError();
 }
 
 extern "C" int sgp_chain_splat(const int* sp, const float* sw, const int* cnt, const int* long_rows,
-                               const int* long_first, const int* piece_row, const int* piece_start,
-                               const int* n_long, const int* n_pieces, int nl_max, int np_max,
-                               const int* n_lattice, const float* v, int c, int Mc, float* table, float* part,
-                               void* stream) {
-  return (int)chain_launch_splat(sp, sw, cnt, long_rows, long_first, piece_row, piece_start, n_long, n_pieces,
-                                 nl_max, np_max, n_lattice, v, c, Mc, table, part, (cudaStream_t)stream);
+                               const int* long_first, const int* n_long, const int* piece_row,
+                               const int* piece_start, const int* n_pieces, const int* mid_rows, const int* n_mid,
+                               int nl_max, int nm_max, int np_max, int N, const int* n_lattice, const float* v,
+                               int c, int Mc, float* table, float* part, void* stream) {
+  return (int)chain_launch_splat(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
+                                 mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice, v, c, Mc, table, part,
+                                 (cudaStream_t)stream);
 }
 
 extern "C" int sgp_chain_axis(const float* in, float* out, const float* tapw, const int* gather,
@@ -505,17 +664,19 @@ extern "C" int sgp_chain_slice(const float* table, const int* slice_idx, const f
 // between ta and tb (gather: (d, Mc); tapw: (d + 1, r, Mc)), the slice of
 // the final table into out (n, c).  ta and tb hold Mc * c floats.
 extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, const int* long_rows,
-                               const int* long_first, const int* piece_row, const int* piece_start,
-                               const int* n_long, const int* n_pieces, int nl_max, int np_max,
-                               const int* n_lattice, const float* v, int n, int c, int Mc, int d,
+                               const int* long_first, const int* n_long, const int* piece_row,
+                               const int* piece_start, const int* n_pieces, const int* mid_rows, const int* n_mid,
+                               int nl_max, int nm_max, int np_max, int N, const int* n_lattice, const float* v,
+                               int n, int c, int Mc, int d,
                                const int* gather, const float* tapw, int order, const float* taps_host,
                                const int* slice_idx, const float* w, float norm, float* ta, float* tb,
                                float* part, float* out, void* stream) {
   if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
   if (n <= 0 || c <= 0 || Mc <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = chain_launch_splat(sp, sw, cnt, long_rows, long_first, piece_row, piece_start, n_long,
-                                       n_pieces, nl_max, np_max, n_lattice, v, c, Mc, ta, part, st);
+  cudaError_t err = chain_launch_splat(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start,
+                                       n_pieces, mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice, v, c, Mc,
+                                       ta, part, st);
   if (err != cudaSuccess) return (int)err;
   const long long work = (long long)Mc * c;
   float *a = ta, *b = tb;

@@ -38,12 +38,13 @@ __device__ __forceinline__ unsigned long long sgp_mix(unsigned long long z) {
 // This sentinel has h1 odd and h2 even, so no live key can equal it.
 #define SGP_EMPTY 0xFFFFFFFFFFFFFFFEULL
 
-// The open-addressing table of lattice points shared by K2 (dedup.cu), K4
-// and K8 (once.cu): mask+1 slots (a power of two) of packed keys, linear
+// The open-addressing table of lattice points shared by K2 (dedup.cu) and
+// K4 (once.cu): mask+1 slots (a power of two) of packed keys, linear
 // probing from sgp_mix(key).  The thread whose atomicCAS claims an empty
 // slot takes the next dense row id from *count; row_of_slot maps a slot to
 // its row (-1 past the capacity) and row_h1/row_h2 hold each row's hash
-// pair.  Either may be null (K8 counts only).
+// pair.  Either may be null.  K8 (once.cu) counts keys in a table of the
+// same layout with its own insert (count_claim).
 //
 // Inserts (h1, h2); returns its slot, or -1 once more than `capacity`
 // points are occupied: with kBounded, a thread stops at its next collision

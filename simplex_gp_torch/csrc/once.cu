@@ -1,7 +1,7 @@
 // K4 lattice_filter_once: the one-shot filter out = SLICE_NORM * S^T B S v,
 // built and applied in one call, with a bounded lattice table; and K8
-// lattice_count: the number of occupied lattice points, K4's first phase
-// without values.
+// lattice_count: the number of occupied lattice points (its own kernel,
+// at the end of this file).
 //
 // Replaces simplex_gp_tpu/ops/lattice.py::filter_fused (:1166), reached
 // through filter_once (:529) and ops/filter.py::_filter_plain (:120) for
@@ -159,16 +159,74 @@ extern "C" int sgp_filter_once(const float* x, const float* E, const int* a, int
   return (int)err;
 }
 
-// K8: occupancy only.  table (mask+1) int64 filled with SGP_EMPTY, mask+1 >=
-// 2 n(d+1), so the table never overflows and the count is exact.
+// ---- K8: occupancy only ----------------------------------------------------
+//
+// At houseelectric 24.6M vertex keys land on ~20k lattice points, so a key
+// repeats >1,000 times.  K4's insert takes an atomicCAS for every key, even
+// one already in its slot, and reads the counter before every insert and at
+// every collision with an uncached load: the hot slots' CAS runs serialise
+// in L2.  Here the insert reads the slot with a plain load first and stops
+// on a hit; only an empty slot takes an atomicCAS.  A slot only ever goes
+// from empty to one key, so a stale read can only be an empty slot, which
+// the CAS then settles; the hot slots stay in L1 and L2.  Each thread adds
+// up its claims, and each block adds its total to the count with one
+// atomicAdd.  The table has >= 2 n(d+1) slots, so it never fills and the
+// count is exact.  A per-block dedup of the keys in shared memory first
+// (so only a key's first occurrence in the block reaches the global table)
+// was measured slower on an H100 (PERF.md section 6): the plain loads of the
+// hot slots already hit.
+//
+// Bound: reading x once (4nd bytes, 0.027 ms at houseelectric) is far
+// below the per-point geometry, the same float work as K1's kernel, which
+// with the wrapper's fill of the global table is what K8 can approach.
+
+// 1 if this call put key into the table, 0 if it was there.
+__device__ __forceinline__ int count_claim(unsigned long long* table, unsigned int mask,
+                                           unsigned long long key) {
+  unsigned int s = (unsigned int)sgp_mix(key) & mask;
+  for (;;) {
+    const unsigned long long cur = table[s];
+    if (cur == key) return 0;
+    if (cur == SGP_EMPTY) {
+      const unsigned long long prev = atomicCAS(&table[s], SGP_EMPTY, key);
+      if (prev == SGP_EMPTY) return 1;
+      if (prev == key) return 0;
+    }
+    s = (s + 1) & mask;
+  }
+}
+
+// One thread per point: K1's geometry (sgp_point_geometry, so the hashes
+// are the plan's), then its d+1 keys into the table.
+__global__ void count_kernel(const float* __restrict__ x, const float* __restrict__ E,
+                             const int* __restrict__ a, int n, int d, float scale,
+                             unsigned long long* table, unsigned int mask, int* count) {
+  __shared__ int claimed;
+  if (threadIdx.x == 0) claimed = 0;
+  __syncthreads();
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  int mine = 0;
+  if (p < n) {
+    unsigned int h1[SGP_MAX_DP1], h2[SGP_MAX_DP1];
+    float wv[SGP_MAX_DP1];
+    sgp_point_geometry(x + (long long)p * d, E, a, d, scale, h1, h2, wv);
+    for (int v = 0; v <= d; ++v) mine += count_claim(table, mask, sgp_pack(h1[v], h2[v]));
+  }
+  for (int off = 16; off > 0; off >>= 1) mine += __shfl_xor_sync(0xffffffffu, mine, off);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(&claimed, mine);
+  __syncthreads();
+  if (threadIdx.x == 0 && claimed) atomicAdd(count, claimed);
+}
+
+// K8.  table (mask+1) int64 filled with SGP_EMPTY, mask+1 >= 2 n(d+1);
+// count () int32 zeroed.
 extern "C" int sgp_lattice_count(const float* x, const float* E, const int* a, int n, int d,
                                  int mask, unsigned long long* table, int* count, void* stream) {
   if (d + 1 > SGP_MAX_DP1) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const float scale = (float)(1.0 / (double)(d + 1));
-    once_insert_kernel<<<sgp_blocks(n), SGP_THREADS, 0, (cudaStream_t)stream>>>(
-        x, E, a, n, d, scale, table, (unsigned int)mask, n * (d + 1), nullptr, nullptr, nullptr,
-        count, nullptr, nullptr);
+    count_kernel<<<sgp_blocks(n), SGP_THREADS, 0, (cudaStream_t)stream>>>(x, E, a, n, d, scale, table,
+                                                                         (unsigned int)mask, count);
   }
   return (int)cudaGetLastError();
 }

@@ -63,12 +63,12 @@ _SIGNATURES = {
     "sgp_chain_compact": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "sgp_chain_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "sgp_chain_taps": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "sgp_chain_finish": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "sgp_chain_splat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    "sgp_chain_finish": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "sgp_chain_splat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "sgp_chain_axis": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sgp_chain_slice": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
-    "sgp_chain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P,
-                        _P, _P, _F, _P, _P, _P, _P, _P],
+    "sgp_chain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                        _P, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P],
 }
 
 _lib = None

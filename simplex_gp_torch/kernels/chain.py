@@ -33,6 +33,7 @@ from . import build
 __all__ = [
     "ChainPlan",
     "PIECE",
+    "SHORT",
     "chain_build_plain",
     "chain_build",
     "chain_apply_plain",
@@ -43,6 +44,7 @@ __all__ = [
     "chain_axis",
     "chain_slice_plain",
     "chain_slice",
+    "run_lists",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -52,6 +54,9 @@ _TOP_MASK = -(1 << 21)
 _DEAD = 2**63 - 1
 # A run of more contributions than this is summed in pieces of this many (CHAIN_PIECE in csrc/chain.cu).
 PIECE = 1024
+# A run of at most this many contributions is summed by one thread per column, a longer one by a warp
+# (CHAIN_SHORT); the rows in between, the mid rows, are listed in the plan.
+SHORT = 32
 
 
 class ChainPlan(NamedTuple):
@@ -66,6 +71,8 @@ class ChainPlan(NamedTuple):
       piece_start:   (NP,) int32     its first contribution
       n_long:        () int32        how many of long_rows are set
       n_pieces:      () int32        how many of piece_row are set
+      mid_rows:      (NM,) int32     the rows of runs of SHORT+1 .. PIECE contributions, ascending
+      n_mid:         () int32        how many of mid_rows are set
       gather:        (d, Mc) int32   position q of axis j+1 reads position gather[j, q] of axis j
       tapw:          (d+1, r, Mc) f32  the tap linking positions p and p+k of axis j
       slice_idx:     (n, d+1) int32  final (axis-d) position of each vertex's row
@@ -82,6 +89,8 @@ class ChainPlan(NamedTuple):
     piece_start: torch.Tensor
     n_long: torch.Tensor
     n_pieces: torch.Tensor
+    mid_rows: torch.Tensor
+    n_mid: torch.Tensor
     gather: torch.Tensor
     tapw: torch.Tensor
     slice_idx: torch.Tensor
@@ -109,9 +118,10 @@ def _rows(N: int, capacity) -> int:
 
 
 def _long_bounds(N: int, Mc: int) -> tuple:
-    """Bounds on the long rows and their pieces: the runs are disjoint, each longer than PIECE."""
+    """Bounds on the long rows, their pieces and the mid rows: the runs are disjoint, a long one longer
+    than PIECE, a mid one longer than SHORT."""
     nl = min(Mc, N // (PIECE + 1))
-    return nl, N // PIECE + nl
+    return nl, N // PIECE + nl, min(Mc, N // (SHORT + 1))
 
 
 def _tap_weights(keys: torch.Tensor, live: int, d: int, taps) -> torch.Tensor:
@@ -132,6 +142,34 @@ def _tap_weights(keys: torch.Tensor, live: int, d: int, taps) -> torch.Tensor:
             w = torch.where(same & (ds == t * step), float(taps[order + t]), w)
         tapw[:, k - 1, :-k] = w
     return tapw
+
+
+def run_lists(cnt: torch.Tensor, live: int, N: int) -> tuple:
+    """The plan's splat work lists from its run ends ``cnt`` (Mc,), of which the first ``live`` rows hold
+    runs: (long_rows, long_first, piece_row, piece_start, n_long, n_pieces, mid_rows, n_mid), each
+    list zero-padded to its bound (see :class:`ChainPlan`)."""
+    dev, Mc = cnt.device, cnt.shape[0]
+    start = torch.cat([cnt.new_zeros(1), cnt[:-1]])
+    length = cnt - start
+    is_live = torch.arange(Mc, device=dev) < live
+    long_idx = torch.nonzero(is_live & (length > PIECE)).flatten()
+    mid_idx = torch.nonzero(is_live & (length > SHORT) & (length <= PIECE)).flatten()
+    pieces = (length[long_idx] + PIECE - 1) // PIECE
+    nl_max, np_max, nm_max = _long_bounds(N, Mc)
+    nl, n_pc, nm = long_idx.shape[0], int(pieces.sum()), mid_idx.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    long_rows = torch.zeros(nl_max, **i32)
+    long_rows[:nl] = long_idx.to(torch.int32)
+    long_first = torch.zeros(nl_max + 1, **i32)
+    long_first[1:nl + 1] = torch.cumsum(pieces, 0, dtype=torch.int32)
+    piece_row, piece_start = torch.zeros(np_max, **i32), torch.zeros(np_max, **i32)
+    piece_row[:n_pc] = torch.repeat_interleave(long_idx, pieces.long()).to(torch.int32)
+    within = torch.arange(n_pc, device=dev) - torch.repeat_interleave(long_first[:nl].long(), pieces.long())
+    piece_start[:n_pc] = (start[piece_row[:n_pc].long()] + PIECE * within).to(torch.int32)
+    mid_rows = torch.zeros(nm_max, **i32)
+    mid_rows[:nm] = mid_idx.to(torch.int32)
+    return (long_rows, long_first, piece_row, piece_start, torch.tensor(nl, **i32), torch.tensor(n_pc, **i32),
+            mid_rows, torch.tensor(nm, **i32))
 
 
 def chain_build_plain(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
@@ -181,25 +219,9 @@ def chain_build_plain(h1, h2, s, weights, consts, taps, capacity=None) -> ChainP
     gather = torch.cat([order_j[:1], torch.gather(pos[:-1], 1, order_j[1:])]).to(torch.int32)
     slice_idx = pos[-1][row_of].to(torch.int32).reshape(n, dp1)
 
-    start = torch.cat([cnt.new_zeros(1), cnt[:-1]])
-    long_idx = torch.nonzero((torch.arange(Mc, device=dev) < live) & (cnt - start > PIECE)).flatten()
-    pieces = (cnt[long_idx] - start[long_idx] + PIECE - 1) // PIECE
-    nl_max, np_max = _long_bounds(N, Mc)
-    nl, n_pc = long_idx.shape[0], int(pieces.sum())
-    long_rows = torch.zeros(nl_max, dtype=torch.int32, device=dev)
-    long_rows[:nl] = long_idx.to(torch.int32)
-    long_first = torch.zeros(nl_max + 1, dtype=torch.int32, device=dev)
-    long_first[1:nl + 1] = torch.cumsum(pieces, 0, dtype=torch.int32)
-    piece_row = torch.zeros(np_max, dtype=torch.int32, device=dev)
-    piece_start = torch.zeros(np_max, dtype=torch.int32, device=dev)
-    piece_row[:n_pc] = torch.repeat_interleave(long_idx, pieces.long()).to(torch.int32)
-    within = torch.arange(n_pc, device=dev) - torch.repeat_interleave(long_first[:nl].long(), pieces.long())
-    piece_start[:n_pc] = (start[piece_row[:n_pc].long()] + PIECE * within).to(torch.int32)
     flat_w = weights.reshape(-1)
-    i32 = lambda k: torch.tensor(k, dtype=torch.int32, device=dev)
-    return ChainPlan((perm // dp1).to(torch.int32), flat_w[perm].contiguous(), cnt, long_rows, long_first,
-                     piece_row, piece_start, i32(nl), i32(n_pc), gather.contiguous(), tapw, slice_idx, weights,
-                     n_lattice)
+    return ChainPlan((perm // dp1).to(torch.int32), flat_w[perm].contiguous(), cnt, *run_lists(cnt, live, N),
+                     gather.contiguous(), tapw, slice_idx, weights, n_lattice)
 
 
 def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
@@ -241,7 +263,7 @@ def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
     build.check(lib.sgp_chain_compact(perm.data_ptr(), weights.data_ptr(), seg.data_ptr(), flag.data_ptr(), N,
                                       Mc, dp1, u_pos.data_ptr(), sp.data_ptr(), sw.data_ptr(), row_of.data_ptr(),
                                       n_lattice.data_ptr(), st), "chain_build (compact)")
-    cnt, long_info = torch.empty(Mc, **i32), torch.empty((2, Mc), **i32)
+    cnt, long_info = torch.empty(Mc, **i32), torch.empty((3, Mc), **i32)
     keys = torch.empty((dp1, Mc), dtype=torch.int64, device=dev)
     build.check(lib.sgp_chain_rows(u_pos.data_ptr(), ks.data_ptr(), h2.data_ptr(), perm.data_ptr(),
                                    n_lattice.data_ptr(), N, Mc, d, consts.data_ptr(), cnt.data_ptr(),
@@ -251,23 +273,25 @@ def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
     build.check(lib.sgp_chain_taps(keys.data_ptr(), sorted_keys.data_ptr(), n_lattice.data_ptr(), Mc, d, order,
                                    ctypes.addressof(taps_host), tapw.data_ptr(), st), "chain_build (taps)")
-    # (long rows, pieces) up to each row, scanned along the innermost dimension: an (Mc, 2) layout
+    # (long rows, pieces, mid rows) up to each row, scanned along the innermost dimension: an (Mc, 2) layout
     # scanned along its outer one made the elevators build 18 ms instead of 2.1 on an H100.
     long_scan = torch.cumsum(long_info, 1, dtype=torch.int32)
     pos, gather = torch.empty((d, Mc), **i32), torch.empty((d, Mc), **i32)
     slice_idx = torch.empty((n, dp1), **i32)
-    nl_max, np_max = _long_bounds(N, Mc)
+    nl_max, np_max, nm_max = _long_bounds(N, Mc)
     long_rows, long_first = torch.zeros(nl_max, **i32), torch.zeros(nl_max + 1, **i32)
     piece_row, piece_start = torch.zeros(np_max, **i32), torch.zeros(np_max, **i32)
-    n_long, n_pieces = torch.empty((), **i32), torch.empty((), **i32)
+    mid_rows = torch.zeros(nm_max, **i32)
+    n_long, n_pieces, n_mid = torch.empty((), **i32), torch.empty((), **i32), torch.empty((), **i32)
     build.check(lib.sgp_chain_finish(order_j.data_ptr(), row_of.data_ptr(), long_info.data_ptr(),
                                      long_scan.data_ptr(), cnt.data_ptr(), N, Mc, d, pos.data_ptr(),
                                      gather.data_ptr(), slice_idx.data_ptr(), long_rows.data_ptr(),
                                      long_first.data_ptr(), piece_row.data_ptr(), piece_start.data_ptr(),
-                                     n_long.data_ptr(), n_pieces.data_ptr(), st), "chain_build (finish)")
+                                     n_long.data_ptr(), n_pieces.data_ptr(), mid_rows.data_ptr(),
+                                     n_mid.data_ptr(), st), "chain_build (finish)")
     chain_build.launches += 1
-    return ChainPlan(sp, sw, cnt, long_rows, long_first, piece_row, piece_start, n_long, n_pieces, gather, tapw,
-                     slice_idx, weights, n_lattice)
+    return ChainPlan(sp, sw, cnt, long_rows, long_first, piece_row, piece_start, n_long, n_pieces, mid_rows,
+                     n_mid, gather, tapw, slice_idx, weights, n_lattice)
 
 
 chain_build.launches = 0
@@ -307,8 +331,9 @@ def chain_splat_plain(plan: ChainPlan, v):
     """Plain K3'b: the (Mc, c) axis-0 table, row g the sum of its run of weighted rows of v.
 
     Sums in the kernel's order, so that the two agree bit for bit: a run of
-    at most PIECE contributions by one warp; a longer one in pieces of
-    PIECE, a warp each, whose sums a warp per row adds up.
+    at most PIECE contributions by one warp (the kernel's thread-per-column
+    fold of a run of at most SHORT is the same order); a longer one in
+    pieces of PIECE, a warp each, whose sums a warp per row adds up.
     """
     N, Mc = plan.splat_points.shape[0], plan.cnt.shape[0]
     dev = v.device
@@ -321,7 +346,9 @@ def chain_splat_plain(plan: ChainPlan, v):
     is_long = torch.zeros(Mc, dtype=torch.bool, device=dev)
     is_long[long_rows] = True
     short = ~is_long[row]
-    table = _warp_sums(contrib[short], row[short], off[short], Mc)
+    live = min(int(plan.n_lattice), Mc)  # every contribution lies in a live row; the rest stay 0
+    table = v.new_zeros((Mc, v.shape[1]))
+    table[:live] = _warp_sums(contrib[short], row[short], off[short], live)
     if nl:
         first = torch.zeros(Mc, dtype=torch.long, device=dev)
         first[long_rows] = plan.long_first[:nl].long()
@@ -337,24 +364,28 @@ def chain_splat_plain(plan: ChainPlan, v):
 def _require_apply(what: str, plan: ChainPlan, v: torch.Tensor) -> None:
     build.require(what, (plan.splat_points, torch.int32), (plan.splat_weights, torch.float32),
                   (plan.cnt, torch.int32), (plan.long_rows, torch.int32), (plan.long_first, torch.int32),
-                  (plan.piece_row, torch.int32), (plan.piece_start, torch.int32), (plan.n_long, torch.int32),
-                  (plan.n_pieces, torch.int32), (plan.n_lattice, torch.int32), (v, torch.float32))
+                  (plan.n_long, torch.int32), (plan.piece_row, torch.int32), (plan.piece_start, torch.int32),
+                  (plan.n_pieces, torch.int32), (plan.mid_rows, torch.int32), (plan.n_mid, torch.int32),
+                  (plan.n_lattice, torch.int32), (v, torch.float32))
     if v.shape[0] != plan.weights.shape[0]:
         raise ValueError(f"{what}: v {tuple(v.shape)} does not fit a plan of {plan.weights.shape[0]} points")
 
 
 def _splat_args(plan: ChainPlan) -> tuple:
     return (plan.splat_points.data_ptr(), plan.splat_weights.data_ptr(), plan.cnt.data_ptr(),
-            plan.long_rows.data_ptr(), plan.long_first.data_ptr(), plan.piece_row.data_ptr(),
-            plan.piece_start.data_ptr(), plan.n_long.data_ptr(), plan.n_pieces.data_ptr(), plan.long_rows.shape[0],
-            plan.piece_row.shape[0], plan.n_lattice.data_ptr())
+            plan.long_rows.data_ptr(), plan.long_first.data_ptr(), plan.n_long.data_ptr(), plan.piece_row.data_ptr(),
+            plan.piece_start.data_ptr(), plan.n_pieces.data_ptr(), plan.mid_rows.data_ptr(), plan.n_mid.data_ptr(),
+            plan.long_rows.shape[0], plan.mid_rows.shape[0], plan.piece_row.shape[0], plan.splat_points.shape[0],
+            plan.n_lattice.data_ptr())
 
 
 def chain_splat(plan: ChainPlan, v: torch.Tensor) -> torch.Tensor:
     """K3'b: the axis-0 table (Mc, c) of v (n, c), each row summed in a fixed order (no atomics).
 
-    Two launches: the runs and pieces, then the long rows' pieces.  Rows
-    past the live count are left undefined; no later kernel reads them.
+    The short rows (a thread per row and column), the mid rows and the
+    pieces (a warp each) in one launch; the long rows from their pieces in a
+    second.
+    Rows past the live count are left undefined; no later kernel reads them.
     """
     if not v.is_cuda:
         return chain_splat_plain(plan, v)
@@ -452,7 +483,7 @@ def chain_apply_plain(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float)
 def chain_apply(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float) -> torch.Tensor:
     """``slice_norm * S^T B_d ... B_0 S v`` for v (n, c) through a sort-chain plan: K3'b, d+1 K3'c, K3'd.
 
-    On the card the d + 4 launches go out from one host call; each kernel's
+    On the card the d + 3 or d + 4 launches go out from one host call; each kernel's
     launches are counted on its own wrapper.  All NaN when the plan's
     capacity overflowed.
     """

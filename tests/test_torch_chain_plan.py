@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from chain_fixtures import RUN_LENGTHS, chain_class_positions, synthetic_chain_plan
 from torch_parity import rel_err, seeded
 
 import simplex_gp_torch as T
@@ -312,3 +313,115 @@ def test_posterior_cache_runs_its_cg_on_the_chain_and_matches_jax(monkeypatch):
     assert rel_err(tc["alpha"].numpy(), np.asarray(jc["alpha"])) < 1e-4
     np.testing.assert_allclose(tmean.numpy(), jmean, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(tvar.numpy(), jvar, rtol=1e-4)
+
+
+def _xor_butterfly(lanes):
+    """(32, c) lane values -> lane 0 after the warp's xor shuffles at offsets 16 .. 1."""
+    idx = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[idx ^ off]
+    return lanes[0]
+
+
+def _warp_run(vals):
+    """A warp's sum of vals (L, c), L <= PIECE: lane l adds rows l, l + 32, ... in turn, then the butterfly."""
+    lanes = torch.zeros((32, vals.shape[1]), dtype=torch.float32)
+    for k in range(0, vals.shape[0], 32):
+        chunk = vals[k:k + 32]
+        lanes[:chunk.shape[0]] = lanes[:chunk.shape[0]] + chunk
+    return _xor_butterfly(lanes)
+
+
+def _group_fold(vals):
+    """A short run (L <= SHORT): lanes 0 + w v, padded with +0 to the smallest power of two g >= L, folded
+    in halves (the butterfly over a group of g lanes)."""
+    L = vals.shape[0]
+    g = 1
+    while g < L:
+        g *= 2
+    x = torch.zeros((g, vals.shape[1]), dtype=torch.float32)
+    x[:L] = 0.0 + vals
+    while g > 1:
+        g //= 2
+        x = x[:g] + x[g:2 * g]
+    return x[0]
+
+
+def _splat_by_class(plan, v):
+    """The kernel's per-class order, row by row: the group fold for runs of at most SHORT, one warp run
+    for runs of at most PIECE, and for longer runs a warp run per piece of PIECE, then a warp run over the
+    pieces' sums."""
+    cnt = plan.cnt.tolist()
+    live = min(int(plan.n_lattice), len(cnt))
+    contrib = plan.splat_weights[:, None] * v[plan.splat_points.long()]
+    rows = []
+    for g in range(live):
+        start = cnt[g - 1] if g else 0
+        vals = contrib[start:cnt[g]]
+        if vals.shape[0] <= t_chain.SHORT:
+            rows.append(_group_fold(vals))
+        elif vals.shape[0] <= t_chain.PIECE:
+            rows.append(_warp_run(vals))
+        else:
+            parts = torch.stack([_warp_run(vals[k:k + t_chain.PIECE])
+                                 for k in range(0, vals.shape[0], t_chain.PIECE)])
+            rows.append(_warp_run(parts))
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("c", [1, 11, 17])
+def test_splat_order_by_class_equals_the_warp_order(c):
+    """The kernel's per-class order (thread-per-column fold of short runs, one-pass warp runs beyond) is
+    the plain version's warp order bit for bit, at every run length class and across column tiles."""
+    plan = synthetic_chain_plan(RUN_LENGTHS, 700, seed=c)
+    v = torch.from_numpy(np.random.default_rng(100 + c).normal(size=(700, c)).astype(np.float32))
+    live = len(RUN_LENGTHS)
+    table = t_chain.chain_splat_plain(plan, v)
+    assert torch.equal(_splat_by_class(plan, v), table[:live])
+    # Against a float64 sum of each run: the warp order is a sum, not just a fixed order.
+    direct = torch.stack([(plan.splat_weights[s:e, None].double() * v[plan.splat_points[s:e].long()].double()).sum(0)
+                          for s, e in zip([0] + plan.cnt[:live - 1].tolist(), plan.cnt[:live].tolist())])
+    assert rel_err(table[:live].numpy(), direct.numpy()) < 1e-6
+
+
+def test_run_lists_match_their_definition():
+    """The plan's work lists: long rows (> PIECE) with their pieces of PIECE, mid rows (SHORT+1 .. PIECE),
+    ascending, each padded to its bound; rows past the live count are in none."""
+    plan = synthetic_chain_plan(RUN_LENGTHS, 700, seed=0)
+    lens = np.array(RUN_LENGTHS)
+    nl, nm, npc = int(plan.n_long), int(plan.n_mid), int(plan.n_pieces)
+    np.testing.assert_array_equal(plan.long_rows[:nl].numpy(), np.nonzero(lens > t_chain.PIECE)[0])
+    np.testing.assert_array_equal(plan.mid_rows[:nm].numpy(),
+                                  np.nonzero((lens > t_chain.SHORT) & (lens <= t_chain.PIECE))[0])
+    pieces = -(-lens[lens > t_chain.PIECE] // t_chain.PIECE)
+    assert npc == pieces.sum()
+    np.testing.assert_array_equal(plan.long_first[:nl + 1].numpy(), np.concatenate([[0], np.cumsum(pieces)]))
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    want = np.concatenate([starts[g] + t_chain.PIECE * np.arange(k)
+                           for g, k in zip(np.nonzero(lens > t_chain.PIECE)[0], pieces)])
+    np.testing.assert_array_equal(plan.piece_start[:npc].numpy(), want)
+    N, Mc = int(lens.sum()), plan.cnt.shape[0]
+    assert plan.long_rows.shape[0] == min(Mc, N // (t_chain.PIECE + 1))
+    assert plan.piece_row.shape[0] == N // t_chain.PIECE + plan.long_rows.shape[0]
+    assert plan.mid_rows.shape[0] == min(Mc, N // (t_chain.SHORT + 1))
+
+
+@pytest.mark.parametrize("capacity", [None, "trim", "over"])
+def test_built_plan_buckets_and_splat_order(capacity):
+    """A plan built from positions with runs of every class (clustered and spread points): its mid and long
+    lists against their definition over the live rows, and its splat in the per-class order, untrimmed,
+    trimmed and past the capacity (the first Mc rows)."""
+    tdk, _ = _kernels("rbf", 1)
+    x = chain_class_positions()
+    v = torch.from_numpy(np.random.default_rng(9).normal(size=(x.shape[0], 11)).astype(np.float32))
+    occ = int(t_lattice.count_lattice_points(torch.from_numpy(x), tdk.variance))
+    cap = {None: None, "trim": occ + 3, "over": occ - 5}[capacity]
+    plan = t_lattice.build_plan_chain(torch.from_numpy(x), tdk.coeffs, tdk.variance, cap)
+    live = min(int(plan.n_lattice), plan.cnt.shape[0])
+    lens = np.diff(np.concatenate([[0], plan.cnt.numpy()]))[:live]
+    assert (lens <= t_chain.SHORT).any() and ((lens > t_chain.SHORT) & (lens <= t_chain.PIECE)).any()
+    assert (lens > t_chain.PIECE).any()
+    np.testing.assert_array_equal(plan.mid_rows[:int(plan.n_mid)].numpy(),
+                                  np.nonzero((lens > t_chain.SHORT) & (lens <= t_chain.PIECE))[0])
+    np.testing.assert_array_equal(plan.long_rows[:int(plan.n_long)].numpy(), np.nonzero(lens > t_chain.PIECE)[0])
+    assert torch.equal(_splat_by_class(plan, v), t_chain.chain_splat_plain(plan, v)[:live])

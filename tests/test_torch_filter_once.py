@@ -131,3 +131,36 @@ def test_cpu_tensors_take_the_plain_versions():
     _once(v, x, dk)
     t_lattice.count_lattice_points(torch.from_numpy(x), dk.variance)
     assert (K.lattice_filter_once.launches, K.lattice_count.launches) == before
+
+
+def _adversarial(case):
+    """Positions that stress an occupancy count: one hot key set, all keys distinct, one point, d = 1,
+    duplicated rows."""
+    rng = np.random.default_rng(11)
+    if case == "identical":
+        return np.tile(rng.normal(size=(1, 6)).astype(np.float32), (500, 1))
+    if case == "distinct":  # 50 apart in every coordinate: no two points share a lattice point
+        return (50.0 * np.arange(200)[:, None] + rng.uniform(0, 1, size=(200, 4))).astype(np.float32)
+    if case == "single":
+        return rng.normal(size=(1, 7)).astype(np.float32)
+    if case == "one_dim":
+        return rng.normal(size=(300, 1)).astype(np.float32)
+    x0 = rng.normal(size=(120, 3)).astype(np.float32)
+    return np.concatenate([x0, x0[::-1], x0[:50], x0[:1]])
+
+
+@pytest.mark.parametrize("case", ["identical", "distinct", "single", "one_dim", "duplicated"])
+def test_count_on_adversarial_inputs_matches_jax(case):
+    """K8's plain version against JAX's count_lattice_points where the keys repeat, never repeat, or are
+    few; the counts the cases imply hold exactly."""
+    x = _adversarial(case)
+    n, d = x.shape
+    dk = t_kernels.rbf_kernel(1)
+    got = int(t_lattice.count_lattice_points(torch.from_numpy(x), dk.variance))
+    assert got == int(j_lattice.count_lattice_points(jnp.asarray(x), dk.variance))
+    if case in ("identical", "single"):
+        assert got == d + 1
+    elif case == "distinct":
+        assert got == n * (d + 1)
+    elif case == "duplicated":
+        assert got == int(t_lattice.count_lattice_points(torch.from_numpy(x[:120]), dk.variance))

@@ -20,8 +20,9 @@ The bounded K2 numbers its rows as it likes but gives the plain version's
 occupancy, and K3 on it the plain operator (rel 1e-5); one row short of
 the occupancy, every output is NaN and no launch leaves its table.
 K11a numbers its rows as its plain version does, bit for bit; K11b is K3's
-splat, blur and slice over column blocks (rel 1e-5, on one rank and over two
-gloo ranks sharing the card); K6' with the pivot's rows passed in is K6's
+splat, blur and slice over column blocks (on one rank, it, its plain version
+and K3 each within rel 2e-5 of the operator in float64; over two gloo ranks
+sharing the card, rel 1e-5 against the plain version and K3); K6' with the pivot's rows passed in is K6's
 arithmetic, bit for bit.  K12, the stacked mixture apply, is K3's splat,
 blur and slice over J stacked component tables, with the weighted sum over
 components in the slice (rel 1e-5, forward and transposed, outputs and the
@@ -31,15 +32,20 @@ plain build bit for bit (the same torch.sort calls on the same keys), its
 splat sums each row in the order its plain version does, and its axis
 stencils and slice use the plain version's IEEE operations in their order,
 so the applies are bit-equal too, and two builds or two applies repeat
-bit for bit; against K3 it takes the chain-vs-join bound, rel 2e-5.  The
+bit for bit; against K3 it takes the chain-vs-join bound, rel 2e-5.  K3'b is
+held bit for bit on runs of every length class (short, mid, long),
+across column tiles, and on a plan past 4M contributions.  K8's count is exact on a hot key set, all keys
+distinct, a ragged last block and d = 1, 11, 18.  The
 Snelson gate (test_torch_snelson.py's prediction test) runs on the card
 too, through the kernels.
 Positions at d >= 9 are scaled by 0.3, so the kernel reaches between points
 and the gradients are not roundoff.
 """
 
+import numpy as np
 import pytest
 import torch
+from chain_fixtures import RUN_LENGTHS, chain_class_positions, synthetic_chain_plan
 from torch_parity import cuda_device, seeded  # noqa: F401 (fixture)
 
 from simplex_gp_torch.kernels import chain as KC
@@ -55,6 +61,13 @@ pytestmark = pytest.mark.cuda
 GRID = [(200, 1, 1, "rbf"), (300, 3, 1, "rbf"), (257, 5, 2, "rbf"), (150, 2, 3, "matern"),
         (400, 9, 1, "matern"), (64, 17, 1, "rbf"), (16599, 17, 1, "rbf")]
 
+
+# K11b and K3 (float32 atomic splats) against the operator in float64.  Measured on an H100 at the
+# widest case (16,599 x 17) by `simplex_gp_torch/kernel_times.py --sharded-f64`, 1,800 comparisons at
+# c = 1: median 1.5e-6, 99th percentile 6.8e-6, max 1.13e-5; at c = 11 at most 3.5e-6.  Two of the
+# splats compared with each other reached 1.19e-5 there.  The bound is the chain-vs-join bound that
+# chip_smoke.py holds K3 to against the same float64 operator (LARGE_N_REL).
+SHARDED_F64_REL = 2e-5
 
 def _dk(kind, order):
     return t_kernels.rbf_kernel(order) if kind == "rbf" else t_kernels.matern_kernel(1.5, order)
@@ -369,7 +382,11 @@ class _OneRank:
 @pytest.mark.parametrize("c", [1, 11])
 @pytest.mark.parametrize("n,d,order,kind", GRID)
 def test_sharded_apply_one_rank_matches_plain_and_k3(cuda_device, n, d, order, kind, c):
-    """K11b on one rank: its plain version and K3 (rel 1e-5, the atomic splat), forward and transposed."""
+    """K11b on one rank, its plain version and K3, forward and transposed, outputs and tables, each held
+    to the operator in float64 (K3's plain version on K11a's plan with v in float64).  K11b and K3 are
+    float32 atomic splats whose order changes from run to run, each within SHARDED_F64_REL of the
+    float64 operator (see its note); held to each other at rel 1e-5, two of them failed once in 136
+    runs."""
     dk = _dk(kind, order)
     x = _positions(n, d, 11, cuda_device)
     E, a, oh1, oh2 = t_lattice._lattice_constants(d, dk.coeffs, dk.variance, cuda_device)
@@ -383,10 +400,12 @@ def test_sharded_apply_one_rank_matches_plain_and_k3(cuda_device, n, d, order, k
         kout, ktab = K.lattice_apply_sharded(seg, w, nb, nl, v, dk.coeffs, norm, axis, transpose, True)
         pout, ptab = K.apply_sharded_plain(seg, w, nb, v, dk.coeffs, norm, axis, transpose, True)
         whole, wtab = K.lattice_apply(seg, w, nb, nl, v, dk.coeffs, norm, transpose, True)
+        exact, etab = K.apply_plain(seg, w, nb, v.double(), dk.coeffs, norm, transpose, True)
         torch.cuda.synchronize()
         rows = seg.long()  # rows past n_lattice are undefined in the kernels' tables
-        for got, want in ((kout, pout), (kout, whole), (ktab[rows], ptab[rows]), (ktab[rows], wtab[rows])):
-            assert float((got - want).norm() / want.norm()) < 1e-5
+        for got, want in ((kout, exact), (pout, exact), (whole, exact),
+                          (ktab[rows], etab[rows]), (ptab[rows], etab[rows]), (wtab[rows], etab[rows])):
+            assert float((got.double() - want).norm() / want.norm()) < SHARDED_F64_REL
     assert K.lattice_apply_sharded.launches == before + 2
 
 
@@ -633,3 +652,86 @@ def test_chain_wrappers_refuse_wrong_inputs(cuda_device):
     with pytest.raises(ValueError):
         KC.chain_build(plan.slice_idx.reshape(-1), plan.slice_idx.reshape(-1), plan.slice_idx.reshape(-1),
                        plan.weights, torch.zeros((3, 3), dtype=torch.int32, device=cuda_device), list(dk.coeffs))
+
+
+def _count_positions(case, device):
+    """K8's cases: a hot key set (2M identical points), all keys distinct at half the table's load, n
+    not a multiple of the block, and normal positions at d = 1, 11 and 18."""
+    rng = np.random.default_rng(12)
+    if case == "hot":
+        x = np.tile(rng.normal(size=(1, 11)).astype(np.float32), (2_000_000, 1))
+    elif case == "distinct":  # 2^18 points 50 apart: 2^20 distinct keys in the 2^21 slots
+        x = (50.0 * np.arange(2**18)[:, None] + rng.uniform(0, 1, size=(2**18, 3))).astype(np.float32)
+    elif case == "ragged":
+        x = rng.normal(size=(1037, 5)).astype(np.float32)
+    else:
+        d = int(case[1:])
+        x = (rng.normal(size=(50_001, d)) * (1.0 if d < 9 else 0.3)).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("case", ["hot", "distinct", "ragged", "d1", "d11", "d18"])
+def test_count_matches_plain_exactly(cuda_device, case):
+    """K8 (each key's slot read with a plain load before any atomicCAS, one atomicAdd of a block's claims)
+    gives its plain version's count exactly."""
+    x = _count_positions(case, cuda_device)
+    n, d = x.shape
+    dk = _dk("rbf", 1)
+    E, a, _, _ = t_lattice._lattice_constants(d, dk.coeffs, dk.variance, cuda_device)
+    before = K.lattice_count.launches
+    got = K.lattice_count(x, E, a)
+    torch.cuda.synchronize()
+    want = int(K.count_plain(x, E, a))
+    assert int(got) == want and K.lattice_count.launches == before + 1
+    if case == "hot":
+        assert want == d + 1
+    if case == "distinct":
+        assert want == n * (d + 1)
+
+
+@pytest.mark.parametrize("c", [1, 11, 16, 17])
+@pytest.mark.parametrize("capacity", [None, "trim", "over"])
+def test_chain_splat_matches_plain_on_every_run_class(cuda_device, c, capacity):
+    """K3'b against its plain version bit for bit on a built plan with short, mid and long runs
+    (untrimmed, trimmed, past the capacity: the first Mc rows), across column tiles of 16, and on a plan of
+    the run lengths 1 .. 3,072."""
+    dk = _dk("rbf", 1)
+    x = torch.from_numpy(chain_class_positions()).to(cuda_device)
+    occ = int(t_lattice.build_plan_chain(x, dk.coeffs, dk.variance).n_lattice)
+    cap = {None: None, "trim": occ + 3, "over": occ - 5}[capacity]
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    plan = t_lattice.build_plan_chain(x, dk.coeffs, dk.variance, cap)
+    live = min(int(plan.n_lattice), plan.cnt.shape[0])
+    assert int(plan.n_mid) > 0 and int(plan.n_long) > 0
+    v = torch.randn((x.shape[0], c), generator=gen, device=cuda_device)
+    before = KC.chain_splat.launches
+    got = KC.chain_splat(plan, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:live], KC.chain_splat_plain(plan, v)[:live])
+    synth = synthetic_chain_plan(RUN_LENGTHS, 700, seed=c, device=cuda_device)
+    v = torch.randn((700, c), generator=gen, device=cuda_device)
+    got = KC.chain_splat(synth, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:len(RUN_LENGTHS)], KC.chain_splat_plain(synth, v)[:len(RUN_LENGTHS)])
+    assert KC.chain_splat.launches == before + 2
+
+
+# A plan past 4M contributions, as houseelectric's (15.7M): two rows of ~2M in thousands of pieces each, so
+# the long-row combine strides over many pieces a lane, beside runs of every other class.
+LARGE_RUN_LENGTHS = [1, 33, 2_100_000, 32, 1025, 2_200_001, 3, 1024, 2]
+
+
+@pytest.mark.parametrize("c", [1, 11, 16, 17])
+def test_chain_splat_matches_plain_past_4m_contributions(cuda_device, c):
+    """K3'b against its plain version bit for bit on a plan of 4.3M contributions, at one and two column
+    tiles."""
+    plan = synthetic_chain_plan(LARGE_RUN_LENGTHS, 100_000, seed=c, device=cuda_device)
+    assert plan.splat_points.shape[0] > 4 * 2**20 and int(plan.n_pieces) > 4000
+    v = torch.randn((100_000, c), generator=torch.Generator(device=cuda_device).manual_seed(c),
+                    device=cuda_device)
+    before = KC.chain_splat.launches
+    got = KC.chain_splat(plan, v)
+    torch.cuda.synchronize()
+    live = len(LARGE_RUN_LENGTHS)
+    assert torch.equal(got[:live], KC.chain_splat_plain(plan, v)[:live])
+    assert KC.chain_splat.launches == before + 1
