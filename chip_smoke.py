@@ -28,7 +28,8 @@ Phases, each printed as it runs:
      version at elevators, precipitation, houseelectric and houseelectric's
      size with one point repeated, timed beside K1 + torch.unique of its
      keys, and the guard at houseelectric; K7 lattice_deriv_grad against its plain version (c = 11,
-     418 stacked columns); grad_mode="deriv_filter": NLML and raw gradients
+     418 stacked columns; bit for bit, and a second run), its row lists (join_rows) against their
+     plain build and timed; grad_mode="deriv_filter": NLML and raw gradients
      at the median init and at model_best.pkl, three Adam steps, one warm
      step and its stages; ``simplex_gp_torch.mvm_err.main`` for rbf order 1
      at elevators, precipitation and houseelectric (seeded synthetic
@@ -38,8 +39,12 @@ Phases, each printed as it runs:
      training rows), against the JAX-on-CPU golden file
      tests/fixtures/houseelectric_golden.npz: K9 lattice_apply_cols against
      its plain version at --max-n 360,000 (c = 100 on the trimmed training
-     plan, c = 101 on the untrimmed [train; val] plan) and against the
-     unchunked K3 at full n (times and peak memories of both); K8's count and
+     plan, c = 101 on the untrimmed [train; val] plan) and at full n (bit
+     for bit, and a second run), and against the unchunked K3 at full n
+     (times and peak memories of both; K9's time with its row lists built
+     inside and given, by CUDA-graph replay and on the plan of capacity =
+     occupancy; the row lists against their plain build, and the time of
+     their build and of its sort); K8's count and
      the autotrimmed capacity against JAX's; the bounded K2 at capacity =
      occupancy (the untrimmed output) and occupancy - 1 (all NaN), and
      against its plain version at 360,000; the NLML and raw gradients at
@@ -115,8 +120,8 @@ Phases, each printed as it runs:
 
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- for K5, on the trainer run; for K7, on
-the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9
-and the bounded K2, on the houseelectric trainer run; for K11a, K11b and K6',
+the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9,
+its row lists and the bounded K2, on the houseelectric trainer run; for K11a, K11b and K6',
 on the two ranks' data-parallel NLML step; for K12, on the mixture trainer
 run; for K13, on the SKIP trainer run; for K3', in one training step --,
 errors, times, and
@@ -318,6 +323,8 @@ KERNEL_ROWS = {
     "count_lattice_points": ("simplex_gp_torch/csrc/once.cu", "simplex_gp_tpu/ops/lattice.py:839"),
     "lattice_deriv_grad": ("simplex_gp_torch/csrc/deriv.cu", "simplex_gp_tpu/ops/filter.py:261"),
     "lattice_apply_cols": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/filter.py:65"),
+    # K9's and K7's row lists: the chain plan's contribution order and run ends (_chain_core's cnt).
+    "join_rows": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/lattice.py:756"),
     "lattice_dedup_neighbors_bounded": ("simplex_gp_torch/csrc/dedup.cu", "simplex_gp_tpu/ops/lattice.py:693"),
     "lattice_dedup_ordered": ("simplex_gp_torch/csrc/dedup.cu", "simplex_gp_tpu/parallel/shard_filter.py:118"),
     "lattice_apply_sharded": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/lattice.py:499"),
@@ -751,9 +758,17 @@ def oneshot_phase(dev, ds, expect, timer):
         dplan = L.build_plan_join(ref, dk.deriv_coeffs, dk.deriv_variance)
         dtaps, scale = list(dk.deriv_coeffs), 2.0 * dk.dk0
         gk = K.lattice_deriv_grad(*dplan, ref, src, g, dtaps, norm, scale)
+        gk2 = K.lattice_deriv_grad(*dplan, ref, src, g, dtaps, norm, scale)
         gp = K.deriv_grad_plain(dplan.seg_ids, dplan.weights, dplan.neighbors, ref, src, g, dtaps, norm, scale)
         r7 = rel(gk, gp)
         expect(bool(torch.isfinite(gk).all()) and r7 <= K7_REL, f"K7 vs plain: rel error {r7:.3e} (limit {K7_REL})")
+        k7_equal = bool(torch.equal(gk, gp) and torch.equal(gk2, gk))
+        expect(k7_equal, f"K7 bit-equal to its plain version and to a second run: {torch.equal(gk, gp)} / "
+               f"{torch.equal(gk2, gk)}")
+        drows, drows_plain = K.join_rows(*dplan), K.join_rows_plain(*dplan)
+        expect(all(torch.equal(a_, b_) for a_, b_ in zip(drows, drows_plain)),
+               "the derivative plan's row lists bit-equal to their plain build")
+        rows_ms = timer(lambda: K.join_rows(*dplan), 10)
         nl7, C = int(dplan.n_lattice), 2 * 11 * (1 + d)
         rows["lattice_deriv_grad"] = dict(
             # seg, weights, live neighbour rows, ref, src and g in; grad_ref out.
@@ -764,7 +779,7 @@ def oneshot_phase(dev, ds, expect, timer):
             ms=timer(lambda: K.lattice_deriv_grad(*dplan, ref, src, g, dtaps, norm, scale), 10),
             plain_ms=timer(lambda: K.deriv_grad_plain(dplan.seg_ids, dplan.weights, dplan.neighbors, ref, src, g,
                                                       dtaps, norm, scale), 2),
-            shape=f"n={n}, d={d}, L=11, C=418, M={N}")
+            shape=f"n={n}, d={d}, L=11, C=418, M={N}", bit_equal=k7_equal, join_rows_ms=rows_ms)
         deriv_plan_ms = timer(lambda: L.build_plan_join(ref, dk.deriv_coeffs, dk.deriv_variance), 10)
     st = src.clone().requires_grad_(True)
     lattice_filter(st, ref, dk).backward(g)
@@ -772,9 +787,11 @@ def oneshot_phase(dev, ds, expect, timer):
         r_src = rel(st.grad, L.filter_once(g, ref, dk.coeffs, dk.variance))
     expect(r_src <= 2 * K3_REL, f"deriv-mode lattice_filter grad_src vs K4 of g: rel {r_src:.3e} "
            f"(limit {2 * K3_REL}: two atomic splats)")
-    print(f"    K7 {rows['lattice_deriv_grad']['ms']:.4f} ms, plain {rows['lattice_deriv_grad']['plain_ms']:.4f} ms; "
-          f"deriv plan (K1 + K2) {deriv_plan_ms:.4f} ms")
-    record.update(k7_rel=r7, grad_src_rel=r_src, deriv_plan_ms=deriv_plan_ms)
+    print(f"    K7 {rows['lattice_deriv_grad']['ms']:.4f} ms (its row lists' build in it, join_rows: {rows_ms:.4f}), plain "
+          f"{rows['lattice_deriv_grad']['plain_ms']:.4f} ms; deriv plan (K1 + K2) {deriv_plan_ms:.4f} ms; bit-equal "
+          f"to plain and repeatable: {k7_equal}")
+    record.update(k7_rel=r7, k7_bit_equal=k7_equal, grad_src_rel=r_src, deriv_plan_ms=deriv_plan_ms,
+                  deriv_join_rows_ms=rows_ms)
 
     print("one-shot 5.4: grad_mode=deriv_filter: NLML and raw gradients vs JAX on the CPU, three Adam steps")
     for tag in ("init", "best"):
@@ -797,7 +814,7 @@ def oneshot_phase(dev, ds, expect, timer):
     model.load_raw(point("init"))
     steps = iter([probes(golden["seed_adam"] + e) for e in range(3)])
     path = (K.lattice_geometry, K.lattice_dedup_neighbors, *chain_kernels(), K.lattice_filter_once,
-            K.lattice_deriv_grad)
+            K.join_rows, K.lattice_deriv_grad)
     for fn in path:
         fn.launches = 0
     hist = simplex_gp_torch.fit_adam(lambda _gen: model.nlml(x, y, probes=next(steps)), model.parameters(),
@@ -907,7 +924,7 @@ def large_n_phase(dev, expect, timer):
     cut = int(golden["max_n"])
     dk = simplex_gp_torch.SimplexGP(num_dims=11, kernel="matern", nu=1.5, order=1).dk
     n, d = ds.train_x.shape
-    taps, norm, order, chunk = list(dk.coeffs), L.SLICE_NORM(d), dk.order, F._WIDE_CHUNK
+    taps, norm, order, chunk = list(dk.coeffs), L.SLICE_NORM(d), dk.order, L.k9_window(F._WIDE_CHUNK)
     E, a, oh1, oh2 = L._lattice_constants(d, dk.coeffs, dk.variance, dev)
     rows, record = {}, {}
     ell = {tag: trainer.median_lengthscale(x) for tag, x in (("full", ds.train_x), ("cut", ds.train_x[:cut]))}
@@ -944,6 +961,7 @@ def large_n_phase(dev, expect, timer):
             expect(int(kplan.n_lattice) == int(pplan.n_lattice) and max(r_same, r_route) <= LARGE_N_REL,
                    f"{name}, c={c}: n_lattice kernel {int(kplan.n_lattice)} plain {int(pplan.n_lattice)}; rel "
                    f"{r_same:.3e} on the same plan, {r_route:.3e} against the all-plain route (limit {LARGE_N_REL})")
+            expect(bool(torch.equal(kout, same)), f"{name}, c={c}: K9 bit-equal to its plain version on its plan")
             record[f"k9_rel_{c}"] = r_route
             del kplan, pplan, kout, same, route
 
@@ -962,18 +980,47 @@ def large_n_phase(dev, expect, timer):
             torch.cuda.synchronize()
             return out, (torch.cuda.max_memory_allocated() - base) / 1e9
 
-        k9_out, k9_gb = peak_gb(lambda: K.lattice_apply_cols(*plan_u, v100, taps, norm, chunk))
+        rows_u = K.join_rows(*plan_u)
+        rows_err = max(float((a_.double() - b_.double()).abs().max()) if a_.numel() else 0.0
+                       for a_, b_ in zip(rows_u, K.join_rows_plain(*plan_u)))
+        expect(rows_err == 0, f"the untrimmed plan's row lists bit-equal to their plain build (max |diff| {rows_err})")
+        join_rows_ms = timer(lambda: K.join_rows(*plan_u), 5)
+        join_rows_plain_ms = timer(lambda: K.join_rows_plain(*plan_u), 1)
+        sort_ms = timer(lambda: torch.sort(plan_u.seg_ids.reshape(-1), stable=True), 5)
+        k9_out, k9_gb = peak_gb(lambda: K.lattice_apply_cols(*plan_u, v100, taps, norm, chunk, rows_u))
+        k9_again = K.lattice_apply_cols(*plan_u, v100, taps, norm, chunk)
+        k9_plain = K.apply_cols_plain(*plan_u, v100, taps, norm, chunk, rows_u)
+        k9_equal = bool(torch.equal(k9_out, k9_plain) and torch.equal(k9_again, k9_out))
+        expect(k9_equal, f"K9 bit-equal to its plain version and to a second run: {torch.equal(k9_out, k9_plain)} / "
+               f"{torch.equal(k9_again, k9_out)}")
+        k9_err = max(k9_err, float((k9_out - k9_plain).abs().max()))
+        del k9_again, k9_plain
         k3_out, k3_gb = peak_gb(lambda: K.lattice_apply(*plan_u, v100, taps, norm))
         r93 = rel(k9_out, k3_out)
         expect(r93 <= LARGE_N_REL, f"K9 vs K3: rel {r93:.3e} (limit {LARGE_N_REL})")
         del k3_out
+        # As the predict calls it (its row lists built inside), and given them, as the range sketch's two MVMs.
         k9_ms = timer(lambda: K.lattice_apply_cols(*plan_u, v100, taps, norm, chunk), 3)
+        k9_given_ms = timer(lambda: K.lattice_apply_cols(*plan_u, v100, taps, norm, chunk, rows_u), 3)
+        k9_graph_ms = graph_ms(lambda: K.lattice_apply_cols(*plan_u, v100, taps, norm, chunk, rows_u), 2)
         k3_ms = timer(lambda: K.lattice_apply(*plan_u, v100, taps, norm), 3)
-        k9_plain_ms = timer(lambda: K.apply_cols_plain(*plan_u, v100, taps, norm, chunk), 1)
-        print(f"    n_lattice {nl_u} of {n * (d + 1)}: K9 {k9_ms:.3f} ms, peak {k9_gb:.3f} GB; unchunked K3 "
-              f"{k3_ms:.3f} ms, peak {k3_gb:.3f} GB; K9 plain {k9_plain_ms:.3f} ms (CUDA events)")
-        record.update(k9_k3_rel=r93, k9_ms=k9_ms, k9_peak_gb=k9_gb, k3_c100_ms=k3_ms, k3_c100_peak_gb=k3_gb,
-                      houseelectric_untrimmed_n_lattice=nl_u)
+        k9_plain_ms = timer(lambda: K.apply_cols_plain(*plan_u, v100, taps, norm, chunk, rows_u), 1)
+        # The same points and n_lattice on a plan of M = occupancy rows in place of n(d+1).
+        occ_fit = int(K.lattice_count(xf, E, a))
+        plan_fit = L.build_plan_join(xf, dk.coeffs, dk.variance, occ_fit)
+        rows_fit = K.join_rows(*plan_fit)
+        k9_fit_ms = timer(lambda: K.lattice_apply_cols(*plan_fit, v100, taps, norm, chunk, rows_fit), 3)
+        del plan_fit, rows_fit
+        print(f"    n_lattice {nl_u} of {n * (d + 1)}, window {chunk} columns: K9 {k9_ms:.3f} ms with its row lists "
+              f"built inside (join_rows {join_rows_ms:.3f} ms, its stable sort {sort_ms:.3f}; plain "
+              f"{join_rows_plain_ms:.3f}), {k9_given_ms:.3f} ms given them, {k9_graph_ms:.3f} ms by CUDA-graph replay; "
+              f"on the plan of capacity = occupancy {k9_fit_ms:.3f} ms (untrimmed / occupancy-sized "
+              f"{k9_given_ms / k9_fit_ms:.2f}); peak {k9_gb:.3f} GB; unchunked K3 {k3_ms:.3f} ms, peak {k3_gb:.3f} "
+              f"GB; K9 plain {k9_plain_ms:.3f} ms (CUDA events); bit-equal to plain and repeatable: {k9_equal}")
+        record.update(k9_k3_rel=r93, k9_ms=k9_ms, k9_given_rows_ms=k9_given_ms, k9_graph_ms=k9_graph_ms,
+                      k9_peak_gb=k9_gb, k9_window=chunk, k9_bit_equal=k9_equal, k3_c100_ms=k3_ms,
+                      k3_c100_peak_gb=k3_gb, houseelectric_untrimmed_n_lattice=nl_u, join_rows_ms=join_rows_ms,
+                      k9_capacity_occupancy_ms=k9_fit_ms)
 
     print("large n 6.3: K8 count, autotrim, the bounded K2 and its guard (all training rows, median init)")
     with torch.no_grad():
@@ -993,10 +1040,6 @@ def large_n_phase(dev, expect, timer):
         expect(int(nl) == occ and tuple(nb.shape) == (d + 1, occ, 2 * order) and r_fit <= LARGE_N_REL,
                f"capacity = occupancy: n_lattice {int(nl)}, neighbours {tuple(nb.shape)}, rel {r_fit:.3e} against "
                f"the untrimmed plan (limit {LARGE_N_REL}; two runs of the untrimmed K3 differ by {spread:.3e})")
-        # K9 on this plan: the same points and n_lattice as 6.2's, M = occupancy rows in place of n(d+1).
-        k9_fit_ms = timer(lambda: K.lattice_apply_cols(seg.reshape(n, d + 1), w, nb, nl, v100, taps, norm, chunk), 3)
-        print(f"    K9 at c = 100 on the plan of capacity = occupancy: {k9_fit_ms:.3f} ms (untrimmed, 6.2: "
-              f"{k9_ms:.3f} ms)")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         seg, nb, nl = K.lattice_dedup_neighbors(h1, h2, oh1, oh2, occ - 1)
@@ -1032,7 +1075,7 @@ def large_n_phase(dev, expect, timer):
         **bound(dedup_bytes(n * (d + 1), cap, d + 1, order), 0), library_ms=None,
         shape=f"houseelectric N={n * (d + 1)} hash pairs, capacity {cap}", unbounded_ms=unbounded_ms)
     record.update(occupancy=occ, occupancy_jax=occ_jax, capacity=cap, trim_rel=r_fit, k3_repeat_rel=spread,
-                  guard_s=guard_s, bounded_k2_rel=r_b, k9_capacity_occupancy_ms=k9_fit_ms)
+                  guard_s=guard_s, bounded_k2_rel=r_b)
 
     print(f"    NLML and raw gradients at n={cut}, capacity {cap_cut}, vs JAX on the CPU (same probes)")
     xcut, ycut = torch.from_numpy(ds.train_x[:cut]).to(dev), torch.from_numpy(ds.train_y[:cut]).to(dev)
@@ -1115,11 +1158,11 @@ def large_n_phase(dev, expect, timer):
     record.update(adam_losses=losses.tolist(), adam_cg_iters=iters, adam_first_step_param_diff=dp1,
                   adam_lengthscale_diff_per_step=dp.tolist(), adam_move_signs_agree=agree,
                   adam_move_signs=int(moves.size))
-    del model, loss, plan_u, v100, k9_out, h1, h2, w, seg, nb
+    del model, loss, plan_u, rows_u, v100, k9_out, h1, h2, w, seg, nb
 
     print("large n 6.4: python -m simplex_gp_torch.train at houseelectric, the round-5 flags, two epochs")
-    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, K.lattice_apply_cols, pivot_column,
-            K.lattice_filter_grad, K.lattice_count, *chain_kernels())
+    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, K.join_rows, K.lattice_apply_cols,
+            pivot_column, K.lattice_filter_grad, K.lattice_count, *chain_kernels())
     predictions = []
     real_predict = simplex_gp_torch.SimplexGP.predict_from_cache
 
@@ -1183,8 +1226,16 @@ def large_n_phase(dev, expect, timer):
     rows["lattice_apply_cols"] = dict(max_abs_err=k9_err, ms=k9_ms, plain_ms=k9_plain_ms,
                                       **bound(*apply_cost(n, d, 100, nl_u, order)),
                                       library_ms=None, shape=f"houseelectric n={n}, c=100, n_lattice={nl_u}, "
-                                      f"untrimmed", peak_gb=k9_gb, unchunked_k3_ms=k3_ms, unchunked_k3_peak_gb=k3_gb,
-                                      capacity_occupancy_ms=k9_fit_ms)
+                                      f"untrimmed, window {chunk}", peak_gb=k9_gb, unchunked_k3_ms=k3_ms,
+                                      unchunked_k3_peak_gb=k3_gb, given_rows_ms=k9_given_ms, graph_ms=k9_graph_ms,
+                                      capacity_occupancy_ms=k9_fit_ms, bit_equal=k9_equal)
+    # The seg ids and weights in; each contribution's point and weight and each row's run end out (the
+    # lists of mid rows and pieces, under 1% of it, are left out).
+    N_u = n * (d + 1)
+    rows["join_rows"] = dict(max_abs_err=rows_err, ms=join_rows_ms,
+                             plain_ms=join_rows_plain_ms, **bound(4 * (4 * N_u + N_u), 0),
+                             library_ms=None, sort_ms=sort_ms,
+                             shape=f"houseelectric untrimmed plan, N={N_u} contributions, M={N_u}, n_lattice={nl_u}")
     return rows, launches, record
 
 

@@ -1,6 +1,6 @@
 // K3 lattice_apply: out = SLICE_NORM * S^T B_d ... B_0 S v for v (n, c);
 // and K9 lattice_apply_cols: the same operator over a wide v, one column
-// window at a time.
+// window at a time, on a join plan's row lists.
 //
 // K3 replaces simplex_gp_tpu/ops/lattice.py::apply_plan_join (:470), with
 // the capacity guard of apply_plan_chain (:1093-1100); K9 replaces
@@ -11,8 +11,8 @@
 // (M, c) table, each of the d+1 blurs reads (2r+1) rows and writes one per
 // live row, and the slice gathers d+1 rows per point: about
 // (d+1)(2r+2) M c 4 bytes, ~0.8 GB at elevators' joint plan with c = 101.
-// Design: three phases, one thread per (item, column), so a warp walks the
-// contiguous columns of one row and its reads coalesce whenever c >= 32;
+// K3's design: three phases, one thread per (item, column), so a warp walks
+// the contiguous columns of one row and its reads coalesce whenever c >= 32;
 // at c = 1 (the CG operator) every gather is a scattered 4-byte load.
 //   splat: one thread per (contribution, column), atomicAdd into a table the
 //          wrapper zeroed.  The order of the adds, and so the last bits of
@@ -31,14 +31,25 @@
 // slice writes NaN (JAX's guard).  The host never reads the count.  An
 // untrimmed plan (M = n(d+1)) passes no count to splat and slice.
 //
-// K9.  At houseelectric's eval sizes (19.7M contribution rows, 101 columns)
-// two (M, c) tables would take 16 GB.  lattice_apply_cols keeps one pair of
-// (M, w) tables, w = 8, and runs splat, blurs and slice once per window
-// [c0, c0 + w) of the columns: the splat reads the window in place with v's
-// row stride c and the slice writes it in place into out, so no (n, w) copy
-// of a window is made and no column is padded (the last window is
-// narrower).  Each window re-reads the plan (seg ids, weights, neighbours);
-// that costs ceil(c / w) plan reads against one, for 1/13 of the tables.
+// K9.  At houseelectric's eval sizes (19.7M contribution rows, 101 columns,
+// ~20k live rows) two (M, c) tables would take 16 GB.  lattice_apply_cols
+// keeps one pair of (M, w) tables and runs splat, blurs and slice once per
+// window [c0, c0 + w) of the columns (the last window narrower), reading
+// each window of v in place (row stride c) and writing it in place into
+// out.  Its cost follows the contributions and the live rows, not M:
+//   rows (once per plan): from a stable sort of the seg ids (the
+//          wrapper's torch.sort), sgp_join_rows gives each contribution's
+//          point and weight in row order, each row's run end cnt and class,
+//          and chain.cu's sgp_run_lists the splat's lists of mid rows and
+//          long-row pieces, as for the sort chain's plan;
+//   splat: K3'b's row-order splat (rows.cuh) of the window: no atomics, no
+//          memset (every live row is written, no other row is read), the
+//          same bits in every run;
+//   blur:  sgp_live_blur (rows.cuh): a grid fixed by the card strides over
+//          the live rows only;
+//   slice: K3's, with its guard.
+// Each window re-reads the row lists; that costs ceil(c / w) plan reads
+// against one, for w / c of the tables.
 //
 // K11b, the sharded apply (apply_plan_join's sharded branch, ops/lattice.py
 // :499-521): each of P ranks holds n_loc points of a global plan of M rows.
@@ -55,23 +66,21 @@
 //     (n_loc, c) in place, skipping the padding.
 // Per apply each rank sends P-1 blocks of M cb floats in the reduce-scatter
 // and receives P-1 in the all-gather; the blur's traffic is K3's at cb =
-// c_pad / P columns.  K3's splat and slice read and write a column window in
-// place too, but index the table with the window's own width as its row
-// stride; the last block is narrower than cb when P does not divide c, so
-// the block kernels take cb as the stride and cover every block in one launch.
-#include "common.cuh"
+// c_pad / P columns.  The last block is narrower than cb when P does not
+// divide c, so the block kernels take cb as the stride and cover every
+// block in one launch.
+#include "rows.cuh"
 
 __global__ void splat_kernel(const int* __restrict__ seg, const float* __restrict__ w,
-                             const float* __restrict__ v, int n, int dp1, int wd, int ldv,
-                             int c0, float* __restrict__ table, const int* __restrict__ count,
-                             int capacity) {
+                             const float* __restrict__ v, int n, int dp1, int c,
+                             float* __restrict__ table, const int* __restrict__ count, int capacity) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n * dp1 * wd) return;
+  if (idx >= (long long)n * dp1 * c) return;
   if (count != nullptr && *count > capacity) return;
-  const int col = (int)(idx % wd);
-  const long long e = idx / wd;  // contribution = point * dp1 + vertex
+  const int col = (int)(idx % c);
+  const long long e = idx / c;  // contribution = point * dp1 + vertex
   const long long p = e / dp1;
-  atomicAdd(&table[(long long)seg[e] * wd + col], __fmul_rn(v[p * ldv + c0 + col], w[e]));
+  atomicAdd(&table[(long long)seg[e] * c + col], __fmul_rn(v[p * c + col], w[e]));
 }
 
 __global__ void blur_kernel(const float* __restrict__ in, float* __restrict__ out,
@@ -169,15 +178,9 @@ extern "C" int sgp_lattice_splat(const int* seg, const float* w, const float* v,
                                  void* stream) {
   const long long work = (long long)n * dp1 * c;
   if (work > 0)
-    splat_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(
-        seg, w, v, n, dp1, c, c, 0, table, count, capacity);
+    splat_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(seg, w, v, n, dp1, c, table,
+                                                                            count, capacity);
   return (int)cudaGetLastError();
-}
-
-static SgpTaps sgp_taps(const float* taps_host, int order) {
-  SgpTaps taps = {};
-  for (int t = 0; t < 2 * order + 1; ++t) taps.v[t] = taps_host[t];
-  return taps;
 }
 
 // taps_host: 2*order+1 floats in host memory, copied into the launch.
@@ -202,37 +205,88 @@ extern "C" int sgp_lattice_slice(const float* table, const int* seg, const float
   return (int)cudaGetLastError();
 }
 
-// K9.  v and out are (n, c) row-major; nb is the plan's (dp1, M, 2r)
-// neighbour array; n_lattice its live count; guard (nullable) as for
-// splat and slice.  ta and tb hold M * chunk floats each; ta need not be
-// zeroed (each window zeroes it).
-extern "C" int sgp_lattice_apply_cols(const int* seg, const float* w, const int* nb,
-                                      const int* n_lattice, const float* v, int n, int dp1,
-                                      int c, int chunk, int M, const float* taps_host, int order,
-                                      float norm, const int* guard, float* ta, float* tb,
-                                      float* out, void* stream) {
+// K9's rows, after the wrapper's stable sort of the N seg ids (sorted, with
+// its permutation perm).  Contribution at sorted position q: its point and
+// weight; where the row changes, the row's run end.  Every contribution of
+// a plan lies in a row below its live count, or, past the capacity, in row 0.
+__global__ void join_runs_kernel(const int* __restrict__ sorted, const long long* __restrict__ perm,
+                                 const float* __restrict__ w, int N, int dp1, int* __restrict__ sp,
+                                 float* __restrict__ sw, int* __restrict__ cnt) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= N) return;
+  const int e = (int)perm[q];
+  sp[q] = e / dp1;
+  sw[q] = w[e];
+  const int g = sorted[q];
+  if (q == N - 1 || sorted[q + 1] != g) cnt[g] = q + 1;
+}
+
+// Row g < M: the run end N of every row that join_runs_kernel left unset
+// (the rows past the live count; past the capacity, every row: row 0's run
+// is all N contributions and the others are empty), and the long / mid
+// class of each live row (rows.cuh).  A row's start is the previous row's
+// end, computed where this launch writes it, so no thread reads another's
+// write.
+__global__ void join_rows_kernel(const int* __restrict__ n_lattice, int N, int M, int* __restrict__ cnt,
+                                 int* __restrict__ long_info) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= M) return;
+  const int nl = *n_lattice;
+  const bool over = nl > M;
+  const int live = over ? M : nl;
+  const bool unset = over || g >= nl;
+  const int end = unset ? N : cnt[g];
+  if (unset) cnt[g] = N;
+  if (g >= live) {
+    long_info[g] = long_info[M + g] = long_info[2 * M + g] = 0;
+    return;
+  }
+  const int start = g == 0 ? 0 : (over || g - 1 >= nl ? N : cnt[g - 1]);
+  sgp_run_class(long_info, M, g, end - start);
+}
+
+extern "C" int sgp_join_rows(const int* sorted, const long long* perm, const float* w, const int* n_lattice, int N,
+                             int M, int dp1, int* sp, float* sw, int* cnt, int* long_info, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N > 0) join_runs_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(sorted, perm, w, N, dp1, sp, sw, cnt);
+  if (M > 0) join_rows_kernel<<<sgp_blocks(M), SGP_THREADS, 0, st>>>(n_lattice, N, M, cnt, long_info);
+  return (int)cudaGetLastError();
+}
+
+// K9.  The first 16 arguments are the plan's row lists (sgp_runs, rows.cuh);
+// v and out are (n, c) row-major; nb is the plan's (dp1, M, 2r) neighbour
+// array; n_lattice its live count; guard (nullable) as for K3's slice.  ta
+// and tb hold M * chunk floats each, part np_max * chunk; none need be
+// zeroed.
+extern "C" int sgp_lattice_apply_cols(const int* sp, const float* sw, const int* cnt, const int* long_rows,
+                                      const int* long_first, const int* n_long, const int* piece_row,
+                                      const int* piece_start, const int* n_pieces, const int* mid_rows,
+                                      const int* n_mid, int nl_max, int nm_max, int np_max, int N,
+                                      const int* n_lattice, const int* seg, const float* w, const int* nb,
+                                      const float* v, int n, int dp1, int c, int chunk, int M,
+                                      const float* taps_host, int order, float norm, const int* guard, float* ta,
+                                      float* tb, float* part, float* out, void* stream) {
   if (2 * order + 1 > SGP_MAX_TAPS || chunk <= 0) return (int)cudaErrorInvalidValue;
   if (n <= 0 || c <= 0 || M <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
+  const SgpRuns r = sgp_runs(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
+                             mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice);
   const SgpTaps taps = sgp_taps(taps_host, order);
   const long long nbs = (long long)M * 2 * order;  // one axis of nb
   cudaError_t err;
   for (int c0 = 0; c0 < c; c0 += chunk) {
     const int wd = c - c0 < chunk ? c - c0 : chunk;
-    if ((err = cudaMemsetAsync(ta, 0, sizeof(float) * (size_t)M * wd, st)) != cudaSuccess)
-      return (int)err;
-    splat_kernel<<<sgp_blocks((long long)n * dp1 * wd), SGP_THREADS, 0, st>>>(
-        seg, w, v, n, dp1, wd, c, c0, ta, guard, M);
+    if ((err = sgp_splat_rows(r, SgpWindow{v, c, c0}, wd, M, ta, part, st)) != cudaSuccess) return (int)err;
     float *a = ta, *b = tb;
     for (int j = 0; j < dp1; ++j) {
-      blur_kernel<<<sgp_blocks((long long)M * wd), SGP_THREADS, 0, st>>>(a, b, nb + j * nbs, taps,
-                                                                          M, wd, order, n_lattice);
+      if ((err = sgp_live_blur(a, b, nb + j * nbs, taps, M, wd, order, n_lattice, st)) != cudaSuccess)
+        return (int)err;
       float* t = a;
       a = b;
       b = t;
     }
-    slice_kernel<<<sgp_blocks((long long)n * wd), SGP_THREADS, 0, st>>>(a, seg, w, n, dp1, wd, norm,
-                                                                        out, c, c0, guard, M);
+    slice_kernel<<<sgp_blocks((long long)n * wd), SGP_THREADS, 0, st>>>(a, seg, w, n, dp1, wd, norm, out, c, c0,
+                                                                        guard, M);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

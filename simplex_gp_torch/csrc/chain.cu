@@ -49,8 +49,8 @@
 //   finish:  the inverse of each axis order; the gather of each transition,
 //            position q of axis j+1 reads position g_j[q] of axis j (JAX
 //            sorts the table by the same fixed keys in every apply, :1023-
-//            1027); slice_idx, each contribution's final position (:894);
-//            from the [cumsum] of the long rows' flags and piece counts and
+//            1027); slice_idx, each contribution's final position (:894).
+//   lists:   from the [cumsum] of the long rows' flags and piece counts and
 //            the mid rows' flags, the list of long rows with their first
 //            pieces, each piece's row and first contribution, and the list
 //            of mid rows (runs of CHAIN_SHORT+1 .. CHAIN_PIECE).
@@ -62,12 +62,13 @@
 // min(n_lattice, Mc) return at once, so every grid spans Mc rows, and the
 // slice writes NaN when n_lattice > Mc (JAX's guard, :1093-1100).  Tables
 // are (Mc, c) row-major.
-//   splat (K3'b): row g is the sum of its contiguous run of sorted
-//     contributions, w * v[point], in one fixed order, the warp order: each
-//     of 32 lanes sums every 32nd contribution, then a butterfly of
-//     shuffles.  Runs are very uneven (elevators: ~2 contributions a row,
-//     one row ~10k; houseelectric: ~790 a row, one row 1.17M of 15.7M), so
-//     the work is split by run length, each class in the warp order:
+//   splat (K3'b, rows.cuh, shared with K9 and K7): row g is the sum of its
+//     contiguous run of sorted contributions, w * v[point], in one fixed
+//     order, the warp order: each of 32 lanes sums every 32nd contribution,
+//     then a butterfly of shuffles.  Runs are very uneven (elevators: ~2
+//     contributions a row, one row ~10k; houseelectric: ~790 a row, one row
+//     1.17M of 15.7M), so the work is split by run length, each class in
+//     the warp order:
 //       short (<= CHAIN_SHORT): one thread per (row, column) holds the
 //         run's lane values in registers and folds them in halves, which is
 //         the butterfly's order (lanes past the run hold +0 and a fold step
@@ -99,7 +100,7 @@
 // rows (15.7M random rows at houseelectric, where a CSR product of the same
 // matrix takes as long at c = 1: PERF.md section 6); the axis kernels'
 // 64-bit divisions by c and the gathers are the suspects if those are slow.
-#include "common.cuh"
+#include "rows.cuh"
 
 #include <limits.h>
 
@@ -107,27 +108,6 @@
 #define CHAIN_S_BIAS (1 << 20)   // _S_BIAS
 #define CHAIN_TOP_MASK 0xFFE00000u  // _TOP_MASK
 #define CHAIN_DEAD LLONG_MAX     // the key of a row past the live count
-// A run of more contributions than this is summed in pieces of this many.
-#define CHAIN_PIECE 1024
-// A run of at most this many contributions is summed by one thread per
-// column (a warp's lanes folded in registers), a longer one by a warp.
-#define CHAIN_SHORT 32
-#define CHAIN_TILE 16   // columns a warp's pass carries in registers
-// Contributions a lane loads ahead in a warp's pass: of one column, and of
-// more in a plan of fewer than CHAIN_DEEP contributions, whose few warp
-// items each wait on a chain of loads.  A larger plan keeps the card busy
-// with items and loads none ahead (fewer registers, more warps resident):
-// on an H100, DEPTH 2 against 1 at c = 11 took 0.031 / 0.055 ms at 0.2M
-// contributions, 0.048 / 0.051 at 1.6M, 0.119 / 0.120 at 4.2M and 0.520 /
-// 0.461 at 15.7M (kernel_times.py --count-splat; PERF.md section 6).
-#define CHAIN_DEPTH1 8
-#define CHAIN_DEPTH 2
-#define CHAIN_DEEP (1 << 22)
-// Most blocks of the splat's warp and short regions (8 of 256 threads per
-// SM of an H100 is 1,056 blocks).
-#define CHAIN_WARP_GRID 4224
-#define CHAIN_SHORT_GRID 1056
-
 __device__ __forceinline__ long long chain_key(unsigned int c1, unsigned int c2, int s) {
   int sb = s + CHAIN_S_BIAS;
   sb = sb < 0 ? 0 : (sb > (int)CHAIN_S_MASK ? (int)CHAIN_S_MASK : sb);
@@ -197,10 +177,7 @@ __global__ void chain_rows_kernel(const int* __restrict__ u_pos, const long long
   }
   const int q = u_pos[g];
   const int len = (g + 1 < live ? u_pos[g + 1] : N) - q;
-  // (3, Mc): the long flag, the number of pieces, the mid flag
-  long_info[g] = len > CHAIN_PIECE;
-  long_info[Mc + g] = len > CHAIN_PIECE ? (len + CHAIN_PIECE - 1) / CHAIN_PIECE : 0;
-  long_info[2 * Mc + g] = len > CHAIN_SHORT && len <= CHAIN_PIECE;
+  sgp_run_class(long_info, Mc, g, len);
   const long long k0 = key[q];
   const unsigned int c1 = (unsigned int)(k0 >> 32);
   const int us = (int)(((unsigned int)k0) & CHAIN_S_MASK) - CHAIN_S_BIAS;
@@ -264,35 +241,6 @@ __global__ void chain_slice_idx_kernel(const int* __restrict__ row_of, const int
   if (e < N) slice_idx[e] = pos_d[row_of[e]];
 }
 
-// long_info and its inclusive scan along the rows, (3, Mc) each: long row
-// li = scan - 1 owns pieces [first, end) with end its scanned piece count;
-// long_first (zeroed) receives each long row's end at li + 1; mid row mi =
-// scan - 1 of the third row is mid_rows[mi].
-__global__ void chain_long_kernel(const int* __restrict__ long_info, const int* __restrict__ scan,
-                                  const int* __restrict__ cnt, int Mc, int* __restrict__ long_rows,
-                                  int* __restrict__ long_first, int* __restrict__ piece_row,
-                                  int* __restrict__ piece_start, int* __restrict__ n_long,
-                                  int* __restrict__ n_pieces, int* __restrict__ mid_rows,
-                                  int* __restrict__ n_mid) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g == Mc - 1) {
-    *n_long = scan[g];
-    *n_pieces = scan[Mc + g];
-    *n_mid = scan[2 * Mc + g];
-  }
-  if (g >= Mc) return;
-  if (long_info[2 * Mc + g]) mid_rows[scan[2 * Mc + g] - 1] = g;
-  if (!long_info[g]) return;
-  const int li = scan[g] - 1, end = scan[Mc + g], pieces = long_info[Mc + g];
-  const int start = g == 0 ? 0 : cnt[g - 1];
-  long_rows[li] = g;
-  long_first[li + 1] = end;
-  for (int k = 0; k < pieces; ++k) {
-    piece_row[end - pieces + k] = g;
-    piece_start[end - pieces + k] = start + k * CHAIN_PIECE;
-  }
-}
-
 // consts: (3, d+1) int32, the rows oh1, oh2 and mult of every axis.
 extern "C" int sgp_chain_keys(const int* h1, const int* h2, const int* s, const long long* order, int N,
                               const int* consts, int dp1, long long* key, void* stream) {
@@ -328,28 +276,19 @@ extern "C" int sgp_chain_rows(const int* u_pos, const long long* key, const int*
   return (int)cudaGetLastError();
 }
 
-static SgpTaps chain_taps_of(const float* taps_host, int order) {
-  SgpTaps taps = {};
-  for (int t = 0; t < 2 * order + 1; ++t) taps.v[t] = taps_host[t];
-  return taps;
-}
-
 extern "C" int sgp_chain_taps(const long long* key0, const long long* sorted, const int* n_lattice, int Mc,
                               int d, int order, const float* taps_host, float* tapw, void* stream) {
   if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
   const long long work = (long long)(d + 1) * Mc;
   if (work > 0 && order > 0)
     chain_taps_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(
-        key0, sorted, n_lattice, Mc, d, order, chain_taps_of(taps_host, order), tapw);
+        key0, sorted, n_lattice, Mc, d, order, sgp_taps(taps_host, order), tapw);
   return (int)cudaGetLastError();
 }
 
 // perm: (d, Mc) int64, the sorted order of axes 1..d; pos: (d, Mc) scratch.
-extern "C" int sgp_chain_finish(const long long* perm, const int* row_of, const int* long_info,
-                                const int* long_scan, const int* cnt, int N, int Mc, int d, int* pos,
-                                int* gather, int* slice_idx, int* long_rows, int* long_first, int* piece_row,
-                                int* piece_start, int* n_long, int* n_pieces, int* mid_rows, int* n_mid,
-                                void* stream) {
+extern "C" int sgp_chain_finish(const long long* perm, const int* row_of, int N, int Mc, int d, int* pos,
+                                int* gather, int* slice_idx, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long total = (long long)d * Mc;
   if (total > 0) {
@@ -359,193 +298,23 @@ extern "C" int sgp_chain_finish(const long long* perm, const int* row_of, const 
   if (N > 0)
     chain_slice_idx_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(row_of, pos + (long long)(d - 1) * Mc, N,
                                                                   slice_idx);
+  return (int)cudaGetLastError();
+}
+
+// The splat's lists from the rows' classes long_info and their scan along
+// the rows, (3, Mc) each (rows.cuh); the chain's build and K9's and K7's
+// row lists (apply.cu) both end with it.
+extern "C" int sgp_run_lists(const int* long_info, const int* scan, const int* cnt, int Mc, int* long_rows,
+                             int* long_first, int* piece_row, int* piece_start, int* n_long, int* n_pieces,
+                             int* mid_rows, int* n_mid, void* stream) {
   if (Mc > 0)
-    chain_long_kernel<<<sgp_blocks(Mc), SGP_THREADS, 0, st>>>(long_info, long_scan, cnt, Mc, long_rows,
-                                                              long_first, piece_row, piece_start, n_long,
-                                                              n_pieces, mid_rows, n_mid);
+    sgp_run_lists_kernel<<<sgp_blocks(Mc), SGP_THREADS, 0, (cudaStream_t)stream>>>(
+        long_info, scan, cnt, Mc, long_rows, long_first, piece_row, piece_start, n_long, n_pieces, mid_rows,
+        n_mid);
   return (int)cudaGetLastError();
 }
 
 // ---- apply ------------------------------------------------------------------
-
-__device__ __forceinline__ float chain_warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// A short run (len <= CHAIN_SHORT) of one column, by one thread, in the
-// warp order: the warp put contribution i on lane i as 0 + w * v (never
-// -0, so adding a lane of +0 is exact) and folded the lanes in halves by
-// its butterfly (x_i + x_{i+16}, then + x_{i+8}, ...).  A fold step of half
-// h only adds zeros when len <= h, so it is skipped.  Every index is a
-// constant after unrolling, so x stays in registers.
-__device__ __forceinline__ float chain_short_sum(const int* __restrict__ sp, const float* __restrict__ sw,
-                                                 const float* __restrict__ v, int c, int col, int start,
-                                                 int len) {
-  float x[CHAIN_SHORT];
-#pragma unroll
-  for (int i = 0; i < CHAIN_SHORT; ++i)
-    x[i] = i < len ? __fadd_rn(0.0f, __fmul_rn(__ldcs(sw + start + i), v[(long long)__ldcs(sp + start + i) * c + col]))
-                   : 0.0f;
-#pragma unroll
-  for (int step = 4; step >= 0; --step) {
-    const int h = 1 << step;
-    if (len > h) {
-#pragma unroll
-      for (int i = 0; i < h; ++i) x[i] = __fadd_rn(x[i], x[i + h]);
-    }
-  }
-  return x[0];
-}
-
-// acc[k] (all lanes) = the sum of w * v[point, c0 + k] over the run
-// [start, end), k < cw <= TILE, lane l adding the contributions start + l,
-// start + l + 32, ... in turn, then the butterfly.  DEPTH contributions a
-// lane are loaded before any of them is added, so a run of CHAIN_PIECE
-// waits on CHAIN_PIECE / (32 DEPTH) round trips to memory, not 32.  The
-// plan's points and weights are read once, as a stream (__ldcs), so that
-// they do not push the rows of v out of L2.
-template <int TILE, int DEPTH>
-__device__ __forceinline__ void chain_warp_run(const int* __restrict__ sp, const float* __restrict__ sw,
-                                               const float* __restrict__ v, int c, int c0, int cw, int start,
-                                               int end, int lane, float (&acc)[TILE]) {
-#pragma unroll
-  for (int k = 0; k < TILE; ++k) acc[k] = 0.0f;
-  int q = start + lane;
-  for (; q + 32 * (DEPTH - 1) < end; q += 32 * DEPTH) {
-    float w[DEPTH], x[DEPTH][TILE];
-#pragma unroll
-    for (int u = 0; u < DEPTH; ++u) {
-      w[u] = __ldcs(sw + q + 32 * u);
-      const float* vp = v + (long long)__ldcs(sp + q + 32 * u) * c + c0;
-#pragma unroll
-      for (int k = 0; k < TILE; ++k) x[u][k] = k < cw ? vp[k] : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < DEPTH; ++u)
-#pragma unroll
-      for (int k = 0; k < TILE; ++k)
-        if (k < cw) acc[k] = __fadd_rn(acc[k], __fmul_rn(w[u], x[u][k]));
-  }
-  for (; q < end; q += 32) {
-    const float w = __ldcs(sw + q);
-    const float* vp = v + (long long)__ldcs(sp + q) * c + c0;
-#pragma unroll
-    for (int k = 0; k < TILE; ++k)
-      if (k < cw) acc[k] = __fadd_rn(acc[k], __fmul_rn(w, vp[k]));
-  }
-#pragma unroll
-  for (int k = 0; k < TILE; ++k) acc[k] = chain_warp_sum(acc[k]);
-}
-
-// A warp per long row li: the sum of its pieces part[long_first[li] ..
-// long_first[li + 1]) into its row of the table: lane l adds the pieces
-// l, l + 32, ... in turn (DEPTH of them loaded ahead), then the butterfly.
-template <int TILE, int DEPTH>
-__global__ void chain_combine_kernel(const int* __restrict__ long_rows, const int* __restrict__ long_first,
-                                     const int* __restrict__ n_long, const float* __restrict__ part, int c,
-                                     float* __restrict__ table) {
-  const int li = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (li >= *n_long) return;
-  const int lane = threadIdx.x & 31;
-  const int first = long_first[li], last = long_first[li + 1];
-  float* dst = table + (long long)long_rows[li] * c;
-  for (int c0 = 0; c0 < c; c0 += TILE) {
-    const int cw = c - c0 < TILE ? c - c0 : TILE;
-    float acc[TILE];
-#pragma unroll
-    for (int k = 0; k < TILE; ++k) acc[k] = 0.0f;
-    int i = first + lane;
-    for (; i + 32 * (DEPTH - 1) < last; i += 32 * DEPTH) {
-      float x[DEPTH][TILE];
-#pragma unroll
-      for (int u = 0; u < DEPTH; ++u)
-#pragma unroll
-        for (int k = 0; k < TILE; ++k) x[u][k] = k < cw ? part[(long long)(i + 32 * u) * c + c0 + k] : 0.0f;
-#pragma unroll
-      for (int u = 0; u < DEPTH; ++u)
-#pragma unroll
-        for (int k = 0; k < TILE; ++k)
-          if (k < cw) acc[k] = __fadd_rn(acc[k], x[u][k]);
-    }
-    for (; i < last; i += 32) {
-#pragma unroll
-      for (int k = 0; k < TILE; ++k)
-        if (k < cw) acc[k] = __fadd_rn(acc[k], part[(long long)i * c + c0 + k]);
-    }
-#pragma unroll
-    for (int k = 0; k < TILE; ++k) {
-      acc[k] = chain_warp_sum(acc[k]);
-      if (k < cw && lane == k) dst[c0 + k] = acc[k];
-    }
-  }
-}
-
-// Blocks [0, n_warp_blocks): one warp per work item, striding over the mid
-// rows (into the table) and then the pieces of the long rows (into part,
-// (pieces, c)), one pass per TILE columns; they come first, so the runs
-// that take longest start first.  The blocks after them: the short rows, one
-// thread per (row, column), striding over the live rows (rows_per rows of c
-// columns a block and step).  The live count and the item counts are read
-// on the device, so the grid is fixed by the plan's shapes and blocks past
-// the work return at once.
-template <int TILE, int DEPTH>
-__global__ void chain_splat_kernel(const int* __restrict__ sp, const float* __restrict__ sw,
-                                   const int* __restrict__ cnt, const int* __restrict__ mid_rows,
-                                   const int* __restrict__ n_mid, const int* __restrict__ piece_row,
-                                   const int* __restrict__ piece_start, const int* __restrict__ n_pieces,
-                                   const int* __restrict__ n_lattice, const float* __restrict__ v, int c, int Mc,
-                                   int n_warp_blocks, int rows_per, float* __restrict__ table,
-                                   float* __restrict__ part) {
-  if ((int)blockIdx.x >= n_warp_blocks) {
-    const int n_short_blocks = gridDim.x - n_warp_blocks, b = blockIdx.x - n_warp_blocks;
-    const int nl = *n_lattice;
-    const int live = nl < Mc ? nl : Mc;
-    const int items = rows_per * c;  // <= blockDim.x unless c > blockDim.x (then rows_per = 1)
-    for (int g0 = b * rows_per; g0 < live; g0 += n_short_blocks * rows_per) {
-      for (int t = threadIdx.x; t < items; t += blockDim.x) {
-        const int dg = t / c;
-        const int g = g0 + dg;
-        if (g >= live) break;
-        const int start = g == 0 ? 0 : cnt[g - 1];
-        const int len = cnt[g] - start;
-        if (len > CHAIN_SHORT) continue;  // a mid or long row: a warp's
-        const int col = t - dg * c;
-        table[(long long)g * c + col] = chain_short_sum(sp, sw, v, c, col, start, len);
-      }
-    }
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  const int warps = n_warp_blocks * (blockDim.x >> 5);
-  const int nm = *n_mid, total = nm + *n_pieces;
-  float acc[TILE];
-  for (int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); i < total; i += warps) {
-    if (i < nm) {  // a mid row into the table; the whole warp: i is the same on every lane
-      const int g = mid_rows[i];
-      const int start = g == 0 ? 0 : cnt[g - 1], end = cnt[g];
-      float* dst = table + (long long)g * c;
-      for (int c0 = 0; c0 < c; c0 += TILE) {
-        const int cw = c - c0 < TILE ? c - c0 : TILE;
-        chain_warp_run<TILE, DEPTH>(sp, sw, v, c, c0, cw, start, end, lane, acc);
-#pragma unroll
-        for (int k = 0; k < TILE; ++k)
-          if (k < cw && lane == k) dst[c0 + k] = acc[k];
-      }
-      continue;
-    }
-    const int pi = i - nm;  // a piece of a long row into part
-    const int start = piece_start[pi], end = min(start + CHAIN_PIECE, cnt[piece_row[pi]]);
-    float* dst = part + (long long)pi * c;
-    for (int c0 = 0; c0 < c; c0 += TILE) {
-      const int cw = c - c0 < TILE ? c - c0 : TILE;
-      chain_warp_run<TILE, DEPTH>(sp, sw, v, c, c0, cw, start, end, lane, acc);
-#pragma unroll
-      for (int k = 0; k < TILE; ++k)
-        if (k < cw && lane == 0) dst[c0 + k] = acc[k];
-    }
-  }
-}
 
 // tapw: this axis's (r, Mc) taps; gather: (Mc,) or null for the last axis.
 __global__ void chain_axis_kernel(const float* __restrict__ in, float* __restrict__ out,
@@ -587,59 +356,14 @@ __global__ void chain_slice_kernel(const float* __restrict__ table, const int* _
   out[idx] = __fmul_rn(acc, norm);
 }
 
-// The splat.  nl_max, nm_max, np_max: the lengths of long_rows, mid_rows
-// and piece_row (bounds fixed by the plan's shapes); N the contributions;
-// part holds np_max * c floats.  The first launch sums the short and mid
-// rows and the pieces, the second the long rows from their pieces.
-template <int TILE, int DEPTH>
-static void chain_splat_launch(int n_warp, int n_short, int rows_per, const int* sp, const float* sw,
-                               const int* cnt, const int* long_rows, const int* long_first, const int* n_long,
-                               const int* piece_row, const int* piece_start, const int* n_pieces,
-                               const int* mid_rows, const int* n_mid, int nl_max, const int* n_lattice,
-                               const float* v, int c, int Mc, float* table, float* part, cudaStream_t st) {
-  chain_splat_kernel<TILE, DEPTH><<<n_warp + n_short, SGP_THREADS, 0, st>>>(
-      sp, sw, cnt, mid_rows, n_mid, piece_row, piece_start, n_pieces, n_lattice, v, c, Mc, n_warp, rows_per, table,
-      part);
-  if (nl_max > 0)
-    chain_combine_kernel<TILE, DEPTH><<<(nl_max + SGP_THREADS / 32 - 1) / (SGP_THREADS / 32), SGP_THREADS, 0, st>>>(
-        long_rows, long_first, n_long, part, c, table);
-}
-
-static cudaError_t chain_launch_splat(const int* sp, const float* sw, const int* cnt, const int* long_rows,
-                                      const int* long_first, const int* n_long, const int* piece_row,
-                                      const int* piece_start, const int* n_pieces, const int* mid_rows,
-                                      const int* n_mid, int nl_max, int nm_max, int np_max, int N,
-                                      const int* n_lattice, const float* v, int c, int Mc, float* table, float* part,
-                                      cudaStream_t st) {
-  if (Mc <= 0 || c <= 0) return cudaGetLastError();
-  const int rows_per = c < SGP_THREADS ? SGP_THREADS / c : 1;
-  const long long short_blocks = ((long long)Mc + rows_per - 1) / rows_per;
-  const long long warp_blocks = ((long long)nm_max + np_max + SGP_THREADS / 32 - 1) / (SGP_THREADS / 32);
-  const int n_short = (int)(short_blocks < CHAIN_SHORT_GRID ? short_blocks : CHAIN_SHORT_GRID);
-  const int n_warp = (int)(warp_blocks < CHAIN_WARP_GRID ? warp_blocks : CHAIN_WARP_GRID);
-  if (c == 1)
-    chain_splat_launch<1, CHAIN_DEPTH1>(n_warp, n_short, rows_per, sp, sw, cnt, long_rows, long_first, n_long,
-                                        piece_row, piece_start, n_pieces, mid_rows, n_mid, nl_max, n_lattice, v, c,
-                                        Mc, table, part, st);
-  else if (N < CHAIN_DEEP)
-    chain_splat_launch<CHAIN_TILE, CHAIN_DEPTH>(n_warp, n_short, rows_per, sp, sw, cnt, long_rows, long_first,
-                                                n_long, piece_row, piece_start, n_pieces, mid_rows, n_mid, nl_max,
-                                                n_lattice, v, c, Mc, table, part, st);
-  else
-    chain_splat_launch<CHAIN_TILE, 1>(n_warp, n_short, rows_per, sp, sw, cnt, long_rows, long_first, n_long,
-                                      piece_row, piece_start, n_pieces, mid_rows, n_mid, nl_max, n_lattice, v, c, Mc,
-                                      table, part, st);
-  return cudaGetLastError();
-}
-
 extern "C" int sgp_chain_splat(const int* sp, const float* sw, const int* cnt, const int* long_rows,
                                const int* long_first, const int* n_long, const int* piece_row,
                                const int* piece_start, const int* n_pieces, const int* mid_rows, const int* n_mid,
                                int nl_max, int nm_max, int np_max, int N, const int* n_lattice, const float* v,
                                int c, int Mc, float* table, float* part, void* stream) {
-  return (int)chain_launch_splat(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
-                                 mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice, v, c, Mc, table, part,
-                                 (cudaStream_t)stream);
+  const SgpRuns r = sgp_runs(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
+                               mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice);
+  return (int)sgp_splat_rows(r, SgpWindow{v, c, 0}, c, Mc, table, part, (cudaStream_t)stream);
 }
 
 extern "C" int sgp_chain_axis(const float* in, float* out, const float* tapw, const int* gather,
@@ -674,9 +398,9 @@ extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, c
   if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
   if (n <= 0 || c <= 0 || Mc <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = chain_launch_splat(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start,
-                                       n_pieces, mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice, v, c, Mc,
-                                       ta, part, st);
+  const SgpRuns r = sgp_runs(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
+                               mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice);
+  cudaError_t err = sgp_splat_rows(r, SgpWindow{v, c, 0}, c, Mc, ta, part, st);
   if (err != cudaSuccess) return (int)err;
   const long long work = (long long)Mc * c;
   float *a = ta, *b = tb;

@@ -19,6 +19,13 @@ struct SgpTaps {
   float v[SGP_MAX_TAPS];
 };
 
+// taps_host: 2*order+1 floats in host memory, copied into a launch's argument.
+static inline SgpTaps sgp_taps(const float* taps_host, int order) {
+  SgpTaps taps = {};
+  for (int t = 0; t < 2 * order + 1; ++t) taps.v[t] = taps_host[t];
+  return taps;
+}
+
 // Key of a lattice point: its hash pair (h1, h2) packed into 64 bits.
 __device__ __forceinline__ unsigned long long sgp_pack(unsigned int h1, unsigned int h2) {
   return ((unsigned long long)h1 << 32) | (unsigned long long)h2;

@@ -1,0 +1,435 @@
+// Work over the live rows of a lattice table, shared by the sort chain
+// (K3', chain.cu), the wide apply K9 (apply.cu) and the derivative filter
+// K7 (deriv.cu):
+//   * the splat in row order (K3'b): row g of the table is the sum of its
+//     contiguous run of contributions w * value(point, column), in one fixed
+//     order, with no atomics, so it writes every live row and needs no
+//     zeroed table;
+//   * its work lists (sgp_run_lists_kernel): the mid rows and the pieces of
+//     the long rows, from the run ends cnt;
+//   * the blur of one lattice axis over the live rows of a join table
+//     (sgp_live_blur), on a grid fixed by the card, not by the table.
+// The kernels here have internal linkage: each source instantiates its own,
+// with its own column source.
+#pragma once
+
+#include "common.cuh"
+
+// A run of more contributions than this is summed in pieces of this many.
+#define CHAIN_PIECE 1024
+// A run of at most this many contributions is summed by one thread per
+// column (a warp's lanes folded in registers), a longer one by a warp.
+#define CHAIN_SHORT 32
+#define CHAIN_TILE 16   // columns a warp's pass carries in registers
+// Contributions a lane loads ahead in a warp's pass: of one column, and of
+// more in a plan of fewer than CHAIN_DEEP contributions, whose few warp
+// items each wait on a chain of loads.  A larger plan keeps the card busy
+// with items and loads none ahead (fewer registers, more warps resident):
+// on an H100, DEPTH 2 against 1 at c = 11 took 0.031 / 0.055 ms at 0.2M
+// contributions, 0.048 / 0.051 at 1.6M, 0.119 / 0.120 at 4.2M and 0.520 /
+// 0.461 at 15.7M (kernel_times.py --count-splat; PERF.md section 6).
+#define CHAIN_DEPTH1 8
+#define CHAIN_DEPTH 2
+#define CHAIN_DEEP (1 << 22)
+// Most blocks of the splat's warp and short regions (8 of 256 threads per
+// SM of an H100 is 1,056 blocks).
+#define CHAIN_WARP_GRID 4224
+#define CHAIN_SHORT_GRID 1056
+
+// A table's contributions in row order and the splat's work lists: the
+// fields of kernels/chain.py::ChainPlan and kernels/lattice.py::JoinRows.
+//   sp, sw:      (N,) the point and weight of each contribution, in row order
+//   cnt:         (Mc,) the end of each row's run
+//   long_rows, long_first, n_long: the rows of runs > CHAIN_PIECE and their
+//                first pieces; piece_row, piece_start, n_pieces: the pieces;
+//   mid_rows, n_mid: the rows of runs of CHAIN_SHORT+1 .. CHAIN_PIECE;
+//   nl_max, nm_max, np_max: the lengths of long_rows, mid_rows and piece_row
+//                (bounds fixed by the shapes); n_lattice: the live count.
+struct SgpRuns {
+  const int* sp;
+  const float* sw;
+  const int* cnt;
+  const int* long_rows;
+  const int* long_first;
+  const int* n_long;
+  const int* piece_row;
+  const int* piece_start;
+  const int* n_pieces;
+  const int* mid_rows;
+  const int* n_mid;
+  int nl_max, nm_max, np_max, N;
+  const int* n_lattice;
+};
+
+static inline SgpRuns sgp_runs(const int* sp, const float* sw, const int* cnt, const int* long_rows,
+                               const int* long_first, const int* n_long, const int* piece_row,
+                               const int* piece_start, const int* n_pieces, const int* mid_rows, const int* n_mid,
+                               int nl_max, int nm_max, int np_max, int N, const int* n_lattice) {
+  return SgpRuns{sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces, mid_rows, n_mid,
+                 nl_max, nm_max, np_max, N, n_lattice};
+}
+
+// The splat's column source: column col of point p's value is
+// v[p, c0 + col] of a row-major v with row stride ld (a column window read
+// in place).  A source names the columns a warp's pass carries (kTile).
+struct SgpWindow {
+  static constexpr int kTile = CHAIN_TILE;  // columns a warp's pass carries
+  const float* v;
+  int ld, c0;
+  __device__ __forceinline__ float operator()(int p, int col) const { return v[(long long)p * ld + c0 + col]; }
+};
+
+// ---- the splat in row order -------------------------------------------------
+
+__device__ __forceinline__ float chain_warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// A short run (len <= CHAIN_SHORT) of one column, by one thread, in the
+// warp order: the warp put contribution i on lane i as 0 + w * v (never
+// -0, so adding a lane of +0 is exact) and folded the lanes in halves by
+// its butterfly (x_i + x_{i+16}, then + x_{i+8}, ...).  A fold step of half
+// h only adds zeros when len <= h, so it is skipped.  Every index is a
+// constant after unrolling, so x stays in registers.
+template <class Src>
+__device__ __forceinline__ float chain_short_sum(const int* __restrict__ sp, const float* __restrict__ sw,
+                                                 const Src& src, int col, int start, int len) {
+  float x[CHAIN_SHORT];
+#pragma unroll
+  for (int i = 0; i < CHAIN_SHORT; ++i)
+    x[i] = i < len ? __fadd_rn(0.0f, __fmul_rn(__ldcs(sw + start + i), src(__ldcs(sp + start + i), col))) : 0.0f;
+#pragma unroll
+  for (int step = 4; step >= 0; --step) {
+    const int h = 1 << step;
+    if (len > h) {
+#pragma unroll
+      for (int i = 0; i < h; ++i) x[i] = __fadd_rn(x[i], x[i + h]);
+    }
+  }
+  return x[0];
+}
+
+// acc[k] (all lanes) = the sum of w * value(point, c0 + k) over the run
+// [start, end), k < cw <= TILE, lane l adding the contributions start + l,
+// start + l + 32, ... in turn, then the butterfly.  DEPTH contributions a
+// lane are loaded before any of them is added, so a run of CHAIN_PIECE
+// waits on CHAIN_PIECE / (32 DEPTH) round trips to memory, not 32.  The
+// plan's points and weights are read once, as a stream (__ldcs), so that
+// they do not push the values out of L2.
+template <int TILE, int DEPTH, class Src>
+__device__ __forceinline__ void chain_warp_run(const int* __restrict__ sp, const float* __restrict__ sw,
+                                               const Src& src, int c0, int cw, int start, int end, int lane,
+                                               float (&acc)[TILE]) {
+#pragma unroll
+  for (int k = 0; k < TILE; ++k) acc[k] = 0.0f;
+  int q = start + lane;
+  for (; q + 32 * (DEPTH - 1) < end; q += 32 * DEPTH) {
+    float w[DEPTH], x[DEPTH][TILE];
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+      w[u] = __ldcs(sw + q + 32 * u);
+      const int p = __ldcs(sp + q + 32 * u);
+#pragma unroll
+      for (int k = 0; k < TILE; ++k) x[u][k] = k < cw ? src(p, c0 + k) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u)
+#pragma unroll
+      for (int k = 0; k < TILE; ++k)
+        if (k < cw) acc[k] = __fadd_rn(acc[k], __fmul_rn(w[u], x[u][k]));
+  }
+  for (; q < end; q += 32) {
+    const float w = __ldcs(sw + q);
+    const int p = __ldcs(sp + q);
+#pragma unroll
+    for (int k = 0; k < TILE; ++k)
+      if (k < cw) acc[k] = __fadd_rn(acc[k], __fmul_rn(w, src(p, c0 + k)));
+  }
+#pragma unroll
+  for (int k = 0; k < TILE; ++k) acc[k] = chain_warp_sum(acc[k]);
+}
+
+// A warp per long row li: the sum of its pieces part[long_first[li] ..
+// long_first[li + 1]) into its row of the table: lane l adds the pieces
+// l, l + 32, ... in turn (DEPTH of them loaded ahead), then the butterfly.
+template <int TILE, int DEPTH>
+static __global__ void chain_combine_kernel(const int* __restrict__ long_rows, const int* __restrict__ long_first,
+                                            const int* __restrict__ n_long, const float* __restrict__ part, int c,
+                                            float* __restrict__ table) {
+  const int li = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (li >= *n_long) return;
+  const int lane = threadIdx.x & 31;
+  const int first = long_first[li], last = long_first[li + 1];
+  float* dst = table + (long long)long_rows[li] * c;
+  for (int c0 = 0; c0 < c; c0 += TILE) {
+    const int cw = c - c0 < TILE ? c - c0 : TILE;
+    float acc[TILE];
+#pragma unroll
+    for (int k = 0; k < TILE; ++k) acc[k] = 0.0f;
+    int i = first + lane;
+    for (; i + 32 * (DEPTH - 1) < last; i += 32 * DEPTH) {
+      float x[DEPTH][TILE];
+#pragma unroll
+      for (int u = 0; u < DEPTH; ++u)
+#pragma unroll
+        for (int k = 0; k < TILE; ++k) x[u][k] = k < cw ? part[(long long)(i + 32 * u) * c + c0 + k] : 0.0f;
+#pragma unroll
+      for (int u = 0; u < DEPTH; ++u)
+#pragma unroll
+        for (int k = 0; k < TILE; ++k)
+          if (k < cw) acc[k] = __fadd_rn(acc[k], x[u][k]);
+    }
+    for (; i < last; i += 32) {
+#pragma unroll
+      for (int k = 0; k < TILE; ++k)
+        if (k < cw) acc[k] = __fadd_rn(acc[k], part[(long long)i * c + c0 + k]);
+    }
+#pragma unroll
+    for (int k = 0; k < TILE; ++k) {
+      acc[k] = chain_warp_sum(acc[k]);
+      if (k < cw && lane == k) dst[c0 + k] = acc[k];
+    }
+  }
+}
+
+// Blocks [0, n_warp_blocks): one warp per work item, striding over the mid
+// rows (into the table) and then the pieces of the long rows (into part,
+// (pieces, c)), one item per run and tile of TILE columns (27 a run at K7's
+// 418 columns, so no warp walks a run's columns alone); they come first, so
+// the runs that take longest start first.  The blocks after them: the short rows, one
+// thread per (row, column), striding over the live rows (rows_per rows of c
+// columns a block and step).  The live count and the item counts are read
+// on the device, so the grid is fixed by the plan's shapes and blocks past
+// the work return at once.  The table is (Mc, c).  At most 64 registers a
+// thread (4 blocks an SM): K7's stacked-column source took 94 (2 blocks an
+// SM) and spills 188 bytes a thread when bounded, yet its splat is faster
+// so on an H100 (kernel_times.py --wide-deriv; PERF.md section 6).
+// The window source fits in 64 without a spill.
+template <int TILE, int DEPTH, class Src>
+static __global__ void __launch_bounds__(SGP_THREADS, 4) chain_splat_kernel(const int* __restrict__ sp, const float* __restrict__ sw,
+                                          const int* __restrict__ cnt, const int* __restrict__ mid_rows,
+                                          const int* __restrict__ n_mid, const int* __restrict__ piece_row,
+                                          const int* __restrict__ piece_start, const int* __restrict__ n_pieces,
+                                          const int* __restrict__ n_lattice, const Src src, int c, int Mc,
+                                          int n_warp_blocks, int rows_per, float* __restrict__ table,
+                                          float* __restrict__ part) {
+  if ((int)blockIdx.x >= n_warp_blocks) {
+    const int n_short_blocks = gridDim.x - n_warp_blocks, b = blockIdx.x - n_warp_blocks;
+    const int nl = *n_lattice;
+    const int live = nl < Mc ? nl : Mc;
+    const int items = rows_per * c;  // <= blockDim.x unless c > blockDim.x (then rows_per = 1)
+    for (int g0 = b * rows_per; g0 < live; g0 += n_short_blocks * rows_per) {
+      for (int t = threadIdx.x; t < items; t += blockDim.x) {
+        const int dg = t / c;
+        const int g = g0 + dg;
+        if (g >= live) break;
+        const int start = g == 0 ? 0 : cnt[g - 1];
+        const int len = cnt[g] - start;
+        if (len > CHAIN_SHORT) continue;  // a mid or long row: a warp's
+        const int col = t - dg * c;
+        table[(long long)g * c + col] = chain_short_sum(sp, sw, src, col, start, len);
+      }
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warps = n_warp_blocks * (blockDim.x >> 5);
+  const int tiles = (c + TILE - 1) / TILE;
+  const int nm = *n_mid, total = (nm + *n_pieces) * tiles;
+  float acc[TILE];
+  // Work item i: tile i % tiles (TILE columns from c0) of run i / tiles; the tiles of one run go to
+  // neighbouring warps, which share its points and weights in cache.
+  for (int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); i < total; i += warps) {
+    const int run = i / tiles, c0 = (i - run * tiles) * TILE;
+    const int cw = c - c0 < TILE ? c - c0 : TILE;
+    if (run < nm) {  // a mid row into the table; the whole warp: i is the same on every lane
+      const int g = mid_rows[run];
+      const int start = g == 0 ? 0 : cnt[g - 1], end = cnt[g];
+      float* dst = table + (long long)g * c + c0;
+      chain_warp_run<TILE, DEPTH>(sp, sw, src, c0, cw, start, end, lane, acc);
+#pragma unroll
+      for (int k = 0; k < TILE; ++k)
+        if (k < cw && lane == k) dst[k] = acc[k];
+      continue;
+    }
+    const int pi = run - nm;  // a piece of a long row into part
+    const int start = piece_start[pi], end = min(start + CHAIN_PIECE, cnt[piece_row[pi]]);
+    float* dst = part + (long long)pi * c + c0;
+    chain_warp_run<TILE, DEPTH>(sp, sw, src, c0, cw, start, end, lane, acc);
+#pragma unroll
+    for (int k = 0; k < TILE; ++k)
+      if (k < cw && lane == 0) dst[k] = acc[k];
+  }
+}
+
+// The first launch sums the short and mid rows and the pieces, the second
+// the long rows from their pieces.
+template <int TILE, int DEPTH, class Src>
+static inline void chain_splat_launch(int n_warp, int n_short, int rows_per, const SgpRuns& r, const Src& src, int c, int Mc,
+                               float* table, float* part, cudaStream_t st) {
+  chain_splat_kernel<TILE, DEPTH, Src><<<n_warp + n_short, SGP_THREADS, 0, st>>>(
+      r.sp, r.sw, r.cnt, r.mid_rows, r.n_mid, r.piece_row, r.piece_start, r.n_pieces, r.n_lattice, src, c, Mc, n_warp,
+      rows_per, table, part);
+  if (r.nl_max > 0)
+    chain_combine_kernel<TILE, DEPTH><<<(r.nl_max + SGP_THREADS / 32 - 1) / (SGP_THREADS / 32), SGP_THREADS, 0, st>>>(
+        r.long_rows, r.long_first, r.n_long, part, c, table);
+}
+
+// The splat of c columns of src into the live rows of table (Mc, c); part
+// holds np_max * c floats.  Rows past the live count are not written.
+template <class Src>
+static inline cudaError_t sgp_splat_rows(const SgpRuns& r, const Src& src, int c, int Mc, float* table, float* part,
+                                  cudaStream_t st) {
+  if (Mc <= 0 || c <= 0) return cudaGetLastError();
+  const int rows_per = c < SGP_THREADS ? SGP_THREADS / c : 1;
+  const long long short_blocks = ((long long)Mc + rows_per - 1) / rows_per;
+  constexpr int TILE = Src::kTile;
+  const long long items = ((long long)r.nm_max + r.np_max) * ((c + TILE - 1) / TILE);
+  const long long warp_blocks = (items + SGP_THREADS / 32 - 1) / (SGP_THREADS / 32);
+  const int n_short = (int)(short_blocks < CHAIN_SHORT_GRID ? short_blocks : CHAIN_SHORT_GRID);
+  const int n_warp = (int)(warp_blocks < CHAIN_WARP_GRID ? warp_blocks : CHAIN_WARP_GRID);
+  if (c == 1)
+    chain_splat_launch<1, CHAIN_DEPTH1>(n_warp, n_short, rows_per, r, src, c, Mc, table, part, st);
+  else if (r.N < CHAIN_DEEP)
+    chain_splat_launch<TILE, CHAIN_DEPTH>(n_warp, n_short, rows_per, r, src, c, Mc, table, part, st);
+  else
+    chain_splat_launch<TILE, 1>(n_warp, n_short, rows_per, r, src, c, Mc, table, part, st);
+  return cudaGetLastError();
+}
+
+// ---- the work lists ---------------------------------------------------------
+
+// long_info and its inclusive scan along the rows, (3, Mc) each: long row
+// li = scan - 1 owns pieces [first, end) with end its scanned piece count;
+// long_first (zeroed) receives each long row's end at li + 1; mid row mi =
+// scan - 1 of the third row is mid_rows[mi].
+static __global__ void sgp_run_lists_kernel(const int* __restrict__ long_info, const int* __restrict__ scan,
+                                            const int* __restrict__ cnt, int Mc, int* __restrict__ long_rows,
+                                            int* __restrict__ long_first, int* __restrict__ piece_row,
+                                            int* __restrict__ piece_start, int* __restrict__ n_long,
+                                            int* __restrict__ n_pieces, int* __restrict__ mid_rows,
+                                            int* __restrict__ n_mid) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g == Mc - 1) {
+    *n_long = scan[g];
+    *n_pieces = scan[Mc + g];
+    *n_mid = scan[2 * Mc + g];
+  }
+  if (g >= Mc) return;
+  if (long_info[2 * Mc + g]) mid_rows[scan[2 * Mc + g] - 1] = g;
+  if (!long_info[g]) return;
+  const int li = scan[g] - 1, end = scan[Mc + g], pieces = long_info[Mc + g];
+  const int start = g == 0 ? 0 : cnt[g - 1];
+  long_rows[li] = g;
+  long_first[li + 1] = end;
+  for (int k = 0; k < pieces; ++k) {
+    piece_row[end - pieces + k] = g;
+    piece_start[end - pieces + k] = start + k * CHAIN_PIECE;
+  }
+}
+
+// (3, Mc) long_info of a live row of len contributions: the long flag, its
+// number of pieces, the mid flag.
+__device__ __forceinline__ void sgp_run_class(int* __restrict__ long_info, int Mc, int g, int len) {
+  long_info[g] = len > CHAIN_PIECE;
+  long_info[Mc + g] = len > CHAIN_PIECE ? (len + CHAIN_PIECE - 1) / CHAIN_PIECE : 0;
+  long_info[2 * Mc + g] = len > CHAIN_SHORT && len <= CHAIN_PIECE;
+}
+
+// ---- the blur over the live rows of a join table ----------------------------
+
+__device__ __forceinline__ void sgp_load(const float* p, float (&x)[1]) { x[0] = p[0]; }
+__device__ __forceinline__ void sgp_load(const float* p, float (&x)[2]) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  x[0] = t.x;
+  x[1] = t.y;
+}
+__device__ __forceinline__ void sgp_load(const float* p, float (&x)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  x[0] = t.x;
+  x[1] = t.y;
+  x[2] = t.z;
+  x[3] = t.w;
+}
+__device__ __forceinline__ void sgp_store(float* p, const float (&x)[1]) { p[0] = x[0]; }
+__device__ __forceinline__ void sgp_store(float* p, const float (&x)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+}
+__device__ __forceinline__ void sgp_store(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// out = one axis blur of in, both (M, c), over the live rows [0, *count):
+// a team of 2^team_log2 lanes per row, each lane VEC columns at a time (one
+// 4-, 8- or 16-byte load of each of the 2r+1 rows; c % VEC == 0, so every
+// row starts aligned).  The grid strides over the rows, so a launch costs
+// what the live rows cost, whatever M.  The taps in blur_kernel's order (apply.cu:
+// the centre, then the neighbours -r .. -1, 1 .. r, a missing one, M,
+// skipped), each an explicit round-to-nearest multiply and add, so the blur
+// is the plain version's bit for bit.  Nothing is done once the count
+// passes M (a tripped capacity guard).
+template <int VEC>
+static __global__ void sgp_live_blur_kernel(const float* __restrict__ in, float* __restrict__ out,
+                                            const int* __restrict__ nb, const SgpTaps taps, int M, int c, int order,
+                                            const int* __restrict__ count, int team_log2) {
+  const int live = *count;
+  if (live > M) return;
+  const int groups = c / VEC, r2 = 2 * order, team = 1 << team_log2;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // Column chunks of team * VEC columns, each over every live row before the next, so the rows that a
+  // chunk's neighbours read (live rows x 256 bytes at K7's 418 columns) can stay in L2.
+  for (int gi = (int)(first & (team - 1)); gi - (int)(first & (team - 1)) < groups; gi += team) {
+    if (gi >= groups) continue;  // this lane's part of the last chunk is past the columns
+    const long long col = (long long)gi * VEC;
+    for (long long t = first; (t >> team_log2) < live; t += stride) {
+      const long long row = t >> team_log2;
+      float x[VEC], acc[VEC];
+      sgp_load(in + row * c + col, x);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = __fmul_rn(taps.v[order], x[e]);
+      for (int k = 0; k < r2; ++k) {
+        const int j = nb[row * r2 + k];
+        if (j == M) continue;
+        sgp_load(in + (long long)j * c + col, x);
+        const float tap = taps.v[k < order ? k : k + 1];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(tap, x[e]));
+      }
+      sgp_store(out + row * c + col, acc);
+    }
+  }
+}
+
+// Resident blocks of SGP_THREADS threads on the current card: the blur's grid.
+static inline int sgp_resident_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    blocks = (sms > 0 ? sms : 132) * (2048 / SGP_THREADS);
+  }
+  return blocks;
+}
+
+// One axis of the blur over the live rows of a join table (M, c); nb is
+// that axis's (M, 2r) neighbour ids.  A team of lanes per row spans its
+// columns (up to a warp: 418 columns of K7 take a warp a row, a window of 8
+// of K9 two lanes).
+static inline cudaError_t sgp_live_blur(const float* in, float* out, const int* nb, const SgpTaps& taps, int M, int c,
+                                 int order, const int* count, cudaStream_t st) {
+  if (M <= 0 || c <= 0) return cudaGetLastError();
+  const int vec = c % 4 == 0 ? 4 : (c % 2 == 0 ? 2 : 1);
+  int team_log2 = 0;
+  while ((1 << team_log2) < c / vec && team_log2 < 5) ++team_log2;
+  const int grid = sgp_resident_blocks();
+  if (vec == 4)
+    sgp_live_blur_kernel<4><<<grid, SGP_THREADS, 0, st>>>(in, out, nb, taps, M, c, order, count, team_log2);
+  else if (vec == 2)
+    sgp_live_blur_kernel<2><<<grid, SGP_THREADS, 0, st>>>(in, out, nb, taps, M, c, order, count, team_log2);
+  else
+    sgp_live_blur_kernel<1><<<grid, SGP_THREADS, 0, st>>>(in, out, nb, taps, M, c, order, count, team_log2);
+  return cudaGetLastError();
+}

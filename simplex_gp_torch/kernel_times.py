@@ -2,11 +2,14 @@
 
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --count-splat
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --wide-deriv
     python simplex_gp_torch/kernel_times.py --sharded-f64
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
-instead (:func:`count_splat`); the third measures how far K11b and K3's
-float32 atomic splats land from the float64 operator (:func:`sharded_f64`).
+instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
+``lattice_deriv_grad`` at the shapes of chip_smoke.py's phases 6.2 and 5.3
+(:func:`wide_deriv`); the fourth measures how far K11b and K3's float32
+atomic splats land from the float64 operator (:func:`sharded_f64`).
 
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
@@ -143,6 +146,115 @@ def count_splat() -> dict:
     return out
 
 
+def wide_deriv() -> dict:
+    """K9 and K7 at the shapes of the main paths, as the path calls them, for an A/B of two trees.
+
+    K9 at c = 100 on the join plans of all houseelectric training rows over
+    their median lengthscale (Matern-1.5, order 1): untrimmed (chip_smoke.py
+    6.2), at capacity = occupancy, and at the autotrimmed capacity 32,768
+    (the range sketch's plan); at c = 101 on the untrimmed plan of [train;
+    val] (the val predict's).  Each at windows of 8, 16 and 32 columns, with
+    the peak memory of the call; a tree with row lists (``join_rows``) is
+    timed with them built inside the call, as the predict calls K9, and
+    given them, as the sketch's two MVMs share one build, and the build
+    alone.  K7 at elevators (median-init positions of
+    tests/fixtures/elevators_train_golden.npz, L = 11, 418 stacked columns)
+    as the deriv-mode backward calls it, and its bit-equality to its plain
+    version and to a second run.  Last, the device time of each kernel in
+    one K9 call (untrimmed training plan, 32-column window, row lists
+    given) and one K7 call, by ``torch.profiler``.  Prints one JSON line.
+    """
+    import pathlib
+
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.models.components import softplus
+    from simplex_gp_torch.ops import kernels, lattice as L
+    from simplex_gp_torch.utils import data
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    dev = torch.device("cuda:0")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    rows_of = getattr(K, "join_rows", None)
+    out = {"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                  capture_output=True, text=True).stdout.strip(),
+           "tree": simplex_gp_torch.__file__}
+    dk = kernels.matern_kernel(1.5, 1)
+    taps = list(dk.coeffs)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    s = data.load_dataset("houseelectric")
+    ell = trainer.median_lengthscale(s.train_x)
+    xt = torch.from_numpy(s.train_x).to(dev) / ell
+    xr = torch.cat([xt, torch.from_numpy(s.val_x).to(dev) / ell]).contiguous()
+    d = xt.shape[1]
+    norm = L.SLICE_NORM(d)
+    E, a, _, _ = L._lattice_constants(d, dk.coeffs, dk.variance, dev)
+    occ = int(K.lattice_count(xt, E, a))
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def by_kernel(fn, reps):
+        """Device ms a call of each kernel that ``fn`` launches."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key[:60]: e.device_time_total / 1e3 / reps for e in prof.key_averages() if e.device_time_total > 0}
+
+    for case, pts, cap, c in (("train_untrimmed", xt, None, 100), ("train_occupancy", xt, occ, 100),
+                              ("train_capacity_32768", xt, 32768, 100), ("rect_untrimmed", xr, None, 101)):
+        plan = L.build_plan_join(pts, dk.coeffs, dk.variance, cap)
+        v = torch.randn((pts.shape[0], c), generator=gen, device=dev)
+        rec = dict(N=plan.seg_ids.numel(), M=plan.neighbors.shape[1], n_lattice=int(plan.n_lattice), c=c)
+        rows = rows_of(*plan) if rows_of is not None else None
+        if rows is not None:
+            rec["join_rows_ms"] = _ms(lambda: rows_of(*plan), 5)
+        for chunk in (8, 16, 32):
+            r = dict(ms=_ms(lambda: K.lattice_apply_cols(*plan, v, taps, norm, chunk), 3),
+                     peak_gb=peak(lambda: K.lattice_apply_cols(*plan, v, taps, norm, chunk)))
+            if rows is not None:
+                r["given_rows_ms"] = _ms(lambda: K.lattice_apply_cols(*plan, v, taps, norm, chunk, rows), 3)
+            rec[f"w{chunk}"] = r
+        if case == "train_untrimmed":
+            rec["kernels_w32"] = by_kernel(lambda: K.lattice_apply_cols(*plan, v, taps, norm, 32,
+                                                                        *(() if rows is None else (rows,))), 3)
+            if rows is not None:
+                rec["join_rows_kernels"] = by_kernel(lambda: rows_of(*plan), 3)
+        out[f"k9_{case}"] = rec
+        del plan, rows, v
+    del xt, xr
+    tg = np.load(root / "tests" / "fixtures" / "elevators_train_golden.npz")
+    inv_ell = 1.0 / softplus(torch.from_numpy(tg["init_raw_lengthscale"]).to(dev))
+    xe = torch.from_numpy(data.prepare_dataset(data._synthetic_uci("elevators"), "elevators").train_x).to(dev)
+    ref = (xe * inv_ell).contiguous()
+    n, d = ref.shape
+    src = torch.randn((n, 11), generator=gen, device=dev)
+    g = torch.randn((n, 11), generator=gen, device=dev)
+    dplan = L.build_plan_join(ref, dk.deriv_coeffs, dk.deriv_variance)
+    args = (ref, src, g, list(dk.deriv_coeffs), L.SLICE_NORM(d), 2.0 * dk.dk0)
+    gk, gk2 = K.lattice_deriv_grad(*dplan, *args), K.lattice_deriv_grad(*dplan, *args)
+    gp = K.deriv_grad_plain(dplan.seg_ids, dplan.weights, dplan.neighbors, *args)
+    out["k7_elevators"] = dict(N=dplan.seg_ids.numel(), n_lattice=int(dplan.n_lattice), C=2 * 11 * (1 + d),
+                               ms=_ms(lambda: K.lattice_deriv_grad(*dplan, *args), 10),
+                               rel_to_plain=float((gk - gp).norm() / gp.norm()),
+                               bit_equal=bool(torch.equal(gk, gp)), repeats=bool(torch.equal(gk, gk2)),
+                               kernels=by_kernel(lambda: K.lattice_deriv_grad(*dplan, *args), 5))
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def sharded_f64(repeats: int = 150) -> dict:
     """Errors of K11b (on one rank), its plain version and K3 against the operator in float64.
 
@@ -249,6 +361,8 @@ if __name__ == "__main__":
 
     if "--count-splat" in sys.argv[1:]:
         count_splat()
+    elif "--wide-deriv" in sys.argv[1:]:
+        wide_deriv()
     elif "--sharded-f64" in sys.argv[1:]:
         sharded_f64()
     else:

@@ -42,14 +42,16 @@ _SIGNATURES = {
     "sgp_lattice_slice": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _P],
     "sgp_lattice_splat_blocks": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "sgp_lattice_slice_blocks": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
-    "sgp_lattice_apply_cols": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P],
+    "sgp_join_rows": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sgp_lattice_apply_cols": [*[_P] * 11, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F,
+                               _P, _P, _P, _P, _P, _P],
     "sgp_pivot_column": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sgp_lattice_filter_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     "sgp_filter_once": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _F, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "sgp_lattice_count": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "sgp_deriv_splat": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "sgp_deriv_slice": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
+    "sgp_deriv_grad": [*[_P] * 11, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _F, _F,
+                       _P, _P, _P, _P, _P],
     "sgp_mixture_splat": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "sgp_mixture_blur": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "sgp_mixture_slice": [_P, _P, _P, _I, _I, _I, _I, _P, _F, _P, _P],
@@ -63,7 +65,8 @@ _SIGNATURES = {
     "sgp_chain_compact": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "sgp_chain_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "sgp_chain_taps": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "sgp_chain_finish": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "sgp_chain_finish": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "sgp_run_lists": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "sgp_chain_splat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "sgp_chain_axis": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sgp_chain_slice": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],

@@ -45,6 +45,7 @@ __all__ = [
     "chain_slice_plain",
     "chain_slice",
     "run_lists",
+    "run_lists_device",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -227,11 +228,11 @@ def chain_build_plain(h1, h2, s, weights, consts, taps, capacity=None) -> ChainP
 def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
     """K3'a: the sort-chain plan from K1's hashes, coordinate sums and weights, on the card.
 
-    The same plan as :func:`chain_build_plain`, bit for bit.  Six entry
+    The same plan as :func:`chain_build_plain`, bit for bit.  Seven entry
     points of ``csrc/chain.cu`` (keys, groups, compaction, rows, taps,
-    finish) around three ``torch.sort`` calls (two over the N vertices, one
-    batched over the d axis orders) and two ``torch.cumsum`` calls;
-    counted once per build.
+    finish, run lists) around three ``torch.sort`` calls (two over the N
+    vertices, one batched over the d axis orders) and four 1-D
+    ``torch.cumsum`` calls; counted once per build.
     """
     if not h1.is_cuda:
         return chain_build_plain(h1, h2, s, weights, consts, taps, capacity)
@@ -273,25 +274,38 @@ def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
     build.check(lib.sgp_chain_taps(keys.data_ptr(), sorted_keys.data_ptr(), n_lattice.data_ptr(), Mc, d, order,
                                    ctypes.addressof(taps_host), tapw.data_ptr(), st), "chain_build (taps)")
-    # (long rows, pieces, mid rows) up to each row, scanned along the innermost dimension: an (Mc, 2) layout
-    # scanned along its outer one made the elevators build 18 ms instead of 2.1 on an H100.
-    long_scan = torch.cumsum(long_info, 1, dtype=torch.int32)
     pos, gather = torch.empty((d, Mc), **i32), torch.empty((d, Mc), **i32)
     slice_idx = torch.empty((n, dp1), **i32)
+    build.check(lib.sgp_chain_finish(order_j.data_ptr(), row_of.data_ptr(), N, Mc, d, pos.data_ptr(),
+                                     gather.data_ptr(), slice_idx.data_ptr(), st), "chain_build (finish)")
+    lists = run_lists_device(long_info, cnt, N)
+    chain_build.launches += 1
+    return ChainPlan(sp, sw, cnt, *lists, gather, tapw, slice_idx, weights, n_lattice)
+
+
+def run_lists_device(long_info: torch.Tensor, cnt: torch.Tensor, N: int) -> tuple:
+    """:func:`run_lists` on the card, from each row's class: ``long_info`` (3, Mc) holds the long flag, the
+    number of pieces and the mid flag of every row (0 past the live rows; csrc/rows.cuh, sgp_run_class).
+    A ``torch.cumsum`` of each of its rows and one launch (``sgp_run_lists``) place the long rows, their
+    pieces and the mid rows; the sort chain's build and K9's and K7's row lists share it."""
+    i32 = dict(dtype=torch.int32, device=cnt.device)
+    Mc = cnt.shape[0]
+    # One 1-D scan a row: PyTorch scans the innermost dimension of a (3, Mc) tensor a few blocks a row, with
+    # which K9's row lists took 25.8 ms at Mc = 15.7M on an H100 against 1.6 ms with these (PERF.md section
+    # 6); an (Mc, 3) layout scanned along its outer dimension made the elevators build 18 ms, not 2.1.
+    scan = torch.empty_like(long_info)
+    for i in range(3):
+        torch.cumsum(long_info[i], 0, out=scan[i])
     nl_max, np_max, nm_max = _long_bounds(N, Mc)
     long_rows, long_first = torch.zeros(nl_max, **i32), torch.zeros(nl_max + 1, **i32)
     piece_row, piece_start = torch.zeros(np_max, **i32), torch.zeros(np_max, **i32)
     mid_rows = torch.zeros(nm_max, **i32)
     n_long, n_pieces, n_mid = torch.empty((), **i32), torch.empty((), **i32), torch.empty((), **i32)
-    build.check(lib.sgp_chain_finish(order_j.data_ptr(), row_of.data_ptr(), long_info.data_ptr(),
-                                     long_scan.data_ptr(), cnt.data_ptr(), N, Mc, d, pos.data_ptr(),
-                                     gather.data_ptr(), slice_idx.data_ptr(), long_rows.data_ptr(),
-                                     long_first.data_ptr(), piece_row.data_ptr(), piece_start.data_ptr(),
-                                     n_long.data_ptr(), n_pieces.data_ptr(), mid_rows.data_ptr(),
-                                     n_mid.data_ptr(), st), "chain_build (finish)")
-    chain_build.launches += 1
-    return ChainPlan(sp, sw, cnt, long_rows, long_first, piece_row, piece_start, n_long, n_pieces, mid_rows,
-                     n_mid, gather, tapw, slice_idx, weights, n_lattice)
+    build.check(build.library().sgp_run_lists(
+        long_info.data_ptr(), scan.data_ptr(), cnt.data_ptr(), Mc, long_rows.data_ptr(), long_first.data_ptr(),
+        piece_row.data_ptr(), piece_start.data_ptr(), n_long.data_ptr(), n_pieces.data_ptr(), mid_rows.data_ptr(),
+        n_mid.data_ptr(), build.stream()), "run lists")
+    return long_rows, long_first, piece_row, piece_start, n_long, n_pieces, mid_rows, n_mid
 
 
 chain_build.launches = 0

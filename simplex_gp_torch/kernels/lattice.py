@@ -8,6 +8,12 @@ launches in a ``launches`` attribute.  The plain versions are the PyTorch
 twin of the JAX join engine (simplex_gp_tpu/ops/lattice.py) and run on
 either device.
 
+K9 and K7 run on a join plan's row lists (:class:`JoinRows`, built by
+:func:`join_rows`): each row's contributions in row order, summed by the
+sort chain's splat (K3'b, ``kernels/chain.py``) with no atomics, then a
+blur over the live rows only.  Their plain versions sum in the kernels'
+order, so the two agree bit for bit.
+
 Integer hashes are int32 wrapping mod 2^32, as XLA's are; PyTorch has no
 wrapping int32 product, so the plain versions compute in int64 and mask.
 """
@@ -15,10 +21,12 @@ wrapping int32 product, so the plain versions compute in int64 and mask.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build
+from .chain import chain_splat_plain, run_lists, run_lists_device
 
 __all__ = [
     "lattice_simplex",
@@ -31,6 +39,9 @@ __all__ = [
     "lattice_dedup_ordered",
     "apply_plain",
     "lattice_apply",
+    "JoinRows",
+    "join_rows_plain",
+    "join_rows",
     "apply_cols_plain",
     "lattice_apply_cols",
     "apply_sharded_plain",
@@ -441,31 +452,138 @@ def lattice_apply(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, t
 lattice_apply.launches = 0
 
 
-def apply_cols_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk):
-    """Plain K9 (lattice_filter_wide_chunked, filter.py:65-84): K3 on ``chunk``-column blocks.
+class JoinRows(NamedTuple):
+    """A join plan's contributions in row order and the splat's work lists (K9's and K7's rows).
 
-    Pads v (n, c) with zero columns to a multiple of ``chunk``, as JAX
-    does, applies the plain K3 with its guard to each block and keeps the
-    first c columns.
+    N = n(d+1) contributions, M table rows; the fields, and their meaning, are
+    :class:`~simplex_gp_torch.kernels.chain.ChainPlan`'s of the same names, so
+    the sort chain's splat (K3'b) sums a join table's rows as it sums the
+    chain's:
+
+      splat_points:  (N,) int32     point of each contribution, rows ascending, each row's in contribution order
+      splat_weights: (N,) f32       its barycentric weight
+      cnt:           (M,) int32     end of each row's run (N past the live rows)
+      long_rows, long_first, piece_row, piece_start, n_long, n_pieces, mid_rows, n_mid: the splat's lists
+      n_lattice:     () int32       the plan's live count (> M: the capacity overflowed)
     """
-    n, c = v.shape
-    g = -(-c // chunk)
-    pad = g * chunk - c
-    vp = torch.cat([v, v.new_zeros((n, pad))], dim=1) if pad else v
-    out = torch.cat([apply_plain(seg_ids, weights, neighbors, vp[:, k * chunk:(k + 1) * chunk], taps,
-                                 slice_norm, n_lattice=n_lattice) for k in range(g)], dim=1)
-    return out[:, :c]
+
+    splat_points: torch.Tensor
+    splat_weights: torch.Tensor
+    cnt: torch.Tensor
+    long_rows: torch.Tensor
+    long_first: torch.Tensor
+    piece_row: torch.Tensor
+    piece_start: torch.Tensor
+    n_long: torch.Tensor
+    n_pieces: torch.Tensor
+    mid_rows: torch.Tensor
+    n_mid: torch.Tensor
+    n_lattice: torch.Tensor
 
 
-def lattice_apply_cols(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk):
+def join_rows_plain(seg_ids, weights, neighbors, n_lattice) -> JoinRows:
+    """Plain row lists of a join plan: a stable sort of the seg ids, each row's run end, the splat's lists."""
+    M = neighbors.shape[1]
+    dp1 = seg_ids.shape[-1]
+    seg = seg_ids.reshape(-1)
+    N = seg.shape[0]
+    order = torch.sort(seg, stable=True)
+    cnt = torch.searchsorted(order.values, torch.arange(M, dtype=seg.dtype, device=seg.device),
+                             right=True).to(torch.int32)
+    live = min(int(n_lattice), M)
+    return JoinRows((order.indices // dp1).to(torch.int32), weights.reshape(-1)[order.indices].contiguous(), cnt,
+                    *run_lists(cnt, live, N), n_lattice)
+
+
+def join_rows(seg_ids, weights, neighbors, n_lattice) -> JoinRows:
+    """K9's and K7's row lists of a join plan (``seg_ids`` (n, d+1), ``weights``, ``neighbors``, ``n_lattice``).
+
+    The same lists as :func:`join_rows_plain`, bit for bit: a stable
+    ``torch.sort`` of the seg ids, two launches for the runs and their
+    classes (``sgp_join_rows``), then the sort chain's
+    :func:`~simplex_gp_torch.kernels.chain.run_lists_device`.
+    The live count stays on the device.  Counted once per build.
+    """
+    if not seg_ids.is_cuda:
+        return join_rows_plain(seg_ids, weights, neighbors, n_lattice)
+    build.require("join_rows", (seg_ids, torch.int32), (weights, torch.float32), (n_lattice, torch.int32))
+    dev = seg_ids.device
+    dp1 = seg_ids.shape[-1]
+    M = neighbors.shape[1]
+    N = seg_ids.numel()
+    i32 = dict(dtype=torch.int32, device=dev)
+    lib, st = build.library(), build.stream()
+    sorted_seg, perm = torch.sort(seg_ids.reshape(-1), stable=True)
+    sp, sw = torch.empty(N, **i32), torch.empty(N, dtype=torch.float32, device=dev)
+    cnt, long_info = torch.empty(M, **i32), torch.empty((3, M), **i32)
+    build.check(lib.sgp_join_rows(sorted_seg.data_ptr(), perm.data_ptr(), weights.data_ptr(), n_lattice.data_ptr(),
+                                  N, M, dp1, sp.data_ptr(), sw.data_ptr(), cnt.data_ptr(), long_info.data_ptr(), st),
+                "join_rows (runs)")
+    lists = run_lists_device(long_info, cnt, N)
+    join_rows.launches += 1
+    return JoinRows(sp, sw, cnt, *lists, n_lattice)
+
+
+join_rows.launches = 0
+
+
+def _slice_sums(table, seg_ids, weights):
+    """(n, c): each point's d+1 rows, weighted and summed in vertex order, as the kernels' slices sum them."""
+    out = table.new_zeros((seg_ids.shape[0], table.shape[1]))
+    for v in range(seg_ids.shape[1]):
+        out = out + table[seg_ids[:, v].long()] * weights[:, v:v + 1]
+    return out
+
+
+def apply_cols_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk, rows=None):
+    """Plain K9 (lattice_filter_wide_chunked, filter.py:65-84): the apply of each ``chunk``-column window.
+
+    In the kernel's order: the row-order splat of the window
+    (:func:`~simplex_gp_torch.kernels.chain.chain_splat_plain` on the row
+    lists ``rows``, built when None), the d+1 blurs, the slice summed in
+    vertex order; all NaN when n_lattice passes the M table rows (K3's
+    guard).  Columns do not interact, so the result does not depend on
+    ``chunk``.  (JAX pads v to a multiple of the chunk and applies each
+    block; the padding columns are dropped, so the output is the same.)
+    """
+    rows = join_rows_plain(seg_ids, weights, neighbors, n_lattice) if rows is None else rows
+    c = v.shape[1]
+    out = v.new_empty((v.shape[0], c))
+    for c0 in range(0, c, chunk):
+        table = _blur_plain(chain_splat_plain(rows, v[:, c0:c0 + chunk]), neighbors, taps, False)
+        out[:, c0:c0 + chunk] = _slice_sums(table, seg_ids, weights) * slice_norm
+    return torch.where(n_lattice <= neighbors.shape[1], out, float("nan"))
+
+
+def _rows_args(rows: JoinRows) -> tuple:
+    """The 16 leading arguments of K9's and K7's entry points: the row lists (``sgp_runs``, csrc/rows.cuh)."""
+    return (rows.splat_points.data_ptr(), rows.splat_weights.data_ptr(), rows.cnt.data_ptr(),
+            rows.long_rows.data_ptr(), rows.long_first.data_ptr(), rows.n_long.data_ptr(), rows.piece_row.data_ptr(),
+            rows.piece_start.data_ptr(), rows.n_pieces.data_ptr(), rows.mid_rows.data_ptr(), rows.n_mid.data_ptr(),
+            rows.long_rows.shape[0], rows.mid_rows.shape[0], rows.piece_row.shape[0], rows.splat_points.shape[0],
+            rows.n_lattice.data_ptr())
+
+
+def _require_rows(what: str, rows: JoinRows, N: int, M: int) -> None:
+    build.require(what, *((t, torch.float32 if t is rows.splat_weights else torch.int32) for t in rows))
+    if rows.splat_points.shape[0] != N or rows.cnt.shape[0] != M:
+        raise ValueError(f"{what}: row lists of {rows.splat_points.shape[0]} contributions and {rows.cnt.shape[0]} "
+                         f"rows do not fit a plan of {N} contributions and {M} rows")
+
+
+def lattice_apply_cols(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk, rows=None):
     """K9: K3's ``slice_norm * S^T B S v`` of a wide v (n, c), ``chunk`` columns at a time.
 
-    One pair of (M, chunk) tables serves every column window; the kernel
-    reads each window of v and writes it into the output in place (row
-    stride c).  The guard is K3's.
+    ``rows`` are the plan's :class:`JoinRows` (built here when None; a
+    caller that applies one plan more than once builds them once).  One
+    pair of (M, chunk) tables serves every column window, and none is
+    zeroed: per window, the row-order splat writes every live row, the d+1
+    blurs stride over the live rows only and the slice writes the window of
+    the output in place (row stride c).  No atomics, so two runs give the
+    same bits, :func:`apply_cols_plain`'s.  The guard is K3's.
     """
     if not v.is_cuda:
-        return apply_cols_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk)
+        return apply_cols_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk, rows)
     build.require("lattice_apply_cols", (seg_ids, torch.int32), (weights, torch.float32),
                   (neighbors, torch.int32), (n_lattice, torch.int32), (v, torch.float32))
     n, dp1 = seg_ids.shape
@@ -475,18 +593,20 @@ def lattice_apply_cols(seg_ids, weights, neighbors, n_lattice, v, taps, slice_no
     if v.shape[0] != n or len(taps) != 2 * order + 1 or chunk < 1:
         raise ValueError(f"lattice_apply_cols: v {tuple(v.shape)} / {len(taps)} taps / chunk {chunk} do "
                          f"not fit a plan of {n} points and order {order}")
+    rows = join_rows(seg_ids, weights, neighbors, n_lattice) if rows is None else rows
+    _require_rows("lattice_apply_cols", rows, n * dp1, M)
     dev = v.device
-    lib = build.library()
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
     w = min(chunk, c)
     ta = torch.empty((M, w), dtype=torch.float32, device=dev)
     tb = torch.empty((M, w), dtype=torch.float32, device=dev)
+    part = torch.empty((rows.piece_row.shape[0], w), dtype=torch.float32, device=dev)
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     guard = n_lattice.data_ptr() if M < n * dp1 else None
-    rc = lib.sgp_lattice_apply_cols(seg_ids.data_ptr(), weights.data_ptr(), neighbors.data_ptr(),
-                                    n_lattice.data_ptr(), v.data_ptr(), n, dp1, c, chunk, M,
-                                    ctypes.addressof(taps_host), order, float(slice_norm), guard,
-                                    ta.data_ptr(), tb.data_ptr(), out.data_ptr(), build.stream())
+    rc = build.library().sgp_lattice_apply_cols(
+        *_rows_args(rows), seg_ids.data_ptr(), weights.data_ptr(), neighbors.data_ptr(), v.data_ptr(), n, dp1, c,
+        chunk, M, ctypes.addressof(taps_host), order, float(slice_norm), guard, ta.data_ptr(), tb.data_ptr(),
+        part.data_ptr(), out.data_ptr(), build.stream())
     build.check(rc, "lattice_apply_cols")
     lattice_apply_cols.launches += 1
     return out
@@ -736,27 +856,40 @@ def deriv_grad_plain(seg_ids, weights, neighbors, ref, src, g, taps, slice_norm,
     Filters the stack [g, g (x) ref, src, src (x) ref] on the derivative plan
     (``seg_ids``, ``weights``, ``neighbors``; ``taps`` the derivative taps)
     and returns ``scale * sum_l (sf wg - src wgf + gf ws - g wsf)``, with
-    ``scale`` = 2 k'(0).
+    ``scale`` = 2 k'(0).  In the kernel's order: the row-order splat on the
+    plan's row lists (the plan is untrimmed, so its live count is its
+    largest row + 1), the d+1 blurs, the slice summed in vertex order, the
+    four terms and the sum over l in turn.
     """
     n, L = src.shape
     d = ref.shape[1]
+    rows = join_rows_plain(seg_ids, weights, neighbors, seg_ids.max().to(torch.int32) + 1)
     gf = g[:, :, None] * ref[:, None, :]
     sf = src[:, :, None] * ref[:, None, :]
     stacked = torch.cat([g, gf.reshape(n, L * d), src, sf.reshape(n, L * d)], dim=-1)
-    filtered = apply_plain(seg_ids, weights, neighbors, stacked, taps, slice_norm)
-    wg = filtered[:, :L]
-    wgf = filtered[:, L:L + L * d].reshape(n, L, d)
-    ws = filtered[:, L + L * d:2 * L + L * d]
-    wsf = filtered[:, 2 * L + L * d:].reshape(n, L, d)
-    return scale * (sf * wg[:, :, None] - src[:, :, None] * wgf + gf * ws[:, :, None]
-                    - g[:, :, None] * wsf).sum(dim=1)
+    table = _blur_plain(chain_splat_plain(rows, stacked), neighbors, taps, False)
+    sums = _slice_sums(table, seg_ids, weights)
+    wg = sums[:, :L] * slice_norm
+    wgf = sums[:, L:L + L * d].reshape(n, L, d) * slice_norm
+    ws = sums[:, L + L * d:2 * L + L * d] * slice_norm
+    wsf = sums[:, 2 * L + L * d:].reshape(n, L, d) * slice_norm
+    terms = sf * wg[:, :, None] - src[:, :, None] * wgf + gf * ws[:, :, None] - g[:, :, None] * wsf
+    acc = terms.new_zeros((n, d))
+    for l in range(L):
+        acc = acc + terms[:, l]
+    return acc * scale
 
 
 def lattice_deriv_grad(seg_ids, weights, neighbors, n_lattice, ref, src, g, taps, slice_norm, scale):
     """K7: the derivative-tap position gradient (see :func:`deriv_grad_plain`), (n, d).
 
     ``seg_ids`` (n, d+1), ``weights``, ``neighbors`` and ``n_lattice`` are
-    the derivative plan; ``src`` and ``g`` are (n, L), ``ref`` (n, d).
+    the derivative plan (its row lists, :class:`JoinRows`, are built here:
+    the plan serves one call); ``src`` and ``g`` are (n, L), ``ref`` (n, d).
+    One host call: the row-order splat forms the 2L(1+d) stacked columns on
+    the fly into the live rows of an (M, C) table (no zeroing), the d+1
+    blurs stride over the live rows, and the slice combines the four blocks.
+    No atomics: two runs give the same bits, :func:`deriv_grad_plain`'s.
     """
     if not ref.is_cuda:
         return deriv_grad_plain(seg_ids, weights, neighbors, ref, src, g, taps, slice_norm, scale)
@@ -773,25 +906,18 @@ def lattice_deriv_grad(seg_ids, weights, neighbors, n_lattice, ref, src, g, taps
         raise ValueError(f"lattice_deriv_grad: shapes do not fit: ref {tuple(ref.shape)}, seg "
                          f"{tuple(seg_ids.shape)}, src {tuple(src.shape)}, g {tuple(g.shape)}, "
                          f"{len(taps)} taps for order {order}")
+    rows = join_rows(seg_ids, weights, neighbors, n_lattice)
     dev = ref.device
-    lib = build.library()
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
-    a = torch.zeros((M, C), dtype=torch.float32, device=dev)
+    a = torch.empty((M, C), dtype=torch.float32, device=dev)
     b = torch.empty((M, C), dtype=torch.float32, device=dev)
+    part = torch.empty((rows.piece_row.shape[0], C), dtype=torch.float32, device=dev)
     grad_ref = torch.empty((n, d), dtype=torch.float32, device=dev)
-    st = build.stream()
-    build.check(lib.sgp_deriv_splat(seg_ids.data_ptr(), weights.data_ptr(), ref.data_ptr(),
-                                    src.data_ptr(), g.data_ptr(), n, d, L, a.data_ptr(), st),
-                "lattice_deriv_grad (splat)")
-    for j in range(d + 1):
-        rc = lib.sgp_lattice_blur(a.data_ptr(), b.data_ptr(), neighbors[j].data_ptr(),
-                                  ctypes.addressof(taps_host), M, C, order, n_lattice.data_ptr(), st)
-        build.check(rc, "lattice_deriv_grad (blur)")
-        a, b = b, a
-    build.check(lib.sgp_deriv_slice(a.data_ptr(), seg_ids.data_ptr(), weights.data_ptr(), ref.data_ptr(),
-                                    src.data_ptr(), g.data_ptr(), n, d, L, float(slice_norm),
-                                    float(scale), grad_ref.data_ptr(), st),
-                "lattice_deriv_grad (slice)")
+    rc = build.library().sgp_deriv_grad(
+        *_rows_args(rows), seg_ids.data_ptr(), weights.data_ptr(), neighbors.data_ptr(), ref.data_ptr(),
+        src.data_ptr(), g.data_ptr(), n, d, L, M, ctypes.addressof(taps_host), order, float(slice_norm), float(scale),
+        a.data_ptr(), b.data_ptr(), part.data_ptr(), grad_ref.data_ptr(), build.stream())
+    build.check(rc, "lattice_deriv_grad")
     lattice_deriv_grad.launches += 1
     return grad_ref
 

@@ -7,9 +7,10 @@ plan (K1 + K3'a build, K3'b-d apply) for a DiscretizedKernel, and
 keeps JAX's one-shot dispatch (:120-140): values of up to ``_WIDE_COLS`` =
 16 columns go to the one-shot filter K4 (``filter_once``); wider ones to
 the join plan (K1 + K2 build, K3 apply), or, above ``_JOIN_MAX_ROWS``
-contribution rows n(d+1), to one join plan applied ``_WIDE_CHUNK`` columns
-at a time by K9 (:func:`lattice_filter_wide_chunked`,
-:func:`make_wide_filter`; JAX's chunked sort-chain filter, here the join
+contribution rows n(d+1), to one join plan applied by K9 a window of
+several of JAX's ``_WIDE_CHUNK``-column blocks at a time
+(:func:`lattice_filter_wide_chunked`, :func:`make_wide_filter`; JAX's
+chunked sort-chain filter, here the join
 plan, so the same operator up to 64-bit hash collisions).  ``capacity``
 bounds the plan's table as in JAX (:143-193).
 
@@ -60,6 +61,7 @@ from .lattice import (
     filter_once,
     mixture_component,
     mixture_positions,
+    wide_plan,
 )
 
 # Widest value block for the one-shot filter; wider blocks take the join plan
@@ -171,15 +173,19 @@ def make_wide_filter(ref: torch.Tensor, dk, capacity: Optional[int] = None):
     """Reusable ``mv(V) -> K(ref, ref) @ V`` for wide value blocks (filter.py:87-117).
 
     One join plan, built now: above ``_JOIN_MAX_ROWS`` with ``capacity`` and
-    applied by K9; below, untrimmed and applied by K3, as JAX's join branch.
-    A mixture builds its stacked plan (K12), or above ``_JOIN_MAX_ROWS`` one
-    untrimmed K9 filter per component (make_wide_filter_any, :207-220).
+    its row lists, applied by K9 (a :class:`WidePlan`: the range sketch's two
+    MVMs share one build of each); below, untrimmed and applied by K3, as
+    JAX's join branch.  A mixture builds its stacked plan (K12), or above
+    ``_JOIN_MAX_ROWS`` one untrimmed K9 filter per component
+    (make_wide_filter_any, :207-220).
     """
     large = ref.shape[0] * (ref.shape[-1] + 1) > _JOIN_MAX_ROWS
     if isinstance(dk, MixtureKernel) and large:
         mvs = [make_wide_filter(ref * a, dk.base) for a in dk.alphas]
         return lambda V: sum(w * f(V) for w, f in zip(dk.weights, mvs))
     plan = build_join_plan_any(ref, dk, capacity if large else None)
+    if large:
+        plan = wide_plan(plan)
     return lambda V: apply_plan_wide(plan, V, dk)
 
 

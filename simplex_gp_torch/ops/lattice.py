@@ -29,7 +29,9 @@ Both compute the same operator (up to 64-bit hash collisions and the chain's
 ``capacity`` semantics (JAX's build_plan(capacity), :857-892): the table has
 min(capacity, n(d+1)) rows, and an apply returns all NaN when more points
 are occupied (:1093-1100).  :func:`apply_plan_cols` is K9, the join apply of
-a wide value block a few columns at a time.
+a wide value block a few columns at a time, on the plan's row lists (K9's
+and K7's :class:`~simplex_gp_torch.kernels.lattice.JoinRows`); a
+:class:`WidePlan` carries them beside a plan that K9 applies more than once.
 
 :func:`filter_once` is the reference's one-shot ``filter``: K4 builds and
 applies in one call, with no plan and an optional capacity bound (JAX's
@@ -55,6 +57,8 @@ import numpy as np
 import torch
 
 from ..kernels.lattice import (
+    JoinRows,
+    join_rows,
     lattice_apply,
     lattice_apply_cols,
     lattice_apply_sharded,
@@ -70,6 +74,7 @@ from ..kernels.mixture import lattice_mixture_apply
 
 __all__ = [
     "LatticePlan",
+    "WidePlan",
     "ChainPlan",
     "MixturePlan",
     "SLICE_NORM",
@@ -83,6 +88,9 @@ __all__ = [
     "build_plan_sharded_join",
     "apply_plan_join",
     "apply_plan_cols",
+    "wide_plan",
+    "K9_WINDOW",
+    "k9_window",
     "build_plan_mixture",
     "apply_plan_mixture",
     "mixture_component",
@@ -223,6 +231,20 @@ class LatticePlan(NamedTuple):
     weights: torch.Tensor
     neighbors: torch.Tensor
     n_lattice: torch.Tensor
+
+
+class WidePlan(NamedTuple):
+    """A join plan with its row lists (``rows``, built once), for a K9 that applies it more than once.
+
+    The fields of :class:`LatticePlan`, then ``rows``; :func:`apply_plan_join`
+    and :func:`apply_plan_cols` read them by name.
+    """
+
+    seg_ids: torch.Tensor
+    weights: torch.Tensor
+    neighbors: torch.Tensor
+    n_lattice: torch.Tensor
+    rows: JoinRows
 
 
 class MixturePlan(NamedTuple):
@@ -402,18 +424,38 @@ def apply_plan_join(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, transpose
     return lattice_apply(*args, transpose, return_table)
 
 
-def apply_plan_cols(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, chunk: int) -> torch.Tensor:
-    """K @ v through ``plan`` for a wide v (n, c), ``chunk`` columns at a time: K9.
+# K9's column window on the card, a multiple of the caller's block: the fastest of 8, 16 and 32 columns
+# at houseelectric on an H100 (kernel_times.py --wide-deriv; PERF.md section 6).  Columns do not
+# interact, so the window does not change the result; the two (M, window) tables it keeps are the peak
+# memory.
+K9_WINDOW = 32
 
-    The same operator as :func:`apply_plan_join`, with (M, chunk) tables in
-    place of (M, c) ones (filter.py:65-117).
+
+def k9_window(chunk: int) -> int:
+    """K9's window for blocks of ``chunk`` columns: as many whole blocks as fit K9_WINDOW, at least one."""
+    return chunk * max(1, K9_WINDOW // chunk)
+
+
+def wide_plan(plan: LatticePlan) -> WidePlan:
+    """``plan`` with its row lists, built now on its device."""
+    return WidePlan(*plan, join_rows(*plan))
+
+
+def apply_plan_cols(plan, v: torch.Tensor, coeffs: tuple, chunk: int) -> torch.Tensor:
+    """K @ v through a join plan for a wide v (n, c) in blocks of ``chunk`` columns: K9.
+
+    The same operator as :func:`apply_plan_join`, with (M, w) tables in
+    place of (M, c) ones (filter.py:65-117); the window w = k9_window(chunk)
+    takes several of JAX's blocks at once (32 columns for its 8).  A
+    :class:`WidePlan` brings its row lists; a :class:`LatticePlan`'s are
+    built for this apply.
     """
     d = plan.seg_ids.shape[1] - 1
     if len(coeffs) != plan.neighbors.shape[2] + 1:
         raise ValueError(f"{len(coeffs)} taps do not fit a plan of order {plan.neighbors.shape[2] // 2}")
     return lattice_apply_cols(plan.seg_ids, plan.weights, plan.neighbors, plan.n_lattice,
                               v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(d),
-                              chunk)
+                              k9_window(chunk), plan.rows if isinstance(plan, WidePlan) else None)
 
 
 def filter_once(src: torch.Tensor, ref: torch.Tensor, coeffs: tuple, blur_variance: float,

@@ -13,9 +13,12 @@ its dots and the E product in another order (rel 1e-4, with cancellation in
 the weight-gradient differences); K6 sums d2 and L.l_piv in another order
 than torch's reductions (rel 1e-5 for one step).  K4 is K3's operator with
 the same atomic splat (rel 1e-5), and its occupancy and K8's count are
-exact; K7's atomic splat of 2L(1+d) columns feeds a four-term difference
-with cancellation (rel 1e-4).  K9 is K3 per column window with the same
-atomic splat (rel 1e-5, against its plain version and the unchunked K3).
+exact.  K9 and K7 run on a join plan's row lists (``join_rows``, built
+bit for bit as their plain version builds them) with the sort chain's
+row-order splat, no atomics, a blur over the live rows and a slice in
+vertex order, each in its plain version's order: both equal their plain
+versions and a second run bit for bit (K9 at windows of 8, 16 and 32
+columns, against the unchunked K3 rel 1e-5).
 The bounded K2 numbers its rows as it likes but gives the plain version's
 occupancy, and K3 on it the plain operator (rel 1e-5); one row short of
 the occupancy, every output is NaN and no launch leaves its table.
@@ -216,11 +219,13 @@ def test_deriv_grad_matches_plain(cuda_device, n, d, order, kind, L):
     norm, scale = t_lattice.SLICE_NORM(d), 2.0 * dk.dk0
     before = K.lattice_deriv_grad.launches
     gk = K.lattice_deriv_grad(*plan, ref, src, g, dk.deriv_coeffs, norm, scale)
+    again = K.lattice_deriv_grad(*plan, ref, src, g, dk.deriv_coeffs, norm, scale)
     gp = K.deriv_grad_plain(plan.seg_ids, plan.weights, plan.neighbors, ref, src, g, dk.deriv_coeffs, norm,
                             scale)
     torch.cuda.synchronize()
-    assert K.lattice_deriv_grad.launches == before + 1
+    assert K.lattice_deriv_grad.launches == before + 2
     assert float((gk - gp).norm() / gp.norm()) < 1e-4
+    assert torch.equal(gk, gp) and torch.equal(again, gk)
 
 
 def test_one_shot_wrappers_refuse_wrong_inputs(cuda_device):
@@ -251,10 +256,72 @@ def test_apply_cols_matches_plain_and_the_unchunked_apply(cuda_device, n, d, ord
     kout = K.lattice_apply_cols(*plan, v, dk.coeffs, norm, 8)
     pout = K.apply_cols_plain(*plan, v, dk.coeffs, norm, 8)
     whole = K.lattice_apply(*plan, v, dk.coeffs, norm)
+    rows = K.join_rows(*plan)
+    windows = [K.lattice_apply_cols(*plan, v, dk.coeffs, norm, chunk, rows) for chunk in (8, 16, 32)]
     torch.cuda.synchronize()
-    assert K.lattice_apply_cols.launches == before + 1
+    assert K.lattice_apply_cols.launches == before + 4
     assert float((kout - pout).norm() / pout.norm()) < 1e-5
     assert float((kout - whole).norm() / whole.norm()) < 1e-5
+    assert torch.equal(kout, pout) and all(torch.equal(w, kout) for w in windows)
+
+
+@pytest.mark.parametrize("capacity", [None, "trim", "over"])
+def test_join_rows_match_plain_bit_for_bit(cuda_device, capacity):
+    """K9's and K7's row lists against their plain build, every field, on a join plan with runs of every class
+    (untrimmed, trimmed, past the capacity) and on the run lengths 1 .. 3,072; two builds repeat."""
+    dk = _dk("rbf", 1)
+    x = torch.from_numpy(chain_class_positions()).to(cuda_device)
+    occ = int(t_lattice.count_lattice_points(x, dk.variance))
+    cap = {None: None, "trim": occ + 3, "over": occ - 5}[capacity]
+    plan = t_lattice.build_plan_join(x, dk.coeffs, dk.variance, cap)
+    rng = np.random.default_rng(7)
+    seg = rng.permutation(np.repeat(np.arange(len(RUN_LENGTHS)), RUN_LENGTHS)).astype(np.int32)
+    seg = np.concatenate([seg, np.arange(-len(seg) % 4, dtype=np.int32)])
+    synth = (torch.from_numpy(seg.reshape(-1, 4)).to(cuda_device),
+             torch.from_numpy(rng.uniform(-1, 1, size=(len(seg) // 4, 4)).astype(np.float32)).to(cuda_device),
+             torch.full((1, len(RUN_LENGTHS) + 3, 2), len(RUN_LENGTHS) + 3, dtype=torch.int32, device=cuda_device),
+             torch.tensor(len(RUN_LENGTHS), dtype=torch.int32, device=cuda_device))
+    for p in (tuple(plan), synth):
+        before = K.join_rows.launches
+        got, again, want = K.join_rows(*p), K.join_rows(*p), K.join_rows_plain(*p)
+        torch.cuda.synchronize()
+        assert K.join_rows.launches == before + 2
+        for name, a, b, c in zip(K.JoinRows._fields, got, again, want):
+            assert torch.equal(a, b) and torch.equal(a, c), name
+    assert int(got.n_long) > 0 and int(got.n_mid) > 0
+
+
+@pytest.mark.parametrize("c", [20, 101])
+def test_k9_in_a_cuda_graph_and_the_mixture_branch(cuda_device, monkeypatch, c):
+    """One K9 apply captured in a CUDA graph (no host read on its path) replays its eager output bit for bit;
+    the mixture's per-component K9 branch (above _JOIN_MAX_ROWS) against K12 on the same stacked plan."""
+    dk = _dk("matern", 1)
+    x = _positions(2000, 5, 12, cuda_device)
+    plan = t_lattice.build_plan_join(x, dk.coeffs, dk.variance)
+    rows = K.join_rows(*plan)
+    v = torch.randn((2000, c), generator=torch.Generator(device=cuda_device).manual_seed(c), device=cuda_device)
+    norm = t_lattice.SLICE_NORM(5)
+    eager = K.lattice_apply_cols(*plan, v, dk.coeffs, norm, 8, rows)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.lattice_apply_cols(*plan, v, dk.coeffs, norm, 8, rows)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = K.lattice_apply_cols(*plan, v, dk.coeffs, norm, 8, rows)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+    mk = t_kernels.mixture_kernel(1.5, 1, 4)
+    mplan = t_filter.build_plan_any(x, mk)
+    want = t_filter.apply_plan_wide(mplan, v, mk)  # K12
+    before = K.lattice_apply_cols.launches
+    monkeypatch.setattr(t_filter, "_JOIN_MAX_ROWS", 1000)
+    got = t_filter.apply_plan_wide(mplan, v, mk)
+    torch.cuda.synchronize()
+    assert K.lattice_apply_cols.launches == before + 4
+    assert float((got - want).norm() / want.norm()) < 1e-5
 
 
 @pytest.mark.parametrize("n,d,order,kind", GRID)
@@ -287,6 +354,7 @@ def test_bounded_dedup_and_guard_match_plain(cuda_device, n, d, order, kind):
                 assert float((got - pout).norm() / pout.norm()) < 1e-5
             pcols = K.apply_cols_plain(pseg, w, pnb, pnl, wide, dk.coeffs, norm, 8)
             assert float((kcols - pcols).norm() / pcols.norm()) < 1e-5
+            assert torch.equal(kcols, K.apply_cols_plain(kseg, w, knb, knl, wide, dk.coeffs, norm, 8))
         else:
             # Tripped: every launch stays in bounds (K5 reads the tables at the seg ids) and
             # every output is NaN.

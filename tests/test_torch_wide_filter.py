@@ -96,15 +96,19 @@ def test_make_wide_filter_matches_jax(monkeypatch, chunks_spy, low, c):
 
 
 def test_chunked_apply_plain_is_the_apply_per_block():
-    """K9's plain version: JAX's zero padding and per-block apply equal one wide apply."""
+    """K9's plain version sums every column alone (row-order splat, blurs, slice), so blocks of 8 or 3
+    columns give the apply of the whole block bit for bit, and that is the wide operator: against K3's
+    formula in float64 (JAX pads to whole blocks and drops the padding columns, the same output)."""
     x, v = _data(20, seed=2)
     dk = t_kernels.rbf_kernel(1)
     plan = t_lattice.build_plan_join(torch.from_numpy(x), dk.coeffs, dk.variance)
-    whole = t_lattice.apply_plan_join(plan, torch.from_numpy(v), dk.coeffs)
+    whole = K.apply_plain(plan.seg_ids, plan.weights, plan.neighbors, torch.from_numpy(v).double(), dk.coeffs,
+                          t_lattice.SLICE_NORM(D))
     chunked = t_lattice.apply_plan_cols(plan, torch.from_numpy(v), dk.coeffs, 8)
-    torch.testing.assert_close(chunked, whole, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(chunked.double(), whole, rtol=1e-6, atol=1e-6)
     before = K.lattice_apply_cols.launches
-    t_lattice.apply_plan_cols(plan, torch.from_numpy(v), dk.coeffs, 3)
+    for chunk in (3, 20):
+        assert torch.equal(t_lattice.apply_plan_cols(plan, torch.from_numpy(v), dk.coeffs, chunk), chunked)
     assert K.lattice_apply_cols.launches == before  # a CPU tensor takes the plain version
 
 
