@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, large-n, data-parallel, mixture, baseline and sort-chain paths on one CUDA card, and check them.
+"""Drive the PyTorch port's serving, training, large-n, data-parallel, mixture, baseline, sort-chain and CG paths on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -116,14 +116,30 @@ Phases, each printed as it runs:
      posterior_cache calls repeat bit for bit (and which stage differs if
      not); the elevators training CG and the
      houseelectric eval CG on the chain plan and on the join plan of the
-     same positions, in turns; the stage times of phases 3, 4.5 and 6.5.
+     same positions, in turns; the stage times of phases 3, 4.5 and 6.5;
+ 11. K10, the CG body (csrc/cg.cu), which every single-device CG of the
+     phases above ran: each of cg_dot, cg_step_x, cg_scale, cg_precond,
+     cg_step_p and cg_init against its plain twin bit for bit from one
+     saved iteration state, at the elevators training shape (median init,
+     c = 11, the 100-step record) and the houseelectric eval shape (capacity
+     32,768, c = 1), each timed launched and replayed beside its twin and
+     its bound; the CUDA-graph solve against the launched kernel loop
+     (iteration counts and x bit for bit) in turns, with ms an iteration,
+     the capture's cost, the MVM's and the two products with U's times and
+     the launches an iteration; two NLML evaluations and gradients bit for
+     bit at elevators (median init, model_best.pkl) and houseelectric; two
+     houseelectric evals after one Adam step with equal CG counts and alpha;
+     K10's launches on one elevators training step and one posterior_cache,
+     with no K3 in the step's exact backward (which runs K9 on its join
+     plan's row lists).
 
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- for K5, on the trainer run; for K7, on
 the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9,
 its row lists and the bounded K2, on the houseelectric trainer run; for K11a, K11b and K6',
 on the two ranks' data-parallel NLML step; for K12, on the mixture trainer
-run; for K13, on the SKIP trainer run; for K3', in one training step --,
+run; for K13, on the SKIP trainer run; for K3', in one training step; for
+K10, on one training step and one posterior_cache --,
 errors, times, and
 each kernel's bound: the larger of the bytes it must move over the card's
 memory rate and its float operations over the card's float32 rate).  The last line is
@@ -340,6 +356,13 @@ KERNEL_ROWS = {
     "chain_splat": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1030"),
     "chain_axis": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1064"),
     "chain_slice": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1077"),
+    # K10, the CG body (lax.while_loop body :133-205) and its initial state (:118-125, :220).
+    "cg_dot": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:136"),
+    "cg_step_x": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:145"),
+    "cg_scale": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:253"),
+    "cg_precond": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:147"),
+    "cg_step_p": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:150"),
+    "cg_init": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:118"),
 }
 
 
@@ -445,7 +468,7 @@ def training_phase(dev, ds, expect, timer):
     from simplex_gp_torch.linalg import mll
     from simplex_gp_torch.linalg.cg import cg_solve
     from simplex_gp_torch.linalg.lanczos import logdet_from_cg_tridiag
-    from simplex_gp_torch.linalg.pivoted_cholesky import precond_solve, precond_sqrt
+    from simplex_gp_torch.linalg.pivoted_cholesky import precond_sqrt
     from simplex_gp_torch.ops import lattice as L
     from simplex_gp_torch.ops.filter import build_plan_any
 
@@ -598,9 +621,9 @@ def training_phase(dev, ds, expect, timer):
         mark(2)
         s, noise = params["outputscale"], params["noise"]
         b = precond_sqrt(P, z)
-        res = cg_solve(lambda V: s * L.apply_plan_chain(plan, V, dk.coeffs) + noise * V,
+        res = cg_solve(lambda V: L.apply_plan_chain(plan, V, dk.coeffs),
                        torch.cat([(y - params["mean"])[:, None], b], dim=-1), tol=cfg.cg_tolerance,
-                       max_iters=cfg.max_cg_iterations, precond=lambda V: precond_solve(P, V), tridiag_m=100)
+                       max_iters=cfg.max_cg_iterations, precond=P, tridiag_m=100, shift=(s, noise))
         mark(3)
         logdet_from_cg_tridiag(res.alphas[:, 1:], res.betas[:, 1:], res.tmask[:, 1:], (z * z).sum(0))
         mark(4)
@@ -619,6 +642,8 @@ def training_phase(dev, ds, expect, timer):
         torch.cuda.synchronize()
         stages["adam"] = a0.elapsed_time(a1)
         stages["cg_iters"] = res.iterations
+        with torch.no_grad():
+            stages.update(backward_parts((x * model.constrained()["inv_ell"]).contiguous(), dk, None, 11, 9))
         warm = timer(lambda: train_step(model, opt, x, y, z), 5)
         print(f"    warm training step {warm:.2f} ms (CUDA events); stages (ms): "
               + json.dumps({k: round(v, 3) for k, v in stages.items()}))
@@ -1161,7 +1186,8 @@ def large_n_phase(dev, expect, timer):
     del model, loss, plan_u, rows_u, v100, k9_out, h1, h2, w, seg, nb
 
     print("large n 6.4: python -m simplex_gp_torch.train at houseelectric, the round-5 flags, two epochs")
-    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, K.join_rows, K.lattice_apply_cols,
+    # The exact backward applies through K9 on its join plan's row lists, so K3 is off this path.
+    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.join_rows, K.lattice_apply_cols,
             pivot_column, K.lattice_filter_grad, K.lattice_count, *chain_kernels())
     predictions = []
     real_predict = simplex_gp_torch.SimplexGP.predict_from_cache
@@ -1173,7 +1199,7 @@ def large_n_phase(dev, expect, timer):
                                 positive=bool((var > 0).all())))
         return mean, var
 
-    for fn in path:
+    for fn in (*path, K.lattice_apply):
         fn.launches = 0
     K.lattice_dedup_neighbors.bounded_launches = 0
     simplex_gp_torch.SimplexGP.predict_from_cache = recording_predict
@@ -1191,8 +1217,10 @@ def large_n_phase(dev, expect, timer):
     launches["lattice_dedup_neighbors_bounded"] = K.lattice_dedup_neighbors.bounded_launches
     print(f"    launches on the trainer run: {launches}")
     expect(all(v > 0 for v in launches.values()), "every kernel of the path launched on the trainer run")
-    expect(launches["lattice_apply_cols"] == 4, f"K9 launched {launches['lattice_apply_cols']} times: expected "
-           f"the two sketch MVMs of the val eval's posterior_cache, its rect predict and the test predict")
+    expect(launches["lattice_apply_cols"] == 8, f"K9 launched {launches['lattice_apply_cols']} times: expected "
+           f"the exact backward's two applies in each of the two training steps, the two sketch MVMs of the val "
+           f"eval's posterior_cache, its rect predict and the test predict")
+    expect(K.lattice_apply.launches == 0, f"no atomic K3 on the trainer run ({K.lattice_apply.launches} launches)")
     recs = summary["records"]
     expect(all(np.isfinite(r["train/mll"]) for r in recs), f"finite losses {[r['train/mll'] for r in recs]}")
     expect(summary["plan_capacity"] == cap, f"the trainer's capacity {summary['plan_capacity']} (phase 6.3: {cap})")
@@ -1239,6 +1267,35 @@ def large_n_phase(dev, expect, timer):
     return rows, launches, record
 
 
+def backward_parts(ref, dk, cap, c: int, seed: int) -> dict:
+    """The exact backward's new parts by CUDA events, as LatticeInvQuadLogdet.backward runs them: the join
+    plan (K1 + K2), its row lists, K9 with its table, K9 transposed with its table, K5 (random V and U)."""
+    import torch
+
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.ops import lattice as L
+
+    n, d = ref.shape
+    gen = torch.Generator(device=ref.device).manual_seed(seed)
+    V, U = (torch.randn((n, c), generator=gen, device=ref.device) for _ in range(2))
+    E = torch.from_numpy(L.build_rotation(d, dk.variance)).to(ref.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    jplan = L.build_plan_join(ref, dk.coeffs, dk.variance, cap)
+    ev[1].record()
+    plan = L.wide_plan(jplan)
+    ev[2].record()
+    _, table_f = L.apply_plan_rows(plan, V, dk.coeffs, return_table=True)
+    ev[3].record()
+    _, table_b = L.apply_plan_rows(plan, U, dk.coeffs, transpose=True, return_table=True)
+    ev[4].record()
+    K.lattice_filter_grad(ref, E, plan.seg_ids, V, U, table_f, table_b, L.SLICE_NORM(d))
+    ev[5].record()
+    torch.cuda.synchronize()
+    names = ("backward_join_plan", "backward_join_rows", "backward_k9", "backward_k9t", "backward_k5")
+    return {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
+
+
 def houseelectric_stages(dev, ds, dk, cap, ell):
     """Phase 6.5: a warm training step and an eval (posterior cache + val predict) by stage.
 
@@ -1253,7 +1310,7 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     from simplex_gp_torch.linalg import mll
     from simplex_gp_torch.linalg.cg import cg_solve
     from simplex_gp_torch.linalg.lanczos import logdet_from_cg_tridiag
-    from simplex_gp_torch.linalg.pivoted_cholesky import precond_solve, precond_sqrt
+    from simplex_gp_torch.linalg.pivoted_cholesky import precond_sqrt
     from simplex_gp_torch.models.components import init_raw_params
     from simplex_gp_torch.models.exact_gp import rademacher
     from simplex_gp_torch.ops.filter import apply_plan_any, build_plan_any, lattice_filter_rect, make_wide_filter
@@ -1283,9 +1340,9 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
         P = mll.build_precond(dk, cfg, params, ref, n)
         ev[2].record()
         s, noise = params["outputscale"], params["noise"]
-        res = cg_solve(lambda V: s * apply_plan_any(plan, V, dk) + noise * V,
+        res = cg_solve(lambda V: apply_plan_any(plan, V, dk),
                        torch.cat([(y - params["mean"])[:, None], precond_sqrt(P, z)], dim=-1), tol=1.0,
-                       max_iters=500, precond=lambda V: precond_solve(P, V), tridiag_m=100)
+                       max_iters=500, precond=P, tridiag_m=100, shift=(s, noise))
         ev[3].record()
         logdet_from_cg_tridiag(res.alphas[:, 1:], res.betas[:, 1:], res.tmask[:, 1:], (z * z).sum(0))
         ev[4].record()
@@ -1300,6 +1357,13 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     names = ("plan", "preconditioner", "cg", "slq_eigh", "forward", "backward", "adam")
     stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
     stages["cg_iters"] = res.iterations
+    # One training CG iteration's parts at c = 11, by CUDA-graph replay: the MVM, U^T R, U (w U^T R).
+    r11 = res.x.contiguous()
+    g11 = P.U.T @ r11
+    stages.update(cg_mvm_graph_ms=graph_ms(lambda: apply_plan_any(plan, r11, dk), 10),
+                  cg_ut_r_graph_ms=graph_ms(lambda: P.U.T @ r11, 10), cg_u_g_graph_ms=graph_ms(lambda: P.U @ g11, 10))
+    backward_parts(ref.contiguous(), dk, cap, 11, 9)  # warm
+    stages.update(backward_parts(ref.contiguous(), dk, cap, 11, 9))
     stages["warm_step"] = cuda_ms(lambda: train_step(model, opt, x, y, z), 2)
     del plan, P, res, loss
 
@@ -1314,9 +1378,8 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
         P = mll.build_precond(dk, cfg, params, ref, n)
         ev[2].record()
         s, noise = params["outputscale"], params["noise"]
-        sol = cg_solve(lambda V: s * apply_plan_any(plan, V, dk) + noise * V,
-                       (y - params["mean"])[:, None], tol=model.eval_cg_tolerance, max_iters=500,
-                       precond=lambda V: precond_solve(P, V))
+        sol = cg_solve(lambda V: apply_plan_any(plan, V, dk), (y - params["mean"])[:, None],
+                       tol=model.eval_cg_tolerance, max_iters=500, precond=P, shift=(s, noise), graph=True)
         ev[3].record()
         omega = torch.randn((n, 100), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
         kmv = make_wide_filter(ref, dk, cap)  # the sketch's own join plan, as posterior_cache builds it
@@ -1333,6 +1396,11 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     names = ("plan", "preconditioner", "eval_cg", "range_sketch", "predict_val")
     evals = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
     evals["eval_cg_iters"] = sol.iterations
+    # One eval CG iteration's parts at these parameters, by CUDA-graph replay: the MVM, U^T r, U (w U^T r).
+    r1 = sol.x[:, :1].contiguous()
+    g1 = P.U.T @ r1
+    evals.update(eval_mvm_graph_ms=graph_ms(lambda: apply_plan_any(plan, r1, dk), 10),
+                 eval_ut_r_graph_ms=graph_ms(lambda: P.U.T @ r1, 10), eval_u_g_graph_ms=graph_ms(lambda: P.U @ g1, 10))
     return stages, evals, peaks
 
 
@@ -2611,7 +2679,7 @@ def chain_phase(dev, ds, expect, timer, stage_times):
     print(f"    NLML at the median init twice: bit-equal {rep['nlml_bit_equal']} ({rep['nlml']}), CG iterations "
           f"{rep['cg_iters']}; stages bit-equal: preconditioner {rep['preconditioner_bit_equal']}, CG "
           f"{rep['cg_solves_bit_equal']}, SLQ {rep['slq_logdet_bit_equal']}; gradients rel diff "
-          f"{rep['grad_rel_diff']:.3e} (not expected to repeat: the exact backward's K3 splat adds with atomics)")
+          f"{rep['grad_rel_diff']:.3e} (gated bit for bit in phase 11.3)")
     model.load_raw(best)
     caches = [model.posterior_cache(x, y, generator=torch.Generator(device=dev).manual_seed(0)) for _ in range(2)]
     rep.update(eval_cg_iters=[c_["cg_iters"] for c_ in caches],
@@ -2677,6 +2745,266 @@ def chain_phase(dev, ds, expect, timer, stage_times):
     for key, val in stage_times.items():
         print(f"    {key}: " + json.dumps(val))
     record["stage_times"] = stage_times
+    return rows, launches, record
+
+
+def k10_cost(name: str, n: int, t: int, k: int, nb: int, better_cols: int) -> tuple:
+    """(bytes, ops) of one K10 kernel at (n, t): each vector read once and written once, the block partials
+    and the state counted with them; cg_step_p writes the best iterate of the columns that improved."""
+    vec = 4 * n * t
+    return {
+        "cg_dot": (3 * vec + 4 * nb * t, 5 * n * t),  # p, K p in; A p out; s K p + noise p, the products and sums
+        "cg_step_x": (6 * vec + 8 * nb * t, 6 * n * t),  # x, r, p, A p in; x, r out
+        "cg_scale": (4 * (2 * k * t + k), k * t),  # U^T r and w in; the scaled block out
+        "cg_precond": (3 * vec + 4 * nb * t, 4 * n * t),  # r, U (w U^T r) in; z out
+        "cg_step_p": (3 * vec + 8 * n * better_cols + 8 * nb * t, 2 * n * t),  # z, p in; p out; x -> x_best
+        "cg_init": (8 * nb * t, 3 * t),  # the two dots' partials in
+    }[name]
+
+
+def k10_pairs(loop, timer, reps: int) -> dict:
+    """Phase 11.1: each K10 kernel against its plain twin from ``loop``'s saved state, bit for bit.
+
+    One iteration in the solver's order from one state; each kernel and its twin get equal copies of
+    their inputs, and the kernel's outputs feed the next step.  Then the kernel's time (CUDA events) and
+    its twin's on the same inputs, with stop rules that cannot end the timed repeats.
+    """
+    import torch
+
+    from simplex_gp_torch.kernels import cg as K10
+
+    def same(a, b):
+        if a.is_floating_point():
+            nan = torch.isnan(a)
+            return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan]))
+        return bool(torch.equal(a, b))
+
+    def err(a, b):
+        return float((a.double() - b.double()).abs().nan_to_num().max()) if a.numel() else 0.0
+
+    rules, quiet = loop.rules, loop.rules._replace(tol=0.0, floor=2 ** 30, max_iters=2 ** 30, stall_window=0)
+    S = dict(x=loop.x, r=loop.r, p=loop.p, x_best=loop.x_best, fs=loop.fs, is_=loop.is_, part_pap=loop.part_pap,
+             part_rr=loop.part_rr, part_rz=loop.part_rz, part_bb=loop.part_bb, A=loop.A, B=loop.B, TM=loop.TM,
+             G=loop.G, G2=loop.G2, H=loop.H, z=loop.z, ap=loop.ap)
+    S = {k_: (v.clone() if v is not None else None) for k_, v in S.items()}
+    S["kp"] = loop.matmul(S["p"]).contiguous()
+    steps = (
+        ("cg_dot", K10.cg_dot, K10.cg_dot_plain, ("part_pap", "ap"),
+         lambda f, S, R: f(S["p"], S["kp"], S["part_pap"], loop.scale, loop.noise, S["ap"])),
+        ("cg_step_x", K10.cg_step_x, K10.cg_step_x_plain, ("x", "r", "fs", "is_", "part_rr"),
+         lambda f, S, R: f(S["part_pap"], S["x"], S["r"], S["p"], S["ap"], S["fs"], S["is_"], S["part_rr"])),
+        ("cg_scale", K10.cg_scale, K10.cg_scale_plain, ("G2",),
+         lambda f, S, R: f(S["G"], loop.w, S["G2"])),
+        ("cg_precond", K10.cg_precond, K10.cg_precond_plain, ("z", "part_rz"),
+         lambda f, S, R: f(S["r"], S["H"], loop.p_noise, S["z"], S["part_rz"])),
+        ("cg_step_p", K10.cg_step_p, K10.cg_step_p_plain, ("p", "x_best", "fs", "is_", "A", "B", "TM"),
+         lambda f, S, R: f(S["part_rz"], S["part_rr"], S["x"], S["z"], S["p"], S["x_best"], S["fs"], S["is_"],
+                           S["A"], S["B"], S["TM"], R)),
+        ("cg_init", K10.cg_init, K10.cg_init_plain, ("fs", "is_"),
+         lambda f, S, R: f(S["part_bb"], S["part_rz"], S["fs"], S["is_"], R.max_iters)),
+    )
+    n, t = S["x"].shape
+    rp, nb = K10.cg_layout(n, t)
+    out = {}
+    for name, kernel, plain, mutable, call in steps:
+        if name == "cg_scale":
+            torch.mm(loop.U.T, S["r"], out=S["G"])
+        if name == "cg_precond":
+            torch.mm(loop.U, S["G2"], out=S["H"])
+        copy = lambda: {k_: (v.clone() if k_ in mutable and v is not None else v) for k_, v in S.items()}
+        Kk, Pp = copy(), copy()
+        call(kernel, Kk, rules)
+        call(plain, Pp, rules)
+        torch.cuda.synchronize()
+        keys = [k_ for k_ in mutable if Kk[k_] is not None]
+        better = int((K10.state_views(Kk["fs"], Kk["is_"]).res_best < K10.state_views(S["fs"], S["is_"]).res_best
+                      ).sum()) if name == "cg_step_p" else 0
+        Tk, Tp, Tg = copy(), copy(), copy()
+        out[name] = dict(
+            bit_equal=all(same(Kk[k_], Pp[k_]) for k_ in keys), max_abs_err=max(err(Kk[k_], Pp[k_]) for k_ in keys),
+            ms=timer(lambda: call(kernel, Tk, quiet), reps), plain_ms=timer(lambda: call(plain, Tp, quiet), 3),
+            graph_ms=graph_ms(lambda: call(kernel, Tg, quiet), 10),
+            **bound(*k10_cost(name, n, t, loop.U.shape[1], nb, better)))
+        if name == "cg_scale":
+            out[name]["library_ms"] = timer(lambda: torch.mul(loop.w[:, None], S["G"], out=Tp["G2"]), reps)
+        S.update({k_: Kk[k_] for k_ in mutable})
+    return out
+
+
+def cg_phase(dev, ds, expect, timer):
+    """Phase 11: K10, the CG body (csrc/cg.cu), and the deterministic exact backward.
+
+    Returns (kernel rows, launches on the main path, the record).
+    """
+    import dataclasses
+
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch import convert
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import cg as K10
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.linalg import cg as CG
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.pivoted_cholesky import precond_sqrt
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.models.exact_gp import rademacher
+    from simplex_gp_torch.ops.filter import apply_plan_any, build_plan_any
+    from simplex_gp_torch.utils import data
+
+    tg = np.load(TRAIN_GOLDEN)
+    cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                         num_probes=10)
+    model = simplex_gp_torch.SimplexGP(num_dims=18, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                       eval_cg_tolerance=0.01, device=dev)
+    dk = model.dk
+    x = torch.from_numpy(ds.train_x).to(dev)
+    y = torch.from_numpy(ds.train_y).to(dev)
+    n = x.shape[0]
+    init = {k: tg[f"init_{k}"] for k in RAW_NAMES}
+    best = convert.raw_params_from_numpy(convert.load_jax_params(PARAMS), device=dev)
+    z = torch.from_numpy(np.random.default_rng(int(tg["seed_init"])).choice(
+        [-1.0, 1.0], size=(n, cfg.num_probes)).astype(np.float32)).to(dev)
+    house = data.load_dataset("houseelectric")
+    cap = int(np.load(HOUSE_GOLDEN)["full_capacity"])
+    hcfg = dataclasses.replace(cfg, plan_capacity=cap)
+    hmodel = simplex_gp_torch.SimplexGP(num_dims=11, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=hcfg,
+                                        eval_cg_tolerance=0.01, device=dev)
+    hinit = init_raw_params(11, lengthscale=trainer.median_lengthscale(house.train_x))
+    xh, yh = torch.from_numpy(house.train_x).to(dev), torch.from_numpy(house.train_y).to(dev)
+    zh = rademacher((xh.shape[0], 10), torch.Generator(device=dev).manual_seed(7), dev)
+    record, rows = {}, {}
+
+    def system(m_, xs, ys, probes, capacity):
+        """The main path's CG problem at m_'s parameters: (matmul, rhs, P, shift) as _solve_system and
+        posterior_cache pose it (probes None: the eval solve)."""
+        with torch.no_grad():
+            params = m_.constrained()
+            ref = (xs * params["inv_ell"]).contiguous()
+            plan = build_plan_any(ref, dk, capacity)
+            P = mll.build_precond(dk, m_.bbmm, params, ref, xs.shape[0])
+            rhs = (ys - params["mean"])[:, None]
+            if probes is not None:
+                rhs = torch.cat([rhs, precond_sqrt(P, probes)], dim=-1)
+        return (lambda V: apply_plan_any(plan, V, dk)), rhs.contiguous(), P, (params["outputscale"], params["noise"])
+
+    model.load_raw(init)
+    hmodel.load_raw(hinit)
+    cases = (("elevators training CG (median init, c=11, record 100)", model, x, y, z, None, cfg.cg_tolerance, 100),
+             ("houseelectric eval CG (median init, capacity 32,768, c=1)", hmodel, xh, yh, None, cap, 0.01, 0))
+    print("cg 11.1: each K10 kernel vs its plain twin from one saved iteration state")
+    for tag, m_, xs, ys, probes, capacity, tol, m in cases:
+        mv, rhs, P, shift = system(m_, xs, ys, probes, capacity)
+        loop = CG.CGLoop(mv, rhs, tol=tol, max_iters=500, precond=P, tridiag_m=m, shift=shift)
+        for _ in range(3):
+            loop.iteration()
+        pairs = k10_pairs(loop, timer, 20)
+        for name, row in pairs.items():
+            expect(row["bit_equal"], f"{tag}: {name} == plain bit for bit (max |diff| {row['max_abs_err']:.3e})")
+        print(f"    {tag}: " + "; ".join(f"{k_} {v['ms']:.4f} ms (graph {v['graph_ms']:.4f}, plain "
+                                         f"{v['plain_ms']:.3f}, bound {v['bound_ms']:.4f})"
+                                         for k_, v in pairs.items()))
+        record[tag] = dict(kernels=pairs)
+        if m_ is model:
+            rows = pairs  # the JSON rows: the training CG's shape, the step's own
+
+        # 11.2 the graph solve against the eager kernel loop, in turns; the capture's cost; launches an iteration
+        runs = []
+        for graph in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = CG.cg_solve(mv, rhs, tol=tol, max_iters=500, precond=P, tridiag_m=m, shift=shift, graph=graph)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            runs.append(dict(graph=graph, ms=ms, iterations=res.iterations, ms_per_iteration=ms / res.iterations,
+                             x=res.x.clone()))
+        equal = all(r_["iterations"] == runs[0]["iterations"] and torch.equal(r_["x"], runs[0]["x"]) for r_ in runs)
+        expect(equal, f"{tag}: the graph solve == the eager kernel loop (iterations "
+               f"{[r_['iterations'] for r_ in runs]}, x bit for bit)")
+        loop = CG.CGLoop(mv, rhs, tol=tol, max_iters=500, precond=P, tridiag_m=m, shift=shift)
+        counters = (K10.cg_dot, K10.cg_step_x, K10.cg_scale, K10.cg_precond, K10.cg_step_p, *chain_kernels())
+        for fn in counters:
+            fn.launches = 0
+        loop.iteration()
+        per_it = {fn.__name__: fn.launches for fn in counters}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph_obj = CG.capture(loop.iteration)
+        torch.cuda.synchronize()
+        capture_ms = 1e3 * (time.perf_counter() - t0)
+        del graph_obj
+        mvm_ms = graph_ms(lambda: mv(loop.p), 10)
+        gemm_ms = [graph_ms(lambda: torch.mm(loop.U.T, loop.r, out=loop.G), 10),
+                   graph_ms(lambda: torch.mm(loop.U, loop.G2, out=loop.H), 10)]
+        it_bound = bound(cg_iteration_bytes(rhs.shape[0], rhs.shape[1], P.U.shape[1]), 0)
+        for r_ in runs:
+            del r_["x"]
+        record[tag].update(solves=runs, capture_ms=capture_ms, mvm_graph_ms=mvm_ms, u_gemms_graph_ms=gemm_ms,
+                           launches_per_iteration=dict(per_it, gemms=2), iteration_bound_ms=it_bound["bound_ms"])
+        print(f"    {tag}: " + "; ".join(f"{'graph' if r_['graph'] else 'eager'} {r_['ms']:.1f} ms / "
+                                         f"{r_['iterations']} it = {r_['ms_per_iteration']:.4f}" for r_ in runs)
+              + f"; capture {capture_ms:.2f} ms; MVM {mvm_ms:.4f} ms, U^T r and U (w U^T r) "
+              f"{gemm_ms[0]:.4f} / {gemm_ms[1]:.4f} ms (graph); bound {it_bound['bound_ms']:.4f} ms "
+              f"an iteration; launches an iteration {per_it} + 2 GEMMs")
+        del loop, mv, rhs, P
+
+    print("cg 11.3: two NLML gradients bit for bit (the exact backward on the join plan's row lists)")
+    grads_equal = {}
+    for tag, m_, xs, ys, probes, raw in (("elevators, median init", model, x, y, z, init),
+                                         ("elevators, model_best.pkl", model, x, y, z, best),
+                                         ("houseelectric, median init, capacity 32,768", hmodel, xh, yh, zh, hinit)):
+        m_.load_raw(raw)
+        outs = []
+        for _ in range(2):
+            m_.zero_grad(set_to_none=True)
+            loss = m_.nlml(xs, ys, probes=probes)
+            loss.backward()
+            outs.append((loss.detach().clone(), torch.cat([getattr(m_, k_).grad.reshape(-1) for k_ in RAW_NAMES])))
+        eq = torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+        grads_equal[tag] = dict(bit_equal=eq, grad_rel_diff=rel(outs[1][1], outs[0][1]))
+        expect(eq, f"{tag}: NLML and raw gradients twice, bit-equal (rel diff {grads_equal[tag]['grad_rel_diff']:.3e})")
+    record["gradients_repeat"] = grads_equal
+
+    print("cg 11.4: two houseelectric evals after one Adam step from the median init")
+    evals = []
+    for _ in range(2):
+        hmodel.load_raw(hinit)
+        opt = torch.optim.Adam(hmodel.parameters(), lr=0.1)
+        train_step(hmodel, opt, xh, yh, zh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = hmodel.posterior_cache(xh, yh, generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        evals.append((cache["cg_iters"], cache["alpha"].clone(), 1e3 * (time.perf_counter() - t0)))
+        del cache
+    same_eval = evals[0][0] == evals[1][0] and torch.equal(evals[0][1], evals[1][1])
+    expect(same_eval, f"two houseelectric evals after one Adam step: CG iterations {[e[0] for e in evals]}, "
+           f"alpha bit-equal")
+    record["houseelectric_evals_after_a_step"] = dict(cg_iters=[e[0] for e in evals], ms=[e[2] for e in evals],
+                                                      alpha_bit_equal=same_eval)
+    print(f"    CG iterations {[e[0] for e in evals]}, posterior_cache {[round(e[2], 1) for e in evals]} ms")
+
+    print("cg 11.5: launches on the main path (one elevators training step, one posterior_cache)")
+    k10 = (K10.cg_dot, K10.cg_step_x, K10.cg_scale, K10.cg_precond, K10.cg_step_p, K10.cg_init)
+    model.load_raw(init)
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+    train_step(model, opt, x, y, z)  # warm
+    model.load_raw(init)
+    for fn in (*k10, K.lattice_apply, K.lattice_apply_cols, K.join_rows):
+        fn.launches = 0
+    replays = CG.cg_solve.graph_replays
+    train_step(model, opt, x, y, z)
+    step_k3 = K.lattice_apply.launches
+    model.load_raw(best)
+    model.posterior_cache(x, y, generator=torch.Generator(device=dev).manual_seed(0))
+    launches = {fn.__name__: fn.launches for fn in k10}
+    record["main_path"] = dict(k10_launches=launches, graph_replays=CG.cg_solve.graph_replays - replays,
+                               backward_k3_launches=step_k3, backward_k9_launches=K.lattice_apply_cols.launches,
+                               join_rows=K.join_rows.launches)
+    print(f"    {json.dumps(record['main_path'])}")
+    expect(all(v_ > 0 for v_ in launches.values()), "every K10 kernel launched on the main path")
+    expect(step_k3 == 0, f"the training step's backward ran no atomic K3 ({step_k3} launches)")
     return rows, launches, record
 
 
@@ -2966,8 +3294,16 @@ def main(argv=None) -> int:
     print(f"chain phase: {time.perf_counter() - t_chain:.1f} s")
     print("chain: " + json.dumps(chain))
 
-    # K10, the CG body, stays plain torch ops: one iteration's time (the MVM included) from the stage
-    # times of 4.5 and 6.5, against the bound of its vector updates alone.
+    t_cg = time.perf_counter()
+    cg_rows, cg_launches, cg_record = cg_phase(dev, ds, expect, cuda_ms)
+    for name, row in cg_rows.items():
+        rows[name] = {"library_ms": None, "shape": f"elevators training CG, n={n}, c=11", **row}
+        launches[name] = cg_launches[name]
+    print(f"cg phase: {time.perf_counter() - t_cg:.1f} s")
+    print("cg: " + json.dumps(cg_record))
+
+    # One iteration's time (the MVM included) from the stage times of 4.5 and 6.5, against the bound of
+    # K10's vector updates and the Woodbury solve's two reads of U.
     k10 = {}
     for tag, stage_ms, iters, n_, c_ in (
             ("elevators training, c=11", training["stages"]["cg"], training["stages"]["cg_iters"], n, 11),

@@ -49,7 +49,11 @@
 //          the live rows only;
 //   slice: K3's, with its guard.
 // Each window re-reads the row lists; that costs ceil(c / w) plan reads
-// against one, for w / c of the tables.
+// against one, for w / c of the tables.  The exact backward of the NLML and
+// of the filter (ops/filter.py) runs K9 too, one window of all its columns
+// (11 on the training path), forward and transposed (the blurs in reverse
+// order), keeping the blurred table for K5: K3's operator without its
+// atomics.
 //
 // K11b, the sharded apply (apply_plan_join's sharded branch, ops/lattice.py
 // :499-521): each of P ranks holds n_loc points of a global plan of M rows.
@@ -257,7 +261,10 @@ extern "C" int sgp_join_rows(const int* sorted, const long long* perm, const flo
 // v and out are (n, c) row-major; nb is the plan's (dp1, M, 2r) neighbour
 // array; n_lattice its live count; guard (nullable) as for K3's slice.  ta
 // and tb hold M * chunk floats each, part np_max * chunk; none need be
-// zeroed.
+// zeroed.  transpose: the axis blurs in reverse order (S^T B^T S, the exact
+// backward's transposed apply).  After the last window its blurred table is
+// in ta when dp1 is even, else in tb (the backward's one window of all c
+// columns keeps it).
 extern "C" int sgp_lattice_apply_cols(const int* sp, const float* sw, const int* cnt, const int* long_rows,
                                       const int* long_first, const int* n_long, const int* piece_row,
                                       const int* piece_start, const int* n_pieces, const int* mid_rows,
@@ -265,7 +272,7 @@ extern "C" int sgp_lattice_apply_cols(const int* sp, const float* sw, const int*
                                       const int* n_lattice, const int* seg, const float* w, const int* nb,
                                       const float* v, int n, int dp1, int c, int chunk, int M,
                                       const float* taps_host, int order, float norm, const int* guard, float* ta,
-                                      float* tb, float* part, float* out, void* stream) {
+                                      float* tb, float* part, float* out, int transpose, void* stream) {
   if (2 * order + 1 > SGP_MAX_TAPS || chunk <= 0) return (int)cudaErrorInvalidValue;
   if (n <= 0 || c <= 0 || M <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
@@ -278,7 +285,8 @@ extern "C" int sgp_lattice_apply_cols(const int* sp, const float* sw, const int*
     const int wd = c - c0 < chunk ? c - c0 : chunk;
     if ((err = sgp_splat_rows(r, SgpWindow{v, c, c0}, wd, M, ta, part, st)) != cudaSuccess) return (int)err;
     float *a = ta, *b = tb;
-    for (int j = 0; j < dp1; ++j) {
+    for (int jj = 0; jj < dp1; ++jj) {
+      const int j = transpose ? dp1 - 1 - jj : jj;
       if ((err = sgp_live_blur(a, b, nb + j * nbs, taps, M, wd, order, n_lattice, st)) != cudaSuccess)
         return (int)err;
       float* t = a;

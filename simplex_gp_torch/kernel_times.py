@@ -4,12 +4,17 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --count-splat
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --wide-deriv
     python simplex_gp_torch/kernel_times.py --sharded-f64
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --cg
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
 ``lattice_deriv_grad`` at the shapes of chip_smoke.py's phases 6.2 and 5.3
 (:func:`wide_deriv`); the fourth measures how far K11b and K3's float32
-atomic splats land from the float64 operator (:func:`sharded_f64`).
+atomic splats land from the float64 operator (:func:`sharded_f64`); the
+fifth one CG iteration at the elevators and houseelectric training shapes
+and the houseelectric eval shape, K10 host-launched and replayed, or an
+older tree's eager loop
+(:func:`cg_iterations`).
 
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -312,6 +318,90 @@ def sharded_f64(repeats: int = 150) -> dict:
     return out
 
 
+def cg_iterations(repeats: int = 2) -> dict:
+    """K10: one CG iteration, the MVM included, at the elevators and houseelectric training shapes and the
+    houseelectric eval shape, as ``_solve_system`` and ``posterior_cache`` pose them.
+
+    Seeded synthetic stand-ins at their median-init lengthscales (elevators 10,623 x 18 with 10 probes,
+    c = 11 and the 100-step record; houseelectric 1,311,539 x 11, capacity 32,768, with the same probes
+    and record, or c = 1), the chain plan,
+    the rank-100 preconditioner.  A tree whose cg_solve takes ``shift`` runs K10 host-launched (eager)
+    and replayed from a CUDA graph; an older tree runs its eager torch-op loop.  Host clock around each
+    solve, synchronised; ms per iteration = ms / iterations.  Then one more solve (the first mode) under
+    ``torch.profiler``: the device time of each kernel (or op) over the whole solve, the largest ten.
+    """
+    import inspect
+
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.linalg import cg as CG
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.pivoted_cholesky import precond_solve, precond_sqrt
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.ops.filter import apply_plan_any, build_plan_any
+    from simplex_gp_torch.utils import data
+
+    dev = torch.device("cuda:0")
+    fused = "shift" in inspect.signature(CG.cg_solve).parameters
+    out = {"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                  capture_output=True, text=True).stdout.strip(),
+           "tree": simplex_gp_torch.__file__, "k10": fused}
+    elev = data.prepare_dataset(data._synthetic_uci("elevators"), "elevators")
+    house = data.load_dataset("houseelectric")
+    for tag, xs, ys, probes, cap, tol, m in (
+            ("elevators training CG, c=11", elev.train_x, elev.train_y, 10, None, 1.0, 100),
+            ("houseelectric training CG, c=11", house.train_x, house.train_y, 10, 32768, 1.0, 100),
+            ("houseelectric eval CG, c=1", house.train_x, house.train_y, 0, 32768, 0.01, 0)):
+        d = xs.shape[1]
+        cfg = mll.BBMMConfig(precond_rank=100, num_probes=10, plan_capacity=cap)
+        model = simplex_gp_torch.SimplexGP(num_dims=d, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                           device=dev)
+        model.load_raw(init_raw_params(d, lengthscale=trainer.median_lengthscale(xs)))
+        x, y = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+        with torch.no_grad():
+            params = model.constrained()
+            ref = (x * params["inv_ell"]).contiguous()
+            plan = build_plan_any(ref, model.dk, cap)
+            P = mll.build_precond(model.dk, cfg, params, ref, x.shape[0])
+            rhs = (y - params["mean"])[:, None]
+            if probes:
+                z = torch.from_numpy(np.random.default_rng(1).choice([-1.0, 1.0], size=(x.shape[0], probes))
+                                     .astype(np.float32)).to(dev)
+                rhs = torch.cat([rhs, precond_sqrt(P, z)], dim=-1)
+            s, noise = params["outputscale"], params["noise"]
+            if fused:
+                modes = {"eager": dict(graph=False), "graph": dict(graph=True)}
+                solve = lambda kw: CG.cg_solve(lambda V: apply_plan_any(plan, V, model.dk), rhs, tol=tol,
+                                               max_iters=500, precond=P, tridiag_m=m, shift=(s, noise), **kw)
+            else:
+                modes = {"eager": {}}
+                solve = lambda kw: CG.cg_solve(lambda V: s * apply_plan_any(plan, V, model.dk) + noise * V, rhs,
+                                               tol=tol, max_iters=500, precond=lambda V: precond_solve(P, V),
+                                               tridiag_m=m)
+            solve(next(iter(modes.values())))  # warm-up
+            runs = []
+            for _ in range(repeats):
+                for name, kw in modes.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = solve(kw)
+                    torch.cuda.synchronize()
+                    ms = 1e3 * (time.perf_counter() - t0)
+                    runs.append(dict(mode=name, ms=ms, iterations=int(res.iterations), ms_per_iteration=ms /
+                                     int(res.iterations)))
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                solve(next(iter(modes.values())))
+                torch.cuda.synchronize()
+            by_kernel = sorted(((e.key[:60], e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                                if e.self_device_time_total > 0), key=lambda r: -r[1])
+        out[tag] = dict(solves=runs, profiled_device_ms=sum(r[1] for r in by_kernel), top_kernels_ms=by_kernel[:10])
+        del plan, P, rhs, model, x, y
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main() -> dict:
     import simplex_gp_torch
     from simplex_gp_torch.kernels import lattice as K
@@ -361,6 +451,8 @@ if __name__ == "__main__":
 
     if "--count-splat" in sys.argv[1:]:
         count_splat()
+    elif "--cg" in sys.argv[1:]:
+        cg_iterations()
     elif "--wide-deriv" in sys.argv[1:]:
         wide_deriv()
     elif "--sharded-f64" in sys.argv[1:]:

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "sgp_lattice_slice_blocks": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
     "sgp_join_rows": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "sgp_lattice_apply_cols": [*[_P] * 11, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F,
-                               _P, _P, _P, _P, _P, _P],
+                               _P, _P, _P, _P, _P, _I, _P],
     "sgp_pivot_column": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "sgp_lattice_filter_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     "sgp_filter_once": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _F, _I, _I,
@@ -72,6 +72,12 @@ _SIGNATURES = {
     "sgp_chain_slice": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "sgp_chain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
                         _P, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P],
+    "sgp_cg_dot": [*[_P] * 5, _I, _I, _I, _I, _P, _P],
+    "sgp_cg_step_x": [*[_P] * 5, _I, _I, _I, _I, *[_P] * 4],
+    "sgp_cg_scale": [_P, _P, _I, _I, _P, _P],
+    "sgp_cg_precond": [*[_P] * 4, _I, _I, _I, _I, _P, _P],
+    "sgp_cg_step_p": [*[_P] * 6, _I, _I, _I, _I, *[_P] * 5, _I, _F, _I, _I, _I, _I, _P],
+    "sgp_cg_init": [_P, _P, _I, _I, _P, _P, _I, _P],
 }
 
 _lib = None

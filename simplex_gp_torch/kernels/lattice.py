@@ -12,7 +12,8 @@ K9 and K7 run on a join plan's row lists (:class:`JoinRows`, built by
 :func:`join_rows`): each row's contributions in row order, summed by the
 sort chain's splat (K3'b, ``kernels/chain.py``) with no atomics, then a
 blur over the live rows only.  Their plain versions sum in the kernels'
-order, so the two agree bit for bit.
+order, so the two agree bit for bit.  The exact backward runs K9 too, one
+window of all its columns, forward and transposed, keeping the table.
 
 Integer hashes are int32 wrapping mod 2^32, as XLA's are; PyTorch has no
 wrapping int32 product, so the plain versions compute in int64 and mask.
@@ -535,24 +536,34 @@ def _slice_sums(table, seg_ids, weights):
     return out
 
 
-def apply_cols_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk, rows=None):
+def _require_one_window(what: str, c: int, chunk: int, return_table: bool) -> None:
+    if return_table and c > chunk:
+        raise ValueError(f"{what}: return_table needs one window: {c} columns against a window of {chunk}")
+
+
+def apply_cols_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk, rows=None, transpose=False,
+                     return_table=False):
     """Plain K9 (lattice_filter_wide_chunked, filter.py:65-84): the apply of each ``chunk``-column window.
 
     In the kernel's order: the row-order splat of the window
     (:func:`~simplex_gp_torch.kernels.chain.chain_splat_plain` on the row
-    lists ``rows``, built when None), the d+1 blurs, the slice summed in
-    vertex order; all NaN when n_lattice passes the M table rows (K3's
-    guard).  Columns do not interact, so the result does not depend on
-    ``chunk``.  (JAX pads v to a multiple of the chunk and applies each
-    block; the padding columns are dropped, so the output is the same.)
+    lists ``rows``, built when None), the d+1 blurs (in reverse order with
+    ``transpose``), the slice summed in vertex order; all NaN when n_lattice
+    passes the M table rows (K3's guard).  Columns do not interact, so the
+    result does not depend on ``chunk``.  (JAX pads v to a multiple of the
+    chunk and applies each block; the padding columns are dropped, so the
+    output is the same.)  ``return_table`` (c <= chunk: one window) also
+    returns the blurred (M, c) table.
     """
+    _require_one_window("apply_cols_plain", v.shape[1], chunk, return_table)
     rows = join_rows_plain(seg_ids, weights, neighbors, n_lattice) if rows is None else rows
     c = v.shape[1]
     out = v.new_empty((v.shape[0], c))
     for c0 in range(0, c, chunk):
-        table = _blur_plain(chain_splat_plain(rows, v[:, c0:c0 + chunk]), neighbors, taps, False)
+        table = _blur_plain(chain_splat_plain(rows, v[:, c0:c0 + chunk]), neighbors, taps, transpose)
         out[:, c0:c0 + chunk] = _slice_sums(table, seg_ids, weights) * slice_norm
-    return torch.where(n_lattice <= neighbors.shape[1], out, float("nan"))
+    out = torch.where(n_lattice <= neighbors.shape[1], out, float("nan"))
+    return (out, table) if return_table else out
 
 
 def _rows_args(rows: JoinRows) -> tuple:
@@ -571,7 +582,8 @@ def _require_rows(what: str, rows: JoinRows, N: int, M: int) -> None:
                          f"rows do not fit a plan of {N} contributions and {M} rows")
 
 
-def lattice_apply_cols(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk, rows=None):
+def lattice_apply_cols(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk, rows=None,
+                       transpose=False, return_table=False):
     """K9: K3's ``slice_norm * S^T B S v`` of a wide v (n, c), ``chunk`` columns at a time.
 
     ``rows`` are the plan's :class:`JoinRows` (built here when None; a
@@ -581,9 +593,15 @@ def lattice_apply_cols(seg_ids, weights, neighbors, n_lattice, v, taps, slice_no
     blurs stride over the live rows only and the slice writes the window of
     the output in place (row stride c).  No atomics, so two runs give the
     same bits, :func:`apply_cols_plain`'s.  The guard is K3's.
+    ``transpose`` blurs the axes in reverse order (S^T B^T S, as K3's);
+    ``return_table`` (c <= chunk: one window) also returns the blurred
+    (M, c) table, K5's input, whose rows past the live count are undefined
+    (finite: past the capacity the blurs do not run and the table is the
+    splat's or zero).
     """
     if not v.is_cuda:
-        return apply_cols_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk, rows)
+        return apply_cols_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, chunk, rows, transpose,
+                                return_table)
     build.require("lattice_apply_cols", (seg_ids, torch.int32), (weights, torch.float32),
                   (neighbors, torch.int32), (n_lattice, torch.int32), (v, torch.float32))
     n, dp1 = seg_ids.shape
@@ -593,22 +611,25 @@ def lattice_apply_cols(seg_ids, weights, neighbors, n_lattice, v, taps, slice_no
     if v.shape[0] != n or len(taps) != 2 * order + 1 or chunk < 1:
         raise ValueError(f"lattice_apply_cols: v {tuple(v.shape)} / {len(taps)} taps / chunk {chunk} do "
                          f"not fit a plan of {n} points and order {order}")
+    _require_one_window("lattice_apply_cols", c, chunk, return_table)
     rows = join_rows(seg_ids, weights, neighbors, n_lattice) if rows is None else rows
     _require_rows("lattice_apply_cols", rows, n * dp1, M)
     dev = v.device
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
     w = min(chunk, c)
     ta = torch.empty((M, w), dtype=torch.float32, device=dev)
-    tb = torch.empty((M, w), dtype=torch.float32, device=dev)
+    tb = (torch.zeros if return_table else torch.empty)((M, w), dtype=torch.float32, device=dev)
     part = torch.empty((rows.piece_row.shape[0], w), dtype=torch.float32, device=dev)
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     guard = n_lattice.data_ptr() if M < n * dp1 else None
     rc = build.library().sgp_lattice_apply_cols(
         *_rows_args(rows), seg_ids.data_ptr(), weights.data_ptr(), neighbors.data_ptr(), v.data_ptr(), n, dp1, c,
         chunk, M, ctypes.addressof(taps_host), order, float(slice_norm), guard, ta.data_ptr(), tb.data_ptr(),
-        part.data_ptr(), out.data_ptr(), build.stream())
+        part.data_ptr(), out.data_ptr(), int(transpose), build.stream())
     build.check(rc, "lattice_apply_cols")
     lattice_apply_cols.launches += 1
+    if return_table:
+        return out, (ta if dp1 % 2 == 0 else tb)
     return out
 
 

@@ -14,8 +14,11 @@ closed form (_iql_bwd, :243-272), with no nested autograd, in one of two
 ways (``BBMMConfig.grad_mode``):
   * "exact": one forward apply of V that keeps its table, one transposed
     apply of s U, and K5 -- on a join plan of the same positions, built
-    afresh, as JAX's backward filters afresh (mll.py:262-265; the CG's
-    chain plan has no transpose and keeps no table);
+    afresh with its row lists, as JAX's backward filters afresh
+    (mll.py:262-265; the CG's chain plan has no transpose and keeps no
+    table).  The two applies are K9's over one window (the row-order splat
+    and the live-row blur), so the gradient repeats bit for bit, as JAX's
+    autodiff through the sort chain does;
   * "deriv_filter" (the reference's gradient, JAX's ``lattice_filter``):
     K V by the one-shot filter K4, as JAX's forward inside the vjp runs it,
     and the position gradient from the derivative-tap filter K7 with the
@@ -75,7 +78,7 @@ from ..ops.filter import (
     lattice_filter_exact_grad,
 )
 from ..ops.kernels import DiscretizedKernel, MixtureKernel
-from ..ops.lattice import ChainPlan, build_plan_sharded_join
+from ..ops.lattice import ChainPlan, build_plan_sharded_join, wide_plan
 from .cg import cg_solve
 from .lanczos import logdet_from_cg_tridiag, slq_logdet
 from .pivoted_cholesky import (
@@ -198,15 +201,15 @@ def _solve_system(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torc
 
     n = _n_global(config, x.shape[0])
     P = build_precond(dk, config, params, ref, n)
-    precond = None if P is None else (lambda V: precond_solve(P, V, axis))
     m = min(config.max_lanczos_iterations, n)
     if config.slq_mode == "cg":
         # One preconditioned CG over [y | P^{1/2} z] gives every solve and the
-        # SLQ tridiagonals; log|K_hat| = log|P| + quadrature.
+        # SLQ tridiagonals; log|K_hat| = log|P| + quadrature.  K10 applies the
+        # shift s K + noise I and the Woodbury solve of P itself.
         b_probes = probes if P is None else precond_sqrt(P, probes, axis)
-        res = cg_solve(mv, torch.cat([y[:, None], b_probes], dim=-1), tol=config.cg_tolerance,
-                       max_iters=config.max_cg_iterations, precond=precond,
-                       tridiag_m=min(m, config.max_cg_iterations), axis=axis)
+        res = cg_solve(lambda V: apply_plan_any(plan, V, dk, axis=axis), torch.cat([y[:, None], b_probes], dim=-1),
+                       tol=config.cg_tolerance, max_iters=config.max_cg_iterations, precond=P,
+                       tridiag_m=min(m, config.max_cg_iterations), axis=axis, shift=(s, noise))
         z_norm2 = (probes * probes).sum(dim=0)
         logdet = logdet_from_cg_tridiag(res.alphas[:, 1:], res.betas[:, 1:], res.tmask[:, 1:],
                                         z_norm2 if axis is None else axis.psum(z_norm2))
@@ -216,8 +219,9 @@ def _solve_system(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torc
         probes_right = probes if P is None else precond_solve(P, b_probes, axis)
         return _System(res.x, logdet, probes_right, plan, res.iterations, res.residual_norm)
 
-    res = cg_solve(mv, torch.cat([y[:, None], probes], dim=-1), tol=config.cg_tolerance,
-                   max_iters=config.max_cg_iterations, precond=precond, axis=axis)
+    res = cg_solve(lambda V: apply_plan_any(plan, V, dk, axis=axis), torch.cat([y[:, None], probes], dim=-1),
+                   tol=config.cg_tolerance, max_iters=config.max_cg_iterations, precond=P, axis=axis,
+                   shift=(s, noise))
     if P is None:
         logdet = slq_logdet(mv, probes, m, axis)
     else:
@@ -271,7 +275,7 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
             if kept:
                 plan = ctx.plan_type(*kept)
             else:  # the same positions and capacity as the CG's chain plan; an overflow trips both
-                plan = build_join_plan_any(ref.detach().contiguous(), ctx.dk, ctx.capacity)
+                plan = wide_plan(build_join_plan_any(ref.detach().contiguous(), ctx.dk, ctx.capacity))
             KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True, axis=ctx.axis)
             # d/dref of s * K(ref) V against U: K5 with the cotangent s U.
             _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f, ctx.axis)

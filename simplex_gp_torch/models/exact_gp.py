@@ -35,7 +35,6 @@ from torch import nn
 
 from ..linalg.cg import cg_solve
 from ..linalg.mll import BBMMConfig, build_precond, lattice_nlml
-from ..linalg.pivoted_cholesky import precond_solve
 from ..ops.filter import apply_plan_any, build_plan_any, lattice_filter_rect, make_wide_filter
 from ..ops.kernels import fit_mixture_weights_subset, matern_kernel, mixture_kernel, rbf_kernel
 from .components import constrain, init_raw_params
@@ -216,14 +215,15 @@ class SimplexGP(_RawParams):
         params = self.constrained()
         ref = x * params["inv_ell"]
         plan = build_plan_any(ref, self.dk, self.bbmm.plan_capacity)
-        mv = self._khat_mv(params, plan)
         yc = y - params["mean"]
 
         P = build_precond(self.dk, self.bbmm, params, ref, x.shape[0])
-        precond = None if P is None else (lambda V: precond_solve(P, V))
+        # One plan and hundreds of iterations at houseelectric: replayed from a CUDA graph on the card (the
+        # training CG's 10-13 iterations do not repay the capture).
         sol = cg_solve(
-            mv, yc[:, None], tol=self.eval_cg_tolerance,
-            max_iters=self.bbmm.max_cg_iterations, precond=precond,
+            lambda V: apply_plan_any(plan, V, self.dk), yc[:, None], tol=self.eval_cg_tolerance,
+            max_iters=self.bbmm.max_cg_iterations, precond=P,
+            shift=(params["outputscale"], params["noise"]), graph=True,
         )
         alpha = sol.x[:, 0]
 

@@ -43,15 +43,17 @@ from typing import Optional
 
 import torch
 
-from ..kernels.lattice import lattice_deriv_grad, lattice_filter_grad
+from ..kernels.lattice import JoinRows, lattice_deriv_grad, lattice_filter_grad
 from .kernels import DiscretizedKernel, MixtureKernel
 from .lattice import (
     SLICE_NORM,
     ChainPlan,
     MixturePlan,
+    WidePlan,
     apply_plan_chain,
     apply_plan_cols,
     apply_plan_join,
+    apply_plan_rows,
     apply_plan_mixture,
     build_plan,
     build_plan_join,
@@ -68,8 +70,10 @@ from .lattice import (
 # (filter.py:54, :133).
 _WIDE_COLS = 16
 # Above this many contribution rows n(d+1) a wide block is applied in
-# _WIDE_CHUNK-column windows (filter.py:61-62): two (M, 101) tables of the
-# houseelectric eval would take 16 GB, two (M, 8) ones 1.3 GB.
+# _WIDE_CHUNK-column blocks (filter.py:61-62), which K9 takes K9_WINDOW = 32
+# columns at a time (ops/lattice.py): two (M, 101) tables of the
+# houseelectric eval would take 16 GB, K9's two (M, 32) ones 5.0 GB at the
+# [train; val] plan's 19.7M rows (JAX's two (M, 8) blocks 1.3 GB).
 _JOIN_MAX_ROWS = 4 * 1024 * 1024
 _WIDE_CHUNK = 8
 
@@ -121,13 +125,17 @@ def apply_plan_any(plan, V: torch.Tensor, dk, transpose: bool = False, return_ta
 
     No outputscale or noise.  A ChainPlan applies by K3'b-d (apply_plan,
     lattice.py:1305-1314) and has neither a transpose nor a table to
-    return; a mixture applies all its components by K12 (filter.py:196-204);
-    the sharded engine takes no mixture.
+    return; a WidePlan (a join plan with its row lists, the exact
+    backward's) by K9 over one window of all V's columns, with no atomics; a
+    mixture applies all its components by K12 (filter.py:196-204); the
+    sharded engine takes no mixture.
     """
     if isinstance(plan, ChainPlan):
         if transpose or return_table or axis is not None:
             raise NotImplementedError("a chain plan applies forward on one device: no transpose, table or axis")
         return apply_plan_chain(plan, V, dk.coeffs)
+    if isinstance(plan, WidePlan):
+        return apply_plan_rows(plan, V, dk.coeffs, transpose, return_table)
     if isinstance(dk, MixtureKernel):
         if axis is not None:
             raise NotImplementedError("the sharded filter takes one DiscretizedKernel, not a mixture")
@@ -162,9 +170,10 @@ def lattice_filter_wide_chunked(src: torch.Tensor, ref: torch.Tensor, dk: Discre
                                 capacity: Optional[int] = None) -> torch.Tensor:
     """K(ref, ref) @ src for a wide src at very large n (filter.py:65-84): one plan, K9.
 
-    Peak memory is the plan and two (M, _WIDE_CHUNK) tables, whatever the
-    column count.  No gradient (the differentiable route is
-    :func:`lattice_filter_exact_grad`, which takes the same branch).
+    Peak memory is the plan and K9's two (M, K9_WINDOW) tables (32 columns,
+    four of JAX's blocks), whatever the column count.  No gradient (the
+    differentiable route is :func:`lattice_filter_exact_grad`, which takes
+    the same branch).
     """
     return apply_plan_cols(build_join_plan_any(ref, dk, capacity), src, dk.coeffs, _WIDE_CHUNK)
 
@@ -211,12 +220,28 @@ def mixture_position_grad(plan: MixturePlan, ref: torch.Tensor, dk: MixtureKerne
     return (scale[:, None, None] * stacked.reshape(J, n, d)).sum(dim=0)
 
 
+def _plan_tensors(plan) -> tuple:
+    """A plan's tensors, flat (for ``save_for_backward``): a WidePlan's four fields, then its rows."""
+    return (*plan[:4], *plan.rows) if isinstance(plan, WidePlan) else tuple(plan)
+
+
+def _plan_from_tensors(plan_type, tensors) -> tuple:
+    """The plan of ``plan_type`` that :func:`_plan_tensors` flattened."""
+    if plan_type is WidePlan:
+        return WidePlan(*tensors[:4], JoinRows(*tensors[4:]))
+    return plan_type(*tensors)
+
+
 def filter_backward(plan, ref: torch.Tensor, dk, src: torch.Tensor, g: torch.Tensor, table_f: torch.Tensor,
                     axis=None):
-    """(grad_src, grad_ref) of ``<g, K(ref) @ src>``: transposed K3, then K5.
+    """(grad_src, grad_ref) of ``<g, K(ref) @ src>``: the transposed apply, then K5.
 
     ``table_f`` is the blurred table of the forward apply of ``src`` on
-    ``plan`` (``apply_plan_any(..., return_table=True)``).  With ``axis``
+    ``plan`` (``apply_plan_any(..., return_table=True)``).  A single
+    kernel's plan on one device is a :class:`WidePlan`: the transposed apply
+    is K9's on its row lists, with no atomics, so the gradient repeats bit
+    for bit (K5 reads only live rows, and the row-order splat writes every
+    one).  A bare join plan takes K3's transposed apply.  With ``axis``
     the plan is sharded: the transposed apply is K11b's, which splats every
     rank's g, and K5 runs on this rank's points against the two global
     tables, so grad_ref holds this rank's rows of the whole gradient.  A
@@ -236,12 +261,14 @@ def filter_backward(plan, ref: torch.Tensor, dk, src: torch.Tensor, g: torch.Ten
 class LatticeFilterExactGrad(torch.autograd.Function):
     """K(ref, ref) @ src with its exact gradient in both src and ref.
 
-    Forward: one plan build and one apply that keeps its blurred table, or,
-    for a wide src above ``_JOIN_MAX_ROWS``, K9, which keeps none.
-    Backward: :func:`filter_backward` on the same plan, so the positions are
-    not hashed twice; after K9 it runs per ``_WIDE_CHUNK``-column window
-    (each window's apply again, for its table), and the position gradients
-    of the windows add up.  With ``axis`` (a DataAxis; src and ref this
+    Forward: one plan build (with its row lists: a :class:`WidePlan`) and
+    one apply that keeps its blurred table (K9 over one window of all
+    columns), or, for a wide src above ``_JOIN_MAX_ROWS``, K9 by windows,
+    which keeps none.  Backward: :func:`filter_backward` on the same plan,
+    so the positions are not hashed twice and no apply adds with atomics;
+    after the windowed K9 it runs per ``_WIDE_CHUNK``-column block (each
+    block's apply again, for its table), and the position gradients of the
+    blocks add up.  With ``axis`` (a DataAxis; src and ref this
     rank's rows) the plan is the sharded one and the applies are K11b's, the
     transposed one included, as JAX's autodiff transposes the collectives
     of filter_sharded (shard_filter.py:146-155); no capacity, no chunking.
@@ -260,7 +287,7 @@ class LatticeFilterExactGrad(torch.autograd.Function):
             plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
             out, table_f = apply_plan_any(plan, src, dk, return_table=True, axis=axis)
         else:
-            plan = build_join_plan_any(ref, dk, capacity)
+            plan = wide_plan(build_join_plan_any(ref, dk, capacity))
             if _chunked(*ref.shape, src.shape[-1]):
                 out, table_f = apply_plan_cols(plan, src, dk.coeffs, _WIDE_CHUNK), None
             else:
@@ -268,13 +295,13 @@ class LatticeFilterExactGrad(torch.autograd.Function):
         ctx.dk = dk
         ctx.axis = axis
         ctx.plan_type = type(plan)
-        ctx.save_for_backward(src, ref, table_f, *plan)
+        ctx.save_for_backward(src, ref, table_f, *_plan_tensors(plan))
         return out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         src, ref, table_f, *plan = ctx.saved_tensors
-        plan = ctx.plan_type(*plan)
+        plan = _plan_from_tensors(ctx.plan_type, plan)
         if table_f is not None:
             grad_src, grad_ref = filter_backward(plan, ref, ctx.dk, src, g, table_f, ctx.axis)
             return grad_src, grad_ref, None, None, None

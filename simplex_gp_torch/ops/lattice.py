@@ -88,6 +88,7 @@ __all__ = [
     "build_plan_sharded_join",
     "apply_plan_join",
     "apply_plan_cols",
+    "apply_plan_rows",
     "wide_plan",
     "K9_WINDOW",
     "k9_window",
@@ -439,6 +440,23 @@ def k9_window(chunk: int) -> int:
 def wide_plan(plan: LatticePlan) -> WidePlan:
     """``plan`` with its row lists, built now on its device."""
     return WidePlan(*plan, join_rows(*plan))
+
+
+def apply_plan_rows(plan: WidePlan, v: torch.Tensor, coeffs: tuple, transpose: bool = False,
+                    return_table: bool = False):
+    """K3's operator on a join plan's row lists: K9 with one window of all v's c columns.
+
+    The exact backward's applies (:func:`~simplex_gp_torch.ops.filter.filter_backward`): the
+    same function as :func:`apply_plan_join`, ``transpose`` and ``return_table`` included,
+    with K3'b's row-order splat and the live-row blur in place of K3's atomic splat, so two
+    calls give the same bits.  The (M, c) tables are K3's.
+    """
+    d = plan.seg_ids.shape[1] - 1
+    if len(coeffs) != plan.neighbors.shape[2] + 1:
+        raise ValueError(f"{len(coeffs)} taps do not fit a plan of order {plan.neighbors.shape[2] // 2}")
+    return lattice_apply_cols(plan.seg_ids, plan.weights, plan.neighbors, plan.n_lattice,
+                              v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(d),
+                              max(1, v.shape[-1]), plan.rows, transpose, return_table)
 
 
 def apply_plan_cols(plan, v: torch.Tensor, coeffs: tuple, chunk: int) -> torch.Tensor:

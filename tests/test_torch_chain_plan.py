@@ -262,10 +262,12 @@ class _Spy:
 
 def test_engine_runs_its_cg_on_the_chain_and_its_backward_on_a_join_plan(monkeypatch):
     """_solve_system's CG applies a ChainPlan only; the exact backward builds a join plan of the same
-    positions and capacity (JAX's backward filters afresh, mll.py:262-265) and saves no chain plan."""
+    positions and capacity (JAX's backward filters afresh, mll.py:262-265) and saves no chain plan.
+    Its two applies run on the join plan's row lists (apply_plan_rows, K9's row-order splat), not K3."""
     x, y, probes, values = _nlml_case(300, 3, "matern", 1)
     tdk, _ = _kernels("matern", 1)
-    spy = _Spy(monkeypatch, t_filter, "build_plan", "apply_plan_chain", "apply_plan_join", "build_plan_join")
+    spy = _Spy(monkeypatch, t_filter, "build_plan", "apply_plan_chain", "apply_plan_join", "build_plan_join",
+               "apply_plan_rows")
     cfg = t_mll.BBMMConfig(cg_tolerance=1.0, num_probes=8, precond_rank=20, plan_capacity=1024)
     params = {k: torch.tensor(v, requires_grad=True) for k, v in values.items()}
     loss = t_mll.lattice_nlml(tdk, cfg, params, torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(probes))
@@ -279,7 +281,10 @@ def test_engine_runs_its_cg_on_the_chain_and_its_backward_on_a_join_plan(monkeyp
     assert join_call[0][3] == 1024
     torch.testing.assert_close(join_call[0][0], torch.from_numpy(x) * params["inv_ell"].detach(), rtol=0, atol=0)
     assert int(join_call[2].n_lattice) == int(plan_call[2].n_lattice)
-    assert len(spy.calls["apply_plan_join"]) == 2  # forward with its table, then transposed
+    assert not spy.calls["apply_plan_join"]
+    applies = spy.calls["apply_plan_rows"]  # forward with its table, then transposed
+    assert [call[0][3:] for call in applies] == [(False, True), (True, True)]
+    assert all(call[0][0].seg_ids is join_call[2].seg_ids for call in applies)
     assert len(spy.calls["apply_plan_chain"]) >= 10
 
 

@@ -803,3 +803,131 @@ def test_chain_splat_matches_plain_past_4m_contributions(cuda_device, c):
     live = len(LARGE_RUN_LENGTHS)
     assert torch.equal(got[:live], KC.chain_splat_plain(plan, v)[:live])
     assert KC.chain_splat.launches == before + 1
+
+
+# ---- K10, the CG body, and the exact backward on the row lists -------------------------------------
+
+
+def _cg_problem(dev, n, t, seed=0):
+    """An SPD operator (dense), its Woodbury preconditioner and a right-hand side, on the card."""
+    from simplex_gp_torch.linalg import pivoted_cholesky as t_pc
+
+    rng = np.random.default_rng(seed)
+    L = torch.from_numpy((rng.normal(size=(n, 20)) * np.geomspace(0.3, 0.01, 20)).astype(np.float32)).to(dev)
+    B = torch.from_numpy(rng.normal(size=(n, 64)).astype(np.float32) / 8).to(dev)
+    A = L @ L.T + B @ B.T + torch.eye(n, device=dev)
+    P = t_pc.make_preconditioner(L, torch.tensor(1.0, device=dev), n)
+    b = torch.from_numpy(rng.normal(size=(n, t)).astype(np.float32)).to(dev)
+    return A, P, b
+
+
+@pytest.mark.parametrize("n,t,m", [(3000, 1, 0), (3000, 11, 100), (70001, 11, 20)])
+def test_cg_kernels_match_plain_bit_for_bit(cuda_device, n, t, m):
+    """Each K10 kernel against its plain twin from one state three iterations into a solve, bit for bit
+    (every dot sums in one fixed order; every multiply and add is round-to-nearest on both sides)."""
+    from simplex_gp_torch.kernels import cg as K10
+    from simplex_gp_torch.linalg import cg as t_cg
+
+    A, P, b = _cg_problem(cuda_device, n, t)
+    loop = t_cg.CGLoop(lambda V: A @ V, b, tol=1e-6, precond=P, tridiag_m=m,
+                       shift=(torch.tensor(0.9, device=cuda_device), torch.tensor(0.1, device=cuda_device)))
+    for _ in range(3):
+        loop.iteration()
+    kp = (A @ loop.p).contiguous()
+
+    def both(kernel, plain, args, mutable):
+        ka = [a.clone() if i in mutable else a for i, a in enumerate(args)]
+        pa = [a.clone() if i in mutable else a for i, a in enumerate(args)]
+        kernel(*ka)
+        plain(*pa)
+        torch.cuda.synchronize()
+        for i in mutable:
+            assert torch.equal(ka[i], pa[i]), (kernel.__name__, i)
+        return ka
+
+    ka = both(K10.cg_dot, K10.cg_dot_plain, [loop.p, kp, loop.part_pap, loop.scale, loop.noise, loop.ap], (2, 5))
+    part_pap, ap = ka[2], ka[5]
+    ka = both(K10.cg_step_x, K10.cg_step_x_plain, [part_pap, loop.x, loop.r, loop.p, ap, loop.fs, loop.is_,
+                                                   loop.part_rr], (1, 2, 5, 6, 7))
+    x, r, fs, is_, part_rr = ka[1], ka[2], ka[5], ka[6], ka[7]
+    G2 = both(K10.cg_scale, K10.cg_scale_plain, [loop.U.T @ r, loop.w, loop.G2], (2,))[2]
+    ka = both(K10.cg_precond, K10.cg_precond_plain, [r, loop.U @ G2, loop.p_noise, loop.z, loop.part_rz], (3, 4))
+    z, part_rz = ka[3], ka[4]
+    rec = [loop.A, loop.B, loop.TM] if m else [None, None, None]
+    mutable = (4, 5, 6, 7, 8, 9, 10) if m else (4, 5, 6, 7)
+    both(K10.cg_step_p, K10.cg_step_p_plain, [part_rz, part_rr, x, z, loop.p, loop.x_best, fs, is_, *rec,
+                                              loop.rules], mutable)
+    both(K10.cg_init, K10.cg_init_plain, [loop.part_bb, part_rz, fs, is_, 500], (2, 3))
+
+
+@pytest.mark.parametrize("t,m", [(1, 0), (11, 30)])
+def test_cg_graph_solve_equals_the_eager_kernel_loop(cuda_device, t, m):
+    """The CUDA-graph replay of one iteration gives the eager kernel loop's iterations and bits; two solves
+    repeat bit for bit; the plain loop on the card agrees to f32 roundoff."""
+    from simplex_gp_torch.linalg import cg as t_cg
+
+    A, P, b = _cg_problem(cuda_device, 5000, t, seed=1)
+    kw = dict(tol=1e-5, max_iters=300, precond=P, tridiag_m=m)
+    eager = t_cg.cg_solve(lambda V: A @ V, b, **kw)
+    replays = t_cg.cg_solve.graph_replays
+    graph = t_cg.cg_solve(lambda V: A @ V, b, graph=True, **kw)
+    assert t_cg.cg_solve.graph_replays - replays == eager.iterations - 1
+    again = t_cg.cg_solve(lambda V: A @ V, b, graph=True, **kw)
+    assert eager.iterations == graph.iterations == again.iterations >= 10
+    for u, v, w in zip(eager, graph, again):
+        if isinstance(u, torch.Tensor):
+            assert torch.equal(u, v) and torch.equal(v, w)
+    cpu = t_cg.cg_solve(lambda V: A.cpu() @ V, b.cpu(), tol=1e-5, max_iters=300, tridiag_m=m,
+                        precond=t_pc_to_cpu(P))
+    assert abs(cpu.iterations - eager.iterations) <= 1
+    assert float((cpu.x - eager.x.cpu()).norm() / cpu.x.norm()) < 1e-4
+
+
+def t_pc_to_cpu(P):
+    return type(P)(*(t.cpu() for t in P))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("capacity", [None, "trim", "over"])
+def test_row_list_apply_with_its_table_matches_plain(cuda_device, capacity, transpose):
+    """K9 over one window with transpose and return_table (the exact backward's applies): the output and the
+    live rows of the table bit for bit against the plain K9; past the capacity the output is NaN."""
+    x = torch.from_numpy(chain_class_positions()).to(cuda_device)
+    dk = t_kernels.matern_kernel(1.5, 1)
+    occ = int(t_lattice.count_lattice_points(x, dk.variance, dk.coeffs))
+    cap = {None: None, "trim": occ + 3, "over": occ - 5}[capacity]
+    plan = t_lattice.wide_plan(t_lattice.build_plan_join(x, dk.coeffs, dk.variance, cap))
+    v = torch.randn((x.shape[0], 11), generator=torch.Generator(device=cuda_device).manual_seed(3),
+                    device=cuda_device)
+    out, table = t_lattice.apply_plan_rows(plan, v, dk.coeffs, transpose, return_table=True)
+    pout, ptable = K.apply_cols_plain(*plan[:4], v, list(dk.coeffs), t_lattice.SLICE_NORM(x.shape[1]), 11,
+                                      plan.rows, transpose, True)
+    torch.cuda.synchronize()
+    if capacity == "over":
+        assert bool(torch.isnan(out).all() and torch.isnan(pout).all() and torch.isfinite(table).all())
+        return
+    live = int(plan.n_lattice)
+    assert torch.equal(out, pout) and torch.equal(table[:live], ptable[:live])
+    again = t_lattice.apply_plan_rows(plan, v, dk.coeffs, transpose, return_table=True)
+    assert torch.equal(again[0], out) and torch.equal(again[1][:live], table[:live])
+
+
+def test_exact_backward_repeats_bit_for_bit_on_the_card(cuda_device):
+    """Two NLML gradients at the same inputs are bit-equal: the backward's applies have no atomics."""
+    from simplex_gp_torch.linalg import mll as t_mll
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(4000, 6)).astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy(rng.normal(size=4000).astype(np.float32)).to(cuda_device)
+    z = torch.from_numpy(rng.choice([-1.0, 1.0], size=(4000, 10)).astype(np.float32)).to(cuda_device)
+    dk = t_kernels.matern_kernel(1.5, 1)
+    launches = K.lattice_apply.launches
+    grads = []
+    for _ in range(2):
+        params = {k: torch.tensor(v, device=cuda_device, requires_grad=True) for k, v in
+                  (("inv_ell", np.full(6, 0.8, np.float32)), ("outputscale", np.float32(1.0)),
+                   ("noise", np.float32(0.2)), ("mean", np.float32(0.0)))}
+        loss = t_mll.lattice_nlml(dk, t_mll.BBMMConfig(), params, x, y, z)
+        grads.append(torch.autograd.grad(loss, list(params.values())) + (loss.detach(),))
+    assert K.lattice_apply.launches == launches
+    assert all(torch.equal(u, v) for u, v in zip(*grads))
