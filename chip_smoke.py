@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, large-n, data-parallel, mixture, baseline, sort-chain and CG paths on one CUDA card, and check them.
+"""Drive the PyTorch port's serving, training, large-n, data-parallel, mixture, baseline, sort-chain, CG and factor paths on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -131,14 +131,32 @@ Phases, each printed as it runs:
      houseelectric evals after one Adam step with equal CG counts and alpha;
      K10's launches on one elevators training step and one posterior_cache,
      with no K3 in the step's exact backward (which runs K9 on its join
-     plan's row lists).
+     plan's row lists);
+ 12. K6's factor and K3'c's fused axes, as redesigned for Hopper: the rank-100
+     factor (a column-major L, the argmax fused into each step, no host
+     read or allocation a pivot) at elevators (median init and
+     model_best.pkl) and houseelectric (median init, 1,311,539 rows), its
+     k launches from one host call against its own steps and the same
+     kernel's loop over a row-major L (torch.argmax and a launch a pivot,
+     as the factor was driven before) bit for bit, against the plain loop (equal pivots, or L L^T z
+     within K6_LLT_REL where a near-tie swaps one) and each step from the
+     kernel's state against the plain step (K6_STEP_REL), with no host sync
+     (set_sync_debug_mode("error")); the times of the factor, the row-major
+     loop, the plain loop and the bound, a pivot at j = 0 / 50 / 99, and the
+     preconditioner stage split into the factor and make_preconditioner;
+     the fused axes against their plain twin and the d+1 per-axis launches
+     (torch.equal) at elevators and houseelectric (capacity 32,768), c = 1
+     and 11, launched and graph-replayed, with the bound; K3'c's and K6's
+     launches in one elevators training step (190 per-axis launches before
+     the fusion).
 
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- for K5, on the trainer run; for K7, on
 the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9,
 its row lists and the bounded K2, on the houseelectric trainer run; for K11a, K11b and K6',
 on the two ranks' data-parallel NLML step; for K12, on the mixture trainer
-run; for K13, on the SKIP trainer run; for K3', in one training step; for
+run; for K13, on the SKIP trainer run; for K3', in one training step (the
+per-axis K3'c, chain_axis, is off the path since the fused axes: 0); for
 K10, on one training step and one posterior_cache --,
 errors, times, and
 each kernel's bound: the larger of the bytes it must move over the card's
@@ -355,6 +373,8 @@ KERNEL_ROWS = {
     "chain_build": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:857"),
     "chain_splat": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1030"),
     "chain_axis": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1064"),
+    # K3'c fused: the d+1 axes of an apply in one launch, what the path runs (chain_axis: 0 launches there).
+    "chain_axes": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1010"),
     "chain_slice": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1077"),
     # K10, the CG body (lax.while_loop body :133-205) and its initial state (:118-125, :220).
     "cg_dot": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:136"),
@@ -367,10 +387,12 @@ KERNEL_ROWS = {
 
 
 def chain_kernels() -> tuple:
-    """K3'a-d's wrappers (imported when called: the script must fail without the repo)."""
+    """The wrappers of K3'a-d on the path, K3'c the fused axes (imported when called: the script must fail
+    without the repo)."""
     from simplex_gp_torch.kernels import chain as KC
 
-    return KC.chain_build, KC.chain_splat, KC.chain_axis, KC.chain_slice
+    return KC.chain_build, KC.chain_splat, KC.chain_axes, KC.chain_slice
+
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -2647,12 +2669,13 @@ def chain_phase(dev, ds, expect, timer, stage_times):
     opt = torch.optim.Adam(model.parameters(), lr=0.1)
     train_step(model, opt, x, y, z)  # warm-up
     model.load_raw(init)
-    for fn in chain_kernels():
+    for fn in (*chain_kernels(), KC.chain_axis):
         fn.launches = 0
     train_step(model, opt, x, y, z)
     launches = {fn.__name__: fn.launches for fn in chain_kernels()}
-    print(f"    launches: {launches}")
+    print(f"    launches: {launches}; the per-axis chain_axis {KC.chain_axis.launches}")
     expect(all(v_ > 0 for v_ in launches.values()), "every K3' kernel launched in the training step")
+    launches["chain_axis"] = KC.chain_axis.launches  # off the path: the fused axes run instead
 
     print("chain 10.4: repeatability (the NLML and the eval CG gated; the build and the apply in 10.1)")
     model.load_raw(init)
@@ -3008,6 +3031,235 @@ def cg_phase(dev, ds, expect, timer):
     return rows, launches, record
 
 
+def factor_cost(n: int, dim: int, k: int) -> tuple:
+    """(bytes, ops) of a rank-k factor: per pivot j, ref and L[:, :j] read, the diagonal read and written,
+    L[:, j] written; the squared distance, the kernel value, the dot and the update."""
+    return (sum(4 * n * (dim + j + 3) for j in range(k)), sum(n * (3 * dim + 2 * j + 12) for j in range(k)))
+
+
+def axes_cost(nl: int, d: int, c: int, order: int) -> tuple:
+    """(bytes, ops) of the d+1 axes as one function: the live table read once and written once, each
+    axis's taps and each transition's gather read once (the tables between axes are the function's own
+    traffic, not counted); each axis's stencil on every element."""
+    return (4 * (2 * nl * c + (d + 1) * order * nl + d * nl), (d + 1) * 2 * (2 * order + 1) * nl * c)
+
+
+def factor_axes_phase(dev, ds, expect, timer):
+    """Phase 12: K6's factor (a column-major L, the argmax fused into each step, one host call) and K3'c's
+    fused axes (one launch for the d+1 axes), each against the way it ran before (a loop over a row-major L;
+    d+1 per-axis launches) and its plain twin.
+
+    Returns (kernel rows, launches, the record).
+    """
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch import convert
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import chain as KC
+    from simplex_gp_torch.kernels import pivot as KP
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.pivoted_cholesky import make_preconditioner
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.ops import lattice as L
+    from simplex_gp_torch.utils import data
+
+    tg = np.load(TRAIN_GOLDEN)
+    cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                         num_probes=10)
+    kw = dict(kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg, eval_cg_tolerance=0.01, device=dev)
+    model = simplex_gp_torch.SimplexGP(num_dims=18, **kw)
+    house_model = simplex_gp_torch.SimplexGP(num_dims=11, **kw)
+    dk, k = model.dk, cfg.precond_rank
+    taps, order = [float(t) for t in dk.coeffs], dk.order
+    x, y = torch.from_numpy(ds.train_x).to(dev), torch.from_numpy(ds.train_y).to(dev)
+    init = {k_: tg[f"init_{k_}"] for k_ in RAW_NAMES}
+    best = convert.raw_params_from_numpy(convert.load_jax_params(PARAMS), device=dev)
+    house = data.load_dataset("houseelectric")
+    xh = torch.from_numpy(house.train_x).to(dev)
+    house_model.load_raw(init_raw_params(11, lengthscale=trainer.median_lengthscale(house.train_x)))
+
+    def scaled(m, xs, raw=None):
+        if raw is not None:
+            m.load_raw(raw)
+        with torch.no_grad():
+            p = m.constrained()
+            return p, (xs * p["inv_ell"]).contiguous()
+
+    cases = (("elevators, median init", model, x, init), ("elevators, model_best.pkl", model, x, best),
+             ("houseelectric, median init", house_model, xh, None))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    record, rows = {}, {}
+    print("factor 12.1: K6's factor (a launch a pivot from one host call) vs the same kernel's loop over a "
+          "row-major L (torch.argmax and a launch a pivot), the plain loop and its steps")
+    for name, m, xs, raw in cases:
+        params, ref = scaled(m, xs, raw)
+        s, noise, nu = params["outputscale"].reshape(()).contiguous(), params["noise"], m.dk.nu
+        n, dim = ref.shape
+        diag = s * torch.ones(n, device=dev)
+        refc = KP.column_major(ref)
+        Lf, pf = KP.pivot_factor(ref, diag, s, nu, k)
+
+        def row_major():
+            Lr, pr = torch.zeros((n, k), device=dev), torch.zeros(k, dtype=torch.int64, device=dev)
+            d_, d0_ = diag.clone(), diag.max()
+            for j in range(k):
+                d_ = KP.pivot_column(ref, Lr, d_, torch.argmax(d_), j, s, d0_, nu, pr)
+            return Lr, pr
+
+        Lr, pr = row_major()
+        Lp, pp = KP.pivot_factor_plain(refc, diag, s, nu, k)
+        # Each step from the kernel's own state: the one-step kernel (the fused argmax on) and the plain step.
+        Ls, ps = torch.zeros((k, n), device=dev).T, torch.zeros(k, dtype=torch.int64, device=dev)
+        d, d0 = diag.clone(), diag.max()
+        piv, nxt = torch.argmax(d), torch.zeros((), dtype=torch.int64, device=dev)
+        worst, argmax_differs, states = 0.0, [], {}
+        for j in range(k):
+            if j in (0, k // 2, k - 1):
+                states[j] = (Ls.T.clone().T, d.clone(), piv.clone())
+            Lq, pq = Ls.T.clone().T, ps.clone()
+            dq = KP.pivot_column_plain(refc, Lq, d, piv, j, s, d0, nu, pq)
+            d = KP.pivot_column(refc, Ls, d, piv, j, s, d0, nu, ps, next_piv=nxt)
+            worst = max(worst, rel(Ls[:, j], Lq[:, j]) if float(Lq[:, j].norm()) > 0 else 0.0,
+                        rel(d, dq) if float(dq.norm()) > 0 else 0.0)
+            if int(torch.argmax(dq)) != int(nxt):
+                argmax_differs.append(j)
+            piv = nxt.clone()
+            del Lq, pq, dq
+        torch.cuda.synchronize()
+        bits = dict(steps=torch.equal(Lf, Ls) and torch.equal(pf, ps),
+                    row_major=torch.equal(Lf, Lr) and torch.equal(pf, pr))
+        same = int((pf == pp).sum())
+        z = torch.randn((n, 4), generator=gen, device=dev)
+        r_llt = rel(Lf @ (Lf.T @ z), Lp @ (Lp.T @ z))
+        expect(all(bits.values()), f"{name}: the factor == its own steps and the row-major loop, L and pivots "
+               f"bit for bit: {bits}")
+        expect(same == k or r_llt <= K6_LLT_REL,
+               f"{name}: vs the plain loop {same} of {k} pivots equal, L L^T z rel {r_llt:.3e} (limit {K6_LLT_REL}); "
+               + ("the same pivots" if same == k else "a near-tie swapped a pivot, L L^T held"))
+        expect(worst <= K6_STEP_REL, f"{name}: each step from the kernel's state vs the plain step: rel "
+               f"{worst:.3e} (limit {K6_STEP_REL}); plain argmax differs from the fused one at steps {argmax_differs}")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            KP.pivot_factor(ref, diag, s, nu, k)
+            no_sync = True
+        except RuntimeError as e:
+            no_sync = f"{e}"[:200]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        expect(no_sync is True, f"{name}: the factor makes no host sync (set_sync_debug_mode('error')): {no_sync}")
+        big = n > 100_000
+        reps = 3 if big else 10
+        Lc = Lf.contiguous()
+        case = dict(
+            n=n, dim=dim, factor_ms=timer(lambda: KP.pivot_factor(ref, diag, s, nu, k), reps),
+            row_major_loop_ms=timer(row_major, reps), plain_loop_ms=timer(lambda: KP.pivot_factor_plain(
+                refc, diag, s, nu, k), 1), **bound(*factor_cost(n, dim, k)),
+            make_preconditioner_ms=timer(lambda: make_preconditioner(Lf, noise, n), 5),
+            make_preconditioner_contiguous_L_ms=timer(lambda: make_preconditioner(Lc, noise, n), 5),
+            build_precond_ms=timer(lambda: mll.build_precond(m.dk, cfg, params, ref, n), reps),
+            pivots_equal_plain=same, llt_rel_plain=r_llt, step_rel_max=worst, argmax_differs_at=argmax_differs,
+            bit_equal=bits, no_host_sync=no_sync is True, max_abs_err=float((Lf - Lp).abs().max()))
+        # One pivot at j = 0, 50, 99 from the factor's states: the column-major step (the fused argmax on) and
+        # the same kernel on a row-major L with no argmax, each beside its bound.
+        for j, (Lj, dj, pj) in states.items():
+            Lrow = Lj.contiguous()
+            case[f"pivot_j{j}"] = dict(
+                ms=timer(lambda: KP.pivot_column(refc, Lj, dj, pj, j, s, d0, nu, ps, next_piv=nxt), 20),
+                row_major_ms=timer(lambda: KP.pivot_column(ref, Lrow, dj, pj, j, s, d0, nu, ps), 20),
+                **bound(4 * n * (dim + j + 3), n * (3 * dim + 2 * j + 12)))
+            del Lrow
+        print(f"    {name}: n={n}; factor {case['factor_ms']:.3f} ms, "
+              f"the row-major loop {case['row_major_loop_ms']:.3f}, plain {case['plain_loop_ms']:.1f}, bound "
+              f"{case['bound_ms']:.4f} ({case['bound_by']}); make_preconditioner {case['make_preconditioner_ms']:.3f} "
+              f"(contiguous L {case['make_preconditioner_contiguous_L_ms']:.3f}), build_precond "
+              f"{case['build_precond_ms']:.3f}; a pivot at j = 0 / {k // 2} / {k - 1}: "
+              + " / ".join(f"{case[f'pivot_j{j}']['ms']:.4f} (row-major {case[f'pivot_j{j}']['row_major_ms']:.4f}, bound "
+                           f"{case[f'pivot_j{j}']['bound_ms']:.4f})" for j in states)
+              + f"; {same}/{k} pivots equal to plain, step rel {worst:.2e}")
+        record[name] = case
+        tag = "houseelectric" if big else "elevators" if raw is best else None
+        if tag is not None:  # K6's row: the one-call factor beside the row-major loop and the bound
+            rows.setdefault("pivot_column", {}).update({
+                f"{tag}_factor_ms": case["factor_ms"], f"{tag}_factor_row_major_loop_ms": case["row_major_loop_ms"],
+                f"{tag}_factor_bound_ms": case["bound_ms"]})
+        del Lf, Lr, Lp, Ls, Lc, states, ref, refc
+    del xh
+
+    print("axes 12.2: K3'c fused (one launch for the d+1 axes) vs its plain twin and the d+1 per-axis launches")
+    _, href = scaled(house_model, torch.from_numpy(house.train_x).to(dev))
+    _, eref = scaled(model, x, init)
+    plans = (("elevators, median init", L.build_plan_chain(eref, dk.coeffs, dk.variance)),
+             ("houseelectric, capacity 32,768", L.build_plan_chain(href, dk.coeffs, dk.variance,
+                                                                    int(np.load(HOUSE_GOLDEN)["full_capacity"]))))
+    del href
+    for name, plan in plans:
+        d = plan.gather.shape[0]
+        nl, Mc = int(plan.n_lattice), plan.cnt.shape[0]
+        live = min(nl, Mc)
+
+        def loop(t):
+            for j in range(d + 1):
+                t = KC.chain_axis(t, plan.tapw[j], plan.gather[j] if j < d else None, plan.n_lattice, taps)
+            return t
+
+        for c in (1, 11):
+            v = torch.randn((plan.weights.shape[0], c), generator=gen, device=dev)
+            table = KC.chain_splat(plan, v)
+            fused = KC.chain_axes(table.clone(), plan, taps)
+            want = KC.chain_axes_plain(table, plan, taps)
+            per_axis = loop(table)
+            apply_equal = torch.equal(L.apply_plan_chain(plan, v, dk.coeffs),
+                                      KC.chain_apply_plain(plan, v, taps, L.SLICE_NORM(d)))
+            equal = torch.equal(fused[:live], want[:live]) and torch.equal(fused[:live], per_axis[:live])
+            expect(equal and apply_equal, f"{name} c={c}: the fused axes == plain and == the {d + 1} per-axis "
+                   f"launches over the {live} live rows: {equal}; the apply == plain: {apply_equal}")
+            work = table.clone()
+            case = dict(n_lattice=nl, capacity=Mc, bit_equal=equal and apply_equal,
+                        fused_ms=timer(lambda: KC.chain_axes(work, plan, taps), 50),
+                        fused_graph_ms=graph_ms(lambda: KC.chain_axes(work, plan, taps), 20),
+                        per_axis_ms=timer(lambda: loop(table), 20), per_axis_graph_ms=graph_ms(lambda: loop(table), 10),
+                        plain_ms=timer(lambda: KC.chain_axes_plain(table, plan, taps), 3),
+                        apply_ms=timer(lambda: L.apply_plan_chain(plan, v, dk.coeffs), 50),
+                        apply_graph_ms=graph_ms(lambda: L.apply_plan_chain(plan, v, dk.coeffs), 20),
+                        # Each per-axis launch as its own function: the table in and out, the taps, the gather.
+                        per_axis_bound_ms=(d + 1) * bound(4 * live * (2 * c + order + 1),
+                                                          2 * (2 * order + 1) * live * c)["bound_ms"],
+                        **bound(*axes_cost(live, d, c, order)))
+            print(f"    {name} c={c}: fused {case['fused_ms']:.4f} ms (graph {case['fused_graph_ms']:.4f}), {d + 1} "
+                  f"per-axis launches {case['per_axis_ms']:.4f} (graph {case['per_axis_graph_ms']:.4f}), bound "
+                  f"{case['bound_ms']:.4f} (the per-axis launches' {case['per_axis_bound_ms']:.4f}); the apply "
+                  f"{case['apply_ms']:.4f} (graph {case['apply_graph_ms']:.4f})")
+            record[f"axes, {name}, c={c}"] = case
+            if name.startswith("elevators") and c == 11:
+                rows["chain_axes"] = dict(
+                    max_abs_err=float((fused[:live] - want[:live]).abs().max()), ms=case["fused_ms"],
+                    plain_ms=case["plain_ms"], bound_ms=case["bound_ms"], bound_by=case["bound_by"], library_ms=None,
+                    shape=f"the {d + 1} axes, c=11, n_lattice={nl}", graph_ms=case["fused_graph_ms"],
+                    per_axis_launches_ms=case["per_axis_ms"], per_axis_graph_ms=case["per_axis_graph_ms"])
+            del table, fused, want, per_axis, work
+    del plans
+
+    print("axes 12.3: K3'c's launches in one elevators training step (median init, exact mode)")
+    model.load_raw(init)
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+    z = torch.from_numpy(np.random.default_rng(int(tg["seed_init"])).choice(
+        [-1.0, 1.0], size=(x.shape[0], cfg.num_probes)).astype(np.float32)).to(dev)
+    counters = (KC.chain_splat, KC.chain_axes, KC.chain_axis, KC.chain_slice, KP.pivot_column)
+    for fn in counters:
+        fn.launches = 0
+    train_step(model, opt, x, y, z)
+    step = {fn.__name__: fn.launches for fn in counters}
+    print(f"    launches: {step}; K3'c {step['chain_axes']} fused launches (each all {eref.shape[1] + 1} axes) against "
+          f"190 per-axis launches before the fusion; K6 {step['pivot_column']} one-step launches")
+    expect(step["chain_axes"] > 0 and step["chain_axis"] == 0 and step["pivot_column"] > 0
+           and step["pivot_column"] % k == 0,
+           f"the training step runs the fused axes and whole factors of {k} one-step launches: {step}")
+    record["training_step_launches"] = step
+    return rows, step, record
+
+
 def train_step(model, opt, x, y, z):
     opt.zero_grad(set_to_none=True)
     model.nlml(x, y, probes=z).backward()
@@ -3301,6 +3553,13 @@ def main(argv=None) -> int:
         launches[name] = cg_launches[name]
     print(f"cg phase: {time.perf_counter() - t_cg:.1f} s")
     print("cg: " + json.dumps(cg_record))
+
+    t_fa = time.perf_counter()
+    fa_rows, _, fa_record = factor_axes_phase(dev, ds, expect, cuda_ms)
+    for name, row in fa_rows.items():
+        rows.setdefault(name, {}).update(row)
+    print(f"factor and axes phase: {time.perf_counter() - t_fa:.1f} s")
+    print("factor and axes: " + json.dumps(fa_record))
 
     # One iteration's time (the MVM included) from the stage times of 4.5 and 6.5, against the bound of
     # K10's vector updates and the Woodbury solve's two reads of U.

@@ -56,10 +56,11 @@
 //            of mid rows (runs of CHAIN_SHORT+1 .. CHAIN_PIECE).
 // No atomics and no host read: two builds give the same bits.
 //
-// Apply, d + 4 launches from one host call (sgp_chain_apply; d + 3 where
-// the plan has too few contributions for a long row), no atomics, no host
-// read.  The live count stays on the device: threads of rows at or past
-// min(n_lattice, Mc) return at once, so every grid spans Mc rows, and the
+// Apply, four launches and a memset from one host call (sgp_chain_apply;
+// three where the plan has too few contributions for a long row), no
+// atomics in the arithmetic, no host read.  The live count stays on the
+// device: threads of rows at or past min(n_lattice, Mc) return at once (the
+// fused axes stride over the live rows only), and the
 // slice writes NaN when n_lattice > Mc (JAX's guard, :1093-1100).  Tables
 // are (Mc, c) row-major.
 //   splat (K3'b, rows.cuh, shared with K9 and K7): row g is the sum of its
@@ -88,7 +89,14 @@
 //   axis (K3'c): the stencil of axis j at position p (_chain_stencil_1d,
 //     :915-922, in its order of operations), written at the position q of
 //     axis j+1 with g_j[q] = p; the last axis writes in its own (final)
-//     order.  One thread per (position, column).
+//     order.  chain_axis_kernel: one axis, one thread per (position,
+//     column), one launch an axis (the tests' and the A/B's).  The apply
+//     runs all d + 1 axes in one launch, chain_axes_kernel: a grid of
+//     resident blocks strides over the live (position, column) elements,
+//     with a grid barrier between axes, so the table ping-pongs between two
+//     buffers that stay in L2 (4.4 MB at elevators c = 11) and the d + 1
+//     launches' host work and tails are gone.  The same operations per
+//     element, so the fused and per-axis applies are bit-equal.
 //   slice (K3'd): the d+1 vertices of a point gathered at slice_idx,
 //     weighted, summed in vertex order and scaled by SLICE_NORM.
 //
@@ -316,7 +324,32 @@ extern "C" int sgp_run_lists(const int* long_info, const int* scan, const int* c
 
 // ---- apply ------------------------------------------------------------------
 
-// tapw: this axis's (r, Mc) taps; gather: (Mc,) or null for the last axis.
+// One output of axis j's stencil: the element (q, col) of the next axis's
+// order reads position p = gather[q] of this axis's table `in` (the last
+// axis: p = q).  tapw: this axis's (r, Mc) taps.  kL2 loads the table
+// through L2 (it was written by other blocks of the same launch, K3'c
+// fused); kOrder > 0 fixes r at compile time (the loop over the taps
+// unrolls), 0 reads it from `order`.  The arithmetic is the same for all.
+template <bool kL2, int kOrder>
+__device__ __forceinline__ float chain_axis_at(const float* in, const float* __restrict__ tapw, int p, int live,
+                                               int Mc, int c, int col, int order, float center) {
+  const float* t = in + col;
+  auto at = [&](int row) { return kL2 ? __ldcg(t + (long long)row * c) : t[(long long)row * c]; };
+  float acc = __fmul_rn(center, at(p));
+  auto tap = [&](int k) {
+    const float* wk = tapw + (long long)(k - 1) * Mc;
+    if (p + k < live) acc = __fadd_rn(acc, __fmul_rn(__ldg(wk + p), at(p + k)));
+    if (p - k >= 0) acc = __fadd_rn(acc, __fmul_rn(__ldg(wk + p - k), at(p - k)));
+  };
+  if constexpr (kOrder > 0) {
+#pragma unroll
+    for (int k = 1; k <= kOrder; ++k) tap(k);
+  } else {
+    for (int k = 1; k <= order; ++k) tap(k);
+  }
+  return acc;
+}
+
 __global__ void chain_axis_kernel(const float* __restrict__ in, float* __restrict__ out,
                                   const float* __restrict__ tapw, const int* __restrict__ gather,
                                   const int* __restrict__ n_lattice, int Mc, int c, int order, float center) {
@@ -326,15 +359,118 @@ __global__ void chain_axis_kernel(const float* __restrict__ in, float* __restric
   if (idx >= (long long)live * c) return;
   const int q = (int)(idx / c);
   const int col = (int)(idx - (long long)q * c);
-  const int p = gather == nullptr ? q : gather[q];
-  const float* t = in + col;
-  float acc = __fmul_rn(center, t[(long long)p * c]);
-  for (int k = 1; k <= order; ++k) {
-    const float* wk = tapw + (long long)(k - 1) * Mc;
-    if (p + k < live) acc = __fadd_rn(acc, __fmul_rn(wk[p], t[(long long)(p + k) * c]));
-    if (p - k >= 0) acc = __fadd_rn(acc, __fmul_rn(wk[p - k], t[(long long)(p - k) * c]));
+  const int p = gather == nullptr ? q : __ldg(gather + q);
+  out[idx] = chain_axis_at<false, 0>(in, tapw, p, live, Mc, c, col, order, center);
+}
+
+// K3'c fused: all d + 1 axes of an apply in one launch.  A grid of resident
+// blocks strides over the live (position, column) elements of each axis,
+// axis 0 from ta into tb, axis 1 back into ta, and so on, with a grid
+// barrier between axes (sgp_grid_barrier; *barrier is 0 at the launch).
+// The final table is ta when d + 1 is even, else tb.  Each element is
+// chain_axis_kernel's, operation for operation.  A thread holds
+// CHAIN_AXES_HELD elements a pass, their rows and columns found once, and
+// reads the next axis's gather for them before the barrier, so after it
+// only the table loads (all taps at once) stand between a block and its
+// stores.  Element indices are I: int for a table of fewer than 2^30
+// elements (every CG's), long long above.
+#define CHAIN_AXES_THREADS 512
+#define CHAIN_AXES_HELD 8
+
+template <int kOrder, typename I>
+__global__ void __launch_bounds__(CHAIN_AXES_THREADS, 2)
+    chain_axes_kernel(float* ta, float* tb, const float* __restrict__ tapw, const int* __restrict__ gather,
+                      const int* __restrict__ n_lattice, int Mc, int c, int d, int order, float center,
+                      unsigned int* barrier) {
+  const int nl = *n_lattice;
+  const int live = nl < Mc ? nl : Mc;
+  const I work = (I)live * c;
+  const I stride = (I)gridDim.x * blockDim.x;
+  const I first = (I)blockIdx.x * blockDim.x + threadIdx.x;
+  int q0[CHAIN_AXES_HELD], col0[CHAIN_AXES_HELD], next[CHAIN_AXES_HELD];
+#pragma unroll
+  for (int u = 0; u < CHAIN_AXES_HELD; ++u) {
+    const I idx = first + u * stride;
+    q0[u] = idx < work ? (int)(idx / c) : 0;
+    col0[u] = (int)(idx - (I)q0[u] * c);
+    next[u] = idx < work ? __ldg(gather + q0[u]) : 0;  // axis 0's gather (d >= 1)
   }
-  out[idx] = acc;
+  float* a = ta;
+  float* b = tb;
+  for (int j = 0; j <= d; ++j) {
+    const float* w = tapw + (long long)j * order * Mc;
+    const int* g = gather + (long long)j * Mc;
+    for (I base = first; base < work; base += CHAIN_AXES_HELD * stride) {
+      const bool held = base == first;
+      float v[CHAIN_AXES_HELD];
+#pragma unroll
+      for (int u = 0; u < CHAIN_AXES_HELD; ++u) {
+        const I idx = base + u * stride;
+        if (idx < work) {
+          const int q = held ? q0[u] : (int)(idx / c);
+          const int col = held ? col0[u] : (int)(idx - (I)q * c);
+          const int p = held ? next[u] : (j < d ? __ldg(g + q) : q);
+          v[u] = chain_axis_at<true, kOrder>(a, w, p, live, Mc, c, col, order, center);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < CHAIN_AXES_HELD; ++u) {
+        const I idx = base + u * stride;
+        if (idx < work) __stcg(b + idx, v[u]);
+      }
+    }
+    if (j < d) {
+      const int* gn = gather + (long long)(j + 1) * Mc;
+#pragma unroll
+      for (int u = 0; u < CHAIN_AXES_HELD; ++u)
+        next[u] = first + u * stride < work ? (j + 1 < d ? __ldg(gn + q0[u]) : q0[u]) : 0;
+      sgp_grid_barrier(barrier, (unsigned int)(j + 1) * gridDim.x);
+    }
+    float* t = a;
+    a = b;
+    b = t;
+  }
+}
+
+// The fused axes' launch.  The grid gives a thread to each element of the
+// capacity's table (Mc * c, the host's bound on the live ones), or is the
+// resident blocks if fewer.  (A grid of CHAIN_AXES_HELD elements a thread,
+// so the barrier spans fewer blocks, was no faster on an H100 at 700 W:
+// 0.092 against 0.086-0.092 ms at elevators c = 1, 50 blocks against 264;
+// and slower at houseelectric c = 1, 0.066 against 0.033 ms, 8 blocks
+// against 64.)  Order 1, the path's, gets its own kernel; other orders read
+// it from `order`.  Element indices are int below 2^30 elements.
+template <int kOrder, typename I>
+static inline cudaError_t chain_axes_launch_as(float* ta, float* tb, const float* tapw, const int* gather,
+                                               const int* n_lattice, int Mc, int c, int d, int order, float center,
+                                               unsigned int* barrier, cudaStream_t st) {
+  const long long need = ((long long)Mc * c + CHAIN_AXES_THREADS - 1) / CHAIN_AXES_THREADS;
+  const int resident = sgp_coresident_blocks(chain_axes_kernel<kOrder, I>, CHAIN_AXES_THREADS, 0);
+  const int grid = (int)(need < resident ? (need > 0 ? need : 1) : resident);
+  chain_axes_kernel<kOrder, I>
+      <<<grid, CHAIN_AXES_THREADS, 0, st>>>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier);
+  return cudaGetLastError();
+}
+
+template <int kOrder>
+static inline cudaError_t chain_axes_launch_order(float* ta, float* tb, const float* tapw, const int* gather,
+                                                  const int* n_lattice, int Mc, int c, int d, int order,
+                                                  float center, unsigned int* barrier, cudaStream_t st) {
+  if ((long long)Mc * c < (1LL << 30))
+    return chain_axes_launch_as<kOrder, int>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier, st);
+  return chain_axes_launch_as<kOrder, long long>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier,
+                                                 st);
+}
+
+static inline cudaError_t chain_axes_launch(float* ta, float* tb, const float* tapw, const int* gather,
+                                            const int* n_lattice, int Mc, int c, int d, int order, float center,
+                                            unsigned int* barrier, cudaStream_t st) {
+  if (d < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st);
+  if (err != cudaSuccess) return err;
+  if (order == 1)
+    return chain_axes_launch_order<1>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier, st);
+  return chain_axes_launch_order<0>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier, st);
 }
 
 __global__ void chain_slice_kernel(const float* __restrict__ table, const int* __restrict__ slice_idx,
@@ -375,6 +511,15 @@ extern "C" int sgp_chain_axis(const float* in, float* out, const float* tapw, co
   return (int)cudaGetLastError();
 }
 
+// K3'c fused alone: the d + 1 axes of a table in ta (Mc, c); tb is scratch
+// of the same size; the result lands in ta when d + 1 is even, else in tb.
+extern "C" int sgp_chain_axes(float* ta, float* tb, const float* tapw, const int* gather, const int* n_lattice,
+                              int Mc, int c, int d, int order, float center, unsigned int* barrier, void* stream) {
+  if ((long long)Mc * c <= 0) return (int)cudaGetLastError();
+  return (int)chain_axes_launch(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier,
+                                (cudaStream_t)stream);
+}
+
 extern "C" int sgp_chain_slice(const float* table, const int* slice_idx, const float* w, const int* n_lattice,
                                int n, int dp1, int c, int Mc, float norm, float* out, void* stream) {
   const long long work = (long long)n * c;
@@ -385,8 +530,9 @@ extern "C" int sgp_chain_slice(const float* table, const int* slice_idx, const f
 }
 
 // The whole apply from one host call: the splat into ta, the d + 1 axes
-// between ta and tb (gather: (d, Mc); tapw: (d + 1, r, Mc)), the slice of
-// the final table into out (n, c).  ta and tb hold Mc * c floats.
+// between ta and tb in one fused launch (gather: (d, Mc); tapw: (d + 1, r,
+// Mc)), the slice of the final table into out (n, c).  ta and tb hold Mc * c
+// floats; barrier is one uint of scratch for the fused launch.
 extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, const int* long_rows,
                                const int* long_first, const int* n_long, const int* piece_row,
                                const int* piece_start, const int* n_pieces, const int* mid_rows, const int* n_mid,
@@ -394,7 +540,7 @@ extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, c
                                int n, int c, int Mc, int d,
                                const int* gather, const float* tapw, int order, const float* taps_host,
                                const int* slice_idx, const float* w, float norm, float* ta, float* tb,
-                               float* part, float* out, void* stream) {
+                               float* part, unsigned int* barrier, float* out, void* stream) {
   if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
   if (n <= 0 || c <= 0 || Mc <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
@@ -402,17 +548,10 @@ extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, c
                                mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice);
   cudaError_t err = sgp_splat_rows(r, SgpWindow{v, c, 0}, c, Mc, ta, part, st);
   if (err != cudaSuccess) return (int)err;
-  const long long work = (long long)Mc * c;
-  float *a = ta, *b = tb;
-  for (int j = 0; j <= d; ++j) {
-    chain_axis_kernel<<<sgp_blocks(work), SGP_THREADS, 0, st>>>(
-        a, b, tapw + (long long)j * order * Mc, j < d ? gather + (long long)j * Mc : nullptr, n_lattice, Mc, c,
-        order, taps_host[order]);
-    float* t = a;
-    a = b;
-    b = t;
-  }
-  chain_slice_kernel<<<sgp_blocks((long long)n * c), SGP_THREADS, 0, st>>>(a, slice_idx, w, n_lattice, n, d + 1,
-                                                                          c, Mc, norm, out);
+  err = chain_axes_launch(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, taps_host[order], barrier, st);
+  if (err != cudaSuccess) return (int)err;
+  const float* final_table = (d + 1) % 2 == 0 ? ta : tb;
+  chain_slice_kernel<<<sgp_blocks((long long)n * c), SGP_THREADS, 0, st>>>(final_table, slice_idx, w, n_lattice, n,
+                                                                          d + 1, c, Mc, norm, out);
   return (int)cudaGetLastError();
 }

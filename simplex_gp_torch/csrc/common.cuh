@@ -185,3 +185,61 @@ __device__ __forceinline__ void sgp_point_geometry(const float* __restrict__ xp,
                   : __fsub_rn(t_by_rank[d - v], t_by_rank[d + 1 - v]);
   }
 }
+
+// Resident blocks of `threads` threads (and `smem` bytes of dynamic shared
+// memory) of `kernel` on the current card: the grid of a kernel that waits
+// at sgp_grid_barrier, whose blocks must all be resident at once.  Cached
+// for the last kernel and shape asked; the occupancy query is a host call, no stream work.
+template <typename Kernel>
+static inline int sgp_coresident_blocks(Kernel kernel, int threads, size_t smem) {
+  static const void* cached_fn = nullptr;
+  static int cached = 0, cached_threads = 0;
+  static size_t cached_smem = 0;
+  if (cached_fn != (const void*)kernel || cached_threads != threads || cached_smem != smem) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    cached = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+    cached_fn = (const void*)kernel;
+    cached_threads = threads;
+    cached_smem = smem;
+  }
+  return cached;
+}
+
+// Release and acquire at the scope of the whole card: a release add (all
+// this thread's earlier writes, and by cumulativity those it has seen, such
+// as its block's after a bar.sync, are visible before the add) and an
+// acquire load (later reads see what the releasing threads saw).
+__device__ __forceinline__ void sgp_red_release(unsigned int* p, unsigned int v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned int sgp_ld_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A barrier across the whole grid of a kernel launched with at most
+// sgp_coresident_blocks blocks (so every block is resident and none waits
+// for a block that cannot start).  *count starts at 0 for the launch; the
+// b-th barrier (b = 1, 2, ...) waits for count = b * gridDim.x.  No
+// cooperative launch, so a CUDA graph captures it like any launch: bar.sync,
+// thread 0's release add (cumulative: it publishes the whole block's
+// writes), its acquire spin on the counter in L2, bar.sync (the pattern of
+// CUTLASS's GenericBarrier).  Data written before the barrier by other
+// blocks must be read through L2 (__ldcg), never through the non-coherent
+// read-only path (__ldg, or a const __restrict__ pointer the compiler may
+// turn into one).  Two such kernels must not run at once on two streams:
+// each could hold SMs the other's waiting blocks need.
+__device__ __forceinline__ void sgp_grid_barrier(unsigned int* count, unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sgp_red_release(count, 1u);
+    while (sgp_ld_acquire(count) < target) {
+    }
+  }
+  __syncthreads();
+}

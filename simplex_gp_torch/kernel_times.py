@@ -5,6 +5,9 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --wide-deriv
     python simplex_gp_torch/kernel_times.py --sharded-f64
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --cg
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --factor [--save DIR]
+    python simplex_gp_torch/kernel_times.py --compare-factors DIR DIR
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --axes
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
@@ -14,7 +17,12 @@ atomic splats land from the float64 operator (:func:`sharded_f64`); the
 fifth one CG iteration at the elevators and houseelectric training shapes
 and the houseelectric eval shape, K10 host-launched and replayed, or an
 older tree's eager loop
-(:func:`cg_iterations`).
+(:func:`cg_iterations`); the sixth K6's rank-100 factor, the preconditioner
+stage and a warm training step at the elevators and houseelectric training
+shapes (:func:`factor_steps`), with ``--save`` writing each factor's L and
+pivots for the seventh form to compare two trees' bit for bit
+(:func:`compare_factors`); the eighth K3'c's d+1 axis stencils, fused and
+per axis (:func:`axes_times`).
 
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
@@ -30,6 +38,7 @@ a warm-up.  Prints one JSON line with the card, the tree and the times in ms.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import time
 
@@ -446,6 +455,145 @@ def main() -> dict:
     return out
 
 
+def factor_steps(repeats: int = 5, save: str | None = None) -> dict:
+    """K6's rank-100 factor and the training step around it, at the elevators and houseelectric training
+    shapes (seeded synthetic stand-ins at their median-init lengthscales; houseelectric with capacity
+    32,768), through entry points every tree has: ``pivoted_cholesky_features``, ``make_preconditioner``,
+    ``mll.build_precond`` (the step's preconditioner stage) and one warm training step (zero_grad, NLML,
+    backward, Adam).  CUDA events over ``repeats`` calls after a warm-up; the factor once more under
+    ``torch.profiler``: its device time and its kernel launches.  With ``save``, each factor's L (n, 100)
+    and pivots go to ``<save>/<shape>_L.npy`` and ``<save>/<shape>_pivots.npy``.
+    """
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.pivoted_cholesky import make_preconditioner, pivoted_cholesky_features
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.utils import data
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda:0")
+    out = {"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                  capture_output=True, text=True).stdout.strip(),
+           "tree": simplex_gp_torch.__file__}
+    elev = data.prepare_dataset(data._synthetic_uci("elevators"), "elevators")
+    house = data.load_dataset("houseelectric")
+    for tag, xs, ys, cap in (("elevators", elev.train_x, elev.train_y, None),
+                             ("houseelectric", house.train_x, house.train_y, 32768)):
+        d = xs.shape[1]
+        cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                             num_probes=10, plan_capacity=cap)
+        model = simplex_gp_torch.SimplexGP(num_dims=d, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                           device=dev)
+        raw = init_raw_params(d, lengthscale=trainer.median_lengthscale(xs))
+        model.load_raw(raw)
+        x, y = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+        n = x.shape[0]
+        with torch.no_grad():
+            params = model.constrained()
+            ref = (x * params["inv_ell"]).contiguous()
+            s, noise = params["outputscale"], params["noise"]
+            diag = s * torch.ones(n, device=dev)
+            factor = lambda: pivoted_cholesky_features(ref, diag, model.dk.nu, s, 100)
+            pc = factor()
+            if save is not None:
+                os.makedirs(save, exist_ok=True)
+                np.save(os.path.join(save, f"{tag}_L.npy"), pc.L.cpu().numpy())
+                np.save(os.path.join(save, f"{tag}_pivots.npy"), pc.pivots.cpu().numpy())
+            rec = dict(factor_ms=_ms(factor, repeats),
+                       make_preconditioner_ms=_ms(lambda: make_preconditioner(pc.L, noise, n), repeats),
+                       build_precond_ms=_ms(lambda: mll.build_precond(model.dk, cfg, params, ref, n), repeats))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                factor()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+            rec.update(factor_device_ms=sum(e.self_device_time_total for e in events) / 1e3,
+                       factor_launches=sum(e.count for e in events))
+        z = torch.from_numpy(np.random.default_rng(1).choice([-1.0, 1.0], size=(n, 10)).astype(np.float32)).to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=0.1)
+
+        def step():
+            model.load_raw(raw)
+            opt.zero_grad(set_to_none=True)
+            model.nlml(x, y, probes=z).backward()
+            opt.step()
+
+        rec["step_ms"] = _ms(step, repeats)
+        out[tag] = rec
+        del model, x, y, ref, pc, z
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def compare_factors(a: str, b: str) -> dict:
+    """Whether the factors that two ``--factor --save`` runs wrote are equal bit for bit, L and pivots, at
+    each shape.  Prints one JSON line."""
+    out = {}
+    for tag in ("elevators", "houseelectric"):
+        La, Lb = (np.load(os.path.join(t, f"{tag}_L.npy")) for t in (a, b))
+        pa, pb = (np.load(os.path.join(t, f"{tag}_pivots.npy")) for t in (a, b))
+        out[tag] = dict(L_bit_equal=La.shape == Lb.shape and La.tobytes() == Lb.tobytes(),
+                        pivots_equal=bool(np.array_equal(pa, pb)), max_abs_diff=float(np.abs(La - Lb).max()))
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def axes_times(reps: int = 50) -> dict:
+    """K3'c, the d+1 axis stencils of one chain apply, on the sort-chain plans of the elevators training
+    rows at the median-init lengthscales (tests/fixtures/elevators_train_golden.npz) and of all
+    houseelectric training rows over their median lengthscale at capacity 32,768, matern-1.5 order 1, at
+    c = 1 and 11: the fused launch (``chain_axes``) and the d+1 per-axis launches (``chain_axis``) on the
+    same splatted table, launched (CUDA events over ``reps`` calls) and replayed from a CUDA graph, and
+    whether the two agree bit for bit over the live rows.  Prints one JSON line.
+    """
+    import pathlib
+
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import chain as KC
+    from simplex_gp_torch.models.components import softplus
+    from simplex_gp_torch.ops import kernels, lattice as L
+    from simplex_gp_torch.utils import data
+
+    dev = torch.device("cuda:0")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = {"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                  capture_output=True, text=True).stdout.strip(),
+           "tree": simplex_gp_torch.__file__}
+    dk = kernels.matern_kernel(1.5, 1)
+    taps = [float(t) for t in dk.coeffs]
+    tg = np.load(root / "tests" / "fixtures" / "elevators_train_golden.npz")
+    inv_ell = 1.0 / softplus(torch.from_numpy(tg["init_raw_lengthscale"]).to(dev))
+    xe = torch.from_numpy(data.prepare_dataset(data._synthetic_uci("elevators"), "elevators").train_x).to(dev)
+    s = data.load_dataset("houseelectric")
+    xh = torch.from_numpy(s.train_x).to(dev) / trainer.median_lengthscale(s.train_x)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for tag, pts, cap in (("elevators", xe * inv_ell, None), ("houseelectric", xh, 32768)):
+        plan = L.build_plan_chain(pts.contiguous(), dk.coeffs, dk.variance, cap)
+        d = plan.gather.shape[0]
+        live = min(int(plan.n_lattice), plan.cnt.shape[0])
+
+        def loop(t):
+            for j in range(d + 1):
+                t = KC.chain_axis(t, plan.tapw[j], plan.gather[j] if j < d else None, plan.n_lattice, taps)
+            return t
+
+        for c in (1, 11):
+            table = KC.chain_splat(plan, torch.randn((pts.shape[0], c), generator=gen, device=dev))
+            work = table.clone()
+            equal = torch.equal(KC.chain_axes(table.clone(), plan, taps)[:live], loop(table)[:live])
+            out[f"{tag}_c{c}"] = dict(
+                n_lattice=int(plan.n_lattice), capacity=plan.cnt.shape[0], bit_equal=equal,
+                fused_ms=_ms(lambda: KC.chain_axes(work, plan, taps), reps),
+                fused_graph_ms=_graph_ms(lambda: KC.chain_axes(work, plan, taps), 20),
+                per_axis_ms=_ms(lambda: loop(table), reps // 2),
+                per_axis_graph_ms=_graph_ms(lambda: loop(table), 10))
+            del table, work
+        del plan
+    print(json.dumps(out), flush=True)
+    return out
+
+
 if __name__ == "__main__":
     import sys
 
@@ -453,6 +601,12 @@ if __name__ == "__main__":
         count_splat()
     elif "--cg" in sys.argv[1:]:
         cg_iterations()
+    elif "--factor" in sys.argv[1:]:
+        factor_steps(save=sys.argv[sys.argv.index("--save") + 1] if "--save" in sys.argv else None)
+    elif "--compare-factors" in sys.argv[1:]:
+        compare_factors(*sys.argv[sys.argv.index("--compare-factors") + 1:][:2])
+    elif "--axes" in sys.argv[1:]:
+        axes_times()
     elif "--wide-deriv" in sys.argv[1:]:
         wide_deriv()
     elif "--sharded-f64" in sys.argv[1:]:

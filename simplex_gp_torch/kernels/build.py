@@ -29,7 +29,7 @@ _BUILD = _PKG / "build"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream last).
 _SIGNATURES = {
     "sgp_lattice_geometry": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
@@ -45,7 +45,8 @@ _SIGNATURES = {
     "sgp_join_rows": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "sgp_lattice_apply_cols": [*[_P] * 11, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F,
                                _P, _P, _P, _P, _P, _I, _P],
-    "sgp_pivot_column": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "sgp_pivot_column": [_P, _LL, _LL, _P, _LL, _LL, *[_P] * 12, _I, _I, _I, _I, _F, _P],
+    "sgp_pivot_factor": [_P, _LL, _LL, _P, _LL, _LL, *[_P] * 8, _I, _I, _I, _F, _P],
     "sgp_lattice_filter_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
     "sgp_filter_once": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _F, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -70,8 +71,9 @@ _SIGNATURES = {
     "sgp_chain_splat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "sgp_chain_axis": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sgp_chain_slice": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+    "sgp_chain_axes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "sgp_chain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
-                        _P, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P],
+                        _P, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P],
     "sgp_cg_dot": [*[_P] * 5, _I, _I, _I, _I, _P, _P],
     "sgp_cg_step_x": [*[_P] * 5, _I, _I, _I, _I, *[_P] * 4],
     "sgp_cg_scale": [_P, _P, _I, _I, _P, _P],

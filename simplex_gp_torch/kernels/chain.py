@@ -1,9 +1,11 @@
 """K3', the sort-chain plan: wrappers over ``csrc/chain.cu``, beside their plain versions.
 
 K3'a ``chain_build`` builds the plan from K1's hashes, coordinate sums and
-weights; K3'b ``chain_splat``, K3'c ``chain_axis`` (one launch per lattice
-axis) and K3'd ``chain_slice`` apply it, and :func:`chain_apply` launches
-all three from one host call, as the CG runs them.  Each wrapper takes its
+weights; K3'b ``chain_splat``, K3'c and K3'd ``chain_slice`` apply it.
+K3'c is ``chain_axes``, all d+1 lattice axes in one launch with a grid
+barrier between them, or ``chain_axis``, one axis a launch (the tests' and
+the A/B's).  :func:`chain_apply` launches the splat, the fused axes and the
+slice from one host call, as the CG runs them.  Each wrapper takes its
 plain PyTorch version for CPU tensors and launches its kernels for CUDA
 tensors, raising on a failed build or launch; there is no fallback.  Each
 kernel counts its launches in the ``launches`` attribute of its wrapper
@@ -42,6 +44,8 @@ __all__ = [
     "chain_splat",
     "chain_axis_plain",
     "chain_axis",
+    "chain_axes_plain",
+    "chain_axes",
     "chain_slice_plain",
     "chain_slice",
     "run_lists",
@@ -456,6 +460,58 @@ def chain_axis(table: torch.Tensor, tapw_j: torch.Tensor, gather_j, n_lattice: t
 chain_axis.launches = 0
 
 
+def chain_axes_plain(table, plan: ChainPlan, taps):
+    """Plain fused K3'c: the d+1 axis stencils and transitions of an apply, as the fused kernel runs them.
+
+    Only the live positions are computed: a tap past the live count is
+    skipped, not multiplied by 0, and a row past it is never read.  Every
+    element takes chain_axis_plain's operations in its order, so over the
+    live rows the two agree bit for bit.  Returns the final-order table
+    (Mc, c); rows past the live count keep ``table``'s values.
+    """
+    d, order = plan.gather.shape[0], plan.tapw.shape[1]
+    live = min(int(plan.n_lattice), table.shape[0])
+    a, b = table.clone(), table.clone()
+    for j in range(d + 1):
+        t = a[:live]
+        acc = taps[order] * t
+        for k in range(1, min(order, live - 1) + 1):
+            w = plan.tapw[j, k - 1, :live - k, None]
+            acc[:live - k] = acc[:live - k] + w * t[k:]
+            acc[k:] = acc[k:] + w * t[:live - k]
+        b[:live] = acc[plan.gather[j, :live].long()] if j < d else acc
+        a, b = b, a
+    return a
+
+
+def chain_axes(table: torch.Tensor, plan: ChainPlan, taps) -> torch.Tensor:
+    """K3'c fused: the d+1 axes of ``table`` (Mc, c, axis-0 order) in one launch, the final-order table out.
+
+    A grid of resident blocks runs axis 0, then each next axis after a grid
+    barrier, the table passing between two buffers.  ``table`` is one of
+    them and is overwritten; rows past the live count are left undefined.
+    """
+    if not table.is_cuda:
+        return chain_axes_plain(table, plan, taps)
+    build.require("chain_axes", (table, torch.float32), (plan.tapw, torch.float32), (plan.gather, torch.int32),
+                  (plan.n_lattice, torch.int32))
+    (Mc, c), d, order = table.shape, plan.gather.shape[0], plan.tapw.shape[1]
+    if tuple(plan.tapw.shape) != (d + 1, order, Mc) or len(taps) != 2 * order + 1:
+        raise ValueError(f"chain_axes: taps {tuple(plan.tapw.shape)} / {len(taps)} do not fit a table of {Mc} rows "
+                         f"and {d + 1} axes")
+    other = torch.empty_like(table)
+    barrier = torch.empty(1, dtype=torch.int32, device=table.device)
+    build.check(build.library().sgp_chain_axes(table.data_ptr(), other.data_ptr(), plan.tapw.data_ptr(),
+                                               plan.gather.data_ptr(), plan.n_lattice.data_ptr(), Mc, c, d, order,
+                                               float(taps[order]), barrier.data_ptr(), build.stream()),
+                "chain_axes")
+    chain_axes.launches += 1
+    return table if (d + 1) % 2 == 0 else other
+
+
+chain_axes.launches = 0
+
+
 def chain_slice_plain(table, slice_idx, weights, n_lattice, slice_norm):
     """Plain K3'd: the barycentric sum of each point's d+1 final-order rows, in vertex order as the
     kernel sums them, NaN past the capacity (:1093-1100)."""
@@ -486,19 +542,17 @@ chain_slice.launches = 0
 
 
 def chain_apply_plain(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float) -> torch.Tensor:
-    """The plain versions of K3'b, the d+1 K3'c and K3'd in a row (apply_plan_chain, :943)."""
-    d = plan.weights.shape[1] - 1
-    table = chain_splat_plain(plan, v)
-    for j in range(d + 1):
-        table = chain_axis_plain(table, plan.tapw[j], plan.gather[j] if j < d else None, taps)
+    """The plain versions of K3'b, the fused d+1 K3'c and K3'd in a row (apply_plan_chain, :943)."""
+    table = chain_axes_plain(chain_splat_plain(plan, v), plan, taps)
     return chain_slice_plain(table, plan.slice_idx, plan.weights, plan.n_lattice, slice_norm)
 
 
 def chain_apply(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float) -> torch.Tensor:
-    """``slice_norm * S^T B_d ... B_0 S v`` for v (n, c) through a sort-chain plan: K3'b, d+1 K3'c, K3'd.
+    """``slice_norm * S^T B_d ... B_0 S v`` for v (n, c) through a sort-chain plan: K3'b, fused K3'c, K3'd.
 
-    On the card the d + 3 or d + 4 launches go out from one host call; each kernel's
-    launches are counted on its own wrapper.  All NaN when the plan's
+    On the card the three or four launches (and the fused axes' memset) go
+    out from one host call; each kernel's launches are counted on its own
+    wrapper (the fused axes on ``chain_axes``).  All NaN when the plan's
     capacity overflowed.
     """
     if not v.is_cuda:
@@ -514,13 +568,15 @@ def chain_apply(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float) -> to
     ta = torch.empty((Mc, c), dtype=torch.float32, device=dev)
     tb = torch.empty_like(ta)
     part = torch.empty((plan.piece_row.shape[0], c), dtype=torch.float32, device=dev)
+    barrier = torch.empty(1, dtype=torch.int32, device=dev)
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
     build.check(build.library().sgp_chain_apply(
         *_splat_args(plan), v.data_ptr(), n, c, Mc, d, plan.gather.data_ptr(), plan.tapw.data_ptr(), order,
         ctypes.addressof(taps_host), plan.slice_idx.data_ptr(), plan.weights.data_ptr(), float(slice_norm),
-        ta.data_ptr(), tb.data_ptr(), part.data_ptr(), out.data_ptr(), build.stream()), "chain_apply")
+        ta.data_ptr(), tb.data_ptr(), part.data_ptr(), barrier.data_ptr(), out.data_ptr(), build.stream()),
+        "chain_apply")
     chain_splat.launches += 1
-    chain_axis.launches += d + 1
+    chain_axes.launches += 1
     chain_slice.launches += 1
     return out

@@ -27,7 +27,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..kernels.pivot import pivot_column
+from ..kernels.pivot import column_major, pivot_column, pivot_factor
 
 __all__ = [
     "PivotedCholesky",
@@ -99,35 +99,41 @@ def pivoted_cholesky_features(
 
     A pivot whose residual diagonal is at most 1e-6 of the largest initial
     diagonal gets a zero column (the relative threshold of the JAX package).
-    With ``axis``, ref and diag are this rank's rows, so is L, and
-    ``pivots[j]`` is the pivot's index among this rank's rows, or -1 where
-    another rank holds it.
+    ``L`` is column-major: the (n, rank) view of a contiguous (rank, n)
+    tensor.  On one device the factor is K6's one host call
+    (:func:`~simplex_gp_torch.kernels.pivot.pivot_factor`).  With ``axis``,
+    ref and diag are this rank's rows, so is L, and ``pivots[j]`` is the
+    pivot's index among this rank's rows, or -1 where another rank holds it;
+    each step is K6' with one all-gather.
     """
-    n, dim = ref.shape
-    ref = ref.to(torch.float32).contiguous()
-    L = torch.zeros((n, rank), dtype=torch.float32, device=ref.device)
+    s = outputscale.to(torch.float32).reshape(())
+    if axis is None:
+        L, pivots = pivot_factor(ref, diag, s, nu, rank)
+        return PivotedCholesky(L=L, pivots=pivots)
+    n = ref.shape[0]
+    ref = column_major(ref.to(torch.float32))
+    L = torch.zeros((rank, n), dtype=torch.float32, device=ref.device).T
     pivots = torch.zeros(rank, dtype=torch.int64, device=ref.device)
     d = diag.to(torch.float32).contiguous()
-    d0_max = d.max() if axis is None else axis.pmax(d.max())
-    s = outputscale.to(torch.float32).reshape(())
+    d0_max = axis.pmax(d.max())
+    arg = torch.argmax(d)  # this rank's candidate; then each step's fused argmax
     for j in range(rank):
-        if axis is None:
-            d = pivot_column(ref, L, d, torch.argmax(d), j, s, d0_max, nu, pivots)
-        else:
-            piv, row = sharded_pivot(ref, L, d, axis)
-            d = pivot_column(ref, L, d, piv, j, s, d0_max, nu, pivots, row)
+        piv, row = sharded_pivot(ref, L, d, axis, arg)
+        d = pivot_column(ref, L, d, piv, j, s, d0_max, nu, pivots, row, next_piv=arg)
     return PivotedCholesky(L=L, pivots=pivots)
 
 
-def sharded_pivot(ref: torch.Tensor, L: torch.Tensor, d: torch.Tensor, axis):
+def sharded_pivot(ref: torch.Tensor, L: torch.Tensor, d: torch.Tensor, axis, arg=None):
     """The next pivot of a sharded factor: (its index in this rank's rows or -1, its rows for K6').
 
     One all-gather of a (1 + dim + k) candidate per rank -- the local largest
-    residual diagonal, that row of ref, that row of L -- and the first
-    largest in rank order wins, on every rank alike (:129-140).
+    residual diagonal (``arg``, the step's fused argmax, or torch.argmax(d)),
+    that row of ref, that row of L (a column of the column-major L^T) --
+    and the first largest in rank order wins, on every rank alike (:129-140).
     """
     dim = ref.shape[1]
-    arg = torch.argmax(d)
+    if arg is None:
+        arg = torch.argmax(d)
     at = arg.reshape(1)
     cands = axis.all_gather(torch.cat([d.index_select(0, at), ref.index_select(0, at)[0],
                                        L.index_select(0, at)[0]])[None])  # (P, 1 + dim + k)

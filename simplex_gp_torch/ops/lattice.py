@@ -14,7 +14,7 @@ builds it once and applies it many times.  There are two engines, as in JAX:
   adjacent rows, so each axis blur is a stencil over neighbouring rows, and
   the move from one axis order to the next a fixed gather.  Built by K1
   (with the coordinate sums) and K3'a (chain_build), applied by K3'b-d
-  (chain_splat, chain_axis, chain_slice), in
+  (chain_splat, chain_axes: the d+1 axes in one launch, chain_slice), in
   :mod:`simplex_gp_torch.kernels.chain`, with no atomics, so two applies
   give the same bits.  The single-device CG runs on it.
 * the join (:class:`LatticePlan`, build_plan_join / apply_plan_join): K1

@@ -11,10 +11,12 @@ from simplex_gp_torch.kernels import chain as KC
 RUN_LENGTHS = [1, 2, 3, 31, 32, 33, 1024, 1025, 2500, 5, 16, 17, 63, 64, 65, 100, 1, 2049, 3072, 4, 8, 9]
 
 
-def synthetic_chain_plan(lengths, n, seed, device="cpu", dead=3):
+def synthetic_chain_plan(lengths, n, seed, device="cpu", dead=3, axes=None):
     """A sort-chain plan with the given run lengths (its live rows) and ``dead`` rows past them, over n
-    points, seeded; only the splat's fields are filled (the axis and slice fields are empty).  Every
-    seventh weight is 0, so some contributions are 0 times a negative value, -0."""
+    points, seeded; only the splat's fields are filled (the axis and slice fields are empty), unless
+    ``axes = (d, order)``: then d + 1 axes of random taps (0 where a tap would reach past the live rows, as
+    a built plan's are) and d transitions, each a random permutation of the live rows that leaves the dead
+    rows in place.  Every seventh weight is 0, so some contributions are 0 times a negative value, -0."""
     rng = np.random.default_rng(seed)
     N = int(sum(lengths))
     cnt = torch.full((len(lengths) + dead,), N, dtype=torch.int32)
@@ -23,8 +25,19 @@ def synthetic_chain_plan(lengths, n, seed, device="cpu", dead=3):
     weights = rng.uniform(-1.0, 1.0, size=N).astype(np.float32)
     weights[::7] = 0.0
     empty = torch.zeros(0, dtype=torch.int32)
+    gather, tapw = empty, torch.zeros(0)
+    if axes is not None:
+        d, order = axes
+        live, Mc = len(lengths), len(lengths) + dead
+        gather = np.tile(np.arange(Mc, dtype=np.int32), (d, 1))
+        for j in range(d):
+            gather[j, :live] = rng.permutation(live)
+        taps = rng.uniform(-1.0, 1.0, size=(d + 1, order, Mc)).astype(np.float32)
+        for k in range(1, order + 1):
+            taps[:, k - 1, max(live - k, 0):] = 0.0
+        gather, tapw = torch.from_numpy(gather), torch.from_numpy(taps)
     plan = KC.ChainPlan(points, torch.from_numpy(weights), cnt, *KC.run_lists(cnt, len(lengths), N),
-                        empty, torch.zeros(0), empty, torch.zeros((n, 2)),
+                        gather, tapw, empty, torch.zeros((n, 2)),
                         torch.tensor(len(lengths), dtype=torch.int32))
     return KC.ChainPlan(*(t.to(device) for t in plan))
 

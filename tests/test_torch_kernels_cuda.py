@@ -54,6 +54,7 @@ from torch_parity import cuda_device, seeded  # noqa: F401 (fixture)
 from simplex_gp_torch.kernels import chain as KC
 from simplex_gp_torch.kernels import lattice as K
 from simplex_gp_torch.kernels import mixture as KM
+from simplex_gp_torch.kernels import pivot as KP
 from simplex_gp_torch.kernels.pivot import pivot_column, pivot_column_plain
 from simplex_gp_torch.ops import filter as t_filter
 from simplex_gp_torch.ops import kernels as t_kernels
@@ -931,3 +932,148 @@ def test_exact_backward_repeats_bit_for_bit_on_the_card(cuda_device):
         grads.append(torch.autograd.grad(loss, list(params.values())) + (loss.detach(),))
     assert K.lattice_apply.launches == launches
     assert all(torch.equal(u, v) for u, v in zip(*grads))
+
+
+# K6's one-step tolerance (chip_smoke.py's K6_STEP_REL): the plain step sums d2 and L.l_piv in torch's order.
+K6_STEP_REL = 1e-5
+
+
+def _k6_case(n, dim, nu, device):
+    ref = torch.from_numpy(seeded(n, dim, 1, seed=7)[0] * (1.0 if dim < 9 else 0.4)).to(device)
+    s = torch.tensor(1.3, device=device)
+    return ref, s * torch.ones(n, device=device), s
+
+
+@pytest.mark.parametrize("n,dim,k,nu", [(3000, 5, 40, 0.0), (3000, 5, 40, 1.5), (70001, 11, 100, 2.5)])
+def test_pivot_factor_is_its_steps_and_the_row_major_loop(cuda_device, n, dim, k, nu):
+    """The device factor (column-major L, the argmax fused into each step, k launches from one host call)
+    equals the loop of its one-step kernel and the same kernel's loop over a row-major L with torch.argmax
+    a pivot, bit for bit; each step, from the kernel's own state, is within K6_STEP_REL of the plain step,
+    whose argmax is the kernel's next pivot."""
+    ref, diag, s = _k6_case(n, dim, nu, cuda_device)
+    refc = KP.column_major(ref)
+    launches = pivot_column.launches
+    L, pivots = KP.pivot_factor(ref, diag, s, nu, k)
+    torch.cuda.synchronize()
+    assert L.T.is_contiguous()
+    assert pivot_column.launches - launches == k
+    Ls, ps = torch.zeros((k, n), device=cuda_device).T, torch.zeros(k, dtype=torch.int64, device=cuda_device)
+    Lr, pr = torch.zeros((n, k), device=cuda_device), torch.zeros(k, dtype=torch.int64, device=cuda_device)
+    d, dr, d0 = diag.clone(), diag.clone(), diag.max()
+    piv, nxt = torch.argmax(d), torch.zeros((), dtype=torch.int64, device=cuda_device)
+    worst = 0.0
+    for j in range(k):
+        Lp, pp = Ls.clone(), ps.clone()
+        dp = pivot_column_plain(refc, Lp, d, piv, j, s, d0, nu, pp)
+        d = pivot_column(refc, Ls, d, piv, j, s, d0, nu, ps, next_piv=nxt)
+        dr = pivot_column(ref, Lr, dr, torch.argmax(dr), j, s, d0, nu, pr)
+        worst = max(worst, float((Ls[:, j] - Lp[:, j]).norm() / Lp[:, j].norm().clamp_min(1e-30)),
+                    float((d - dp).norm() / dp.norm().clamp_min(1e-30)))
+        assert int(torch.argmax(dp)) == int(nxt), j
+        piv = nxt.clone()
+    assert worst <= K6_STEP_REL
+    assert torch.equal(L, Ls) and torch.equal(pivots, ps)
+    assert torch.equal(L, Lr) and torch.equal(pivots, pr)
+
+
+def test_pivot_factor_makes_no_host_sync(cuda_device):
+    """The whole factor, and pivoted_cholesky_features around it, under set_sync_debug_mode("error")."""
+    from simplex_gp_torch.linalg.pivoted_cholesky import pivoted_cholesky_features
+
+    ref, diag, s = _k6_case(20000, 11, 1.5, cuda_device)
+    KP.pivot_factor(ref, diag, s, 1.5, 8)  # the build, outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        L, pivots = KP.pivot_factor(ref, diag, s, 1.5, 100)
+        pc = pivoted_cholesky_features(ref, diag, 1.5, s, 100)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(pc.L, L) and torch.equal(pc.pivots, pivots)
+
+
+@pytest.mark.parametrize("nu", [0.0, 1.5])
+def test_pivot_column_at_column_major_with_the_fused_argmax(cuda_device, nu):
+    """K6' on the factor's layout: given the pivot's rows (a row of ref, a column of L^T) it is K6 bit for bit,
+    the next local argmax included; on a rank without the pivot (-1) it is the plain step."""
+    n, k = 3000, 40
+    ref, diag, s = _k6_case(n, 5, nu, cuda_device)
+    ref = KP.column_major(ref)
+    L = torch.zeros((k, n), device=cuda_device).T
+    piv = torch.zeros(k, dtype=torch.int64, device=cuda_device)
+    d0 = diag.max()
+    for j in range(k - 1):
+        diag = pivot_column_plain(ref, L, diag, torch.argmax(diag), j, s, d0, nu, piv)
+    p = torch.argmax(diag)
+    row = (ref[p].contiguous(), L[p].contiguous(), diag[p].reshape(1).clone())
+    na, nb = (torch.zeros((), dtype=torch.int64, device=cuda_device) for _ in range(2))
+    La, Lb, pa, pb = L.T.clone().T, L.T.clone().T, piv.clone(), piv.clone()
+    da = pivot_column(ref, La, diag, p, k - 1, s, d0, nu, pa, row, next_piv=na)
+    db = pivot_column(ref, Lb, diag, p, k - 1, s, d0, nu, pb, next_piv=nb)
+    torch.cuda.synchronize()
+    assert torch.equal(La, Lb) and torch.equal(da, db) and torch.equal(pa, pb) and int(na) == int(nb)
+    assert int(na) == int(torch.argmax(da))
+    away = torch.tensor(-1, dtype=torch.int64, device=cuda_device)
+    Lc, Ld, pc, pd = L.T.clone().T, L.T.clone().T, piv.clone(), piv.clone()
+    dc = pivot_column(ref, Lc, diag, away, k - 1, s, d0, nu, pc, row, next_piv=na)
+    dd = pivot_column_plain(ref, Ld, diag, away, k - 1, s, d0, nu, pd, row, next_piv=nb)
+    torch.cuda.synchronize()
+    assert float((Lc - Ld).norm() / Ld.norm()) < K6_STEP_REL and float((dc - dd).norm() / dd.norm()) < K6_STEP_REL
+    assert int(pc[k - 1]) == -1 == int(pd[k - 1]) and int(na) == int(nb)
+
+
+def _axes_loop(table, plan, taps):
+    d = plan.gather.shape[0]
+    for j in range(d + 1):
+        table = KC.chain_axis(table, plan.tapw[j], plan.gather[j] if j < d else None, plan.n_lattice, taps)
+    return table
+
+
+@pytest.mark.parametrize("c", [1, 11, 17])
+@pytest.mark.parametrize("case", ["synthetic", "synthetic order 3", "elevators", "trim", "over"])
+def test_fused_chain_axes_match_plain_and_the_axis_launches(cuda_device, case, c):
+    """K3'c fused (one launch, a grid barrier between axes; order 1 its own kernel, order 3 the generic
+    one) equals its plain twin and the d+1 per-axis launches over the live rows, bit for bit; chain_apply
+    counts one fused launch, no per-axis one, and a CUDA graph of the apply replays to the same bits."""
+    order = 3 if case.endswith("order 3") else 1
+    dk = _dk("matern", order)
+    taps = [float(t) for t in dk.coeffs]
+    if case.startswith("synthetic"):
+        plan = synthetic_chain_plan(RUN_LENGTHS, 500, seed=c, device=cuda_device, axes=(7, order))
+    else:
+        x = _positions(10623, 18, 12, cuda_device) if case == "elevators" else \
+            torch.from_numpy(chain_class_positions()).to(cuda_device)
+        occ = int(t_lattice.build_plan_chain(x, dk.coeffs, dk.variance).n_lattice)
+        cap = {"elevators": None, "trim": occ, "over": occ - 1}[case]
+        plan = t_lattice.build_plan_chain(x, dk.coeffs, dk.variance, cap)
+    live = min(int(plan.n_lattice), plan.cnt.shape[0])
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    table = torch.randn((plan.cnt.shape[0], c), generator=gen, device=cuda_device)
+    want = KC.chain_axes_plain(table, plan, taps)
+    loop = _axes_loop(table, plan, taps)
+    before = (KC.chain_axes.launches, KC.chain_axis.launches)
+    got = KC.chain_axes(table.clone(), plan, taps)
+    torch.cuda.synchronize()
+    assert (KC.chain_axes.launches - before[0], KC.chain_axis.launches - before[1]) == (1, 0)
+    assert torch.equal(got[:live], want[:live]) and torch.equal(got[:live], loop[:live])
+    if case.startswith("synthetic"):
+        return
+    v = torch.randn((plan.weights.shape[0], c), generator=gen, device=cuda_device)
+    before = (KC.chain_axes.launches, KC.chain_axis.launches)
+    out = t_lattice.apply_plan_chain(plan, v, dk.coeffs)
+    assert (KC.chain_axes.launches - before[0], KC.chain_axis.launches - before[1]) == (1, 0)
+    pout = KC.chain_apply_plain(plan, v, taps, t_lattice.SLICE_NORM(plan.weights.shape[1] - 1))
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        replayed = t_lattice.apply_plan_chain(plan, v, dk.coeffs)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    if case == "over":
+        assert bool(torch.isnan(out).all() and torch.isnan(pout).all() and torch.isnan(replayed).all())
+    else:
+        assert torch.equal(out, pout) and torch.equal(replayed, out)
