@@ -60,10 +60,15 @@ Phases, each printed as it runs:
      two gloo ranks sharing the card (``simplex_gp_torch.parallel.launch``):
      K11b and one K6' step against their plain versions on each rank, the
      rank-100 sharded factor against one process's, the sharded filter
-     against K3 on one process, the NLML and raw gradients of
-     ``data_parallel_loss_fn`` against one process with the same probes, the
-     CG iteration counts, one Adam step (parameters bit-equal on both
-     ranks), the step's stages with the transport apart; and
+     against K3 on one process, K10' (the sharded CG's cg_step_x, cg_step_p
+     and cg_init given both ranks' gathered partials) against their plain
+     twins bit for bit from a state three iterations into the step's CG, the
+     NLML and raw gradients of ``data_parallel_loss_fn`` against one process
+     with the same probes, the CG iteration counts, best residuals and SLQ
+     record the same bits on both ranks, the CG's collectives an iteration
+     (3), one Adam step (parameters bit-equal on both ranks), the step's
+     stages with the transport apart, the J = 8 mixture's data-parallel NLML
+     and gradients against one process's K12 mixture; and
      ``simplex_gp_torch.scaling``'s records on one NCCL rank and on the two
      gloo ranks.  Then one line of K10 (the CG iteration) times;
   8. the Gaussian-mixture kernel path at elevators' width (J = 8 RBF
@@ -153,7 +158,7 @@ Phases, each printed as it runs:
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- for K5, on the trainer run; for K7, on
 the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9,
-its row lists and the bounded K2, on the houseelectric trainer run; for K11a, K11b and K6',
+its row lists and the bounded K2, on the houseelectric trainer run; for K11a, K11b, K6' and K10',
 on the two ranks' data-parallel NLML step; for K12, on the mixture trainer
 run; for K13, on the SKIP trainer run; for K3', in one training step (the
 per-axis K3'c, chain_axis, is off the path since the fused axes: 0); for
@@ -383,6 +388,11 @@ KERNEL_ROWS = {
     "cg_precond": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:147"),
     "cg_step_p": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:150"),
     "cg_init": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:118"),
+    # K10', the same body over sharded rows (every dot a psum, cg.py:113-115): the three kernels that reduce a
+    # dot, given every rank's gathered block partials; P = 2 on the gloo ranks, launches on their NLML step.
+    "cg_step_x_sharded": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:113"),
+    "cg_step_p_sharded": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:113"),
+    "cg_init_sharded": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:113"),
 }
 
 
@@ -1436,25 +1446,26 @@ def parallel_rank(axis, case):
     the parent holds against one process's; the data-parallel NLML and
     gradients (``data_parallel_loss_fn``) with the kernels' launch counts of
     that run; one Adam step; the step's stages by CUDA events and its
-    transport by the axis's timed collectives; then
-    ``simplex_gp_torch.scaling``'s records.  Returns numpy arrays and numbers.
+    transport by the axis's timed collectives; K10' (the sharded CG's three
+    reducing kernels given every rank's partials) against their plain twins
+    from a saved state three iterations into the step's CG; that CG's
+    collectives between consecutive MVMs; the J = 8 mixture's data-parallel
+    NLML, gradients and warm step (the mixture golden file's median init and
+    weights); then ``simplex_gp_torch.scaling``'s records.  Returns numpy
+    arrays and numbers.
     """
     import dataclasses
 
     import torch
 
     import simplex_gp_torch
-    from simplex_gp_torch import scaling
+    from simplex_gp_torch import convert, scaling
+    from simplex_gp_torch.kernels import cg as K10
     from simplex_gp_torch.kernels import lattice as K
     from simplex_gp_torch.kernels.pivot import pivot_column, pivot_column_plain
     from simplex_gp_torch.linalg import mll
-    from simplex_gp_torch.linalg.cg import cg_solve
-    from simplex_gp_torch.linalg.pivoted_cholesky import (
-        pivoted_cholesky_features,
-        precond_solve,
-        precond_sqrt,
-        sharded_pivot,
-    )
+    from simplex_gp_torch.linalg.cg import CGLoop, cg_solve
+    from simplex_gp_torch.linalg.pivoted_cholesky import pivoted_cholesky_features, precond_sqrt, sharded_pivot
     from simplex_gp_torch.ops import lattice as L
     from simplex_gp_torch.parallel import build_plan_sharded_join, data_parallel_loss_fn, replicate, shard_batch
 
@@ -1512,7 +1523,29 @@ def parallel_rank(axis, case):
         out.update(k6_step_rel=max(rel(La[:, k - 1], Lb[:, k - 1]), rel(da, db)), k6_step_piv=int(piv),
                    k6_step_pivots_equal=bool(torch.equal(pa, pb)))
 
-    path = (K.lattice_geometry, K.lattice_dedup_ordered, K.lattice_apply_sharded, K.lattice_filter_grad)
+    # K10': the step's CG as _solve_system poses it (the sharded plan, the rank-100 preconditioner, [y | P^1/2 z],
+    # the shift, the 100-step record), three iterations in, then its three reducing kernels against their twins.
+    acfg = dataclasses.replace(cfg, axis=axis)
+    with torch.no_grad():
+        params = model.constrained()
+        ref = x * params["inv_ell"]
+        plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
+        P = mll.build_precond(dk, acfg, params, ref, axis.n_global(x.shape[0]))
+        s, noise = params["outputscale"], params["noise"]
+        rhs = torch.cat([(y - params["mean"])[:, None], precond_sqrt(P, z, axis)], dim=-1)
+
+        def cg_mv(V):
+            return L.apply_plan_join(plan, V, dk.coeffs, axis=axis)
+
+        loop = CGLoop(cg_mv, rhs, tol=cfg.cg_tolerance, max_iters=cfg.max_cg_iterations, precond=P, tridiag_m=100,
+                      shift=(s, noise), axis=axis)
+        for _ in range(3):
+            loop.iteration()
+        out["k10_sharded"] = k10_sharded_pairs(loop, axis, 20)
+        del loop
+
+    path = (K.lattice_geometry, K.lattice_dedup_ordered, K.lattice_apply_sharded, K.lattice_filter_grad,
+            K10.cg_dot, K10.cg_step_x, K10.cg_scale, K10.cg_precond, K10.cg_step_p, K10.cg_init)
     for fn in path:
         fn.launches = 0
     pivot_column.sharded_launches = 0
@@ -1521,13 +1554,15 @@ def parallel_rank(axis, case):
     loss, grads = step(x, y, probes=z, stats=stats)
     out["launches"] = {fn.__name__: fn.launches for fn in path}
     out["launches"]["pivot_column_at"] = pivot_column.sharded_launches
-    out.update(loss=float(loss), grads={k: g.cpu().numpy() for k, g in grads.items()}, cg_iters=stats["cg_iters"])
+    for name in ("cg_step_x", "cg_step_p", "cg_init"):  # K10''s rows: the reducing kernels on this sharded step
+        out["launches"][f"{name}_sharded"] = out["launches"][name]
+    out.update(loss=float(loss), grads={k: g.cpu().numpy() for k, g in grads.items()}, cg_iters=stats["cg_iters"],
+               cg_res=stats["cg_res"])
     opt = torch.optim.Adam(model.parameters(), lr=0.1)
     opt.step()
     out["params"] = {k: p.detach().cpu().numpy() for k, p in model.named_parameters()}
 
     # The stages of one step, as mll._solve_system and data_parallel_loss_fn run them.
-    acfg = dataclasses.replace(cfg, axis=axis)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
     model.zero_grad(set_to_none=True)
     with torch.no_grad():
@@ -1539,10 +1574,10 @@ def parallel_rank(axis, case):
         P = mll.build_precond(dk, acfg, params, ref, axis.n_global(x.shape[0]))
         ev[2].record()
         s, noise = params["outputscale"], params["noise"]
-        res = cg_solve(lambda V: s * L.apply_plan_join(plan, V, dk.coeffs, axis=axis) + noise * V,
-                       torch.cat([(y - params["mean"])[:, None], precond_sqrt(P, z, axis)], dim=-1),
-                       tol=cfg.cg_tolerance, max_iters=cfg.max_cg_iterations,
-                       precond=lambda V: precond_solve(P, V, axis), tridiag_m=100, axis=axis)
+        rhs = torch.cat([(y - params["mean"])[:, None], precond_sqrt(P, z, axis)], dim=-1)
+        cg_kw = dict(tol=cfg.cg_tolerance, max_iters=cfg.max_cg_iterations, precond=P, tridiag_m=100, axis=axis,
+                     shift=(s, noise))
+        res = cg_solve(lambda V: L.apply_plan_join(plan, V, dk.coeffs, axis=axis), rhs, **cg_kw)
         ev[3].record()
     ev[4].record()
     loss = model.nlml(x, y, probes=z, axis=axis)
@@ -1560,6 +1595,28 @@ def parallel_rank(axis, case):
     names = ("plan", "preconditioner", "cg", None, "forward", "backward", "grad_psum", "adam")
     stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names) if nm}
     stages["cg_iters"] = res.iterations
+    out["cg_state"] = dict(iterations=res.iterations, residual=res.residual_norm.cpu().numpy(),
+                           alphas=res.alphas.cpu().numpy(), betas=res.betas.cpu().numpy())
+
+    # The CG's own collectives: those between one MVM's end and the next one's start (an iteration's), and
+    # the solve's in all less the MVMs'.
+    marks, mvm_calls = [], []
+
+    def counted_mv(V):
+        c0 = axis.stats["calls"]
+        out_ = L.apply_plan_join(plan, V, dk.coeffs, axis=axis)
+        marks.append((c0, axis.stats["calls"]))
+        mvm_calls.append(axis.stats["calls"] - c0)
+        return out_
+
+    axis.timing = True
+    axis.reset_stats()
+    with torch.no_grad():
+        res_c = cg_solve(counted_mv, rhs, **cg_kw)
+    axis.timing = False
+    between = sorted({b0 - a1 for (_, a1), (b0, _) in zip(marks, marks[1:])})
+    stages.update(cg_collectives=axis.stats["calls"] - sum(mvm_calls), cg_collectives_an_iteration=between,
+                  cg_mvm_collectives=sum(mvm_calls), cg_iters_counted=res_c.iterations)
 
     def train_step_():
         step(x, y, probes=z)
@@ -1579,6 +1636,17 @@ def parallel_rank(axis, case):
                   kernels_and_host_ms=timed_ms - 1e3 * comm["seconds"], collectives=comm["calls"],
                   transport_bytes=comm["bytes"])
     out["stages"] = stages
+
+    # The J = 8 mixture on the same rows and probes: one sharded plan per component.
+    mix = convert.mixture_model_from_jax(case["mixture_raw"], case["mixture_weights"], nu=1.5, order=1,
+                                         min_noise=0.1, bbmm=cfg, device=dev)
+    replicate(axis, mix)
+    mix_step = data_parallel_loss_fn(mix, axis)
+    mix_stats = {}
+    loss, grads = mix_step(x, y, probes=z, stats=mix_stats)
+    out["mixture"] = dict(loss=float(loss), grads={k: g.cpu().numpy() for k, g in grads.items()},
+                          cg_iters=mix_stats["cg_iters"], cg_res=mix_stats["cg_res"],
+                          warm_step_ms=cuda_ms(lambda: mix_step(x, y, probes=z), 2))
     out["scaling"] = scaling.records(axis, case["scaling_argv"])
     return out
 
@@ -1586,12 +1654,13 @@ def parallel_rank(axis, case):
 def parallel_case(ds, nprocs: int) -> dict:
     """Phase 7's problem: the elevators rows shard_batch keeps over ``nprocs`` ranks, the median init of
     elevators_train_golden.npz, its probes, and 11 filter columns, as numpy arrays."""
-    golden = np.load(TRAIN_GOLDEN)
+    golden, mixture = np.load(TRAIN_GOLDEN), np.load(MIXTURE_GOLDEN)
     n = (ds.train_x.shape[0] // nprocs) * nprocs
     return dict(d=ds.train_x.shape[1], x=ds.train_x[:n], y=ds.train_y[:n],
                 z=np.random.default_rng(int(golden["seed_init"])).choice([-1.0, 1.0], size=(n, 10)).astype(np.float32),
                 v=np.random.default_rng(7).normal(size=(n, 11)).astype(np.float32),
                 raw={k: golden[f"init_{k}"] for k in RAW_NAMES},
+                mixture_raw={k: mixture[f"init_{k}"] for k in RAW_NAMES}, mixture_weights=mixture["weights"],
                 cfg=dict(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
                          num_probes=10),
                 scaling_argv=["--rows", str(n), "-d", str(ds.train_x.shape[1]), "--cols", "11", "--reps", "3"])
@@ -1739,6 +1808,8 @@ def parallel_phase(dev, ds, expect, timer):
     row_p2, launches, rec_p2 = ranks_phase(dev, ds, expect, 2, "gloo")
     rows["lattice_apply_sharded"].update(gloo_p2_ms=row_p2["ranks_ms"], gloo_p2_timed_ms=row_p2["ranks_timed_ms"],
                                          gloo_p2_transport_ms=row_p2["ranks_transport_ms"])
+    for name, row in row_p2["k10_sharded"].items():  # rank 0's K10' times at P = 2
+        rows[f"{name}_sharded"] = {k_: v_ for k_, v_ in row.items() if k_ != "bit_equal"}
     record.update(rec_p2, launch_wall_s=time.perf_counter() - t0)
     return rows, launches, record
 
@@ -1820,6 +1891,53 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
     print(f"    launches on the data-parallel NLML step, all ranks: {launches}")
     expect(all(r["launches"][name] > 0 for r in ranks for name in launches),
            "every kernel of the path launched on each rank")
+
+    # K10': the sharded CG on K10's kernels.
+    for i, r in enumerate(ranks):
+        k10p = r["k10_sharded"]
+        expect(all(v_["bit_equal"] for v_ in k10p.values()),
+               f"rank {i}: K10' cg_step_x / cg_step_p / cg_init given the {nprocs} ranks' gathered partials vs "
+               f"their plain twins from one state three iterations into the step's CG: bit-equal "
+               f"{[v_['bit_equal'] for v_ in k10p.values()]}; ms " + ", ".join(
+                   f"{nm} {v_['ms']:.4f} (plain {v_['plain_ms']:.4f}, bound {v_['bound_ms']:.5f})"
+                   for nm, v_ in k10p.items()))
+    st0 = ranks[0]["cg_state"]
+    same_cg = all(r["cg_state"]["iterations"] == st0["iterations"] and r["cg_iters"] == ranks[0]["cg_iters"]
+                  and r["cg_res"] == ranks[0]["cg_res"]
+                  and all(np.array_equal(r["cg_state"][k_], st0[k_]) for k_ in ("residual", "alphas", "betas"))
+                  for r in ranks)
+    expect(same_cg, f"the sharded CG's iterations ({st0['iterations']}; the NLML step's {iters}), best residuals, "
+           f"SLQ record and the step's mean residual are the same bits on every rank")
+    per_it = [r["stages"]["cg_collectives_an_iteration"] for r in ranks]
+    print(f"    the sharded CG's collectives: {[r['stages']['cg_collectives'] for r in ranks]} over "
+          f"{[r['stages']['cg_iters_counted'] for r in ranks]} iterations, an iteration {per_it} (the MVMs' "
+          f"{[r['stages']['cg_mvm_collectives'] for r in ranks]} apart)")
+    expect(all(p_ == [3] for p_ in per_it), f"3 collectives an iteration of the sharded CG: {per_it}")
+
+    # The J = 8 mixture, data-parallel against one process's K12 on the same rows and probes.
+    from simplex_gp_torch import convert
+
+    mix = convert.mixture_model_from_jax(case["mixture_raw"], case["mixture_weights"], nu=1.5, order=1,
+                                         min_noise=0.1, bbmm=model.bbmm, device=dev)
+    mix_stats = {}
+    mix_loss = mix.nlml(x, y, probes=z, stats=mix_stats)
+    mix_loss.backward()
+    m_losses = [r["mixture"]["loss"] for r in ranks]
+    m_dl = abs(m_losses[0] - float(mix_loss.detach()))
+    expect(len(set(m_losses)) == 1 and m_dl <= NLML_ATOL,
+           f"J = 8 mixture NLML {m_losses} on the ranks (one sharded plan a component) vs "
+           f"{float(mix_loss.detach()):.6f} on one process (K12; |diff| {m_dl:.2e}, limit {NLML_ATOL}); CG "
+           f"iterations {[r['mixture']['cg_iters'] for r in ranks]} (one process {mix_stats['cg_iters']})")
+    for name in RAW_NAMES:
+        gb = getattr(mix, name).grad.detach().cpu().numpy().astype(np.float64).ravel()
+        ga = ranks[0]["mixture"]["grads"][name].astype(np.float64).ravel()
+        same = all(np.array_equal(r["mixture"]["grads"][name], ranks[0]["mixture"]["grads"][name]) for r in ranks)
+        c_, r_ = cosine(ga, gb), float(np.linalg.norm(ga - gb) / np.linalg.norm(gb))
+        expect(c_ >= GRAD_COS and r_ <= GRAD_REL and same,
+               f"mixture d/d{name} on the ranks (bit-equal across ranks: {same}) vs one process: cos {c_:.6f} "
+               f"(limit {GRAD_COS}), rel {r_:.2e} (limit {GRAD_REL})")
+        record[f"mixture_grad_rel_{name}"] = r_
+    print(f"    mixture warm data-parallel step (ms, CUDA events): {[r['mixture']['warm_step_ms'] for r in ranks]}")
     for i, r in enumerate(ranks):
         print(f"    rank {i}: step stages (ms) " + json.dumps({k_: round(v_, 3) if isinstance(v_, float) else v_
                                                               for k_, v_ in r["stages"].items()})
@@ -1831,9 +1949,14 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
     record.update(ranks=nprocs, backend=backend, filter_rel=r_f, k11b_rel=r11b, k6_step_rel=steps, k6_step_piv=pivs,
                   factor_llt_rel=r_llt, factor_bit_equal=same_L, nlml_diff=dl, losses=losses, cg_iters=iters,
                   cg_iters_single=stats["cg_iters"], params_equal=equal, launches=launches,
-                  stages=[r["stages"] for r in ranks], scaling=ranks[0]["scaling"])
+                  stages=[r["stages"] for r in ranks], scaling=ranks[0]["scaling"],
+                  k10_sharded=[r["k10_sharded"] for r in ranks], cg_state_equal=same_cg,
+                  mixture=dict(losses=m_losses, nlml_diff=m_dl, cg_iters=[r["mixture"]["cg_iters"] for r in ranks],
+                               cg_iters_single=mix_stats["cg_iters"],
+                               warm_step_ms=[r["mixture"]["warm_step_ms"] for r in ranks]))
     return (dict(ranks_ms=[r["apply_ms"] for r in ranks], ranks_timed_ms=[r["apply_timed_ms"] for r in ranks],
-                 ranks_transport_ms=[r["apply_transport_ms"] for r in ranks]), launches, record)
+                 ranks_transport_ms=[r["apply_transport_ms"] for r in ranks], k10_sharded=ranks[0]["k10_sharded"]),
+            launches, record)
 
 
 def mixture_phase(dev, ds, expect, timer):
@@ -2771,18 +2894,68 @@ def chain_phase(dev, ds, expect, timer, stage_times):
     return rows, launches, record
 
 
-def k10_cost(name: str, n: int, t: int, k: int, nb: int, better_cols: int) -> tuple:
+def k10_cost(name: str, n: int, t: int, k: int, nb: int, better_cols: int, ranks: int = 1) -> tuple:
     """(bytes, ops) of one K10 kernel at (n, t): each vector read once and written once, the block partials
-    and the state counted with them; cg_step_p writes the best iterate of the columns that improved."""
-    vec = 4 * n * t
+    and the state counted with them (every rank's partials read, for K10' at ``ranks`` > 1); cg_step_p writes
+    the best iterate of the columns that improved."""
+    vec, part = 4 * n * t, 4 * nb * t
     return {
-        "cg_dot": (3 * vec + 4 * nb * t, 5 * n * t),  # p, K p in; A p out; s K p + noise p, the products and sums
-        "cg_step_x": (6 * vec + 8 * nb * t, 6 * n * t),  # x, r, p, A p in; x, r out
+        "cg_dot": (3 * vec + part, 5 * n * t),  # p, K p in; A p out; s K p + noise p, the products and sums
+        "cg_step_x": (6 * vec + (ranks + 1) * part, 6 * n * t),  # x, r, p, A p in; x, r out
         "cg_scale": (4 * (2 * k * t + k), k * t),  # U^T r and w in; the scaled block out
-        "cg_precond": (3 * vec + 4 * nb * t, 4 * n * t),  # r, U (w U^T r) in; z out
-        "cg_step_p": (3 * vec + 8 * n * better_cols + 8 * nb * t, 2 * n * t),  # z, p in; p out; x -> x_best
-        "cg_init": (8 * nb * t, 3 * t),  # the two dots' partials in
+        "cg_precond": (3 * vec + part, 4 * n * t),  # r, U (w U^T r) in; z out
+        "cg_step_p": (3 * vec + 8 * n * better_cols + 2 * ranks * part, 2 * n * t),  # z, p in; p out; x -> x_best
+        "cg_init": (2 * ranks * part, 3 * t),  # the two dots' partials in
     }[name]
+
+
+def k10_sharded_pairs(loop, axis, reps: int) -> dict:
+    """Phase 7.3's K10' check on one rank: cg_step_x, cg_step_p and cg_init given every rank's block partials,
+    all-gathered as the sharded loop gathers them, against their plain twins from ``loop``'s saved state
+    (a sharded CGLoop some iterations in), bit for bit; each timed beside its twin (CUDA events).
+
+    Every rank must call it at the same point: the MVM and the gathers are collectives.
+    """
+    import torch
+
+    from simplex_gp_torch.kernels import cg as K10
+
+    S = {k_: getattr(loop, k_).clone() for k_ in ("x", "r", "p", "x_best", "fs", "is_", "A", "B", "TM", "z",
+                                                  "part_rr")}
+    kp = loop.matmul(S["p"]).contiguous()
+    ap, part_pap = torch.empty_like(kp), torch.empty_like(loop.part_pap)
+    K10.cg_dot(S["p"], kp, part_pap, loop.scale, loop.noise, ap)
+    pap = axis.all_gather_blocks(part_pap)  # (P, nb, t)
+    rr, rz = axis.all_gather_blocks(loop.part2).transpose(0, 1)  # two (P, nb, t) views, the ranks' r . r and r . z
+    quiet = loop.rules._replace(tol=0.0, floor=2 ** 30, max_iters=2 ** 30, stall_window=0)
+    calls = {
+        "cg_step_x": (K10.cg_step_x, K10.cg_step_x_plain, ("x", "r", "fs", "is_", "part_rr"),
+                      lambda f, T, R: f(pap, T["x"], T["r"], T["p"], ap, T["fs"], T["is_"], T["part_rr"])),
+        "cg_step_p": (K10.cg_step_p, K10.cg_step_p_plain, ("p", "x_best", "fs", "is_", "A", "B", "TM"),
+                      lambda f, T, R: f(rz, rr, T["x"], T["z"], T["p"], T["x_best"], T["fs"], T["is_"], T["A"],
+                                        T["B"], T["TM"], R)),
+        "cg_init": (K10.cg_init, K10.cg_init_plain, ("fs", "is_"),
+                    lambda f, T, R: f(rr, rz, T["fs"], T["is_"], R.max_iters)),
+    }
+    n, t = S["x"].shape
+    nb = loop.part_pap.shape[0]
+    out = {}
+    for name, (kernel, plain, mutable, call) in calls.items():
+        copy = lambda: {k_: (v.clone() if k_ in mutable else v) for k_, v in S.items()}
+        Kk, Pp = copy(), copy()
+        call(kernel, Kk, loop.rules)
+        call(plain, Pp, loop.rules)
+        torch.cuda.synchronize()
+        better = int((K10.state_views(Kk["fs"], Kk["is_"]).res_best < K10.state_views(S["fs"], S["is_"]).res_best
+                      ).sum()) if name == "cg_step_p" else 0
+        Tk, Tp = copy(), copy()
+        out[name] = dict(
+            bit_equal=all(torch.equal(Kk[k_], Pp[k_]) for k_ in mutable),
+            max_abs_err=max(float((Kk[k_].double() - Pp[k_].double()).abs().nan_to_num().max()) for k_ in mutable),
+            ms=cuda_ms(lambda: call(kernel, Tk, quiet), reps), plain_ms=cuda_ms(lambda: call(plain, Tp, quiet), 3),
+            **bound(*k10_cost(name, n, t, loop.U.shape[1], nb, better, axis.size)), library_ms=None,
+            shape=f"n={n} a rank, c={t}, P = {axis.size} ({axis.transport}), nb={nb}")
+    return out
 
 
 def k10_pairs(loop, timer, reps: int) -> dict:
@@ -2806,8 +2979,9 @@ def k10_pairs(loop, timer, reps: int) -> dict:
         return float((a.double() - b.double()).abs().nan_to_num().max()) if a.numel() else 0.0
 
     rules, quiet = loop.rules, loop.rules._replace(tol=0.0, floor=2 ** 30, max_iters=2 ** 30, stall_window=0)
+    # b . b's partials stand in as r . r's (the loop keeps b . b in r . r's half until its first iteration).
     S = dict(x=loop.x, r=loop.r, p=loop.p, x_best=loop.x_best, fs=loop.fs, is_=loop.is_, part_pap=loop.part_pap,
-             part_rr=loop.part_rr, part_rz=loop.part_rz, part_bb=loop.part_bb, A=loop.A, B=loop.B, TM=loop.TM,
+             part_rr=loop.part_rr, part_rz=loop.part_rz, part_bb=loop.part_rr, A=loop.A, B=loop.B, TM=loop.TM,
              G=loop.G, G2=loop.G2, H=loop.H, z=loop.z, ap=loop.ap)
     S = {k_: (v.clone() if v is not None else None) for k_, v in S.items()}
     S["kp"] = loop.matmul(S["p"]).contiguous()

@@ -30,6 +30,12 @@
 //     block b writes its partial sum to part[b, col];
 //   stage 2 (every block of the kernel that needs the dot): the nb partials
 //     of each column are folded in halves in shared memory (a tree over b).
+// Sharded rows (K10', the data-parallel CG): each of P ranks writes its own
+// (nb, t) partials, the caller all-gathers them into a (P, nb, t) buffer, and
+// stage 2 folds each rank's nb partials as above, then adds the P rank sums
+// in rank order 0 .. P-1.  Every rank reduces the same gathered bytes, so
+// every stop decision is the same bits on every rank; P = 1 is the
+// one-device arithmetic exactly.
 // Every block computes the same sums in the same order, and every multiply
 // and add is an explicit round-to-nearest operation, so kernels/cg.py's
 // plain twins, which add in the same order, give the same bits.  A lane
@@ -71,15 +77,26 @@ __device__ __forceinline__ void cg_block_fold(float acc, float* sm, int rr, int 
   }
 }
 
-// Stage 2: the column sums of part (nb, t), folded in halves over the rows;
-// leaves them in sm[0 .. t).  Every thread of the block must call it.
-__device__ __forceinline__ void cg_sum_partials(const float* __restrict__ part, int nb, int t, float* sm) {
-  for (int e = threadIdx.x; e < nb * t; e += blockDim.x) sm[e] = part[e];
-  __syncthreads();
-  for (int h = nb >> 1; h > 0; h >>= 1) {
-    for (int e = threadIdx.x; e < h * t; e += blockDim.x) sm[e] = __fadd_rn(sm[e], sm[e + h * t]);
+// Stage 2: the column sums of part (P, nb, t), rank q's block at part + q pstride:
+// each rank's nb partials folded in halves over the rows, then the P rank sums
+// added in rank order; leaves them in sm[0 .. t).  Every thread of the block
+// must call it.
+__device__ __forceinline__ void cg_sum_partials(const float* __restrict__ part, int P, long long pstride, int nb,
+                                                int t, float* sm) {
+  float s = 0.0f;
+  for (int q = 0; q < P; ++q) {
+    const float* __restrict__ pq = part + q * pstride;
+    for (int e = threadIdx.x; e < nb * t; e += blockDim.x) sm[e] = pq[e];
     __syncthreads();
+    for (int h = nb >> 1; h > 0; h >>= 1) {
+      for (int e = threadIdx.x; e < h * t; e += blockDim.x) sm[e] = __fadd_rn(sm[e], sm[e + h * t]);
+      __syncthreads();
+    }
+    if (threadIdx.x < t) s = q == 0 ? sm[threadIdx.x] : __fadd_rn(s, sm[threadIdx.x]);
+    __syncthreads();  // the next rank's load overwrites sm
   }
+  if (threadIdx.x < t) sm[threadIdx.x] = s;
+  __syncthreads();
 }
 
 __device__ __forceinline__ float cg_nanmin(float a, float b) {
@@ -129,15 +146,16 @@ __global__ void cg_dot_kernel(const float* __restrict__ u, const float* __restri
   if (threadIdx.x < t) part[(long long)blockIdx.x * t + threadIdx.x] = sm[threadIdx.x];
 }
 
-// pap from its partials; alpha; x += alpha p, r -= alpha ap; partials of r . r.
-// Block 0 writes alpha, pap and the iteration's snapshots.
-__global__ void cg_step_x_kernel(const float* __restrict__ part_pap, float* __restrict__ x, float* __restrict__ r,
-                                 const float* __restrict__ p, const float* __restrict__ ap, int n, int t, int rp,
-                                 float* fs, int* is, float* __restrict__ part_rr) {
+// pap from its partials (P ranks'); alpha; x += alpha p, r -= alpha ap; this
+// rank's partials of r . r.  Block 0 writes alpha, pap and the iteration's snapshots.
+__global__ void cg_step_x_kernel(const float* __restrict__ part_pap, int P, long long pap_stride,
+                                 float* __restrict__ x, float* __restrict__ r, const float* __restrict__ p,
+                                 const float* __restrict__ ap, int n, int t, int rp, float* fs, int* is,
+                                 float* __restrict__ part_rr) {
   const CgState st = cg_state(fs, is, t);
   __shared__ float sm[CG_TREE];
   __shared__ float alpha_s[CG_THREADS];
-  cg_sum_partials(part_pap, gridDim.x, t, sm);
+  cg_sum_partials(part_pap, P, pap_stride, gridDim.x, t, sm);
   if (threadIdx.x < t) {
     const int col = threadIdx.x;
     const float pap = sm[col], rz = st.rz[col];
@@ -241,10 +259,11 @@ struct CgRules {
   int floor, max_iters, stall_window, column_mode, m;
 };
 
-// rz_new and r . r from their partials; beta; p = z + beta p; the best
+// rz_new and r . r from their partials (P ranks'); beta; p = z + beta p; the best
 // iterate; block 0: the best residual, the record, the stall guard, the stop
 // rules, rz, it and the stop flag.
-__global__ void cg_step_p_kernel(const float* __restrict__ part_rz, const float* __restrict__ part_rr,
+__global__ void cg_step_p_kernel(const float* __restrict__ part_rz, const float* __restrict__ part_rr, int P,
+                                 long long rz_stride, long long rr_stride,
                                  const float* __restrict__ x, const float* __restrict__ z, float* __restrict__ p,
                                  float* __restrict__ x_best, int n, int t, int rp, float* fs, int* is,
                                  float* __restrict__ rec_a, float* __restrict__ rec_b, int* __restrict__ rec_m,
@@ -254,10 +273,10 @@ __global__ void cg_step_p_kernel(const float* __restrict__ part_rz, const float*
   __shared__ float rzn_s[CG_THREADS], beta_s[CG_THREADS], res_s[CG_THREADS], rb_s[CG_THREADS];
   __shared__ int better_s[CG_THREADS], broken_s[CG_THREADS], done_s[CG_THREADS];
   __shared__ int stop_all_s, stalled_s;
-  cg_sum_partials(part_rz, gridDim.x, t, sm);
+  cg_sum_partials(part_rz, P, rz_stride, gridDim.x, t, sm);
   if (threadIdx.x < t) rzn_s[threadIdx.x] = sm[threadIdx.x];
   __syncthreads();
-  cg_sum_partials(part_rr, gridDim.x, t, sm);
+  cg_sum_partials(part_rr, P, rr_stride, gridDim.x, t, sm);
   if (threadIdx.x < t) {
     const int col = threadIdx.x;
     const int done = st.done_prev[col];
@@ -354,16 +373,17 @@ __global__ void cg_step_p_kernel(const float* __restrict__ part_rz, const float*
   }
 }
 
-// The state at iteration 0 from the partials of b . b and r0 . z0.
-__global__ void cg_init_kernel(const float* __restrict__ part_bb, const float* __restrict__ part_rz, int nb, int t,
-                               float* fs, int* is, int max_iters) {
+// The state at iteration 0 from the partials (P ranks') of b . b and r0 . z0.
+__global__ void cg_init_kernel(const float* __restrict__ part_bb, const float* __restrict__ part_rz, int P,
+                               long long bb_stride, long long rz_stride, int nb, int t, float* fs, int* is,
+                               int max_iters) {
   const CgState st = cg_state(fs, is, t);
   __shared__ float sm[CG_TREE];
   __shared__ float bb_s[CG_THREADS];
-  cg_sum_partials(part_bb, nb, t, sm);
+  cg_sum_partials(part_bb, P, bb_stride, nb, t, sm);
   if (threadIdx.x < t) bb_s[threadIdx.x] = sm[threadIdx.x];
   __syncthreads();
-  cg_sum_partials(part_rz, nb, t, sm);
+  cg_sum_partials(part_rz, P, rz_stride, nb, t, sm);
   if (threadIdx.x < t) {
     const int c = threadIdx.x;
     const float norm = __fsqrt_rn(bb_s[c]);
@@ -394,10 +414,13 @@ extern "C" int sgp_cg_dot(const float* u, const float* v, const float* scale, co
   return (int)cudaGetLastError();
 }
 
-extern "C" int sgp_cg_step_x(const float* part_pap, float* x, float* r, const float* p, const float* ap, int n, int t,
-                             int rp, int nb, float* fs, int* is, float* part_rr, void* stream) {
-  if (!cg_shape_ok(n, t, rp, nb)) return (int)cudaErrorInvalidValue;
-  cg_step_x_kernel<<<nb, CG_THREADS, 0, (cudaStream_t)stream>>>(part_pap, x, r, p, ap, n, t, rp, fs, is, part_rr);
+// part_pap: (P, nb, t), rank q's block at part_pap + q pap_stride.
+extern "C" int sgp_cg_step_x(const float* part_pap, int P, long long pap_stride, float* x, float* r, const float* p,
+                             const float* ap, int n, int t, int rp, int nb, float* fs, int* is, float* part_rr,
+                             void* stream) {
+  if (!cg_shape_ok(n, t, rp, nb) || P < 1) return (int)cudaErrorInvalidValue;
+  cg_step_x_kernel<<<nb, CG_THREADS, 0, (cudaStream_t)stream>>>(part_pap, P, pap_stride, x, r, p, ap, n, t, rp, fs,
+                                                               is, part_rr);
   return (int)cudaGetLastError();
 }
 
@@ -414,21 +437,23 @@ extern "C" int sgp_cg_precond(const float* r, const float* h, const float* noise
   return (int)cudaGetLastError();
 }
 
-// rec_a, rec_b, rec_m: the (m, t) record, or null with m = 0.
-extern "C" int sgp_cg_step_p(const float* part_rz, const float* part_rr, const float* x, const float* z, float* p,
-                             float* x_best, int n, int t, int rp, int nb, float* fs, int* is, float* rec_a,
-                             float* rec_b, int* rec_m, int m, float tol, int floor, int max_iters, int stall_window,
-                             int column_mode, void* stream) {
-  if (!cg_shape_ok(n, t, rp, nb) || m < 0) return (int)cudaErrorInvalidValue;
+// part_rz, part_rr: (P, nb, t) with their rank strides; rec_a, rec_b, rec_m: the (m, t) record, or null
+// with m = 0.
+extern "C" int sgp_cg_step_p(const float* part_rz, const float* part_rr, int P, long long rz_stride,
+                             long long rr_stride, const float* x, const float* z, float* p, float* x_best, int n,
+                             int t, int rp, int nb, float* fs, int* is, float* rec_a, float* rec_b, int* rec_m, int m,
+                             float tol, int floor, int max_iters, int stall_window, int column_mode, void* stream) {
+  if (!cg_shape_ok(n, t, rp, nb) || m < 0 || P < 1) return (int)cudaErrorInvalidValue;
   const CgRules rules{tol, floor, max_iters, stall_window, column_mode, m};
-  cg_step_p_kernel<<<nb, CG_THREADS, 0, (cudaStream_t)stream>>>(part_rz, part_rr, x, z, p, x_best, n, t, rp, fs, is,
-                                                               rec_a, rec_b, rec_m, rules);
+  cg_step_p_kernel<<<nb, CG_THREADS, 0, (cudaStream_t)stream>>>(part_rz, part_rr, P, rz_stride, rr_stride, x, z, p,
+                                                               x_best, n, t, rp, fs, is, rec_a, rec_b, rec_m, rules);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sgp_cg_init(const float* part_bb, const float* part_rz, int nb, int t, float* fs, int* is,
-                           int max_iters, void* stream) {
-  if (t <= 0 || t > CG_THREADS || nb <= 0 || nb * t > CG_TREE) return (int)cudaErrorInvalidValue;
-  cg_init_kernel<<<1, CG_THREADS, 0, (cudaStream_t)stream>>>(part_bb, part_rz, nb, t, fs, is, max_iters);
+extern "C" int sgp_cg_init(const float* part_bb, const float* part_rz, int P, long long bb_stride,
+                           long long rz_stride, int nb, int t, float* fs, int* is, int max_iters, void* stream) {
+  if (t <= 0 || t > CG_THREADS || nb <= 0 || nb * t > CG_TREE || P < 1) return (int)cudaErrorInvalidValue;
+  cg_init_kernel<<<1, CG_THREADS, 0, (cudaStream_t)stream>>>(part_bb, part_rz, P, bb_stride, rz_stride, nb, t, fs, is,
+                                                             max_iters);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,7 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --factor [--save DIR]
     python simplex_gp_torch/kernel_times.py --compare-factors DIR DIR
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --axes
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --dp-step
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
@@ -22,7 +23,9 @@ stage and a warm training step at the elevators and houseelectric training
 shapes (:func:`factor_steps`), with ``--save`` writing each factor's L and
 pivots for the seventh form to compare two trees' bit for bit
 (:func:`compare_factors`); the eighth K3'c's d+1 axis stencils, fused and
-per axis (:func:`axes_times`).
+per axis (:func:`axes_times`); the ninth the data-parallel NLML step on two
+gloo ranks sharing the card, its CG stage and its collectives, for one
+Matern kernel and a J = 8 mixture (:func:`dp_step`).
 
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
@@ -594,6 +597,110 @@ def axes_times(reps: int = 50) -> dict:
     return out
 
 
+def _dp_rank(axis, case: dict) -> dict:
+    """:func:`dp_step`'s rank body: the warm data-parallel NLML and gradient (``data_parallel_loss_fn``, no
+    optimizer step) by CUDA events, the CG stage inside it (``mll.cg_solve`` wrapped: CUDA events around the
+    solve), and from one more step with the axis's timed collectives its transport, its collectives, the
+    CG's own and those between one MVM's end and the next one's start (an iteration's)."""
+    import simplex_gp_torch
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.parallel import data_parallel_loss_fn, replicate, shard_batch
+
+    x, y, z = shard_batch(axis, case["x"], case["y"], case["z"])
+    dev = x.device
+    solve, cg = mll.cg_solve, {}
+
+    def timed_solve(matmul, b, **kw):
+        marks = []
+
+        def mv(V):
+            c0 = axis.stats["calls"]
+            out_ = matmul(V)
+            marks.append((c0, axis.stats["calls"]))
+            return out_
+
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        c0 = axis.stats["calls"]
+        ev[0].record()
+        res = solve(mv, b, **kw)
+        ev[1].record()
+        cg.update(events=ev, iterations=int(res.iterations),
+                  collectives=axis.stats["calls"] - c0 - sum(b_ - a_ for a_, b_ in marks),
+                  an_iteration=sorted({b0 - a1 for (_, a1), (b0, _) in zip(marks, marks[1:])}))
+        return res
+
+    mll.cg_solve = timed_solve
+    out = {}
+    for kind in ("matern", "mixture"):
+        model = simplex_gp_torch.SimplexGP(num_dims=x.shape[1], kernel=kind, nu=1.5, order=1, min_noise=0.1,
+                                           bbmm=mll.BBMMConfig(**case["cfg"]), device=dev,
+                                           **(dict(mix_components=8) if kind == "mixture" else {}))
+        model.load_raw(case["raw"])
+        replicate(axis, model)
+        step = data_parallel_loss_fn(model, axis)
+        try:
+            step(x, y, probes=z)  # warm-up
+        except NotImplementedError as e:  # a tree whose sharded engine refuses a mixture (on every rank alike)
+            out[kind] = {"error": str(e)}
+            continue
+        steps = []
+        for _ in range(case["reps"]):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            step(x, y, probes=z)
+            ev[1].record()
+            torch.cuda.synchronize()
+            steps.append(dict(step_ms=ev[0].elapsed_time(ev[1]), cg_ms=cg["events"][0].elapsed_time(cg["events"][1]),
+                              cg_iters=cg["iterations"]))
+        axis.timing = True
+        axis.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(x, y, probes=z)
+        torch.cuda.synchronize()
+        timed_ms = 1e3 * (time.perf_counter() - t0)
+        axis.timing = False
+        out[kind] = dict(steps=steps, timed_step_ms=timed_ms, transport_ms=1e3 * axis.stats["seconds"],
+                         transport_share=axis.stats["seconds"] * 1e3 / timed_ms, collectives_step=axis.stats["calls"],
+                         transport_bytes=axis.stats["bytes"], cg_collectives=cg["collectives"],
+                         cg_collectives_an_iteration=cg["an_iteration"], cg_iters=cg["iterations"])
+    return out
+
+
+def dp_step(nprocs: int = 2, reps: int = 3) -> dict:
+    """The data-parallel NLML step at elevators' width on ``nprocs`` gloo ranks sharing card 0.
+
+    The seeded stand-in's 10,622 training rows (a multiple of the ranks) x 18, the median-init
+    lengthscale, Matern-1.5 order 1, rank-100 preconditioner, 10 seeded probes, training CG tol 1.0; then
+    the same with a J = 8 mixture (its profile-fit weights).  Each rank's numbers from :func:`_dp_rank`;
+    one JSON line with the card and the tree.  Any tree with ``data_parallel_loss_fn`` and a
+    ``cg_solve`` that takes ``shift`` runs it (a tree without the sharded mixture records its refusal).
+    """
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.parallel import launch
+    from simplex_gp_torch.utils import data
+
+    elev = data.prepare_dataset(data._synthetic_uci("elevators"), "elevators")
+    n = (elev.train_x.shape[0] // nprocs) * nprocs
+    xs, ys = elev.train_x[:n], elev.train_y[:n]
+    case = dict(x=xs, y=ys, reps=reps,
+                z=np.random.default_rng(1).choice([-1.0, 1.0], size=(n, 10)).astype(np.float32),
+                raw={k: np.asarray(v.cpu()) for k, v in
+                     init_raw_params(xs.shape[1], lengthscale=trainer.median_lengthscale(xs)).items()},
+                cfg=dict(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                         num_probes=10))
+    t0 = time.perf_counter()
+    ranks = launch(_dp_rank, nprocs, (case,), backend="gloo", device="cuda", timeout=900)
+    out = {"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                  capture_output=True, text=True).stdout.strip(),
+           "tree": simplex_gp_torch.__file__, "rows": n, "ranks": nprocs, "launch_s": time.perf_counter() - t0,
+           "per_rank": ranks}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 if __name__ == "__main__":
     import sys
 
@@ -611,5 +718,7 @@ if __name__ == "__main__":
         wide_deriv()
     elif "--sharded-f64" in sys.argv[1:]:
         sharded_f64()
+    elif "--dp-step" in sys.argv[1:]:
+        dp_step()
     else:
         main()

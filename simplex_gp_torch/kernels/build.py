@@ -75,11 +75,11 @@ _SIGNATURES = {
     "sgp_chain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
                         _P, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P],
     "sgp_cg_dot": [*[_P] * 5, _I, _I, _I, _I, _P, _P],
-    "sgp_cg_step_x": [*[_P] * 5, _I, _I, _I, _I, *[_P] * 4],
+    "sgp_cg_step_x": [_P, _I, _LL, *[_P] * 4, _I, _I, _I, _I, *[_P] * 4],
     "sgp_cg_scale": [_P, _P, _I, _I, _P, _P],
     "sgp_cg_precond": [*[_P] * 4, _I, _I, _I, _I, _P, _P],
-    "sgp_cg_step_p": [*[_P] * 6, _I, _I, _I, _I, *[_P] * 5, _I, _F, _I, _I, _I, _I, _P],
-    "sgp_cg_init": [_P, _P, _I, _I, _P, _P, _I, _P],
+    "sgp_cg_step_p": [_P, _P, _I, _LL, _LL, *[_P] * 4, _I, _I, _I, _I, *[_P] * 5, _I, _F, _I, _I, _I, _I, _P],
+    "sgp_cg_init": [_P, _P, _I, _LL, _LL, _I, _I, _P, _P, _I, _P],
 }
 
 _lib = None

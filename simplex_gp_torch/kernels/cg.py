@@ -26,6 +26,14 @@ k nb rp in k order per lane (rr, col) of block b, the block's lanes folded in
 halves, then the nb block partials folded in halves.  The plain versions add
 in that order with the same roundings, so kernel and plain version agree bit
 for bit.
+
+K10' (the data-parallel CG, ``linalg/cg.py`` with an ``axis``): the
+kernels that reduce a dot (``cg_step_x``, ``cg_step_p``, ``cg_init``) also
+take the ranks' partials all-gathered into a ``(P, nb, t)`` buffer (or a
+view with a rank stride).  Each rank's nb partials fold in halves as above,
+then the P rank sums add in rank order 0 .. P-1, so every rank reduces the
+same bytes to the same bits; a ``(nb, t)`` buffer is P = 1, the one-device
+arithmetic.
 """
 
 from __future__ import annotations
@@ -156,6 +164,30 @@ def _fold_blocks(part: torch.Tensor) -> torch.Tensor:
     return part[0]
 
 
+def _fold_ranks(part: torch.Tensor) -> torch.Tensor:
+    """Stage 2 over the ranks: (P, nb, t) -> (t,), each rank's partials folded, then added in rank order.
+
+    A (nb, t) buffer is one rank's.
+    """
+    if part.dim() == 2:
+        return _fold_blocks(part)
+    s = _fold_blocks(part[0])
+    for q in range(1, part.shape[0]):
+        s = s + _fold_blocks(part[q])
+    return s
+
+
+def _ranks(part: torch.Tensor, nb: int, t: int, what: str) -> tuple:
+    """(P, rank stride) of a CUDA float32 partials buffer: (nb, t), or a (P, nb, t) view whose ranks' blocks are
+    each contiguous (a slice of a gather need not be contiguous as a whole)."""
+    if not part.is_cuda or part.dtype != torch.float32:
+        raise ValueError(f"{what}: expected CUDA float32 partials, got {part.dtype} on {part.device}")
+    p3 = part[None] if part.dim() == 2 else part
+    if p3.dim() != 3 or p3.shape[1:] != (nb, t) or (t > 1 and p3.stride(2) != 1) or (nb > 1 and p3.stride(1) != t):
+        raise ValueError(f"{what}: partials {tuple(part.shape)} (strides {part.stride()}) are not (P, {nb}, {t})")
+    return p3.shape[0], p3.stride(0)
+
+
 def _column_mean(v: torch.Tensor) -> torch.Tensor:
     """Mean of a (t,) vector, summed in column order."""
     s = v[0]
@@ -212,7 +244,7 @@ cg_dot.launches = 0
 def cg_step_x_plain(part_pap, x, r, p, ap, fs, is_, part_rr):
     """Plain cg_step_x: pap, alpha, the snapshots, x += alpha p, r -= alpha ap, the partials of r . r."""
     st = state_views(fs, is_)
-    pap = _fold_blocks(part_pap)
+    pap = _fold_ranks(part_pap)
     done = st.done.bool()
     alpha = torch.where(done | (pap <= 0), 0.0, st.rz / torch.where(pap <= 0, 1.0, pap))
     st.alpha.copy_(alpha)
@@ -233,16 +265,21 @@ def _require_state(what, fs, is_, t):
 
 
 def cg_step_x(part_pap, x, r, p, ap, fs, is_, part_rr):
-    """K10 (b): alpha from pap's block partials, the x and r updates, the block partials of r . r."""
+    """K10 (b): alpha from pap's block partials, the x and r updates, the block partials of r . r.
+
+    ``part_pap`` is (nb, t), or (P, nb, t): every rank's, reduced in rank order (K10').  ``part_rr`` is
+    this rank's (nb, t).
+    """
     if not x.is_cuda:
         return cg_step_x_plain(part_pap, x, r, p, ap, fs, is_, part_rr)
     n, t, rp, nb = _rows_cols(x)
-    build.require("cg_step_x", *((a, torch.float32) for a in (part_pap, x, r, p, ap, part_rr)))
+    build.require("cg_step_x", *((a, torch.float32) for a in (x, r, p, ap, part_rr)))
     _require_state("cg_step_x", fs, is_, t)
-    if not (r.shape == p.shape == ap.shape == x.shape) or part_pap.shape != (nb, t) or part_rr.shape != (nb, t):
+    if not (r.shape == p.shape == ap.shape == x.shape) or part_rr.shape != (nb, t) or not part_rr.is_contiguous():
         raise ValueError("cg_step_x: the vectors and partials do not fit one (n, t) solve")
-    rc = build.library().sgp_cg_step_x(part_pap.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
-                                       n, t, rp, nb, fs.data_ptr(), is_.data_ptr(), part_rr.data_ptr(),
+    P, pstride = _ranks(part_pap, nb, t, "cg_step_x")
+    rc = build.library().sgp_cg_step_x(part_pap.data_ptr(), P, pstride, x.data_ptr(), r.data_ptr(), p.data_ptr(),
+                                       ap.data_ptr(), n, t, rp, nb, fs.data_ptr(), is_.data_ptr(), part_rr.data_ptr(),
                                        build.stream())
     build.check(rc, "cg_step_x")
     cg_step_x.launches += 1
@@ -306,7 +343,7 @@ cg_precond.launches = 0
 def cg_step_p_plain(part_rz, part_rr, x, z, p, x_best, fs, is_, A, B, TM, rules: CGRules):
     """Plain cg_step_p, in the kernel's order (cg.py:150-205): beta, p, the best iterate, the state."""
     st = state_views(fs, is_)
-    rz_new, rr = _fold_blocks(part_rz), _fold_blocks(part_rr)
+    rz_new, rr = _fold_ranks(part_rz), _fold_ranks(part_rr)
     done = st.done_prev.bool()
     pap, rz = st.pap, st.rz_prev
     broken = ~done & ((pap <= 0) | (rz_new < 0))
@@ -348,24 +385,28 @@ def cg_step_p(part_rz, part_rr, x, z, p, x_best, fs, is_, A, B, TM, rules: CGRul
     """K10 (d): beta, p = z + beta p, the best iterate, and the state: the best residual, the record at
     the device's iteration counter, the stall guard, the stop rules, rz, it and the stop flag.
 
-    A, B (f32) and TM (int32) are the (m, t) record, None when ``rules.m`` is 0.
+    A, B (f32) and TM (int32) are the (m, t) record, None when ``rules.m`` is 0.  The partials are
+    (nb, t), or (P, nb, t) views of every rank's with the same P (K10').
     """
     if not x.is_cuda:
         return cg_step_p_plain(part_rz, part_rr, x, z, p, x_best, fs, is_, A, B, TM, rules)
     n, t, rp, nb = _rows_cols(x)
-    build.require("cg_step_p", *((a, torch.float32) for a in (part_rz, part_rr, x, z, p, x_best)))
+    build.require("cg_step_p", *((a, torch.float32) for a in (x, z, p, x_best)))
     _require_state("cg_step_p", fs, is_, t)
-    if not (z.shape == p.shape == x_best.shape == x.shape) or part_rz.shape != (nb, t) or part_rr.shape != (nb, t):
-        raise ValueError("cg_step_p: the vectors and partials do not fit one (n, t) solve")
+    if not (z.shape == p.shape == x_best.shape == x.shape):
+        raise ValueError("cg_step_p: the vectors do not fit one (n, t) solve")
+    (P, rz_stride), (P_rr, rr_stride) = _ranks(part_rz, nb, t, "cg_step_p"), _ranks(part_rr, nb, t, "cg_step_p")
+    if P_rr != P:
+        raise ValueError(f"cg_step_p: partials of {P} and {P_rr} ranks")
     if rules.m > 0:
         build.require("cg_step_p", (A, torch.float32), (B, torch.float32), (TM, torch.int32))
         if not (A.shape == B.shape == TM.shape == (rules.m, t)):
             raise ValueError(f"cg_step_p: a record of {rules.m} steps needs (m, t) arrays")
     ptr = lambda a: a.data_ptr() if rules.m > 0 else None
     rc = build.library().sgp_cg_step_p(
-        part_rz.data_ptr(), part_rr.data_ptr(), x.data_ptr(), z.data_ptr(), p.data_ptr(), x_best.data_ptr(), n, t,
-        rp, nb, fs.data_ptr(), is_.data_ptr(), ptr(A), ptr(B), ptr(TM), rules.m, float(rules.tol), rules.floor,
-        rules.max_iters, rules.stall_window, int(rules.column_mode), build.stream())
+        part_rz.data_ptr(), part_rr.data_ptr(), P, rz_stride, rr_stride, x.data_ptr(), z.data_ptr(), p.data_ptr(),
+        x_best.data_ptr(), n, t, rp, nb, fs.data_ptr(), is_.data_ptr(), ptr(A), ptr(B), ptr(TM), rules.m,
+        float(rules.tol), rules.floor, rules.max_iters, rules.stall_window, int(rules.column_mode), build.stream())
     build.check(rc, "cg_step_p")
     cg_step_p.launches += 1
 
@@ -378,11 +419,11 @@ cg_step_p.launches = 0
 def cg_init_plain(part_bb, part_rz, fs, is_, max_iters: int):
     """Plain cg_init: |b| (1 for a zero column), rz0, the residual 1 (0 for a zero column), the flags."""
     st = state_views(fs, is_)
-    norm = torch.sqrt(_fold_blocks(part_bb))
+    norm = torch.sqrt(_fold_ranks(part_bb))
     b_norm = torch.where(norm == 0, 1.0, norm)
     st.b_norm.copy_(b_norm)
     st.res_best.copy_(norm / b_norm)
-    st.rz.copy_(_fold_blocks(part_rz))
+    st.rz.copy_(_fold_ranks(part_rz))
     st.done.zero_()
     st.t_alive.fill_(1)
     st.best_mean.fill_(float("inf"))
@@ -392,16 +433,19 @@ def cg_init_plain(part_bb, part_rz, fs, is_, max_iters: int):
 
 
 def cg_init(part_bb, part_rz, fs, is_, max_iters: int):
-    """K10's initial state from the block partials of b . b and r0 . z0 (cg.py:110-116, :207-236)."""
+    """K10's initial state from the block partials of b . b and r0 . z0 (cg.py:110-116, :207-236).
+
+    The partials are (nb, t), or (P, nb, t) views of every rank's (K10').
+    """
     if not fs.is_cuda:
         return cg_init_plain(part_bb, part_rz, fs, is_, max_iters)
-    nb, t = part_bb.shape
-    build.require("cg_init", (part_bb, torch.float32), (part_rz, torch.float32))
+    nb, t = part_bb.shape[-2:]
     _require_state("cg_init", fs, is_, t)
     if part_rz.shape != part_bb.shape:
         raise ValueError("cg_init: the two partials differ in shape")
-    rc = build.library().sgp_cg_init(part_bb.data_ptr(), part_rz.data_ptr(), nb, t, fs.data_ptr(), is_.data_ptr(),
-                                     int(max_iters), build.stream())
+    (P, bb_stride), (_, rz_stride) = _ranks(part_bb, nb, t, "cg_init"), _ranks(part_rz, nb, t, "cg_init")
+    rc = build.library().sgp_cg_init(part_bb.data_ptr(), part_rz.data_ptr(), P, bb_stride, rz_stride, nb, t,
+                                     fs.data_ptr(), is_.data_ptr(), int(max_iters), build.stream())
     build.check(rc, "cg_init")
     cg_init.launches += 1
 

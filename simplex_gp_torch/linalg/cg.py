@@ -19,12 +19,19 @@ the first iteration runs as launched, the second is captured in a CUDA
 graph, and every later one is a replay of it, with the same reads of the
 stop flag, so the count and the bits are the launched loop's.
 
-With ``axis`` (a DataAxis) the rows are sharded over the ranks: every
-column dot product is an all-reduce (cg.py:113-115), and every stop
-decision reads only values derived from those sums, which are the same bits
-on every rank, so all ranks run the same number of iterations; a rank that
-stopped alone would leave the others waiting in a collective.  This engine
-still runs the body as eager torch ops (K10's sharded form is not ported).
+With ``axis`` (a DataAxis) the rows are sharded over the ranks (K10', JAX's
+``axis_name``: every dot a ``psum``, cg.py:113-115) and the loop is the same
+K10 loop: each kernel that ends in a dot writes this rank's (nb, t) block
+partials, the ranks' partials are all-gathered into a (P, nb, t) buffer,
+and the kernel that needs the dot folds each rank's partials, then adds the
+ranks in rank order.  So every rank reduces the same bytes, every stop
+decision is the same bits on every rank whatever the backend's own
+reduction order, and all ranks run the same iterations; a rank that stopped
+alone would leave the others waiting in a collective.  An iteration makes
+three collectives (pap; the Woodbury product U^T r; r . r and r . z
+together), the init three (the layout check; U^T b; b . b and r0 . z0),
+besides the MVM's own.  A one-rank axis is the single-device solve bit for
+bit.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from typing import Callable, NamedTuple, Optional, Union
 import torch
 
 from ..kernels import cg as K10
-from .pivoted_cholesky import Preconditioner, precond_solve
+from .pivoted_cholesky import Preconditioner
 
 __all__ = ["CGResult", "CGLoop", "cg_solve", "capture"]
 
@@ -85,15 +92,15 @@ def cg_solve(
     kernel.  ``graph`` replays the iterations from a CUDA graph (ignored on
     the CPU): it pays where a solve runs many iterations on one plan (the
     eval CG), not at the training CG's 10-13.  ``axis``: b holds this
-    rank's rows, and ``matmul`` and
-    ``precond`` must be the sharded operators.
+    rank's rows, ``matmul`` and a callable ``precond`` must be the sharded
+    operators, and a :class:`Preconditioner` holds this rank's rows of U;
+    ``graph`` is refused (a gloo collective cannot be captured).
     """
     if stop_mode not in ("mean", "column"):
         raise ValueError(f"unknown stop_mode {stop_mode!r}")
-    if axis is not None:
-        return _cg_solve_sharded(matmul, b, tol, max_iters, precond, min_iters, stop_mode, stall_window, tridiag_m,
-                                 axis, shift)
-    loop = CGLoop(matmul, b, tol, max_iters, precond, min_iters, stop_mode, stall_window, tridiag_m, shift)
+    if graph and axis is not None:
+        raise ValueError("cg_solve: graph=True takes no axis (the sharded loop's collectives are not captured)")
+    loop = CGLoop(matmul, b, tol, max_iters, precond, min_iters, stop_mode, stall_window, tridiag_m, shift, axis)
     loop.run(graph)
     return loop.result()
 
@@ -102,24 +109,31 @@ cg_solve.graph_replays = 0  # iterations run as replays of a captured one (their
 
 
 class CGLoop:
-    """One single-device solve: K10's device state, its static buffers, and one iteration.
+    """One solve: K10's device state, its static buffers, and one iteration.
 
     :func:`cg_solve` builds one and runs it; ``chip_smoke.py`` steps one to
     hold each K10 kernel against its plain twin from a saved state.  The
     buffers are updated in place (x, r, p, z, the best iterate, the block
     partials), so an iteration captured in a CUDA graph replays on them.
+    ``part_rr`` and ``part_rz`` are the two halves of one (2, nb, t) buffer,
+    which the sharded loop (``axis``) gathers in one collective.
     """
 
     def __init__(self, matmul, b, tol=1.0, max_iters=500, precond=None, min_iters=10, stop_mode="mean",
-                 stall_window=50, tridiag_m=0, shift=None):
+                 stall_window=50, tridiag_m=0, shift=None, axis=None):
         b = b.to(torch.float32).contiguous()
         n, t = b.shape
         dev = b.device
-        self.matmul, self.precond, self.shift = matmul, precond, shift
+        self.matmul, self.precond, self.shift, self.axis = matmul, precond, shift, axis
         f32 = dict(dtype=torch.float32, device=dev)
         rp, nb = K10.cg_layout(n, t)
+        if axis is not None:  # the ranks' partials stack only if every rank has the same layout
+            layouts = axis.all_gather(torch.tensor([[n, nb]], device=dev)).tolist()
+            if any(lay != [n, nb] for lay in layouts):
+                raise ValueError(f"cg_solve: the ranks' (rows, blocks) {layouts} differ; shard the rows equally")
         self.fs, self.is_ = K10.cg_state(t, dev)
-        self.part_pap, self.part_rr, self.part_rz, self.part_bb = (torch.empty((nb, t), **f32) for _ in range(4))
+        self.part_pap, self.part2 = torch.empty((nb, t), **f32), torch.empty((2, nb, t), **f32)
+        self.part_rr, self.part_rz = self.part2
         self.x, self.x_best, self.r = torch.zeros_like(b), torch.zeros_like(b), b.clone()
         m = tridiag_m
         self.A = torch.ones((m, t), **f32) if m else None
@@ -138,20 +152,37 @@ class CGLoop:
             k = self.U.shape[1]
             self.G, self.G2 = torch.empty((k, t), **f32), torch.empty((k, t), **f32)
             self.H, self.z = torch.empty_like(b), torch.empty_like(b)
-        K10.cg_dot(b, b, self.part_bb)
+        K10.cg_dot(b, b, self.part_rr)  # b . b in r . r's half until the first iteration: one gather with r0 . z0
         if precond is None:
-            z, self.part_rz = self.r, self.part_bb
+            self.p = self.r.clone()
+            part_bb = part_rz = self._gathered(self.part_rr)
         else:
-            z = self._precondition()
-        self.p = z.clone()
-        K10.cg_init(self.part_bb, self.part_rz, self.fs, self.is_, self.rules.max_iters)
+            self.p = self._precondition().clone()
+            part_bb, part_rz = self._gathered(self.part2)
+        K10.cg_init(part_bb, part_rz, self.fs, self.is_, self.rules.max_iters)
+
+    def _gathered(self, part: torch.Tensor) -> torch.Tensor:
+        """Every rank's partials in one collective: (P, nb, t) for an (nb, t) buffer, (2, P, nb, t) for
+        ``part2`` (two rank-strided views); without an axis ``part`` itself."""
+        if self.axis is None:
+            return part
+        blocks = self.axis.all_gather_blocks(part)
+        return blocks if part.dim() == 2 else blocks.transpose(0, 1)
 
     def _precondition(self) -> torch.Tensor:
         """z = P^{-1} r and the block partials of r . z (a Woodbury P: pivoted_cholesky.py::precond_solve)."""
         r = self.r
         if isinstance(self.precond, Preconditioner):
             torch.mm(self.U.T, r, out=self.G)
-            K10.cg_scale(self.G, self.w, self.G2)
+            G = self.G
+            if self.axis is not None:
+                # U^T r over every rank's rows: the ranks' (k, t) products all-gathered and added in rank
+                # order, not psum'd, so G is the same bits on every rank whatever the backend's reduction.
+                blocks = self.axis.all_gather_blocks(self.G)
+                G = blocks[0]
+                for q in range(1, blocks.shape[0]):
+                    G = G + blocks[q]
+            K10.cg_scale(G, self.w, self.G2)
             torch.mm(self.U, self.G2, out=self.H)
             K10.cg_precond(r, self.H, self.p_noise, self.z, self.part_rz)
             return self.z
@@ -169,12 +200,14 @@ class CGLoop:
         else:
             K10.cg_dot(p, kp, self.part_pap)
             ap = kp
-        K10.cg_step_x(self.part_pap, self.x, self.r, p, ap, self.fs, self.is_, self.part_rr)
+        K10.cg_step_x(self._gathered(self.part_pap), self.x, self.r, p, ap, self.fs, self.is_, self.part_rr)
         if self.precond is None:
-            z, part_rz = self.r, self.part_rr
+            z = self.r
+            part_rz = part_rr = self._gathered(self.part_rr)
         else:
-            z, part_rz = self._precondition(), self.part_rz
-        K10.cg_step_p(part_rz, self.part_rr, self.x, z, p, self.x_best, self.fs, self.is_, self.A, self.B, self.TM,
+            z = self._precondition()
+            part_rr, part_rz = self._gathered(self.part2)
+        K10.cg_step_p(part_rz, part_rr, self.x, z, p, self.x_best, self.fs, self.is_, self.A, self.B, self.TM,
                       self.rules)
 
     def stopped(self) -> bool:
@@ -214,90 +247,3 @@ def capture(fn) -> "torch.cuda.CUDAGraph":
     torch.cuda.current_stream().wait_stream(side)
     return graph
 
-
-def _cg_solve_sharded(matmul, b, tol, max_iters, precond, min_iters, stop_mode, stall_window, tridiag_m, axis,
-                      shift) -> CGResult:
-    """The data-sharded solve: the same rules as eager torch ops, every column dot all-reduced."""
-    if isinstance(precond, Preconditioner):
-        P = precond
-        precond = lambda v: precond_solve(P, v, axis)
-    elif precond is None:
-        precond = lambda v: v
-    if shift is not None:
-        mv, (scale, noise) = matmul, shift
-        matmul = lambda v: scale * mv(v) + noise * v
-
-    def dot(u, v):
-        return axis.psum((u * v).sum(dim=0))
-
-    b = b.to(torch.float32)
-    b_norm = torch.sqrt(dot(b, b))
-    b_norm = torch.where(b_norm == 0, 1.0, b_norm)
-
-    x = torch.zeros_like(b)
-    r = b
-    z = precond(r)
-    p = z
-    rz = dot(r, z)
-    floor = min(min_iters, max_iters)
-
-    it = 0
-    # Never mark a column converged at iteration zero (cg.py:207-219).
-    done = torch.zeros(b.shape[1], dtype=torch.bool, device=b.device)
-    x_best = x
-    res_best = torch.sqrt(dot(r, r)) / b_norm
-    best_mean = torch.tensor(float("inf"), device=b.device)
-    since = torch.zeros((), dtype=torch.int32, device=b.device)
-    if tridiag_m:
-        t = b.shape[1]
-        A = torch.ones((tridiag_m, t), dtype=torch.float32, device=b.device)
-        B = torch.zeros((tridiag_m, t), dtype=torch.float32, device=b.device)
-        TM = torch.zeros((tridiag_m, t), dtype=torch.bool, device=b.device)
-        t_alive = torch.ones(t, dtype=torch.bool, device=b.device)
-    while it < max_iters and not bool(done.all()):
-        done_before = done
-        ap = matmul(p)
-        pap = dot(p, ap)
-        # Column breakdown (pap <= 0, or rz < 0 below) freezes the column at
-        # its best iterate instead of stepping along a divergent direction.
-        broken = ~done & (pap <= 0)
-        alpha = torch.where(done | (pap <= 0), 0.0, rz / torch.where(pap <= 0, 1.0, pap))
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = precond(r)
-        rz_new = dot(r, z)
-        broken = broken | (~done & (rz_new < 0))
-        beta = torch.where(done | broken | (rz == 0), 0.0, rz_new / torch.where(rz == 0, 1.0, rz))
-        p = z + beta * p
-        res = torch.sqrt(dot(r, r)) / b_norm
-        better = res < res_best
-        x_best = torch.where(better[None, :], x, x_best)
-        res_best = torch.minimum(res, res_best)
-        m_best = res_best.mean()
-        improved = m_best < 0.99 * best_mean
-        best_mean = torch.where(improved, m_best, best_mean)
-        since = torch.where(improved, 0, since + 1)
-        if stall_window:
-            stalled = (since >= stall_window) & (it + 1 >= floor)
-        else:
-            stalled = torch.zeros((), dtype=torch.bool, device=b.device)
-        if stop_mode == "mean":
-            stop_all = (res.mean() < tol) & (it + 1 >= floor)
-            done = done | stop_all | stalled | (res < 1e-10) | broken
-        else:
-            done = done | ((res < tol) & (it + 1 >= floor)) | stalled | broken
-        if tridiag_m:
-            # A step is a valid Lanczos step only while the column has never
-            # converged or broken down; once either happens the record of
-            # that column stops for good (cg.py:192-204).
-            ok = t_alive & ~done_before & (pap > 0) & (rz > 0)
-            if it < tridiag_m:
-                A[it] = torch.where(ok, alpha, A[it])
-                B[it] = torch.where(ok, beta, B[it])
-                TM[it] = TM[it] | ok
-            t_alive = ok
-        rz = rz_new
-        it += 1
-    if tridiag_m:
-        return CGResult(x=x_best, iterations=it, residual_norm=res_best, alphas=A, betas=B, tmask=TM)
-    return CGResult(x=x_best, iterations=it, residual_norm=res_best)

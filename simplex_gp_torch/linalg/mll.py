@@ -54,8 +54,11 @@ whatever ``grad_mode`` says: the backward re-applies through the CG's
 MixturePlan, saved for it (K12, transposed K12, K5 on the stacked
 problem), as the sharded engine reuses its sharded plan.  Its
 preconditioner's exact columns are those of its Matern target
-(``dk.nu``).  The sharded engine takes no mixture: JAX's sharded mixture
-branch (:100-104, :164-168) is not ported.
+(``dk.nu``).  The sharded engine takes a mixture as JAX's does (:100-104,
+:164-168): one sharded join plan per component at ``ref * alpha_j`` (no
+capacity), the components' K11b applies summed in component order, and in
+the backward each component's K11b transpose and K5 on this rank's points
+(ops/filter.py).
 """
 
 from __future__ import annotations
@@ -68,6 +71,8 @@ import torch
 
 from ..ops.filter import (
     _filter_plain,
+    _plan_from_tensors,
+    _plan_tensors,
     apply_plan_any,
     build_join_plan_any,
     build_plan_any,
@@ -77,7 +82,7 @@ from ..ops.filter import (
     lattice_filter_any,
     lattice_filter_exact_grad,
 )
-from ..ops.kernels import DiscretizedKernel, MixtureKernel
+from ..ops.kernels import MixtureKernel
 from ..ops.lattice import ChainPlan, build_plan_sharded_join, wide_plan
 from .cg import cg_solve
 from .lanczos import logdet_from_cg_tridiag, slq_logdet
@@ -172,7 +177,7 @@ class _System(NamedTuple):
     solves: torch.Tensor  # (n, 1+p): alpha and the probe solves
     logdet: torch.Tensor  # () log|K_hat| estimate
     probes_right: torch.Tensor  # (n, p) right vectors of the trace backward
-    plan: tuple  # the CG's plan: a ChainPlan, a MixturePlan, or a sharded LatticePlan
+    plan: tuple  # the CG's plan: a ChainPlan, a MixturePlan, a sharded LatticePlan, or a mixture's tuple of them
     iterations: int  # CG iterations
     residual: torch.Tensor  # (1+p,) best relative residuals
 
@@ -189,9 +194,8 @@ def _solve_system(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torc
     ref = x * params["inv_ell"]
     if axis is None:
         plan = build_plan_any(ref, dk, config.plan_capacity)
-    elif not isinstance(dk, DiscretizedKernel):
-        raise NotImplementedError("the sharded engine takes one DiscretizedKernel: its mixture branch "
-                                  "(JAX mll.py:100-104, :164-168) is not ported")
+    elif isinstance(dk, MixtureKernel):  # one sharded plan per component, no capacity (mll.py:164-168)
+        plan = tuple(build_plan_sharded_join(ref * a, dk.base.coeffs, dk.base.variance, axis) for a in dk.alphas)
     else:  # JAX's sharded plan has no capacity (mll.py:161-172)
         plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
     s, noise = params["outputscale"], params["noise"]
@@ -259,7 +263,7 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
         ctx.capacity = config.plan_capacity
         ctx.plan_type = type(sys_.plan)
         # A chain plan is not kept: the exact backward builds a join plan (JAX re-filters).
-        kept = () if isinstance(sys_.plan, ChainPlan) else tuple(sys_.plan)
+        kept = () if isinstance(sys_.plan, ChainPlan) else _plan_tensors(sys_.plan)
         ctx.save_for_backward(inv_ell, outputscale, x, alpha, sys_.solves[:, 1:], sys_.probes_right, *kept)
         inv_quad = (y * alpha).sum()
         return inv_quad if config.axis is None else config.axis.psum(inv_quad), sys_.logdet
@@ -273,7 +277,7 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
         ref = x * inv_ell
         if ctx.grad_mode == "exact" or ctx.axis is not None or isinstance(ctx.dk, MixtureKernel):
             if kept:
-                plan = ctx.plan_type(*kept)
+                plan = _plan_from_tensors(ctx.plan_type, kept)
             else:  # the same positions and capacity as the CG's chain plan; an overflow trips both
                 plan = wide_plan(build_join_plan_any(ref.detach().contiguous(), ctx.dk, ctx.capacity))
             KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True, axis=ctx.axis)

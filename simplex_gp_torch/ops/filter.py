@@ -34,7 +34,11 @@ of the J components at ``ref * alpha_j`` (untrimmed: mixtures ignore
 ``capacity``), applied by K12; its gradient is always the exact one, the
 transposed K12 and K5 on the stacked problem, with the position gradient
 sum_j w_j alpha_j K5_j.  A wide value block above ``_JOIN_MAX_ROWS`` goes
-through K9 one component at a time, as JAX's make_wide_filter_any.
+through K9 one component at a time, as JAX's make_wide_filter_any.  The
+sharded engine (``axis``) takes a mixture as JAX does (mll.py:100-104,
+:164-168): one sharded plan per component at ``ref * alpha_j``, the
+weighted sum of the components' K11b applies in component order, and per
+component K11b's transpose and K5 in the backward.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from .kernels import DiscretizedKernel, MixtureKernel
 from .lattice import (
     SLICE_NORM,
     ChainPlan,
+    LatticePlan,
     MixturePlan,
     WidePlan,
     apply_plan_chain,
@@ -127,8 +132,9 @@ def apply_plan_any(plan, V: torch.Tensor, dk, transpose: bool = False, return_ta
     lattice.py:1305-1314) and has neither a transpose nor a table to
     return; a WidePlan (a join plan with its row lists, the exact
     backward's) by K9 over one window of all V's columns, with no atomics; a
-    mixture applies all its components by K12 (filter.py:196-204); the
-    sharded engine takes no mixture.
+    mixture applies all its components by K12 (filter.py:196-204), or with
+    ``axis`` its tuple of sharded plans, one a component, by K11b each
+    (:func:`_apply_sharded_mixture`).
     """
     if isinstance(plan, ChainPlan):
         if transpose or return_table or axis is not None:
@@ -138,9 +144,23 @@ def apply_plan_any(plan, V: torch.Tensor, dk, transpose: bool = False, return_ta
         return apply_plan_rows(plan, V, dk.coeffs, transpose, return_table)
     if isinstance(dk, MixtureKernel):
         if axis is not None:
-            raise NotImplementedError("the sharded filter takes one DiscretizedKernel, not a mixture")
+            return _apply_sharded_mixture(plan, V, dk, transpose, return_table, axis)
         return apply_plan_mixture(plan, V, dk.base.coeffs, dk.weights, transpose, return_table)
     return apply_plan_join(plan, V, dk.coeffs, transpose, return_table, axis)
+
+
+def _apply_sharded_mixture(plans: tuple, V: torch.Tensor, dk: MixtureKernel, transpose: bool, return_table: bool,
+                           axis):
+    """sum_j w_j K_j @ V (or K_j^T) over a mixture's sharded plans, K11b each, summed in component order as
+    JAX's apply_plan_any (filter.py:196-204); with ``return_table`` also the components' blurred tables,
+    unweighted, as a tuple."""
+    out, tables = None, []
+    for w, plan in zip(dk.weights, plans):
+        res = apply_plan_join(plan, V, dk.base.coeffs, transpose, return_table, axis)
+        term, table = res if return_table else (res, None)
+        tables.append(table)
+        out = w * term if out is None else out + w * term
+    return (out, tuple(tables)) if return_table else out
 
 
 def _chunked(n: int, d: int, c: int) -> bool:
@@ -221,15 +241,47 @@ def mixture_position_grad(plan: MixturePlan, ref: torch.Tensor, dk: MixtureKerne
 
 
 def _plan_tensors(plan) -> tuple:
-    """A plan's tensors, flat (for ``save_for_backward``): a WidePlan's four fields, then its rows."""
-    return (*plan[:4], *plan.rows) if isinstance(plan, WidePlan) else tuple(plan)
+    """A plan's tensors, flat (for ``save_for_backward``): a WidePlan's four fields, then its rows; a tuple
+    of sharded plans (a mixture's), one after another."""
+    if isinstance(plan, WidePlan):
+        return (*plan[:4], *plan.rows)
+    if type(plan) is tuple:
+        return tuple(t for component in plan for t in component)
+    return tuple(plan)
 
 
 def _plan_from_tensors(plan_type, tensors) -> tuple:
     """The plan of ``plan_type`` that :func:`_plan_tensors` flattened."""
     if plan_type is WidePlan:
         return WidePlan(*tensors[:4], JoinRows(*tensors[4:]))
+    if plan_type is tuple:
+        k = len(LatticePlan._fields)
+        return tuple(LatticePlan(*tensors[i:i + k]) for i in range(0, len(tensors), k))
     return plan_type(*tensors)
+
+
+def _sharded_mixture_backward(plans: tuple, ref: torch.Tensor, dk: MixtureKernel, src: torch.Tensor,
+                              g: torch.Tensor, tables_f: tuple, axis):
+    """(grad_src, grad_ref) of ``<g, sum_j w_j K_j(ref alpha_j) @ src>`` on a mixture's sharded plans.
+
+    Component by component, in order, as JAX's autodiff of the component sum
+    (mll.py:100-104): K11b's transpose of the cotangent w_j g (which splats
+    every rank's rows), then K5 on this rank's points at ref alpha_j with
+    that cotangent and the component's two tables; the position gradient is
+    chained through ref alpha_j, so it is multiplied by alpha_j.
+    """
+    d = ref.shape[1]
+    E = torch.from_numpy(build_rotation(d, dk.base.variance)).to(ref.device)
+    src = src.to(torch.float32).contiguous()
+    grad_src = grad_ref = None
+    for w, a, plan, table_f in zip(dk.weights, dk.alphas, plans, tables_f):
+        g_j = (w * g).contiguous()
+        gs, table_b = apply_plan_join(plan, g_j, dk.base.coeffs, transpose=True, return_table=True, axis=axis)
+        gr = a * lattice_filter_grad((ref * a).to(torch.float32).contiguous(), E, plan.seg_ids, src, g_j, table_f,
+                                     table_b, SLICE_NORM(d))
+        grad_src = gs if grad_src is None else grad_src + gs
+        grad_ref = gr if grad_ref is None else grad_ref + gr
+    return grad_src, grad_ref
 
 
 def filter_backward(plan, ref: torch.Tensor, dk, src: torch.Tensor, g: torch.Tensor, table_f: torch.Tensor,
@@ -245,10 +297,14 @@ def filter_backward(plan, ref: torch.Tensor, dk, src: torch.Tensor, g: torch.Ten
     the plan is sharded: the transposed apply is K11b's, which splats every
     rank's g, and K5 runs on this rank's points against the two global
     tables, so grad_ref holds this rank's rows of the whole gradient.  A
-    mixture runs the transposed K12 and :func:`mixture_position_grad`.
+    mixture runs the transposed K12 and :func:`mixture_position_grad`, or
+    with ``axis`` :func:`_sharded_mixture_backward` (``table_f`` the tuple of
+    its components' tables).
     """
     d = ref.shape[1]
     g = g.to(torch.float32).contiguous()
+    if isinstance(dk, MixtureKernel) and axis is not None:
+        return _sharded_mixture_backward(plan, ref, dk, src, g, table_f, axis)
     grad_src, table_b = apply_plan_any(plan, g, dk, transpose=True, return_table=True, axis=axis)
     if isinstance(dk, MixtureKernel):
         return grad_src, mixture_position_grad(plan, ref, dk, src, g, table_f, table_b)
@@ -320,13 +376,14 @@ def lattice_filter_exact_grad(src: torch.Tensor, ref: torch.Tensor, dk, capacity
     """K(ref, ref) @ src, differentiable in src and ref by the exact operator gradient.
 
     With ``axis``, src and ref are this rank's rows and the filter is the
-    sharded one (``capacity`` does not apply).  A mixture with a wide src
-    above ``_JOIN_MAX_ROWS`` is the weighted sum of its components' filters
-    at ``ref * alpha_j`` (each K9), differentiated by autograd through the
-    sum and the scaling (filter.py:177-182).
+    sharded one (``capacity`` does not apply).  A mixture with ``axis``, or
+    with a wide src above ``_JOIN_MAX_ROWS``, is the weighted sum of its
+    components' filters at ``ref * alpha_j`` (each sharded, or K9),
+    differentiated by autograd through the sum and the scaling
+    (filter.py:177-182; JAX's sharded mixture, mll.py:100-104).
     """
-    if isinstance(dk, MixtureKernel) and axis is None and _chunked(*ref.shape, src.shape[-1]):
-        return sum(w * LatticeFilterExactGrad.apply(src, ref * a, dk.base, None, None)
+    if isinstance(dk, MixtureKernel) and (axis is not None or _chunked(*ref.shape, src.shape[-1])):
+        return sum(w * LatticeFilterExactGrad.apply(src, ref * a, dk.base, None, axis)
                    for w, a in zip(dk.weights, dk.alphas))
     return LatticeFilterExactGrad.apply(src, ref, dk, capacity, axis)
 

@@ -195,6 +195,67 @@ def test_cg_solve_shift_is_the_shifted_operator():
             assert torch.equal(got, want)
 
 
+# ---- K10': every rank's partials, folded in rank order ---------------------------------------------
+
+
+def _hand_fold(part: torch.Tensor) -> torch.Tensor:
+    """(P, nb, t) -> (t,) by float32 scalar additions: each rank's nb partials in halves, then the ranks in order."""
+    P, nb, t = part.shape
+    out = []
+    for c in range(t):
+        total = None
+        for q in range(P):
+            v = [np.float32(e) for e in part[q, :, c].tolist()]
+            while len(v) > 1:
+                h = len(v) // 2
+                v = [np.float32(v[i] + v[i + h]) for i in range(h)]
+            total = v[0] if total is None else np.float32(total + v[0])
+        out.append(total)
+    return torch.from_numpy(np.array(out, dtype=np.float32))
+
+
+def _one_rank(part: torch.Tensor, P: int) -> torch.Tensor:
+    """The (nb, t) buffer of today's call that stands for ``part`` (P, nb, t): at P = 1 its one block; else
+    the hand-written fold in block 0 and zeros after, whose own fold is that sum exactly."""
+    if P == 1:
+        return part[0].clone()
+    one = torch.zeros(part.shape[1:])
+    one[0] = _hand_fold(part)
+    return one
+
+
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("kernel", ["cg_step_x", "cg_step_p", "cg_init"])
+def test_reducing_twins_fold_every_ranks_partials_in_rank_order(kernel, P):
+    """The three twins that reduce a dot, given a stacked (P, nb, t) buffer (two as views of one
+    (P, 2, nb, t) gather, as the sharded loop passes them), from a state three iterations into a solve: at
+    P = 1 torch.equal to today's (nb, t) call on the same partials; at P = 2 and 4 torch.equal to the call
+    on one block holding the hand-written fold (each rank's halves, then the ranks in order)."""
+    A, tP, _ = _system(seed=15)
+    tA = torch.from_numpy(A)
+    loop = t_cg.CGLoop(lambda V: tA @ V, torch.from_numpy(_rhs(300, 11)), tol=1e-6, precond=tP, tridiag_m=8)
+    for _ in range(3):
+        loop.iteration()
+    nb = loop.part_pap.shape[0]
+    rr, rz = (torch.rand((P, 2, nb, 11), generator=torch.Generator().manual_seed(P)) + 0.5).transpose(0, 1)
+    kp = tA @ loop.p
+    state = lambda: [a.clone() for a in (loop.x, loop.r, loop.p, loop.x_best, loop.fs, loop.is_, loop.part_rr,
+                                         loop.A, loop.B, loop.TM)]
+
+    def call(a, b_):
+        x, r, p, x_best, fs, is_, part_rr, *rec = S = state()
+        if kernel == "cg_step_x":
+            K10.cg_step_x(a, x, r, p, kp, fs, is_, part_rr)
+        elif kernel == "cg_step_p":
+            K10.cg_step_p(b_, a, x, loop.z, p, x_best, fs, is_, *rec, loop.rules)
+        else:
+            K10.cg_init(a, b_, fs, is_, 500)
+        return S
+
+    for got, want in zip(call(rr, rz), call(_one_rank(rr, P), _one_rank(rz, P))):
+        assert torch.equal(got, want)
+
+
 # ---- the stop cases --------------------------------------------------------------------------
 
 

@@ -835,17 +835,7 @@ def test_cg_kernels_match_plain_bit_for_bit(cuda_device, n, t, m):
     for _ in range(3):
         loop.iteration()
     kp = (A @ loop.p).contiguous()
-
-    def both(kernel, plain, args, mutable):
-        ka = [a.clone() if i in mutable else a for i, a in enumerate(args)]
-        pa = [a.clone() if i in mutable else a for i, a in enumerate(args)]
-        kernel(*ka)
-        plain(*pa)
-        torch.cuda.synchronize()
-        for i in mutable:
-            assert torch.equal(ka[i], pa[i]), (kernel.__name__, i)
-        return ka
-
+    both = _kernel_and_twin
     ka = both(K10.cg_dot, K10.cg_dot_plain, [loop.p, kp, loop.part_pap, loop.scale, loop.noise, loop.ap], (2, 5))
     part_pap, ap = ka[2], ka[5]
     ka = both(K10.cg_step_x, K10.cg_step_x_plain, [part_pap, loop.x, loop.r, loop.p, ap, loop.fs, loop.is_,
@@ -858,7 +848,50 @@ def test_cg_kernels_match_plain_bit_for_bit(cuda_device, n, t, m):
     mutable = (4, 5, 6, 7, 8, 9, 10) if m else (4, 5, 6, 7)
     both(K10.cg_step_p, K10.cg_step_p_plain, [part_rz, part_rr, x, z, loop.p, loop.x_best, fs, is_, *rec,
                                               loop.rules], mutable)
-    both(K10.cg_init, K10.cg_init_plain, [loop.part_bb, part_rz, fs, is_, 500], (2, 3))
+    both(K10.cg_init, K10.cg_init_plain, [part_rr, part_rz, fs, is_, 500], (2, 3))
+
+
+def _kernel_and_twin(kernel, plain, args, mutable):
+    """``kernel`` and its plain twin on clones of the ``mutable`` arguments: those equal bit for bit after."""
+    ka = [a.clone() if i in mutable else a for i, a in enumerate(args)]
+    pa = [a.clone() if i in mutable else a for i, a in enumerate(args)]
+    kernel(*ka)
+    plain(*pa)
+    torch.cuda.synchronize()
+    for i in mutable:
+        assert torch.equal(ka[i], pa[i]), (kernel.__name__, i)
+    return ka
+
+
+@pytest.mark.parametrize("P", [1, 2, 4])
+def test_cg_reducing_kernels_fold_every_ranks_partials(cuda_device, P):
+    """K10': cg_step_x, cg_step_p and cg_init given every rank's partials stacked (P, nb, t) -- two as views
+    of one (P, 2, nb, t) gather, as the sharded loop passes them -- against their plain twins bit for bit,
+    from a state three iterations into a solve; at P = 1 also against the (nb, t) call."""
+    from simplex_gp_torch.kernels import cg as K10
+    from simplex_gp_torch.linalg import cg as t_cg
+
+    A, Pre, b = _cg_problem(cuda_device, 70001, 11)
+    loop = t_cg.CGLoop(lambda V: A @ V, b, tol=1e-6, precond=Pre, tridiag_m=20)
+    for _ in range(3):
+        loop.iteration()
+    nb = loop.part_pap.shape[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(P)
+    rr, rz = (torch.rand((P, 2, nb, 11), generator=gen, device=cuda_device) + 0.5).transpose(0, 1)
+    kp = (A @ loop.p).contiguous()
+    calls = [(K10.cg_step_x, K10.cg_step_x_plain, lambda a, b_: [a, loop.x, loop.r, loop.p, kp, loop.fs, loop.is_,
+                                                                 loop.part_rr], (1, 2, 5, 6, 7)),
+             (K10.cg_step_p, K10.cg_step_p_plain, lambda a, b_: [b_, a, loop.x, loop.z, loop.p, loop.x_best, loop.fs,
+                                                                 loop.is_, loop.A, loop.B, loop.TM, loop.rules],
+              (4, 5, 6, 7, 8, 9, 10)),
+             (K10.cg_init, K10.cg_init_plain, lambda a, b_: [a, b_, loop.fs, loop.is_, 500], (2, 3))]
+    for kernel, plain, args, mutable in calls:
+        ka = _kernel_and_twin(kernel, plain, args(rr, rz), mutable)
+        if P == 1:
+            k1 = [a.clone() if i in mutable else a for i, a in enumerate(args(rr[0].clone(), rz[0].clone()))]
+            kernel(*k1)
+            torch.cuda.synchronize()
+            assert all(torch.equal(ka[i], k1[i]) for i in mutable), kernel.__name__
 
 
 @pytest.mark.parametrize("t,m", [(1, 0), (11, 30)])

@@ -22,6 +22,7 @@ bits on every rank and in every build.
 """
 
 import dataclasses
+import importlib
 import types
 
 import jax
@@ -37,16 +38,20 @@ import simplex_gp_torch
 from simplex_gp_torch.kernels import lattice as K
 from simplex_gp_torch.linalg import mll as t_mll
 from simplex_gp_torch.linalg.pivoted_cholesky import make_preconditioner, pivoted_cholesky_features, precond_solve
+from simplex_gp_torch.ops import kernels as t_kernels
 from simplex_gp_torch.ops import lattice as t_lattice
 from simplex_gp_torch.ops.filter import lattice_filter_exact_grad
 from simplex_gp_torch.parallel import launch, shard_batch
 from simplex_gp_tpu import BBMMConfig as JConfig
 from simplex_gp_tpu import SimplexGP as JSimplexGP
+from simplex_gp_tpu.linalg import cg as j_cg
 from simplex_gp_tpu.linalg.mll import lattice_nlml as j_lattice_nlml
 from simplex_gp_tpu.ops import kernels as j_kernels
 from simplex_gp_tpu.ops.lattice import apply_plan as j_apply_plan
 from simplex_gp_tpu.parallel import build_plan_sharded_join as j_build_plan_sharded_join
 from simplex_gp_tpu.parallel import make_mesh as j_make_mesh
+
+j_pc = importlib.import_module("simplex_gp_tpu.linalg.pivoted_cholesky")
 
 SIZES = {"pair": 2, "world": 4}
 ENGINE_CFG = dict(cg_tolerance=1e-4, max_cg_iterations=200, max_lanczos_iterations=40, num_probes=8)
@@ -76,6 +81,10 @@ def _cases():
     x, y = _problem(96, 2)
     raw = {k: np.asarray(v) for k, v in JSimplexGP(num_dims=2, kernel="rbf", order=1).init_params().items()}
     engine = dict(kernel=("rbf", 1), d=2, x=x, y=y, cfg=ENGINE_CFG, probes=_rademacher(96, 8, 7), raw=raw)
+    # J = 8 RBF components of order 1 targeting Matern-1.5, with their profile-fit weights in both packages.
+    mixture = dict(engine, kernel=("mixture", 1.5, 1), mix_components=8,
+                   raw={k: np.asarray(v) for k, v in JSimplexGP(num_dims=2, kernel="mixture", mix_components=8)
+                        .init_params().items()})
     pivoted = [dict(ref=1.3 * x, z=np.random.default_rng(3).normal(size=(96, 3)).astype(np.float32),
                     outputscale=0.7, nu=nu, rank=rank, noise=0.1) for nu, rank in ((0.0, 20), (1.5, 40))]
     dryrun = []
@@ -86,9 +95,26 @@ def _cases():
                                     num_probes=4, precond_rank=rank)))
     return dict(filters=filters, engine=engine, engine_lanczos=dict(engine, cfg=dict(ENGINE_CFG, slq_mode="lanczos")),
                 engine_unpreconditioned=dict(engine, cfg=dict(ENGINE_CFG, slq_mode="lanczos", precond_rank=0)),
-                ignored=dict(engine, cfg=dict(ENGINE_CFG, grad_mode="deriv_filter", plan_capacity=64)),
+                ignored=dict(engine, cfg=dict(ENGINE_CFG, grad_mode="deriv_filter", plan_capacity=64)), mixture=mixture,
                 end_to_end=dict(kernel=("rbf", 1), d=2, x=x, y=y, cfg=ENGINE_CFG, seed=0),
-                pivoted=pivoted, dryrun=dryrun)
+                pivoted=pivoted, dryrun=dryrun, cg=_cg_cases())
+
+
+def _cg_cases():
+    """Dense SPD systems of 300 rows and 11 columns (test_torch_cg_kernels.py's, its full-rank part spread
+    wider): with the Woodbury preconditioner of its low-rank part, the "mean" stop and an 8-step record
+    (19 iterations, the mean residual 1.5e-5 / 8.0e-6 after 18 / 19); and with none, the "column" stop (24
+    iterations, every column 1.1e-5 or less after 24, the last above 1.8e-5 after 23)."""
+    rng = np.random.default_rng(0)
+    n, k = 300, 20
+    L = (rng.normal(size=(n, k)) * np.geomspace(0.3, 0.01, k)).astype(np.float32)
+    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    A = (L @ L.T + np.eye(n) + (Q * np.geomspace(10.0, 0.01, n)) @ Q.T).astype(np.float32)
+    pre = make_preconditioner(torch.from_numpy(L), torch.tensor(np.float32(1.0)), n)
+    b = rng.normal(size=(n, 11)).astype(np.float32)
+    return [dict(A=A, b=b, kw=dict(tol=1e-5, max_iters=200, stop_mode="mean", tridiag_m=8),
+                 **{f: getattr(pre, f).numpy() for f in ("U", "s2", "noise", "logdet", "gamma")}),
+            dict(A=A, b=b, kw=dict(tol=1.5e-5, max_iters=300, stop_mode="column", tridiag_m=8))]
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +122,7 @@ def run():
     """(cases, {tag: [each rank's results]}) of one four-rank launch."""
     cases = _cases()
     ranks = launch(parallel_suite, 4, (cases,), device="cpu", timeout=300, threads=1)
-    return cases, {tag: [r[tag] for r in ranks if tag in r] for tag in SIZES}
+    return cases, {tag: [r[tag] for r in ranks if tag in r] for tag in (*SIZES, "one")}
 
 
 def _rows(a, size):
@@ -104,10 +130,19 @@ def _rows(a, size):
     return a[: (a.shape[0] // size) * size]
 
 
-def _port_model(case, cfg):
+def _kernel_kw(case) -> dict:
+    """SimplexGP's kernel arguments (both packages) of ("rbf", order), ("matern" | "mixture", nu, order)."""
     kind = case["kernel"]
-    model = simplex_gp_torch.SimplexGP(num_dims=case["d"], kernel=kind[0], order=kind[-1],
-                                       bbmm=t_mll.BBMMConfig(**cfg))
+    kw = dict(kernel=kind[0], order=kind[-1])
+    if kind[0] != "rbf":
+        kw["nu"] = kind[1]
+    if kind[0] == "mixture":
+        kw["mix_components"] = case["mix_components"]
+    return kw
+
+
+def _port_model(case, cfg):
+    model = simplex_gp_torch.SimplexGP(num_dims=case["d"], bbmm=t_mll.BBMMConfig(**cfg), **_kernel_kw(case))
     if case.get("raw") is not None:
         model.load_raw(case["raw"])
     return model
@@ -162,6 +197,23 @@ def test_sharded_filter_gradients_match_single_device(run, tag, ci):
         assert rel_err(f["grad_x"], x.grad.numpy()) <= 1e-5
 
 
+@pytest.mark.parametrize("tag", SIZES)
+def test_sharded_mixture_filter_matches_single_device(run, tag):
+    """filter_sharded of a J = 8 mixture (the weighted sum of its components' sharded filters, JAX's
+    _khat_matmul_diff with an axis_name, mll.py:100-104) and its gradients against the one-process K12."""
+    cases, res = run
+    case = cases["filters"][0]
+    x = torch.from_numpy(case["x"]).requires_grad_(True)
+    v = torch.from_numpy(case["v"]).requires_grad_(True)
+    out = lattice_filter_exact_grad(v, x, t_kernels.mixture_kernel(1.5, 1, 8))
+    (out * torch.from_numpy(case["g"])).sum().backward()
+    for r in res[tag]:
+        f = r["filter_mixture"]
+        np.testing.assert_allclose(f["out"], out.detach().numpy(), rtol=1e-5, atol=1e-5)
+        assert rel_err(f["grad_v"], v.grad.numpy()) <= 1e-5
+        assert rel_err(f["grad_x"], x.grad.numpy()) <= 1e-5
+
+
 @pytest.mark.parametrize("ci", [0, 1])
 @pytest.mark.parametrize("tag", SIZES)
 def test_ordered_dedup_is_the_same_on_every_rank_and_build(run, tag, ci):
@@ -197,15 +249,16 @@ def test_ordered_dedup_numbers_rows_by_first_vertex_and_keeps_the_operator(order
     assert rel_err(out, ref) <= 1e-6
 
 
-@pytest.mark.parametrize("engine", ["engine", "engine_lanczos", "engine_unpreconditioned"])
+@pytest.mark.parametrize("engine", ["engine", "engine_lanczos", "engine_unpreconditioned", "mixture"])
 @pytest.mark.parametrize("tag", SIZES)
 def test_sharded_engine_matches_jax_same_probes(run, tag, engine):
     """Port of test_sharded_engine_matches_single_device_same_probes against JAX's shard_map engine,
     with the SLQ log-det from the CG tridiagonals and from a Lanczos run, with and without the
-    preconditioner."""
+    preconditioner, and for a J = 8 mixture (one sharded plan per component, JAX mll.py:100-104,
+    :164-168)."""
     cases, res = run
     case, size = cases[engine], SIZES[tag]
-    model = JSimplexGP(num_dims=2, kernel="rbf", order=1, bbmm=JConfig(**case["cfg"]))
+    model = JSimplexGP(num_dims=case["d"], bbmm=JConfig(**case["cfg"]), **_kernel_kw(case))
     cfg = dataclasses.replace(model.bbmm, axis_name="data")
 
     def shard_loss(raw, x_loc, y_loc, z_loc):
@@ -224,10 +277,11 @@ def test_sharded_engine_matches_jax_same_probes(run, tag, engine):
             np.testing.assert_allclose(g, np.asarray(j_grads[k]), rtol=1e-3, atol=1e-4)
 
 
-@pytest.mark.parametrize("engine", ["engine", "engine_lanczos", "engine_unpreconditioned"])
+@pytest.mark.parametrize("engine", ["engine", "engine_lanczos", "engine_unpreconditioned", "mixture"])
 @pytest.mark.parametrize("tag", SIZES)
 def test_sharded_engine_matches_single_device_port(run, tag, engine):
-    """The same rows and probes on one process: loss, gradients, and the CG iteration count on every rank."""
+    """The same rows and probes on one process: loss, gradients, and the CG iteration count on every rank
+    (the mixture's one process runs K12 on its stacked plan)."""
     cases, res = run
     loss, grads, iters = _single_device(cases[engine], SIZES[tag])
     for r in res[tag]:
@@ -333,9 +387,87 @@ def test_rank_probe_streams_differ_by_rank_and_repeat_by_seed():
     assert not torch.equal(draw(3, 0), draw(3, 1)) and not torch.equal(draw(3, 1), draw(4, 1))
 
 
-def test_sharded_engine_refuses_mixtures():
-    """The sharded engine's mixture branch is not ported: it says so before any collective."""
-    cfg = t_mll.BBMMConfig(axis=types.SimpleNamespace(rank=0, size=2))
-    params = {"inv_ell": torch.ones(2), "outputscale": torch.tensor(1.0), "noise": torch.tensor(0.1)}
-    with pytest.raises(NotImplementedError, match="mixture"):
-        t_mll._solve_system(object(), cfg, params, torch.zeros(4, 2), torch.zeros(4), torch.ones(4, 2))
+
+# ---- K10', the sharded CG: the kernels' loop over gathered block partials ------------------------
+
+
+def _jax_cg(case, size):
+    """JAX's cg_solve under shard_map on the same rows: x and the iteration count."""
+    woodbury = case.get("U") is not None
+
+    def shard_fn(A_loc, b_loc, *U_loc):
+        precond = None
+        if woodbury:
+            jP = j_pc.Preconditioner(U=U_loc[0], **{k: case[k] for k in ("s2", "noise", "logdet", "gamma")})
+            precond = lambda V: j_pc.precond_solve(jP, V, "data")
+        res = j_cg.cg_solve(lambda V: A_loc @ jax.lax.all_gather(V, "data", tiled=True), b_loc, precond=precond,
+                            axis_name="data", **case["kw"])
+        return res.x, res.iterations
+
+    args = (case["A"], case["b"]) + ((case["U"],) if woodbury else ())
+    x, it = jax.jit(shard_map(shard_fn, mesh=j_make_mesh(size), in_specs=(P("data", None),) * len(args),
+                              out_specs=(P("data", None), P()), check_vma=False))(*args)
+    return np.asarray(x), int(it)
+
+
+@pytest.mark.parametrize("ci", [0, 1])
+@pytest.mark.parametrize("tag", SIZES)
+def test_sharded_cg_state_is_bit_equal_on_every_rank(run, tag, ci):
+    """Every rank reduces the same gathered partials: iterations, best residuals and SLQ record bit-equal."""
+    _, res = run
+    ranks = [r["cg"][ci] for r in res[tag]]
+    assert len(ranks) == SIZES[tag] and ranks[0]["iterations"] > 10
+    for r in ranks:
+        assert r["iterations"] == ranks[0]["iterations"]
+        np.testing.assert_array_equal(r["residual"], ranks[0]["residual"])
+        for got, want in zip(r["record"], ranks[0]["record"]):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("ci", [0, 1])
+@pytest.mark.parametrize("tag", SIZES)
+def test_sharded_cg_matches_single_device_cg_loop(run, tag, ci):
+    """The gathered solution within rel 1e-5 of the single-device CGLoop on all rows, the same iterations, and
+    the record of the first 8 steps within rel 1e-5 (the ranks' partial sums are another order of the same
+    dots).  The final residuals are not compared: near 1e-5, float32's floor for these systems, they follow
+    the summation order (the port's and JAX's single-device solves differ there by up to 77%)."""
+    _, res = run
+    for r in (r_["cg"][ci] for r_ in res[tag]):
+        single = r["single"]
+        assert r["iterations"] == single["iterations"]
+        assert rel_err(r["x"], single["x"]) <= 1e-5
+        np.testing.assert_array_equal(r["record"][2], single["record"][2])
+        for got, want in zip(r["record"][:2], single["record"][:2]):
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("ci", [0, 1])
+@pytest.mark.parametrize("tag", SIZES)
+def test_sharded_cg_matches_jax_shard_map(run, tag, ci):
+    """Against JAX's cg_solve with axis_name under shard_map (every dot a psum): equal iterations, x rel 1e-5."""
+    cases, res = run
+    x, iters = _jax_cg(cases["cg"][ci], SIZES[tag])
+    for r in (r_["cg"][ci] for r_ in res[tag]):
+        assert r["iterations"] == iters
+        assert rel_err(r["x"], x) <= 1e-5
+
+
+@pytest.mark.parametrize("ci", [0, 1])
+def test_one_rank_axis_is_the_single_device_solve(run, ci):
+    """make_mesh(1): one rank's gathered partials are its own, so the solve is the single-device one bit for bit."""
+    _, res = run
+    one = res["one"]
+    assert len(one) == 1
+    it_one, it_single = one[0]["cg"][ci]["iterations"]
+    assert it_one == it_single > 10
+    assert all(one[0]["cg"][ci]["equal"]) and len(one[0]["cg"][ci]["equal"]) == 5
+
+
+@pytest.mark.parametrize("ci,start,per_iteration", [(0, 3, 3), (1, 2, 2)])
+@pytest.mark.parametrize("tag", SIZES)
+def test_sharded_cg_collectives_an_iteration(run, tag, ci, start, per_iteration):
+    """Besides the MVM's: three an iteration with a Woodbury preconditioner (pap; U^T r; r . r with r . z),
+    two without one; at the start the layout check, U^T b (with the preconditioner) and b . b with r0 . z0."""
+    _, res = run
+    for r in (r_["cg"][ci] for r_ in res[tag]):
+        assert r["cg_collectives"] == start + per_iteration * r["iterations"]

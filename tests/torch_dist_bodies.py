@@ -12,8 +12,14 @@ import torch
 from simplex_gp_torch import SimplexGP
 from simplex_gp_torch.kernels import lattice as K
 from simplex_gp_torch.kernels.lattice import dedup_ordered_plain, geometry_plain
+from simplex_gp_torch.linalg.cg import cg_solve
 from simplex_gp_torch.linalg.mll import BBMMConfig
-from simplex_gp_torch.linalg.pivoted_cholesky import make_preconditioner, pivoted_cholesky_features, precond_solve
+from simplex_gp_torch.linalg.pivoted_cholesky import (
+    Preconditioner,
+    make_preconditioner,
+    pivoted_cholesky_features,
+    precond_solve,
+)
 from simplex_gp_torch.ops import kernels as kern
 from simplex_gp_torch.ops.lattice import SLICE_NORM, _lattice_constants, apply_plan_join
 from simplex_gp_torch.parallel import (
@@ -65,10 +71,22 @@ def _filter(axis, case):
     )
 
 
+def _filter_mixture(axis, case):
+    """filter_sharded of a J = 8 mixture (one sharded plan a component) and its gradients, gathered."""
+    dk = kern.mixture_kernel(1.5, 1, 8)
+    x, v, g = shard_batch(axis, case["x"], case["v"], case["g"], device=CPU)
+    x.requires_grad_(True)
+    v.requires_grad_(True)
+    out = filter_sharded(v, x, dk, axis)
+    (out * g).sum().backward()
+    return dict(out=_gathered(axis, out), grad_v=_gathered(axis, v.grad), grad_x=_gathered(axis, x.grad))
+
+
 def _model(spec, cfg, raw):
     dk = spec["kernel"]
-    model = SimplexGP(num_dims=spec["d"], kernel=dk[0], nu=dk[1] if dk[0] == "matern" else 1.5,
-                      order=dk[-1], bbmm=BBMMConfig(**cfg))
+    mixture = dict(mix_components=spec["mix_components"]) if dk[0] == "mixture" else {}
+    model = SimplexGP(num_dims=spec["d"], kernel=dk[0], nu=dk[1] if dk[0] != "rbf" else 1.5,
+                      order=dk[-1], bbmm=BBMMConfig(**cfg), **mixture)
     if raw is not None:
         model.load_raw(raw)
     return model
@@ -100,6 +118,52 @@ def _pivoted(axis, case):
                 logdet=float(P.logdet), pivots=pc.pivots.numpy())
 
 
+def _cg_system(case, rows=slice(None)):
+    """The dense operator's rows, the right-hand sides and the Woodbury preconditioner (None without one)."""
+    A, b = torch.from_numpy(case["A"][rows]), torch.from_numpy(case["b"][rows])
+    if case.get("U") is None:
+        return A, b, None
+    pre = Preconditioner(U=torch.from_numpy(case["U"][rows]), **{k: torch.tensor(case[k])
+                                                                 for k in ("s2", "noise", "logdet", "gamma")})
+    return A, b, pre
+
+
+def _result(res):
+    return dict(iterations=res.iterations, residual=res.residual_norm.numpy().copy(),
+                record=None if res.alphas is None else [res.alphas.numpy().copy(), res.betas.numpy().copy(),
+                                                        res.tmask.numpy().copy()])
+
+
+def _cg(axis, case):
+    """The sharded CG (K10') on this rank's rows of a dense SPD system: the gathered solution, the state and
+    record, the CG's collectives apart from the MVM's, and the single-device solve in this process."""
+    n_loc = case["A"].shape[0] // axis.size
+    A, b, pre = _cg_system(case, slice(axis.rank * n_loc, (axis.rank + 1) * n_loc))
+    mvm = []
+
+    def matmul(V):
+        mvm.append(1)
+        return A @ axis.all_gather(V)
+
+    axis.timing = True
+    axis.reset_stats()
+    res = cg_solve(matmul, b, precond=pre, axis=axis, **case["kw"])
+    axis.timing = False
+    A1, b1, pre1 = _cg_system(case)
+    single = cg_solve(lambda V: A1 @ V, b1, precond=pre1, **case["kw"])
+    return dict(_result(res), x=_gathered(axis, res.x), cg_collectives=axis.stats["calls"] - len(mvm),
+                single=dict(_result(single), x=single.x.numpy()))
+
+
+def _cg_one_rank(axis, case):
+    """A one-rank axis against the single-device solve in this process: torch.equal, field by field."""
+    A, b, pre = _cg_system(case)
+    one = cg_solve(lambda V: A @ axis.all_gather(V), b, precond=pre, axis=axis, **case["kw"])
+    single = cg_solve(lambda V: A @ V, b, precond=pre, **case["kw"])
+    return dict(iterations=(one.iterations, single.iterations),
+                equal=[bool(torch.equal(u, v)) for u, v in zip(one, single) if isinstance(u, torch.Tensor)])
+
+
 def parallel_suite(axis, cases):
     """Every sharded check of tests/test_torch_parallel.py, over the world and over its first two ranks."""
     torch.manual_seed(0)
@@ -110,14 +174,20 @@ def parallel_suite(axis, cases):
         out[tag] = dict(
             size=ax.size,
             filters=[_filter(ax, c) for c in cases["filters"]],
+            filter_mixture=_filter_mixture(ax, cases["filters"][0]),
             engine=_engine(ax, cases["engine"]),
             engine_lanczos=_engine(ax, cases["engine_lanczos"]),
             engine_unpreconditioned=_engine(ax, cases["engine_unpreconditioned"]),
             ignored=_engine(ax, cases["ignored"]),
+            mixture=_engine(ax, cases["mixture"]),
             pivoted=[_pivoted(ax, c) for c in cases["pivoted"]],
             end_to_end=_engine(ax, cases["end_to_end"], adam_lr=0.1),
             dryrun=[_engine(ax, c, adam_lr=0.1) for c in cases["dryrun"]],
+            cg=[_cg(ax, c) for c in cases["cg"]],
         )
+    one = make_mesh(1)
+    if one is not None:
+        out["one"] = dict(cg=[_cg_one_rank(one, c) for c in cases["cg"]])
     axis.psum(torch.zeros(1))  # no rank leaves while the pair still runs
     return out
 
