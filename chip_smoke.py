@@ -13,6 +13,12 @@ Phases, each printed as it runs:
      rows and predict_from_cache on the 3,320 test rows, with the trained
      parameters of runs/r5/simplexgp_elevators_s0/model_best.pkl, held
      against the JAX-on-CPU golden file tests/fixtures/elevators_golden.npz;
+     the kernels' launches on the slice (the range sketch's route: K9 twice
+     by windows of 32 on its join plan's row lists, one row build, K3
+     never); a second posterior_cache bit for bit (alpha and root_inv); the
+     sketch's apply at c = 100 against its plain version, K9 in one window
+     and a second run (bit for bit) and K3 (rel), with the times of each,
+     of the row build and the bound;
   4. training at elevators, against the JAX-on-CPU golden file
      tests/fixtures/elevators_train_golden.npz: K3 transposed and K5
      lattice_filter_grad against their plain versions at the median-init
@@ -75,14 +81,18 @@ Phases, each printed as it runs:
      components of order 1 targeting Matern-1.5, the configuration of
      runs/r5/simplexgp_elevators_s0 with --kernel mixture), against the
      JAX-on-CPU golden file tests/fixtures/elevators_mixture_golden.npz:
-     K12 lattice_mixture_apply against its plain version at the median-init
-     positions with JAX's weights (c = 1 and 11, forward and transposed,
-     outputs and stacked tables), against the J-fold K3 loop on the same
-     plans (times of both) and against JAX's mixture MVM; the mixture
+     the stacked plan's row lists (mixture_rows) against their plain build
+     bit for bit, and their build time; K12 lattice_mixture_apply against
+     its plain version at the median-init positions with JAX's weights
+     (c = 1, 11 and 100, forward and transposed, outputs and stacked
+     tables, bit for bit, and a second apply), against the J-fold K3 loop on
+     the same plans (times of both, K12's also replayed from a CUDA graph,
+     and the bound at each width) and against JAX's mixture MVM; the mixture
      position gradient (K5 on the stacked problem) against its plain
      version; the port's subset fit against JAX's weights through the
-     operator; the NLML and raw gradients at the median init, three Adam
-     steps, one warm step and its stages; posterior_cache +
+     operator; the NLML and raw gradients at the median init (and a second
+     evaluation, bit for bit), three Adam steps, one warm step and its
+     stages; posterior_cache +
      predict_from_cache at model_best.pkl (with JAX's weights refit at its
      lengthscales) on the test rows;
      ``simplex_gp_torch.train.main --kernel mixture`` for two epochs and
@@ -156,7 +166,8 @@ Phases, each printed as it runs:
      the fusion).
 
 The line before the last is the card; the one before it a JSON object of
-the kernels (launches on the slice -- for K5, on the trainer run; for K7, on
+the kernels (launches on the slice -- K3 has none there since the range
+sketch runs K9 on its plan's row lists; for K5, on the trainer run; for K7, on
 the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9,
 its row lists and the bounded K2, on the houseelectric trainer run; for K11a, K11b, K6' and K10',
 on the two ranks' data-parallel NLML step; for K12, on the mixture trainer
@@ -282,10 +293,16 @@ OCC_REL = 1e-4
 # held bit-equal to its plain version, K11b and K6' take K3_REL and the K6
 # bounds.
 PARALLEL_FILTER_REL = 2e-5
-# Phase 8.  K12 against its plain version: K3's atomic splat over the stacked
-# table (K3_REL); against JAX's mixture MVM, the chain-vs-join bound
-# (LARGE_N_REL); the stacked K5, K5_REL.  The NLML, gradients, Adam steps and
-# serving take phase 4's and phase 3's bounds with JAX's weights fed in.
+# Phase 3's range sketch apply (K9 on the join plan's row lists, no atomics)
+# against K3's atomic apply of the same operator at c = 100: K3_REL.
+SKETCH_K3_REL = K3_REL
+# Phase 8.  K12 runs on the stacked plan's row lists with no atomics, each
+# sum in its plain version's order: against its plain version bit for bit
+# (torch.equal, outputs and the read rows of its table; K3_REL while it
+# splatted with atomics); against the J-fold K3 loop, K3's atomic splat
+# (K3_REL); against JAX's mixture MVM, the chain-vs-join bound (LARGE_N_REL);
+# the stacked K5, K5_REL.  The NLML, gradients, Adam steps and serving take
+# phase 4's and phase 3's bounds with JAX's weights fed in.
 # The port's own subset fit: NNLS can change its active set on a
 # rounding-level change of its columns (the port's filters differ from JAX's
 # by ~1e-6), so the fit is held through the operator it gives on a probe
@@ -487,6 +504,40 @@ def cosine(a, b) -> float:
     return float((a * b).sum() / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30))
 
 
+def sketch_apply(dev, ref, dk, expect) -> dict:
+    """Phase 3's range-sketch apply at c = 100 on the trained positions' join plan, as posterior_cache runs it:
+    K9 in windows of 32 on the plan's row lists (make_wide_filter's route), against K9 in one window of the
+    100 columns and its plain version (bit for bit: columns do not interact) and a second run, and against
+    K3's atomic apply (SKETCH_K3_REL); the times of each and of the row build, with the bound."""
+    import torch
+
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.ops import filter as F
+    from simplex_gp_torch.ops import lattice as L
+
+    n, d = ref.shape
+    plan = L.wide_plan(L.build_plan_join(ref, dk.coeffs, dk.variance))
+    omega = torch.randn((n, 100), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+    taps, norm, nl = list(dk.coeffs), L.SLICE_NORM(d), int(plan.n_lattice)
+    args = (*plan[:4], omega, taps, norm)
+    route = F.apply_plan_wide(plan, omega, dk)
+    one = K.lattice_apply_cols(*args, 100, plan.rows)
+    plain = K.apply_cols_plain(*args, 100, plan.rows)
+    k3 = K.lattice_apply(*args)
+    equal = dict(plain=bool(torch.equal(route, plain)), one_window=bool(torch.equal(route, one)),
+                 again=bool(torch.equal(route, F.apply_plan_wide(plan, omega, dk))))
+    r3 = rel(route, k3)
+    expect(all(equal.values()), f"range sketch apply (K9, windows of 32) bit-equal to plain / one window of 100 / "
+           f"a second run: {equal}")
+    expect(r3 <= SKETCH_K3_REL, f"range sketch apply vs K3's: rel {r3:.3e} (limit {SKETCH_K3_REL})")
+    return dict(n_lattice=nl, bit_equal=equal, k3_rel=r3,
+                k9_window_32_ms=cuda_ms(lambda: F.apply_plan_wide(plan, omega, dk), 20),
+                k9_one_window_ms=cuda_ms(lambda: K.lattice_apply_cols(*args, 100, plan.rows), 20),
+                k3_ms=cuda_ms(lambda: K.lattice_apply(*args), 10),
+                row_build_ms=cuda_ms(lambda: K.join_rows(*plan[:4]), 20),
+                **bound(*apply_cost(n, d, 100, nl, dk.order)))
+
+
 def training_phase(dev, ds, expect, timer):
     """Phase 4: the training path at elevators.  Returns (K5's kernel row, the record)."""
     import tempfile
@@ -614,7 +665,8 @@ def training_phase(dev, ds, expect, timer):
     record.update(adam_loss_diff=dl, adam_param_diff=dp, adam_step_ms=hist["step_ms"], adam_cg_iters=cg_iters)
 
     print("training 4.4: python -m simplex_gp_torch.train, two epochs at elevators")
-    kernels = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, pivot_column,
+    # The exact backward and the eval (range sketch and predict) run K9 on their join plans' row lists.
+    kernels = (K.lattice_geometry, K.lattice_dedup_neighbors, K.join_rows, K.lattice_apply_cols, pivot_column,
                K.lattice_filter_grad, *chain_kernels())
     for fn in kernels:
         fn.launches = 0
@@ -2009,48 +2061,68 @@ def mixture_phase(dev, ds, expect, timer):
         return out
 
     record, row = {}, {}
-    print("mixture 8.1: K12 lattice_mixture_apply vs plain (median init, JAX's weights, c = 1 and 11)")
+    print("mixture 8.1: K12 lattice_mixture_apply vs plain (median init, JAX's weights, c = 1, 11 and 100)")
     with torch.no_grad():
         ref = (x * model.constrained()["inv_ell"]).contiguous()
         plan = L.build_plan_mixture(ref, dk.alphas, dk.base.coeffs, dk.base.variance)
         live = plan.live.tolist()
         M = plan.neighbors.shape[1] // J
-        print(f"    J = {J}, M = {M} rows a component, live rows {live} ({sum(live)} of {J * M})")
+        print(f"    J = {J}, M = {M} rows a component, live rows {live} ({sum(live)} of {J * M}); row lists: "
+              f"{int(plan.rows.n_mid)} mid rows, {int(plan.rows.n_long)} long rows in {int(plan.rows.n_pieces)} "
+              f"pieces")
         expect(len(set(live)) > 1 and max(live) <= M, "the components' live counts differ, each within M")
+        rows_plain = KM.mixture_rows_plain(plan.seg_ids, plan.weights, plan.neighbors)
+        rows_equal = all(torch.equal(a_, b_) for a_, b_ in zip(plan.rows, rows_plain))
+        expect(rows_equal, "the stacked plan's row lists (mixture_rows) bit-equal to their plain build")
+        rows_ms = timer(lambda: KM.mixture_rows(plan.seg_ids, plan.weights, plan.neighbors, plan.live), 20)
         gen = torch.Generator(device=dev).manual_seed(8)
         args = (plan.seg_ids, plan.weights, plan.neighbors)
         rows_read = plan.seg_ids.reshape(-1).long()
-        err, ms, plain_ms, loop_ms, tables = 0.0, {}, {}, {}, {}
-        for c in (1, 11):
+        err, ms, graph, plain_ms, loop_ms, tables, bounds = 0.0, {}, {}, {}, {}, {}, {}
+        for c in (1, 11, 100):
             v = torch.randn((n, c), generator=gen, device=dev)
             g = torch.randn((n, c), generator=gen, device=dev)
             for u, tr in ((v, False), (g, True)):
-                k_out, k_tab = KM.lattice_mixture_apply(*args, plan.live, u, taps, norm, dk.weights, tr, True)
-                p_out, p_tab = KM.mixture_apply_plain(*args, u, taps, norm, dk.weights, tr, True)
-                r = max(rel(k_out, p_out), rel(k_tab[rows_read], p_tab[rows_read]))
+                k_out, k_tab = KM.lattice_mixture_apply(*args, plan.live, u, taps, norm, dk.weights, tr, True,
+                                                        plan.rows)
+                p_out, p_tab = KM.mixture_apply_plain(*args, u, taps, norm, dk.weights, tr, True, plan.rows)
+                again = KM.lattice_mixture_apply(*args, plan.live, u, taps, norm, dk.weights, tr, False, plan.rows)
+                equal = bool(torch.equal(k_out, p_out) and torch.equal(k_tab[rows_read], p_tab[rows_read]))
                 err = max(err, float((k_out - p_out).abs().max()))
-                expect(r <= K3_REL, f"c={c}{' transposed' if tr else ''}: output and table rel {r:.3e} "
-                       f"(limit {K3_REL})")
+                expect(equal and torch.equal(again, k_out),
+                       f"c={c}{' transposed' if tr else ''}: output and table == plain bit for bit ({equal}; rel "
+                       f"{rel(k_out, p_out):.3e}), a second apply bit-equal {torch.equal(again, k_out)}")
                 tables[(c, tr)] = k_tab
-            r_loop = rel(KM.lattice_mixture_apply(*args, plan.live, v, taps, norm, dk.weights), k3_loop(plan, v))
+                del p_out, p_tab
+            r_loop = rel(KM.lattice_mixture_apply(*args, plan.live, v, taps, norm, dk.weights, rows=plan.rows),
+                         k3_loop(plan, v))
             expect(r_loop <= K3_REL, f"c={c}: K12 vs the J-fold K3 loop on the same plans rel {r_loop:.3e} "
                    f"(limit {K3_REL})")
-            ms[c] = timer(lambda: KM.lattice_mixture_apply(*args, plan.live, v, taps, norm, dk.weights), 20)
-            plain_ms[c] = timer(lambda: KM.mixture_apply_plain(*args, v, taps, norm, dk.weights), 3)
+            ms[c] = timer(lambda: KM.lattice_mixture_apply(*args, plan.live, v, taps, norm, dk.weights,
+                                                           rows=plan.rows), 20)
+            graph[c] = graph_ms(lambda: KM.lattice_mixture_apply(*args, plan.live, v, taps, norm, dk.weights,
+                                                                 rows=plan.rows), 10)
+            plain_ms[c] = timer(lambda: KM.mixture_apply_plain(*args, v, taps, norm, dk.weights, rows=plan.rows), 3)
             loop_ms[c] = timer(lambda: k3_loop(plan, v), 10)
-            print(f"    c={c}: K12 {ms[c]:.4f} ms, plain {plain_ms[c]:.4f} ms, the J-fold K3 loop {loop_ms[c]:.4f} ms")
+            nbytes, ops = 0, 0
+            for nl_j in live:  # Sum over the components of K3's cost on each plan (apply_cost)
+                b_j, o_j = apply_cost(n, d, c, nl_j, order)
+                nbytes, ops = nbytes + b_j, ops + o_j
+            bounds[c] = bound(nbytes, ops)
+            print(f"    c={c}: K12 {ms[c]:.4f} ms (graph {graph[c]:.4f}), plain {plain_ms[c]:.4f} ms, the J-fold K3 "
+                  f"loop {loop_ms[c]:.4f} ms; bound {bounds[c]['bound_ms']:.4f} ms ({bounds[c]['bound_by']})")
+        print(f"    the row lists (mixture_rows, once a plan): {rows_ms:.4f} ms")
+        for key in [k_ for k_ in tables if k_[0] == 100]:
+            del tables[key]
         v1 = torch.from_numpy(np.random.default_rng(int(golden["mvm_seed"])).normal(size=(n, 1)).astype(np.float32))
         r_jax = rel(F.apply_plan_any(plan, v1.to(dev), dk).cpu(), torch.from_numpy(golden["mvm_out"]))
         expect(r_jax <= LARGE_N_REL, f"K12 vs JAX's lattice_filter_any (CPU golden), c=1: rel {r_jax:.3e} "
                f"(limit {LARGE_N_REL}, the chain-vs-join bound)")
-        nbytes, ops = 0, 0
-        for nl_j in live:  # Sum over the components of K3's cost on each plan (apply_cost)
-            b_j, o_j = apply_cost(n, d, 1, nl_j, order)
-            nbytes, ops = nbytes + b_j, ops + o_j
-        row = dict(max_abs_err=err, ms=ms[1], plain_ms=plain_ms[1], **bound(nbytes, ops), library_ms=None,
-                   shape=f"n={n}, d={d}, J={J}, c=1, live rows {sum(live)}", ms_by_c=ms, plain_ms_by_c=plain_ms,
-                   k3_loop_ms_by_c=loop_ms)
-        record.update(k12_jax_rel=r_jax, live=live)
+        row = dict(max_abs_err=err, ms=ms[1], plain_ms=plain_ms[1], **bounds[1], library_ms=None,
+                   shape=f"n={n}, d={d}, J={J}, c=1, live rows {sum(live)}", ms_by_c=ms, graph_ms_by_c=graph,
+                   plain_ms_by_c=plain_ms, k3_loop_ms_by_c=loop_ms,
+                   bound_ms_by_c={c: b["bound_ms"] for c, b in bounds.items()}, row_build_ms=rows_ms)
+        record.update(k12_jax_rel=r_jax, live=live, rows_bit_equal=rows_equal)
 
         print("mixture 8.2: the mixture position gradient (K5 on the stacked problem) vs plain (c = 11)")
         gen = torch.Generator(device=dev).manual_seed(8)
@@ -2098,6 +2170,14 @@ def mixture_phase(dev, ds, expect, timer):
                f"(limit {GRAD_REL})")
         record[f"grad_rel_{k}"] = r
     record["nlml_diff"] = dl
+    first = [loss.detach().clone()] + [getattr(model, k).grad.detach().clone() for k in RAW_NAMES]
+    model.zero_grad(set_to_none=True)
+    loss = model.nlml(x, y, probes=probes(golden["seed_init"]))
+    loss.backward()
+    second = [loss.detach()] + [getattr(model, k).grad.detach() for k in RAW_NAMES]
+    repeats = all(torch.equal(a_, b_) for a_, b_ in zip(first, second))
+    expect(repeats, f"the mixture NLML and its raw gradients twice: bit-equal {repeats}")
+    record["nlml_and_gradients_repeat"] = repeats
 
     print("mixture 8.5: three Adam steps (fit_adam, lr 0.1) vs the JAX trajectory")
     steps = iter([probes(golden["seed_adam"] + e) for e in range(3)])
@@ -2141,8 +2221,8 @@ def mixture_phase(dev, ds, expect, timer):
     stages = {nm: ev[i].elapsed_time(ev[i + 1])
               for i, nm in enumerate(("plan", "preconditioner", "cg", "slq_eigh", "forward", "backward"))}
     stages["cg_iters"] = res.iterations
-    path = (K.lattice_geometry, K.lattice_dedup_neighbors, KM.lattice_mixture_apply, K.lattice_filter_grad,
-            pivot_column)
+    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.join_rows, KM.lattice_mixture_apply,
+            K.lattice_filter_grad, pivot_column)
     for fn in path:
         fn.launches = 0
     warm = timer(lambda: train_step(model, opt, x, y, z), 5)
@@ -3578,6 +3658,7 @@ def main(argv=None) -> int:
         max_abs_err=k3_err, ms=k3_ms[1], plain_ms=k3_plain_ms[1],
         **bound(*apply_cost(n, d, 1, train_nl, order)), library_ms=None,
         shape=f"train, c=1, n_lattice={train_nl}", ms_by_c=k3_ms, plain_ms_by_c=k3_plain_ms,
+        bound_ms_by_c={c: bound(*apply_cost(n, d, c, train_nl, order))["bound_ms"] for c in (1, 100)},
     )
 
     # ---- K6 ------------------------------------------------------------------
@@ -3627,7 +3708,8 @@ def main(argv=None) -> int:
     # One untimed pass first, so the timed one finds cuSOLVER and the
     # allocator warm; the launch counts are those of the timed pass alone.
     model.predict_from_cache(model.posterior_cache(x, y, generator=torch.Generator(device=dev)), x, xt)
-    slice_kernels = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, pivot_column, *chain_kernels())
+    slice_kernels = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, K.join_rows, K.lattice_apply_cols,
+                     pivot_column, *chain_kernels())
     for fn in slice_kernels:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -3640,6 +3722,7 @@ def main(argv=None) -> int:
     ev[2].record()
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in slice_kernels}
+    launches_slice = dict(launches)
     cache_ms, predict_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
 
     mean_np, var_np = mean.cpu().numpy(), var.cpu().numpy()
@@ -3654,7 +3737,8 @@ def main(argv=None) -> int:
     print(f"  CG iterations {cache['cg_iters']} (JAX {int(golden['cg_iters'])}), final residual "
           f"{float(cache['cg_res']):.3e} (JAX {float(golden['cg_res']):.3e})")
     print(f"  launches on the slice: {launches}")
-    expect(all(v > 0 for v in launches.values()), "every kernel launched on the slice")
+    expect(all(v > 0 for k_, v in launches.items() if k_ != "lattice_apply") and launches["lattice_apply"] == 0,
+           "every kernel of the slice launched, K3 never")
     expect(bool(np.isfinite(mean_np).all() and np.isfinite(var_np).all() and (var_np > 0).all())
            and mean_np.shape == ds.test_y.shape, "finite mean and positive variance, one per test row")
     expect(abs(rmse - float(golden["rmse"])) <= RMSE_ATOL,
@@ -3668,6 +3752,21 @@ def main(argv=None) -> int:
            f"(limit {MEAN_RMS_ATOL}), max {float(np.abs(dmean).max()):.3e}")
     print(f"  variance vs JAX (other omega): median rel diff "
           f"{float(np.median(np.abs(var_np - golden['var']) / golden['var'])):.3e}")
+    route = (K.lattice_apply, K.lattice_apply_cols, K.join_rows)
+    before = [fn.launches for fn in route]
+    again = model.posterior_cache(x, y, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    route = {fn.__name__: fn.launches - b for fn, b in zip(route, before)}
+    # The range sketch's two MVMs run K9 by windows on the join plan's row lists (one build), never K3.
+    expect(route == {"lattice_apply": 0, "lattice_apply_cols": 2, "join_rows": 1},
+           f"posterior_cache's range sketch: launches {route} (K3 0, K9 2, one row build)")
+    cache_repeats = {k_: bool(torch.equal(cache[k_], again[k_])) for k_ in ("alpha", "root_inv")}
+    expect(all(cache_repeats.values()) and again["cg_iters"] == cache["cg_iters"],
+           f"posterior_cache twice: alpha and root_inv bit-equal {cache_repeats}, CG iterations "
+           f"{cache['cg_iters']} / {again['cg_iters']}")
+    del again
+    sketch = sketch_apply(dev, ref, dk, expect)
+    print("  range sketch: " + json.dumps(sketch))
 
     t_train = time.perf_counter()
     rows["lattice_filter_grad"], training = training_phase(dev, ds, expect, cuda_ms)
@@ -3753,7 +3852,8 @@ def main(argv=None) -> int:
     print("slice: " + json.dumps(dict(
         posterior_cache_ms=cache_ms, predict_ms=predict_ms, cg_iters=cache["cg_iters"],
         cg_res=float(cache["cg_res"]), rmse=rmse, nll=nll, mean_rms_diff=mean_rms,
-        predict_max_abs_diff=dpred)))
+        predict_max_abs_diff=dpred, slice_launches=launches_slice, posterior_cache_launches=route,
+        posterior_cache_repeats=cache_repeats, range_sketch=sketch)))
     return finish(t_start, failures, card, kernels)
 
 

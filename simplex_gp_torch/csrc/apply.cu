@@ -210,50 +210,71 @@ extern "C" int sgp_lattice_slice(const float* table, const int* seg, const float
 }
 
 // K9's rows, after the wrapper's stable sort of the N seg ids (sorted, with
-// its permutation perm).  Contribution at sorted position q: its point and
-// weight; where the row changes, the row's run end.  Every contribution of
-// a plan lies in a row below its live count, or, past the capacity, in row 0.
+// its permutation perm).  Contribution at sorted position q: its point
+// (reduced mod n_pts: a mixture's stacked contribution of component j
+// belongs to point p of j n_pts + p) and weight; where the row changes,
+// the row's run end.  Every contribution of a plan lies in a live row, or,
+// past the capacity, in row 0.
 __global__ void join_runs_kernel(const int* __restrict__ sorted, const long long* __restrict__ perm,
-                                 const float* __restrict__ w, int N, int dp1, int* __restrict__ sp,
+                                 const float* __restrict__ w, int N, int dp1, int n_pts, int* __restrict__ sp,
                                  float* __restrict__ sw, int* __restrict__ cnt) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= N) return;
   const int e = (int)perm[q];
-  sp[q] = e / dp1;
+  const int pt = e / dp1;
+  sp[q] = pt < n_pts ? pt : pt % n_pts;
   sw[q] = w[e];
   const int g = sorted[q];
   if (q == N - 1 || sorted[q + 1] != g) cnt[g] = q + 1;
 }
 
-// Row g < M: the run end N of every row that join_runs_kernel left unset
-// (the rows past the live count; past the capacity, every row: row 0's run
-// is all N contributions and the others are empty), and the long / mid
-// class of each live row (rows.cuh).  A row's start is the previous row's
-// end, computed where this launch writes it, so no thread reads another's
-// write.
-__global__ void join_rows_kernel(const int* __restrict__ n_lattice, int N, int M, int* __restrict__ cnt,
-                                 int* __restrict__ long_info) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= M) return;
-  const int nl = *n_lattice;
-  const bool over = nl > M;
-  const int live = over ? M : nl;
-  const bool unset = over || g >= nl;
-  const int end = unset ? N : cnt[g];
-  if (unset) cnt[g] = N;
-  if (g >= live) {
-    long_info[g] = long_info[M + g] = long_info[2 * M + g] = 0;
-    return;
+// The first sorted position whose row is past g: the run end of row g.
+__device__ __forceinline__ int sgp_upper_bound(const int* __restrict__ sorted, int N, int g) {
+  int lo = 0, hi = N;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sorted[mid] <= g) lo = mid + 1;
+    else hi = mid;
   }
-  const int start = g == 0 ? 0 : (over || g - 1 >= nl ? N : cnt[g - 1]);
-  sgp_run_class(long_info, M, g, end - start);
+  return lo;
 }
 
-extern "C" int sgp_join_rows(const int* sorted, const long long* perm, const float* w, const int* n_lattice, int N,
-                             int M, int dp1, int* sp, float* sw, int* cnt, int* long_info, void* stream) {
+// Row g of J components of M rows each (rows.cuh, SgpLiveRows; J = 1: a
+// join plan): the run end of every row that join_runs_kernel left unset
+// (the rows past a component's live count; past the capacity, every row:
+// row 0's run is all N contributions and the others are empty), and the
+// long / mid class of each live row (rows.cuh).  An unset row of the last
+// component ends at N; of another, where the sorted ids pass it.  A row's
+// start is the previous row's end, computed where this launch writes it,
+// so no thread reads another's write.
+__global__ void join_rows_kernel(const int* __restrict__ sorted, const int* __restrict__ live, int J, int N, int M,
+                                 int* __restrict__ cnt, int* __restrict__ long_info) {
+  const int Mt = J * M;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= Mt) return;
+  const int j = J == 1 ? 0 : g / M, l = g - j * M;
+  const int nl = live[j];
+  const bool over = nl > M;
+  const bool unset = over || l >= nl;
+  const int end = !unset ? cnt[g] : (over || j == J - 1 ? N : sgp_upper_bound(sorted, N, g));
+  if (unset) cnt[g] = end;
+  if (l >= (over ? M : nl)) {
+    long_info[g] = long_info[Mt + g] = long_info[2 * Mt + g] = 0;
+    return;
+  }
+  const int start = g == 0 ? 0 : (over ? N : (l == 0 ? sgp_upper_bound(sorted, N, g - 1) : cnt[g - 1]));
+  sgp_run_class(long_info, Mt, g, end - start);
+}
+
+// live: J counts on the device (J = 1: the plan's n_lattice); M rows a
+// component; n_pts the points a component's contributions belong to.
+extern "C" int sgp_join_rows(const int* sorted, const long long* perm, const float* w, const int* live, int J, int N,
+                             int M, int dp1, int n_pts, int* sp, float* sw, int* cnt, int* long_info, void* stream) {
+  if (J < 1 || n_pts < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (N > 0) join_runs_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(sorted, perm, w, N, dp1, sp, sw, cnt);
-  if (M > 0) join_rows_kernel<<<sgp_blocks(M), SGP_THREADS, 0, st>>>(n_lattice, N, M, cnt, long_info);
+  if (N > 0) join_runs_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(sorted, perm, w, N, dp1, n_pts, sp, sw, cnt);
+  if (M > 0)
+    join_rows_kernel<<<sgp_blocks((long long)J * M), SGP_THREADS, 0, st>>>(sorted, live, J, N, M, cnt, long_info);
   return (int)cudaGetLastError();
 }
 

@@ -16,63 +16,36 @@
 // row; the neighbour array (d+1, J M, 2r) keeps each component's local row
 // ids with the sentinel M for a missing neighbour, exactly as K2 built them;
 // live (J,) holds each component's occupied row count, on the device (the
-// host never reads it).
+// host never reads it), so component j's live rows are j M + [0, live[j]):
+// the stacked table's live rows are not one prefix.
 //
 // Bound: memory traffic, as K3's: per component the seg ids and weights, the
 // live rows' neighbour ids, v read and out written once -- ~J times K3's
 // bytes (16.2 MB at elevators' c = 1), and the (2r+1)-tap blur arithmetic
-// over the J live counts.  Design: K3's three phases over the whole stack,
-// so a mixture MVM is 1 + (d+1) + 1 launches instead of J (d+3):
-//   splat: one thread per (component, contribution, column); it reads
-//          v[p, col] directly for every component, so v is never tiled J
-//          times, and atomically adds into the zeroed stacked table (the
-//          order of the adds varies from run to run, as K3's);
-//   blur:  d+1 launches, each over all J M rows; a thread takes its
-//          component j = row / M, skips rows at or past live[j], and runs
-//          K3's (2r+1)-tap stencil with the neighbour ids offset by j M;
+// over the J live counts.  Design: K9's on the stacked plan's row lists,
+// built once per plan (kernels/mixture.py::mixture_rows: apply.cu's
+// sgp_join_rows over all J components, each contribution's point reduced
+// mod n, so v is never tiled J times), with no atomics and no memset:
+//   splat: K3'b's row-order splat (rows.cuh) into every one of the J M rows
+//          (a row past its component's live count has an empty run and is
+//          written 0), each row's run summed in one fixed order;
+//   blur:  d+1 launches of the live-row blur (rows.cuh, sgp_live_blur_rows)
+//          over the live rows of every component in turn, the component
+//          found from the J prefix sums of the live counts in shared memory,
+//          its neighbour ids offset by j M;
 //   slice: one thread per (point, column): sum_j w_j sum_v
 //          table[seg_j[p, v]] bary_j[p, v], times SN, so the weighted sum
 //          over components happens in registers, with no (J, n, c)
 //          intermediate.
-// The transpose reverses the order of the axis blurs (each is symmetric).
-#include "common.cuh"
+// So two applies give the same bits, those of the plain version, which sums
+// in the same order (kernels/mixture.py::mixture_apply_plain).  The
+// transpose reverses the order of the axis blurs (each is symmetric).
+#include "rows.cuh"
 
-// Largest number of mixture components; the weights travel by value.
-#define SGP_MAX_MIX 16
+// The mixture weights travel by value.
 struct SgpMix {
   float w[SGP_MAX_MIX];
 };
-
-__global__ void mix_splat_kernel(const int* __restrict__ seg, const float* __restrict__ w,
-                                 const float* __restrict__ v, int n, int dp1, int c, int J,
-                                 float* __restrict__ table) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)J * n * dp1 * c) return;
-  const int col = (int)(idx % c);
-  const long long e = idx / c;  // stacked contribution = (j * n + point) * dp1 + vertex
-  const long long p = (e / dp1) % n;
-  atomicAdd(&table[(long long)seg[e] * c + col], __fmul_rn(v[p * c + col], w[e]));
-}
-
-__global__ void mix_blur_kernel(const float* __restrict__ in, float* __restrict__ out,
-                                const int* __restrict__ nb, const SgpTaps taps, int M, int J,
-                                int c, int order, const int* __restrict__ live) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)J * M * c) return;
-  const long long row = idx / c;  // stacked row
-  const int j = (int)(row / M);
-  const long long base = (long long)j * M;
-  if (row - base >= live[j]) return;  // a row past the component's live ones
-  const int col = (int)(idx % c);
-  const int r2 = 2 * order;
-  float acc = __fmul_rn(taps.v[order], in[idx]);
-  for (int t = 0; t < r2; ++t) {
-    const int k = nb[row * r2 + t];
-    if (k != M)
-      acc = __fadd_rn(acc, __fmul_rn(taps.v[t < order ? t : t + 1], in[(base + k) * c + col]));
-  }
-  out[idx] = acc;
-}
 
 __global__ void mix_slice_kernel(const float* __restrict__ table, const int* __restrict__ seg,
                                  const float* __restrict__ w, int n, int dp1, int c, int J,
@@ -92,39 +65,42 @@ __global__ void mix_slice_kernel(const float* __restrict__ table, const int* __r
   out[idx] = __fmul_rn(acc, norm);
 }
 
-// seg, w: (J, n, dp1); v: (n, c); table: (J M, c), zeroed.
-extern "C" int sgp_mixture_splat(const int* seg, const float* w, const float* v, int n, int dp1, int c,
-                                 int J, float* table, void* stream) {
-  const long long work = (long long)J * n * dp1 * c;
-  if (work > 0)
-    mix_splat_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(seg, w, v, n, dp1, c,
-                                                                                 J, table);
-  return (int)cudaGetLastError();
-}
-
-// One axis: nb is that axis's (J M, 2r) slice of the (dp1, J M, 2r) array;
-// taps_host holds 2 order + 1 floats in host memory, copied into the launch.
-extern "C" int sgp_mixture_blur(const float* in, float* out, const int* nb, const float* taps_host, int M,
-                                int J, int c, int order, const int* live, void* stream) {
-  if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
-  SgpTaps taps = {};
-  for (int t = 0; t < 2 * order + 1; ++t) taps.v[t] = taps_host[t];
-  const long long work = (long long)J * M * c;
-  if (work > 0)
-    mix_blur_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(in, out, nb, taps, M, J, c,
-                                                                                order, live);
-  return (int)cudaGetLastError();
-}
-
-// mix_host: the J mixture weights in host memory, copied into the launch.
-extern "C" int sgp_mixture_slice(const float* table, const int* seg, const float* w, int n, int dp1, int c,
-                                 int J, const float* mix_host, float norm, float* out, void* stream) {
-  if (J > SGP_MAX_MIX) return (int)cudaErrorInvalidValue;
+// The first 16 arguments are the stacked plan's row lists (sgp_runs,
+// rows.cuh), whose count is J M (every row visited by the splat); seg, w
+// (J, n, dp1); nb (dp1, J M, 2r); live (J,); v and out (n, c); taps_host
+// and mix_host in host memory, copied into the launches.  ta and tb hold
+// J M c floats each, part np_max c; none need be zeroed.  transpose: the
+// axis blurs in reverse order.  The blurred table ends in ta when dp1 is
+// even, else in tb.
+extern "C" int sgp_mixture_apply(const int* sp, const float* sw, const int* cnt, const int* long_rows,
+                                 const int* long_first, const int* n_long, const int* piece_row,
+                                 const int* piece_start, const int* n_pieces, const int* mid_rows, const int* n_mid,
+                                 int nl_max, int nm_max, int np_max, int N, const int* n_rows, const int* seg,
+                                 const float* w, const int* nb, const int* live, const float* v, int n, int dp1,
+                                 int c, int J, int M, const float* taps_host, int order, const float* mix_host,
+                                 float norm, float* ta, float* tb, float* part, float* out, int transpose,
+                                 void* stream) {
+  if (2 * order + 1 > SGP_MAX_TAPS || J < 1 || J > SGP_MAX_MIX) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || c <= 0 || M <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const SgpRuns r = sgp_runs(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
+                             mid_rows, n_mid, nl_max, nm_max, np_max, N, n_rows);
+  const SgpTaps taps = sgp_taps(taps_host, order);
   SgpMix mix = {};
   for (int j = 0; j < J; ++j) mix.w[j] = mix_host[j];
-  const long long work = (long long)n * c;
-  if (work > 0)
-    mix_slice_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(table, seg, w, n, dp1, c,
-                                                                                J, mix, norm, out);
+  const long long Mt = (long long)J * M;
+  const long long nbs = Mt * 2 * order;  // one axis of nb
+  cudaError_t err;
+  if ((err = sgp_splat_rows(r, SgpWindow{v, c, 0}, c, (int)Mt, ta, part, st)) != cudaSuccess) return (int)err;
+  float *a = ta, *b = tb;
+  for (int jj = 0; jj < dp1; ++jj) {
+    const int j = transpose ? dp1 - 1 - jj : jj;
+    if ((err = sgp_live_blur_rows(a, b, nb + j * nbs, taps, SgpLiveRows{live, J, M}, c, order, st)) != cudaSuccess)
+      return (int)err;
+    float* t = a;
+    a = b;
+    b = t;
+  }
+  mix_slice_kernel<<<sgp_blocks((long long)n * c), SGP_THREADS, 0, st>>>(a, seg, w, n, dp1, c, J, mix, norm, out);
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,9 @@
 //     zeroed table;
 //   * its work lists (sgp_run_lists_kernel): the mid rows and the pieces of
 //     the long rows, from the run ends cnt;
-//   * the blur of one lattice axis over the live rows of a join table
-//     (sgp_live_blur), on a grid fixed by the card, not by the table.
+//   * the blur of one lattice axis over the live rows of a join table, or of
+//     each component of a mixture's stacked table (sgp_live_blur,
+//     sgp_live_blur_rows), on a grid fixed by the card, not by the table.
 // The kernels here have internal linkage: each source instantiates its own,
 // with its own column source.
 #pragma once
@@ -35,6 +36,8 @@
 // SM of an H100 is 1,056 blocks).
 #define CHAIN_WARP_GRID 4224
 #define CHAIN_SHORT_GRID 1056
+// Largest number of components of a mixture's stacked table (mixture.cu).
+#define SGP_MAX_MIX 16
 
 // A table's contributions in row order and the splat's work lists: the
 // fields of kernels/chain.py::ChainPlan and kernels/lattice.py::JoinRows.
@@ -360,39 +363,76 @@ __device__ __forceinline__ void sgp_store(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
 
-// out = one axis blur of in, both (M, c), over the live rows [0, *count):
-// a team of 2^team_log2 lanes per row, each lane VEC columns at a time (one
-// 4-, 8- or 16-byte load of each of the 2r+1 rows; c % VEC == 0, so every
-// row starts aligned).  The grid strides over the rows, so a launch costs
-// what the live rows cost, whatever M.  The taps in blur_kernel's order (apply.cu:
-// the centre, then the neighbours -r .. -1, 1 .. r, a missing one, M,
-// skipped), each an explicit round-to-nearest multiply and add, so the blur
-// is the plain version's bit for bit.  Nothing is done once the count
-// passes M (a tripped capacity guard).
-template <int VEC>
+// The live rows of a table: J components of M rows each, component j's
+// live rows j M + [0, live[j]).  J = 1 is a join plan, whose one count may
+// pass M (a tripped capacity guard: then no row is live); J > 1 a
+// mixture's stacked table (mixture.cu), whose counts never do.  A row's
+// neighbour ids are its component's own rows, M missing.
+struct SgpLiveRows {
+  const int* live;  // (J,), on the device
+  int J, M;
+};
+
+// out = one axis blur of in, both (J M, c), over the live rows: a team of
+// 2^team_log2 lanes per row, each lane VEC columns at a time (one 4-, 8- or
+// 16-byte load of each of the 2r+1 rows; c % VEC == 0, so every row starts
+// aligned).  The grid strides over the live rows of all components in turn
+// (live index i of component j is row j M + i - first[j]), so a launch
+// costs what the live rows cost, whatever M.  STACKED is J > 1: a table of
+// one component (J = 1) keeps no component state, so its blur takes the
+// registers, and the occupancy, of a single join table's.  The taps in
+// blur_kernel's order (apply.cu: the centre, then the neighbours -r .. -1,
+// 1 .. r, a missing one, M, skipped), each an explicit round-to-nearest
+// multiply and add, so the blur is the plain version's bit for bit.
+template <int VEC, bool STACKED>
 static __global__ void sgp_live_blur_kernel(const float* __restrict__ in, float* __restrict__ out,
-                                            const int* __restrict__ nb, const SgpTaps taps, int M, int c, int order,
-                                            const int* __restrict__ count, int team_log2) {
-  const int live = *count;
-  if (live > M) return;
+                                            const int* __restrict__ nb, const SgpTaps taps, const SgpLiveRows rows,
+                                            int c, int order, int team_log2) {
+  __shared__ int first[SGP_MAX_MIX + 1];  // component j's live indices are [first[j], first[j + 1])
+  const int M = rows.M;
+  int total;
+  if (STACKED) {
+    if (threadIdx.x == 0) {
+      first[0] = 0;
+      for (int j = 0; j < rows.J; ++j) first[j + 1] = first[j] + rows.live[j];
+    }
+    __syncthreads();
+    total = first[rows.J];
+  } else {
+    const int live = *rows.live;
+    total = live > M ? 0 : live;  // past the capacity no row is live
+  }
   const int groups = c / VEC, r2 = 2 * order, team = 1 << team_log2;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long lead = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   // Column chunks of team * VEC columns, each over every live row before the next, so the rows that a
   // chunk's neighbours read (live rows x 256 bytes at K7's 418 columns) can stay in L2.
-  for (int gi = (int)(first & (team - 1)); gi - (int)(first & (team - 1)) < groups; gi += team) {
+  for (int gi = (int)(lead & (team - 1)); gi - (int)(lead & (team - 1)) < groups; gi += team) {
     if (gi >= groups) continue;  // this lane's part of the last chunk is past the columns
     const long long col = (long long)gi * VEC;
-    for (long long t = first; (t >> team_log2) < live; t += stride) {
-      const long long row = t >> team_log2;
+    // The component of live index i, its live indices [lo, hi) and its first row base: i only grows in
+    // this loop, so they change only where it crosses into the next component.
+    int j = 0;
+    long long lo = 0, hi = STACKED ? first[1] : total, base = 0;
+    for (long long t = lead; (t >> team_log2) < total; t += stride) {
+      const long long i = t >> team_log2;
+      if (STACKED) {
+        while (i >= hi) {
+          ++j;
+          lo = hi;
+          hi = first[j + 1];
+          base += M;
+        }
+      }
+      const long long row = base + (i - lo);
       float x[VEC], acc[VEC];
       sgp_load(in + row * c + col, x);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[e] = __fmul_rn(taps.v[order], x[e]);
       for (int k = 0; k < r2; ++k) {
-        const int j = nb[row * r2 + k];
-        if (j == M) continue;
-        sgp_load(in + (long long)j * c + col, x);
+        const int q = nb[row * r2 + k];
+        if (q == M) continue;
+        sgp_load(in + (base + q) * c + col, x);
         const float tap = taps.v[k < order ? k : k + 1];
 #pragma unroll
         for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(tap, x[e]));
@@ -402,34 +442,40 @@ static __global__ void sgp_live_blur_kernel(const float* __restrict__ in, float*
   }
 }
 
-// Resident blocks of SGP_THREADS threads on the current card: the blur's grid.
-static inline int sgp_resident_blocks() {
-  static int blocks = 0;
-  if (blocks == 0) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    blocks = (sms > 0 ? sms : 132) * (2048 / SGP_THREADS);
-  }
-  return blocks;
+template <int VEC, bool STACKED>
+static inline void sgp_live_blur_launch(const float* in, float* out, const int* nb, const SgpTaps& taps,
+                                        const SgpLiveRows& rows, int c, int order, int team_log2, cudaStream_t st) {
+  // The grid is the blocks the card holds at once (common.cuh), so no block waits for a second wave.
+  const int grid = sgp_coresident_blocks(sgp_live_blur_kernel<VEC, STACKED>, SGP_THREADS, 0);
+  sgp_live_blur_kernel<VEC, STACKED><<<grid, SGP_THREADS, 0, st>>>(in, out, nb, taps, rows, c, order, team_log2);
 }
 
-// One axis of the blur over the live rows of a join table (M, c); nb is
-// that axis's (M, 2r) neighbour ids.  A team of lanes per row spans its
-// columns (up to a warp: 418 columns of K7 take a warp a row, a window of 8
-// of K9 two lanes).
-static inline cudaError_t sgp_live_blur(const float* in, float* out, const int* nb, const SgpTaps& taps, int M, int c,
-                                 int order, const int* count, cudaStream_t st) {
-  if (M <= 0 || c <= 0) return cudaGetLastError();
+// One axis of the blur over the live rows of a table (rows.J rows.M, c);
+// nb is that axis's (rows.J rows.M, 2r) neighbour ids.  A team of lanes
+// per row spans its columns (up to a warp: 418 columns of K7 take a warp a
+// row, a window of 8 of K9 two lanes).
+static inline cudaError_t sgp_live_blur_rows(const float* in, float* out, const int* nb, const SgpTaps& taps,
+                                             const SgpLiveRows& rows, int c, int order, cudaStream_t st) {
+  if (rows.M <= 0 || c <= 0) return cudaGetLastError();
+  if (rows.J < 1 || rows.J > SGP_MAX_MIX) return cudaErrorInvalidValue;
   const int vec = c % 4 == 0 ? 4 : (c % 2 == 0 ? 2 : 1);
   int team_log2 = 0;
   while ((1 << team_log2) < c / vec && team_log2 < 5) ++team_log2;
-  const int grid = sgp_resident_blocks();
+  const bool stacked = rows.J > 1;
   if (vec == 4)
-    sgp_live_blur_kernel<4><<<grid, SGP_THREADS, 0, st>>>(in, out, nb, taps, M, c, order, count, team_log2);
+    (stacked ? sgp_live_blur_launch<4, true> : sgp_live_blur_launch<4, false>)(in, out, nb, taps, rows, c, order,
+                                                                              team_log2, st);
   else if (vec == 2)
-    sgp_live_blur_kernel<2><<<grid, SGP_THREADS, 0, st>>>(in, out, nb, taps, M, c, order, count, team_log2);
+    (stacked ? sgp_live_blur_launch<2, true> : sgp_live_blur_launch<2, false>)(in, out, nb, taps, rows, c, order,
+                                                                              team_log2, st);
   else
-    sgp_live_blur_kernel<1><<<grid, SGP_THREADS, 0, st>>>(in, out, nb, taps, M, c, order, count, team_log2);
+    (stacked ? sgp_live_blur_launch<1, true> : sgp_live_blur_launch<1, false>)(in, out, nb, taps, rows, c, order,
+                                                                              team_log2, st);
   return cudaGetLastError();
+}
+
+// One axis of the blur over the live rows [0, *count) of a join table (M, c).
+static inline cudaError_t sgp_live_blur(const float* in, float* out, const int* nb, const SgpTaps& taps, int M, int c,
+                                        int order, const int* count, cudaStream_t st) {
+  return sgp_live_blur_rows(in, out, nb, taps, SgpLiveRows{count, 1, M}, c, order, st);
 }

@@ -9,6 +9,7 @@
     python simplex_gp_torch/kernel_times.py --compare-factors DIR DIR
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --axes
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --dp-step
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --mixture-sketch
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
@@ -25,7 +26,9 @@ pivots for the seventh form to compare two trees' bit for bit
 (:func:`compare_factors`); the eighth K3'c's d+1 axis stencils, fused and
 per axis (:func:`axes_times`); the ninth the data-parallel NLML step on two
 gloo ranks sharing the card, its CG stage and its collectives, for one
-Matern kernel and a J = 8 mixture (:func:`dp_step`).
+Matern kernel and a J = 8 mixture (:func:`dp_step`); the tenth K12 at c =
+1, 11 and 100, the mixture step, the elevators range sketch's apply (K3 and
+K9 at two windows) and posterior_cache (:func:`mixture_sketch`).
 
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
@@ -597,6 +600,122 @@ def axes_times(reps: int = 50) -> dict:
     return out
 
 
+def mixture_sketch(reps: int = 20) -> dict:
+    """K12 and the elevators range sketch, for an A/B of two trees (any tree with these entry points).
+
+    K12: the J = 8 mixture plan of the elevators training rows at the median init of
+    tests/fixtures/elevators_mixture_golden.npz (JAX's alphas and weights), its build
+    (``build_plan_mixture``; with the row lists where the tree builds them, and the row build alone), the
+    apply (``apply_plan_mixture``) at c = 1, 11 and 100 launched (CUDA events over ``reps`` calls) and
+    replayed from a CUDA graph, its device time by kernel at c = 11 (``torch.profiler``), whether two applies
+    and two NLML gradients repeat bit for bit, and a warm mixture training step (zero_grad, NLML, backward,
+    Adam).  The sketch: the join plan of the elevators training rows at
+    runs/r5/simplexgp_elevators_s0/model_best.pkl, c = 100: ``make_wide_filter``'s apply (the tree's
+    route), K3 (``lattice_apply``) and K9 (``lattice_apply_cols`` with its row lists given) at windows of
+    32 and 100, the row build; then ``posterior_cache`` at those parameters (host clock, synchronised),
+    twice bit for bit.  Prints one JSON line.
+    """
+    import pathlib
+
+    import simplex_gp_torch
+    from simplex_gp_torch import convert
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.kernels import mixture as KM
+    from simplex_gp_torch.linalg.mll import BBMMConfig
+    from simplex_gp_torch.ops import filter as F, lattice as L
+    from simplex_gp_torch.utils import data
+
+    dev = torch.device("cuda:0")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = {"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                  capture_output=True, text=True).stdout.strip(),
+           "tree": simplex_gp_torch.__file__, "mixture_rows": hasattr(KM, "mixture_rows")}
+    ds = data.prepare_dataset(data._synthetic_uci("elevators"), "elevators")
+    x, y = torch.from_numpy(ds.train_x).to(dev), torch.from_numpy(ds.train_y).to(dev)
+    n, d = x.shape
+    golden = np.load(root / "tests" / "fixtures" / "elevators_mixture_golden.npz")
+    init = {k: golden[f"init_{k}"] for k in ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")}
+    cfg = BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                     num_probes=10)
+    model = convert.mixture_model_from_jax(init, golden["weights"], nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                           device=dev)
+    dk = model.dk
+    gen = torch.Generator(device=dev).manual_seed(8)
+    with torch.no_grad():
+        ref = (x * model.constrained()["inv_ell"]).contiguous()
+        build = lambda: L.build_plan_mixture(ref, dk.alphas, dk.base.coeffs, dk.base.variance)
+        plan = build()
+        k12 = dict(live=plan.live.tolist(), build_ms=_ms(build, 10))
+        if out["mixture_rows"]:
+            k12["row_build_ms"] = _ms(lambda: KM.mixture_rows(*plan[:4]), reps)
+        for c in (1, 11, 100):
+            v = torch.randn((n, c), generator=gen, device=dev)
+            apply = lambda: L.apply_plan_mixture(plan, v, dk.base.coeffs, dk.weights)
+            k12[f"c{c}"] = dict(ms=_ms(apply, reps), graph_ms=_graph_ms(apply, 10),
+                                repeats=bool(torch.equal(apply(), apply())))
+            if c == 11:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        apply()
+                    torch.cuda.synchronize()
+                k12["c11_device_ms_by_kernel"] = sorted(
+                    ((e.key[:50], e.self_device_time_total / 5e3, e.count / 5) for e in prof.key_averages()
+                     if e.self_device_time_total > 0), key=lambda r: -r[1])[:8]
+        del plan
+    z = torch.from_numpy(np.random.default_rng(int(golden["seed_init"])).choice(
+        [-1.0, 1.0], size=(n, cfg.num_probes)).astype(np.float32)).to(dev)
+    grads = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        loss = model.nlml(x, y, probes=z)
+        loss.backward()
+        grads.append([loss.detach().clone()] + [p.grad.detach().clone() for p in model.parameters()])
+    k12["nlml_gradients_repeat"] = all(torch.equal(a, b) for a, b in zip(*grads))
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        model.nlml(x, y, probes=z).backward()
+        opt.step()
+
+    k12["warm_step_ms"] = [_ms(step, 3) for _ in range(2)]
+    out["k12"] = k12
+
+    serve = simplex_gp_torch.SimplexGP(num_dims=d, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                       eval_cg_tolerance=0.01, device=dev)
+    serve.load_raw(convert.raw_params_from_numpy(convert.load_jax_params(
+        root / "runs" / "r5" / "simplexgp_elevators_s0" / "model_best.pkl"), device=dev))
+    sk = {}
+    with torch.no_grad():
+        ref = (x * serve.constrained()["inv_ell"]).contiguous()
+        dk = serve.dk
+        omega = torch.randn((n, 100), generator=gen, device=dev)
+        kmv = F.make_wide_filter(ref, dk)
+        plan = L.build_plan_join(ref, dk.coeffs, dk.variance)
+        rows = K.join_rows(*plan)
+        args = (*plan, omega, list(dk.coeffs), L.SLICE_NORM(d))
+        sk.update(n_lattice=int(plan.n_lattice), make_wide_filter_ms=_ms(lambda: kmv(omega), reps),
+                  k3_ms=_ms(lambda: K.lattice_apply(*args), reps), row_build_ms=_ms(lambda: K.join_rows(*plan), reps))
+        for w in (32, 100):
+            sk[f"k9_window_{w}_ms"] = _ms(lambda: K.lattice_apply_cols(*args, w, rows), reps)
+            sk[f"k9_window_{w}_graph_ms"] = _graph_ms(lambda: K.lattice_apply_cols(*args, w, rows), 10)
+        del plan, rows, kmv
+    caches, times = [], []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caches.append(serve.posterior_cache(x, y, generator=torch.Generator(device=dev).manual_seed(0)))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    sk.update(posterior_cache_ms=times[1:], posterior_cache_repeats=all(
+        torch.equal(caches[1][k], caches[2][k]) for k in ("alpha", "root_inv")))
+    out["sketch"] = sk
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def _dp_rank(axis, case: dict) -> dict:
     """:func:`dp_step`'s rank body: the warm data-parallel NLML and gradient (``data_parallel_loss_fn``, no
     optimizer step) by CUDA events, the CG stage inside it (``mll.cg_solve`` wrapped: CUDA events around the
@@ -720,5 +839,7 @@ if __name__ == "__main__":
         sharded_f64()
     elif "--dp-step" in sys.argv[1:]:
         dp_step()
+    elif "--mixture-sketch" in sys.argv[1:]:
+        mixture_sketch()
     else:
         main()

@@ -364,9 +364,9 @@ def chain_splat_plain(plan: ChainPlan, v):
     is_long = torch.zeros(Mc, dtype=torch.bool, device=dev)
     is_long[long_rows] = True
     short = ~is_long[row]
-    live = min(int(plan.n_lattice), Mc)  # every contribution lies in a live row; the rest stay 0
-    table = v.new_zeros((Mc, v.shape[1]))
-    table[:live] = _warp_sums(contrib[short], row[short], off[short], live)
+    table = v.new_zeros((Mc, v.shape[1]))  # a row with no contribution stays 0
+    held, run = torch.unique_consecutive(row[short], return_inverse=True)  # the rows that hold short runs
+    table[held] = _warp_sums(contrib[short], run, off[short], held.shape[0])
     if nl:
         first = torch.zeros(Mc, dtype=torch.long, device=dev)
         first[long_rows] = plan.long_first[:nl].long()

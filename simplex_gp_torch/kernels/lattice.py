@@ -43,6 +43,7 @@ __all__ = [
     "JoinRows",
     "join_rows_plain",
     "join_rows",
+    "join_rows_device",
     "apply_cols_plain",
     "lattice_apply_cols",
     "apply_sharded_plain",
@@ -465,7 +466,14 @@ class JoinRows(NamedTuple):
       splat_weights: (N,) f32       its barycentric weight
       cnt:           (M,) int32     end of each row's run (N past the live rows)
       long_rows, long_first, piece_row, piece_start, n_long, n_pieces, mid_rows, n_mid: the splat's lists
-      n_lattice:     () int32       the plan's live count (> M: the capacity overflowed)
+      n_lattice:     () int32       the rows the splat visits: the plan's live count (> M: the capacity
+                                    overflowed)
+
+    A mixture's stacked plan has row lists of the same fields
+    (:func:`~simplex_gp_torch.kernels.mixture.mixture_rows`): over its J M
+    rows, a row past its component's live count holding an empty run, each
+    contribution's point taken mod n (stacked point j n + p is point p),
+    and n_lattice J M.
     """
 
     splat_points: torch.Tensor
@@ -482,8 +490,12 @@ class JoinRows(NamedTuple):
     n_lattice: torch.Tensor
 
 
-def join_rows_plain(seg_ids, weights, neighbors, n_lattice) -> JoinRows:
-    """Plain row lists of a join plan: a stable sort of the seg ids, each row's run end, the splat's lists."""
+def join_rows_plain(seg_ids, weights, neighbors, n_lattice, n_pts=None) -> JoinRows:
+    """Plain row lists of a join plan: a stable sort of the seg ids, each row's run end, the splat's lists.
+
+    ``n_pts`` (None: the plan's n): each contribution's point is reduced mod
+    it, for a mixture's stacked seg ids (J n, d+1).
+    """
     M = neighbors.shape[1]
     dp1 = seg_ids.shape[-1]
     seg = seg_ids.reshape(-1)
@@ -492,37 +504,50 @@ def join_rows_plain(seg_ids, weights, neighbors, n_lattice) -> JoinRows:
     cnt = torch.searchsorted(order.values, torch.arange(M, dtype=seg.dtype, device=seg.device),
                              right=True).to(torch.int32)
     live = min(int(n_lattice), M)
-    return JoinRows((order.indices // dp1).to(torch.int32), weights.reshape(-1)[order.indices].contiguous(), cnt,
+    points = order.indices // dp1 if n_pts is None else order.indices // dp1 % n_pts
+    return JoinRows(points.to(torch.int32), weights.reshape(-1)[order.indices].contiguous(), cnt,
                     *run_lists(cnt, live, N), n_lattice)
 
 
-def join_rows(seg_ids, weights, neighbors, n_lattice) -> JoinRows:
-    """K9's and K7's row lists of a join plan (``seg_ids`` (n, d+1), ``weights``, ``neighbors``, ``n_lattice``).
+def join_rows_device(seg_ids, weights, live, M: int, n_pts: int, n_lattice) -> JoinRows:
+    """The row lists of ``seg_ids`` (.., d+1) over ``live.shape[0]`` components of M rows on the card.
 
-    The same lists as :func:`join_rows_plain`, bit for bit: a stable
-    ``torch.sort`` of the seg ids, two launches for the runs and their
-    classes (``sgp_join_rows``), then the sort chain's
-    :func:`~simplex_gp_torch.kernels.chain.run_lists_device`.
-    The live count stays on the device.  Counted once per build.
+    A stable ``torch.sort`` of the seg ids, two launches for the runs and
+    their classes (``sgp_join_rows``; ``live`` (J,) the components' live
+    counts, each contribution's point reduced mod ``n_pts``), then the sort
+    chain's :func:`~simplex_gp_torch.kernels.chain.run_lists_device`;
+    ``n_lattice`` becomes the lists' count.  Nothing is read on the host.
+    Counted in ``join_rows.launches``.
     """
-    if not seg_ids.is_cuda:
-        return join_rows_plain(seg_ids, weights, neighbors, n_lattice)
-    build.require("join_rows", (seg_ids, torch.int32), (weights, torch.float32), (n_lattice, torch.int32))
+    build.require("join_rows", (seg_ids, torch.int32), (weights, torch.float32), (live, torch.int32))
     dev = seg_ids.device
     dp1 = seg_ids.shape[-1]
-    M = neighbors.shape[1]
+    J = live.shape[0]
     N = seg_ids.numel()
     i32 = dict(dtype=torch.int32, device=dev)
     lib, st = build.library(), build.stream()
     sorted_seg, perm = torch.sort(seg_ids.reshape(-1), stable=True)
     sp, sw = torch.empty(N, **i32), torch.empty(N, dtype=torch.float32, device=dev)
-    cnt, long_info = torch.empty(M, **i32), torch.empty((3, M), **i32)
-    build.check(lib.sgp_join_rows(sorted_seg.data_ptr(), perm.data_ptr(), weights.data_ptr(), n_lattice.data_ptr(),
-                                  N, M, dp1, sp.data_ptr(), sw.data_ptr(), cnt.data_ptr(), long_info.data_ptr(), st),
-                "join_rows (runs)")
+    cnt, long_info = torch.empty(J * M, **i32), torch.empty((3, J * M), **i32)
+    build.check(lib.sgp_join_rows(sorted_seg.data_ptr(), perm.data_ptr(), weights.data_ptr(), live.data_ptr(), J, N,
+                                  M, dp1, n_pts, sp.data_ptr(), sw.data_ptr(), cnt.data_ptr(), long_info.data_ptr(),
+                                  st), "join_rows (runs)")
     lists = run_lists_device(long_info, cnt, N)
     join_rows.launches += 1
     return JoinRows(sp, sw, cnt, *lists, n_lattice)
+
+
+def join_rows(seg_ids, weights, neighbors, n_lattice) -> JoinRows:
+    """K9's and K7's row lists of a join plan (``seg_ids`` (n, d+1), ``weights``, ``neighbors``, ``n_lattice``).
+
+    The same lists as :func:`join_rows_plain`, bit for bit
+    (:func:`join_rows_device` with one component).  The live count stays on
+    the device.  Counted once per build.
+    """
+    if not seg_ids.is_cuda:
+        return join_rows_plain(seg_ids, weights, neighbors, n_lattice)
+    build.require("join_rows", (n_lattice, torch.int32))
+    return join_rows_device(seg_ids, weights, n_lattice.reshape(1), neighbors.shape[1], seg_ids.shape[0], n_lattice)
 
 
 join_rows.launches = 0

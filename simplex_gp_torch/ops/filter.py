@@ -12,7 +12,10 @@ several of JAX's ``_WIDE_CHUNK``-column blocks at a time
 (:func:`lattice_filter_wide_chunked`, :func:`make_wide_filter`; JAX's
 chunked sort-chain filter, here the join
 plan, so the same operator up to 64-bit hash collisions).  ``capacity``
-bounds the plan's table as in JAX (:143-193).
+bounds the plan's table as in JAX (:143-193).  :func:`make_wide_filter`,
+the range sketch's reusable filter, applies its join plan by K9 on the
+plan's row lists at every size (no atomics: two sketches give the same
+bits).
 
 Two gradients of ``K(ref, ref) @ src``:
   * :class:`LatticeFilterExactGrad` is the exact gradient of the operator
@@ -169,21 +172,23 @@ def _chunked(n: int, d: int, c: int) -> bool:
 
 
 def apply_plan_wide(plan, V: torch.Tensor, dk) -> torch.Tensor:
-    """K @ V through a join plan, engine by JAX's dispatch: K9 for a wide block on a large plan, else K3.
+    """K @ V through a :class:`WidePlan` (a join plan with its row lists): K9 by windows of K9_WINDOW
+    columns, at any size.  JAX's dispatch (filter.py:133-140) chunks only above ``_JOIN_MAX_ROWS`` and
+    applies its join branch whole below; the operator is the same, and on an H100 windows of 32 took
+    the elevators range sketch (c = 100) 0.86-0.87 ms against 0.90-0.91 for one window of 100
+    (kernel_times.py --mixture-sketch; PERF.md section 6).
 
-    A mixture's plan goes to K12, or above ``_JOIN_MAX_ROWS`` to K9 one
-    component at a time (make_wide_filter_any, filter.py:207-220).
+    A mixture's plan goes to K12 on its row lists, or above
+    ``_JOIN_MAX_ROWS`` to K9 one component at a time (make_wide_filter_any,
+    filter.py:207-220).
     """
-    n, dp1 = plan.seg_ids.shape[-2:]
-    chunked = _chunked(n, dp1 - 1, V.shape[-1])
     if isinstance(dk, MixtureKernel):
-        if not chunked:
+        n, dp1 = plan.seg_ids.shape[-2:]
+        if not _chunked(n, dp1 - 1, V.shape[-1]):
             return apply_plan_mixture(plan, V, dk.base.coeffs, dk.weights)
         return sum(w * apply_plan_cols(mixture_component(plan, j), V, dk.base.coeffs, _WIDE_CHUNK)
                    for j, w in enumerate(dk.weights))
-    if chunked:
-        return apply_plan_cols(plan, V, dk.coeffs, _WIDE_CHUNK)
-    return apply_plan_join(plan, V, dk.coeffs)
+    return apply_plan_cols(plan, V, dk.coeffs, _WIDE_CHUNK)
 
 
 def lattice_filter_wide_chunked(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel,
@@ -201,20 +206,22 @@ def lattice_filter_wide_chunked(src: torch.Tensor, ref: torch.Tensor, dk: Discre
 def make_wide_filter(ref: torch.Tensor, dk, capacity: Optional[int] = None):
     """Reusable ``mv(V) -> K(ref, ref) @ V`` for wide value blocks (filter.py:87-117).
 
-    One join plan, built now: above ``_JOIN_MAX_ROWS`` with ``capacity`` and
-    its row lists, applied by K9 (a :class:`WidePlan`: the range sketch's two
-    MVMs share one build of each); below, untrimmed and applied by K3, as
-    JAX's join branch.  A mixture builds its stacked plan (K12), or above
+    One join plan with its row lists, built now (a :class:`WidePlan`: the
+    range sketch's two MVMs share one build of each), applied by K9 with no
+    atomics (:func:`apply_plan_wide`): above ``_JOIN_MAX_ROWS`` with
+    ``capacity``; below, untrimmed, as JAX's join branch.  A
+    mixture builds its stacked plan, rows and all (K12), or above
     ``_JOIN_MAX_ROWS`` one untrimmed K9 filter per component
     (make_wide_filter_any, :207-220).
     """
     large = ref.shape[0] * (ref.shape[-1] + 1) > _JOIN_MAX_ROWS
-    if isinstance(dk, MixtureKernel) and large:
-        mvs = [make_wide_filter(ref * a, dk.base) for a in dk.alphas]
-        return lambda V: sum(w * f(V) for w, f in zip(dk.weights, mvs))
-    plan = build_join_plan_any(ref, dk, capacity if large else None)
-    if large:
-        plan = wide_plan(plan)
+    if isinstance(dk, MixtureKernel):
+        if large:
+            mvs = [make_wide_filter(ref * a, dk.base) for a in dk.alphas]
+            return lambda V: sum(w * f(V) for w, f in zip(dk.weights, mvs))
+        plan = build_join_plan_any(ref, dk)
+    else:
+        plan = wide_plan(build_join_plan_any(ref, dk, capacity if large else None))
     return lambda V: apply_plan_wide(plan, V, dk)
 
 
@@ -241,9 +248,9 @@ def mixture_position_grad(plan: MixturePlan, ref: torch.Tensor, dk: MixtureKerne
 
 
 def _plan_tensors(plan) -> tuple:
-    """A plan's tensors, flat (for ``save_for_backward``): a WidePlan's four fields, then its rows; a tuple
-    of sharded plans (a mixture's), one after another."""
-    if isinstance(plan, WidePlan):
+    """A plan's tensors, flat (for ``save_for_backward``): a WidePlan's or a MixturePlan's four fields, then
+    its rows; a tuple of sharded plans (a mixture's), one after another."""
+    if isinstance(plan, (WidePlan, MixturePlan)):
         return (*plan[:4], *plan.rows)
     if type(plan) is tuple:
         return tuple(t for component in plan for t in component)
@@ -252,8 +259,8 @@ def _plan_tensors(plan) -> tuple:
 
 def _plan_from_tensors(plan_type, tensors) -> tuple:
     """The plan of ``plan_type`` that :func:`_plan_tensors` flattened."""
-    if plan_type is WidePlan:
-        return WidePlan(*tensors[:4], JoinRows(*tensors[4:]))
+    if plan_type in (WidePlan, MixturePlan):
+        return plan_type(*tensors[:4], JoinRows(*tensors[4:]))
     if plan_type is tuple:
         k = len(LatticePlan._fields)
         return tuple(LatticePlan(*tensors[i:i + k]) for i in range(0, len(tensors), k))

@@ -40,9 +40,9 @@ collisions).  :func:`count_lattice_points` is K8, K4's occupancy count.
 
 A :class:`MixturePlan` is the plan of a Gaussian-mixture kernel: J
 component plans of the scaled positions ``x * alpha_j`` (one K1 launch over
-the stacked positions, then K2 per component), stacked into one table, and
-:func:`apply_plan_mixture` applies all J components at once by K12
-(``kernels/mixture.py``).
+the stacked positions, then K2 per component), stacked into one table, with
+the stacked table's row lists, and :func:`apply_plan_mixture` applies all J
+components at once by K12 (``kernels/mixture.py``).
 
 The host constants below are copied verbatim from the JAX module, where the
 tests hold them equal.
@@ -70,7 +70,7 @@ from ..kernels.lattice import (
     lattice_simplex,
 )
 from ..kernels.chain import ChainPlan, chain_apply, chain_build
-from ..kernels.mixture import lattice_mixture_apply
+from ..kernels.mixture import lattice_mixture_apply, mixture_rows
 
 __all__ = [
     "LatticePlan",
@@ -255,6 +255,8 @@ class MixturePlan(NamedTuple):
       weights:   (J, n, d+1) float32 barycentric weights at x * alpha_j
       neighbors: (d+1, J M, 2r) int32 each component's own row ids, M = missing
       live:      (J,) int32          each component's occupied row count
+      rows:      JoinRows            the stacked table's row lists (kernels/mixture.py::mixture_rows),
+                                     built once with the plan for every K12 apply of it
     Each component is an untrimmed plan as K2 built it: mixture plans ignore
     capacity (filter.py:174-176), and no row is renumbered.
     """
@@ -263,6 +265,7 @@ class MixturePlan(NamedTuple):
     weights: torch.Tensor
     neighbors: torch.Tensor
     live: torch.Tensor
+    rows: JoinRows
 
 
 def _lattice_constants(d: int, coeffs: tuple, blur_variance: float, device):
@@ -342,7 +345,8 @@ def build_plan_mixture(x: torch.Tensor, alphas, coeffs: tuple, blur_variance: fl
     JAX builds one plan per component (filter.py:186-193); K1 is per point,
     so one launch covers the J n stacked positions, and each component's K2
     dedups its own n(d+1) hash pairs.  The stacking (seg offsets, weights,
-    neighbours, live counts) stays on the device.
+    neighbours, live counts) and the row lists, built once from it, stay on
+    the device.
     """
     n, d = x.shape
     J, N = len(alphas), n * (d + 1)
@@ -354,8 +358,9 @@ def build_plan_mixture(x: torch.Tensor, alphas, coeffs: tuple, blur_variance: fl
         segs.append(seg + j * N)
         nbs.append(nb)
         lives.append(live)
-    return MixturePlan(torch.stack(segs).reshape(J, n, d + 1), weights.reshape(J, n, d + 1),
-                       torch.cat(nbs, dim=1), torch.stack(lives))
+    seg_ids, weights = torch.stack(segs).reshape(J, n, d + 1), weights.reshape(J, n, d + 1)
+    neighbors, live = torch.cat(nbs, dim=1), torch.stack(lives)
+    return MixturePlan(seg_ids, weights, neighbors, live, mixture_rows(seg_ids, weights, neighbors, live))
 
 
 def apply_plan_mixture(plan: MixturePlan, v: torch.Tensor, coeffs: tuple, mix_weights, transpose: bool = False,
@@ -365,13 +370,14 @@ def apply_plan_mixture(plan: MixturePlan, v: torch.Tensor, coeffs: tuple, mix_we
     ``transpose`` applies the transpose (the axis blurs reversed);
     ``return_table`` returns ``(out, table)`` with the stacked blurred
     (J M, c) table before the slice, unweighted, which the backward reads.
+    Every apply reads the plan's row lists.
     """
     d = plan.seg_ids.shape[2] - 1
     if len(coeffs) != plan.neighbors.shape[2] + 1:
         raise ValueError(f"{len(coeffs)} taps do not fit a plan of order {plan.neighbors.shape[2] // 2}")
     return lattice_mixture_apply(plan.seg_ids, plan.weights, plan.neighbors, plan.live,
                                  v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(d),
-                                 [float(w) for w in mix_weights], transpose, return_table)
+                                 [float(w) for w in mix_weights], transpose, return_table, plan.rows)
 
 
 def mixture_component(plan: MixturePlan, j: int) -> LatticePlan:

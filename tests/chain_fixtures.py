@@ -48,3 +48,25 @@ def chain_class_positions(seed=9):
     rng = np.random.default_rng(seed)
     return np.concatenate([0.02 * rng.normal(size=(2500, 2)), 0.3 * rng.normal(size=(300, 2)),
                            3.0 * rng.normal(size=(400, 2))]).astype(np.float32)
+
+
+def synthetic_mixture_plan(lengths, n, dp1, seed, device="cpu"):
+    """(seg_ids (J, n, dp1), weights, neighbours (dp1, J M, 2), live (J,)) of a stacked mixture plan whose
+    component j's live rows have the run lengths ``lengths[j]`` (an empty list: a component with no live
+    row), M rows a component with 3 or more dead rows past every component's live ones.  The J n dp1
+    contributions, seeded, are scattered over the stacked seg ids, a component's into any component's rows
+    (so a component without live rows still has contributions); the last component gets runs of 1 to make
+    up the count.  Every neighbour is missing (the blur is the centre tap).  Every seventh weight is 0."""
+    rng = np.random.default_rng(seed)
+    J = len(lengths)
+    lengths = [list(ls) for ls in lengths]
+    lengths[-1] += [1] * (J * n * dp1 - sum(map(sum, lengths)))
+    M = max(map(len, lengths)) + 3
+    seg = np.concatenate([np.repeat(j * M + np.arange(len(ls)), ls) for j, ls in enumerate(lengths)])
+    seg = rng.permutation(seg).astype(np.int32).reshape(J, n, dp1)
+    weights = rng.uniform(-1.0, 1.0, size=seg.size).astype(np.float32)
+    weights[::7] = 0.0
+    out = (torch.from_numpy(seg), torch.from_numpy(weights.reshape(J, n, dp1)),
+           torch.full((dp1, J * M, 2), M, dtype=torch.int32),
+           torch.tensor([len(ls) for ls in lengths], dtype=torch.int32))
+    return tuple(t.to(device) for t in out)

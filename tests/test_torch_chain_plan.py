@@ -290,7 +290,8 @@ def test_engine_runs_its_cg_on_the_chain_and_its_backward_on_a_join_plan(monkeyp
 
 def test_posterior_cache_runs_its_cg_on_the_chain_and_matches_jax(monkeypatch):
     """posterior_cache against JAX's with JAX's omega fed in; its eval CG applies the ChainPlan, its
-    two sketch MVMs a join plan of their own (make_wide_filter, exact_gp.py:339)."""
+    two sketch MVMs a join plan of their own (make_wide_filter, exact_gp.py:339) through that plan's row
+    lists (apply_plan_cols, K9's row-order splat), not K3."""
     rng = np.random.default_rng(21)
     n, d = 600, 3
     x = rng.normal(size=(n, d)).astype(np.float32)
@@ -307,13 +308,16 @@ def test_posterior_cache_runs_its_cg_on_the_chain_and_matches_jax(monkeypatch):
     jmean, jvar = map(np.asarray, jm.predict_from_cache(jc, jnp.asarray(x), jnp.asarray(xt)))
     omega = np.array(jax.random.normal(key, (n, min(jm.bbmm.max_lanczos_iterations, n)), jnp.float32))
 
-    spy = _Spy(monkeypatch, t_filter, "build_plan", "apply_plan_chain", "build_plan_join", "apply_plan_join")
+    spy = _Spy(monkeypatch, t_filter, "build_plan", "apply_plan_chain", "build_plan_join", "apply_plan_join",
+               "apply_plan_cols")
     tm = T.SimplexGP(**kw, eval_cg_tolerance=1e-5).load_raw(raw)
     tc = tm.posterior_cache(torch.from_numpy(x), torch.from_numpy(y), omega=torch.from_numpy(omega))
     (plan_call,) = spy.calls["build_plan"]
     assert isinstance(plan_call[2], t_lattice.ChainPlan)
     assert len(spy.calls["apply_plan_chain"]) == tc["cg_iters"] >= 10  # one MVM per iteration
-    assert len(spy.calls["build_plan_join"]) == 1 and len(spy.calls["apply_plan_join"]) == 2
+    (join_call,) = spy.calls["build_plan_join"]
+    assert not spy.calls["apply_plan_join"] and len(spy.calls["apply_plan_cols"]) == 2
+    assert all(call[0][0].seg_ids is join_call[2].seg_ids for call in spy.calls["apply_plan_cols"])
     tmean, tvar = tm.predict_from_cache(tc, torch.from_numpy(x), torch.from_numpy(xt))
     assert rel_err(tc["alpha"].numpy(), np.asarray(jc["alpha"])) < 1e-4
     np.testing.assert_allclose(tmean.numpy(), jmean, rtol=1e-4, atol=1e-4)

@@ -26,11 +26,17 @@ K11a numbers its rows as its plain version does, bit for bit; K11b is K3's
 splat, blur and slice over column blocks (on one rank, it, its plain version
 and K3 each within rel 2e-5 of the operator in float64; over two gloo ranks
 sharing the card, rel 1e-5 against the plain version and K3); K6' with the pivot's rows passed in is K6's
-arithmetic, bit for bit.  K12, the stacked mixture apply, is K3's splat,
-blur and slice over J stacked component tables, with the weighted sum over
-components in the slice (rel 1e-5, forward and transposed, outputs and the
-read rows of its table); the mixture position gradient is K5 on the stacked
-problem (rel 1e-4).  K3', the sort chain, has no atomics: its build is the
+arithmetic, bit for bit.  K12, the stacked mixture apply, runs on the
+stacked plan's row lists (``mixture_rows``, bit for bit its plain build):
+K3'b's row-order splat, the live-row blur of each component and the
+weighted slice, each in its plain version's order, so it equals its plain
+version and a second run bit for bit (forward and transposed, outputs and
+the read rows of its table, at c = 1, 11 and 100, on built plans and on
+synthetic runs of every class with a component without live rows), and two
+mixture NLML gradients repeat bit for bit; the mixture position gradient
+is K5 on the stacked problem (rel 1e-4).  The elevators-shaped
+posterior_cache (its range sketch on K9's row lists, no K3) repeats bit
+for bit.  K3', the sort chain, has no atomics: its build is the
 plain build bit for bit (the same torch.sort calls on the same keys), its
 splat sums each row in the order its plain version does, and its axis
 stencils and slice use the plain version's IEEE operations in their order,
@@ -48,7 +54,7 @@ and the gradients are not roundoff.
 import numpy as np
 import pytest
 import torch
-from chain_fixtures import RUN_LENGTHS, chain_class_positions, synthetic_chain_plan
+from chain_fixtures import RUN_LENGTHS, chain_class_positions, synthetic_chain_plan, synthetic_mixture_plan
 from torch_parity import cuda_device, seeded  # noqa: F401 (fixture)
 
 from simplex_gp_torch.kernels import chain as KC
@@ -540,7 +546,8 @@ def test_pivot_column_at_matches_plain_and_k6(cuda_device, nu):
 @pytest.mark.parametrize("c", [1, 11])
 @pytest.mark.parametrize("n,d,J", [(300, 3, 6), (400, 9, 8), (2000, 17, 8)])
 def test_mixture_apply_and_grad_match_plain(cuda_device, n, d, J, c):
-    """K12 forward and transposed, with its stacked table, and the stacked K5, against the plain versions."""
+    """K12 forward and transposed, with its stacked table, bit for bit against its plain version, and the
+    stacked K5 against its plain version."""
     mk = t_kernels.mixture_kernel(1.5, 1, J)
     ref = _positions(n, d, 11, cuda_device)
     plan = t_lattice.build_plan_mixture(ref, mk.alphas, mk.base.coeffs, mk.base.variance)
@@ -553,18 +560,115 @@ def test_mixture_apply_and_grad_match_plain(cuda_device, n, d, J, c):
     tables = []
     for u, transpose in ((v, False), (g, True)):
         before = KM.lattice_mixture_apply.launches
-        k_out, k_tab = KM.lattice_mixture_apply(*args, plan.live, u, taps, norm, mk.weights, transpose, True)
-        p_out, p_tab = KM.mixture_apply_plain(*args, u, taps, norm, mk.weights, transpose, True)
+        k_out, k_tab = KM.lattice_mixture_apply(*args, plan.live, u, taps, norm, mk.weights, transpose, True,
+                                                plan.rows)
+        p_out, p_tab = KM.mixture_apply_plain(*args, u, taps, norm, mk.weights, transpose, True, plan.rows)
         torch.cuda.synchronize()
         assert KM.lattice_mixture_apply.launches == before + 1
-        assert float((k_out - p_out).norm() / p_out.norm()) < 1e-5
-        assert float((k_tab[rows] - p_tab[rows]).norm() / p_tab[rows].norm()) < 1e-5
+        assert torch.equal(k_out, p_out) and torch.equal(k_tab[rows], p_tab[rows])
         tables.append(k_tab)
     gr_k = t_filter.mixture_position_grad(plan, ref, mk, v, g, *tables)
     cpu = [t.cpu() for t in (ref, v, g, *tables)]
-    gr_p = t_filter.mixture_position_grad(t_lattice.MixturePlan(*(t.cpu() for t in plan)), cpu[0], mk, *cpu[1:])
+    cplan = t_lattice.MixturePlan(*(t.cpu() for t in plan[:4]), K.JoinRows(*(t.cpu() for t in plan.rows)))
+    gr_p = t_filter.mixture_position_grad(cplan, cpu[0], mk, *cpu[1:])
     torch.cuda.synchronize()
     assert float((gr_k.cpu() - gr_p).norm() / gr_p.norm()) < 1e-4
+
+
+def _elevators_shaped(n=10623, d=18, seed=0, device="cuda"):
+    """Seeded normal positions of the elevators training shape at about its median-init lengthscale."""
+    return torch.from_numpy(np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32) / 4.2).to(device)
+
+
+@pytest.mark.parametrize("case", ["elevators J=8", "synthetic"])
+def test_mixture_rows_match_plain_bit_for_bit(cuda_device, case):
+    """K12's row lists on the card against their plain build, field by field: an elevators-shaped J = 8 plan
+    and synthetic stacked runs of every class with a component without live rows."""
+    if case == "synthetic":
+        stacked = [RUN_LENGTHS[:11], [], RUN_LENGTHS[11:]]
+        seg, w, nb, live = synthetic_mixture_plan(stacked, n=900, dp1=4, seed=3, device=cuda_device)
+    else:
+        mk = t_kernels.mixture_kernel(1.5, 1, 8)
+        plan = t_lattice.build_plan_mixture(_elevators_shaped(device=cuda_device), mk.alphas, mk.base.coeffs,
+                                            mk.base.variance)
+        seg, w, nb, live = plan[:4]
+    before = K.join_rows.launches
+    rows = KM.mixture_rows(seg, w, nb, live)
+    plain = KM.mixture_rows_plain(seg, w, nb)
+    torch.cuda.synchronize()
+    assert K.join_rows.launches == before + 1
+    for name in K.JoinRows._fields:
+        assert torch.equal(getattr(rows, name), getattr(plain, name)), name
+    if case == "synthetic":
+        assert int(rows.n_long) > 0 and int(rows.n_mid) > 0
+
+
+@pytest.mark.parametrize("c", [1, 11, 100])
+@pytest.mark.parametrize("case", ["elevators J=8", "synthetic"])
+def test_mixture_apply_bit_equal_to_plain_and_repeated(cuda_device, case, c):
+    """K12 at the path's widths (the CG's c = 1 and 11, the range sketch's 100), forward and transposed: the
+    output and the read rows of the table equal the plain version's and a second run's bit for bit."""
+    if case == "synthetic":
+        stacked = [RUN_LENGTHS[:11], [], RUN_LENGTHS[11:]]
+        seg, w, nb, live = synthetic_mixture_plan(stacked, n=900, dp1=4, seed=c, device=cuda_device)
+        rows, taps, norm, weights = KM.mixture_rows(seg, w, nb, live), [0.5, 1.0, 0.5], 0.7, (0.4, 1.3, 0.8)
+    else:
+        mk = t_kernels.mixture_kernel(1.5, 1, 8)
+        plan = t_lattice.build_plan_mixture(_elevators_shaped(device=cuda_device), mk.alphas, mk.base.coeffs,
+                                            mk.base.variance)
+        seg, w, nb, live, rows = plan
+        taps, norm, weights = list(mk.base.coeffs), t_lattice.SLICE_NORM(18), mk.weights
+    n = seg.shape[1]
+    v = torch.randn((n, c), generator=torch.Generator(device=cuda_device).manual_seed(c), device=cuda_device)
+    read = seg.reshape(-1).long()
+    for transpose in (False, True):
+        k_out, k_tab = KM.lattice_mixture_apply(seg, w, nb, live, v, taps, norm, weights, transpose, True, rows)
+        again, again_tab = KM.lattice_mixture_apply(seg, w, nb, live, v, taps, norm, weights, transpose, True, rows)
+        p_out, p_tab = KM.mixture_apply_plain(seg, w, nb, v, taps, norm, weights, transpose, True, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(k_out, p_out) and torch.equal(k_tab[read], p_tab[read])
+        assert torch.equal(again, k_out) and torch.equal(again_tab[read], k_tab[read])
+
+
+def test_mixture_nlml_gradients_repeat_bit_for_bit(cuda_device):
+    """Two mixture NLML gradients at the same inputs are bit-equal: K12 and its transpose have no atomics."""
+    from simplex_gp_torch.linalg import mll as t_mll
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(4000, 6)).astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy(rng.normal(size=4000).astype(np.float32)).to(cuda_device)
+    z = torch.from_numpy(rng.choice([-1.0, 1.0], size=(4000, 10)).astype(np.float32)).to(cuda_device)
+    mk = t_kernels.mixture_kernel(1.5, 1, 8)
+    launches = KM.lattice_mixture_apply.launches
+    grads = []
+    for _ in range(2):
+        params = {k: torch.tensor(v, device=cuda_device, requires_grad=True) for k, v in
+                  (("inv_ell", np.full(6, 0.8, np.float32)), ("outputscale", np.float32(1.0)),
+                   ("noise", np.float32(0.2)), ("mean", np.float32(0.0)))}
+        loss = t_mll.lattice_nlml(mk, t_mll.BBMMConfig(), params, x, y, z)
+        grads.append(torch.autograd.grad(loss, list(params.values())) + (loss.detach(),))
+    assert KM.lattice_mixture_apply.launches > launches
+    assert all(torch.equal(u, v) for u, v in zip(*grads))
+
+
+def test_elevators_posterior_cache_repeats_bit_for_bit(cuda_device):
+    """Two posterior_cache calls at the elevators training shape give the same alpha and root bits; the range
+    sketch runs K9 on its plan's row lists and K3 not at all."""
+    import simplex_gp_torch as T
+
+    rng = np.random.default_rng(6)
+    x = _elevators_shaped(seed=6, device=cuda_device) * 4.2
+    y = torch.from_numpy(np.tanh(x[:, 0].cpu().numpy()) + 0.1 * rng.normal(size=x.shape[0]).astype(np.float32))
+    model = T.SimplexGP(num_dims=18, kernel="matern", nu=1.5, order=1, min_noise=0.1, device=cuda_device,
+                        bbmm=T.BBMMConfig(precond_rank=100, max_lanczos_iterations=100))
+    y = y.to(cuda_device)
+    k3, k9 = K.lattice_apply.launches, K.lattice_apply_cols.launches
+    caches = [model.posterior_cache(x, y, generator=torch.Generator(device=cuda_device).manual_seed(0))
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    assert K.lattice_apply.launches == k3 and K.lattice_apply_cols.launches == k9 + 4
+    assert torch.equal(caches[0]["alpha"], caches[1]["alpha"])
+    assert torch.equal(caches[0]["root_inv"], caches[1]["root_inv"])
 
 
 def test_mixture_apply_refuses_wrong_inputs(cuda_device):
@@ -582,14 +686,15 @@ def test_mixture_apply_refuses_wrong_inputs(cuda_device):
 
 
 def test_snelson_prediction_quality_on_the_card(cuda_device):
-    """test_torch_snelson.py::test_snelson_prediction_quality on the card, through K1-K3, K5 and K6."""
+    """test_torch_snelson.py::test_snelson_prediction_quality on the card, through K1, K2, K9 (the range
+    sketch and the predict filter on their join plans' row lists), K5 and K6."""
     import simplex_gp_torch as T
     from simplex_gp_torch.utils.data import load_snelson
 
     xs, ys = load_snelson()
     x, y = torch.from_numpy(xs).to(cuda_device), torch.from_numpy(ys).to(cuda_device)
     xt, yt, xe, ye = x[::2], y[::2], x[1::2], y[1::2]
-    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply, K.lattice_filter_grad, pivot_column)
+    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.lattice_apply_cols, K.lattice_filter_grad, pivot_column)
     before = [fn.launches for fn in path]
     simplex = T.SimplexGP(num_dims=1, kernel="rbf", order=1, min_noise=1e-4, device=cuda_device,
                           bbmm=T.BBMMConfig(cg_tolerance=1e-4, max_lanczos_iterations=100))

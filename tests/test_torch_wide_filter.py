@@ -56,6 +56,21 @@ def chunks_spy(monkeypatch):
 
 
 @pytest.fixture
+def plans_spy(monkeypatch):
+    """The plans that ops/filter.py hands to K9's windowed apply (apply_plan_cols) and to K3's (apply_plan_join)."""
+    calls = {"cols": [], "join": []}
+    for name, key in (("apply_plan_cols", "cols"), ("apply_plan_join", "join")):
+        real = getattr(t_filter, name)
+
+        def spy(plan, v, *args, _real=real, _key=key, **kwargs):
+            calls[_key].append(plan)
+            return _real(plan, v, *args, **kwargs)
+
+        monkeypatch.setattr(t_filter, name, spy)
+    return calls
+
+
+@pytest.fixture
 def low_threshold(monkeypatch):
     monkeypatch.setattr(t_filter, "_JOIN_MAX_ROWS", LOW)
     monkeypatch.setattr(j_filter, "_JOIN_MAX_ROWS", LOW)
@@ -92,7 +107,24 @@ def test_make_wide_filter_matches_jax(monkeypatch, chunks_spy, low, c):
     for k in range(2):  # one plan, two MVMs, as the range sketch uses it
         vk = v * (k + 1)
         assert rel_err(tmv(torch.from_numpy(vk)).numpy(), np.asarray(jmv(jnp.asarray(vk)))) < 2e-5
-    assert chunks_spy == ([((N, c), t_filter._WIDE_CHUNK)] * 2 if low else [])
+    assert chunks_spy == [((N, c), t_filter._WIDE_CHUNK)] * 2  # K9 by windows at any size
+
+
+@pytest.mark.parametrize("c", [20, 101])
+def test_make_wide_filter_below_the_threshold_takes_the_row_lists(plans_spy, c):
+    """Below _JOIN_MAX_ROWS the range sketch's filter is a WidePlan, untrimmed, applied by K9 by windows on its
+    row lists (never K3), both MVMs on the one build, and it matches JAX's join branch."""
+    x, v = _data(c, seed=7)
+    tdk, jdk = t_kernels.matern_kernel(1.5, 1), j_kernels.matern_kernel(1.5, 1)
+    jmv = j_filter.make_wide_filter(jnp.asarray(x), jdk, capacity=_occupancy(x, jdk) + 8)
+    tmv = t_filter.make_wide_filter(torch.from_numpy(x), tdk, capacity=_occupancy(x, jdk) + 8)
+    for k in range(2):
+        vk = v * (k + 1)
+        assert rel_err(tmv(torch.from_numpy(vk)).numpy(), np.asarray(jmv(jnp.asarray(vk)))) < 2e-5
+    assert plans_spy["join"] == [] and len(plans_spy["cols"]) == 2
+    first, second = plans_spy["cols"]
+    assert isinstance(first, t_lattice.WidePlan) and first is second
+    assert first.neighbors.shape[1] == N * (D + 1)  # untrimmed below the threshold, as JAX's join branch
 
 
 def test_chunked_apply_plain_is_the_apply_per_block():
