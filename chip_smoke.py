@@ -22,7 +22,7 @@ Phases, each printed as it runs:
   4. training at elevators, against the JAX-on-CPU golden file
      tests/fixtures/elevators_train_golden.npz: K3 transposed and K5
      lattice_filter_grad against their plain versions at the median-init
-     lengthscales (c = 11); SimplexGP.nlml and its raw gradients at the
+     lengthscales (c = 11; K5 bit for bit, and a second run); SimplexGP.nlml and its raw gradients at the
      median init and at model_best.pkl; three Adam steps (fit_adam, lr 0.1);
      the trainer entry point ``simplex_gp_torch.train.main`` for two epochs
      on the card; one warm training step and its stages by CUDA events;
@@ -57,7 +57,9 @@ Phases, each printed as it runs:
      360,000 with that run's capacity, and five Adam steps from there (the
      first held to JAX's, the rest printed); then ``simplex_gp_torch.train.main``
      with the round-5 houseelectric flags for two epochs, one validation
-     eval and the test predict, all through K9;
+     eval and the test predict, all through K9; K5 at the training step's
+     shape (c = 11 on the backward's trimmed join plan) against its plain
+     version and a second run, bit for bit, with its time and bound;
   7. the data-parallel training path at elevators' width (the 10,622 rows
      shard_batch keeps at P = 2, median init, 10 probes): K11a
      lattice_dedup_ordered against its plain version (bit-equal) and K2
@@ -122,8 +124,11 @@ Phases, each printed as it runs:
      splat and the apply at c = 1 and 11, bit for bit) and against the join
      plan on the same positions, at elevators' median-init and trained
      positions and at houseelectric with its autotrimmed capacity 32,768,
-     untrimmed and one row short of its occupancy; two builds and two
-     applies bit for bit; the build and apply times beside K1 + K2 and K3;
+     untrimmed, and elevators (median init) and houseelectric one row short
+     of their occupancy (the apply all NaN); two builds and two applies bit
+     for bit; K3'a's time by stage (CUDA events and the host clock between
+     them) and beside its bound; the build and apply times beside K1 + K2
+     and K3;
      K3'b's time beside one torch.sparse CSR product at c = 1 and 11 in
      each of the first three cases; each kernel's time, plain time, bound
      and one CSR product of the same function; the kernels' launches in one
@@ -239,9 +244,10 @@ RMSE_ATOL = 1e-2
 NLL_ATOL = 5e-2
 # Training (phase 4).
 # K5 fed the same tables as its plain version: the same ranks (shared device
-# code with K1), f32 dots of width c and the E product summed in another
-# order, with cancellation in the differences gw[d-r] - gw[d+1-r]
-# (measured 1.6e-7 on the H100).
+# code with K1), and its dots and the E product summed in the plain twin's
+# order, so the two are gated bit for bit.  The mixture's
+# position gradient weights the stacked K5 on the card and sums its
+# components in another order than the check's: rel K5_REL there.
 K5_REL = 1e-4
 # NLML and raw gradients against JAX on the CPU, same probes: JAX runs the
 # sort-chain operator, the port the join operator with an atomic splat.
@@ -433,6 +439,13 @@ def bound(nbytes: float, ops: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def k5_bound(n: int, d: int, c: int, n_lattice: int) -> dict:
+    """K5's bound: ref, seg ids, v, g and the live rows of both tables in, grad_ref out; per contribution a
+    dot of 2c products and the E product's d+1 multiply-adds a coordinate."""
+    N = n * (d + 1)
+    return bound(4 * (2 * n * d + N + 2 * n * c + 2 * min(n_lattice, N) * c), 4 * N * c + N * (3 * d + 1))
+
+
 def geometry_ops(n: int, d: int) -> int:
     """Float operations of K1's per-point work: elevation, rounding, ranks, weights."""
     return n * (d + 1) * (3 * d + 9)
@@ -593,17 +606,17 @@ def training_phase(dev, ds, expect, timer):
         gr_k = K.lattice_filter_grad(ref, E, seg, v, g, tf_k, tb_k, norm)
         gr_p = K.lattice_filter_grad_plain(ref, E, seg, v, g, tf_k, tb_k, norm)
         r5 = rel(gr_k, gr_p)
-        expect(bool(torch.isfinite(gr_k).all()) and r5 <= K5_REL,
-               f"K5 vs plain on the same tables: rel error {r5:.3e} (limit {K5_REL})")
+        expect(bool(torch.isfinite(gr_k).all()) and torch.equal(gr_k, gr_p),
+               f"K5 vs plain on the same tables: bit-equal {torch.equal(gr_k, gr_p)} (rel {r5:.3e})")
+        expect(torch.equal(gr_k, K.lattice_filter_grad(ref, E, seg, v, g, tf_k, tb_k, norm)),
+               "two K5 runs bit-equal")
         r5_route = rel(gr_k, K.lattice_filter_grad_plain(ref, E, seg, v, g, tf_p, tb_p, norm))
         print(f"    K5 vs the all-plain route (plain tables too): rel {r5_route:.3e}")
-        N, nl5 = n * (d + 1), int(nl)
         k5 = dict(max_abs_err=float((gr_k - gr_p).abs().max()),
                   ms=timer(lambda: K.lattice_filter_grad(ref, E, seg, v, g, tf_k, tb_k, norm), 50),
                   plain_ms=timer(lambda: K.lattice_filter_grad_plain(ref, E, seg, v, g, tf_k, tb_k, norm), 10),
-                  # ref, seg, v, g and the live rows of both tables in; grad_ref out.
-                  **bound(4 * (2 * n * d + N + 2 * n * 11 + 2 * nl5 * 11), 4 * N * 11 + N * (3 * d + 1)),
-                  library_ms=None, shape=f"n={n}, d={d}, c=11, n_lattice={nl5}")
+                  graph_ms=graph_ms(lambda: K.lattice_filter_grad(ref, E, seg, v, g, tf_k, tb_k, norm), 20),
+                  **k5_bound(n, d, 11, int(nl)), library_ms=None, shape=f"n={n}, d={d}, c=11, n_lattice={int(nl)}")
         k3t = (timer(lambda: K.lattice_apply(seg, w, nb, nl, g, taps, norm, transpose=True,
                                              return_table=True), 20),
                timer(lambda: K.apply_plain(seg, w, nb, g, taps, norm, transpose=True, return_table=True), 5))
@@ -1329,6 +1342,7 @@ def large_n_phase(dev, expect, timer):
     record.update(trainer=summary, trainer_wall_s=wall_s, trainer_launches=launches)
 
     print("large n 6.5: one warm training step and one eval at houseelectric, stage by stage (CUDA events)")
+    record["k5"] = k5_houseelectric(dev, ds, dk, cap, ell["full"], expect, timer)
     stages, evals, peaks = houseelectric_stages(dev, ds, dk, cap, ell["full"])
     print("    training step (ms): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
     print("    eval (ms): " + json.dumps({k: round(v, 3) for k, v in evals.items()}))
@@ -1378,6 +1392,36 @@ def backward_parts(ref, dk, cap, c: int, seed: int) -> dict:
     torch.cuda.synchronize()
     names = ("backward_join_plan", "backward_join_rows", "backward_k9", "backward_k9t", "backward_k5")
     return {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
+
+
+def k5_houseelectric(dev, ds, dk, cap, ell, expect, timer) -> dict:
+    """K5 at the houseelectric training step's shape: c = 11 on the backward's trimmed join plan and its two
+    K9 tables (random V and U), against its plain twin and a second run bit for bit, with its time."""
+    import torch
+
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.ops import lattice as L
+
+    ref = (torch.from_numpy(ds.train_x).to(dev) / ell).contiguous()
+    n, d = ref.shape
+    gen = torch.Generator(device=dev).manual_seed(9)
+    V, U = (torch.randn((n, 11), generator=gen, device=dev) for _ in range(2))
+    E = torch.from_numpy(L.build_rotation(d, dk.variance)).to(dev)
+    plan = L.wide_plan(L.build_plan_join(ref, dk.coeffs, dk.variance, cap))
+    _, tf = L.apply_plan_rows(plan, V, dk.coeffs, return_table=True)
+    _, tb = L.apply_plan_rows(plan, U, dk.coeffs, transpose=True, return_table=True)
+    args = (ref, E, plan.seg_ids, V, U, tf, tb, L.SLICE_NORM(d))
+    gk, gp = K.lattice_filter_grad(*args), K.lattice_filter_grad_plain(*args)
+    equal, repeat = torch.equal(gk, gp), torch.equal(gk, K.lattice_filter_grad(*args))
+    expect(equal and repeat, f"houseelectric K5 (c = 11, capacity {cap}): bit-equal to plain {equal}, to a second "
+           f"run {repeat} (rel {rel(gk, gp):.3e})")
+    rec = dict(max_abs_err=float((gk - gp).abs().max()), ms=timer(lambda: K.lattice_filter_grad(*args), 20),
+               graph_ms=graph_ms(lambda: K.lattice_filter_grad(*args), 10),
+               plain_ms=timer(lambda: K.lattice_filter_grad_plain(*args), 3), **k5_bound(n, d, 11, int(plan.n_lattice)),
+               shape=f"houseelectric n={n}, d={d}, c=11, capacity {cap}, n_lattice={int(plan.n_lattice)}")
+    print(f"    K5 at houseelectric: {rec['ms']:.4f} ms (graph {rec['graph_ms']:.4f}), plain {rec['plain_ms']:.3f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms")
+    return rec
 
 
 def houseelectric_stages(dev, ds, dk, cap, ell):
@@ -2137,6 +2181,9 @@ def mixture_phase(dev, ds, expect, timer):
         r5 = rel(gr_k, gr_p)
         expect(bool(torch.isfinite(gr_k).all()) and r5 <= K5_REL,
                f"stacked K5 vs plain on the same tables: rel {r5:.3e} (limit {K5_REL})")
+        stacked_k = K.lattice_filter_grad(L.mixture_positions(ref, dk.alphas), E, plan.seg_ids.reshape(J * n, d + 1),
+                                          v.repeat(J, 1), g.repeat(J, 1), tf, tb, norm).reshape(J, n, d)
+        expect(torch.equal(stacked_k, stacked), "the stacked K5 alone bit-equal to its plain twin")
         grad_ms = (timer(lambda: F.mixture_position_grad(plan, ref, dk, v, g, tf, tb), 20),
                    timer(lambda: K.lattice_filter_grad_plain(L.mixture_positions(ref, dk.alphas), E,
                                                              plan.seg_ids.reshape(J * n, d + 1), v.repeat(J, 1),
@@ -2612,6 +2659,15 @@ def splat_cost(plan, c: int) -> tuple:
     return 4 * (2 * N + live + n * c + live * c), 2 * N * c
 
 
+def chain_build_cost(plan) -> tuple:
+    """(bytes, ops) of K3'a: h1, h2, s, w in; splat points, weights and slice_idx (N each), cnt, gathers and
+    taps of the live rows out.  The hash table, sorts and prefix sums inside are the build's own traffic."""
+    N, Mc = plan.splat_points.shape[0], plan.cnt.shape[0]
+    d, r = plan.gather.shape[0], plan.tapw.shape[1]
+    live = min(int(plan.n_lattice), Mc)
+    return 4 * (4 * N + 3 * N + live * (1 + d + (d + 1) * r)), 0
+
+
 def chain_splat_csr(plan):
     """K3'b's function as one sparse CSR matrix S (Mc, n) of the splat weights, for the library yardstick."""
     import torch
@@ -2753,9 +2809,14 @@ def chain_phase(dev, ds, expect, timer, stage_times):
                 splat_graph_ms=graph_ms(lambda: KC.chain_splat(kplan, v), 10),
                 splat_csr_ms=timer(lambda: csr @ v, 20),
                 **{f"splat_{k}": x_ for k, x_ in bound(*splat_cost(kplan, c)).items()})
+        build_call = lambda: KC.chain_build(h1, h2, sums, w, consts, taps, cap)  # noqa: E731
         case.update(build_ms=timer(lambda: L.build_plan_chain(pts, dk.coeffs, dk.variance, cap), 5),
                     join_build_ms=timer(lambda: L.build_plan_join(pts, dk.coeffs, dk.variance, cap), 5),
-                    k1_ms=timer(lambda: K.lattice_geometry(pts, E, a, with_s=True), 10))
+                    k1_ms=timer(lambda: K.lattice_geometry(pts, E, a, with_s=True), 10),
+                    k3a_ms=timer(build_call, 10), k3a_stages=KC.chain_build_stage_times(build_call),
+                    **{f"k3a_{k}": x_ for k, x_ in bound(*chain_build_cost(kplan)).items()})
+        print(f"    {name}: K3'a {case['k3a_ms']:.3f} ms (bound {case['k3a_bound_ms']:.4f}) by stage (device / host ms) "
+              + ", ".join(f"{k} {v_['device_ms']:.3f} / {v_['host_ms']:.3f}" for k, v_ in case["k3a_stages"].items()))
         print(f"    {name}: build {case['build_ms']:.3f} ms (K1 {case['k1_ms']:.3f}) vs K1 + K2 "
               f"{case['join_build_ms']:.3f} ms; apply (events / graph replay, ms) "
               + "; ".join(f"c={c}: chain {case[f'c{c}']['apply_ms']:.4f} / {case[f'c{c}']['apply_graph_ms']:.4f} "
@@ -2767,14 +2828,17 @@ def chain_phase(dev, ds, expect, timer, stage_times):
             main_case = (pts, h1, h2, sums, w, consts, kplan, pplan)
         del kplan, pplan, again, jplan, h1, h2, w, sums, csr
 
-    # Houseelectric untrimmed (Mc = N = 15.7M rows, ~20k live) and one row short of the occupancy (the
-    # slice's guard): the plan, the splat and the apply against their plain versions, bit for bit.
-    pts, occ = cases[2][1], record["houseelectric, median init"]["n_lattice"]
-    E = torch.from_numpy(L.build_rotation(pts.shape[1], dk.variance)).to(dev)
-    a = torch.from_numpy(L._hash_vectors(pts.shape[1])).to(dev)
-    consts = torch.from_numpy(L._chain_consts(pts.shape[1])).to(dev)
-    h1, h2, w, sums = K.lattice_geometry(pts, E, a, with_s=True)
-    for name, cap in (("houseelectric, untrimmed", None), ("houseelectric, overflowing", occ - 1)):
+    # Houseelectric untrimmed (Mc = N = 15.7M rows, ~20k live), and elevators (median init) and houseelectric
+    # one row short of the occupancy (the slice's guard): the plan, the splat and the apply against their
+    # plain versions, bit for bit, and the apply all NaN past the capacity.
+    for name, pts, cap in (
+            ("houseelectric, untrimmed", cases[2][1], None),
+            ("elevators, overflowing", cases[0][1], record["elevators, median init"]["n_lattice"] - 1),
+            ("houseelectric, overflowing", cases[2][1], record["houseelectric, median init"]["n_lattice"] - 1)):
+        E = torch.from_numpy(L.build_rotation(pts.shape[1], dk.variance)).to(dev)
+        a = torch.from_numpy(L._hash_vectors(pts.shape[1])).to(dev)
+        consts = torch.from_numpy(L._chain_consts(pts.shape[1])).to(dev)
+        h1, h2, w, sums = K.lattice_geometry(pts, E, a, with_s=True)
         kplan = KC.chain_build(h1, h2, sums, w, consts, taps, cap)
         pplan = KC.chain_build_plain(h1, h2, sums, w, consts, taps, cap)
         differ = [f for f in KC.ChainPlan._fields if not torch.equal(getattr(kplan, f), getattr(pplan, f))]
@@ -2800,8 +2864,7 @@ def chain_phase(dev, ds, expect, timer, stage_times):
         print(f"    {name}: n_lattice {case['n_lattice']}, Mc {Mc}; K3'b "
               + ", ".join(f"c={c} {case[f'c{c}']['splat_ms']:.4f} ms" for c in (1, 11)))
         record[name] = case
-        del kplan, pplan
-    del h1, h2, w, sums
+        del kplan, pplan, h1, h2, w, sums
 
     print("chain 10.2: each kernel vs plain and its yardstick (elevators, median init, c=11)")
     pts, h1, h2, sums, w, consts, plan, pplan = main_case
@@ -2830,11 +2893,11 @@ def chain_phase(dev, ds, expect, timer, stage_times):
             max_abs_err=errs["chain_build"],  # fields that differ from the plain build
             ms=timer(lambda: KC.chain_build(h1, h2, sums, w, consts, taps), 10),
             plain_ms=timer(lambda: KC.chain_build_plain(h1, h2, sums, w, consts, taps), 3),
-            # h1, h2, s, w in; splat points, weights and slice_idx (N each), cnt, gathers and taps of the
-            # live rows out.  The sorts and prefix sums inside are the build's own traffic.
-            **bound(4 * (4 * N + 3 * N + nl * (1 + d + (d + 1) * r)), 0),
-            library_ms=None, shape=f"N={N}, d={d}, n_lattice={nl}",
-            join_build_ms=record["elevators, median init"]["join_build_ms"]),
+            **bound(*chain_build_cost(plan)), library_ms=None, shape=f"N={N}, d={d}, n_lattice={nl}",
+            join_build_ms=record["elevators, median init"]["join_build_ms"],
+            by_case={name: {k: record[name][k] for k in ("k3a_ms", "k3a_bound_ms", "k1_ms", "build_ms",
+                                                          "join_build_ms", "k3a_stages")}
+                     for name in ("elevators, median init", "elevators, trained", "houseelectric, median init")}),
         "chain_splat": dict(
             max_abs_err=errs["chain_splat"], ms=timer(lambda: KC.chain_splat(plan, v), 50),
             plain_ms=timer(lambda: KC.chain_splat_plain(plan, v), 5),
@@ -3785,6 +3848,7 @@ def main(argv=None) -> int:
     large_rows, large_launches, large = large_n_phase(dev, expect, cuda_ms)
     rows.update(large_rows)
     launches.update({k: large_launches[k] for k in large_rows})
+    rows["lattice_filter_grad"]["houseelectric"] = large["k5"]
     print(f"large-n phase: {time.perf_counter() - t_large:.1f} s")
     print("large n: " + json.dumps(large))
 

@@ -18,35 +18,44 @@
 // a chain when their keys agree above bit 21; the low 21 bits are the
 // biased coordinate sum.
 //
-// Build, once per loss evaluation.  The wrapper (kernels/chain.py) runs the
-// sorts and prefix sums as torch.sort(stable=True) / torch.cumsum, which
-// stand for JAX's lax.sort / jnp.cumsum; everything else is here.
-//   [sort]   the contributions stable by h2;
-//   keys:    the axis-0 key of every contribution (vertex of a point), in
-//            that order;
-//   [sort]   stable by the key: lexicographic on (c1, packed, h2), so
-//            equal lattice points are contiguous (JAX splits groups on the
-//            same triple after an unstable sort, :720-731), and the
-//            contributions of one point keep their vertex order.
-//   groups:  the composed order, and a flag where a new lattice point
-//            starts; [cumsum] numbers them.
-//   compact: the first sorted position of each of the first Mc points, and
-//            for every sorted position its point id and weight (the splat
-//            reads both in table order) and for every contribution its row.
-//   rows:    per table row (the table is in axis-0 order): cnt, JAX's
-//            cumulative contribution end (:752-756); the row's h1, h2 and s
-//            (:758-764); its key along every axis 0..d, INT64_MAX for a row
-//            past the live count, so dead rows sort last in every axis order
-//            (JAX's pad rows sort among the live ones; with no tap to them,
-//            their place does not change the operator); for a row whose
-//            run is longer than CHAIN_PIECE, a flag and its number of
-//            pieces of CHAIN_PIECE contributions.
-//   [sort]   the d axis-j keys, j = 1..d, in one batched stable sort.
-//   taps:    tapw[j, k-1, p], the tap linking sorted rows p and p+k of axis
+// Build, once per loss evaluation or posterior cache.  JAX sorts all N =
+// n(d+1) contributions (its scatters are slow on the TPU); here the
+// duplicates go through a hash table and only the n_lattice distinct points
+// are sorted.  The wrapper (kernels/chain.py) runs the sorts as
+// torch.sort, which stands for lax.sort; everything else is here:
+//   dedup:   each contribution's lattice point, the 96-bit (axis-0 key, h2)
+//            that JAX's group split compares (:720-731), into a table of
+//            >= 2N slots, so every distinct point fits and n_lattice is the
+//            true count; a claim appends the point to a unique list.
+//   [read]   n_lattice to the host (the one host read of a build); then
+//   [sort]   the unique list by key; runs of equal keys (chain-word
+//            collisions, rarely two points) are put in h2 order by the
+//            rank stage: the rows in (key, h2) order, as JAX's sorted groups.
+//   rank:    each unique point's rank, then each contribution's.
+//   [sort]   the ranks, stable: each row's contributions keep their index
+//            (point, then vertex) order, as after JAX's two stable sorts;
+//            int16 keys when n_lattice < 2^15 (half the radix passes).  A
+//            hand-written stable radix pass a byte (shared-memory counts,
+//            then a move of 16 rounds of 256 a block) measured 1.65 ms at
+//            houseelectric against this sort's 0.47 and the place kernel's
+//            0.39 (PERF.md section 6), so the library sort stays.
+//   place:   for every sorted position its point id and weight (the splat
+//            reads both in row order).
+//   rows:    per table row, cnt, JAX's cumulative contribution end (:752-
+//            756), by a binary search of the sorted ranks; its run class;
+//            its key along every axis 0..d (:758-764).
+//            Past the capacity (n_lattice > Mc) the table keeps the Mc first
+//            points in (key, h2) order, the last live row's run ends at N
+//            and every contribution of a dropped point reads the last row
+//            (the slice writes NaN there): JAX's build, bit for bit.
+//   [sort]   the live rows' d axis-j keys, j = 1..d, in one batched stable
+//            sort (the dead rows would sort last in row order: no tap
+//            reaches them, and their positions are the identity).
+//   finish:  tapw[j, k-1, p], the tap linking sorted rows p and p+k of axis
 //            j (_axis_tap_weights, :666-690): taps[r + t] when both are live,
 //            share a chain and their biased sums differ by t step (step 1
-//            for j < d, d for axis d), for some t in [k, r]; else 0.
-//   finish:  the inverse of each axis order; the gather of each transition,
+//            for j < d, d for axis d), for some t in [k, r]; else 0; the
+//            inverse of each axis order; the gather of each transition,
 //            position q of axis j+1 reads position g_j[q] of axis j (JAX
 //            sorts the table by the same fixed keys in every apply, :1023-
 //            1027); slice_idx, each contribution's final position (:894).
@@ -54,7 +63,13 @@
 //            the mid rows' flags, the list of long rows with their first
 //            pieces, each piece's row and first contribution, and the list
 //            of mid rows (runs of CHAIN_SHORT+1 .. CHAIN_PIECE).
-// No atomics and no host read: two builds give the same bits.
+// The table's claims and the unique list's order depend on the race; the
+// plan is read only through sorts of distinct keys and stable sorts, so two
+// builds give the same bits.  Bound: bytes.  h1, h2, s, w in, splat points,
+// weights and slice_idx out (28N); the sort of the N ranks moves ~10N a
+// radix pass.  At houseelectric (N = 15.7M contributions, ~20k points) two
+// stable sorts of all N contributions, with their N-sized gathers, prefix
+// sum and compaction, took ~6 of a 7.3 ms build (PERF.md section 6).
 //
 // Apply, four launches and a memset from one host call (sgp_chain_apply;
 // three where the plan has too few contributions for a long row), no
@@ -110,12 +125,9 @@
 // 64-bit divisions by c and the gathers are the suspects if those are slow.
 #include "rows.cuh"
 
-#include <limits.h>
-
 #define CHAIN_S_MASK 0x1FFFFFu   // _S_MASK, the low 21 bits
 #define CHAIN_S_BIAS (1 << 20)   // _S_BIAS
 #define CHAIN_TOP_MASK 0xFFE00000u  // _TOP_MASK
-#define CHAIN_DEAD LLONG_MAX     // the key of a row past the live count
 __device__ __forceinline__ long long chain_key(unsigned int c1, unsigned int c2, int s) {
   int sb = s + CHAIN_S_BIAS;
   sb = sb < 0 ? 0 : (sb > (int)CHAIN_S_MASK ? (int)CHAIN_S_MASK : sb);
@@ -125,91 +137,184 @@ __device__ __forceinline__ long long chain_key(unsigned int c1, unsigned int c2,
 
 // ---- build ------------------------------------------------------------------
 
-// Axis 0: the multiplier of every axis j < d is 1 (_axis_dir), so
-// c1 = h1 - s oh1_0, c2 = h2 - s oh2_0.
-// key[q]: the key of contribution order[q].
-__global__ void chain_keys_kernel(const int* __restrict__ h1, const int* __restrict__ h2,
-                                  const int* __restrict__ s, const long long* __restrict__ order, int N,
-                                  const int* __restrict__ consts, int dp1, long long* __restrict__ key) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= N) return;
-  const long long e = order[q];
-  const unsigned int se = (unsigned int)s[e];
-  const unsigned int oh1 = (unsigned int)consts[0], oh2 = (unsigned int)consts[dp1];
-  key[q] = chain_key((unsigned int)h1[e] - se * oh1, (unsigned int)h2[e] - se * oh2, s[e]);
+#define CHAIN_EMPTY (-1)  // an empty slot of the dedup table
+
+// Axis-0 key of contribution e: the multiplier of every axis j < d is 1
+// (_axis_dir), so c1 = h1 - s oh1_0, c2 = h2 - s oh2_0.
+__device__ __forceinline__ long long chain_key0(const int* __restrict__ h1, const int* __restrict__ h2,
+                                                const int* __restrict__ s, int e, unsigned int oh1,
+                                                unsigned int oh2) {
+  const int se = __ldg(s + e);
+  return chain_key((unsigned int)__ldg(h1 + e) - (unsigned int)se * oh1,
+                   (unsigned int)__ldg(h2 + e) - (unsigned int)se * oh2, se);
 }
 
-// perm = p1[p2], the contributions in key order; flag where a group starts.
-__global__ void chain_groups_kernel(const long long* __restrict__ p1, const long long* __restrict__ p2,
-                                    const long long* __restrict__ key, const int* __restrict__ h2, int N,
-                                    long long* __restrict__ perm, int* __restrict__ flag) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= N) return;
-  const long long e = p1[p2[q]];
-  perm[q] = e;
-  flag[q] = q == 0 || key[q] != key[q - 1] || h2[e] != h2[p1[p2[q - 1]]];
+// One thread per contribution, in index order: the contribution's lattice
+// point (key, h2) into an open-addressing table of mask+1 >= 2N int32 slots
+// holding the index of the point's first-claiming contribution, the
+// representative, whose identity is read back from h1, h2 and s.  A plain
+// load of the slot first, a CAS only on an empty one (K8's insert,
+// once.cu).  Each claim appends the point to the unique list (key, h2, its
+// representative), one counter add a warp; the counter ends as n_lattice.
+// The list's order depends on the race; nothing downstream reads it but
+// through a sort of its distinct keys.
+__global__ void chain_dedup_kernel(const int* __restrict__ h1, const int* __restrict__ h2,
+                                   const int* __restrict__ s, int N, const int* __restrict__ consts, int dp1,
+                                   int* table, unsigned int mask, int* __restrict__ rep_of,
+                                   long long* __restrict__ uniq_key, int* __restrict__ uniq_h2,
+                                   int* __restrict__ uniq_rep, int* __restrict__ count) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned int oh1 = (unsigned int)__ldg(consts), oh2 = (unsigned int)__ldg(consts + dp1);
+  bool claimed = false;
+  long long key = 0;
+  int hh = 0;
+  if (e < N) {
+    key = chain_key0(h1, h2, s, e, oh1, oh2);
+    hh = __ldg(h2 + e);
+    unsigned int slot = (unsigned int)sgp_mix((unsigned long long)key ^
+                                              ((unsigned long long)(unsigned int)hh * 0x9E3779B97F4A7C15ULL)) &
+                        mask;
+    for (;;) {
+      int cur = table[slot];
+      if (cur == CHAIN_EMPTY) {
+        cur = atomicCAS(table + slot, CHAIN_EMPTY, e);
+        if (cur == CHAIN_EMPTY) {
+          claimed = true;
+          rep_of[e] = e;
+          break;
+        }
+      }
+      if (__ldg(h2 + cur) == hh && chain_key0(h1, h2, s, cur, oh1, oh2) == key) {
+        rep_of[e] = cur;
+        break;
+      }
+      slot = (slot + 1) & mask;
+    }
+  }
+  const unsigned int ballot = __ballot_sync(0xffffffffu, claimed);
+  if (ballot == 0) return;
+  const int lane = threadIdx.x & 31, leader = __ffs(ballot) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(count, __popc(ballot));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (claimed) {
+    const int u = base + __popc(ballot & ((1u << lane) - 1u));
+    uniq_key[u] = key;
+    uniq_h2[u] = hh;
+    uniq_rep[u] = e;
+  }
 }
 
-__global__ void chain_compact_kernel(const long long* __restrict__ perm, const float* __restrict__ w,
-                                     const int* __restrict__ seg, const int* __restrict__ flag, int N,
-                                     int Mc, int dp1, int* __restrict__ u_pos, int* __restrict__ sp,
-                                     float* __restrict__ sw, int* __restrict__ row_of,
-                                     int* __restrict__ n_lattice) {
+// The unique list sorted by key alone (sk the sorted keys, p the order) is
+// in (key, h2) order but within runs of equal keys (distinct points whose
+// chain words collide: runs of one, rarely two).  The thread at a run's
+// start places each of its m points by its h2 (distinct within the run):
+// rank r = start + the number of the run's points of smaller h2.  Each
+// point's rank by representative, and for a row of the table (r < Mc) its
+// key and h2.
+__global__ void chain_unique_rank_kernel(const long long* __restrict__ sk, const long long* __restrict__ p,
+                                         const int* __restrict__ uniq_h2, const int* __restrict__ uniq_rep, int nl,
+                                         int Mc, int* __restrict__ rank_by_rep, long long* __restrict__ row_key,
+                                         int* __restrict__ row_h2) {
+  const int start = blockIdx.x * blockDim.x + threadIdx.x;
+  if (start >= nl || (start > 0 && sk[start - 1] == sk[start])) return;
+  const long long key = sk[start];
+  int m = 1;
+  while (start + m < nl && sk[start + m] == key) ++m;
+  for (int a = 0; a < m; ++a) {
+    const long long u = p[start + a];
+    const int h = uniq_h2[u];
+    int r = start;
+    for (int b = 0; b < m; ++b) r += uniq_h2[p[start + b]] < h;
+    rank_by_rep[uniq_rep[u]] = r;
+    if (r < Mc) {
+      row_key[r] = key;
+      row_h2[r] = h;
+    }
+  }
+}
+
+// Each contribution's rank (its point's place in (key, h2) order, not
+// clamped to the capacity), and the same as the int16 sort key when key16
+// is set (n_lattice < 2^15).
+__global__ void chain_contrib_rank_kernel(const int* __restrict__ rep_of, const int* __restrict__ rank_by_rep,
+                                          int N, int* __restrict__ rank, short* __restrict__ key16) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= N) return;
+  const int r = rank_by_rep[rep_of[e]];
+  rank[e] = r;
+  if (key16 != nullptr) key16[e] = (short)r;
+}
+
+// q-th contribution in row order (the stable sort of the ranks): its point
+// and weight.
+__global__ void chain_place_kernel(const long long* __restrict__ perm, const float* __restrict__ w, int N, int dp1,
+                                   int* __restrict__ sp, float* __restrict__ sw) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= N) return;
-  if (q == N - 1) *n_lattice = seg[q];
-  const int g = seg[q] - 1;
-  const long long e = perm[q];
-  if (flag[q] && g < Mc) u_pos[g] = q;
-  sp[q] = (int)(e / dp1);
+  const int e = (int)perm[q];
+  sp[q] = e / dp1;
   sw[q] = w[e];
-  row_of[e] = g < Mc ? g : Mc - 1;  // past the capacity the slice writes NaN
 }
 
+// The end of the run of rank g in the sorted ranks: the first position
+// past its last contribution.
+template <typename Key>
+__device__ __forceinline__ int chain_run_end(const Key* __restrict__ sorted, int N, int g) {
+  int lo = 0, hi = N;
+  while (lo < hi) {
+    const int mid = lo + (hi - lo) / 2;
+    if ((int)sorted[mid] <= g) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Per table row g (the table is in axis-0 order): cnt, JAX's cumulative
+// contribution end, N for the last live row and every dead one (past the
+// capacity the last live row's run takes in the points dropped); the run
+// class of a live row; its key along every axis 0..d, (d+1, live).
 // consts: (3, d+1) int32, the rows oh1, oh2 and mult of every axis.
-__global__ void chain_rows_kernel(const int* __restrict__ u_pos, const long long* __restrict__ key,
-                                  const int* __restrict__ h2, const long long* __restrict__ perm,
-                                  const int* __restrict__ n_lattice, int N, int Mc, int d,
+template <typename Key>
+__global__ void chain_rows_kernel(const long long* __restrict__ row_key, const int* __restrict__ row_h2,
+                                  const Key* __restrict__ sorted, int live, int N, int Mc, int d,
                                   const int* __restrict__ consts, int* __restrict__ cnt,
                                   long long* __restrict__ keys, int* __restrict__ long_info) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= Mc) return;
   const int dp1 = d + 1;
-  const int nl = *n_lattice;
-  const int live = nl < Mc ? nl : Mc;
-  cnt[g] = g + 1 < live ? u_pos[g + 1] : N;
+  const int end = g + 1 < live ? chain_run_end(sorted, N, g) : N;
+  cnt[g] = end;
   if (g >= live) {
-    for (int j = 0; j < dp1; ++j) keys[(long long)j * Mc + g] = CHAIN_DEAD;
     long_info[g] = long_info[Mc + g] = long_info[2 * Mc + g] = 0;
     return;
   }
-  const int q = u_pos[g];
-  const int len = (g + 1 < live ? u_pos[g + 1] : N) - q;
-  sgp_run_class(long_info, Mc, g, len);
-  const long long k0 = key[q];
+  sgp_run_class(long_info, Mc, g, end - (g == 0 ? 0 : chain_run_end(sorted, N, g - 1)));
+  const long long k0 = row_key[g];
   const unsigned int c1 = (unsigned int)(k0 >> 32);
   const int us = (int)(((unsigned int)k0) & CHAIN_S_MASK) - CHAIN_S_BIAS;
   const unsigned int uh1 = c1 + (unsigned int)us * (unsigned int)consts[0];
-  const unsigned int uh2 = (unsigned int)h2[perm[q]];
+  const unsigned int uh2 = (unsigned int)row_h2[g];
   for (int j = 0; j < dp1; ++j) {
     const unsigned int m = (unsigned int)consts[2 * dp1 + j];
-    keys[(long long)j * Mc + g] = chain_key(m * uh1 - (unsigned int)us * (unsigned int)consts[j],
-                                            m * uh2 - (unsigned int)us * (unsigned int)consts[dp1 + j], us);
+    keys[(long long)j * live + g] = chain_key(m * uh1 - (unsigned int)us * (unsigned int)consts[j],
+                                              m * uh2 - (unsigned int)us * (unsigned int)consts[dp1 + j], us);
   }
 }
 
-// One thread per (axis j, position p): key0 is axis 0's keys (the table's
-// own order), sorted the d sorted key rows of axes 1..d.
-__global__ void chain_taps_kernel(const long long* __restrict__ key0, const long long* __restrict__ sorted,
-                                  const int* __restrict__ n_lattice, int Mc, int d, int order, SgpTaps taps,
-                                  float* __restrict__ tapw) {
+// One thread per (axis j, position p): the taps of axis j at p (keys: the
+// live rows' axis-0 keys, the table's own order; sorted: axes 1..d sorted,
+// (d, live)), and for j >= 1 the inverse of axis j's order (order_j, (d,
+// live)), the identity past the live rows (dead rows sort last, in row
+// order, as INT64_MAX keys would).
+__global__ void chain_taps_kernel(const long long* __restrict__ keys, const long long* __restrict__ sorted,
+                                  const long long* __restrict__ order_j, int live, int Mc, int d, int order,
+                                  SgpTaps taps, float* __restrict__ tapw, int* __restrict__ pos) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)(d + 1) * Mc) return;
   const int j = (int)(idx / Mc);
   const int p = (int)(idx - (long long)j * Mc);
-  const int nl = *n_lattice;
-  const int live = nl < Mc ? nl : Mc;
-  const long long* k = j == 0 ? key0 : sorted + (long long)(j - 1) * Mc;
+  const long long* k = j == 0 ? keys : sorted + (long long)(j - 1) * live;
   const int step = j < d ? 1 : d;
   for (int kk = 1; kk <= order; ++kk) {
     float w = 0.0f;
@@ -223,89 +328,101 @@ __global__ void chain_taps_kernel(const long long* __restrict__ key0, const long
     }
     tapw[((long long)j * order + kk - 1) * Mc + p] = w;
   }
+  if (j == 0) return;
+  const long long row = p < live ? order_j[(long long)(j - 1) * live + p] : p;
+  pos[(long long)(j - 1) * Mc + row] = p;
 }
 
-__global__ void chain_invert_kernel(const long long* __restrict__ perm, long long total, int Mc,
-                                    int* __restrict__ pos) {
+// gather[0] = the order of axis 1; gather[j] = pos_j[order of axis j+1]
+// for j = 1..d-1; then slice_idx, the final (axis-d) position of each
+// contribution's row (its rank clamped to the last row).
+__global__ void chain_gather_kernel(const long long* __restrict__ order_j, const int* __restrict__ pos,
+                                    const int* __restrict__ rank, int live, int Mc, int d, int N,
+                                    int* __restrict__ gather, int* __restrict__ slice_idx) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long long j = idx / Mc;
-  pos[j * Mc + perm[idx]] = (int)(idx - j * Mc);
-}
-
-// gather[0] = perm of axis 1; gather[j] = pos_j[perm_{j+1}] for j = 1..d-1.
-__global__ void chain_gather_kernel(const long long* __restrict__ perm, const int* __restrict__ pos,
-                                    long long total, int Mc, int* __restrict__ gather) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long long j = idx / Mc;
-  const long long row = perm[idx];
-  gather[idx] = j == 0 ? (int)row : pos[(j - 1) * Mc + row];
-}
-
-__global__ void chain_slice_idx_kernel(const int* __restrict__ row_of, const int* __restrict__ pos_d,
-                                       int N, int* __restrict__ slice_idx) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < N) slice_idx[e] = pos_d[row_of[e]];
-}
-
-// consts: (3, d+1) int32, the rows oh1, oh2 and mult of every axis.
-extern "C" int sgp_chain_keys(const int* h1, const int* h2, const int* s, const long long* order, int N,
-                              const int* consts, int dp1, long long* key, void* stream) {
-  if (N > 0)
-    chain_keys_kernel<<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(h1, h2, s, order, N, consts,
-                                                                              dp1, key);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int sgp_chain_groups(const long long* p1, const long long* p2, const long long* key, const int* h2,
-                                int N, long long* perm, int* flag, void* stream) {
-  if (N > 0)
-    chain_groups_kernel<<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(p1, p2, key, h2, N, perm,
-                                                                                flag);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int sgp_chain_compact(const long long* perm, const float* w, const int* seg, const int* flag,
-                                 int N, int Mc, int dp1, int* u_pos, int* sp, float* sw, int* row_of,
-                                 int* n_lattice, void* stream) {
-  if (N > 0)
-    chain_compact_kernel<<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(
-        perm, w, seg, flag, N, Mc, dp1, u_pos, sp, sw, row_of, n_lattice);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int sgp_chain_rows(const int* u_pos, const long long* key, const int* h2, const long long* perm,
-                              const int* n_lattice, int N, int Mc, int d, const int* consts, int* cnt,
-                              long long* keys, int* long_info, void* stream) {
-  if (Mc > 0)
-    chain_rows_kernel<<<sgp_blocks(Mc), SGP_THREADS, 0, (cudaStream_t)stream>>>(
-        u_pos, key, h2, perm, n_lattice, N, Mc, d, consts, cnt, keys, long_info);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int sgp_chain_taps(const long long* key0, const long long* sorted, const int* n_lattice, int Mc,
-                              int d, int order, const float* taps_host, float* tapw, void* stream) {
-  if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
-  const long long work = (long long)(d + 1) * Mc;
-  if (work > 0 && order > 0)
-    chain_taps_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(
-        key0, sorted, n_lattice, Mc, d, order, sgp_taps(taps_host, order), tapw);
-  return (int)cudaGetLastError();
-}
-
-// perm: (d, Mc) int64, the sorted order of axes 1..d; pos: (d, Mc) scratch.
-extern "C" int sgp_chain_finish(const long long* perm, const int* row_of, int N, int Mc, int d, int* pos,
-                                int* gather, int* slice_idx, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   const long long total = (long long)d * Mc;
-  if (total > 0) {
-    chain_invert_kernel<<<sgp_blocks(total), SGP_THREADS, 0, st>>>(perm, total, Mc, pos);
-    chain_gather_kernel<<<sgp_blocks(total), SGP_THREADS, 0, st>>>(perm, pos, total, Mc, gather);
+  if (idx < total) {
+    const int j = (int)(idx / Mc);
+    const int q = (int)(idx - (long long)j * Mc);
+    const long long row = q < live ? order_j[(long long)j * live + q] : q;
+    gather[idx] = j == 0 ? (int)row : pos[(long long)(j - 1) * Mc + row];
+    return;
   }
+  const long long e = idx - total;
+  if (e >= N) return;
+  const int r = rank[e];
+  slice_idx[e] = pos[(long long)(d - 1) * Mc + (r < Mc ? r : Mc - 1)];
+}
+
+// The build's stages, in the order the wrapper (kernels/chain.py) calls
+// them around its torch.sort calls.  consts: (3, d+1) int32.
+// Stage 1, the dedup: table (mask+1 int32 slots) and count are cleared here.
+extern "C" int sgp_chain_dedup(const int* h1, const int* h2, const int* s, int N, const int* consts, int dp1,
+                               int* table, int mask, int* rep_of, long long* uniq_key, int* uniq_h2, int* uniq_rep,
+                               int* count, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaMemsetAsync(table, 0xFF, ((size_t)(unsigned int)mask + 1) * sizeof(int), st);
+  cudaMemsetAsync(count, 0, sizeof(int), st);
   if (N > 0)
-    chain_slice_idx_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(row_of, pos + (long long)(d - 1) * Mc, N,
-                                                                  slice_idx);
+    chain_dedup_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(h1, h2, s, N, consts, dp1, table, (unsigned int)mask,
+                                                             rep_of, uniq_key, uniq_h2, uniq_rep, count);
+  return (int)cudaGetLastError();
+}
+
+// Stage 2, the ranks, from the unique list's keys sorted (sk) and its order
+// by them (p), nl points.
+extern "C" int sgp_chain_rank(const long long* sk, const long long* p, const int* uniq_h2, const int* uniq_rep,
+                              int nl, int Mc, const int* rep_of, int N, int* rank_by_rep, long long* row_key,
+                              int* row_h2, int* rank, short* key16, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nl > 0)
+    chain_unique_rank_kernel<<<sgp_blocks(nl), SGP_THREADS, 0, st>>>(sk, p, uniq_h2, uniq_rep, nl, Mc, rank_by_rep,
+                                                                    row_key, row_h2);
+  if (N > 0)
+    chain_contrib_rank_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(rep_of, rank_by_rep, N, rank, key16);
+  return (int)cudaGetLastError();
+}
+
+// Stage 3, the placement, from the stable sort of the ranks (perm int64).
+extern "C" int sgp_chain_place(const long long* perm, const float* w, int N, int dp1, int* sp, float* sw,
+                               void* stream) {
+  if (N > 0)
+    chain_place_kernel<<<sgp_blocks(N), SGP_THREADS, 0, (cudaStream_t)stream>>>(perm, w, N, dp1, sp, sw);
+  return (int)cudaGetLastError();
+}
+
+// Stage 4, the rows: cnt (each run's end found in the sorted ranks, int16
+// when key16, else int32), run classes and the live rows' axis keys.
+extern "C" int sgp_chain_rows(const long long* row_key, const int* row_h2, const void* sorted, int key16, int live,
+                              int N, int Mc, int d, const int* consts, int* cnt, long long* keys, int* long_info,
+                              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Mc > 0) {
+    if (key16)
+      chain_rows_kernel<short><<<sgp_blocks(Mc), SGP_THREADS, 0, st>>>(
+          row_key, row_h2, (const short*)sorted, live, N, Mc, d, consts, cnt, keys, long_info);
+    else
+      chain_rows_kernel<int><<<sgp_blocks(Mc), SGP_THREADS, 0, st>>>(
+          row_key, row_h2, (const int*)sorted, live, N, Mc, d, consts, cnt, keys, long_info);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Stage 5, after the sort of the axis keys: the taps and the axes'
+// inverses, then the transitions and slice_idx.  pos: (d, Mc) scratch.
+extern "C" int sgp_chain_finish(const long long* keys, const long long* sorted, const long long* order_j,
+                                const int* rank, int live, int Mc, int d, int order, const float* taps_host, int N,
+                                float* tapw, int* pos, int* gather, int* slice_idx, void* stream) {
+  if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long work = (long long)(d + 1) * Mc;
+  if (work > 0)
+    chain_taps_kernel<<<sgp_blocks(work), SGP_THREADS, 0, st>>>(keys, sorted, order_j, live, Mc, d, order,
+                                                                sgp_taps(taps_host, order), tapw, pos);
+  const long long total = (long long)d * Mc + N;
+  if (total > 0)
+    chain_gather_kernel<<<sgp_blocks(total), SGP_THREADS, 0, st>>>(order_j, pos, rank, live, Mc, d, N, gather,
+                                                                   slice_idx);
   return (int)cudaGetLastError();
 }
 

@@ -109,35 +109,55 @@ __device__ __forceinline__ int sgp_find(const unsigned long long* __restrict__ t
 // index); and applies the off-hyperplane repair.  Writes elev, gdiv (the
 // rounded coordinate / (d+1)) and rank, each d+1 long.  Every float
 // operation is an explicit round-to-nearest intrinsic in the order of the
-// plain PyTorch version (simplex_gp_torch/kernels/lattice.py).
+// plain PyTorch version (simplex_gp_torch/kernels/lattice.py).  K5 runs the
+// same per-coordinate steps, one coordinate a lane.
+__device__ __forceinline__ float sgp_elevate(const float* __restrict__ xp, const float* __restrict__ E, int d,
+                                             int i) {
+  float acc = __fmul_rn(xp[0], E[i * d]);
+  for (int k = 1; k < d; ++k) acc = __fadd_rn(acc, __fmul_rn(xp[k], E[i * d + k]));
+  return acc;
+}
+
+__device__ __forceinline__ int sgp_round_div(float elev, float scale, float fdp1) {
+  const float v = __fmul_rn(elev, scale);
+  const float up = ceilf(v), down = floorf(v);
+  const bool pick_up = __fsub_rn(__fmul_rn(up, fdp1), elev) < __fsub_rn(elev, __fmul_rn(down, fdp1));
+  return (int)(pick_up ? up : down);
+}
+
+// Whether coordinate j's differential ranks before coordinate i's.
+__device__ __forceinline__ int sgp_ranks_before(float dj, int j, float di, int i) {
+  return (dj > di) || (dj == di && j < i);
+}
+
+// The repaired rank of a coordinate of raw rank r; *fix (may be null) gets
+// the change of its rounded coordinate / (d+1).
+__device__ __forceinline__ int sgp_repair_rank(int r, int csum, int d, int* fix) {
+  const int r2 = r + csum;
+  const int hi = r2 > d, lo = r2 < 0;
+  if (fix != nullptr) *fix = lo - hi;
+  return r2 - (d + 1) * hi + (d + 1) * lo;
+}
+
 __device__ __forceinline__ void sgp_simplex_rank(const float* __restrict__ xp,
                                                  const float* __restrict__ E, int d, float scale,
                                                  float* elev, int* gdiv, int* rank) {
   const int dp1 = d + 1;
   const float fdp1 = (float)dp1;
-  for (int i = 0; i < dp1; ++i) {
-    float acc = __fmul_rn(xp[0], E[i * d]);
-    for (int k = 1; k < d; ++k) acc = __fadd_rn(acc, __fmul_rn(xp[k], E[i * d + k]));
-    elev[i] = acc;
-  }
+  for (int i = 0; i < dp1; ++i) elev[i] = sgp_elevate(xp, E, d, i);
   int csum = 0;
   for (int i = 0; i < dp1; ++i) {
-    const float v = __fmul_rn(elev[i], scale);
-    const float up = ceilf(v), down = floorf(v);
-    const bool pick_up =
-        __fsub_rn(__fmul_rn(up, fdp1), elev[i]) < __fsub_rn(elev[i], __fmul_rn(down, fdp1));
-    gdiv[i] = (int)(pick_up ? up : down);
+    gdiv[i] = sgp_round_div(elev[i], scale, fdp1);
     csum += gdiv[i];
   }
   float diff[SGP_MAX_DP1];
   for (int i = 0; i < dp1; ++i) diff[i] = __fsub_rn(elev[i], __fmul_rn((float)gdiv[i], fdp1));
   for (int i = 0; i < dp1; ++i) {
     int r = 0;
-    for (int j = 0; j < dp1; ++j) r += (diff[j] > diff[i]) || (diff[j] == diff[i] && j < i);
-    const int r2 = r + csum;
-    const int hi = r2 > d, lo = r2 < 0;
-    gdiv[i] += lo - hi;
-    rank[i] = r2 - dp1 * hi + dp1 * lo;
+    for (int j = 0; j < dp1; ++j) r += sgp_ranks_before(diff[j], j, diff[i], i);
+    int fix;
+    rank[i] = sgp_repair_rank(r, csum, d, &fix);
+    gdiv[i] += fix;
   }
 }
 

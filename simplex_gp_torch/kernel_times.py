@@ -10,6 +10,8 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --axes
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --dp-step
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --mixture-sketch
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --build-grad [--save DIR]
+    python simplex_gp_torch/kernel_times.py --compare-build-grad DIR DIR
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
@@ -28,7 +30,11 @@ per axis (:func:`axes_times`); the ninth the data-parallel NLML step on two
 gloo ranks sharing the card, its CG stage and its collectives, for one
 Matern kernel and a J = 8 mixture (:func:`dp_step`); the tenth K12 at c =
 1, 11 and 100, the mixture step, the elevators range sketch's apply (K3 and
-K9 at two windows) and posterior_cache (:func:`mixture_sketch`).
+K9 at two windows) and posterior_cache (:func:`mixture_sketch`); the
+eleventh K3'a's build and K5 at the elevators and houseelectric shapes and
+the houseelectric training step by stage (:func:`build_grad`), with
+``--save`` writing each plan and gradient for the twelfth form to compare
+two trees' bit for bit (:func:`compare_build_grad`).
 
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
@@ -820,6 +826,193 @@ def dp_step(nprocs: int = 2, reps: int = 3) -> dict:
     return out
 
 
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def _device_by_kernel(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device ms and launches by kernel name, the device total,
+    and the call's host wall time (synchronised) beside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    by = {}
+    for e in events:  # names cut to 90 characters; instantiations that share a prefix add up
+        ms, count = by.get(e.key[:90], (0.0, 0))
+        by[e.key[:90]] = (ms + e.self_device_time_total / 1e3, count + e.count)
+    return dict(wall_ms=wall, device_ms=sum(e.self_device_time_total for e in events) / 1e3,
+                launches=sum(e.count for e in events), by_kernel=dict(sorted(by.items(), key=lambda kv: -kv[1][0])))
+
+
+def build_grad(repeats: int = 10, save: str | None = None) -> dict:
+    """K3'a's plan build and K5's position gradient at the elevators and houseelectric shapes, and the
+    houseelectric training step by stage, through entry points every tree with the sort-chain build has.
+
+    Shapes: the seeded elevators stand-in's training rows at the median-init lengthscales
+    (tests/fixtures/elevators_train_golden.npz), untrimmed, and the houseelectric stand-in's 1,311,539
+    training rows over their median lengthscale at capacity 32,768 (the autotrimmed capacity).  K3'a
+    (``chain_build`` given K1's outputs) and ``build_plan_chain`` (K1 + K3'a) by CUDA events, beside K1 and
+    K1 + K2 (``build_plan_join``), and once under ``torch.profiler`` (device ms by kernel, launches, the
+    host wall time), and by stage where the tree marks them (``chain_build_stage_times``).  K5 at c = 11 on the backward's trimmed join plan and its two K9 tables, random V
+    and U.  The houseelectric step (zero_grad, NLML, backward, Adam) by CUDA events with its peak memory,
+    and its plan stage (``build_plan_any``) and backward parts (join plan, row lists, K9, K9ᵀ, K5) one by
+    one.  With ``save``, every plan field, K5's outputs and the step's raw gradients go to
+    ``<save>/<shape>.npz``.  Prints one JSON line.
+    """
+    import pathlib
+
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import chain as KC
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.models.components import softplus
+    from simplex_gp_torch.ops import kernels, lattice as L
+    from simplex_gp_torch.utils import data
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    dev = torch.device("cuda:0")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = {"card": _card(), "tree": simplex_gp_torch.__file__}
+    dk = kernels.matern_kernel(1.5, 1)
+    taps = [float(t) for t in dk.coeffs]
+    tg = np.load(root / "tests" / "fixtures" / "elevators_train_golden.npz")
+    inv_ell = 1.0 / softplus(torch.from_numpy(tg["init_raw_lengthscale"]).to(dev))
+    elev = data.prepare_dataset(data._synthetic_uci("elevators"), "elevators")
+    house = data.load_dataset("houseelectric")
+    ell_h = trainer.median_lengthscale(house.train_x)
+    for tag, xs, scale, cap in (("elevators", elev.train_x, inv_ell, None),
+                                ("houseelectric", house.train_x, 1.0 / ell_h, 32768)):
+        ref = (torch.from_numpy(xs).to(dev) * scale).contiguous()
+        n, d = ref.shape
+        E = torch.from_numpy(L.build_rotation(d, dk.variance)).to(dev)
+        a = torch.from_numpy(L._hash_vectors(d)).to(dev)
+        consts = torch.from_numpy(L._chain_consts(d)).to(dev)
+        h1, h2, w, s = K.lattice_geometry(ref, E, a, with_s=True)
+        build = lambda: KC.chain_build(h1, h2, s, w, consts, taps, cap)
+        plan = build()
+        rec = dict(N=h1.shape[0], Mc=plan.cnt.shape[0], n_lattice=int(plan.n_lattice),
+                   k3a_ms=_ms(build, repeats),
+                   k1_k3a_ms=_ms(lambda: L.build_plan_chain(ref, dk.coeffs, dk.variance, cap), repeats),
+                   k1_ms=_ms(lambda: K.lattice_geometry(ref, E, a, with_s=True), repeats),
+                   k1_k2_ms=_ms(lambda: L.build_plan_join(ref, dk.coeffs, dk.variance, cap), repeats))
+        rec["k3a_profile"] = _device_by_kernel(build)
+        if hasattr(KC, "chain_build_stage_times"):  # a tree whose build marks its stages
+            build()
+            rec["k3a_stages"] = KC.chain_build_stage_times(build)
+        # K5 on the backward's plan: the trimmed join plan with its row lists and K9's two tables.
+        gen = torch.Generator(device=dev).manual_seed(9)
+        V, U = (torch.randn((n, 11), generator=gen, device=dev) for _ in range(2))
+        wp = L.wide_plan(L.build_plan_join(ref, dk.coeffs, dk.variance, cap))
+        _, tf = L.apply_plan_rows(wp, V, dk.coeffs, return_table=True)
+        _, tb = L.apply_plan_rows(wp, U, dk.coeffs, transpose=True, return_table=True)
+        k5 = lambda: K.lattice_filter_grad(ref, E, wp.seg_ids, V, U, tf, tb, L.SLICE_NORM(d))
+        grad = k5()
+        rec.update(k5_ms=_ms(k5, 5 * repeats), k5_graph_ms=_graph_ms(k5, 20), k5_bit_repeat=bool(torch.equal(grad, k5())),
+                   k5_n_lattice=int(wp.n_lattice), k5_table_rows=tf.shape[0])
+        saved = {f"plan_{f}": getattr(plan, f).cpu().numpy() for f in KC.ChainPlan._fields}
+        saved["k5_grad"] = grad.cpu().numpy()
+        del plan, wp, tf, tb, V, U, h1, h2, w, s
+        if tag == "houseelectric":
+            rec.update(_house_step(ref, house, dk, cap, ell_h, repeats, saved))
+        out[tag] = rec
+        if save is not None:
+            os.makedirs(save, exist_ok=True)
+            np.savez(os.path.join(save, f"{tag}.npz"), **saved)
+        del ref, saved
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _house_step(ref, house, dk, cap, ell, repeats, saved) -> dict:
+    """The houseelectric training step (median init, capacity ``cap``): a warm step by CUDA events, its peak
+    memory, its plan stage and the exact backward's parts one by one; the step's raw gradients into
+    ``saved``."""
+    import simplex_gp_torch
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.ops import lattice as L
+    from simplex_gp_torch.ops.filter import build_plan_any
+
+    dev = ref.device
+    n, d = ref.shape
+    cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                         num_probes=10, plan_capacity=cap)
+    model = simplex_gp_torch.SimplexGP(num_dims=d, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                       device=dev)
+    raw = init_raw_params(d, lengthscale=ell)
+    x, y = torch.from_numpy(house.train_x).to(dev), torch.from_numpy(house.train_y).to(dev)
+    z = torch.from_numpy(np.random.default_rng(1).choice([-1.0, 1.0], size=(n, 10)).astype(np.float32)).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+
+    def step():
+        model.load_raw(raw)
+        opt.zero_grad(set_to_none=True)
+        model.nlml(x, y, probes=z).backward()
+        opt.step()
+
+    step()
+    model.load_raw(raw)
+    opt.zero_grad(set_to_none=True)
+    model.nlml(x, y, probes=z).backward()
+    for name, p in model.named_parameters():
+        saved[f"step_grad_{name}"] = p.grad.cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = dict(step_ms=_ms(step, max(2, repeats // 3)))
+    rec["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["plan_stage_ms"] = _ms(lambda: build_plan_any(ref, dk, cap), repeats)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    V, U = (torch.randn((n, 11), generator=gen, device=dev) for _ in range(2))
+    E = torch.from_numpy(L.build_rotation(d, dk.variance)).to(dev)
+    parts = {}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        wp = L.build_plan_join(ref, dk.coeffs, dk.variance, cap)
+        ev[1].record()
+        wp = L.wide_plan(wp)
+        ev[2].record()
+        _, tf = L.apply_plan_rows(wp, V, dk.coeffs, return_table=True)
+        ev[3].record()
+        _, tb = L.apply_plan_rows(wp, U, dk.coeffs, transpose=True, return_table=True)
+        ev[4].record()
+        K.lattice_filter_grad(ref, E, wp.seg_ids, V, U, tf, tb, L.SLICE_NORM(d))
+        ev[5].record()
+        torch.cuda.synchronize()
+        for i, nm in enumerate(("join_plan", "join_rows", "k9", "k9t", "k5")):
+            parts.setdefault(f"backward_{nm}_ms", []).append(ev[i].elapsed_time(ev[i + 1]))
+    rec.update(parts)
+    return rec
+
+
+def compare_build_grad(a: str, b: str) -> dict:
+    """Whether two ``--build-grad --save`` runs wrote the same bits: every plan field, K5's gradient and the
+    houseelectric step's raw gradients, at each shape; each field that differs with its relative difference.
+    Prints one JSON line."""
+    out = {}
+    for tag in ("elevators", "houseelectric"):
+        A, B = np.load(os.path.join(a, f"{tag}.npz")), np.load(os.path.join(b, f"{tag}.npz"))
+        differ = {}
+        for k in sorted(set(A.files) | set(B.files)):
+            if k not in A.files or k not in B.files or A[k].shape != B[k].shape:
+                differ[k] = "missing or reshaped"
+            elif A[k].tobytes() != B[k].tobytes():  # the relative difference, for a float field
+                x, y = A[k].astype(np.float64), B[k].astype(np.float64)
+                differ[k] = float(np.linalg.norm(x - y) / max(np.linalg.norm(y), 1e-300))
+        out[tag] = dict(fields=len(A.files), differ=differ)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 if __name__ == "__main__":
     import sys
 
@@ -841,5 +1034,9 @@ if __name__ == "__main__":
         dp_step()
     elif "--mixture-sketch" in sys.argv[1:]:
         mixture_sketch()
+    elif "--build-grad" in sys.argv[1:]:
+        build_grad(save=sys.argv[sys.argv.index("--save") + 1] if "--save" in sys.argv else None)
+    elif "--compare-build-grad" in sys.argv[1:]:
+        compare_build_grad(*sys.argv[sys.argv.index("--compare-build-grad") + 1:][:2])
     else:
         main()

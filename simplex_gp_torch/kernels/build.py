@@ -60,12 +60,11 @@ _SIGNATURES = {
     "sgp_ski_kr_matmul": [_P, _P, _P, _I, _I, _I, _P, _P],
     "sgp_ski_kr_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "sgp_ski_kr_adjoint": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "sgp_chain_keys": [_P, _P, _P, _P, _I, _P, _I, _P, _P],
-    "sgp_chain_groups": [_P, _P, _P, _P, _I, _P, _P, _P],
-    "sgp_chain_compact": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "sgp_chain_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    "sgp_chain_taps": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "sgp_chain_finish": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "sgp_chain_dedup": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    "sgp_chain_rank": [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    "sgp_chain_place": [_P, _P, _I, _I, _P, _P, _P],
+    "sgp_chain_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sgp_chain_finish": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     "sgp_run_lists": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "sgp_chain_splat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "sgp_chain_axis": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
@@ -128,7 +127,8 @@ def library() -> ctypes.CDLL:
         text = "".join(f"== {name} (rc {rc})\n{out}" for name, out, rc in logs)
         so.with_suffix(".log").write_text(text)
         if any(rc != 0 for *_, rc in logs):
-            raise RuntimeError(f"nvcc failed:\n{text[-4000:]}")
+            failed = "".join(f"== {name} (rc {rc})\n{out}" for name, out, rc in logs if rc != 0)
+            raise RuntimeError(f"nvcc failed:\n{failed[-4000:]}")
         os.replace(tmp, so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))

@@ -13,7 +13,10 @@ kernel counts its launches in the ``launches`` attribute of its wrapper
 twin of JAX's ``_chain_core`` / ``apply_plan_chain``
 (simplex_gp_tpu/ops/lattice.py:693, :943) as the kernels compute it, and
 run on either device.  The plain and the kernel build give the same plan,
-bit for bit: both sort with ``torch.sort(stable=True)`` on the same keys.
+bit for bit: the kernel dedups the contributions by hash and sorts only the
+distinct points, then places each row's contributions in index order, the
+order of the plain build's two stable sorts of all of them
+(:func:`chain_build_staged` runs those stages in plain PyTorch).
 
 Sort keys are int64: the high word the chain word c1, the low word the
 packed word (top 11 bits of c2 over the biased coordinate sum in 21 bits)
@@ -26,6 +29,7 @@ first (see ``csrc/chain.cu``).
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import NamedTuple
 
 import torch
@@ -37,7 +41,9 @@ __all__ = [
     "PIECE",
     "SHORT",
     "chain_build_plain",
+    "chain_build_staged",
     "chain_build",
+    "chain_build_stage_times",
     "chain_apply_plain",
     "chain_apply",
     "chain_splat_plain",
@@ -229,14 +235,84 @@ def chain_build_plain(h1, h2, s, weights, consts, taps, capacity=None) -> ChainP
                      gather.contiguous(), tapw, slice_idx, weights, n_lattice)
 
 
+def chain_build_staged(h1, h2, s, weights, consts, taps, capacity=None, seed=0) -> ChainPlan:
+    """K3'a's stages in plain PyTorch: the same plan as :func:`chain_build_plain`, by the kernel's route.
+
+    Dedup the N contributions on their point (axis-0 key, h2), in an order
+    that stands for the hash table's race (a seeded shuffle of the distinct
+    points); sort only the distinct points, stable by h2 then by key, so a
+    point's rank is its table row; place each row's contributions in index
+    order by a stable sort of the ranks; then the rows (cnt, the first Mc
+    points' axis keys, their sort over the live rows only) and the overflow
+    rule: past the capacity the last live row's run ends at N and the
+    dropped points' contributions read the last row.
+    """
+    dev = h1.device
+    N = h1.shape[0]
+    n, dp1 = weights.shape
+    d = dp1 - 1
+    Mc = _rows(N, capacity)
+    oh1, oh2, mult = (row.long() for row in consts)
+    h1, h2, s = h1.long(), h2.long(), s.long()
+    key = _key(h1 - s * oh1[0], h2 - s * oh2[0], s)
+    # dedup: the distinct points in a race-like order, and each contribution's point
+    pairs, point = torch.unique(torch.stack([key, _wrap32(h2)], 1), dim=0, return_inverse=True)
+    nl = pairs.shape[0]
+    shuffle = torch.randperm(nl, generator=torch.Generator().manual_seed(seed)).to(dev)
+    pairs, point = pairs[shuffle], torch.argsort(shuffle)[point]
+    # the distinct points sorted by (key, h2): a point's rank is its row
+    p1 = torch.sort(pairs[:, 1].to(torch.int32), stable=True).indices
+    p2 = torch.sort(pairs[p1, 0], stable=True).indices
+    order = p1[p2]
+    rank_of = torch.empty(nl, dtype=torch.int64, device=dev)
+    rank_of[order] = torch.arange(nl, device=dev)
+    rank = rank_of[point]
+    # the stable placement: each row's contributions in index order
+    sorted_rank, perm = torch.sort(rank, stable=True)
+    ends = torch.searchsorted(sorted_rank, torch.arange(nl, device=dev), right=True)
+    live = min(nl, Mc)
+    cnt = torch.full((Mc,), N, dtype=torch.int32, device=dev)
+    cnt[:live - 1] = ends[:live - 1].to(torch.int32)
+    # the rows: the first Mc points' keys along every axis, sorted over the live rows only
+    uk, uh2 = pairs[order[:live], 0], pairs[order[:live], 1]
+    c1 = uk >> 32
+    us = ((uk & _MASK32) & _S_MASK) - _S_BIAS
+    uh1 = _wrap32(c1 + us * oh1[0])
+    keys = torch.full((dp1, Mc), _DEAD, dtype=torch.int64, device=dev)
+    keys[:, :live] = _key(mult[:, None] * uh1 - us * oh1[:, None], mult[:, None] * uh2 - us * oh2[:, None], us)
+    order_j = torch.arange(Mc, device=dev).repeat(d, 1)
+    sorted_keys = keys[1:].clone()
+    sorted_keys[:, :live], order_j[:, :live] = torch.sort(keys[1:, :live], dim=1, stable=True)
+    tapw = _tap_weights(torch.cat([keys[:1], sorted_keys]), live, d, taps)
+    pos = torch.empty_like(order_j)
+    pos.scatter_(1, order_j, torch.arange(Mc, device=dev).expand(d, Mc).contiguous())
+    gather = torch.cat([order_j[:1], torch.gather(pos[:-1], 1, order_j[1:])]).to(torch.int32)
+    slice_idx = pos[-1][rank.clamp(max=Mc - 1)].to(torch.int32).reshape(n, dp1)
+    flat_w = weights.reshape(-1)
+    return ChainPlan((perm // dp1).to(torch.int32), flat_w[perm].contiguous(), cnt, *run_lists(cnt, live, N),
+                     gather.contiguous(), tapw, slice_idx, weights, torch.tensor(nl, dtype=torch.int32, device=dev))
+
+
+def _carve(dev, parts: dict) -> dict:
+    """One allocation cut into contiguous views, ``parts`` name -> (dtype, numel), each 256-byte aligned."""
+    offsets, total = {}, 0
+    for name, (dtype, numel) in parts.items():
+        offsets[name] = total
+        total += -(-numel * dtype.itemsize // 256) * 256
+    buf = torch.empty(max(total, 1), dtype=torch.uint8, device=dev)
+    return {name: buf[offsets[name]:offsets[name] + numel * dtype.itemsize].view(dtype)
+            for name, (dtype, numel) in parts.items()}
+
+
 def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
     """K3'a: the sort-chain plan from K1's hashes, coordinate sums and weights, on the card.
 
-    The same plan as :func:`chain_build_plain`, bit for bit.  Seven entry
-    points of ``csrc/chain.cu`` (keys, groups, compaction, rows, taps,
-    finish, run lists) around three ``torch.sort`` calls (two over the N
-    vertices, one batched over the d axis orders) and four 1-D
-    ``torch.cumsum`` calls; counted once per build.
+    The same plan as :func:`chain_build_plain`, bit for bit, by the stages
+    of :func:`chain_build_staged`: six entry points of ``csrc/chain.cu``
+    (dedup, rank, place, rows, finish, and the run lists') around three
+    ``torch.sort`` calls (the distinct points by key, the N ranks, the live
+    rows' axis keys batched); one host read (n_lattice, which sizes the
+    sorts); one workspace and one output allocation; counted once per build.
     """
     if not h1.is_cuda:
         return chain_build_plain(h1, h2, s, weights, consts, taps, capacity)
@@ -251,40 +327,89 @@ def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
         raise ValueError(f"chain_build: {N} vertices, consts {tuple(consts.shape)} and {len(taps)} taps do not "
                          f"fit {n} points of dimension {d}")
     Mc = _rows(N, capacity)
-    lib = build.library()
-    st = build.stream()
-    i32 = dict(dtype=torch.int32, device=dev)
-    p1 = torch.sort(h2, stable=True).indices
-    key = torch.empty(N, dtype=torch.int64, device=dev)
-    build.check(lib.sgp_chain_keys(h1.data_ptr(), h2.data_ptr(), s.data_ptr(), p1.data_ptr(), N,
-                                   consts.data_ptr(), dp1, key.data_ptr(), st), "chain_build (keys)")
-    ks, p2 = torch.sort(key, stable=True)
-    perm, flag = torch.empty(N, dtype=torch.int64, device=dev), torch.empty(N, **i32)
-    build.check(lib.sgp_chain_groups(p1.data_ptr(), p2.data_ptr(), ks.data_ptr(), h2.data_ptr(), N,
-                                     perm.data_ptr(), flag.data_ptr(), st), "chain_build (groups)")
-    seg = torch.cumsum(flag, 0, dtype=torch.int32)
-    u_pos, n_lattice = torch.empty(Mc, **i32), torch.empty((), **i32)
-    sp, sw, row_of = torch.empty(N, **i32), torch.empty(N, dtype=torch.float32, device=dev), torch.empty(N, **i32)
-    build.check(lib.sgp_chain_compact(perm.data_ptr(), weights.data_ptr(), seg.data_ptr(), flag.data_ptr(), N,
-                                      Mc, dp1, u_pos.data_ptr(), sp.data_ptr(), sw.data_ptr(), row_of.data_ptr(),
-                                      n_lattice.data_ptr(), st), "chain_build (compact)")
-    cnt, long_info = torch.empty(Mc, **i32), torch.empty((3, Mc), **i32)
-    keys = torch.empty((dp1, Mc), dtype=torch.int64, device=dev)
-    build.check(lib.sgp_chain_rows(u_pos.data_ptr(), ks.data_ptr(), h2.data_ptr(), perm.data_ptr(),
-                                   n_lattice.data_ptr(), N, Mc, d, consts.data_ptr(), cnt.data_ptr(),
+    slots = 1 << max(1, (2 * N - 1).bit_length())  # >= 2N: every distinct point fits
+    if slots > 2**31:
+        raise ValueError(f"chain_build: {N} contributions exceed the dedup table's index range")
+    lib, st = build.library(), build.stream()
+    i32, i64 = torch.int32, torch.int64
+    ws = _carve(dev, dict(table=(i32, slots), rep_of=(i32, N), uniq_key=(i64, N), uniq_h2=(i32, N),
+                          uniq_rep=(i32, N), row_key=(i64, Mc), row_h2=(i32, Mc), keys=(i64, dp1 * Mc),
+                          pos=(i32, d * Mc), long_info=(i32, 3 * Mc)))
+    sizes = dict(sp=N, sw=N, cnt=Mc, gather=d * Mc, tapw=dp1 * order * Mc, slice_idx=N, n_lattice=1)
+    out = dict(zip(sizes, torch.empty(sum(sizes.values()), dtype=i32, device=dev).split(list(sizes.values()))))
+    n_lattice = out["n_lattice"].view(())
+    _mark("start")
+    build.check(lib.sgp_chain_dedup(h1.data_ptr(), h2.data_ptr(), s.data_ptr(), N, consts.data_ptr(), dp1,
+                                    ws["table"].data_ptr(), slots - 1, ws["rep_of"].data_ptr(),
+                                    ws["uniq_key"].data_ptr(), ws["uniq_h2"].data_ptr(), ws["uniq_rep"].data_ptr(),
+                                    n_lattice.data_ptr(), st), "chain_build (dedup)")
+    _mark("dedup")
+    nl = int(n_lattice)
+    live = min(nl, Mc)
+    _mark("read")
+    sk, p = torch.sort(ws["uniq_key"][:nl])  # equal keys' order is fixed by h2 in the rank stage
+    _mark("unique sort")
+    # The table's slots are free now: the ranks by representative and by contribution take them; an int16
+    # sort key (half torch.sort's radix passes) takes the unique keys' bytes.
+    rank_by_rep, rank = ws["table"][:N], ws["table"][N:2 * N]
+    key16 = ws["uniq_key"].view(torch.int16)[:N] if nl < 2**15 else None
+    build.check(lib.sgp_chain_rank(sk.data_ptr(), p.data_ptr(), ws["uniq_h2"].data_ptr(),
+                                   ws["uniq_rep"].data_ptr(), nl, Mc, ws["rep_of"].data_ptr(), N,
+                                   rank_by_rep.data_ptr(), ws["row_key"].data_ptr(), ws["row_h2"].data_ptr(),
+                                   rank.data_ptr(), None if key16 is None else key16.data_ptr(), st),
+                "chain_build (rank)")
+    _mark("rank")
+    sorted_rank, perm = torch.sort(rank if key16 is None else key16, stable=True)
+    _mark("rank sort")
+    sw = out["sw"].view(torch.float32)
+    build.check(lib.sgp_chain_place(perm.data_ptr(), weights.data_ptr(), N, dp1, out["sp"].data_ptr(), sw.data_ptr(),
+                                    st), "chain_build (place)")
+    del perm
+    _mark("place")
+    keys, long_info = ws["keys"][:dp1 * live].view(dp1, live), ws["long_info"].view(3, Mc)
+    build.check(lib.sgp_chain_rows(ws["row_key"].data_ptr(), ws["row_h2"].data_ptr(), sorted_rank.data_ptr(),
+                                   int(key16 is not None), live, N, Mc, d, consts.data_ptr(), out["cnt"].data_ptr(),
                                    keys.data_ptr(), long_info.data_ptr(), st), "chain_build (rows)")
+    del sorted_rank
+    _mark("rows")
     sorted_keys, order_j = torch.sort(keys[1:], dim=1, stable=True)
-    tapw = torch.empty((dp1, order, Mc), dtype=torch.float32, device=dev)
+    _mark("axis sort")
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
-    build.check(lib.sgp_chain_taps(keys.data_ptr(), sorted_keys.data_ptr(), n_lattice.data_ptr(), Mc, d, order,
-                                   ctypes.addressof(taps_host), tapw.data_ptr(), st), "chain_build (taps)")
-    pos, gather = torch.empty((d, Mc), **i32), torch.empty((d, Mc), **i32)
-    slice_idx = torch.empty((n, dp1), **i32)
-    build.check(lib.sgp_chain_finish(order_j.data_ptr(), row_of.data_ptr(), N, Mc, d, pos.data_ptr(),
-                                     gather.data_ptr(), slice_idx.data_ptr(), st), "chain_build (finish)")
-    lists = run_lists_device(long_info, cnt, N)
+    tapw = out["tapw"].view(torch.float32).view(dp1, order, Mc)
+    gather, slice_idx = out["gather"].view(d, Mc), out["slice_idx"].view(n, dp1)
+    build.check(lib.sgp_chain_finish(keys.data_ptr(), sorted_keys.data_ptr(), order_j.data_ptr(), rank.data_ptr(),
+                                     live, Mc, d, order, ctypes.addressof(taps_host), N, tapw.data_ptr(),
+                                     ws["pos"].data_ptr(), gather.data_ptr(), slice_idx.data_ptr(), st),
+                "chain_build (finish)")
+    _mark("finish")
+    lists = run_lists_device(long_info, out["cnt"], N)
+    _mark("run lists")
     chain_build.launches += 1
-    return ChainPlan(sp, sw, cnt, *lists, gather, tapw, slice_idx, weights, n_lattice)
+    return ChainPlan(out["sp"], sw, out["cnt"], *lists, gather, tapw, slice_idx, weights, n_lattice)
+
+
+def _mark(stage: str) -> None:
+    """A CUDA event and the host clock after a stage of :func:`chain_build`, while
+    :func:`chain_build_stage_times` listens."""
+    if chain_build.stages is not None:
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        chain_build.stages.append((stage, event, time.perf_counter()))
+
+
+def chain_build_stage_times(build_call) -> dict:
+    """One ``build_call()`` (a :func:`chain_build` on the card) split by its stages: for each, the device ms
+    between its CUDA event and the previous one, and the host ms between the two marks."""
+    torch.cuda.synchronize()
+    chain_build.stages = []
+    try:
+        build_call()
+        torch.cuda.synchronize()
+        marks = chain_build.stages
+    finally:
+        chain_build.stages = None
+    return {name: dict(device_ms=prev.elapsed_time(ev), host_ms=1e3 * (t - t_prev))
+            for (_, prev, t_prev), (name, ev, t) in zip(marks, marks[1:])}
 
 
 def run_lists_device(long_info: torch.Tensor, cnt: torch.Tensor, N: int) -> tuple:
@@ -301,10 +426,11 @@ def run_lists_device(long_info: torch.Tensor, cnt: torch.Tensor, N: int) -> tupl
     for i in range(3):
         torch.cumsum(long_info[i], 0, out=scan[i])
     nl_max, np_max, nm_max = _long_bounds(N, Mc)
-    long_rows, long_first = torch.zeros(nl_max, **i32), torch.zeros(nl_max + 1, **i32)
-    piece_row, piece_start = torch.zeros(np_max, **i32), torch.zeros(np_max, **i32)
-    mid_rows = torch.zeros(nm_max, **i32)
-    n_long, n_pieces, n_mid = torch.empty((), **i32), torch.empty((), **i32), torch.empty((), **i32)
+    # The eight lists in one zeroed allocation (their padding is 0), each a view.
+    sizes = (nl_max, nl_max + 1, np_max, np_max, nm_max, 1, 1, 1)
+    long_rows, long_first, piece_row, piece_start, mid_rows, n_long, n_pieces, n_mid = (
+        torch.zeros(sum(sizes), **i32).split(sizes))
+    n_long, n_pieces, n_mid = n_long.view(()), n_pieces.view(()), n_mid.view(())
     build.check(build.library().sgp_run_lists(
         long_info.data_ptr(), scan.data_ptr(), cnt.data_ptr(), Mc, long_rows.data_ptr(), long_first.data_ptr(),
         piece_row.data_ptr(), piece_start.data_ptr(), n_long.data_ptr(), n_pieces.data_ptr(), mid_rows.data_ptr(),
@@ -313,6 +439,7 @@ def run_lists_device(long_info: torch.Tensor, cnt: torch.Tensor, N: int) -> tupl
 
 
 chain_build.launches = 0
+chain_build.stages = None  # a list while chain_build_stage_times listens
 
 
 def _lane_sums(contrib, slot, k, slots):

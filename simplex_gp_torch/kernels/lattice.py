@@ -750,6 +750,11 @@ def lattice_apply_sharded(seg_ids, weights, neighbors, n_lattice, v, taps, slice
 lattice_apply_sharded.launches = 0
 
 
+def _grad_team(c: int) -> int:
+    """The lanes K5 gives a point for c columns (csrc/grad.cu's rule): 8 points to a warp at c <= 16, else 4."""
+    return 4 if c <= 16 else 8
+
+
 def lattice_filter_grad_plain(ref, E, seg_ids, v, g, table_f, table_b, slice_norm):
     """Plain K5: the gradient of <g, slice_norm S^T B S v> in the positions ref (n, d).
 
@@ -759,17 +764,34 @@ def lattice_filter_grad_plain(ref, E, seg_ids, v, g, table_f, table_b, slice_nor
     is chained back through the barycentric weights -- w[k] = t_(d-k) -
     t_(d+1-k) for k >= 1, w[0] = 1 + t_d - t_0, with t_r the scaled
     differential of rank r -- and the elevation x @ E^T.  Ranks, rounding
-    and keys carry no gradient, as in JAX's autodiff.
+    and keys carry no gradient, as in JAX's autodiff.  Sums in the kernel's
+    order, so the two agree bit for bit: a dot's columns by a team of T
+    lanes (lane l adds columns l, l + T, ... in turn, then the xor
+    butterfly), each output coordinate over j in order.
     """
     n, d = ref.shape
-    dp1 = d + 1
+    dp1, c = d + 1, v.shape[1]
+    T = _grad_team(c)
+    L = -(-c // T)
     seg = seg_ids.long()
-    gw = slice_norm * ((g[:, None, :] * table_f[seg]).sum(-1) + (v[:, None, :] * table_b[seg]).sum(-1))
+    prod = g[:, None, :] * table_f[seg] + v[:, None, :] * table_b[seg]  # (n, d+1, c)
+    lanes = torch.nn.functional.pad(prod, (0, L * T - c)).reshape(n, dp1, L, T)
+    acc = prod.new_zeros((n, dp1, T))
+    for i in range(L):
+        acc = acc + lanes[:, :, i]
+    lane, off = torch.arange(T, device=ref.device), T // 2
+    while off:
+        acc = acc + acc[..., lane ^ off]
+        off //= 2
+    gw = acc[..., 0] * slice_norm
     _, rank = _simplex_rank(_elevate(ref, E), d)
     r = torch.arange(dp1, device=ref.device)
     grad_t_by_rank = gw[:, d - r] - gw[:, (d + 1 - r) % dp1]  # (n, d+1), by rank
     grad_elev = grad_t_by_rank.gather(1, rank.long()) * (1.0 / dp1)
-    return grad_elev @ E
+    out = ref.new_zeros((n, d))
+    for j in range(dp1):
+        out = out + grad_elev[:, j:j + 1] * E[j]
+    return out
 
 
 def lattice_filter_grad(ref, E, seg_ids, v, g, table_f, table_b, slice_norm):

@@ -1,5 +1,6 @@
-"""Sort-chain plans shared by the chain's CPU tests (test_torch_chain_plan.py) and card tests
-(test_torch_kernels_cuda.py); jax-free, not collected (no test_ prefix)."""
+"""Sort-chain plans and build inputs shared by the chain's CPU tests (test_torch_chain_plan.py,
+test_torch_chain_build.py) and card tests (test_torch_kernels_cuda.py); jax-free, not collected (no test_
+prefix)."""
 
 import numpy as np
 import torch
@@ -70,3 +71,20 @@ def synthetic_mixture_plan(lengths, n, dp1, seed, device="cpu"):
            torch.full((dp1, J * M, 2), M, dtype=torch.int32),
            torch.tensor([len(ls) for ls in lengths], dtype=torch.int32))
     return tuple(t.to(device) for t in out)
+
+
+def colliding_inputs(n=400, d=3, seed=0):
+    """K1-shaped inputs (h1, h2, s, weights) in which a third of the points' vertices are copied with h2 + 1:
+    distinct lattice points whose axis-0 keys are equal (the same chain word c1 and sum s; c2 one apart,
+    its top 11 bits the same), the rank stage's runs of equal keys.  Vertex hashes are drawn at random in
+    a small range, so that lattice points repeat too."""
+    rng = np.random.default_rng(seed)
+    N = n * (d + 1)
+    h1 = rng.integers(-50, 50, size=N).astype(np.int32)
+    h2 = (2 * rng.integers(-50, 50, size=N)).astype(np.int32)
+    s = rng.integers(-3, 3, size=N).astype(np.int32)
+    twin = rng.random(N) < 0.33
+    src = rng.integers(0, N, size=N)
+    h1[twin], s[twin], h2[twin] = h1[src[twin]], s[src[twin]], h2[src[twin]] + 1
+    w = rng.uniform(0.0, 1.0, size=(n, d + 1)).astype(np.float32)
+    return tuple(torch.from_numpy(a) for a in (h1, h2, s, w))

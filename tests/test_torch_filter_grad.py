@@ -5,6 +5,10 @@ versions).  Tolerances, each with its reason:
   * plain K5 against torch autograd through geometry_plain + apply_plain:
     the same f32 formulas summed in another order, rel 1e-5 (measured
     <= 5e-7);
+  * plain K5, which sums in the kernel's order (a dot's columns by a team
+    of lanes and its xor butterfly, each output coordinate over j in turn),
+    against the formula it replaced (torch's row sums and a matmul): rel
+    1e-6, f32 roundoff of the two orders (measured <= 1.3e-7);
   * the port's LatticeFilterExactGrad against jax.vjp of JAX's join engine
     (build_plan_join + apply_plan_join): the same operator, f32 roundoff of
     the reduction orders, rel 1e-5 on grad_src and 2e-5 on grad_ref
@@ -23,6 +27,7 @@ import torch
 from torch_parity import rel_err
 
 from simplex_gp_torch.kernels import lattice as K
+from simplex_gp_torch.ops import filter as t_filter
 from simplex_gp_torch.ops import kernels as t_kernels
 from simplex_gp_torch.ops import lattice as t_lattice
 from simplex_gp_torch.ops.filter import LatticeFilterExactGrad, lattice_filter_exact_grad
@@ -175,3 +180,80 @@ def test_value_and_grad_through_lengthscale():
     loss.backward()
     assert torch.isfinite(log_ell.grad).all()
     assert float(log_ell.grad.norm()) > 1e-6
+
+
+def _old_k5(ref, E, seg_ids, v, g, table_f, table_b, slice_norm):
+    """The position gradient in the order K5's plain version summed before it took the kernel's: each
+    weight gradient by torch's row sums, the elevation's chain rule by one matmul."""
+    n, d = ref.shape
+    dp1, seg = d + 1, seg_ids.long()
+    gw = slice_norm * ((g[:, None, :] * table_f[seg]).sum(-1) + (v[:, None, :] * table_b[seg]).sum(-1))
+    _, rank = K._simplex_rank(K._elevate(ref, E), d)
+    r = torch.arange(dp1)
+    grad_t_by_rank = gw[:, d - r] - gw[:, (d + 1 - r) % dp1]
+    return (grad_t_by_rank.gather(1, rank.long()) * (1.0 / dp1)) @ E
+
+
+def _k5_problem(n, d, c, seed):
+    """Positions, E, a join plan's seg ids and its two blurred tables (plain), and v, g."""
+    x, v, g = _inputs(n, d, c, seed)
+    dk = t_kernels.matern_kernel(1.5, 1)
+    ref = torch.from_numpy(0.3 * x if d >= 9 else x)
+    E, seg, w, nb = _plain_plan(ref, d, dk)
+    vt, gt = torch.from_numpy(v), torch.from_numpy(g)
+    norm = t_lattice.SLICE_NORM(d)
+    _, table_f = K.apply_plain(seg, w, nb, vt, dk.coeffs, norm, return_table=True)
+    _, table_b = K.apply_plain(seg, w, nb, gt, dk.coeffs, norm, transpose=True, return_table=True)
+    return ref, E, seg, vt, gt, table_f, table_b, norm
+
+
+@pytest.mark.parametrize("c", [1, 11, 17])
+@pytest.mark.parametrize("d", [1, 11, 18, 31, 40])
+def test_k5_twin_in_the_kernels_order_matches_the_old_formula(d, c):
+    """d = 1, houseelectric's 11, elevators' 18, d+1 = 32 (the widest register path) and 41 (the wide
+    path); c = 1, 11 (a team of 16 lanes, 11 busy) and 17 (a warp, columns past 32 none)."""
+    args = _k5_problem(120 if d < 31 else 60, d, c, seed=d + c)
+    new, old = K.lattice_filter_grad_plain(*args), _old_k5(*args)
+    assert new.shape == old.shape == args[0].shape
+    assert rel_err(new, old) < 1e-6
+
+
+@pytest.mark.parametrize("c", [1, 11, 17])
+def test_k5_twin_on_the_stacked_mixture_shape(c):
+    """The mixture's stacked problem (J n points at ref * alpha_j, seg ids j M + row into the stacked
+    tables): the new order against the old formula, each component's block."""
+    n, d = 150, 5
+    mk = t_kernels.mixture_kernel(1.5, 1, 4)
+    x, v, g = _inputs(n, d, c, seed=c)
+    ref = torch.from_numpy(x)
+    plan = t_lattice.build_plan_mixture(ref, mk.alphas, mk.base.coeffs, mk.base.variance)
+    J, _, dp1 = plan.seg_ids.shape
+    rng = np.random.default_rng(c)
+    rows = plan.neighbors.shape[1]
+    table_f, table_b = (torch.from_numpy(rng.normal(size=(rows, c)).astype(np.float32)) for _ in range(2))
+    E = torch.from_numpy(t_lattice.build_rotation(d, mk.base.variance))
+    args = (t_lattice.mixture_positions(ref, mk.alphas), E, plan.seg_ids.reshape(J * n, dp1),
+            torch.from_numpy(v).repeat(J, 1), torch.from_numpy(g).repeat(J, 1), table_f, table_b,
+            t_lattice.SLICE_NORM(d))
+    assert rel_err(K.lattice_filter_grad_plain(*args), _old_k5(*args)) < 1e-6
+    grad = t_filter.mixture_position_grad(plan, ref, mk, torch.from_numpy(v), torch.from_numpy(g), table_f, table_b)
+    assert grad.shape == (n, d) and torch.isfinite(grad).all()
+
+
+@pytest.mark.parametrize("c", [11, 17])
+@pytest.mark.parametrize("n,d", [(300, 11), (150, 18)])
+def test_k5_twin_matches_jax_autodiff_at_the_main_widths(n, d, c):
+    """The exact gradient at houseelectric's and elevators' d, c = 11 and 17, against jax.vjp of JAX's join
+    engine with this file's bound on grad_ref (rel 2e-5)."""
+    x, v, g = _inputs(n, d, c, seed=4)
+    x = 0.3 * x
+    tdk, jdk = _dks("matern", 1)
+    ref = torch.from_numpy(x).requires_grad_(True)
+    (torch.from_numpy(g) * lattice_filter_exact_grad(torch.from_numpy(v), ref, tdk)).sum().backward()
+
+    def join(s, r):
+        return j_lattice.apply_plan_join(j_lattice.build_plan_join(r, jdk.coeffs, jdk.variance), s, jdk.coeffs)
+
+    _, vjp = jax.vjp(join, jnp.asarray(v), jnp.asarray(x))
+    _, j_ref = vjp(jnp.asarray(g))
+    assert rel_err(ref.grad, j_ref) < 2e-5

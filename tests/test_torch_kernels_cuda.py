@@ -8,9 +8,10 @@ jax, so they run where the port runs:
 
 Tolerances: K1 runs the plain version's IEEE operations in its order, so
 hashes and weights are equal; K3's splat adds with atomics in a run-to-run
-order (rel 1e-5), transposed or not; K5 fed the plain version's tables sums
-its dots and the E product in another order (rel 1e-4, with cancellation in
-the weight-gradient differences); K6 sums d2 and L.l_piv in another order
+order (rel 1e-5), transposed or not; K5 sums its dots (a team of lanes and
+an xor butterfly) and the E product in its plain version's order, so fed
+the same tables the two are equal bit for bit, at both team widths and at
+d+1 past 32; K6 sums d2 and L.l_piv in another order
 than torch's reductions (rel 1e-5 for one step).  K4 is K3's operator with
 the same atomic splat (rel 1e-5), and its occupancy and K8's count are
 exact.  K9 and K7 run on a join plan's row lists (``join_rows``, built
@@ -36,8 +37,10 @@ synthetic runs of every class with a component without live rows), and two
 mixture NLML gradients repeat bit for bit; the mixture position gradient
 is K5 on the stacked problem (rel 1e-4).  The elevators-shaped
 posterior_cache (its range sketch on K9's row lists, no K3) repeats bit
-for bit.  K3', the sort chain, has no atomics: its build is the
-plain build bit for bit (the same torch.sort calls on the same keys), its
+for bit.  K3', the sort chain, has no atomics in its arithmetic: its build
+(a hash dedup of the contributions, a sort of the distinct points, a stable
+sort of the ranks) is the plain build bit for bit, also on one point
+repeated, duplicated rows, d = 1 and 18 and past the capacity, its
 splat sums each row in the order its plain version does, and its axis
 stencils and slice use the plain version's IEEE operations in their order,
 so the applies are bit-equal too, and two builds or two applies repeat
@@ -54,7 +57,8 @@ and the gradients are not roundoff.
 import numpy as np
 import pytest
 import torch
-from chain_fixtures import RUN_LENGTHS, chain_class_positions, synthetic_chain_plan, synthetic_mixture_plan
+from chain_fixtures import (RUN_LENGTHS, chain_class_positions, colliding_inputs, synthetic_chain_plan,
+                            synthetic_mixture_plan)
 from torch_parity import cuda_device, seeded  # noqa: F401 (fixture)
 
 from simplex_gp_torch.kernels import chain as KC
@@ -170,7 +174,7 @@ def test_transposed_apply_and_filter_grad_match_plain(cuda_device, n, d, order, 
     gr_p = K.lattice_filter_grad_plain(ref, E, seg, v, g, tf_k, tb_k, norm)
     torch.cuda.synchronize()
     assert K.lattice_filter_grad.launches == before + 1
-    assert float((gr_k - gr_p).norm() / gr_p.norm()) < 1e-4
+    assert torch.equal(gr_k, gr_p)
 
 
 def test_filter_grad_refuses_wrong_inputs(cuda_device):
@@ -810,6 +814,81 @@ def test_chain_build_and_apply_match_plain_bit_for_bit(cuda_device, n, d, order,
             assert torch.equal(kout, t_lattice.apply_plan_chain(kplan, v, dk.coeffs))
             jout = t_lattice.apply_plan_join(join, v, dk.coeffs)
             assert float((kout - jout).norm() / jout.norm()) < 2e-5
+
+
+def _chain_hard_positions(case, device):
+    """tests/test_torch_chain_build.py's hard inputs, on the card."""
+    rng = np.random.default_rng(11)
+    x = {"d1": lambda: 3.0 * rng.normal(size=(300, 1)),
+         "d18": lambda: rng.normal(size=(1500, 18)),
+         "one point repeated": lambda: np.repeat(rng.normal(size=(1, 6)), 2000, axis=0),
+         "duplicated rows": lambda: np.tile(rng.normal(size=(60, 4)), (5, 1)),
+         "run classes": chain_class_positions}[case]()
+    return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+
+@pytest.mark.parametrize("capacity", ["untrimmed", "trimmed", "overflowing", "half"])
+@pytest.mark.parametrize("case", ["d1", "d18", "one point repeated", "duplicated rows", "run classes"])
+def test_chain_build_matches_plain_on_hard_inputs(cuda_device, case, capacity):
+    """K3'a's hash dedup against the plain build (two stable sorts of every contribution), every field bit
+    for bit, and a second build: one point repeated (every contribution on d+1 points), duplicated rows,
+    d = 1 and 18, runs past 1,024 contributions; untrimmed, trimmed, one row short and half the occupancy."""
+    dk = _dk("matern" if case == "d18" else "rbf", 2 if case == "d1" else 1)
+    x = _chain_hard_positions(case, cuda_device)
+    d = x.shape[1]
+    E = torch.from_numpy(t_lattice.build_rotation(d, dk.variance)).to(cuda_device)
+    a = torch.from_numpy(t_lattice._hash_vectors(d)).to(cuda_device)
+    args = (*K.lattice_geometry(x, E, a, with_s=True), torch.from_numpy(t_lattice._chain_consts(d)).to(cuda_device),
+            [float(t) for t in dk.coeffs])
+    h1, h2, w, s, consts, taps = args
+    occ = int(KC.chain_build_plain(h1, h2, s, w, consts, taps).n_lattice)
+    cap = {"untrimmed": None, "trimmed": occ + 3, "overflowing": occ - 1, "half": max(1, occ // 2)}[capacity]
+    kplan = KC.chain_build(h1, h2, s, w, consts, taps, cap)
+    pplan = KC.chain_build_plain(h1, h2, s, w, consts, taps, cap)
+    again = KC.chain_build(h1, h2, s, w, consts, taps, cap)
+    torch.cuda.synchronize()
+    for f in KC.ChainPlan._fields:
+        assert torch.equal(getattr(kplan, f), getattr(pplan, f)), f
+        assert torch.equal(getattr(kplan, f), getattr(again, f)), f
+    if cap is not None and cap < occ:
+        v = torch.ones((x.shape[0], 2), device=cuda_device)
+        assert bool(torch.isnan(t_lattice.apply_plan_chain(kplan, v, dk.coeffs)).all())
+
+
+@pytest.mark.parametrize("capacity", ["untrimmed", "overflowing"])
+def test_chain_build_orders_points_with_equal_keys_by_h2(cuda_device, capacity):
+    """Distinct points that share their axis-0 key (chain_fixtures.colliding_inputs): the
+    rank stage's runs of equal keys put in h2 order, every field bit for bit against the plain build."""
+    h1, h2, s, w = (t.to(cuda_device) for t in colliding_inputs())
+    consts = torch.from_numpy(t_lattice._chain_consts(w.shape[1] - 1)).to(cuda_device)
+    taps = [float(t) for t in _dk("rbf", 1).coeffs]
+    occ = int(KC.chain_build_plain(h1, h2, s, w, consts, taps).n_lattice)
+    cap = None if capacity == "untrimmed" else occ - 1
+    kplan = KC.chain_build(h1, h2, s, w, consts, taps, cap)
+    pplan = KC.chain_build_plain(h1, h2, s, w, consts, taps, cap)
+    torch.cuda.synchronize()
+    for f in KC.ChainPlan._fields:
+        assert torch.equal(getattr(kplan, f), getattr(pplan, f)), f
+
+
+@pytest.mark.parametrize("c", [1, 11, 17, 33])
+@pytest.mark.parametrize("d", [1, 11, 18, 31, 40])
+def test_filter_grad_matches_its_twin_bit_for_bit(cuda_device, d, c):
+    """K5's teams of 4 lanes with their columns in registers (c = 1, 11) and of 8 with a column loop (c = 17,
+    33), d+1 up to 16, 32 and the wide path past 32, on random rows of random tables: equal to the plain
+    twin and to a second run."""
+    rng = np.random.default_rng(d * 100 + c)
+    n, M = 3001, 5000
+    ref = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda_device)
+    E = torch.from_numpy(t_lattice.build_rotation(d, 1.0)).to(cuda_device)
+    seg = torch.from_numpy(rng.integers(0, M, size=(n, d + 1)).astype(np.int32)).to(cuda_device)
+    v, g = (torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to(cuda_device) for _ in range(2))
+    tf, tb = (torch.from_numpy(rng.normal(size=(M, c)).astype(np.float32)).to(cuda_device) for _ in range(2))
+    args = (ref, E, seg, v, g, tf, tb, t_lattice.SLICE_NORM(d))
+    gk = K.lattice_filter_grad(*args)
+    gp = K.lattice_filter_grad_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, gp) and torch.equal(gk, K.lattice_filter_grad(*args))
 
 
 def test_chain_wrappers_refuse_wrong_inputs(cuda_device):
