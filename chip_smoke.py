@@ -6,7 +6,9 @@
 Phases, each printed as it runs:
   1. the card (nvidia-smi name and power limit) and the kernel build time;
   2. each hand-written kernel against its plain PyTorch version at the shapes
-     of the elevators serving path: K1 lattice_geometry, K2
+     of the elevators serving path: K1 lattice_geometry (its team of lanes a
+     point torch.equal to the plain twin and to the first kernel, a thread a
+     point, both timed), K2
      lattice_dedup_neighbors, K3 lattice_apply at c = 1, 100 and 101, K6
      pivot_column at rank 100;
   3. the slice: SimplexGP.posterior_cache on the 10,623 elevators training
@@ -70,7 +72,8 @@ Phases, each printed as it runs:
      rank-100 sharded factor against one process's, the sharded filter
      against K3 on one process, K10' (the sharded CG's cg_step_x, cg_step_p
      and cg_init given both ranks' gathered partials) against their plain
-     twins bit for bit from a state three iterations into the step's CG, the
+     twins bit for bit from a state three iterations into the step's CG, and
+     cg_fold given both ranks' U^T r likewise, the
      NLML and raw gradients of ``data_parallel_loss_fn`` against one process
      with the same probes, the CG iteration counts, best residuals and SLQ
      record the same bits on both ranks, the CG's collectives an iteration
@@ -138,15 +141,18 @@ Phases, each printed as it runs:
      houseelectric eval CG on the chain plan and on the join plan of the
      same positions, in turns; the stage times of phases 3, 4.5 and 6.5;
  11. K10, the CG body (csrc/cg.cu), which every single-device CG of the
-     phases above ran: each of cg_dot, cg_step_x, cg_scale, cg_precond,
-     cg_step_p and cg_init against its plain twin bit for bit from one
-     saved iteration state, at the elevators training shape (median init,
-     c = 11, the 100-step record) and the houseelectric eval shape (capacity
-     32,768, c = 1), each timed launched and replayed beside its twin and
-     its bound; the CUDA-graph solve against the launched kernel loop
-     (iteration counts and x bit for bit) in turns, with ms an iteration,
-     the capture's cost, the MVM's and the two products with U's times and
-     the launches an iteration; two NLML evaluations and gradients bit for
+     phases above ran: each of cg_dot, cg_step_x, cg_utr, cg_fold,
+     cg_precond, cg_step_p and cg_init against its plain twin bit for bit
+     from one saved iteration state, at the elevators training shape (median
+     init, c = 11, the 100-step record) and the houseelectric eval shape
+     (capacity 32,768, c = 1), each timed launched and replayed beside its
+     twin and its bound, the passes over U (cg_utr, cg_precond) beside
+     cuBLAS's U^T r and U G2 of the same shapes; the CUDA-graph solve against
+     the launched kernel loop (iteration counts and x bit for bit) in turns,
+     with ms an iteration, the capture's cost, the MVM's and the passes over
+     U's times (graph replays, beside cuBLAS's and the bound) and the
+     launches an iteration, and one iteration's kernels under
+     torch.profiler with no cuBLAS GEMM or GEMV; two NLML evaluations and gradients bit for
      bit at elevators (median init, model_best.pkl) and houseelectric; two
      houseelectric evals after one Adam step with equal CG counts and alpha;
      K10's launches on one elevators training step and one posterior_cache,
@@ -407,7 +413,10 @@ KERNEL_ROWS = {
     # K10, the CG body (lax.while_loop body :133-205) and its initial state (:118-125, :220).
     "cg_dot": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:136"),
     "cg_step_x": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:145"),
-    "cg_scale": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:253"),
+    # The Woodbury solve (pivoted_cholesky.py::precond_solve :242-253) in K10's own passes over U: U^T r
+    # (_ut_v :236), its fold with w (:253), then r / noise - U (w U^T r) with r . z (:253, cg.py:147-148).
+    "cg_utr": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:236"),
+    "cg_fold": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:253"),
     "cg_precond": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:147"),
     "cg_step_p": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:150"),
     "cg_init": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:118"),
@@ -416,6 +425,8 @@ KERNEL_ROWS = {
     "cg_step_x_sharded": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:113"),
     "cg_step_p_sharded": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:113"),
     "cg_init_sharded": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:113"),
+    # The ranks' U^T r added in rank order (JAX's psum of U^T V, pivoted_cholesky.py:237-238).
+    "cg_fold_sharded": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:238"),
 }
 
 
@@ -468,6 +479,17 @@ def cg_iteration_bytes(n: int, c: int, k: int) -> int:
     """K10: one CG iteration's vector updates over (n, c) -- x, r, p and the best iterate read and
     written, r z and r r read for the dots -- and the Woodbury solve's two reads of U (n, k)."""
     return 4 * (17 * n * c + 2 * n * k)
+
+
+def u_pass_cost(name: str, n: int, k: int, t: int, nb: int) -> tuple:
+    """(bytes, ops) of K10's passes over U and of the cuBLAS product that does the same pass: U and r read
+    once, the outputs written once; a multiply and an add a product."""
+    return {
+        "cg_utr": (4 * (n * k + n * t + nb * k * t), 2 * n * k * t),  # U, r in; the block partials out
+        "cg_precond": (4 * (n * k + k * t + 2 * n * t + 1 + nb * t), 2 * n * k * t + 4 * n * t),  # U, G2, r in; z out
+        "mm_utr": (4 * (n * k + n * t + k * t), 2 * n * k * t),  # torch.mm(U.T, r)
+        "mm_ug": (4 * (n * k + k * t + n * t), 2 * n * k * t),  # torch.mm(U, G2)
+    }[name]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1344,8 +1366,11 @@ def large_n_phase(dev, expect, timer):
     print("large n 6.5: one warm training step and one eval at houseelectric, stage by stage (CUDA events)")
     record["k5"] = k5_houseelectric(dev, ds, dk, cap, ell["full"], expect, timer)
     stages, evals, peaks = houseelectric_stages(dev, ds, dk, cap, ell["full"])
-    print("    training step (ms): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    print("    eval (ms): " + json.dumps({k: round(v, 3) for k, v in evals.items()}))
+    r3 = lambda v: round(v, 3) if isinstance(v, float) else v
+    print("    training step (ms): " + json.dumps({k: r3(v) for k, v in stages.items()}))
+    print("    eval (ms): " + json.dumps({k: r3(v) for k, v in evals.items() if k != "eval_raw_params"}))
+    print(f"    eval CG: {evals['eval_cg_iters']} iterations, best residual {evals['eval_cg_res']!r} (tolerance "
+          f"0.01), stopped by the {evals['eval_cg_stop']}; raw parameters {json.dumps(evals['eval_raw_params'])}")
     print(f"    peak device memory (GB): {json.dumps({k: round(v, 3) for k, v in peaks.items()})}")
     record.update(step_stages=stages, eval_stages=evals, peak_gb=peaks, houseelectric_n=n)
 
@@ -1485,11 +1510,10 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     names = ("plan", "preconditioner", "cg", "slq_eigh", "forward", "backward", "adam")
     stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
     stages["cg_iters"] = res.iterations
-    # One training CG iteration's parts at c = 11, by CUDA-graph replay: the MVM, U^T R, U (w U^T R).
+    # One training CG iteration's parts at c = 11, by CUDA-graph replay: the MVM, K10's passes over U (U^T R's
+    # partials, their fold, R / noise - U G2), and cuBLAS's U^T R and U G2 of the same shapes.
     r11 = res.x.contiguous()
-    g11 = P.U.T @ r11
-    stages.update(cg_mvm_graph_ms=graph_ms(lambda: apply_plan_any(plan, r11, dk), 10),
-                  cg_ut_r_graph_ms=graph_ms(lambda: P.U.T @ r11, 10), cg_u_g_graph_ms=graph_ms(lambda: P.U @ g11, 10))
+    stages.update(cg_mvm_graph_ms=graph_ms(lambda: apply_plan_any(plan, r11, dk), 10), **u_pass_times(P, r11, "cg"))
     backward_parts(ref.contiguous(), dk, cap, 11, 9)  # warm
     stages.update(backward_parts(ref.contiguous(), dk, cap, 11, 9))
     stages["warm_step"] = cuda_ms(lambda: train_step(model, opt, x, y, z), 2)
@@ -1524,12 +1548,52 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     names = ("plan", "preconditioner", "eval_cg", "range_sketch", "predict_val")
     evals = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
     evals["eval_cg_iters"] = sol.iterations
-    # One eval CG iteration's parts at these parameters, by CUDA-graph replay: the MVM, U^T r, U (w U^T r).
+    # One eval CG iteration's parts at these parameters, by CUDA-graph replay: the MVM, K10's passes over U and
+    # cuBLAS's products of the same shapes.
     r1 = sol.x[:, :1].contiguous()
-    g1 = P.U.T @ r1
-    evals.update(eval_mvm_graph_ms=graph_ms(lambda: apply_plan_any(plan, r1, dk), 10),
-                 eval_ut_r_graph_ms=graph_ms(lambda: P.U.T @ r1, 10), eval_u_g_graph_ms=graph_ms(lambda: P.U @ g1, 10))
+    evals.update(eval_mvm_graph_ms=graph_ms(lambda: apply_plan_any(plan, r1, dk), 10), **u_pass_times(P, r1, "eval"))
+    # The eval CG's stop: its count, best residual and the rule that ended it (ROADMAP section 3, item 3), with
+    # the parameters it ran at (raw, after the warm steps above), so that another solver can be run on them.
+    evals.update(eval_cg_res=float(sol.residual_norm.mean()),
+                 eval_cg_stop=cg_stop_rule(sol.iterations, float(sol.residual_norm.mean()), model.eval_cg_tolerance,
+                                           500),
+                 eval_raw_params={k_: v_.detach().cpu().reshape(-1).tolist() for k_, v_ in model.named_parameters()})
     return stages, evals, peaks
+
+
+def cg_stop_rule(iterations: int, best_res: float, tol: float, max_iters: int) -> str:
+    """Which of cg_solve's rules ended a one-column "mean" solve (cg.py:65-69): max_iters, the tolerance (the
+    residual fell below tol, so the best one did), or the stall guard (50 iterations past the floor without a
+    1% gain in the best residual)."""
+    if iterations >= max_iters:
+        return "max_iters"
+    return "tolerance" if best_res < tol else "stall guard"
+
+
+def u_pass_times(P, r, prefix: str) -> dict:
+    """K10's passes over U at r's width (CUDA-graph replays) beside cuBLAS's U^T r and U G2 and their bounds."""
+    import torch
+
+    from simplex_gp_torch.kernels import cg as K10
+
+    (n, k), t = P.U.shape, r.shape[1]
+    lay = K10.u_layout(n, k, t)
+    U = P.U.contiguous()
+    w = (P.s2 / (P.noise * (P.noise + P.s2)) / P.gamma).contiguous()
+    noise = P.noise.reshape(()).contiguous()
+    part_g, G2 = torch.empty((lay.nb, k, t), device=r.device), torch.empty((k, t), device=r.device)
+    z, part = torch.empty_like(r), torch.empty((lay.nb, t), device=r.device)
+    K10.cg_utr(U, r, part_g)
+    K10.cg_fold(part_g, w, G2)
+    G, H = torch.empty_like(G2), torch.empty_like(r)
+    out = {f"{prefix}_cg_utr_graph_ms": graph_ms(lambda: K10.cg_utr(U, r, part_g), 10),
+           f"{prefix}_cg_fold_graph_ms": graph_ms(lambda: K10.cg_fold(part_g, w, G2), 10),
+           f"{prefix}_cg_precond_graph_ms": graph_ms(lambda: K10.cg_precond(U, G2, r, noise, z, part), 10),
+           f"{prefix}_mm_utr_graph_ms": graph_ms(lambda: torch.mm(U.T, r, out=G), 10),
+           f"{prefix}_mm_ug_graph_ms": graph_ms(lambda: torch.mm(U, G2, out=H), 10)}
+    for nm in ("cg_utr", "cg_precond"):
+        out[f"{prefix}_{nm}_bound_ms"] = bound(*u_pass_cost(nm, n, k, t, lay.nb))["bound_ms"]
+    return out
 
 
 def parallel_rank(axis, case):
@@ -1641,7 +1705,7 @@ def parallel_rank(axis, case):
         del loop
 
     path = (K.lattice_geometry, K.lattice_dedup_ordered, K.lattice_apply_sharded, K.lattice_filter_grad,
-            K10.cg_dot, K10.cg_step_x, K10.cg_scale, K10.cg_precond, K10.cg_step_p, K10.cg_init)
+            K10.cg_dot, K10.cg_step_x, K10.cg_utr, K10.cg_fold, K10.cg_precond, K10.cg_step_p, K10.cg_init)
     for fn in path:
         fn.launches = 0
     pivot_column.sharded_launches = 0
@@ -1650,7 +1714,7 @@ def parallel_rank(axis, case):
     loss, grads = step(x, y, probes=z, stats=stats)
     out["launches"] = {fn.__name__: fn.launches for fn in path}
     out["launches"]["pivot_column_at"] = pivot_column.sharded_launches
-    for name in ("cg_step_x", "cg_step_p", "cg_init"):  # K10''s rows: the reducing kernels on this sharded step
+    for name in ("cg_step_x", "cg_step_p", "cg_init", "cg_fold"):  # K10''s rows: the reducing kernels on this step
         out["launches"][f"{name}_sharded"] = out["launches"][name]
     out.update(loss=float(loss), grads={k: g.cpu().numpy() for k, g in grads.items()}, cg_iters=stats["cg_iters"],
                cg_res=stats["cg_res"])
@@ -2761,6 +2825,24 @@ def chain_phase(dev, ds, expect, timer, stage_times):
         a = torch.from_numpy(L._hash_vectors(nd)).to(dev)
         consts = torch.from_numpy(L._chain_consts(nd)).to(dev)
         h1, h2, w, sums = K.lattice_geometry(pts, E, a, with_s=True)
+        # K1's team of lanes a point against its plain twin and the first kernel (a thread a point), field by
+        # field, and the two kernels' times beside K1's bound (x in; h1, h2, w, s out).
+        k1_plain = K.geometry_plain(pts, E, a, with_s=True)
+        k1_thread = K._geometry_per_thread(pts, E, a, with_s=True)
+        k1_same = [bool(torch.equal(u.reshape(-1), v.reshape(-1)) and torch.equal(u.reshape(-1), q.reshape(-1)))
+                   for u, v, q in zip((h1, h2, w, sums), k1_plain, k1_thread)]
+        expect(all(k1_same), f"{name}: K1 (team) h1, h2, w, s torch.equal to plain and to the per-thread kernel "
+               f"{k1_same}")
+        del k1_plain, k1_thread
+        np_, dp_ = pts.shape
+        k1 = dict(team_ms=timer(lambda: K.lattice_geometry(pts, E, a, with_s=True), 10),
+                  per_thread_ms=timer(lambda: K._geometry_per_thread(pts, E, a, with_s=True), 10),
+                  team_graph_ms=graph_ms(lambda: K.lattice_geometry(pts, E, a, with_s=True), 5),
+                  per_thread_graph_ms=graph_ms(lambda: K._geometry_per_thread(pts, E, a, with_s=True), 5),
+                  equal=all(k1_same),
+                  **bound(4 * np_ * dp_ + 16 * np_ * (dp_ + 1), geometry_ops(np_, dp_)))
+        print(f"    {name}: K1 team {k1['team_ms']:.4f} ms (graph {k1['team_graph_ms']:.4f}), per thread "
+              f"{k1['per_thread_ms']:.4f} (graph {k1['per_thread_graph_ms']:.4f}), bound {k1['bound_ms']:.5f}")
         kplan = KC.chain_build(h1, h2, sums, w, consts, taps, cap)
         pplan = KC.chain_build_plain(h1, h2, sums, w, consts, taps, cap)
         again = KC.chain_build(h1, h2, sums, w, consts, taps, cap)
@@ -2778,7 +2860,7 @@ def chain_phase(dev, ds, expect, timer, stage_times):
             print(f"    {name}: n_lattice chain {nl}, join {njl}")
         live = min(nl, Mc)
         case = dict(n_lattice=nl, join_n_lattice=njl, capacity=Mc, long_runs=int(kplan.n_long),
-                    pieces=int(kplan.n_pieces), mid_runs=int(kplan.n_mid))
+                    pieces=int(kplan.n_pieces), mid_runs=int(kplan.n_mid), k1=k1)
         csr = chain_splat_csr(kplan)
         for c in (1, 11):
             v = torch.randn((pts.shape[0], c), generator=gen, device=dev)
@@ -3037,16 +3119,17 @@ def chain_phase(dev, ds, expect, timer, stage_times):
     return rows, launches, record
 
 
-def k10_cost(name: str, n: int, t: int, k: int, nb: int, better_cols: int, ranks: int = 1) -> tuple:
+def k10_cost(name: str, n: int, t: int, k: int, nb: int, better_cols: int, ranks: int = 1, nbu: int = 1) -> tuple:
     """(bytes, ops) of one K10 kernel at (n, t): each vector read once and written once, the block partials
-    and the state counted with them (every rank's partials read, for K10' at ``ranks`` > 1); cg_step_p writes
-    the best iterate of the columns that improved."""
+    and the state counted with them (every rank's partials read, for K10' at ``ranks`` > 1; the passes over
+    U write nbu block partials); cg_step_p writes the best iterate of the columns that improved."""
     vec, part = 4 * n * t, 4 * nb * t
     return {
         "cg_dot": (3 * vec + part, 5 * n * t),  # p, K p in; A p out; s K p + noise p, the products and sums
         "cg_step_x": (6 * vec + (ranks + 1) * part, 6 * n * t),  # x, r, p, A p in; x, r out
-        "cg_scale": (4 * (2 * k * t + k), k * t),  # U^T r and w in; the scaled block out
-        "cg_precond": (3 * vec + part, 4 * n * t),  # r, U (w U^T r) in; z out
+        "cg_utr": u_pass_cost("cg_utr", n, k, t, nbu),
+        "cg_fold": (4 * (ranks * nbu * k * t + k + k * t), ranks * nbu * k * t + k * t),  # partials, w in; G2 out
+        "cg_precond": u_pass_cost("cg_precond", n, k, t, nbu),
         "cg_step_p": (3 * vec + 8 * n * better_cols + 2 * ranks * part, 2 * n * t),  # z, p in; p out; x -> x_best
         "cg_init": (2 * ranks * part, 3 * t),  # the two dots' partials in
     }[name]
@@ -3054,8 +3137,9 @@ def k10_cost(name: str, n: int, t: int, k: int, nb: int, better_cols: int, ranks
 
 def k10_sharded_pairs(loop, axis, reps: int) -> dict:
     """Phase 7.3's K10' check on one rank: cg_step_x, cg_step_p and cg_init given every rank's block partials,
-    all-gathered as the sharded loop gathers them, against their plain twins from ``loop``'s saved state
-    (a sharded CGLoop some iterations in), bit for bit; each timed beside its twin (CUDA events).
+    and cg_fold given every rank's U^T r (each rank's own partials folded first), all-gathered as the sharded
+    loop gathers them, against their plain twins from ``loop``'s saved state (a sharded CGLoop some
+    iterations in), bit for bit; each timed beside its twin (CUDA events).
 
     Every rank must call it at the same point: the MVM and the gathers are collectives.
     """
@@ -3064,12 +3148,17 @@ def k10_sharded_pairs(loop, axis, reps: int) -> dict:
     from simplex_gp_torch.kernels import cg as K10
 
     S = {k_: getattr(loop, k_).clone() for k_ in ("x", "r", "p", "x_best", "fs", "is_", "A", "B", "TM", "z",
-                                                  "part_rr")}
+                                                  "part_rr", "G2")}
     kp = loop.matmul(S["p"]).contiguous()
     ap, part_pap = torch.empty_like(kp), torch.empty_like(loop.part_pap)
     K10.cg_dot(S["p"], kp, part_pap, loop.scale, loop.noise, ap)
     pap = axis.all_gather_blocks(part_pap)  # (P, nb, t)
-    rr, rz = axis.all_gather_blocks(loop.part2).transpose(0, 1)  # two (P, nb, t) views, the ranks' r . r and r . z
+    rr, rz = axis.all_gather_blocks(loop.part2).transpose(0, 1)  # two (P, NB, t) views, the ranks' r . r and r . z
+    rr, rz = rr[:, :loop.nb], rz[:, :loop.nb_rz]
+    # The ranks' U^T r: each rank's partials folded with w = 1, then every rank's G gathered (P, 1, k, t).
+    K10.cg_utr(loop.U, S["r"], loop.part_g)
+    K10.cg_fold(loop.part_g, loop.ones, loop.G)
+    gs = axis.all_gather_blocks(loop.G)[:, None]
     quiet = loop.rules._replace(tol=0.0, floor=2 ** 30, max_iters=2 ** 30, stall_window=0)
     calls = {
         "cg_step_x": (K10.cg_step_x, K10.cg_step_x_plain, ("x", "r", "fs", "is_", "part_rr"),
@@ -3079,9 +3168,12 @@ def k10_sharded_pairs(loop, axis, reps: int) -> dict:
                                         T["B"], T["TM"], R)),
         "cg_init": (K10.cg_init, K10.cg_init_plain, ("fs", "is_"),
                     lambda f, T, R: f(rr, rz, T["fs"], T["is_"], R.max_iters)),
+        "cg_fold": (K10.cg_fold, K10.cg_fold_plain, ("G2",), lambda f, T, R: f(gs, loop.w, T["G2"])),
     }
     n, t = S["x"].shape
     nb = loop.part_pap.shape[0]
+    # The fold's one PyTorch call: every rank's G summed and scaled by w (einsum's own order).
+    fold_lib = lambda: torch.einsum("j,pbjc->jc", loop.w, gs)
     out = {}
     for name, (kernel, plain, mutable, call) in calls.items():
         copy = lambda: {k_: (v.clone() if k_ in mutable else v) for k_, v in S.items()}
@@ -3096,8 +3188,11 @@ def k10_sharded_pairs(loop, axis, reps: int) -> dict:
             bit_equal=all(torch.equal(Kk[k_], Pp[k_]) for k_ in mutable),
             max_abs_err=max(float((Kk[k_].double() - Pp[k_].double()).abs().nan_to_num().max()) for k_ in mutable),
             ms=cuda_ms(lambda: call(kernel, Tk, quiet), reps), plain_ms=cuda_ms(lambda: call(plain, Tp, quiet), 3),
-            **bound(*k10_cost(name, n, t, loop.U.shape[1], nb, better, axis.size)), library_ms=None,
+            **bound(*k10_cost(name, n, t, loop.U.shape[1], nb, better, axis.size, nbu=1)),
+            library_ms=cuda_ms(fold_lib, reps) if name == "cg_fold" else None,
             shape=f"n={n} a rank, c={t}, P = {axis.size} ({axis.transport}), nb={nb}")
+        if name == "cg_fold":
+            out[name].update(library_rel=rel(fold_lib(), Kk["G2"]))
     return out
 
 
@@ -3125,7 +3220,7 @@ def k10_pairs(loop, timer, reps: int) -> dict:
     # b . b's partials stand in as r . r's (the loop keeps b . b in r . r's half until its first iteration).
     S = dict(x=loop.x, r=loop.r, p=loop.p, x_best=loop.x_best, fs=loop.fs, is_=loop.is_, part_pap=loop.part_pap,
              part_rr=loop.part_rr, part_rz=loop.part_rz, part_bb=loop.part_rr, A=loop.A, B=loop.B, TM=loop.TM,
-             G=loop.G, G2=loop.G2, H=loop.H, z=loop.z, ap=loop.ap)
+             part_g=loop.part_g, G2=loop.G2, z=loop.z, ap=loop.ap)
     S = {k_: (v.clone() if v is not None else None) for k_, v in S.items()}
     S["kp"] = loop.matmul(S["p"]).contiguous()
     steps = (
@@ -3133,10 +3228,12 @@ def k10_pairs(loop, timer, reps: int) -> dict:
          lambda f, S, R: f(S["p"], S["kp"], S["part_pap"], loop.scale, loop.noise, S["ap"])),
         ("cg_step_x", K10.cg_step_x, K10.cg_step_x_plain, ("x", "r", "fs", "is_", "part_rr"),
          lambda f, S, R: f(S["part_pap"], S["x"], S["r"], S["p"], S["ap"], S["fs"], S["is_"], S["part_rr"])),
-        ("cg_scale", K10.cg_scale, K10.cg_scale_plain, ("G2",),
-         lambda f, S, R: f(S["G"], loop.w, S["G2"])),
+        ("cg_utr", K10.cg_utr, K10.cg_utr_plain, ("part_g",),
+         lambda f, S, R: f(loop.U, S["r"], S["part_g"])),
+        ("cg_fold", K10.cg_fold, K10.cg_fold_plain, ("G2",),
+         lambda f, S, R: f(S["part_g"], loop.w, S["G2"])),
         ("cg_precond", K10.cg_precond, K10.cg_precond_plain, ("z", "part_rz"),
-         lambda f, S, R: f(S["r"], S["H"], loop.p_noise, S["z"], S["part_rz"])),
+         lambda f, S, R: f(loop.U, S["G2"], S["r"], loop.p_noise, S["z"], S["part_rz"])),
         ("cg_step_p", K10.cg_step_p, K10.cg_step_p_plain, ("p", "x_best", "fs", "is_", "A", "B", "TM"),
          lambda f, S, R: f(S["part_rz"], S["part_rr"], S["x"], S["z"], S["p"], S["x_best"], S["fs"], S["is_"],
                            S["A"], S["B"], S["TM"], R)),
@@ -3144,13 +3241,18 @@ def k10_pairs(loop, timer, reps: int) -> dict:
          lambda f, S, R: f(S["part_bb"], S["part_rz"], S["fs"], S["is_"], R.max_iters)),
     )
     n, t = S["x"].shape
+    k = loop.U.shape[1]
     rp, nb = K10.cg_layout(n, t)
+    nbu = K10.u_layout(n, k, t).nb
+    # cuBLAS's products for the same shapes, the two the iteration ran before K10 read U itself.
+    G, H = torch.empty((k, t), device=S["x"].device), torch.empty_like(S["x"])
+    # cg_fold's: one einsum over the block partials, the sum and the scaling by w in one call.
+    library = {"cg_utr": (lambda: torch.mm(loop.U.T, S["r"], out=G), u_pass_cost("mm_utr", n, k, t, nbu)),
+               "cg_fold": (lambda: torch.einsum("j,bjc->jc", loop.w, S["part_g"]), k10_cost("cg_fold", n, t, k, nb,
+                                                                                         0, nbu=nbu)),
+               "cg_precond": (lambda: torch.mm(loop.U, S["G2"], out=H), u_pass_cost("mm_ug", n, k, t, nbu))}
     out = {}
     for name, kernel, plain, mutable, call in steps:
-        if name == "cg_scale":
-            torch.mm(loop.U.T, S["r"], out=S["G"])
-        if name == "cg_precond":
-            torch.mm(loop.U, S["G2"], out=S["H"])
         copy = lambda: {k_: (v.clone() if k_ in mutable and v is not None else v) for k_, v in S.items()}
         Kk, Pp = copy(), copy()
         call(kernel, Kk, rules)
@@ -3164,9 +3266,13 @@ def k10_pairs(loop, timer, reps: int) -> dict:
             bit_equal=all(same(Kk[k_], Pp[k_]) for k_ in keys), max_abs_err=max(err(Kk[k_], Pp[k_]) for k_ in keys),
             ms=timer(lambda: call(kernel, Tk, quiet), reps), plain_ms=timer(lambda: call(plain, Tp, quiet), 3),
             graph_ms=graph_ms(lambda: call(kernel, Tg, quiet), 10),
-            **bound(*k10_cost(name, n, t, loop.U.shape[1], nb, better)))
-        if name == "cg_scale":
-            out[name]["library_ms"] = timer(lambda: torch.mul(loop.w[:, None], S["G"], out=Tp["G2"]), reps)
+            **bound(*k10_cost(name, n, t, k, nb, better, nbu=nbu)))
+        if name in library:
+            lib, cost = library[name]
+            out[name].update(library_ms=timer(lib, reps), library_graph_ms=graph_ms(lib, 10),
+                             library_bound_ms=bound(*cost)["bound_ms"])
+            if name == "cg_fold":
+                out[name].update(library_rel=rel(lib(), Kk["G2"]))
         S.update({k_: Kk[k_] for k_ in mutable})
     return out
 
@@ -3263,11 +3369,26 @@ def cg_phase(dev, ds, expect, timer):
         expect(equal, f"{tag}: the graph solve == the eager kernel loop (iterations "
                f"{[r_['iterations'] for r_ in runs]}, x bit for bit)")
         loop = CG.CGLoop(mv, rhs, tol=tol, max_iters=500, precond=P, tridiag_m=m, shift=shift)
-        counters = (K10.cg_dot, K10.cg_step_x, K10.cg_scale, K10.cg_precond, K10.cg_step_p, *chain_kernels())
+        counters = (K10.cg_dot, K10.cg_step_x, K10.cg_utr, K10.cg_fold, K10.cg_precond, K10.cg_step_p,
+                    *chain_kernels())
         for fn in counters:
             fn.launches = 0
         loop.iteration()
         per_it = {fn.__name__: fn.launches for fn in counters}
+        # 11.5: one iteration's device kernels by name (torch.profiler): no cuBLAS GEMM or GEMV, and no
+        # allocation (the allocator's count of allocations does not move).
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            loop.iteration()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages() if e.self_device_time_total > 0})
+        blas = [nm for nm in names if any(w_ in nm.lower() for w_ in ("gemm", "gemv", "cublas", "cutlass"))]
+        iter_allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0) - allocs
+        expect(not blas, f"{tag}: one iteration's kernels hold no cuBLAS product ({len(names)} kernels: "
+               f"{[nm[:40] for nm in names]}; GEMM/GEMV {blas})")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         graph_obj = CG.capture(loop.iteration)
@@ -3275,18 +3396,34 @@ def cg_phase(dev, ds, expect, timer):
         capture_ms = 1e3 * (time.perf_counter() - t0)
         del graph_obj
         mvm_ms = graph_ms(lambda: mv(loop.p), 10)
-        gemm_ms = [graph_ms(lambda: torch.mm(loop.U.T, loop.r, out=loop.G), 10),
-                   graph_ms(lambda: torch.mm(loop.U, loop.G2, out=loop.H), 10)]
+        # The passes over U beside cuBLAS's products of the same shapes (graph replays, in turns) and their bound.
+        (n_, t_), k_ = rhs.shape, P.U.shape[1]
+        G_, H_ = torch.empty((k_, t_), device=dev), torch.empty_like(rhs)
+        pz, pr = torch.empty_like(loop.z), torch.empty_like(loop.part_rz)
+        u_passes = dict(
+            cg_utr=graph_ms(lambda: K10.cg_utr(loop.U, loop.r, loop.part_g), 10),
+            mm_utr=graph_ms(lambda: torch.mm(loop.U.T, loop.r, out=G_), 10),
+            cg_precond=graph_ms(lambda: K10.cg_precond(loop.U, loop.G2, loop.r, loop.p_noise, pz, pr), 10),
+            mm_ug=graph_ms(lambda: torch.mm(loop.U, loop.G2, out=H_), 10),
+            cg_fold=graph_ms(lambda: K10.cg_fold(loop.part_g, loop.w, G_), 10),
+            einsum_fold=graph_ms(lambda: torch.einsum("j,bjc->jc", loop.w, loop.part_g), 10))
+        u_passes.update({f"{nm}_bound_ms": bound(*u_pass_cost(nm, n_, k_, t_, loop.nb_rz))["bound_ms"]
+                         for nm in ("cg_utr", "cg_precond", "mm_utr", "mm_ug")})
         it_bound = bound(cg_iteration_bytes(rhs.shape[0], rhs.shape[1], P.U.shape[1]), 0)
         for r_ in runs:
             del r_["x"]
-        record[tag].update(solves=runs, capture_ms=capture_ms, mvm_graph_ms=mvm_ms, u_gemms_graph_ms=gemm_ms,
-                           launches_per_iteration=dict(per_it, gemms=2), iteration_bound_ms=it_bound["bound_ms"])
+        record[tag].update(solves=runs, capture_ms=capture_ms, mvm_graph_ms=mvm_ms, u_passes_graph_ms=u_passes,
+                           launches_per_iteration=per_it, iteration_kernels=names, iteration_allocations=iter_allocs,
+                           iteration_bound_ms=it_bound["bound_ms"])
         print(f"    {tag}: " + "; ".join(f"{'graph' if r_['graph'] else 'eager'} {r_['ms']:.1f} ms / "
                                          f"{r_['iterations']} it = {r_['ms_per_iteration']:.4f}" for r_ in runs)
-              + f"; capture {capture_ms:.2f} ms; MVM {mvm_ms:.4f} ms, U^T r and U (w U^T r) "
-              f"{gemm_ms[0]:.4f} / {gemm_ms[1]:.4f} ms (graph); bound {it_bound['bound_ms']:.4f} ms "
-              f"an iteration; launches an iteration {per_it} + 2 GEMMs")
+              + f"; capture {capture_ms:.2f} ms; MVM {mvm_ms:.4f} ms; U^T r {u_passes['cg_utr']:.4f} ms (cuBLAS "
+              f"{u_passes['mm_utr']:.4f}, bound {u_passes['cg_utr_bound_ms']:.4f}), r / noise - U G2 "
+              f"{u_passes['cg_precond']:.4f} (cuBLAS's U G2 alone {u_passes['mm_ug']:.4f}, bound "
+              f"{u_passes['cg_precond_bound_ms']:.4f}), fold {u_passes['cg_fold']:.4f} (einsum "
+              f"{u_passes['einsum_fold']:.4f}) (graph); bound "
+              f"{it_bound['bound_ms']:.4f} ms an iteration; launches an iteration {per_it}, no GEMM; "
+              f"allocations in a launched iteration {iter_allocs}")
         del loop, mv, rhs, P
 
     print("cg 11.3: two NLML gradients bit for bit (the exact backward on the join plan's row lists)")
@@ -3326,7 +3463,7 @@ def cg_phase(dev, ds, expect, timer):
     print(f"    CG iterations {[e[0] for e in evals]}, posterior_cache {[round(e[2], 1) for e in evals]} ms")
 
     print("cg 11.5: launches on the main path (one elevators training step, one posterior_cache)")
-    k10 = (K10.cg_dot, K10.cg_step_x, K10.cg_scale, K10.cg_precond, K10.cg_step_p, K10.cg_init)
+    k10 = (K10.cg_dot, K10.cg_step_x, K10.cg_utr, K10.cg_fold, K10.cg_precond, K10.cg_step_p, K10.cg_init)
     model.load_raw(init)
     opt = torch.optim.Adam(model.parameters(), lr=0.1)
     train_step(model, opt, x, y, z)  # warm
@@ -3654,13 +3791,18 @@ def main(argv=None) -> int:
     rows = {}
 
     # ---- K1 ------------------------------------------------------------------
-    print("K1 lattice_geometry vs plain")
+    print("K1 lattice_geometry (a team of lanes a point) vs plain and vs the first kernel (a thread a point)")
     a = torch.from_numpy(L._hash_vectors(d)).to(dev)
     E = torch.from_numpy(L.build_rotation(d, dk.variance)).to(dev)
     errs = []
     for name, pts in (("train", ref), ("joint", joint)):
-        kh1, kh2, kw = K.lattice_geometry(pts, E, a)
-        ph1, ph2, pw = K.geometry_plain(pts, E, a)
+        kh1, kh2, kw, ks = K.lattice_geometry(pts, E, a, with_s=True)
+        ph1, ph2, pw, ps = K.geometry_plain(pts, E, a, with_s=True)
+        th = K._geometry_per_thread(pts, E, a, with_s=True)
+        same = [torch.equal(u.reshape(-1), v.reshape(-1)) for u, v in zip((kh1, kh2, kw, ks), (ph1, ph2, pw, ps))]
+        same_thread = [torch.equal(u.reshape(-1), v.reshape(-1)) for u, v in zip((kh1, kh2, kw, ks), th)]
+        expect(all(same) and all(same_thread), f"{name}: K1 h1, h2, w, s torch.equal to plain {same} and to the "
+               f"per-thread kernel {same_thread}")
         bad = ((kh1 != ph1) | (kh2 != ph2)).reshape(-1, d + 1).any(dim=1)
         werr = float((kw - pw).abs()[~bad].max())
         errs.append(werr)
@@ -3671,6 +3813,9 @@ def main(argv=None) -> int:
     rows["lattice_geometry"] = dict(
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: K.lattice_geometry(ref, E, a), 20),
+        graph_ms=graph_ms(lambda: K.lattice_geometry(ref, E, a), 10),
+        per_thread_ms=cuda_ms(lambda: K._geometry_per_thread(ref, E, a), 20),
+        per_thread_graph_ms=graph_ms(lambda: K._geometry_per_thread(ref, E, a), 10),
         plain_ms=cuda_ms(lambda: K.geometry_plain(ref, E, a), 5),
         **bound(4 * n * d + 12 * n * (d + 1), geometry_ops(n, d)),  # x in; h1, h2, weights out
         library_ms=None,
@@ -3879,6 +4024,8 @@ def main(argv=None) -> int:
         "houseelectric eval (ms)": large["eval_stages"]}
     chain_rows, chain_launches, chain = chain_phase(dev, ds, expect, cuda_ms, stage_times)
     rows.update(chain_rows)
+    rows["lattice_geometry"]["by_case_with_s"] = {nm: c_["k1"] for nm, c_ in chain.items()
+                                                   if isinstance(c_, dict) and "k1" in c_}
     launches.update(chain_launches)
     print(f"chain phase: {time.perf_counter() - t_chain:.1f} s")
     print("chain: " + json.dumps(chain))

@@ -6,19 +6,26 @@
 // p updates, the relative residual, the best iterate, the stall guard, the
 // stop modes "mean" and "column", the breakdown freeze (pap <= 0, rz < 0) and
 // the Lanczos tridiagonal record, written at a device-side iteration counter
-// (JAX's k = min(it, m - 1)).  The MVM is the caller's (K3', K12, a matmul);
-// a Woodbury preconditioner's two products with U (n, k) stay cuBLAS, as JAX
-// computes them outside the CG body (pivoted_cholesky.py:242).
+// (JAX's k = min(it, m - 1)).  The MVM is the caller's (K3', K12, a matmul).
+// A Woodbury preconditioner's solve (pivoted_cholesky.py::precond_solve,
+// :242-253) is three kernels here that read U (n, k) themselves: cg_utr (the
+// block partials of G = U^T r), cg_fold (G2 = w * G from the partials) and
+// cg_precond (z = r / noise - U G2 and the partials of r . z); no cuBLAS call
+// and no (n, t) buffer for U G2.
 //
 // Bound: memory traffic.  An iteration reads and writes about 17 (n, t)
 // passes (x, r, p, the best iterate, A p, z) and reads U twice, so at t = 1
-// the kernels are a few percent of it and the two reads of U the rest; at
-// houseelectric's n = 1.31M and k = 100 that is 1.05 GB of U an iteration.
-// The design keeps launches few (five an iteration besides the MVM and the
-// two GEMMs, each a single pass over its vectors) and keeps every decision on
-// the device, so one iteration can be captured in a CUDA graph and the host
-// reads one stop flag per replay.  (A graph of four iterations, gated on the
-// flag, measured within the run-to-run spread of one on an H100.)
+// the vector kernels are a few percent of it and the two reads of U the rest;
+// at houseelectric's n = 1.31M and k = 100 that is 1.05 GB of U an iteration.
+// The design keeps launches few (six an iteration besides the MVM, each a
+// single pass over its vectors) and keeps every decision on the device, so
+// one iteration can be captured in a CUDA graph and the host reads one stop
+// flag per replay.  (A graph of four iterations, gated on the flag, measured
+// within the run-to-run spread of one on an H100.)  The two passes over U
+// stream tiles of rows into shared memory with cp.async, double-buffered, so
+// a block's next tile is in flight while it computes on the last; at t = 11
+// their 2 k t multiplies and adds a row are under a row's byte time, and
+// every thread of a block holds a share of them (below).
 //
 // Determinism.  No float atomics.  A column dot is a fixed two-stage tree:
 //   stage 1 (the kernel that makes the products): the grid has nb blocks, a
@@ -30,12 +37,26 @@
 //     block b writes its partial sum to part[b, col];
 //   stage 2 (every block of the kernel that needs the dot): the nb partials
 //     of each column are folded in halves in shared memory (a tree over b).
+// The passes over U have their own layout (kernels/cg.py::u_layout, fixed by
+// n, k and t): nbu blocks, block b takes the rows [b rb, b rb + rb), in tiles
+// of tr rows.  cg_utr: thread (lane l, group q) holds jb rows of U^T by tca
+// columns of r and adds the products of the block's rows l, l + lanes, ... in
+// turn; the lanes fold in halves and block b writes part[b, j, c]; cg_fold
+// folds the nbu partials of each output in halves (then the ranks in order)
+// and multiplies by w[j].  cg_precond: thread (row rl, segment s) of a tile
+// sums U[i, j] G2[j, c] over its segment of j in order, the js segments of a
+// row fold in halves (an xor butterfly, so every lane of the row holds h);
+// lane s writes z[i, c] for its columns, and adds r z to its row lane's sum,
+// tile by tile; the tr row lanes fold in halves into part[b, c], which
+// cg_step_p folds over the nbu blocks.
 // Sharded rows (K10', the data-parallel CG): each of P ranks writes its own
 // (nb, t) partials, the caller all-gathers them into a (P, nb, t) buffer, and
 // stage 2 folds each rank's nb partials as above, then adds the P rank sums
 // in rank order 0 .. P-1.  Every rank reduces the same gathered bytes, so
 // every stop decision is the same bits on every rank; P = 1 is the
-// one-device arithmetic exactly.
+// one-device arithmetic exactly.  G likewise: each rank folds its own cg_utr
+// partials (cg_fold with w = 1), the ranks' G are all-gathered and cg_fold
+// adds them in rank order and multiplies by w.
 // Every block computes the same sums in the same order, and every multiply
 // and add is an explicit round-to-nearest operation, so kernels/cg.py's
 // plain twins, which add in the same order, give the same bits.  A lane
@@ -47,6 +68,8 @@
 // iteration's start (cg_step_x writes them; cg_step_p's vector updates read
 // them while its block 0 updates the live values); the scalars best_mean,
 // since, it and stop, the flag the host reads after each iteration.
+#include <algorithm>
+
 #include "common.cuh"
 
 #define CG_THREADS 256
@@ -209,49 +232,236 @@ __global__ void cg_step_x_kernel(const float* __restrict__ part_pap, int P, long
   if (threadIdx.x < t) part_rr[(long long)blockIdx.x * t + threadIdx.x] = sm[threadIdx.x];
 }
 
-// The Woodbury solve's middle: g (k, t) scaled by w (k,) row by row.
-__global__ void cg_scale_kernel(const float* __restrict__ g, const float* __restrict__ w, int k, int t,
-                                float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < k * t) out[e] = __fmul_rn(w[e / t], g[e]);
+// ---- the Woodbury solve's passes over U ------------------------------------
+
+__device__ __forceinline__ void cg_cp16(float* dst, const float* src) {
+  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-// z = r / noise - h (h = U (w . U^T r)); partials of r . z.
-__global__ void cg_precond_kernel(const float* __restrict__ r, const float* __restrict__ h,
-                                  const float* __restrict__ noise, float* __restrict__ z, int n, int t, int rp,
-                                  float* __restrict__ part) {
-  __shared__ float sm[CG_THREADS];
-  const int rr = threadIdx.x / t, col = threadIdx.x - rr * t;
-  float acc = 0.0f;
-  if (rr < rp) {
-    const float nz = *noise;
-    const long long stride = (long long)gridDim.x * rp;
-    long long i = (long long)blockIdx.x * rp + rr;
-    for (; i + (CG_AHEAD - 1) * stride < n; i += CG_AHEAD * stride) {
-      float rs[CG_AHEAD], hs[CG_AHEAD];
-#pragma unroll
-      for (int k = 0; k < CG_AHEAD; ++k) {
-        const long long e = (i + k * stride) * t + col;
-        rs[k] = r[e];
-        hs[k] = h[e];
-      }
-#pragma unroll
-      for (int k = 0; k < CG_AHEAD; ++k) {
-        const float ze = __fsub_rn(__fdiv_rn(rs[k], nz), hs[k]);
-        z[(i + k * stride) * t + col] = ze;
-        acc = __fadd_rn(acc, __fmul_rn(rs[k], ze));
-      }
-    }
-    for (; i < n; i += stride) {
-      const long long e = i * t + col;
-      const float re = r[e];
-      const float ze = __fsub_rn(__fdiv_rn(re, nz), h[e]);
-      z[e] = ze;
-      acc = __fadd_rn(acc, __fmul_rn(re, ze));
-    }
+__device__ __forceinline__ void cg_cp4(float* dst, const float* src) {
+  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// count floats from src to dst, both 16-byte aligned, by the block's threads: 16-byte copies, then 4-byte
+// copies of a tail of fewer than 4 floats.
+__device__ __forceinline__ void cg_copy_async(float* dst, const float* src, int count) {
+  const int v = count >> 2;
+  for (int e = threadIdx.x; e < v; e += blockDim.x) cg_cp16(dst + 4 * e, src + 4 * e);
+  for (int e = 4 * v + threadIdx.x; e < count; e += blockDim.x) cg_cp4(dst + e, src + e);
+}
+
+// One tile: rows [i0, i0 + rows) of U (n, k) to su and of r (n, t) to sr, as one commit group (an empty
+// group when rows <= 0, so that every tile of the pipeline is one group).
+__device__ __forceinline__ void cg_load_tile(float* su, float* sr, const float* U, const float* r, long long i0,
+                                             long long rows, int k, int t) {
+  if (rows > 0) {
+    cg_copy_async(su, U + i0 * k, (int)rows * k);
+    cg_copy_async(sr, r + i0 * t, (int)rows * t);
   }
-  cg_block_fold(acc, sm, rr, col, t, rp);
-  if (threadIdx.x < t) part[(long long)blockIdx.x * t + threadIdx.x] = sm[threadIdx.x];
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for the tile before the last one issued (one group may stay in flight), then for the block.
+__device__ __forceinline__ void cg_wait_tile() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Block partials of G = U^T r (k, t): block b takes rows [b rb, min(n, b rb + rb)) in tiles of tr rows,
+// double-buffered in dynamic shared memory (two buffers of tr (k + t) floats).  Thread (lane l, group q),
+// q = tid mod groups: rows j0 .. j0 + JB - 1 of U^T and columns c0 .. c0 + TCA - 1 of r; lane l < lanes adds
+// the products of the block's rows l, l + lanes, ... in order (tr is a multiple of lanes, so each tile's row
+// l is the lane's).  Then the lanes fold in halves, one thread an output, and block b writes
+// part[b, j, c].  JB = 4 reads a row's four U values with one 16-byte load (k a multiple of 4).
+template <int JB, int TCA>
+__global__ void __launch_bounds__(CG_THREADS)
+    cg_utr_kernel(const float* __restrict__ U, const float* __restrict__ r, int n, int k, int t, int rb, int tr,
+                  int lanes, float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile = tr * (k + t);
+  const long long row0 = (long long)blockIdx.x * rb;
+  const long long row1 = min((long long)n, row0 + rb);
+  const int tiles = row1 > row0 ? (int)((row1 - row0 + tr - 1) / tr) : 0;
+  const int nj = (k + JB - 1) / JB, groups = nj * ((t + TCA - 1) / TCA);
+  const int lane = threadIdx.x / groups, q = threadIdx.x - lane * groups;
+  const int j0 = (q % nj) * JB, c0 = (q / nj) * TCA;
+  float acc[JB][TCA];
+#pragma unroll
+  for (int a = 0; a < JB; ++a)
+#pragma unroll
+    for (int c = 0; c < TCA; ++c) acc[a][c] = 0.0f;
+  cg_load_tile(smem, smem + tr * k, U, r, row0, min((long long)tr, row1 - row0), k, t);
+  for (int m = 0; m < tiles; ++m) {
+    const long long i0 = row0 + (long long)m * tr;
+    if (m + 1 < tiles) {
+      float* nxt = smem + ((m + 1) & 1) * tile;
+      cg_load_tile(nxt, nxt + tr * k, U, r, i0 + tr, min((long long)tr, row1 - i0 - tr), k, t);
+    } else {
+      cg_load_tile(nullptr, nullptr, U, r, 0, 0, k, t);
+    }
+    cg_wait_tile();
+    if (lane < lanes) {
+      const float* su = smem + (m & 1) * tile;
+      const float* sr = su + tr * k;
+      const int rows = (int)min((long long)tr, row1 - i0);
+      for (int ii = lane; ii < rows; ii += lanes) {
+        float u[JB], v[TCA];
+        if (JB == 4) {
+          const float4 u4 = *reinterpret_cast<const float4*>(su + ii * k + j0);
+          u[0] = u4.x;
+          u[1 % JB] = u4.y;
+          u[2 % JB] = u4.z;
+          u[3 % JB] = u4.w;
+        } else {
+          u[0] = su[ii * k + j0];
+        }
+#pragma unroll
+        for (int c = 0; c < TCA; ++c) v[c] = c0 + c < t ? sr[ii * t + c0 + c] : 0.0f;
+#pragma unroll
+        for (int a = 0; a < JB; ++a)
+#pragma unroll
+          for (int c = 0; c < TCA; ++c) acc[a][c] = __fadd_rn(acc[a][c], __fmul_rn(u[a], v[c]));
+      }
+    }
+    __syncthreads();  // the next iteration's copy overwrites this buffer
+  }
+  // The lanes' sums: red (lanes, k t) over the tile buffers, folded in halves one output a thread.
+  const int kt = k * t;
+  float* red = smem;
+  if (lane < lanes)
+#pragma unroll
+    for (int a = 0; a < JB; ++a)
+#pragma unroll
+      for (int c = 0; c < TCA; ++c)
+        if (j0 + a < k && c0 + c < t) red[lane * kt + (j0 + a) * t + c0 + c] = acc[a][c];
+  __syncthreads();
+  for (int o = threadIdx.x; o < kt; o += blockDim.x) {
+    for (int h = lanes >> 1; h > 0; h >>= 1)
+      for (int l = 0; l < h; ++l) red[l * kt + o] = __fadd_rn(red[l * kt + o], red[(l + h) * kt + o]);
+    part[(long long)blockIdx.x * kt + o] = red[o];
+  }
+}
+
+// out (k, t) = w[j] * (the sum of part (P, nb, k t)): each rank's nb partials of an output folded in halves
+// in shared memory, the P rank sums added in rank order 0 .. P-1, then one product with w.  A block takes
+// `width` outputs (nb width <= CG_TREE), few enough that a thread loads about eight partials a rank and the
+// grid has a block for every eight outputs or so (the grouping does not change any output's order).
+__global__ void cg_fold_kernel(const float* __restrict__ part, int P, long long pstride, int nb, int kt, int t,
+                               int width, const float* __restrict__ w, float* __restrict__ out) {
+  __shared__ float sm[CG_TREE];
+  const int o0 = blockIdx.x * width, cnt = min(width, kt - o0);
+  float s = 0.0f;
+  for (int q = 0; q < P; ++q) {
+    const float* __restrict__ pq = part + q * pstride;
+#pragma unroll 8
+    for (int e = threadIdx.x; e < nb * cnt; e += blockDim.x) {
+      const int b = e / cnt, oo = e - b * cnt;
+      sm[b * width + oo] = pq[(long long)b * kt + o0 + oo];
+    }
+    __syncthreads();
+    for (int h = nb >> 1; h > 0; h >>= 1) {
+      for (int e = threadIdx.x; e < h * width; e += blockDim.x) sm[e] = __fadd_rn(sm[e], sm[e + h * width]);
+      __syncthreads();
+    }
+    if (threadIdx.x < cnt) s = q == 0 ? sm[threadIdx.x] : __fadd_rn(s, sm[threadIdx.x]);
+    __syncthreads();  // the next rank's load overwrites sm
+  }
+  if (threadIdx.x < cnt) {
+    const int o = o0 + threadIdx.x;
+    out[o] = __fmul_rn(w[o / t], s);
+  }
+}
+
+// z = r / noise - U G2 and the block partials of r . z, in cg_utr's blocks and tiles (dynamic shared memory:
+// two tile buffers of tr (k + t) floats, G2 as (k, tpad) with zeros past t, and the (tr, t) row lanes' sums
+// of r z).  Thread (row rl, segment s), tid = rl js + s, js tr = 256: the sum of U[i, j] G2[j, c] over j in
+// its segment [s ks, s ks + ks) in order, TC columns at a time; the js segments fold in halves by an xor
+// butterfly (every lane of the row ends with the same h); then lane s writes z[i, c] for the chunk's columns
+// c = c0 + s, c0 + s + js, ... and adds r z to sacc[rl, c].  After the last tile the tr row lanes fold in
+// halves into part[b, c].
+template <int TC>
+__global__ void __launch_bounds__(CG_THREADS)
+    cg_precond_kernel(const float* __restrict__ U, const float* __restrict__ G2, const float* __restrict__ r,
+                      const float* __restrict__ noise, float* __restrict__ z, int n, int k, int t, int rb, int tr,
+                      int js, float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile = tr * (k + t), tpad = (t + 3) & ~3;
+  float* sg = smem + 2 * tile;
+  float* sacc = sg + k * tpad;
+  const long long row0 = (long long)blockIdx.x * rb;
+  const long long row1 = min((long long)n, row0 + rb);
+  const int tiles = row1 > row0 ? (int)((row1 - row0 + tr - 1) / tr) : 0;
+  cg_load_tile(smem, smem + tr * k, U, r, row0, min((long long)tr, row1 - row0), k, t);
+  for (int e = threadIdx.x; e < k * tpad; e += blockDim.x) {
+    const int j = e / tpad, c = e - j * tpad;
+    sg[e] = c < t ? G2[j * t + c] : 0.0f;
+  }
+  for (int e = threadIdx.x; e < tr * t; e += blockDim.x) sacc[e] = 0.0f;
+  const int s = threadIdx.x % js, rl = threadIdx.x / js;
+  const int ks = (k + js - 1) / js, ja = min(k, s * ks), jz = min(k, ja + ks);
+  const float nz = *noise;
+  for (int m = 0; m < tiles; ++m) {
+    const long long i0 = row0 + (long long)m * tr;
+    if (m + 1 < tiles) {
+      float* nxt = smem + ((m + 1) & 1) * tile;
+      cg_load_tile(nxt, nxt + tr * k, U, r, i0 + tr, min((long long)tr, row1 - i0 - tr), k, t);
+    } else {
+      cg_load_tile(nullptr, nullptr, U, r, 0, 0, k, t);
+    }
+    cg_wait_tile();
+    // Every lane computes (a row past the tile's end on stale data, never written), so the butterfly's
+    // shuffles see whole warps.
+    const float* su = smem + (m & 1) * tile + rl * k;
+    const float* sr = smem + (m & 1) * tile + tr * k + rl * t;
+    const bool valid = i0 + rl < row1;
+    const long long i = i0 + rl;
+    for (int c0 = 0; c0 < t; c0 += TC) {
+      float acc[TC];
+#pragma unroll
+      for (int c = 0; c < TC; ++c) acc[c] = 0.0f;
+      for (int j = ja; j < jz; ++j) {
+        const float u = su[j];
+        const float* g = sg + j * tpad + c0;
+        float gv[TC];
+        if (TC == 1) {
+          gv[0] = g[0];
+        } else {
+#pragma unroll
+          for (int c = 0; c < TC; c += 4) {
+            const float4 g4 = *reinterpret_cast<const float4*>(g + c);
+            gv[c] = g4.x;
+            gv[(c + 1) % TC] = g4.y;
+            gv[(c + 2) % TC] = g4.z;
+            gv[(c + 3) % TC] = g4.w;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < TC; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(u, gv[c]));
+      }
+      for (int off = js >> 1; off > 0; off >>= 1)
+#pragma unroll
+        for (int c = 0; c < TC; ++c) acc[c] = __fadd_rn(acc[c], __shfl_xor_sync(0xffffffffu, acc[c], off, js));
+#pragma unroll
+      for (int c = 0; c < TC; ++c) {
+        const int col = c0 + c;
+        if (c % js == s && col < t && valid) {
+          const float rv = sr[col];
+          const float zv = __fsub_rn(__fdiv_rn(rv, nz), acc[c]);
+          z[i * t + col] = zv;
+          sacc[rl * t + col] = __fadd_rn(sacc[rl * t + col], __fmul_rn(rv, zv));
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's copy overwrites this buffer
+  }
+  __syncthreads();  // sacc's zeros, for a block without rows
+  for (int c = threadIdx.x; c < t; c += blockDim.x) {
+    for (int h = tr >> 1; h > 0; h >>= 1)
+      for (int l = 0; l < h; ++l) sacc[l * t + c] = __fadd_rn(sacc[l * t + c], sacc[(l + h) * t + c]);
+    part[(long long)blockIdx.x * t + c] = sacc[c];
+  }
 }
 
 struct CgRules {
@@ -259,11 +469,12 @@ struct CgRules {
   int floor, max_iters, stall_window, column_mode, m;
 };
 
-// rz_new and r . r from their partials (P ranks'); beta; p = z + beta p; the best
+// rz_new and r . r from their partials (P ranks'; r . z's from nb_rz blocks: cg_precond's nbu, or the
+// dots' nb); beta; p = z + beta p; the best
 // iterate; block 0: the best residual, the record, the stall guard, the stop
 // rules, rz, it and the stop flag.
 __global__ void cg_step_p_kernel(const float* __restrict__ part_rz, const float* __restrict__ part_rr, int P,
-                                 long long rz_stride, long long rr_stride,
+                                 long long rz_stride, long long rr_stride, int nb_rz,
                                  const float* __restrict__ x, const float* __restrict__ z, float* __restrict__ p,
                                  float* __restrict__ x_best, int n, int t, int rp, float* fs, int* is,
                                  float* __restrict__ rec_a, float* __restrict__ rec_b, int* __restrict__ rec_m,
@@ -273,7 +484,7 @@ __global__ void cg_step_p_kernel(const float* __restrict__ part_rz, const float*
   __shared__ float rzn_s[CG_THREADS], beta_s[CG_THREADS], res_s[CG_THREADS], rb_s[CG_THREADS];
   __shared__ int better_s[CG_THREADS], broken_s[CG_THREADS], done_s[CG_THREADS];
   __shared__ int stop_all_s, stalled_s;
-  cg_sum_partials(part_rz, P, rz_stride, gridDim.x, t, sm);
+  cg_sum_partials(part_rz, P, rz_stride, nb_rz, t, sm);
   if (threadIdx.x < t) rzn_s[threadIdx.x] = sm[threadIdx.x];
   __syncthreads();
   cg_sum_partials(part_rr, P, rr_stride, gridDim.x, t, sm);
@@ -373,9 +584,9 @@ __global__ void cg_step_p_kernel(const float* __restrict__ part_rz, const float*
   }
 }
 
-// The state at iteration 0 from the partials (P ranks') of b . b and r0 . z0.
+// The state at iteration 0 from the partials (P ranks') of b . b (nb blocks) and r0 . z0 (nb_rz blocks).
 __global__ void cg_init_kernel(const float* __restrict__ part_bb, const float* __restrict__ part_rz, int P,
-                               long long bb_stride, long long rz_stride, int nb, int t, float* fs, int* is,
+                               long long bb_stride, long long rz_stride, int nb, int nb_rz, int t, float* fs, int* is,
                                int max_iters) {
   const CgState st = cg_state(fs, is, t);
   __shared__ float sm[CG_TREE];
@@ -383,7 +594,7 @@ __global__ void cg_init_kernel(const float* __restrict__ part_bb, const float* _
   cg_sum_partials(part_bb, P, bb_stride, nb, t, sm);
   if (threadIdx.x < t) bb_s[threadIdx.x] = sm[threadIdx.x];
   __syncthreads();
-  cg_sum_partials(part_rz, P, rz_stride, nb, t, sm);
+  cg_sum_partials(part_rz, P, rz_stride, nb_rz, t, sm);
   if (threadIdx.x < t) {
     const int c = threadIdx.x;
     const float norm = __fsqrt_rn(bb_s[c]);
@@ -424,36 +635,112 @@ extern "C" int sgp_cg_step_x(const float* part_pap, int P, long long pap_stride,
   return (int)cudaGetLastError();
 }
 
-extern "C" int sgp_cg_scale(const float* g, const float* w, int k, int t, float* out, void* stream) {
-  if (k <= 0 || t <= 0) return (int)cudaErrorInvalidValue;
-  cg_scale_kernel<<<sgp_blocks((long long)k * t), SGP_THREADS, 0, (cudaStream_t)stream>>>(g, w, k, t, out);
+// Dynamic shared memory above the default 48 KB needs the kernel's opt-in (a host call, not a stream
+// operation, so a captured launch keeps it).  ``opted`` is the launcher's own record of the largest size set
+// on each device, so the attribute is set once a size, not at every launch.
+constexpr int CG_OPTIN_DEVICES = 64;
+
+template <typename Kernel>
+static inline int cg_smem_optin(Kernel kernel, size_t bytes, int* opted) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  const int rc = (int)cudaGetDevice(&dev);
+  if (rc != 0) return rc;
+  if (dev < CG_OPTIN_DEVICES && opted[dev] >= (int)bytes) return 0;
+  const int set = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (set == 0 && dev < CG_OPTIN_DEVICES) opted[dev] = (int)bytes;
+  return set;
+}
+
+static inline bool cg_u_ok(int n, int k, int t, int nb, int rb, int tr) {
+  return n > 0 && k > 0 && t > 0 && nb > 0 && (nb & (nb - 1)) == 0 && rb > 0 && rb % 4 == 0 && tr >= 8 &&
+         (tr & (tr - 1)) == 0 && (long long)nb * rb >= n;
+}
+
+template <int JB, int TCA>
+static int launch_utr(const float* U, const float* r, int n, int k, int t, int nb, int rb, int tr, int lanes,
+                      float* part, cudaStream_t st) {
+  const size_t smem = 4 * (size_t)std::max(2 * tr * (k + t), lanes * k * t);
+  static int opted[CG_OPTIN_DEVICES] = {};
+  const int rc = cg_smem_optin(cg_utr_kernel<JB, TCA>, smem, opted);
+  if (rc != 0) return rc;
+  cg_utr_kernel<JB, TCA><<<nb, CG_THREADS, smem, st>>>(U, r, n, k, t, rb, tr, lanes, part);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sgp_cg_precond(const float* r, const float* h, const float* noise, float* z, int n, int t, int rp,
-                              int nb, float* part, void* stream) {
-  if (!cg_shape_ok(n, t, rp, nb)) return (int)cudaErrorInvalidValue;
-  cg_precond_kernel<<<nb, CG_THREADS, 0, (cudaStream_t)stream>>>(r, h, noise, z, n, t, rp, part);
+// U (n, k), r (n, t), both 16-byte aligned; part (nb, k, t); the layout is kernels/cg.py::u_layout's.
+extern "C" int sgp_cg_utr(const float* U, const float* r, int n, int k, int t, int nb, int rb, int tr, int lanes,
+                          int jb, int tca, float* part, void* stream) {
+  const int groups = ((k + jb - 1) / jb) * ((t + tca - 1) / tca);
+  if (!cg_u_ok(n, k, t, nb, rb, tr) || lanes < 1 || lanes > tr || rb % lanes != 0 || lanes * groups > CG_THREADS ||
+      (jb == 4 && k % 4 != 0) || ((uintptr_t)U | (uintptr_t)r) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (jb == 4 && tca == 12) return launch_utr<4, 12>(U, r, n, k, t, nb, rb, tr, lanes, part, st);
+  if (jb == 4 && tca == 4) return launch_utr<4, 4>(U, r, n, k, t, nb, rb, tr, lanes, part, st);
+  if (jb == 4 && tca == 1) return launch_utr<4, 1>(U, r, n, k, t, nb, rb, tr, lanes, part, st);
+  if (jb == 1 && tca == 12) return launch_utr<1, 12>(U, r, n, k, t, nb, rb, tr, lanes, part, st);
+  if (jb == 1 && tca == 4) return launch_utr<1, 4>(U, r, n, k, t, nb, rb, tr, lanes, part, st);
+  if (jb == 1 && tca == 1) return launch_utr<1, 1>(U, r, n, k, t, nb, rb, tr, lanes, part, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// part: (P, nb, k, t), rank q's block at part + q pstride; w (k,); out (k, t).
+extern "C" int sgp_cg_fold(const float* part, int P, long long pstride, int nb, int k, int t, const float* w,
+                           float* out, void* stream) {
+  if (P < 1 || k <= 0 || t <= 0 || nb <= 0 || (nb & (nb - 1)) != 0 || nb > CG_TREE) return (int)cudaErrorInvalidValue;
+  const int kt = k * t, width = std::max(1, std::min(8 * CG_THREADS / nb, std::min(CG_THREADS, CG_TREE / nb)));
+  cg_fold_kernel<<<(kt + width - 1) / width, CG_THREADS, 0, (cudaStream_t)stream>>>(part, P, pstride, nb, kt, t,
+                                                                                    width, w, out);
   return (int)cudaGetLastError();
 }
 
-// part_rz, part_rr: (P, nb, t) with their rank strides; rec_a, rec_b, rec_m: the (m, t) record, or null
-// with m = 0.
+template <int TC>
+static int launch_precond(const float* U, const float* G2, const float* r, const float* noise, float* z, int n, int k,
+                          int t, int nb, int rb, int tr, int js, float* part, cudaStream_t st) {
+  const size_t smem = 4 * ((size_t)2 * tr * (k + t) + (size_t)k * ((t + 3) & ~3) + (size_t)tr * t);
+  static int opted[CG_OPTIN_DEVICES] = {};
+  const int rc = cg_smem_optin(cg_precond_kernel<TC>, smem, opted);
+  if (rc != 0) return rc;
+  cg_precond_kernel<TC><<<nb, CG_THREADS, smem, st>>>(U, G2, r, noise, z, n, k, t, rb, tr, js, part);
+  return (int)cudaGetLastError();
+}
+
+// U (n, k) and r (n, t) 16-byte aligned, G2 (k, t), noise a device scalar; z (n, t); part (nb, t).  js, tc:
+// the layout's segments a row (js tr = 256) and columns a thread holds at once.
+extern "C" int sgp_cg_precond(const float* U, const float* G2, const float* r, const float* noise, float* z, int n,
+                              int k, int t, int nb, int rb, int tr, int js, int tc, float* part, void* stream) {
+  if (!cg_u_ok(n, k, t, nb, rb, tr) || js * tr != CG_THREADS || js > 32 || nb * t > CG_TREE ||
+      ((uintptr_t)U | (uintptr_t)r) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tc == 12) return launch_precond<12>(U, G2, r, noise, z, n, k, t, nb, rb, tr, js, part, st);
+  if (tc == 4) return launch_precond<4>(U, G2, r, noise, z, n, k, t, nb, rb, tr, js, part, st);
+  if (tc == 1) return launch_precond<1>(U, G2, r, noise, z, n, k, t, nb, rb, tr, js, part, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int sgp_cg_step_p(const float* part_rz, const float* part_rr, int P, long long rz_stride,
-                             long long rr_stride, const float* x, const float* z, float* p, float* x_best, int n,
-                             int t, int rp, int nb, float* fs, int* is, float* rec_a, float* rec_b, int* rec_m, int m,
-                             float tol, int floor, int max_iters, int stall_window, int column_mode, void* stream) {
-  if (!cg_shape_ok(n, t, rp, nb) || m < 0 || P < 1) return (int)cudaErrorInvalidValue;
+                             long long rr_stride, int nb_rz, const float* x, const float* z, float* p,
+                             float* x_best, int n, int t, int rp, int nb, float* fs, int* is, float* rec_a,
+                             float* rec_b, int* rec_m, int m, float tol, int floor, int max_iters, int stall_window,
+                             int column_mode, void* stream) {
+  if (!cg_shape_ok(n, t, rp, nb) || !cg_shape_ok(n, t, rp, nb_rz) || m < 0 || P < 1)
+    return (int)cudaErrorInvalidValue;
   const CgRules rules{tol, floor, max_iters, stall_window, column_mode, m};
-  cg_step_p_kernel<<<nb, CG_THREADS, 0, (cudaStream_t)stream>>>(part_rz, part_rr, P, rz_stride, rr_stride, x, z, p,
-                                                               x_best, n, t, rp, fs, is, rec_a, rec_b, rec_m, rules);
+  cg_step_p_kernel<<<nb, CG_THREADS, 0, (cudaStream_t)stream>>>(part_rz, part_rr, P, rz_stride, rr_stride, nb_rz, x,
+                                                               z, p, x_best, n, t, rp, fs, is, rec_a, rec_b, rec_m,
+                                                               rules);
   return (int)cudaGetLastError();
 }
 
+// part_bb: (P, nb, t), part_rz: (P, nb_rz, t).
 extern "C" int sgp_cg_init(const float* part_bb, const float* part_rz, int P, long long bb_stride,
-                           long long rz_stride, int nb, int t, float* fs, int* is, int max_iters, void* stream) {
-  if (t <= 0 || t > CG_THREADS || nb <= 0 || nb * t > CG_TREE || P < 1) return (int)cudaErrorInvalidValue;
-  cg_init_kernel<<<1, CG_THREADS, 0, (cudaStream_t)stream>>>(part_bb, part_rz, P, bb_stride, rz_stride, nb, t, fs, is,
-                                                             max_iters);
+                           long long rz_stride, int nb, int nb_rz, int t, float* fs, int* is, int max_iters,
+                           void* stream) {
+  if (t <= 0 || t > CG_THREADS || nb <= 0 || nb * t > CG_TREE || nb_rz <= 0 || nb_rz * t > CG_TREE || P < 1)
+    return (int)cudaErrorInvalidValue;
+  cg_init_kernel<<<1, CG_THREADS, 0, (cudaStream_t)stream>>>(part_bb, part_rz, P, bb_stride, rz_stride, nb, nb_rz, t,
+                                                             fs, is, max_iters);
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,7 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --wide-deriv
     python simplex_gp_torch/kernel_times.py --sharded-f64
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --cg
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --eval-stop PARAMS.json [--rows N]
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --factor [--save DIR]
     python simplex_gp_torch/kernel_times.py --compare-factors DIR DIR
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --axes
@@ -12,6 +13,8 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --mixture-sketch
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --build-grad [--save DIR]
     python simplex_gp_torch/kernel_times.py --compare-build-grad DIR DIR
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --step-grad DIR [--ulp K] [--tol T]
+    python simplex_gp_torch/kernel_times.py --compare-step-grad DIR DIR
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
@@ -21,7 +24,10 @@ atomic splats land from the float64 operator (:func:`sharded_f64`); the
 fifth one CG iteration at the elevators and houseelectric training shapes
 and the houseelectric eval shape, K10 host-launched and replayed, or an
 older tree's eager loop
-(:func:`cg_iterations`); the sixth K6's rank-100 factor, the preconditioner
+(:func:`cg_iterations`), and with ``--eval-stop`` the houseelectric eval CG
+at raw parameters read from a JSON file (chip_smoke.py 6.5 prints them), on
+all training rows or the first N: its count, best residual and stop rule
+(:func:`eval_stop`); the sixth K6's rank-100 factor, the preconditioner
 stage and a warm training step at the elevators and houseelectric training
 shapes (:func:`factor_steps`), with ``--save`` writing each factor's L and
 pivots for the seventh form to compare two trees' bit for bit
@@ -34,7 +40,11 @@ K9 at two windows) and posterior_cache (:func:`mixture_sketch`); the
 eleventh K3'a's build and K5 at the elevators and houseelectric shapes and
 the houseelectric training step by stage (:func:`build_grad`), with
 ``--save`` writing each plan and gradient for the twelfth form to compare
-two trees' bit for bit (:func:`compare_build_grad`).
+two trees' bit for bit (:func:`compare_build_grad`); the thirteenth the
+houseelectric step's raw gradients on the data and on K copies with every
+entry of x moved by one ulp, at a CG tolerance T (:func:`step_grad`),
+which the fourteenth compares within and across two trees
+(:func:`compare_step_grad`).
 
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
@@ -349,7 +359,9 @@ def cg_iterations(repeats: int = 2) -> dict:
     the rank-100 preconditioner.  A tree whose cg_solve takes ``shift`` runs K10 host-launched (eager)
     and replayed from a CUDA graph; an older tree runs its eager torch-op loop.  Host clock around each
     solve, synchronised; ms per iteration = ms / iterations.  Then one more solve (the first mode) under
-    ``torch.profiler``: the device time of each kernel (or op) over the whole solve, the largest ten.
+    ``torch.profiler``: the device time of each kernel (or op) over the whole solve, the largest ten, and any
+    cuBLAS GEMM or GEMV among them; and the Woodbury solve's passes over U at the solve's width beside
+    cuBLAS's U^T r and U G2 (:func:`_u_passes`).
     """
     import inspect
 
@@ -417,9 +429,85 @@ def cg_iterations(repeats: int = 2) -> dict:
                 torch.cuda.synchronize()
             by_kernel = sorted(((e.key[:60], e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                                 if e.self_device_time_total > 0), key=lambda r: -r[1])
-        out[tag] = dict(solves=runs, profiled_device_ms=sum(r[1] for r in by_kernel), top_kernels_ms=by_kernel[:10])
+            blas = [r for r in by_kernel if any(w in r[0].lower() for w in ("gemm", "gemv", "cublas", "cutlass"))]
+            u_passes = _u_passes(P, rhs)
+        out[tag] = dict(solves=runs, profiled_device_ms=sum(r[1] for r in by_kernel), top_kernels_ms=by_kernel[:10],
+                        blas_kernels_ms=blas, u_passes_graph_ms=u_passes)
         del plan, P, rhs, model, x, y
     print(json.dumps(out), flush=True)
+    return out
+
+
+def eval_stop(path: str, repeats: int = 2, rows: int = 0) -> dict:
+    """The houseelectric eval CG (posterior_cache's solve: the chain plan of capacity 32,768, the rank-100
+    preconditioner, tolerance 0.01, at most 500 iterations, replayed from a CUDA graph) at the raw parameters
+    in ``path``, on the first ``rows`` training rows (0: all): its iterations, best residual and the rule that
+    stopped it, ``repeats`` times, and the ms an iteration (tests/eval_stop_jax.py runs the same solve through
+    JAX and the port on the CPU).  Any tree whose ``cg_solve`` takes ``shift`` and ``graph`` runs it."""
+    import simplex_gp_torch
+    from simplex_gp_torch.linalg import cg as CG
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.ops.filter import apply_plan_any, build_plan_any
+    from simplex_gp_torch.utils import data
+
+    raw = json.load(open(path))
+    dev = torch.device("cuda:0")
+    house = data.load_dataset("houseelectric")
+    cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                         num_probes=10, plan_capacity=32768)
+    model = simplex_gp_torch.SimplexGP(num_dims=11, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                       eval_cg_tolerance=0.01, device=dev)
+    model.load_raw({k: np.asarray(v, dtype=np.float32) for k, v in raw.items()})
+    cut = slice(0, rows or None)
+    x = torch.from_numpy(np.ascontiguousarray(house.train_x[cut])).to(dev)
+    y = torch.from_numpy(np.ascontiguousarray(house.train_y[cut])).to(dev)
+    out = {"card": _card(), "tree": simplex_gp_torch.__file__, "params": path, "rows": x.shape[0], "solves": []}
+    with torch.no_grad():
+        params = model.constrained()
+        ref = x * params["inv_ell"]
+        plan = build_plan_any(ref, model.dk, cfg.plan_capacity)
+        P = mll.build_precond(model.dk, cfg, params, ref, x.shape[0])
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = CG.cg_solve(lambda V: apply_plan_any(plan, V, model.dk), (y - params["mean"])[:, None],
+                              tol=model.eval_cg_tolerance, max_iters=500, precond=P,
+                              shift=(params["outputscale"], params["noise"]), graph=True)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            res = float(sol.residual_norm.mean())
+            rule = ("max_iters" if sol.iterations >= 500 else "tolerance" if res < model.eval_cg_tolerance
+                    else "stall guard")
+            out["solves"].append(dict(iterations=sol.iterations, best_residual=res, stop=rule, ms=ms,
+                                      ms_per_iteration=ms / max(1, sol.iterations)))
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _u_passes(P, r) -> dict:
+    """The Woodbury solve's two passes over U at r's width, CUDA-graph replays: K10's own (cg_utr, cg_fold,
+    cg_precond, where the tree has them; the fold beside its one einsum) and cuBLAS's U^T r and U G2 of the same
+    shapes, with the passes' byte bound (U and r read, the outputs written, over 3.35 TB/s)."""
+    from simplex_gp_torch.kernels import cg as K10
+
+    U = P.U.contiguous()
+    (n, k), t = U.shape, r.shape[1]
+    w = (P.s2 / (P.noise * (P.noise + P.s2)) / P.gamma).contiguous()
+    G, H = torch.empty((k, t), device=r.device), torch.empty_like(r)
+    torch.mm(U.T, r, out=G)
+    out = {"mm_utr": _graph_ms(lambda: torch.mm(U.T, r, out=G), 10),
+           "mm_ug": _graph_ms(lambda: torch.mm(U, G, out=H), 10),
+           "utr_bound_ms": 1e3 * 4 * (n * k + n * t) / 3.35e12,
+           "precond_bound_ms": 1e3 * 4 * (n * k + 2 * n * t) / 3.35e12}
+    if hasattr(K10, "cg_utr"):
+        lay = K10.u_layout(n, k, t)
+        noise = P.noise.reshape(()).contiguous()
+        part_g, G2 = torch.empty((lay.nb, k, t), device=r.device), torch.empty((k, t), device=r.device)
+        z, part = torch.empty_like(r), torch.empty((lay.nb, t), device=r.device)
+        out.update(cg_utr=_graph_ms(lambda: K10.cg_utr(U, r, part_g), 10),
+                   cg_fold=_graph_ms(lambda: K10.cg_fold(part_g, w, G2), 10),
+                   einsum_fold=_graph_ms(lambda: torch.einsum("j,bjc->jc", w, part_g), 10),
+                   cg_precond=_graph_ms(lambda: K10.cg_precond(U, G2, r, noise, z, part), 10))
     return out
 
 
@@ -445,6 +533,9 @@ def main() -> dict:
                                   capture_output=True, text=True).stdout.strip(),
            "tree": simplex_gp_torch.__file__, "n_lattice": int(nl),
            "k1": _ms(lambda: K.lattice_geometry(x, E, a), 50),
+           # The first K1, a thread a point, where the tree keeps it beside the team kernel.
+           "k1_per_thread": (_ms(lambda: K._geometry_per_thread(x, E, a), 50)
+                             if hasattr(K, "_geometry_per_thread") else None),
            "k2": _ms(lambda: K.lattice_dedup_neighbors(h1, h2, oh1, oh2), 50)}
     k, s = 100, torch.tensor(1.0, device=dev)
     diag, Lf = torch.ones(n, device=dev), torch.zeros((n, k), device=dev)
@@ -1013,6 +1104,68 @@ def compare_build_grad(a: str, b: str) -> dict:
     return out
 
 
+def step_grad(save: str, ulps: int = 3, tol: float = 1.0) -> dict:
+    """The houseelectric training step's raw gradients (median init, capacity 32,768, the probes and model of
+    :func:`_house_step`, CG tolerance ``tol``) on the data and on ``ulps`` copies with every entry of x moved
+    by one ulp, up in odd copies and down in even ones: how far float32 rounding alone moves them in this
+    tree (x reaches the operator, so every column of the solve).  Writes
+    ``<save>/step_grad.npz`` (copy i's gradient of each parameter under ``<i>_<name>``, copy 0 the data) and
+    prints one JSON line with each copy's relative difference from copy 0, by parameter."""
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.utils import data
+
+    dev = torch.device("cuda:0")
+    house = data.load_dataset("houseelectric")
+    n, d = house.train_x.shape
+    cfg = mll.BBMMConfig(cg_tolerance=tol, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                         num_probes=10, plan_capacity=32768)
+    model = simplex_gp_torch.SimplexGP(num_dims=d, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                       device=dev)
+    raw = init_raw_params(d, lengthscale=trainer.median_lengthscale(house.train_x))
+    z = torch.from_numpy(np.random.default_rng(1).choice([-1.0, 1.0], size=(n, 10)).astype(np.float32)).to(dev)
+    saved = {}
+    out = {"card": _card(), "tree": simplex_gp_torch.__file__, "tol": tol, "rel_to_copy0": [], "cg_iters": []}
+    y = torch.from_numpy(house.train_y).to(dev)
+    for i in range(1 + ulps):
+        xx = house.train_x if i == 0 else np.nextafter(house.train_x, np.float32(np.inf if i % 2 else -np.inf))
+        model.load_raw(raw)
+        model.zero_grad(set_to_none=True)
+        stats = {}
+        model.nlml(torch.from_numpy(np.ascontiguousarray(xx)).to(dev), y, probes=z, stats=stats).backward()
+        out["cg_iters"].append(stats.get("cg_iters"))
+        for name, p in model.named_parameters():
+            saved[f"{i}_{name}"] = p.grad.cpu().numpy()
+    names = [nm for nm, _ in model.named_parameters()]
+    for i in range(1, 1 + ulps):
+        out["rel_to_copy0"].append({nm: _rel(saved[f"{i}_{nm}"], saved[f"0_{nm}"]) for nm in names})
+    os.makedirs(save, exist_ok=True)
+    np.savez(os.path.join(save, "step_grad.npz"), **saved)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _rel(a: np.ndarray, b: np.ndarray) -> float:
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+
+def compare_step_grad(a: str, b: str) -> dict:
+    """Two ``--step-grad`` runs (two trees): each parameter's gradient on the data in ``a`` against ``b``'s,
+    beside the largest move that one ulp makes within each tree.  Prints one JSON line."""
+    A, B = np.load(os.path.join(a, "step_grad.npz")), np.load(os.path.join(b, "step_grad.npz"))
+    names = sorted({k.split("_", 1)[1] for k in A.files})
+    out = {}
+    for nm in names:
+        within = lambda F: max((_rel(F[k], F[f"0_{nm}"]) for k in F.files if k.endswith(f"_{nm}") and
+                                not k.startswith("0_")), default=None)
+        out[nm] = dict(across=_rel(A[f"0_{nm}"], B[f"0_{nm}"]), within_a=within(A), within_b=within(B))
+    print(json.dumps(out), flush=True)
+    return out
+
+
 if __name__ == "__main__":
     import sys
 
@@ -1020,6 +1173,9 @@ if __name__ == "__main__":
         count_splat()
     elif "--cg" in sys.argv[1:]:
         cg_iterations()
+    elif "--eval-stop" in sys.argv[1:]:
+        eval_stop(sys.argv[sys.argv.index("--eval-stop") + 1],
+                  rows=int(sys.argv[sys.argv.index("--rows") + 1]) if "--rows" in sys.argv else 0)
     elif "--factor" in sys.argv[1:]:
         factor_steps(save=sys.argv[sys.argv.index("--save") + 1] if "--save" in sys.argv else None)
     elif "--compare-factors" in sys.argv[1:]:
@@ -1038,5 +1194,11 @@ if __name__ == "__main__":
         build_grad(save=sys.argv[sys.argv.index("--save") + 1] if "--save" in sys.argv else None)
     elif "--compare-build-grad" in sys.argv[1:]:
         compare_build_grad(*sys.argv[sys.argv.index("--compare-build-grad") + 1:][:2])
+    elif "--step-grad" in sys.argv[1:]:
+        step_grad(sys.argv[sys.argv.index("--step-grad") + 1],
+                  ulps=int(sys.argv[sys.argv.index("--ulp") + 1]) if "--ulp" in sys.argv else 3,
+                  tol=float(sys.argv[sys.argv.index("--tol") + 1]) if "--tol" in sys.argv else 1.0)
+    elif "--compare-step-grad" in sys.argv[1:]:
+        compare_step_grad(*sys.argv[sys.argv.index("--compare-step-grad") + 1:][:2])
     else:
         main()

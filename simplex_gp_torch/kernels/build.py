@@ -32,7 +32,7 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream last).
 _SIGNATURES = {
-    "sgp_lattice_geometry": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "sgp_lattice_geometry": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "sgp_dedup_insert": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "sgp_dedup_finish": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "sgp_dedup_first": [_P, _I, _P, _P, _P],
@@ -74,10 +74,11 @@ _SIGNATURES = {
                         _P, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P],
     "sgp_cg_dot": [*[_P] * 5, _I, _I, _I, _I, _P, _P],
     "sgp_cg_step_x": [_P, _I, _LL, *[_P] * 4, _I, _I, _I, _I, *[_P] * 4],
-    "sgp_cg_scale": [_P, _P, _I, _I, _P, _P],
-    "sgp_cg_precond": [*[_P] * 4, _I, _I, _I, _I, _P, _P],
-    "sgp_cg_step_p": [_P, _P, _I, _LL, _LL, *[_P] * 4, _I, _I, _I, _I, *[_P] * 5, _I, _F, _I, _I, _I, _I, _P],
-    "sgp_cg_init": [_P, _P, _I, _LL, _LL, _I, _I, _P, _P, _I, _P],
+    "sgp_cg_utr": [_P, _P, *[_I] * 9, _P, _P],
+    "sgp_cg_fold": [_P, _I, _LL, _I, _I, _I, _P, _P, _P],
+    "sgp_cg_precond": [*[_P] * 5, *[_I] * 8, _P, _P],
+    "sgp_cg_step_p": [_P, _P, _I, _LL, _LL, _I, *[_P] * 4, _I, _I, _I, _I, *[_P] * 5, _I, _F, _I, _I, _I, _I, _P],
+    "sgp_cg_init": [_P, _P, _I, _LL, _LL, _I, _I, _I, _P, _P, _I, _P],
 }
 
 _lib = None

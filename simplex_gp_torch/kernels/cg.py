@@ -1,15 +1,16 @@
 """K10, the CG body: wrappers over ``csrc/cg.cu`` beside their plain versions.
 
 One iteration of batched preconditioned CG (simplex_gp_tpu/linalg/cg.py::
-cg_solve, the ``lax.while_loop`` body :133-205) is five kernels around the
-caller's MVM and, for a Woodbury preconditioner, its two cuBLAS products
-with U:
+cg_solve, the ``lax.while_loop`` body :133-205) is these kernels around the
+caller's MVM; the three in the middle are a Woodbury preconditioner's solve
+(pivoted_cholesky.py::precond_solve, :242-253), which read U themselves:
 
   cg_dot      partial column sums of p . Ap (with ``scale``: Ap = s K p + noise p, written out);
-              also the initial b . b and r . z, and r . z after a preconditioner given as a callable
+              also the initial b . b, and r . z after a preconditioner given as a callable
   cg_step_x   pap; alpha; x += alpha p, r -= alpha Ap; partial sums of r . r
-  cg_scale    the Woodbury solve's (k, t) middle, w * (U^T r)
-  cg_precond  z = r / noise - U (w * U^T r); partial sums of r . z
+  cg_utr      block partials of G = U^T r (k, t)
+  cg_fold     G2 = w * G from the partials (every rank's, added in rank order)
+  cg_precond  z = r / noise - U G2; partial sums of r . z
   cg_step_p   rz and r . r; beta; p = z + beta p; the best iterate; the stop rules and the record
   cg_init     the state at iteration 0
 
@@ -25,7 +26,12 @@ dot sums in a fixed order (``csrc/cg.cu``): the products of rows b rp + rr +
 k nb rp in k order per lane (rr, col) of block b, the block's lanes folded in
 halves, then the nb block partials folded in halves.  The plain versions add
 in that order with the same roundings, so kernel and plain version agree bit
-for bit.
+for bit.  The passes over U take their own layout (:func:`u_layout`): nbu
+blocks of rb consecutive rows, in tiles of tr rows; cg_utr's lane l of a
+block adds its rows l, l + lanes, ... in order, then the lanes and the
+blocks fold in halves; cg_precond sums each U[i] G2 over js segments of j
+in order, folds the segments in halves, and adds r . z row lane by row lane
+(the tile's row rl, tile by tile) before the tr lanes fold in halves.
 
 K10' (the data-parallel CG, ``linalg/cg.py`` with an ``axis``): the
 kernels that reduce a dot (``cg_step_x``, ``cg_step_p``, ``cg_init``) also
@@ -53,8 +59,12 @@ __all__ = [
     "cg_dot",
     "cg_step_x_plain",
     "cg_step_x",
-    "cg_scale_plain",
-    "cg_scale",
+    "ULayout",
+    "u_layout",
+    "cg_utr_plain",
+    "cg_utr",
+    "cg_fold_plain",
+    "cg_fold",
     "cg_precond_plain",
     "cg_precond",
     "cg_step_p_plain",
@@ -67,6 +77,10 @@ THREADS = 256  # a block's threads (csrc/cg.cu CG_THREADS)
 MAX_BLOCKS = 512  # most blocks of an iteration's grid
 TREE = 8192  # most floats of the stage-2 tree in shared memory (CG_TREE)
 LANE_ROWS = 16  # rows a lane adds in turn before the tree, where n allows
+
+
+U_ROWS = 128  # rows a block of the passes over U takes, where n allows
+U_MAX_BLOCKS = 256  # most blocks of a pass over U
 
 
 def cg_layout(n: int, t: int) -> tuple:
@@ -87,6 +101,50 @@ def cg_layout(n: int, t: int) -> tuple:
     while nb < cap and nb * rp * LANE_ROWS < n:
         nb *= 2
     return rp, nb
+
+
+class ULayout(NamedTuple):
+    """The passes over U (csrc/cg.cu cg_utr, cg_precond): blocks, rows and the threads' shares."""
+
+    nb: int  # blocks (a power of two); block b takes the rows [b rb, b rb + rb)
+    rb: int  # rows a block, a multiple of 4 and of ``lanes``
+    tr: int  # rows a tile of shared memory (a power of two, 8 .. 64); cg_precond's row rl is r . z's lane rl
+    lanes: int  # cg_utr: lanes an output; lane l adds the block's rows l, l + lanes, ... in order
+    jb: int  # cg_utr: rows of U^T a thread holds (4 when k is a multiple of 4, read 16 bytes at once)
+    tca: int  # cg_utr: columns of r a thread holds (1, 4 or 12)
+    js: int  # cg_precond: segments of j a row's U G2 is summed in (js tr = 256), ceil(k / js) j each
+    tcb: int  # cg_precond: columns of U G2 a thread holds at a time (1, 4 or 12)
+
+
+def _pow2_floor(v: int) -> int:
+    return 1 << (max(1, v).bit_length() - 1)
+
+
+def u_layout(n: int, k: int, t: int) -> ULayout:
+    """The layout of K10's passes over U (n, k) and r (n, t); it depends on (n, k, t) only.
+
+    nb is the least power of two with nb U_ROWS >= n, at most U_MAX_BLOCKS and TREE / t (r . z's
+    partials fold in cg_step_p's shared memory); a tile of tr rows of U and r is at most 8,192 floats.
+    cg_utr's 256 threads hold (lanes) x (groups of jb x tca outputs), with lanes the largest power of
+    two that fits and at most tr.
+    """
+    if not (1 <= t <= THREADS and k >= 1):
+        raise ValueError(f"K10's passes over U take 1 to {THREADS} columns and k >= 1, got t={t}, k={k}")
+    tr = min(64, _pow2_floor(8192 // (k + t)))
+    jb = 4 if k % 4 == 0 else 1
+    tca = tcb = 1 if t == 1 else 4 if t <= 4 else 12
+    groups = -(-k // jb) * -(-t // tca)
+    if tr < 8 or groups > THREADS:
+        raise ValueError(f"K10's passes over U take k + t <= 1024 and at most {THREADS} output groups; "
+                         f"got k={k}, t={t}")
+    lanes = min(tr, _pow2_floor(THREADS // groups))
+    cap = min(U_MAX_BLOCKS, _pow2_floor(TREE // t))
+    nb = 1
+    while nb < cap and nb * U_ROWS < n:
+        nb *= 2
+    q = max(4, lanes)
+    rb = -(-(-(-n // nb)) // q) * q
+    return ULayout(nb, rb, tr, lanes, jb, tca, THREADS // tr, tcb)
 
 
 class CGRules(NamedTuple):
@@ -189,11 +247,12 @@ def _ranks(part: torch.Tensor, nb: int, t: int, what: str) -> tuple:
 
 
 def _column_mean(v: torch.Tensor) -> torch.Tensor:
-    """Mean of a (t,) vector, summed in column order."""
+    """Mean of a (t,) vector, summed in column order, divided by t as the kernel does (a CUDA tensor divided
+    by a Python number is multiplied by its reciprocal, which can differ in the last bit)."""
     s = v[0]
     for c in range(1, v.shape[0]):
         s = s + v[c]
-    return s / v.shape[0]
+    return s / v.new_tensor(float(v.shape[0]))
 
 
 def _rows_cols(x: torch.Tensor) -> tuple:
@@ -288,49 +347,142 @@ def cg_step_x(part_pap, x, r, p, ap, fs, is_, part_rr):
 cg_step_x.launches = 0
 
 
-# ---- cg_scale -------------------------------------------------------------------
+# ---- the passes over U: cg_utr, cg_fold, cg_precond ----------------------------------
 
-def cg_scale_plain(g, w, out):
-    """Plain cg_scale: out = w[:, None] * g."""
-    out.copy_(w[:, None] * g)
-
-
-def cg_scale(g, w, out):
-    """K10's Woodbury middle: out (k, t) = w[:, None] * g."""
-    if not g.is_cuda:
-        return cg_scale_plain(g, w, out)
-    build.require("cg_scale", (g, torch.float32), (w, torch.float32), (out, torch.float32))
-    k, t = g.shape
-    if w.shape != (k,) or out.shape != g.shape:
-        raise ValueError(f"cg_scale: g {tuple(g.shape)}, w {tuple(w.shape)}, out {tuple(out.shape)} do not fit")
-    rc = build.library().sgp_cg_scale(g.data_ptr(), w.data_ptr(), k, t, out.data_ptr(), build.stream())
-    build.check(rc, "cg_scale")
-    cg_scale.launches += 1
+def _blocks_of_rows(x: torch.Tensor, lay: ULayout) -> torch.Tensor:
+    """(n, w) -> (nb, rb, w): block b's rows [b rb, b rb + rb), zeros past n."""
+    n, wd = x.shape
+    pad = lay.nb * lay.rb - n
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, wd))])
+    return x.reshape(lay.nb, lay.rb, wd)
 
 
-cg_scale.launches = 0
+def _fold_lanes(acc: torch.Tensor) -> torch.Tensor:
+    """(nb, L, ...) -> (nb, ...): the L lanes folded in halves."""
+    h = acc.shape[1] // 2
+    while h:
+        acc = acc[:, :h] + acc[:, h:2 * h]
+        h //= 2
+    return acc[:, 0]
 
 
-# ---- cg_precond -----------------------------------------------------------------
+def cg_utr_plain(U, r, part):
+    """Plain cg_utr: part (nb, k, t), block b's sum of U[i, :, None] r[i, None, :] over its rows, in the kernel's
+    order: lane l adds rows l, l + lanes, ... in turn, then the lanes fold in halves.  (nb, lanes, k, t) adds a
+    row of the lanes, never an (n, k, t) product."""
+    (n, k), t = U.shape, r.shape[1]
+    lay = u_layout(n, k, t)
+    steps = lay.rb // lay.lanes
+    Ub = _blocks_of_rows(U, lay).reshape(lay.nb, steps, lay.lanes, k)
+    rb = _blocks_of_rows(r, lay).reshape(lay.nb, steps, lay.lanes, t)
+    acc = U.new_zeros((lay.nb, lay.lanes, k, t))
+    for m in range(steps):
+        acc = acc + Ub[:, m, :, :, None] * rb[:, m, :, None, :]
+    part.copy_(_fold_lanes(acc))
 
-def cg_precond_plain(r, h, noise, z, part):
-    """Plain cg_precond: z = r / noise - h and the block partials of r . z."""
-    z.copy_(r / noise - h)
-    _, _, rp, nb = _rows_cols(r)
-    part.copy_(_fold_rows(r * z, nb, rp))
+
+def _aligned(*tensors) -> bool:
+    return all(a.data_ptr() % 16 == 0 for a in tensors)
 
 
-def cg_precond(r, h, noise, z, part):
-    """K10 (c): the Woodbury solve's last step z = r / noise - h (h = U (w * U^T r)) and the partials of r . z."""
-    if not r.is_cuda:
-        return cg_precond_plain(r, h, noise, z, part)
-    n, t, rp, nb = _rows_cols(r)
-    build.require("cg_precond", (r, torch.float32), (h, torch.float32), (noise, torch.float32), (z, torch.float32),
-                  (part, torch.float32))
-    if h.shape != r.shape or z.shape != r.shape or part.shape != (nb, t):
-        raise ValueError("cg_precond: r, h, z and the partials do not fit one (n, t) solve")
-    rc = build.library().sgp_cg_precond(r.data_ptr(), h.data_ptr(), noise.data_ptr(), z.data_ptr(), n, t, rp, nb,
-                                        part.data_ptr(), build.stream())
+def cg_utr(U, r, part):
+    """K10's first pass over U: the (nb, k, t) block partials of G = U^T r (:func:`u_layout`'s blocks)."""
+    if not U.is_cuda:
+        return cg_utr_plain(U, r, part)
+    build.require("cg_utr", (U, torch.float32), (r, torch.float32), (part, torch.float32))
+    (n, k), t = U.shape, r.shape[1]
+    lay = u_layout(n, k, t)
+    if r.shape[0] != n or part.shape != (lay.nb, k, t) or not _aligned(U, r):
+        raise ValueError(f"cg_utr: U {tuple(U.shape)}, r {tuple(r.shape)}, part {tuple(part.shape)} do not fit "
+                         f"(or U, r are not 16-byte aligned)")
+    rc = build.library().sgp_cg_utr(U.data_ptr(), r.data_ptr(), n, k, t, lay.nb, lay.rb, lay.tr, lay.lanes, lay.jb,
+                                    lay.tca, part.data_ptr(), build.stream())
+    build.check(rc, "cg_utr")
+    cg_utr.launches += 1
+
+
+cg_utr.launches = 0
+
+
+def cg_fold_plain(part, w, out):
+    """Plain cg_fold: out (k, t) = w[:, None] * the sum of part's block partials, each rank's folded in
+    halves, the ranks added in rank order."""
+    k, t = out.shape
+    flat = part.reshape(*part.shape[:-2], k * t)
+    out.copy_(w[:, None] * _fold_ranks(flat).reshape(k, t))
+
+
+def cg_fold(part, w, out):
+    """K10's fold of G: out (k, t) = w[:, None] * G, G the sum of part's block partials.
+
+    ``part`` is cg_utr's (nb, k, t), or (P, nb, k, t) with every rank's (its ranks' blocks each contiguous):
+    each rank's nb partials fold in halves, then the ranks add in rank order 0 .. P-1.
+    """
+    if not out.is_cuda:
+        return cg_fold_plain(part, w, out)
+    build.require("cg_fold", (w, torch.float32), (out, torch.float32))
+    k, t = out.shape
+    p4 = part[None] if part.dim() == 3 else part
+    if (not p4.is_cuda or p4.dtype != torch.float32 or p4.dim() != 4 or p4.shape[2:] != (k, t) or w.shape != (k,)
+            or not p4[0].is_contiguous()):
+        raise ValueError(f"cg_fold: partials {tuple(part.shape)}, w {tuple(w.shape)}, out {tuple(out.shape)} "
+                         "do not fit")
+    P, nb = p4.shape[:2]
+    rc = build.library().sgp_cg_fold(p4.data_ptr(), P, p4.stride(0), nb, k, t, w.data_ptr(), out.data_ptr(),
+                                     build.stream())
+    build.check(rc, "cg_fold")
+    cg_fold.launches += 1
+
+
+cg_fold.launches = 0
+
+
+def cg_precond_plain(U, G2, r, noise, z, part):
+    """Plain cg_precond: z = r / noise - h, h[i, c] the sum of U[i, j] G2[j, c] over j (each of js segments of
+    ks in order, the segments folded in halves), and the (nb, t) block partials of r . z (a tile's row rl adds
+    its rows tile by tile, then the tr row lanes fold in halves)."""
+    (n, k), t = U.shape, r.shape[1]
+    lay = u_layout(n, k, t)
+    ks = -(-k // lay.js)
+    segs = []
+    for s in range(lay.js):
+        h = r.new_zeros((n, t))
+        for j in range(min(k, s * ks), min(k, s * ks + ks)):
+            h = h + U[:, j:j + 1] * G2[j:j + 1]
+        segs.append(h)
+    hs = torch.stack(segs)
+    half = lay.js // 2
+    while half:
+        hs = hs[:half] + hs[half:2 * half]
+        half //= 2
+    z.copy_(r / noise - hs[0])
+    prod = _blocks_of_rows(r * z, lay)
+    R = -(-lay.rb // lay.tr) * lay.tr
+    if R != lay.rb:
+        prod = torch.cat([prod, prod.new_zeros((lay.nb, R - lay.rb, t))], dim=1)
+    x = prod.reshape(lay.nb, R // lay.tr, lay.tr, t)
+    acc = x[:, 0] + 0.0  # a row lane starts from +0
+    for m in range(1, R // lay.tr):
+        acc = acc + x[:, m]
+    part.copy_(_fold_lanes(acc))
+
+
+def cg_precond(U, G2, r, noise, z, part):
+    """K10's second pass over U, the Woodbury solve's end: z = r / noise - U G2 (n, t) and the (nb, t) block
+    partials of r . z in :func:`u_layout`'s blocks (nb of them, which cg_step_p and cg_init fold)."""
+    if not U.is_cuda:
+        return cg_precond_plain(U, G2, r, noise, z, part)
+    build.require("cg_precond", (U, torch.float32), (G2, torch.float32), (r, torch.float32), (noise, torch.float32),
+                  (z, torch.float32), (part, torch.float32))
+    (n, k), t = U.shape, r.shape[1]
+    lay = u_layout(n, k, t)
+    if r.shape[0] != n or z.shape != r.shape or G2.shape != (k, t) or part.shape != (lay.nb, t) or not _aligned(U, r):
+        raise ValueError("cg_precond: U, G2, r, z and the partials do not fit one (n, t) solve (or U, r are not "
+                         "16-byte aligned)")
+    rc = build.library().sgp_cg_precond(U.data_ptr(), G2.data_ptr(), r.data_ptr(), noise.data_ptr(), z.data_ptr(), n,
+                                        k, t, lay.nb, lay.rb, lay.tr, lay.js, lay.tcb, part.data_ptr(),
+                                        build.stream())
     build.check(rc, "cg_precond")
     cg_precond.launches += 1
 
@@ -386,7 +538,8 @@ def cg_step_p(part_rz, part_rr, x, z, p, x_best, fs, is_, A, B, TM, rules: CGRul
     the device's iteration counter, the stall guard, the stop rules, rz, it and the stop flag.
 
     A, B (f32) and TM (int32) are the (m, t) record, None when ``rules.m`` is 0.  The partials are
-    (nb, t), or (P, nb, t) views of every rank's with the same P (K10').
+    (nb, t), or (P, nb, t) views of every rank's with the same P (K10'); r . z's may have another power of two
+    of blocks (cg_precond's).
     """
     if not x.is_cuda:
         return cg_step_p_plain(part_rz, part_rr, x, z, p, x_best, fs, is_, A, B, TM, rules)
@@ -395,7 +548,8 @@ def cg_step_p(part_rz, part_rr, x, z, p, x_best, fs, is_, A, B, TM, rules: CGRul
     _require_state("cg_step_p", fs, is_, t)
     if not (z.shape == p.shape == x_best.shape == x.shape):
         raise ValueError("cg_step_p: the vectors do not fit one (n, t) solve")
-    (P, rz_stride), (P_rr, rr_stride) = _ranks(part_rz, nb, t, "cg_step_p"), _ranks(part_rr, nb, t, "cg_step_p")
+    nb_rz = part_rz.shape[-2]
+    (P, rz_stride), (P_rr, rr_stride) = _ranks(part_rz, nb_rz, t, "cg_step_p"), _ranks(part_rr, nb, t, "cg_step_p")
     if P_rr != P:
         raise ValueError(f"cg_step_p: partials of {P} and {P_rr} ranks")
     if rules.m > 0:
@@ -404,8 +558,8 @@ def cg_step_p(part_rz, part_rr, x, z, p, x_best, fs, is_, A, B, TM, rules: CGRul
             raise ValueError(f"cg_step_p: a record of {rules.m} steps needs (m, t) arrays")
     ptr = lambda a: a.data_ptr() if rules.m > 0 else None
     rc = build.library().sgp_cg_step_p(
-        part_rz.data_ptr(), part_rr.data_ptr(), P, rz_stride, rr_stride, x.data_ptr(), z.data_ptr(), p.data_ptr(),
-        x_best.data_ptr(), n, t, rp, nb, fs.data_ptr(), is_.data_ptr(), ptr(A), ptr(B), ptr(TM), rules.m,
+        part_rz.data_ptr(), part_rr.data_ptr(), P, rz_stride, rr_stride, nb_rz, x.data_ptr(), z.data_ptr(),
+        p.data_ptr(), x_best.data_ptr(), n, t, rp, nb, fs.data_ptr(), is_.data_ptr(), ptr(A), ptr(B), ptr(TM), rules.m,
         float(rules.tol), rules.floor, rules.max_iters, rules.stall_window, int(rules.column_mode), build.stream())
     build.check(rc, "cg_step_p")
     cg_step_p.launches += 1
@@ -435,16 +589,20 @@ def cg_init_plain(part_bb, part_rz, fs, is_, max_iters: int):
 def cg_init(part_bb, part_rz, fs, is_, max_iters: int):
     """K10's initial state from the block partials of b . b and r0 . z0 (cg.py:110-116, :207-236).
 
-    The partials are (nb, t), or (P, nb, t) views of every rank's (K10').
+    The partials are (nb, t), or (P, nb, t) views of every rank's (K10'); r0 . z0's may have another power of
+    two of blocks (cg_precond's).
     """
     if not fs.is_cuda:
         return cg_init_plain(part_bb, part_rz, fs, is_, max_iters)
     nb, t = part_bb.shape[-2:]
+    nb_rz = part_rz.shape[-2]
     _require_state("cg_init", fs, is_, t)
-    if part_rz.shape != part_bb.shape:
-        raise ValueError("cg_init: the two partials differ in shape")
-    (P, bb_stride), (_, rz_stride) = _ranks(part_bb, nb, t, "cg_init"), _ranks(part_rz, nb, t, "cg_init")
-    rc = build.library().sgp_cg_init(part_bb.data_ptr(), part_rz.data_ptr(), P, bb_stride, rz_stride, nb, t,
+    if part_rz.dim() != part_bb.dim() or part_rz.shape[-1] != t:
+        raise ValueError("cg_init: the two partials do not fit one solve")
+    (P, bb_stride), (P_rz, rz_stride) = _ranks(part_bb, nb, t, "cg_init"), _ranks(part_rz, nb_rz, t, "cg_init")
+    if P_rz != P:
+        raise ValueError(f"cg_init: partials of {P} and {P_rz} ranks")
+    rc = build.library().sgp_cg_init(part_bb.data_ptr(), part_rz.data_ptr(), P, bb_stride, rz_stride, nb, nb_rz, t,
                                      fs.data_ptr(), is_.data_ptr(), int(max_iters), build.stream())
     build.check(rc, "cg_init")
     cg_init.launches += 1

@@ -151,9 +151,24 @@ def geometry_plain(x: torch.Tensor, E: torch.Tensor, a: torch.Tensor, with_s: bo
 
 
 def lattice_geometry(x: torch.Tensor, E: torch.Tensor, a: torch.Tensor, with_s: bool = False):
-    """K1: per-point hash pairs of the d+1 simplex vertices, and barycentric weights (and s: ``with_s``)."""
+    """K1: per-point hash pairs of the d+1 simplex vertices, and barycentric weights (and s: ``with_s``).
+
+    On the card a team of lanes a point (``csrc/geometry.cu``).
+    """
     if not x.is_cuda:
         return geometry_plain(x, E, a, with_s)
+    out = _geometry_launch(x, E, a, with_s, per_thread=False)
+    lattice_geometry.launches += 1
+    return out
+
+
+def _geometry_per_thread(x: torch.Tensor, E: torch.Tensor, a: torch.Tensor, with_s: bool = False):
+    """K1's first kernel, a thread a point, the same bits as :func:`lattice_geometry`: the team kernel's
+    yardstick on the card (chip_smoke.py, kernel_times.py, the card tests), on no model path."""
+    return _geometry_launch(x, E, a, with_s, per_thread=True)
+
+
+def _geometry_launch(x, E, a, with_s: bool, per_thread: bool):
     n, d = x.shape
     if d + 1 > 64:
         raise ValueError(f"lattice_geometry: d={d} exceeds the kernel's limit of 63")
@@ -164,10 +179,9 @@ def lattice_geometry(x: torch.Tensor, E: torch.Tensor, a: torch.Tensor, with_s: 
     s = torch.empty_like(h1) if with_s else None
     w = torch.empty((n, d + 1), dtype=torch.float32, device=x.device)
     rc = lib.sgp_lattice_geometry(x.data_ptr(), E.data_ptr(), a.data_ptr(), n, d, h1.data_ptr(),
-                                  h2.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
+                                  h2.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(), int(per_thread),
                                   build.stream())
     build.check(rc, "lattice_geometry")
-    lattice_geometry.launches += 1
     return (h1, h2, w, s) if with_s else (h1, h2, w)
 
 

@@ -9,10 +9,12 @@ every column (the Lanczos tridiagonal the SLQ log-det of the training path
 reads), with JAX's liveness mask.
 
 On one device the loop body is K10 (``kernels/cg.py``, ``csrc/cg.cu``):
-five kernels around the caller's MVM and the Woodbury preconditioner's two
-products with U, with the state (the stop flag, the iteration counter, the
-stall guard, the record) on the device.  The loop reads one flag back per
-iteration, as JAX's ``while_loop`` tests its condition.  On the CPU the same
+four kernels around the caller's MVM, and for a Woodbury preconditioner
+three more that read U themselves (U^T r's block partials, their fold with
+w, then z = r / noise - U G2 with r . z), with the state (the stop flag,
+the iteration counter, the stall guard, the record) on the device.  The
+loop reads one flag back per iteration, as JAX's ``while_loop`` tests its
+condition.  On the CPU the same
 loop runs the kernels' plain twins, which sum in the kernels' order, so a
 solve repeats bit for bit on either device.  With ``graph`` (a card only)
 the first iteration runs as launched, the second is captured in a CUDA
@@ -28,9 +30,9 @@ ranks in rank order.  So every rank reduces the same bytes, every stop
 decision is the same bits on every rank whatever the backend's own
 reduction order, and all ranks run the same iterations; a rank that stopped
 alone would leave the others waiting in a collective.  An iteration makes
-three collectives (pap; the Woodbury product U^T r; r . r and r . z
-together), the init three (the layout check; U^T b; b . b and r0 . z0),
-besides the MVM's own.  A one-rank axis is the single-device solve bit for
+three collectives (pap; the Woodbury product U^T r, each rank's folded;
+r . r and r . z together), the init three (the layout check; U^T b;
+b . b and r0 . z0), besides the MVM's own.  A one-rank axis is the single-device solve bit for
 bit.
 """
 
@@ -86,7 +88,8 @@ def cg_solve(
     beta_{k-1}/alpha_{k-1}, T[k,k+1] = sqrt(beta_k)/alpha_k.
 
     ``precond`` is None, a callable V -> P^{-1} V, or a :class:`Preconditioner`,
-    whose Woodbury solve K10 runs itself around two products with U.
+    whose Woodbury solve K10 runs itself in two passes over U (cg_utr, then
+    cg_precond) with the fold of U^T r between them.
     ``shift`` = (scale, noise), two 0-d tensors, makes the operator
     ``scale * matmul(V) + noise * V`` with the shift inside K10's first
     kernel.  ``graph`` replays the iterations from a CUDA graph (ignored on
@@ -115,8 +118,10 @@ class CGLoop:
     hold each K10 kernel against its plain twin from a saved state.  The
     buffers are updated in place (x, r, p, z, the best iterate, the block
     partials), so an iteration captured in a CUDA graph replays on them.
-    ``part_rr`` and ``part_rz`` are the two halves of one (2, nb, t) buffer,
-    which the sharded loop (``axis``) gathers in one collective.
+    ``part_rr`` and ``part_rz`` are views of the two halves of one (2, NB, t)
+    buffer, which the sharded loop (``axis``) gathers in one collective:
+    r . r's nb block partials (``kernels/cg.py::cg_layout``) and r . z's,
+    cg_precond's nbu (``u_layout``) with a Woodbury preconditioner, else nb.
     """
 
     def __init__(self, matmul, b, tol=1.0, max_iters=500, precond=None, min_iters=10, stop_mode="mean",
@@ -132,8 +137,10 @@ class CGLoop:
             if any(lay != [n, nb] for lay in layouts):
                 raise ValueError(f"cg_solve: the ranks' (rows, blocks) {layouts} differ; shard the rows equally")
         self.fs, self.is_ = K10.cg_state(t, dev)
-        self.part_pap, self.part2 = torch.empty((nb, t), **f32), torch.empty((2, nb, t), **f32)
-        self.part_rr, self.part_rz = self.part2
+        woodbury = isinstance(precond, Preconditioner)
+        self.nb, self.nb_rz = nb, K10.u_layout(n, precond.U.shape[1], t).nb if woodbury else nb
+        self.part_pap, self.part2 = torch.empty((nb, t), **f32), torch.empty((2, max(nb, self.nb_rz), t), **f32)
+        self.part_rr, self.part_rz = self.part2[0, :nb], self.part2[1, :self.nb_rz]
         self.x, self.x_best, self.r = torch.zeros_like(b), torch.zeros_like(b), b.clone()
         m = tridiag_m
         self.A = torch.ones((m, t), **f32) if m else None
@@ -145,46 +152,49 @@ class CGLoop:
             self.scale, self.noise = (torch.as_tensor(v, dtype=torch.float32, device=dev).detach().reshape(())
                                       .contiguous() for v in shift)
             self.ap = torch.empty_like(b)
-        if isinstance(precond, Preconditioner):
+        if woodbury:
             self.U = precond.U.contiguous()
             self.w = (precond.s2 / (precond.noise * (precond.noise + precond.s2)) / precond.gamma).contiguous()
             self.p_noise = precond.noise.to(torch.float32).reshape(()).contiguous()
             k = self.U.shape[1]
-            self.G, self.G2 = torch.empty((k, t), **f32), torch.empty((k, t), **f32)
-            self.H, self.z = torch.empty_like(b), torch.empty_like(b)
+            self.part_g = torch.empty((self.nb_rz, k, t), **f32)
+            self.G2, self.z = torch.empty((k, t), **f32), torch.empty_like(b)
+            if axis is not None:
+                self.G, self.ones = torch.empty((k, t), **f32), torch.ones(k, **f32)
         K10.cg_dot(b, b, self.part_rr)  # b . b in r . r's half until the first iteration: one gather with r0 . z0
         if precond is None:
             self.p = self.r.clone()
             part_bb = part_rz = self._gathered(self.part_rr)
         else:
             self.p = self._precondition().clone()
-            part_bb, part_rz = self._gathered(self.part2)
+            part_bb, part_rz = self._pair()
         K10.cg_init(part_bb, part_rz, self.fs, self.is_, self.rules.max_iters)
 
     def _gathered(self, part: torch.Tensor) -> torch.Tensor:
-        """Every rank's partials in one collective: (P, nb, t) for an (nb, t) buffer, (2, P, nb, t) for
-        ``part2`` (two rank-strided views); without an axis ``part`` itself."""
+        """Every rank's ``part`` stacked (P, ...) in one collective; without an axis ``part`` itself."""
+        return part if self.axis is None else self.axis.all_gather_blocks(part)
+
+    def _pair(self) -> tuple:
+        """The partials of r . r and r . z (every rank's, from one gather of ``part2``, with an axis)."""
         if self.axis is None:
-            return part
-        blocks = self.axis.all_gather_blocks(part)
-        return blocks if part.dim() == 2 else blocks.transpose(0, 1)
+            return self.part_rr, self.part_rz
+        rr, rz = self.axis.all_gather_blocks(self.part2).transpose(0, 1)
+        return rr[:, :self.nb], rz[:, :self.nb_rz]
 
     def _precondition(self) -> torch.Tensor:
         """z = P^{-1} r and the block partials of r . z (a Woodbury P: pivoted_cholesky.py::precond_solve)."""
         r = self.r
         if isinstance(self.precond, Preconditioner):
-            torch.mm(self.U.T, r, out=self.G)
-            G = self.G
-            if self.axis is not None:
-                # U^T r over every rank's rows: the ranks' (k, t) products all-gathered and added in rank
-                # order, not psum'd, so G is the same bits on every rank whatever the backend's reduction.
-                blocks = self.axis.all_gather_blocks(self.G)
-                G = blocks[0]
-                for q in range(1, blocks.shape[0]):
-                    G = G + blocks[q]
-            K10.cg_scale(G, self.w, self.G2)
-            torch.mm(self.U, self.G2, out=self.H)
-            K10.cg_precond(r, self.H, self.p_noise, self.z, self.part_rz)
+            K10.cg_utr(self.U, r, self.part_g)
+            if self.axis is None:
+                K10.cg_fold(self.part_g, self.w, self.G2)
+            else:
+                # U^T r over every rank's rows: each rank folds its own partials (w = 1), the ranks' G are
+                # all-gathered and added in rank order, not psum'd, so G2 is the same bits on every rank
+                # whatever the backend's reduction.
+                K10.cg_fold(self.part_g, self.ones, self.G)
+                K10.cg_fold(self.axis.all_gather_blocks(self.G)[:, None], self.w, self.G2)
+            K10.cg_precond(self.U, self.G2, r, self.p_noise, self.z, self.part_rz)
             return self.z
         z = self.precond(r).to(torch.float32).contiguous()
         K10.cg_dot(r, z, self.part_rz)
@@ -206,7 +216,7 @@ class CGLoop:
             part_rz = part_rr = self._gathered(self.part_rr)
         else:
             z = self._precondition()
-            part_rr, part_rz = self._gathered(self.part2)
+            part_rr, part_rz = self._pair()
         K10.cg_step_p(part_rz, part_rr, self.x, z, p, self.x_best, self.fs, self.is_, self.A, self.B, self.TM,
                       self.rules)
 

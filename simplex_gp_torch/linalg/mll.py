@@ -123,7 +123,10 @@ class BBMMConfig:
     cg_tolerance: float = 1.0
     max_cg_iterations: int = 500
     max_lanczos_iterations: int = 100
-    # Pivoted-Cholesky preconditioner rank; 0 disables.  Clamped to n - 1.
+    # Pivoted-Cholesky preconditioner rank; 0 disables.  Clamped to n - 1.  The CG's passes over the
+    # preconditioner's U (kernels/cg.py::u_layout) take rank + num_probes + 1 <= 1024 and at most 256 groups
+    # of outputs, ceil(rank / 4) (rank, if not a multiple of 4) times ceil((num_probes + 1) / 12): at 10
+    # probes a rank up to 1,012 that is a multiple of 4, any other rank up to 255.  Past that the CG raises.
     precond_rank: int = 100
     num_probes: int = 10
     grad_mode: str = "exact"

@@ -164,7 +164,8 @@ def _rowsum(t: torch.Tensor, axis) -> torch.Tensor:
 def make_preconditioner(L: torch.Tensor, noise: torch.Tensor, n_global: int, axis=None) -> Preconditioner:
     """Diagonalize L L^T + noise I: one k x k eigh, a Newton-Schulz polish, gamma.
 
-    With ``axis``, L holds this rank's rows and the Gram matrices are all-reduced (:217-219).
+    With ``axis``, L holds this rank's rows and the Gram matrices are all-reduced (:217-219).  The CG's
+    Woodbury passes over U take the ranks that ``BBMMConfig.precond_rank`` states (kernels/cg.py::u_layout).
     """
     s2, V = torch.linalg.eigh(_rowsum(L.T @ L, axis))
     s2 = torch.clamp(s2, min=0.0)

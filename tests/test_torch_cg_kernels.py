@@ -100,22 +100,105 @@ def test_dot_partials_fold_to_the_column_dot(n, t):
     assert rel_err(K10._fold_blocks(part).numpy(), (u.double() * out.double()).sum(0).numpy()) <= 1e-6
 
 
-def test_precond_twins_match_jax_precond_solve():
-    """cg_scale, the two products with U and cg_precond give JAX's Woodbury solve P^{-1} r and r . z."""
-    A, tP, jP = _system()
-    r = _rhs(300, 11, seed=5)
-    tr = torch.from_numpy(r)
+def _woodbury(tP, r):
+    """The Woodbury solve through K10's passes over U, as CGLoop runs it: (z, G2, the r . z partials)."""
+    (n, k), t = tP.U.shape, r.shape[1]
+    lay = K10.u_layout(n, k, t)
     w = tP.s2 / (tP.noise * (tP.noise + tP.s2)) / tP.gamma
-    G2, H = torch.empty((20, 11)), torch.empty((300, 11))
-    K10.cg_scale(tP.U.T @ tr, w, G2)
-    torch.mm(tP.U, G2, out=H)
-    z = torch.empty_like(tr)
-    rp, nb = K10.cg_layout(300, 11)
-    part = torch.empty((nb, 11))
-    K10.cg_precond(tr, H, tP.noise, z, part)
-    assert torch.equal(z, t_pc.precond_solve(tP, tr))  # the same operations as the eager Woodbury solve
+    part_g, G2 = torch.empty((lay.nb, k, t)), torch.empty((k, t))
+    z, part = torch.empty_like(r), torch.empty((lay.nb, t))
+    K10.cg_utr(tP.U, r, part_g)
+    K10.cg_fold(part_g, w, G2)
+    K10.cg_precond(tP.U, G2, r, tP.noise, z, part)
+    return z, G2, part, w
+
+
+def _assert_woodbury_matches_jax(tP, jP, r):
+    """z against JAX's precond_solve (rel REL: sums in other orders); G2 = w U^T r and r . z against float64."""
+    z, G2, part, w = _woodbury(tP, torch.from_numpy(r))
     assert rel_err(z.numpy(), np.asarray(j_pc.precond_solve(jP, jnp.asarray(r)))) <= REL
+    U64 = tP.U.double().numpy()
+    assert rel_err(G2.numpy(), w.double().numpy()[:, None] * (U64.T @ r.astype(np.float64))) <= 1e-6
     assert rel_err(K10._fold_blocks(part).numpy(), (r.astype(np.float64) * z.numpy()).sum(0)) <= 1e-6
+
+
+def test_precond_twins_match_jax_precond_solve():
+    """cg_utr, cg_fold and cg_precond give JAX's Woodbury solve P^{-1} r and r . z (the test system's k = 20)."""
+    _, tP, jP = _system()
+    _assert_woodbury_matches_jax(tP, jP, _rhs(300, 11, seed=5))
+
+
+@pytest.mark.parametrize("k", [1, 7, 100])
+@pytest.mark.parametrize("t", [1, 11])
+def test_u_passes_match_jax_precond_solve(t, k):
+    """The passes over U at the widths the CG runs (t = 1 the eval, 11 the training CG) and ranks k of the
+    preconditioner: one, not a multiple of 4 (one U value a load), 100; n = 1,003 is no multiple of a block's
+    rows, so the last block and its last tile are short."""
+    n = 1003
+    lay = K10.u_layout(n, k, t)
+    assert n % lay.rb and n % lay.tr
+    rng = np.random.default_rng(k * 100 + t)
+    L = (rng.normal(size=(n, k)) * np.geomspace(0.3, 0.01, k)).astype(np.float32)
+    tP = t_pc.make_preconditioner(torch.from_numpy(L), torch.tensor(np.float32(0.5)), n)
+    jP = j_pc.Preconditioner(**{f: jnp.asarray(getattr(tP, f).numpy()) for f in j_pc.Preconditioner._fields})
+    _assert_woodbury_matches_jax(tP, jP, _rhs(n, t, seed=k + t))
+
+
+@pytest.mark.parametrize("t", [1, 11, 24])
+def test_u_layout_takes_the_ranks_bbmm_config_states(t):
+    """The passes over U take k + t <= 1024 and at most 256 output groups: ceil(k / 4) (k, if k is not a
+    multiple of 4) times ceil(t / tca), the stated limit of BBMMConfig.precond_rank; past it u_layout raises."""
+    tca = 1 if t == 1 else 4 if t <= 4 else 12
+    for k in range(1, 1100):
+        groups = (-(-k // 4) if k % 4 == 0 else k) * -(-t // tca)
+        fits = k + t <= 1024 and groups <= 256
+        if fits:
+            lay = K10.u_layout(50_000, k, t)
+            assert lay.lanes * -(-k // lay.jb) * -(-t // lay.tca) <= K10.THREADS
+        else:
+            with pytest.raises(ValueError):
+                K10.u_layout(50_000, k, t)
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+def test_fold_adds_every_ranks_partials_in_rank_order(P):
+    """cg_fold's twin given (P, nb, k, t) partials: each rank's nb partials folded in halves, then the ranks added
+    in order 0 .. P-1, then w; P = 1 is the one-device call on the (nb, k, t) partials bit for bit; P > 1 is
+    the one-device fold of each rank's partials with w = 1, added in rank order by hand and scaled by w."""
+    k, t, nb = 7, 11, 16
+    part = torch.rand((P, nb, k, t), generator=torch.Generator().manual_seed(P)) - 0.5
+    w = torch.rand(k, generator=torch.Generator().manual_seed(10 + P)) + 0.5
+    got, want = torch.empty((k, t)), torch.empty((k, t))
+    K10.cg_fold(part, w, got)
+    ranks = []
+    for q in range(P):
+        g = torch.empty((k, t))
+        K10.cg_fold(part[q], torch.ones(k), g)
+        ranks.append(g)
+    total = ranks[0]
+    for g in ranks[1:]:
+        total = total + g
+    want.copy_(w[:, None] * total)
+    assert torch.equal(got, want)
+    if P == 1:
+        one = torch.empty((k, t))
+        K10.cg_fold(part[0], w, one)
+        assert torch.equal(got, one)
+    assert rel_err(got.numpy(), w.double().numpy()[:, None] * part.double().sum((0, 1)).numpy()) <= 1e-6
+
+
+def test_fold_of_gathered_ranks_is_the_sharded_loops_g2():
+    """The sharded loop's two folds (each rank's own partials with w = 1, then the gathered (P, 1, k, t) ranks
+    with w) give the one fold of every rank's (P, nb, k, t) partials bit for bit."""
+    P, k, t, nb = 3, 5, 4, 8
+    part = torch.rand((P, nb, k, t), generator=torch.Generator().manual_seed(3)) - 0.5
+    w = torch.rand(k, generator=torch.Generator().manual_seed(4))
+    one, two, G = torch.empty((k, t)), torch.empty((k, t)), torch.empty((P, k, t))
+    K10.cg_fold(part, w, one)
+    for q in range(P):
+        K10.cg_fold(part[q], torch.ones(k), G[q])
+    K10.cg_fold(G[:, None], w, two)
+    assert torch.equal(one, two)
 
 
 def _twin_loop(A, b, P, rules):
@@ -124,16 +207,17 @@ def _twin_loop(A, b, P, rules):
     rp, nb = K10.cg_layout(n, t)
     fs, is_ = K10.cg_state(t, "cpu")
     st = K10.state_views(fs, is_)
-    parts = [torch.empty((nb, t)) for _ in range(4)]
+    lay = K10.u_layout(n, P.U.shape[1], t)
+    parts = [torch.empty((nb, t)), torch.empty((nb, t)), torch.empty((lay.nb, t)), torch.empty((nb, t))]
     x, x_best, r = torch.zeros_like(b), torch.zeros_like(b), b.clone()
     rec = (torch.ones((rules.m, t)), torch.zeros((rules.m, t)), torch.zeros((rules.m, t), dtype=torch.int32))
     w = P.s2 / (P.noise * (P.noise + P.s2)) / P.gamma
-    G, z, H = torch.empty((P.U.shape[1], t)), torch.empty_like(b), torch.empty_like(b)
+    part_g, G2, z = torch.empty((lay.nb, P.U.shape[1], t)), torch.empty((P.U.shape[1], t)), torch.empty_like(b)
 
     def precondition():
-        K10.cg_scale(P.U.T @ r, w, G)
-        torch.mm(P.U, G, out=H)
-        K10.cg_precond(r, H, P.noise, z, parts[2])
+        K10.cg_utr(P.U, r, part_g)
+        K10.cg_fold(part_g, w, G2)
+        K10.cg_precond(P.U, G2, r, P.noise, z, parts[2])
 
     K10.cg_dot(b, b, parts[3])
     precondition()
@@ -320,9 +404,13 @@ def _host_indexed_record(A, b, P, m, tol, max_iters):
     def dot(u, v):
         return K10._fold_blocks(K10._fold_rows(u * v, nb, rp))
 
+    def precondition(r):  # z and r . z, K10's Woodbury solve and its r . z order
+        z, _, part, _ = _woodbury(P, r)
+        return z, K10._fold_blocks(part)
+
     x, r = torch.zeros_like(b), b.clone()
-    z = t_pc.precond_solve(P, r)
-    p, rz = z, dot(r, z)
+    z, rz = precondition(r)
+    p = z
     done = torch.zeros(t, dtype=torch.bool)
     Ar, Br, TMr = torch.ones((m, t)), torch.zeros((m, t)), torch.zeros((m, t), dtype=torch.bool)
     alive = torch.ones(t, dtype=torch.bool)
@@ -333,8 +421,7 @@ def _host_indexed_record(A, b, P, m, tol, max_iters):
         pap = dot(p, ap)
         alpha = torch.where(done | (pap <= 0), 0.0, rz / torch.where(pap <= 0, 1.0, pap))
         x, r = x + alpha * p, r - alpha * ap
-        z = t_pc.precond_solve(P, r)
-        rz_new = dot(r, z)
+        z, rz_new = precondition(r)
         broken = ~done & ((pap <= 0) | (rz_new < 0))
         beta = torch.where(done | broken | (rz == 0), 0.0, rz_new / torch.where(rz == 0, 1.0, rz))
         p = z + beta * p

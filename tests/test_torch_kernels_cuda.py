@@ -87,6 +87,22 @@ def _dk(kind, order):
     return t_kernels.rbf_kernel(order) if kind == "rbf" else t_kernels.matern_kernel(1.5, order)
 
 
+@pytest.mark.parametrize("d", [1, 3, 11, 18, 40])
+def test_geometry_team_kernel_equals_plain_and_the_per_thread_kernel(cuda_device, d):
+    """K1's team of lanes a point: h1, h2, w and s torch.equal to the plain twin and to the first kernel, a
+    thread a point, on 3,001 points (the last block short), in each of the three team shapes (d+1 <= 16, 32,
+    64)."""
+    x, _ = seeded(3001, d, 1)
+    xg = torch.from_numpy(x).to(cuda_device) * 2.0
+    a = torch.from_numpy(t_lattice._hash_vectors(d)).to(cuda_device)
+    E = torch.from_numpy(t_lattice.build_rotation(d, 1.0)).to(cuda_device)
+    team = K.lattice_geometry(xg, E, a, with_s=True)
+    thread = K._geometry_per_thread(xg, E, a, with_s=True)
+    plain = K.geometry_plain(xg, E, a, with_s=True)
+    for u, v, w in zip(team, thread, plain):
+        assert torch.equal(u.reshape(-1), v.reshape(-1)) and torch.equal(u.reshape(-1), w.reshape(-1))
+
+
 @pytest.mark.parametrize("n,d,order,kind", GRID)
 def test_kernels_match_plain(cuda_device, n, d, order, kind):
     x, _ = seeded(n, d, 1)
@@ -1025,9 +1041,10 @@ def test_cg_kernels_match_plain_bit_for_bit(cuda_device, n, t, m):
     ka = both(K10.cg_step_x, K10.cg_step_x_plain, [part_pap, loop.x, loop.r, loop.p, ap, loop.fs, loop.is_,
                                                    loop.part_rr], (1, 2, 5, 6, 7))
     x, r, fs, is_, part_rr = ka[1], ka[2], ka[5], ka[6], ka[7]
-    G2 = both(K10.cg_scale, K10.cg_scale_plain, [loop.U.T @ r, loop.w, loop.G2], (2,))[2]
-    ka = both(K10.cg_precond, K10.cg_precond_plain, [r, loop.U @ G2, loop.p_noise, loop.z, loop.part_rz], (3, 4))
-    z, part_rz = ka[3], ka[4]
+    part_g = both(K10.cg_utr, K10.cg_utr_plain, [loop.U, r, loop.part_g], (2,))[2]
+    G2 = both(K10.cg_fold, K10.cg_fold_plain, [part_g, loop.w, loop.G2], (2,))[2]
+    ka = both(K10.cg_precond, K10.cg_precond_plain, [loop.U, G2, r, loop.p_noise, loop.z, loop.part_rz], (4, 5))
+    z, part_rz = ka[4], ka[5]
     rec = [loop.A, loop.B, loop.TM] if m else [None, None, None]
     mutable = (4, 5, 6, 7, 8, 9, 10) if m else (4, 5, 6, 7)
     both(K10.cg_step_p, K10.cg_step_p_plain, [part_rz, part_rr, x, z, loop.p, loop.x_best, fs, is_, *rec,
@@ -1051,7 +1068,8 @@ def _kernel_and_twin(kernel, plain, args, mutable):
 def test_cg_reducing_kernels_fold_every_ranks_partials(cuda_device, P):
     """K10': cg_step_x, cg_step_p and cg_init given every rank's partials stacked (P, nb, t) -- two as views
     of one (P, 2, nb, t) gather, as the sharded loop passes them -- against their plain twins bit for bit,
-    from a state three iterations into a solve; at P = 1 also against the (nb, t) call."""
+    from a state three iterations into a solve; at P = 1 also against the (nb, t) call.  cg_fold given every
+    rank's (P, nbu, k, t) U^T r partials and the ranks' (P, 1, k, t) G, against its twin bit for bit."""
     from simplex_gp_torch.kernels import cg as K10
     from simplex_gp_torch.linalg import cg as t_cg
 
@@ -1069,9 +1087,14 @@ def test_cg_reducing_kernels_fold_every_ranks_partials(cuda_device, P):
                                                                  loop.is_, loop.A, loop.B, loop.TM, loop.rules],
               (4, 5, 6, 7, 8, 9, 10)),
              (K10.cg_init, K10.cg_init_plain, lambda a, b_: [a, b_, loop.fs, loop.is_, 500], (2, 3))]
+    # cg_fold given every rank's U^T r partials, (P, nb, k, t), and the sharded loop's (P, 1, k, t) ranks' G.
+    nbu, k = loop.part_g.shape[:2]
+    pg = torch.rand((P, nbu, k, 11), generator=gen, device=cuda_device) - 0.5
+    calls += [(K10.cg_fold, K10.cg_fold_plain, lambda a, b_: [pg, loop.w, loop.G2], (2,)),
+              (K10.cg_fold, K10.cg_fold_plain, lambda a, b_: [pg[:, :1], loop.w, loop.G2], (2,))]
     for kernel, plain, args, mutable in calls:
         ka = _kernel_and_twin(kernel, plain, args(rr, rz), mutable)
-        if P == 1:
+        if P == 1 and kernel is not K10.cg_fold:
             k1 = [a.clone() if i in mutable else a for i, a in enumerate(args(rr[0].clone(), rz[0].clone()))]
             kernel(*k1)
             torch.cuda.synchronize()

@@ -63,6 +63,30 @@ def test_geometry_matches_jax(n, d, order, kind):
     np.testing.assert_array_equal(tkeys.numpy(), np.asarray(jkeys))
 
 
+@pytest.mark.parametrize("d", [1, 3, 11, 18])
+def test_point_hashes_and_sums_match_jax(d):
+    """K1's plain twin (the team kernel's and the per-thread kernel's bits on the card) against JAX's
+    _point_hashes and _geometry_hs at d = 1, 3 and the main path's widths, houseelectric's 11 and elevators'
+    18: hashes and coordinate sums equal; weights within four float32 spacings of the largest elevated
+    coordinate over d + 1 (a weight is a difference of elevated coordinates over d + 1, and XLA's dot sums
+    the elevation in another order than the twin's sequential sum)."""
+    x, _ = seeded(700, d, 1, seed=d)
+    x *= 1.7
+    E = j_lattice.build_rotation(d, 1.0)
+    a = j_lattice._hash_vectors(d)
+    jh1, jh2, js, jw = map(np.asarray, j_lattice._geometry_hs(jnp.asarray(x), jnp.asarray(E), a))
+    ph1, ph2, pw = map(np.asarray, j_lattice._point_hashes(jnp.asarray(x), jnp.asarray(E), a))
+    th1, th2, tw, ts = t_kernels_lattice.geometry_plain(torch.from_numpy(x), torch.from_numpy(E),
+                                                        torch.from_numpy(a), with_s=True)
+    for want in ((jh1, jh2), (ph1, ph2)):
+        np.testing.assert_array_equal(th1.numpy(), want[0])
+        np.testing.assert_array_equal(th2.numpy(), want[1])
+    np.testing.assert_array_equal(ts.numpy(), js)
+    atol = 4 * float(np.spacing(np.abs(x @ E.T).max().astype(np.float32))) / (d + 1)
+    np.testing.assert_allclose(tw.numpy(), jw, rtol=0, atol=atol)
+    np.testing.assert_allclose(tw.numpy(), pw, rtol=0, atol=atol)
+
+
 @pytest.mark.parametrize("n,d,order,kind", GRID)
 def test_filter_matches_jax_join(n, d, order, kind):
     x, v = seeded(n, d, 1)
