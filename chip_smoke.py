@@ -31,18 +31,19 @@ Phases, each printed as it runs:
   5. the reference's filter entry points, against the JAX-on-CPU golden file
      tests/fixtures/elevators_deriv_golden.npz: K4 lattice_filter_once
      against its plain version at the median-init training positions (c = 1
-     and 11), with its capacity guard (capacity = occupancy gives the same
-     output, occupancy - 1 all NaN); K8 lattice_count against its plain
+     and 11; bit for bit, and a second call), with its capacity guard
+     (capacity = occupancy gives the same output, occupancy - 1 all NaN); K8 lattice_count against its plain
      version at elevators, precipitation, houseelectric and houseelectric's
      size with one point repeated, timed beside K1 + torch.unique of its
      keys, and the guard at houseelectric; K7 lattice_deriv_grad against its plain version (c = 11,
      418 stacked columns; bit for bit, and a second run), its row lists (join_rows) against their
      plain build and timed; grad_mode="deriv_filter": NLML and raw gradients
-     at the median init and at model_best.pkl, three Adam steps, one warm
-     step and its stages; ``simplex_gp_torch.mvm_err.main`` for rbf order 1
+     at the median init and at model_best.pkl (each twice, bit for bit),
+     three Adam steps (K3 never launched), one warm step and its stages; ``simplex_gp_torch.mvm_err.main`` for rbf order 1
      at elevators, precipitation and houseelectric (seeded synthetic
      stand-ins, full n); at each, K4 against its plain version at the
-     capacity mvm_err used, and the trimmed filter against the untrimmed one;
+     capacity mvm_err used (bit for bit), and the trimmed filter against the
+     untrimmed one;
   6. the large-n path at houseelectric (the seeded stand-in, 1,311,539
      training rows), against the JAX-on-CPU golden file
      tests/fixtures/houseelectric_golden.npz: K9 lattice_apply_cols against
@@ -65,20 +66,24 @@ Phases, each printed as it runs:
   7. the data-parallel training path at elevators' width (the 10,622 rows
      shard_batch keeps at P = 2, median init, 10 probes): K11a
      lattice_dedup_ordered against its plain version (bit-equal) and K2
-     (occupancy, time); K11b lattice_apply_sharded and K6' (pivot_column
-     given the pivot's rows) against their plain versions on one NCCL rank;
-     two gloo ranks sharing the card (``simplex_gp_torch.parallel.launch``):
-     K11b and one K6' step against their plain versions on each rank, the
+     (occupancy, time); K11b lattice_apply_sharded (bit for bit, and a second
+     call; timed beside K3 on the same plan, with its row build and the bytes
+     a collective) and K6' (pivot_column given the pivot's rows) against
+     their plain versions on one NCCL rank; two gloo ranks sharing the card
+     (``simplex_gp_torch.parallel.launch``): K11b (bit for bit) and one K6'
+     step against their plain versions on each rank, the
      rank-100 sharded factor against one process's, the sharded filter
      against K3 on one process, K10' (the sharded CG's cg_step_x, cg_step_p
      and cg_init given both ranks' gathered partials) against their plain
      twins bit for bit from a state three iterations into the step's CG, and
      cg_fold given both ranks' U^T r likewise, the
      NLML and raw gradients of ``data_parallel_loss_fn`` against one process
-     with the same probes, the CG iteration counts, best residuals and SLQ
+     with the same probes (and a second run of the step, bit for bit; K3
+     never launched), the CG iteration counts, best residuals and SLQ
      record the same bits on both ranks, the CG's collectives an iteration
      (3), one Adam step (parameters bit-equal on both ranks), the step's
-     stages with the transport apart, the J = 8 mixture's data-parallel NLML
+     stages with the transport apart and the bytes a collective, the J = 8
+     mixture's data-parallel NLML
      and gradients against one process's K12 mixture; and
      ``simplex_gp_torch.scaling``'s records on one NCCL rank and on the two
      gloo ranks.  Then one line of K10 (the CG iteration) times;
@@ -110,8 +115,9 @@ Phases, each printed as it runs:
      K13 (SKIP's root: ski_interp and its backward scatter, ski_kr_matmul,
      ski_kr_gram, ski_kr_adjoint) against its plain versions at the training
      root and the joint [train; test] root, g = 100, r = 64, with JAX's
-     Omega, beside one einsum each for K13b and K13c; SKIP's NLML, raw
-     gradients and R R^T at the median init and at
+     Omega (the backward scatter bit for bit, and a second call), beside one
+     einsum each for K13b and K13c; SKIP's NLML, raw gradients (twice, bit
+     for bit) and R R^T at the median init and at
      runs/r5/skip_precipitation_s0/model_best.pkl, and its serving there;
      SGPR's NLML, raw gradients (the 512 inducing rows' too) and serving at
      runs/r5/sgpr_precipitation_s0/model_best.pkl; one warm SKIP step and
@@ -801,7 +807,8 @@ def oneshot_phase(dev, ds, expect, timer):
         z = np.random.default_rng(int(seed)).choice([-1.0, 1.0], size=(n, cfg.num_probes))
         return torch.from_numpy(z.astype(np.float32)).to(dev)
 
-    print("one-shot 5.1: K4 lattice_filter_once vs plain (median-init training positions)")
+    print("one-shot 5.1: K4 lattice_filter_once vs plain, bit for bit, and a second call (median-init training "
+          "positions)")
     model.load_raw(point("init"))
     with torch.no_grad():
         ref = (x * model.constrained()["inv_ell"]).contiguous()
@@ -812,16 +819,18 @@ def oneshot_phase(dev, ds, expect, timer):
         for c in (1, 11):
             v = torch.randn((n, c), generator=gen, device=dev)
             kout, knl = K.lattice_filter_once(ref, E, a, oh1, oh2, v, taps, norm, N)
+            again, _ = K.lattice_filter_once(ref, E, a, oh1, oh2, v, taps, norm, N)
             pout, pnl = K.filter_once_plain(ref, E, a, oh1, oh2, v, taps, norm, N)
             occ = int(pnl)
             expect(int(knl) == occ == int(golden["n_lattice_init"]),
                    f"c={c}: occupancy kernel {int(knl)} plain {occ} JAX {int(golden['n_lattice_init'])}")
-            r = rel(kout, pout)
             k4_err = max(k4_err, float((kout - pout).abs().max()))
-            expect(r <= K3_REL, f"c={c}: rel error {r:.3e} (limit {K3_REL})")
+            expect(bool(torch.equal(kout, pout) and torch.equal(again, kout)),
+                   f"c={c}: bit-equal to the plain version ({torch.equal(kout, pout)}, rel {rel(kout, pout):.3e}) "
+                   f"and to a second call ({torch.equal(again, kout)})")
             fit, _ = K.lattice_filter_once(ref, E, a, oh1, oh2, v, taps, norm, occ)
-            r_fit = rel(fit, pout)
-            expect(r_fit <= K3_REL, f"c={c}: capacity = occupancy: rel error {r_fit:.3e} (limit {K3_REL})")
+            expect(bool(torch.equal(fit, pout)), f"c={c}: capacity = occupancy: bit-equal to the untrimmed plain "
+                   f"version ({torch.equal(fit, pout)})")
             under, _ = K.lattice_filter_once(ref, E, a, oh1, oh2, v, taps, norm, occ - 1)
             expect(bool(torch.isnan(under).all()), f"c={c}: capacity = occupancy - 1 gives all NaN")
             k4_ms[c] = timer(lambda: K.lattice_filter_once(ref, E, a, oh1, oh2, v, taps, norm, N), 20)
@@ -928,9 +937,10 @@ def oneshot_phase(dev, ds, expect, timer):
     st = src.clone().requires_grad_(True)
     lattice_filter(st, ref, dk).backward(g)
     with torch.no_grad():
-        r_src = rel(st.grad, L.filter_once(g, ref, dk.coeffs, dk.variance))
-    expect(r_src <= 2 * K3_REL, f"deriv-mode lattice_filter grad_src vs K4 of g: rel {r_src:.3e} "
-           f"(limit {2 * K3_REL}: two atomic splats)")
+        k4g = L.filter_once(g, ref, dk.coeffs, dk.variance)
+        r_src = rel(st.grad, k4g)
+    expect(bool(torch.equal(st.grad, k4g)), f"deriv-mode lattice_filter grad_src bit-equal to K4 of g (rel "
+           f"{r_src:.3e})")
     print(f"    K7 {rows['lattice_deriv_grad']['ms']:.4f} ms (its row lists' build in it, join_rows: {rows_ms:.4f}), plain "
           f"{rows['lattice_deriv_grad']['plain_ms']:.4f} ms; deriv plan (K1 + K2) {deriv_plan_ms:.4f} ms; bit-equal "
           f"to plain and repeatable: {k7_equal}")
@@ -955,17 +965,26 @@ def oneshot_phase(dev, ds, expect, timer):
                    f"{tag}: d/d{k} cos {c_:.6f} (limit {GRAD_COS}), rel {r_:.2e} (limit {GRAD_REL})")
             record[f"deriv_{tag}_grad_rel_{k}"] = r_
         record[f"deriv_{tag}_nlml_diff"] = dl
+        first = {k: getattr(model, k).grad.detach().clone() for k in RAW_NAMES}
+        model.zero_grad(set_to_none=True)
+        loss2 = model.nlml(x, y, probes=probes(golden[f"seed_{tag}"]))
+        loss2.backward()
+        same = bool(torch.equal(loss2.detach(), loss.detach())) and all(
+            torch.equal(getattr(model, k).grad, first[k]) for k in RAW_NAMES)
+        expect(same, f"{tag}: a second deriv-mode NLML and its raw gradients bit-equal to the first")
+        record[f"deriv_{tag}_repeat_bit_equal"] = same
     model.load_raw(point("init"))
     steps = iter([probes(golden["seed_adam"] + e) for e in range(3)])
     path = (K.lattice_geometry, K.lattice_dedup_neighbors, *chain_kernels(), K.lattice_filter_once,
             K.join_rows, K.lattice_deriv_grad)
-    for fn in path:
+    for fn in (*path, K.lattice_apply):
         fn.launches = 0
     hist = simplex_gp_torch.fit_adam(lambda _gen: model.nlml(x, y, probes=next(steps)), model.parameters(),
                                      epochs=3, lr=0.1)
     deriv_launches = {fn.__name__: fn.launches for fn in path}
-    print(f"    launches on the deriv-mode Adam steps: {deriv_launches}")
-    expect(all(v > 0 for v in deriv_launches.values()), "every kernel of the deriv-mode step launched")
+    print(f"    launches on the deriv-mode Adam steps: {deriv_launches}; K3: {K.lattice_apply.launches}")
+    expect(all(v > 0 for v in deriv_launches.values()) and K.lattice_apply.launches == 0,
+           f"every kernel of the deriv-mode step launched, K3 never ({K.lattice_apply.launches})")
     dl = float(np.abs(np.array(hist["loss"]) - golden["adam_loss"]).max())
     expect(dl <= ADAM_LOSS_ATOL, f"Adam losses {hist['loss']} vs JAX {golden['adam_loss'].tolist()} "
            f"(max |diff| {dl:.2e}, limit {ADAM_LOSS_ATOL})")
@@ -1020,9 +1039,9 @@ def oneshot_phase(dev, ds, expect, timer):
             kout, knl = K.lattice_filter_once(*args)
             pout, pnl = K.filter_once_plain(*args)
             r = rel(kout, pout)
-            expect(int(knl) == int(pnl) and bool(torch.isfinite(kout).all()) and r <= K3_REL,
-                   f"{name}: K4 vs plain at capacity {cap}: occupancy {int(knl)} vs {int(pnl)}, rel {r:.3e} "
-                   f"(limit {K3_REL}), finite")
+            expect(int(knl) == int(pnl) and bool(torch.isfinite(kout).all()) and bool(torch.equal(kout, pout)),
+                   f"{name}: K4 vs plain at capacity {cap}: occupancy {int(knl)} vs {int(pnl)}, bit-equal "
+                   f"{torch.equal(kout, pout)} (rel {r:.3e}), finite")
             record[f"{name}_k4_rel"] = r
             del kout, pout
         for name in ("precipitation", "houseelectric"):
@@ -1644,13 +1663,13 @@ def parallel_rank(axis, case):
         out["filter"] = L.apply_plan_join(plan, v, dk.coeffs, axis=axis).cpu().numpy()
         out["n_lattice"] = int(plan.n_lattice)
         taps, norm = list(dk.coeffs), L.SLICE_NORM(case["d"])
-        rows_read = plan.seg_ids.long()  # rows past n_lattice are undefined in the kernel's table
-        out["k11b_rel"] = 0.0
+        out["k11b_rel"], out["k11b_equal"] = 0.0, True
         for transpose in (False, True):
-            kout, ktab = K.lattice_apply_sharded(*plan, v, taps, norm, axis, transpose, True)
-            pout, ptab = K.apply_sharded_plain(plan.seg_ids, plan.weights, plan.neighbors, v, taps, norm, axis,
-                                               transpose, True)
-            out["k11b_rel"] = max(out["k11b_rel"], rel(kout, pout), rel(ktab[rows_read], ptab[rows_read]))
+            kout, ktab = K.lattice_apply_sharded(*plan[:4], v, taps, norm, axis, transpose, True, plan.rows)
+            again, _ = K.lattice_apply_sharded(*plan[:4], v, taps, norm, axis, transpose, True, plan.rows)
+            pout, ptab = K.apply_sharded_plain(*plan[:4], v, taps, norm, axis, transpose, True, plan.rows)
+            out["k11b_rel"] = max(out["k11b_rel"], rel(kout, pout), rel(ktab, ptab))
+            out["k11b_equal"] &= bool(torch.equal(kout, pout) and torch.equal(ktab, ptab) and torch.equal(again, kout))
         out["apply_ms"] = cuda_ms(lambda: L.apply_plan_join(plan, v, dk.coeffs, axis=axis), 5)
         # The whole apply and its collectives from the same calls, each collective between two synchronises.
         axis.timing = True
@@ -1662,6 +1681,7 @@ def parallel_rank(axis, case):
         torch.cuda.synchronize()
         out["apply_timed_ms"] = 1e3 * (time.perf_counter() - t0) / 5
         out["apply_transport_ms"] = 1e3 * axis.stats["seconds"] / 5
+        out["apply_bytes_per_collective"] = axis.stats["bytes"] / max(1, axis.stats["calls"])
         axis.timing = False
 
         # The rank-100 sharded factor, and one K6' step on its first 99 columns: the winner's rows come
@@ -1706,18 +1726,22 @@ def parallel_rank(axis, case):
 
     path = (K.lattice_geometry, K.lattice_dedup_ordered, K.lattice_apply_sharded, K.lattice_filter_grad,
             K10.cg_dot, K10.cg_step_x, K10.cg_utr, K10.cg_fold, K10.cg_precond, K10.cg_step_p, K10.cg_init)
-    for fn in path:
+    for fn in (*path, K.lattice_apply):
         fn.launches = 0
     pivot_column.sharded_launches = 0
     step = data_parallel_loss_fn(model, axis)
     stats = {}
     loss, grads = step(x, y, probes=z, stats=stats)
     out["launches"] = {fn.__name__: fn.launches for fn in path}
+    out["k3_launches"] = K.lattice_apply.launches
     out["launches"]["pivot_column_at"] = pivot_column.sharded_launches
     for name in ("cg_step_x", "cg_step_p", "cg_init", "cg_fold"):  # K10''s rows: the reducing kernels on this step
         out["launches"][f"{name}_sharded"] = out["launches"][name]
     out.update(loss=float(loss), grads={k: g.cpu().numpy() for k, g in grads.items()}, cg_iters=stats["cg_iters"],
                cg_res=stats["cg_res"])
+    loss2, grads2 = step(x, y, probes=z)  # the same step again: every kernel and collective in a fixed order
+    out["step_repeat_bit_equal"] = float(loss2) == float(loss) and all(
+        torch.equal(grads2[k], g) for k, g in grads.items())
     opt = torch.optim.Adam(model.parameters(), lr=0.1)
     opt.step()
     out["params"] = {k: p.detach().cpu().numpy() for k, p in model.named_parameters()}
@@ -1889,8 +1913,8 @@ def parallel_phase(dev, ds, expect, timer):
                                          shape=f"N={N} hash pairs (elevators at P = 2)", k2_ms=k11a["k2_ms"])
     del kseg, knb, aseg, anb, pseg, pnb
 
-    print("parallel 7.2: K11b lattice_apply_sharded and K6' (pivot_column given the pivot's rows) vs plain, one NCCL "
-          "rank")
+    print("parallel 7.2: K11b lattice_apply_sharded (bit for bit, and a second call) and K6' (pivot_column given the "
+          "pivot's rows) vs plain, one NCCL rank")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
     initialize_distributed(backend="nccl", init_method="file://" + os.path.join(tmp, "store"), rank=0,
                            world_size=1, device="cuda")
@@ -1898,25 +1922,35 @@ def parallel_phase(dev, ds, expect, timer):
         axis = make_mesh()
         with torch.no_grad():
             plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
-            rows_read = plan.seg_ids.long()  # rows past n_lattice are undefined in the kernel's table
-            k11b_err, r11b = 0.0, 0.0
+            k11b_err, r11b, k11b_equal = 0.0, 0.0, True
             for transpose in (False, True):
-                kout, ktab = K.lattice_apply_sharded(*plan, v, taps, norm, axis, transpose, True)
-                pout, ptab = K.apply_sharded_plain(plan.seg_ids, plan.weights, plan.neighbors, v, taps, norm, axis,
-                                                   transpose, True)
-                r11b = max(r11b, rel(kout, pout), rel(ktab[rows_read], ptab[rows_read]))
+                kout, ktab = K.lattice_apply_sharded(*plan[:4], v, taps, norm, axis, transpose, True, plan.rows)
+                again, atab = K.lattice_apply_sharded(*plan[:4], v, taps, norm, axis, transpose, True, plan.rows)
+                pout, ptab = K.apply_sharded_plain(*plan[:4], v, taps, norm, axis, transpose, True, plan.rows)
+                r11b = max(r11b, rel(kout, pout), rel(ktab, ptab))
+                k11b_equal &= bool(torch.equal(kout, pout) and torch.equal(ktab, ptab) and torch.equal(again, kout)
+                                   and torch.equal(atab, ktab))
                 k11b_err = max(k11b_err, float((kout - pout).abs().max()))
                 if not transpose:
                     r_k3 = rel(kout, single)
-            expect(r11b <= K3_REL and r_k3 <= K3_REL,
-                   f"c=11, forward and transposed: rel {r11b:.3e} against the plain version, {r_k3:.3e} against K3 "
-                   f"on one process (limit {K3_REL})")
-            k11b = dict(ms=timer(lambda: K.lattice_apply_sharded(*plan, v, taps, norm, axis), 20),
-                        plain_ms=timer(lambda: K.apply_sharded_plain(plan.seg_ids, plan.weights, plan.neighbors, v,
-                                                                     taps, norm, axis), 5),
-                        k3_ms=timer(lambda: K.lattice_apply(*plan, v, taps, norm), 20))
-            print(f"    K11b c=11 {k11b['ms']:.4f} ms, plain {k11b['plain_ms']:.4f} ms, K3 on the same plan "
-                  f"{k11b['k3_ms']:.4f} ms")
+            expect(k11b_equal and r_k3 <= K3_REL,
+                   f"c=11, forward and transposed: outputs and ({ktab.shape[0]}, 11) tables bit-equal to the plain "
+                   f"version and to a second call: {k11b_equal} (rel {r11b:.3e}); {r_k3:.3e} against K3 on one "
+                   f"process (limit {K3_REL})")
+            k11b = dict(ms=timer(lambda: K.lattice_apply_sharded(*plan[:4], v, taps, norm, axis, rows=plan.rows), 20),
+                        plain_ms=timer(lambda: K.apply_sharded_plain(*plan[:4], v, taps, norm, axis,
+                                                                     rows=plan.rows), 5),
+                        k3_ms=timer(lambda: K.lattice_apply(*plan[:4], v, taps, norm), 20),
+                        rows_ms=timer(lambda: K.sharded_rows(plan.seg_ids, plan.weights, plan.n_lattice), 10))
+            axis.timing = True
+            axis.reset_stats()
+            K.lattice_apply_sharded(*plan[:4], v, taps, norm, axis, rows=plan.rows)
+            axis.timing = False
+            k11b["bytes_per_collective"] = axis.stats["bytes"] / max(1, axis.stats["calls"])
+            print(f"    K11b c=11 {k11b['ms']:.4f} ms (the first design, an atomic splat over all M rows: 0.772 ms, PERF.md section 6), plain "
+                  f"{k11b['plain_ms']:.4f} ms, K3 on the same plan {k11b['k3_ms']:.4f} ms; its row lists (once a plan) "
+                  f"{k11b['rows_ms']:.4f} ms; {k11b['bytes_per_collective']:.0f} bytes a collective "
+                  f"({ktab.shape[0]} live rows of {plan.neighbors.shape[1]})")
 
             s = params["outputscale"].reshape(()).contiguous()
             k = case["cfg"]["precond_rank"]
@@ -1956,12 +1990,13 @@ def parallel_phase(dev, ds, expect, timer):
     rows["lattice_apply_sharded"] = dict(max_abs_err=k11b_err, ms=k11b["ms"], plain_ms=k11b["plain_ms"],
                                          **bound(*apply_cost(n, d, 11, nl, order)), library_ms=None,
                                          shape=f"n={n}, d={d}, c=11, n_lattice={nl}, P = 1 (NCCL)",
-                                         k3_same_plan_ms=k11b["k3_ms"])
+                                         k3_same_plan_ms=k11b["k3_ms"], rows_ms=k11b["rows_ms"],
+                                         bytes_per_collective=k11b["bytes_per_collective"])
     # ref and L[:, :j], the diagonal and the pivot's rows in; L[:, j] and the diagonal out.
     rows["pivot_column_at"] = dict(**k6, **bound(4 * (n * d + n * (k - 1) + 3 * n + d + k),
                                                  n * (3 * d + 2 * (k - 1) + 12)),
                                    library_ms=None, shape=f"n={n}, dim={d}, k={k}, j={k - 1}, P = 1 (NCCL)")
-    record.update(k11a=k11a, k11b_rel=r11b, k11b_k3_rel=r_k3, k6_at_llt_rel=r_llt, k6_at_bit_equal=same,
+    record.update(k11a=k11a, k11b_rel=r11b, k11b_bit_equal=k11b_equal, k11b_k3_rel=r_k3, k6_at_llt_rel=r_llt, k6_at_bit_equal=same,
                   k6_at_step_rel=r_step, scaling_nccl=scaling_nccl)
 
     t0 = time.perf_counter()
@@ -2006,9 +2041,12 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
            f"sharded filter vs K3 on one process, c=11: rel {r_f:.3e} (limit {PARALLEL_FILTER_REL}); n_lattice "
            f"{[r['n_lattice'] for r in ranks]} (one process {nl})")
     r11b = [r["k11b_rel"] for r in ranks]
-    expect(max(r11b) <= K3_REL, f"K11b vs its plain version on each rank ({x.shape[0] // nprocs} rows, c=11 in "
-           f"blocks of {-(-11 // nprocs)} columns), forward and transposed, outputs and tables: rel "
-           f"{', '.join(f'{r_:.3e}' for r_ in r11b)} (limit {K3_REL})")
+    expect(all(r["k11b_equal"] for r in ranks), f"K11b vs its plain version on each rank ({x.shape[0] // nprocs} "
+           f"rows, c=11 in blocks of {-(-11 // nprocs)} columns), forward and transposed, outputs and tables, and a "
+           f"second call: bit-equal {[r['k11b_equal'] for r in ranks]} (rel {', '.join(f'{r_:.3e}' for r_ in r11b)})")
+    repeat = [r["step_repeat_bit_equal"] for r in ranks]
+    expect(all(repeat), f"two runs of the data-parallel NLML step give bit-equal loss and raw gradients on each "
+           f"rank: {repeat}")
     steps, pivs = [r["k6_step_rel"] for r in ranks], [r["k6_step_piv"] for r in ranks]
     expect(max(steps) <= K6_STEP_REL and sum(p_ >= 0 for p_ in pivs) == 1
            and all(r["k6_step_pivots_equal"] for r in ranks),
@@ -2049,8 +2087,9 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
     expect(equal, "after one Adam step the raw parameters are bit-equal on every rank")
     launches = {name: sum(r["launches"][name] for r in ranks) for name in ranks[0]["launches"]}
     print(f"    launches on the data-parallel NLML step, all ranks: {launches}")
-    expect(all(r["launches"][name] > 0 for r in ranks for name in launches),
-           "every kernel of the path launched on each rank")
+    expect(all(r["launches"][name] > 0 for r in ranks for name in launches) and all(r["k3_launches"] == 0
+                                                                                    for r in ranks),
+           f"every kernel of the path launched on each rank, K3 never ({[r['k3_launches'] for r in ranks]})")
 
     # K10': the sharded CG on K10's kernels.
     for i, r in enumerate(ranks):
@@ -2102,11 +2141,15 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
         print(f"    rank {i}: step stages (ms) " + json.dumps({k_: round(v_, 3) if isinstance(v_, float) else v_
                                                               for k_, v_ in r["stages"].items()})
               + f"; K11b apply at c=11 {r['apply_ms']:.3f} ms (CUDA events); with a synchronise around each "
-              f"collective {r['apply_timed_ms']:.3f} ms, of which transport {r['apply_transport_ms']:.3f} ms")
+              f"collective {r['apply_timed_ms']:.3f} ms, of which transport {r['apply_transport_ms']:.3f} ms; "
+              f"{r['apply_bytes_per_collective']:.0f} bytes a collective of the apply, "
+              f"{r['stages']['transport_bytes'] / max(1, r['stages']['collectives']):.0f} a collective of the step")
     print(f"parallel 7.4b: simplex_gp_torch.scaling over the {nprocs} {backend} ranks")
     for rec in ranks[0]["scaling"]:
         print("    " + json.dumps(rec))
-    record.update(ranks=nprocs, backend=backend, filter_rel=r_f, k11b_rel=r11b, k6_step_rel=steps, k6_step_piv=pivs,
+    record.update(ranks=nprocs, backend=backend, filter_rel=r_f, k11b_rel=r11b, step_repeat_bit_equal=repeat,
+                  apply_bytes_per_collective=[r["apply_bytes_per_collective"] for r in ranks],
+                  k6_step_rel=steps, k6_step_piv=pivs,
                   factor_llt_rel=r_llt, factor_bit_equal=same_L, nlml_diff=dl, losses=losses, cg_iters=iters,
                   cg_iters_single=stats["cg_iters"], params_equal=equal, launches=launches,
                   stages=[r["stages"] for r in ranks], scaling=ranks[0]["scaling"],
@@ -2508,6 +2551,9 @@ def baselines_phase(dev, expect, timer):
                 got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
                 err = max(rel(a, b) for a, b in zip(got, want))
                 expect(err <= K13_REL, f"{name} {tag} ({m} rows): rel {err:.3e} (limit {K13_REL})")
+                if name == "ski_interp_backward":  # K13a' sums in a fixed order: its twin's bits, every call
+                    same = bool(torch.equal(got[0], want[0]) and torch.equal(kern(), got[0]))
+                    expect(same, f"{name} {tag}: bit-equal to its plain version and to a second call")
                 if library is not None:
                     lib_err = rel(library(), want[0])
                     print(f"    {name} {tag}: the einsum vs plain rel {lib_err:.3e}")
@@ -2524,11 +2570,19 @@ def baselines_phase(dev, expect, timer):
                                       max_abs_err=max(rows[name]["max_abs_err"], cell["max_abs_err"]))
     del R, F, Q, dF, G
 
-    print("baselines 9.2: SKIP NLML, raw gradients and R R^T vs JAX on the CPU (golden, JAX's Omega)")
+    print("baselines 9.2: SKIP NLML, raw gradients (twice, bit for bit) and R R^T vs JAX on the CPU (golden, JAX's "
+          "Omega)")
     for tag, raw in (("init", init), ("best", best)):
         sk = convert.skip_model_from_jax(raw, **skw)
         loss = sk.nlml(x, y)
         loss.backward()
+        sk2 = convert.skip_model_from_jax(raw, **skw)
+        loss2 = sk2.nlml(x, y)
+        loss2.backward()
+        same = bool(torch.equal(loss2.detach(), loss.detach())) and all(
+            torch.equal(getattr(sk2, k).grad, getattr(sk, k).grad) for k in RAW_NAMES)
+        expect(same, f"{tag}: a second SKIP NLML and its raw gradients bit-equal to the first")
+        record[f"skip_{tag}_repeat_bit_equal"] = same
         dl = abs(float(loss.detach()) - float(golden[f"skip_loss_{tag}"]))
         expect(dl <= NLML_ATOL, f"{tag}: NLML {float(loss.detach()):.6f} vs JAX {float(golden[f'skip_loss_{tag}']):.6f} "
                f"(|diff| {dl:.2e}, limit {NLML_ATOL}; JAX with LAPACK's own signs "

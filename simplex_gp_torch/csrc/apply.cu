@@ -56,23 +56,35 @@
 // atomics.
 //
 // K11b, the sharded apply (apply_plan_join's sharded branch, ops/lattice.py
-// :499-521): each of P ranks holds n_loc points of a global plan of M rows.
-// The column block b of c_pad = P cb columns (c rounded up to a multiple of
-// P; the padding columns stay zero) is rank b's to blur.
-//   splat_blocks: this rank's contributions into a zeroed (P, M, cb) block
-//     buffer, column col to block col / cb, one thread per (contribution,
-//     column) with atomics as K3's splat; reduce-scatter over the blocks
-//     (the wrapper, torch.distributed) leaves rank b the sum of every rank's
+// :499-521): each of P ranks holds n_loc points of a global plan (K11a) whose
+// rows are numbered by first contributing vertex, so its live rows are
+// [0, n_lattice) on every rank.  The column block b of c_pad = P cb columns
+// (c rounded up to a multiple of P; the padding columns are zero) is rank
+// b's to blur.  Every buffer covers the n_lattice live rows only, not the
+// plan's M = n_loc (d+1) P: the dead rows hold nothing and JAX's
+// psum_scatter only carries them along.
+//   rows (once per plan, ops/lattice.py::build_plan_sharded_join): this
+//     rank's contributions in row order over the n_lattice rows, K9's
+//     JoinRows built from its seg ids;
+//   splat_blocks: K3'b's row-order splat (rows.cuh) of each column block
+//     into its (n_lattice, cb) block of the (P, n_lattice, cb) buffer: no
+//     atomics, no memset, every live row written (zero where this rank
+//     contributes nothing); the reduce-scatter over the blocks (the
+//     wrapper, torch.distributed) leaves rank b the sum of every rank's
 //     block b;
-//   blur: K3's blur on the rank's (M, cb) block, d+1 launches;
-//   slice_blocks: after the all-gather of the blurred blocks, one thread per
-//     (point, column) reads block col / cb at column col % cb and writes out
-//     (n_loc, c) in place, skipping the padding.
-// Per apply each rank sends P-1 blocks of M cb floats in the reduce-scatter
-// and receives P-1 in the all-gather; the blur's traffic is K3's at cb =
-// c_pad / P columns.  The last block is narrower than cb when P does not
-// divide c, so the block kernels take cb as the stride and cover every
-// block in one launch.
+//   blur: the d+1 axes of the rank's (n_lattice, cb) block in one launch
+//     of resident blocks with a grid barrier between axes (rows.cuh,
+//     sgp_blur_axes; reversed for the transpose); the plan's neighbour ids
+//     index the live rows, M meaning missing;
+//   slice_blocks: after the all-gather of the blurred blocks, one thread
+//     per (point, column) reads block col / cb at column col % cb and
+//     writes out (n_loc, c) in place, skipping the padding.
+// Per apply each rank sends P-1 blocks of n_lattice cb floats in the
+// reduce-scatter and receives P-1 in the all-gather (elevators at P = 2:
+// 100,178 rows, not 201,818).  No step adds in an order that varies, so two
+// applies give the same bits; the collectives reduce each element once.
+// The last block is narrower than cb when P does not divide c, so the
+// block kernels take cb as the stride and cover every block.
 #include "rows.cuh"
 
 __global__ void splat_kernel(const int* __restrict__ seg, const float* __restrict__ w,
@@ -125,18 +137,6 @@ __global__ void slice_kernel(const float* __restrict__ table, const int* __restr
   *dst = __fmul_rn(acc, norm);
 }
 
-__global__ void splat_blocks_kernel(const int* __restrict__ seg, const float* __restrict__ w,
-                                    const float* __restrict__ v, int n, int dp1, int c, int cb,
-                                    int M, float* __restrict__ blocks) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n * dp1 * c) return;
-  const int col = (int)(idx % c);
-  const long long e = idx / c;  // contribution = point * dp1 + vertex
-  const long long p = e / dp1;
-  const int b = col / cb;
-  atomicAdd(&blocks[((long long)b * M + seg[e]) * cb + (col - b * cb)], __fmul_rn(v[p * c + col], w[e]));
-}
-
 __global__ void slice_blocks_kernel(const float* __restrict__ blocks, const int* __restrict__ seg,
                                     const float* __restrict__ w, int n, int dp1, int c, int cb,
                                     int M, float norm, float* __restrict__ out) {
@@ -154,17 +154,56 @@ __global__ void slice_blocks_kernel(const float* __restrict__ blocks, const int*
   out[idx] = __fmul_rn(acc, norm);
 }
 
-// K11b.  v and out are (n, c); blocks is (c_pad / cb, M, cb), zeroed.
-extern "C" int sgp_lattice_splat_blocks(const int* seg, const float* w, const float* v, int n, int dp1,
-                                        int c, int cb, int M, float* blocks, void* stream) {
-  if (cb <= 0) return (int)cudaErrorInvalidValue;
-  const long long work = (long long)n * dp1 * c;
-  if (work > 0)
-    splat_blocks_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(seg, w, v, n, dp1, c,
-                                                                                   cb, M, blocks);
-  return (int)cudaGetLastError();
+// K11b's splat source of column block b: columns [c0, c0 + cols) of a
+// row-major v (row stride ld), read in place; the block's padding columns
+// (col >= cols) are zero.
+struct SgpBlockWindow {
+  static constexpr int kTile = CHAIN_TILE;
+  const float* v;
+  int ld, c0, cols;
+  __device__ __forceinline__ float operator()(int p, int col) const {
+    return col < cols ? v[(long long)p * ld + c0 + col] : 0.0f;
+  }
+};
+
+// K11b.  The first 16 arguments are this rank's row lists over nl rows
+// (sgp_runs, rows.cuh); v is (n, c); blocks is (P, nl, cb), part np_max *
+// cb floats; neither need be zeroed.
+extern "C" int sgp_lattice_splat_blocks(const int* sp, const float* sw, const int* cnt, const int* long_rows,
+                                        const int* long_first, const int* n_long, const int* piece_row,
+                                        const int* piece_start, const int* n_pieces, const int* mid_rows,
+                                        const int* n_mid, int nl_max, int nm_max, int np_max, int N,
+                                        const int* n_lattice, const float* v, int c, int cb, int P, int nl,
+                                        float* blocks, float* part, void* stream) {
+  if (cb <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+  if (nl <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const SgpRuns r = sgp_runs(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
+                             mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice);
+  for (int b = 0; b < P; ++b) {
+    const int c0 = b * cb, cols = c - c0 < cb ? c - c0 : cb;
+    float* block = blocks + (long long)b * nl * cb;
+    const cudaError_t err = cols > 0 ? sgp_splat_rows(r, SgpBlockWindow{v, c, c0, cols}, cb, nl, block, part, st)
+                                     : cudaMemsetAsync(block, 0, sizeof(float) * nl * cb, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
+// K11b's blur: the dp1 axes of ta (nl, c), its rows the plan's nl live
+// ones, in one launch (rows.cuh, sgp_blur_axes), ping-ponging with tb
+// (axis j reads nb + j M 2r, the global plan's (dp1, M, 2r) neighbour ids,
+// M missing; reversed with transpose); barrier is one uint of scratch.  The
+// result is in ta when dp1 is even, else in tb.
+extern "C" int sgp_lattice_blur_live(float* ta, float* tb, const int* nb, const float* taps_host, int M, int nl, int c,
+                                     int order, int dp1, int transpose, unsigned int* barrier, void* stream) {
+  if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
+  return (int)sgp_blur_axes(ta, tb, nb, sgp_taps(taps_host, order), M, nl, c, dp1, order, transpose, barrier,
+                            (cudaStream_t)stream);
+}
+
+// K11b's slice: blocks is (P, nl, cb), the gathered blurred blocks of
+// the nl live rows (M = nl here).
 extern "C" int sgp_lattice_slice_blocks(const float* blocks, const int* seg, const float* w, int n,
                                         int dp1, int c, int cb, int M, float norm, float* out,
                                         void* stream) {
@@ -176,7 +215,9 @@ extern "C" int sgp_lattice_slice_blocks(const float* blocks, const int* seg, con
   return (int)cudaGetLastError();
 }
 
-// count (nullable): the guard's live count, against capacity.
+// K3's splat, on no model path since K11b and K4 splat in row order (it
+// stays as the yardstick of lattice_apply).  count (nullable): the guard's
+// live count, against capacity.
 extern "C" int sgp_lattice_splat(const int* seg, const float* w, const float* v, int n, int dp1,
                                  int c, float* table, const int* count, int capacity,
                                  void* stream) {
@@ -242,13 +283,15 @@ __device__ __forceinline__ int sgp_upper_bound(const int* __restrict__ sorted, i
 // Row g of J components of M rows each (rows.cuh, SgpLiveRows; J = 1: a
 // join plan): the run end of every row that join_runs_kernel left unset
 // (the rows past a component's live count; past the capacity, every row:
-// row 0's run is all N contributions and the others are empty), and the
+// row 0's run is all N contributions and the others are empty; with
+// `sparse`, also a live row that no contribution reaches, as in a sharded
+// plan's rank, whose every row's end is found by a binary search), and the
 // long / mid class of each live row (rows.cuh).  An unset row of the last
 // component ends at N; of another, where the sorted ids pass it.  A row's
 // start is the previous row's end, computed where this launch writes it,
 // so no thread reads another's write.
 __global__ void join_rows_kernel(const int* __restrict__ sorted, const int* __restrict__ live, int J, int N, int M,
-                                 int* __restrict__ cnt, int* __restrict__ long_info) {
+                                 int sparse, int* __restrict__ cnt, int* __restrict__ long_info) {
   const int Mt = J * M;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= Mt) return;
@@ -256,25 +299,30 @@ __global__ void join_rows_kernel(const int* __restrict__ sorted, const int* __re
   const int nl = live[j];
   const bool over = nl > M;
   const bool unset = over || l >= nl;
-  const int end = !unset ? cnt[g] : (over || j == J - 1 ? N : sgp_upper_bound(sorted, N, g));
-  if (unset) cnt[g] = end;
+  const int end = !unset ? (sparse ? sgp_upper_bound(sorted, N, g) : cnt[g])
+                         : (over || j == J - 1 ? N : sgp_upper_bound(sorted, N, g));
+  if (unset || sparse) cnt[g] = end;
   if (l >= (over ? M : nl)) {
     long_info[g] = long_info[Mt + g] = long_info[2 * Mt + g] = 0;
     return;
   }
-  const int start = g == 0 ? 0 : (over ? N : (l == 0 ? sgp_upper_bound(sorted, N, g - 1) : cnt[g - 1]));
+  const int start =
+      g == 0 ? 0 : (over ? N : (l == 0 || sparse ? sgp_upper_bound(sorted, N, g - 1) : cnt[g - 1]));
   sgp_run_class(long_info, Mt, g, end - start);
 }
 
 // live: J counts on the device (J = 1: the plan's n_lattice); M rows a
-// component; n_pts the points a component's contributions belong to.
+// component; n_pts the points a component's contributions belong to;
+// sparse: a live row may hold no contribution (a sharded plan's rank).
 extern "C" int sgp_join_rows(const int* sorted, const long long* perm, const float* w, const int* live, int J, int N,
-                             int M, int dp1, int n_pts, int* sp, float* sw, int* cnt, int* long_info, void* stream) {
+                             int M, int dp1, int n_pts, int sparse, int* sp, float* sw, int* cnt, int* long_info,
+                             void* stream) {
   if (J < 1 || n_pts < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (N > 0) join_runs_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(sorted, perm, w, N, dp1, n_pts, sp, sw, cnt);
   if (M > 0)
-    join_rows_kernel<<<sgp_blocks((long long)J * M), SGP_THREADS, 0, st>>>(sorted, live, J, N, M, cnt, long_info);
+    join_rows_kernel<<<sgp_blocks((long long)J * M), SGP_THREADS, 0, st>>>(sorted, live, J, N, M, sparse, cnt,
+                                                                            long_info);
   return (int)cudaGetLastError();
 }
 

@@ -45,8 +45,9 @@ __device__ __forceinline__ unsigned long long sgp_mix(unsigned long long z) {
 // This sentinel has h1 odd and h2 even, so no live key can equal it.
 #define SGP_EMPTY 0xFFFFFFFFFFFFFFFEULL
 
-// The open-addressing table of lattice points shared by K2 (dedup.cu) and
-// K4 (once.cu): mask+1 slots (a power of two) of packed keys, linear
+// The open-addressing table of lattice points of K2 (dedup.cu), whose
+// insert this is; K4 and K8 (once.cu) fill the same layout with their own
+// inserts: mask+1 slots (a power of two) of packed keys, linear
 // probing from sgp_mix(key).  The thread whose atomicCAS claims an empty
 // slot takes the next dense row id from *count; row_of_slot maps a slot to
 // its row (-1 past the capacity) and row_h1/row_h2 hold each row's hash
@@ -162,7 +163,7 @@ __device__ __forceinline__ void sgp_simplex_rank(const float* __restrict__ xp,
 }
 
 // Vertex hash pairs and barycentric weights of one point's enclosing
-// simplex: K1's per-point work, shared with K4/K8 (once.cu) so that their
+// simplex: K1's per-point work, shared with K8 (once.cu) so that its
 // hashes are the plan's bit for bit.  a is the (2, d) multiplier table;
 // h1, h2 and w receive d+1 entries each, and ssum, when not null, the sum
 // of each vertex key's d stored coordinates (the chain plan's s, K3').

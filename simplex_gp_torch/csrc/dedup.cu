@@ -8,8 +8,9 @@
 // elevators scale N = 264,917 and the table is 8 MiB, resident in the 50 MB
 // L2, so probes are L2-latency-bound.  Design: the reference's own GPU hash
 // table (permutohedral_cuda_kernel.cu:173-201) instead of the TPU's sorts.
-// The table's insert and lookup are common.cuh's sgp_insert and sgp_find,
-// shared with K4 and K8 (once.cu).
+// The table's insert and lookup are common.cuh's sgp_insert and sgp_find;
+// K4 and K8 (once.cu) keep tables of the same layout, and K4 runs this
+// file's seg and neighbour passes on its own.
 //   1. insert: open addressing with linear probing, atomicCAS of the packed
 //      64-bit key; the thread whose CAS claims an empty slot takes the next
 //      dense row id from an atomic counter and records the row's hash pair.
@@ -141,7 +142,7 @@ extern "C" int sgp_dedup_remap(const int* h1, const int* h2, const int* slot_of,
   return (int)cudaGetLastError();
 }
 
-// Row id of every contribution; shared with K4 (once.cu).  Past the
+// Row id of every contribution (sgp_dedup_finish's first pass).  Past the
 // capacity every id is 0.
 extern "C" int sgp_dedup_seg(const int* slot_of, const int* row_of_slot, int N, const int* count,
                              int capacity, int* seg_ids, void* stream) {

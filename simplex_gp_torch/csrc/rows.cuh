@@ -9,7 +9,9 @@
 //     the long rows, from the run ends cnt;
 //   * the blur of one lattice axis over the live rows of a join table, or of
 //     each component of a mixture's stacked table (sgp_live_blur,
-//     sgp_live_blur_rows), on a grid fixed by the card, not by the table.
+//     sgp_live_blur_rows), on a grid fixed by the card, not by the table;
+//   * the d+1 axis blurs of a table in one launch of resident blocks with a
+//     grid barrier between axes (sgp_blur_axes: K4 and K11b).
 // The kernels here have internal linkage: each source instantiates its own,
 // with its own column source.
 #pragma once
@@ -478,4 +480,136 @@ static inline cudaError_t sgp_live_blur_rows(const float* in, float* out, const 
 static inline cudaError_t sgp_live_blur(const float* in, float* out, const int* nb, const SgpTaps& taps, int M, int c,
                                         int order, const int* count, cudaStream_t st) {
   return sgp_live_blur_rows(in, out, nb, taps, SgpLiveRows{count, 1, M}, c, order, st);
+}
+
+// ---- the d+1 axes in one launch ---------------------------------------------
+
+#define SGP_AXES_THREADS 512
+
+__device__ __forceinline__ void sgp_load_cg(const float* p, float (&x)[1]) { x[0] = __ldcg(p); }
+__device__ __forceinline__ void sgp_load_cg(const float* p, float (&x)[2]) {
+  const float2 t = __ldcg(reinterpret_cast<const float2*>(p));
+  x[0] = t.x;
+  x[1] = t.y;
+}
+__device__ __forceinline__ void sgp_load_cg(const float* p, float (&x)[4]) {
+  const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+  x[0] = t.x;
+  x[1] = t.y;
+  x[2] = t.z;
+  x[3] = t.w;
+}
+
+// One axis of sgp_blur_axes_kernel: out = the blur of in over its nl rows,
+// this thread's rows and columns.  in and out are distinct tables, so the
+// loads of one row need not wait for the stores of the last; in was written
+// earlier in the launch, so it is read through L2 (__ldcg).
+template <int VEC>
+__device__ __forceinline__ void sgp_blur_axis_rows(const float* __restrict__ in, float* __restrict__ out,
+                                                   const int* __restrict__ nbj, const SgpTaps& taps, int M, int nl,
+                                                   int c, int order, int team_log2, long long lead, long long stride) {
+  const int groups = c / VEC, r2 = 2 * order, team = 1 << team_log2;
+  const int lane = (int)(lead & (team - 1));
+  for (long long t = lead; (t >> team_log2) < nl; t += stride) {
+    const long long row = t >> team_log2;
+    for (int gi = lane; gi < groups; gi += team) {
+      const long long col = (long long)gi * VEC;
+      float x[VEC], acc[VEC];
+      sgp_load_cg(in + row * c + col, x);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = __fmul_rn(taps.v[order], x[e]);
+      for (int k = 0; k < r2; ++k) {
+        const int q = __ldg(nbj + row * r2 + k);
+        if (q == M) continue;
+        sgp_load_cg(in + (long long)q * c + col, x);
+        const float tap = taps.v[k < order ? k : k + 1];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(tap, x[e]));
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) __stcg(out + row * c + col + e, acc[e]);
+    }
+  }
+}
+
+// The same axis one thread per (row, column) element, element idx of the
+// row-major table (a width not a multiple of 2: no lane of a warp idles,
+// and the threads of a row read its neighbours' columns side by side).
+// I: int while the table has fewer than 2^30 elements.
+template <typename I>
+__device__ __forceinline__ void sgp_blur_axis_elems(const float* __restrict__ in, float* __restrict__ out,
+                                                    const int* __restrict__ nbj, const SgpTaps& taps, int M, int nl,
+                                                    int c, int order, I lead, I stride) {
+  const int r2 = 2 * order;
+  const I work = (I)nl * c;
+  for (I idx = lead; idx < work; idx += stride) {
+    const I row = idx / c;
+    const I col = idx - row * c;
+    float acc = __fmul_rn(taps.v[order], __ldcg(in + idx));
+    for (int k = 0; k < r2; ++k) {
+      const int q = __ldg(nbj + row * r2 + k);
+      if (q == M) continue;
+      acc = __fadd_rn(acc, __fmul_rn(taps.v[k < order ? k : k + 1], __ldcg(in + (I)q * c + col)));
+    }
+    __stcg(out + idx, acc);
+  }
+}
+
+// The d+1 axis blurs of ta (nl, c), all its rows live, in one launch: a
+// grid of resident blocks strides over the rows with sgp_live_blur_kernel's
+// layout (a team of 2^team_log2 lanes a row, VEC columns a lane at a time;
+// VEC = 1: a thread an element, sgp_blur_axis_elems),
+// axis 0 (axis d with transpose) from ta into tb, the next back, and so on,
+// with a grid barrier between axes (*barrier is 0 at the launch).  Axis j
+// reads its neighbour ids at nb + j M 2r, M meaning missing.  Each output
+// is sgp_live_blur_kernel's, operation for operation (the plain version's
+// bits).  The final table is ta when dp1 is even, else tb.
+template <int VEC>
+static __global__ void __launch_bounds__(SGP_AXES_THREADS, 4)
+    sgp_blur_axes_kernel(float* ta, float* tb, const int* __restrict__ nb, const SgpTaps taps, int M, int nl, int c,
+                         int dp1, int order, int transpose, int team_log2, unsigned int* barrier) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long lead = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool narrow = (long long)nl * c < (1LL << 30);
+  for (int jj = 0; jj < dp1; ++jj) {
+    const int* nbj = nb + (long long)(transpose ? dp1 - 1 - jj : jj) * M * 2 * order;
+    float* in = jj % 2 == 0 ? ta : tb;
+    float* out = jj % 2 == 0 ? tb : ta;
+    if (VEC > 1)
+      sgp_blur_axis_rows<VEC>(in, out, nbj, taps, M, nl, c, order, team_log2, lead, stride);
+    else if (narrow)
+      sgp_blur_axis_elems<int>(in, out, nbj, taps, M, nl, c, order, (int)lead, (int)stride);
+    else
+      sgp_blur_axis_elems<long long>(in, out, nbj, taps, M, nl, c, order, lead, stride);
+    if (jj + 1 < dp1) sgp_grid_barrier(barrier, (unsigned int)(jj + 1) * gridDim.x);
+  }
+}
+
+template <int VEC>
+static inline cudaError_t sgp_blur_axes_as(float* ta, float* tb, const int* nb, const SgpTaps& taps, int M, int nl,
+                                           int c, int dp1, int order, int transpose, unsigned int* barrier,
+                                           cudaStream_t st) {
+  int team_log2 = 0;  // VEC = 1: a thread an element, c of them a row
+  while (VEC > 1 && (1 << team_log2) < c / VEC && team_log2 < 5) ++team_log2;
+  const long long lanes = VEC > 1 ? (long long)nl << team_log2 : (long long)nl * c;
+  const long long need = (lanes + SGP_AXES_THREADS - 1) / SGP_AXES_THREADS;
+  const int resident = sgp_coresident_blocks(sgp_blur_axes_kernel<VEC>, SGP_AXES_THREADS, 0);
+  const int grid = (int)(need < resident ? need : resident);
+  sgp_blur_axes_kernel<VEC>
+      <<<grid, SGP_AXES_THREADS, 0, st>>>(ta, tb, nb, taps, M, nl, c, dp1, order, transpose, team_log2, barrier);
+  return cudaGetLastError();
+}
+
+// The dp1 axis blurs of ta (nl, c) in one launch (sgp_blur_axes_kernel);
+// tb is scratch of the same size, barrier one uint of scratch; the result
+// is in ta when dp1 is even, else in tb.
+static inline cudaError_t sgp_blur_axes(float* ta, float* tb, const int* nb, const SgpTaps& taps, int M, int nl, int c,
+                                        int dp1, int order, int transpose, unsigned int* barrier, cudaStream_t st) {
+  if (nl <= 0 || c <= 0) return cudaGetLastError();
+  cudaError_t err = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st);
+  if (err != cudaSuccess) return err;
+  const int vec = c % 4 == 0 ? 4 : (c % 2 == 0 ? 2 : 1);
+  return vec == 4   ? sgp_blur_axes_as<4>(ta, tb, nb, taps, M, nl, c, dp1, order, transpose, barrier, st)
+         : vec == 2 ? sgp_blur_axes_as<2>(ta, tb, nb, taps, M, nl, c, dp1, order, transpose, barrier, st)
+                    : sgp_blur_axes_as<1>(ta, tb, nb, taps, M, nl, c, dp1, order, transpose, barrier, st);
 }

@@ -13,11 +13,16 @@
 //                                Keys weights and clipped taps computed in the
 //                                thread from x[i] and the grid's origin and
 //                                step (device scalars); one thread per (i, col).
-//        sgp_ski_interp_scatter  its backward: dU[idx[i, t], :] += w[i, t] dF[i, :],
-//                                into a (g, r) table in each block's shared
-//                                memory (shared atomics), then added to dU
-//                                with global atomics (the order of the adds
-//                                varies from run to run).
+//        sgp_ski_interp_scatter  its backward: dU[idx[i, t], :] += w[i, t] dF[i, :]
+//                                in a fixed order, no atomics: a block owns a
+//                                range of points, split into SKI_SCATTER_SLICES
+//                                sub-ranges; thread (s, col) walks sub-range
+//                                s in index order into column col of its own
+//                                (g, r) slice in shared memory, the block adds
+//                                its slices in order into its (g, r) partial,
+//                                and a second pass adds the blocks' partials
+//                                in block order (ski_gram_reduce_kernel), so
+//                                dU repeats bit for bit.
 //   K13b sgp_ski_kr_matmul       out = M W, W (r^2, k): a block takes 64 rows
 //                                and all k columns; for each a it forms the
 //                                (64, k) tile F W_a in registers (W_a = rows
@@ -50,28 +55,30 @@
 #define SKI_TILE 64         // rows of a K13b / K13d block, and the column tile
 #define SKI_STAGE 32        // rows of one K13c stage
 #define SKI_GRAM_A 4        // values of a one K13c block takes
-#define SKI_SCATTER_BLOCKS 264  // two blocks per SM for K13a's backward
+#define SKI_SCATTER_SLICES 4  // point sub-ranges of a K13a backward block, each with its own (g, r) slice
 
+// The four clipped grid indices and normalised Keys weights of x
+// (_interp_1d), each float operation an explicit round-to-nearest one in
+// the order of kernels/ski.py::interp_taps, so the taps are its bit for bit.
 __device__ __forceinline__ float ski_cubic(float s) {
   s = fabsf(s);
-  const float w1 = (1.5f * s - 2.5f) * s * s + 1.0f;
-  const float w2 = ((-0.5f * s + 2.5f) * s - 4.0f) * s + 2.0f;
+  const float w1 = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(__fmul_rn(1.5f, s), 2.5f), s), s), 1.0f);
+  const float w2 = __fadd_rn(__fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(__fmul_rn(-0.5f, s), 2.5f), s), 4.0f), s), 2.0f);
   return s <= 1.0f ? w1 : (s <= 2.0f ? w2 : 0.0f);
 }
 
-// The four clipped grid indices and normalised Keys weights of x (_interp_1d).
 __device__ __forceinline__ void ski_taps(float x, float gmin, float step, int g, int* idx, float* w) {
-  const float pos = (x - gmin) / step;
+  const float pos = __fdiv_rn(__fsub_rn(x, gmin), step);
   const int base = (int)floorf(pos);
   float sum = 0.0f;
   for (int t = 0; t < 4; ++t) {
     const int i = base + t - 1;
-    w[t] = ski_cubic(pos - (float)i);
+    w[t] = ski_cubic(__fsub_rn(pos, (float)i));
     idx[t] = min(max(i, 0), g - 1);
-    sum += w[t];
+    sum = __fadd_rn(sum, w[t]);
   }
   sum = fmaxf(sum, 1e-12f);
-  for (int t = 0; t < 4; ++t) w[t] = w[t] / sum;
+  for (int t = 0; t < 4; ++t) w[t] = __fdiv_rn(w[t], sum);
 }
 
 __global__ void ski_interp_kernel(const float* __restrict__ x, const float* __restrict__ gmin,
@@ -89,27 +96,39 @@ __global__ void ski_interp_kernel(const float* __restrict__ x, const float* __re
   F[e] = acc;
 }
 
-__global__ void ski_interp_scatter_kernel(const float* __restrict__ x, const float* __restrict__ gmin,
-                                          const float* __restrict__ step, const float* __restrict__ dF, int n,
-                                          int g, int r, float* __restrict__ dU) {
-  extern __shared__ float table[];  // (g, r)
-  for (int e = threadIdx.x; e < g * r; e += blockDim.x) table[e] = 0.0f;
+// K13a's backward, first pass: block b owns the points [b S span, (b + 1) S
+// span) (S = SKI_SCATTER_SLICES); thread (s, col) adds w[i, t] dF[i, col]
+// into row idx[i, t] of its slice s for i in sub-range s ([(b S + s) span,
+// + span)) in index order and t = 0..3, each add round-to-nearest; then
+// the block's partial (g, r) is slice 0 + slice 1 + ... in order.
+__global__ void __launch_bounds__(SKI_MAX_R * SKI_SCATTER_SLICES)
+    ski_interp_scatter_kernel(const float* __restrict__ x, const float* __restrict__ gmin,
+                              const float* __restrict__ step, const float* __restrict__ dF, int n, int g, int r,
+                              int span, float* __restrict__ partial) {
+  extern __shared__ float slices[];  // (S, g, r)
+  const int size = g * r;
+  for (int e = threadIdx.x; e < SKI_SCATTER_SLICES * size; e += blockDim.x) slices[e] = 0.0f;
   __syncthreads();
-  const float gm = *gmin, st = *step;
-  const long long total = (long long)n * r;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (long long)gridDim.x * blockDim.x) {
-    const long long i = e / r;
-    const int col = (int)(e % r);
-    int idx[4];
-    float w[4];
-    ski_taps(x[i], gm, st, g, idx, w);
-    const float v = dF[e];
-    for (int t = 0; t < 4; ++t) atomicAdd(&table[idx[t] * r + col], w[t] * v);
+  const int s = threadIdx.x / SKI_MAX_R, col = threadIdx.x % SKI_MAX_R;
+  if (col < r) {
+    float* mine = slices + s * size;
+    const float gm = *gmin, st = *step;
+    const long long lo = ((long long)blockIdx.x * SKI_SCATTER_SLICES + s) * span;
+    const long long hi = lo + span < n ? lo + span : n;
+    for (long long i = lo; i < hi; ++i) {
+      int idx[4];
+      float w[4];
+      ski_taps(x[i], gm, st, g, idx, w);
+      const float v = dF[i * r + col];
+      for (int t = 0; t < 4; ++t) mine[idx[t] * r + col] = __fadd_rn(mine[idx[t] * r + col], __fmul_rn(w[t], v));
+    }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < g * r; e += blockDim.x)
-    if (table[e] != 0.0f) atomicAdd(&dU[e], table[e]);
+  for (int e = threadIdx.x; e < size; e += blockDim.x) {
+    float acc = slices[e];
+    for (int k = 1; k < SKI_SCATTER_SLICES; ++k) acc = __fadd_rn(acc, slices[k * size + e]);
+    partial[(long long)blockIdx.x * size + e] = acc;
+  }
 }
 
 // out (n, k) = sum_a R[:, a] * (F @ W[a r : a r + r, :]).  Thread (ty, tx)
@@ -308,15 +327,27 @@ extern "C" int sgp_ski_interp(const float* x, const float* gmin, const float* st
   return (int)cudaGetLastError();
 }
 
-// dU (g, r) must be zeroed; g r floats must fit in 48 KB of shared memory.
+// K13a's backward: blocks blocks of SKI_SCATTER_SLICES sub-ranges of span
+// points (kernels/ski.py::_scatter_split); partial (blocks, g, r) need not
+// be zeroed; dU (g, r) is written (partial itself when blocks == 1).  The
+// S (g, r) slices must fit in a block's shared memory.
 extern "C" int sgp_ski_interp_scatter(const float* x, const float* gmin, const float* step, const float* dF, int n,
-                                      int g, int r, float* dU, void* stream) {
-  const size_t smem = (size_t)g * r * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const long long work = (long long)n * r;
-  if (work > 0) {
-    const unsigned int blocks = sgp_blocks(work) < SKI_SCATTER_BLOCKS ? sgp_blocks(work) : SKI_SCATTER_BLOCKS;
-    ski_interp_scatter_kernel<<<blocks, SGP_THREADS, smem, (cudaStream_t)stream>>>(x, gmin, step, dF, n, g, r, dU);
+                                      int g, int r, int span, int blocks, float* partial, float* dU, void* stream) {
+  const size_t smem = (size_t)SKI_SCATTER_SLICES * g * r * sizeof(float);
+  if (r > SKI_MAX_R || smem > 227 * 1024 || span < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  static size_t opted = 0;  // the shared-memory opt-in, set once a size
+  if (smem > 48 * 1024 && smem > opted) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(ski_interp_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted = smem;
+  }
+  ski_interp_scatter_kernel<<<blocks, SKI_MAX_R * SKI_SCATTER_SLICES, smem, st>>>(x, gmin, step, dF, n, g, r, span,
+                                                                                 blocks == 1 ? dU : partial);
+  if (blocks > 1) {
+    const long long size = (long long)g * r;
+    ski_gram_reduce_kernel<<<sgp_blocks(size), SGP_THREADS, 0, st>>>(partial, size, blocks, dU);
   }
   return (int)cudaGetLastError();
 }

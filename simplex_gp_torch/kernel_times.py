@@ -15,12 +15,14 @@
     python simplex_gp_torch/kernel_times.py --compare-build-grad DIR DIR
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --step-grad DIR [--ulp K] [--tol T]
     python simplex_gp_torch/kernel_times.py --compare-step-grad DIR DIR
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --once-sharded
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
 ``lattice_deriv_grad`` at the shapes of chip_smoke.py's phases 6.2 and 5.3
-(:func:`wide_deriv`); the fourth measures how far K11b and K3's float32
-atomic splats land from the float64 operator (:func:`sharded_f64`); the
+(:func:`wide_deriv`); the fourth measures how far K11b (a fixed order)
+and K3's float32 atomic splat land from the float64 operator
+(:func:`sharded_f64`); the
 fifth one CG iteration at the elevators and houseelectric training shapes
 and the houseelectric eval shape, K10 host-launched and replayed, or an
 older tree's eager loop
@@ -44,7 +46,10 @@ two trees' bit for bit (:func:`compare_build_grad`); the thirteenth the
 houseelectric step's raw gradients on the data and on K copies with every
 entry of x moved by one ulp, at a CG tolerance T (:func:`step_grad`),
 which the fourteenth compares within and across two trees
-(:func:`compare_step_grad`).
+(:func:`compare_step_grad`); the fifteenth K4 at the elevators shape (c =
+1 and 11), K11b on one NCCL rank at that shape (c =
+1 and 11, beside K3 on the same plan, with the bytes per collective) and
+the houseelectric one-shot MVM of ``mvm_err`` (:func:`once_sharded`).
 
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
@@ -298,7 +303,7 @@ def sharded_f64(repeats: int = 150) -> dict:
     The widest case of tests/test_torch_kernels_cuda.py's sharded-apply test:
     16,599 seeded normal points in 17 dims scaled by 0.3, rbf order 1, c = 1
     and 11, forward and transposed, outputs and the read rows of the
-    blurred tables, ``repeats`` applies each (the atomic order changes from
+    blurred tables, ``repeats`` applies each (K3's atomic order changes from
     run to run).  Prints one JSON line of each column count's median, 99th
     percentile and largest relative error, and the largest between K11b and
     K3 themselves.
@@ -337,7 +342,7 @@ def sharded_f64(repeats: int = 150) -> dict:
             exact, etab = K.apply_plain(seg, w, nb, v.double(), dk.coeffs, norm, transpose, True)
             for _ in range(repeats):
                 kout, ktab = K.lattice_apply_sharded(seg, w, nb, nl, v, dk.coeffs, norm, OneRank(), transpose, True)
-                pout, ptab = K.apply_sharded_plain(seg, w, nb, v, dk.coeffs, norm, OneRank(), transpose, True)
+                pout, ptab = K.apply_sharded_plain(seg, w, nb, nl, v, dk.coeffs, norm, OneRank(), transpose, True)
                 whole, wtab = K.lattice_apply(seg, w, nb, nl, v, dk.coeffs, norm, transpose, True)
                 errs += [rel(kout, exact), rel(pout, exact), rel(whole, exact), rel(ktab[rows], etab[rows]),
                          rel(ptab[rows], etab[rows]), rel(wtab[rows], etab[rows])]
@@ -917,6 +922,69 @@ def dp_step(nprocs: int = 2, reps: int = 3) -> dict:
     return out
 
 
+def once_sharded(reps: int = 20) -> dict:
+    """K4 and K11b at the elevators shape, the houseelectric ``mvm_err`` one-shot MVM; any tree with the sharded engine.
+
+    K4 ``lattice_filter_once`` at c = 1 and 11 on kernel_times.py's seeded
+    elevators positions (and whether two calls give the same bits); K11b, ``apply_plan_join(..., axis=...)``
+    on one NCCL rank at the same positions (c = 1 and 11), beside K3 on the
+    same plan, with the bytes each collective moves; then
+    ``mvm_err.main`` at houseelectric (2,049,280 x 11, c = 1), its
+    ts/lattice.
+    """
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    import simplex_gp_torch
+    from simplex_gp_torch import mvm_err
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.ops import kernels, lattice as L
+    from simplex_gp_torch.parallel import build_plan_sharded_join, initialize_distributed, make_mesh
+
+    dev = torch.device("cuda:0")
+    n, d = 10623, 18
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(n, d)).astype(np.float32) / 4.2).to(dev)
+    dk = kernels.matern_kernel(1.5, 1)
+    E, a, oh1, oh2 = L._lattice_constants(d, dk.coeffs, dk.variance, dev)
+    taps, norm, N = list(dk.coeffs), L.SLICE_NORM(d), n * (d + 1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"card": _card(), "tree": simplex_gp_torch.__file__}
+    for c in (1, 11):
+        v = torch.randn((n, c), generator=gen, device=dev)
+        k4 = lambda: K.lattice_filter_once(x, E, a, oh1, oh2, v, taps, norm, N)[0]
+        first = k4()
+        out[f"k4_c{c}"] = _ms(k4, reps)
+        out[f"k4_repeat_c{c}"] = bool(torch.equal(k4(), first))
+    tmp = tempfile.mkdtemp(prefix="kernel_times_nccl_")
+    initialize_distributed(backend="nccl", init_method="file://" + os.path.join(tmp, "store"), rank=0, world_size=1,
+                           device="cuda")
+    try:
+        axis = make_mesh()
+        plan = build_plan_sharded_join(x, dk.coeffs, dk.variance, axis)
+        out["n_lattice"], out["plan_rows"] = int(plan.n_lattice), int(plan.neighbors.shape[1])
+        for c in (1, 11):
+            v = torch.randn((n, c), generator=gen, device=dev)
+            k11b = lambda: L.apply_plan_join(plan, v, dk.coeffs, axis=axis)
+            first = k11b()
+            out[f"k11b_c{c}"] = _ms(k11b, reps)
+            out[f"k11b_repeat_c{c}"] = bool(torch.equal(k11b(), first))
+            out[f"k3_same_plan_c{c}"] = _ms(lambda: K.lattice_apply(*plan[:4], v, taps, norm), reps)
+            axis.timing = True
+            axis.reset_stats()
+            k11b()
+            axis.timing = False
+            out[f"k11b_bytes_per_collective_c{c}"] = axis.stats["bytes"] / max(1, axis.stats["calls"])
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    m = mvm_err.main(["--dataset", "houseelectric", "--order", "1", "--device", "cuda"])
+    out["mvm_houseelectric_ts_lattice_s"] = m["ts/lattice"]
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -1200,5 +1268,7 @@ if __name__ == "__main__":
                   tol=float(sys.argv[sys.argv.index("--tol") + 1]) if "--tol" in sys.argv else 1.0)
     elif "--compare-step-grad" in sys.argv[1:]:
         compare_step_grad(*sys.argv[sys.argv.index("--compare-step-grad") + 1:][:2])
+    elif "--once-sharded" in sys.argv[1:]:
+        once_sharded()
     else:
         main()

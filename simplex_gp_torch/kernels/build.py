@@ -40,23 +40,25 @@ _SIGNATURES = {
     "sgp_lattice_splat": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
     "sgp_lattice_blur": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "sgp_lattice_slice": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _P],
-    "sgp_lattice_splat_blocks": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "sgp_lattice_splat_blocks": [*[_P] * 11, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "sgp_lattice_blur_live": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "sgp_lattice_slice_blocks": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
-    "sgp_join_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sgp_join_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "sgp_lattice_apply_cols": [*[_P] * 11, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F,
                                _P, _P, _P, _P, _P, _I, _P],
     "sgp_pivot_column": [_P, _LL, _LL, _P, _LL, _LL, *[_P] * 12, _I, _I, _I, _I, _F, _P],
     "sgp_pivot_factor": [_P, _LL, _LL, _P, _LL, _LL, *[_P] * 8, _I, _I, _I, _F, _P],
     "sgp_lattice_filter_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
-    "sgp_filter_once": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _F, _I, _I,
-                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "sgp_once_insert": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "sgp_once_workspace": [_I, _I, _I, _I, _I, _P],
+    "sgp_once_apply": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _F, _P, _LL, _P, _P],
     "sgp_lattice_count": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "sgp_deriv_grad": [*[_P] * 11, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _F, _F,
                        _P, _P, _P, _P, _P],
     "sgp_mixture_apply": [*[_P] * 11, _I, _I, _I, _I, *[_P] * 6, _I, _I, _I, _I, _I, _P, _I, _P, _F, *[_P] * 4,
                           _I, _P],
     "sgp_ski_interp": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "sgp_ski_interp_scatter": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "sgp_ski_interp_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "sgp_ski_kr_matmul": [_P, _P, _P, _I, _I, _I, _P, _P],
     "sgp_ski_kr_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "sgp_ski_kr_adjoint": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],

@@ -8,12 +8,14 @@ launches in a ``launches`` attribute.  The plain versions are the PyTorch
 twin of the JAX join engine (simplex_gp_tpu/ops/lattice.py) and run on
 either device.
 
-K9 and K7 run on a join plan's row lists (:class:`JoinRows`, built by
-:func:`join_rows`): each row's contributions in row order, summed by the
-sort chain's splat (K3'b, ``kernels/chain.py``) with no atomics, then a
-blur over the live rows only.  Their plain versions sum in the kernels'
-order, so the two agree bit for bit.  The exact backward runs K9 too, one
-window of all its columns, forward and transposed, keeping the table.
+K9, K7, K11b and K4 run on row lists (:class:`JoinRows`, built by
+:func:`join_rows`, :func:`sharded_rows` or inside K4): each row's
+contributions in row order, summed by the sort chain's splat (K3'b,
+``kernels/chain.py``) with no atomics, then a blur over the live rows only.
+Their plain versions sum in the kernels' order, so the two agree bit for
+bit.  The exact backward runs K9 too, one window of all its columns,
+forward and transposed, keeping the table.  K3 (``lattice_apply``, an
+atomic splat) is on no model path; it stays as a yardstick.
 
 Integer hashes are int32 wrapping mod 2^32, as XLA's are; PyTorch has no
 wrapping int32 product, so the plain versions compute in int64 and mask.
@@ -46,6 +48,7 @@ __all__ = [
     "join_rows_device",
     "apply_cols_plain",
     "lattice_apply_cols",
+    "sharded_rows",
     "apply_sharded_plain",
     "lattice_apply_sharded",
     "lattice_filter_grad_plain",
@@ -510,7 +513,11 @@ def join_rows_plain(seg_ids, weights, neighbors, n_lattice, n_pts=None) -> JoinR
     ``n_pts`` (None: the plan's n): each contribution's point is reduced mod
     it, for a mixture's stacked seg ids (J n, d+1).
     """
-    M = neighbors.shape[1]
+    return _rows_plain(seg_ids, weights, neighbors.shape[1], n_lattice, n_pts)
+
+
+def _rows_plain(seg_ids, weights, M: int, n_lattice, n_pts=None) -> JoinRows:
+    """:func:`join_rows_plain` over M table rows."""
     dp1 = seg_ids.shape[-1]
     seg = seg_ids.reshape(-1)
     N = seg.shape[0]
@@ -523,13 +530,14 @@ def join_rows_plain(seg_ids, weights, neighbors, n_lattice, n_pts=None) -> JoinR
                     *run_lists(cnt, live, N), n_lattice)
 
 
-def join_rows_device(seg_ids, weights, live, M: int, n_pts: int, n_lattice) -> JoinRows:
+def join_rows_device(seg_ids, weights, live, M: int, n_pts: int, n_lattice, sparse: bool = False) -> JoinRows:
     """The row lists of ``seg_ids`` (.., d+1) over ``live.shape[0]`` components of M rows on the card.
 
     A stable ``torch.sort`` of the seg ids, two launches for the runs and
     their classes (``sgp_join_rows``; ``live`` (J,) the components' live
-    counts, each contribution's point reduced mod ``n_pts``), then the sort
-    chain's :func:`~simplex_gp_torch.kernels.chain.run_lists_device`;
+    counts, each contribution's point reduced mod ``n_pts``; ``sparse``: a
+    live row may hold no contribution, as a sharded plan's rank's), then
+    the sort chain's :func:`~simplex_gp_torch.kernels.chain.run_lists_device`;
     ``n_lattice`` becomes the lists' count.  Nothing is read on the host.
     Counted in ``join_rows.launches``.
     """
@@ -544,8 +552,8 @@ def join_rows_device(seg_ids, weights, live, M: int, n_pts: int, n_lattice) -> J
     sp, sw = torch.empty(N, **i32), torch.empty(N, dtype=torch.float32, device=dev)
     cnt, long_info = torch.empty(J * M, **i32), torch.empty((3, J * M), **i32)
     build.check(lib.sgp_join_rows(sorted_seg.data_ptr(), perm.data_ptr(), weights.data_ptr(), live.data_ptr(), J, N,
-                                  M, dp1, n_pts, sp.data_ptr(), sw.data_ptr(), cnt.data_ptr(), long_info.data_ptr(),
-                                  st), "join_rows (runs)")
+                                  M, dp1, n_pts, int(sparse), sp.data_ptr(), sw.data_ptr(), cnt.data_ptr(),
+                                  long_info.data_ptr(), st), "join_rows (runs)")
     lists = run_lists_device(long_info, cnt, N)
     join_rows.launches += 1
     return JoinRows(sp, sw, cnt, *lists, n_lattice)
@@ -680,49 +688,78 @@ def _block_cols(c: int, size: int) -> int:
     return -(-c // size)
 
 
-def apply_sharded_plain(seg_ids, weights, neighbors, v, taps, slice_norm, axis, transpose=False,
-                        return_table=False):
+def sharded_rows(seg_ids, weights, n_lattice) -> JoinRows:
+    """K11b's row lists: this rank's contributions (``seg_ids`` (n_loc, d+1), ``weights``) over the
+    ``n_lattice`` live rows of a sharded plan (K11a numbers them first, so they are rows 0 .. n_lattice-1).
+
+    One host read of ``n_lattice`` (every rank holds the same value) sizes
+    the lists; every row is live, so a row this rank does not reach holds
+    an empty run.  On the card :func:`join_rows_device` with one component
+    (counted in ``join_rows.launches``).
+    """
+    nl = int(n_lattice)
+    if not seg_ids.is_cuda:
+        return _rows_plain(seg_ids, weights, nl, n_lattice)
+    build.require("sharded_rows", (n_lattice, torch.int32))
+    return join_rows_device(seg_ids, weights, n_lattice.reshape(1), nl, seg_ids.shape[0], n_lattice, sparse=True)
+
+
+def _live_neighbors(neighbors, nl: int):
+    """The (d+1, nl, 2r) neighbour ids of a plan's nl live rows, nl meaning missing (the plain blur's pad row)."""
+    nb = neighbors[:, :nl]
+    return torch.where(nb == neighbors.shape[1], nl, nb)
+
+
+def apply_sharded_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, axis, transpose=False,
+                        return_table=False, rows=None):
     """Plain K11b (apply_plan_join's sharded branch, :499-521), collectives included.
 
-    This rank's splat into an (M, c_pad) table, seen as a (P, M, cb) block
-    buffer; the reduce-scatter over the blocks; the d+1 blurs of this rank's
-    (M, cb) block; the all-gather of the blocks; the slice of this rank's
-    points.  ``return_table`` also returns the blurred (M, c) table, every
-    rank's blocks side by side.
+    In the kernels' order, over the n_lattice live rows of the sharded plan
+    (``rows``, :func:`sharded_rows`, built when None): the row-order splat
+    of each column block of v (padded with zero columns to c_pad = P cb)
+    into a (P, n_lattice, cb) block buffer; the reduce-scatter over the
+    blocks; the d+1 blurs of this rank's (n_lattice, cb) block; the
+    all-gather of the blocks; the slice of this rank's points, summed in
+    vertex order.  ``return_table`` also returns the blurred (n_lattice, c)
+    table, every rank's blocks side by side.
     """
-    n, dp1 = seg_ids.shape
-    M = neighbors.shape[1]
     c = v.shape[-1]
     P, cb = axis.size, _block_cols(c, axis.size)
-    contrib = (v[:, None, :] * weights[:, :, None]).reshape(n * dp1, c)
-    table = torch.zeros((M, P * cb), dtype=torch.float32, device=v.device)
-    table[:, :c].index_add_(0, seg_ids.reshape(-1).long(), contrib)
-    mine = _blur_plain(axis.psum_scatter(table.reshape(M, P, cb).permute(1, 0, 2)), neighbors, taps, transpose)
-    full = axis.all_gather_blocks(mine).permute(1, 0, 2).reshape(M, P * cb)[:, :c]
-    out = (full[seg_ids.long()] * weights[:, :, None]).sum(dim=1) * slice_norm
+    rows = _rows_plain(seg_ids, weights, int(n_lattice), n_lattice) if rows is None else rows
+    nl = rows.cnt.shape[0]
+    padded = torch.nn.functional.pad(v, (0, P * cb - c))
+    blocks = torch.stack([chain_splat_plain(rows, padded[:, b * cb:(b + 1) * cb].contiguous()) for b in range(P)])
+    mine = _blur_plain(axis.psum_scatter(blocks), _live_neighbors(neighbors, nl), taps, transpose)
+    full = axis.all_gather_blocks(mine).permute(1, 0, 2).reshape(nl, P * cb)[:, :c]
+    out = _slice_sums(full, seg_ids, weights) * slice_norm
     return (out, full.contiguous()) if return_table else out
 
 
 def lattice_apply_sharded(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, axis,
-                          transpose=False, return_table=False):
+                          transpose=False, return_table=False, rows=None):
     """K11b: ``slice_norm * S^T B S v`` over a sharded plan, for this rank's rows v (n_loc, c).
 
     ``seg_ids`` (n_loc, d+1) and ``weights`` are this rank's points of a
     global plan whose ``neighbors`` (d+1, M, 2r) and ``n_lattice`` every rank
-    holds alike (K11a); ``axis`` is the
+    holds alike (K11a, rows numbered by first vertex, so the live rows are
+    the first n_lattice); ``rows`` are this rank's row lists
+    (:func:`sharded_rows`, built here when None: a plan applied more than
+    once brings them); ``axis`` is the
     :class:`~simplex_gp_torch.parallel.comm.DataAxis`.  The kernels splat
-    into a (P, M, cb) block buffer, the axis reduce-scatters it, K3's blur
-    runs on this rank's (M, cb) block (``transpose``: the axes reversed),
-    the axis all-gathers the blocks, and the kernel slices this rank's
-    points from them.  ``return_table`` also returns the blurred (M, c)
-    table in K5's row-major layout (rows past n_lattice undefined): the
-    gathered blocks are permuted into it, one (M, c) copy (9.7 MB at
-    elevators), so that K5 stays the single-device kernel.  A
-    sharded plan is untrimmed (M = n_loc (d+1) P), so there is no guard.
+    each column block in row order into a (P, n_lattice, cb) block buffer,
+    the axis reduce-scatters it, the d+1 live-row blurs run in one launch on
+    this rank's (n_lattice, cb) block (``transpose``: the axes reversed), the axis
+    all-gathers the blocks, and the kernel slices this rank's points from
+    them.  No atomics: two calls give the same bits,
+    :func:`apply_sharded_plain`'s.  ``return_table`` also returns the
+    blurred (n_lattice, c) table in K5's row-major layout: the gathered
+    blocks are permuted into it, one copy, so that K5 stays the
+    single-device kernel.  A sharded plan is untrimmed (M = n_loc (d+1) P),
+    so there is no guard.
     """
     if not v.is_cuda:
-        return apply_sharded_plain(seg_ids, weights, neighbors, v, taps, slice_norm, axis, transpose,
-                                   return_table)
+        return apply_sharded_plain(seg_ids, weights, neighbors, n_lattice, v, taps, slice_norm, axis, transpose,
+                                   return_table, rows)
     build.require("lattice_apply_sharded", (seg_ids, torch.int32), (weights, torch.float32),
                   (neighbors, torch.int32), (n_lattice, torch.int32), (v, torch.float32))
     n, dp1 = seg_ids.shape
@@ -735,29 +772,30 @@ def lattice_apply_sharded(seg_ids, weights, neighbors, n_lattice, v, taps, slice
     if M != n * dp1 * axis.size:
         raise ValueError(f"lattice_apply_sharded: a plan of {M} rows for {axis.size} ranks of {n} points "
                          f"(a sharded plan is untrimmed)")
-    lib = build.library()
+    rows = sharded_rows(seg_ids, weights, n_lattice) if rows is None else rows
+    nl = rows.cnt.shape[0]
+    _require_rows("lattice_apply_sharded", rows, n * dp1, nl)
+    lib, st, dev = build.library(), build.stream(), v.device
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
     P, cb = axis.size, _block_cols(c, axis.size)
-    blocks = torch.zeros((P, M, cb), dtype=torch.float32, device=v.device)
-    build.check(lib.sgp_lattice_splat_blocks(seg_ids.data_ptr(), weights.data_ptr(), v.data_ptr(), n, dp1,
-                                             c, cb, M, blocks.data_ptr(), build.stream()),
-                "lattice_apply_sharded (splat)")
+    blocks = torch.empty((P, nl, cb), dtype=torch.float32, device=dev)
+    part = torch.empty((rows.piece_row.shape[0], cb), dtype=torch.float32, device=dev)
+    build.check(lib.sgp_lattice_splat_blocks(*_rows_args(rows), v.data_ptr(), c, cb, P, nl, blocks.data_ptr(),
+                                             part.data_ptr(), st), "lattice_apply_sharded (splat)")
     a = axis.psum_scatter(blocks)
     b = torch.empty_like(a)
-    st = build.stream()
-    for j in _blur_axes(dp1, transpose):
-        rc = lib.sgp_lattice_blur(a.data_ptr(), b.data_ptr(), neighbors[j].data_ptr(),
-                                  ctypes.addressof(taps_host), M, cb, order, n_lattice.data_ptr(), st)
-        build.check(rc, "lattice_apply_sharded (blur)")
-        a, b = b, a
-    gathered = axis.all_gather_blocks(a)
-    out = torch.empty((n, c), dtype=torch.float32, device=v.device)
+    barrier = torch.empty(1, dtype=torch.int32, device=dev)
+    build.check(lib.sgp_lattice_blur_live(a.data_ptr(), b.data_ptr(), neighbors.data_ptr(),
+                                          ctypes.addressof(taps_host), M, nl, cb, order, dp1, int(transpose),
+                                          barrier.data_ptr(), st), "lattice_apply_sharded (blur)")
+    gathered = axis.all_gather_blocks(a if dp1 % 2 == 0 else b)
+    out = torch.empty((n, c), dtype=torch.float32, device=dev)
     build.check(lib.sgp_lattice_slice_blocks(gathered.data_ptr(), seg_ids.data_ptr(), weights.data_ptr(), n,
-                                             dp1, c, cb, M, float(slice_norm), out.data_ptr(), build.stream()),
+                                             dp1, c, cb, nl, float(slice_norm), out.data_ptr(), st),
                 "lattice_apply_sharded (slice)")
     lattice_apply_sharded.launches += 1
     if return_table:
-        return out, gathered.permute(1, 0, 2).reshape(M, P * cb)[:, :c].contiguous()
+        return out, gathered.permute(1, 0, 2).reshape(nl, P * cb)[:, :c].contiguous()
     return out
 
 
@@ -837,16 +875,36 @@ def lattice_filter_grad(ref, E, seg_ids, v, g, table_f, table_b, slice_norm):
 lattice_filter_grad.launches = 0
 
 
-def filter_once_plain(x, E, a, oh1, oh2, v, taps, slice_norm, capacity):
-    """Plain K4 (filter_fused, :1166): K1 + K2 + K3 plain, with JAX's capacity guard.
+def _renumber(seg, neighbors, n_lattice, generator):
+    """The plan with its live rows renumbered by a random permutation drawn from ``generator``."""
+    N, nl = neighbors.shape[1], int(n_lattice)
+    perm = torch.randperm(nl, generator=generator).to(seg.device)
+    to_new = torch.cat([perm, torch.arange(nl, N + 1, device=seg.device)])  # dead rows and "missing" stay
+    moved = torch.full_like(neighbors, N)
+    moved[:, perm] = to_new[neighbors[:, :nl].long()].to(torch.int32)
+    return to_new[seg.long()].to(torch.int32), moved
+
+
+def filter_once_plain(x, E, a, oh1, oh2, v, taps, slice_norm, capacity, numbering=None):
+    """Plain K4 (filter_fused, :1166): K1 + K2 plain, then the apply in the kernel's order.
 
     Returns (out (n, c), n_lattice 0-d int32); ``out`` is all NaN when more
-    than ``capacity`` lattice points are occupied (lattice.py:1295).
+    than ``capacity`` lattice points are occupied (lattice.py:1295).  The
+    apply sums as the kernel does: the row-order splat (each row's
+    contributions in contribution order, :func:`chain_splat_plain`), the
+    d+1 blurs, the slice in vertex order; none of it depends on how the
+    rows are numbered.  ``numbering`` (a CPU ``torch.Generator``, or None for
+    sorted key order) renumbers the rows at random first, as the kernel's
+    counter numbers them in the order its threads win their inserts.
     """
     n, d = x.shape
     h1, h2, w = geometry_plain(x, E, a)
     seg, nb, n_lattice = dedup_neighbors_plain(h1, h2, oh1, oh2)
-    out = apply_plain(seg.reshape(n, d + 1), w, nb, v, taps, slice_norm)
+    if numbering is not None:
+        seg, nb = _renumber(seg, nb, n_lattice, numbering)
+    seg = seg.reshape(n, d + 1)
+    rows = join_rows_plain(seg, w, nb, n_lattice)
+    out = _slice_sums(_blur_plain(chain_splat_plain(rows, v), nb, taps, False), seg, w) * slice_norm
     return torch.where(n_lattice <= capacity, out, float("nan")), n_lattice
 
 
@@ -859,6 +917,16 @@ def lattice_filter_once(x, E, a, oh1, oh2, v, taps, slice_norm, capacity):
     When more than ``capacity`` points are occupied, ``out`` is all NaN and
     the kernel's n_lattice is some count above the capacity (the plain
     version's is the true occupancy).
+
+    On the card (csrc/once.cu), two host calls around one host read of the
+    count: K1's team geometry and the insert into a bounded hash table (a
+    plain load before any CAS); past the capacity, NaN and nothing more;
+    else, on one workspace, the seg ids and the live rows' neighbour ids
+    (K2's passes), the row lists (a stable radix sort of the seg ids, K9's
+    runs, the sort chain's lists), the row-order splat, the d+1 blurs in
+    one launch and the slice.  No atomics touch a value, and the rows'
+    numbering does not reach the output, so two calls give the same bits,
+    :func:`filter_once_plain`'s.
     """
     if not x.is_cuda:
         return filter_once_plain(x, E, a, oh1, oh2, v, taps, slice_norm, capacity)
@@ -878,26 +946,26 @@ def lattice_filter_once(x, E, a, oh1, oh2, v, taps, slice_norm, capacity):
         raise ValueError(f"lattice_filter_once: capacity {capacity} outside 1..{N}")
     slots = _table_slots(capacity)
     dev = x.device
-    lib = build.library()
-    taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
-    i32 = dict(dtype=torch.int32, device=dev)
-    table = torch.full((slots,), -2, dtype=torch.int64, device=dev)  # SGP_EMPTY
-    row_of_slot = torch.empty(slots, **i32)
-    row_h1, row_h2 = torch.empty(capacity, **i32), torch.empty(capacity, **i32)
-    slot_of, seg = torch.empty(N, **i32), torch.empty(N, **i32)
-    w = torch.empty(N, dtype=torch.float32, device=dev)
-    count = torch.zeros((), **i32)
-    ta = torch.zeros((capacity, c), dtype=torch.float32, device=dev)
-    tb = torch.empty((capacity, c), dtype=torch.float32, device=dev)
-    out = torch.empty((n, c), dtype=torch.float32, device=dev)
-    rc = lib.sgp_filter_once(x.data_ptr(), E.data_ptr(), a.data_ptr(), n, d, oh1.data_ptr(),
-                             oh2.data_ptr(), ctypes.addressof(taps_host), r2 // 2, v.data_ptr(), c,
-                             float(slice_norm), capacity, slots - 1, table.data_ptr(),
-                             row_of_slot.data_ptr(), row_h1.data_ptr(), row_h2.data_ptr(),
-                             slot_of.data_ptr(), seg.data_ptr(), w.data_ptr(), count.data_ptr(),
-                             ta.data_ptr(), tb.data_ptr(), out.data_ptr(), build.stream())
-    build.check(rc, "lattice_filter_once")
+    lib, st = build.library(), build.stream()
+    table = torch.empty(slots, dtype=torch.int64, device=dev)
+    pre = torch.empty(5 * N + slots + 2 * capacity, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    build.check(lib.sgp_once_insert(x.data_ptr(), E.data_ptr(), a.data_ptr(), n, d, capacity, slots - 1,
+                                    table.data_ptr(), pre.data_ptr(), count.data_ptr(), st),
+                "lattice_filter_once (insert)")
     lattice_filter_once.launches += 1
+    nl = int(count)  # the one host read: it sizes the live rows' buffers
+    if nl > capacity:
+        return torch.full((n, c), float("nan"), device=dev), count
+    need = ctypes.c_longlong(0)
+    build.check(lib.sgp_once_workspace(N, nl, c, dp1, r2, ctypes.addressof(need)), "lattice_filter_once (workspace)")
+    work = torch.empty(need.value, dtype=torch.uint8, device=dev)
+    out = torch.empty((n, c), dtype=torch.float32, device=dev)
+    taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
+    build.check(lib.sgp_once_apply(pre.data_ptr(), table.data_ptr(), slots - 1, capacity, count.data_ptr(), n, dp1,
+                                   nl, oh1.data_ptr(), oh2.data_ptr(), r2, v.data_ptr(), c, ctypes.addressof(taps_host),
+                                   float(slice_norm), work.data_ptr(), need.value, out.data_ptr(), st),
+                "lattice_filter_once (apply)")
     return out, count
 
 

@@ -7,7 +7,8 @@ randomized range finder.  Four kernels carry it:
 
 * K13a ``ski_interp``: Keys cubic weights of each point on the grid and the
   4-tap gather F = sum_t w[:, t] U[idx[:, t]]; ``ski_interp_backward``
-  scatter-adds w (x) dF into dU;
+  scatter-adds w (x) dF into dU in a fixed order (no atomics), which its
+  plain version follows, so the two agree bit for bit;
 * K13b ``ski_kr_matmul``: out = M W for W (r^2, k), M never formed;
 * K13c ``ski_kr_gram``: out = Q^T M for Q (n, k), M never formed;
 * K13d ``ski_kr_adjoint``: (dR, dF) of <G, M W>, i.e. dR[i, a] =
@@ -36,7 +37,10 @@ __all__ = [
 ]
 
 _MAX_R = 64  # SKI_MAX_R in csrc/ski.cu
-_MAX_SCATTER = 12288  # floats of the (g, r) table K13a's backward keeps in 48 KB of shared memory
+_MAX_SCATTER = 12288  # floats of a (g, r) slice: K13a's backward keeps _SCATTER_SLICES of them in shared memory
+_SCATTER_SLICES = 4  # SKI_SCATTER_SLICES in csrc/ski.cu: point sub-ranges of a K13a backward block
+_SCATTER_BLOCKS = 132  # most blocks of K13a's backward (one an SM of an H100)
+_SCATTER_MIN_SPAN = 16  # fewest points a sub-range takes
 _GRAM_CHUNKS = 64  # most row chunks of K13c's first pass
 _GRAM_MIN_ROWS = 1024  # fewest rows a chunk takes
 
@@ -56,7 +60,8 @@ def interp_taps(x: torch.Tensor, grid_min: torch.Tensor, grid_step: torch.Tensor
     idx = base[:, None] + torch.arange(-1, 3, dtype=torch.int32, device=x.device)[None, :]
     w = _cubic_kernel(pos[:, None] - idx.to(pos.dtype))
     idx = torch.clamp(idx, 0, grid_size - 1).long()
-    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-12)
+    total = ((w[:, 0] + w[:, 1]) + w[:, 2]) + w[:, 3]  # in order, as the kernels add them
+    w = w / torch.clamp(total[:, None], min=1e-12)
     return idx, w
 
 
@@ -66,12 +71,42 @@ def interp_plain(x, grid_min, grid_step, U):
     return (w[:, :, None] * U[idx]).sum(dim=1)
 
 
+def _scatter_split(n: int) -> tuple[int, int]:
+    """(blocks, span) of K13a's backward: at most _SCATTER_BLOCKS blocks of _SCATTER_SLICES sub-ranges of span
+    points each (at least _SCATTER_MIN_SPAN), sub-range q holding the points [q span, (q + 1) span)."""
+    blocks = max(1, min(_SCATTER_BLOCKS, -(-n // (_SCATTER_SLICES * _SCATTER_MIN_SPAN))))
+    span = max(1, -(-n // (blocks * _SCATTER_SLICES)))
+    return max(1, -(-n // (_SCATTER_SLICES * span))), span
+
+
 def interp_backward_plain(x, grid_min, grid_step, dF, grid_size: int):
-    """Plain K13a backward: dU (g, r), the scatter-add of w[:, t] dF into the rows idx[:, t]."""
+    """Plain K13a backward: dU (g, r), the scatter-add of w[:, t] dF into the rows idx[:, t].
+
+    In the kernel's order: each sub-range of points (:func:`_scatter_split`)
+    adds its points in index order, each point's taps t = 0..3 in turn, into
+    a (g, r) slice of its own; each block adds its _SCATTER_SLICES slices in
+    order, and dU is the blocks' sums added in block order.
+    """
     idx, w = interp_taps(x, grid_min, grid_step, grid_size)
-    r = dF.shape[1]
-    return torch.zeros((grid_size, r), dtype=dF.dtype, device=dF.device).index_add_(
-        0, idx.reshape(-1), (w[:, :, None] * dF[:, None, :]).reshape(-1, r))
+    n, r = dF.shape
+    blocks, span = _scatter_split(n)
+    slices = torch.zeros((blocks * _SCATTER_SLICES, grid_size, r), dtype=dF.dtype, device=dF.device)
+    sub = torch.arange(blocks * _SCATTER_SLICES, device=dF.device)
+    for i in range(span):
+        p = sub * span + i
+        live = p < n
+        q, p = sub[live], p[live]
+        for t in range(4):
+            rows = idx[p, t]
+            slices[q, rows] = slices[q, rows] + w[p, t, None] * dF[p]
+    parts = slices.reshape(blocks, _SCATTER_SLICES, grid_size, r)
+    acc = parts[:, 0]
+    for k in range(1, _SCATTER_SLICES):
+        acc = acc + parts[:, k]
+    out = torch.zeros((grid_size, r), dtype=dF.dtype, device=dF.device)
+    for b in range(blocks):
+        out = out + acc[b]
+    return out
 
 
 def kr_matmul_plain(R, F, W):
@@ -122,18 +157,23 @@ def ski_interp(x, grid_min, grid_step, U):
 
 
 def ski_interp_backward(x, grid_min, grid_step, dF, grid_size: int):
-    """K13a's backward: dU (g, r) += w[:, t] dF into the rows idx[:, t], through a per-block shared table."""
+    """K13a's backward: dU (g, r) += w[:, t] dF into the rows idx[:, t], in a fixed order with no atomics
+    (:func:`interp_backward_plain`'s), so two calls give the same bits."""
     if not x.is_cuda:
         return interp_backward_plain(x, grid_min, grid_step, dF, grid_size)
     build.require("ski_interp_backward", (x, torch.float32), (grid_min, torch.float32),
                   (grid_step, torch.float32), (dF, torch.float32))
     n, r = dF.shape
-    if grid_size * r > _MAX_SCATTER:
-        raise ValueError(f"ski_interp_backward: a ({grid_size}, {r}) table exceeds {_MAX_SCATTER} floats")
-    dU = torch.zeros((grid_size, r), dtype=torch.float32, device=x.device)
+    if grid_size * r > _MAX_SCATTER or r > _MAX_R:
+        raise ValueError(f"ski_interp_backward: a ({grid_size}, {r}) slice exceeds {_MAX_SCATTER} floats or rank "
+                         f"{_MAX_R}")
+    blocks, span = _scatter_split(n)
+    dU = torch.empty((grid_size, r), dtype=torch.float32, device=x.device)
+    partial = dU if blocks == 1 else torch.empty((blocks, grid_size, r), dtype=torch.float32, device=x.device)
     lib = build.library()
     build.check(lib.sgp_ski_interp_scatter(x.data_ptr(), grid_min.data_ptr(), grid_step.data_ptr(), dF.data_ptr(),
-                                           n, grid_size, r, dU.data_ptr(), build.stream()), "ski_interp_backward")
+                                           n, grid_size, r, span, blocks, partial.data_ptr(), dU.data_ptr(),
+                                           build.stream()), "ski_interp_backward")
     ski_interp_backward.launches += 1
     return dU
 

@@ -180,7 +180,7 @@ class _System(NamedTuple):
     solves: torch.Tensor  # (n, 1+p): alpha and the probe solves
     logdet: torch.Tensor  # () log|K_hat| estimate
     probes_right: torch.Tensor  # (n, p) right vectors of the trace backward
-    plan: tuple  # the CG's plan: a ChainPlan, a MixturePlan, a sharded LatticePlan, or a mixture's tuple of them
+    plan: tuple  # the CG's plan: a ChainPlan, a MixturePlan, a sharded WidePlan, or a mixture's tuple of them
     iterations: int  # CG iterations
     residual: torch.Tensor  # (1+p,) best relative residuals
 

@@ -6,7 +6,8 @@ plan (K1 + K3'a build, K3'b-d apply) for a DiscretizedKernel, and
 :func:`apply_plan_any` applies a plan by its type.  :func:`_filter_plain`
 keeps JAX's one-shot dispatch (:120-140): values of up to ``_WIDE_COLS`` =
 16 columns go to the one-shot filter K4 (``filter_once``); wider ones to
-the join plan (K1 + K2 build, K3 apply), or, above ``_JOIN_MAX_ROWS``
+the join plan (K1 + K2 build, K9 on its row lists, one window of all the
+columns), or, above ``_JOIN_MAX_ROWS``
 contribution rows n(d+1), to one join plan applied by K9 a window of
 several of JAX's ``_WIDE_CHUNK``-column blocks at a time
 (:func:`lattice_filter_wide_chunked`, :func:`make_wide_filter`; JAX's
@@ -55,7 +56,6 @@ from .kernels import DiscretizedKernel, MixtureKernel
 from .lattice import (
     SLICE_NORM,
     ChainPlan,
-    LatticePlan,
     MixturePlan,
     WidePlan,
     apply_plan_chain,
@@ -131,25 +131,28 @@ def apply_plan_any(plan, V: torch.Tensor, dk, transpose: bool = False, return_ta
     """K @ V (or K^T @ V) through a plan from :func:`build_plan_any` or :func:`build_join_plan_any`,
     or a sharded plan with ``axis``.
 
-    No outputscale or noise.  A ChainPlan applies by K3'b-d (apply_plan,
-    lattice.py:1305-1314) and has neither a transpose nor a table to
-    return; a WidePlan (a join plan with its row lists, the exact
+    No outputscale or noise.  With ``axis`` the plan is sharded (a WidePlan
+    over the live rows) and applies by K11b, or, for a mixture, its tuple of
+    sharded plans, one a component, by K11b each
+    (:func:`_apply_sharded_mixture`).  A ChainPlan applies by K3'b-d
+    (apply_plan, lattice.py:1305-1314) and has neither a transpose nor a
+    table to return; a WidePlan (a join plan with its row lists, the exact
     backward's) by K9 over one window of all V's columns, with no atomics; a
-    mixture applies all its components by K12 (filter.py:196-204), or with
-    ``axis`` its tuple of sharded plans, one a component, by K11b each
-    (:func:`_apply_sharded_mixture`).
+    mixture applies all its components by K12 (filter.py:196-204).
     """
+    if axis is not None:
+        if isinstance(dk, MixtureKernel):
+            return _apply_sharded_mixture(plan, V, dk, transpose, return_table, axis)
+        return apply_plan_join(plan, V, dk.coeffs, transpose, return_table, axis)
     if isinstance(plan, ChainPlan):
-        if transpose or return_table or axis is not None:
-            raise NotImplementedError("a chain plan applies forward on one device: no transpose, table or axis")
+        if transpose or return_table:
+            raise NotImplementedError("a chain plan applies forward on one device: no transpose or table")
         return apply_plan_chain(plan, V, dk.coeffs)
     if isinstance(plan, WidePlan):
         return apply_plan_rows(plan, V, dk.coeffs, transpose, return_table)
     if isinstance(dk, MixtureKernel):
-        if axis is not None:
-            return _apply_sharded_mixture(plan, V, dk, transpose, return_table, axis)
         return apply_plan_mixture(plan, V, dk.base.coeffs, dk.weights, transpose, return_table)
-    return apply_plan_join(plan, V, dk.coeffs, transpose, return_table, axis)
+    return apply_plan_join(plan, V, dk.coeffs, transpose, return_table)
 
 
 def _apply_sharded_mixture(plans: tuple, V: torch.Tensor, dk: MixtureKernel, transpose: bool, return_table: bool,
@@ -249,12 +252,16 @@ def mixture_position_grad(plan: MixturePlan, ref: torch.Tensor, dk: MixtureKerne
 
 def _plan_tensors(plan) -> tuple:
     """A plan's tensors, flat (for ``save_for_backward``): a WidePlan's or a MixturePlan's four fields, then
-    its rows; a tuple of sharded plans (a mixture's), one after another."""
+    its rows; a tuple of sharded plans (a mixture's WidePlans), one after another."""
     if isinstance(plan, (WidePlan, MixturePlan)):
         return (*plan[:4], *plan.rows)
     if type(plan) is tuple:
-        return tuple(t for component in plan for t in component)
+        return tuple(t for component in plan for t in _plan_tensors(component))
     return tuple(plan)
+
+
+# Tensors of one flattened WidePlan: its four plan fields and its row lists.
+_WIDE_TENSORS = 4 + len(JoinRows._fields)
 
 
 def _plan_from_tensors(plan_type, tensors) -> tuple:
@@ -262,8 +269,8 @@ def _plan_from_tensors(plan_type, tensors) -> tuple:
     if plan_type in (WidePlan, MixturePlan):
         return plan_type(*tensors[:4], JoinRows(*tensors[4:]))
     if plan_type is tuple:
-        k = len(LatticePlan._fields)
-        return tuple(LatticePlan(*tensors[i:i + k]) for i in range(0, len(tensors), k))
+        return tuple(_plan_from_tensors(WidePlan, tensors[i:i + _WIDE_TENSORS])
+                     for i in range(0, len(tensors), _WIDE_TENSORS))
     return plan_type(*tensors)
 
 
@@ -303,7 +310,8 @@ def filter_backward(plan, ref: torch.Tensor, dk, src: torch.Tensor, g: torch.Ten
     one).  A bare join plan takes K3's transposed apply.  With ``axis``
     the plan is sharded: the transposed apply is K11b's, which splats every
     rank's g, and K5 runs on this rank's points against the two global
-    tables, so grad_ref holds this rank's rows of the whole gradient.  A
+    (n_lattice, c) tables, so grad_ref holds this rank's rows of the whole
+    gradient.  A
     mixture runs the transposed K12 and :func:`mixture_position_grad`, or
     with ``axis`` :func:`_sharded_mixture_backward` (``table_f`` the tuple of
     its components' tables).
@@ -420,14 +428,15 @@ def lattice_filter_rect(src: torch.Tensor, x_from: torch.Tensor, x_to: torch.Ten
 def _filter_plain(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel) -> torch.Tensor:
     """K(ref, ref) @ src, untrimmed, engine by width and size (filter.py:120-140).
 
-    K4 up to 16 columns; wider, K9 above ``_JOIN_MAX_ROWS`` rows, else a
-    join plan and K3.  JAX's ``capacity`` argument is left out: no caller
-    here trims these filters.
+    K4 up to 16 columns; wider, K9 by windows above ``_JOIN_MAX_ROWS`` rows,
+    else a join plan with its row lists and K9 over one window of all the
+    columns (JAX's join apply; no atomics, so the same bits twice).  JAX's
+    ``capacity`` argument is left out: no caller here trims these filters.
     """
     if src.shape[-1] > _WIDE_COLS:
         if _chunked(*ref.shape, src.shape[-1]):
             return lattice_filter_wide_chunked(src, ref, dk)
-        return apply_plan_join(build_plan_join(ref, dk.coeffs, dk.variance), src, dk.coeffs)
+        return apply_plan_rows(wide_plan(build_plan_join(ref, dk.coeffs, dk.variance)), src, dk.coeffs)
     return filter_once(src, ref, dk.coeffs, dk.variance)
 
 

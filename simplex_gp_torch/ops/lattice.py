@@ -19,10 +19,12 @@ builds it once and applies it many times.  There are two engines, as in JAX:
   give the same bits.  The single-device CG runs on it.
 * the join (:class:`LatticePlan`, build_plan_join / apply_plan_join): K1
   and K2 (lattice_dedup_neighbors: lattice rows and blur neighbours) build
-  it, K3 (lattice_apply, atomic splat) applies it, K3 transposed and K5
-  differentiate it, all in :mod:`simplex_gp_torch.kernels.lattice`; the
-  sharded plan of the data-parallel engine is K1 and K11a, applied by K11b
-  (``axis``).
+  it, K3 (lattice_apply, atomic splat; a yardstick, on no model path)
+  applies it; with its row lists (a :class:`WidePlan`) K9 applies it, K9
+  transposed and K5 differentiate it, all in
+  :mod:`simplex_gp_torch.kernels.lattice`; the sharded plan of the
+  data-parallel engine is K1, K11a and this rank's row lists over the live
+  rows (a WidePlan), applied by K11b (``axis``).
 
 Both compute the same operator (up to 64-bit hash collisions and the chain's
 43-bit packed words, lattice.py:583-587), and both take the chain plan's
@@ -68,6 +70,7 @@ from ..kernels.lattice import (
     lattice_filter_once,
     lattice_geometry,
     lattice_simplex,
+    sharded_rows,
 )
 from ..kernels.chain import ChainPlan, chain_apply, chain_build
 from ..kernels.mixture import lattice_mixture_apply, mixture_rows
@@ -387,17 +390,20 @@ def mixture_component(plan: MixturePlan, j: int) -> LatticePlan:
                        plan.neighbors[:, j * M:(j + 1) * M].contiguous(), plan.live[j])
 
 
-def build_plan_sharded_join(x_local: torch.Tensor, coeffs: tuple, blur_variance: float, axis) -> LatticePlan:
-    """The global join plan over every rank's points, with this rank's seg ids and weights.
+def build_plan_sharded_join(x_local: torch.Tensor, coeffs: tuple, blur_variance: float, axis) -> WidePlan:
+    """The global join plan over every rank's points, with this rank's seg ids, weights and row lists.
 
     Port of simplex_gp_tpu/parallel/shard_filter.py::build_plan_sharded_join
     (:118-143).  ``axis`` is a DataAxis: K1 runs on this rank's points, the
     hash pairs are all-gathered in rank order, and K11a builds the global
-    plan from them with rows numbered alike on every rank.  ``seg_ids``
-    (n_loc, d+1) and ``weights`` are this rank's points; ``neighbors``
-    (d+1, M, 2r) and ``n_lattice`` are the global plan's, the same bits on
-    every rank (M = n_loc (d+1) P, untrimmed).  Every rank must pass the same
-    number of points.
+    plan from them with rows numbered alike on every rank, the live ones
+    first.  ``seg_ids`` (n_loc, d+1) and ``weights`` are this rank's points;
+    ``neighbors`` (d+1, M, 2r) and ``n_lattice`` are the global plan's, the
+    same bits on every rank (M = n_loc (d+1) P, untrimmed); ``rows`` are
+    this rank's contributions over the n_lattice live rows
+    (:func:`~simplex_gp_torch.kernels.lattice.sharded_rows`, one host read of
+    n_lattice), built once for every K11b apply of the plan.  Every rank must
+    pass the same number of points.
     """
     n_loc, d = x_local.shape
     dp1 = d + 1
@@ -406,7 +412,7 @@ def build_plan_sharded_join(x_local: torch.Tensor, coeffs: tuple, blur_variance:
     seg_all, neighbors, n_lattice = lattice_dedup_ordered(axis.all_gather(h1), axis.all_gather(h2), oh1, oh2)
     start = axis.rank * n_loc * dp1
     seg_local = seg_all[start:start + n_loc * dp1].reshape(n_loc, dp1)
-    return LatticePlan(seg_local, weights, neighbors, n_lattice)
+    return WidePlan(seg_local, weights, neighbors, n_lattice, sharded_rows(seg_local, weights, n_lattice))
 
 
 def apply_plan_join(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, transpose: bool = False,
@@ -415,11 +421,12 @@ def apply_plan_join(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, transpose
 
     ``transpose`` applies K^T (the axis blurs in reverse order), the
     operator's gradient in v; ``return_table`` returns ``(out, table)`` with
-    the blurred (M, c) table before the slice, which the filter's backward
-    (K5) reads.  With ``axis`` (a DataAxis), ``plan`` is a sharded plan
-    (:func:`build_plan_sharded_join`), v holds this rank's rows, and the apply is
-    K11b: the ranks' partial tables are reduce-scattered by column blocks,
-    blurred one block per rank and all-gathered back (:499-521).
+    the blurred (M, c) table before the slice.  With ``axis`` (a DataAxis),
+    ``plan`` is a sharded plan (:func:`build_plan_sharded_join`, a
+    :class:`WidePlan`), v holds this rank's rows, and the apply is K11b on
+    the plan's row lists: the ranks' partial tables of the live rows are
+    reduce-scattered by column blocks, blurred one block per rank and
+    all-gathered back (:499-521); its table is (n_lattice, c).
     """
     d = plan.seg_ids.shape[1] - 1
     if len(coeffs) != plan.neighbors.shape[2] + 1:
@@ -427,7 +434,8 @@ def apply_plan_join(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, transpose
     args = (plan.seg_ids, plan.weights, plan.neighbors, plan.n_lattice, v.to(torch.float32).contiguous(),
             [float(c) for c in coeffs], SLICE_NORM(d))
     if axis is not None:
-        return lattice_apply_sharded(*args, axis, transpose, return_table)
+        return lattice_apply_sharded(*args, axis, transpose, return_table,
+                                     plan.rows if isinstance(plan, WidePlan) else None)
     return lattice_apply(*args, transpose, return_table)
 
 

@@ -9,12 +9,16 @@ ranks holds n_loc of the n = P n_loc input points:
     every rank holds the same N = n (d+1) global hashes and builds the same
     global plan from them with K11a, whose rows are numbered alike on every
     rank; each rank keeps its own window of the seg ids;
-  * the apply (K11b) splats each rank's points into a partial table,
-    reduce-scatters it by column blocks, blurs one block per rank and
-    all-gathers the blocks back; the slice reads this rank's points.
+  * each rank lists its own contributions in row order over the global
+    plan's n_lattice live rows, once per plan;
+  * the apply (K11b) splats each rank's points into a partial table of the
+    live rows, reduce-scatters it by column blocks, blurs one block per
+    rank and all-gathers the blocks back; the slice reads this rank's
+    points.
 
-Per apply each rank sends and receives (P-1)/P of an (M, c_pad) table; per
-plan build it gathers 8 bytes per vertex.
+Per apply each rank sends and receives (P-1)/P of an (n_lattice, c_pad)
+table (JAX's carries all M = n (d+1) rows, the dead ones too); per plan
+build it gathers 8 bytes per vertex.
 
 JAX's ``build_plan_sharded`` is the sort-chain engine (its column-split
 apply_plan_chain branch, lattice.py:1040-1061).  The port's sort chain
@@ -29,14 +33,14 @@ from __future__ import annotations
 import torch
 
 from ..ops.filter import lattice_filter_exact_grad
-from ..ops.lattice import LatticePlan, build_plan_sharded_join
+from ..ops.lattice import WidePlan, build_plan_sharded_join
 from .comm import DataAxis
 
 __all__ = ["build_plan_sharded", "build_plan_sharded_join", "filter_sharded"]
 
 
 def build_plan_sharded(x_local: torch.Tensor, coeffs: tuple, blur_variance: float,
-                       axis: DataAxis) -> LatticePlan:
+                       axis: DataAxis) -> WidePlan:
     """The sharded plan: :func:`build_plan_sharded_join` (JAX's is the sharded sort chain, not ported)."""
     return build_plan_sharded_join(x_local, coeffs, blur_variance, axis)
 

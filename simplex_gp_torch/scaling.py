@@ -79,6 +79,7 @@ def _one_size(ax, args, device) -> dict:
         plan = build_plan_sharded_join(x_loc, dk.coeffs, dk.variance, ax)
         return apply_plan_join(plan, v_loc, dk.coeffs, axis=ax)
 
+    n_lattice = int(build_plan_sharded_join(x_loc, dk.coeffs, dk.variance, ax).n_lattice)
     t_full = ms(full, args.reps)
     ax.timing = True
     ax.reset_stats()
@@ -105,11 +106,11 @@ def _one_size(ax, args, device) -> dict:
         "d": args.dim,
         "cols": args.cols,
         "mode": "weak" if args.weak else "strong",
-        # Per apply each rank sends (P-1)/P of the (M, c_pad) table in the
-        # reduce-scatter and receives as much in the all-gather; the plan
-        # build gathers the 8-byte hash pair of every vertex.
-        "comm_table_bytes": n * (args.dim + 1) * cpad * 4,
-        "comm_per_device_bytes_per_mvm": int(2 * n * (args.dim + 1) * cpad * 4 * (size - 1) / size),
+        # Per apply each rank sends (P-1)/P of the (n_lattice, c_pad) table of
+        # the live rows in the reduce-scatter and receives as much in the
+        # all-gather; the plan build gathers the 8-byte hash pair of every vertex.
+        "comm_table_bytes": n_lattice * cpad * 4,
+        "comm_per_device_bytes_per_mvm": int(2 * n_lattice * cpad * 4 * (size - 1) / size),
         "comm_plan_build_bytes": n * (args.dim + 1) * 8,
         "filter_full_ms": t_full,
         "filter_mvm_per_s": 1e3 / t_full,

@@ -14,6 +14,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 from torch_dist_bodies import distributed_suite, hang_on_rank_one, raise_on_rank_one
 
 from simplex_gp_torch.parallel import initialize_distributed, is_distributed, launch, local_device
@@ -79,8 +80,11 @@ def test_launch_deadline_ends_a_hung_collective():
 
 def test_scaling_records_over_two_gloo_ranks():
     """simplex_gp_torch.scaling's ladder on two gloo CPU ranks: a record per size with the keys of
-    experiments/scaling.py, the column-split traffic of c = 3 padded to 4, and finite times."""
+    experiments/scaling.py, the column-split traffic of c = 3 padded to 4 over the plan's live rows, and
+    finite times."""
     from simplex_gp_torch import scaling
+    from simplex_gp_torch.ops.kernels import rbf_kernel
+    from simplex_gp_torch.ops.lattice import count_lattice_points
 
     argv = ["--device", "cpu", "--rows", "256", "-d", "2", "--cols", "3", "--reps", "1"]
     ranks = launch(scaling.records, 2, (argv,), device="cpu", timeout=120, threads=1)
@@ -92,7 +96,10 @@ def test_scaling_records_over_two_gloo_ranks():
         assert keys <= set(rec) and rec["n"] == 256 and rec["platform"] == "cpu"
         assert np.isfinite(rec["filter_full_ms"]) and rec["nlml_step_ms"] > 0
     two = ranks[0][1]
-    assert two["comm_table_bytes"] == 256 * 3 * 4 * 4 and two["comm_per_device_bytes_per_mvm"] == 256 * 3 * 4 * 4
+    x = np.random.default_rng(0).normal(size=(256, 2)).astype(np.float32)  # scaling.py's positions
+    live = int(count_lattice_points(torch.from_numpy(x), rbf_kernel(1).variance))
+    assert live < 256 * 3  # the dead rows of the plan's 768 travel no more
+    assert two["comm_table_bytes"] == live * 4 * 4 and two["comm_per_device_bytes_per_mvm"] == live * 4 * 4
     assert two["comm_plan_build_bytes"] == 256 * 3 * 8
 
 

@@ -2,11 +2,15 @@
 
 Same numpy inputs on both sides; the port on the CPU (plain kernel versions).
 JAX's filter_once is filter_fused, the sort-chain operator; the port's is
-the join operator (K1 + K2 + K3 plain).  The two agree up to 64-bit hash
+the join operator (K1 + K2 plain, then the apply in the kernel's order: the
+row-order splat, the d+1 blurs, the slice).  The two agree up to 64-bit hash
 collisions, the bound of test_chain_plan.py::test_chain_matches_join: rel
 < 2e-5 with equal n_lattice (measured <= 1e-6 on the CPU).  The count is exact on
 both sides.  Against the C++ golden model, the bound of test_cpu_ref.py
-(rtol 2e-4: another accumulation order and point-to-vertex order).
+(rtol 2e-4: another accumulation order and point-to-vertex order).  The
+kernel numbers its rows in the order its threads win their inserts; the
+plain version under two seeded random row numberings gives the same bits,
+so the output does not depend on that race.
 """
 
 import jax.numpy as jnp
@@ -164,3 +168,51 @@ def test_count_on_adversarial_inputs_matches_jax(case):
         assert got == n * (d + 1)
     elif case == "duplicated":
         assert got == int(t_lattice.count_lattice_points(torch.from_numpy(x[:120]), dk.variance))
+
+
+def _twin_args(x, v, dk, capacity=None):
+    n, d = x.shape
+    E, a, oh1, oh2 = t_lattice._lattice_constants(d, dk.coeffs, dk.variance, "cpu")
+    return (torch.from_numpy(x), E, a, oh1, oh2, torch.from_numpy(v), list(dk.coeffs), t_lattice.SLICE_NORM(d),
+            n * (d + 1) if capacity is None else capacity)
+
+
+def _numberings(args):
+    """The plain K4 in sorted key order and under two seeded random row numberings."""
+    base, nl = K.filter_once_plain(*args)
+    others = [K.filter_once_plain(*args, numbering=torch.Generator().manual_seed(s))[0] for s in (1, 2)]
+    return base, nl, others
+
+
+@pytest.mark.parametrize("n,d,order,c", [(300, 3, 1, 1), (257, 5, 2, 3), (64, 17, 1, 2), (200, 1, 1, 1)])
+def test_filter_once_twin_does_not_depend_on_the_row_numbering(n, d, order, c):
+    """The grid of test_filter_once_matches_jax_and_guards_capacity: the same bits under three row
+    numberings, JAX's filter_fused to rel 2e-5, and at capacity = occupancy - 1 all NaN under each."""
+    x, v = _data(n, d, c=c)
+    dk, jdk = t_kernels.rbf_kernel(order), j_kernels.rbf_kernel(order)
+    base, nl, others = _numberings(_twin_args(x, v, dk))
+    assert all(torch.equal(o, base) for o in others)
+    want = np.asarray(j_lattice.filter_once(jnp.asarray(v), jnp.asarray(x), jdk.coeffs, jdk.variance))
+    assert rel_err(base.numpy(), want) < 2e-5
+    seg, nb, _ = K.dedup_neighbors_plain(*K.geometry_plain(torch.from_numpy(x), *_twin_args(x, v, dk)[1:3])[:2],
+                                         *_twin_args(x, v, dk)[3:5])
+    moved, _ = K._renumber(seg, nb, nl, torch.Generator().manual_seed(1))
+    assert int(nl) < 3 or not torch.equal(moved, seg)  # the numbering did change
+    under = _twin_args(x, v, dk, int(nl) - 1)
+    if int(nl) > 1:
+        assert all(bool(torch.isnan(o).all()) for o in (K.filter_once_plain(*under)[0],
+                                                         *_numberings(under)[2]))
+
+
+@pytest.mark.parametrize("case", ["identical", "duplicated", "single", "one_dim"])
+def test_filter_once_twin_ignores_the_numbering_on_adversarial_inputs(case):
+    """Duplicate points, one point repeated, one point and d = 1: the same bits under three row
+    numberings and JAX's filter_fused to rel 2e-5.  (All keys distinct, 50 apart, is left out: there
+    JAX's sort chain merges chains by its 43-bit words, ROADMAP's reference behaviours.)"""
+    x = _adversarial(case)
+    v = np.random.default_rng(3).normal(size=(x.shape[0], 2)).astype(np.float32)
+    dk, jdk = t_kernels.rbf_kernel(1), j_kernels.rbf_kernel(1)
+    base, _, others = _numberings(_twin_args(x, v, dk))
+    assert all(torch.equal(o, base) for o in others)
+    want = np.asarray(j_lattice.filter_once(jnp.asarray(v), jnp.asarray(x), jdk.coeffs, jdk.variance))
+    assert rel_err(base.numpy(), want) < 2e-5

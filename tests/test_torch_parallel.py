@@ -197,6 +197,41 @@ def test_sharded_filter_gradients_match_single_device(run, tag, ci):
         assert rel_err(f["grad_x"], x.grad.numpy()) <= 1e-5
 
 
+@pytest.mark.parametrize("ci", [0, 1])
+@pytest.mark.parametrize("tag", SIZES)
+def test_sharded_apply_on_live_rows_repeats_and_matches_single_device(run, tag, ci):
+    """K11b's twin on the row lists of the n_lattice live rows: forward and transposed against JAX's
+    sharded apply and its vjp under shard_map and against the single-device port (rtol 1e-5, the
+    filter's bound), the same bits over two calls, and its blurred table the old full-M buffer's rows
+    below n_lattice bit for bit (the dead rows there all zero)."""
+    cases, res = run
+    case, size = cases["filters"][ci], SIZES[tag]
+    dk = dk_of(case["kernel"])
+    jdk = j_kernels.rbf_kernel(1) if case["kernel"][0] == "rbf" else j_kernels.matern_kernel(1.5, 2)
+
+    def j_apply(xs, vs):
+        def shard_fn(x_loc, v_loc):
+            plan = j_build_plan_sharded_join(x_loc, jdk.coeffs, jdk.variance, "data")
+            return j_apply_plan(plan, v_loc, jdk.coeffs, axis_name="data")
+
+        return shard_map(shard_fn, mesh=j_make_mesh(size), in_specs=(P("data", None), P("data", None)),
+                         out_specs=P("data", None), check_vma=False)(xs, vs)
+
+    j_out, vjp = jax.vjp(lambda vs: j_apply(case["x"], vs), case["v"])
+    want = {"k11b_forward": np.asarray(j_out), "k11b_transposed": np.asarray(vjp(case["v"])[0])}
+    x, v = torch.from_numpy(case["x"]), torch.from_numpy(case["v"])
+    plan = t_lattice.build_plan_join(x, dk.coeffs, dk.variance)
+    for r in res[tag]:
+        f = r["filters"][ci]
+        assert f["k11b_rows"] == f["n_lattice"] < f["neighbors"].shape[1]
+        for key, transpose in (("k11b_forward", False), ("k11b_transposed", True)):
+            single = t_lattice.apply_plan_join(plan, v, dk.coeffs, transpose=transpose)
+            np.testing.assert_allclose(f[key], single.numpy(), rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(f[key], want[key], rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(f["k11b_forward"], f["out"])
+        assert f["k11b_repeat"] and f["k11b_live_equal"] and f["k11b_dead_zero"]
+
+
 @pytest.mark.parametrize("tag", SIZES)
 def test_sharded_mixture_filter_matches_single_device(run, tag):
     """filter_sharded of a J = 8 mixture (the weighted sum of its components' sharded filters, JAX's

@@ -148,6 +148,34 @@ def test_interp_function_backward_is_the_scatter():
     assert rel_err(U.grad.numpy(), np.asarray(vjp(jnp.asarray(dF))[0])) <= 1e-5
 
 
+@pytest.mark.parametrize("n,g,r", [(300, 40, 6), (5000, 100, 64), (20000, 100, 16), (1, 9, 3)])
+def test_interp_backward_twin_matches_vjp_and_repeats(n, g, r):
+    """K13a's backward twin, in the kernel's order (sub-ranges, slices, blocks), against jax.vjp of the
+    gather (rel 1e-5: float32 sums in another order) and the index_add_ scatter (rel 1e-6), and the same
+    bits twice."""
+    x = np.random.default_rng(n).normal(size=n).astype(np.float32)
+    gmin, step = _grid(jnp.asarray(x), g)
+    dF = np.random.default_rng(6).normal(size=(n, r)).astype(np.float32)
+    args = (torch.from_numpy(x), torch.tensor(gmin), torch.tensor(step), torch.from_numpy(dF), g)
+    dU = K.interp_backward_plain(*args)
+    assert torch.equal(dU, K.interp_backward_plain(*args))
+    j_idx, j_w = jski._interp_1d(jnp.asarray(x), gmin, step, g)
+    _, vjp = jax.vjp(lambda u: (j_w[:, :, None] * u[j_idx]).sum(axis=1), jnp.zeros((g, r), jnp.float32))
+    assert rel_err(dU.numpy(), np.asarray(vjp(jnp.asarray(dF))[0])) <= 1e-5
+    idx, w = K.interp_taps(*args[:3], g)
+    scatter = torch.zeros((g, r)).index_add_(0, idx.reshape(-1), (w[:, :, None] * args[3][:, None, :]).reshape(-1, r))
+    assert rel_err(dU.numpy(), scatter.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 8447, 65536, 402223])
+def test_interp_backward_split_covers_every_point_once(n):
+    """The kernel's sub-ranges tile [0, n) in order: at most 132 blocks of 4 sub-ranges, none empty but the
+    last ones."""
+    blocks, span = K._scatter_split(n)
+    assert 1 <= blocks <= 132 and span >= 1
+    assert blocks * 4 * span >= n > (blocks - 1) * 4 * span or n == 0
+
+
 def _pair(rank, kernel="matern", ell=1.2, n=500, grid_size=100):
     """(JAX model, raw dict, port model) at one lengthscale, the port fed JAX's Omega."""
     jm = jski.SKIP(num_dims=3, grid_size=grid_size, rank=rank, kernel=kernel, min_noise=0.1)

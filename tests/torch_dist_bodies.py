@@ -11,6 +11,7 @@ import torch
 
 from simplex_gp_torch import SimplexGP
 from simplex_gp_torch.kernels import lattice as K
+from simplex_gp_torch.kernels.chain import chain_splat_plain
 from simplex_gp_torch.kernels.lattice import dedup_ordered_plain, geometry_plain
 from simplex_gp_torch.linalg.cg import cg_solve
 from simplex_gp_torch.linalg.mll import BBMMConfig
@@ -61,14 +62,46 @@ def _filter(axis, case):
     E, a, oh1, oh2 = _lattice_constants(x.shape[1], dk.coeffs, dk.variance, CPU)
     h1, h2, _ = geometry_plain(x.detach(), E, a)
     seg_all, nb_all, _ = dedup_ordered_plain(axis.all_gather(h1), axis.all_gather(h2), oh1, oh2)
+    k11b = _k11b(axis, plan, v.detach(), dk)
     return dict(
-        out=_gathered(axis, out), n_lattice=int(plan.n_lattice), grad_v=_gathered(axis, v.grad),
+        **k11b, out=_gathered(axis, out), n_lattice=int(plan.n_lattice), grad_v=_gathered(axis, v.grad),
         grad_x=_gathered(axis, x.grad), seg_all=seg_all.numpy(), neighbors=plan.neighbors.numpy(),
         same_twice=bool(torch.equal(plan.seg_ids, again.seg_ids) and torch.equal(plan.neighbors, again.neighbors)),
         seg_window=bool(torch.equal(plan.seg_ids.reshape(-1), seg_all.reshape(-1, *plan.seg_ids.shape)[axis.rank]
                                     .reshape(-1))),
         same_plan=bool(torch.equal(nb_all, plan.neighbors)),
     )
+
+
+def _full_table(axis, plan, v, taps, transpose):
+    """K11b's blurred table in the old layout, all M = n (d+1) rows of the sharded plan: this rank's
+    row-order splat of each column block over the M rows, the reduce-scatter, the blur with the plan's
+    own neighbour ids, the all-gather; the same arithmetic as the live-row apply."""
+    M, c = plan.neighbors.shape[1], v.shape[1]
+    cb = -(-c // axis.size)
+    rows = K._rows_plain(plan.seg_ids, plan.weights, M, plan.n_lattice)
+    padded = torch.nn.functional.pad(v, (0, axis.size * cb - c))
+    blocks = torch.stack([chain_splat_plain(rows, padded[:, b * cb:(b + 1) * cb].contiguous())
+                          for b in range(axis.size)])
+    mine = K._blur_plain(axis.psum_scatter(blocks), plan.neighbors, taps, transpose)
+    return axis.all_gather_blocks(mine).permute(1, 0, 2).reshape(M, axis.size * cb)[:, :c]
+
+
+def _k11b(axis, plan, v, dk):
+    """K11b forward and transposed on the plan's row lists, twice; its tables against the full-M layout."""
+    taps, norm = list(dk.coeffs), SLICE_NORM(plan.seg_ids.shape[1] - 1)
+    nl = int(plan.n_lattice)
+    res = dict(k11b_repeat=True, k11b_live_equal=True, k11b_dead_zero=True)
+    for transpose in (False, True):
+        out, table = K.lattice_apply_sharded(*plan[:4], v, taps, norm, axis, transpose, True, plan.rows)
+        again, table2 = K.lattice_apply_sharded(*plan[:4], v, taps, norm, axis, transpose, True, plan.rows)
+        full = _full_table(axis, plan, v, taps, transpose)
+        res["k11b_repeat"] &= bool(torch.equal(out, again) and torch.equal(table, table2))
+        res["k11b_live_equal"] &= table.shape[0] == nl and bool(torch.equal(table, full[:nl]))
+        res["k11b_dead_zero"] &= bool((full[nl:] == 0).all())
+        res["k11b_transposed" if transpose else "k11b_forward"] = _gathered(axis, out)
+    res["k11b_rows"] = int(plan.rows.cnt.shape[0])
+    return res
 
 
 def _filter_mixture(axis, case):
@@ -219,9 +252,8 @@ def card_sharded_apply(axis, x, v):
     for c in (5, 11):
         vc = v_loc[:, :c].contiguous()
         for transpose in (False, True):
-            kernel = K.lattice_apply_sharded(*plan, vc, dk.coeffs, norm, axis, transpose)
-            plain = K.apply_sharded_plain(plan.seg_ids, plan.weights, plan.neighbors, vc, dk.coeffs, norm, axis,
-                                          transpose)
+            kernel = K.lattice_apply_sharded(*plan[:4], vc, dk.coeffs, norm, axis, transpose, rows=plan.rows)
+            plain = K.apply_sharded_plain(*plan[:4], vc, dk.coeffs, norm, axis, transpose, rows=plan.rows)
             out[(c, transpose)] = dict(kernel=kernel.cpu().numpy(), plain=plain.cpu().numpy())
     out["launches"] = K.lattice_apply_sharded.launches
     return out
