@@ -56,13 +56,19 @@ Phases, each printed as it runs:
      their build and of its sort); K8's count and
      the autotrimmed capacity against JAX's; the bounded K2 at capacity =
      occupancy (the untrimmed output) and occupancy - 1 (all NaN), and
-     against its plain version at 360,000; the NLML and raw gradients at
+     against its plain version at 360,000; at the autotrimmed capacity the
+     row lists of the bounded plan against their plain build bit for bit,
+     and the one-call wide plan (K2 and its rows from one host call,
+     lattice_plan_rows) against the plain plan and rows, each timed beside
+     K2 + join_rows and its bound; the NLML and raw gradients at
      360,000 with that run's capacity, and five Adam steps from there (the
      first held to JAX's, the rest printed); then ``simplex_gp_torch.train.main``
      with the round-5 houseelectric flags for two epochs, one validation
      eval and the test predict, all through K9; K5 at the training step's
      shape (c = 11 on the backward's trimmed join plan) against its plain
-     version and a second run, bit for bit, with its time and bound;
+     version and a second run, bit for bit, with its time and bound; one
+     warm step by stage, and its backward under torch.profiler (the row
+     build's kernels, no torch.sort or torch.cumsum);
   7. the data-parallel training path at elevators' width (the 10,622 rows
      shard_batch keeps at P = 2, median init, 10 probes): K11a
      lattice_dedup_ordered against its plain version (bit-equal) and K2
@@ -479,6 +485,12 @@ def apply_cost(n: int, d: int, c: int, n_lattice: int, order: int) -> tuple:
 def dedup_bytes(N: int, M: int, dp1: int, order: int) -> int:
     """K2: the N hash pairs in, the N seg ids and the (d+1, M, 2r) neighbours out."""
     return 4 * (2 * N + N + dp1 * M * 2 * order)
+
+
+def rows_bytes(N: int, M: int) -> int:
+    """The row lists: the seg ids and weights in; each contribution's point and weight and each row's run end
+    out (the lists of mid rows and pieces, under 1% of it, are left out)."""
+    return 4 * (4 * N + M)
 
 
 def cg_iteration_bytes(n: int, c: int, k: int) -> int:
@@ -1222,6 +1234,30 @@ def large_n_phase(dev, expect, timer):
         bounded_plain_ms = timer(lambda: K.dedup_neighbors_plain(h1, h2, oh1, oh2, cap), 2)
         print(f"    K2 bounded (capacity {cap}) {bounded_ms:.3f} ms, unbounded {unbounded_ms:.3f} ms, bounded plain "
               f"{bounded_plain_ms:.3f} ms; guard run {guard_s:.3f} s")
+        # The backward's plan at the autotrimmed capacity: its row lists (M = cap) and the one-call wide plan.
+        tseg, tnb, tnl = K.lattice_dedup_neighbors(h1, h2, oh1, oh2, cap)
+        tplan = L.LatticePlan(tseg.reshape(n, d + 1), w, tnb, tnl)
+        trows, trows_plain = K.join_rows(*tplan), K.join_rows_plain(*tplan)
+        trim_equal = all(torch.equal(a_, b_) for a_, b_ in zip(trows, trows_plain))
+        expect(int(tplan.n_lattice) == occ and trim_equal, f"capacity {cap}: n_lattice {int(tplan.n_lattice)} "
+               f"(occupancy {occ}); the row lists bit-equal to their plain build: {trim_equal}")
+        trim_rows_ms = timer(lambda: K.join_rows(*tplan), 5)
+        trim_rows_plain_ms = timer(lambda: K.join_rows_plain(*tplan), 1)
+        before = (K.lattice_dedup_neighbors.bounded_launches, K.join_rows.launches)
+        oseg, onb, onl, orows = K.lattice_plan_rows(h1, h2, w, oh1, oh2, cap)
+        counted = (K.lattice_dedup_neighbors.bounded_launches - before[0], K.join_rows.launches - before[1])
+        orows_plain = K.join_rows_plain(oseg, w, onb, onl)
+        one_equal = all(torch.equal(a_, b_) for a_, b_ in zip(orows, orows_plain))
+        r_one = rel(K.lattice_apply_cols(oseg, w, onb, onl, v11, taps, norm, 11, orows), full)
+        expect(int(onl) == occ and one_equal and r_one <= LARGE_N_REL and counted == (1, 1),
+               f"one-call wide plan (lattice_plan_rows) at capacity {cap}: n_lattice {int(onl)}, row lists bit-equal "
+               f"to their plain build of its plan: {one_equal}; K9 on it rel {r_one:.3e} against the untrimmed K3 "
+               f"(limit {LARGE_N_REL}); counted as one bounded K2 and one row build: {counted}")
+        one_ms = timer(lambda: K.lattice_plan_rows(h1, h2, w, oh1, oh2, cap), 5)
+        two_ms = timer(lambda: _k2_then_rows(K, L, h1, h2, w, oh1, oh2, cap, n, d), 5)
+        print(f"    capacity {cap}: join_rows {trim_rows_ms:.3f} ms (plain {trim_rows_plain_ms:.3f}); one-call wide "
+              f"plan {one_ms:.3f} ms against K2 + join_rows {two_ms:.3f} ms (CUDA events)")
+        del tseg, tnb, tplan, trows, trows_plain, oseg, onb, orows, orows_plain
         hc1, hc2, wc = K.lattice_geometry(xc, E, a)
         kseg, knb, knl = K.lattice_dedup_neighbors(hc1, hc2, oh1, oh2, cap_cut)
         pseg, pnb, pnl = K.dedup_neighbors_plain(hc1, hc2, oh1, oh2, cap_cut)
@@ -1236,7 +1272,12 @@ def large_n_phase(dev, expect, timer):
     rows["lattice_dedup_neighbors_bounded"] = dict(
         max_abs_err=k2b_err, ms=bounded_ms, plain_ms=bounded_plain_ms,
         **bound(dedup_bytes(n * (d + 1), cap, d + 1, order), 0), library_ms=None,
-        shape=f"houseelectric N={n * (d + 1)} hash pairs, capacity {cap}", unbounded_ms=unbounded_ms)
+        shape=f"houseelectric N={n * (d + 1)} hash pairs, capacity {cap}", unbounded_ms=unbounded_ms,
+        one_call_wide_plan_ms=one_ms, k2_then_join_rows_ms=two_ms,
+        one_call_bound_ms=bound(dedup_bytes(n * (d + 1), cap, d + 1, order) + rows_bytes(n * (d + 1), cap), 0)[
+            "bound_ms"])
+    record.update(join_rows_trimmed_ms=trim_rows_ms, join_rows_trimmed_plain_ms=trim_rows_plain_ms,
+                  one_call_wide_plan_ms=one_ms, k2_then_join_rows_ms=two_ms)
     record.update(occupancy=occ, occupancy_jax=occ_jax, capacity=cap, trim_rel=r_fit, k3_repeat_rel=spread,
                   guard_s=guard_s, bounded_k2_rel=r_b)
 
@@ -1385,6 +1426,12 @@ def large_n_phase(dev, expect, timer):
     print("large n 6.5: one warm training step and one eval at houseelectric, stage by stage (CUDA events)")
     record["k5"] = k5_houseelectric(dev, ds, dk, cap, ell["full"], expect, timer)
     stages, evals, peaks = houseelectric_stages(dev, ds, dk, cap, ell["full"])
+    prof = stages.pop("backward_profile")
+    expect(prof["sorts"] == 0 and prof["cumsums"] == 0 and all(v > 0 for v in prof["kernels"].values()),
+           f"the step's backward under torch.profiler: torch.sort {prof['sorts']} times, torch.cumsum "
+           f"{prof['cumsums']} times (expected 0: the row lists come from one C call); the one-call wide plan's "
+           f"kernels launched {prof['kernels']}")
+    record["backward_profile"] = prof
     r3 = lambda v: round(v, 3) if isinstance(v, float) else v
     print("    training step (ms): " + json.dumps({k: r3(v) for k, v in stages.items()}))
     print("    eval (ms): " + json.dumps({k: r3(v) for k, v in evals.items() if k != "eval_raw_params"}))
@@ -1399,19 +1446,27 @@ def large_n_phase(dev, expect, timer):
                                       f"untrimmed, window {chunk}", peak_gb=k9_gb, unchunked_k3_ms=k3_ms,
                                       unchunked_k3_peak_gb=k3_gb, given_rows_ms=k9_given_ms, graph_ms=k9_graph_ms,
                                       capacity_occupancy_ms=k9_fit_ms, bit_equal=k9_equal)
-    # The seg ids and weights in; each contribution's point and weight and each row's run end out (the
-    # lists of mid rows and pieces, under 1% of it, are left out).
     N_u = n * (d + 1)
     rows["join_rows"] = dict(max_abs_err=rows_err, ms=join_rows_ms,
-                             plain_ms=join_rows_plain_ms, **bound(4 * (4 * N_u + N_u), 0),
+                             plain_ms=join_rows_plain_ms, **bound(rows_bytes(N_u, N_u), 0),
                              library_ms=None, sort_ms=sort_ms,
-                             shape=f"houseelectric untrimmed plan, N={N_u} contributions, M={N_u}, n_lattice={nl_u}")
+                             shape=f"houseelectric untrimmed plan, N={N_u} contributions, M={N_u}, n_lattice={nl_u}",
+                             trimmed_ms=record["join_rows_trimmed_ms"],
+                             trimmed_plain_ms=record["join_rows_trimmed_plain_ms"],
+                             trimmed_bound_ms=bound(rows_bytes(N_u, record["capacity"]), 0)["bound_ms"])
     return rows, launches, record
 
 
+def _k2_then_rows(K, L, h1, h2, w, oh1, oh2, cap, n, d):
+    """K2 and then join_rows as two host calls: the route the one-call wide plan replaces."""
+    seg, nb, nl = K.lattice_dedup_neighbors(h1, h2, oh1, oh2, cap)
+    return K.join_rows(seg.reshape(n, d + 1), w, nb, nl)
+
+
 def backward_parts(ref, dk, cap, c: int, seed: int) -> dict:
-    """The exact backward's new parts by CUDA events, as LatticeInvQuadLogdet.backward runs them: the join
-    plan (K1 + K2), its row lists, K9 with its table, K9 transposed with its table, K5 (random V and U)."""
+    """The exact backward's parts by CUDA events: the join plan (K1 + K2) and its row lists as two calls, then
+    the plan with its rows as LatticeInvQuadLogdet.backward builds them (K1, then K2 and the rows from one
+    host call, build_wide_plan_join), K9 with its table, K9 transposed with its table, K5 (random V and U)."""
     import torch
 
     from simplex_gp_torch.kernels import lattice as K
@@ -1421,20 +1476,23 @@ def backward_parts(ref, dk, cap, c: int, seed: int) -> dict:
     gen = torch.Generator(device=ref.device).manual_seed(seed)
     V, U = (torch.randn((n, c), generator=gen, device=ref.device) for _ in range(2))
     E = torch.from_numpy(L.build_rotation(d, dk.variance)).to(ref.device)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
     ev[0].record()
     jplan = L.build_plan_join(ref, dk.coeffs, dk.variance, cap)
     ev[1].record()
-    plan = L.wide_plan(jplan)
+    L.wide_plan(jplan)
     ev[2].record()
-    _, table_f = L.apply_plan_rows(plan, V, dk.coeffs, return_table=True)
+    plan = L.build_wide_plan_join(ref, dk.coeffs, dk.variance, cap)
     ev[3].record()
-    _, table_b = L.apply_plan_rows(plan, U, dk.coeffs, transpose=True, return_table=True)
+    _, table_f = L.apply_plan_rows(plan, V, dk.coeffs, return_table=True)
     ev[4].record()
-    K.lattice_filter_grad(ref, E, plan.seg_ids, V, U, table_f, table_b, L.SLICE_NORM(d))
+    _, table_b = L.apply_plan_rows(plan, U, dk.coeffs, transpose=True, return_table=True)
     ev[5].record()
+    K.lattice_filter_grad(ref, E, plan.seg_ids, V, U, table_f, table_b, L.SLICE_NORM(d))
+    ev[6].record()
     torch.cuda.synchronize()
-    names = ("backward_join_plan", "backward_join_rows", "backward_k9", "backward_k9t", "backward_k5")
+    names = ("backward_join_plan", "backward_join_rows", "backward_wide_plan", "backward_k9", "backward_k9t",
+             "backward_k5")
     return {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
 
 
@@ -1536,6 +1594,7 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     backward_parts(ref.contiguous(), dk, cap, 11, 9)  # warm
     stages.update(backward_parts(ref.contiguous(), dk, cap, 11, 9))
     stages["warm_step"] = cuda_ms(lambda: train_step(model, opt, x, y, z), 2)
+    stages["backward_profile"] = backward_profile(model, x, y, z)
     del plan, P, res, loss
 
     torch.cuda.reset_peak_memory_stats()
@@ -1578,6 +1637,30 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
                                            500),
                  eval_raw_params={k_: v_.detach().cpu().reshape(-1).tolist() for k_, v_ in model.named_parameters()})
     return stages, evals, peaks
+
+
+# Kernels of the exact backward's one-call wide plan (csrc/dedup.cu, csrc/join_rows.cu; cub's radix sort and
+# scans), by a part of their names under torch.profiler.
+WIDE_PLAN_KERNELS = ("insert_kernel", "neighbors_kernel", "rows_pack_kernel", "DeviceRadixSort",
+                     "join_runs_kernel", "join_rows_kernel", "DeviceScan")
+
+
+def backward_profile(model, x, y, z) -> dict:
+    """One exact backward of a training step under torch.profiler: how often torch.sort and torch.cumsum ran
+    in it (the row build's former library calls), and the launches of the one-call wide plan's kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    loss = model.nlml(x, y, probes=z)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    counts = {e.key: e.count for e in prof.key_averages()}
+    return dict(sorts=sum(c for k, c in counts.items() if k in ("aten::sort", "aten::argsort")),
+                cumsums=sum(c for k, c in counts.items() if k == "aten::cumsum"),
+                kernels={part: sum(c for k, c in counts.items() if part in k) for part in WIDE_PLAN_KERNELS})
 
 
 def cg_stop_rule(iterations: int, best_res: float, tol: float, max_iters: int) -> str:

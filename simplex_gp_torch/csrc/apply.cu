@@ -37,11 +37,10 @@
 // window [c0, c0 + w) of the columns (the last window narrower), reading
 // each window of v in place (row stride c) and writing it in place into
 // out.  Its cost follows the contributions and the live rows, not M:
-//   rows (once per plan): from a stable sort of the seg ids (the
-//          wrapper's torch.sort), sgp_join_rows gives each contribution's
-//          point and weight in row order, each row's run end cnt and class,
-//          and chain.cu's sgp_run_lists the splat's lists of mid rows and
-//          long-row pieces, as for the sort chain's plan;
+//   rows (once per plan, join_rows.cu): each contribution's point and
+//          weight in row order, each row's run end cnt, and the splat's
+//          lists of mid rows and long-row pieces, as for the sort chain's
+//          plan;
 //   splat: K3'b's row-order splat (rows.cuh) of the window: no atomics, no
 //          memset (every live row is written, no other row is read), the
 //          same bits in every run;
@@ -247,82 +246,6 @@ extern "C" int sgp_lattice_slice(const float* table, const int* seg, const float
   if (work > 0)
     slice_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(
         table, seg, w, n, dp1, c, norm, out, c, 0, count, capacity);
-  return (int)cudaGetLastError();
-}
-
-// K9's rows, after the wrapper's stable sort of the N seg ids (sorted, with
-// its permutation perm).  Contribution at sorted position q: its point
-// (reduced mod n_pts: a mixture's stacked contribution of component j
-// belongs to point p of j n_pts + p) and weight; where the row changes,
-// the row's run end.  Every contribution of a plan lies in a live row, or,
-// past the capacity, in row 0.
-__global__ void join_runs_kernel(const int* __restrict__ sorted, const long long* __restrict__ perm,
-                                 const float* __restrict__ w, int N, int dp1, int n_pts, int* __restrict__ sp,
-                                 float* __restrict__ sw, int* __restrict__ cnt) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= N) return;
-  const int e = (int)perm[q];
-  const int pt = e / dp1;
-  sp[q] = pt < n_pts ? pt : pt % n_pts;
-  sw[q] = w[e];
-  const int g = sorted[q];
-  if (q == N - 1 || sorted[q + 1] != g) cnt[g] = q + 1;
-}
-
-// The first sorted position whose row is past g: the run end of row g.
-__device__ __forceinline__ int sgp_upper_bound(const int* __restrict__ sorted, int N, int g) {
-  int lo = 0, hi = N;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (sorted[mid] <= g) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-// Row g of J components of M rows each (rows.cuh, SgpLiveRows; J = 1: a
-// join plan): the run end of every row that join_runs_kernel left unset
-// (the rows past a component's live count; past the capacity, every row:
-// row 0's run is all N contributions and the others are empty; with
-// `sparse`, also a live row that no contribution reaches, as in a sharded
-// plan's rank, whose every row's end is found by a binary search), and the
-// long / mid class of each live row (rows.cuh).  An unset row of the last
-// component ends at N; of another, where the sorted ids pass it.  A row's
-// start is the previous row's end, computed where this launch writes it,
-// so no thread reads another's write.
-__global__ void join_rows_kernel(const int* __restrict__ sorted, const int* __restrict__ live, int J, int N, int M,
-                                 int sparse, int* __restrict__ cnt, int* __restrict__ long_info) {
-  const int Mt = J * M;
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= Mt) return;
-  const int j = J == 1 ? 0 : g / M, l = g - j * M;
-  const int nl = live[j];
-  const bool over = nl > M;
-  const bool unset = over || l >= nl;
-  const int end = !unset ? (sparse ? sgp_upper_bound(sorted, N, g) : cnt[g])
-                         : (over || j == J - 1 ? N : sgp_upper_bound(sorted, N, g));
-  if (unset || sparse) cnt[g] = end;
-  if (l >= (over ? M : nl)) {
-    long_info[g] = long_info[Mt + g] = long_info[2 * Mt + g] = 0;
-    return;
-  }
-  const int start =
-      g == 0 ? 0 : (over ? N : (l == 0 || sparse ? sgp_upper_bound(sorted, N, g - 1) : cnt[g - 1]));
-  sgp_run_class(long_info, Mt, g, end - start);
-}
-
-// live: J counts on the device (J = 1: the plan's n_lattice); M rows a
-// component; n_pts the points a component's contributions belong to;
-// sparse: a live row may hold no contribution (a sharded plan's rank).
-extern "C" int sgp_join_rows(const int* sorted, const long long* perm, const float* w, const int* live, int J, int N,
-                             int M, int dp1, int n_pts, int sparse, int* sp, float* sw, int* cnt, int* long_info,
-                             void* stream) {
-  if (J < 1 || n_pts < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (N > 0) join_runs_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(sorted, perm, w, N, dp1, n_pts, sp, sw, cnt);
-  if (M > 0)
-    join_rows_kernel<<<sgp_blocks((long long)J * M), SGP_THREADS, 0, st>>>(sorted, live, J, N, M, sparse, cnt,
-                                                                            long_info);
   return (int)cudaGetLastError();
 }
 

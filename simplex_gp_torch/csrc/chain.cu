@@ -427,8 +427,8 @@ extern "C" int sgp_chain_finish(const long long* keys, const long long* sorted, 
 }
 
 // The splat's lists from the rows' classes long_info and their scan along
-// the rows, (3, Mc) each (rows.cuh); the chain's build and K9's and K7's
-// row lists (apply.cu) both end with it.
+// the rows, (3, Mc) each (rows.cuh); the chain's build and a join plan's
+// row lists (join_rows.cu) both end with it.
 extern "C" int sgp_run_lists(const int* long_info, const int* scan, const int* cnt, int Mc, int* long_rows,
                              int* long_first, int* piece_row, int* piece_start, int* n_long, int* n_pieces,
                              int* mid_rows, int* n_mid, void* stream) {

@@ -33,7 +33,7 @@ __device__ __forceinline__ unsigned long long sgp_pack(unsigned int h1, unsigned
 
 __device__ __forceinline__ unsigned long long sgp_mix(unsigned long long z) {
   // splitmix64 finalizer: spreads the linear hash over the slot bits of the
-  // open-addressing table (sgp_insert, below).
+  // open-addressing table (dedup.cu's insert, sgp_find below).
   z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
   z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
   return z ^ (z >> 31);
@@ -45,49 +45,15 @@ __device__ __forceinline__ unsigned long long sgp_mix(unsigned long long z) {
 // This sentinel has h1 odd and h2 even, so no live key can equal it.
 #define SGP_EMPTY 0xFFFFFFFFFFFFFFFEULL
 
-// The open-addressing table of lattice points of K2 (dedup.cu), whose
-// insert this is; K4 and K8 (once.cu) fill the same layout with their own
-// inserts: mask+1 slots (a power of two) of packed keys, linear
-// probing from sgp_mix(key).  The thread whose atomicCAS claims an empty
-// slot takes the next dense row id from *count; row_of_slot maps a slot to
-// its row (-1 past the capacity) and row_h1/row_h2 hold each row's hash
-// pair.  Either may be null.  K8 (once.cu) counts keys in a table of the
-// same layout with its own insert (count_claim).
-//
-// Inserts (h1, h2); returns its slot, or -1 once more than `capacity`
-// points are occupied: with kBounded, a thread stops at its next collision
-// after the counter passed the capacity (one uncached read of the counter
-// per collision), and a probe sequence ends after one lap of the table.
-// K2 inserts its n(d+1) keys into >= 2 n(d+1) slots, which never
-// overflows, so it passes capacity = n(d+1) and kBounded = false.
-template <bool kBounded>
-__device__ __forceinline__ int sgp_insert(unsigned int h1, unsigned int h2,
-                                          unsigned long long* table, unsigned int mask,
-                                          int capacity, int* row_of_slot, int* row_h1,
-                                          int* row_h2, int* count) {
-  const unsigned long long key = sgp_pack(h1, h2);
-  unsigned int s = (unsigned int)sgp_mix(key) & mask;
-  for (unsigned int probe = 0; probe <= mask; ++probe) {
-    const unsigned long long prev = atomicCAS(&table[s], SGP_EMPTY, key);
-    if (prev == SGP_EMPTY) {
-      const int id = atomicAdd(count, 1);
-      if (row_of_slot != nullptr) row_of_slot[s] = id < capacity ? id : -1;
-      if (row_h1 != nullptr && id < capacity) {
-        row_h1[id] = (int)h1;
-        row_h2[id] = (int)h2;
-      }
-      return (int)s;
-    }
-    if (prev == key) return (int)s;
-    if (kBounded && *(volatile int*)count > capacity) return -1;
-    s = (s + 1) & mask;
-  }
-  // One full lap: every slot is taken, so the count is past the capacity
-  // (the table has at least 2 * capacity slots).
-  return -1;
-}
+// The open-addressing table of lattice points: mask+1 slots (a power of
+// two) of packed keys, linear probing from sgp_mix(key).  K2, K4 and K11a
+// fill it with dedup.cu's insert (sgp_dedup_insert): the thread whose
+// atomicCAS claims an empty slot takes the next dense row id from a
+// counter, row_of_slot maps a slot to its row (-1 past the capacity) and
+// row_h1/row_h2 hold each row's hash pair.  K8 (once.cu) counts the keys
+// of a table of the same layout with its own insert (count_claim).
 
-// Row id of the key q in a table that sgp_insert filled, or -1 if q is
+// Row id of the key q in a table that dedup.cu's insert filled, or -1 if q is
 // absent.  Read-only; at most one lap.
 __device__ __forceinline__ int sgp_find(const unsigned long long* __restrict__ table,
                                         unsigned int mask, const int* __restrict__ row_of_slot,

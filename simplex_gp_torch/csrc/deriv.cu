@@ -14,7 +14,7 @@
 // Design: the stack is never written and the filtered block is never read
 // back whole; one host call (sgp_deriv_grad) launches every phase.
 //   splat: K3'b's row-order splat (rows.cuh) on the plan's row lists
-//          (apply.cu's sgp_join_rows), with the stacked columns as its
+//          (join_rows.cu's sgp_rows_build), with the stacked columns as its
 //          source: column col of point p is formed on the fly -- g[:,l],
 //          g[:,l] ref[:,j], src[:,l] or src[:,l] ref[:,j] -- so the (M, C)
 //          table, C = 2L(1+d) (418 at elevators with L = 11, d = 18), is

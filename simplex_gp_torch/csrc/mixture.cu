@@ -23,8 +23,8 @@
 // live rows' neighbour ids, v read and out written once -- ~J times K3's
 // bytes (16.2 MB at elevators' c = 1), and the (2r+1)-tap blur arithmetic
 // over the J live counts.  Design: K9's on the stacked plan's row lists,
-// built once per plan (kernels/mixture.py::mixture_rows: apply.cu's
-// sgp_join_rows over all J components, each contribution's point reduced
+// built once per plan (kernels/mixture.py::mixture_rows: join_rows.cu's
+// sgp_rows_build over all J components, each contribution's point reduced
 // mod n, so v is never tiled J times), with no atomics and no memset:
 //   splat: K3'b's row-order splat (rows.cuh) into every one of the J M rows
 //          (a row past its component's live count has an empty run and is

@@ -10,25 +10,24 @@
 // Design: the reference's own GPU filter (a hash table of lattice points,
 // neighbours found by hashing), not JAX's sort chain, with the main path's
 // redesigned parts.  Two host calls around one host read:
-//   1. sgp_once_insert: the table emptied, K1's team geometry (geometry.cu)
-//      of the n(d+1) vertices, and the insert of each vertex key into K2's
-//      open-addressing table with K8's plain load of the slot before any
-//      CAS; a thread whose CAS claims an empty slot takes the next row id
-//      from a counter and records the row's hash pair.  Bounded: one lap
-//      ends a probe sequence, and a thread stops at a collision once the
-//      counter has passed the capacity (one uncached read per collision,
-//      none per hit);
+//   1. sgp_once_insert: K1's team geometry (geometry.cu) of the n(d+1)
+//      vertices, then K2's fill and insert (dedup.cu, sgp_dedup_insert: a
+//      plain load of the slot before any CAS; a thread whose CAS claims an
+//      empty slot takes the next row id from a counter and records the
+//      row's hash pair; bounded, one lap ends a probe sequence and a thread
+//      stops at a collision once the counter has passed the capacity);
 //   2. the wrapper's read of the count: past the capacity the output is all
 //      NaN (JAX's guard, lattice.py:1295) and nothing else runs;
 //   3. sgp_once_apply, on one workspace: the seg ids and the (d+1, nl, 2r)
 //      neighbour ids of the live rows (dedup.cu's passes: each row's
 //      neighbours looked up in the hash table, (h1 + oh1, h2 + oh2) by hash
-//      linearity); the row lists of the nl live rows (a stable cub radix
-//      sort of the seg ids on the bits below nl, K9's runs, three scans,
-//      the sort chain's lists: each row's contributions in contribution
-//      order); K3'b's row-order splat of v into the live rows, the d+1 axis
-//      blurs in one launch of resident blocks with a grid barrier between
-//      axes (rows.cuh, sgp_blur_axes), K3's slice.
+//      linearity); the row lists of the nl live rows (join_rows.cu's
+//      sgp_rows_build: a stable cub radix sort of the seg ids on the bits
+//      below nl, K9's runs, three scans, the sort chain's lists: each row's
+//      contributions in contribution order); K3'b's row-order splat of v
+//      into the live rows, the d+1 axis blurs in one launch of resident
+//      blocks with a grid barrier between axes (rows.cuh, sgp_blur_axes),
+//      K3's slice.
 // The row ids come from a counter and vary from run to run, but nothing
 // downstream depends on them: a row's sum runs over its contributions in
 // contribution order, a blur reads a row and its neighbours in tap order,
@@ -46,51 +45,7 @@
 // 8-byte probes into the hash table (4 MB at elevators, in L2) in the
 // insert and the neighbour pass: latency-bound at c <= 16.  Indices into
 // the value tables are 64-bit.
-#include <cub/cub.cuh>  // the radix sort and scans of K4's row lists
-
 #include "rows.cuh"
-
-// Inserts the N vertex keys (h1, h2); slot_of[e] gets the slot, or -1 past
-// the capacity.  kBounded: capacity < N (a table that may overflow).
-template <bool kBounded>
-__global__ void once_insert_kernel(const int* __restrict__ h1, const int* __restrict__ h2, int N,
-                                   unsigned long long* table, unsigned int mask, int capacity,
-                                   int* __restrict__ slot_of, int* row_of_slot, int* row_h1, int* row_h2,
-                                   int* count) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= N) return;
-  const unsigned int k1 = (unsigned int)h1[e], k2 = (unsigned int)h2[e];
-  const unsigned long long key = sgp_pack(k1, k2);
-  unsigned int s = (unsigned int)sgp_mix(key) & mask;
-  int found = -1;
-  for (unsigned int probe = 0; probe <= mask; ++probe) {
-    const unsigned long long cur = table[s];
-    if (cur == key) {
-      found = (int)s;
-      break;
-    }
-    if (cur == SGP_EMPTY) {
-      const unsigned long long prev = atomicCAS(&table[s], SGP_EMPTY, key);
-      if (prev == SGP_EMPTY) {
-        const int id = atomicAdd(count, 1);
-        row_of_slot[s] = id < capacity ? id : -1;
-        if (id < capacity) {
-          row_h1[id] = (int)k1;
-          row_h2[id] = (int)k2;
-        }
-        found = (int)s;
-        break;
-      }
-      if (prev == key) {
-        found = (int)s;
-        break;
-      }
-    }
-    if (kBounded && *(volatile int*)count > capacity) break;
-    s = (s + 1) & mask;
-  }
-  slot_of[e] = found;
-}
 
 // Buffers of K4 before the host read, laid out in one int32 allocation
 // `pre` of 5N + slots + 2 capacity ints: the vertices' hash pairs and
@@ -115,80 +70,58 @@ static inline OncePre once_pre(int* pre, int N, int slots, int capacity) {
   return p;
 }
 
-__global__ void once_fill_kernel(unsigned long long* __restrict__ table, int slots) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s < slots) table[s] = SGP_EMPTY;
-}
-
 // K1's team kernel (geometry.cu).
 extern "C" int sgp_lattice_geometry(const float* x, const float* E, const int* a, int n, int d, int* h1, int* h2,
                                     float* w, int* s, int per_thread, void* stream);
 
-// K4 up to the host read: the table emptied and the count zeroed, K1's team
-// geometry of the n points x (n, d), the insert of their n(d+1) keys.
+// K2's fill and insert (dedup.cu).
+extern "C" int sgp_dedup_insert(const int* h1, const int* h2, int N, unsigned long long* table, int mask, int capacity,
+                                int* slot_of, int* row_of_slot, int* count, int* row_h1, int* row_h2, void* stream);
+
+// K4 up to the host read: K1's team geometry of the n points x (n, d), then
+// the table emptied, the count zeroed and the insert of their n(d+1) keys.
 // table: mask+1 >= 2 capacity int64 slots; pre: the OncePre buffers; count:
 // one int32.
 extern "C" int sgp_once_insert(const float* x, const float* E, const int* a, int n, int d, int capacity, int mask,
                                unsigned long long* table, int* pre, int* count, void* stream) {
   if (d + 1 > SGP_MAX_DP1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const int N = n * (d + 1), slots = mask + 1;
   const OncePre p = once_pre(pre, N, slots, capacity);
-  once_fill_kernel<<<sgp_blocks(slots), SGP_THREADS, 0, st>>>(table, slots);
-  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int), st);
-  if (err != cudaSuccess) return (int)err;
-  if (N <= 0) return (int)cudaGetLastError();
-  if ((err = (cudaError_t)sgp_lattice_geometry(x, E, a, n, d, p.h1, p.h2, p.w, nullptr, 0, stream)) != cudaSuccess)
-    return (int)err;
-  if (capacity < N)
-    once_insert_kernel<true><<<sgp_blocks(N), SGP_THREADS, 0, st>>>(
-        p.h1, p.h2, N, table, (unsigned int)mask, capacity, p.slot_of, p.row_of_slot, p.row_h1, p.row_h2, count);
-  else
-    once_insert_kernel<false><<<sgp_blocks(N), SGP_THREADS, 0, st>>>(
-        p.h1, p.h2, N, table, (unsigned int)mask, capacity, p.slot_of, p.row_of_slot, p.row_h1, p.row_h2, count);
-  return (int)cudaGetLastError();
+  if (N > 0) {
+    const int err = sgp_lattice_geometry(x, E, a, n, d, p.h1, p.h2, p.w, nullptr, 0, stream);
+    if (err != (int)cudaSuccess) return err;
+  }
+  return sgp_dedup_insert(p.h1, p.h2, N, table, mask, capacity, p.slot_of, p.row_of_slot, count, p.row_h1, p.row_h2,
+                          stream);
 }
 
-// K2's passes (dedup.cu), K9's runs (apply.cu), the sort chain's lists
-// (chain.cu) and K3's slice (apply.cu).
+// K2's passes (dedup.cu), the row build (join_rows.cu) and K3's slice
+// (apply.cu).
 extern "C" int sgp_dedup_finish(const int* slot_of, const int* row_of_slot, int N, const unsigned long long* table,
                                 int mask, int capacity, const int* count, const int* row_h1, const int* row_h2,
                                 const int* oh1, const int* oh2, int* seg_ids, int dp1, int r2, int* neighbors,
                                 void* stream);
-extern "C" int sgp_join_rows(const int* sorted, const long long* perm, const float* w, const int* live, int J, int N,
-                             int M, int dp1, int n_pts, int sparse, int* sp, float* sw, int* cnt, int* long_info,
-                             void* stream);
-extern "C" int sgp_run_lists(const int* long_info, const int* scan, const int* cnt, int Mc, int* long_rows,
-                             int* long_first, int* piece_row, int* piece_start, int* n_long, int* n_pieces,
-                             int* mid_rows, int* n_mid, void* stream);
+extern "C" int sgp_rows_sizes(int N, int Mt, long long* lists_ints, long long* work_bytes);
+extern "C" int sgp_rows_build(const int* seg, const float* w, const int* live, int J, int N, int M, int dp1,
+                              int n_pts, int sparse, int* sp, float* sw, int* cnt, int* lists, void* work,
+                              long long work_bytes, void* stream);
 extern "C" int sgp_lattice_slice(const float* table, const int* seg, const float* w, int n,
                                  int dp1, int c, float norm, float* out, const int* count,
                                  int capacity, void* stream);
 
-// The bits of a row id below nl: the sort of the seg ids looks at no more.
-static inline int once_key_bits(int nl) {
-  int b = 1;
-  while (b < 31 && (1 << b) < nl) ++b;
-  return b;
-}
-
 // K4's buffers after the host read, carved from one workspace (base null:
 // only the size), each 256-byte aligned: the live rows' neighbour ids, the
-// sort's keys and values, the row lists (K9's JoinRows fields), the two
-// tables, the long rows' pieces, the barrier and cub's scratch for the sort
-// and the three scans.
+// row lists (K9's JoinRows fields), the two tables, the long rows' pieces,
+// the barrier and the row build's scratch (join_rows.cu).
 struct OnceWork {
   int* nb;
-  unsigned int* keys;
-  long long *iota, *perm;
   int* sp;
   float* sw;
-  int *cnt, *info, *scan, *lists;
+  int *cnt, *lists;
   float *ta, *tb, *part;
   unsigned int* barrier;
-  void* temp;
-  size_t temp_bytes, lists_bytes;
-  int nl_max, np_max, nm_max;
+  void* rows_work;
+  long long rows_bytes;
 };
 
 static inline size_t once_carve(char* base, int N, int nl, int c, int dp1, int r2, OnceWork& b) {
@@ -199,39 +132,20 @@ static inline size_t once_carve(char* base, int N, int nl, int c, int dp1, int r
     off += bytes;
     return at;
   };
-  // kernels/chain.py::_long_bounds: the runs are disjoint, a long one longer than CHAIN_PIECE, a mid one
-  // longer than CHAIN_SHORT.
-  b.nl_max = nl < N / (CHAIN_PIECE + 1) ? nl : N / (CHAIN_PIECE + 1);
-  b.np_max = N / CHAIN_PIECE + b.nl_max;
-  b.nm_max = nl < N / (CHAIN_SHORT + 1) ? nl : N / (CHAIN_SHORT + 1);
+  long long lists_ints = 0;
+  sgp_rows_sizes(N, nl, &lists_ints, &b.rows_bytes);
   const size_t rows = (size_t)nl;
   b.nb = (int*)take(sizeof(int) * (size_t)dp1 * rows * r2);
-  b.keys = (unsigned int*)take(sizeof(int) * (size_t)N);
-  b.iota = (long long*)take(sizeof(long long) * (size_t)N);
-  b.perm = (long long*)take(sizeof(long long) * (size_t)N);
   b.sp = (int*)take(sizeof(int) * (size_t)N);
   b.sw = (float*)take(sizeof(float) * (size_t)N);
   b.cnt = (int*)take(sizeof(int) * rows);
-  b.info = (int*)take(sizeof(int) * 3 * rows);
-  b.scan = (int*)take(sizeof(int) * 3 * rows);
-  b.lists_bytes = sizeof(int) * (2 * (size_t)b.nl_max + 1 + 2 * (size_t)b.np_max + b.nm_max + 3);
-  b.lists = (int*)take(b.lists_bytes);
+  b.lists = (int*)take(sizeof(int) * (size_t)lists_ints);
   b.ta = (float*)take(sizeof(float) * rows * c);
   b.tb = (float*)take(sizeof(float) * rows * c);
-  b.part = (float*)take(sizeof(float) * (size_t)b.np_max * c);
+  b.part = (float*)take(sizeof(float) * (size_t)rows_lists(nullptr, N, nl).np_max * c);
   b.barrier = (unsigned int*)take(sizeof(unsigned int));
-  size_t sort_bytes = 0, scan_bytes = 0;
-  cub::DeviceRadixSort::SortPairs(nullptr, sort_bytes, (const unsigned int*)nullptr, (unsigned int*)nullptr,
-                                  (const long long*)nullptr, (long long*)nullptr, N, 0, once_key_bits(nl));
-  cub::DeviceScan::InclusiveSum(nullptr, scan_bytes, (const int*)nullptr, (int*)nullptr, nl);
-  b.temp_bytes = sort_bytes > scan_bytes ? sort_bytes : scan_bytes;
-  b.temp = take(b.temp_bytes);
+  b.rows_work = take((size_t)b.rows_bytes);
   return off;
-}
-
-__global__ void once_iota_kernel(long long* __restrict__ iota, int N) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < N) iota[e] = e;
 }
 
 // The workspace bytes sgp_once_apply takes for N vertices over nl live rows.
@@ -242,12 +156,12 @@ extern "C" int sgp_once_workspace(int N, int nl, int c, int dp1, int r2, long lo
 }
 
 // K4 after the host read of a count nl that did not pass the capacity: the
-// seg ids and the live rows' neighbour ids (K2's passes), the row lists (a
-// stable radix sort of the seg ids on their low once_key_bits(nl) bits,
-// K9's runs, three scans, the sort chain's lists), then K3'b's row-order
-// splat of v (n, c), the d+1 blurs in one launch and K3's slice into out.
-// pre, table and count are sgp_once_insert's; work holds work_bytes
-// (sgp_once_workspace) and need not be zeroed.
+// seg ids and the live rows' neighbour ids (K2's passes), the row lists
+// (sgp_rows_build: a stable radix sort of the seg ids on their low
+// bit_length(nl - 1) bits, K9's runs, three scans, the sort chain's lists),
+// then K3'b's row-order splat of v (n, c), the d+1 blurs in one launch and
+// K3's slice into out.  pre, table and count are sgp_once_insert's; work
+// holds work_bytes (sgp_once_workspace) and need not be zeroed.
 extern "C" int sgp_once_apply(int* pre, const unsigned long long* table, int mask, int capacity, const int* count,
                               int n, int dp1, int nl, const int* oh1, const int* oh2, int r2, const float* v, int c,
                               const float* taps_host, float norm, void* work, long long work_bytes, float* out,
@@ -264,32 +178,12 @@ extern "C" int sgp_once_apply(int* pre, const unsigned long long* table, int mas
   cudaError_t err = (cudaError_t)sgp_dedup_finish(p.slot_of, p.row_of_slot, N, table, mask, nl, count, p.row_h1,
                                                   p.row_h2, oh1, oh2, p.seg, dp1, r2, b.nb, stream);
   if (err != cudaSuccess) return (int)err;
-  once_iota_kernel<<<sgp_blocks(N), SGP_THREADS, 0, st>>>(b.iota, N);
-  size_t temp_bytes = b.temp_bytes;
-  if ((err = cub::DeviceRadixSort::SortPairs(b.temp, temp_bytes, (const unsigned int*)p.seg, b.keys, b.iota, b.perm,
-                                             N, 0, once_key_bits(nl), st)) != cudaSuccess)
+  if ((err = (cudaError_t)sgp_rows_build(p.seg, p.w, count, 1, N, nl, dp1, n, 0, b.sp, b.sw, b.cnt, b.lists,
+                                         b.rows_work, b.rows_bytes, stream)) != cudaSuccess)
     return (int)err;
-  if ((err = (cudaError_t)sgp_join_rows((const int*)b.keys, b.perm, p.w, count, 1, N, nl, dp1, n, 0, b.sp, b.sw,
-                                        b.cnt, b.info, stream)) != cudaSuccess)
-    return (int)err;
-  for (int i = 0; i < 3; ++i) {
-    temp_bytes = b.temp_bytes;
-    if ((err = cub::DeviceScan::InclusiveSum(b.temp, temp_bytes, b.info + (size_t)i * nl, b.scan + (size_t)i * nl, nl,
-                                             st)) != cudaSuccess)
-      return (int)err;
-  }
-  int* long_rows = b.lists;
-  int* long_first = long_rows + b.nl_max;
-  int* piece_row = long_first + b.nl_max + 1;
-  int* piece_start = piece_row + b.np_max;
-  int* mid_rows = piece_start + b.np_max;
-  int *n_long = mid_rows + b.nm_max, *n_pieces = n_long + 1, *n_mid = n_pieces + 1;
-  if ((err = cudaMemsetAsync(b.lists, 0, b.lists_bytes, st)) != cudaSuccess) return (int)err;
-  if ((err = (cudaError_t)sgp_run_lists(b.info, b.scan, b.cnt, nl, long_rows, long_first, piece_row, piece_start,
-                                        n_long, n_pieces, mid_rows, n_mid, stream)) != cudaSuccess)
-    return (int)err;
-  const SgpRuns r = sgp_runs(b.sp, b.sw, b.cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
-                             mid_rows, n_mid, b.nl_max, b.nm_max, b.np_max, N, count);
+  const RowsLists l = rows_lists(b.lists, N, nl);
+  const SgpRuns r = sgp_runs(b.sp, b.sw, b.cnt, l.long_rows, l.long_first, l.n_long, l.piece_row, l.piece_start,
+                             l.n_pieces, l.mid_rows, l.n_mid, l.nl_max, l.nm_max, l.np_max, N, count);
   if ((err = sgp_splat_rows(r, SgpWindow{v, c, 0}, c, nl, b.ta, b.part, st)) != cudaSuccess) return (int)err;
   if ((err = sgp_blur_axes(b.ta, b.tb, b.nb, sgp_taps(taps_host, order), nl, nl, c, dp1, order, 0, b.barrier, st)) !=
       cudaSuccess)
@@ -305,7 +199,7 @@ extern "C" int sgp_once_apply(int* pre, const unsigned long long* table, int mas
 // at every collision with an uncached load: the hot slots' CAS runs
 // serialised in L2 (12.7 ms at houseelectric; PERF.md section 6).  Here the
 // insert reads the slot with a plain load first and stops on a hit; only an
-// empty slot takes an atomicCAS (K4's insert reads its slot the same way).  A slot only ever goes
+// empty slot takes an atomicCAS (K2's insert, dedup.cu, reads its slot the same way).  A slot only ever goes
 // from empty to one key, so a stale read can only be an empty slot, which
 // the CAS then settles; the hot slots stay in L1 and L2.  Each thread adds
 // up its claims, and each block adds its total to the count with one

@@ -74,6 +74,42 @@ static inline SgpRuns sgp_runs(const int* sp, const float* sw, const int* cnt, c
                  nl_max, nm_max, np_max, N, n_lattice};
 }
 
+// The splat's lists over N contributions and Mt rows in the one int buffer
+// that the row build writes (join_rows.cu) and K4 reads (once.cu).  Their
+// lengths are bounds fixed by the shapes (kernels/chain.py::_long_bounds):
+// the runs are disjoint, a long one longer than CHAIN_PIECE, a mid one
+// longer than CHAIN_SHORT.  The buffer holds long_rows (nl_max),
+// long_first (nl_max + 1), piece_row and piece_start (np_max each),
+// mid_rows (nm_max), then n_long, n_pieces and n_mid.
+struct RowsLists {
+  int nl_max, np_max, nm_max;
+  int *long_rows, *long_first, *piece_row, *piece_start, *mid_rows, *n_long, *n_pieces, *n_mid;
+};
+
+// The layout of the lists in `lists`; with lists null, only the lengths.
+static inline RowsLists rows_lists(int* lists, int N, int Mt) {
+  RowsLists l = {};
+  l.nl_max = Mt < N / (CHAIN_PIECE + 1) ? Mt : N / (CHAIN_PIECE + 1);
+  l.np_max = N / CHAIN_PIECE + l.nl_max;
+  l.nm_max = Mt < N / (CHAIN_SHORT + 1) ? Mt : N / (CHAIN_SHORT + 1);
+  if (lists == nullptr) return l;
+  l.long_rows = lists;
+  l.long_first = l.long_rows + l.nl_max;
+  l.piece_row = l.long_first + l.nl_max + 1;
+  l.piece_start = l.piece_row + l.np_max;
+  l.mid_rows = l.piece_start + l.np_max;
+  l.n_long = l.mid_rows + l.nm_max;
+  l.n_pieces = l.n_long + 1;
+  l.n_mid = l.n_pieces + 1;
+  return l;
+}
+
+// The ints of the lists buffer.
+static inline size_t rows_lists_ints(int N, int Mt) {
+  const RowsLists l = rows_lists(nullptr, N, Mt);
+  return 2 * (size_t)l.nl_max + 1 + 2 * (size_t)l.np_max + l.nm_max + 3;
+}
+
 // The splat's column source: column col of point p's value is
 // v[p, c0 + col] of a row-major v with row stride ld (a column window read
 // in place).  A source names the columns a warp's pass carries (kTile).

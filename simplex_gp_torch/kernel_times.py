@@ -16,6 +16,7 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --step-grad DIR [--ulp K] [--tol T]
     python simplex_gp_torch/kernel_times.py --compare-step-grad DIR DIR
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --once-sharded
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --join-build
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
@@ -49,7 +50,9 @@ which the fourteenth compares within and across two trees
 (:func:`compare_step_grad`); the fifteenth K4 at the elevators shape (c =
 1 and 11), K11b on one NCCL rank at that shape (c =
 1 and 11, beside K3 on the same plan, with the bytes per collective) and
-the houseelectric one-shot MVM of ``mvm_err`` (:func:`once_sharded`).
+the houseelectric one-shot MVM of ``mvm_err`` (:func:`once_sharded`); the
+sixteenth K2 and the join plan's row build by kernel, launched and
+replayed (:func:`join_build`).
 
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
@@ -1020,7 +1023,8 @@ def build_grad(repeats: int = 10, save: str | None = None) -> dict:
     (``chain_build`` given K1's outputs) and ``build_plan_chain`` (K1 + K3'a) by CUDA events, beside K1 and
     K1 + K2 (``build_plan_join``), and once under ``torch.profiler`` (device ms by kernel, launches, the
     host wall time), and by stage where the tree marks them (``chain_build_stage_times``).  K5 at c = 11 on the backward's trimmed join plan and its two K9 tables, random V
-    and U.  The houseelectric step (zero_grad, NLML, backward, Adam) by CUDA events with its peak memory,
+    and U.  The join plan's build by its parts (:func:`_join_build`).  The houseelectric step (zero_grad,
+    NLML, backward, Adam) by CUDA events with its peak memory,
     and its plan stage (``build_plan_any``) and backward parts (join plan, row lists, K9, K9ᵀ, K5) one by
     one.  With ``save``, every plan field, K5's outputs and the step's raw gradients go to
     ``<save>/<shape>.npz``.  Prints one JSON line.
@@ -1062,6 +1066,7 @@ def build_grad(repeats: int = 10, save: str | None = None) -> dict:
                    k1_k3a_ms=_ms(lambda: L.build_plan_chain(ref, dk.coeffs, dk.variance, cap), repeats),
                    k1_ms=_ms(lambda: K.lattice_geometry(ref, E, a, with_s=True), repeats),
                    k1_k2_ms=_ms(lambda: L.build_plan_join(ref, dk.coeffs, dk.variance, cap), repeats))
+        rec.update(_join_build(ref, dk, cap, repeats))
         rec["k3a_profile"] = _device_by_kernel(build)
         if hasattr(KC, "chain_build_stage_times"):  # a tree whose build marks its stages
             build()
@@ -1086,6 +1091,85 @@ def build_grad(repeats: int = 10, save: str | None = None) -> dict:
             os.makedirs(save, exist_ok=True)
             np.savez(os.path.join(save, f"{tag}.npz"), **saved)
         del ref, saved
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _join_build(ref, dk, cap, repeats) -> dict:
+    """The join plan's build at one shape, by CUDA events: K2 alone (``lattice_dedup_neighbors``, bounded
+    when ``cap`` is set), the row lists (``join_rows``) on its plan, K1 + K2 + rows through
+    ``wide_plan(build_plan_join(...))``, and, in a tree that has it, the one-call ``build_wide_plan_join``;
+    at a capacity also ``join_rows`` on the untrimmed plan.  Every tree with ``join_rows`` has the first three."""
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.ops import lattice as L
+
+    d = ref.shape[1]
+    E, a, oh1, oh2 = L._lattice_constants(d, dk.coeffs, dk.variance, ref.device)
+    h1, h2, w = K.lattice_geometry(ref, E, a)
+    seg, nb, nl = K.lattice_dedup_neighbors(h1, h2, oh1, oh2, cap)
+    plan = L.LatticePlan(seg.reshape(-1, d + 1), w, nb, nl)
+    rec = dict(join_M=nb.shape[1], join_n_lattice=int(nl),
+               k2_ms=_ms(lambda: K.lattice_dedup_neighbors(h1, h2, oh1, oh2, cap), repeats),
+               join_rows_ms=_ms(lambda: K.join_rows(*plan), repeats),
+               k1_k2_rows_ms=_ms(lambda: L.wide_plan(L.build_plan_join(ref, dk.coeffs, dk.variance, cap)), repeats))
+    if hasattr(L, "build_wide_plan_join"):
+        rec["wide_plan_one_call_ms"] = _ms(lambda: L.build_wide_plan_join(ref, dk.coeffs, dk.variance, cap), repeats)
+    del seg, nb, plan
+    if cap is not None:
+        full = L.build_plan_join(ref, dk.coeffs, dk.variance)
+        rec.update(untrimmed_M=full.neighbors.shape[1], join_rows_untrimmed_ms=_ms(lambda: K.join_rows(*full), repeats))
+    return rec
+
+
+def join_build(repeats: int = 10) -> dict:
+    """K2 and the join plan's row build by kernel, at the shapes of :func:`build_grad` (elevators untrimmed,
+    with K11a on the same hashes; houseelectric at capacity 32,768, and ``join_rows`` on the untrimmed
+    houseelectric plan): each call by
+    CUDA events launched and by CUDA-graph replay (its device time without the host's), and one call under
+    ``torch.profiler`` (device ms and launches by kernel).  Any tree with ``join_rows`` runs it; K2 with its rows
+    from one call (``lattice_plan_rows``) where the tree has it.  Prints one JSON line."""
+    import pathlib
+
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.models.components import softplus
+    from simplex_gp_torch.ops import kernels, lattice as L
+    from simplex_gp_torch.utils import data
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    dev = torch.device("cuda:0")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = {"card": _card(), "tree": simplex_gp_torch.__file__}
+    dk = kernels.matern_kernel(1.5, 1)
+    tg = np.load(root / "tests" / "fixtures" / "elevators_train_golden.npz")
+    inv_ell = 1.0 / softplus(torch.from_numpy(tg["init_raw_lengthscale"]).to(dev))
+    elev = data.prepare_dataset(data._synthetic_uci("elevators"), "elevators")
+    house = data.load_dataset("houseelectric")
+    for tag, xs, scale, cap in (("elevators", elev.train_x, inv_ell, None),
+                                ("houseelectric", house.train_x, 1.0 / trainer.median_lengthscale(house.train_x),
+                                 32768)):
+        ref = (torch.from_numpy(xs).to(dev) * scale).contiguous()
+        d = ref.shape[1]
+        E, a, oh1, oh2 = L._lattice_constants(d, dk.coeffs, dk.variance, dev)
+        h1, h2, w = K.lattice_geometry(ref, E, a)
+        seg, nb, nl = K.lattice_dedup_neighbors(h1, h2, oh1, oh2, cap)
+        plan = L.LatticePlan(seg.reshape(-1, d + 1), w, nb, nl)
+        calls = {"k2": lambda: K.lattice_dedup_neighbors(h1, h2, oh1, oh2, cap),
+                 "join_rows": lambda: K.join_rows(*plan)}
+        if hasattr(K, "lattice_plan_rows"):
+            calls["plan_rows_one_call"] = lambda: K.lattice_plan_rows(h1, h2, w, oh1, oh2, cap)
+        if cap is None:  # K11a on the same hashes, as one rank holding every rank's would run it
+            calls["k11a"] = lambda: K.lattice_dedup_ordered(h1, h2, oh1, oh2)
+        else:
+            full = L.build_plan_join(ref, dk.coeffs, dk.variance)
+            calls["join_rows_untrimmed"] = lambda: K.join_rows(*full)
+        rec = dict(N=h1.shape[0], M=nb.shape[1], n_lattice=int(nl))
+        for name, fn in calls.items():
+            rec[name] = dict(ms=_ms(fn, repeats), graph_ms=_graph_ms(fn, repeats), profile=_device_by_kernel(fn))
+        out[tag] = rec
+        del ref, h1, h2, w, seg, nb, plan, calls
     print(json.dumps(out), flush=True)
     return out
 
@@ -1149,6 +1233,9 @@ def _house_step(ref, house, dk, cap, ell, repeats, saved) -> dict:
         torch.cuda.synchronize()
         for i, nm in enumerate(("join_plan", "join_rows", "k9", "k9t", "k5")):
             parts.setdefault(f"backward_{nm}_ms", []).append(ev[i].elapsed_time(ev[i + 1]))
+        if hasattr(L, "build_wide_plan_join"):  # the backward's route in a tree that has the one-call build
+            parts.setdefault("backward_wide_plan_ms", []).append(
+                _ms(lambda: L.build_wide_plan_join(ref, dk.coeffs, dk.variance, cap), 1))
     rec.update(parts)
     return rec
 
@@ -1258,6 +1345,8 @@ if __name__ == "__main__":
         dp_step()
     elif "--mixture-sketch" in sys.argv[1:]:
         mixture_sketch()
+    elif "--join-build" in sys.argv[1:]:
+        join_build()
     elif "--build-grad" in sys.argv[1:]:
         build_grad(save=sys.argv[sys.argv.index("--save") + 1] if "--save" in sys.argv else None)
     elif "--compare-build-grad" in sys.argv[1:]:

@@ -35,15 +35,20 @@ _SIGNATURES = {
     "sgp_lattice_geometry": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "sgp_dedup_insert": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "sgp_dedup_finish": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-    "sgp_dedup_first": [_P, _I, _P, _P, _P],
+    "sgp_dedup_first": [_P, _I, _P, _I, _P, _P],
     "sgp_dedup_remap": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "sgp_dedup_workspace": [_I, _I, _I, _P],
+    "sgp_dedup": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _LL, _P],
     "sgp_lattice_splat": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
     "sgp_lattice_blur": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "sgp_lattice_slice": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _P],
     "sgp_lattice_splat_blocks": [*[_P] * 11, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "sgp_lattice_blur_live": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "sgp_lattice_slice_blocks": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
-    "sgp_join_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sgp_rows_sizes": [_I, _I, _P, _P],
+    "sgp_rows_build": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P],
+    "sgp_plan_rows_workspace": [_I, _I, _I, _P],
+    "sgp_plan_rows": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, *[_P] * 8, _LL, _P],
     "sgp_lattice_apply_cols": [*[_P] * 11, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F,
                                _P, _P, _P, _P, _P, _I, _P],
     "sgp_pivot_column": [_P, _LL, _LL, _P, _LL, _LL, *[_P] * 12, _I, _I, _I, _I, _F, _P],

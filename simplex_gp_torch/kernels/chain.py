@@ -416,7 +416,7 @@ def run_lists_device(long_info: torch.Tensor, cnt: torch.Tensor, N: int) -> tupl
     """:func:`run_lists` on the card, from each row's class: ``long_info`` (3, Mc) holds the long flag, the
     number of pieces and the mid flag of every row (0 past the live rows; csrc/rows.cuh, sgp_run_class).
     A ``torch.cumsum`` of each of its rows and one launch (``sgp_run_lists``) place the long rows, their
-    pieces and the mid rows; the sort chain's build and K9's and K7's row lists share it."""
+    pieces and the mid rows (a join plan's row lists do the same in C, csrc/join_rows.cu)."""
     i32 = dict(dtype=torch.int32, device=cnt.device)
     Mc = cnt.shape[0]
     # One 1-D scan a row: PyTorch scans the innermost dimension of a (3, Mc) tensor a few blocks a row, with

@@ -9,7 +9,8 @@ twin of the JAX join engine (simplex_gp_tpu/ops/lattice.py) and run on
 either device.
 
 K9, K7, K11b and K4 run on row lists (:class:`JoinRows`, built by
-:func:`join_rows`, :func:`sharded_rows` or inside K4): each row's
+:func:`join_rows`, :func:`lattice_plan_rows` with its plan, :func:`sharded_rows`
+or inside K4, all by ``csrc/join_rows.cu``'s one row build): each row's
 contributions in row order, summed by the sort chain's splat (K3'b,
 ``kernels/chain.py``) with no atomics, then a blur over the live rows only.
 Their plain versions sum in the kernels' order, so the two agree bit for
@@ -29,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .chain import chain_splat_plain, run_lists, run_lists_device
+from .chain import _carve, _long_bounds, chain_splat_plain, run_lists
 
 __all__ = [
     "lattice_simplex",
@@ -46,6 +47,8 @@ __all__ = [
     "join_rows_plain",
     "join_rows",
     "join_rows_device",
+    "rows_key_bits",
+    "lattice_plan_rows",
     "apply_cols_plain",
     "lattice_apply_cols",
     "sharded_rows",
@@ -259,7 +262,10 @@ def lattice_dedup_neighbors(h1, h2, oh1, oh2, capacity=None):
     capacity rows, counted in ``bounded_launches`` (the untrimmed one in
     ``launches``).  When more than M points are occupied, the kernel's
     n_lattice is some count above M, not the true occupancy (the plain
-    version's is), and the apply's guard turns the output into NaN.
+    version's is), and the apply's guard turns the output into NaN.  On the
+    card one host call (``csrc/dedup.cu``, ``sgp_dedup``: the table's fill,
+    the insert, the seg ids and the neighbours) on one workspace; the
+    outputs share one allocation.
     """
     if not h1.is_cuda:
         return dedup_neighbors_plain(h1, h2, oh1, oh2, capacity)
@@ -269,30 +275,28 @@ def lattice_dedup_neighbors(h1, h2, oh1, oh2, capacity=None):
     M = _rows(N, capacity)
     dp1, r2 = oh1.shape
     slots = _table_slots(M)
-    dev = h1.device
-    lib = build.library()
-    i32 = dict(dtype=torch.int32, device=dev)
-    table = torch.full((slots,), -2, dtype=torch.int64, device=dev)  # SGP_EMPTY
-    slot_of, seg_ids = torch.empty(N, **i32), torch.empty(N, **i32)
-    row_of_slot = torch.empty(slots, **i32)
-    count = torch.zeros((), **i32)
-    row_h1, row_h2 = torch.empty(M, **i32), torch.empty(M, **i32)
-    neighbors = torch.empty((dp1, M, r2), **i32)
-    st = build.stream()
-    rc = lib.sgp_dedup_insert(h1.data_ptr(), h2.data_ptr(), N, table.data_ptr(), slots - 1, M,
-                              slot_of.data_ptr(), row_of_slot.data_ptr(), count.data_ptr(),
-                              row_h1.data_ptr(), row_h2.data_ptr(), st)
-    build.check(rc, "lattice_dedup_neighbors (insert)")
-    rc = lib.sgp_dedup_finish(slot_of.data_ptr(), row_of_slot.data_ptr(), N, table.data_ptr(),
-                              slots - 1, M, count.data_ptr(), row_h1.data_ptr(), row_h2.data_ptr(),
-                              oh1.data_ptr(), oh2.data_ptr(), seg_ids.data_ptr(), dp1, r2,
-                              neighbors.data_ptr(), st)
-    build.check(rc, "lattice_dedup_neighbors (neighbors)")
-    if M < N:
+    lib, st = build.library(), build.stream()
+    out = _carve(h1.device, dict(seg=(torch.int32, N), count=(torch.int32, 1), nb=(torch.int32, dp1 * M * r2)))
+    work = _workspace(lib.sgp_dedup_workspace, h1.device, N, M, slots)
+    build.check(lib.sgp_dedup(h1.data_ptr(), h2.data_ptr(), N, oh1.data_ptr(), oh2.data_ptr(), dp1, r2, M, slots - 1,
+                              out["seg"].data_ptr(), out["nb"].data_ptr(), out["count"].data_ptr(), work.data_ptr(),
+                              work.numel(), st), "lattice_dedup_neighbors")
+    _count_dedup(M < N)
+    return out["seg"], out["nb"].view(dp1, M, r2), out["count"].view(())
+
+
+def _count_dedup(bounded: bool) -> None:
+    if bounded:
         lattice_dedup_neighbors.bounded_launches += 1
     else:
         lattice_dedup_neighbors.launches += 1
-    return seg_ids, neighbors, count
+
+
+def _workspace(size_fn, device, *args) -> torch.Tensor:
+    """A uint8 workspace of the bytes a C size query (``size_fn(*args, &bytes)``) asks for."""
+    need = ctypes.c_longlong(0)
+    build.check(size_fn(*args, ctypes.addressof(need)), "workspace size")
+    return torch.empty(max(need.value, 1), dtype=torch.uint8, device=device)
 
 
 lattice_dedup_neighbors.launches = 0
@@ -344,11 +348,11 @@ def lattice_dedup_ordered(h1, h2, oh1, oh2):
     dev = h1.device
     lib = build.library()
     i32 = dict(dtype=torch.int32, device=dev)
-    table = torch.full((slots,), -2, dtype=torch.int64, device=dev)  # SGP_EMPTY
+    table = torch.empty(slots, dtype=torch.int64, device=dev)  # emptied by the insert
     slot_of, seg_ids, flag = torch.empty(N, **i32), torch.empty(N, **i32), torch.empty(N, **i32)
     row_of_slot = torch.empty(slots, **i32)
-    first_of_slot = torch.full((slots,), 2**31 - 1, **i32)
-    count = torch.zeros((), **i32)
+    first_of_slot = torch.empty(slots, **i32)
+    count = torch.empty((), **i32)
     row_h1, row_h2 = torch.empty(N, **i32), torch.empty(N, **i32)
     neighbors = torch.empty((dp1, N, r2), **i32)
     st = build.stream()
@@ -356,7 +360,7 @@ def lattice_dedup_ordered(h1, h2, oh1, oh2):
                                      slot_of.data_ptr(), row_of_slot.data_ptr(), count.data_ptr(),
                                      row_h1.data_ptr(), row_h2.data_ptr(), st),
                 "lattice_dedup_ordered (insert)")
-    build.check(lib.sgp_dedup_first(slot_of.data_ptr(), N, first_of_slot.data_ptr(), flag.data_ptr(), st),
+    build.check(lib.sgp_dedup_first(slot_of.data_ptr(), N, first_of_slot.data_ptr(), slots, flag.data_ptr(), st),
                 "lattice_dedup_ordered (first)")
     scan = torch.cumsum(flag, 0, dtype=torch.int32)
     build.check(lib.sgp_dedup_remap(h1.data_ptr(), h2.data_ptr(), slot_of.data_ptr(), flag.data_ptr(),
@@ -530,33 +534,64 @@ def _rows_plain(seg_ids, weights, M: int, n_lattice, n_pts=None) -> JoinRows:
                     *run_lists(cnt, live, N), n_lattice)
 
 
+def rows_key_bits(Mt: int) -> int:
+    """The low bits of the seg ids that the card's stable radix sort of a plan of Mt = J M rows looks at:
+    bit_length(Mt - 1), at least 1.  Every seg id lies below Mt (past a capacity every one is 0), so no
+    higher bit can differ (``csrc/join_rows.cu``)."""
+    return max(1, (Mt - 1).bit_length())
+
+
+def _rows_sizes(lib, N: int, Mt: int) -> tuple:
+    """(ints of the lists buffer, workspace bytes) of the card's row build of N contributions over Mt rows."""
+    ints, work = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    build.check(lib.sgp_rows_sizes(N, Mt, ctypes.addressof(ints), ctypes.addressof(work)), "join_rows (sizes)")
+    return ints.value, work.value
+
+
+def _rows_parts(N: int, Mt: int, lists_ints: int) -> dict:
+    """The :func:`~simplex_gp_torch.kernels.chain._carve` parts of a JoinRows' tensors."""
+    return dict(sp=(torch.int32, N), sw=(torch.float32, N), cnt=(torch.int32, Mt), lists=(torch.int32, lists_ints))
+
+
+def _rows_of(out: dict, N: int, Mt: int, n_lattice) -> JoinRows:
+    """The JoinRows of the carved buffers ``out`` that ``sgp_rows_build`` filled; the lists in their order in
+    ``csrc/rows.cuh``'s RowsLists."""
+    nl_max, np_max, nm_max = _long_bounds(N, Mt)
+    long_rows, long_first, piece_row, piece_start, mid_rows, n_long, n_pieces, n_mid = out["lists"].split(
+        (nl_max, nl_max + 1, np_max, np_max, nm_max, 1, 1, 1))
+    return JoinRows(out["sp"], out["sw"], out["cnt"], long_rows, long_first, piece_row, piece_start, n_long.view(()),
+                    n_pieces.view(()), mid_rows, n_mid.view(()), n_lattice)
+
+
 def join_rows_device(seg_ids, weights, live, M: int, n_pts: int, n_lattice, sparse: bool = False) -> JoinRows:
     """The row lists of ``seg_ids`` (.., d+1) over ``live.shape[0]`` components of M rows on the card.
 
-    A stable ``torch.sort`` of the seg ids, two launches for the runs and
-    their classes (``sgp_join_rows``; ``live`` (J,) the components' live
-    counts, each contribution's point reduced mod ``n_pts``; ``sparse``: a
-    live row may hold no contribution, as a sharded plan's rank's), then
-    the sort chain's :func:`~simplex_gp_torch.kernels.chain.run_lists_device`;
-    ``n_lattice`` becomes the lists' count.  Nothing is read on the host.
-    Counted in ``join_rows.launches``.
+    One host call (``csrc/join_rows.cu``, ``sgp_rows_build``) on one
+    workspace: each contribution's index and weight packed into one sort
+    value, a stable cub radix sort of the seg ids over their
+    low :func:`rows_key_bits` bits, the runs and their classes (``live``
+    (J,) the components' live counts, each contribution's point reduced mod
+    ``n_pts``; ``sparse``: a live row may hold no contribution, as a
+    sharded plan's rank's), three cub scans and the lists; ``n_lattice``
+    becomes the lists' count.  Nothing is read on the host; the rows share
+    one allocation.  Counted in ``join_rows.launches``.
     """
     build.require("join_rows", (seg_ids, torch.int32), (weights, torch.float32), (live, torch.int32))
-    dev = seg_ids.device
     dp1 = seg_ids.shape[-1]
     J = live.shape[0]
-    N = seg_ids.numel()
-    i32 = dict(dtype=torch.int32, device=dev)
-    lib, st = build.library(), build.stream()
-    sorted_seg, perm = torch.sort(seg_ids.reshape(-1), stable=True)
-    sp, sw = torch.empty(N, **i32), torch.empty(N, dtype=torch.float32, device=dev)
-    cnt, long_info = torch.empty(J * M, **i32), torch.empty((3, J * M), **i32)
-    build.check(lib.sgp_join_rows(sorted_seg.data_ptr(), perm.data_ptr(), weights.data_ptr(), live.data_ptr(), J, N,
-                                  M, dp1, n_pts, int(sparse), sp.data_ptr(), sw.data_ptr(), cnt.data_ptr(),
-                                  long_info.data_ptr(), st), "join_rows (runs)")
-    lists = run_lists_device(long_info, cnt, N)
+    N, Mt = seg_ids.numel(), live.shape[0] * M
+    if weights.numel() != N:
+        raise ValueError(f"join_rows: {weights.numel()} weights for {N} seg ids")
+    lib = build.library()
+    lists_ints, work_bytes = _rows_sizes(lib, N, Mt)
+    out = _carve(seg_ids.device, _rows_parts(N, Mt, lists_ints))
+    work = torch.empty(max(work_bytes, 1), dtype=torch.uint8, device=seg_ids.device)
+    build.check(lib.sgp_rows_build(seg_ids.data_ptr(), weights.data_ptr(), live.data_ptr(), J, N, M, dp1, n_pts,
+                                   int(sparse), out["sp"].data_ptr(), out["sw"].data_ptr(), out["cnt"].data_ptr(),
+                                   out["lists"].data_ptr(), work.data_ptr(), work.numel(), build.stream()),
+                "join_rows")
     join_rows.launches += 1
-    return JoinRows(sp, sw, cnt, *lists, n_lattice)
+    return _rows_of(out, N, Mt, n_lattice)
 
 
 def join_rows(seg_ids, weights, neighbors, n_lattice) -> JoinRows:
@@ -573,6 +608,47 @@ def join_rows(seg_ids, weights, neighbors, n_lattice) -> JoinRows:
 
 
 join_rows.launches = 0
+
+
+def lattice_plan_rows(h1, h2, weights, oh1, oh2, capacity=None):
+    """K2 and the plan's row lists from one host call: (seg_ids (n, d+1), neighbors, n_lattice, rows).
+
+    The plan of :func:`lattice_dedup_neighbors` (M = min(capacity, N)
+    rows) and its :func:`join_rows`, from K1's hash pairs and ``weights``
+    (n, d+1).  On the card one call (``csrc/join_rows.cu``,
+    ``sgp_plan_rows``) runs K2's fill, insert, seg and neighbour passes and
+    then the row build on one workspace, with no host read; the plan and
+    its rows share one allocation.  Counted in K2's counters and in
+    ``join_rows.launches``.
+    """
+    if not h1.is_cuda:
+        seg_ids, neighbors, n_lattice = dedup_neighbors_plain(h1, h2, oh1, oh2, capacity)
+        seg_ids = seg_ids.reshape(weights.shape)
+        return seg_ids, neighbors, n_lattice, join_rows_plain(seg_ids, weights, neighbors, n_lattice)
+    build.require("lattice_plan_rows", (h1, torch.int32), (h2, torch.int32), (weights, torch.float32),
+                  (oh1, torch.int32), (oh2, torch.int32))
+    N = h1.shape[0]
+    M = _rows(N, capacity)
+    dp1, r2 = oh1.shape
+    if weights.shape != (N // dp1, dp1) or h2.shape != h1.shape:
+        raise ValueError(f"lattice_plan_rows: weights {tuple(weights.shape)} do not fit {N} hash pairs of "
+                         f"{dp1} vertices a point")
+    slots = _table_slots(M)
+    dev = h1.device
+    lib = build.library()
+    lists_ints, _ = _rows_sizes(lib, N, M)
+    out = _carve(dev, dict(seg=(torch.int32, N), count=(torch.int32, 1), nb=(torch.int32, dp1 * M * r2),
+                           **_rows_parts(N, M, lists_ints)))
+    work = _workspace(lib.sgp_plan_rows_workspace, dev, N, M, slots)
+    build.check(lib.sgp_plan_rows(h1.data_ptr(), h2.data_ptr(), weights.data_ptr(), N, oh1.data_ptr(),
+                                  oh2.data_ptr(), dp1, r2, M, slots - 1, out["seg"].data_ptr(), out["nb"].data_ptr(),
+                                  out["count"].data_ptr(), out["sp"].data_ptr(), out["sw"].data_ptr(),
+                                  out["cnt"].data_ptr(), out["lists"].data_ptr(), work.data_ptr(), work.numel(),
+                                  build.stream()), "lattice_plan_rows")
+    _count_dedup(M < N)
+    join_rows.launches += 1
+    n_lattice = out["count"].view(())
+    return (out["seg"].view(N // dp1, dp1), out["nb"].view(dp1, M, r2), n_lattice, _rows_of(out, N, M, n_lattice))
 
 
 def _slice_sums(table, seg_ids, weights):

@@ -74,8 +74,8 @@ from ..ops.filter import (
     _plan_from_tensors,
     _plan_tensors,
     apply_plan_any,
-    build_join_plan_any,
     build_plan_any,
+    build_wide_plan_any,
     deriv_filter_grad,
     filter_backward,
     lattice_filter,
@@ -83,7 +83,7 @@ from ..ops.filter import (
     lattice_filter_exact_grad,
 )
 from ..ops.kernels import MixtureKernel
-from ..ops.lattice import ChainPlan, build_plan_sharded_join, wide_plan
+from ..ops.lattice import ChainPlan, build_plan_sharded_join
 from .cg import cg_solve
 from .lanczos import logdet_from_cg_tridiag, slq_logdet
 from .pivoted_cholesky import (
@@ -282,7 +282,7 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
             if kept:
                 plan = _plan_from_tensors(ctx.plan_type, kept)
             else:  # the same positions and capacity as the CG's chain plan; an overflow trips both
-                plan = wide_plan(build_join_plan_any(ref.detach().contiguous(), ctx.dk, ctx.capacity))
+                plan = build_wide_plan_any(ref.detach().contiguous(), ctx.dk, ctx.capacity)
             KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True, axis=ctx.axis)
             # d/dref of s * K(ref) V against U: K5 with the cotangent s U.
             _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f, ctx.axis)

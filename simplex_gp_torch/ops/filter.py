@@ -58,6 +58,7 @@ from .lattice import (
     ChainPlan,
     MixturePlan,
     WidePlan,
+    _lattice_constants,
     apply_plan_chain,
     apply_plan_cols,
     apply_plan_join,
@@ -67,11 +68,10 @@ from .lattice import (
     build_plan_join,
     build_plan_mixture,
     build_plan_sharded_join,
-    build_rotation,
+    build_wide_plan_join,
     filter_once,
     mixture_component,
     mixture_positions,
-    wide_plan,
 )
 
 # Widest value block for the one-shot filter; wider blocks take the join plan
@@ -87,7 +87,7 @@ _WIDE_CHUNK = 8
 
 __all__ = [
     "build_plan_any",
-    "build_join_plan_any",
+    "build_wide_plan_any",
     "apply_plan_any",
     "apply_plan_wide",
     "lattice_filter_wide_chunked",
@@ -116,19 +116,20 @@ def build_plan_any(ref: torch.Tensor, dk, capacity: Optional[int] = None):
     return build_plan(ref, dk.coeffs, dk.variance, capacity)
 
 
-def build_join_plan_any(ref: torch.Tensor, dk, capacity: Optional[int] = None):
-    """The join-engine plan of ``dk`` at ``ref``: a LatticePlan, or a mixture's stacked MixturePlan.
+def build_wide_plan_any(ref: torch.Tensor, dk, capacity: Optional[int] = None):
+    """The join-engine plan of ``dk`` at ``ref`` with its row lists: a WidePlan (K1, then K2 and the rows
+    from one host call, :func:`~simplex_gp_torch.ops.lattice.build_wide_plan_join`), or a mixture's
+    stacked MixturePlan, which holds its rows and ignores ``capacity``.
 
-    The plan whose applies keep a blurred table for the exact backward (K5)
-    and whose wide applies take K9.
+    The plan that K9 applies more than once, and the exact backward's.
     """
     if isinstance(dk, MixtureKernel):
         return build_plan_mixture(ref, dk.alphas, dk.base.coeffs, dk.base.variance)
-    return build_plan_join(ref, dk.coeffs, dk.variance, capacity)
+    return build_wide_plan_join(ref, dk.coeffs, dk.variance, capacity)
 
 
 def apply_plan_any(plan, V: torch.Tensor, dk, transpose: bool = False, return_table: bool = False, axis=None):
-    """K @ V (or K^T @ V) through a plan from :func:`build_plan_any` or :func:`build_join_plan_any`,
+    """K @ V (or K^T @ V) through a plan from :func:`build_plan_any` or :func:`build_wide_plan_any`,
     or a sharded plan with ``axis``.
 
     No outputscale or noise.  With ``axis`` the plan is sharded (a WidePlan
@@ -203,7 +204,7 @@ def lattice_filter_wide_chunked(src: torch.Tensor, ref: torch.Tensor, dk: Discre
     differentiable route is :func:`lattice_filter_exact_grad`, which takes
     the same branch).
     """
-    return apply_plan_cols(build_join_plan_any(ref, dk, capacity), src, dk.coeffs, _WIDE_CHUNK)
+    return apply_plan_cols(build_wide_plan_join(ref, dk.coeffs, dk.variance, capacity), src, dk.coeffs, _WIDE_CHUNK)
 
 
 def make_wide_filter(ref: torch.Tensor, dk, capacity: Optional[int] = None):
@@ -222,9 +223,7 @@ def make_wide_filter(ref: torch.Tensor, dk, capacity: Optional[int] = None):
         if large:
             mvs = [make_wide_filter(ref * a, dk.base) for a in dk.alphas]
             return lambda V: sum(w * f(V) for w, f in zip(dk.weights, mvs))
-        plan = build_join_plan_any(ref, dk)
-    else:
-        plan = wide_plan(build_join_plan_any(ref, dk, capacity if large else None))
+    plan = build_wide_plan_any(ref, dk, capacity if large else None)
     return lambda V: apply_plan_wide(plan, V, dk)
 
 
@@ -242,7 +241,7 @@ def mixture_position_grad(plan: MixturePlan, ref: torch.Tensor, dk: MixtureKerne
     """
     J, n, dp1 = plan.seg_ids.shape
     d = dp1 - 1
-    E = torch.from_numpy(build_rotation(d, dk.base.variance)).to(ref.device)
+    E = _lattice_constants(d, dk.base.coeffs, dk.base.variance, ref.device)[0]
     src = src.to(torch.float32).contiguous()
     stacked = lattice_filter_grad(mixture_positions(ref, dk.alphas), E, plan.seg_ids.reshape(J * n, dp1),
                                   src.repeat(J, 1), g.repeat(J, 1), table_f, table_b, SLICE_NORM(d))
@@ -285,7 +284,7 @@ def _sharded_mixture_backward(plans: tuple, ref: torch.Tensor, dk: MixtureKernel
     chained through ref alpha_j, so it is multiplied by alpha_j.
     """
     d = ref.shape[1]
-    E = torch.from_numpy(build_rotation(d, dk.base.variance)).to(ref.device)
+    E = _lattice_constants(d, dk.base.coeffs, dk.base.variance, ref.device)[0]
     src = src.to(torch.float32).contiguous()
     grad_src = grad_ref = None
     for w, a, plan, table_f in zip(dk.weights, dk.alphas, plans, tables_f):
@@ -323,7 +322,7 @@ def filter_backward(plan, ref: torch.Tensor, dk, src: torch.Tensor, g: torch.Ten
     grad_src, table_b = apply_plan_any(plan, g, dk, transpose=True, return_table=True, axis=axis)
     if isinstance(dk, MixtureKernel):
         return grad_src, mixture_position_grad(plan, ref, dk, src, g, table_f, table_b)
-    E = torch.from_numpy(build_rotation(d, dk.variance)).to(ref.device)
+    E = _lattice_constants(d, dk.coeffs, dk.variance, ref.device)[0]
     grad_ref = lattice_filter_grad(ref.to(torch.float32).contiguous(), E, plan.seg_ids,
                                    src.to(torch.float32).contiguous(), g, table_f, table_b, SLICE_NORM(d))
     return grad_src, grad_ref
@@ -352,13 +351,13 @@ class LatticeFilterExactGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src: torch.Tensor, ref: torch.Tensor, dk, capacity: Optional[int] = None, axis=None):
         if isinstance(dk, MixtureKernel):
-            plan = build_join_plan_any(ref, dk)
+            plan = build_wide_plan_any(ref, dk)
             out, table_f = apply_plan_any(plan, src, dk, return_table=True)
         elif axis is not None:
             plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
             out, table_f = apply_plan_any(plan, src, dk, return_table=True, axis=axis)
         else:
-            plan = wide_plan(build_join_plan_any(ref, dk, capacity))
+            plan = build_wide_plan_join(ref, dk.coeffs, dk.variance, capacity)
             if _chunked(*ref.shape, src.shape[-1]):
                 out, table_f = apply_plan_cols(plan, src, dk.coeffs, _WIDE_CHUNK), None
             else:
@@ -436,7 +435,7 @@ def _filter_plain(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel) -
     if src.shape[-1] > _WIDE_COLS:
         if _chunked(*ref.shape, src.shape[-1]):
             return lattice_filter_wide_chunked(src, ref, dk)
-        return apply_plan_rows(wide_plan(build_plan_join(ref, dk.coeffs, dk.variance)), src, dk.coeffs)
+        return apply_plan_rows(build_wide_plan_join(ref, dk.coeffs, dk.variance), src, dk.coeffs)
     return filter_once(src, ref, dk.coeffs, dk.variance)
 
 

@@ -20,8 +20,9 @@ builds it once and applies it many times.  There are two engines, as in JAX:
 * the join (:class:`LatticePlan`, build_plan_join / apply_plan_join): K1
   and K2 (lattice_dedup_neighbors: lattice rows and blur neighbours) build
   it, K3 (lattice_apply, atomic splat; a yardstick, on no model path)
-  applies it; with its row lists (a :class:`WidePlan`) K9 applies it, K9
-  transposed and K5 differentiate it, all in
+  applies it; with its row lists (a :class:`WidePlan`, from
+  :func:`build_wide_plan_join`: K1, then K2 and the rows in one host call)
+  K9 applies it, K9 transposed and K5 differentiate it, all in
   :mod:`simplex_gp_torch.kernels.lattice`; the sharded plan of the
   data-parallel engine is K1, K11a and this rank's row lists over the live
   rows (a WidePlan), applied by K11b (``axis``).
@@ -52,6 +53,7 @@ tests hold them equal.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -69,6 +71,7 @@ from ..kernels.lattice import (
     lattice_dedup_ordered,
     lattice_filter_once,
     lattice_geometry,
+    lattice_plan_rows,
     lattice_simplex,
     sharded_rows,
 )
@@ -93,6 +96,7 @@ __all__ = [
     "apply_plan_cols",
     "apply_plan_rows",
     "wide_plan",
+    "build_wide_plan_join",
     "K9_WINDOW",
     "k9_window",
     "build_plan_mixture",
@@ -271,12 +275,35 @@ class MixturePlan(NamedTuple):
     rows: JoinRows
 
 
-def _lattice_constants(d: int, coeffs: tuple, blur_variance: float, device):
-    """(E, a, oh1, oh2) on ``device``: elevation, hash multipliers, neighbour offset hashes."""
+def _device_key(device) -> str:
+    """``device`` with its index: a bare "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _constants_on(d: int, order: int, blur_variance: float, device: str) -> tuple:
+    """(E, a, oh1, oh2, chain consts) on ``device``, built and copied once.  A copy from pageable host
+    memory waits for the device's queue, so building them anew in every plan build stalled the host once
+    per copy, in the middle of a training step.
+
+    Read-only by contract: every plan build, K5 and the mixture backward
+    get these same tensor objects, so an in-place edit by any caller would
+    change every later plan.  A caller that must write takes a clone."""
     a = _hash_vectors(d)
-    E = torch.from_numpy(build_rotation(d, blur_variance)).to(device)
-    oh1, oh2 = (torch.from_numpy(o).to(device) for o in _offset_hashes(d, (len(coeffs) - 1) // 2, a))
-    return E, torch.from_numpy(a).to(device), oh1, oh2
+    arrays = (build_rotation(d, blur_variance), a, *_offset_hashes(d, order, a), _chain_consts(d))
+    return tuple(torch.from_numpy(t).to(device) for t in arrays)
+
+
+def _lattice_constants(d: int, coeffs: tuple, blur_variance: float, device):
+    """(E, a, oh1, oh2) on ``device``: elevation, hash multipliers, neighbour offset hashes.
+
+    Cached per device (:func:`_constants_on`): the same tensors on every
+    call, to be read and never written in place.
+    """
+    return _constants_on(d, (len(coeffs) - 1) // 2, float(blur_variance), _device_key(device))[:4]
 
 
 def build_plan_chain(x: torch.Tensor, coeffs: tuple, blur_variance: float,
@@ -291,10 +318,8 @@ def build_plan_chain(x: torch.Tensor, coeffs: tuple, blur_variance: float,
     if not np.allclose(cs, cs[::-1]):
         raise ValueError("chain plan requires symmetric filter taps")
     d = x.shape[1]
-    E = torch.from_numpy(build_rotation(d, blur_variance)).to(x.device)
-    a = torch.from_numpy(_hash_vectors(d)).to(x.device)
+    E, a, _, _, consts = _constants_on(d, (len(coeffs) - 1) // 2, float(blur_variance), _device_key(x.device))
     h1, h2, weights, s = lattice_geometry(x.to(torch.float32).contiguous(), E, a, with_s=True)
-    consts = torch.from_numpy(_chain_consts(d)).to(x.device)
     return chain_build(h1, h2, s, weights, consts, [float(c) for c in coeffs], capacity)
 
 
@@ -454,6 +479,18 @@ def k9_window(chunk: int) -> int:
 def wide_plan(plan: LatticePlan) -> WidePlan:
     """``plan`` with its row lists, built now on its device."""
     return WidePlan(*plan, join_rows(*plan))
+
+
+def build_wide_plan_join(x: torch.Tensor, coeffs: tuple, blur_variance: float,
+                         capacity: Optional[int] = None) -> WidePlan:
+    """``wide_plan(build_plan_join(x, ...))`` by K1 and one host call for the rest: K2 and the row lists
+    on one workspace (:func:`~simplex_gp_torch.kernels.lattice.lattice_plan_rows`), nothing read on the
+    host.  The same plan and rows, field for field."""
+    n, d = x.shape
+    E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x.device)
+    h1, h2, weights = lattice_geometry(x.to(torch.float32).contiguous(), E, a)
+    seg_ids, neighbors, n_lattice, rows = lattice_plan_rows(h1, h2, weights, oh1, oh2, capacity)
+    return WidePlan(seg_ids, weights, neighbors, n_lattice, rows)
 
 
 def apply_plan_rows(plan: WidePlan, v: torch.Tensor, coeffs: tuple, transpose: bool = False,

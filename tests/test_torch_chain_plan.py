@@ -261,12 +261,13 @@ class _Spy:
 
 
 def test_engine_runs_its_cg_on_the_chain_and_its_backward_on_a_join_plan(monkeypatch):
-    """_solve_system's CG applies a ChainPlan only; the exact backward builds a join plan of the same
-    positions and capacity (JAX's backward filters afresh, mll.py:262-265) and saves no chain plan.
+    """_solve_system's CG applies a ChainPlan only; the exact backward builds a join plan with its row lists
+    (build_wide_plan_join) of the same positions and capacity (JAX's backward filters afresh,
+    mll.py:262-265) and saves no chain plan.
     Its two applies run on the join plan's row lists (apply_plan_rows, K9's row-order splat), not K3."""
     x, y, probes, values = _nlml_case(300, 3, "matern", 1)
     tdk, _ = _kernels("matern", 1)
-    spy = _Spy(monkeypatch, t_filter, "build_plan", "apply_plan_chain", "apply_plan_join", "build_plan_join",
+    spy = _Spy(monkeypatch, t_filter, "build_plan", "apply_plan_chain", "apply_plan_join", "build_wide_plan_join",
                "apply_plan_rows")
     cfg = t_mll.BBMMConfig(cg_tolerance=1.0, num_probes=8, precond_rank=20, plan_capacity=1024)
     params = {k: torch.tensor(v, requires_grad=True) for k, v in values.items()}
@@ -275,9 +276,9 @@ def test_engine_runs_its_cg_on_the_chain_and_its_backward_on_a_join_plan(monkeyp
     assert isinstance(plan_call[2], t_lattice.ChainPlan) and plan_call[2].cnt.shape == (1024,)
     assert len(spy.calls["apply_plan_chain"]) >= 10
     assert all(call[0][0] is plan_call[2] for call in spy.calls["apply_plan_chain"])
-    assert not spy.calls["apply_plan_join"] and not spy.calls["build_plan_join"]
+    assert not spy.calls["apply_plan_join"] and not spy.calls["build_wide_plan_join"]
     loss.backward()
-    (join_call,) = spy.calls["build_plan_join"]
+    (join_call,) = spy.calls["build_wide_plan_join"]
     assert join_call[0][3] == 1024
     torch.testing.assert_close(join_call[0][0], torch.from_numpy(x) * params["inv_ell"].detach(), rtol=0, atol=0)
     assert int(join_call[2].n_lattice) == int(plan_call[2].n_lattice)
@@ -308,14 +309,14 @@ def test_posterior_cache_runs_its_cg_on_the_chain_and_matches_jax(monkeypatch):
     jmean, jvar = map(np.asarray, jm.predict_from_cache(jc, jnp.asarray(x), jnp.asarray(xt)))
     omega = np.array(jax.random.normal(key, (n, min(jm.bbmm.max_lanczos_iterations, n)), jnp.float32))
 
-    spy = _Spy(monkeypatch, t_filter, "build_plan", "apply_plan_chain", "build_plan_join", "apply_plan_join",
+    spy = _Spy(monkeypatch, t_filter, "build_plan", "apply_plan_chain", "build_wide_plan_join", "apply_plan_join",
                "apply_plan_cols")
     tm = T.SimplexGP(**kw, eval_cg_tolerance=1e-5).load_raw(raw)
     tc = tm.posterior_cache(torch.from_numpy(x), torch.from_numpy(y), omega=torch.from_numpy(omega))
     (plan_call,) = spy.calls["build_plan"]
     assert isinstance(plan_call[2], t_lattice.ChainPlan)
     assert len(spy.calls["apply_plan_chain"]) == tc["cg_iters"] >= 10  # one MVM per iteration
-    (join_call,) = spy.calls["build_plan_join"]
+    (join_call,) = spy.calls["build_wide_plan_join"]
     assert not spy.calls["apply_plan_join"] and len(spy.calls["apply_plan_cols"]) == 2
     assert all(call[0][0].seg_ids is join_call[2].seg_ids for call in spy.calls["apply_plan_cols"])
     tmean, tvar = tm.predict_from_cache(tc, torch.from_numpy(x), torch.from_numpy(xt))

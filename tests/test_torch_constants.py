@@ -12,6 +12,7 @@ import torch
 
 from simplex_gp_torch.kernels import chain as t_chain
 from simplex_gp_torch.ops import coeffs as t_coeffs
+from simplex_gp_torch.ops import filter as t_filter
 from simplex_gp_torch.ops import kernels as t_kernels
 from simplex_gp_torch.ops import lattice as t_lattice
 from simplex_gp_torch.utils import data as t_data
@@ -129,3 +130,21 @@ def test_chain_plan_refuses_asymmetric_taps():
         j_lattice.build_plan_chain(jnp.asarray(x), taps, 0.5)
     with pytest.raises(ValueError, match="chain plan requires symmetric filter taps"):
         t_lattice.build_plan_chain(torch.from_numpy(x), taps, 0.5)
+
+
+def test_cached_lattice_constants_are_shared_and_left_unwritten():
+    """The per-device cache hands every caller the same tensors; a plan build, the exact filter and its
+    backward read them and leave them equal to a fresh build."""
+    d, dk = 3, t_kernels.matern_kernel(1.5, 1)
+    first = t_lattice._lattice_constants(d, dk.coeffs, dk.variance, "cpu")
+    again = t_lattice._lattice_constants(d, dk.coeffs, dk.variance, torch.device("cpu"))
+    assert all(x is y for x, y in zip(first, again))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(64, d)).astype(np.float32)).requires_grad_()
+    v = torch.from_numpy(rng.normal(size=(64, 2)).astype(np.float32)).requires_grad_()
+    t_filter.lattice_filter_exact_grad(v, x, dk).sum().backward()
+    t_lattice.build_plan_chain(x.detach(), dk.coeffs, dk.variance)
+    a = t_lattice._hash_vectors(d)
+    fresh = (t_lattice.build_rotation(d, dk.variance), a, *t_lattice._offset_hashes(d, (len(dk.coeffs) - 1) // 2, a))
+    for cached, want in zip(t_lattice._lattice_constants(d, dk.coeffs, dk.variance, "cpu"), fresh):
+        np.testing.assert_array_equal(cached.numpy(), want)

@@ -22,7 +22,12 @@ versions and a second run bit for bit (K9 at windows of 8, 16 and 32
 columns, against the unchunked K3 rel 1e-5).
 The bounded K2 numbers its rows as it likes but gives the plain version's
 occupancy, and K3 on it the plain operator (rel 1e-5); one row short of
-the occupancy, every output is NaN and no launch leaves its table.
+the occupancy, every output is NaN and no launch leaves its table.  K2 and
+its row lists from one host call (``lattice_plan_rows``): the rows equal
+their plain build on the same plan bit for bit, and K9 on them equals K9's
+plain version on the plain plan bit for bit (the numbering reaches no
+output bit); the row build equals its plain version at J M = 2^k - 1, 2^k
+and 2^k + 1, the edges of the bits its radix sort reads.
 K11a numbers its rows as its plain version does, bit for bit; K11b is K3's
 splat, blur and slice over column blocks (on one rank, it, its plain version
 and K3 each within rel 2e-5 of the operator in float64; over two gloo ranks
@@ -316,6 +321,71 @@ def test_join_rows_match_plain_bit_for_bit(cuda_device, capacity):
         for name, a, b, c in zip(K.JoinRows._fields, got, again, want):
             assert torch.equal(a, b) and torch.equal(a, c), name
     assert int(got.n_long) > 0 and int(got.n_mid) > 0
+
+
+@pytest.mark.parametrize("capacity", ["untrimmed", "occupancy", "short"])
+@pytest.mark.parametrize("n,d,order,kind", GRID)
+def test_one_call_plan_rows_match_plain(cuda_device, n, d, order, kind, capacity):
+    """lattice_plan_rows: its n_lattice the occupancy, its rows bit for bit the plain build of its own plan,
+    K9 on them bit for bit the plain version's on the plain plan, twice; counted as one K2 (bounded below
+    n(d+1) rows) and one row build a call; one row short of the occupancy all NaN, no fault."""
+    dk = _dk(kind, order)
+    x = _positions(n, d, 3, cuda_device)
+    E, a, oh1, oh2 = t_lattice._lattice_constants(d, dk.coeffs, dk.variance, cuda_device)
+    h1, h2, w = K.lattice_geometry(x, E, a)
+    occ = int(K.count_plain(x, E, a))
+    cap = {"untrimmed": None, "occupancy": occ, "short": occ - 1}[capacity]
+    bounded = cap is not None and cap < n * (d + 1)
+    norm = t_lattice.SLICE_NORM(d)
+    v = torch.randn((n, 11), generator=torch.Generator(device=cuda_device).manual_seed(n), device=cuda_device)
+    pseg, pnb, pnl = K.dedup_neighbors_plain(h1, h2, oh1, oh2, cap)
+    pout = K.apply_cols_plain(pseg.reshape(n, d + 1), w, pnb, pnl, v, dk.coeffs, norm, 11)
+    outs = []
+    for _ in range(2):
+        before = (K.lattice_dedup_neighbors.launches, K.lattice_dedup_neighbors.bounded_launches,
+                  K.join_rows.launches)
+        seg, nb, nl, rows = K.lattice_plan_rows(h1, h2, w, oh1, oh2, cap)
+        outs.append(K.lattice_apply_cols(seg, w, nb, nl, v, dk.coeffs, norm, 11, rows))
+        want = K.join_rows_plain(seg, w, nb, nl)
+        torch.cuda.synchronize()
+        after = (K.lattice_dedup_neighbors.launches, K.lattice_dedup_neighbors.bounded_launches, K.join_rows.launches)
+        assert tuple(b - a_ for a_, b in zip(before, after)) == ((0, 1, 1) if bounded else (1, 0, 1))
+        assert tuple(nb.shape) == tuple(pnb.shape) and int(pnl) == occ
+        for name, g, p in zip(K.JoinRows._fields, rows, want):
+            assert g.dtype == p.dtype and torch.equal(g, p), name
+        if capacity == "short":
+            assert int(nl) > cap and int(seg.max()) == 0 and bool(torch.isnan(outs[-1]).all())
+        else:
+            assert int(nl) == occ and torch.equal(outs[-1], pout)
+    assert torch.equal(outs[0], outs[1]) or capacity == "short"
+
+
+@pytest.mark.parametrize("J", [1, 2])
+@pytest.mark.parametrize("k", [10, 15])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_row_build_matches_plain_at_the_key_bit_edges(cuda_device, J, k, edge):
+    """join_rows_device over J components of M rows, J M = 2^k - 1, 2^k, 2^k + 1 (J = 2: M = 2^(k-1) + edge,
+    so J M = 2^k - 2, 2^k, 2^k + 2): every row live and the highest one too, bit for bit the plain rows and
+    a second build; the sort reads K.rows_key_bits(J M) bits, all of which the highest row id needs."""
+    M = (1 << k) + edge if J == 1 else (1 << (k - 1)) + edge
+    Mt = J * M
+    bits = K.rows_key_bits(Mt)
+    assert (Mt - 1) >> bits == 0 and (Mt - 1) >> (bits - 1) == 1
+    rng = np.random.default_rng(k + edge)
+    dp1 = 4
+    ids = np.concatenate([np.arange(Mt), rng.integers(0, Mt, size=-Mt % dp1 + dp1 * 700)]).astype(np.int32)
+    seg = torch.from_numpy(rng.permutation(ids).reshape(-1, dp1)).to(cuda_device)
+    w = torch.from_numpy(rng.uniform(-1, 1, size=seg.shape).astype(np.float32)).to(cuda_device)
+    n = seg.shape[0]
+    count = torch.tensor(Mt, dtype=torch.int32, device=cuda_device)
+    live = torch.full((J,), M, dtype=torch.int32, device=cuda_device)
+    before = K.join_rows.launches
+    got, again = (K.join_rows_device(seg, w, live, M, n, count) for _ in range(2))
+    want = K._rows_plain(seg, w, Mt, count)
+    torch.cuda.synchronize()
+    assert K.join_rows.launches == before + 2
+    for name, g, a_, p in zip(K.JoinRows._fields, got, again, want):
+        assert torch.equal(g, a_) and torch.equal(g, p), name
 
 
 @pytest.mark.parametrize("c", [20, 101])
