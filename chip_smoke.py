@@ -121,8 +121,10 @@ Phases, each printed as it runs:
      K13 (SKIP's root: ski_interp and its backward scatter, ski_kr_matmul,
      ski_kr_gram, ski_kr_adjoint) against its plain versions at the training
      root and the joint [train; test] root, g = 100, r = 64, with JAX's
-     Omega (the backward scatter bit for bit, and a second call), beside one
-     einsum each for K13b and K13c; SKIP's NLML, raw gradients (twice, bit
+     Omega (the backward scatter bit for bit, and a second call; K13b-d a
+     second call bit for bit), beside one einsum each for K13b and K13c and,
+     for K13b, torch.mm of the materialised (n, r^2) M (cuBLAS's f32 rate, a
+     yardstick the port never calls); SKIP's NLML, raw gradients (twice, bit
      for bit) and R R^T at the median init and at
      runs/r5/skip_precipitation_s0/model_best.pkl, and its serving there;
      SGPR's NLML, raw gradients (the 512 inducing rows' too) and serving at
@@ -345,8 +347,10 @@ MIX_FIT_REL = 1e-2
 CHAIN_REL = 1e-6
 # Phase 9.  K13b, K13c and K13d against their plain versions: float32 sums of
 # r or r k products (and of the rows, in 1,024-row chunks, for K13c) in
-# another order; K13a the same float32 formula, with nvcc's contractions;
-# K13a's backward scatter adds with atomics in a run-to-run order.
+# another order, the plain versions' products in cuBLAS's; K13a the same
+# float32 formula, with nvcc's contractions.  Each of K13b-d sums in a fixed
+# order with no atomics, so a second call is gated bit for bit; so is K13a's
+# backward, which sums in its plain version's order (equal to it too).
 K13_REL = 1e-5
 # SKIP against JAX on the CPU (golden, JAX's Omega, JAX's signs matched to
 # the port's).  The grid kernels' 30-odd smallest kept eigenvalues lie
@@ -2637,6 +2641,10 @@ def baselines_phase(dev, expect, timer):
                 if name == "ski_interp_backward":  # K13a' sums in a fixed order: its twin's bits, every call
                     same = bool(torch.equal(got[0], want[0]) and torch.equal(kern(), got[0]))
                     expect(same, f"{name} {tag}: bit-equal to its plain version and to a second call")
+                elif name != "ski_interp":  # K13b-d: a fixed order, no atomics
+                    again = kern()
+                    same = all(torch.equal(a, b) for a, b in zip(again if isinstance(again, tuple) else (again,), got))
+                    expect(same, f"{name} {tag}: a second call bit-equal to the first")
                 if library is not None:
                     lib_err = rel(library(), want[0])
                     print(f"    {name} {tag}: the einsum vs plain rel {lib_err:.3e}")
@@ -2646,10 +2654,20 @@ def baselines_phase(dev, expect, timer):
                             **bound(*k13_cost(name, m, g, r, r)), shape=f"{tag}: {m} rows, g={g}, r={r}, k={r}")
                 print(f"    {name} {tag}: kernel {cell['ms']:.4f} ms, plain {cell['plain_ms']:.4f} ms, library "
                       f"{cell['library_ms']} ms, bound {cell['bound_ms']:.4f} ms ({cell['bound_by']})")
+                if name == "ski_kr_matmul":  # cuBLAS's f32 rate on the same flops: a yardstick the port never calls
+                    M = (R[:, :, None] * F[:, None, :]).reshape(m, -1)
+                    mm_ms = timer(lambda: torch.mm(M, W), 3)
+                    flops = 2 * m * r * r * r
+                    cell["mm_materialised_ms"] = mm_ms
+                    print(f"    {name} {tag}: torch.mm of the materialised (n, r^2) M by W {mm_ms:.4f} ms "
+                          f"({flops / mm_ms / 1e9:.1f} TFLOP/s) against the kernel's {flops / cell['ms'] / 1e9:.1f} "
+                          f"and einsum's {flops / cell['library_ms'] / 1e9:.1f}")
+                    del M
                 if tag == "train":
                     rows[name] = cell
                 else:
-                    rows[name].update(joint={k: cell[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                    rows[name].update(joint={k: cell[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                                   "mm_materialised_ms") if k in cell},
                                       max_abs_err=max(rows[name]["max_abs_err"], cell["max_abs_err"]))
     del R, F, Q, dF, G
 

@@ -23,11 +23,10 @@
 //                                and a second pass adds the blocks' partials
 //                                in block order (ski_gram_reduce_kernel), so
 //                                dU repeats bit for bit.
-//   K13b sgp_ski_kr_matmul       out = M W, W (r^2, k): a block takes 64 rows
-//                                and all k columns; for each a it forms the
-//                                (64, k) tile F W_a in registers (W_a = rows
-//                                a r .. a r + r - 1 of W, staged in shared
-//                                memory) and adds R[:, a] times it.
+//   K13b sgp_ski_kr_matmul       out = M W, W (r^2, k): for each a, the
+//                                (rows, k) product T_a = F W_a (W_a = rows
+//                                a r .. a r + r - 1 of W), then out +=
+//                                R[:, a] T_a, on the tile engine below.
 //   K13c sgp_ski_kr_gram         out = Q^T M, (k, r^2): a block takes four
 //                                values of a and one row chunk and sums the
 //                                (k, r) tiles Q^T (R[:, a] F) over the chunk
@@ -38,24 +37,68 @@
 //                                for bit.
 //   K13d sgp_ski_kr_adjoint      dR[i, a] = sum_b F[i, b] T_a[i, b] and
 //                                dF[i, b] = sum_a R[i, a] T_a[i, b] with
-//                                T_a = G W_a^T formed tile by tile in
-//                                registers: a block takes 64 rows, keeps
-//                                its dF tile in registers over all a, and
-//                                reduces each dR entry over 16 lanes.
+//                                T_a = G W_a^T, on the same engine.
+//
+// The tile engine of K13b and K13d.  Each a is a (rows x 64) product 64 deep
+// (depth b < r for K13b, c < k for K13d), so both are f32 FMA work:
+// - A block of 256 threads takes SKI_ROWS = 256 rows and all k (K13b) or r
+//   (K13d) columns.  Thread (ty, tx), ty < 32, tx < 8, holds rows 4 ty .. +3
+//   and 128 + 4 ty .. +3 and columns 4 tx .. +3 and 32 + 4 tx .. +3: each
+//   depth step loads 16 floats as four float4 from shared memory for 64
+//   FFMAs, 4 FFMAs a word (the first design's 4 x 4 tiles of 64 rows: 2, by
+//   scalar loads).
+// - The left operand (F for K13b, G for K13d) is staged once a block,
+//   transposed (depth-major) and XOR-swizzled by depth (ski_swz), so the
+//   4-byte cp.async copies that transpose it write 32 banks a warp and a
+//   thread's 4 rows stay one aligned float4.
+// - R's (256, r) tile is staged once a block (row stride 65).  K13d
+//   overwrites its column a with dR[:, a] once the row's lanes have read
+//   it, and stores the tile coalesced at the end.
+// - W_a streams through a ring of two cp.async stages in shared memory:
+//   W_{a+1} is copied while the block multiplies by W_a, with one
+//   __syncthreads an a; 16-byte copies when a stage's rows are a multiple
+//   of 4 floats and 16-byte aligned, 4-byte ones otherwise.  K13b's
+//   stage is W_a as it lies.  K13d reads W_a^T: the wrapper lays W out once
+//   a call as Wt (r, k, r), Wt[a][c][b] = W[a r + b, c] (a copy of 4 r^2 k
+//   bytes, 1 MB at r = k = 64), and the stage is swizzled like the left
+//   operand.  Copies that put each element of W_a in its transposed place
+//   inside the kernel (4-byte cp.async, no copy outside) measured 10% slower,
+//   the wrapper's copy included (PERF.md).  At 256 rows a block, W
+//   crosses L2 n / 256 times a call (0.27 GB at 65,536 rows; 1.07 GB at 64).
+// - K13b adds R[:, a] T_a after each a's product (two register tiles).  R[i,
+//   a] folded into each loaded F value instead (one tile, 8 more multiplies
+//   a 64 FFMAs) measured 9-10% slower (PERF.md).
+// - K13d's dR[i, a]: each lane dots its 8 columns of T_a with F's (F's
+//   (256, 64) tile staged once), then the 8 lanes of a row group
+//   reduce-scatter their 8 rows in 7 shuffles, each lane ending with one
+//   row's sum, which it writes into R's tile.  dF stays in registers over
+//   all a.
+// - The depth loops run to a multiple of 8 over zeros: every staged position
+//   past n, r or k is 0, and so is every ring position no copy writes.
+// - Shared memory a block: K13b 164,864 bytes, K13d 230,400: one block an
+//   SM, 8 warps.  Registers (ptxas, sm_90a): K13b 199, K13d 201; no spills
+//   (the build log, simplex_gp_torch/build/*.log).
+// - f32 FFMA only (TF32 off, no wgmma), a fixed summation order, no atomics:
+//   a second call gives the same bits.
 //
 // Bound: K13b, K13c and K13d each do 2 n r^2 k multiply-adds' worth of f32
 // FMA work (2 n r^3 flops at k = r: 34.4 GFLOP at n = 65,536, r = 64, a
 // 0.51 ms bound at 67 TFLOP/s) against ~4 n r bytes of inputs, so they are
-// compute-bound; K13a moves 4 n (r + 1) bytes and is byte-bound.  The
-// design is the simple register-tiled form (4 x 4 outputs a thread, f32
-// FMA, TF32 off); wgmma and TMA are later work.  r and k are at most 64.
+// compute-bound; K13a moves 4 n (r + 1) bytes and is byte-bound.  r and k
+// are at most 64.
 #include "common.cuh"
 
 #define SKI_MAX_R 64
-#define SKI_TILE 64         // rows of a K13b / K13d block, and the column tile
+#define SKI_TILE 64         // the column tile of K13c
 #define SKI_STAGE 32        // rows of one K13c stage
 #define SKI_GRAM_A 4        // values of a one K13c block takes
 #define SKI_SCATTER_SLICES 4  // point sub-ranges of a K13a backward block, each with its own (g, r) slice
+#define SKI_ROWS 256          // rows of a K13b / K13d block
+#define SKI_KR_THREADS 256    // threads of a K13b / K13d block, 8 x 8 outputs each
+#define SKI_RS (SKI_MAX_R + 1)              // row stride of the staged R tile
+#define SKI_AT (SKI_MAX_R * SKI_ROWS)       // floats of the staged, transposed left operand
+#define SKI_RT (SKI_ROWS * SKI_RS)          // floats of the staged R tile
+#define SKI_WSTAGE (SKI_MAX_R * SKI_MAX_R)  // floats of one stage of the W ring
 
 // The four clipped grid indices and normalised Keys weights of x
 // (_interp_1d), each float operation an explicit round-to-nearest one in
@@ -131,53 +174,188 @@ __global__ void __launch_bounds__(SKI_MAX_R * SKI_SCATTER_SLICES)
   }
 }
 
-// out (n, k) = sum_a R[:, a] * (F @ W[a r : a r + r, :]).  Thread (ty, tx)
-// holds rows ty + 16 m and columns tx + 16 q, m, q < 4.
-__global__ void __launch_bounds__(256) ski_kr_matmul_kernel(const float* __restrict__ R,
-                                                            const float* __restrict__ F,
-                                                            const float* __restrict__ W, int n, int r, int k,
-                                                            float* __restrict__ out) {
-  __shared__ float Fs[SKI_TILE][SKI_TILE + 1];
-  __shared__ float Ws[SKI_TILE][SKI_TILE];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long i0 = (long long)blockIdx.x * SKI_TILE;
-  for (int e = tid; e < SKI_TILE * SKI_TILE; e += 256) {
-    const int ii = e / SKI_TILE, c = e % SKI_TILE;
-    const long long i = i0 + ii;
-    Fs[ii][c] = (i < n && c < r) ? F[i * r + c] : 0.0f;
+// ---- the tile engine of K13b and K13d ---------------------------------------
+
+__device__ __forceinline__ void ski_cp16(float* dst, const float* src) {
+  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void ski_cp4(float* dst, const float* src) {
+  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void ski_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void ski_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Position of element (j, i) of a depth-major tile of row stride `stride`: i's bits 2-4 XORed with j's bits
+// 0-2, so four consecutive i from a multiple of 4 stay one aligned float4, in order.
+__device__ __forceinline__ int ski_swz(int j, int i, int stride) { return j * stride + (i ^ ((j & 7) << 2)); }
+
+// Row m < 8 of a thread of row group ty: 4 ty + m, then SKI_ROWS / 2 + 4 ty + m - 4.
+__device__ __forceinline__ int ski_row(int ty, int m) { return (m < 4 ? 0 : SKI_ROWS / 2 - 4) + 4 * ty + m; }
+
+// v[0..3] = base[off .. off + 3], v[4..7] = base[off + half .. off + half + 3], as two float4.
+__device__ __forceinline__ void ski_frag8(const float* base, int off, int half, float* v) {
+  const float4 lo = *reinterpret_cast<const float4*>(base + off);
+  const float4 hi = *reinterpret_cast<const float4*>(base + off + half);
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = lo.z;
+  v[3] = lo.w;
+  v[4] = hi.x;
+  v[5] = hi.y;
+  v[6] = hi.z;
+  v[7] = hi.w;
+}
+
+// X's rows [i0, i0 + SKI_ROWS) (n x w, row-major, w <= 64) into the depth-major tile At (ski_swz, stride
+// SKI_ROWS) by 4-byte copies; zeros past n and w.  Element e: j takes e's bits 0-2 and 5-7, i its bits 3-4 and
+// 8 up, so a warp reads 4 rows x 8 neighbouring floats of X and, through ski_swz, writes 32 banks.
+__device__ __forceinline__ void ski_stage_transposed(float* At, const float* X, long long i0, int n, int w) {
+  for (int e = threadIdx.x; e < SKI_AT; e += SKI_KR_THREADS) {
+    const int j = (e & 7) | ((e >> 2) & 0x38), i = ((e >> 3) & 3) | ((e >> 6) & ~3);
+    float* dst = At + ski_swz(j, i, SKI_ROWS);
+    if (i0 + i < n && j < w)
+      ski_cp4(dst, X + (i0 + i) * w + j);
+    else
+      *dst = 0.0f;
   }
-  float acc[4][4];
-  for (int m = 0; m < 4; ++m)
-    for (int q = 0; q < 4; ++q) acc[m][q] = 0.0f;
+}
+
+// X's rows [i0, i0 + SKI_ROWS) (n x w, row-major, w <= 64) into Xs[i][j] (row stride `stride`): 16-byte
+// copies when vec (w a multiple of 4, X 16-byte aligned, stride a multiple of 4), else 4-byte ones; zeros
+// past n and w.
+__device__ __forceinline__ void ski_stage_rows(float* Xs, int stride, const float* X, long long i0, int n, int w,
+                                               bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < SKI_ROWS * SKI_MAX_R / 4; e += SKI_KR_THREADS) {
+      const int i = e >> 4, j = (e & 15) << 2;
+      float* dst = Xs + i * stride + j;
+      if (i0 + i < n && j < w)
+        ski_cp16(dst, X + (i0 + i) * w + j);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < SKI_ROWS * SKI_MAX_R; e += SKI_KR_THREADS) {
+      const int i = e >> 6, j = e & (SKI_MAX_R - 1);
+      if (i0 + i < n && j < w)
+        ski_cp4(Xs + i * stride + j, X + (i0 + i) * w + j);
+      else
+        Xs[i * stride + j] = 0.0f;
+    }
+  }
+}
+
+// One stage of the W ring, as one commit group: block a of base, the (rows x cols) row-major block at base +
+// a rows cols, into Ws[x][y] (row stride 64; y swizzled by x through ski_swz when SWZ), by 16-byte copies when
+// vec (cols a multiple of 4, base 16-byte aligned), else 4-byte ones.  K13b's stage is W_a (r x k), K13d's
+// W_a^T (k x r), swizzled.  (The offset taken here rather than by the caller: K13b measured 3% faster.)
+template <bool SWZ>
+__device__ __forceinline__ void ski_load_stage(float* Ws, const float* base, int a, int rows, int cols, bool vec) {
+  const float* src = base + (long long)a * rows * cols;
+  if (vec) {
+    for (int e = threadIdx.x; e < SKI_WSTAGE / 4; e += SKI_KR_THREADS) {
+      const int x = e >> 4, y = (e & 15) << 2;
+      if (x < rows && y < cols)
+        ski_cp16(Ws + (SWZ ? ski_swz(x, y, SKI_MAX_R) : x * SKI_MAX_R + y), src + x * cols + y);
+    }
+  } else {
+    for (int e = threadIdx.x; e < SKI_WSTAGE; e += SKI_KR_THREADS) {
+      const int x = e >> 6, y = e & (SKI_MAX_R - 1);
+      if (x < rows && y < cols)
+        ski_cp4(Ws + (SWZ ? ski_swz(x, y, SKI_MAX_R) : x * SKI_MAX_R + y), src + x * cols + y);
+    }
+  }
+  ski_commit();
+}
+
+// Zeros every position of both ring stages that no copy writes: position p of a stage is (x, y) = (p / 64,
+// p mod 64), y unswizzled when SWZ, and a copy writes it iff x < rows and y < cols.
+template <bool SWZ>
+__device__ __forceinline__ void ski_zero_ring(float* ring, int rows, int cols) {
+  if (rows >= SKI_MAX_R && cols >= SKI_MAX_R) return;
+  for (int e = threadIdx.x; e < 2 * SKI_WSTAGE; e += SKI_KR_THREADS) {
+    const int x = (e & (SKI_WSTAGE - 1)) >> 6;
+    const int y = SWZ ? (e & (SKI_MAX_R - 1)) ^ ((x & 7) << 2) : e & (SKI_MAX_R - 1);
+    if (x >= rows || y >= cols) ring[e] = 0.0f;
+  }
+}
+
+// out (n, k) = sum_a R[:, a] (F W_a), W_a = W[a r : a r + r, :].  A block takes SKI_ROWS rows; thread (ty,
+// tx) holds rows ski_row(ty, m) and columns 4 tx + q, 32 + 4 tx + q; T_a = F W_a in one register tile, then
+// out += R[:, a] T_a into a second.
+__global__ void __launch_bounds__(SKI_KR_THREADS, 1)
+    ski_kr_matmul_kernel(const float* __restrict__ R, const float* __restrict__ F, const float* __restrict__ W,
+                         int n, int r, int k, bool vec_w, bool vec_out, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  float* At = smem;         // F^T, swizzled
+  float* Rs = At + SKI_AT;  // R's tile
+  float* Ws = Rs + SKI_RT;  // the ring: two stages of W_a
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const long long i0 = (long long)blockIdx.x * SKI_ROWS;
+  ski_stage_transposed(At, F, i0, n, r);
+  ski_stage_rows(Rs, SKI_RS, R, i0, n, r, false);
+  ski_commit();
+  ski_zero_ring<false>(Ws, r, k);
+  ski_load_stage<false>(Ws, W, 0, r, k, vec_w);
+  const int depth = (r + 7) & ~7;
+  float acc[8][8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[m][q] = 0.0f;
   for (int a = 0; a < r; ++a) {
-    __syncthreads();  // the previous W_a is consumed (at a = 0: Fs is written)
-    for (int e = tid; e < SKI_TILE * SKI_TILE; e += 256) {
-      const int b = e / SKI_TILE, c = e % SKI_TILE;
-      Ws[b][c] = (b < r && c < k) ? W[((long long)a * r + b) * k + c] : 0.0f;
+    ski_wait_all();
+    __syncthreads();  // W_a (at a = 0 the tiles too) in place; no thread still reads stage (a + 1) & 1
+    if (a + 1 < r)
+      ski_load_stage<false>(Ws + ((a + 1) & 1) * SKI_WSTAGE, W, a + 1, r, k, vec_w);
+    const float* ws = Ws + (a & 1) * SKI_WSTAGE;
+    float ra[8], t[8][8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      ra[m] = Rs[ski_row(ty, m) * SKI_RS + a];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) t[m][q] = 0.0f;
     }
-    __syncthreads();
-    float t[4][4];
-    for (int m = 0; m < 4; ++m)
-      for (int q = 0; q < 4; ++q) t[m][q] = 0.0f;
-    for (int b = 0; b < r; ++b) {
-      float fv[4], wv[4];
-      for (int m = 0; m < 4; ++m) fv[m] = Fs[ty + 16 * m][b];
-      for (int q = 0; q < 4; ++q) wv[q] = Ws[b][tx + 16 * q];
-      for (int m = 0; m < 4; ++m)
-        for (int q = 0; q < 4; ++q) t[m][q] = fmaf(fv[m], wv[q], t[m][q]);
+    for (int b0 = 0; b0 < depth; b0 += 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int b = b0 + u;
+        float f[8], w[8];
+        ski_frag8(At + b * SKI_ROWS, (ty << 2) ^ (u << 2), SKI_ROWS / 2, f);
+        ski_frag8(ws + b * SKI_MAX_R, tx << 2, SKI_MAX_R / 2, w);
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+#pragma unroll
+          for (int q = 0; q < 8; ++q) t[m][q] = fmaf(f[m], w[q], t[m][q]);
+      }
     }
-    for (int m = 0; m < 4; ++m) {
-      const long long i = i0 + ty + 16 * m;
-      const float ra = i < n ? R[i * r + a] : 0.0f;
-      for (int q = 0; q < 4; ++q) acc[m][q] = fmaf(ra, t[m][q], acc[m][q]);
-    }
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[m][q] = fmaf(ra[m], t[m][q], acc[m][q]);
   }
-  for (int m = 0; m < 4; ++m) {
-    const long long i = i0 + ty + 16 * m;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const long long i = i0 + ski_row(ty, m);
     if (i >= n) continue;
-    for (int q = 0; q < 4; ++q) {
-      const int c = tx + 16 * q;
-      if (c < k) out[i * k + c] = acc[m][q];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = (tx << 2) + h * (SKI_MAX_R / 2);
+      float* o = out + i * k + c;
+      if (vec_out) {
+        if (c < k)
+          *reinterpret_cast<float4*>(o) =
+              make_float4(acc[m][4 * h], acc[m][4 * h + 1], acc[m][4 * h + 2], acc[m][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c + q < k) o[q] = acc[m][4 * h + q];
+      }
     }
   }
 }
@@ -252,72 +430,119 @@ __global__ void ski_gram_reduce_kernel(const float* __restrict__ partial, long l
   out[e] = s;
 }
 
-// dR, dF (n, r) of <G, M W>: block of 64 rows; thread (ty, tx) holds rows
-// ty + 16 m and grid columns b = tx + 16 q of T_a and of dF.
-__global__ void __launch_bounds__(256) ski_kr_adjoint_kernel(const float* __restrict__ R,
-                                                             const float* __restrict__ F,
-                                                             const float* __restrict__ W,
-                                                             const float* __restrict__ G, int n, int r, int k,
-                                                             float* __restrict__ dR, float* __restrict__ dF) {
-  __shared__ float Gs[SKI_TILE][SKI_TILE + 1];
-  __shared__ float Wt[SKI_TILE][SKI_TILE + 1];  // Wt[c][b] = W[a r + b, c]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long i0 = (long long)blockIdx.x * SKI_TILE;
-  for (int e = tid; e < SKI_TILE * SKI_TILE; e += 256) {
-    const int ii = e / SKI_TILE, c = e % SKI_TILE;
-    const long long i = i0 + ii;
-    Gs[ii][c] = (i < n && c < k) ? G[i * k + c] : 0.0f;
+// The 8 lanes l = lane mod 8 of a row group each hold p[m] for the group's rows m < 8; returns the sum of
+// the 8 lanes' p[l]: three xor steps (4, 2, 1), each lane keeping the half of its rows that holds row l and
+// adding its partner's, so the sums are taken in one fixed order.
+__device__ __forceinline__ float ski_reduce_scatter8(const float* p, int l) {
+  const bool b2 = l & 4, b1 = l & 2, b0 = l & 1;
+  float q[4], h[2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // q[j]: row j + 4 b2
+    const float mine = b2 ? p[j + 4] : p[j], theirs = b2 ? p[j] : p[j + 4];
+    q[j] = mine + __shfl_xor_sync(0xffffffffu, theirs, 4);
   }
-  float fv[4][4], acc[4][4];
-  for (int m = 0; m < 4; ++m) {
-    const long long i = i0 + ty + 16 * m;
-    for (int q = 0; q < 4; ++q) {
-      const int b = tx + 16 * q;
-      fv[m][q] = (i < n && b < r) ? F[i * r + b] : 0.0f;
-      acc[m][q] = 0.0f;
-    }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {  // h[j]: row j + 2 b1 + 4 b2
+    const float mine = b1 ? q[j + 2] : q[j], theirs = b1 ? q[j] : q[j + 2];
+    h[j] = mine + __shfl_xor_sync(0xffffffffu, theirs, 2);
   }
+  const float mine = b0 ? h[1] : h[0], theirs = b0 ? h[0] : h[1];
+  return mine + __shfl_xor_sync(0xffffffffu, theirs, 1);
+}
+
+// dR, dF (n, r) of <G, M W>: T_a = G W_a^T, dF = sum_a R[:, a] T_a, dR[:, a] = rowsum(F T_a).  A block takes
+// SKI_ROWS rows; thread (ty, tx) holds rows ski_row(ty, m) and grid columns b = 4 tx + q, 32 + 4 tx + q of
+// T_a and of dF.  dR[:, a] overwrites column a of R's tile once the row's 8 lanes have read it.
+__global__ void __launch_bounds__(SKI_KR_THREADS, 1)
+    ski_kr_adjoint_kernel(const float* __restrict__ R, const float* __restrict__ F, const float* __restrict__ Wt,
+                          const float* __restrict__ G, int n, int r, int k, bool vec_f, bool vec_w, bool vec_df,
+                          float* __restrict__ dR, float* __restrict__ dF) {
+  extern __shared__ __align__(16) float smem[];
+  float* At = smem;                        // G^T, swizzled
+  float* Fs = At + SKI_AT;                 // F's tile, row stride 64
+  float* Rs = Fs + SKI_ROWS * SKI_MAX_R;   // R's tile, then dR's
+  float* Ws = Rs + SKI_RT;                 // the ring: two stages of W_a^T
+  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
+  const long long i0 = (long long)blockIdx.x * SKI_ROWS;
+  ski_stage_transposed(At, G, i0, n, k);
+  ski_stage_rows(Fs, SKI_MAX_R, F, i0, n, r, vec_f);
+  ski_stage_rows(Rs, SKI_RS, R, i0, n, r, false);
+  ski_commit();
+  ski_zero_ring<true>(Ws, k, r);
+  ski_load_stage<true>(Ws, Wt, 0, k, r, vec_w);
+  const int depth = (k + 7) & ~7;
+  float acc[8][8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[m][q] = 0.0f;
   for (int a = 0; a < r; ++a) {
-    __syncthreads();
-    for (int e = tid; e < SKI_TILE * SKI_TILE; e += 256) {
-      const int b = e / SKI_TILE, c = e % SKI_TILE;
-      Wt[c][b] = (b < r && c < k) ? W[((long long)a * r + b) * k + c] : 0.0f;
-    }
-    __syncthreads();
-    float t[4][4];
-    for (int m = 0; m < 4; ++m)
-      for (int q = 0; q < 4; ++q) t[m][q] = 0.0f;
-    for (int c = 0; c < k; ++c) {
-      float gv[4], wv[4];
-      for (int m = 0; m < 4; ++m) gv[m] = Gs[ty + 16 * m][c];
-      for (int q = 0; q < 4; ++q) wv[q] = Wt[c][tx + 16 * q];
-      for (int m = 0; m < 4; ++m)
-        for (int q = 0; q < 4; ++q) t[m][q] = fmaf(gv[m], wv[q], t[m][q]);
-    }
-    for (int m = 0; m < 4; ++m) {
-      const long long i = i0 + ty + 16 * m;
-      const float ra = i < n ? R[i * r + a] : 0.0f;
-      float p = 0.0f;
-      for (int q = 0; q < 4; ++q) {
-        acc[m][q] = fmaf(ra, t[m][q], acc[m][q]);
-        p = fmaf(fv[m][q], t[m][q], p);
+    ski_wait_all();
+    __syncthreads();  // W_a (at a = 0 the tiles too) in place; no thread still reads stage (a + 1) & 1
+    if (a + 1 < r)
+      ski_load_stage<true>(Ws + ((a + 1) & 1) * SKI_WSTAGE, Wt, a + 1, k, r, vec_w);
+    const float* wt = Ws + (a & 1) * SKI_WSTAGE;
+    float t[8][8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) t[m][q] = 0.0f;
+    for (int c0 = 0; c0 < depth; c0 += 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int c = c0 + u;
+        float g[8], w[8];
+        ski_frag8(At + c * SKI_ROWS, (ty << 2) ^ (u << 2), SKI_ROWS / 2, g);
+        ski_frag8(wt + c * SKI_MAX_R, (tx << 2) ^ (u << 2), SKI_MAX_R / 2, w);
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+#pragma unroll
+          for (int q = 0; q < 8; ++q) t[m][q] = fmaf(g[m], w[q], t[m][q]);
       }
-      // The 16 lanes of one ty sit in one half of a warp.
-      for (int off = 8; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-      if (tx == 0 && i < n) dR[i * r + a] = p;
     }
+    float p[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int row = ski_row(ty, m);
+      const float ra = Rs[row * SKI_RS + a];
+      float f[8];
+      ski_frag8(Fs + row * SKI_MAX_R, tx << 2, SKI_MAX_R / 2, f);
+      p[m] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        p[m] = fmaf(f[q], t[m][q], p[m]);
+        acc[m][q] = fmaf(ra, t[m][q], acc[m][q]);
+      }
+    }
+    const float dr = ski_reduce_scatter8(p, tx);
+    __syncwarp();  // the row group's lanes have read R[:, a]
+    Rs[ski_row(ty, tx) * SKI_RS + a] = dr;
   }
-  for (int m = 0; m < 4; ++m) {
-    const long long i = i0 + ty + 16 * m;
+  __syncthreads();
+  for (int e = threadIdx.x; e < SKI_ROWS * SKI_MAX_R; e += SKI_KR_THREADS) {
+    const int i = e >> 6, a = e & (SKI_MAX_R - 1);
+    if (i0 + i < n && a < r) dR[(i0 + i) * r + a] = Rs[i * SKI_RS + a];
+  }
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const long long i = i0 + ski_row(ty, m);
     if (i >= n) continue;
-    for (int q = 0; q < 4; ++q) {
-      const int b = tx + 16 * q;
-      if (b < r) dF[i * r + b] = acc[m][q];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = (tx << 2) + h * (SKI_MAX_R / 2);
+      float* o = dF + i * r + b;
+      if (vec_df) {
+        if (b < r)
+          *reinterpret_cast<float4*>(o) =
+              make_float4(acc[m][4 * h], acc[m][4 * h + 1], acc[m][4 * h + 2], acc[m][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (b + q < r) o[q] = acc[m][4 * h + q];
+      }
     }
   }
 }
-
-static unsigned int ski_row_blocks(int n) { return (unsigned int)((n + SKI_TILE - 1) / SKI_TILE); }
 
 extern "C" int sgp_ski_interp(const float* x, const float* gmin, const float* step, const float* U, int n, int g,
                               int r, float* F, void* stream) {
@@ -352,11 +577,35 @@ extern "C" int sgp_ski_interp_scatter(const float* x, const float* gmin, const f
   return (int)cudaGetLastError();
 }
 
+// Shared memory of a K13b (or K13d) block: the transposed left operand, R's tile, the ring (and F's tile).
+static size_t ski_kr_smem(bool adjoint) {
+  return sizeof(float) * (SKI_AT + SKI_RT + 2 * SKI_WSTAGE + (adjoint ? SKI_ROWS * SKI_MAX_R : 0));
+}
+
+static bool ski_aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// The dynamic shared-memory opt-in, done once a device (a bit a device) for K13b (0) and K13d (1).
+static unsigned int ski_kr_opted[2];
+
+template <typename Kernel>
+static cudaError_t ski_opt_in(Kernel kernel, size_t smem, int which) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (ski_kr_opted[which] >> (dev & 31) & 1u)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) ski_kr_opted[which] |= 1u << (dev & 31);
+  return err;
+}
+
 extern "C" int sgp_ski_kr_matmul(const float* R, const float* F, const float* W, int n, int r, int k, float* out,
                                  void* stream) {
-  if (r > SKI_MAX_R || k > SKI_MAX_R) return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    ski_kr_matmul_kernel<<<ski_row_blocks(n), 256, 0, (cudaStream_t)stream>>>(R, F, W, n, r, k, out);
+  if (r > SKI_MAX_R || k > SKI_MAX_R || r < 0 || k < 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  const size_t smem = ski_kr_smem(false);
+  const cudaError_t err = ski_opt_in(ski_kr_matmul_kernel, smem, 0);
+  if (err != cudaSuccess) return (int)err;
+  ski_kr_matmul_kernel<<<(n + SKI_ROWS - 1) / SKI_ROWS, SKI_KR_THREADS, smem, (cudaStream_t)stream>>>(
+      R, F, W, n, r, k, k % 4 == 0 && ski_aligned(W), k % 4 == 0 && ski_aligned(out), out);
   return (int)cudaGetLastError();
 }
 
@@ -374,10 +623,29 @@ extern "C" int sgp_ski_kr_gram(const float* Q, const float* R, const float* F, i
   return (int)cudaGetLastError();
 }
 
-extern "C" int sgp_ski_kr_adjoint(const float* R, const float* F, const float* W, const float* G, int n, int r,
+// Wt (r, k, r): Wt[a][c][b] = W[a r + b, c], W_a^T for each a (kernels/ski.py lays it out once a call).
+extern "C" int sgp_ski_kr_adjoint(const float* R, const float* F, const float* Wt, const float* G, int n, int r,
                                   int k, float* dR, float* dF, void* stream) {
-  if (r > SKI_MAX_R || k > SKI_MAX_R) return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    ski_kr_adjoint_kernel<<<ski_row_blocks(n), 256, 0, (cudaStream_t)stream>>>(R, F, W, G, n, r, k, dR, dF);
+  if (r > SKI_MAX_R || k > SKI_MAX_R || r < 0 || k < 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  const size_t smem = ski_kr_smem(true);
+  const cudaError_t err = ski_opt_in(ski_kr_adjoint_kernel, smem, 1);
+  if (err != cudaSuccess) return (int)err;
+  ski_kr_adjoint_kernel<<<(n + SKI_ROWS - 1) / SKI_ROWS, SKI_KR_THREADS, smem, (cudaStream_t)stream>>>(
+      R, F, Wt, G, n, r, k, r % 4 == 0 && ski_aligned(F), r % 4 == 0 && ski_aligned(Wt),
+      r % 4 == 0 && ski_aligned(dF), dR, dF);
   return (int)cudaGetLastError();
+}
+
+// Blocks resident an SM at their shared memory and registers: blocks[0] K13b, blocks[1] K13d (for the record).
+extern "C" int sgp_ski_kr_resident(int* blocks) {
+  cudaError_t err = ski_opt_in(ski_kr_matmul_kernel, ski_kr_smem(false), 0);
+  if (err == cudaSuccess) err = ski_opt_in(ski_kr_adjoint_kernel, ski_kr_smem(true), 1);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[0], ski_kr_matmul_kernel, SKI_KR_THREADS,
+                                                        ski_kr_smem(false));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[1], ski_kr_adjoint_kernel, SKI_KR_THREADS,
+                                                        ski_kr_smem(true));
+  return (int)err;
 }

@@ -17,6 +17,7 @@
     python simplex_gp_torch/kernel_times.py --compare-step-grad DIR DIR
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --once-sharded
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --join-build
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --ski
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
@@ -52,7 +53,10 @@ which the fourteenth compares within and across two trees
 1 and 11, beside K3 on the same plan, with the bytes per collective) and
 the houseelectric one-shot MVM of ``mvm_err`` (:func:`once_sharded`); the
 sixteenth K2 and the join plan's row build by kernel, launched and
-replayed (:func:`join_build`).
+replayed (:func:`join_build`); the seventeenth K13b, K13c and K13d at
+SKIP's 65,536 and 191,231 rows beside ``torch.einsum`` and cuBLAS's
+product of the materialised Khatri-Rao matrix, and the warm SKIP step by
+stage (:func:`ski_times`).
 
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
@@ -1321,6 +1325,158 @@ def compare_step_grad(a: str, b: str) -> dict:
     return out
 
 
+def _ptxas_lines(match: str) -> dict:
+    """ptxas's registers, spills and shared memory for each kernel whose (mangled) name holds ``match``, from
+    this process's build log (``-Xptxas -v``); empty when the library was loaded rather than built."""
+    from simplex_gp_torch.kernels import build
+
+    log = build._library_path()[0].with_suffix(".log")
+    out, name = {}, None
+    if not log.exists():
+        return out
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else None
+        elif name is not None and match in name and ("registers" in line or "spill" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def ski_times(repeats: int = 20, rows=(65536, 191231)) -> dict:
+    """K13b, K13c and K13d at SKIP's shapes beside their PyTorch yardsticks, and the warm SKIP step by stage,
+    through entry points every tree since the baselines' port has.
+
+    Shapes: the precipitation root's 65,536 training rows and its joint root's 191,231 rows, r = k = 64, from
+    seeded normal R, F, G and W.  Each call host-launched and replayed from a CUDA graph (CUDA events), beside
+    ``torch.einsum`` of the same contraction (K13b, K13c) and ``torch.mm`` of the materialised (n, r^2)
+    M = R (.) F by W (cuBLAS's f32 rate on the same 2 n r^2 k flops: a yardstick the port never calls), with
+    each kernel's f32 bound (operations over 67 TFLOP/s), its agreement with its plain version and whether a
+    second call gives the same bits; the blocks resident an SM where the tree reports them, and ptxas's
+    registers and spills of the K13 kernels from the build log.  The warm SKIP
+    step at 65,536 rows (precipitation_baselines_golden.npz's median init and Omega, Matern-1.5, g = 100) by
+    CUDA events, by stage as chip_smoke.py 9.5 splits it (grid eigh, K13, QR, SVD, forward, backward, Adam),
+    its K13 launches and one step under ``torch.profiler`` (device ms by kernel); then SKIP's NLML and backward
+    at all 402,223 training rows with their peak memory.  Prints one JSON line.
+    """
+    import pathlib
+
+    import simplex_gp_torch
+    from simplex_gp_torch import convert
+    from simplex_gp_torch.kernels import ski as KS
+    from simplex_gp_torch.models import ski as MS
+    from simplex_gp_torch.utils import data
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    dev = torch.device("cuda:0")
+    out = {"card": _card(), "tree": simplex_gp_torch.__file__}
+    r = k = 64
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for m in rows:
+        R, F, G = (torch.randn((m, r), generator=gen, device=dev) for _ in range(3))
+        W = torch.randn((r * r, k), generator=gen, device=dev)
+        flops = 2 * m * r * r * k
+        calls = {"k13b": lambda: KS.ski_kr_matmul(R, F, W), "k13c": lambda: KS.ski_kr_gram(G, R, F),
+                 "k13d": lambda: KS.ski_kr_adjoint(R, F, W, G),
+                 "einsum_k13b": lambda: torch.einsum("ia,ib,abk->ik", R, F, W.view(r, r, k)),
+                 "einsum_k13c": lambda: torch.einsum("ip,ia,ib->pab", G, R, F)}
+        rec = {"rows": m, "gflop": flops / 1e9,
+               "bound_ms": {"k13b": (flops + 2 * m * r * k) / 67e9, "k13c": (flops + m * r * r) / 67e9,
+                            "k13d": (flops + 4 * m * r * r) / 67e9}}
+        for name, fn in calls.items():
+            rec[name] = dict(ms=_ms(fn, repeats), graph_ms=_graph_ms(fn, repeats))
+        plain = {"k13b": KS.kr_matmul_plain(R, F, W), "k13c": KS.kr_gram_plain(G, R, F),
+                 "k13d": KS.kr_adjoint_plain(R, F, W, G)}
+        for name in ("k13b", "k13c", "k13d"):
+            got, again = calls[name](), calls[name]()
+            got, again = (got, again) if isinstance(got, tuple) else ((got,), (again,))
+            want = plain[name] if isinstance(plain[name], tuple) else (plain[name],)
+            rec[name].update(rel=max(float((a - b).norm() / b.norm()) for a, b in zip(got, want)),
+                             repeat_bit_equal=all(torch.equal(a, b) for a, b in zip(got, again)))
+        del plain
+        M = (R[:, :, None] * F[:, None, :]).reshape(m, -1)
+        mm = lambda: torch.mm(M, W)
+        rec["mm_materialised"] = dict(ms=_ms(mm, repeats), graph_ms=_graph_ms(mm, repeats))
+        rec["mm_materialised"]["tflops"] = flops / rec["mm_materialised"]["graph_ms"] / 1e9
+        for name in ("k13b", "k13d"):
+            rec[name]["tflops"] = flops / rec[name]["graph_ms"] / 1e9
+        del M
+        out[f"rows_{m}"] = rec
+        del R, F, G, W
+        torch.cuda.empty_cache()
+    if hasattr(KS, "_kr_resident_blocks"):
+        out["resident_blocks_a_sm"] = KS._kr_resident_blocks()
+    out["ptxas"] = _ptxas_lines("ski_kr")
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    golden = np.load(root / "tests" / "fixtures" / "precipitation_baselines_golden.npz")
+    full = data.load_dataset("precipitation")
+    n, g = 65536, 100
+    x = torch.from_numpy(full.train_x[:n]).to(dev)
+    y = torch.from_numpy(full.train_y[:n]).to(dev)
+    init = {nm: golden[f"skip_init_{nm}"] for nm in ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")}
+    sk = convert.skip_model_from_jax(init, grid_size=g, rank=r, omegas=[golden["omega_1"], golden["omega_2"]],
+                                     kernel="matern", nu=1.5, min_noise=0.1, device=dev)
+    opt = torch.optim.Adam(sk.parameters(), lr=0.1)
+
+    def skip_step():
+        opt.zero_grad(set_to_none=True)
+        sk.nlml(x, y).backward()
+        opt.step()
+
+    k13 = (KS.ski_interp, KS.ski_interp_backward, KS.ski_kr_matmul, KS.ski_kr_gram, KS.ski_kr_adjoint)
+    skip_step()
+    before = [fn.launches for fn in k13]
+    step = dict(step_ms=[_ms(skip_step, 3) for _ in range(3)])
+    step["launches"] = {fn.__name__: (fn.launches - b) / 12 for fn, b in zip(k13, before)}  # 3 x (warm-up + 3)
+    stages = {}
+
+    def stage(name, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        stages[name] = stages.get(name, 0.0) + start.elapsed_time(end)
+        return res
+
+    with torch.no_grad():  # the root's stages, as SKIP.root runs them
+        Rj = None
+        factors = stage("grid_eigh", lambda: sk.grid_factors(sk.constrained(), x, r))
+        for j, (gmin, gstep, U) in enumerate(factors):
+            xj = x[:, j].contiguous()
+            Fj = stage("k13", lambda: KS.ski_interp(xj, gmin, gstep, U))
+            if Rj is None:
+                Rj = Fj
+                continue
+            Y = stage("k13", lambda: KS.ski_kr_matmul(Rj, Fj, sk.omega(j, r, dev)))
+            Q = stage("qr", lambda: MS.fix_signs(torch.linalg.qr(Y)[0]).contiguous())
+            B = stage("k13", lambda: KS.ski_kr_gram(Q, Rj, Fj))
+            Rj = stage("svd", lambda: (lambda u, s: (Q @ MS.fix_signs(u[:, :r])) * s[:r][None, :])(
+                *torch.linalg.svd(B, full_matrices=False)[:2]))
+    opt.zero_grad(set_to_none=True)
+    loss = stage("forward", lambda: sk.nlml(x, y))
+    stage("backward", loss.backward)
+    stage("adam", opt.step)
+    step["stages_ms"] = stages
+    step["profile"] = _device_by_kernel(skip_step)
+    out["skip_step_65536"] = step
+    del sk, opt, loss
+    xf, yf = torch.from_numpy(full.train_x).to(dev), torch.from_numpy(full.train_y).to(dev)
+    big = convert.skip_model_from_jax(init, grid_size=g, rank=r, omegas=[golden["omega_1"], golden["omega_2"]],
+                                      kernel="matern", nu=1.5, min_noise=0.1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loss = big.nlml(xf, yf)
+    loss.backward()
+    torch.cuda.synchronize()
+    out["skip_all_rows"] = dict(rows=xf.shape[0], nlml=float(loss.detach()),
+                                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 if __name__ == "__main__":
     import sys
 
@@ -1359,5 +1515,7 @@ if __name__ == "__main__":
         compare_step_grad(*sys.argv[sys.argv.index("--compare-step-grad") + 1:][:2])
     elif "--once-sharded" in sys.argv[1:]:
         once_sharded()
+    elif "--ski" in sys.argv[1:]:
+        ski_times()
     else:
         main()

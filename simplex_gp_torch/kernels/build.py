@@ -65,6 +65,7 @@ _SIGNATURES = {
     "sgp_ski_interp": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "sgp_ski_interp_scatter": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "sgp_ski_kr_matmul": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "sgp_ski_kr_resident": [_P],
     "sgp_ski_kr_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "sgp_ski_kr_adjoint": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "sgp_chain_dedup": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],

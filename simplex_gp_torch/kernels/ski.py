@@ -14,6 +14,11 @@ randomized range finder.  Four kernels carry it:
 * K13d ``ski_kr_adjoint``: (dR, dF) of <G, M W>, i.e. dR[i, a] =
   sum_b F[i, b] (W G^T)[ab, i] and dF[i, b] = sum_a R[i, a] (W G^T)[ab, i].
 
+K13b and K13d run one f32 tile engine (csrc/ski.cu): 256 rows a block,
+8 x 8 outputs a thread, W streamed through a cp.async ring; each sums in a
+fixed order, so a second call gives the same bits.  Their plain versions
+hand their products to MKL or cuBLAS and need not follow that order.
+
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 the kernel for CUDA tensors, raising on a failed build or launch (no
 fallback), and counts its launches in ``launches``.  The kernels take
@@ -196,6 +201,16 @@ def ski_kr_matmul(R, F, W):
     return out
 
 
+def _kr_resident_blocks() -> dict:
+    """Blocks of K13b and K13d resident on one SM of the current card (the occupancy API at their shared memory
+    and registers), for the record."""
+    import ctypes
+
+    blocks = (ctypes.c_int * 2)()
+    build.check(build.library().sgp_ski_kr_resident(ctypes.addressof(blocks)), "ski_kr_resident")
+    return dict(zip(("ski_kr_matmul", "ski_kr_adjoint"), blocks))
+
+
 def _gram_chunks(n: int) -> tuple[int, int]:
     """(chunks, rows a chunk) of K13c's first pass: at most 64 chunks of at least 1,024 rows, a multiple of 32."""
     chunks = max(1, min(_GRAM_CHUNKS, -(-n // _GRAM_MIN_ROWS)))
@@ -240,10 +255,12 @@ def ski_kr_adjoint(R, F, W, G):
         raise ValueError(f"ski_kr_adjoint: R {tuple(R.shape)}, F {tuple(F.shape)}, W {tuple(W.shape)}, "
                          f"G {tuple(G.shape)}")
     _check_rank("ski_kr_adjoint", r, k)
+    # The kernel reads W_a^T: Wt[a, c, b] = W[a r + b, c], laid out once a call (4 r^2 k bytes).
+    Wt = W.view(r, r, k).transpose(1, 2).contiguous()
     dR = torch.empty((n, r), dtype=torch.float32, device=R.device)
     dF = torch.empty((n, r), dtype=torch.float32, device=R.device)
     lib = build.library()
-    build.check(lib.sgp_ski_kr_adjoint(R.data_ptr(), F.data_ptr(), W.data_ptr(), G.data_ptr(), n, r, k,
+    build.check(lib.sgp_ski_kr_adjoint(R.data_ptr(), F.data_ptr(), Wt.data_ptr(), G.data_ptr(), n, r, k,
                                        dR.data_ptr(), dF.data_ptr(), build.stream()), "ski_kr_adjoint")
     ski_kr_adjoint.launches += 1
     return dR, dF

@@ -803,21 +803,45 @@ def _ski_inputs(n, r, k, device, seed=0):
     return [torch.randn(s, generator=gen).to(device) for s in ((n, r), (n, r), (r * r, k), (n, k))]
 
 
-@pytest.mark.parametrize("n,r,k", [(257, 5, 7), (1000, 64, 64), (70001, 64, 64)])
+# K13b / K13d take 256 rows a block: its height -1, +0 and +1, ragged ranks and widths (r = 63, k = 1, k not a
+# multiple of 4: the 4-byte copies), and r = k = 64 (the 16-byte copies).
+@pytest.mark.parametrize("n,r,k", [(257, 5, 7), (1000, 64, 64), (70001, 64, 64), (255, 64, 64), (256, 64, 64),
+                                   (257, 64, 64), (300, 63, 64), (300, 64, 1), (513, 64, 30), (600, 63, 63)])
 def test_ski_kr_kernels_match_plain(cuda_device, n, r, k):
-    """K13b, K13c (split over row chunks at n > 1,024, the chunks added in a second pass) and K13d."""
+    """K13b, K13c (split over row chunks at n > 1,024, the chunks added in a second pass) and K13d, within rel
+    1e-5 of their plain versions.  A fixed order and no atomics: a second call of each gives the same bits."""
     from simplex_gp_torch.kernels import ski as KS
 
     R, F, W, G = _ski_inputs(n, r, k, cuda_device)
     before = [fn.launches for fn in (KS.ski_kr_matmul, KS.ski_kr_gram, KS.ski_kr_adjoint)]
-    pairs = [(KS.ski_kr_matmul(R, F, W), KS.kr_matmul_plain(R, F, W)),
-             (KS.ski_kr_gram(G, R, F), KS.kr_gram_plain(G, R, F)),
-             *zip(KS.ski_kr_adjoint(R, F, W, G), KS.kr_adjoint_plain(R, F, W, G))]
+    out, gram, (dR, dF) = KS.ski_kr_matmul(R, F, W), KS.ski_kr_gram(G, R, F), KS.ski_kr_adjoint(R, F, W, G)
     torch.cuda.synchronize()
     assert [fn.launches - b for fn, b in zip((KS.ski_kr_matmul, KS.ski_kr_gram, KS.ski_kr_adjoint), before)] == [1] * 3
+    pairs = [(out, KS.kr_matmul_plain(R, F, W)), (gram, KS.kr_gram_plain(G, R, F)),
+             *zip((dR, dF), KS.kr_adjoint_plain(R, F, W, G))]
     for got, want in pairs:
         assert float((got - want).norm() / want.norm()) < 1e-5
-    assert torch.equal(KS.ski_kr_gram(G, R, F), pairs[1][0])  # no atomics: bit for bit
+    assert torch.equal(KS.ski_kr_gram(G, R, F), gram)
+    assert torch.equal(KS.ski_kr_matmul(R, F, W), out)
+    dR2, dF2 = KS.ski_kr_adjoint(R, F, W, G)
+    assert torch.equal(dR2, dR) and torch.equal(dF2, dF)
+
+
+def test_ski_kr_kernels_take_rows_off_16_byte_boundaries(cuda_device):
+    """W and F one float past a 16-byte boundary (contiguous views at an offset): K13b and K13d take their
+    4-byte copies and give the bits of aligned copies of the same values."""
+    from simplex_gp_torch.kernels import ski as KS
+
+    n, r, k = 600, 64, 64
+    R, F, W, G = _ski_inputs(n, r, k, cuda_device, seed=1)
+    Wo = torch.empty(W.numel() + 1, device=cuda_device)[1:].view(W.shape)
+    Fo = torch.empty(F.numel() + 1, device=cuda_device)[1:].view(F.shape)
+    Wo.copy_(W)
+    Fo.copy_(F)
+    assert Wo.data_ptr() % 16 and Fo.data_ptr() % 16 and Wo.is_contiguous() and Fo.is_contiguous()
+    assert torch.equal(KS.ski_kr_matmul(R, Fo, Wo), KS.ski_kr_matmul(R, F, W))
+    for got, want in zip(KS.ski_kr_adjoint(R, Fo, Wo, G), KS.ski_kr_adjoint(R, F, W, G)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n,g,r", [(3000, 100, 64), (517, 9, 5)])

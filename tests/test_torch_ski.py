@@ -89,7 +89,11 @@ def _materialised(R, F):
     return (R[:, :, None] * F[:, None, :]).reshape(R.shape[0], -1)
 
 
-@pytest.mark.parametrize("n,r,k", [(257, 64, 64), (100, 24, 24), (33, 5, 7)])
+# The kernels' block is 256 rows: its height -1, +0 and +1; r = 63; k = 1; k not a multiple of 4.
+KR_EDGES = [(255, 64, 64), (256, 64, 64), (257, 63, 64), (256, 64, 1), (257, 64, 30)]
+
+
+@pytest.mark.parametrize("n,r,k", [(257, 64, 64), (100, 24, 24), (33, 5, 7), *KR_EDGES])
 def test_plain_kr_twins_match_materialised_and_jax(n, r, k):
     R, F, W, G = _kr_inputs(n, r, k)
     tR, tF, tW, tG = map(torch.from_numpy, (R, F, W, G))
@@ -108,7 +112,7 @@ def test_plain_kr_twins_match_materialised_and_jax(n, r, k):
     assert rel_err(dR.numpy(), np.asarray(jdR)) <= 1e-5 and rel_err(dF.numpy(), np.asarray(jdF)) <= 1e-5
 
 
-@pytest.mark.parametrize("n,r,k", [(257, 64, 64), (60, 12, 9)])
+@pytest.mark.parametrize("n,r,k", [(257, 64, 64), (60, 12, 9), *KR_EDGES])
 def test_autograd_functions_match_autograd_and_vjp(n, r, k):
     R, F, W, G = _kr_inputs(n, r, k, seed=1)
     Qn = np.random.default_rng(2).normal(size=(n, k)).astype(np.float32)
