@@ -339,15 +339,15 @@ MIX_FIT_REL = 1e-2
 # build bit for bit (the same torch.sort calls on the same keys), its splat
 # sums each row in its plain version's order and its stencils and slice use
 # the plain version's IEEE operations in their order, so kernel and plain
-# are bit-equal: the build, the splat and the apply are gated bit for bit
-# (the axis and slice alone on one input at max |diff| 10 CHAIN_REL).
+# are bit-equal: the build, the splat, the slice and the apply are gated bit
+# for bit (the axis alone on one input at max |diff| 10 CHAIN_REL).
 # Against the join (K1 + K2, K3) on the same positions, the chain-vs-join
 # bound (LARGE_N_REL).  Two builds and two applies must repeat bit for bit,
 # and so must the NLML and the eval CG built on them.
 CHAIN_REL = 1e-6
 # Phase 9.  K13b, K13c and K13d against their plain versions: float32 sums of
-# r or r k products (and of the rows, in 1,024-row chunks, for K13c) in
-# another order, the plain versions' products in cuBLAS's; K13a the same
+# r or r k products (and of the rows, in chunks of whole 32-row stages, for
+# K13c) in another order, the plain versions' products in cuBLAS's; K13a the same
 # float32 formula, with nvcc's contractions.  Each of K13b-d sums in a fixed
 # order with no atomics, so a second call is gated bit for bit; so is K13a's
 # backward, which sums in its plain version's order (equal to it too).
@@ -2654,12 +2654,13 @@ def baselines_phase(dev, expect, timer):
                             **bound(*k13_cost(name, m, g, r, r)), shape=f"{tag}: {m} rows, g={g}, r={r}, k={r}")
                 print(f"    {name} {tag}: kernel {cell['ms']:.4f} ms, plain {cell['plain_ms']:.4f} ms, library "
                       f"{cell['library_ms']} ms, bound {cell['bound_ms']:.4f} ms ({cell['bound_by']})")
-                if name == "ski_kr_matmul":  # cuBLAS's f32 rate on the same flops: a yardstick the port never calls
-                    M = (R[:, :, None] * F[:, None, :]).reshape(m, -1)
-                    mm_ms = timer(lambda: torch.mm(M, W), 3)
+                if name in ("ski_kr_matmul", "ski_kr_gram"):  # cuBLAS's f32 rate on the same flops, M W or
+                    M = (R[:, :, None] * F[:, None, :]).reshape(m, -1)  # Q^T M: a yardstick the port never calls
+                    mm = (lambda: torch.mm(M, W)) if name == "ski_kr_matmul" else (lambda: torch.mm(Q.T, M))
+                    mm_ms = timer(mm, 3)
                     flops = 2 * m * r * r * r
                     cell["mm_materialised_ms"] = mm_ms
-                    print(f"    {name} {tag}: torch.mm of the materialised (n, r^2) M by W {mm_ms:.4f} ms "
+                    print(f"    {name} {tag}: torch.mm of the materialised (n, r^2) M {mm_ms:.4f} ms "
                           f"({flops / mm_ms / 1e9:.1f} TFLOP/s) against the kernel's {flops / cell['ms'] / 1e9:.1f} "
                           f"and einsum's {flops / cell['library_ms'] / 1e9:.1f}")
                     del M
@@ -2901,9 +2902,6 @@ def chain_library_ops(plan, taps):
     weights, axis 0's stencil with its transition gather (Mc, Mc), and SLICE_NORM S^T (n, Mc)."""
     import torch
 
-    from simplex_gp_torch.ops import lattice as L
-
-    n, dp1 = plan.weights.shape
     Mc, r = plan.cnt.shape[0], plan.tapw.shape[1]
     dev = plan.cnt.device
     live = min(int(plan.n_lattice), Mc)
@@ -2919,10 +2917,27 @@ def chain_library_ops(plan, taps):
         vals += [w[p[fwd]], w[p[bwd] - k]]
     axis = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
                                    size=(Mc, Mc)).coalesce().to_sparse_csr()
-    prow = torch.arange(0, n * dp1 + 1, dp1, device=dev)
-    slc = torch.sparse_csr_tensor(prow, plan.slice_idx.reshape(-1).long(),
-                                  plan.weights.reshape(-1) * L.SLICE_NORM(dp1 - 1), size=(n, Mc))
-    return splat, axis, slc
+    return splat, axis, chain_slice_csr(plan)
+
+
+def chain_slice_csr(plan):
+    """K3'd's function as one sparse CSR matrix SLICE_NORM S^T (n, Mc), for the library yardstick."""
+    import torch
+
+    from simplex_gp_torch.ops import lattice as L
+
+    n, dp1 = plan.weights.shape
+    prow = torch.arange(0, n * dp1 + 1, dp1, device=plan.weights.device)
+    return torch.sparse_csr_tensor(prow, plan.slice_idx.reshape(-1).long(),
+                                   plan.weights.reshape(-1) * L.SLICE_NORM(dp1 - 1), size=(n, plan.cnt.shape[0]))
+
+
+def slice_cost(plan, c: int) -> tuple:
+    """(bytes, ops) of K3'd: the live table, slice_idx and weights in, the (n, c) output out; a multiply-add
+    per contribution and column."""
+    n, dp1 = plan.weights.shape
+    live = min(int(plan.n_lattice), plan.cnt.shape[0])
+    return 4 * (live * c + 2 * n * dp1 + n * c), 2 * n * dp1 * c
 
 
 def chain_phase(dev, ds, expect, timer, stage_times):
@@ -3016,11 +3031,16 @@ def chain_phase(dev, ds, expect, timer, stage_times):
         live = min(nl, Mc)
         case = dict(n_lattice=nl, join_n_lattice=njl, capacity=Mc, long_runs=int(kplan.n_long),
                     pieces=int(kplan.n_pieces), mid_runs=int(kplan.n_mid), k1=k1)
-        csr = chain_splat_csr(kplan)
+        csr, slice_csr = chain_splat_csr(kplan), chain_slice_csr(kplan)
         for c in (1, 11):
             v = torch.randn((pts.shape[0], c), generator=gen, device=dev)
             splat_equal = torch.equal(KC.chain_splat(kplan, v)[:live], KC.chain_splat_plain(pplan, v)[:live])
             expect(splat_equal, f"{name} c={c}: K3'b == plain bit for bit over the {live} live rows")
+            # K3'd on this case's final table, gated bit for bit, timed beside its bound and the CSR product
+            final = KC.chain_axes(KC.chain_splat(kplan, v), kplan, taps)
+            slice_equal = torch.equal(KC.chain_slice(final, kplan, L.SLICE_NORM(nd)), KC.chain_slice_plain(
+                final, kplan.slice_idx, kplan.weights, kplan.n_lattice, L.SLICE_NORM(nd)))
+            expect(slice_equal, f"{name} c={c}: K3'd == plain bit for bit")
             kout = L.apply_plan_chain(kplan, v, dk.coeffs)
             pout = KC.chain_apply_plain(pplan, v, taps, L.SLICE_NORM(nd))
             r = rel(kout, pout)
@@ -3045,7 +3065,13 @@ def chain_phase(dev, ds, expect, timer, stage_times):
                 splat_bit_equal=splat_equal, splat_ms=timer(lambda: KC.chain_splat(kplan, v), 50),
                 splat_graph_ms=graph_ms(lambda: KC.chain_splat(kplan, v), 10),
                 splat_csr_ms=timer(lambda: csr @ v, 20),
-                **{f"splat_{k}": x_ for k, x_ in bound(*splat_cost(kplan, c)).items()})
+                **{f"splat_{k}": x_ for k, x_ in bound(*splat_cost(kplan, c)).items()},
+                slice_bit_equal=slice_equal,
+                slice_ms=timer(lambda: KC.chain_slice(final, kplan, L.SLICE_NORM(nd)), 20),
+                slice_graph_ms=graph_ms(lambda: KC.chain_slice(final, kplan, L.SLICE_NORM(nd)), 10),
+                slice_csr_graph_ms=graph_ms(lambda: slice_csr @ final, 10),
+                **{f"slice_{k}": x_ for k, x_ in bound(*slice_cost(kplan, c)).items()})
+            del final
         build_call = lambda: KC.chain_build(h1, h2, sums, w, consts, taps, cap)  # noqa: E731
         case.update(build_ms=timer(lambda: L.build_plan_chain(pts, dk.coeffs, dk.variance, cap), 5),
                     join_build_ms=timer(lambda: L.build_plan_join(pts, dk.coeffs, dk.variance, cap), 5),
@@ -3058,12 +3084,15 @@ def chain_phase(dev, ds, expect, timer, stage_times):
               f"{case['join_build_ms']:.3f} ms; apply (events / graph replay, ms) "
               + "; ".join(f"c={c}: chain {case[f'c{c}']['apply_ms']:.4f} / {case[f'c{c}']['apply_graph_ms']:.4f} "
                           f"(K3'b {case[f'c{c}']['splat_ms']:.4f} / {case[f'c{c}']['splat_graph_ms']:.4f}, CSR "
-                          f"{case[f'c{c}']['splat_csr_ms']:.4f}, bound {case[f'c{c}']['splat_bound_ms']:.4f}), K3 "
+                          f"{case[f'c{c}']['splat_csr_ms']:.4f}, bound {case[f'c{c}']['splat_bound_ms']:.4f}; K3'd "
+                          f"{case[f'c{c}']['slice_ms']:.4f} / {case[f'c{c}']['slice_graph_ms']:.4f}, CSR "
+                          f"{case[f'c{c}']['slice_csr_graph_ms']:.4f}, bound {case[f'c{c}']['slice_bound_ms']:.4f}"
+                          f"), K3 "
                           f"{case[f'c{c}']['k3_ms']:.4f} / {case[f'c{c}']['k3_graph_ms']:.4f}" for c in (1, 11)))
         record[name] = case
         if main_case is None:
             main_case = (pts, h1, h2, sums, w, consts, kplan, pplan)
-        del kplan, pplan, again, jplan, h1, h2, w, sums, csr
+        del kplan, pplan, again, jplan, h1, h2, w, sums, csr, slice_csr
 
     # Houseelectric untrimmed (Mc = N = 15.7M rows, ~20k live), and elevators (median init) and houseelectric
     # one row short of the occupancy (the slice's guard): the plan, the splat and the apply against their
@@ -3119,8 +3148,9 @@ def chain_phase(dev, ds, expect, timer, stage_times):
     sk = KC.chain_slice(final, plan, L.SLICE_NORM(d))
     sp = KC.chain_slice_plain(final, plan.slice_idx, plan.weights, plan.n_lattice, L.SLICE_NORM(d))
     errs["chain_slice"] = float((sk - sp).abs().max())
-    for key in ("chain_splat", "chain_axis", "chain_slice"):
+    for key in ("chain_splat", "chain_axis"):
         expect(errs[key] <= CHAIN_REL * 10, f"{key} vs plain on the same input: max |diff| {errs[key]:.3e}")
+    expect(torch.equal(sk, sp), "K3'd == plain bit for bit on the timed input")
     s_splat, s_axis, s_slice = chain_library_ops(plan, taps)
     lib_err = max(rel(s_splat @ v, tp[:Mc]), rel((s_axis @ tp)[:nl], ap[:nl]), rel(s_slice @ final, sp))
     expect(lib_err <= 1e-5, f"the CSR yardsticks compute the same functions: rel {lib_err:.3e}")
@@ -3155,8 +3185,10 @@ def chain_phase(dev, ds, expect, timer, stage_times):
             max_abs_err=errs["chain_slice"], ms=timer(lambda: KC.chain_slice(final, plan, L.SLICE_NORM(d)), 50),
             plain_ms=timer(lambda: KC.chain_slice_plain(final, plan.slice_idx, plan.weights, plan.n_lattice,
                                                         L.SLICE_NORM(d)), 5),
-            **bound(4 * (nl * 11 + 2 * N + n * 11), 2 * N * 11),  # the live table, slice_idx, weights in; out
-            library_ms=timer(lambda: s_slice @ final, 20), shape=f"n={n}, c=11"),
+            **bound(*slice_cost(plan, 11)), library_ms=timer(lambda: s_slice @ final, 20), shape=f"n={n}, c=11",
+            by_case={f"{name}, c={c}": {k: record[name][f"c{c}"][k] for k in
+                                         ("slice_ms", "slice_graph_ms", "slice_csr_graph_ms", "slice_bound_ms")}
+                     for name in ("elevators, median init", "houseelectric, median init") for c in (1, 11)}),
     }
     rows["chain_splat"]["graph_ms"] = graph_ms(lambda: KC.chain_splat(plan, v), 20)
     rows["chain_axis"]["graph_ms"] = graph_ms(

@@ -234,33 +234,15 @@ __global__ void cg_step_x_kernel(const float* __restrict__ part_pap, int P, long
 
 // ---- the Woodbury solve's passes over U ------------------------------------
 
-__device__ __forceinline__ void cg_cp16(float* dst, const float* src) {
-  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cg_cp4(float* dst, const float* src) {
-  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-// count floats from src to dst, both 16-byte aligned, by the block's threads: 16-byte copies, then 4-byte
-// copies of a tail of fewer than 4 floats.
-__device__ __forceinline__ void cg_copy_async(float* dst, const float* src, int count) {
-  const int v = count >> 2;
-  for (int e = threadIdx.x; e < v; e += blockDim.x) cg_cp16(dst + 4 * e, src + 4 * e);
-  for (int e = 4 * v + threadIdx.x; e < count; e += blockDim.x) cg_cp4(dst + e, src + e);
-}
-
-// One tile: rows [i0, i0 + rows) of U (n, k) to su and of r (n, t) to sr, as one commit group (an empty
-// group when rows <= 0, so that every tile of the pipeline is one group).
+// One tile: rows [i0, i0 + rows) of U (n, k) to su and of r (n, t) to sr (both 16-byte aligned), as one
+// commit group (an empty group when rows <= 0, so that every tile of the pipeline is one group).
 __device__ __forceinline__ void cg_load_tile(float* su, float* sr, const float* U, const float* r, long long i0,
                                              long long rows, int k, int t) {
   if (rows > 0) {
-    cg_copy_async(su, U + i0 * k, (int)rows * k);
-    cg_copy_async(sr, r + i0 * t, (int)rows * t);
+    sgp_copy_async(su, U + i0 * k, (int)rows * k);
+    sgp_copy_async(sr, r + i0 * t, (int)rows * t);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  sgp_commit();
 }
 
 // Waits for the tile before the last one issued (one group may stay in flight), then for the block.

@@ -113,7 +113,14 @@
 //     launches' host work and tails are gone.  The same operations per
 //     element, so the fused and per-axis applies are bit-equal.
 //   slice (K3'd): the d+1 vertices of a point gathered at slice_idx,
-//     weighted, summed in vertex order and scaled by SLICE_NORM.
+//     weighted, summed in vertex order and scaled by SLICE_NORM.  A block
+//     stages its points' contiguous slab of slice_idx and weights in shared
+//     memory by cp.async and walks its (point, column) elements with c
+//     consecutive lanes a point, the d+1 table loads of an element issued
+//     before its first add (d+1 fixed at compile time for 12 and 19).  Its
+//     bytes (8 n (d+1) of plan, 4 n c out) bound it at 0.039 / 0.055 ms at
+//     houseelectric c = 1 / 11; at c = 11 the gathers of its table's rows
+//     through L2 hold it well above that (chain_slice_kernel).
 //
 // Bound: memory traffic.  At elevators (n = 10,623, d = 18, c = 11, Mc =
 // 201,837) the splat reads 8 bytes of plan and 4c of v per contribution and
@@ -590,23 +597,144 @@ static inline cudaError_t chain_axes_launch(float* ta, float* tb, const float* t
   return chain_axes_launch_order<0>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier, st);
 }
 
-__global__ void chain_slice_kernel(const float* __restrict__ table, const int* __restrict__ slice_idx,
-                                   const float* __restrict__ w, const int* __restrict__ n_lattice, int n,
-                                   int dp1, int c, int Mc, float norm, float* __restrict__ out) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n * c) return;
-  if (*n_lattice > Mc) {
-    out[idx] = __int_as_float(0x7fc00000);  // quiet NaN: the capacity overflowed
+// K3'd, the slice.  A block takes `points` consecutive points (kernels/chain.py::slice_split: a multiple of 4,
+// at most 96, fewer where that gives the card over two blocks an SM or the slabs pass 47 KB), whose rows of
+// slice_idx and weights are one contiguous slab each, and copies both slabs into shared memory with cp.async
+// (16-byte copies when both arrays are 16-byte aligned: a block's slab starts at a multiple of 4 words).  Its
+// threads then walk the block's (point, column) elements in order, c consecutive lanes a point: the lanes
+// of a point read its indices and weights from shared memory together (one broadcast) and the c floats of
+// each table row together, and the block's stores are contiguous.  A thread's next element is found by
+// adding the block's stride in points and columns (no division in the loop).  DP1 = d+1 at compile time
+// for the models' widths (12: houseelectric, 19: elevators), 0 for the rest: with it the d+1 indices come
+// out of shared memory as int4 where d+1 is a multiple of 4, and all d+1 table loads issue before the first
+// add; the generic path loads 4 vertices ahead.  Either way the sum runs over v = 0..d in order, each
+// product and add rounded on its own (chain_slice_plain's order), so kernel and plain version are equal
+// bit for bit.  The capacity guard is read once a block.  At c = 11 the table (876 KB at houseelectric) does
+// not fit L1, and its 44-byte rows, gathered d+1 times a point (~1.1 GB of sectors), cross L2: the slice is
+// bound there, not by its bytes from memory.  So the kernel asks for a small shared-memory carveout
+// (CHAIN_SLICE_CARVEOUT percent, 64 KB of 228: six blocks' slabs at d+1 = 12) and leaves the rest of the SM's
+// 256 KB to L1 for the table, which measured faster at houseelectric c = 11 on an H100 than the default
+// carveout, where the slabs of eight blocks take L1's room (PERF.md section 6).
+#define CHAIN_SLICE_THREADS 256
+#define CHAIN_SLICE_CARVEOUT 28
+#define CHAIN_SLICE_SMEM (47 * 1024)  // the slabs at most: with the guard word, under the 48 KB of no opt-in
+
+// Point p's d+1 products table[idx[v], col] * w[v], summed in vertex order (si, sw: its staged rows).
+template <int DP1>
+__device__ __forceinline__ float chain_slice_sum(const float* __restrict__ t, const int* si, const float* sw,
+                                                 int dp1, int c) {
+  float acc = 0.0f;
+  if constexpr (DP1 > 0) {
+    int g[DP1];
+    float x[DP1];
+    if constexpr (DP1 % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < DP1 / 4; ++q) {
+        const int4 v4 = reinterpret_cast<const int4*>(si)[q];
+        g[4 * q] = v4.x;
+        g[4 * q + 1] = v4.y;
+        g[4 * q + 2] = v4.z;
+        g[4 * q + 3] = v4.w;
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < DP1; ++v) g[v] = si[v];
+    }
+#pragma unroll
+    for (int v = 0; v < DP1; ++v) x[v] = __ldg(t + (long long)g[v] * c);
+#pragma unroll
+    for (int v = 0; v < DP1; ++v) acc = __fadd_rn(acc, __fmul_rn(x[v], sw[v]));
+  } else {
+    for (int v0 = 0; v0 < dp1; v0 += 4) {
+      const int m = dp1 - v0 < 4 ? dp1 - v0 : 4;
+      float x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (u < m) x[u] = __ldg(t + (long long)si[v0 + u] * c);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (u < m) acc = __fadd_rn(acc, __fmul_rn(x[u], sw[v0 + u]));
+    }
+  }
+  return acc;
+}
+
+template <int DP1>
+__global__ void __launch_bounds__(CHAIN_SLICE_THREADS)
+    chain_slice_kernel(const float* __restrict__ table, const int* __restrict__ slice_idx,
+                       const float* __restrict__ w, const int* __restrict__ n_lattice, int n, int dp1_any, int c,
+                       int Mc, int points, bool vec, float norm, float* __restrict__ out) {
+  extern __shared__ __align__(16) int slab[];  // slice_idx's rows, then the weights' (points * dp1 each)
+  __shared__ int overflow;
+  const int dp1 = DP1 > 0 ? DP1 : dp1_any;
+  const long long p0 = (long long)blockIdx.x * points;
+  const int np = n - p0 < points ? (int)(n - p0) : points;
+  int* si = slab;
+  float* sw = reinterpret_cast<float*>(slab + points * dp1);
+  if (threadIdx.x == 0) overflow = *n_lattice > Mc;
+  sgp_copy_async(si, slice_idx + p0 * dp1, np * dp1, vec);
+  sgp_copy_async(sw, w + p0 * dp1, np * dp1, vec);
+  sgp_commit();
+  sgp_wait_all();
+  __syncthreads();
+  float* o = out + p0 * c;
+  const int total = np * c, stride = blockDim.x;
+  if (overflow) {
+    for (int e = threadIdx.x; e < total; e += stride) o[e] = __int_as_float(0x7fc00000);  // quiet NaN
     return;
   }
-  const long long p = idx / c;
-  const int col = (int)(idx - p * c);
-  float acc = 0.0f;
-  for (int v = 0; v < dp1; ++v) {
-    const long long e = p * dp1 + v;
-    acc = __fadd_rn(acc, __fmul_rn(table[(long long)slice_idx[e] * c + col], w[e]));
+  const int dq = stride / c, dr = stride - dq * c;
+  int p = threadIdx.x / c, col = threadIdx.x - p * c;
+  for (int e = threadIdx.x; e < total; e += stride) {
+    o[e] = __fmul_rn(chain_slice_sum<DP1>(table + col, si + p * dp1, sw + p * dp1, dp1, c), norm);
+    p += dq;
+    col += dr;
+    if (col >= c) {
+      col -= c;
+      ++p;
+    }
   }
-  out[idx] = __fmul_rn(acc, norm);
+}
+
+// The slice kernels' shared-memory carveout, set once a device (a bit a device).
+static unsigned int chain_slice_carved;
+
+static cudaError_t chain_slice_carve() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (chain_slice_carved >> (dev & 31) & 1u)) return err;
+  const cudaFuncAttribute carve = cudaFuncAttributePreferredSharedMemoryCarveout;
+  err = cudaFuncSetAttribute(chain_slice_kernel<12>, carve, CHAIN_SLICE_CARVEOUT);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(chain_slice_kernel<19>, carve, CHAIN_SLICE_CARVEOUT);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(chain_slice_kernel<0>, carve, CHAIN_SLICE_CARVEOUT);
+  if (err == cudaSuccess) chain_slice_carved |= 1u << (dev & 31);
+  return err;
+}
+
+// The slice of the final-order table (Mc, c) into out (n, c), blocks of `points` points and `threads`
+// threads (kernels/chain.py::slice_split), from sgp_chain_slice and sgp_chain_apply.
+static cudaError_t chain_slice_launch(const float* table, const int* slice_idx, const float* w,
+                                      const int* n_lattice, int n, int dp1, int c, int Mc, int points, int threads,
+                                      float norm, float* out, cudaStream_t st) {
+  if (n <= 0 || c <= 0) return cudaGetLastError();
+  const size_t smem = (size_t)8 * points * dp1;
+  if (dp1 < 1 || points < 4 || points % 4 != 0 || smem > CHAIN_SLICE_SMEM || threads < 32 ||
+      threads > CHAIN_SLICE_THREADS)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = chain_slice_carve();
+  if (err != cudaSuccess) return err;
+  const bool vec = (((uintptr_t)slice_idx | (uintptr_t)w) & 15) == 0;
+  const unsigned int grid = (unsigned int)((n + points - 1) / points);
+  if (dp1 == 12)
+    chain_slice_kernel<12><<<grid, threads, smem, st>>>(table, slice_idx, w, n_lattice, n, dp1, c, Mc, points, vec,
+                                                        norm, out);
+  else if (dp1 == 19)
+    chain_slice_kernel<19><<<grid, threads, smem, st>>>(table, slice_idx, w, n_lattice, n, dp1, c, Mc, points, vec,
+                                                        norm, out);
+  else
+    chain_slice_kernel<0><<<grid, threads, smem, st>>>(table, slice_idx, w, n_lattice, n, dp1, c, Mc, points, vec,
+                                                       norm, out);
+  return cudaGetLastError();
 }
 
 extern "C" int sgp_chain_splat(const int* sp, const float* sw, const int* cnt, const int* long_rows,
@@ -638,17 +766,16 @@ extern "C" int sgp_chain_axes(float* ta, float* tb, const float* tapw, const int
 }
 
 extern "C" int sgp_chain_slice(const float* table, const int* slice_idx, const float* w, const int* n_lattice,
-                               int n, int dp1, int c, int Mc, float norm, float* out, void* stream) {
-  const long long work = (long long)n * c;
-  if (work > 0)
-    chain_slice_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(
-        table, slice_idx, w, n_lattice, n, dp1, c, Mc, norm, out);
-  return (int)cudaGetLastError();
+                               int n, int dp1, int c, int Mc, int points, int threads, float norm, float* out,
+                               void* stream) {
+  return (int)chain_slice_launch(table, slice_idx, w, n_lattice, n, dp1, c, Mc, points, threads, norm, out,
+                                 (cudaStream_t)stream);
 }
 
 // The whole apply from one host call: the splat into ta, the d + 1 axes
 // between ta and tb in one fused launch (gather: (d, Mc); tapw: (d + 1, r,
-// Mc)), the slice of the final table into out (n, c).  ta and tb hold Mc * c
+// Mc)), the slice of the final table into out (n, c), in blocks of `points`
+// points and `threads` threads.  ta and tb hold Mc * c
 // floats; barrier is one uint of scratch for the fused launch.
 extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, const int* long_rows,
                                const int* long_first, const int* n_long, const int* piece_row,
@@ -656,8 +783,8 @@ extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, c
                                int nl_max, int nm_max, int np_max, int N, const int* n_lattice, const float* v,
                                int n, int c, int Mc, int d,
                                const int* gather, const float* tapw, int order, const float* taps_host,
-                               const int* slice_idx, const float* w, float norm, float* ta, float* tb,
-                               float* part, unsigned int* barrier, float* out, void* stream) {
+                               const int* slice_idx, const float* w, int points, int threads, float norm,
+                               float* ta, float* tb, float* part, unsigned int* barrier, float* out, void* stream) {
   if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
   if (n <= 0 || c <= 0 || Mc <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
@@ -668,7 +795,6 @@ extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, c
   err = chain_axes_launch(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, taps_host[order], barrier, st);
   if (err != cudaSuccess) return (int)err;
   const float* final_table = (d + 1) % 2 == 0 ? ta : tb;
-  chain_slice_kernel<<<sgp_blocks((long long)n * c), SGP_THREADS, 0, st>>>(final_table, slice_idx, w, n_lattice, n,
-                                                                          d + 1, c, Mc, norm, out);
-  return (int)cudaGetLastError();
+  return (int)chain_slice_launch(final_table, slice_idx, w, n_lattice, n, d + 1, c, Mc, points, threads, norm, out,
+                                 st);
 }

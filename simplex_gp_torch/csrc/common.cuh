@@ -173,6 +173,33 @@ __device__ __forceinline__ void sgp_point_geometry(const float* __restrict__ xp,
   }
 }
 
+// Asynchronous copies from global to shared memory (cp.async): 16 bytes
+// (both addresses 16-byte aligned; through L2 only) or 4 bytes, gathered
+// into commit groups; sgp_wait_all waits for every group this thread issued.
+__device__ __forceinline__ void sgp_cp16(void* dst, const void* src) {
+  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void sgp_cp4(void* dst, const void* src) {
+  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void sgp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void sgp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// count 4-byte words from src to dst by the block's threads: 16-byte copies
+// when vec (both 16-byte aligned), then 4-byte copies of the rest.
+__device__ __forceinline__ void sgp_copy_async(void* dst, const void* src, int count, bool vec = true) {
+  const int v = vec ? count >> 2 : 0;
+  char* d = static_cast<char*>(dst);
+  const char* s = static_cast<const char*>(src);
+  for (int e = threadIdx.x; e < v; e += blockDim.x) sgp_cp16(d + 16 * e, s + 16 * e);
+  for (int e = 4 * v + threadIdx.x; e < count; e += blockDim.x) sgp_cp4(d + 4 * e, s + 4 * e);
+}
+
 // Resident blocks of `threads` threads (and `smem` bytes of dynamic shared
 // memory) of `kernel` on the current card: the grid of a kernel that waits
 // at sgp_grid_barrier, whose blocks must all be resident at once.  Cached

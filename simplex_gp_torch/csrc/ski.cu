@@ -27,13 +27,17 @@
 //                                (rows, k) product T_a = F W_a (W_a = rows
 //                                a r .. a r + r - 1 of W), then out +=
 //                                R[:, a] T_a, on the tile engine below.
-//   K13c sgp_ski_kr_gram         out = Q^T M, (k, r^2): a block takes four
-//                                values of a and one row chunk and sums the
-//                                (k, r) tiles Q^T (R[:, a] F) over the chunk
-//                                in stages of 32 rows, each staged tile of Q
-//                                and F serving the four; a second pass adds
-//                                the chunks' partials in chunk order.  Two
-//                                passes and no atomics, so it repeats bit
+//   K13c sgp_ski_kr_gram         out = Q^T M, (k, r^2): for each a the (k x r)
+//                                product (R[:, a] (.) Q)^T F, whose depth is
+//                                the rows.  A block takes four values of a
+//                                and one row chunk; the rows stream through
+//                                a two-stage cp.async ring, R (.) Q is formed
+//                                once a stage in shared memory, and each
+//                                thread holds 8 x 8 outputs of one a from
+//                                float4 fragments (K13b's 4 FFMAs a shared
+//                                word).  The chunks fill the card in one
+//                                wave; a second pass adds their partials in
+//                                chunk order.  No atomics: it repeats bit
 //                                for bit.
 //   K13d sgp_ski_kr_adjoint      dR[i, a] = sum_b F[i, b] T_a[i, b] and
 //                                dF[i, b] = sum_a R[i, a] T_a[i, b] with
@@ -89,9 +93,10 @@
 #include "common.cuh"
 
 #define SKI_MAX_R 64
-#define SKI_TILE 64         // the column tile of K13c
-#define SKI_STAGE 32        // rows of one K13c stage
-#define SKI_GRAM_A 4        // values of a one K13c block takes
+#define SKI_GRAM_A 4              // values of a one K13c block takes
+#define SKI_GRAM_S 32             // rows of one K13c stage
+#define SKI_GRAM_THREADS 256      // threads of a K13c block: 64 a value of a, 8 x 8 outputs each
+#define SKI_GRAM_BLOCKS_PER_SM 2  // K13c blocks an SM (kernels/ski.py::_GRAM_SLOTS sizes its chunks by it)
 #define SKI_SCATTER_SLICES 4  // point sub-ranges of a K13a backward block, each with its own (g, r) slice
 #define SKI_ROWS 256          // rows of a K13b / K13d block
 #define SKI_KR_THREADS 256    // threads of a K13b / K13d block, 8 x 8 outputs each
@@ -99,6 +104,9 @@
 #define SKI_AT (SKI_MAX_R * SKI_ROWS)       // floats of the staged, transposed left operand
 #define SKI_RT (SKI_ROWS * SKI_RS)          // floats of the staged R tile
 #define SKI_WSTAGE (SKI_MAX_R * SKI_MAX_R)  // floats of one stage of the W ring
+#define SKI_GRAM_QS (SKI_GRAM_S * SKI_MAX_R)                // floats of a staged Q (or F) tile of K13c
+#define SKI_GRAM_STAGE (2 * SKI_GRAM_QS + SKI_GRAM_S * SKI_GRAM_A)  // floats of a K13c ring slot: Q, F, R
+#define SKI_GRAM_G (SKI_GRAM_A * SKI_GRAM_QS)               // floats of K13c's G tiles, R (.) Q for four a
 
 // The four clipped grid indices and normalised Keys weights of x
 // (_interp_1d), each float operation an explicit round-to-nearest one in
@@ -176,20 +184,6 @@ __global__ void __launch_bounds__(SKI_MAX_R * SKI_SCATTER_SLICES)
 
 // ---- the tile engine of K13b and K13d ---------------------------------------
 
-__device__ __forceinline__ void ski_cp16(float* dst, const float* src) {
-  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void ski_cp4(float* dst, const float* src) {
-  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void ski_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void ski_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
 // Position of element (j, i) of a depth-major tile of row stride `stride`: i's bits 2-4 XORed with j's bits
 // 0-2, so four consecutive i from a multiple of 4 stay one aligned float4, in order.
 __device__ __forceinline__ int ski_swz(int j, int i, int stride) { return j * stride + (i ^ ((j & 7) << 2)); }
@@ -219,7 +213,7 @@ __device__ __forceinline__ void ski_stage_transposed(float* At, const float* X, 
     const int j = (e & 7) | ((e >> 2) & 0x38), i = ((e >> 3) & 3) | ((e >> 6) & ~3);
     float* dst = At + ski_swz(j, i, SKI_ROWS);
     if (i0 + i < n && j < w)
-      ski_cp4(dst, X + (i0 + i) * w + j);
+      sgp_cp4(dst, X + (i0 + i) * w + j);
     else
       *dst = 0.0f;
   }
@@ -235,7 +229,7 @@ __device__ __forceinline__ void ski_stage_rows(float* Xs, int stride, const floa
       const int i = e >> 4, j = (e & 15) << 2;
       float* dst = Xs + i * stride + j;
       if (i0 + i < n && j < w)
-        ski_cp16(dst, X + (i0 + i) * w + j);
+        sgp_cp16(dst, X + (i0 + i) * w + j);
       else
         *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
@@ -243,7 +237,7 @@ __device__ __forceinline__ void ski_stage_rows(float* Xs, int stride, const floa
     for (int e = threadIdx.x; e < SKI_ROWS * SKI_MAX_R; e += SKI_KR_THREADS) {
       const int i = e >> 6, j = e & (SKI_MAX_R - 1);
       if (i0 + i < n && j < w)
-        ski_cp4(Xs + i * stride + j, X + (i0 + i) * w + j);
+        sgp_cp4(Xs + i * stride + j, X + (i0 + i) * w + j);
       else
         Xs[i * stride + j] = 0.0f;
     }
@@ -261,16 +255,16 @@ __device__ __forceinline__ void ski_load_stage(float* Ws, const float* base, int
     for (int e = threadIdx.x; e < SKI_WSTAGE / 4; e += SKI_KR_THREADS) {
       const int x = e >> 4, y = (e & 15) << 2;
       if (x < rows && y < cols)
-        ski_cp16(Ws + (SWZ ? ski_swz(x, y, SKI_MAX_R) : x * SKI_MAX_R + y), src + x * cols + y);
+        sgp_cp16(Ws + (SWZ ? ski_swz(x, y, SKI_MAX_R) : x * SKI_MAX_R + y), src + x * cols + y);
     }
   } else {
     for (int e = threadIdx.x; e < SKI_WSTAGE; e += SKI_KR_THREADS) {
       const int x = e >> 6, y = e & (SKI_MAX_R - 1);
       if (x < rows && y < cols)
-        ski_cp4(Ws + (SWZ ? ski_swz(x, y, SKI_MAX_R) : x * SKI_MAX_R + y), src + x * cols + y);
+        sgp_cp4(Ws + (SWZ ? ski_swz(x, y, SKI_MAX_R) : x * SKI_MAX_R + y), src + x * cols + y);
     }
   }
-  ski_commit();
+  sgp_commit();
 }
 
 // Zeros every position of both ring stages that no copy writes: position p of a stage is (x, y) = (p / 64,
@@ -299,7 +293,7 @@ __global__ void __launch_bounds__(SKI_KR_THREADS, 1)
   const long long i0 = (long long)blockIdx.x * SKI_ROWS;
   ski_stage_transposed(At, F, i0, n, r);
   ski_stage_rows(Rs, SKI_RS, R, i0, n, r, false);
-  ski_commit();
+  sgp_commit();
   ski_zero_ring<false>(Ws, r, k);
   ski_load_stage<false>(Ws, W, 0, r, k, vec_w);
   const int depth = (r + 7) & ~7;
@@ -309,7 +303,7 @@ __global__ void __launch_bounds__(SKI_KR_THREADS, 1)
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[m][q] = 0.0f;
   for (int a = 0; a < r; ++a) {
-    ski_wait_all();
+    sgp_wait_all();
     __syncthreads();  // W_a (at a = 0 the tiles too) in place; no thread still reads stage (a + 1) & 1
     if (a + 1 < r)
       ski_load_stage<false>(Ws + ((a + 1) & 1) * SKI_WSTAGE, W, a + 1, r, k, vec_w);
@@ -360,62 +354,134 @@ __global__ void __launch_bounds__(SKI_KR_THREADS, 1)
   }
 }
 
-// partial[chunk, p, a r + b] = sum over the chunk's rows of Q[i, p] R[i, a] F[i, b]:
-// block (four values of a, chunk), so each staged tile of Q and F serves four
-// a; thread (ty, tx) holds p = ty + 16 m and b = tx + 16 q for each of them.
-__global__ void __launch_bounds__(256) ski_kr_gram_kernel(const float* __restrict__ Q, const float* __restrict__ R,
-                                                          const float* __restrict__ F, int n, int r, int k,
-                                                          int chunk_rows, float* __restrict__ partial) {
-  __shared__ float Qs[SKI_STAGE][SKI_TILE];
-  __shared__ float Fs[SKI_STAGE][SKI_TILE];
-  __shared__ float Rs[SKI_STAGE][SKI_GRAM_A];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int a0 = blockIdx.x * SKI_GRAM_A, chunk = blockIdx.y;
-  const long long c0 = (long long)chunk * chunk_rows;
-  const long long c1 = c0 + chunk_rows < (long long)n ? c0 + chunk_rows : (long long)n;
-  float acc[SKI_GRAM_A][4][4];
-  for (int aa = 0; aa < SKI_GRAM_A; ++aa)
-    for (int m = 0; m < 4; ++m)
-      for (int q = 0; q < 4; ++q) acc[aa][m][q] = 0.0f;
-  for (long long s = c0; s < c1; s += SKI_STAGE) {
-    __syncthreads();
-    for (int e = tid; e < SKI_STAGE * SKI_TILE; e += 256) {
-      const int kk = e / SKI_TILE, c = e % SKI_TILE;
-      const long long i = s + kk;
-      const bool row = i < c1;
-      Qs[kk][c] = (row && c < k) ? Q[i * k + c] : 0.0f;
-      Fs[kk][c] = (row && c < r) ? F[i * r + c] : 0.0f;
+// ---- K13c on the same fragments ----------------------------------------------
+
+// Stage s of a K13c chunk as one commit group: rows [i0, i0 + SKI_GRAM_S) of Q (n x k) and F (n x r) into
+// the slot's Qs and Fs (row stride 64) and R's columns a0 .. a0 + 3 of those rows into Rs (row stride 4);
+// rows at or past c1 are zeroed.  16-byte copies where vec_q, vec_f, vec_r (a width that is a multiple of 4,
+// the array 16-byte aligned), else 4-byte ones.  Columns past k or r are left as they are: they reach only
+// outputs that are never written.
+__device__ __forceinline__ void ski_gram_stage(float* slot, const float* Q, const float* R, const float* F,
+                                               long long i0, long long c1, int r, int k, int a0, bool vec_q,
+                                               bool vec_f, bool vec_r) {
+  float* Qs = slot;
+  float* Fs = slot + SKI_GRAM_QS;
+  float* Rs = slot + 2 * SKI_GRAM_QS;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int e = threadIdx.x; e < SKI_GRAM_S * SKI_MAX_R / 4; e += SKI_GRAM_THREADS) {
+    const int i = e >> 4, j = (e & 15) << 2;
+    const long long row = i0 + i;
+    float* q = Qs + i * SKI_MAX_R + j;
+    float* f = Fs + i * SKI_MAX_R + j;
+    if (row >= c1) {
+      *reinterpret_cast<float4*>(q) = zero;
+      *reinterpret_cast<float4*>(f) = zero;
+      continue;
     }
-    if (tid < SKI_STAGE * SKI_GRAM_A) {
-      const int kk = tid / SKI_GRAM_A, aa = tid % SKI_GRAM_A;
-      const long long i = s + kk;
-      Rs[kk][aa] = (i < c1 && a0 + aa < r) ? R[i * r + a0 + aa] : 0.0f;
+    if (vec_q) {
+      if (j < k) sgp_cp16(q, Q + row * k + j);
+    } else {
+      for (int u = 0; u < 4; ++u)
+        if (j + u < k) sgp_cp4(q + u, Q + row * k + j + u);
     }
-    __syncthreads();
-    for (int kk = 0; kk < SKI_STAGE; ++kk) {
-      float qv[4], fv[4];
-      for (int m = 0; m < 4; ++m) qv[m] = Qs[kk][ty + 16 * m];
-      for (int q = 0; q < 4; ++q) fv[q] = Fs[kk][tx + 16 * q];
-      for (int aa = 0; aa < SKI_GRAM_A; ++aa) {
-        const float ra = Rs[kk][aa];
-        for (int q = 0; q < 4; ++q) {
-          const float gv = ra * fv[q];
-          for (int m = 0; m < 4; ++m) acc[aa][m][q] = fmaf(qv[m], gv, acc[aa][m][q]);
-        }
-      }
+    if (vec_f) {
+      if (j < r) sgp_cp16(f, F + row * r + j);
+    } else {
+      for (int u = 0; u < 4; ++u)
+        if (j + u < r) sgp_cp4(f + u, F + row * r + j + u);
     }
   }
+  if (threadIdx.x < SKI_GRAM_S) {
+    const int i = threadIdx.x;
+    const long long row = i0 + i;
+    float* rs = Rs + i * SKI_GRAM_A;
+    if (row >= c1)
+      *reinterpret_cast<float4*>(rs) = zero;
+    else if (vec_r)
+      sgp_cp16(rs, R + row * r + a0);
+    else
+      for (int u = 0; u < SKI_GRAM_A; ++u)
+        if (a0 + u < r) sgp_cp4(rs + u, R + row * r + a0 + u);
+  }
+  sgp_commit();
+}
+
+// partial[chunk][p][a r + b] = sum over the chunk's rows i of Q[i, p] R[i, a] F[i, b], for the block's four
+// values a = a0 + aa of a (blockIdx.x) over one row chunk (blockIdx.y).  Each a is a (k x r) product whose
+// depth is the rows: B_a = (R[:, a] (.) Q)^T F, both operands row-major, i.e. already depth-major.  The rows
+// stream in stages of SKI_GRAM_S through a ring of two cp.async slots (Q, F and R's four columns): stage s
+// + 1 is copied while the block works on stage s.  Once a stage, G_aa = R[:, a0 + aa] (.) Q is formed in
+// shared memory for the four a, one multiply an element (a thread multiplies 32), so the product loop runs
+// FFMA alone.  Thread (aa, ty, tx) holds the 8 x 8 outputs p = 4 ty + m, 32 + 4 ty + m and b = 4 tx + q,
+// 32 + 4 tx + q of B_{a0 + aa}: each row loads G's and F's fragments as four float4 (broadcast within a warp)
+// for 64 FFMAs, K13b's 4 FFMAs a shared word.  Each staged row of Q and F serves four a (the grid's a-groups
+// of one chunk run side by side, so a chunk's rows cross L2 r / 4 times and the device memory once).
+// Outputs sum over rows in row order, so a second call gives the same bits.
+__global__ void __launch_bounds__(SKI_GRAM_THREADS, SKI_GRAM_BLOCKS_PER_SM)
+    ski_kr_gram_kernel(const float* __restrict__ Q, const float* __restrict__ R, const float* __restrict__ F, int n,
+                       int r, int k, int chunk_rows, bool vec_q, bool vec_f, bool vec_r, bool vec_out,
+                       float* __restrict__ partial) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                      // two stage slots: Qs, Fs (SKI_GRAM_S x 64 each), Rs (SKI_GRAM_S x 4)
+  float* Gs = smem + 2 * SKI_GRAM_STAGE;   // G_aa[i][p] = R[i, a0 + aa] Q[i, p], (4, SKI_GRAM_S, 64)
+  const int tid = threadIdx.x, aa = tid >> 6, ty = (tid >> 3) & 7, tx = tid & 7;
+  const int a0 = blockIdx.x * SKI_GRAM_A;
+  const long long c0 = (long long)blockIdx.y * chunk_rows;
+  const long long c1 = c0 + chunk_rows < (long long)n ? c0 + chunk_rows : (long long)n;
+  const int stages = c1 > c0 ? (int)((c1 - c0 + SKI_GRAM_S - 1) / SKI_GRAM_S) : 0;
+  if (stages > 0) ski_gram_stage(ring, Q, R, F, c0, c1, r, k, a0, vec_q, vec_f, vec_r);
+  float acc[8][8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[m][q] = 0.0f;
+  for (int s = 0; s < stages; ++s) {
+    sgp_wait_all();
+    __syncthreads();  // stage s in place; no thread still reads G or the slot that stage s + 1 takes
+    if (s + 1 < stages)
+      ski_gram_stage(ring + ((s + 1) & 1) * SKI_GRAM_STAGE, Q, R, F, c0 + (long long)(s + 1) * SKI_GRAM_S, c1, r,
+                     k, a0, vec_q, vec_f, vec_r);
+    const float* slot = ring + (s & 1) * SKI_GRAM_STAGE;
+    for (int e = tid; e < SKI_GRAM_G / 4; e += SKI_GRAM_THREADS) {  // e: (aa, i, 4 p's)
+      const int g = e / (SKI_GRAM_QS / 4), i = (e >> 4) & (SKI_GRAM_S - 1), p = (e & 15) << 2;
+      const float ra = slot[2 * SKI_GRAM_QS + i * SKI_GRAM_A + g];
+      const float4 qv = *reinterpret_cast<const float4*>(slot + i * SKI_MAX_R + p);
+      *reinterpret_cast<float4*>(Gs + 4 * e) = make_float4(ra * qv.x, ra * qv.y, ra * qv.z, ra * qv.w);
+    }
+    __syncthreads();  // G in place
+    const float* ga = Gs + aa * SKI_GRAM_QS;
+    const float* fs = slot + SKI_GRAM_QS;
+#pragma unroll
+    for (int i = 0; i < SKI_GRAM_S; ++i) {  // unrolled whole: faster than by 4 or 8 (PERF.md)
+      float gv[8], fv[8];
+      ski_frag8(ga + i * SKI_MAX_R, ty << 2, SKI_MAX_R / 2, gv);
+      ski_frag8(fs + i * SKI_MAX_R, tx << 2, SKI_MAX_R / 2, fv);
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[m][q] = fmaf(gv[m], fv[q], acc[m][q]);
+    }
+  }
+  const int a = a0 + aa;
+  if (a >= r) return;
   const long long rr = (long long)r * r;
-  float* dst = partial + (long long)chunk * k * rr;
-  for (int aa = 0; aa < SKI_GRAM_A; ++aa) {
-    const int a = a0 + aa;
-    if (a >= r) continue;
-    for (int m = 0; m < 4; ++m) {
-      const int p = ty + 16 * m;
-      if (p >= k) continue;
-      for (int q = 0; q < 4; ++q) {
-        const int b = tx + 16 * q;
-        if (b < r) dst[p * rr + (long long)a * r + b] = acc[aa][m][q];
+  float* dst = partial + (long long)blockIdx.y * k * rr + (long long)a * r;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const int p = (m < 4 ? 0 : SKI_MAX_R / 2 - 4) + 4 * ty + m;
+    if (p >= k) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = (tx << 2) + h * (SKI_MAX_R / 2);
+      float* o = dst + p * rr + b;
+      if (vec_out) {
+        if (b < r)
+          *reinterpret_cast<float4*>(o) =
+              make_float4(acc[m][4 * h], acc[m][4 * h + 1], acc[m][4 * h + 2], acc[m][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (b + q < r) o[q] = acc[m][4 * h + q];
       }
     }
   }
@@ -467,7 +533,7 @@ __global__ void __launch_bounds__(SKI_KR_THREADS, 1)
   ski_stage_transposed(At, G, i0, n, k);
   ski_stage_rows(Fs, SKI_MAX_R, F, i0, n, r, vec_f);
   ski_stage_rows(Rs, SKI_RS, R, i0, n, r, false);
-  ski_commit();
+  sgp_commit();
   ski_zero_ring<true>(Ws, k, r);
   ski_load_stage<true>(Ws, Wt, 0, k, r, vec_w);
   const int depth = (k + 7) & ~7;
@@ -477,7 +543,7 @@ __global__ void __launch_bounds__(SKI_KR_THREADS, 1)
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[m][q] = 0.0f;
   for (int a = 0; a < r; ++a) {
-    ski_wait_all();
+    sgp_wait_all();
     __syncthreads();  // W_a (at a = 0 the tiles too) in place; no thread still reads stage (a + 1) & 1
     if (a + 1 < r)
       ski_load_stage<true>(Ws + ((a + 1) & 1) * SKI_WSTAGE, Wt, a + 1, k, r, vec_w);
@@ -582,10 +648,13 @@ static size_t ski_kr_smem(bool adjoint) {
   return sizeof(float) * (SKI_AT + SKI_RT + 2 * SKI_WSTAGE + (adjoint ? SKI_ROWS * SKI_MAX_R : 0));
 }
 
+// Shared memory of a K13c block: the ring's two slots and the G tiles (66,560 bytes).
+static size_t ski_gram_smem() { return sizeof(float) * (2 * SKI_GRAM_STAGE + SKI_GRAM_G); }
+
 static bool ski_aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// The dynamic shared-memory opt-in, done once a device (a bit a device) for K13b (0) and K13d (1).
-static unsigned int ski_kr_opted[2];
+// The dynamic shared-memory opt-in, done once a device (a bit a device) for K13b (0), K13d (1) and K13c (2).
+static unsigned int ski_kr_opted[3];
 
 template <typename Kernel>
 static cudaError_t ski_opt_in(Kernel kernel, size_t smem, int which) {
@@ -609,13 +678,22 @@ extern "C" int sgp_ski_kr_matmul(const float* R, const float* F, const float* W,
   return (int)cudaGetLastError();
 }
 
-// partial: (chunks, k, r^2), or out itself when chunks == 1.
+// K13c: the first pass over a grid of ceil(r / 4) a-groups by `chunks` row chunks of chunk_rows rows
+// (kernels/ski.py::_gram_split), into partial (chunks, k, r^2), or out itself when chunks == 1; then the
+// chunks' partials added in chunk order.
 extern "C" int sgp_ski_kr_gram(const float* Q, const float* R, const float* F, int n, int r, int k, int chunks,
                                int chunk_rows, float* partial, float* out, void* stream) {
-  if (r > SKI_MAX_R || k > SKI_MAX_R || chunks < 1) return (int)cudaErrorInvalidValue;
+  if (r > SKI_MAX_R || k > SKI_MAX_R || r < 0 || k < 0 || chunks < 1 || chunk_rows < 1)
+    return (int)cudaErrorInvalidValue;
   if (r == 0 || k == 0) return (int)cudaGetLastError();
-  ski_kr_gram_kernel<<<dim3((r + SKI_GRAM_A - 1) / SKI_GRAM_A, chunks), 256, 0, (cudaStream_t)stream>>>(
-      Q, R, F, n, r, k, chunk_rows, partial);
+  const size_t smem = ski_gram_smem();
+  const cudaError_t err = ski_opt_in(ski_kr_gram_kernel, smem, 2);
+  if (err != cudaSuccess) return (int)err;
+  float* first = chunks == 1 ? out : partial;
+  ski_kr_gram_kernel<<<dim3((r + SKI_GRAM_A - 1) / SKI_GRAM_A, chunks), SKI_GRAM_THREADS, smem,
+                       (cudaStream_t)stream>>>(Q, R, F, n, r, k, chunk_rows, k % 4 == 0 && ski_aligned(Q),
+                                               r % 4 == 0 && ski_aligned(F), r % 4 == 0 && ski_aligned(R),
+                                               r % 4 == 0 && ski_aligned(first), first);
   if (chunks > 1) {
     const long long size = (long long)k * r * r;
     ski_gram_reduce_kernel<<<sgp_blocks(size), SGP_THREADS, 0, (cudaStream_t)stream>>>(partial, size, chunks, out);
@@ -637,15 +715,20 @@ extern "C" int sgp_ski_kr_adjoint(const float* R, const float* F, const float* W
   return (int)cudaGetLastError();
 }
 
-// Blocks resident an SM at their shared memory and registers: blocks[0] K13b, blocks[1] K13d (for the record).
+// Blocks resident an SM at their shared memory and registers: blocks[0] K13b, blocks[1] K13d, blocks[2] K13c
+// (for the record).
 extern "C" int sgp_ski_kr_resident(int* blocks) {
   cudaError_t err = ski_opt_in(ski_kr_matmul_kernel, ski_kr_smem(false), 0);
   if (err == cudaSuccess) err = ski_opt_in(ski_kr_adjoint_kernel, ski_kr_smem(true), 1);
+  if (err == cudaSuccess) err = ski_opt_in(ski_kr_gram_kernel, ski_gram_smem(), 2);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[0], ski_kr_matmul_kernel, SKI_KR_THREADS,
                                                         ski_kr_smem(false));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[1], ski_kr_adjoint_kernel, SKI_KR_THREADS,
                                                         ski_kr_smem(true));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[2], ski_kr_gram_kernel, SKI_GRAM_THREADS,
+                                                        ski_gram_smem());
   return (int)err;
 }

@@ -18,6 +18,7 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --once-sharded
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --join-build
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --ski
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --slice
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
@@ -55,8 +56,13 @@ the houseelectric one-shot MVM of ``mvm_err`` (:func:`once_sharded`); the
 sixteenth K2 and the join plan's row build by kernel, launched and
 replayed (:func:`join_build`); the seventeenth K13b, K13c and K13d at
 SKIP's 65,536 and 191,231 rows beside ``torch.einsum`` and cuBLAS's
-product of the materialised Khatri-Rao matrix, and the warm SKIP step by
-stage (:func:`ski_times`).
+products of the materialised Khatri-Rao matrix, and the warm SKIP step by
+stage (:func:`ski_times`); the eighteenth K3'd, the sort chain's slice, at
+the elevators and houseelectric widths beside its bound, a CSR product and
+the chain apply it ends (:func:`slice_times`).  An A/B of the slice runs
+``--slice`` and ``--step-grad DIR`` on each tree, then
+``--compare-step-grad`` on the two DIRs: the houseelectric step's
+gradients bit for bit.
 
 Run as a file, it imports ``simplex_gp_torch`` from ``PYTHONPATH``, so one
 copy of this script times any tree whose kernels keep these entry points
@@ -709,6 +715,88 @@ def axes_times(reps: int = 50) -> dict:
     return out
 
 
+def slice_times(reps: int = 50) -> dict:
+    """K3'd, the sort chain's slice, at the widths of the main path, beside its bound and a CSR product.
+
+    Plans: the elevators training rows at the median-init lengthscales
+    (tests/fixtures/elevators_train_golden.npz), untrimmed, and all houseelectric training rows over their
+    median lengthscale at capacity 32,768 (matern-1.5, order 1), at c = 1 (the eval CG) and 11 (the
+    training CG).  On a seeded random (Mc, c) table: ``chain_slice`` launched (CUDA events over ``reps``
+    calls) and replayed from a CUDA graph (where the tree has ``SLICE_POINTS``, also at blocks of at most 64,
+    96, 128 and 256 points), whether it equals ``chain_slice_plain`` and a second call bit for
+    bit, one ``torch.sparse`` CSR product of SLICE_NORM S^T (n, Mc) by the table, and the slice's byte bound
+    (the live table, slice_idx and weights in, the (n, c) output out, over 3.35 TB/s).  Beside it the whole
+    chain apply (the CG's MVM) replayed, its splat and fused axes replayed where the tree has them, and one
+    apply under ``torch.profiler`` (device ms by kernel): the slice's share of the MVM.  Any tree since the
+    sort chain's port runs it.  Prints one JSON line.
+    """
+    import pathlib
+
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import chain as KC
+    from simplex_gp_torch.models.components import softplus
+    from simplex_gp_torch.ops import kernels, lattice as L
+    from simplex_gp_torch.utils import data
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    dev = torch.device("cuda:0")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = {"card": _card(), "tree": simplex_gp_torch.__file__}
+    dk = kernels.matern_kernel(1.5, 1)
+    taps = [float(t) for t in dk.coeffs]
+    tg = np.load(root / "tests" / "fixtures" / "elevators_train_golden.npz")
+    inv_ell = 1.0 / softplus(torch.from_numpy(tg["init_raw_lengthscale"]).to(dev))
+    xe = torch.from_numpy(data.prepare_dataset(data._synthetic_uci("elevators"), "elevators").train_x).to(dev)
+    s = data.load_dataset("houseelectric")
+    xh = torch.from_numpy(s.train_x).to(dev) / trainer.median_lengthscale(s.train_x)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for tag, pts, cap in (("elevators", xe * inv_ell, None), ("houseelectric", xh, 32768)):
+        plan = L.build_plan_chain(pts.contiguous(), dk.coeffs, dk.variance, cap)
+        (n, dp1), Mc = plan.weights.shape, plan.cnt.shape[0]
+        live, N = min(int(plan.n_lattice), Mc), n * dp1
+        norm = L.SLICE_NORM(dp1 - 1)
+        csr = torch.sparse_csr_tensor(torch.arange(0, N + 1, dp1, device=dev), plan.slice_idx.reshape(-1).long(),
+                                      plan.weights.reshape(-1) * norm, size=(n, Mc))
+        for c in (1, 11):
+            table = torch.randn((Mc, c), generator=gen, device=dev)
+            v = torch.randn((n, c), generator=gen, device=dev)
+            got = KC.chain_slice(table, plan, norm)
+            want = KC.chain_slice_plain(table, plan.slice_idx, plan.weights, plan.n_lattice, norm)
+            rec = dict(n=n, dp1=dp1, capacity=Mc, n_lattice=int(plan.n_lattice),
+                       bit_equal=bool(torch.equal(got, want)),
+                       repeat_bit_equal=bool(torch.equal(KC.chain_slice(table, plan, norm), got)),
+                       csr_rel=float((csr @ table - want).norm() / want.norm()),
+                       ms=_ms(lambda: KC.chain_slice(table, plan, norm), reps),
+                       graph_ms=_graph_ms(lambda: KC.chain_slice(table, plan, norm), 20),
+                       csr_ms=_ms(lambda: csr @ table, reps // 5),
+                       csr_graph_ms=_graph_ms(lambda: csr @ table, 10),
+                       bound_ms=1e3 * 4 * (live * c + 2 * N + n * c) / 3.35e12,
+                       apply_graph_ms=_graph_ms(lambda: L.apply_plan_chain(plan, v, dk.coeffs), 20),
+                       splat_graph_ms=_graph_ms(lambda: KC.chain_splat(plan, v), 20))
+            if hasattr(KC, "chain_axes"):
+                work = KC.chain_splat(plan, v)
+                rec["axes_graph_ms"] = _graph_ms(lambda: KC.chain_axes(work, plan, taps), 20)
+                del work
+            if hasattr(KC, "SLICE_POINTS"):  # the change's blocks of at most SLICE_POINTS points, and others
+                chosen = KC.SLICE_POINTS
+                try:
+                    for pts in (64, 96, 128, 256):
+                        KC.SLICE_POINTS = pts
+                        rec[f"graph_ms_points{pts}"] = _graph_ms(lambda: KC.chain_slice(table, plan, norm), 20)
+                finally:
+                    KC.SLICE_POINTS = chosen
+            rec["slice_share_of_apply"] = rec["graph_ms"] / rec["apply_graph_ms"]
+            rec["apply_profile"] = _device_by_kernel(lambda: L.apply_plan_chain(plan, v, dk.coeffs))
+            out[f"{tag}_c{c}"] = rec
+            del table, v, got, want
+        del plan, csr
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def mixture_sketch(reps: int = 20) -> dict:
     """K12 and the elevators range sketch, for an A/B of two trees (any tree with these entry points).
 
@@ -1349,7 +1437,8 @@ def ski_times(repeats: int = 20, rows=(65536, 191231)) -> dict:
     Shapes: the precipitation root's 65,536 training rows and its joint root's 191,231 rows, r = k = 64, from
     seeded normal R, F, G and W.  Each call host-launched and replayed from a CUDA graph (CUDA events), beside
     ``torch.einsum`` of the same contraction (K13b, K13c) and ``torch.mm`` of the materialised (n, r^2)
-    M = R (.) F by W (cuBLAS's f32 rate on the same 2 n r^2 k flops: a yardstick the port never calls), with
+    M = R (.) F, M W for K13b and G^T M for K13c (cuBLAS's f32 rate on the same 2 n r^2 k flops: yardsticks
+    the port never calls), with
     each kernel's f32 bound (operations over 67 TFLOP/s), its agreement with its plain version and whether a
     second call gives the same bits; the blocks resident an SM where the tree reports them, and ptxas's
     registers and spills of the K13 kernels from the build log.  The warm SKIP
@@ -1398,7 +1487,10 @@ def ski_times(repeats: int = 20, rows=(65536, 191231)) -> dict:
         mm = lambda: torch.mm(M, W)
         rec["mm_materialised"] = dict(ms=_ms(mm, repeats), graph_ms=_graph_ms(mm, repeats))
         rec["mm_materialised"]["tflops"] = flops / rec["mm_materialised"]["graph_ms"] / 1e9
-        for name in ("k13b", "k13d"):
+        mm_gram = lambda: torch.mm(G.T, M)  # K13c's function, G^T M, on the materialised M
+        rec["mm_materialised_k13c"] = dict(ms=_ms(mm_gram, repeats), graph_ms=_graph_ms(mm_gram, repeats))
+        rec["mm_materialised_k13c"]["tflops"] = flops / rec["mm_materialised_k13c"]["graph_ms"] / 1e9
+        for name in ("k13b", "k13c", "k13d"):
             rec[name]["tflops"] = flops / rec[name]["graph_ms"] / 1e9
         del M
         out[f"rows_{m}"] = rec
@@ -1517,5 +1609,7 @@ if __name__ == "__main__":
         once_sharded()
     elif "--ski" in sys.argv[1:]:
         ski_times()
+    elif "--slice" in sys.argv[1:]:
+        slice_times()
     else:
         main()

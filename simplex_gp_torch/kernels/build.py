@@ -76,10 +76,10 @@ _SIGNATURES = {
     "sgp_run_lists": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "sgp_chain_splat": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "sgp_chain_axis": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "sgp_chain_slice": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+    "sgp_chain_slice": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
     "sgp_chain_axes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "sgp_chain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
-                        _P, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P],
+                        _P, _I, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P],
     "sgp_cg_dot": [*[_P] * 5, _I, _I, _I, _I, _P, _P],
     "sgp_cg_step_x": [_P, _I, _LL, *[_P] * 4, _I, _I, _I, _I, *[_P] * 4],
     "sgp_cg_utr": [_P, _P, *[_I] * 9, _P, _P],

@@ -56,6 +56,7 @@ __all__ = [
     "chain_slice",
     "run_lists",
     "run_lists_device",
+    "slice_split",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -68,6 +69,13 @@ PIECE = 1024
 # A run of at most this many contributions is summed by one thread per column, a longer one by a warp
 # (CHAIN_SHORT); the rows in between, the mid rows, are listed in the plan.
 SHORT = 32
+# K3'd's blocks (slice_split): at most this many threads (CHAIN_SLICE_THREADS) and points, the slabs of
+# slice_idx and weights in at most this many bytes of shared memory (CHAIN_SLICE_SMEM), and a block takes
+# fewer points where that spreads n over up to this many blocks an SM.
+SLICE_THREADS = 256
+SLICE_POINTS = 96
+SLICE_SLAB_BYTES = 47 * 1024
+SLICE_BLOCKS_PER_SM = 2
 
 
 class ChainPlan(NamedTuple):
@@ -648,8 +656,39 @@ def chain_slice_plain(table, slice_idx, weights, n_lattice, slice_norm):
     return torch.where(n_lattice <= table.shape[0], out * slice_norm, float("nan"))
 
 
+def slice_split(n: int, dp1: int, c: int, sms: int) -> tuple[int, int]:
+    """(points, threads) of a K3'd block for n points of d+1 vertices and c columns on a card of ``sms`` SMs.
+
+    points: a multiple of 4 (so every block's slab of slice_idx and weights
+    starts on 16 bytes), at most SLICE_POINTS and at most what the two slabs'
+    SLICE_SLAB_BYTES hold, and the fewest that spread n over at most
+    SLICE_BLOCKS_PER_SM blocks an SM (elevators' 10,623 points: 44 a block,
+    242 blocks); threads: the block's points * c elements rounded up to
+    whole warps, at most SLICE_THREADS.  At most 96 points a block measured
+    faster than 64, 128 or 256 at houseelectric c = 11 (``kernel_times.py
+    --slice``; PERF.md section 6).  No output bit depends on it:
+    each point sums its own vertices.
+    """
+    most = min(SLICE_POINTS, (SLICE_SLAB_BYTES // (8 * dp1)) // 4 * 4)
+    if most < 4:
+        raise ValueError(f"chain_slice: d+1 = {dp1} vertices do not fit a block's {SLICE_SLAB_BYTES}-byte slabs")
+    points = min(most, 4 * max(1, -(-n // (4 * SLICE_BLOCKS_PER_SM * sms))))
+    return points, min(SLICE_THREADS, 32 * -(-(points * c) // 32))
+
+
+def _slice_args(plan: ChainPlan, c: int, device) -> tuple:
+    """(points, threads) for :func:`slice_split` on ``device``."""
+    n, dp1 = plan.slice_idx.shape
+    return slice_split(n, dp1, c, torch.cuda.get_device_properties(device).multi_processor_count)
+
+
 def chain_slice(table: torch.Tensor, plan: ChainPlan, slice_norm: float) -> torch.Tensor:
-    """K3'd: ``slice_norm * S^T`` of the final-order table (Mc, c), all NaN when n_lattice > Mc."""
+    """K3'd: ``slice_norm * S^T`` of the final-order table (Mc, c), all NaN when n_lattice > Mc.
+
+    A block stages its points' rows of slice_idx and weights in shared
+    memory, then sums each (point, column) over its vertices in order
+    (:func:`chain_slice_plain`'s order, so the two agree bit for bit).
+    """
     if not table.is_cuda:
         return chain_slice_plain(table, plan.slice_idx, plan.weights, plan.n_lattice, slice_norm)
     build.require("chain_slice", (table, torch.float32), (plan.slice_idx, torch.int32),
@@ -659,8 +698,8 @@ def chain_slice(table: torch.Tensor, plan: ChainPlan, slice_norm: float) -> torc
     out = torch.empty((n, c), dtype=torch.float32, device=table.device)
     lib = build.library()
     build.check(lib.sgp_chain_slice(table.data_ptr(), plan.slice_idx.data_ptr(), plan.weights.data_ptr(),
-                                    plan.n_lattice.data_ptr(), n, dp1, c, Mc, float(slice_norm), out.data_ptr(),
-                                    build.stream()), "chain_slice")
+                                    plan.n_lattice.data_ptr(), n, dp1, c, Mc, *_slice_args(plan, c, table.device),
+                                    float(slice_norm), out.data_ptr(), build.stream()), "chain_slice")
     chain_slice.launches += 1
     return out
 
@@ -700,7 +739,8 @@ def chain_apply(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float) -> to
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
     build.check(build.library().sgp_chain_apply(
         *_splat_args(plan), v.data_ptr(), n, c, Mc, d, plan.gather.data_ptr(), plan.tapw.data_ptr(), order,
-        ctypes.addressof(taps_host), plan.slice_idx.data_ptr(), plan.weights.data_ptr(), float(slice_norm),
+        ctypes.addressof(taps_host), plan.slice_idx.data_ptr(), plan.weights.data_ptr(),
+        *_slice_args(plan, c, dev), float(slice_norm),
         ta.data_ptr(), tb.data_ptr(), part.data_ptr(), barrier.data_ptr(), out.data_ptr(), build.stream()),
         "chain_apply")
     chain_splat.launches += 1

@@ -15,9 +15,12 @@ randomized range finder.  Four kernels carry it:
   sum_b F[i, b] (W G^T)[ab, i] and dF[i, b] = sum_a R[i, a] (W G^T)[ab, i].
 
 K13b and K13d run one f32 tile engine (csrc/ski.cu): 256 rows a block,
-8 x 8 outputs a thread, W streamed through a cp.async ring; each sums in a
-fixed order, so a second call gives the same bits.  Their plain versions
-hand their products to MKL or cuBLAS and need not follow that order.
+8 x 8 outputs a thread, W streamed through a cp.async ring.  K13c takes
+four values of a and a row chunk a block, its rows streamed through a
+cp.async ring, R (.) Q formed once a stage, 8 x 8 outputs a thread from
+the same float4 fragments.  Each sums in a fixed order, so a second call
+gives the same bits.  Their plain versions hand their products to MKL or
+cuBLAS and need not follow that order.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 the kernel for CUDA tensors, raising on a failed build or launch (no
@@ -46,8 +49,11 @@ _MAX_SCATTER = 12288  # floats of a (g, r) slice: K13a's backward keeps _SCATTER
 _SCATTER_SLICES = 4  # SKI_SCATTER_SLICES in csrc/ski.cu: point sub-ranges of a K13a backward block
 _SCATTER_BLOCKS = 132  # most blocks of K13a's backward (one an SM of an H100)
 _SCATTER_MIN_SPAN = 16  # fewest points a sub-range takes
-_GRAM_CHUNKS = 64  # most row chunks of K13c's first pass
-_GRAM_MIN_ROWS = 1024  # fewest rows a chunk takes
+_GRAM_A = 4  # SKI_GRAM_A in csrc/ski.cu: values of a one K13c block takes
+_GRAM_STAGE = 32  # SKI_GRAM_S: rows of one K13c stage
+# K13c's blocks in one wave: an H100's 132 SMs at SKI_GRAM_BLOCKS_PER_SM = 2 each.  A constant, not the card's
+# count, so the chunks and with them K13c's bits are the same on every card.
+_GRAM_SLOTS = 264
 
 
 def _cubic_kernel(s: torch.Tensor) -> torch.Tensor:
@@ -206,23 +212,27 @@ def _kr_resident_blocks() -> dict:
     and registers), for the record."""
     import ctypes
 
-    blocks = (ctypes.c_int * 2)()
+    blocks = (ctypes.c_int * 3)()
     build.check(build.library().sgp_ski_kr_resident(ctypes.addressof(blocks)), "ski_kr_resident")
-    return dict(zip(("ski_kr_matmul", "ski_kr_adjoint"), blocks))
+    return dict(zip(("ski_kr_matmul", "ski_kr_adjoint", "ski_kr_gram"), blocks))
 
 
-def _gram_chunks(n: int) -> tuple[int, int]:
-    """(chunks, rows a chunk) of K13c's first pass: at most 64 chunks of at least 1,024 rows, a multiple of 32."""
-    chunks = max(1, min(_GRAM_CHUNKS, -(-n // _GRAM_MIN_ROWS)))
-    rows = -(-n // chunks)
-    return chunks, -(-rows // 32) * 32
+def _gram_split(n: int, r: int) -> tuple[int, int]:
+    """(chunks, rows a chunk) of K13c's first pass on n rows at rank r: the grid of ceil(r / _GRAM_A) a-groups
+    by chunks fits in one wave of _GRAM_SLOTS blocks, each chunk a whole number of _GRAM_STAGE-row stages, and
+    no chunk empty."""
+    groups = -(-r // _GRAM_A)
+    chunks = max(1, min(_GRAM_SLOTS // groups, -(-n // _GRAM_STAGE)))
+    rows = _GRAM_STAGE * max(1, -(-n // (chunks * _GRAM_STAGE)))
+    return max(1, -(-n // rows)), rows
 
 
 def ski_kr_gram(Q, R, F):
     """K13c: Q^T (R (.) F), (k, r^2) for Q (n, k) and R, F (n, r).
 
-    Two passes, no atomics: each block sums one column block of the output
-    over one row chunk into its own partial, then one thread per output
+    Two passes, no atomics: each block sums the (k, r) products of four
+    values of a over one row chunk into its own partial (the chunks fill
+    the card in one wave, :func:`_gram_split`), then one thread per output
     entry adds the chunks' partials in chunk order, so the result repeats
     bit for bit.
     """
@@ -234,7 +244,7 @@ def ski_kr_gram(Q, R, F):
     if F.shape != R.shape or Q.shape[0] != n:
         raise ValueError(f"ski_kr_gram: Q {tuple(Q.shape)}, R {tuple(R.shape)}, F {tuple(F.shape)}")
     _check_rank("ski_kr_gram", r, k)
-    chunks, rows = _gram_chunks(n)
+    chunks, rows = _gram_split(n, r)
     out = torch.empty((k, r * r), dtype=torch.float32, device=R.device)
     partial = out if chunks == 1 else torch.empty((chunks, k, r * r), dtype=torch.float32, device=R.device)
     lib = build.library()

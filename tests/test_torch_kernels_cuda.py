@@ -55,6 +55,12 @@ across column tiles, and on a plan past 4M contributions.  K8's count is exact o
 distinct, a ragged last block and d = 1, 11, 18.  The
 Snelson gate (test_torch_snelson.py's prediction test) runs on the card
 too, through the kernels.
+K3'd, the slice, sums each point's vertices in its plain version's order
+from slabs staged in shared memory: torch.equal to its twin and a second
+call at the compiled d+1 (12, 19) and the generic path, off 16-byte
+boundaries and inside chain_apply.  K13c sums over rows in stages and
+chunks: rel 1e-5 to its plain version (float32 sums in another order) and
+bit-equal to a second call at its stage and chunk edges.
 Positions at d >= 9 are scaled by 0.3, so the kernel reaches between points
 and the gradients are not roundoff.
 """
@@ -808,8 +814,9 @@ def _ski_inputs(n, r, k, device, seed=0):
 @pytest.mark.parametrize("n,r,k", [(257, 5, 7), (1000, 64, 64), (70001, 64, 64), (255, 64, 64), (256, 64, 64),
                                    (257, 64, 64), (300, 63, 64), (300, 64, 1), (513, 64, 30), (600, 63, 63)])
 def test_ski_kr_kernels_match_plain(cuda_device, n, r, k):
-    """K13b, K13c (split over row chunks at n > 1,024, the chunks added in a second pass) and K13d, within rel
-    1e-5 of their plain versions.  A fixed order and no atomics: a second call of each gives the same bits."""
+    """K13b, K13c (split over row chunks of whole 32-row stages, the chunks added in a second pass) and K13d,
+    within rel 1e-5 of their plain versions.  A fixed order and no atomics: a second call of each gives the
+    same bits."""
     from simplex_gp_torch.kernels import ski as KS
 
     R, F, W, G = _ski_inputs(n, r, k, cuda_device)
@@ -842,6 +849,37 @@ def test_ski_kr_kernels_take_rows_off_16_byte_boundaries(cuda_device):
     assert torch.equal(KS.ski_kr_matmul(R, Fo, Wo), KS.ski_kr_matmul(R, F, W))
     for got, want in zip(KS.ski_kr_adjoint(R, Fo, Wo, G), KS.ski_kr_adjoint(R, F, W, G)):
         assert torch.equal(got, want)
+
+
+# K13c's stages of 32 rows and its chunks (kernels/ski.py::_gram_split): one stage -1 / 0 / +1 row, n below
+# one stage, the edge where a chunk grows from one stage to two (511 / 512 / 513 rows at r = 64),
+# ragged r and k (4-byte copies), k = 1, a joint-root height, and Q, R, F off 16-byte boundaries.
+@pytest.mark.parametrize("n,r,k,offset", [(31, 64, 64, False), (32, 64, 64, False), (33, 64, 64, False),
+                                          (5, 64, 64, False), (511, 64, 64, False), (512, 64, 64, False),
+                                          (513, 64, 64, False), (4097, 63, 30, False), (1000, 64, 1, False),
+                                          (2000, 7, 13, False), (65537, 64, 64, False), (3000, 64, 64, True),
+                                          (3000, 62, 61, True)])
+def test_ski_kr_gram_at_its_stage_and_chunk_edges(cuda_device, n, r, k, offset):
+    """K13c within rel 1e-5 of its plain version and bit-equal to a second call; with Q, R and F one float
+    past a 16-byte boundary it takes 4-byte copies and gives the bits of aligned copies of the same values."""
+    from simplex_gp_torch.kernels import ski as KS
+
+    R, F, _, Q = _ski_inputs(n, r, k, cuda_device, seed=n)
+    before = KS.ski_kr_gram.launches
+    got = KS.ski_kr_gram(Q, R, F)
+    torch.cuda.synchronize()
+    assert KS.ski_kr_gram.launches - before == 1 and got.shape == (k, r * r)
+    want = KS.kr_gram_plain(Q, R, F)
+    assert float((got - want).norm() / want.norm()) < 1e-5
+    assert torch.equal(KS.ski_kr_gram(Q, R, F), got)
+    if offset:
+        moved = []
+        for t in (Q, R, F):
+            o = torch.empty(t.numel() + 1, device=cuda_device)[1:].view(t.shape)
+            o.copy_(t)
+            assert o.data_ptr() % 16 and o.is_contiguous()
+            moved.append(o)
+        assert torch.equal(KS.ski_kr_gram(*moved), got)
 
 
 @pytest.mark.parametrize("n,g,r", [(3000, 100, 64), (517, 9, 5)])
@@ -927,6 +965,82 @@ def test_chain_build_and_apply_match_plain_bit_for_bit(cuda_device, n, d, order,
             assert torch.equal(kout, t_lattice.apply_plan_chain(kplan, v, dk.coeffs))
             jout = t_lattice.apply_plan_join(join, v, dk.coeffs)
             assert float((kout - jout).norm() / jout.norm()) < 2e-5
+
+
+def _slice_case(n, dp1, c, Mc, device, seed):
+    """A plan's slice fields (slice_idx (n, d+1) into Mc rows, weights, n_lattice = Mc) and an (Mc, c) table,
+    from one seed: what K3'd reads."""
+    import types
+
+    gen = torch.Generator().manual_seed(seed)
+    plan = types.SimpleNamespace(
+        slice_idx=torch.randint(0, Mc, (n, dp1), generator=gen, dtype=torch.int32).to(device),
+        weights=torch.rand((n, dp1), generator=gen).to(device),
+        n_lattice=torch.tensor(Mc, dtype=torch.int32, device=device))
+    return plan, torch.randn((Mc, c), generator=gen).to(device)
+
+
+# d+1 = 2, the compiled 12 and 19, 20 and 40 on the generic path (40: fewer points a block, its slabs capped);
+# c = 1, 11, 17; n = 1, n not a multiple of a block's points, and a houseelectric-sized block count.
+@pytest.mark.parametrize("c", [1, 11, 17])
+@pytest.mark.parametrize("dp1", [2, 12, 19, 20, 40])
+@pytest.mark.parametrize("n", [1, 1001, 70001])
+def test_chain_slice_equals_plain_and_a_second_call(cuda_device, n, dp1, c):
+    """K3'd (a block's slabs of slice_idx and weights in shared memory, c lanes a point, the vertices summed
+    in order) torch.equal to chain_slice_plain and to a second call; past the capacity all NaN."""
+    plan, table = _slice_case(n, dp1, c, 997, cuda_device, seed=n * 100 + dp1 + c)
+    before = KC.chain_slice.launches
+    got = KC.chain_slice(table, plan, 0.37)
+    torch.cuda.synchronize()
+    assert KC.chain_slice.launches - before == 1
+    want = KC.chain_slice_plain(table, plan.slice_idx, plan.weights, plan.n_lattice, 0.37)
+    assert torch.equal(got, want) and torch.equal(KC.chain_slice(table, plan, 0.37), got)
+    plan.n_lattice.fill_(998)  # one point past the capacity
+    assert bool(torch.isnan(KC.chain_slice(table, plan, 0.37)).all())
+
+
+@pytest.mark.parametrize("dp1", [12, 19, 20])
+def test_chain_slice_takes_slabs_off_16_byte_boundaries(cuda_device, dp1):
+    """slice_idx and weights one word past a 16-byte boundary: K3'd takes 4-byte copies into its slabs and
+    gives the bits of aligned copies of the same values."""
+    import types
+
+    plan, table = _slice_case(5003, dp1, 11, 4099, cuda_device, seed=dp1)
+    moved = {}
+    for f in ("slice_idx", "weights"):
+        t = getattr(plan, f)
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)[1:].view(t.shape)
+        o.copy_(t)
+        assert o.data_ptr() % 16 and o.is_contiguous()
+        moved[f] = o
+    off = types.SimpleNamespace(n_lattice=plan.n_lattice, **moved)
+    got = KC.chain_slice(table, off, 0.5)
+    assert torch.equal(got, KC.chain_slice(table, plan, 0.5))
+    assert torch.equal(got, KC.chain_slice_plain(table, plan.slice_idx, plan.weights, plan.n_lattice, 0.5))
+
+
+@pytest.mark.parametrize("c", [1, 11, 17])
+@pytest.mark.parametrize("d", [1, 11, 18, 19])
+def test_chain_apply_slices_bit_for_bit_at_the_compiled_widths(cuda_device, d, c):
+    """chain_apply (its slice inside sgp_chain_apply) on built plans at d+1 = 2, 12, 19 and 20, untrimmed and
+    one row short of the occupancy: torch.equal to the plain apply and to a second apply, one K3'd launch
+    counted an apply; past the capacity all NaN."""
+    dk = _dk("matern", 1)
+    x = _positions(3001, d, 13, cuda_device)
+    occ = int(t_lattice.build_plan_chain(x, dk.coeffs, dk.variance).n_lattice)
+    taps = [float(t) for t in dk.coeffs]
+    v = torch.randn((3001, c), generator=torch.Generator(device=cuda_device).manual_seed(d), device=cuda_device)
+    for cap in (None, occ - 1):
+        plan = t_lattice.build_plan_chain(x, dk.coeffs, dk.variance, cap)
+        before = KC.chain_slice.launches
+        out = t_lattice.apply_plan_chain(plan, v, dk.coeffs)
+        torch.cuda.synchronize()
+        assert KC.chain_slice.launches - before == 1
+        pout = KC.chain_apply_plain(plan, v, taps, t_lattice.SLICE_NORM(d))
+        if cap is not None:
+            assert bool(torch.isnan(out).all() and torch.isnan(pout).all())
+            continue
+        assert torch.equal(out, pout) and torch.equal(t_lattice.apply_plan_chain(plan, v, dk.coeffs), out)
 
 
 def _chain_hard_positions(case, device):
