@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, large-n, data-parallel, mixture, baseline, sort-chain, CG and factor paths on one CUDA card, and check them.
+"""Drive the PyTorch port's serving, training, large-n, data-parallel, mixture, baseline, sort-chain, CG, factor and screening paths and its entry-point scripts on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -188,7 +188,27 @@ Phases, each printed as it runs:
      (torch.equal) at elevators and houseelectric (capacity 32,768), c = 1
      and 11, launched and graph-replayed, with the bound; K3'c's and K6's
      launches in one elevators training step (190 per-axis launches before
-     the fusion).
+     the fusion);
+ 13. ARD screening at prune_thresh 0.3 and the last entry points: the elevators
+     configuration on the seeded elevators_sparse stand-in (10,623 rows,
+     d = 18; the median-init lengthscale on the four dims the generator
+     makes relevant, raw lengthscale 60 on the rest) through
+     posterior_cache_screened and predict_from_cache_screened, against the
+     JAX-on-CPU golden file tests/fixtures/elevators_sparse_screened_golden.npz
+     (the kept dims equal, test RMSE and NLL within the serving gates, the
+     screened occupancy), the kernels' launches on it, the unscreened RMSE and
+     NLL beside it; houseelectric_sparse at full n (1,311,539 rows, d = 11,
+     parameters built the same way) through ``python -m
+     simplex_gp_torch.eval_checkpoint --plan-capacity -1 --prune-thresh 0.3``
+     (finite, four dims kept, the screened occupancy at or below the
+     capacity), then in this process the screened cache torch.equal to the
+     hand-subset model's at the same omega and the kernels' launches on it;
+     each screened eval by stage with its peak memory; K3'd's generic path
+     (d'+1 = 5) and the chain apply torch.equal to their plain twins on both
+     screened plans, timed; then ``simplex_gp_torch.train --prune-thresh
+     0.3`` for two epochs, ``quality_gap`` on 2,048 rows, ``asymptotics`` at
+     its defaults and ``python -m simplex_gp_torch.sweep configs/simplexgp.yml
+     --limit 1 --epochs 1`` (a process of its own, beside the other three).
 
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- K3 has none there since the range
@@ -231,6 +251,7 @@ DERIV_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_deriv_golden.npz"
 HOUSE_GOLDEN = ROOT / "tests" / "fixtures" / "houseelectric_golden.npz"
 MIXTURE_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_mixture_golden.npz"
 PRECIP_GOLDEN = ROOT / "tests" / "fixtures" / "precipitation_baselines_golden.npz"
+SPARSE_GOLDEN = ROOT / "tests" / "fixtures" / "elevators_sparse_screened_golden.npz"
 R5_RUNS = ROOT / "runs" / "r5"
 RAW_NAMES = ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")
 
@@ -385,6 +406,15 @@ BASELINE_FLAGS = ["--dataset", "precipitation", "--kernel", "matern", "--nu", "1
 # without --host-loop, which is not ported).
 HOUSE_FLAGS = ["--dataset", "houseelectric", "--kernel", "matern", "--nu", "1.5", "--order", "1", "--min-noise",
                "0.1", "--ls-init", "median", "--plan-capacity", "-1", "--cg-tol", "1.0"]
+# Phase 13, ARD screening at 0.3 (the round-5 screened runs, experiments/queue_r5_stage2.sh:14-17): the
+# elevators configuration on the _sparse stand-ins, the irrelevant dims at raw lengthscale 60.  The screened
+# test RMSE and NLL take the serving gates (RMSE_ATOL, NLL_ATOL) against JAX on the CPU; the kept dims are
+# JAX's exactly (they sit far from the threshold); the screened occupancy within rel 1e-4 of JAX's count
+# (phase 6: K1 and JAX's matmul elevation can put a point in another simplex).
+PRUNE_THRESH = 0.3
+IRRELEVANT_RAW_LENGTHSCALE = 60.0
+OCCUPANCY_REL = 1e-4
+SPARSE_FLAGS = ["--kernel", "matern", "--nu", "1.5", "--order", "1", "--min-noise", "0.1"]
 EPOCH_KEYS = {"epoch", "train/mll", "train/loss_ts", "hyp/noise", "hyp/outputscale", "hyp/ell_mean",
               "hyp/ell_min", "hyp/ell_max", "hyp/d_eff_30"}
 VAL_KEYS = {"val/rmse", "val/mae", "val/nll", "val/pred_ts"}
@@ -3901,6 +3931,341 @@ def factor_axes_phase(dev, ds, expect, timer):
     return rows, step, record
 
 
+def sparse_relevant_dims(name: str, seed: int = 0) -> np.ndarray:
+    """The input dims ``utils/data.py::_synthetic_uci`` draws as relevant for ``<name>_sparse``, by replaying
+    its draws in order (as tests/fixtures/make_elevators_sparse_screened_golden.py does)."""
+    import zlib
+
+    from simplex_gp_torch.utils.data import UCI_SHAPES
+
+    n, d = UCI_SHAPES[name]
+    rng = np.random.default_rng(zlib.crc32((name + "_sp").encode()) + seed)
+    rng.normal(size=(50, d))
+    rng.integers(0, 50, size=n)
+    rng.normal(size=(n, d))
+    rank = min(3, d)
+    rng.normal(size=(d, rank))
+    rng.normal(size=(rank,))
+    return np.sort(rng.permutation(d)[: min(4, d)])
+
+
+def screened_path_kernels() -> tuple:
+    """The wrappers a screened posterior_cache and predict launch: K1, K2 and the row lists, K9, K6, K3'a-d,
+    K10's seven kernels, and K3 (to be launched no time)."""
+    from simplex_gp_torch.kernels import cg as K10
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.kernels.pivot import pivot_column
+
+    return (K.lattice_geometry, K.lattice_dedup_neighbors, K.join_rows, K.lattice_apply_cols, K.lattice_apply,
+            pivot_column, *chain_kernels(), K10.cg_dot, K10.cg_step_x, K10.cg_utr, K10.cg_fold, K10.cg_precond,
+            K10.cg_step_p, K10.cg_init)
+
+
+def screened_eval_stages(model, x, y, xv, seed: int) -> dict:
+    """One screened eval by stage, between CUDA events: the screening (the host read of the lengthscales and
+    the column subset), the chain plan (K1 + K3'a), the preconditioner, the eval CG (graph-replayed), the range
+    sketch (its own join plan, K9 by windows) and the val predict, as posterior_cache_screened and
+    predict_from_cache_screened run them.  Returns (the stage times in ms with the eval CG's count, residual and
+    ms an iteration, the peak device memory and the screened plan's occupancy and capacity; the chain plan)."""
+    import torch
+
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.cg import cg_solve
+    from simplex_gp_torch.ops.filter import apply_plan_any, build_plan_any, lattice_filter_rect, make_wide_filter
+
+    n = x.shape[0]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ev[0].record()
+        sub, _, keep = model.screened()
+        idx = torch.from_numpy(keep).to(x.device)
+        xs, xvs = x[:, idx], xv[:, idx]
+        ev[1].record()
+        params, dk, cfg = sub.constrained(), sub.dk, sub.bbmm
+        ref = xs * params["inv_ell"]
+        plan = build_plan_any(ref, dk, cfg.plan_capacity)
+        ev[2].record()
+        P = mll.build_precond(dk, cfg, params, ref, n)
+        ev[3].record()
+        s, noise = params["outputscale"], params["noise"]
+        sol = cg_solve(lambda V: apply_plan_any(plan, V, dk), (y - params["mean"])[:, None],
+                       tol=sub.eval_cg_tolerance, max_iters=cfg.max_cg_iterations, precond=P, shift=(s, noise),
+                       graph=True)
+        ev[4].record()
+        omega = torch.randn((n, cfg.max_lanczos_iterations), generator=torch.Generator(device=x.device)
+                            .manual_seed(seed), device=x.device)
+        kmv = make_wide_filter(ref, dk, cfg.plan_capacity)
+        Q, _ = torch.linalg.qr(s * kmv(omega) + noise * omega)
+        T = Q.T @ (s * kmv(Q) + noise * Q)
+        evals_, evecs = torch.linalg.eigh(0.5 * (T + T.T))
+        root_inv = Q @ (evecs / torch.sqrt(torch.clamp(evals_, min=1e-8))[None, :])
+        ev[5].record()
+        lattice_filter_rect(torch.cat([sol.x[:, :1], root_inv], dim=-1), ref, xvs * params["inv_ell"], dk)
+        ev[6].record()
+    torch.cuda.synchronize()
+    names = ("screen", "plan", "preconditioner", "eval_cg", "range_sketch", "predict_val")
+    stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
+    stages.update(eval_cg_iters=sol.iterations, eval_cg_ms_per_iteration=stages["eval_cg"] / max(sol.iterations, 1),
+                  eval_cg_res=float(sol.residual_norm.mean()), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  screened_dims=len(keep), plan_n_lattice=int(plan.n_lattice), plan_capacity=cfg.plan_capacity,
+                  plan_rows=int(plan.cnt.shape[0]))
+    return stages, plan
+
+
+def screened_slice(plan, dk, n: int, dev, expect, timer, name: str) -> dict:
+    """K3'd on a screened chain plan (d'+1 columns of slice_idx: the kernel's generic path) and the chain
+    apply, against their plain twins with torch.equal at c = 1 and 11, with K3'd's time and bound."""
+    import torch
+
+    from simplex_gp_torch.kernels import chain as KC
+    from simplex_gp_torch.ops import lattice as L
+
+    dp1 = plan.weights.shape[1]
+    norm, taps = L.SLICE_NORM(dp1 - 1), [float(t) for t in dk.coeffs]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {"d_plus_1": dp1}
+    for c in (1, 11):
+        v = torch.randn((n, c), generator=gen, device=dev)
+        table = KC.chain_splat_plain(plan, v)
+        sk = KC.chain_slice(table, plan, norm)
+        sp = KC.chain_slice_plain(table, plan.slice_idx, plan.weights, plan.n_lattice, norm)
+        ak, ap = L.apply_plan_chain(plan, v, dk.coeffs), KC.chain_apply_plain(plan, v, taps, norm)
+        same = [bool(torch.equal(sk, sp)), bool(torch.equal(ak, ap)), bool(torch.equal(ak, L.apply_plan_chain(
+            plan, v, dk.coeffs)))]
+        expect(all(same), f"{name} c={c}: K3'd at d'+1 = {dp1} (the generic path) torch.equal to its plain twin, "
+               f"the chain apply to its plain twin and to a second apply {same}")
+        out[f"c{c}"] = dict(slice_ms=timer(lambda: KC.chain_slice(table, plan, norm), 20),
+                            slice_graph_ms=graph_ms(lambda: KC.chain_slice(table, plan, norm), 10),
+                            slice_plain_ms=timer(lambda: KC.chain_slice_plain(table, plan.slice_idx, plan.weights,
+                                                                              plan.n_lattice, norm), 3),
+                            slice_bound_ms=bound(*slice_cost(plan, c))["bound_ms"],
+                            apply_graph_ms=graph_ms(lambda: L.apply_plan_chain(plan, v, dk.coeffs), 10))
+    return out
+
+
+def run_entry_point(name: str, expect, fn):
+    """``fn()``'s value, or None with the failure recorded (the phase goes on to the next entry point)."""
+    import traceback
+
+    try:
+        return fn()
+    except Exception:  # noqa: BLE001 -- any error of an entry point is this phase's failure
+        traceback.print_exc()
+        expect(False, f"{name} raised")
+        return None
+
+
+def screening_phase(dev, expect, timer):
+    """Phase 13: ARD screening (the screened cache and predict, eval_checkpoint) and the last entry points.
+
+    Returns (the screened path's launches, the record).
+    """
+    import os
+    import pickle
+    import tempfile
+
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch import asymptotics, convert, quality_gap
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.linalg.mll import BBMMConfig
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.ops.lattice import count_lattice_points
+    from simplex_gp_torch.utils import data
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    record = {}
+
+    def sparse_model(raw, capacity=None):
+        cfg = BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                         num_probes=10, plan_capacity=capacity)
+        model = simplex_gp_torch.SimplexGP(num_dims=raw["raw_lengthscale"].shape[0], kernel="matern", nu=1.5,
+                                           order=1, min_noise=0.1, bbmm=cfg, eval_cg_tolerance=0.01,
+                                           prune_thresh=PRUNE_THRESH, device=dev)
+        return model.load_raw(raw)
+
+    def metrics(mean, var, y_np):
+        return trainer.regression_metrics(mean.cpu().numpy(), var.cpu().numpy(), y_np)
+
+    # ---- 13.1 elevators_sparse at full width, against JAX -------------------------------------------------
+    print("screening 13.1: elevators_sparse (10,623 rows, d = 18) screened at 0.3 vs the JAX golden file")
+    golden = np.load(SPARSE_GOLDEN)
+    ds = data.load_dataset("elevators_sparse")
+    x, y = torch.from_numpy(ds.train_x).to(dev), torch.from_numpy(ds.train_y).to(dev)
+    xt = torch.from_numpy(ds.test_x).to(dev)
+    model = sparse_model({k: golden[k] for k in RAW_NAMES})
+    model.predict_from_cache_screened(model.posterior_cache_screened(x, y, generator=torch.Generator(device=dev)),
+                                      x, xt)  # warm
+    kernels = screened_path_kernels()
+    for fn in kernels:
+        fn.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    cache = model.posterior_cache_screened(x, y, generator=torch.Generator(device=dev).manual_seed(0))
+    ev[1].record()
+    mean, var = model.predict_from_cache_screened(cache, x, xt)
+    ev[2].record()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    keep = cache["keep"]
+    scr = metrics(mean, var, ds.test_y)
+    full_cache = model.posterior_cache(x, y, generator=torch.Generator(device=dev).manual_seed(0))
+    full = metrics(*model.predict_from_cache(full_cache, x, xt), ds.test_y)
+    with torch.no_grad():
+        sub = cache["sub"]
+        occ = int(count_lattice_points(x[:, torch.from_numpy(keep).to(dev)] * sub.constrained()["inv_ell"],
+                                       sub.dk.variance, sub.dk.coeffs))
+    g_occ = int(golden["occupancy"])
+    expect(keep is not None and np.array_equal(keep, golden["keep"]),
+           f"kept dims {None if keep is None else keep.tolist()} (JAX {golden['keep'].tolist()})")
+    expect(bool(torch.isfinite(mean).all() and (var > 0).all()) and mean.shape == (ds.test_x.shape[0],),
+           "finite screened mean and positive variance, one per test row")
+    expect(abs(scr["rmse"] - float(golden["rmse"])) <= RMSE_ATOL,
+           f"screened test RMSE {scr['rmse']:.4f} vs JAX {float(golden['rmse']):.4f} (limit {RMSE_ATOL})")
+    expect(abs(scr["nll"] - float(golden["nll"])) <= NLL_ATOL,
+           f"screened test NLL {scr['nll']:.4f} vs JAX {float(golden['nll']):.4f} (limit {NLL_ATOL})")
+    expect(abs(occ - g_occ) <= OCCUPANCY_REL * g_occ,
+           f"screened occupancy (K8 at d' = {len(keep)}) {occ} vs JAX {g_occ} (rel limit {OCCUPANCY_REL})")
+    expect(all(v > 0 for k_, v in launches.items() if k_ != "lattice_apply") and launches["lattice_apply"] == 0,
+           f"every kernel of the screened path launched, K3 never: {launches}")
+    print(f"  eval CG {cache['cg_iters']} iterations, residual {float(cache['cg_res']):.3e} (JAX "
+          f"{int(golden['cg_iters'])}, {float(golden['cg_res']):.3e}); screened RMSE / NLL {scr['rmse']:.4f} / "
+          f"{scr['nll']:.4f} against unscreened {full['rmse']:.4f} / {full['nll']:.4f} (JAX "
+          f"{float(golden['rmse_unscreened']):.4f} / {float(golden['nll_unscreened']):.4f})")
+    stages, plan = screened_eval_stages(model, x, y, torch.from_numpy(ds.val_x).to(dev), 8)
+    record["elevators_sparse"] = dict(
+        keep=keep.tolist(), rmse=scr["rmse"], nll=scr["nll"], unscreened=full,
+        jax=dict(rmse=float(golden["rmse"]), nll=float(golden["nll"]), cg_iters=int(golden["cg_iters"]),
+                 occupancy=g_occ, rmse_unscreened=float(golden["rmse_unscreened"]),
+                 nll_unscreened=float(golden["nll_unscreened"])),
+        cg_iters=cache["cg_iters"], cg_res=float(cache["cg_res"]), occupancy=occ,
+        posterior_cache_ms=ev[0].elapsed_time(ev[1]), predict_ms=ev[1].elapsed_time(ev[2]), launches=launches,
+        stages=stages, k3d=screened_slice(plan, model.dk, x.shape[0], dev, expect, timer, "elevators_sparse"))
+    del cache, full_cache, plan, x, y, xt
+
+    # ---- 13.2 houseelectric_sparse at full n through eval_checkpoint ------------------------------------------
+    print("screening 13.2: houseelectric_sparse (1,311,539 rows, d = 11) through eval_checkpoint at 0.3")
+    ds = data.load_dataset("houseelectric_sparse")
+    n, d = ds.train_x.shape
+    ell = trainer.median_lengthscale(ds.train_x)
+    raw = init_raw_params(d, lengthscale=ell)
+    relevant = torch.from_numpy(sparse_relevant_dims("houseelectric"))
+    raw["raw_lengthscale"] = torch.full((d,), IRRELEVANT_RAW_LENGTHSCALE).index_copy(
+        0, relevant, raw["raw_lengthscale"][relevant])
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(pathlib.Path(tmp) / "model_final.pkl", "wb") as f:
+            pickle.dump(convert.raw_params_to_numpy(raw), f)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "simplex_gp_torch.eval_checkpoint", "--run-dir", tmp,
+                               "--dataset", "houseelectric_sparse", *SPARSE_FLAGS, "--plan-capacity", "-1",
+                               "--prune-thresh", str(PRUNE_THRESH)],
+                              capture_output=True, text=True, env=env, cwd=tmp, timeout=600)
+        wall = time.perf_counter() - t0
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    expect(proc.returncode == 0, f"python -m simplex_gp_torch.eval_checkpoint exit code {proc.returncode} "
+           f"({wall:.1f} s)")
+    if proc.returncode != 0:
+        print(proc.stderr[-3000:])
+    by_key = {k_: line for line in lines for k_ in line}
+    out = by_key.get("cache_ts", {})
+    finite = bool(out) and all(np.isfinite(out[f"{sp}/{k_}"]) for sp in ("val", "test") for k_ in ("rmse", "nll"))
+    screened = by_key.get("screened_dims")
+    occ_line = by_key.get("screened_occupancy", {})
+    cap = by_key.get("worst_case", {}).get("plan_capacity")
+    expect(finite, f"eval_checkpoint's record finite: {out}")
+    expect(screened == {"screened_dims": 4, "of": d}, f"eval_checkpoint's screened_dims line {screened}")
+    expect(bool(occ_line) and occ_line["screened_occupancy"] <= occ_line["plan_capacity"],
+           f"the screened occupancy at or below the capacity: {occ_line} (counted at d = {d}: "
+           f"{by_key.get('worst_case')})")
+    print("  eval_checkpoint: " + json.dumps(lines))
+
+    x, y = torch.from_numpy(ds.train_x).to(dev), torch.from_numpy(ds.train_y).to(dev)
+    xv = torch.from_numpy(ds.val_x).to(dev)
+    model = sparse_model({k_: v.to(dev) for k_, v in raw.items()}, cap)
+    omega = torch.randn((n, 100), generator=torch.Generator(device=dev).manual_seed(555), device=dev)
+    for fn in kernels:
+        fn.launches = 0
+    cache = model.posterior_cache_screened(x, y, omega=omega)
+    mean, var = model.predict_from_cache_screened(cache, x, xv)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    expect(all(v > 0 for k_, v in launches.items() if k_ != "lattice_apply") and launches["lattice_apply"] == 0,
+           f"every kernel of the screened path launched, K3 never: {launches}")
+    sub, _, keep = model.screened()
+    hand = sub.posterior_cache(x[:, torch.from_numpy(keep).to(dev)], y, omega=omega)
+    same = {k_: bool(torch.equal(cache[k_], hand[k_])) for k_ in ("alpha", "root_inv")}
+    expect(all(same.values()) and cache["cg_iters"] == hand["cg_iters"],
+           f"the screened cache torch.equal to sub.posterior_cache on the hand-subset columns, the same omega: "
+           f"{same}, CG iterations {cache['cg_iters']} / {hand['cg_iters']}")
+    expect(bool(torch.isfinite(mean).all() and (var > 0).all()), "finite val mean and positive variance")
+    del cache, hand
+    stages, plan = screened_eval_stages(model, x, y, xv, 8)
+    expect(stages["plan_n_lattice"] <= stages["plan_capacity"],
+           f"the screened plan's occupancy {stages['plan_n_lattice']} at or below its capacity "
+           f"{stages['plan_capacity']}")
+    print("  stages (ms): " + json.dumps(stages))
+    record["houseelectric_sparse"] = dict(
+        eval_checkpoint=lines, eval_checkpoint_wall_s=wall, launches=launches, cache_equal=same,
+        val=metrics(mean, var, ds.val_y), stages=stages, median_ell=ell, relevant=relevant.tolist(),
+        k3d=screened_slice(plan, model.dk, n, dev, expect, timer, "houseelectric_sparse"))
+    del plan, x, y, xv, mean, var, ds
+
+    # ---- 13.3 the entry points ------------------------------------------------------------------------------
+    print("screening 13.3: the entry points, each once and small")
+    entry_points = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # The sweep's run, a process of its own, goes on while the in-process entry points run.
+        t_sweep = time.perf_counter()
+        sweep = subprocess.Popen([sys.executable, "-m", "simplex_gp_torch.sweep",
+                                  str(ROOT / "configs" / "simplexgp.yml"), "--limit", "1", "--epochs", "1"],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=tmp)
+        try:
+            t0 = time.perf_counter()
+            summary = run_entry_point("train --prune-thresh 0.3", expect, lambda: trainer.main(
+                ["--dataset", "elevators_sparse", *SPARSE_FLAGS, "--ls-init", "median", "--epochs", "2",
+                 "--log-int", "1", "--prune-thresh", str(PRUNE_THRESH), "--out", tmp]))
+            ok = summary is not None and len(summary["records"]) == 2 and all(
+                np.isfinite(r["val/rmse"]) for r in summary["records"]) and np.isfinite(summary["final"]["test/rmse"])
+            expect(ok, "simplex_gp_torch.train --prune-thresh 0.3: two epochs, each with its val record, and the "
+                   "test record, finite")
+            entry_points["train"] = dict(s=time.perf_counter() - t0, final=summary and summary["final"])
+            t0 = time.perf_counter()
+            records = run_entry_point("quality_gap", expect, lambda: quality_gap.main(
+                ["--dataset", "elevators_sparse", *SPARSE_FLAGS, "--max-n", "2048", "--epochs", "5", "--ls-init",
+                 "median", "--prune-thresh", str(PRUNE_THRESH), "--out", tmp]))
+            combos = [r["combo"] for r in records or [] if "combo" in r]
+            expect(len(combos) == 6 and all(np.isfinite(v) for r in records for v in r.values()
+                                            if isinstance(v, float)),
+                   f"simplex_gp_torch.quality_gap: six finite combos {combos}")
+            entry_points["quality_gap"] = dict(s=time.perf_counter() - t0, records=records)
+            t0 = time.perf_counter()
+            asym = run_entry_point("asymptotics", expect, lambda: asymptotics.main([]))
+            expect(asym is not None and np.isfinite(asym["exponent_n"]) and np.isfinite(asym["exponent_d"]),
+                   f"simplex_gp_torch.asymptotics at its defaults: {asym}")
+            entry_points["asymptotics"] = dict(s=time.perf_counter() - t0, record=asym)
+            _, err = sweep.communicate(timeout=600)
+        finally:
+            if sweep.poll() is None:
+                sweep.kill()
+                sweep.wait()
+        results = pathlib.Path(tmp) / "runs" / "torch" / "sweep_simplexgp" / "sweep_results.jsonl"
+        recs = [json.loads(line) for line in results.read_text().splitlines()] if results.exists() else []
+        expect(sweep.returncode == 0 and len(recs) == 1 and recs[0]["returncode"] == 0
+               and np.isfinite((recs[0]["summary"] or {}).get("test/rmse", float("nan"))),
+               f"python -m simplex_gp_torch.sweep configs/simplexgp.yml --limit 1 --epochs 1: exit code "
+               f"{sweep.returncode}, {recs}")
+        if sweep.returncode != 0:
+            print(err[-3000:])
+        entry_points["sweep"] = dict(s=time.perf_counter() - t_sweep, results=recs)
+    for name, rec in entry_points.items():
+        print(f"  {name}: {rec['s']:.1f} s")
+    record["entry_points"] = entry_points
+    return record
+
+
 def train_step(model, opt, x, y, z):
     opt.zero_grad(set_to_none=True)
     model.nlml(x, y, probes=z).backward()
@@ -4231,6 +4596,11 @@ def main(argv=None) -> int:
         rows.setdefault(name, {}).update(row)
     print(f"factor and axes phase: {time.perf_counter() - t_fa:.1f} s")
     print("factor and axes: " + json.dumps(fa_record))
+
+    t_scr = time.perf_counter()
+    screening = screening_phase(dev, expect, cuda_ms)
+    print(f"screening and entry points phase: {time.perf_counter() - t_scr:.1f} s")
+    print("screening: " + json.dumps(screening))
 
     # One iteration's time (the MVM included) from the stage times of 4.5 and 6.5, against the bound of
     # K10's vector updates and the Woodbury solve's two reads of U.

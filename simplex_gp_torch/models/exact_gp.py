@@ -19,6 +19,10 @@ contribution rows).  ``predict_from_cache`` runs one rectangular filter of
 Matern-nu (ops/kernels.py MixtureKernel), applied together by K12; its
 weights are the profile fit, ``mix_weights`` when set, and
 :meth:`SimplexGP.with_fitted_mixture` refits them on a data subset.
+``prune_thresh`` > 0 screens the ARD dims for inference: the ``_screened``
+methods drop the input dims whose inverse lengthscale lies below that
+fraction of the largest and serve a reduced-dimension copy of the model
+(exact_gp.py:82-91, :237-280); training always runs on every dim.
 ``DenseGP`` is the same model with dense Cholesky algebra, the dense side
 of the Snelson parity test.
 """
@@ -106,6 +110,7 @@ class SimplexGP(_RawParams):
         eval_cg_tolerance: float = 1e-2,
         mix_components: int = 8,
         mix_weights: Optional[tuple] = None,
+        prune_thresh: float = 0.0,
         device=None,
     ):
         if kernel not in ("rbf", "matern", "mixture"):
@@ -118,12 +123,14 @@ class SimplexGP(_RawParams):
         self.mix_weights = None if mix_weights is None else tuple(float(w) for w in mix_weights)
         self.bbmm = bbmm
         self.eval_cg_tolerance = eval_cg_tolerance
+        self.prune_thresh = prune_thresh
 
     def extra_repr(self) -> str:
         mix = (f", mix_components={self.mix_components}, mix_weights={self.mix_weights}"
                if self.kernel == "mixture" else "")
         return (f"num_dims={self.num_dims}, kernel={self.kernel!r}, nu={self.nu}, order={self.order}, "
-                f"min_noise={self.min_noise}, bbmm={self.bbmm}, eval_cg_tolerance={self.eval_cg_tolerance}{mix}")
+                f"min_noise={self.min_noise}, bbmm={self.bbmm}, eval_cg_tolerance={self.eval_cg_tolerance}, "
+                f"prune_thresh={self.prune_thresh}{mix}")
 
     @property
     def dk(self):
@@ -268,6 +275,67 @@ class SimplexGP(_RawParams):
         S = s * F[:, 1:]
         var = s + params["noise"] - (S * S).sum(dim=-1)
         return mean, torch.clamp(var, min=1e-8)
+
+    # ----- ARD screening -----
+
+    @torch.no_grad()
+    def screened(self):
+        """(sub, raw_sub, keep): the model with its near-irrelevant ARD dims dropped (exact_gp.py:237-257).
+
+        ``keep`` holds the column indices whose constrained float32 inverse
+        lengthscale is at least ``prune_thresh`` times the largest, read on the
+        host.  With the threshold at 0, or when every dim is kept, it is None
+        and ``sub`` is this model.  Otherwise ``sub`` is a new SimplexGP on the
+        same device with ``len(keep)`` dims and no screening of its own, the
+        same kernel, taps, mixture weights, BBMM settings (the plan capacity
+        with them) and eval tolerance, holding a copy of this model's raw
+        parameters with ``raw_lengthscale[keep]`` (``raw_sub``, no autograd
+        link to this model).
+        """
+        if self.prune_thresh <= 0:
+            return self, self.raw(), None
+        inv_ell = self.constrained()["inv_ell"].cpu().numpy()
+        keep = np.where(inv_ell >= self.prune_thresh * inv_ell.max())[0]
+        if len(keep) == self.num_dims:
+            return self, self.raw(), None
+        dev = self.raw_lengthscale.device
+        sub = SimplexGP(num_dims=len(keep), kernel=self.kernel, nu=self.nu, order=self.order,
+                        min_noise=self.min_noise, bbmm=self.bbmm, eval_cg_tolerance=self.eval_cg_tolerance,
+                        mix_components=self.mix_components, mix_weights=self.mix_weights, device=dev)
+        raw_sub = {k: v.detach().clone() for k, v in self.raw().items()}
+        raw_sub["raw_lengthscale"] = raw_sub["raw_lengthscale"][torch.from_numpy(keep).to(dev)]
+        sub.load_raw(raw_sub)
+        return sub, raw_sub, keep
+
+    @staticmethod
+    def _columns(x: torch.Tensor, keep: Optional[np.ndarray]) -> torch.Tensor:
+        return x if keep is None else x[:, torch.from_numpy(keep).to(x.device)]
+
+    @torch.no_grad()
+    def posterior_cache_screened(
+        self,
+        x: torch.Tensor,
+        y: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        omega: Optional[torch.Tensor] = None,
+        root_rank: Optional[int] = None,
+    ) -> dict:
+        """:meth:`posterior_cache` of the screened model on the kept columns of x (exact_gp.py:259-271).
+
+        The cache carries the screened model (``sub``) and the kept columns
+        (``keep``, None when nothing is dropped, and then this is the plain
+        cache); predict from it with :meth:`predict_from_cache_screened`.
+        """
+        sub, _, keep = self.screened()
+        cache = sub.posterior_cache(self._columns(x, keep), y, generator=generator, omega=omega,
+                                    root_rank=root_rank)
+        return dict(cache, keep=keep, sub=sub)
+
+    @torch.no_grad()
+    def predict_from_cache_screened(self, cache: dict, x: torch.Tensor, x_test: torch.Tensor):
+        """Posterior mean and variance at x_test from a :meth:`posterior_cache_screened` cache (exact_gp.py:273-280)."""
+        keep = cache.get("keep")
+        return cache.get("sub", self).predict_from_cache(cache, self._columns(x, keep), self._columns(x_test, keep))
 
     def predict(self, x, y, x_test, generator: Optional[torch.Generator] = None):
         """Posterior mean and variance at x_test: build the cache, predict once."""

@@ -32,11 +32,20 @@ round-5 run (runs/r5/simplexgp_houseelectric_s0)::
         --nu 1.5 --order 1 --min-noise 0.1 --ls-init median --plan-capacity -1 \\
         --log-int 10 --epochs 30
 
+``--prune-thresh`` > 0 screens the ARD dims at every evaluation
+(train_simplexgp.py:43-46, common.py:229-238): each cache is built by
+``SimplexGP.posterior_cache_screened`` on the dims whose inverse lengthscale
+is at least that fraction of the largest, and the best epoch's cache, reused
+for the test rows, keeps its screened model; training runs on every dim.
+The round-5 screened runs (experiments/queue_r5_stage2.sh:14-17)::
+
+    python -m simplex_gp_torch.train --dataset elevators_sparse --kernel matern \\
+        --nu 1.5 --order 1 --min-noise 0.1 --ls-init median --prune-thresh 0.3
+
 ``--device`` has no fallback: ``cuda`` (the default) without a card is an
 error.  Not ported: ``predict_padded``'s power-of-two padding of the eval
 rows (common.py:206-227), a trick for XLA's compile buckets whose duplicate
-rows change no real row; ``--host-loop`` (a TPU compile workaround); and
-``--prune-thresh`` (ARD screening).
+rows change no real row; and ``--host-loop`` (a TPU compile workaround).
 """
 
 from __future__ import annotations
@@ -62,8 +71,8 @@ from .utils.data import load_dataset
 from .utils.device import resolve_device
 from .utils.training import EarlyStopper
 
-__all__ = ["main", "run_training", "add_common_args", "add_device_arg", "init_lengthscale", "median_lengthscale",
-           "regression_metrics", "trim_capacity"]
+__all__ = ["main", "run_training", "add_common_args", "add_device_arg", "add_prune_arg", "init_lengthscale",
+           "median_lengthscale", "regression_metrics", "trim_capacity"]
 
 
 def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -90,6 +99,13 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return p
 
 
+def add_prune_arg(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    p.add_argument("--prune-thresh", type=float, default=0.0,
+                   help="ARD screening for inference: evaluate on the dims whose inverse lengthscale is at least "
+                        "this fraction of the largest (0 disables)")
+    return p
+
+
 def add_device_arg(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="cuda (default; an error without a card) or cpu")
     return p
@@ -109,6 +125,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--lanc-iter", type=int, default=100)
     p.add_argument("--pre-size", type=int, default=100)
     p.add_argument("--num-probes", type=int, default=10)
+    add_prune_arg(p)
     add_device_arg(p)
     args = p.parse_args(argv)
     if args.plan_capacity < -1:
@@ -123,9 +140,10 @@ def median_lengthscale(x: np.ndarray) -> float:
     return float(np.sqrt(np.median(d2[d2 > 0]))) / np.sqrt(2.0)
 
 
-def trim_capacity(occupancy: int, n: int, d: int) -> int:
-    """1.25x the occupancy rounded up to a multiple of 8192, at most n(d+1) (train_simplexgp.py:65)."""
-    return min(-(-int(occupancy * 1.25) // 8192) * 8192, n * (d + 1))
+def trim_capacity(occupancy: int, n: int, d: int, headroom: float = 1.25) -> int:
+    """``headroom`` x the occupancy rounded up to a multiple of 8192, at most n(d+1) (train_simplexgp.py:65;
+    eval_checkpoint.py:75 takes 1.4)."""
+    return min(-(-int(occupancy * headroom) // 8192) * 8192, n * (d + 1))
 
 
 def regression_metrics(mean: np.ndarray, var: np.ndarray, y: np.ndarray) -> dict:
@@ -189,7 +207,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                       max_lanczos_iterations=args.lanc_iter, precond_rank=args.pre_size,
                       num_probes=args.num_probes)
     model = SimplexGP(num_dims=x.shape[-1], kernel=args.kernel, nu=args.nu, order=args.order,
-                      min_noise=args.min_noise, bbmm=bbmm, mix_components=args.mix_components, device=dev)
+                      min_noise=args.min_noise, bbmm=bbmm, mix_components=args.mix_components,
+                      prune_thresh=args.prune_thresh, device=dev)
     ell = init_lengthscale(model, args, ds)
     # A mixture's capacity is counted with the Matern taps (train_simplexgp.py:60); its plans ignore it.
     count_dk = rbf_kernel(args.order) if args.kernel == "rbf" else matern_kernel(args.nu, args.order)
@@ -204,10 +223,11 @@ def run_training(model, ds, args, name: str) -> dict:
     """The Adam loop with periodic evaluation and early stopping (common.py::run_training, :116-319).
 
     ``model`` is an ``nn.Module`` of raw parameters on its device, with
-    ``nlml`` and either ``posterior_cache`` / ``predict_from_cache`` (the
-    lattice models: their NLML draws probes from the run's generator and
-    reports CG iterations, and an eval builds one cache, reused for the test
-    rows at the best epoch) or a one-shot ``predict(x, y, x_eval)`` (SKIP,
+    ``nlml`` and either ``posterior_cache_screened`` /
+    ``predict_from_cache_screened`` (the lattice models: their NLML draws
+    probes from the run's generator and reports CG iterations, and an eval
+    builds one cache, screened where the model's ``prune_thresh`` says so,
+    reused for the test rows at the best epoch) or a one-shot ``predict(x, y, x_eval)`` (SKIP,
     SGPR, the dense GP; common.py:203, :229-231, :310-311).  Files go to
     ``<args.out>/<name>_<dataset>_s<seed>/``.  Returns the epoch records, the
     test record, the run directory and the early-stop epoch.
@@ -215,7 +235,7 @@ def run_training(model, ds, args, name: str) -> dict:
     dev = next(model.parameters()).device
     x = torch.from_numpy(ds.train_x).to(dev)
     y = torch.from_numpy(ds.train_y).to(dev)
-    has_cache = hasattr(model, "posterior_cache")
+    has_cache = hasattr(model, "posterior_cache_screened")
     out_dir = pathlib.Path(args.out) / f"{name}_{args.dataset}_s{args.seed}"
     out_dir.mkdir(parents=True, exist_ok=True)
     log_f = open(out_dir / "metrics.jsonl", "a")
@@ -248,8 +268,8 @@ def run_training(model, ds, args, name: str) -> dict:
         if not has_cache:
             mean, var = model.predict(x, y, xe)
         else:
-            cache = cache if cache is not None else model.posterior_cache(x, y, generator=gen)
-            mean, var = model.predict_from_cache(cache, x, xe)
+            cache = cache if cache is not None else model.posterior_cache_screened(x, y, generator=gen)
+            mean, var = model.predict_from_cache_screened(cache, x, xe)
         return cache, mean.cpu().numpy(), var.cpu().numpy()
 
     records, best_cache, stopped_at = [], None, None
@@ -272,6 +292,8 @@ def run_training(model, ds, args, name: str) -> dict:
             rec["val/pred_ts"] = time.perf_counter() - t0
             if has_cache:
                 extra["val/cg_iters"] = cache["cg_iters"]
+                if cache["keep"] is not None:
+                    extra["val/screened_dims"] = len(cache["keep"])
             if stopper.step(rec["val/rmse"], raw_cpu()):
                 stopped_at = epoch
             if stopper.is_best:
@@ -291,7 +313,7 @@ def run_training(model, ds, args, name: str) -> dict:
     final = {}
     if not args.no_eval:
         t0 = time.perf_counter()
-        # The best epoch's val cache is the posterior at the best parameters.
+        # The best epoch's val cache is the posterior at the best parameters (screened as it was).
         cache, tm, tv = evaluate(ds.test_x, best_cache)
         final = {f"test/{k}": v for k, v in regression_metrics(tm, tv, ds.test_y).items()}
         final["test/pred_ts"] = time.perf_counter() - t0
