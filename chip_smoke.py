@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, large-n, data-parallel, mixture, baseline, sort-chain, CG, factor and screening paths and its entry-point scripts on one CUDA card, and check them.
+"""Drive the PyTorch port's serving, training, large-n, data-parallel, mixture, baseline, sort-chain, CG, factor, screening and chain-backward paths and its entry-point scripts on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -64,11 +64,14 @@ Phases, each printed as it runs:
      360,000 with that run's capacity, and five Adam steps from there (the
      first held to JAX's, the rest printed); then ``simplex_gp_torch.train.main``
      with the round-5 houseelectric flags for two epochs, one validation
-     eval and the test predict, all through K9; K5 at the training step's
-     shape (c = 11 on the backward's trimmed join plan) against its plain
-     version and a second run, bit for bit, with its time and bound; one
-     warm step by stage, and its backward under torch.profiler (the row
-     build's kernels, no torch.sort or torch.cumsum);
+     eval and the test predict through K9, the training steps' backward
+     on the CG's chain plan; K5 at the training step's shape (c = 11 on the
+     CG's trimmed chain plan and its two final-order tables) against its
+     plain version and a second run, bit for bit, with its time and bound;
+     one warm step by stage (the backward's parts on both routes, the chain
+     plan's and a join plan's), and its backward under torch.profiler (the
+     chain backward's kernels, no join plan's, no torch.sort or
+     torch.cumsum);
   7. the data-parallel training path at elevators' width (the 10,622 rows
      shard_batch keeps at P = 2, median init, 10 probes): K11a
      lattice_dedup_ordered against its plain version (bit-equal) and K2
@@ -170,8 +173,8 @@ Phases, each printed as it runs:
      bit at elevators (median init, model_best.pkl) and houseelectric; two
      houseelectric evals after one Adam step with equal CG counts and alpha;
      K10's launches on one elevators training step and one posterior_cache,
-     with no K3 in the step's exact backward (which runs K9 on its join
-     plan's row lists);
+     with no K3 or K9 in the step's exact backward (which runs on the CG's
+     chain plan);
  12. K6's factor and K3'c's fused axes, as redesigned for Hopper: the rank-100
      factor (a column-major L, the argmax fused into each step, no host
      read or allocation a pivot) at elevators (median init and
@@ -208,7 +211,19 @@ Phases, each printed as it runs:
      screened plans, timed; then ``simplex_gp_torch.train --prune-thresh
      0.3`` for two epochs, ``quality_gap`` on 2,048 rows, ``asymptotics`` at
      its defaults and ``python -m simplex_gp_torch.sweep configs/simplexgp.yml
-     --limit 1 --epochs 1`` (a process of its own, beside the other three).
+     --limit 1 --epochs 1`` (a process of its own, beside the other three);
+ 14. the exact backward on the CG's chain plan (the sort chain's reverse
+     mode): K3'c transposed (the fused axes in reverse order over the
+     inverse transitions) and its maps torch.equal to their plain twins over
+     the live rows, and the transposed chain apply (output and final-order
+     table) torch.equal to its plain version and a second call, at elevators
+     (untrimmed, median init) and houseelectric (capacity 32,768), c = 1 and
+     11, timed beside the forward's axes and apply and the bound; the chain
+     backward's gradients (inv_ell, outputscale) against the join backward's
+     from the same forward at both (cos 0.999, rel 2e-2, the bounds of the
+     gradients against JAX), and two chain backwards bit for bit; one
+     elevators training step's launches (no K2, row build, K9 or K3; one
+     K3'c transposed and its maps, one K5).
 
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- K3 has none there since the range
@@ -217,7 +232,8 @@ the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9,
 its row lists and the bounded K2, on the houseelectric trainer run; for K11a, K11b, K6' and K10',
 on the two ranks' data-parallel NLML step; for K12, on the mixture trainer
 run; for K13, on the SKIP trainer run; for K3', in one training step (the
-per-axis K3'c, chain_axis, is off the path since the fused axes: 0); for
+per-axis K3'c, chain_axis, is off the path since the fused axes: 0; K3'c
+transposed once, in the backward); for
 K10, on one training step and one posterior_cache --,
 errors, times, and
 each kernel's bound: the larger of the bytes it must move over the card's
@@ -369,9 +385,11 @@ CHAIN_REL = 1e-6
 # Phase 9.  K13b, K13c and K13d against their plain versions: float32 sums of
 # r or r k products (and of the rows, in chunks of whole 32-row stages, for
 # K13c) in another order, the plain versions' products in cuBLAS's; K13a the same
-# float32 formula, with nvcc's contractions.  Each of K13b-d sums in a fixed
-# order with no atomics, so a second call is gated bit for bit; so is K13a's
-# backward, which sums in its plain version's order (equal to it too).
+# float32 formula, each product and add rounded on its own in tap order, where
+# the plain version's torch.sum over the taps picks its own order: K13_REL for
+# all.  Each of K13a-d sums in a fixed order with no atomics, so a second call
+# is gated bit for bit; so is K13a's backward, which sums in its plain
+# version's order (equal to it too).
 K13_REL = 1e-5
 # SKIP against JAX on the CPU (golden, JAX's Omega, JAX's signs matched to
 # the port's).  The grid kernels' 30-odd smallest kept eigenvalues lie
@@ -456,6 +474,9 @@ KERNEL_ROWS = {
     # K3'c fused: the d+1 axes of an apply in one launch, what the path runs (chain_axis: 0 launches there).
     "chain_axes": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1010"),
     "chain_slice": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1077"),
+    # K3'c transposed: the exact backward's B^T on the CG's chain plan, JAX's reverse mode of the axes' stencils
+    # and transition sorts (apply_plan_chain :1010-1027, transposed by jax.vjp).
+    "chain_axes_transpose": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1010"),
     # K10, the CG body (lax.while_loop body :133-205) and its initial state (:118-125, :220).
     "cg_dot": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:136"),
     "cg_step_x": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:145"),
@@ -633,6 +654,7 @@ def training_phase(dev, ds, expect, timer):
 
     import simplex_gp_torch
     from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import chain as KC
     from simplex_gp_torch.kernels import lattice as K
     from simplex_gp_torch.kernels.pivot import pivot_column
     from simplex_gp_torch.linalg import mll
@@ -664,7 +686,7 @@ def training_phase(dev, ds, expect, timer):
     model.load_raw(point("init"))
     with torch.no_grad():
         ref = (x * model.constrained()["inv_ell"]).contiguous()
-        seg, w, nb, nl = L.build_plan_join(ref, dk.coeffs, dk.variance)  # the exact backward's plan
+        seg, w, nb, nl = L.build_plan_join(ref, dk.coeffs, dk.variance)  # K3's yardstick plan
         gen = torch.Generator(device=dev).manual_seed(4)
         v = torch.randn((n, 11), generator=gen, device=dev)
         g = torch.randn((n, 11), generator=gen, device=dev)
@@ -717,7 +739,7 @@ def training_phase(dev, ds, expect, timer):
                    f"{tag}: d/d{k} cos {c:.6f} (limit {GRAD_COS}), rel {r:.2e} (limit {GRAD_REL})")
             record[f"{tag}_grad_rel_{k}"] = r
         record[f"{tag}_nlml_diff"] = dl
-    # Run to run: the CG runs on the chain (no atomics); the backward's K3 splat adds with atomics.
+    # Run to run: the CG and the backward run on the chain (no atomics).
     losses, grads = [], []
     model.load_raw(point("init"))
     for _ in range(5):
@@ -752,9 +774,10 @@ def training_phase(dev, ds, expect, timer):
     record.update(adam_loss_diff=dl, adam_param_diff=dp, adam_step_ms=hist["step_ms"], adam_cg_iters=cg_iters)
 
     print("training 4.4: python -m simplex_gp_torch.train, two epochs at elevators")
-    # The exact backward and the eval (range sketch and predict) run K9 on their join plans' row lists.
+    # The exact backward reuses the CG's chain plan (K3'c transposed); the eval (range sketch and predict) runs
+    # K9 on its join plans' row lists.
     kernels = (K.lattice_geometry, K.lattice_dedup_neighbors, K.join_rows, K.lattice_apply_cols, pivot_column,
-               K.lattice_filter_grad, *chain_kernels())
+               K.lattice_filter_grad, *chain_kernels(), KC.chain_axes_transpose)
     for fn in kernels:
         fn.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -1121,6 +1144,7 @@ def large_n_phase(dev, expect, timer):
 
     import simplex_gp_torch
     from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import chain as KC
     from simplex_gp_torch.kernels import lattice as K
     from simplex_gp_torch.kernels.pivot import pivot_column
     from simplex_gp_torch.linalg import mll
@@ -1268,7 +1292,8 @@ def large_n_phase(dev, expect, timer):
         bounded_plain_ms = timer(lambda: K.dedup_neighbors_plain(h1, h2, oh1, oh2, cap), 2)
         print(f"    K2 bounded (capacity {cap}) {bounded_ms:.3f} ms, unbounded {unbounded_ms:.3f} ms, bounded plain "
               f"{bounded_plain_ms:.3f} ms; guard run {guard_s:.3f} s")
-        # The backward's plan at the autotrimmed capacity: its row lists (M = cap) and the one-call wide plan.
+        # A join plan at the autotrimmed capacity (the backward's before it reused the CG's chain plan): its
+        # row lists (M = cap) and the one-call wide plan.
         tseg, tnb, tnl = K.lattice_dedup_neighbors(h1, h2, oh1, oh2, cap)
         tplan = L.LatticePlan(tseg.reshape(n, d + 1), w, tnb, tnl)
         trows, trows_plain = K.join_rows(*tplan), K.join_rows_plain(*tplan)
@@ -1399,9 +1424,10 @@ def large_n_phase(dev, expect, timer):
     del model, loss, plan_u, rows_u, v100, k9_out, h1, h2, w, seg, nb
 
     print("large n 6.4: python -m simplex_gp_torch.train at houseelectric, the round-5 flags, two epochs")
-    # The exact backward applies through K9 on its join plan's row lists, so K3 is off this path.
+    # The exact backward reuses the CG's chain plan (K3'c transposed); the eval's range sketch and predicts
+    # apply through K9 on their join plans' row lists, so K3 is off this path.
     path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.join_rows, K.lattice_apply_cols,
-            pivot_column, K.lattice_filter_grad, K.lattice_count, *chain_kernels())
+            pivot_column, K.lattice_filter_grad, K.lattice_count, *chain_kernels(), KC.chain_axes_transpose)
     predictions = []
     real_predict = simplex_gp_torch.SimplexGP.predict_from_cache
 
@@ -1430,9 +1456,10 @@ def large_n_phase(dev, expect, timer):
     launches["lattice_dedup_neighbors_bounded"] = K.lattice_dedup_neighbors.bounded_launches
     print(f"    launches on the trainer run: {launches}")
     expect(all(v > 0 for v in launches.values()), "every kernel of the path launched on the trainer run")
-    expect(launches["lattice_apply_cols"] == 8, f"K9 launched {launches['lattice_apply_cols']} times: expected "
-           f"the exact backward's two applies in each of the two training steps, the two sketch MVMs of the val "
-           f"eval's posterior_cache, its rect predict and the test predict")
+    expect(launches["lattice_apply_cols"] == 4 and launches["chain_axes_transpose"] == 2,
+           f"K9 launched {launches['lattice_apply_cols']} times: expected the two sketch MVMs of the val eval's "
+           f"posterior_cache, its rect predict and the test predict (the exact backward runs none since it reuses "
+           f"the chain plan); K3'c transposed {launches['chain_axes_transpose']} times: one a training step")
     expect(K.lattice_apply.launches == 0, f"no atomic K3 on the trainer run ({K.lattice_apply.launches} launches)")
     recs = summary["records"]
     expect(all(np.isfinite(r["train/mll"]) for r in recs), f"finite losses {[r['train/mll'] for r in recs]}")
@@ -1461,10 +1488,11 @@ def large_n_phase(dev, expect, timer):
     record["k5"] = k5_houseelectric(dev, ds, dk, cap, ell["full"], expect, timer)
     stages, evals, peaks = houseelectric_stages(dev, ds, dk, cap, ell["full"])
     prof = stages.pop("backward_profile")
-    expect(prof["sorts"] == 0 and prof["cumsums"] == 0 and all(v > 0 for v in prof["kernels"].values()),
+    expect(prof["sorts"] == 0 and prof["cumsums"] == 0 and not any(prof["kernels"].values())
+           and all(v > 0 for v in prof["chain_kernels"].values()),
            f"the step's backward under torch.profiler: torch.sort {prof['sorts']} times, torch.cumsum "
-           f"{prof['cumsums']} times (expected 0: the row lists come from one C call); the one-call wide plan's "
-           f"kernels launched {prof['kernels']}")
+           f"{prof['cumsums']} times (expected 0); the join plan's kernels {prof['kernels']} (expected none: the "
+           f"backward reuses the CG's chain plan); the chain backward's kernels {prof['chain_kernels']}")
     record["backward_profile"] = prof
     r3 = lambda v: round(v, 3) if isinstance(v, float) else v
     print("    training step (ms): " + json.dumps({k: r3(v) for k, v in stages.items()}))
@@ -1498,9 +1526,12 @@ def _k2_then_rows(K, L, h1, h2, w, oh1, oh2, cap, n, d):
 
 
 def backward_parts(ref, dk, cap, c: int, seed: int) -> dict:
-    """The exact backward's parts by CUDA events: the join plan (K1 + K2) and its row lists as two calls, then
-    the plan with its rows as LatticeInvQuadLogdet.backward builds them (K1, then K2 and the rows from one
-    host call, build_wide_plan_join), K9 with its table, K9 transposed with its table, K5 (random V and U)."""
+    """The exact backward's parts by CUDA events (random V and U), on both routes.  The chain route, the path's
+    (LatticeInvQuadLogdet.backward on the CG's plan, built here as the CG builds it, K1 + K3'a): the chain apply
+    with its table, the transposed chain apply with its table (the maps, K3'b, K3'c transposed, K3'd), K5 at
+    slice_idx.  The join route, the one before: the join plan (K1 + K2) and its row lists as two calls, the
+    plan with its rows from one host call (K1, then K2 and the rows, build_wide_plan_join), K9 with its table,
+    K9 transposed with its table, K5."""
     import torch
 
     from simplex_gp_torch.kernels import lattice as K
@@ -1510,29 +1541,42 @@ def backward_parts(ref, dk, cap, c: int, seed: int) -> dict:
     gen = torch.Generator(device=ref.device).manual_seed(seed)
     V, U = (torch.randn((n, c), generator=gen, device=ref.device) for _ in range(2))
     E = torch.from_numpy(L.build_rotation(d, dk.variance)).to(ref.device)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    chain = L.build_plan_chain(ref, dk.coeffs, dk.variance, cap)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(11)]
     ev[0].record()
-    jplan = L.build_plan_join(ref, dk.coeffs, dk.variance, cap)
+    _, table_f = L.apply_plan_chain(chain, V, dk.coeffs, return_table=True)
     ev[1].record()
-    L.wide_plan(jplan)
+    _, table_b = L.apply_plan_chain(chain, U, dk.coeffs, transpose=True, return_table=True)
     ev[2].record()
-    plan = L.build_wide_plan_join(ref, dk.coeffs, dk.variance, cap)
+    K.lattice_filter_grad(ref, E, chain.slice_idx, V, U, table_f, table_b, L.SLICE_NORM(d))
     ev[3].record()
-    _, table_f = L.apply_plan_rows(plan, V, dk.coeffs, return_table=True)
+    del chain, table_f, table_b
     ev[4].record()
-    _, table_b = L.apply_plan_rows(plan, U, dk.coeffs, transpose=True, return_table=True)
+    jplan = L.build_plan_join(ref, dk.coeffs, dk.variance, cap)
     ev[5].record()
-    K.lattice_filter_grad(ref, E, plan.seg_ids, V, U, table_f, table_b, L.SLICE_NORM(d))
+    L.wide_plan(jplan)
     ev[6].record()
+    plan = L.build_wide_plan_join(ref, dk.coeffs, dk.variance, cap)
+    ev[7].record()
+    _, table_f = L.apply_plan_rows(plan, V, dk.coeffs, return_table=True)
+    ev[8].record()
+    _, table_b = L.apply_plan_rows(plan, U, dk.coeffs, transpose=True, return_table=True)
+    ev[9].record()
+    K.lattice_filter_grad(ref, E, plan.seg_ids, V, U, table_f, table_b, L.SLICE_NORM(d))
+    ev[10].record()
     torch.cuda.synchronize()
-    names = ("backward_join_plan", "backward_join_rows", "backward_wide_plan", "backward_k9", "backward_k9t",
-             "backward_k5")
-    return {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
+    names = ("backward_chain_forward", "backward_chain_transpose", "backward_chain_k5", None, "backward_join_plan",
+             "backward_join_rows", "backward_wide_plan", "backward_k9", "backward_k9t", "backward_k5")
+    parts = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names) if nm is not None}
+    parts["backward_chain_total"] = ev[0].elapsed_time(ev[3])
+    parts["backward_join_total"] = ev[6].elapsed_time(ev[10])  # the one-call plan, K9, K9 transposed, K5
+    return parts
 
 
 def k5_houseelectric(dev, ds, dk, cap, ell, expect, timer) -> dict:
-    """K5 at the houseelectric training step's shape: c = 11 on the backward's trimmed join plan and its two
-    K9 tables (random V and U), against its plain twin and a second run bit for bit, with its time."""
+    """K5 at the houseelectric training step's shape: c = 11 on the backward's plan, the CG's chain plan at the
+    trimmed capacity, and its two final-order tables (the chain apply's and the transposed apply's, random V
+    and U), against its plain twin and a second run bit for bit, with its time."""
     import torch
 
     from simplex_gp_torch.kernels import lattice as K
@@ -1543,18 +1587,18 @@ def k5_houseelectric(dev, ds, dk, cap, ell, expect, timer) -> dict:
     gen = torch.Generator(device=dev).manual_seed(9)
     V, U = (torch.randn((n, 11), generator=gen, device=dev) for _ in range(2))
     E = torch.from_numpy(L.build_rotation(d, dk.variance)).to(dev)
-    plan = L.wide_plan(L.build_plan_join(ref, dk.coeffs, dk.variance, cap))
-    _, tf = L.apply_plan_rows(plan, V, dk.coeffs, return_table=True)
-    _, tb = L.apply_plan_rows(plan, U, dk.coeffs, transpose=True, return_table=True)
-    args = (ref, E, plan.seg_ids, V, U, tf, tb, L.SLICE_NORM(d))
+    plan = L.build_plan_chain(ref, dk.coeffs, dk.variance, cap)
+    _, tf = L.apply_plan_chain(plan, V, dk.coeffs, return_table=True)
+    _, tb = L.apply_plan_chain(plan, U, dk.coeffs, transpose=True, return_table=True)
+    args = (ref, E, plan.slice_idx, V, U, tf, tb, L.SLICE_NORM(d))
     gk, gp = K.lattice_filter_grad(*args), K.lattice_filter_grad_plain(*args)
     equal, repeat = torch.equal(gk, gp), torch.equal(gk, K.lattice_filter_grad(*args))
-    expect(equal and repeat, f"houseelectric K5 (c = 11, capacity {cap}): bit-equal to plain {equal}, to a second "
-           f"run {repeat} (rel {rel(gk, gp):.3e})")
+    expect(equal and repeat, f"houseelectric K5 (c = 11, capacity {cap}, the chain plan's tables): bit-equal to "
+           f"plain {equal}, to a second run {repeat} (rel {rel(gk, gp):.3e})")
     rec = dict(max_abs_err=float((gk - gp).abs().max()), ms=timer(lambda: K.lattice_filter_grad(*args), 20),
                graph_ms=graph_ms(lambda: K.lattice_filter_grad(*args), 10),
                plain_ms=timer(lambda: K.lattice_filter_grad_plain(*args), 3), **k5_bound(n, d, 11, int(plan.n_lattice)),
-               shape=f"houseelectric n={n}, d={d}, c=11, capacity {cap}, n_lattice={int(plan.n_lattice)}")
+               shape=f"houseelectric n={n}, d={d}, c=11, capacity {cap}, n_lattice={int(plan.n_lattice)}, chain plan")
     print(f"    K5 at houseelectric: {rec['ms']:.4f} ms (graph {rec['graph_ms']:.4f}), plain {rec['plain_ms']:.3f} ms, "
           f"bound {rec['bound_ms']:.4f} ms")
     return rec
@@ -1673,15 +1717,18 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     return stages, evals, peaks
 
 
-# Kernels of the exact backward's one-call wide plan (csrc/dedup.cu, csrc/join_rows.cu; cub's radix sort and
-# scans), by a part of their names under torch.profiler.
+# Kernels of a join plan built with its rows in one call (csrc/dedup.cu, csrc/join_rows.cu; cub's radix sort
+# and scans), the exact backward's before it reused the CG's chain plan, and of the chain backward (the maps,
+# the splat's short rows, the fused axes (transposed), the slice, K5), by a part of their names under
+# torch.profiler.
 WIDE_PLAN_KERNELS = ("insert_kernel", "neighbors_kernel", "rows_pack_kernel", "DeviceRadixSort",
                      "join_runs_kernel", "join_rows_kernel", "DeviceScan")
+CHAIN_BACKWARD_KERNELS = ("chain_maps_kernel", "chain_axes_kernel", "chain_slice_kernel", "filter_grad")
 
 
 def backward_profile(model, x, y, z) -> dict:
     """One exact backward of a training step under torch.profiler: how often torch.sort and torch.cumsum ran
-    in it (the row build's former library calls), and the launches of the one-call wide plan's kernels."""
+    in it, and the launches of a join plan's kernels and of the chain backward's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1694,7 +1741,9 @@ def backward_profile(model, x, y, z) -> dict:
     counts = {e.key: e.count for e in prof.key_averages()}
     return dict(sorts=sum(c for k, c in counts.items() if k in ("aten::sort", "aten::argsort")),
                 cumsums=sum(c for k, c in counts.items() if k == "aten::cumsum"),
-                kernels={part: sum(c for k, c in counts.items() if part in k) for part in WIDE_PLAN_KERNELS})
+                kernels={part: sum(c for k, c in counts.items() if part in k) for part in WIDE_PLAN_KERNELS},
+                chain_kernels={part: sum(c for k, c in counts.items() if part in k)
+                               for part in CHAIN_BACKWARD_KERNELS})
 
 
 def cg_stop_rule(iterations: int, best_res: float, tol: float, max_iters: int) -> str:
@@ -2671,18 +2720,23 @@ def baselines_phase(dev, expect, timer):
                 if name == "ski_interp_backward":  # K13a' sums in a fixed order: its twin's bits, every call
                     same = bool(torch.equal(got[0], want[0]) and torch.equal(kern(), got[0]))
                     expect(same, f"{name} {tag}: bit-equal to its plain version and to a second call")
-                elif name != "ski_interp":  # K13b-d: a fixed order, no atomics
+                else:  # K13a and K13b-d: a fixed order, no atomics
                     again = kern()
                     same = all(torch.equal(a, b) for a, b in zip(again if isinstance(again, tuple) else (again,), got))
                     expect(same, f"{name} {tag}: a second call bit-equal to the first")
+                if name == "ski_interp":  # the same float32 sum in tap order; torch's sum over the taps may differ
+                    print(f"    {name} {tag}: bit-equal to interp_plain {torch.equal(got[0], want[0])}")
                 if library is not None:
                     lib_err = rel(library(), want[0])
                     print(f"    {name} {tag}: the einsum vs plain rel {lib_err:.3e}")
                 cell = dict(max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
                             ms=timer(kern, 10), plain_ms=timer(plain, 3),
+                            # K13a and K13a' take a few microseconds on the card: replayed, without the host's launch
+                            graph_ms=graph_ms(kern, 10) if name.startswith("ski_interp") else None,
                             library_ms=None if library is None else timer(library, 3),
                             **bound(*k13_cost(name, m, g, r, r)), shape=f"{tag}: {m} rows, g={g}, r={r}, k={r}")
-                print(f"    {name} {tag}: kernel {cell['ms']:.4f} ms, plain {cell['plain_ms']:.4f} ms, library "
+                print(f"    {name} {tag}: kernel {cell['ms']:.4f} ms (graph {cell['graph_ms']}), plain "
+                      f"{cell['plain_ms']:.4f} ms, library "
                       f"{cell['library_ms']} ms, bound {cell['bound_ms']:.4f} ms ({cell['bound_by']})")
                 if name in ("ski_kr_matmul", "ski_kr_gram"):  # cuBLAS's f32 rate on the same flops, M W or
                     M = (R[:, :, None] * F[:, None, :]).reshape(m, -1)  # Q^T M: a yardstick the port never calls
@@ -2697,8 +2751,8 @@ def baselines_phase(dev, expect, timer):
                 if tag == "train":
                     rows[name] = cell
                 else:
-                    rows[name].update(joint={k: cell[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                                   "mm_materialised_ms") if k in cell},
+                    rows[name].update(joint={k: cell[k] for k in ("ms", "graph_ms", "plain_ms", "library_ms",
+                                                                   "bound_ms", "mm_materialised_ms") if k in cell},
                                       max_abs_err=max(rows[name]["max_abs_err"], cell["max_abs_err"]))
     del R, F, Q, dF, G
 
@@ -3234,10 +3288,10 @@ def chain_phase(dev, ds, expect, timer, stage_times):
     opt = torch.optim.Adam(model.parameters(), lr=0.1)
     train_step(model, opt, x, y, z)  # warm-up
     model.load_raw(init)
-    for fn in (*chain_kernels(), KC.chain_axis):
+    for fn in (*chain_kernels(), KC.chain_axes_transpose, KC.chain_axis):
         fn.launches = 0
     train_step(model, opt, x, y, z)
-    launches = {fn.__name__: fn.launches for fn in chain_kernels()}
+    launches = {fn.__name__: fn.launches for fn in (*chain_kernels(), KC.chain_axes_transpose)}
     print(f"    launches: {launches}; the per-axis chain_axis {KC.chain_axis.launches}")
     expect(all(v_ > 0 for v_ in launches.values()), "every K3' kernel launched in the training step")
     launches["chain_axis"] = KC.chain_axis.launches  # off the path: the fused axes run instead
@@ -3643,7 +3697,7 @@ def cg_phase(dev, ds, expect, timer):
               f"allocations in a launched iteration {iter_allocs}")
         del loop, mv, rhs, P
 
-    print("cg 11.3: two NLML gradients bit for bit (the exact backward on the join plan's row lists)")
+    print("cg 11.3: two NLML gradients bit for bit (the exact backward on the CG's chain plan)")
     grads_equal = {}
     for tag, m_, xs, ys, probes, raw in (("elevators, median init", model, x, y, z, init),
                                          ("elevators, model_best.pkl", model, x, y, z, best),
@@ -3699,6 +3753,9 @@ def cg_phase(dev, ds, expect, timer):
     print(f"    {json.dumps(record['main_path'])}")
     expect(all(v_ > 0 for v_ in launches.values()), "every K10 kernel launched on the main path")
     expect(step_k3 == 0, f"the training step's backward ran no atomic K3 ({step_k3} launches)")
+    expect(record["main_path"]["backward_k9_launches"] == 2,
+           f"K9 {record['main_path']['backward_k9_launches']} times on the step and the posterior_cache: expected the "
+           f"range sketch's two applies only (the step's backward runs on the chain plan)")
     return rows, launches, record
 
 
@@ -3927,6 +3984,182 @@ def factor_axes_phase(dev, ds, expect, timer):
     expect(step["chain_axes"] > 0 and step["chain_axis"] == 0 and step["pivot_column"] > 0
            and step["pivot_column"] % k == 0,
            f"the training step runs the fused axes and whole factors of {k} one-step launches: {step}")
+    record["training_step_launches"] = step
+    return rows, step, record
+
+
+def axes_transpose_cost(nl: int, d: int, c: int, order: int) -> tuple:
+    """(bytes, ops) of K3'c transposed as one function: the live table read once and written once, each axis's
+    taps and each of the d + 1 maps (the d inverse transitions and G) read once; each axis's stencil on every
+    element (axes_cost with one map more)."""
+    return (4 * (2 * nl * c + (d + 1) * order * nl + (d + 1) * nl), (d + 1) * 2 * (2 * order + 1) * nl * c)
+
+
+def backward_routes(model, x, y, z, route: str) -> dict:
+    """The exact backward's route-dependent gradients of the NLML, from one forward (mll._solve_system) at the
+    model's parameters: on the CG's chain plan ("chain", the path's) or on a join plan of the same positions
+    and capacity with its row lists ("join", the route before).  Returns grad_inv_ell and grad_s, the two
+    gradients the route reaches (grad_noise = (U V).sum() does not depend on it), each as the backward of
+    LatticeInvQuadLogdet computes it with a = b = 1 / (2 n) (the NLML's weights of inv_quad and logdet)."""
+    import torch
+
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.ops.filter import apply_plan_any, build_wide_plan_any, filter_backward
+
+    with torch.no_grad():
+        params = model.constrained()
+        n = x.shape[0]
+        sys_ = mll._solve_system(model.dk, model.bbmm, params, x, y - params["mean"], z)
+        p = sys_.probes_right.shape[-1]
+        a = b = 0.5 / n
+        U = torch.cat([(-a) * sys_.solves[:, :1], (b / p) * sys_.solves[:, 1:]], dim=-1)
+        V = torch.cat([sys_.solves[:, :1], sys_.probes_right], dim=-1).contiguous()
+        ref = (x * params["inv_ell"]).contiguous()
+        plan = sys_.plan if route == "chain" else build_wide_plan_any(ref, model.dk, model.bbmm.plan_capacity)
+        KV, table_f = apply_plan_any(plan, V, model.dk, return_table=True)
+        _, grad_ref = filter_backward(plan, ref, model.dk, V, params["outputscale"] * U, table_f)
+        return dict(inv_ell=(x * grad_ref).sum(dim=0), outputscale=(U * KV).sum(), cg_iters=sys_.iterations)
+
+
+def chain_backward_phase(dev, ds, expect, timer):
+    """Phase 14: the exact backward on the CG's chain plan (the sort chain's reverse mode).  K3'c transposed
+    and its maps against their plain twins, the transposed chain apply against its plain version (outputs and
+    final-order tables), the chain backward's gradients against the join backward's (the route before), two
+    chain gradients bit for bit, and the launches of one training step.  Returns (kernel rows, launches,
+    record)."""
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import chain as KC
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.ops import lattice as L
+    from simplex_gp_torch.utils import data
+
+    tg = np.load(TRAIN_GOLDEN)
+    cap_h = int(np.load(HOUSE_GOLDEN)["full_capacity"])
+    kw = dict(kernel="matern", nu=1.5, order=1, min_noise=0.1, eval_cg_tolerance=0.01, device=dev)
+    cfg = dict(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100, num_probes=10)
+    model = simplex_gp_torch.SimplexGP(num_dims=18, bbmm=mll.BBMMConfig(**cfg), **kw)
+    house_model = simplex_gp_torch.SimplexGP(num_dims=11, bbmm=mll.BBMMConfig(plan_capacity=cap_h, **cfg), **kw)
+    model.load_raw({k_: tg[f"init_{k_}"] for k_ in RAW_NAMES})
+    house = data.load_dataset("houseelectric")
+    house_model.load_raw(init_raw_params(11, lengthscale=trainer.median_lengthscale(house.train_x)))
+    dk = model.dk
+    taps, order = [float(t) for t in dk.coeffs], dk.order
+    x, y = torch.from_numpy(ds.train_x).to(dev), torch.from_numpy(ds.train_y).to(dev)
+    xh, yh = torch.from_numpy(house.train_x).to(dev), torch.from_numpy(house.train_y).to(dev)
+
+    def probes(n, seed):
+        return torch.from_numpy(np.random.default_rng(seed).choice([-1.0, 1.0], size=(n, 10)).astype(
+            np.float32)).to(dev)
+
+    z, zh = probes(x.shape[0], int(tg["seed_init"])), probes(xh.shape[0], 7)
+    cases = (("elevators, median init", model, x, y, z, None), ("houseelectric, capacity 32,768", house_model, xh,
+                                                                  yh, zh, cap_h))
+    gen = torch.Generator(device=dev).manual_seed(14)
+    record, rows = {}, {}
+
+    print("chain backward 14.1: K3'c transposed and its maps vs plain, the transposed chain apply vs plain "
+          "(c = 1, 11)")
+    for name, m, xs, _, _, cap in cases:
+        with torch.no_grad():
+            ref = (xs * m.constrained()["inv_ell"]).contiguous()
+        plan = L.build_plan_chain(ref, dk.coeffs, dk.variance, cap)
+        del ref
+        d, nl, Mc = plan.gather.shape[0], int(plan.n_lattice), plan.cnt.shape[0]
+        live, norm = min(nl, Mc), L.SLICE_NORM(plan.gather.shape[0])
+        tmap = KC.chain_maps(plan)
+        maps_equal = torch.equal(tmap, KC.chain_maps_plain(plan.gather))
+        for c in (1, 11):
+            g = torch.randn((plan.weights.shape[0], c), generator=gen, device=dev)
+            table = KC.chain_splat(plan, g)
+            got = KC.chain_axes_transpose(table.clone(), plan, taps, tmap)
+            want = KC.chain_axes_transpose_plain(table, plan, taps, tmap)
+            again = KC.chain_axes_transpose(table.clone(), plan, taps, tmap)
+            out, tb = L.apply_plan_chain(plan, g, dk.coeffs, transpose=True, return_table=True)
+            pout, ptb = KC.chain_apply_plain(plan, g, taps, norm, transpose=True, return_table=True)
+            out2 = L.apply_plan_chain(plan, g, dk.coeffs, transpose=True)
+            axes_equal = torch.equal(got[:live], want[:live]) and torch.equal(again[:live], got[:live])
+            apply_equal = torch.equal(out, pout) and torch.equal(tb[:live], ptb[:live]) and torch.equal(out2, out)
+            expect(maps_equal and axes_equal and apply_equal,
+                   f"{name} c={c}: the maps == plain {maps_equal}; K3'c transposed == plain and a second call over "
+                   f"the {live} live rows {axes_equal}; the transposed apply and its table == plain and a second "
+                   f"call {apply_equal}")
+            work = table.clone()
+            case = dict(n_lattice=nl, capacity=Mc, bit_equal=maps_equal and axes_equal and apply_equal,
+                        max_abs_err=float((got[:live] - want[:live]).abs().max()),
+                        ms=timer(lambda: KC.chain_axes_transpose(work, plan, taps, tmap), 50),
+                        graph_ms=graph_ms(lambda: KC.chain_axes_transpose(work, plan, taps, tmap), 20),
+                        plain_ms=timer(lambda: KC.chain_axes_transpose_plain(table, plan, taps, tmap), 3),
+                        forward_axes_ms=timer(lambda: KC.chain_axes(work, plan, taps), 50),
+                        maps_ms=timer(lambda: KC.chain_maps(plan), 50),
+                        transpose_apply_ms=timer(lambda: L.apply_plan_chain(plan, g, dk.coeffs, transpose=True,
+                                                                            return_table=True), 20),
+                        transpose_apply_graph_ms=graph_ms(
+                            lambda: L.apply_plan_chain(plan, g, dk.coeffs, transpose=True, return_table=True), 10),
+                        forward_apply_ms=timer(lambda: L.apply_plan_chain(plan, g, dk.coeffs, return_table=True), 20),
+                        transpose_apply_plain_ms=timer(
+                            lambda: KC.chain_apply_plain(plan, g, taps, norm, transpose=True, return_table=True), 2),
+                        **bound(*axes_transpose_cost(live, d, c, order)))
+            print(f"    {name} c={c}: K3'c transposed {case['ms']:.4f} ms (graph {case['graph_ms']:.4f}; the forward "
+                  f"axes {case['forward_axes_ms']:.4f}), plain {case['plain_ms']:.3f}, bound {case['bound_ms']:.4f}; "
+                  f"maps {case['maps_ms']:.4f}; the transposed apply {case['transpose_apply_ms']:.4f} (graph "
+                  f"{case['transpose_apply_graph_ms']:.4f}) against the forward's {case['forward_apply_ms']:.4f}")
+            record[f"transpose, {name}, c={c}"] = case
+            if name.startswith("elevators") and c == 11:
+                rows["chain_axes_transpose"] = dict(
+                    max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"],
+                    bound_ms=case["bound_ms"], bound_by=case["bound_by"], library_ms=None,
+                    shape=f"the {d + 1} axes transposed, c=11, n_lattice={nl}", graph_ms=case["graph_ms"],
+                    maps_ms=case["maps_ms"])
+            del table, got, want, again, out, tb, pout, ptb, out2, work
+        rows["chain_axes_transpose"].setdefault("by_case", {}).update(
+            {f"{name}, c={c}": {k_: record[f"transpose, {name}, c={c}"][k_] for k_ in
+                                 ("ms", "graph_ms", "bound_ms", "transpose_apply_graph_ms")} for c in (1, 11)})
+        del plan, tmap
+
+    print("chain backward 14.2: the chain backward against the join backward (one forward each; the bounds of "
+          "the gradients against JAX: cos 0.999, rel 2e-2) and twice bit for bit")
+    for name, m, xs, ys, zs, _ in cases:
+        chain = backward_routes(m, xs, ys, zs, "chain")
+        chain2 = backward_routes(m, xs, ys, zs, "chain")
+        join = backward_routes(m, xs, ys, zs, "join")
+        c_ = cosine(chain["inv_ell"].cpu().numpy().astype(np.float64), join["inv_ell"].cpu().numpy().astype(np.float64))
+        r_ell, r_s = rel(chain["inv_ell"], join["inv_ell"]), rel(chain["outputscale"], join["outputscale"])
+        same = torch.equal(chain["inv_ell"], chain2["inv_ell"]) and torch.equal(chain["outputscale"],
+                                                                               chain2["outputscale"])
+        expect(c_ >= GRAD_COS and r_ell <= GRAD_REL and r_s <= GRAD_REL and same,
+               f"{name}: the chain backward vs the join backward, d/d inv_ell cos {c_:.7f} (limit {GRAD_COS}) rel "
+               f"{r_ell:.3e}, d/d outputscale rel {r_s:.3e} (limit {GRAD_REL}); two chain backwards bit-equal {same}; "
+               f"CG iterations {chain['cg_iters']} / {join['cg_iters']}")
+        record[f"routes, {name}"] = dict(inv_ell_cos=c_, inv_ell_rel=r_ell, outputscale_rel=r_s, bit_equal=same,
+                                         chain_inv_ell=chain["inv_ell"].tolist(),
+                                         join_inv_ell=join["inv_ell"].tolist(),
+                                         chain_outputscale=float(chain["outputscale"]),
+                                         join_outputscale=float(join["outputscale"]))
+        del chain, chain2, join
+
+    print("chain backward 14.3: launches in one training step (elevators, median init, exact mode)")
+    counters = (K.lattice_geometry, K.lattice_dedup_neighbors, K.join_rows, K.lattice_apply_cols, K.lattice_apply,
+                K.lattice_filter_grad, KC.chain_build, KC.chain_splat, KC.chain_axes, KC.chain_maps,
+                KC.chain_axes_transpose, KC.chain_slice)
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+    train_step(model, opt, x, y, z)  # warm-up
+    model.load_raw({k_: tg[f"init_{k_}"] for k_ in RAW_NAMES})
+    for fn in counters:
+        fn.launches = 0
+    train_step(model, opt, x, y, z)
+    torch.cuda.synchronize()
+    step = {fn.__name__: fn.launches for fn in counters}
+    print(f"    launches: {step}")
+    expect(step["lattice_dedup_neighbors"] == step["join_rows"] == step["lattice_apply_cols"] == 0
+           and step["lattice_apply"] == 0 and step["lattice_geometry"] == step["chain_build"] == 1
+           and step["chain_maps"] == step["chain_axes_transpose"] == step["lattice_filter_grad"] == 1,
+           "the step's backward runs on the CG's chain plan: no join plan (K2, its rows), K9 or K3; one K1 and one "
+           "K3'a (the CG's plan), one transposed chain apply (its maps, K3'c transposed) and one K5")
     record["training_step_launches"] = step
     return rows, step, record
 
@@ -4601,6 +4834,13 @@ def main(argv=None) -> int:
     screening = screening_phase(dev, expect, cuda_ms)
     print(f"screening and entry points phase: {time.perf_counter() - t_scr:.1f} s")
     print("screening: " + json.dumps(screening))
+
+    t_back = time.perf_counter()
+    back_rows, back_launches, back_record = chain_backward_phase(dev, ds, expect, cuda_ms)
+    rows.update(back_rows)
+    launches["chain_axes_transpose"] = back_launches["chain_axes_transpose"]
+    print(f"chain backward phase: {time.perf_counter() - t_back:.1f} s")
+    print("chain backward: " + json.dumps(back_record))
 
     # One iteration's time (the MVM included) from the stage times of 4.5 and 6.5, against the bound of
     # K10's vector updates and the Woodbury solve's two reads of U.

@@ -1,8 +1,10 @@
 // K3' the sort-chain plan: build (K3'a chain_build) and apply (K3'b
-// chain_splat, K3'c chain_axis, K3'd chain_slice).
+// chain_splat, K3'c chain_axis, K3'd chain_slice), and the apply's reverse
+// mode (K3'c transposed, the fused axes backwards, below chain_axes_kernel).
 //
 // Replaces simplex_gp_tpu/ops/lattice.py::build_plan_chain (:857, its core
-// _chain_core :693) and apply_plan_chain (:943, single-device branches).
+// _chain_core :693) and apply_plan_chain (:943, single-device branches),
+// and JAX's autodiff of apply_plan_chain in the exact backward.
 // The operator is K2/K3's, S^T B_d ... B_0 S: every lattice axis j splits
 // the lattice into 1-D chains {key + t o_j}; sorted by (chain word, packed
 // coordinate sum), a chain's points are adjacent rows in chain order, and
@@ -453,12 +455,18 @@ extern "C" int sgp_run_lists(const int* long_info, const int* scan, const int* c
 // axis: p = q).  tapw: this axis's (r, Mc) taps.  kL2 loads the table
 // through L2 (it was written by other blocks of the same launch, K3'c
 // fused); kOrder > 0 fixes r at compile time (the loop over the taps
-// unrolls), 0 reads it from `order`.  The arithmetic is the same for all.
-template <bool kL2, int kOrder>
+// unrolls), 0 reads it from `order`.  kPre reads row `pre[row]` of `in` for
+// stencil row `row` (the transposed axes' first step: the axis-0 table read
+// in final order).  The arithmetic is the same for all.
+template <bool kL2, int kOrder, bool kPre = false>
 __device__ __forceinline__ float chain_axis_at(const float* in, const float* __restrict__ tapw, int p, int live,
-                                               int Mc, int c, int col, int order, float center) {
+                                               int Mc, int c, int col, int order, float center,
+                                               const int* __restrict__ pre = nullptr) {
   const float* t = in + col;
-  auto at = [&](int row) { return kL2 ? __ldcg(t + (long long)row * c) : t[(long long)row * c]; };
+  auto at = [&](int row) {
+    const long long r = kPre ? (long long)__ldg(pre + row) : (long long)row;
+    return kL2 ? __ldcg(t + r * c) : t[r * c];
+  };
   float acc = __fmul_rn(center, at(p));
   auto tap = [&](int k) {
     const float* wk = tapw + (long long)(k - 1) * Mc;
@@ -498,12 +506,29 @@ __global__ void chain_axis_kernel(const float* __restrict__ in, float* __restric
 // only the table loads (all taps at once) stand between a block and its
 // stores.  Element indices are I: int for a table of fewer than 2^30
 // elements (every CG's), long long above.
+//
+// K3'c-transposed (kT, the exact backward's B^T; replaces no TPU kernel:
+// JAX transposes apply_plan_chain by autodiff, :1010-1027).  B = B_d P_{d-1}
+// ... P_0 B_0, with B_j axis j's stencil and P_j its transition (position q
+// of axis j+1 reads position gather[j][q] of axis j), so B^T = B_0 P_0^T
+// ... P_{d-1}^T B_d: each stencil is symmetric (tapw links p and p+k both
+// ways), and each transition is a permutation of the live rows (every
+// order sorts the dead rows last, in row order), whose transpose is its
+// inverse.  The same kernel runs the d + 1 steps in reverse axis order over
+// `maps` = chain_maps_kernel's tmap (d + 1, Mc): step j blurs axis d - j and
+// writes position p of the next (lower) axis's order from position
+// tmap[j][p] (the inverse of transition d - 1 - j); its input is the axis-0
+// splat of the cotangent, read in final order through G = tmap[d] at step 0
+// (the transposed slice is the splat permuted by G), and its last step,
+// axis 0, writes in final order through G, so the table lands in final
+// order, where K3'd and K5 read it.  The same operations per element as
+// the plain twin (chain_axes_transpose_plain), so the two are bit-equal.
 #define CHAIN_AXES_THREADS 512
 #define CHAIN_AXES_HELD 8
 
-template <int kOrder, typename I>
+template <int kOrder, typename I, bool kT>
 __global__ void __launch_bounds__(CHAIN_AXES_THREADS, 2)
-    chain_axes_kernel(float* ta, float* tb, const float* __restrict__ tapw, const int* __restrict__ gather,
+    chain_axes_kernel(float* ta, float* tb, const float* __restrict__ tapw, const int* __restrict__ maps,
                       const int* __restrict__ n_lattice, int Mc, int c, int d, int order, float center,
                       unsigned int* barrier) {
   const int nl = *n_lattice;
@@ -511,19 +536,22 @@ __global__ void __launch_bounds__(CHAIN_AXES_THREADS, 2)
   const I work = (I)live * c;
   const I stride = (I)gridDim.x * blockDim.x;
   const I first = (I)blockIdx.x * blockDim.x + threadIdx.x;
+  // The map of step j: the forward's gather of axis j (the last axis none), the transpose's tmap row j.
+  auto map_of = [&](int j) -> const int* { return kT || j < d ? maps + (long long)j * Mc : nullptr; };
+  const int* pre = kT ? maps + (long long)d * Mc : nullptr;
   int q0[CHAIN_AXES_HELD], col0[CHAIN_AXES_HELD], next[CHAIN_AXES_HELD];
 #pragma unroll
   for (int u = 0; u < CHAIN_AXES_HELD; ++u) {
     const I idx = first + u * stride;
     q0[u] = idx < work ? (int)(idx / c) : 0;
     col0[u] = (int)(idx - (I)q0[u] * c);
-    next[u] = idx < work ? __ldg(gather + q0[u]) : 0;  // axis 0's gather (d >= 1)
+    next[u] = idx < work ? __ldg(map_of(0) + q0[u]) : 0;  // step 0's map (d >= 1)
   }
   float* a = ta;
   float* b = tb;
   for (int j = 0; j <= d; ++j) {
-    const float* w = tapw + (long long)j * order * Mc;
-    const int* g = gather + (long long)j * Mc;
+    const float* w = tapw + (long long)(kT ? d - j : j) * order * Mc;
+    const int* g = map_of(j);
     for (I base = first; base < work; base += CHAIN_AXES_HELD * stride) {
       const bool held = base == first;
       float v[CHAIN_AXES_HELD];
@@ -533,8 +561,9 @@ __global__ void __launch_bounds__(CHAIN_AXES_THREADS, 2)
         if (idx < work) {
           const int q = held ? q0[u] : (int)(idx / c);
           const int col = held ? col0[u] : (int)(idx - (I)q * c);
-          const int p = held ? next[u] : (j < d ? __ldg(g + q) : q);
-          v[u] = chain_axis_at<true, kOrder>(a, w, p, live, Mc, c, col, order, center);
+          const int p = held ? next[u] : (g != nullptr ? __ldg(g + q) : q);
+          v[u] = kT && j == 0 ? chain_axis_at<true, kOrder, true>(a, w, p, live, Mc, c, col, order, center, pre)
+                              : chain_axis_at<true, kOrder>(a, w, p, live, Mc, c, col, order, center);
         }
       }
 #pragma unroll
@@ -544,16 +573,37 @@ __global__ void __launch_bounds__(CHAIN_AXES_THREADS, 2)
       }
     }
     if (j < d) {
-      const int* gn = gather + (long long)(j + 1) * Mc;
+      const int* gn = map_of(j + 1);
 #pragma unroll
       for (int u = 0; u < CHAIN_AXES_HELD; ++u)
-        next[u] = first + u * stride < work ? (j + 1 < d ? __ldg(gn + q0[u]) : q0[u]) : 0;
+        next[u] = first + u * stride < work ? (gn != nullptr ? __ldg(gn + q0[u]) : q0[u]) : 0;
       sgp_grid_barrier(barrier, (unsigned int)(j + 1) * gridDim.x);
     }
     float* t = a;
     a = b;
     b = t;
   }
+}
+
+// The transposed axes' maps, one thread a position q of the plan's transitions gather (d, Mc): tmap (d + 1,
+// Mc), row d - 1 - j the inverse of transition j (tmap[d - 1 - j][gather[j][q]] = q) and row d the composite G
+// (G[q] = gather[0][gather[1][... gather[d - 1][q]]]: the axis-0 position of the row at final position q).
+// Past the live rows every transition is the identity, and so are the maps.
+__global__ void chain_maps_kernel(const int* __restrict__ gather, int Mc, int d, int* __restrict__ tmap) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= Mc) return;
+  int p = q;
+  for (int j = d - 1; j >= 0; --j) {
+    const int* g = gather + (long long)j * Mc;
+    tmap[(long long)(d - 1 - j) * Mc + __ldg(g + q)] = q;
+    p = __ldg(g + p);
+  }
+  tmap[(long long)d * Mc + q] = p;
+}
+
+static inline cudaError_t chain_maps_launch(const int* gather, int Mc, int d, int* tmap, cudaStream_t st) {
+  if (Mc > 0) chain_maps_kernel<<<sgp_blocks(Mc), SGP_THREADS, 0, st>>>(gather, Mc, d, tmap);
+  return cudaGetLastError();
 }
 
 // The fused axes' launch.  The grid gives a thread to each element of the
@@ -563,38 +613,41 @@ __global__ void __launch_bounds__(CHAIN_AXES_THREADS, 2)
 // 0.092 against 0.086-0.092 ms at elevators c = 1, 50 blocks against 264;
 // and slower at houseelectric c = 1, 0.066 against 0.033 ms, 8 blocks
 // against 64.)  Order 1, the path's, gets its own kernel; other orders read
-// it from `order`.  Element indices are int below 2^30 elements.
-template <int kOrder, typename I>
-static inline cudaError_t chain_axes_launch_as(float* ta, float* tb, const float* tapw, const int* gather,
+// it from `order`.  Element indices are int below 2^30 elements.  `maps` is
+// the gather (d, Mc), or with kT the transposed maps (d + 1, Mc).
+template <int kOrder, typename I, bool kT>
+static inline cudaError_t chain_axes_launch_as(float* ta, float* tb, const float* tapw, const int* maps,
                                                const int* n_lattice, int Mc, int c, int d, int order, float center,
                                                unsigned int* barrier, cudaStream_t st) {
   const long long need = ((long long)Mc * c + CHAIN_AXES_THREADS - 1) / CHAIN_AXES_THREADS;
-  const int resident = sgp_coresident_blocks(chain_axes_kernel<kOrder, I>, CHAIN_AXES_THREADS, 0);
+  const int resident = sgp_coresident_blocks(chain_axes_kernel<kOrder, I, kT>, CHAIN_AXES_THREADS, 0);
   const int grid = (int)(need < resident ? (need > 0 ? need : 1) : resident);
-  chain_axes_kernel<kOrder, I>
-      <<<grid, CHAIN_AXES_THREADS, 0, st>>>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier);
+  chain_axes_kernel<kOrder, I, kT>
+      <<<grid, CHAIN_AXES_THREADS, 0, st>>>(ta, tb, tapw, maps, n_lattice, Mc, c, d, order, center, barrier);
   return cudaGetLastError();
 }
 
-template <int kOrder>
-static inline cudaError_t chain_axes_launch_order(float* ta, float* tb, const float* tapw, const int* gather,
+template <int kOrder, bool kT>
+static inline cudaError_t chain_axes_launch_order(float* ta, float* tb, const float* tapw, const int* maps,
                                                   const int* n_lattice, int Mc, int c, int d, int order,
                                                   float center, unsigned int* barrier, cudaStream_t st) {
   if ((long long)Mc * c < (1LL << 30))
-    return chain_axes_launch_as<kOrder, int>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier, st);
-  return chain_axes_launch_as<kOrder, long long>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier,
+    return chain_axes_launch_as<kOrder, int, kT>(ta, tb, tapw, maps, n_lattice, Mc, c, d, order, center, barrier,
                                                  st);
+  return chain_axes_launch_as<kOrder, long long, kT>(ta, tb, tapw, maps, n_lattice, Mc, c, d, order, center,
+                                                     barrier, st);
 }
 
-static inline cudaError_t chain_axes_launch(float* ta, float* tb, const float* tapw, const int* gather,
+template <bool kT>
+static inline cudaError_t chain_axes_launch(float* ta, float* tb, const float* tapw, const int* maps,
                                             const int* n_lattice, int Mc, int c, int d, int order, float center,
                                             unsigned int* barrier, cudaStream_t st) {
   if (d < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st);
   if (err != cudaSuccess) return err;
   if (order == 1)
-    return chain_axes_launch_order<1>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier, st);
-  return chain_axes_launch_order<0>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier, st);
+    return chain_axes_launch_order<1, kT>(ta, tb, tapw, maps, n_lattice, Mc, c, d, order, center, barrier, st);
+  return chain_axes_launch_order<0, kT>(ta, tb, tapw, maps, n_lattice, Mc, c, d, order, center, barrier, st);
 }
 
 // K3'd, the slice.  A block takes `points` consecutive points (kernels/chain.py::slice_split: a multiple of 4,
@@ -761,8 +814,23 @@ extern "C" int sgp_chain_axis(const float* in, float* out, const float* tapw, co
 extern "C" int sgp_chain_axes(float* ta, float* tb, const float* tapw, const int* gather, const int* n_lattice,
                               int Mc, int c, int d, int order, float center, unsigned int* barrier, void* stream) {
   if ((long long)Mc * c <= 0) return (int)cudaGetLastError();
-  return (int)chain_axes_launch(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier,
-                                (cudaStream_t)stream);
+  return (int)chain_axes_launch<false>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier,
+                                       (cudaStream_t)stream);
+}
+
+// The transposed axes' maps (d + 1, Mc) of a plan's transitions gather (d, Mc).
+extern "C" int sgp_chain_maps(const int* gather, int Mc, int d, int* tmap, void* stream) {
+  return (int)chain_maps_launch(gather, Mc, d, tmap, (cudaStream_t)stream);
+}
+
+// K3'c transposed alone: B^T of the axis-0 table in ta (Mc, c), written in final order, over the maps tmap
+// (d + 1, Mc) of sgp_chain_maps; tb is scratch; the result lands in ta when d + 1 is even, else in tb.
+extern "C" int sgp_chain_axes_transpose(float* ta, float* tb, const float* tapw, const int* tmap,
+                                        const int* n_lattice, int Mc, int c, int d, int order, float center,
+                                        unsigned int* barrier, void* stream) {
+  if ((long long)Mc * c <= 0) return (int)cudaGetLastError();
+  return (int)chain_axes_launch<true>(ta, tb, tapw, tmap, n_lattice, Mc, c, d, order, center, barrier,
+                                      (cudaStream_t)stream);
 }
 
 extern "C" int sgp_chain_slice(const float* table, const int* slice_idx, const float* w, const int* n_lattice,
@@ -776,7 +844,11 @@ extern "C" int sgp_chain_slice(const float* table, const int* slice_idx, const f
 // between ta and tb in one fused launch (gather: (d, Mc); tapw: (d + 1, r,
 // Mc)), the slice of the final table into out (n, c), in blocks of `points`
 // points and `threads` threads.  ta and tb hold Mc * c
-// floats; barrier is one uint of scratch for the fused launch.
+// floats; barrier is one uint of scratch for the fused launch.  With tmap
+// ((d + 1) * Mc ints of scratch) the transposed apply S^T B^T S: the maps
+// of gather into tmap first, then the splat, the transposed axes (their
+// table in final order) and the slice.  The final table is ta when d + 1
+// is even, else tb, in either direction.
 extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, const int* long_rows,
                                const int* long_first, const int* n_long, const int* piece_row,
                                const int* piece_start, const int* n_pieces, const int* mid_rows, const int* n_mid,
@@ -784,15 +856,21 @@ extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, c
                                int n, int c, int Mc, int d,
                                const int* gather, const float* tapw, int order, const float* taps_host,
                                const int* slice_idx, const float* w, int points, int threads, float norm,
-                               float* ta, float* tb, float* part, unsigned int* barrier, float* out, void* stream) {
+                               float* ta, float* tb, float* part, unsigned int* barrier, int* tmap, float* out,
+                               void* stream) {
   if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
   if (n <= 0 || c <= 0 || Mc <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = tmap != nullptr ? chain_maps_launch(gather, Mc, d, tmap, st) : cudaSuccess;
+  if (err != cudaSuccess) return (int)err;
   const SgpRuns r = sgp_runs(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
                                mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice);
-  cudaError_t err = sgp_splat_rows(r, SgpWindow{v, c, 0}, c, Mc, ta, part, st);
+  err = sgp_splat_rows(r, SgpWindow{v, c, 0}, c, Mc, ta, part, st);
   if (err != cudaSuccess) return (int)err;
-  err = chain_axes_launch(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, taps_host[order], barrier, st);
+  err = tmap != nullptr
+            ? chain_axes_launch<true>(ta, tb, tapw, tmap, n_lattice, Mc, c, d, order, taps_host[order], barrier, st)
+            : chain_axes_launch<false>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, taps_host[order], barrier,
+                                       st);
   if (err != cudaSuccess) return (int)err;
   const float* final_table = (d + 1) % 2 == 0 ? ta : tb;
   return (int)chain_slice_launch(final_table, slice_idx, w, n_lattice, n, d + 1, c, Mc, points, threads, norm, out,

@@ -10,9 +10,11 @@
 // its cotangent under autodiff.
 //
 //   K13a sgp_ski_interp          F[i, :] = sum_t w[i, t] U[idx[i, t], :], the
-//                                Keys weights and clipped taps computed in the
-//                                thread from x[i] and the grid's origin and
-//                                step (device scalars); one thread per (i, col).
+//                                Keys weights and clipped taps computed once a
+//                                point from x[i] and the grid's origin and
+//                                step (device scalars); U staged once a block
+//                                in shared memory; a team of r / 4 lanes a
+//                                point, float4 columns (ski_interp_kernel).
 //        sgp_ski_interp_scatter  its backward: dU[idx[i, t], :] += w[i, t] dF[i, :]
 //                                in a fixed order, no atomics: a block owns a
 //                                range of points, split into SKI_SCATTER_SLICES
@@ -132,19 +134,78 @@ __device__ __forceinline__ void ski_taps(float x, float gmin, float step, int g,
   for (int t = 0; t < 4; ++t) w[t] = __fdiv_rn(w[t], sum);
 }
 
-__global__ void ski_interp_kernel(const float* __restrict__ x, const float* __restrict__ gmin,
-                                  const float* __restrict__ step, const float* __restrict__ U, int n, int g,
-                                  int r, float* __restrict__ F) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)n * r) return;
-  const long long i = e / r;
-  const int col = (int)(e % r);
-  int idx[4];
-  float w[4];
-  ski_taps(x[i], *gmin, *step, g, idx, w);
-  float acc = 0.0f;
-  for (int t = 0; t < 4; ++t) acc += w[t] * U[idx[t] * r + col];
-  F[e] = acc;
+// K13a.  A block stages the grid factor U (g, r) once in shared memory, its
+// rows padded to r4 = 4 ceil(r / 4) floats (zeros past r), then takes
+// SKI_INTERP_POINTS points a pass (the grid, at most the blocks resident at
+// once, strides over the passes).  Thread t computes the taps of the pass's
+// point t once (ski_taps; the first design recomputed them in each of the r
+// threads of a point) into shared memory; then a team of `lanes` lanes a
+// point (r4 / 4 rounded up to a power of two: 16 at r = 64) walks the
+// pass's points, lane l summing columns 4 l .. 4 l + 3 over the taps t =
+// 0..3 in order (each product and add rounded on its own) from float4 reads
+// of the staged rows, and storing them as one float4: a point's row is one
+// contiguous 16-byte store a lane across its team (scalar stores when r is
+// not a multiple of 4).  Bound: bytes, x and U in, F (4 n r) out; U is read
+// from device memory once a block, not four times an output.
+#define SKI_INTERP_THREADS 256
+#define SKI_INTERP_POINTS 256
+
+__global__ void __launch_bounds__(SKI_INTERP_THREADS)
+    ski_interp_kernel(const float* __restrict__ x, const float* __restrict__ gmin, const float* __restrict__ step,
+                      const float* __restrict__ U, int n, int g, int r, int lanes, bool vec,
+                      float* __restrict__ F) {
+  extern __shared__ __align__(16) float ski_u[];  // (g, r4), then the pass's tap rows and weights
+  const int r4 = (r + 3) & ~3;
+  int* tap_row = reinterpret_cast<int*>(ski_u + g * r4);  // (4, SKI_INTERP_POINTS): idx[t] r4
+  float* tap_w = reinterpret_cast<float*>(tap_row + 4 * SKI_INTERP_POINTS);
+  if (vec) {  // r a multiple of 4 and U 16-byte aligned: the rows need no padding
+    const int total = g * (r >> 2);
+    for (int e = threadIdx.x; e < total; e += blockDim.x)
+      reinterpret_cast<float4*>(ski_u)[e] = __ldg(reinterpret_cast<const float4*>(U) + e);
+  } else {
+    for (int e = threadIdx.x; e < g * r4; e += blockDim.x) {
+      const int row = e / r4, col = e - row * r4;
+      ski_u[e] = col < r ? __ldg(U + (long long)row * r + col) : 0.0f;
+    }
+  }
+  const float gm = *gmin, st = *step;
+  const int teams = blockDim.x / lanes, team = threadIdx.x / lanes, c0 = 4 * (threadIdx.x - team * lanes);
+  for (long long p0 = (long long)blockIdx.x * SKI_INTERP_POINTS; p0 < n;
+       p0 += (long long)gridDim.x * SKI_INTERP_POINTS) {
+    const int np = n - p0 < SKI_INTERP_POINTS ? (int)(n - p0) : SKI_INTERP_POINTS;
+    __syncthreads();  // the previous pass's taps are read
+    if ((int)threadIdx.x < np) {
+      int idx[4];
+      float w[4];
+      ski_taps(__ldg(x + p0 + threadIdx.x), gm, st, g, idx, w);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        tap_row[t * SKI_INTERP_POINTS + threadIdx.x] = idx[t] * r4;
+        tap_w[t * SKI_INTERP_POINTS + threadIdx.x] = w[t];
+      }
+    }
+    __syncthreads();
+    if (c0 >= r) continue;
+    for (int i = team; i < np; i += teams) {
+      float acc[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float w = tap_w[t * SKI_INTERP_POINTS + i];
+        const float4 u = *reinterpret_cast<const float4*>(ski_u + tap_row[t * SKI_INTERP_POINTS + i] + c0);
+        const float pu[4] = {__fmul_rn(w, u.x), __fmul_rn(w, u.y), __fmul_rn(w, u.z), __fmul_rn(w, u.w)};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[q] = t == 0 ? pu[q] : __fadd_rn(acc[q], pu[q]);
+      }
+      float* o = F + (p0 + i) * r + c0;
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c0 + q < r) o[q] = acc[q];
+      }
+    }
+  }
 }
 
 // K13a's backward, first pass: block b owns the points [b S span, (b + 1) S
@@ -610,11 +671,29 @@ __global__ void __launch_bounds__(SKI_KR_THREADS, 1)
   }
 }
 
+// K13a: lanes a point (kernels/ski.py::interp_split: a power of two, 4 lanes >= r, at most 32) and the
+// dynamic shared memory (U's padded rows and a pass's taps, smem bytes) from the wrapper; the grid is the
+// passes of SKI_INTERP_POINTS points, or the blocks resident at once if fewer.
 extern "C" int sgp_ski_interp(const float* x, const float* gmin, const float* step, const float* U, int n, int g,
-                              int r, float* F, void* stream) {
-  const long long work = (long long)n * r;
-  if (work > 0)
-    ski_interp_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(x, gmin, step, U, n, g, r, F);
+                              int r, int lanes, int smem, float* F, void* stream) {
+  const int r4 = (r + 3) & ~3;
+  if (r < 1 || g < 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || 4 * lanes < r ||
+      (size_t)smem != sizeof(float) * ((size_t)g * r4 + 8 * SKI_INTERP_POINTS) || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  static int opted = 0;  // the shared-memory opt-in, set once a size
+  if (smem > 48 * 1024 && smem > opted) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(ski_interp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    opted = smem;
+  }
+  const bool vec = r % 4 == 0 && (((uintptr_t)U | (uintptr_t)F) & 15) == 0;
+  const long long passes = ((long long)n + SKI_INTERP_POINTS - 1) / SKI_INTERP_POINTS;
+  const int resident = sgp_coresident_blocks(ski_interp_kernel, SKI_INTERP_THREADS, (size_t)smem);
+  const int grid = (int)(passes < resident ? passes : resident);
+  ski_interp_kernel<<<grid, SKI_INTERP_THREADS, smem, (cudaStream_t)stream>>>(x, gmin, step, U, n, g, r, lanes, vec,
+                                                                              F);
   return (int)cudaGetLastError();
 }
 

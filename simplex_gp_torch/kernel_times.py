@@ -1114,12 +1114,13 @@ def build_grad(repeats: int = 10, save: str | None = None) -> dict:
     training rows over their median lengthscale at capacity 32,768 (the autotrimmed capacity).  K3'a
     (``chain_build`` given K1's outputs) and ``build_plan_chain`` (K1 + K3'a) by CUDA events, beside K1 and
     K1 + K2 (``build_plan_join``), and once under ``torch.profiler`` (device ms by kernel, launches, the
-    host wall time), and by stage where the tree marks them (``chain_build_stage_times``).  K5 at c = 11 on the backward's trimmed join plan and its two K9 tables, random V
-    and U.  The join plan's build by its parts (:func:`_join_build`).  The houseelectric step (zero_grad,
-    NLML, backward, Adam) by CUDA events with its peak memory,
-    and its plan stage (``build_plan_any``) and backward parts (join plan, row lists, K9, K9ᵀ, K5) one by
-    one.  With ``save``, every plan field, K5's outputs and the step's raw gradients go to
-    ``<save>/<shape>.npz``.  Prints one JSON line.
+    host wall time), and by stage where the tree marks them (``chain_build_stage_times``).  K5 at c = 11 on
+    a trimmed join plan and its two K9 tables, random V and U.  The join plan's build by its parts
+    (:func:`_join_build`).  The training step at each shape (zero_grad, NLML, backward, Adam; the elevators
+    golden file's median-init parameters) by CUDA events with its peak memory, and its plan stage
+    (``build_plan_any``) and the exact backward's parts on both routes one by one (:func:`_train_step`).
+    With ``save``, every plan field, K5's outputs and the step's raw gradients go to ``<save>/<shape>.npz``.
+    Prints one JSON line.
     """
     import pathlib
 
@@ -1127,7 +1128,7 @@ def build_grad(repeats: int = 10, save: str | None = None) -> dict:
     from simplex_gp_torch import train as trainer
     from simplex_gp_torch.kernels import chain as KC
     from simplex_gp_torch.kernels import lattice as K
-    from simplex_gp_torch.models.components import softplus
+    from simplex_gp_torch.models.components import init_raw_params, softplus
     from simplex_gp_torch.ops import kernels, lattice as L
     from simplex_gp_torch.utils import data
 
@@ -1176,8 +1177,11 @@ def build_grad(repeats: int = 10, save: str | None = None) -> dict:
         saved = {f"plan_{f}": getattr(plan, f).cpu().numpy() for f in KC.ChainPlan._fields}
         saved["k5_grad"] = grad.cpu().numpy()
         del plan, wp, tf, tb, V, U, h1, h2, w, s
-        if tag == "houseelectric":
-            rec.update(_house_step(ref, house, dk, cap, ell_h, repeats, saved))
+        ds = elev if tag == "elevators" else house
+        raw = {k: tg[f"init_{k}"] for k in ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")} \
+            if tag == "elevators" else init_raw_params(d, lengthscale=ell_h)
+        rec.update(_train_step(ref, torch.from_numpy(ds.train_x).to(dev), torch.from_numpy(ds.train_y).to(dev), dk,
+                               cap, raw, repeats, saved))
         out[tag] = rec
         if save is not None:
             os.makedirs(save, exist_ok=True)
@@ -1266,14 +1270,16 @@ def join_build(repeats: int = 10) -> dict:
     return out
 
 
-def _house_step(ref, house, dk, cap, ell, repeats, saved) -> dict:
-    """The houseelectric training step (median init, capacity ``cap``): a warm step by CUDA events, its peak
-    memory, its plan stage and the exact backward's parts one by one; the step's raw gradients into
-    ``saved``."""
+def _train_step(ref, x, y, dk, cap, raw, repeats, saved) -> dict:
+    """A training step (zero_grad, NLML, backward, Adam) at ``raw`` and capacity ``cap``: a warm step by CUDA
+    events, its peak memory, its plan stage and the exact backward's parts one by one on the join route (a
+    join plan with its row lists, K9, K9 transposed, K5) and, in a tree whose backward reuses the CG's chain
+    plan, on the chain route (the chain apply with its table, the transposed chain apply with its table, K5);
+    the step's raw gradients into ``saved``."""
     import simplex_gp_torch
+    from simplex_gp_torch.kernels import chain as KC
     from simplex_gp_torch.kernels import lattice as K
     from simplex_gp_torch.linalg import mll
-    from simplex_gp_torch.models.components import init_raw_params
     from simplex_gp_torch.ops import lattice as L
     from simplex_gp_torch.ops.filter import build_plan_any
 
@@ -1283,8 +1289,6 @@ def _house_step(ref, house, dk, cap, ell, repeats, saved) -> dict:
                          num_probes=10, plan_capacity=cap)
     model = simplex_gp_torch.SimplexGP(num_dims=d, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
                                        device=dev)
-    raw = init_raw_params(d, lengthscale=ell)
-    x, y = torch.from_numpy(house.train_x).to(dev), torch.from_numpy(house.train_y).to(dev)
     z = torch.from_numpy(np.random.default_rng(1).choice([-1.0, 1.0], size=(n, 10)).astype(np.float32)).to(dev)
     opt = torch.optim.Adam(model.parameters(), lr=0.1)
 
@@ -1308,6 +1312,8 @@ def _house_step(ref, house, dk, cap, ell, repeats, saved) -> dict:
     gen = torch.Generator(device=dev).manual_seed(9)
     V, U = (torch.randn((n, 11), generator=gen, device=dev) for _ in range(2))
     E = torch.from_numpy(L.build_rotation(d, dk.variance)).to(dev)
+    chain_route = hasattr(KC, "chain_axes_transpose")
+    chain = L.build_plan_chain(ref, dk.coeffs, dk.variance, cap) if chain_route else None
     parts = {}
     for _ in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
@@ -1325,9 +1331,24 @@ def _house_step(ref, house, dk, cap, ell, repeats, saved) -> dict:
         torch.cuda.synchronize()
         for i, nm in enumerate(("join_plan", "join_rows", "k9", "k9t", "k5")):
             parts.setdefault(f"backward_{nm}_ms", []).append(ev[i].elapsed_time(ev[i + 1]))
-        if hasattr(L, "build_wide_plan_join"):  # the backward's route in a tree that has the one-call build
+        del wp, tf, tb
+        if hasattr(L, "build_wide_plan_join"):  # the join route's build in a tree that has the one-call build
             parts.setdefault("backward_wide_plan_ms", []).append(
                 _ms(lambda: L.build_wide_plan_join(ref, dk.coeffs, dk.variance, cap), 1))
+        if chain_route:  # the backward on the CG's chain plan: no plan of its own
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            _, tf = L.apply_plan_chain(chain, V, dk.coeffs, return_table=True)
+            ev[1].record()
+            _, tb = L.apply_plan_chain(chain, U, dk.coeffs, transpose=True, return_table=True)
+            ev[2].record()
+            K.lattice_filter_grad(ref, E, chain.slice_idx, V, U, tf, tb, L.SLICE_NORM(d))
+            ev[3].record()
+            torch.cuda.synchronize()
+            for i, nm in enumerate(("chain_forward", "chain_transpose", "chain_k5")):
+                parts.setdefault(f"backward_{nm}_ms", []).append(ev[i].elapsed_time(ev[i + 1]))
+            parts.setdefault("backward_chain_total_ms", []).append(ev[0].elapsed_time(ev[3]))
+            del tf, tb
     rec.update(parts)
     return rec
 
@@ -1431,8 +1452,9 @@ def _ptxas_lines(match: str) -> dict:
 
 
 def ski_times(repeats: int = 20, rows=(65536, 191231)) -> dict:
-    """K13b, K13c and K13d at SKIP's shapes beside their PyTorch yardsticks, and the warm SKIP step by stage,
-    through entry points every tree since the baselines' port has.
+    """K13a-d at SKIP's shapes beside their PyTorch yardsticks, and the warm SKIP step by stage, through entry
+    points every tree since the baselines' port has.  K13a (``ski_interp``) on seeded positions and a (100, r)
+    grid factor, launched and graph-replayed, beside its plain version and its byte bound (x and U in, F out).
 
     Shapes: the precipitation root's 65,536 training rows and its joint root's 191,231 rows, r = k = 64, from
     seeded normal R, F, G and W.  Each call host-launched and replayed from a CUDA graph (CUDA events), beside
@@ -1493,12 +1515,24 @@ def ski_times(repeats: int = 20, rows=(65536, 191231)) -> dict:
         for name in ("k13b", "k13c", "k13d"):
             rec[name]["tflops"] = flops / rec[name]["graph_ms"] / 1e9
         del M
+        # K13a at the same rows: a seeded (g, r) grid factor over the positions' range, beside its byte bound.
+        xa = torch.randn(m, generator=gen, device=dev)
+        U = torch.randn((100, r), generator=gen, device=dev)
+        step = ((xa.max() - xa.min()) / 95).reshape(()).contiguous()
+        gmin = (xa.min() - 2 * step).reshape(()).contiguous()
+        k13a = lambda: KS.ski_interp(xa, gmin, step, U)
+        got, want = k13a(), KS.interp_plain(xa, gmin, step, U)
+        rec["k13a"] = dict(ms=_ms(k13a, repeats), graph_ms=_graph_ms(k13a, repeats),
+                           plain_ms=_ms(lambda: KS.interp_plain(xa, gmin, step, U), 3),
+                           rel=float((got - want).norm() / want.norm()), plain_bit_equal=bool(torch.equal(got, want)),
+                           repeat_bit_equal=bool(torch.equal(got, k13a())))
+        rec["bound_ms"]["k13a"] = 4 * (m + 100 * r + m * r) / 3.35e9  # x, U in, F out
         out[f"rows_{m}"] = rec
-        del R, F, G, W
+        del R, F, G, W, xa, U, got, want
         torch.cuda.empty_cache()
     if hasattr(KS, "_kr_resident_blocks"):
         out["resident_blocks_a_sm"] = KS._kr_resident_blocks()
-    out["ptxas"] = _ptxas_lines("ski_kr")
+    out["ptxas"] = {**_ptxas_lines("ski_kr"), **_ptxas_lines("ski_interp")}
 
     root = pathlib.Path(__file__).resolve().parents[1]
     golden = np.load(root / "tests" / "fixtures" / "precipitation_baselines_golden.npz")

@@ -4,8 +4,11 @@ K3'a ``chain_build`` builds the plan from K1's hashes, coordinate sums and
 weights; K3'b ``chain_splat``, K3'c and K3'd ``chain_slice`` apply it.
 K3'c is ``chain_axes``, all d+1 lattice axes in one launch with a grid
 barrier between them, or ``chain_axis``, one axis a launch (the tests' and
-the A/B's).  :func:`chain_apply` launches the splat, the fused axes and the
-slice from one host call, as the CG runs them.  Each wrapper takes its
+the A/B's); ``chain_axes_transpose`` runs them transposed, in reverse axis
+order over the inverse transitions (``chain_maps``), for the exact
+backward.  :func:`chain_apply` launches the splat, the fused axes and the
+slice from one host call, as the CG runs them, or with ``transpose`` the
+transposed apply S^T B^T S.  Each wrapper takes its
 plain PyTorch version for CPU tensors and launches its kernels for CUDA
 tensors, raising on a failed build or launch; there is no fallback.  Each
 kernel counts its launches in the ``launches`` attribute of its wrapper
@@ -52,6 +55,10 @@ __all__ = [
     "chain_axis",
     "chain_axes_plain",
     "chain_axes",
+    "chain_maps_plain",
+    "chain_maps",
+    "chain_axes_transpose_plain",
+    "chain_axes_transpose",
     "chain_slice_plain",
     "chain_slice",
     "run_lists",
@@ -647,6 +654,105 @@ def chain_axes(table: torch.Tensor, plan: ChainPlan, taps) -> torch.Tensor:
 chain_axes.launches = 0
 
 
+def chain_maps_plain(gather: torch.Tensor) -> torch.Tensor:
+    """The transposed axes' maps (d+1, Mc) int32 of a plan's transitions ``gather`` (d, Mc).
+
+    Row d-1-j is the inverse of transition j (tmap[d-1-j][gather[j][q]] = q):
+    each transition is a permutation of the live rows (every axis order sorts
+    the dead rows last, in row order, so past the live rows it is the
+    identity), and its transpose is that inverse.  Row d is the composite
+    G, the axis-0 position of the row at final position q:
+    G[q] = gather[0][gather[1][... gather[d-1][q]]].
+    """
+    d, Mc = gather.shape
+    tmap = torch.empty((d + 1, Mc), dtype=torch.int32, device=gather.device)
+    q = torch.arange(Mc, device=gather.device)
+    p = q
+    for j in range(d - 1, -1, -1):
+        tmap[d - 1 - j, gather[j].long()] = q.to(torch.int32)
+        p = gather[j, p].long()
+    tmap[d] = p.to(torch.int32)
+    return tmap
+
+
+def chain_maps(plan: ChainPlan) -> torch.Tensor:
+    """:func:`chain_maps_plain` of the plan's transitions: one launch, a thread a position."""
+    if not plan.gather.is_cuda:
+        return chain_maps_plain(plan.gather)
+    build.require("chain_maps", (plan.gather, torch.int32))
+    d, Mc = plan.gather.shape
+    tmap = torch.empty((d + 1, Mc), dtype=torch.int32, device=plan.gather.device)
+    build.check(build.library().sgp_chain_maps(plan.gather.data_ptr(), Mc, d, tmap.data_ptr(), build.stream()),
+                "chain_maps")
+    chain_maps.launches += 1
+    return tmap
+
+
+chain_maps.launches = 0
+
+
+def chain_axes_transpose_plain(table, plan: ChainPlan, taps, tmap=None):
+    """Plain K3'c transposed: B^T of the axis-0 table (Mc, c), the result in final order, as the kernel runs it.
+
+    B = B_d P_{d-1} ... P_0 B_0 (B_j axis j's symmetric stencil, P_j its
+    transition), so B^T = B_0 P_0^-1 ... P_{d-1}^-1 B_d: step j blurs axis
+    d-j and moves the table into the next lower axis's order through
+    ``tmap[j]`` (:func:`chain_maps_plain`).  Step 0 reads the axis-0 table in
+    final order (through G = tmap[d]: the transposed slice's splat is the
+    axis-0 splat permuted), and the last step, axis 0, writes in final order
+    through G, so K3'd and K5 read the result as the forward's final table.
+    Every element takes :func:`chain_axes_plain`'s operations in its order;
+    only the live rows are computed, and rows past them keep ``table``'s.
+    """
+    d, order = plan.gather.shape[0], plan.tapw.shape[1]
+    if tmap is None:
+        tmap = chain_maps_plain(plan.gather)
+    live = min(int(plan.n_lattice), table.shape[0])
+    a, b = table.clone(), table.clone()
+    for j in range(d + 1):
+        t = a[tmap[d, :live].long()] if j == 0 else a[:live]
+        acc = taps[order] * t
+        for k in range(1, min(order, live - 1) + 1):
+            w = plan.tapw[d - j, k - 1, :live - k, None]
+            acc[:live - k] = acc[:live - k] + w * t[k:]
+            acc[k:] = acc[k:] + w * t[:live - k]
+        b[:live] = acc[tmap[j, :live].long()]
+        a, b = b, a
+    return a
+
+
+def chain_axes_transpose(table: torch.Tensor, plan: ChainPlan, taps, tmap=None) -> torch.Tensor:
+    """K3'c transposed: B^T of ``table`` (Mc, c, axis-0 order) in one launch, the final-order table out.
+
+    The fused axes' kernel run backwards (csrc/chain.cu, chain_axes_kernel's
+    kT): the d+1 steps in reverse axis order, a grid barrier between them,
+    each step's gather the inverse of a transition, from ``tmap`` (the plan's
+    :func:`chain_maps`, computed here when not given).  ``table`` is
+    overwritten; rows past the live count are left undefined.
+    """
+    if not table.is_cuda:
+        return chain_axes_transpose_plain(table, plan, taps, tmap)
+    if tmap is None:
+        tmap = chain_maps(plan)
+    build.require("chain_axes_transpose", (table, torch.float32), (plan.tapw, torch.float32), (tmap, torch.int32),
+                  (plan.n_lattice, torch.int32))
+    (Mc, c), d, order = table.shape, plan.gather.shape[0], plan.tapw.shape[1]
+    if (tuple(plan.tapw.shape) != (d + 1, order, Mc) or tuple(tmap.shape) != (d + 1, Mc)
+            or len(taps) != 2 * order + 1):
+        raise ValueError(f"chain_axes_transpose: taps {tuple(plan.tapw.shape)} / {len(taps)} and maps "
+                         f"{tuple(tmap.shape)} do not fit a table of {Mc} rows and {d + 1} axes")
+    other = torch.empty_like(table)
+    barrier = torch.empty(1, dtype=torch.int32, device=table.device)
+    build.check(build.library().sgp_chain_axes_transpose(
+        table.data_ptr(), other.data_ptr(), plan.tapw.data_ptr(), tmap.data_ptr(), plan.n_lattice.data_ptr(), Mc,
+        c, d, order, float(taps[order]), barrier.data_ptr(), build.stream()), "chain_axes_transpose")
+    chain_axes_transpose.launches += 1
+    return table if (d + 1) % 2 == 0 else other
+
+
+chain_axes_transpose.launches = 0
+
+
 def chain_slice_plain(table, slice_idx, weights, n_lattice, slice_norm):
     """Plain K3'd: the barycentric sum of each point's d+1 final-order rows, in vertex order as the
     kernel sums them, NaN past the capacity (:1093-1100)."""
@@ -707,22 +813,39 @@ def chain_slice(table: torch.Tensor, plan: ChainPlan, slice_norm: float) -> torc
 chain_slice.launches = 0
 
 
-def chain_apply_plain(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float) -> torch.Tensor:
-    """The plain versions of K3'b, the fused d+1 K3'c and K3'd in a row (apply_plan_chain, :943)."""
-    table = chain_axes_plain(chain_splat_plain(plan, v), plan, taps)
-    return chain_slice_plain(table, plan.slice_idx, plan.weights, plan.n_lattice, slice_norm)
+def chain_apply_plain(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float, transpose: bool = False,
+                      return_table: bool = False):
+    """The plain versions of K3'b, the fused d+1 K3'c and K3'd in a row (apply_plan_chain, :943).
+
+    With ``transpose`` the transposed apply S^T B^T S (JAX's vjp of
+    apply_plan_chain in v): the axis-0 splat, the transposed axes
+    (:func:`chain_axes_transpose_plain`, their table in final order), the
+    slice.  With ``return_table`` also the final-order table the slice read
+    (Mc, c): the forward's B S v, or the transpose's B^T S g permuted into
+    final order, the two tables K5 reads.
+    """
+    table = chain_splat_plain(plan, v)
+    table = chain_axes_transpose_plain(table, plan, taps) if transpose else chain_axes_plain(table, plan, taps)
+    out = chain_slice_plain(table, plan.slice_idx, plan.weights, plan.n_lattice, slice_norm)
+    return (out, table) if return_table else out
 
 
-def chain_apply(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float) -> torch.Tensor:
+def chain_apply(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float, transpose: bool = False,
+                return_table: bool = False):
     """``slice_norm * S^T B_d ... B_0 S v`` for v (n, c) through a sort-chain plan: K3'b, fused K3'c, K3'd.
 
     On the card the three or four launches (and the fused axes' memset) go
     out from one host call; each kernel's launches are counted on its own
     wrapper (the fused axes on ``chain_axes``).  All NaN when the plan's
-    capacity overflowed.
+    capacity overflowed.  With ``transpose`` the transposed apply
+    ``slice_norm * S^T B^T S g``: the maps of the plan's transitions
+    (``chain_maps``), the splat, the transposed axes (counted on
+    ``chain_axes_transpose``) and the slice, from the same host call.  With
+    ``return_table`` also the final-order table (Mc, c) the slice read (see
+    :func:`chain_apply_plain`); rows past the live count are undefined.
     """
     if not v.is_cuda:
-        return chain_apply_plain(plan, v, taps, slice_norm)
+        return chain_apply_plain(plan, v, taps, slice_norm, transpose, return_table)
     d = plan.weights.shape[1] - 1
     _require_apply("chain_apply", plan, v)
     build.require("chain_apply", (plan.gather, torch.int32), (plan.tapw, torch.float32),
@@ -735,15 +858,22 @@ def chain_apply(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float) -> to
     tb = torch.empty_like(ta)
     part = torch.empty((plan.piece_row.shape[0], c), dtype=torch.float32, device=dev)
     barrier = torch.empty(1, dtype=torch.int32, device=dev)
+    tmap = torch.empty((d + 1, Mc), dtype=torch.int32, device=dev) if transpose else None
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
     build.check(build.library().sgp_chain_apply(
         *_splat_args(plan), v.data_ptr(), n, c, Mc, d, plan.gather.data_ptr(), plan.tapw.data_ptr(), order,
         ctypes.addressof(taps_host), plan.slice_idx.data_ptr(), plan.weights.data_ptr(),
-        *_slice_args(plan, c, dev), float(slice_norm),
-        ta.data_ptr(), tb.data_ptr(), part.data_ptr(), barrier.data_ptr(), out.data_ptr(), build.stream()),
+        *_slice_args(plan, c, dev), float(slice_norm), ta.data_ptr(), tb.data_ptr(), part.data_ptr(),
+        barrier.data_ptr(), None if tmap is None else tmap.data_ptr(), out.data_ptr(), build.stream()),
         "chain_apply")
     chain_splat.launches += 1
-    chain_axes.launches += 1
+    if transpose:
+        chain_maps.launches += 1
+        chain_axes_transpose.launches += 1
+    else:
+        chain_axes.launches += 1
     chain_slice.launches += 1
+    if return_table:
+        return out, ta if (d + 1) % 2 == 0 else tb
     return out

@@ -6,7 +6,8 @@ truncating the rank-r^2 Khatri-Rao product M = R (.) F back to rank r by a
 randomized range finder.  Four kernels carry it:
 
 * K13a ``ski_interp``: Keys cubic weights of each point on the grid and the
-  4-tap gather F = sum_t w[:, t] U[idx[:, t]]; ``ski_interp_backward``
+  4-tap gather F = sum_t w[:, t] U[idx[:, t]] (U staged once a block, the
+  taps once a point, float4 columns); ``ski_interp_backward``
   scatter-adds w (x) dF into dU in a fixed order (no atomics), which its
   plain version follows, so the two agree bit for bit;
 * K13b ``ski_kr_matmul``: out = M W for W (r^2, k), M never formed;
@@ -39,12 +40,14 @@ import torch
 from . import build
 
 __all__ = [
-    "interp_taps", "interp_plain", "interp_backward_plain", "kr_matmul_plain", "kr_gram_plain",
+    "interp_taps", "interp_plain", "interp_backward_plain", "interp_split", "kr_matmul_plain", "kr_gram_plain",
     "kr_adjoint_plain", "ski_interp", "ski_interp_backward", "ski_kr_matmul", "ski_kr_gram", "ski_kr_adjoint",
     "SkiInterp", "KhatriRaoMatmul", "KhatriRaoGram",
 ]
 
 _MAX_R = 64  # SKI_MAX_R in csrc/ski.cu
+_INTERP_POINTS = 256  # SKI_INTERP_POINTS: points of one K13a pass, whose taps a block stages
+_MAX_SMEM = 227 * 1024  # shared memory a block can take on an H100
 _MAX_SCATTER = 12288  # floats of a (g, r) slice: K13a's backward keeps _SCATTER_SLICES of them in shared memory
 _SCATTER_SLICES = 4  # SKI_SCATTER_SLICES in csrc/ski.cu: point sub-ranges of a K13a backward block
 _SCATTER_BLOCKS = 132  # most blocks of K13a's backward (one an SM of an H100)
@@ -151,18 +154,33 @@ def _check_rank(what: str, r: int, k: int):
         raise ValueError(f"{what}: rank {r} and width {k} must each be at most {_MAX_R} for the kernel")
 
 
+def interp_split(g: int, r: int) -> tuple[int, int]:
+    """(lanes, shared-memory bytes) of a K13a block for a (g, r) grid factor: lanes a point, r4 / 4 rounded up to
+    a power of two (r4 = 4 ceil(r / 4): each lane sums four columns; 16 at r = 64), and U's g padded rows with a
+    pass's _INTERP_POINTS taps (rows and weights).  Raises where U does not fit a block's 227 KB."""
+    r4 = -(-r // 4) * 4
+    lanes = 1 << (r4 // 4 - 1).bit_length()
+    smem = 4 * (g * r4 + 8 * _INTERP_POINTS)
+    if r < 1 or g < 1 or lanes > 32 or smem > _MAX_SMEM:
+        raise ValueError(f"ski_interp: a ({g}, {r}) grid factor does not fit a block ({smem} bytes of shared memory, "
+                         f"{lanes} lanes a point)")
+    return lanes, smem
+
+
 def ski_interp(x, grid_min, grid_step, U):
     """K13a: F (n, r) from the (n,) positions and the (g, r) grid factor; the grid's origin and step are
-    0-d device tensors, read on the device."""
+    0-d device tensors, read on the device.  U is staged once a block, each point's taps computed once, and a
+    team of lanes a point stores its row in float4 columns (:func:`interp_split`)."""
     if not x.is_cuda:
         return interp_plain(x, grid_min, grid_step, U)
     build.require("ski_interp", (x, torch.float32), (grid_min, torch.float32), (grid_step, torch.float32),
                   (U, torch.float32))
     n, (g, r) = x.shape[0], U.shape
+    lanes, smem = interp_split(g, r)
     out = torch.empty((n, r), dtype=torch.float32, device=x.device)
     lib = build.library()
     build.check(lib.sgp_ski_interp(x.data_ptr(), grid_min.data_ptr(), grid_step.data_ptr(), U.data_ptr(), n, g, r,
-                                   out.data_ptr(), build.stream()), "ski_interp")
+                                   lanes, smem, out.data_ptr(), build.stream()), "ski_interp")
     ski_interp.launches += 1
     return out
 

@@ -13,12 +13,14 @@ V = [alpha | P^{-1} b]; :class:`LatticeInvQuadLogdet` evaluates them in
 closed form (_iql_bwd, :243-272), with no nested autograd, in one of two
 ways (``BBMMConfig.grad_mode``):
   * "exact": one forward apply of V that keeps its table, one transposed
-    apply of s U, and K5 -- on a join plan of the same positions, built
-    afresh with its row lists, as JAX's backward filters afresh
-    (mll.py:262-265; the CG's chain plan has no transpose and keeps no
-    table).  The two applies are K9's over one window (the row-order splat
-    and the live-row blur), so the gradient repeats bit for bit, as JAX's
-    autodiff through the sort chain does;
+    apply of s U, and K5 -- on the CG's own sort-chain plan, saved by the
+    forward: the chain apply with its final-order table, the transposed
+    chain apply (K3'c transposed, the axes in reverse order over the
+    inverse transitions) and K5 at the plan's slice_idx.  JAX's backward
+    filters afresh with its one-shot filter (mll.py:262-265); the chain is
+    the same operator up to its packed words' false merges (lattice.py:
+    583-587), so this is the gradient of the operator the CG solved with.
+    No atomics, so the gradient repeats bit for bit;
   * "deriv_filter" (the reference's gradient, JAX's ``lattice_filter``):
     K V by the one-shot filter K4, as JAX's forward inside the vjp runs it,
     and the position gradient from the derivative-tap filter K7 with the
@@ -29,10 +31,10 @@ flows through the preconditioner or the CG.
 The single-device CG runs on the sort-chain plan (K3'), JAX's engine of
 record (mll.py:172, filter.py:186-193).  ``BBMMConfig.plan_capacity``
 bounds the training plan's table (JAX's mll.py:65-71): the CG's chain
-plan, and the exact backward's join plan of the same positions; the
-"deriv_filter" backward filters untrimmed, as JAX's ``lattice_filter``.  An
-overflow (more occupied lattice points than the capacity, e.g. after the
-lengthscales shrank) makes every apply on either plan NaN.  The NLML does
+plan, which the exact backward reuses; the "deriv_filter" backward filters
+untrimmed, as JAX's ``lattice_filter``.  An overflow (more occupied lattice
+points than the capacity, e.g. after the lengthscales shrank) makes every
+apply on the plan, forward or transposed, NaN.  The NLML does
 not become NaN, in JAX as here: every CG residual is NaN, so the best
 iterate stays the zero start and the loss a finite value of no meaning;
 the exact backward's outputscale gradient is NaN (as JAX's host loop gives
@@ -75,7 +77,6 @@ from ..ops.filter import (
     _plan_tensors,
     apply_plan_any,
     build_plan_any,
-    build_wide_plan_any,
     deriv_filter_grad,
     filter_backward,
     lattice_filter,
@@ -83,7 +84,7 @@ from ..ops.filter import (
     lattice_filter_exact_grad,
 )
 from ..ops.kernels import MixtureKernel
-from ..ops.lattice import ChainPlan, build_plan_sharded_join
+from ..ops.lattice import build_plan_sharded_join
 from .cg import cg_solve
 from .lanczos import logdet_from_cg_tridiag, slq_logdet
 from .pivoted_cholesky import (
@@ -263,10 +264,9 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
         ctx.dk = dk
         ctx.grad_mode = config.grad_mode
         ctx.axis = config.axis
-        ctx.capacity = config.plan_capacity
         ctx.plan_type = type(sys_.plan)
-        # A chain plan is not kept: the exact backward builds a join plan (JAX re-filters).
-        kept = () if isinstance(sys_.plan, ChainPlan) else _plan_tensors(sys_.plan)
+        # The exact backward reuses the CG's plan (a chain plan on one device); the deriv-mode one builds its own.
+        kept = _plan_tensors(sys_.plan) if _exact_backward(ctx) else ()
         ctx.save_for_backward(inv_ell, outputscale, x, alpha, sys_.solves[:, 1:], sys_.probes_right, *kept)
         inv_quad = (y * alpha).sum()
         return inv_quad if config.axis is None else config.axis.psum(inv_quad), sys_.logdet
@@ -278,11 +278,8 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
         U = torch.cat([(-a) * alpha[:, None], (b / p) * z_solves], dim=-1)
         V = torch.cat([alpha[:, None], probes_right], dim=-1).contiguous()
         ref = x * inv_ell
-        if ctx.grad_mode == "exact" or ctx.axis is not None or isinstance(ctx.dk, MixtureKernel):
-            if kept:
-                plan = _plan_from_tensors(ctx.plan_type, kept)
-            else:  # the same positions and capacity as the CG's chain plan; an overflow trips both
-                plan = build_wide_plan_any(ref.detach().contiguous(), ctx.dk, ctx.capacity)
+        if _exact_backward(ctx):
+            plan = _plan_from_tensors(ctx.plan_type, kept)
             KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True, axis=ctx.axis)
             # d/dref of s * K(ref) V against U: K5 with the cotangent s U.
             _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f, ctx.axis)
@@ -296,6 +293,12 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
         grad_noise = (U * V).sum()
         grad_y = 2.0 * a * alpha
         return grad_inv_ell, grad_s, grad_noise, grad_y, None, None, None, None, None
+
+
+def _exact_backward(ctx) -> bool:
+    """Whether the backward takes the exact gradient on the CG's plan: always sharded or for a mixture
+    (mll.py:95-110), else as ``grad_mode`` says."""
+    return ctx.grad_mode == "exact" or ctx.axis is not None or isinstance(ctx.dk, MixtureKernel)
 
 
 def lattice_inv_quad_logdet(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torch.Tensor,

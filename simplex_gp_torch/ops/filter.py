@@ -22,9 +22,13 @@ Two gradients of ``K(ref, ref) @ src``:
   * :class:`LatticeFilterExactGrad` is the exact gradient of the operator
     actually applied, as JAX gets it by autodiff in
     ``lattice_filter_exact_grad`` (:143), written out: the gradient in the
-    values is the transposed apply (K3 with the axis blurs reversed), and
+    values is the transposed apply (K9 with the axis blurs reversed), and
     the gradient in the positions is K5 (``lattice_filter_grad``), which
     reads the forward's and the transposed apply's blurred tables.
+    :func:`filter_backward` runs the same two on a sort-chain plan (JAX's
+    autodiff through apply_plan_chain, lattice.py:943): the transposed
+    chain apply (K3'c transposed) and K5 on the plan's ``slice_idx``, both
+    tables in the chain's final row order.
   * :class:`LatticeFilter` (``lattice_filter``, :241-294) is the
     reference-parity gradient: grad_src is one more forward filter of the
     cotangent, and grad_ref is K7 (``lattice_deriv_grad``), one
@@ -121,7 +125,7 @@ def build_wide_plan_any(ref: torch.Tensor, dk, capacity: Optional[int] = None):
     from one host call, :func:`~simplex_gp_torch.ops.lattice.build_wide_plan_join`), or a mixture's
     stacked MixturePlan, which holds its rows and ignores ``capacity``.
 
-    The plan that K9 applies more than once, and the exact backward's.
+    The plan that K9 applies more than once, and :class:`LatticeFilterExactGrad`'s.
     """
     if isinstance(dk, MixtureKernel):
         return build_plan_mixture(ref, dk.alphas, dk.base.coeffs, dk.base.variance)
@@ -136,19 +140,17 @@ def apply_plan_any(plan, V: torch.Tensor, dk, transpose: bool = False, return_ta
     over the live rows) and applies by K11b, or, for a mixture, its tuple of
     sharded plans, one a component, by K11b each
     (:func:`_apply_sharded_mixture`).  A ChainPlan applies by K3'b-d
-    (apply_plan, lattice.py:1305-1314) and has neither a transpose nor a
-    table to return; a WidePlan (a join plan with its row lists, the exact
-    backward's) by K9 over one window of all V's columns, with no atomics; a
-    mixture applies all its components by K12 (filter.py:196-204).
+    (apply_plan, lattice.py:1305-1314), transposed by K3'c transposed, its
+    table in final row order; a WidePlan (a join plan with its row lists)
+    by K9 over one window of all V's columns, with no atomics; a mixture
+    applies all its components by K12 (filter.py:196-204).
     """
     if axis is not None:
         if isinstance(dk, MixtureKernel):
             return _apply_sharded_mixture(plan, V, dk, transpose, return_table, axis)
         return apply_plan_join(plan, V, dk.coeffs, transpose, return_table, axis)
     if isinstance(plan, ChainPlan):
-        if transpose or return_table:
-            raise NotImplementedError("a chain plan applies forward on one device: no transpose or table")
-        return apply_plan_chain(plan, V, dk.coeffs)
+        return apply_plan_chain(plan, V, dk.coeffs, transpose, return_table)
     if isinstance(plan, WidePlan):
         return apply_plan_rows(plan, V, dk.coeffs, transpose, return_table)
     if isinstance(dk, MixtureKernel):
@@ -303,10 +305,13 @@ def filter_backward(plan, ref: torch.Tensor, dk, src: torch.Tensor, g: torch.Ten
 
     ``table_f`` is the blurred table of the forward apply of ``src`` on
     ``plan`` (``apply_plan_any(..., return_table=True)``).  A single
-    kernel's plan on one device is a :class:`WidePlan`: the transposed apply
-    is K9's on its row lists, with no atomics, so the gradient repeats bit
-    for bit (K5 reads only live rows, and the row-order splat writes every
-    one).  A bare join plan takes K3's transposed apply.  With ``axis``
+    kernel's plan on one device is a :class:`ChainPlan` (the NLML's, the
+    CG's own plan) or a :class:`WidePlan`: the transposed apply is the
+    chain's (splat, K3'c transposed, slice) or K9's on its row lists, with
+    no atomics either way, so the gradient repeats bit for bit (K5 reads
+    only live rows, and the row-order splat writes every one).  K5 reads a
+    chain plan's tables at ``slice_idx``, both in final row order.  A bare
+    join plan takes K3's transposed apply.  With ``axis``
     the plan is sharded: the transposed apply is K11b's, which splats every
     rank's g, and K5 runs on this rank's points against the two global
     (n_lattice, c) tables, so grad_ref holds this rank's rows of the whole
@@ -323,7 +328,8 @@ def filter_backward(plan, ref: torch.Tensor, dk, src: torch.Tensor, g: torch.Ten
     if isinstance(dk, MixtureKernel):
         return grad_src, mixture_position_grad(plan, ref, dk, src, g, table_f, table_b)
     E = _lattice_constants(d, dk.coeffs, dk.variance, ref.device)[0]
-    grad_ref = lattice_filter_grad(ref.to(torch.float32).contiguous(), E, plan.seg_ids,
+    seg_ids = plan.slice_idx if isinstance(plan, ChainPlan) else plan.seg_ids
+    grad_ref = lattice_filter_grad(ref.to(torch.float32).contiguous(), E, seg_ids,
                                    src.to(torch.float32).contiguous(), g, table_f, table_b, SLICE_NORM(d))
     return grad_src, grad_ref
 

@@ -323,16 +323,21 @@ def build_plan_chain(x: torch.Tensor, coeffs: tuple, blur_variance: float,
     return chain_build(h1, h2, s, weights, consts, [float(c) for c in coeffs], capacity)
 
 
-def apply_plan_chain(plan: ChainPlan, v: torch.Tensor, coeffs: tuple) -> torch.Tensor:
+def apply_plan_chain(plan: ChainPlan, v: torch.Tensor, coeffs: tuple, transpose: bool = False,
+                     return_table: bool = False):
     """K(x, x) @ v for v (n, c) through a sort-chain plan: K3'b splat, d+1 K3'c axes, K3'd slice.
 
     Port of lattice.py::apply_plan_chain (:943) on one device; all NaN when
-    the plan's capacity overflowed (:1093-1100).
+    the plan's capacity overflowed (:1093-1100).  ``transpose`` applies K^T,
+    the apply's reverse mode in v as JAX's autodiff runs it (the transposed
+    axes, K3'c transposed); ``return_table`` also returns the final-order
+    table the slice read, (Mc, c), for K5 (kernels/chain.py::chain_apply).
     """
     dp1, order = plan.tapw.shape[:2]
     if len(coeffs) != 2 * order + 1:
         raise ValueError(f"{len(coeffs)} taps do not fit a plan of order {order}")
-    return chain_apply(plan, v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(dp1 - 1))
+    return chain_apply(plan, v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(dp1 - 1),
+                       transpose, return_table)
 
 
 def build_plan(x: torch.Tensor, coeffs: tuple, blur_variance: float, capacity: Optional[int] = None) -> ChainPlan:

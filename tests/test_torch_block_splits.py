@@ -1,4 +1,4 @@
-"""The host-side block rules of K3'd and K13c against their definitions, on the CPU.
+"""The host-side block rules of K3'd, K13a and K13c against their definitions, on the CPU.
 
 ``kernels/chain.py::slice_split`` sizes a block of K3'd, the sort chain's
 slice: its points (a multiple of 4, so every block's slab of slice_idx and
@@ -9,6 +9,10 @@ of whole stages, one wave of blocks over the card; the kernel sums each chunk
 into its own partial and adds the partials in chunk order, so the chunks must
 cover every row once: the chunked sum of the plain version in that order
 stays within rel 1e-6 of the unchunked one (float32 sums in another order).
+``kernels/ski.py::interp_split`` gives a K13a block its lanes a point (each
+lane sums four columns, so 4 lanes must reach r; a power of two, so the
+teams tile the block's warps) and its shared memory (the grid factor's rows
+padded to a multiple of 4 floats, and a pass's taps).
 """
 
 import numpy as np
@@ -93,3 +97,21 @@ def test_chunked_gram_in_chunk_order_is_the_gram(n, r, k):
     want = KS.kr_gram_plain(Q.double(), R.double(), F.double())
     assert float((out.double() - want).norm() / want.norm()) < 1e-6
     assert float((KS.kr_gram_plain(Q, R, F).double() - want).norm() / want.norm()) < 1e-6
+
+
+@pytest.mark.parametrize("g,r", [(100, 64), (100, 32), (100, 33), (9, 5), (40, 3), (1, 1), (100, 4), (300, 64)])
+def test_interp_split_follows_its_definition(g, r):
+    lanes, smem = KS.interp_split(g, r)
+    r4 = -(-r // 4) * 4
+    assert lanes & (lanes - 1) == 0 and 4 * lanes >= r and (lanes == 1 or 4 * (lanes // 2) < r4)
+    assert 256 % lanes == 0 and lanes <= 32
+    assert smem == 4 * (g * r4 + 8 * KS._INTERP_POINTS) and smem <= 227 * 1024
+    if (g, r) == (100, 64):  # precipitation's SKIP: 16 lanes a point, a row of 64 floats in 16 float4 stores
+        assert (lanes, smem) == (16, 33792)
+
+
+def test_interp_split_refuses_a_grid_past_a_block():
+    with pytest.raises(ValueError, match="does not fit a block"):
+        KS.interp_split(1000, 64)
+    with pytest.raises(ValueError, match="does not fit a block"):
+        KS.interp_split(10, 200)

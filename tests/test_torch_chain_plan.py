@@ -76,7 +76,8 @@ def test_chain_matches_join(n, d, order, kind):
 
 def test_chain_is_default_plan():
     """build_plan is the chain, apply_plan dispatches on the plan type, and build_plan_any gives a
-    ChainPlan for a DiscretizedKernel on one device (JAX's filter.py:186-193)."""
+    ChainPlan for a DiscretizedKernel on one device (JAX's filter.py:186-193); apply_plan_any takes a chain
+    plan's transpose (the exact backward's) through apply_plan_chain."""
     tdk, _ = _kernels("rbf", 1)
     x, v = seeded(128, 4, 3)
     xt, vt = torch.from_numpy(x), torch.from_numpy(v)
@@ -90,8 +91,8 @@ def test_chain_is_default_plan():
     anyp = t_filter.build_plan_any(xt, tdk, capacity=300)
     assert isinstance(anyp, t_lattice.ChainPlan) and anyp.cnt.shape == (300,)
     torch.testing.assert_close(t_filter.apply_plan_any(anyp, vt, tdk), out, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        t_filter.apply_plan_any(anyp, vt, tdk, transpose=True)
+    torch.testing.assert_close(t_filter.apply_plan_any(anyp, vt, tdk, transpose=True),
+                               t_lattice.apply_plan_chain(anyp, vt, tdk.coeffs, transpose=True), rtol=0, atol=0)
 
 
 def test_chain_symmetry_matches_join():
@@ -261,10 +262,10 @@ class _Spy:
 
 
 def test_engine_runs_its_cg_on_the_chain_and_its_backward_on_a_join_plan(monkeypatch):
-    """_solve_system's CG applies a ChainPlan only; the exact backward builds a join plan with its row lists
-    (build_wide_plan_join) of the same positions and capacity (JAX's backward filters afresh,
-    mll.py:262-265) and saves no chain plan.
-    Its two applies run on the join plan's row lists (apply_plan_rows, K9's row-order splat), not K3."""
+    """_solve_system's CG applies a ChainPlan only; the exact backward reuses that plan, saved by the forward:
+    it builds no join plan (build_wide_plan_join) and runs no K9 (apply_plan_rows) or K3, but the chain
+    apply with its final-order table and the transposed chain apply with its table, each once, on the CG's
+    plan (the sort chain's reverse mode, JAX's autodiff through apply_plan_chain, lattice.py:943)."""
     x, y, probes, values = _nlml_case(300, 3, "matern", 1)
     tdk, _ = _kernels("matern", 1)
     spy = _Spy(monkeypatch, t_filter, "build_plan", "apply_plan_chain", "apply_plan_join", "build_wide_plan_join",
@@ -277,16 +278,14 @@ def test_engine_runs_its_cg_on_the_chain_and_its_backward_on_a_join_plan(monkeyp
     assert len(spy.calls["apply_plan_chain"]) >= 10
     assert all(call[0][0] is plan_call[2] for call in spy.calls["apply_plan_chain"])
     assert not spy.calls["apply_plan_join"] and not spy.calls["build_wide_plan_join"]
+    forward_applies = len(spy.calls["apply_plan_chain"])
     loss.backward()
-    (join_call,) = spy.calls["build_wide_plan_join"]
-    assert join_call[0][3] == 1024
-    torch.testing.assert_close(join_call[0][0], torch.from_numpy(x) * params["inv_ell"].detach(), rtol=0, atol=0)
-    assert int(join_call[2].n_lattice) == int(plan_call[2].n_lattice)
-    assert not spy.calls["apply_plan_join"]
-    applies = spy.calls["apply_plan_rows"]  # forward with its table, then transposed
+    assert not spy.calls["build_wide_plan_join"] and not spy.calls["apply_plan_join"]
+    assert not spy.calls["apply_plan_rows"] and len(spy.calls["build_plan"]) == 1
+    applies = spy.calls["apply_plan_chain"][forward_applies:]  # forward with its table, then transposed
     assert [call[0][3:] for call in applies] == [(False, True), (True, True)]
-    assert all(call[0][0].seg_ids is join_call[2].seg_ids for call in applies)
-    assert len(spy.calls["apply_plan_chain"]) >= 10
+    assert all(call[0][0].slice_idx.data_ptr() == plan_call[2].slice_idx.data_ptr() for call in applies)
+    assert all(len(call[2]) == 2 and call[2][1].shape == (1024, call[0][1].shape[1]) for call in applies)
 
 
 def test_posterior_cache_runs_its_cg_on_the_chain_and_matches_jax(monkeypatch):

@@ -38,6 +38,7 @@ from simplex_gp_torch.ops import filter as t_filter
 from simplex_gp_torch.ops import kernels as t_kernels
 from simplex_gp_torch.ops import lattice as t_lattice
 from simplex_gp_tpu.linalg import mll as j_mll
+from simplex_gp_tpu.ops import filter as j_filter
 from simplex_gp_tpu.ops import kernels as j_kernels
 from simplex_gp_tpu.ops import lattice as j_lattice
 
@@ -210,8 +211,11 @@ def test_k9_through_the_one_call_builder_matches_jax(c, order, kind):
 
 @pytest.mark.parametrize("capacity", [None, "occupancy"])
 def test_exact_nlml_gradient_through_the_one_call_builder_matches_jax(monkeypatch, capacity):
-    """The exact backward builds its plan and rows by build_wide_plan_join (once, at the CG plan's
-    capacity); the NLML and its gradients within test_torch_exact_backward.py's bounds of JAX's."""
+    """The NLML's exact backward reuses the CG's chain plan and builds no join plan with
+    build_wide_plan_join; the exact filter gradient (lattice_filter_any, the differentiable K V) builds its
+    plan and rows by it once, at the capacity.  The NLML and its gradients within
+    test_torch_exact_backward.py's bounds of JAX's, the filter's ref gradient within
+    test_torch_exact_backward.py's 1e-3 of jax.vjp of JAX's lattice_filter_exact_grad at that capacity."""
     calls = []
     real = t_filter.build_wide_plan_join
     monkeypatch.setattr(t_filter, "build_wide_plan_join", lambda *a, **k: calls.append(a[3:]) or real(*a, **k))
@@ -236,10 +240,17 @@ def test_exact_nlml_gradient_through_the_one_call_builder_matches_jax(monkeypatc
                               torch.from_numpy(probes))
     assert calls == []  # the CG runs on the chain plan
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-    assert calls == [(cap,)]
+    assert calls == []  # so does the backward
     assert abs(float(loss.detach()) - float(j_val)) <= 1e-5
     for k in values:
         assert rel_err(grads[k], j_grad[k]) <= 2e-3, k
+    ref = torch.from_numpy(x * values["inv_ell"]).requires_grad_(True)
+    V = torch.from_numpy(np.random.default_rng(3).normal(size=(n, 4)).astype(np.float32))
+    gx, = torch.autograd.grad(t_filter.lattice_filter_any(V, ref, tdk, cap), [ref], V)
+    assert calls == [(cap,)]
+    _, vjp = jax.vjp(lambda r_: j_filter.lattice_filter_exact_grad(jnp.asarray(V.numpy()), r_, jdk, cap),
+                     jnp.asarray(x * values["inv_ell"]))
+    assert rel_err(gx.numpy(), np.asarray(vjp(jnp.asarray(V.numpy()))[0])) <= 1e-3
 
 
 def _c_definitions() -> dict:

@@ -1528,3 +1528,105 @@ def test_fused_chain_axes_match_plain_and_the_axis_launches(cuda_device, case, c
         assert bool(torch.isnan(out).all() and torch.isnan(pout).all() and torch.isnan(replayed).all())
     else:
         assert torch.equal(out, pout) and torch.equal(replayed, out)
+
+
+@pytest.mark.parametrize("c", [1, 11, 17])
+@pytest.mark.parametrize("case", ["synthetic", "synthetic order 3", "elevators", "trim", "over"])
+def test_transposed_chain_axes_and_apply_match_plain(cuda_device, case, c):
+    """K3'c transposed (the fused axes' kernel run in reverse axis order over the inverse transitions) and
+    its maps equal their plain twins bit for bit over the live rows; the transposed chain apply (maps, splat,
+    transposed axes, slice from one host call) equals its plain version, output and final-order table, counts
+    one transposed launch and no forward one, and replays from a CUDA graph to the same bits; past the
+    capacity its output is all NaN."""
+    order = 3 if case.endswith("order 3") else 1
+    dk = _dk("matern", order)
+    taps = [float(t) for t in dk.coeffs]
+    if case.startswith("synthetic"):
+        plan = synthetic_chain_plan(RUN_LENGTHS, 500, seed=c, device=cuda_device, axes=(7, order))
+    else:
+        x = _positions(10623, 18, 12, cuda_device) if case == "elevators" else \
+            torch.from_numpy(chain_class_positions()).to(cuda_device)
+        occ = int(t_lattice.build_plan_chain(x, dk.coeffs, dk.variance).n_lattice)
+        cap = {"elevators": None, "trim": occ, "over": occ - 1}[case]
+        plan = t_lattice.build_plan_chain(x, dk.coeffs, dk.variance, cap)
+    live = min(int(plan.n_lattice), plan.cnt.shape[0])
+    tmap = KC.chain_maps(plan)
+    assert torch.equal(tmap, KC.chain_maps_plain(plan.gather))
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    table = torch.randn((plan.cnt.shape[0], c), generator=gen, device=cuda_device)
+    want = KC.chain_axes_transpose_plain(table, plan, taps, tmap)
+    before = (KC.chain_axes_transpose.launches, KC.chain_axes.launches)
+    got = KC.chain_axes_transpose(table.clone(), plan, taps, tmap)
+    again = KC.chain_axes_transpose(table.clone(), plan, taps)
+    torch.cuda.synchronize()
+    assert (KC.chain_axes_transpose.launches - before[0], KC.chain_axes.launches - before[1]) == (2, 0)
+    assert torch.equal(got[:live], want[:live]) and torch.equal(again[:live], got[:live])
+    if case.startswith("synthetic"):
+        return
+    g = torch.randn((plan.weights.shape[0], c), generator=gen, device=cuda_device)
+    norm = t_lattice.SLICE_NORM(plan.weights.shape[1] - 1)
+    before = (KC.chain_axes_transpose.launches, KC.chain_axes.launches, KC.chain_maps.launches)
+    out, tb = t_lattice.apply_plan_chain(plan, g, dk.coeffs, transpose=True, return_table=True)
+    assert (KC.chain_axes_transpose.launches - before[0], KC.chain_axes.launches - before[1],
+            KC.chain_maps.launches - before[2]) == (1, 0, 1)
+    pout, ptb = KC.chain_apply_plain(plan, g, taps, norm, transpose=True, return_table=True)
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        replayed = t_lattice.apply_plan_chain(plan, g, dk.coeffs, transpose=True)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(tb[:live], ptb[:live])
+    if case == "over":
+        assert bool(torch.isnan(out).all() and torch.isnan(pout).all() and torch.isnan(replayed).all())
+    else:
+        assert torch.equal(out, pout) and torch.equal(replayed, out)
+
+
+def test_exact_backward_runs_on_the_cg_chain_plan(cuda_device):
+    """The NLML's exact backward on the card: no join plan, K9 or K3; one forward chain apply with its table,
+    one transposed (maps, K3'c transposed) and one K5 on the CG's chain plan, and the gradient bit for bit
+    twice."""
+    from simplex_gp_torch.linalg import mll as t_mll
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(5000, 7)).astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy(rng.normal(size=5000).astype(np.float32)).to(cuda_device)
+    z = torch.from_numpy(rng.choice([-1.0, 1.0], size=(5000, 10)).astype(np.float32)).to(cuda_device)
+    dk = t_kernels.matern_kernel(1.5, 1)
+    counters = (K.lattice_dedup_neighbors, K.join_rows, K.lattice_apply_cols, K.lattice_apply, KC.chain_build,
+                KC.chain_maps, KC.chain_axes_transpose, K.lattice_filter_grad)
+    grads = []
+    for _ in range(2):
+        params = {k: torch.tensor(v, device=cuda_device, requires_grad=True) for k, v in
+                  (("inv_ell", np.full(7, 0.7, np.float32)), ("outputscale", np.float32(1.0)),
+                   ("noise", np.float32(0.2)), ("mean", np.float32(0.0)))}
+        loss = t_mll.lattice_nlml(dk, t_mll.BBMMConfig(plan_capacity=40000), params, x, y, z)
+        before = [fn.launches for fn in counters]
+        grads.append(torch.autograd.grad(loss, list(params.values())) + (loss.detach(),))
+        torch.cuda.synchronize()
+        assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 0, 0, 0, 1, 1, 1]
+    assert all(torch.equal(u, v) for u, v in zip(*grads))
+
+
+@pytest.mark.parametrize("n,g,r,offset", [(65536, 100, 64, 0), (65536, 100, 64, 1), (70001, 100, 32, 0),
+                                          (517, 9, 5, 0), (300, 40, 3, 0)])
+def test_ski_interp_team_kernel_matches_plain(cuda_device, n, g, r, offset):
+    """K13a's team kernel (U staged once a block, a point's taps once, float4 columns; scalar loads and stores
+    when U is off a 16-byte boundary or r is not a multiple of 4) within K13_REL = 1e-5 of interp_plain and
+    bit for bit a second call."""
+    from simplex_gp_torch.kernels import ski as KS
+
+    gen = torch.Generator().manual_seed(n + r)
+    x = torch.randn(n, generator=gen).to(cuda_device)
+    buf = torch.randn(g * r + offset, generator=gen).to(cuda_device)
+    U = buf[offset:].view(g, r)
+    step = ((x.max() - x.min()) / (g - 5) + 1e-12).contiguous()
+    gmin = (x.min() - 2 * step).contiguous()
+    F = KS.ski_interp(x, gmin, step, U)
+    want = KS.interp_plain(x, gmin, step, U)
+    torch.cuda.synchronize()
+    assert float((F - want).norm() / want.norm()) < 1e-5 and torch.equal(KS.ski_interp(x, gmin, step, U), F)
