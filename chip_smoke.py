@@ -73,16 +73,25 @@ Phases, each printed as it runs:
      chain backward's kernels, no join plan's, no torch.sort or
      torch.cumsum);
   7. the data-parallel training path at elevators' width (the 10,622 rows
-     shard_batch keeps at P = 2, median init, 10 probes): K11a
+     shard_batch keeps at P = 2, median init, 10 probes), whose plan is the
+     sharded sort chain (JAX's build_plan_sharded): K11a
      lattice_dedup_ordered against its plain version (bit-equal) and K2
      (occupancy, time); K11b lattice_apply_sharded (bit for bit, and a second
      call; timed beside K3 on the same plan, with its row build and the bytes
-     a collective) and K6' (pivot_column given the pivot's rows) against
-     their plain versions on one NCCL rank; two gloo ranks sharing the card
-     (``simplex_gp_torch.parallel.launch``): K11b (bit for bit) and one K6'
-     step against their plain versions on each rank, the
-     rank-100 sharded factor against one process's, the sharded filter
-     against K3 on one process, K10' (the sharded CG's cg_step_x, cg_step_p
+     a collective), the sharded join's kernels, and K6' (pivot_column given
+     the pivot's rows) against their plain versions on one NCCL rank; there
+     too the sharded chain: its plan torch.equal to the one-device untrimmed
+     plan, its apply (forward and transposed, output and final-order table)
+     bit for bit against its plain version, a second call and the one-device
+     chain apply, timed with its collectives apart beside its bound, the
+     one-device apply and K11b; two gloo ranks sharing the card
+     (``simplex_gp_torch.parallel.launch``): K11b (bit for bit), the sharded
+     chain apply and its unblock (bit for bit, and a second call; timed with
+     the transport apart) and one K6'
+     step against their plain versions on each rank, the chain's global
+     plan the same bits on both ranks and in one process, the
+     rank-100 sharded factor against one process's, the sharded filters
+     against K3 and the chain apply on one process, K10' (the sharded CG's cg_step_x, cg_step_p
      and cg_init given both ranks' gathered partials) against their plain
      twins bit for bit from a state three iterations into the step's CG, and
      cg_fold given both ranks' U^T r likewise, the
@@ -91,11 +100,16 @@ Phases, each printed as it runs:
      never launched), the CG iteration counts, best residuals and SLQ
      record the same bits on both ranks, the CG's collectives an iteration
      (3), one Adam step (parameters bit-equal on both ranks), the step's
-     stages with the transport apart and the bytes a collective, the J = 8
-     mixture's data-parallel NLML
-     and gradients against one process's K12 mixture; and
+     stages with the transport apart and the bytes a collective, its
+     launches (the sharded chain's kernels; K11a, K11b and K3 none), the
+     J = 8 mixture's data-parallel NLML (one sharded chain a component)
+     and gradients against one process's K12 mixture;
      ``simplex_gp_torch.scaling``'s records on one NCCL rank and on the two
-     gloo ranks.  Then one line of K10 (the CG iteration) times;
+     gloo ranks; and (7.5) the houseelectric stand-in's first 360,000 rows
+     over the two gloo ranks (houseelectric_golden.npz's probes and median
+     init, its fixed CG iteration count): NLML and raw gradients against one
+     process on the untrimmed chain under phase 6's gates.  Then one line of
+     K10 (the CG iteration) times;
   8. the Gaussian-mixture kernel path at elevators' width (J = 8 RBF
      components of order 1 targeting Matern-1.5, the configuration of
      runs/r5/simplexgp_elevators_s0 with --kernel mixture), against the
@@ -229,7 +243,8 @@ The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- K3 has none there since the range
 sketch runs K9 on its plan's row lists; for K5, on the trainer run; for K7, on
 the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9,
-its row lists and the bounded K2, on the houseelectric trainer run; for K11a, K11b, K6' and K10',
+its row lists and the bounded K2, on the houseelectric trainer run; for K11a, K11b (the sharded
+join's, 0 since the step runs the sharded chain), the chain's unblock, K6' and K10',
 on the two ranks' data-parallel NLML step; for K12, on the mixture trainer
 run; for K13, on the SKIP trainer run; for K3', in one training step (the
 per-axis K3'c, chain_axis, is off the path since the fused axes: 0; K3'c
@@ -244,7 +259,7 @@ imports jax.
 
     python3 chip_smoke.py --ranks 4
 
-runs only phase 7.3-7.4b, over four NCCL ranks on four cards of one host
+runs only phase 7.3-7.5, over four NCCL ranks on four cards of one host
 (its elevators rows cut to a multiple of 4), against one process on the
 first card.
 """
@@ -356,6 +371,12 @@ OCC_REL = 1e-4
 # held bit-equal to its plain version, K11b and K6' take K3_REL and the K6
 # bounds.
 PARALLEL_FILTER_REL = 2e-5
+# The sharded sort chain (the data-parallel engine's plan) against the one-process chain on the same
+# positions: the same plan and operations, except that each live row's splat sum is split into the ranks'
+# partial sums, which the reduce-scatter adds (f32 rounding of a reordered sum, rel ~1e-7 at elevators):
+# K3_REL.  Each rank's kernels against their plain versions, and a second call, bit for bit; at P = 1
+# (one NCCL rank) the apply is the one-device apply bit for bit (torch.equal).
+SHARDED_CHAIN_REL = K3_REL
 # Phase 3's range sketch apply (K9 on the join plan's row lists, no atomics)
 # against K3's atomic apply of the same operator at c = 100: K3_REL.
 SKETCH_K3_REL = K3_REL
@@ -460,6 +481,9 @@ KERNEL_ROWS = {
     "lattice_dedup_neighbors_bounded": ("simplex_gp_torch/csrc/dedup.cu", "simplex_gp_tpu/ops/lattice.py:693"),
     "lattice_dedup_ordered": ("simplex_gp_torch/csrc/dedup.cu", "simplex_gp_tpu/parallel/shard_filter.py:118"),
     "lattice_apply_sharded": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/lattice.py:499"),
+    # The sharded chain apply's gathered (P, n_lattice, cb) column blocks into the (n_lattice, c) table: the
+    # layout half of JAX's all_gather along the columns and its cut to c_in (apply_plan_chain :1059-1061).
+    "chain_unblock": ("simplex_gp_torch/csrc/chain.cu", "simplex_gp_tpu/ops/lattice.py:1059"),
     # K6' is pivot_column given the pivot's rows; its launches are the wrapper's sharded_launches.
     "pivot_column_at": ("simplex_gp_torch/csrc/pivot.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:129"),
     "lattice_mixture_apply": ("simplex_gp_torch/csrc/mixture.cu", "simplex_gp_tpu/ops/filter.py:167"),
@@ -1784,8 +1808,11 @@ def u_pass_times(P, r, prefix: str) -> dict:
 def parallel_rank(axis, case):
     """Phase 7.3's rank body, on each of two gloo ranks sharing the card.
 
-    The sharded filter at c = 11; K11b against its plain version (forward
-    and transposed, outputs and blurred tables) and one K6' step against its
+    The sharded filter at c = 11 on the sharded join (K11b) and on the
+    sharded chain (the engine's plan); K11b against its plain version
+    (forward and transposed, outputs and blurred tables); the sharded chain
+    apply against its plain version (:func:`sharded_chain_checks`), with its
+    global plan fields for the parent to hold across ranks; one K6' step against its
     plain version at this rank's shapes, with the pivot held by whichever
     rank wins it (-1 on the others); the rank-100 sharded factor, whose rows
     the parent holds against one process's; the data-parallel NLML and
@@ -1796,8 +1823,9 @@ def parallel_rank(axis, case):
     from a saved state three iterations into the step's CG; that CG's
     collectives between consecutive MVMs; the J = 8 mixture's data-parallel
     NLML, gradients and warm step (the mixture golden file's median init and
-    weights); then ``simplex_gp_torch.scaling``'s records.  Returns numpy
-    arrays and numbers.
+    weights); then ``simplex_gp_torch.scaling``'s records; then, with
+    ``case["house"]``, the houseelectric stand-in's data-parallel NLML and
+    gradients (:func:`house_rank`).  Returns numpy arrays and numbers.
     """
     import dataclasses
 
@@ -1806,13 +1834,15 @@ def parallel_rank(axis, case):
     import simplex_gp_torch
     from simplex_gp_torch import convert, scaling
     from simplex_gp_torch.kernels import cg as K10
+    from simplex_gp_torch.kernels import chain as KC
     from simplex_gp_torch.kernels import lattice as K
     from simplex_gp_torch.kernels.pivot import pivot_column, pivot_column_plain
     from simplex_gp_torch.linalg import mll
     from simplex_gp_torch.linalg.cg import CGLoop, cg_solve
     from simplex_gp_torch.linalg.pivoted_cholesky import pivoted_cholesky_features, precond_sqrt, sharded_pivot
     from simplex_gp_torch.ops import lattice as L
-    from simplex_gp_torch.parallel import build_plan_sharded_join, data_parallel_loss_fn, replicate, shard_batch
+    from simplex_gp_torch.parallel import (build_plan_sharded, build_plan_sharded_join, data_parallel_loss_fn,
+                                           replicate, shard_batch)
 
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = mll.BBMMConfig(**case["cfg"])
@@ -1849,6 +1879,12 @@ def parallel_rank(axis, case):
         out["apply_transport_ms"] = 1e3 * axis.stats["seconds"] / 5
         out["apply_bytes_per_collective"] = axis.stats["bytes"] / max(1, axis.stats["calls"])
         axis.timing = False
+        cplan = build_plan_sharded(ref, dk.coeffs, dk.variance, axis)
+        out["chain_filter"] = L.apply_plan_chain(cplan, v, dk.coeffs, axis=axis).cpu().numpy()
+        out["chain_global"] = {f: getattr(cplan, f).cpu().numpy() for f in ("gather", "tapw", "n_lattice")}
+        out["chain"] = sharded_chain_checks(cplan, v, dk, axis)
+        out["chain_build_ms"] = cuda_ms(lambda: build_plan_sharded(ref, dk.coeffs, dk.variance, axis), 3)
+        del cplan
 
         # The rank-100 sharded factor, and one K6' step on its first 99 columns: the winner's rows come
         # from sharded_pivot, so one of the two ranks runs with piv = -1.
@@ -1869,19 +1905,20 @@ def parallel_rank(axis, case):
         out.update(k6_step_rel=max(rel(La[:, k - 1], Lb[:, k - 1]), rel(da, db)), k6_step_piv=int(piv),
                    k6_step_pivots_equal=bool(torch.equal(pa, pb)))
 
-    # K10': the step's CG as _solve_system poses it (the sharded plan, the rank-100 preconditioner, [y | P^1/2 z],
-    # the shift, the 100-step record), three iterations in, then its three reducing kernels against their twins.
+    # K10': the step's CG as _solve_system poses it (the sharded chain plan, the rank-100 preconditioner,
+    # [y | P^1/2 z], the shift, the 100-step record), three iterations in, then its three reducing kernels
+    # against their twins.
     acfg = dataclasses.replace(cfg, axis=axis)
     with torch.no_grad():
         params = model.constrained()
         ref = x * params["inv_ell"]
-        plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
+        plan = build_plan_sharded(ref, dk.coeffs, dk.variance, axis)
         P = mll.build_precond(dk, acfg, params, ref, axis.n_global(x.shape[0]))
         s, noise = params["outputscale"], params["noise"]
         rhs = torch.cat([(y - params["mean"])[:, None], precond_sqrt(P, z, axis)], dim=-1)
 
         def cg_mv(V):
-            return L.apply_plan_join(plan, V, dk.coeffs, axis=axis)
+            return L.apply_plan_chain(plan, V, dk.coeffs, axis=axis)
 
         loop = CGLoop(cg_mv, rhs, tol=cfg.cg_tolerance, max_iters=cfg.max_cg_iterations, precond=P, tridiag_m=100,
                       shift=(s, noise), axis=axis)
@@ -1890,16 +1927,18 @@ def parallel_rank(axis, case):
         out["k10_sharded"] = k10_sharded_pairs(loop, axis, 20)
         del loop
 
-    path = (K.lattice_geometry, K.lattice_dedup_ordered, K.lattice_apply_sharded, K.lattice_filter_grad,
+    path = (K.lattice_geometry, KC.chain_build, KC.chain_splat, KC.chain_axes, KC.chain_maps,
+            KC.chain_axes_transpose, KC.chain_unblock, KC.chain_slice, K.lattice_filter_grad,
             K10.cg_dot, K10.cg_step_x, K10.cg_utr, K10.cg_fold, K10.cg_precond, K10.cg_step_p, K10.cg_init)
-    for fn in (*path, K.lattice_apply):
+    off_path = (K.lattice_dedup_ordered, K.lattice_apply_sharded, K.lattice_apply)  # the join's K11a, K11b; K3
+    for fn in (*path, *off_path):
         fn.launches = 0
     pivot_column.sharded_launches = 0
     step = data_parallel_loss_fn(model, axis)
     stats = {}
     loss, grads = step(x, y, probes=z, stats=stats)
     out["launches"] = {fn.__name__: fn.launches for fn in path}
-    out["k3_launches"] = K.lattice_apply.launches
+    out["off_path_launches"] = {fn.__name__: fn.launches for fn in off_path}
     out["launches"]["pivot_column_at"] = pivot_column.sharded_launches
     for name in ("cg_step_x", "cg_step_p", "cg_init", "cg_fold"):  # K10''s rows: the reducing kernels on this step
         out["launches"][f"{name}_sharded"] = out["launches"][name]
@@ -1919,7 +1958,7 @@ def parallel_rank(axis, case):
         ev[0].record()
         params = model.constrained()
         ref = x * params["inv_ell"]
-        plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
+        plan = build_plan_sharded(ref, dk.coeffs, dk.variance, axis)
         ev[1].record()
         P = mll.build_precond(dk, acfg, params, ref, axis.n_global(x.shape[0]))
         ev[2].record()
@@ -1927,7 +1966,7 @@ def parallel_rank(axis, case):
         rhs = torch.cat([(y - params["mean"])[:, None], precond_sqrt(P, z, axis)], dim=-1)
         cg_kw = dict(tol=cfg.cg_tolerance, max_iters=cfg.max_cg_iterations, precond=P, tridiag_m=100, axis=axis,
                      shift=(s, noise))
-        res = cg_solve(lambda V: L.apply_plan_join(plan, V, dk.coeffs, axis=axis), rhs, **cg_kw)
+        res = cg_solve(lambda V: L.apply_plan_chain(plan, V, dk.coeffs, axis=axis), rhs, **cg_kw)
         ev[3].record()
     ev[4].record()
     loss = model.nlml(x, y, probes=z, axis=axis)
@@ -1954,7 +1993,7 @@ def parallel_rank(axis, case):
 
     def counted_mv(V):
         c0 = axis.stats["calls"]
-        out_ = L.apply_plan_join(plan, V, dk.coeffs, axis=axis)
+        out_ = L.apply_plan_chain(plan, V, dk.coeffs, axis=axis)
         marks.append((c0, axis.stats["calls"]))
         mvm_calls.append(axis.stats["calls"] - c0)
         return out_
@@ -1998,12 +2037,70 @@ def parallel_rank(axis, case):
                           cg_iters=mix_stats["cg_iters"], cg_res=mix_stats["cg_res"],
                           warm_step_ms=cuda_ms(lambda: mix_step(x, y, probes=z), 2))
     out["scaling"] = scaling.records(axis, case["scaling_argv"])
+    if case.get("house") is not None:
+        out["house"] = house_rank(axis, case["house"])
     return out
+
+
+def house_rank(axis, hcase):
+    """Phase 7.5's rank body: the houseelectric stand-in's data-parallel NLML and raw gradients
+    (``data_parallel_loss_fn``) on this rank's rows, with the given probes and the median-init parameters,
+    the kernels' launches on the step (K11a and K11b apart), and a second step's time by CUDA events."""
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch.kernels import chain as KC
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.parallel import data_parallel_loss_fn, replicate, shard_batch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = simplex_gp_torch.SimplexGP(num_dims=hcase["x"].shape[1], kernel="matern", nu=1.5, order=1, min_noise=0.1,
+                                       bbmm=mll.BBMMConfig(**hcase["cfg"]), device=dev)
+    model.load_raw(hcase["raw"])
+    replicate(axis, model)
+    x, y, z = shard_batch(axis, hcase["x"], hcase["y"], hcase["z"])
+    path = (KC.chain_build, KC.chain_splat, KC.chain_axes, KC.chain_axes_transpose, KC.chain_unblock,
+            KC.chain_slice, K.lattice_filter_grad)
+    off_path = (K.lattice_dedup_ordered, K.lattice_apply_sharded)
+    for fn in (*path, *off_path):
+        fn.launches = 0
+    step = data_parallel_loss_fn(model, axis)
+    stats = {}
+    loss, grads = step(x, y, probes=z, stats=stats)
+    out = dict(loss=float(loss), grads={k: g.cpu().numpy() for k, g in grads.items()}, cg_iters=stats["cg_iters"],
+               launches={fn.__name__: fn.launches for fn in path},
+               off_path_launches={fn.__name__: fn.launches for fn in off_path})
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    step(x, y, probes=z)
+    ev[1].record()
+    torch.cuda.synchronize()
+    out["step_ms"] = ev[0].elapsed_time(ev[1])
+    return out
+
+
+def house_case(nprocs: int) -> dict:
+    """Phase 7.5's problem: the houseelectric stand-in's first rows (houseelectric_golden.npz's max_n, cut to
+    a multiple of ``nprocs``), the golden file's probe seed and median-init parameters, and phase 6's
+    "fixed" CG (tolerance 0, the golden file's iteration count: the same iterations on every side), the
+    plan untrimmed (the sharded plan has no capacity)."""
+    from simplex_gp_torch.utils import data
+
+    golden = np.load(HOUSE_GOLDEN)
+    hds = data.load_dataset("houseelectric")
+    cut = int(golden["max_n"])
+    n = (cut // nprocs) * nprocs
+    z = np.random.default_rng(int(golden["seed"])).choice([-1.0, 1.0], size=(cut, 10)).astype(np.float32)
+    return dict(x=hds.train_x[:n], y=hds.train_y[:n], z=z[:n], raw={k: golden[f"init_{k}"] for k in RAW_NAMES},
+                cfg=dict(cg_tolerance=0.0, max_cg_iterations=int(golden["cg_iters_fixed"]), max_lanczos_iterations=100,
+                         precond_rank=100, num_probes=10))
 
 
 def parallel_case(ds, nprocs: int) -> dict:
     """Phase 7's problem: the elevators rows shard_batch keeps over ``nprocs`` ranks, the median init of
-    elevators_train_golden.npz, its probes, and 11 filter columns, as numpy arrays."""
+    elevators_train_golden.npz, its probes, and 11 filter columns, as numpy arrays; and the houseelectric
+    stand-in's (:func:`house_case`)."""
     golden, mixture = np.load(TRAIN_GOLDEN), np.load(MIXTURE_GOLDEN)
     n = (ds.train_x.shape[0] // nprocs) * nprocs
     return dict(d=ds.train_x.shape[1], x=ds.train_x[:n], y=ds.train_y[:n],
@@ -2013,7 +2110,8 @@ def parallel_case(ds, nprocs: int) -> dict:
                 mixture_raw={k: mixture[f"init_{k}"] for k in RAW_NAMES}, mixture_weights=mixture["weights"],
                 cfg=dict(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
                          num_probes=10),
-                scaling_argv=["--rows", str(n), "-d", str(ds.train_x.shape[1]), "--cols", "11", "--reps", "3"])
+                scaling_argv=["--rows", str(n), "-d", str(ds.train_x.shape[1]), "--cols", "11", "--reps", "3"],
+                house=house_case(nprocs))
 
 
 def parallel_model(case, dev):
@@ -2036,11 +2134,12 @@ def parallel_phase(dev, ds, expect, timer):
     import torch.distributed as dist
 
     from simplex_gp_torch import scaling
+    from simplex_gp_torch.kernels import chain as KC
     from simplex_gp_torch.kernels import lattice as K
     from simplex_gp_torch.kernels.pivot import pivot_column, pivot_column_plain
     from simplex_gp_torch.linalg.pivoted_cholesky import pivoted_cholesky_features
     from simplex_gp_torch.ops import lattice as L
-    from simplex_gp_torch.parallel import build_plan_sharded_join, initialize_distributed, make_mesh
+    from simplex_gp_torch.parallel import build_plan_sharded, build_plan_sharded_join, initialize_distributed, make_mesh
 
     case = parallel_case(ds, 2)
     model = parallel_model(case, dev)
@@ -2118,6 +2217,38 @@ def parallel_phase(dev, ds, expect, timer):
                   f"{k11b['rows_ms']:.4f} ms; {k11b['bytes_per_collective']:.0f} bytes a collective "
                   f"({ktab.shape[0]} live rows of {plan.neighbors.shape[1]})")
 
+            # The sharded chain, the engine's plan: on one rank its plan is the one-device untrimmed plan (its
+            # run ends cut to the live rows) and its apply the one-device apply, bit for bit.
+            cplan = build_plan_sharded(ref, dk.coeffs, dk.variance, axis)
+            one = L.build_plan_chain(ref, dk.coeffs, dk.variance)
+            cnl = int(one.n_lattice)
+            p1_plan = all(torch.equal(getattr(cplan, f), getattr(one, f)) for f in KC.ChainPlan._fields if f != "cnt")
+            p1_plan &= bool(torch.equal(cplan.cnt, one.cnt[:cnl]))
+            p1_apply = True
+            for transpose in (False, True):
+                so, stab = L.apply_plan_chain(cplan, v, dk.coeffs, transpose, True, axis)
+                oo, otab = L.apply_plan_chain(one, v, dk.coeffs, transpose, True)
+                p1_apply &= bool(torch.equal(so, oo) and torch.equal(stab, otab[:cnl]))
+            chain_p1 = sharded_chain_checks(cplan, v, dk, axis)
+            chain_p1.update(one_device_ms=timer(lambda: L.apply_plan_chain(one, v, dk.coeffs), 20),
+                            one_device_transposed_ms=timer(lambda: L.apply_plan_chain(one, v, dk.coeffs, True), 20),
+                            plan_equal=p1_plan, apply_equal=p1_apply, k11b_ms=k11b["ms"],
+                            build_ms=timer(lambda: build_plan_sharded(ref, dk.coeffs, dk.variance, axis), 5),
+                            one_device_build_ms=timer(lambda: L.build_plan_chain(ref, dk.coeffs, dk.variance), 5))
+            expect(chain_p1["equal"] and p1_plan and p1_apply,
+                   f"sharded chain, one NCCL rank, c=11, forward and transposed: outputs and ({cnl}, 11) tables "
+                   f"bit-equal to the plain version and to a second call: {chain_p1['equal']} (rel "
+                   f"{chain_p1['rel']:.3e}); the plan torch.equal to the one-device untrimmed plan: {p1_plan}; the "
+                   f"apply and its table torch.equal to the one-device chain apply: {p1_apply}")
+            print(f"    sharded chain c=11 {chain_p1['ms']:.4f} ms (transposed {chain_p1['transposed_ms']:.4f}; "
+                  f"with a synchronise around each collective {chain_p1['timed_ms']:.4f}, of which transport "
+                  f"{chain_p1['transport_ms']:.4f}; {chain_p1['bytes_per_collective']:.0f} bytes a collective), "
+                  f"plain {chain_p1['plain_ms']:.4f} ms, bound {chain_p1['bound_ms']:.5f} ms; one-device chain "
+                  f"apply {chain_p1['one_device_ms']:.4f} ms (transposed {chain_p1['one_device_transposed_ms']:.4f}); "
+                  f"K11b {k11b['ms']:.4f} ms; build {chain_p1['build_ms']:.3f} ms (one device "
+                  f"{chain_p1['one_device_build_ms']:.3f})")
+            del cplan, one
+
             s = params["outputscale"].reshape(()).contiguous()
             k = case["cfg"]["precond_rank"]
             diag = s * torch.ones(n, device=dev)
@@ -2163,12 +2294,17 @@ def parallel_phase(dev, ds, expect, timer):
                                                  n * (3 * d + 2 * (k - 1) + 12)),
                                    library_ms=None, shape=f"n={n}, dim={d}, k={k}, j={k - 1}, P = 1 (NCCL)")
     record.update(k11a=k11a, k11b_rel=r11b, k11b_bit_equal=k11b_equal, k11b_k3_rel=r_k3, k6_at_llt_rel=r_llt, k6_at_bit_equal=same,
-                  k6_at_step_rel=r_step, scaling_nccl=scaling_nccl)
+                  k6_at_step_rel=r_step, scaling_nccl=scaling_nccl, sharded_chain_p1=chain_p1)
 
     t0 = time.perf_counter()
     row_p2, launches, rec_p2 = ranks_phase(dev, ds, expect, 2, "gloo")
     rows["lattice_apply_sharded"].update(gloo_p2_ms=row_p2["ranks_ms"], gloo_p2_timed_ms=row_p2["ranks_timed_ms"],
                                          gloo_p2_transport_ms=row_p2["ranks_transport_ms"])
+    unblock = row_p2["chain"]["unblock"]
+    rows["chain_unblock"] = dict(max_abs_err=0.0 if unblock["equal"] else float("nan"), ms=unblock["ms"],
+                                 plain_ms=unblock["plain_ms"], bound_ms=unblock["bound_ms"],
+                                 bound_by=unblock["bound_by"], library_ms=unblock["library_ms"],
+                                 shape=f"{unblock['shape']} (elevators at P = 2, gloo rank 0)")
     for name, row in row_p2["k10_sharded"].items():  # rank 0's K10' times at P = 2
         rows[f"{name}_sharded"] = {k_: v_ for k_, v_ in row.items() if k_ != "bit_equal"}
     record.update(rec_p2, launch_wall_s=time.perf_counter() - t0)
@@ -2176,7 +2312,7 @@ def parallel_phase(dev, ds, expect, timer):
 
 
 def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
-    """Phase 7.3-7.4b: ``nprocs`` ranks (gloo ranks sharing card 0, or NCCL ranks, one per card) against
+    """Phase 7.3-7.5: ``nprocs`` ranks (gloo ranks sharing card 0, or NCCL ranks, one per card) against
     one process on card 0.  Returns (K11b's times on the ranks, launches summed over the ranks, the record)."""
     import torch
 
@@ -2193,6 +2329,10 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
         ref = (x * model.constrained()["inv_ell"]).contiguous()
         plan = L.build_plan_join(ref, dk.coeffs, dk.variance)
         single = K.lattice_apply(*plan, v, list(dk.coeffs), L.SLICE_NORM(case["d"]))
+        cplan = L.build_plan_chain(ref, dk.coeffs, dk.variance)
+        chain_single = L.apply_plan_chain(cplan, v, dk.coeffs)
+        chain_global = {f: getattr(cplan, f).cpu().numpy() for f in ("gather", "tapw", "n_lattice")}
+        del cplan
     where = "sharing card 0" if backend == "gloo" else "one per card"
     print(f"parallel 7.3: {nprocs} {backend} ranks ({where}), {x.shape[0]} rows: the sharded filter, NLML and "
           f"gradients, one Adam step")
@@ -2206,6 +2346,26 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
     expect(r_f <= PARALLEL_FILTER_REL and all(r["n_lattice"] == nl for r in ranks),
            f"sharded filter vs K3 on one process, c=11: rel {r_f:.3e} (limit {PARALLEL_FILTER_REL}); n_lattice "
            f"{[r['n_lattice'] for r in ranks]} (one process {nl})")
+    r_cf = rel(torch.from_numpy(np.concatenate([r["chain_filter"] for r in ranks])).to(dev), chain_single)
+    same_global = all(np.array_equal(r["chain_global"][f], chain_global[f]) for r in ranks for f in chain_global)
+    expect(r_cf <= SHARDED_CHAIN_REL and same_global,
+           f"sharded chain filter vs the one-process chain apply, c=11: rel {r_cf:.3e} (limit {SHARDED_CHAIN_REL}); "
+           f"gather, tapw and n_lattice the same bits on every rank and in the one-process plan: {same_global}")
+    chains = [r["chain"] for r in ranks]
+    expect(all(ch["equal"] for ch in chains) and all(ch["unblock"]["equal"] for ch in chains if "unblock" in ch),
+           f"sharded chain apply vs its plain version on each rank (c=11 in blocks of {-(-11 // nprocs)} columns), "
+           f"forward and transposed, outputs and ({chains[0]['n_lattice']}, 11) tables, and a second call: "
+           f"bit-equal {[ch['equal'] for ch in chains]} (rel {[float(ch['rel']) for ch in chains]}); "
+           f"the unblock vs its twin and torch.cat {[ch.get('unblock', {}).get('equal') for ch in chains]}")
+    for i, (r, ch) in enumerate(zip(ranks, chains)):
+        print(f"    rank {i}: sharded chain apply c=11 {ch['ms']:.4f} ms (transposed {ch['transposed_ms']:.4f}; with a "
+              f"synchronise around each collective {ch['timed_ms']:.4f}, of which transport "
+              f"{ch['transport_ms']:.4f}; {ch['bytes_per_collective']:.0f} bytes a collective), plain "
+              f"{ch['plain_ms']:.4f} ms, bound {ch['bound_ms']:.5f} ms; build {r['chain_build_ms']:.3f} ms")
+        if "unblock" in ch:
+            print(f"    rank {i}: chain_unblock {ch['unblock']['shape']} {ch['unblock']['ms']:.4f} ms, plain "
+                  f"{ch['unblock']['plain_ms']:.4f} ms, torch.cat {ch['unblock']['library_ms']:.4f} ms, bound "
+                  f"{ch['unblock']['bound_ms']:.5f} ms")
     r11b = [r["k11b_rel"] for r in ranks]
     expect(all(r["k11b_equal"] for r in ranks), f"K11b vs its plain version on each rank ({x.shape[0] // nprocs} "
            f"rows, c=11 in blocks of {-(-11 // nprocs)} columns), forward and transposed, outputs and tables, and a "
@@ -2252,10 +2412,11 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
     equal = all(np.array_equal(r["params"][k], ranks[0]["params"][k]) for r in ranks for k in RAW_NAMES)
     expect(equal, "after one Adam step the raw parameters are bit-equal on every rank")
     launches = {name: sum(r["launches"][name] for r in ranks) for name in ranks[0]["launches"]}
-    print(f"    launches on the data-parallel NLML step, all ranks: {launches}")
-    expect(all(r["launches"][name] > 0 for r in ranks for name in launches) and all(r["k3_launches"] == 0
-                                                                                    for r in ranks),
-           f"every kernel of the path launched on each rank, K3 never ({[r['k3_launches'] for r in ranks]})")
+    off = {name: sum(r["off_path_launches"][name] for r in ranks) for name in ranks[0]["off_path_launches"]}
+    print(f"    launches on the data-parallel NLML step, all ranks: {launches}; off the path: {off}")
+    expect(all(r["launches"][name] > 0 for r in ranks for name in launches) and not any(off.values()),
+           f"every kernel of the path (the sharded chain's) launched on each rank; K11a, K11b and K3 never: {off}")
+    launches.update(off)
 
     # K10': the sharded CG on K10's kernels.
     for i, r in enumerate(ranks):
@@ -2313,6 +2474,7 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
     print(f"parallel 7.4b: simplex_gp_torch.scaling over the {nprocs} {backend} ranks")
     for rec in ranks[0]["scaling"]:
         print("    " + json.dumps(rec))
+    house = house_check(dev, case["house"], ranks, expect)
     record.update(ranks=nprocs, backend=backend, filter_rel=r_f, k11b_rel=r11b, step_repeat_bit_equal=repeat,
                   apply_bytes_per_collective=[r["apply_bytes_per_collective"] for r in ranks],
                   k6_step_rel=steps, k6_step_piv=pivs,
@@ -2322,10 +2484,59 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
                   k10_sharded=[r["k10_sharded"] for r in ranks], cg_state_equal=same_cg,
                   mixture=dict(losses=m_losses, nlml_diff=m_dl, cg_iters=[r["mixture"]["cg_iters"] for r in ranks],
                                cg_iters_single=mix_stats["cg_iters"],
-                               warm_step_ms=[r["mixture"]["warm_step_ms"] for r in ranks]))
+                               warm_step_ms=[r["mixture"]["warm_step_ms"] for r in ranks]),
+                  chain_filter_rel=r_cf, chain_global_equal=same_global, sharded_chain=chains,
+                  chain_build_ms=[r["chain_build_ms"] for r in ranks], house=house)
     return (dict(ranks_ms=[r["apply_ms"] for r in ranks], ranks_timed_ms=[r["apply_timed_ms"] for r in ranks],
-                 ranks_transport_ms=[r["apply_transport_ms"] for r in ranks], k10_sharded=ranks[0]["k10_sharded"]),
+                 ranks_transport_ms=[r["apply_transport_ms"] for r in ranks], k10_sharded=ranks[0]["k10_sharded"],
+                 chain=chains[0]),
             launches, record)
+
+
+def house_check(dev, hcase, ranks, expect) -> dict:
+    """Phase 7.5: the houseelectric stand-in's data-parallel NLML and raw gradients on the ranks against one
+    process on the untrimmed chain with the same rows, probes, parameters and CG iterations, under phase 6's
+    gates: NLML_ATOL, and the whole raw gradient's cosine (GRAD_COS) with each group's error against the whole
+    gradient's norm (GRAD_REL); the same bits on every rank; K11a and K11b never launched."""
+    import torch
+
+    import simplex_gp_torch
+    from simplex_gp_torch.linalg import mll
+
+    golden = np.load(HOUSE_GOLDEN)
+    n, d = hcase["x"].shape
+    print(f"parallel 7.5: houseelectric stand-in, {n} rows over the {len(ranks)} ranks vs one process (untrimmed "
+          f"chain, the golden file's probes and median init, {hcase['cfg']['max_cg_iterations']} CG iterations)")
+    model = simplex_gp_torch.SimplexGP(num_dims=d, kernel="matern", nu=1.5, order=1, min_noise=0.1,
+                                       bbmm=mll.BBMMConfig(**hcase["cfg"]), device=dev)
+    model.load_raw(hcase["raw"])
+    x, y, z = (torch.from_numpy(hcase[k]).to(dev) for k in ("x", "y", "z"))
+    stats = {}
+    loss = model.nlml(x, y, probes=z, stats=stats)
+    loss.backward()
+    hs = [r["house"] for r in ranks]
+    losses = [h["loss"] for h in hs]
+    dl = abs(losses[0] - float(loss.detach()))
+    same = len(set(losses)) == 1 and all(np.array_equal(h["grads"][k], hs[0]["grads"][k]) for h in hs for k in RAW_NAMES)
+    expect(dl <= NLML_ATOL and same and all(h["cg_iters"] == stats["cg_iters"] for h in hs),
+           f"NLML {losses} on the ranks vs {float(loss.detach()):.6f} on one process (|diff| {dl:.2e}, limit "
+           f"{NLML_ATOL}; JAX's golden {float(golden['loss_fixed']):.6f}); CG iterations "
+           f"{[h['cg_iters'] for h in hs]} (one process {stats['cg_iters']}); loss and gradients the same bits on "
+           f"every rank: {same}")
+    ga = {k: hs[0]["grads"][k].astype(np.float64).ravel() for k in RAW_NAMES}
+    gb = {k: getattr(model, k).grad.detach().cpu().numpy().astype(np.float64).ravel() for k in RAW_NAMES}
+    whole_a, whole_b = (np.concatenate([g_[k] for k in RAW_NAMES]) for g_ in (ga, gb))
+    c_ = cosine(whole_a, whole_b)
+    worst = max(float(np.linalg.norm(ga[k] - gb[k]) / np.linalg.norm(whole_b)) for k in RAW_NAMES)
+    expect(c_ >= GRAD_COS and worst <= GRAD_REL,
+           f"raw gradient on the ranks vs one process: cos {c_:.6f} (limit {GRAD_COS}); worst group error "
+           f"{worst:.2e} of the whole gradient's norm (limit {GRAD_REL})")
+    off = [h["off_path_launches"] for h in hs]
+    expect(all(v_ > 0 for h in hs for v_ in h["launches"].values()) and not any(v_ for o in off for v_ in o.values()),
+           f"the step's launches on each rank {[h['launches'] for h in hs]}; K11a and K11b never: {off}")
+    print(f"    warm data-parallel step (ms, CUDA events, each rank): {[h['step_ms'] for h in hs]}")
+    return dict(rows=n, losses=losses, nlml_diff=dl, grad_cos=c_, grad_worst_of_whole=worst, cg_iters=stats["cg_iters"],
+                step_ms=[h["step_ms"] for h in hs], launches=[h["launches"] for h in hs])
 
 
 def mixture_phase(dev, ds, expect, timer):
@@ -3022,6 +3233,71 @@ def slice_cost(plan, c: int) -> tuple:
     n, dp1 = plan.weights.shape
     live = min(int(plan.n_lattice), plan.cnt.shape[0])
     return 4 * (live * c + 2 * n * dp1 + n * c), 2 * n * dp1 * c
+
+
+def sharded_chain_cost(plan, c: int, P: int) -> tuple:
+    """(bytes, ops) of one rank's sharded chain apply: its contributions' points and weights, its run ends,
+    the live rows' taps and transitions, its slice_idx and weights, and v (n_loc, c) in, the output out (the
+    partial tables, blocks and collectives are the apply's own traffic); a multiply-add per contribution and
+    column in the splat and the slice, and (2r+1) taps per live row, column of its block and axis."""
+    N, n = plan.splat_points.shape[0], plan.weights.shape[0]
+    nl, d, r = plan.cnt.shape[0], plan.gather.shape[0], plan.tapw.shape[1]
+    nbytes = 4 * (2 * N + nl + nl * ((d + 1) * r + d) + 2 * n * (d + 1) + 2 * n * c)
+    return nbytes, 2 * N * c + 2 * (2 * r + 1) * (d + 1) * nl * -(-c // P) + 2 * n * (d + 1) * c
+
+
+def sharded_chain_checks(plan, v, dk, axis) -> dict:
+    """One rank's sharded chain apply (kernels/chain.py::chain_apply_sharded) at c = v's columns: against its
+    plain version forward and transposed, outputs and final-order tables, bit for bit, and a second call;
+    its time by CUDA events (forward and transposed), the plain version's, and with the device synchronised
+    around each collective the whole and the transport apart, the bytes a collective, the bound; and with
+    P > 1 the unblock alone on the apply's block shape against its twin and torch.cat of the blocks' column
+    slices (the library's one call for it), timed beside both and its bound."""
+    import torch
+
+    from simplex_gp_torch.kernels import chain as KC
+    from simplex_gp_torch.ops import lattice as L
+
+    taps, norm = list(dk.coeffs), L.SLICE_NORM(plan.weights.shape[1] - 1)
+    c, nl = v.shape[1], plan.cnt.shape[0]
+    res = dict(equal=True, rel=0.0, max_abs_err=0.0, n_lattice=nl, rows=v.shape[0], c=c, ranks=axis.size)
+    for transpose in (False, True):
+        kout, ktab = KC.chain_apply_sharded(plan, v, taps, norm, axis, transpose, True)
+        again, atab = KC.chain_apply_sharded(plan, v, taps, norm, axis, transpose, True)
+        pout, ptab = KC.chain_apply_sharded_plain(plan, v, taps, norm, axis, transpose, True)
+        res["equal"] &= bool(torch.equal(kout, pout) and torch.equal(ktab, ptab) and torch.equal(again, kout)
+                             and torch.equal(atab, ktab))
+        res["rel"] = max(res["rel"], rel(kout, pout), rel(ktab, ptab))
+        res["max_abs_err"] = max(res["max_abs_err"], float((kout - pout).abs().max()))
+    res["ms"] = cuda_ms(lambda: KC.chain_apply_sharded(plan, v, taps, norm, axis), 20)
+    res["transposed_ms"] = cuda_ms(lambda: KC.chain_apply_sharded(plan, v, taps, norm, axis, True), 20)
+    res["plain_ms"] = cuda_ms(lambda: KC.chain_apply_sharded_plain(plan, v, taps, norm, axis), 5)
+    axis.timing = True
+    axis.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        KC.chain_apply_sharded(plan, v, taps, norm, axis)
+    torch.cuda.synchronize()
+    res.update(timed_ms=1e3 * (time.perf_counter() - t0) / 5, transport_ms=1e3 * axis.stats["seconds"] / 5,
+               collectives=axis.stats["calls"] / 5,
+               bytes_per_collective=axis.stats["bytes"] / max(1, axis.stats["calls"]),
+               **bound(*sharded_chain_cost(plan, c, axis.size)))
+    axis.timing = False
+    if axis.size > 1:
+        cb = -(-c // axis.size)
+        blocks = torch.randn((axis.size, nl, cb), generator=torch.Generator(device=v.device).manual_seed(5),
+                             device=v.device)
+        # The library's one call: torch.cat of the blocks' column slices (views), the padding left out.
+        parts = [blocks[b, :, :min(cb, c - b * cb)] for b in range(axis.size) if b * cb < c]
+        table = KC.chain_unblock(blocks, c)
+        res["unblock"] = dict(equal=bool(torch.equal(table, KC.chain_unblock_plain(blocks, c))
+                                         and torch.equal(table, torch.cat(parts, dim=1))),
+                              ms=cuda_ms(lambda: KC.chain_unblock(blocks, c), 50),
+                              plain_ms=cuda_ms(lambda: KC.chain_unblock_plain(blocks, c), 20),
+                              library_ms=cuda_ms(lambda: torch.cat(parts, dim=1), 50),
+                              **bound(8 * nl * c, 0), shape=f"({axis.size}, {nl}, {cb}) blocks, c={c}")
+    return res
 
 
 def chain_phase(dev, ds, expect, timer, stage_times):
@@ -4512,7 +4788,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--ranks", type=int, default=1,
-                        help="P > 1: only phase 7.3-7.4b, over P NCCL ranks, one per card (needs P cards)")
+                        help="P > 1: only phase 7.3-7.5, over P NCCL ranks, one per card (needs P cards)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to run", file=sys.stderr)
@@ -4853,6 +5129,11 @@ def main(argv=None) -> int:
                         **bound(cg_iteration_bytes(n_, c_, 100), 0))
     print("K10 cg iteration: " + json.dumps(k10))
 
+    # The sort chain's kernels on the two gloo ranks' data-parallel NLML step (phase 7.3), beside their
+    # launches in one single-device training step (the row's own count).
+    for name in ("lattice_geometry", "chain_build", "chain_splat", "chain_axes", "chain_axes_transpose", "chain_slice",
+                 "lattice_filter_grad"):
+        rows[name]["dp_step_launches"] = par["launches"][name]
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -153,18 +153,6 @@ __global__ void slice_blocks_kernel(const float* __restrict__ blocks, const int*
   out[idx] = __fmul_rn(acc, norm);
 }
 
-// K11b's splat source of column block b: columns [c0, c0 + cols) of a
-// row-major v (row stride ld), read in place; the block's padding columns
-// (col >= cols) are zero.
-struct SgpBlockWindow {
-  static constexpr int kTile = CHAIN_TILE;
-  const float* v;
-  int ld, c0, cols;
-  __device__ __forceinline__ float operator()(int p, int col) const {
-    return col < cols ? v[(long long)p * ld + c0 + col] : 0.0f;
-  }
-};
-
 // K11b.  The first 16 arguments are this rank's row lists over nl rows
 // (sgp_runs, rows.cuh); v is (n, c); blocks is (P, nl, cb), part np_max *
 // cb floats; neither need be zeroed.
@@ -174,19 +162,9 @@ extern "C" int sgp_lattice_splat_blocks(const int* sp, const float* sw, const in
                                         const int* n_mid, int nl_max, int nm_max, int np_max, int N,
                                         const int* n_lattice, const float* v, int c, int cb, int P, int nl,
                                         float* blocks, float* part, void* stream) {
-  if (cb <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
-  if (nl <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
   const SgpRuns r = sgp_runs(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
                              mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice);
-  for (int b = 0; b < P; ++b) {
-    const int c0 = b * cb, cols = c - c0 < cb ? c - c0 : cb;
-    float* block = blocks + (long long)b * nl * cb;
-    const cudaError_t err = cols > 0 ? sgp_splat_rows(r, SgpBlockWindow{v, c, c0, cols}, cb, nl, block, part, st)
-                                     : cudaMemsetAsync(block, 0, sizeof(float) * nl * cb, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  return (int)sgp_splat_blocks(r, v, c, cb, P, nl, blocks, part, (cudaStream_t)stream);
 }
 
 // K11b's blur: the dp1 axes of ta (nl, c), its rows the plan's nl live

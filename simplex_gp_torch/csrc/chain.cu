@@ -529,7 +529,7 @@ __global__ void chain_axis_kernel(const float* __restrict__ in, float* __restric
 template <int kOrder, typename I, bool kT>
 __global__ void __launch_bounds__(CHAIN_AXES_THREADS, 2)
     chain_axes_kernel(float* ta, float* tb, const float* __restrict__ tapw, const int* __restrict__ maps,
-                      const int* __restrict__ n_lattice, int Mc, int c, int d, int order, float center,
+                      const int* __restrict__ n_lattice, int Mc, int ms, int c, int d, int order, float center,
                       unsigned int* barrier) {
   const int nl = *n_lattice;
   const int live = nl < Mc ? nl : Mc;
@@ -537,8 +537,8 @@ __global__ void __launch_bounds__(CHAIN_AXES_THREADS, 2)
   const I stride = (I)gridDim.x * blockDim.x;
   const I first = (I)blockIdx.x * blockDim.x + threadIdx.x;
   // The map of step j: the forward's gather of axis j (the last axis none), the transpose's tmap row j.
-  auto map_of = [&](int j) -> const int* { return kT || j < d ? maps + (long long)j * Mc : nullptr; };
-  const int* pre = kT ? maps + (long long)d * Mc : nullptr;
+  auto map_of = [&](int j) -> const int* { return kT || j < d ? maps + (long long)j * ms : nullptr; };
+  const int* pre = kT ? maps + (long long)d * ms : nullptr;
   int q0[CHAIN_AXES_HELD], col0[CHAIN_AXES_HELD], next[CHAIN_AXES_HELD];
 #pragma unroll
   for (int u = 0; u < CHAIN_AXES_HELD; ++u) {
@@ -585,24 +585,25 @@ __global__ void __launch_bounds__(CHAIN_AXES_THREADS, 2)
   }
 }
 
-// The transposed axes' maps, one thread a position q of the plan's transitions gather (d, Mc): tmap (d + 1,
-// Mc), row d - 1 - j the inverse of transition j (tmap[d - 1 - j][gather[j][q]] = q) and row d the composite G
+// The transposed axes' maps, one thread a position q < m of the plan's transitions gather (d, Mc): tmap (d + 1,
+// m), row d - 1 - j the inverse of transition j (tmap[d - 1 - j][gather[j][q]] = q) and row d the composite G
 // (G[q] = gather[0][gather[1][... gather[d - 1][q]]]: the axis-0 position of the row at final position q).
-// Past the live rows every transition is the identity, and so are the maps.
-__global__ void chain_maps_kernel(const int* __restrict__ gather, int Mc, int d, int* __restrict__ tmap) {
+// Past the live rows every transition is the identity, and so are the maps: so m may be any count from the
+// live rows up to Mc (the one-device apply's Mc, the sharded apply's n_lattice), and every map stays below m.
+__global__ void chain_maps_kernel(const int* __restrict__ gather, int Mc, int m, int d, int* __restrict__ tmap) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= Mc) return;
+  if (q >= m) return;
   int p = q;
   for (int j = d - 1; j >= 0; --j) {
     const int* g = gather + (long long)j * Mc;
-    tmap[(long long)(d - 1 - j) * Mc + __ldg(g + q)] = q;
+    tmap[(long long)(d - 1 - j) * m + __ldg(g + q)] = q;
     p = __ldg(g + p);
   }
-  tmap[(long long)d * Mc + q] = p;
+  tmap[(long long)d * m + q] = p;
 }
 
-static inline cudaError_t chain_maps_launch(const int* gather, int Mc, int d, int* tmap, cudaStream_t st) {
-  if (Mc > 0) chain_maps_kernel<<<sgp_blocks(Mc), SGP_THREADS, 0, st>>>(gather, Mc, d, tmap);
+static inline cudaError_t chain_maps_launch(const int* gather, int Mc, int m, int d, int* tmap, cudaStream_t st) {
+  if (m > 0) chain_maps_kernel<<<sgp_blocks(m), SGP_THREADS, 0, st>>>(gather, Mc, m, d, tmap);
   return cudaGetLastError();
 }
 
@@ -614,40 +615,41 @@ static inline cudaError_t chain_maps_launch(const int* gather, int Mc, int d, in
 // and slower at houseelectric c = 1, 0.066 against 0.033 ms, 8 blocks
 // against 64.)  Order 1, the path's, gets its own kernel; other orders read
 // it from `order`.  Element indices are int below 2^30 elements.  `maps` is
-// the gather (d, Mc), or with kT the transposed maps (d + 1, Mc).
+// the gather (d, Mc), or with kT the transposed maps (d + 1, ms); ms is the
+// maps' row stride (Mc, or the sharded apply's n_lattice), tapw's is Mc.
 template <int kOrder, typename I, bool kT>
 static inline cudaError_t chain_axes_launch_as(float* ta, float* tb, const float* tapw, const int* maps,
-                                               const int* n_lattice, int Mc, int c, int d, int order, float center,
-                                               unsigned int* barrier, cudaStream_t st) {
+                                               const int* n_lattice, int Mc, int ms, int c, int d, int order,
+                                               float center, unsigned int* barrier, cudaStream_t st) {
   const long long need = ((long long)Mc * c + CHAIN_AXES_THREADS - 1) / CHAIN_AXES_THREADS;
   const int resident = sgp_coresident_blocks(chain_axes_kernel<kOrder, I, kT>, CHAIN_AXES_THREADS, 0);
   const int grid = (int)(need < resident ? (need > 0 ? need : 1) : resident);
   chain_axes_kernel<kOrder, I, kT>
-      <<<grid, CHAIN_AXES_THREADS, 0, st>>>(ta, tb, tapw, maps, n_lattice, Mc, c, d, order, center, barrier);
+      <<<grid, CHAIN_AXES_THREADS, 0, st>>>(ta, tb, tapw, maps, n_lattice, Mc, ms, c, d, order, center, barrier);
   return cudaGetLastError();
 }
 
 template <int kOrder, bool kT>
 static inline cudaError_t chain_axes_launch_order(float* ta, float* tb, const float* tapw, const int* maps,
-                                                  const int* n_lattice, int Mc, int c, int d, int order,
+                                                  const int* n_lattice, int Mc, int ms, int c, int d, int order,
                                                   float center, unsigned int* barrier, cudaStream_t st) {
   if ((long long)Mc * c < (1LL << 30))
-    return chain_axes_launch_as<kOrder, int, kT>(ta, tb, tapw, maps, n_lattice, Mc, c, d, order, center, barrier,
-                                                 st);
-  return chain_axes_launch_as<kOrder, long long, kT>(ta, tb, tapw, maps, n_lattice, Mc, c, d, order, center,
+    return chain_axes_launch_as<kOrder, int, kT>(ta, tb, tapw, maps, n_lattice, Mc, ms, c, d, order, center,
+                                                 barrier, st);
+  return chain_axes_launch_as<kOrder, long long, kT>(ta, tb, tapw, maps, n_lattice, Mc, ms, c, d, order, center,
                                                      barrier, st);
 }
 
 template <bool kT>
 static inline cudaError_t chain_axes_launch(float* ta, float* tb, const float* tapw, const int* maps,
-                                            const int* n_lattice, int Mc, int c, int d, int order, float center,
-                                            unsigned int* barrier, cudaStream_t st) {
+                                            const int* n_lattice, int Mc, int ms, int c, int d, int order,
+                                            float center, unsigned int* barrier, cudaStream_t st) {
   if (d < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st);
   if (err != cudaSuccess) return err;
   if (order == 1)
-    return chain_axes_launch_order<1, kT>(ta, tb, tapw, maps, n_lattice, Mc, c, d, order, center, barrier, st);
-  return chain_axes_launch_order<0, kT>(ta, tb, tapw, maps, n_lattice, Mc, c, d, order, center, barrier, st);
+    return chain_axes_launch_order<1, kT>(ta, tb, tapw, maps, n_lattice, Mc, ms, c, d, order, center, barrier, st);
+  return chain_axes_launch_order<0, kT>(ta, tb, tapw, maps, n_lattice, Mc, ms, c, d, order, center, barrier, st);
 }
 
 // K3'd, the slice.  A block takes `points` consecutive points (kernels/chain.py::slice_split: a multiple of 4,
@@ -814,22 +816,23 @@ extern "C" int sgp_chain_axis(const float* in, float* out, const float* tapw, co
 extern "C" int sgp_chain_axes(float* ta, float* tb, const float* tapw, const int* gather, const int* n_lattice,
                               int Mc, int c, int d, int order, float center, unsigned int* barrier, void* stream) {
   if ((long long)Mc * c <= 0) return (int)cudaGetLastError();
-  return (int)chain_axes_launch<false>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, center, barrier,
+  return (int)chain_axes_launch<false>(ta, tb, tapw, gather, n_lattice, Mc, Mc, c, d, order, center, barrier,
                                        (cudaStream_t)stream);
 }
 
 // The transposed axes' maps (d + 1, Mc) of a plan's transitions gather (d, Mc).
 extern "C" int sgp_chain_maps(const int* gather, int Mc, int d, int* tmap, void* stream) {
-  return (int)chain_maps_launch(gather, Mc, d, tmap, (cudaStream_t)stream);
+  return (int)chain_maps_launch(gather, Mc, Mc, d, tmap, (cudaStream_t)stream);
 }
 
 // K3'c transposed alone: B^T of the axis-0 table in ta (Mc, c), written in final order, over the maps tmap
-// (d + 1, Mc) of sgp_chain_maps; tb is scratch; the result lands in ta when d + 1 is even, else in tb.
+// (d + 1, ms) of sgp_chain_maps (ms = Mc) or of the sharded splat (ms = n_lattice, its table's rows); tb is
+// scratch; the result lands in ta when d + 1 is even, else in tb.
 extern "C" int sgp_chain_axes_transpose(float* ta, float* tb, const float* tapw, const int* tmap,
-                                        const int* n_lattice, int Mc, int c, int d, int order, float center,
+                                        const int* n_lattice, int Mc, int ms, int c, int d, int order, float center,
                                         unsigned int* barrier, void* stream) {
   if ((long long)Mc * c <= 0) return (int)cudaGetLastError();
-  return (int)chain_axes_launch<true>(ta, tb, tapw, tmap, n_lattice, Mc, c, d, order, center, barrier,
+  return (int)chain_axes_launch<true>(ta, tb, tapw, tmap, n_lattice, Mc, ms, c, d, order, center, barrier,
                                       (cudaStream_t)stream);
 }
 
@@ -861,18 +864,95 @@ extern "C" int sgp_chain_apply(const int* sp, const float* sw, const int* cnt, c
   if (2 * order + 1 > SGP_MAX_TAPS) return (int)cudaErrorInvalidValue;
   if (n <= 0 || c <= 0 || Mc <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = tmap != nullptr ? chain_maps_launch(gather, Mc, d, tmap, st) : cudaSuccess;
+  cudaError_t err = tmap != nullptr ? chain_maps_launch(gather, Mc, Mc, d, tmap, st) : cudaSuccess;
   if (err != cudaSuccess) return (int)err;
   const SgpRuns r = sgp_runs(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
                                mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice);
   err = sgp_splat_rows(r, SgpWindow{v, c, 0}, c, Mc, ta, part, st);
   if (err != cudaSuccess) return (int)err;
   err = tmap != nullptr
-            ? chain_axes_launch<true>(ta, tb, tapw, tmap, n_lattice, Mc, c, d, order, taps_host[order], barrier, st)
-            : chain_axes_launch<false>(ta, tb, tapw, gather, n_lattice, Mc, c, d, order, taps_host[order], barrier,
-                                       st);
+            ? chain_axes_launch<true>(ta, tb, tapw, tmap, n_lattice, Mc, Mc, c, d, order, taps_host[order], barrier,
+                                      st)
+            : chain_axes_launch<false>(ta, tb, tapw, gather, n_lattice, Mc, Mc, c, d, order, taps_host[order],
+                                       barrier, st);
   if (err != cudaSuccess) return (int)err;
   const float* final_table = (d + 1) % 2 == 0 ? ta : tb;
   return (int)chain_slice_launch(final_table, slice_idx, w, n_lattice, n, d + 1, c, Mc, points, threads, norm, out,
                                  st);
+}
+
+// ---- the sharded apply ------------------------------------------------------
+//
+// The sharded sort chain: apply_plan_chain with an axis_name
+// (simplex_gp_tpu/ops/lattice.py:1029-1061) on JAX's build_plan_sharded
+// (parallel/shard_filter.py:50-115; here ops/lattice.py::
+// build_plan_sharded_chain).  Each of P ranks holds n_loc points.  The
+// plan's gather, tapw and n_lattice are those of one build over every
+// rank's contributions, the same bits on every rank; its splat lists hold
+// this rank's contributions only, in the global row order, over the
+// n_lattice live rows (its cnt has n_lattice entries).  The column block b
+// of c_pad = P cb columns (c rounded up to a multiple of P; the padding
+// columns are zero) is rank b's to blur.  Every buffer covers the live
+// rows only: the chain sorts its dead rows last in every axis order, so the
+// live positions of every axis, and the transitions and maps between them,
+// stay below n_lattice.  JAX carries all M = n (d+1) rows through its
+// collectives; the operator is the same.
+//   splat_blocks: with tmap, the transposed axes' maps first (over the
+//     nl live positions: tmap is (d + 1, nl)); then K3'b's row-order splat (rows.cuh, sgp_splat_blocks)
+//     of each column block into its (nl, cb) block of the (P, nl, cb)
+//     buffer, every live row written (zero where this rank contributes
+//     nothing);
+//   the reduce-scatter (the wrapper, torch.distributed) leaves rank b the
+//     sum of every rank's block b;
+//   K3'c fused (sgp_chain_axes; sgp_chain_axes_transpose over tmap) on the
+//     rank's (nl, cb) block: the fused kernel touches positions below the
+//     live count only; the plan's Mc is the stride of tapw and the gather,
+//     nl that of the transposed maps;
+//   the all-gather (the wrapper) of the blurred blocks;
+//   unblock (P > 1): the (P, nl, cb) blocks into the (nl, c) final-order
+//     table that K3'd and K5 read, the padding dropped (at P = 1 the one
+//     block is that table);
+//   K3'd (sgp_chain_slice) of this rank's points, its guard against Mc.
+// Bound: bytes.  The unblock reads and writes the live table once, 8 nl c
+// bytes (8.8 MB at elevators c = 11, P = 2: ~3 us at 3.35 TB/s).  No step
+// adds in an order that varies, so two applies give the same bits; at P = 1
+// every kernel reads the one-device apply's operands, and the output is
+// sgp_chain_apply's bit for bit.
+extern "C" int sgp_chain_splat_blocks(const int* sp, const float* sw, const int* cnt, const int* long_rows,
+                                      const int* long_first, const int* n_long, const int* piece_row,
+                                      const int* piece_start, const int* n_pieces, const int* mid_rows,
+                                      const int* n_mid, int nl_max, int nm_max, int np_max, int N,
+                                      const int* n_lattice, const float* v, int c, int cb, int P, int nl,
+                                      float* blocks, float* part, const int* gather, int Mc, int d, int* tmap,
+                                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tmap != nullptr) {
+    const cudaError_t err = chain_maps_launch(gather, Mc, nl, d, tmap, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const SgpRuns r = sgp_runs(sp, sw, cnt, long_rows, long_first, n_long, piece_row, piece_start, n_pieces,
+                             mid_rows, n_mid, nl_max, nm_max, np_max, N, n_lattice);
+  return (int)sgp_splat_blocks(r, v, c, cb, P, nl, blocks, part, st);
+}
+
+// One thread an element (row, col) of the (nl, c) table: column col lies in
+// block col / cb at column col % cb.  Writes coalesce; the reads of a warp
+// cross at most two blocks.
+__global__ void chain_unblock_kernel(const float* __restrict__ blocks, int cb, int nl, int c,
+                                     float* __restrict__ table) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)nl * c) return;
+  const long long row = idx / c;
+  const int col = (int)(idx - row * c);
+  const int b = col / cb;
+  table[idx] = __ldcs(blocks + ((long long)b * nl + row) * cb + (col - b * cb));
+}
+
+// The blocks (P, nl, cb) into the table (nl, c), c <= P cb.
+extern "C" int sgp_chain_unblock(const float* blocks, int cb, int nl, int c, float* table, void* stream) {
+  if (cb <= 0) return (int)cudaErrorInvalidValue;
+  const long long work = (long long)nl * c;
+  if (work > 0)
+    chain_unblock_kernel<<<sgp_blocks(work), SGP_THREADS, 0, (cudaStream_t)stream>>>(blocks, cb, nl, c, table);
+  return (int)cudaGetLastError();
 }

@@ -339,6 +339,37 @@ static inline cudaError_t sgp_splat_rows(const SgpRuns& r, const Src& src, int c
   return cudaGetLastError();
 }
 
+// The splat's source of column block b: columns [c0, c0 + cols) of a
+// row-major v (row stride ld), read in place; the block's padding columns
+// (col >= cols) are zero.
+struct SgpBlockWindow {
+  static constexpr int kTile = CHAIN_TILE;
+  const float* v;
+  int ld, c0, cols;
+  __device__ __forceinline__ float operator()(int p, int col) const {
+    return col < cols ? v[(long long)p * ld + c0 + col] : 0.0f;
+  }
+};
+
+// The sharded applies' splat (K11b, apply.cu; the sharded chain, chain.cu):
+// each column block b of c_pad = P cb columns of v (n, c), the columns past
+// c zero, into its (nl, cb) block of blocks (P, nl, cb), every live row
+// written; part holds np_max * cb floats.  A block of padding alone is
+// zeroed.
+static inline cudaError_t sgp_splat_blocks(const SgpRuns& r, const float* v, int c, int cb, int P, int nl,
+                                           float* blocks, float* part, cudaStream_t st) {
+  if (cb <= 0 || P <= 0) return cudaErrorInvalidValue;
+  if (nl <= 0) return cudaGetLastError();
+  for (int b = 0; b < P; ++b) {
+    const int c0 = b * cb, cols = c - c0 < cb ? c - c0 : cb;
+    float* block = blocks + (long long)b * nl * cb;
+    const cudaError_t err = cols > 0 ? sgp_splat_rows(r, SgpBlockWindow{v, c, c0, cols}, cb, nl, block, part, st)
+                                     : cudaMemsetAsync(block, 0, sizeof(float) * nl * cb, st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // ---- the work lists ---------------------------------------------------------
 
 // long_info and its inclusive scan along the rows, (3, Mc) each: long row

@@ -9,7 +9,7 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --factor [--save DIR]
     python simplex_gp_torch/kernel_times.py --compare-factors DIR DIR
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --axes
-    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --dp-step
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --dp-step [--reps R]
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --mixture-sketch
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --build-grad [--save DIR]
     python simplex_gp_torch/kernel_times.py --compare-build-grad DIR DIR
@@ -19,6 +19,7 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --join-build
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --ski
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --slice
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --unblock
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
@@ -38,8 +39,9 @@ shapes (:func:`factor_steps`), with ``--save`` writing each factor's L and
 pivots for the seventh form to compare two trees' bit for bit
 (:func:`compare_factors`); the eighth K3'c's d+1 axis stencils, fused and
 per axis (:func:`axes_times`); the ninth the data-parallel NLML step on two
-gloo ranks sharing the card, its CG stage and its collectives, for one
-Matern kernel and a J = 8 mixture (:func:`dp_step`); the tenth K12 at c =
+gloo ranks sharing the card, R warm steps (3 by default) by stage (the
+sharded plan's build, the CG, the forward, the backward) and its
+collectives, for one Matern kernel and a J = 8 mixture (:func:`dp_step`); the tenth K12 at c =
 1, 11 and 100, the mixture step, the elevators range sketch's apply (K3 and
 K9 at two windows) and posterior_cache (:func:`mixture_sketch`); the
 eleventh K3'a's build and K5 at the elevators and houseelectric shapes and
@@ -59,7 +61,9 @@ SKIP's 65,536 and 191,231 rows beside ``torch.einsum`` and cuBLAS's
 products of the materialised Khatri-Rao matrix, and the warm SKIP step by
 stage (:func:`ski_times`); the eighteenth K3'd, the sort chain's slice, at
 the elevators and houseelectric widths beside its bound, a CSR product and
-the chain apply it ends (:func:`slice_times`).  An A/B of the slice runs
+the chain apply it ends (:func:`slice_times`); the nineteenth the sharded
+chain apply's unblock beside ``torch.cat``, launched and graph-replayed
+(:func:`unblock_times`).  An A/B of the slice runs
 ``--slice`` and ``--step-grad DIR`` on each tree, then
 ``--compare-step-grad`` on the two DIRs: the houseelectric step's
 gradients bit for bit.
@@ -915,9 +919,11 @@ def mixture_sketch(reps: int = 20) -> dict:
 
 def _dp_rank(axis, case: dict) -> dict:
     """:func:`dp_step`'s rank body: the warm data-parallel NLML and gradient (``data_parallel_loss_fn``, no
-    optimizer step) by CUDA events, the CG stage inside it (``mll.cg_solve`` wrapped: CUDA events around the
-    solve), and from one more step with the axis's timed collectives its transport, its collectives, the
-    CG's own and those between one MVM's end and the next one's start (an iteration's)."""
+    optimizer step) by CUDA events, and by stage: the sharded plan's build (the engine's builder, the join's
+    or the chain's, wrapped), the CG (``mll.cg_solve`` wrapped), the NLML forward (to the end of
+    ``model.nlml``, the plan and CG included) and the rest, the backward with the gradients' all-reduce;
+    then from one more step with the axis's timed collectives its transport, its collectives, the CG's own
+    and those between one MVM's end and the next one's start (an iteration's)."""
     import simplex_gp_torch
     from simplex_gp_torch.linalg import mll
     from simplex_gp_torch.parallel import data_parallel_loss_fn, replicate, shard_batch
@@ -946,6 +952,22 @@ def _dp_rank(axis, case: dict) -> dict:
         return res
 
     mll.cg_solve = timed_solve
+    plan_events = []
+
+    def timed_builder(fn):
+        def built(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            plan = fn(*args, **kw)
+            ev[1].record()
+            plan_events.append(ev)
+            return plan
+
+        return built
+
+    for name in ("build_plan_sharded_chain", "build_plan_sharded_join"):  # the engine's builder in either tree
+        if hasattr(mll, name):
+            setattr(mll, name, timed_builder(getattr(mll, name)))
     out = {}
     for kind in ("matern", "mixture"):
         model = simplex_gp_torch.SimplexGP(num_dims=x.shape[1], kernel=kind, nu=1.5, order=1, min_noise=0.1,
@@ -953,6 +975,14 @@ def _dp_rank(axis, case: dict) -> dict:
                                            **(dict(mix_components=8) if kind == "mixture" else {}))
         model.load_raw(case["raw"])
         replicate(axis, model)
+        forward_end, nlml = torch.cuda.Event(enable_timing=True), model.nlml
+
+        def timed_nlml(*args, **kw):
+            loss = nlml(*args, **kw)
+            forward_end.record()
+            return loss
+
+        model.nlml = timed_nlml
         step = data_parallel_loss_fn(model, axis)
         try:
             step(x, y, probes=z)  # warm-up
@@ -962,12 +992,15 @@ def _dp_rank(axis, case: dict) -> dict:
         steps = []
         for _ in range(case["reps"]):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            plan_events.clear()
             ev[0].record()
             step(x, y, probes=z)
             ev[1].record()
             torch.cuda.synchronize()
             steps.append(dict(step_ms=ev[0].elapsed_time(ev[1]), cg_ms=cg["events"][0].elapsed_time(cg["events"][1]),
-                              cg_iters=cg["iterations"]))
+                              cg_iters=cg["iterations"], plan_ms=sum(a.elapsed_time(b) for a, b in plan_events),
+                              forward_ms=ev[0].elapsed_time(forward_end),
+                              backward_ms=forward_end.elapsed_time(ev[1])))
         axis.timing = True
         axis.reset_stats()
         torch.cuda.synchronize()
@@ -1076,6 +1109,44 @@ def once_sharded(reps: int = 20) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     m = mvm_err.main(["--dataset", "houseelectric", "--order", "1", "--device", "cuda"])
     out["mvm_houseelectric_ts_lattice_s"] = m["ts/lattice"]
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def unblock_times(reps: int = 50) -> dict:
+    """The sharded chain apply's unblock (``chain_unblock``) beside ``torch.cat``, the library's one call for it.
+
+    Seeded random (P, n_lattice, cb) column blocks at the sharded apply's shapes: elevators' 100,172 live
+    rows at c = 11 over P = 2 and 4 and at c = 1 over P = 2 (one block all padding), and the houseelectric
+    stand-in's 11,732 at c = 11 over P = 2.  Each launched (CUDA events over ``reps`` calls) and replayed
+    from a CUDA graph, so the host's part shows apart: the kernel, ``torch.cat`` of the blocks' column
+    slices (views, the padding left out) and the plain twin (launched); whether the three give the same
+    bits; the byte bound (the live table read and written once, 8 n_lattice c bytes over 3.35 TB/s).
+    Any tree since the sharded chain's port.  Prints one JSON line.
+    """
+    import simplex_gp_torch
+    from simplex_gp_torch.kernels import chain as KC
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    dev = torch.device("cuda:0")
+    out = {"card": _card(), "tree": simplex_gp_torch.__file__, "cases": []}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for tag, P, nl, c in (("elevators", 2, 100172, 11), ("elevators", 4, 100172, 11), ("elevators", 2, 100172, 1),
+                          ("houseelectric stand-in", 2, 11732, 11)):
+        cb = -(-c // P)
+        blocks = torch.randn((P, nl, cb), generator=gen, device=dev)
+        parts = [blocks[b, :, :min(cb, c - b * cb)] for b in range(P) if b * cb < c]
+        table = KC.chain_unblock(blocks, c)
+        out["cases"].append(dict(
+            case=tag, blocks=[P, nl, cb], c=c,
+            equal=bool(torch.equal(table, KC.chain_unblock_plain(blocks, c))
+                       and torch.equal(table, torch.cat(parts, dim=1))),
+            ms=_ms(lambda: KC.chain_unblock(blocks, c), reps),
+            graph_ms=_graph_ms(lambda: KC.chain_unblock(blocks, c), reps),
+            library_ms=_ms(lambda: torch.cat(parts, dim=1), reps),
+            library_graph_ms=_graph_ms(lambda: torch.cat(parts, dim=1), reps),
+            plain_ms=_ms(lambda: KC.chain_unblock_plain(blocks, c), reps), bound_ms=8 * nl * c / 3.35e9))
     print(json.dumps(out), flush=True)
     return out
 
@@ -1624,7 +1695,7 @@ if __name__ == "__main__":
     elif "--sharded-f64" in sys.argv[1:]:
         sharded_f64()
     elif "--dp-step" in sys.argv[1:]:
-        dp_step()
+        dp_step(reps=int(sys.argv[sys.argv.index("--reps") + 1]) if "--reps" in sys.argv else 3)
     elif "--mixture-sketch" in sys.argv[1:]:
         mixture_sketch()
     elif "--join-build" in sys.argv[1:]:
@@ -1645,5 +1716,7 @@ if __name__ == "__main__":
         ski_times()
     elif "--slice" in sys.argv[1:]:
         slice_times()
+    elif "--unblock" in sys.argv[1:]:
+        unblock_times()
     else:
         main()

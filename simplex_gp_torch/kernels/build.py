@@ -79,9 +79,11 @@ _SIGNATURES = {
     "sgp_chain_slice": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
     "sgp_chain_axes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "sgp_chain_maps": [_P, _I, _I, _P, _P],
-    "sgp_chain_axes_transpose": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+    "sgp_chain_axes_transpose": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
     "sgp_chain_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
                         _P, _I, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P],
+    "sgp_chain_splat_blocks": [*[_P] * 11, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+    "sgp_chain_unblock": [_P, _I, _I, _I, _P, _P],
     "sgp_cg_dot": [*[_P] * 5, _I, _I, _I, _I, _P, _P],
     "sgp_cg_step_x": [_P, _I, _LL, *[_P] * 4, _I, _I, _I, _I, *[_P] * 4],
     "sgp_cg_utr": [_P, _P, *[_I] * 9, _P, _P],

@@ -8,7 +8,11 @@ the A/B's); ``chain_axes_transpose`` runs them transposed, in reverse axis
 order over the inverse transitions (``chain_maps``), for the exact
 backward.  :func:`chain_apply` launches the splat, the fused axes and the
 slice from one host call, as the CG runs them, or with ``transpose`` the
-transposed apply S^T B^T S.  Each wrapper takes its
+transposed apply S^T B^T S.  :func:`chain_apply_sharded` is the sharded
+apply of the data-parallel engine, over a rank's part of a sharded plan
+(``chain_build(..., first=...)``): the splat by column blocks, the fused
+axes on this rank's block between the two collectives, the blocks rejoined
+(``chain_unblock``) and the slice.  Each wrapper takes its
 plain PyTorch version for CPU tensors and launches its kernels for CUDA
 tensors, raising on a failed build or launch; there is no fallback.  Each
 kernel counts its launches in the ``launches`` attribute of its wrapper
@@ -61,6 +65,10 @@ __all__ = [
     "chain_axes_transpose",
     "chain_slice_plain",
     "chain_slice",
+    "chain_unblock_plain",
+    "chain_unblock",
+    "chain_apply_sharded_plain",
+    "chain_apply_sharded",
     "run_lists",
     "run_lists_device",
     "slice_split",
@@ -90,7 +98,8 @@ class ChainPlan(NamedTuple):
 
       splat_points:  (N,) int32      point of each contribution, in table (axis-0) order
       splat_weights: (N,) f32        its barycentric weight
-      cnt:           (Mc,) int32     end of each row's run of contributions (JAX's cnt)
+      cnt:           (Mc,) int32     end of each row's run of contributions (JAX's cnt); a sharded
+                                     plan's covers its n_lattice live rows only, (n_lattice,)
       long_rows:     (NL,) int32     the rows of runs longer than PIECE, ascending
       long_first:    (NL+1,) int32   long row i's pieces are long_first[i] .. long_first[i+1]
       piece_row:     (NP,) int32     the row of each piece of PIECE contributions
@@ -104,6 +113,12 @@ class ChainPlan(NamedTuple):
       slice_idx:     (n, d+1) int32  final (axis-d) position of each vertex's row
       weights:       (n, d+1) f32    barycentric weights
       n_lattice:     () int32        occupied lattice points (> Mc: the capacity overflowed)
+
+    Mc is gather's and tapw's last dimension.  A rank's part of a sharded
+    plan (:func:`chain_build` with ``first``) holds the whole build's gather,
+    tapw and n_lattice, and for the splat and slice this rank's
+    contributions only: splat_points numbered by local point, cnt counting
+    them, slice_idx and weights of the local points.
     """
 
     splat_points: torch.Tensor
@@ -198,7 +213,7 @@ def run_lists(cnt: torch.Tensor, live: int, N: int) -> tuple:
             mid_rows, torch.tensor(nm, **i32))
 
 
-def chain_build_plain(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
+def chain_build_plain(h1, h2, s, weights, consts, taps, capacity=None, first=None) -> ChainPlan:
     """Plain K3'a (_chain_core, :693-836, and build_plan_chain's slice index, :894).
 
     ``h1``, ``h2``, ``s`` (N,) int32 are K1's vertex hashes and coordinate
@@ -207,11 +222,21 @@ def chain_build_plain(h1, h2, s, weights, consts, taps, capacity=None) -> ChainP
     has Mc = min(capacity, N) rows; past that the build drops points
     without an out-of-bounds write, and n_lattice, the true occupancy, trips
     the slice's guard.
+
+    With ``first``, one rank's part of the sharded plan
+    (shard_filter.py::build_plan_sharded, :50-115): h1, h2 and s are every
+    rank's contributions, ``weights`` (n_loc, d+1) this rank's, which are
+    contributions first .. first + n_loc (d+1) - 1.  The rows, gather, tapw
+    and n_lattice are the whole build's; the splat lists hold this rank's
+    contributions, in the rows' order and within a row in index order
+    (JAX's dest_loc and cnt_loc, :91-101), cnt the live rows' only, and
+    slice_idx this rank's points.
     """
     dev = h1.device
     N = h1.shape[0]
     n, dp1 = weights.shape
     d = dp1 - 1
+    Nw, lo = n * dp1, 0 if first is None else first
     Mc = _rows(N, capacity)
     oh1, oh2, mult = (row.long() for row in consts)
     h1, h2, s = h1.long(), h2.long(), s.long()
@@ -226,10 +251,14 @@ def chain_build_plain(h1, h2, s, weights, consts, taps, capacity=None) -> ChainP
     nl = int(n_lattice)
     live = min(nl, Mc)
     u_pos = torch.nonzero(flag).flatten()[:live]
-    cnt = torch.full((Mc,), N, dtype=torch.int32, device=dev)
-    cnt[:live - 1] = u_pos[1:live].to(torch.int32)
-    row_of = torch.empty(N, dtype=torch.int64, device=dev)
-    row_of[perm] = (seg.long() - 1).clamp(max=Mc - 1)
+    rank = torch.empty(N, dtype=torch.int64, device=dev)  # each contribution's point in (key, h2) order
+    rank[perm] = seg.long() - 1
+    # This rank's contributions in row order: the window's entries of perm, which keep their index order.
+    mine = (perm >= lo) & (perm < lo + Nw)
+    local, local_rank = perm[mine] - lo, (seg.long() - 1)[mine]
+    cnt = torch.full((Mc,), Nw, dtype=torch.int32, device=dev)
+    cnt[:live - 1] = torch.searchsorted(local_rank, torch.arange(live - 1, device=dev), right=True).to(torch.int32)
+    row_of = rank[lo:lo + Nw].clamp(max=Mc - 1)
 
     uk = ks[u_pos]
     c1 = uk >> 32
@@ -246,8 +275,10 @@ def chain_build_plain(h1, h2, s, weights, consts, taps, capacity=None) -> ChainP
     slice_idx = pos[-1][row_of].to(torch.int32).reshape(n, dp1)
 
     flat_w = weights.reshape(-1)
-    return ChainPlan((perm // dp1).to(torch.int32), flat_w[perm].contiguous(), cnt, *run_lists(cnt, live, N),
-                     gather.contiguous(), tapw, slice_idx, weights, n_lattice)
+    lists = run_lists(cnt, live, Nw)
+    return ChainPlan((local // dp1).to(torch.int32), flat_w[local].contiguous(),
+                     cnt if first is None else cnt[:live], *lists, gather.contiguous(), tapw, slice_idx, weights,
+                     n_lattice)
 
 
 def chain_build_staged(h1, h2, s, weights, consts, taps, capacity=None, seed=0) -> ChainPlan:
@@ -319,7 +350,7 @@ def _carve(dev, parts: dict) -> dict:
             for name, (dtype, numel) in parts.items()}
 
 
-def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
+def chain_build(h1, h2, s, weights, consts, taps, capacity=None, first=None) -> ChainPlan:
     """K3'a: the sort-chain plan from K1's hashes, coordinate sums and weights, on the card.
 
     The same plan as :func:`chain_build_plain`, bit for bit, by the stages
@@ -328,9 +359,14 @@ def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
     ``torch.sort`` calls (the distinct points by key, the N ranks, the live
     rows' axis keys batched); one host read (n_lattice, which sizes the
     sorts); one workspace and one output allocation; counted once per build.
+    With ``first`` (a sharded plan's rank, see :func:`chain_build_plain`)
+    the dedup and the ranks cover every rank's contributions, and the
+    stages from the sort of the ranks on only this rank's window of them:
+    its ranks sorted, placed with its weights, its run ends and run lists
+    over the global rows, its slice_idx.
     """
     if not h1.is_cuda:
-        return chain_build_plain(h1, h2, s, weights, consts, taps, capacity)
+        return chain_build_plain(h1, h2, s, weights, consts, taps, capacity, first)
     build.require("chain_build", (h1, torch.int32), (h2, torch.int32), (s, torch.int32),
                   (weights, torch.float32), (consts, torch.int32))
     dev = h1.device
@@ -338,9 +374,11 @@ def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
     n, dp1 = weights.shape
     d = dp1 - 1
     order = (len(taps) - 1) // 2
-    if N != n * dp1 or tuple(consts.shape) != (3, dp1) or len(taps) != 2 * order + 1 or order < 1:
-        raise ValueError(f"chain_build: {N} vertices, consts {tuple(consts.shape)} and {len(taps)} taps do not "
-                         f"fit {n} points of dimension {d}")
+    Nw, lo = n * dp1, 0 if first is None else first
+    if ((N != Nw if first is None else (lo < 0 or lo + Nw > N or N % dp1)) or tuple(consts.shape) != (3, dp1)
+            or len(taps) != 2 * order + 1 or order < 1):
+        raise ValueError(f"chain_build: {N} vertices from {lo}, consts {tuple(consts.shape)} and {len(taps)} taps "
+                         f"do not fit {n} points of dimension {d}")
     Mc = _rows(N, capacity)
     slots = 1 << max(1, (2 * N - 1).bit_length())  # >= 2N: every distinct point fits
     if slots > 2**31:
@@ -350,7 +388,7 @@ def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
     ws = _carve(dev, dict(table=(i32, slots), rep_of=(i32, N), uniq_key=(i64, N), uniq_h2=(i32, N),
                           uniq_rep=(i32, N), row_key=(i64, Mc), row_h2=(i32, Mc), keys=(i64, dp1 * Mc),
                           pos=(i32, d * Mc), long_info=(i32, 3 * Mc)))
-    sizes = dict(sp=N, sw=N, cnt=Mc, gather=d * Mc, tapw=dp1 * order * Mc, slice_idx=N, n_lattice=1)
+    sizes = dict(sp=Nw, sw=Nw, cnt=Mc, gather=d * Mc, tapw=dp1 * order * Mc, slice_idx=Nw, n_lattice=1)
     out = dict(zip(sizes, torch.empty(sum(sizes.values()), dtype=i32, device=dev).split(list(sizes.values()))))
     n_lattice = out["n_lattice"].view(())
     _mark("start")
@@ -374,16 +412,16 @@ def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
                                    rank.data_ptr(), None if key16 is None else key16.data_ptr(), st),
                 "chain_build (rank)")
     _mark("rank")
-    sorted_rank, perm = torch.sort(rank if key16 is None else key16, stable=True)
+    sorted_rank, perm = torch.sort((rank if key16 is None else key16)[lo:lo + Nw], stable=True)
     _mark("rank sort")
     sw = out["sw"].view(torch.float32)
-    build.check(lib.sgp_chain_place(perm.data_ptr(), weights.data_ptr(), N, dp1, out["sp"].data_ptr(), sw.data_ptr(),
-                                    st), "chain_build (place)")
+    build.check(lib.sgp_chain_place(perm.data_ptr(), weights.data_ptr(), Nw, dp1, out["sp"].data_ptr(),
+                                    sw.data_ptr(), st), "chain_build (place)")
     del perm
     _mark("place")
     keys, long_info = ws["keys"][:dp1 * live].view(dp1, live), ws["long_info"].view(3, Mc)
     build.check(lib.sgp_chain_rows(ws["row_key"].data_ptr(), ws["row_h2"].data_ptr(), sorted_rank.data_ptr(),
-                                   int(key16 is not None), live, N, Mc, d, consts.data_ptr(), out["cnt"].data_ptr(),
+                                   int(key16 is not None), live, Nw, Mc, d, consts.data_ptr(), out["cnt"].data_ptr(),
                                    keys.data_ptr(), long_info.data_ptr(), st), "chain_build (rows)")
     del sorted_rank
     _mark("rows")
@@ -392,15 +430,17 @@ def chain_build(h1, h2, s, weights, consts, taps, capacity=None) -> ChainPlan:
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
     tapw = out["tapw"].view(torch.float32).view(dp1, order, Mc)
     gather, slice_idx = out["gather"].view(d, Mc), out["slice_idx"].view(n, dp1)
-    build.check(lib.sgp_chain_finish(keys.data_ptr(), sorted_keys.data_ptr(), order_j.data_ptr(), rank.data_ptr(),
-                                     live, Mc, d, order, ctypes.addressof(taps_host), N, tapw.data_ptr(),
+    build.check(lib.sgp_chain_finish(keys.data_ptr(), sorted_keys.data_ptr(), order_j.data_ptr(),
+                                     rank[lo:].data_ptr(), live, Mc, d, order, ctypes.addressof(taps_host), Nw,
+                                     tapw.data_ptr(),
                                      ws["pos"].data_ptr(), gather.data_ptr(), slice_idx.data_ptr(), st),
                 "chain_build (finish)")
     _mark("finish")
-    lists = run_lists_device(long_info, out["cnt"], N)
+    lists = run_lists_device(long_info, out["cnt"], Nw)
     _mark("run lists")
     chain_build.launches += 1
-    return ChainPlan(out["sp"], sw, out["cnt"], *lists, gather, tapw, slice_idx, weights, n_lattice)
+    cnt = out["cnt"] if first is None else out["cnt"][:live]
+    return ChainPlan(out["sp"], sw, cnt, *lists, gather, tapw, slice_idx, weights, n_lattice)
 
 
 def _mark(stage: str) -> None:
@@ -745,7 +785,7 @@ def chain_axes_transpose(table: torch.Tensor, plan: ChainPlan, taps, tmap=None) 
     barrier = torch.empty(1, dtype=torch.int32, device=table.device)
     build.check(build.library().sgp_chain_axes_transpose(
         table.data_ptr(), other.data_ptr(), plan.tapw.data_ptr(), tmap.data_ptr(), plan.n_lattice.data_ptr(), Mc,
-        c, d, order, float(taps[order]), barrier.data_ptr(), build.stream()), "chain_axes_transpose")
+        Mc, c, d, order, float(taps[order]), barrier.data_ptr(), build.stream()), "chain_axes_transpose")
     chain_axes_transpose.launches += 1
     return table if (d + 1) % 2 == 0 else other
 
@@ -753,13 +793,15 @@ def chain_axes_transpose(table: torch.Tensor, plan: ChainPlan, taps, tmap=None) 
 chain_axes_transpose.launches = 0
 
 
-def chain_slice_plain(table, slice_idx, weights, n_lattice, slice_norm):
+def chain_slice_plain(table, slice_idx, weights, n_lattice, slice_norm, capacity=None):
     """Plain K3'd: the barycentric sum of each point's d+1 final-order rows, in vertex order as the
-    kernel sums them, NaN past the capacity (:1093-1100)."""
+    kernel sums them, NaN past the capacity (:1093-1100): the plan's Mc, the table's rows unless
+    ``capacity`` says it (a sharded apply's table holds the live rows only)."""
     out = table.new_zeros((slice_idx.shape[0], table.shape[1]))
     for v in range(slice_idx.shape[1]):
         out = out + table[slice_idx[:, v].long()] * weights[:, v:v + 1]
-    return torch.where(n_lattice <= table.shape[0], out * slice_norm, float("nan"))
+    rows = table.shape[0] if capacity is None else capacity
+    return torch.where(n_lattice <= rows, out * slice_norm, float("nan"))
 
 
 def slice_split(n: int, dp1: int, c: int, sms: int) -> tuple[int, int]:
@@ -877,3 +919,121 @@ def chain_apply(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float, trans
     if return_table:
         return out, ta if (d + 1) % 2 == 0 else tb
     return out
+
+
+def chain_unblock_plain(blocks: torch.Tensor, c: int) -> torch.Tensor:
+    """Plain unblock: the (P, nl, cb) column blocks side by side as the (nl, c) table, the padding dropped."""
+    P, nl, cb = blocks.shape
+    return blocks.permute(1, 0, 2).reshape(nl, P * cb)[:, :c].contiguous()
+
+
+def chain_unblock(blocks: torch.Tensor, c: int) -> torch.Tensor:
+    """The sharded apply's gathered blocks (P, nl, cb) as the (nl, c) row-major final-order table that K3'd
+    and K5 read: one launch, a thread an element (csrc/chain.cu, sgp_chain_unblock)."""
+    if not blocks.is_cuda:
+        return chain_unblock_plain(blocks, c)
+    build.require("chain_unblock", (blocks, torch.float32))
+    P, nl, cb = blocks.shape
+    if not 0 < c <= P * cb:
+        raise ValueError(f"chain_unblock: {c} columns do not fit {P} blocks of {cb}")
+    table = torch.empty((nl, c), dtype=torch.float32, device=blocks.device)
+    build.check(build.library().sgp_chain_unblock(blocks.data_ptr(), cb, nl, c, table.data_ptr(), build.stream()),
+                "chain_unblock")
+    chain_unblock.launches += 1
+    return table
+
+
+chain_unblock.launches = 0
+
+
+def chain_apply_sharded_plain(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float, axis,
+                              transpose: bool = False, return_table: bool = False):
+    """Plain sharded chain apply (apply_plan_chain's axis branch, :1029-1061), collectives included.
+
+    In the kernels' order, over the plan's n_lattice live rows: the
+    row-order splat of this rank's contributions of each column block of v
+    (padded with zero columns to c_pad = P cb) into a (P, n_lattice, cb)
+    block buffer; the reduce-scatter over the blocks; the fused axes (or
+    with ``transpose`` the transposed axes) of this rank's (n_lattice, cb)
+    block; the all-gather of the blocks; the (n_lattice, c) final-order
+    table; the slice of this rank's points, NaN past the plan's capacity.
+    ``return_table`` also returns that table.
+    """
+    c = v.shape[1]
+    P, cb = axis.size, -(-c // axis.size)
+    nl = plan.cnt.shape[0]
+    padded = torch.nn.functional.pad(v, (0, P * cb - c))
+    blocks = chain_splat_plain(plan, padded).reshape(nl, P, cb).permute(1, 0, 2).contiguous()
+    a = axis.psum_scatter(blocks)
+    # Transposed: the maps over the live positions only, as the kernel lays them out.
+    b = (chain_axes_transpose_plain(a, plan, taps, chain_maps_plain(plan.gather[:, :nl])) if transpose
+         else chain_axes_plain(a, plan, taps))
+    table = chain_unblock_plain(axis.all_gather_blocks(b), c)
+    out = chain_slice_plain(table, plan.slice_idx, plan.weights, plan.n_lattice, slice_norm, plan.gather.shape[-1])
+    return (out, table) if return_table else out
+
+
+def chain_apply_sharded(plan: ChainPlan, v: torch.Tensor, taps, slice_norm: float, axis, transpose: bool = False,
+                        return_table: bool = False):
+    """``slice_norm * S^T B S v`` over a sharded chain plan, for this rank's rows v (n_loc, c).
+
+    ``plan`` is this rank's part of a sharded plan (:func:`chain_build` with
+    ``first``); ``axis`` the
+    :class:`~simplex_gp_torch.parallel.comm.DataAxis`.  Three host calls
+    around the axis's two collectives (csrc/chain.cu, the sharded apply):
+    the splat of each column block into a (P, n_lattice, cb) buffer, the
+    reduce-scatter, the fused axes on this rank's (n_lattice, cb) block,
+    the all-gather, the blocks rejoined into the (n_lattice, c) final-order
+    table (``chain_unblock``, P > 1) and the slice.  With ``transpose`` the
+    transposed apply: the maps first, then the transposed axes.  Each kernel
+    counts on its own wrapper.  No atomics: two calls give the same bits,
+    :func:`chain_apply_sharded_plain`'s.  ``return_table`` also returns the
+    final-order table, (n_lattice, c), for K5.  All NaN when the plan's
+    capacity overflowed, which an untrimmed sharded plan never does.
+    """
+    if not v.is_cuda:
+        return chain_apply_sharded_plain(plan, v, taps, slice_norm, axis, transpose, return_table)
+    d = plan.weights.shape[1] - 1
+    _require_apply("chain_apply_sharded", plan, v)
+    build.require("chain_apply_sharded", (plan.gather, torch.int32), (plan.tapw, torch.float32),
+                  (plan.slice_idx, torch.int32), (plan.weights, torch.float32))
+    (n, c), nl, Mc, order = v.shape, plan.cnt.shape[0], plan.gather.shape[1], plan.tapw.shape[1]
+    if len(taps) != 2 * order + 1 or nl > Mc or c < 1:
+        raise ValueError(f"chain_apply_sharded: {len(taps)} taps and {c} columns do not fit a plan of order {order}, "
+                         f"{nl} live rows of {Mc}")
+    lib, st, dev = build.library(), build.stream(), v.device
+    P, cb = axis.size, -(-c // axis.size)
+    blocks = torch.empty((P, nl, cb), dtype=torch.float32, device=dev)
+    part = torch.empty((plan.piece_row.shape[0], cb), dtype=torch.float32, device=dev)
+    # The maps over the live positions only: past them every transition is the identity.
+    tmap = torch.empty((d + 1, nl), dtype=torch.int32, device=dev) if transpose else None
+    build.check(lib.sgp_chain_splat_blocks(*_splat_args(plan), v.data_ptr(), c, cb, P, nl, blocks.data_ptr(),
+                                           part.data_ptr(), plan.gather.data_ptr(), Mc, d,
+                                           None if tmap is None else tmap.data_ptr(), st),
+                "chain_apply_sharded (splat)")
+    chain_splat.launches += 1
+    a = axis.psum_scatter(blocks)
+    b = torch.empty_like(a)
+    barrier = torch.empty(1, dtype=torch.int32, device=dev)
+    if transpose:
+        err = lib.sgp_chain_axes_transpose(a.data_ptr(), b.data_ptr(), plan.tapw.data_ptr(), tmap.data_ptr(),
+                                           plan.n_lattice.data_ptr(), Mc, nl, cb, d, order, float(taps[order]),
+                                           barrier.data_ptr(), st)
+    else:
+        err = lib.sgp_chain_axes(a.data_ptr(), b.data_ptr(), plan.tapw.data_ptr(), plan.gather.data_ptr(),
+                                 plan.n_lattice.data_ptr(), Mc, cb, d, order, float(taps[order]), barrier.data_ptr(),
+                                 st)
+    build.check(err, "chain_apply_sharded (axes)")
+    if transpose:
+        chain_maps.launches += 1
+        chain_axes_transpose.launches += 1
+    else:
+        chain_axes.launches += 1
+    gathered = axis.all_gather_blocks(a if (d + 1) % 2 == 0 else b)
+    table = gathered.view(nl, c) if P == 1 else chain_unblock(gathered, c)
+    out = torch.empty((n, c), dtype=torch.float32, device=dev)
+    build.check(lib.sgp_chain_slice(table.data_ptr(), plan.slice_idx.data_ptr(), plan.weights.data_ptr(),
+                                    plan.n_lattice.data_ptr(), n, d + 1, c, Mc, *_slice_args(plan, c, dev),
+                                    float(slice_norm), out.data_ptr(), st), "chain_apply_sharded (slice)")
+    chain_slice.launches += 1
+    return (out, table) if return_table else out

@@ -41,14 +41,17 @@ the exact backward's outputscale gradient is NaN (as JAX's host loop gives
 it, host_loop.py:222-224).
 
 ``BBMMConfig.axis`` (a DataAxis; JAX's ``axis_name``) runs the engine
-data-sharded: x, y and the probes hold this rank's rows, the plan is the
-sharded one (ops/lattice.py::build_plan_sharded_join), every reduction
-over n is an all-reduce, n is the global count, and the loss is global on
-every rank while the backward returns this rank's partial gradients, which
-``parallel.mesh.data_parallel_loss_fn`` all-reduces once.  As in JAX, the
-sharded engine ignores two settings: ``grad_mode="deriv_filter"`` runs the
-exact gradient (mll.py:95-106), and ``plan_capacity`` is not applied
-(mll.py:161-172).
+data-sharded: x, y and the probes hold this rank's rows, the plan is this
+rank's part of the sharded sort chain (JAX's build_plan_sharded,
+ops/lattice.py::build_plan_sharded_chain), every reduction over n is an
+all-reduce, n is the global count, and the loss is global on every rank
+while the backward returns this rank's partial gradients, which
+``parallel.mesh.data_parallel_loss_fn`` all-reduces once.  The exact
+backward reuses the CG's sharded chain plan as the one-device one does:
+the sharded chain apply with its table, the transposed sharded apply and
+K5 at this rank's slice_idx.  As in JAX, the sharded engine ignores two
+settings: ``grad_mode="deriv_filter"`` runs the exact gradient
+(mll.py:95-106), and ``plan_capacity`` is not applied (mll.py:161-172).
 
 A MixtureKernel (JAX :100-110) takes the stacked mixture plan and K12 for
 every apply, ignores ``plan_capacity``, and always runs the exact gradient,
@@ -57,10 +60,10 @@ MixturePlan, saved for it (K12, transposed K12, K5 on the stacked
 problem), as the sharded engine reuses its sharded plan.  Its
 preconditioner's exact columns are those of its Matern target
 (``dk.nu``).  The sharded engine takes a mixture as JAX's does (:100-104,
-:164-168): one sharded join plan per component at ``ref * alpha_j`` (no
-capacity), the components' K11b applies summed in component order, and in
-the backward each component's K11b transpose and K5 on this rank's points
-(ops/filter.py).
+:164-168): one sharded chain plan per component at ``ref * alpha_j`` (no
+capacity), the components' sharded chain applies summed in component
+order, and in the backward each component's transposed sharded apply and
+K5 on this rank's points (ops/filter.py).
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ from ..ops.filter import (
     lattice_filter_exact_grad,
 )
 from ..ops.kernels import MixtureKernel
-from ..ops.lattice import build_plan_sharded_join
+from ..ops.lattice import build_plan_sharded_chain
 from .cg import cg_solve
 from .lanczos import logdet_from_cg_tridiag, slq_logdet
 from .pivoted_cholesky import (
@@ -181,7 +184,7 @@ class _System(NamedTuple):
     solves: torch.Tensor  # (n, 1+p): alpha and the probe solves
     logdet: torch.Tensor  # () log|K_hat| estimate
     probes_right: torch.Tensor  # (n, p) right vectors of the trace backward
-    plan: tuple  # the CG's plan: a ChainPlan, a MixturePlan, a sharded WidePlan, or a mixture's tuple of them
+    plan: tuple  # the CG's plan: a ChainPlan (one device's, or a rank's sharded part), a MixturePlan, or a tuple
     iterations: int  # CG iterations
     residual: torch.Tensor  # (1+p,) best relative residuals
 
@@ -199,9 +202,9 @@ def _solve_system(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torc
     if axis is None:
         plan = build_plan_any(ref, dk, config.plan_capacity)
     elif isinstance(dk, MixtureKernel):  # one sharded plan per component, no capacity (mll.py:164-168)
-        plan = tuple(build_plan_sharded_join(ref * a, dk.base.coeffs, dk.base.variance, axis) for a in dk.alphas)
+        plan = tuple(build_plan_sharded_chain(ref * a, dk.base.coeffs, dk.base.variance, axis) for a in dk.alphas)
     else:  # JAX's sharded plan has no capacity (mll.py:161-172)
-        plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
+        plan = build_plan_sharded_chain(ref, dk.coeffs, dk.variance, axis)
     s, noise = params["outputscale"], params["noise"]
 
     def mv(V):

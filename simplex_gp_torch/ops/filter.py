@@ -43,10 +43,12 @@ of the J components at ``ref * alpha_j`` (untrimmed: mixtures ignore
 transposed K12 and K5 on the stacked problem, with the position gradient
 sum_j w_j alpha_j K5_j.  A wide value block above ``_JOIN_MAX_ROWS`` goes
 through K9 one component at a time, as JAX's make_wide_filter_any.  The
-sharded engine (``axis``) takes a mixture as JAX does (mll.py:100-104,
-:164-168): one sharded plan per component at ``ref * alpha_j``, the
-weighted sum of the components' K11b applies in component order, and per
-component K11b's transpose and K5 in the backward.
+sharded engine (``axis``) runs on the sharded sort chain (JAX's
+build_plan_sharded, ops/lattice.py::build_plan_sharded_chain), and takes a
+mixture as JAX does (mll.py:100-104, :164-168): one sharded chain plan per
+component at ``ref * alpha_j``, the weighted sum of the components'
+sharded chain applies in component order, and per component the
+transposed sharded apply and K5 at its slice_idx in the backward.
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ from .lattice import (
     build_plan,
     build_plan_join,
     build_plan_mixture,
-    build_plan_sharded_join,
+    build_plan_sharded_chain,
     build_wide_plan_join,
     filter_once,
     mixture_component,
@@ -136,9 +138,10 @@ def apply_plan_any(plan, V: torch.Tensor, dk, transpose: bool = False, return_ta
     """K @ V (or K^T @ V) through a plan from :func:`build_plan_any` or :func:`build_wide_plan_any`,
     or a sharded plan with ``axis``.
 
-    No outputscale or noise.  With ``axis`` the plan is sharded (a WidePlan
-    over the live rows) and applies by K11b, or, for a mixture, its tuple of
-    sharded plans, one a component, by K11b each
+    No outputscale or noise.  With ``axis`` the plan is this rank's part of
+    a sharded chain plan and applies by the sharded chain apply (K3'b by
+    column blocks, the collectives, K3'c on this rank's block, K3'd), or,
+    for a mixture, its tuple of sharded chain plans, one a component
     (:func:`_apply_sharded_mixture`).  A ChainPlan applies by K3'b-d
     (apply_plan, lattice.py:1305-1314), transposed by K3'c transposed, its
     table in final row order; a WidePlan (a join plan with its row lists)
@@ -148,7 +151,7 @@ def apply_plan_any(plan, V: torch.Tensor, dk, transpose: bool = False, return_ta
     if axis is not None:
         if isinstance(dk, MixtureKernel):
             return _apply_sharded_mixture(plan, V, dk, transpose, return_table, axis)
-        return apply_plan_join(plan, V, dk.coeffs, transpose, return_table, axis)
+        return apply_plan_chain(plan, V, dk.coeffs, transpose, return_table, axis)
     if isinstance(plan, ChainPlan):
         return apply_plan_chain(plan, V, dk.coeffs, transpose, return_table)
     if isinstance(plan, WidePlan):
@@ -160,12 +163,12 @@ def apply_plan_any(plan, V: torch.Tensor, dk, transpose: bool = False, return_ta
 
 def _apply_sharded_mixture(plans: tuple, V: torch.Tensor, dk: MixtureKernel, transpose: bool, return_table: bool,
                            axis):
-    """sum_j w_j K_j @ V (or K_j^T) over a mixture's sharded plans, K11b each, summed in component order as
-    JAX's apply_plan_any (filter.py:196-204); with ``return_table`` also the components' blurred tables,
-    unweighted, as a tuple."""
+    """sum_j w_j K_j @ V (or K_j^T) over a mixture's sharded chain plans, summed in component order as
+    JAX's apply_plan_any (filter.py:196-204); with ``return_table`` also the components' final-order
+    tables, unweighted, as a tuple."""
     out, tables = None, []
     for w, plan in zip(dk.weights, plans):
-        res = apply_plan_join(plan, V, dk.base.coeffs, transpose, return_table, axis)
+        res = apply_plan_chain(plan, V, dk.base.coeffs, transpose, return_table, axis)
         term, table = res if return_table else (res, None)
         tables.append(table)
         out = w * term if out is None else out + w * term
@@ -253,7 +256,7 @@ def mixture_position_grad(plan: MixturePlan, ref: torch.Tensor, dk: MixtureKerne
 
 def _plan_tensors(plan) -> tuple:
     """A plan's tensors, flat (for ``save_for_backward``): a WidePlan's or a MixturePlan's four fields, then
-    its rows; a tuple of sharded plans (a mixture's WidePlans), one after another."""
+    its rows; a tuple of sharded plans (a mixture's ChainPlans), one after another."""
     if isinstance(plan, (WidePlan, MixturePlan)):
         return (*plan[:4], *plan.rows)
     if type(plan) is tuple:
@@ -261,8 +264,8 @@ def _plan_tensors(plan) -> tuple:
     return tuple(plan)
 
 
-# Tensors of one flattened WidePlan: its four plan fields and its row lists.
-_WIDE_TENSORS = 4 + len(JoinRows._fields)
+# Tensors of one flattened ChainPlan.
+_CHAIN_TENSORS = len(ChainPlan._fields)
 
 
 def _plan_from_tensors(plan_type, tensors) -> tuple:
@@ -270,19 +273,19 @@ def _plan_from_tensors(plan_type, tensors) -> tuple:
     if plan_type in (WidePlan, MixturePlan):
         return plan_type(*tensors[:4], JoinRows(*tensors[4:]))
     if plan_type is tuple:
-        return tuple(_plan_from_tensors(WidePlan, tensors[i:i + _WIDE_TENSORS])
-                     for i in range(0, len(tensors), _WIDE_TENSORS))
+        return tuple(ChainPlan(*tensors[i:i + _CHAIN_TENSORS]) for i in range(0, len(tensors), _CHAIN_TENSORS))
     return plan_type(*tensors)
 
 
 def _sharded_mixture_backward(plans: tuple, ref: torch.Tensor, dk: MixtureKernel, src: torch.Tensor,
                               g: torch.Tensor, tables_f: tuple, axis):
-    """(grad_src, grad_ref) of ``<g, sum_j w_j K_j(ref alpha_j) @ src>`` on a mixture's sharded plans.
+    """(grad_src, grad_ref) of ``<g, sum_j w_j K_j(ref alpha_j) @ src>`` on a mixture's sharded chain plans.
 
     Component by component, in order, as JAX's autodiff of the component sum
-    (mll.py:100-104): K11b's transpose of the cotangent w_j g (which splats
-    every rank's rows), then K5 on this rank's points at ref alpha_j with
-    that cotangent and the component's two tables; the position gradient is
+    (mll.py:100-104): the transposed sharded chain apply of the cotangent
+    w_j g (which splats every rank's rows), then K5 on this rank's points
+    at ref alpha_j, at the component's slice_idx, with that cotangent and
+    the component's two final-order tables; the position gradient is
     chained through ref alpha_j, so it is multiplied by alpha_j.
     """
     d = ref.shape[1]
@@ -291,8 +294,8 @@ def _sharded_mixture_backward(plans: tuple, ref: torch.Tensor, dk: MixtureKernel
     grad_src = grad_ref = None
     for w, a, plan, table_f in zip(dk.weights, dk.alphas, plans, tables_f):
         g_j = (w * g).contiguous()
-        gs, table_b = apply_plan_join(plan, g_j, dk.base.coeffs, transpose=True, return_table=True, axis=axis)
-        gr = a * lattice_filter_grad((ref * a).to(torch.float32).contiguous(), E, plan.seg_ids, src, g_j, table_f,
+        gs, table_b = apply_plan_chain(plan, g_j, dk.base.coeffs, transpose=True, return_table=True, axis=axis)
+        gr = a * lattice_filter_grad((ref * a).to(torch.float32).contiguous(), E, plan.slice_idx, src, g_j, table_f,
                                      table_b, SLICE_NORM(d))
         grad_src = gs if grad_src is None else grad_src + gs
         grad_ref = gr if grad_ref is None else grad_ref + gr
@@ -312,10 +315,11 @@ def filter_backward(plan, ref: torch.Tensor, dk, src: torch.Tensor, g: torch.Ten
     only live rows, and the row-order splat writes every one).  K5 reads a
     chain plan's tables at ``slice_idx``, both in final row order.  A bare
     join plan takes K3's transposed apply.  With ``axis``
-    the plan is sharded: the transposed apply is K11b's, which splats every
-    rank's g, and K5 runs on this rank's points against the two global
-    (n_lattice, c) tables, so grad_ref holds this rank's rows of the whole
-    gradient.  A
+    the plan is this rank's part of a sharded chain plan: the transposed
+    apply is the sharded chain's, which splats every rank's g, and K5 runs
+    on this rank's points at its slice_idx against the two global
+    (n_lattice, c) final-order tables, so grad_ref holds this rank's rows
+    of the whole gradient.  A
     mixture runs the transposed K12 and :func:`mixture_position_grad`, or
     with ``axis`` :func:`_sharded_mixture_backward` (``table_f`` the tuple of
     its components' tables).
@@ -345,9 +349,10 @@ class LatticeFilterExactGrad(torch.autograd.Function):
     after the windowed K9 it runs per ``_WIDE_CHUNK``-column block (each
     block's apply again, for its table), and the position gradients of the
     blocks add up.  With ``axis`` (a DataAxis; src and ref this
-    rank's rows) the plan is the sharded one and the applies are K11b's, the
-    transposed one included, as JAX's autodiff transposes the collectives
-    of filter_sharded (shard_filter.py:146-155); no capacity, no chunking.
+    rank's rows) the plan is this rank's part of the sharded chain plan and
+    the applies are the sharded chain's, the transposed one included, as
+    JAX's autodiff transposes the collectives of filter_sharded
+    (shard_filter.py:146-155); no capacity, no chunking.
     A MixtureKernel builds its stacked plan and applies it by K12, keeping
     the stacked table; no capacity, no chunking (:func:`lattice_filter_exact_grad`
     sends a wide block above ``_JOIN_MAX_ROWS`` elsewhere).  Second
@@ -360,7 +365,7 @@ class LatticeFilterExactGrad(torch.autograd.Function):
             plan = build_wide_plan_any(ref, dk)
             out, table_f = apply_plan_any(plan, src, dk, return_table=True)
         elif axis is not None:
-            plan = build_plan_sharded_join(ref, dk.coeffs, dk.variance, axis)
+            plan = build_plan_sharded_chain(ref, dk.coeffs, dk.variance, axis)
             out, table_f = apply_plan_any(plan, src, dk, return_table=True, axis=axis)
         else:
             plan = build_wide_plan_join(ref, dk.coeffs, dk.variance, capacity)

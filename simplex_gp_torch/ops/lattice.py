@@ -16,16 +16,20 @@ builds it once and applies it many times.  There are two engines, as in JAX:
   (with the coordinate sums) and K3'a (chain_build), applied by K3'b-d
   (chain_splat, chain_axes: the d+1 axes in one launch, chain_slice), in
   :mod:`simplex_gp_torch.kernels.chain`, with no atomics, so two applies
-  give the same bits.  The single-device CG runs on it.
+  give the same bits.  The single-device CG runs on it, and so does the
+  data-parallel engine: the sharded chain (:func:`build_plan_sharded_chain`,
+  JAX's build_plan_sharded, applied by :func:`apply_plan_chain` with
+  ``axis``).
 * the join (:class:`LatticePlan`, build_plan_join / apply_plan_join): K1
   and K2 (lattice_dedup_neighbors: lattice rows and blur neighbours) build
   it, K3 (lattice_apply, atomic splat; a yardstick, on no model path)
   applies it; with its row lists (a :class:`WidePlan`, from
   :func:`build_wide_plan_join`: K1, then K2 and the rows in one host call)
   K9 applies it, K9 transposed and K5 differentiate it, all in
-  :mod:`simplex_gp_torch.kernels.lattice`; the sharded plan of the
-  data-parallel engine is K1, K11a and this rank's row lists over the live
-  rows (a WidePlan), applied by K11b (``axis``).
+  :mod:`simplex_gp_torch.kernels.lattice`; its sharded plan (JAX's
+  build_plan_sharded_join, kept for differential testing) is K1, K11a and
+  this rank's row lists over the live rows (a WidePlan), applied by K11b
+  (``axis``).
 
 Both compute the same operator (up to 64-bit hash collisions and the chain's
 43-bit packed words, lattice.py:583-587), and both take the chain plan's
@@ -75,7 +79,7 @@ from ..kernels.lattice import (
     lattice_simplex,
     sharded_rows,
 )
-from ..kernels.chain import ChainPlan, chain_apply, chain_build
+from ..kernels.chain import ChainPlan, chain_apply, chain_apply_sharded, chain_build
 from ..kernels.mixture import lattice_mixture_apply, mixture_rows
 
 __all__ = [
@@ -90,6 +94,7 @@ __all__ = [
     "apply_plan",
     "build_plan_chain",
     "apply_plan_chain",
+    "build_plan_sharded_chain",
     "build_plan_join",
     "build_plan_sharded_join",
     "apply_plan_join",
@@ -323,21 +328,63 @@ def build_plan_chain(x: torch.Tensor, coeffs: tuple, blur_variance: float,
     return chain_build(h1, h2, s, weights, consts, [float(c) for c in coeffs], capacity)
 
 
+def build_plan_sharded_chain(x_local: torch.Tensor, coeffs: tuple, blur_variance: float, axis) -> ChainPlan:
+    """This rank's part of the sort-chain plan over every rank's points (inside a data-parallel step).
+
+    Port of simplex_gp_tpu/parallel/shard_filter.py::build_plan_sharded
+    (:50-115).  ``axis`` is a DataAxis.  K1 runs on this rank's points; the
+    (h1, h2, s) triples of every vertex, 12 bytes, are all-gathered in rank
+    order in one collective; every rank runs K3'a on all of them, untrimmed
+    (JAX's sharded plan has no capacity, mll.py:161-172), so ``gather``,
+    ``tapw``, the rows' order and ``n_lattice`` are the same bits on every
+    rank and equal those of :func:`build_plan_chain` on the concatenated
+    points.  The build keeps this rank's part from the sort of the ranks on
+    (kernels/chain.py::chain_build with ``first``): its contributions'
+    splat lists in the global row order, numbered by local point, with
+    their run ends over the n_lattice live rows (``cnt`` (n_lattice,), so
+    the apply sizes its buffers without a host read), its ``slice_idx`` and
+    ``weights``; the other ranks' weights are never gathered.  Every rank
+    must pass the same number of points.
+    """
+    cs = np.asarray(coeffs, np.float64)
+    if not np.allclose(cs, cs[::-1]):
+        raise ValueError("chain plan requires symmetric filter taps")
+    n_loc, d = x_local.shape
+    E, a, _, _, consts = _constants_on(d, (len(coeffs) - 1) // 2, float(blur_variance), _device_key(x_local.device))
+    h1, h2, weights, s = lattice_geometry(x_local.to(torch.float32).contiguous(), E, a, with_s=True)
+    h1g, h2g, sg = axis.all_gather_blocks(torch.stack([h1, h2, s])).transpose(0, 1).reshape(3, -1)
+    return chain_build(h1g, h2g, sg, weights, consts, [float(c) for c in coeffs], None, axis.rank * n_loc * (d + 1))
+
+
 def apply_plan_chain(plan: ChainPlan, v: torch.Tensor, coeffs: tuple, transpose: bool = False,
-                     return_table: bool = False):
+                     return_table: bool = False, axis=None):
     """K(x, x) @ v for v (n, c) through a sort-chain plan: K3'b splat, d+1 K3'c axes, K3'd slice.
 
-    Port of lattice.py::apply_plan_chain (:943) on one device; all NaN when
-    the plan's capacity overflowed (:1093-1100).  ``transpose`` applies K^T,
-    the apply's reverse mode in v as JAX's autodiff runs it (the transposed
+    Port of lattice.py::apply_plan_chain (:943); all NaN when the plan's
+    capacity overflowed (:1093-1100).  ``transpose`` applies K^T, the
+    apply's reverse mode in v as JAX's autodiff runs it (the transposed
     axes, K3'c transposed); ``return_table`` also returns the final-order
     table the slice read, (Mc, c), for K5 (kernels/chain.py::chain_apply).
+    With ``axis`` (a DataAxis), ``plan`` is this rank's part of a sharded
+    plan (:func:`build_plan_sharded_chain`) and v this rank's rows: the
+    column-split apply of :1029-1061 (kernels/chain.py::chain_apply_sharded),
+    whose collectives carry the n_lattice live rows only and whose table is
+    (n_lattice, c); transposed, the same collectives around the transposed
+    axes, as JAX's autodiff transposes them.
     """
     dp1, order = plan.tapw.shape[:2]
     if len(coeffs) != 2 * order + 1:
         raise ValueError(f"{len(coeffs)} taps do not fit a plan of order {order}")
-    return chain_apply(plan, v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(dp1 - 1),
-                       transpose, return_table)
+    args = (plan, v.to(torch.float32).contiguous(), [float(c) for c in coeffs], SLICE_NORM(dp1 - 1))
+    if axis is not None:
+        return chain_apply_sharded(*args, axis, transpose, return_table)
+    # A one-device plan has Mc = min(capacity, N) rows and a run end each; a rank's part of a sharded plan over
+    # P > 1 ranks has Mc = P N_loc rows, more than its N_loc contributions, and run ends for the live rows only.
+    if plan.cnt.shape[0] != plan.gather.shape[-1] or plan.gather.shape[-1] > plan.splat_points.shape[0]:
+        raise ValueError(f"a plan of {plan.cnt.shape[0]} run ends, {plan.gather.shape[-1]} rows and "
+                         f"{plan.splat_points.shape[0]} contributions is a rank's part of a sharded plan: apply it "
+                         f"with its axis")
+    return chain_apply(*args, transpose, return_table)
 
 
 def build_plan(x: torch.Tensor, coeffs: tuple, blur_variance: float, capacity: Optional[int] = None) -> ChainPlan:

@@ -5,7 +5,7 @@ The parallel axis of the workload is the data axis n of the kernel MVM and
 the CG: x, y, the probes and every CG / Lanczos vector hold each rank's
 rows; the splat's partial lattice tables are reduce-scattered by column
 blocks, blurred a block per rank and all-gathered back
-(parallel/shard_filter.py, kernel K11b); the CG, Lanczos and NLML
+(parallel/shard_filter.py, the sharded sort chain); the CG, Lanczos and NLML
 reductions over n are all-reduces.  JAX runs this inside ``shard_map``;
 here every rank runs the same eager program on its own rows.
 

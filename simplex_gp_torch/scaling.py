@@ -4,7 +4,8 @@ The counterpart of experiments/scaling.py.  For each P of the doubling
 ladder 1, 2, 4, ... up to the group's size, on the first P ranks, it times
 
   * the full sharded filter: the plan build (K1, the all-gather of the
-    hashes, K11a) and one apply (K11b) of a (n, cols) block;
+    (h1, h2, s) triples, K3'a) and one sharded sort-chain apply of a
+    (n, cols) block;
   * one data-parallel NLML loss and gradient (``data_parallel_loss_fn``);
 
 and prints one JSON record per P with experiments/scaling.py's keys, plus
@@ -61,8 +62,8 @@ def _one_size(ax, args, device) -> dict:
     from .linalg.mll import BBMMConfig
     from .models.exact_gp import SimplexGP
     from .ops.kernels import rbf_kernel
-    from .ops.lattice import apply_plan_join
-    from .parallel import build_plan_sharded_join, data_parallel_loss_fn, replicate, shard_batch
+    from .ops.lattice import apply_plan_chain
+    from .parallel import build_plan_sharded, data_parallel_loss_fn, replicate, shard_batch
 
     size = ax.size
     n = args.rows * (size if args.weak else 1)
@@ -76,10 +77,10 @@ def _one_size(ax, args, device) -> dict:
     ms = _timer(device)
 
     def full():
-        plan = build_plan_sharded_join(x_loc, dk.coeffs, dk.variance, ax)
-        return apply_plan_join(plan, v_loc, dk.coeffs, axis=ax)
+        plan = build_plan_sharded(x_loc, dk.coeffs, dk.variance, ax)
+        return apply_plan_chain(plan, v_loc, dk.coeffs, axis=ax)
 
-    n_lattice = int(build_plan_sharded_join(x_loc, dk.coeffs, dk.variance, ax).n_lattice)
+    n_lattice = int(build_plan_sharded(x_loc, dk.coeffs, dk.variance, ax).n_lattice)
     t_full = ms(full, args.reps)
     ax.timing = True
     ax.reset_stats()
@@ -108,10 +109,10 @@ def _one_size(ax, args, device) -> dict:
         "mode": "weak" if args.weak else "strong",
         # Per apply each rank sends (P-1)/P of the (n_lattice, c_pad) table of
         # the live rows in the reduce-scatter and receives as much in the
-        # all-gather; the plan build gathers the 8-byte hash pair of every vertex.
+        # all-gather; the plan build gathers the 12-byte (h1, h2, s) triple of every vertex.
         "comm_table_bytes": n_lattice * cpad * 4,
         "comm_per_device_bytes_per_mvm": int(2 * n_lattice * cpad * 4 * (size - 1) / size),
-        "comm_plan_build_bytes": n * (args.dim + 1) * 8,
+        "comm_plan_build_bytes": n * (args.dim + 1) * 12,
         "filter_full_ms": t_full,
         "filter_mvm_per_s": 1e3 / t_full,
         "comm_ms": comm_ms,

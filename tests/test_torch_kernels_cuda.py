@@ -65,6 +65,8 @@ Positions at d >= 9 are scaled by 0.3, so the kernel reaches between points
 and the gradients are not roundoff.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -585,7 +587,10 @@ def test_sharded_apply_one_rank_matches_plain_and_k3(cuda_device, n, d, order, k
 
 def test_sharded_apply_two_gloo_ranks_on_the_card(cuda_device):
     """K11b over two gloo ranks sharing the card, c = 5 (padded to 6) and 11: each rank bit-equal to its
-    plain version, and the ranks' rows against K3 on one process (rel 1e-5); the same plan on both ranks."""
+    plain version, and the ranks' rows against K3 on one process (rel 1e-5); the same plan on both ranks.
+    Beside it the sharded chain apply on the same rows: each rank's output and table bit-equal to its
+    plain version, the ranks' rows against the one-process chain apply (rel 1e-5), the same transitions on
+    both ranks, and each chain kernel's launches."""
     import numpy as np
     from torch_dist_bodies import card_sharded_apply
 
@@ -607,6 +612,19 @@ def test_sharded_apply_two_gloo_ranks_on_the_card(cuda_device):
                 assert np.array_equal(r[(c, transpose)]["kernel"], r[(c, transpose)]["plain"])
     assert np.array_equal(ranks[0]["neighbors"], ranks[1]["neighbors"])
     assert all(r["launches"] == 4 for r in ranks)
+    cplan = t_lattice.build_plan_chain(torch.from_numpy(x).to(cuda_device), dk.coeffs, dk.variance)
+    for c in (5, 11):
+        for transpose in (False, True):
+            whole = t_lattice.apply_plan_chain(cplan, torch.from_numpy(v[:, :c]).to(cuda_device), dk.coeffs,
+                                               transpose).cpu().numpy()
+            got = np.concatenate([r[("chain", c, transpose)]["kernel"] for r in ranks])
+            assert np.linalg.norm(got - whole) / np.linalg.norm(whole) < 1e-5
+            for r in ranks:
+                assert np.array_equal(r[("chain", c, transpose)]["kernel"], r[("chain", c, transpose)]["plain"])
+                assert r[("chain", c, transpose)]["tables_equal"]
+    assert np.array_equal(ranks[0]["chain_gather"], ranks[1]["chain_gather"])
+    assert all(r["chain_launches"] == dict(chain_splat=4, chain_axes=2, chain_maps=2, chain_axes_transpose=2,
+                                           chain_unblock=4, chain_slice=4) for r in ranks)
 
 
 @pytest.mark.parametrize("nu", [0.0, 0.5, 1.5, 2.5])
@@ -1080,6 +1098,43 @@ def test_chain_build_matches_plain_on_hard_inputs(cuda_device, case, capacity):
     if cap is not None and cap < occ:
         v = torch.ones((x.shape[0], 2), device=cuda_device)
         assert bool(torch.isnan(t_lattice.apply_plan_chain(kplan, v, dk.coeffs)).all())
+
+
+@pytest.mark.parametrize("case", ["one point repeated", "d18", "run classes"])
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+def test_chain_build_rank_window_matches_plain(cuda_device, case, ranks):
+    """A sharded plan's rank part (chain_build with ``first``): every field bit for bit against the plain
+    build's and a second build, for each rank of 1, 2 and 4 over the hard inputs' points; its apply on one
+    rank (P = 1) torch.equal to the one-device apply.  And chain_unblock torch.equal to its twin."""
+    dk = _dk("matern" if case == "d18" else "rbf", 1)
+    x = _chain_hard_positions(case, cuda_device)
+    n, d = x.shape
+    n_loc = n // ranks
+    x = x[:n_loc * ranks].contiguous()
+    E = torch.from_numpy(t_lattice.build_rotation(d, dk.variance)).to(cuda_device)
+    a = torch.from_numpy(t_lattice._hash_vectors(d)).to(cuda_device)
+    h1, h2, w, s = K.lattice_geometry(x, E, a, with_s=True)
+    consts, taps = torch.from_numpy(t_lattice._chain_consts(d)).to(cuda_device), [float(t) for t in dk.coeffs]
+    for r in range(ranks):
+        wr = w[r * n_loc:(r + 1) * n_loc].contiguous()
+        first = r * n_loc * (d + 1)
+        kplan = KC.chain_build(h1, h2, s, wr, consts, taps, None, first)
+        pplan = KC.chain_build_plain(h1, h2, s, wr, consts, taps, None, first)
+        again = KC.chain_build(h1, h2, s, wr, consts, taps, None, first)
+        torch.cuda.synchronize()
+        for f in KC.ChainPlan._fields:
+            assert torch.equal(getattr(kplan, f), getattr(pplan, f)), f
+            assert torch.equal(getattr(kplan, f), getattr(again, f)), f
+    if ranks == 1:
+        one = types.SimpleNamespace(size=1, psum_scatter=lambda t: t[0].clone(), all_gather_blocks=lambda t: t[None])
+        v = torch.randn((n_loc, 11), generator=torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+        whole = t_lattice.build_plan_chain(x, dk.coeffs, dk.variance)
+        for transpose in (False, True):
+            want = t_lattice.apply_plan_chain(whole, v, dk.coeffs, transpose)
+            assert torch.equal(t_lattice.apply_plan_chain(kplan, v, dk.coeffs, transpose, axis=one), want)
+    blocks = torch.randn((3, 1000, 4), generator=torch.Generator(device=cuda_device).manual_seed(1),
+                         device=cuda_device)
+    assert torch.equal(KC.chain_unblock(blocks, 11), KC.chain_unblock_plain(blocks, 11))
 
 
 @pytest.mark.parametrize("capacity", ["untrimmed", "overflowing"])

@@ -9,12 +9,15 @@ virtual devices (tests/conftest.py) and against the port's single-device
 engine, on the same numpy inputs.
 
 Bounds, those of tests/test_parallel.py: the filter rtol 1e-5 / atol 1e-5,
-the loss rtol 1e-4, gradients rtol 1e-3 / atol 1e-4.  JAX's sharded plan is
-the sort chain, the port's the join plan (the same operator to rel 2e-5,
-test_chain_plan.py).  The port's single-device engine runs its CG on the
-sort chain (K3'), its sharded engine on the join; the two differ in the
-order of the sums over rows and in the splat's summation (measured: filter
-rel <= 7e-8, the same CG iteration counts).  The sharded
+the loss rtol 1e-4, gradients rtol 1e-3 / atol 1e-4.  Both packages' sharded
+engines run the sharded sort chain (tests/test_torch_sharded_chain.py holds
+it against JAX's); the filter tests here hold JAX's and the port's sharded
+join (``build_plan_sharded_join``, K11a and K11b, kept for differential
+testing; the same operator as the chain to rel 2e-5, test_chain_plan.py).
+The port's single-device and sharded engines both run their CG on the sort
+chain; the two differ in the order of the sums over rows and in the
+splat's summation (each row's sum split into the ranks' partial sums),
+with the same CG iteration counts.  The sharded
 pivoted-Cholesky factor equals the single-device one bit for bit: every row
 runs the same operations, and the winner of the gathered candidates is the
 global first maximum, as the single-device argmax.  K11a's plans are the same

@@ -10,8 +10,10 @@ import numpy as np
 import torch
 
 from simplex_gp_torch import SimplexGP
+from simplex_gp_torch.kernels import chain as KC
 from simplex_gp_torch.kernels import lattice as K
 from simplex_gp_torch.kernels.chain import chain_splat_plain
+from simplex_gp_torch.linalg import mll as t_mll
 from simplex_gp_torch.kernels.lattice import dedup_ordered_plain, geometry_plain
 from simplex_gp_torch.linalg.cg import cg_solve
 from simplex_gp_torch.linalg.mll import BBMMConfig
@@ -22,8 +24,10 @@ from simplex_gp_torch.linalg.pivoted_cholesky import (
     precond_solve,
 )
 from simplex_gp_torch.ops import kernels as kern
-from simplex_gp_torch.ops.lattice import SLICE_NORM, _lattice_constants, apply_plan_join
+from simplex_gp_torch.ops import lattice as t_lattice
+from simplex_gp_torch.ops.lattice import SLICE_NORM, _lattice_constants, apply_plan_chain, apply_plan_join
 from simplex_gp_torch.parallel import (
+    build_plan_sharded,
     build_plan_sharded_join,
     data_parallel_loss_fn,
     filter_sharded,
@@ -242,20 +246,109 @@ def distributed_suite(axis, x, y):
 
 
 def card_sharded_apply(axis, x, v):
-    """K11b and its plain version on this rank's rows, on the card (tests/test_torch_kernels_cuda.py)."""
+    """K11b and the sharded chain apply beside their plain versions on this rank's rows, on the card
+    (tests/test_torch_kernels_cuda.py), with each kernel's launches."""
     dk = kern.rbf_kernel(1)
     x_loc, v_loc = shard_batch(axis, x, v)
     plan = build_plan_sharded_join(x_loc, dk.coeffs, dk.variance, axis)
+    cplan = build_plan_sharded(x_loc, dk.coeffs, dk.variance, axis)
     norm = SLICE_NORM(x.shape[1])
-    K.lattice_apply_sharded.launches = 0
-    out = {"neighbors": plan.neighbors.cpu().numpy()}
+    chain = (KC.chain_splat, KC.chain_axes, KC.chain_maps, KC.chain_axes_transpose, KC.chain_unblock, KC.chain_slice)
+    for fn in (K.lattice_apply_sharded, *chain):
+        fn.launches = 0
+    out = {"neighbors": plan.neighbors.cpu().numpy(), "chain_gather": cplan.gather.cpu().numpy()}
     for c in (5, 11):
         vc = v_loc[:, :c].contiguous()
         for transpose in (False, True):
             kernel = K.lattice_apply_sharded(*plan[:4], vc, dk.coeffs, norm, axis, transpose, rows=plan.rows)
             plain = K.apply_sharded_plain(*plan[:4], vc, dk.coeffs, norm, axis, transpose, rows=plan.rows)
             out[(c, transpose)] = dict(kernel=kernel.cpu().numpy(), plain=plain.cpu().numpy())
+            ck, ct = KC.chain_apply_sharded(cplan, vc, dk.coeffs, norm, axis, transpose, True)
+            cp, cpt = KC.chain_apply_sharded_plain(cplan, vc, dk.coeffs, norm, axis, transpose, True)
+            out[("chain", c, transpose)] = dict(kernel=ck.cpu().numpy(), plain=cp.cpu().numpy(),
+                                                tables_equal=bool(torch.equal(ct, cpt)))
     out["launches"] = K.lattice_apply_sharded.launches
+    out["chain_launches"] = {fn.__name__: fn.launches for fn in chain}
+    return out
+
+
+def _refused(plan, v, dk) -> bool:
+    """Whether apply_plan_chain refuses a rank's part of a sharded plan given without its axis."""
+    try:
+        apply_plan_chain(plan, v, dk.coeffs)
+    except ValueError:
+        return True
+    return False
+
+
+def _chain_filter(axis, case):
+    """The sharded chain plan of one case (its fields, and whether a second build is the same bits), its
+    apply forward and transposed with their final-order tables (and whether a second call repeats them),
+    and filter_sharded's output and gradients, gathered.  Also whether apply_plan_chain without the axis
+    refuses the plan and one of the points spread 1,000-fold, where no two vertices merge (n_lattice = Mc)."""
+    dk = dk_of(case["kernel"])
+    x, v, g = shard_batch(axis, case["x"], case["v"], case["g"], device=CPU)
+    plan = build_plan_sharded(x, dk.coeffs, dk.variance, axis)
+    again = build_plan_sharded(x, dk.coeffs, dk.variance, axis)
+    spread = build_plan_sharded(x * 1e3, dk.coeffs, dk.variance, axis)
+    res = dict(plan={f: t.numpy().copy() for f, t in zip(KC.ChainPlan._fields, plan)},
+               same_twice=all(torch.equal(a, b) for a, b in zip(plan, again)), repeat=True,
+               spread_all_live=spread.cnt.shape[0] == spread.gather.shape[-1],
+               refused=[_refused(p, v, dk) for p in (plan, spread)])
+    for name, transpose in (("forward", False), ("transposed", True)):
+        out, table = apply_plan_chain(plan, v, dk.coeffs, transpose, True, axis)
+        out2, table2 = apply_plan_chain(plan, v, dk.coeffs, transpose, True, axis)
+        res["repeat"] &= bool(torch.equal(out, out2) and torch.equal(table, table2))
+        res[name], res[f"{name}_table"] = _gathered(axis, out), table.numpy()
+    x.requires_grad_(True)
+    v.requires_grad_(True)
+    out = filter_sharded(v, x, dk, axis)
+    (out * g).sum().backward()
+    return dict(res, filter=_gathered(axis, out), grad_v=_gathered(axis, v.grad), grad_x=_gathered(axis, x.grad))
+
+
+class _Spy:
+    """Counts the calls of ``module.name`` while active, then puts the function back."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.fn(*args, **kwargs)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def _chain_engine(axis, case):
+    """data_parallel_loss_fn's step (:func:`_engine`) with the calls of the engine's plan builders and
+    applies counted: the sharded chain's build and apply (forward and transposed), K11a and K11b."""
+    with _Spy(t_mll, "build_plan_sharded_chain") as build, _Spy(t_lattice, "chain_apply_sharded") as apply, \
+            _Spy(t_lattice, "lattice_dedup_ordered") as k11a, _Spy(t_lattice, "lattice_apply_sharded") as k11b, \
+            _Spy(KC, "chain_axes_transpose_plain") as transposed:
+        res = _engine(axis, case)
+    return dict(res, calls=dict(chain_build=build.calls, chain_apply=apply.calls, transposed=transposed.calls,
+                                k11a=k11a.calls, k11b=k11b.calls))
+
+
+def sharded_chain_suite(axis, cases):
+    """Every check of tests/test_torch_sharded_chain.py, over the world and over its first two ranks."""
+    torch.manual_seed(0)
+    out = {}
+    for tag, ax in (("world", axis), ("pair", make_mesh(2))):
+        if ax is None:  # ranks 2 and 3 sit out the two-rank checks
+            continue
+        out[tag] = dict(size=ax.size, rank=ax.rank, filters=[_chain_filter(ax, c) for c in cases["filters"]],
+                        mixture=_filter_mixture(ax, cases["filters"][1]),
+                        engines=[_chain_engine(ax, c) for c in cases["engines"]])
+    axis.psum(torch.zeros(1))  # no rank leaves while the pair still runs
     return out
 
 
