@@ -64,14 +64,18 @@ Phases, each printed as it runs:
      360,000 with that run's capacity, and five Adam steps from there (the
      first held to JAX's, the rest printed); then ``simplex_gp_torch.train.main``
      with the round-5 houseelectric flags for two epochs, one validation
-     eval and the test predict through K9, the training steps' backward
-     on the CG's chain plan; K5 at the training step's shape (c = 11 on the
-     CG's trimmed chain plan and its two final-order tables) against its
-     plain version and a second run, bit for bit, with its time and bound;
-     one warm step by stage (the backward's parts on both routes, the chain
-     plan's and a join plan's), and its backward under torch.profiler (the
-     chain backward's kernels, no join plan's, no torch.sort or
-     torch.cumsum);
+     eval and the test predict on the chunked chain (no K2, join rows, K9 or
+     K3 launched), the training steps' backward on the CG's chain plan;
+     K5 at the training step's shape (c = 11 on the CG's trimmed chain plan
+     and its two final-order tables) against its plain version and a second
+     run, bit for bit, with its time and bound; one warm step by stage (the
+     backward's parts on both routes, the chain plan's and a join plan's),
+     and its backward under torch.profiler (the chain backward's kernels, no
+     join plan's, no torch.sort or torch.cumsum); one eval by stage with its
+     peak memory, its range sketch and val predict on the chunked chain and
+     then K9's route on the same inputs (times and peak beside them): the
+     sketch's K_hat Omega and the rect filter of the same columns within the
+     chain-vs-join bound, the predictions under the serving gates;
   7. the data-parallel training path at elevators' width (the 10,622 rows
      shard_batch keeps at P = 2, median init, 10 probes), whose plan is the
      sharded sort chain (JAX's build_plan_sharded): K11a
@@ -103,7 +107,7 @@ Phases, each printed as it runs:
      stages with the transport apart and the bytes a collective, its
      launches (the sharded chain's kernels; K11a, K11b and K3 none), the
      J = 8 mixture's data-parallel NLML (one sharded chain a component)
-     and gradients against one process's K12 mixture;
+     and gradients against one process's (one chain plan a component);
      ``simplex_gp_torch.scaling``'s records on one NCCL rank and on the two
      gloo ranks; and (7.5) the houseelectric stand-in's first 360,000 rows
      over the two gloo ranks (houseelectric_golden.npz's probes and median
@@ -123,9 +127,13 @@ Phases, each printed as it runs:
      and the bound at each width) and against JAX's mixture MVM; the mixture
      position gradient (K5 on the stacked problem) against its plain
      version; the port's subset fit against JAX's weights through the
-     operator; the NLML and raw gradients at the median init (and a second
-     evaluation, bit for bit), three Adam steps, one warm step and its
-     stages; posterior_cache +
+     operator; the NLML and raw gradients at the median init on the J chain
+     plans, one a component (and a second evaluation, bit for bit), beside
+     K12's stacked route on the same inputs (the NLML difference, the raw
+     gradients), three Adam steps, one warm step and its stages (no K2, row
+     build or K12 launched), the CG's MVM at c = 11 on both routes (within
+     the chain-vs-join bound, graph-replayed times) and the warm step on
+     both; posterior_cache +
      predict_from_cache at model_best.pkl (with JAX's weights refit at its
      lengthscales) on the test rows;
      ``simplex_gp_torch.train.main --kernel mixture`` for two epochs and
@@ -219,8 +227,11 @@ Phases, each printed as it runs:
      simplex_gp_torch.eval_checkpoint --plan-capacity -1 --prune-thresh 0.3``
      (finite, four dims kept, the screened occupancy at or below the
      capacity), then in this process the screened cache torch.equal to the
-     hand-subset model's at the same omega and the kernels' launches on it;
-     each screened eval by stage with its peak memory; K3'd's generic path
+     hand-subset model's at the same omega and the kernels' launches on it
+     (its range sketch and predict on the chunked chain: no K2, join rows or
+     K9); each screened eval by stage with its peak memory, and at
+     houseelectric_sparse K9's route for the sketch and predict on the same
+     inputs beside it under the wide routes' gates; K3'd's generic path
      (d'+1 = 5) and the chain apply torch.equal to their plain twins on both
      screened plans, timed; then ``simplex_gp_torch.train --prune-thresh
      0.3`` for two epochs, ``quality_gap`` on 2,048 rows, ``asymptotics`` at
@@ -237,13 +248,25 @@ Phases, each printed as it runs:
      from the same forward at both (cos 0.999, rel 2e-2, the bounds of the
      gradients against JAX), and two chain backwards bit for bit; one
      elevators training step's launches (no K2, row build, K9 or K3; one
-     K3'c transposed and its maps, one K5).
+     K3'c transposed and its maps, one K5);
+ 15. the chunked chain's shapes at houseelectric (median init): the range
+     sketch's plan of the training rows at the autotrimmed capacity (15.7M
+     contributions) and the rect predict's untrimmed plan of [train; val]
+     (19.7M contributions): K3'a against its plain twin in every field, its
+     time, stages and peak; on each a block of 8 and of 16 columns through
+     K3'b, the fused K3'c, K3'd, the maps, K3'c transposed and the fused
+     apply forward and transposed, each torch.equal to its plain twin and
+     timed beside its bound; the block loop at c = 100 (101) in blocks of
+     16 and of 8 columns, torch.equal to each other, timed in turns beside
+     K9 on the join plan of the same positions, with each one's peak memory.
 
 The line before the last is the card; the one before it a JSON object of
 the kernels (launches on the slice -- K3 has none there since the range
 sketch runs K9 on its plan's row lists; for K5, on the trainer run; for K7, on
 the deriv-mode Adam steps; for K4 and K8, on the three mvm_err runs; for K9,
-its row lists and the bounded K2, on the houseelectric trainer run; for K11a, K11b (the sharded
+its row lists, on the slice (0 on the houseelectric trainer run, which
+runs the chunked chain); for the bounded K2, on the houseelectric trainer
+run (0: no path trims a join plan); for K11a, K11b (the sharded
 join's, 0 since the step runs the sharded chain), the chain's unblock, K6' and K10',
 on the two ranks' data-parallel NLML step; for K12, on the mixture trainer
 run; for K13, on the SKIP trainer run; for K3', in one training step (the
@@ -266,6 +289,7 @@ first card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -377,6 +401,13 @@ PARALLEL_FILTER_REL = 2e-5
 # K3_REL.  Each rank's kernels against their plain versions, and a second call, bit for bit; at P = 1
 # (one NCCL rank) the apply is the one-device apply bit for bit (torch.equal).
 SHARDED_CHAIN_REL = K3_REL
+# The wide filters above _JOIN_MAX_ROWS (the houseelectric range sketch and rect predicts, phases 6.5 and
+# 13.2) run the chunked chain; K9's route on the join plan, on the same inputs, is the same operator: the
+# sketch's K_hat Omega and the rect filter of the same columns within the chain-vs-join bound (LARGE_N_REL);
+# the root and the predictions of each route from its own sketch under the serving gates (PREDICT_MEAN_ATOL
+# for the mean row by row, RMSE_ATOL / NLL_ATOL); the root itself is printed (a QR and an eigh of the
+# sketch, whose conditioning scales the operator's difference).  Phase 15 holds each chain kernel at the
+# chunked chain's shapes torch.equal to its plain twin, and the 8- and 16-column blocks to each other.
 # Phase 3's range sketch apply (K9 on the join plan's row lists, no atomics)
 # against K3's atomic apply of the same operator at c = 100: K3_REL.
 SKETCH_K3_REL = K3_REL
@@ -386,7 +417,10 @@ SKETCH_K3_REL = K3_REL
 # splatted with atomics); against the J-fold K3 loop, K3's atomic splat
 # (K3_REL); against JAX's mixture MVM, the chain-vs-join bound (LARGE_N_REL);
 # the stacked K5, K5_REL.  The NLML, gradients, Adam steps and serving take
-# phase 4's and phase 3's bounds with JAX's weights fed in.
+# phase 4's and phase 3's bounds with JAX's weights fed in; the engine runs
+# JAX's plan, one chain plan a component, and K12's stacked route on the same
+# inputs is printed beside it, the CG's MVM on the two routes held to the
+# chain-vs-join bound (LARGE_N_REL).
 # The port's own subset fit: NNLS can change its active set on a
 # rounding-level change of its columns (the port's filters differ from JAX's
 # by ~1e-6), so the fit is held through the operator it gives on a probe
@@ -475,7 +509,9 @@ KERNEL_ROWS = {
     "filter_once": ("simplex_gp_torch/csrc/once.cu", "simplex_gp_tpu/ops/lattice.py:1166"),
     "count_lattice_points": ("simplex_gp_torch/csrc/once.cu", "simplex_gp_tpu/ops/lattice.py:839"),
     "lattice_deriv_grad": ("simplex_gp_torch/csrc/deriv.cu", "simplex_gp_tpu/ops/filter.py:261"),
-    "lattice_apply_cols": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/filter.py:65"),
+    # K9: the wide filter's join branch below _JOIN_MAX_ROWS (make_wide_filter's apply, and _filter_plain's :137);
+    # above it the port runs JAX's chunked chain (:65-84, :99-115) on K3'.
+    "lattice_apply_cols": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/filter.py:117"),
     # K9's and K7's row lists: the chain plan's contribution order and run ends (_chain_core's cnt).
     "join_rows": ("simplex_gp_torch/csrc/apply.cu", "simplex_gp_tpu/ops/lattice.py:756"),
     "lattice_dedup_neighbors_bounded": ("simplex_gp_torch/csrc/dedup.cu", "simplex_gp_tpu/ops/lattice.py:693"),
@@ -1449,9 +1485,10 @@ def large_n_phase(dev, expect, timer):
 
     print("large n 6.4: python -m simplex_gp_torch.train at houseelectric, the round-5 flags, two epochs")
     # The exact backward reuses the CG's chain plan (K3'c transposed); the eval's range sketch and predicts
-    # apply through K9 on their join plans' row lists, so K3 is off this path.
-    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.join_rows, K.lattice_apply_cols,
-            pivot_column, K.lattice_filter_grad, K.lattice_count, *chain_kernels(), KC.chain_axes_transpose)
+    # apply the chunked chain (above _JOIN_MAX_ROWS), so K2, the join rows, K9 and K3 are off this path.
+    path = (K.lattice_geometry, pivot_column, K.lattice_filter_grad, K.lattice_count, *chain_kernels(),
+            KC.chain_axes_transpose)
+    off_path = (K.lattice_dedup_neighbors, K.join_rows, K.lattice_apply_cols, K.lattice_apply)
     predictions = []
     real_predict = simplex_gp_torch.SimplexGP.predict_from_cache
 
@@ -1462,7 +1499,7 @@ def large_n_phase(dev, expect, timer):
                                 positive=bool((var > 0).all())))
         return mean, var
 
-    for fn in (*path, K.lattice_apply):
+    for fn in (*path, *off_path):
         fn.launches = 0
     K.lattice_dedup_neighbors.bounded_launches = 0
     simplex_gp_torch.SimplexGP.predict_from_cache = recording_predict
@@ -1477,14 +1514,15 @@ def large_n_phase(dev, expect, timer):
         simplex_gp_torch.SimplexGP.predict_from_cache = real_predict
     wall_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in path}
-    launches["lattice_dedup_neighbors_bounded"] = K.lattice_dedup_neighbors.bounded_launches
-    print(f"    launches on the trainer run: {launches}")
+    off = {fn.__name__: fn.launches for fn in off_path}
+    off["lattice_dedup_neighbors_bounded"] = K.lattice_dedup_neighbors.bounded_launches
+    print(f"    launches on the trainer run: {launches}; off the path: {off}")
     expect(all(v > 0 for v in launches.values()), "every kernel of the path launched on the trainer run")
-    expect(launches["lattice_apply_cols"] == 4 and launches["chain_axes_transpose"] == 2,
-           f"K9 launched {launches['lattice_apply_cols']} times: expected the two sketch MVMs of the val eval's "
-           f"posterior_cache, its rect predict and the test predict (the exact backward runs none since it reuses "
-           f"the chain plan); K3'c transposed {launches['chain_axes_transpose']} times: one a training step")
-    expect(K.lattice_apply.launches == 0, f"no atomic K3 on the trainer run ({K.lattice_apply.launches} launches)")
+    expect(launches["chain_axes_transpose"] == 2, f"K3'c transposed {launches['chain_axes_transpose']} times: "
+           f"one a training step")
+    expect(not any(off.values()), f"no K2, join rows, K9 or atomic K3 on the trainer run: {off} (the val eval's "
+           f"two sketch MVMs, its rect predict and the test predict run the chunked chain above _JOIN_MAX_ROWS)")
+    launches.update(off)
     recs = summary["records"]
     expect(all(np.isfinite(r["train/mll"]) for r in recs), f"finite losses {[r['train/mll'] for r in recs]}")
     expect(summary["plan_capacity"] == cap, f"the trainer's capacity {summary['plan_capacity']} (phase 6.3: {cap})")
@@ -1510,7 +1548,11 @@ def large_n_phase(dev, expect, timer):
 
     print("large n 6.5: one warm training step and one eval at houseelectric, stage by stage (CUDA events)")
     record["k5"] = k5_houseelectric(dev, ds, dk, cap, ell["full"], expect, timer)
-    stages, evals, peaks = houseelectric_stages(dev, ds, dk, cap, ell["full"])
+    stages, evals, peaks, routes = houseelectric_stages(dev, ds, dk, cap, ell["full"])
+    with torch.no_grad():
+        record["eval_routes"] = wide_routes_check(*routes, dk, torch.from_numpy(ds.val_y).to(dev), expect,
+                                                  "houseelectric eval")
+    del routes
     prof = stages.pop("backward_profile")
     expect(prof["sorts"] == 0 and prof["cumsums"] == 0 and not any(prof["kernels"].values())
            and all(v > 0 for v in prof["chain_kernels"].values()),
@@ -1541,6 +1583,91 @@ def large_n_phase(dev, expect, timer):
                              trimmed_plain_ms=record["join_rows_trimmed_plain_ms"],
                              trimmed_bound_ms=bound(rows_bytes(N_u, record["capacity"]), 0)["bound_ms"])
     return rows, launches, record
+
+
+def k9_wide_filter(ref, dk, cap):
+    """K9's route for a wide filter above _JOIN_MAX_ROWS, held beside the chunked chain: one join plan with its
+    row lists at ``cap`` (K1, then K2 and the rows from one host call), applied by K9 in windows of 32."""
+    from simplex_gp_torch.ops import filter as F
+    from simplex_gp_torch.ops import lattice as L
+
+    plan = L.build_wide_plan_join(ref, dk.coeffs, dk.variance, cap)
+    return lambda V: L.apply_plan_cols(plan, V, dk.coeffs, F._WIDE_CHUNK)
+
+
+def k9_rect(src, x_from, x_to, dk):
+    """K9's route for the rect predict above _JOIN_MAX_ROWS: the untrimmed join plan of [x_from; x_to] with its
+    row lists, K9 in windows of 32 on [src; 0], the x_to rows (lattice_filter_rect's zero-pad trick)."""
+    import torch
+
+    from simplex_gp_torch.ops import filter as F
+    from simplex_gp_torch.ops import lattice as L
+
+    plan = L.build_wide_plan_join(torch.cat([x_from, x_to]).contiguous(), dk.coeffs, dk.variance)
+    v = torch.cat([src, src.new_zeros((x_to.shape[0], src.shape[1]))])
+    return L.apply_plan_cols(plan, v, dk.coeffs, F._WIDE_CHUNK)[x_from.shape[0]:]
+
+
+def sketch_and_predict(make_kmv, rect, params, omega, alpha, ref, ref_to) -> dict:
+    """The range sketch (its wide filter built by ``make_kmv()``, two MVMs, the QR, the eigh, the root) and
+    the predict (``rect`` of [alpha, root_inv] from ref to ref_to, the mean and variance), as posterior_cache
+    and predict_from_cache run them, between CUDA events, with the peak device memory above what was live
+    when they started.  Returns the times (ms), the peak (GB), Y = K_hat Omega, the root, the rect output and
+    the predicted mean and variance."""
+    import torch
+
+    s, noise = params["outputscale"], params["noise"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    kmv = make_kmv()
+    Y = s * kmv(omega) + noise * omega
+    Q, _ = torch.linalg.qr(Y)
+    T = Q.T @ (s * kmv(Q) + noise * Q)
+    evals_, evecs = torch.linalg.eigh(0.5 * (T + T.T))
+    root_inv = Q @ (evecs / torch.sqrt(torch.clamp(evals_, min=1e-8))[None, :])
+    del kmv, Q, T
+    ev[1].record()
+    F_ = rect(torch.cat([alpha, root_inv], dim=-1), ref, ref_to)
+    ev[2].record()
+    torch.cuda.synchronize()
+    S = s * F_[:, 1:]
+    mean = s * F_[:, 0] + params["mean"]
+    var = torch.clamp(s + noise - (S * S).sum(dim=-1), min=1e-8)
+    return dict(range_sketch=ev[0].elapsed_time(ev[1]), predict=ev[1].elapsed_time(ev[2]),
+                extra_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9, base_gb=base / 1e9, Y=Y,
+                root_inv=root_inv, rect=F_, mean=mean, var=var)
+
+
+def wide_routes_check(chain: dict, k9: dict, cols, ref, ref_to, dk, y_to, expect, tag: str) -> dict:
+    """The chunked chain's sketch and predict against K9's route on the same inputs: the sketch's K_hat Omega
+    and the rect filter of the chain route's columns (K9 on the same columns) within LARGE_N_REL; the root
+    printed; each route's own predictions against the other's under the serving gates.  Frees the K9 route's
+    tensors.  Returns the record."""
+    import torch
+
+    from simplex_gp_torch.train import regression_metrics
+
+    r_y = rel(chain["Y"], k9["Y"])
+    r_rect = rel(chain["rect"], k9_rect(cols, ref, ref_to, dk))
+    r_root = rel(chain["root_inv"], k9["root_inv"])
+    dmean = float((chain["mean"] - k9["mean"]).abs().max())
+    y_np = y_to.cpu().numpy()
+    m_c, m_k = (regression_metrics(r["mean"].cpu().numpy(), r["var"].cpu().numpy(), y_np) for r in (chain, k9))
+    expect(r_y <= LARGE_N_REL and r_rect <= LARGE_N_REL,
+           f"{tag}: the chunked chain's sketch K_hat Omega vs K9's route rel {r_y:.3e}, the rect filter of the same "
+           f"columns rel {r_rect:.3e} (limit {LARGE_N_REL}); the roots differ by rel {r_root:.3e} (printed)")
+    expect(dmean <= PREDICT_MEAN_ATOL and abs(m_c["rmse"] - m_k["rmse"]) <= RMSE_ATOL
+           and abs(m_c["nll"] - m_k["nll"]) <= NLL_ATOL and bool(torch.isfinite(chain["var"]).all()),
+           f"{tag}: predictions on the chunked chain vs K9's route: mean max |diff| {dmean:.3e} (limit "
+           f"{PREDICT_MEAN_ATOL}), RMSE {m_c['rmse']:.4f} / {m_k['rmse']:.4f} (limit {RMSE_ATOL}), NLL "
+           f"{m_c['nll']:.4f} / {m_k['nll']:.4f} (limit {NLL_ATOL})")
+    for key in ("Y", "root_inv", "rect", "mean", "var"):
+        k9.pop(key)
+    return dict(sketch_rel=r_y, rect_rel=r_rect, root_rel=r_root, mean_max_abs_diff=dmean, chain_metrics=m_c,
+                k9_metrics=m_k)
 
 
 def _k2_then_rows(K, L, h1, h2, w, oh1, oh2, cap, n, d):
@@ -1700,7 +1827,7 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     del plan, P, res, loss
 
     torch.cuda.reset_peak_memory_stats()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     with torch.no_grad():
         ev[0].record()
         params = model.constrained()
@@ -1713,20 +1840,27 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
         sol = cg_solve(lambda V: apply_plan_any(plan, V, dk), (y - params["mean"])[:, None],
                        tol=model.eval_cg_tolerance, max_iters=500, precond=P, shift=(s, noise), graph=True)
         ev[3].record()
+        peaks["eval_plan_and_cg"] = torch.cuda.max_memory_allocated() / 1e9
         omega = torch.randn((n, 100), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
-        kmv = make_wide_filter(ref, dk, cap)  # the sketch's own join plan, as posterior_cache builds it
-        Q, _ = torch.linalg.qr(s * kmv(omega) + noise * omega)
-        T = Q.T @ (s * kmv(Q) + noise * Q)
-        evals_, evecs = torch.linalg.eigh(0.5 * (T + T.T))
-        root_inv = Q @ (evecs / torch.sqrt(torch.clamp(evals_, min=1e-8))[None, :])
-        ev[4].record()
-        cols = torch.cat([sol.x[:, :1], root_inv], dim=-1)
-        lattice_filter_rect(cols, ref, xv * params["inv_ell"], dk)
-        ev[5].record()
+        ref_val, alpha = xv * params["inv_ell"], sol.x[:, :1]
+        # The path's route: the sketch's own chain plan at the capacity and the [train; val] plan untrimmed, each
+        # applied in 16-column blocks (above _JOIN_MAX_ROWS); then K9's route on the same inputs.
+        chain = sketch_and_predict(lambda: make_wide_filter(ref, dk, cap),
+                                   lambda c, a, b: lattice_filter_rect(c, a, b, dk), params, omega, alpha, ref,
+                                   ref_val)
+        evals = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(("plan", "preconditioner", "eval_cg"))}
+        evals.update(range_sketch=chain["range_sketch"], predict_val=chain["predict"])
+        peaks["eval"] = max(peaks["eval_plan_and_cg"], chain["base_gb"] + chain["extra_peak_gb"])
+        chain_host = {k_: chain.pop(k_).cpu() for k_ in ("Y", "root_inv")}
+        k9 = sketch_and_predict(lambda: k9_wide_filter(ref, dk, cap), lambda c, a, b: k9_rect(c, a, b, dk), params,
+                                omega, alpha, ref, ref_val)
+        k9["Y"], k9["root_inv"] = k9["Y"].cpu(), k9["root_inv"].cpu()
+        evals.update(range_sketch_k9=k9["range_sketch"], predict_val_k9=k9["predict"])
+        peaks.update(eval_sketch_predict_extra=chain["extra_peak_gb"], eval_sketch_predict_extra_k9=k9["extra_peak_gb"],
+                     eval_k9_route=max(peaks["eval_plan_and_cg"], k9["base_gb"] + k9["extra_peak_gb"]))
+        routes = (dict(chain, **chain_host), k9, torch.cat([alpha, chain_host["root_inv"].to(dev)], dim=-1), ref,
+                  ref_val)
     torch.cuda.synchronize()
-    peaks["eval"] = torch.cuda.max_memory_allocated() / 1e9
-    names = ("plan", "preconditioner", "eval_cg", "range_sketch", "predict_val")
-    evals = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
     evals["eval_cg_iters"] = sol.iterations
     # One eval CG iteration's parts at these parameters, by CUDA-graph replay: the MVM, K10's passes over U and
     # cuBLAS's products of the same shapes.
@@ -1738,7 +1872,7 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
                  eval_cg_stop=cg_stop_rule(sol.iterations, float(sol.residual_norm.mean()), model.eval_cg_tolerance,
                                            500),
                  eval_raw_params={k_: v_.detach().cpu().reshape(-1).tolist() for k_, v_ in model.named_parameters()})
-    return stages, evals, peaks
+    return stages, evals, peaks, routes
 
 
 # Kernels of a join plan built with its rows in one call (csrc/dedup.cu, csrc/join_rows.cu; cub's radix sort
@@ -2440,7 +2574,7 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
           f"{[r['stages']['cg_mvm_collectives'] for r in ranks]} apart)")
     expect(all(p_ == [3] for p_ in per_it), f"3 collectives an iteration of the sharded CG: {per_it}")
 
-    # The J = 8 mixture, data-parallel against one process's K12 on the same rows and probes.
+    # The J = 8 mixture, data-parallel against one process (one chain plan a component) on the same rows and probes.
     from simplex_gp_torch import convert
 
     mix = convert.mixture_model_from_jax(case["mixture_raw"], case["mixture_weights"], nu=1.5, order=1,
@@ -2452,7 +2586,7 @@ def ranks_phase(dev, ds, expect, nprocs: int, backend: str):
     m_dl = abs(m_losses[0] - float(mix_loss.detach()))
     expect(len(set(m_losses)) == 1 and m_dl <= NLML_ATOL,
            f"J = 8 mixture NLML {m_losses} on the ranks (one sharded plan a component) vs "
-           f"{float(mix_loss.detach()):.6f} on one process (K12; |diff| {m_dl:.2e}, limit {NLML_ATOL}); CG "
+           f"{float(mix_loss.detach()):.6f} on one process (|diff| {m_dl:.2e}, limit {NLML_ATOL}); CG "
            f"iterations {[r['mixture']['cg_iters'] for r in ranks]} (one process {mix_stats['cg_iters']})")
     for name in RAW_NAMES:
         gb = getattr(mix, name).grad.detach().cpu().numpy().astype(np.float64).ravel()
@@ -2539,6 +2673,22 @@ def house_check(dev, hcase, ranks, expect) -> dict:
                 step_ms=[h["step_ms"] for h in hs], launches=[h["launches"] for h in hs])
 
 
+@contextlib.contextmanager
+def k12_engine():
+    """The mixture engine on K12's stacked route, held beside its J chain plans on the same inputs: the NLML's
+    plan build returns the stacked MixturePlan, which apply_plan_any and filter_backward take by K12, K12
+    transposed and the stacked K5."""
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.ops import filter as F
+
+    real = mll.build_plan_any
+    mll.build_plan_any = lambda ref, dk, capacity=None, axis=None: F.build_wide_plan_any(ref, dk)
+    try:
+        yield
+    finally:
+        mll.build_plan_any = real
+
+
 def mixture_phase(dev, ds, expect, timer):
     """Phase 8: the Gaussian-mixture kernel path at elevators (J = 8).  Returns (K12's row, launches, record)."""
     import dataclasses
@@ -2549,6 +2699,7 @@ def mixture_phase(dev, ds, expect, timer):
     import simplex_gp_torch
     from simplex_gp_torch import convert, mvm_err
     from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import chain as KC
     from simplex_gp_torch.kernels import lattice as K
     from simplex_gp_torch.kernels import mixture as KM
     from simplex_gp_torch.kernels.pivot import pivot_column
@@ -2703,6 +2854,22 @@ def mixture_phase(dev, ds, expect, timer):
     record["nlml_diff"] = dl
     first = [loss.detach().clone()] + [getattr(model, k).grad.detach().clone() for k in RAW_NAMES]
     model.zero_grad(set_to_none=True)
+    with k12_engine():
+        k12_stats = {}
+        k12_loss = model.nlml(x, y, probes=probes(golden["seed_init"]), stats=k12_stats)
+        k12_loss.backward()
+    k12_grads = {k: getattr(model, k).grad.detach().cpu().numpy().astype(np.float64).ravel() for k in RAW_NAMES}
+    routes = dict(nlml_chain=float(first[0]), nlml_k12=float(k12_loss.detach()),
+                  nlml_diff=abs(float(first[0]) - float(k12_loss.detach())), cg_iters_chain=stats["cg_iters"],
+                  cg_iters_k12=k12_stats["cg_iters"],
+                  grad_rel={k: float(np.linalg.norm(g_.cpu().numpy().astype(np.float64).ravel() - k12_grads[k])
+                                     / np.linalg.norm(k12_grads[k])) for k, g_ in zip(RAW_NAMES, first[1:])})
+    print(f"    K12's stacked route on the same inputs: NLML {routes['nlml_k12']:.6f} (|diff| from the chain route "
+          f"{routes['nlml_diff']:.2e}), CG iterations {routes['cg_iters_k12']}; raw gradients rel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in routes["grad_rel"].items()))
+    record["routes"] = routes
+    del k12_loss
+    model.zero_grad(set_to_none=True)
     loss = model.nlml(x, y, probes=probes(golden["seed_init"]))
     loss.backward()
     second = [loss.detach()] + [getattr(model, k).grad.detach() for k in RAW_NAMES]
@@ -2752,15 +2919,36 @@ def mixture_phase(dev, ds, expect, timer):
     stages = {nm: ev[i].elapsed_time(ev[i + 1])
               for i, nm in enumerate(("plan", "preconditioner", "cg", "slq_eigh", "forward", "backward"))}
     stages["cg_iters"] = res.iterations
-    path = (K.lattice_geometry, K.lattice_dedup_neighbors, K.join_rows, KM.lattice_mixture_apply,
-            K.lattice_filter_grad, pivot_column)
-    for fn in path:
+    # The CG's MVM at c = 11 on the J chain plans and on K12's stacked plan of the same positions, graph-replayed.
+    with torch.no_grad():
+        kplan = L.build_plan_mixture(ref, dk.alphas, dk.base.coeffs, dk.base.variance)
+        v11 = res.x.contiguous()
+        mvm = dict(chain_ms=graph_ms(lambda: F.apply_plan_any(splan, v11, dk), 10),
+                   k12_ms=graph_ms(lambda: F.apply_plan_any(kplan, v11, dk), 10))
+        r_mvm = rel(F.apply_plan_any(splan, v11, dk), F.apply_plan_any(kplan, v11, dk))
+        del kplan
+    expect(r_mvm <= LARGE_N_REL, f"the CG's MVM (c = 11) on the J chain plans vs K12's stacked plan: rel "
+           f"{r_mvm:.3e} (limit {LARGE_N_REL}, the chain-vs-join bound)")
+    chain_path = (K.lattice_geometry, *chain_kernels(), KC.chain_axes_transpose, K.lattice_filter_grad, pivot_column)
+    off_path = (K.lattice_dedup_neighbors, K.join_rows, KM.lattice_mixture_apply)
+    for fn in (*chain_path, *off_path):
         fn.launches = 0
     warm = timer(lambda: train_step(model, opt, x, y, z), 5)
-    step_launches = {fn.__name__: fn.launches / 6 for fn in path}  # warm-up + 5 timed steps
-    print(f"    warm mixture training step {warm:.2f} ms (CUDA events); launches a step {step_launches}; stages "
-          f"(ms): " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    record.update(step_ms=warm, stages=stages, step_launches=step_launches)
+    step_launches = {fn.__name__: fn.launches / 6 for fn in (*chain_path, *off_path)}  # warm-up + 5 timed steps
+    expect(all(step_launches[fn.__name__] > 0 for fn in chain_path)
+           and not any(step_launches[fn.__name__] for fn in off_path),
+           f"the mixture step's launches: the chain's kernels on its J plans, no K2, join rows or K12: "
+           f"{step_launches}")
+    with k12_engine():
+        warm_k12 = timer(lambda: train_step(model, opt, x, y, z), 5)
+    warm_again = timer(lambda: train_step(model, opt, x, y, z), 5)
+    print(f"    warm mixture training step {warm:.2f} ms, again {warm_again:.2f} ms (CUDA events); on K12's stacked "
+          f"route {warm_k12:.2f} ms; the CG's MVM at c = 11 graph-replayed {mvm['chain_ms']:.4f} ms on the J chain "
+          f"plans, {mvm['k12_ms']:.4f} ms by K12 (rel {r_mvm:.3e}); launches a step {step_launches}; stages (ms): "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    record.update(step_ms=warm, step_ms_again=warm_again, step_ms_k12=warm_k12, mvm_c11=mvm, mvm_route_rel=r_mvm,
+                  stages=stages, step_launches=step_launches)
+    path = (*chain_path, *off_path)
 
     print("mixture 8.7: posterior_cache + predict_from_cache (model_best.pkl, JAX's weights refit there)")
     best = {k: golden[f"best_{k}"] for k in RAW_NAMES}
@@ -4470,12 +4658,15 @@ def screened_path_kernels() -> tuple:
             K10.cg_step_p, K10.cg_init)
 
 
-def screened_eval_stages(model, x, y, xv, seed: int) -> dict:
+def screened_eval_stages(model, x, y, xv, seed: int, expect=None, y_val=None) -> dict:
     """One screened eval by stage, between CUDA events: the screening (the host read of the lengthscales and
     the column subset), the chain plan (K1 + K3'a), the preconditioner, the eval CG (graph-replayed), the range
-    sketch (its own join plan, K9 by windows) and the val predict, as posterior_cache_screened and
-    predict_from_cache_screened run them.  Returns (the stage times in ms with the eval CG's count, residual and
-    ms an iteration, the peak device memory and the screened plan's occupancy and capacity; the chain plan)."""
+    sketch (its own wide filter: a join plan and K9 by windows, or above _JOIN_MAX_ROWS the chunked chain) and
+    the val predict, as posterior_cache_screened and predict_from_cache_screened run them.  Given ``expect``
+    and the val targets, also K9's route for the sketch and the predict on the same inputs, held against the
+    path's by :func:`wide_routes_check`, its times and peak beside the path's.  Returns (the stage times in ms
+    with the eval CG's count, residual and ms an iteration, the peak device memory and the screened plan's
+    occupancy and capacity; the chain plan)."""
     import torch
 
     from simplex_gp_torch.linalg import mll
@@ -4483,7 +4674,7 @@ def screened_eval_stages(model, x, y, xv, seed: int) -> dict:
     from simplex_gp_torch.ops.filter import apply_plan_any, build_plan_any, lattice_filter_rect, make_wide_filter
 
     n = x.shape[0]
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
@@ -4503,23 +4694,36 @@ def screened_eval_stages(model, x, y, xv, seed: int) -> dict:
                        tol=sub.eval_cg_tolerance, max_iters=cfg.max_cg_iterations, precond=P, shift=(s, noise),
                        graph=True)
         ev[4].record()
+        peak = torch.cuda.max_memory_allocated() / 1e9
         omega = torch.randn((n, cfg.max_lanczos_iterations), generator=torch.Generator(device=x.device)
                             .manual_seed(seed), device=x.device)
-        kmv = make_wide_filter(ref, dk, cfg.plan_capacity)
-        Q, _ = torch.linalg.qr(s * kmv(omega) + noise * omega)
-        T = Q.T @ (s * kmv(Q) + noise * Q)
-        evals_, evecs = torch.linalg.eigh(0.5 * (T + T.T))
-        root_inv = Q @ (evecs / torch.sqrt(torch.clamp(evals_, min=1e-8))[None, :])
-        ev[5].record()
-        lattice_filter_rect(torch.cat([sol.x[:, :1], root_inv], dim=-1), ref, xvs * params["inv_ell"], dk)
-        ev[6].record()
-    torch.cuda.synchronize()
-    names = ("screen", "plan", "preconditioner", "eval_cg", "range_sketch", "predict_val")
+        ref_val, alpha = xvs * params["inv_ell"], sol.x[:, :1]
+        chain = sketch_and_predict(lambda: make_wide_filter(ref, dk, cfg.plan_capacity),
+                                   lambda c, a, b: lattice_filter_rect(c, a, b, dk), params, omega, alpha, ref,
+                                   ref_val)
+    names = ("screen", "plan", "preconditioner", "eval_cg")
     stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
+    stages.update(range_sketch=chain["range_sketch"], predict_val=chain["predict"])
     stages.update(eval_cg_iters=sol.iterations, eval_cg_ms_per_iteration=stages["eval_cg"] / max(sol.iterations, 1),
-                  eval_cg_res=float(sol.residual_norm.mean()), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                  screened_dims=len(keep), plan_n_lattice=int(plan.n_lattice), plan_capacity=cfg.plan_capacity,
-                  plan_rows=int(plan.cnt.shape[0]))
+                  eval_cg_res=float(sol.residual_norm.mean()),
+                  peak_gb=max(peak, chain["base_gb"] + chain["extra_peak_gb"]),
+                  sketch_predict_extra_peak_gb=chain["extra_peak_gb"], screened_dims=len(keep),
+                  plan_n_lattice=int(plan.n_lattice), plan_capacity=cfg.plan_capacity,
+                  plan_rows=int(plan.cnt.shape[0]),
+                  sketch_contribution_rows=n * (len(keep) + 1),
+                  predict_contribution_rows=(n + xv.shape[0]) * (len(keep) + 1))
+    if expect is not None:
+        with torch.no_grad():
+            chain_host = {k_: chain.pop(k_).cpu() for k_ in ("Y", "root_inv")}
+            k9 = sketch_and_predict(lambda: k9_wide_filter(ref, dk, cfg.plan_capacity),
+                                    lambda c, a, b: k9_rect(c, a, b, dk), params, omega, alpha, ref, ref_val)
+            k9["Y"], k9["root_inv"] = k9["Y"].cpu(), k9["root_inv"].cpu()
+            stages.update(range_sketch_k9=k9["range_sketch"], predict_val_k9=k9["predict"],
+                          peak_gb_k9_route=max(peak, k9["base_gb"] + k9["extra_peak_gb"]),
+                          sketch_predict_extra_peak_gb_k9=k9["extra_peak_gb"])
+            cols = torch.cat([alpha, chain_host["root_inv"].to(x.device)], dim=-1)
+            stages["routes"] = wide_routes_check(dict(chain, **chain_host), k9, cols, ref, ref_val, dk, y_val,
+                                                 expect, "houseelectric_sparse screened eval")
     return stages, plan
 
 
@@ -4701,8 +4905,11 @@ def screening_phase(dev, expect, timer):
     mean, var = model.predict_from_cache_screened(cache, x, xv)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in kernels}
-    expect(all(v > 0 for k_, v in launches.items() if k_ != "lattice_apply") and launches["lattice_apply"] == 0,
-           f"every kernel of the screened path launched, K3 never: {launches}")
+    # Above _JOIN_MAX_ROWS (6.56M sketch rows, 8.2M predict rows at d' = 4) the wide filters run the chunked chain.
+    join_route = ("lattice_dedup_neighbors", "join_rows", "lattice_apply_cols", "lattice_apply")
+    expect(all(v > 0 for k_, v in launches.items() if k_ not in join_route)
+           and not any(launches[k_] for k_ in join_route),
+           f"every kernel of the screened path launched; K2, the join rows, K9 and K3 never: {launches}")
     sub, _, keep = model.screened()
     hand = sub.posterior_cache(x[:, torch.from_numpy(keep).to(dev)], y, omega=omega)
     same = {k_: bool(torch.equal(cache[k_], hand[k_])) for k_ in ("alpha", "root_inv")}
@@ -4711,7 +4918,7 @@ def screening_phase(dev, expect, timer):
            f"{same}, CG iterations {cache['cg_iters']} / {hand['cg_iters']}")
     expect(bool(torch.isfinite(mean).all() and (var > 0).all()), "finite val mean and positive variance")
     del cache, hand
-    stages, plan = screened_eval_stages(model, x, y, xv, 8)
+    stages, plan = screened_eval_stages(model, x, y, xv, 8, expect, torch.from_numpy(ds.val_y).to(dev))
     expect(stages["plan_n_lattice"] <= stages["plan_capacity"],
            f"the screened plan's occupancy {stages['plan_n_lattice']} at or below its capacity "
            f"{stages['plan_capacity']}")
@@ -4773,6 +4980,161 @@ def screening_phase(dev, expect, timer):
         print(f"  {name}: {rec['s']:.1f} s")
     record["entry_points"] = entry_points
     return record
+
+
+def chunked_chain_phase(dev, expect, timer):
+    """Phase 15: the sort chain at the chunked chain's shapes, houseelectric at the median init.
+
+    Two plans, as the eval builds them above _JOIN_MAX_ROWS: the range sketch's of the 1,311,539 training rows
+    at the autotrimmed capacity (15.7M contributions), and the rect predict's of the 1,639,424 [train; val]
+    rows, untrimmed (19.7M contributions).  Each K3'a build against its plain twin in every field; on each
+    plan a block of 8 columns (JAX's width) and of 16 (the port's) through K3'b, the fused K3'c, K3'd, the
+    maps and K3'c transposed, and the fused apply forward and transposed, each torch.equal to its plain
+    twin, timed beside its bound; the block loop at c = 100 (101 for the predict) in blocks of 16 and of 8
+    columns, torch.equal to each other and timed in turns, beside K9 on the join plan of the same positions
+    and width.  Returns (the rows' entries by kernel, the
+    record).
+    """
+    import torch
+
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import chain as KC
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.ops import filter as F
+    from simplex_gp_torch.ops import lattice as L
+    from simplex_gp_torch.ops.kernels import matern_kernel
+    from simplex_gp_torch.utils import data
+
+    ds = data.load_dataset("houseelectric")
+    dk = matern_kernel(1.5, 1)
+    ell = trainer.median_lengthscale(ds.train_x)
+    xtr = (torch.from_numpy(ds.train_x).to(dev) / ell).contiguous()
+    xjoint = torch.cat([xtr, torch.from_numpy(ds.val_x).to(dev) / ell]).contiguous()
+    n, d = xtr.shape
+    taps, norm, order = [float(t) for t in dk.coeffs], L.SLICE_NORM(d), dk.order
+    E, a, _, _, consts = L._constants_on(d, order, float(dk.variance), L._device_key(dev))
+    cap = trainer.trim_capacity(int(K.lattice_count(xtr, E, a)), n, d)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    entries, record = {}, {}
+
+    def entry(kernel, case, **fields):
+        entries.setdefault(kernel, {})[case] = fields
+
+    for case, pts, cp, wide in (("sketch", xtr, cap, 100), ("rect_predict", xjoint, None, 101)):
+        rows_, N = pts.shape[0], pts.shape[0] * (d + 1)
+        print(f"chunked chain 15 ({case}): {rows_} points, {N} contributions, capacity {cp}")
+        h1, h2, w, sums = K.lattice_geometry(pts, E, a, with_s=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kplan = KC.chain_build(h1, h2, sums, w, consts, taps, cp)
+        torch.cuda.synchronize()
+        build_extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        plan_gb = sum(t.numel() * t.element_size() for t in kplan) / 1e9
+        pplan = KC.chain_build_plain(h1, h2, sums, w, consts, taps, cp)
+        differ = [f for f in KC.ChainPlan._fields if not torch.equal(getattr(kplan, f), getattr(pplan, f))]
+        nl, Mc = int(kplan.n_lattice), kplan.cnt.shape[0]
+        live = min(nl, Mc)
+        expect(not differ, f"{case}: K3'a == plain in every field at {N} contributions (n_lattice {nl}, Mc {Mc}, "
+               f"{int(kplan.n_long)} runs past {KC.PIECE} in {int(kplan.n_pieces)} pieces); differing: {differ}")
+        del pplan
+        build_call = lambda: KC.chain_build(h1, h2, sums, w, consts, taps, cp)  # noqa: E731
+        entry("chain_build", case, shape=f"N={N}, capacity {cp}, n_lattice {nl}", max_abs_err=len(differ),
+              ms=timer(build_call, 3), plain_ms=timer(lambda: KC.chain_build_plain(h1, h2, sums, w, consts, taps, cp),
+                                                      1),
+              peak_extra_gb=build_extra_gb, plan_gb=plan_gb, stages=KC.chain_build_stage_times(build_call),
+              **bound(*chain_build_cost(kplan)))
+        del h1, h2, w, sums
+        same, apply_ms = {}, {}
+        for c in (8, 16):  # JAX's block width and the port's (F._WIDE_CHUNK)
+            v, g = (torch.randn((rows_, c), generator=gen, device=dev) for _ in range(2))
+            ks, ps = KC.chain_splat(kplan, v), KC.chain_splat_plain(kplan, v)
+            ka, pa = KC.chain_axes(ks.clone(), kplan, taps), KC.chain_axes_plain(ps, kplan, taps)
+            kd = KC.chain_slice(pa, kplan, norm)
+            pd = KC.chain_slice_plain(pa, kplan.slice_idx, kplan.weights, kplan.n_lattice, norm)
+            km, pm = KC.chain_maps(kplan), KC.chain_maps_plain(kplan.gather)
+            kt = KC.chain_axes_transpose(ps.clone(), kplan, taps, km)
+            pt = KC.chain_axes_transpose_plain(ps, kplan, taps, pm)
+            fwd_k, fwd_p = L.apply_plan_chain(kplan, v, dk.coeffs), KC.chain_apply_plain(kplan, v, taps, norm)
+            tr_k = L.apply_plan_chain(kplan, g, dk.coeffs, transpose=True)
+            tr_p = KC.chain_apply_plain(kplan, g, taps, norm, transpose=True)
+            same[c] = dict(splat=torch.equal(ks[:live], ps[:live]), axes=torch.equal(ka[:live], pa[:live]),
+                           slice=torch.equal(kd, pd), maps=torch.equal(km, pm),
+                           axes_transpose=torch.equal(kt[:live], pt[:live]), apply=torch.equal(fwd_k, fwd_p),
+                           apply_transpose=torch.equal(tr_k, tr_p))
+            expect(all(same[c].values()), f"{case}, c = {c}: each chain kernel torch.equal to its plain twin "
+                   f"{same[c]}")
+            shape = f"houseelectric {case}, n={rows_}, c={c}, n_lattice {nl} of Mc {Mc}"
+            key = f"{case}_c{c}"
+            buf = ks.clone()  # the fused axes overwrite their input: timed on one scratch table
+            entry("chain_splat", key, shape=shape, max_abs_err=float((ks[:live] - ps[:live]).abs().max()),
+                  ms=timer(lambda: KC.chain_splat(kplan, v), 10),
+                  plain_ms=timer(lambda: KC.chain_splat_plain(kplan, v), 1), **bound(*splat_cost(kplan, c)))
+            entry("chain_axes", key, shape=shape, max_abs_err=float((ka[:live] - pa[:live]).abs().max()),
+                  ms=timer(lambda: KC.chain_axes(buf, kplan, taps), 10),
+                  plain_ms=timer(lambda: KC.chain_axes_plain(ps, kplan, taps), 1),
+                  **bound(*axes_cost(live, d, c, order)))
+            entry("chain_slice", key, shape=shape, max_abs_err=float((kd - pd).abs().max()),
+                  ms=timer(lambda: KC.chain_slice(pa, kplan, norm), 10),
+                  plain_ms=timer(lambda: KC.chain_slice_plain(pa, kplan.slice_idx, kplan.weights, kplan.n_lattice,
+                                                              norm), 1), **bound(*slice_cost(kplan, c)))
+            entry("chain_axes_transpose", key, shape=shape, max_abs_err=float((kt[:live] - pt[:live]).abs().max()),
+                  ms=timer(lambda: KC.chain_axes_transpose(buf, kplan, taps, km), 10),
+                  plain_ms=timer(lambda: KC.chain_axes_transpose_plain(ps, kplan, taps, pm), 1),
+                  **bound(*axes_transpose_cost(live, d, c, order)))
+            apply_ms[c] = dict(ms=timer(lambda: L.apply_plan_chain(kplan, v, dk.coeffs), 10),
+                               graph_ms=graph_ms(lambda: L.apply_plan_chain(kplan, v, dk.coeffs), 5))
+            del ks, ps, ka, pa, kd, pd, km, pm, kt, pt, fwd_k, fwd_p, tr_k, tr_p, v, g, buf
+        # The block loop at the width the eval applies, in blocks of 16 columns (the path's) and of 8 (JAX's) in
+        # turns 16, 8, 8, 16, and K9 on the join plan.
+        V = torch.randn((rows_, wide), generator=gen, device=dev)
+        path_width = F._WIDE_CHUNK
+
+        def blocks(width):
+            try:
+                F._WIDE_CHUNK = width
+                return F._apply_chain_blocks(kplan, V, dk.coeffs)
+            finally:
+                F._WIDE_CHUNK = path_width
+
+        out16, out8 = blocks(16), blocks(8)
+        equal_widths = torch.equal(out16, out8)
+        expect(equal_widths, f"{case}, c = {wide}: the blocks of 8 and of 16 columns torch.equal")
+        del out8
+        times = {16: [], 8: []}
+        for width in (16, 8, 8, 16):
+            times[width].append(timer(lambda: blocks(width), 3))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        F._apply_chain_blocks(kplan, V, dk.coeffs)
+        torch.cuda.synchronize()
+        blocks_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        jplan = L.build_wide_plan_join(pts, dk.coeffs, dk.variance, cp)
+        k9 = lambda: L.apply_plan_cols(jplan, V, dk.coeffs, F._WIDE_CHUNK)  # noqa: E731
+        r9 = rel(out16, k9())
+        expect(r9 <= LARGE_N_REL, f"{case}, c = {wide}: the chunked chain vs K9 on the join plan rel {r9:.3e} "
+               f"(limit {LARGE_N_REL})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        k9()
+        torch.cuda.synchronize()
+        k9_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        k9_ms = timer(k9, 3)
+        record[case] = dict(points=rows_, contributions=N, capacity=cp, n_lattice=nl, rows=Mc, bit_equal=same,
+                            apply_ms=apply_ms, width=wide, blocks16_ms=times[16], blocks8_ms=times[8],
+                            blocks_equal=equal_widths, blocks_extra_peak_gb=blocks_gb, k9_ms=k9_ms,
+                            k9_extra_peak_gb=k9_gb, k9_rel=r9, build_ms=entries["chain_build"][case]["ms"],
+                            plan_gb=plan_gb)
+        print(f"    {case}: K3'a {entries['chain_build'][case]['ms']:.3f} ms (plain "
+              f"{entries['chain_build'][case]['plain_ms']:.3f}; peak above the inputs {build_extra_gb:.3f} GB, the "
+              f"plan {plan_gb:.3f} GB); the apply at c = 8 / 16 {apply_ms[8]['ms']:.4f} / {apply_ms[16]['ms']:.4f} ms "
+              f"(graph {apply_ms[8]['graph_ms']:.4f} / {apply_ms[16]['graph_ms']:.4f}); c = {wide}: blocks of 16 "
+              f"{times[16]} ms, of 8 {times[8]} ms (torch.equal {equal_widths}), K9 {k9_ms:.3f} ms (rel {r9:.2e}); "
+              f"peak above the inputs: blocks of 16 {blocks_gb:.3f} GB, K9 {k9_gb:.3f} GB")
+        del kplan, jplan, V, out16
+    return entries, record
 
 
 def train_step(model, opt, x, y, z):
@@ -5053,7 +5415,11 @@ def main(argv=None) -> int:
     t_large = time.perf_counter()
     large_rows, large_launches, large = large_n_phase(dev, expect, cuda_ms)
     rows.update(large_rows)
-    launches.update({k: large_launches[k] for k in large_rows})
+    # K9 and the join rows launch on the elevators slice (its range sketch); at houseelectric the wide filters run
+    # the chunked chain, and no path of the script's trims a join plan (the bounded K2: 0).
+    launches["lattice_dedup_neighbors_bounded"] = large_launches["lattice_dedup_neighbors_bounded"]
+    for name in ("lattice_apply_cols", "join_rows"):
+        rows[name]["houseelectric_trainer_launches"] = large_launches[name]
     rows["lattice_filter_grad"]["houseelectric"] = large["k5"]
     print(f"large-n phase: {time.perf_counter() - t_large:.1f} s")
     print("large n: " + json.dumps(large))
@@ -5117,6 +5483,13 @@ def main(argv=None) -> int:
     launches["chain_axes_transpose"] = back_launches["chain_axes_transpose"]
     print(f"chain backward phase: {time.perf_counter() - t_back:.1f} s")
     print("chain backward: " + json.dumps(back_record))
+
+    t_chunk = time.perf_counter()
+    chunk_entries, chunk_record = chunked_chain_phase(dev, expect, cuda_ms)
+    for name, by_case in chunk_entries.items():
+        rows[name]["chunked_chain"] = by_case
+    print(f"chunked chain phase: {time.perf_counter() - t_chunk:.1f} s")
+    print("chunked chain: " + json.dumps(chunk_record))
 
     # One iteration's time (the MVM included) from the stage times of 4.5 and 6.5, against the bound of
     # K10's vector updates and the Woodbury solve's two reads of U.

@@ -20,6 +20,7 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --ski
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --slice
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --unblock
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --routes
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
@@ -63,7 +64,10 @@ stage (:func:`ski_times`); the eighteenth K3'd, the sort chain's slice, at
 the elevators and houseelectric widths beside its bound, a CSR product and
 the chain apply it ends (:func:`slice_times`); the nineteenth the sharded
 chain apply's unblock beside ``torch.cat``, launched and graph-replayed
-(:func:`unblock_times`).  An A/B of the slice runs
+(:func:`unblock_times`); the twentieth, in one tree, the old and the new
+route of the mixture's CG (K12's stacked plan, the J chain plans) and of
+the wide filter above _JOIN_MAX_ROWS (K9 on a join plan, the chunked
+chain), in turns (:func:`routes`).  An A/B of the slice runs
 ``--slice`` and ``--step-grad DIR`` on each tree, then
 ``--compare-step-grad`` on the two DIRs: the houseelectric step's
 gradients bit for bit.
@@ -917,6 +921,141 @@ def mixture_sketch(reps: int = 20) -> dict:
     return out
 
 
+def _peak_extra_gb(fn) -> float:
+    """GB of device memory ``fn()`` held at its peak above what was allocated when it started."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def routes(reps: int = 10) -> dict:
+    """The old and the new route of the mixture's CG and of the wide filter above _JOIN_MAX_ROWS, in turns
+    (old, new, new, old) on one card, times by CUDA events.
+
+    The mixture: elevators, J = 8, at the median init of tests/fixtures/elevators_mixture_golden.npz with
+    JAX's weights.  The plan's build, the CG's MVM at c = 11 (replayed from a CUDA graph) and a warm
+    training step (zero_grad, NLML, backward, Adam) on K12's stacked plan (the engine's plan build pointed at
+    ``build_wide_plan_any`` for the step) and on the J chain plans, and the two MVMs' relative difference.
+    The wide filter: houseelectric's seeded stand-in at the median init.  The range sketch's two MVMs at c =
+    100 with their build (K9 on the join plan at the autotrimmed capacity; ``make_wide_filter``'s chunked
+    chain at that capacity) and the rect predict of 101 columns from the 1,311,539 training rows to the
+    327,885 val rows (K9 on the untrimmed join plan of [train; val]; ``lattice_filter_rect``'s chunked
+    chain), each with its peak device memory above its inputs and the routes' relative difference.  Prints
+    one JSON line.
+    """
+    import contextlib
+    import pathlib
+
+    import simplex_gp_torch
+    from simplex_gp_torch import convert
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.mll import BBMMConfig
+    from simplex_gp_torch.ops import filter as F, lattice as L
+    from simplex_gp_torch.ops.kernels import matern_kernel
+    from simplex_gp_torch.utils import data
+
+    dev = torch.device("cuda:0")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    order = ("old", "new", "new", "old")
+    out = {"card": _card(), "tree": simplex_gp_torch.__file__, "order": order}
+
+    @contextlib.contextmanager
+    def k12_engine():
+        real = mll.build_plan_any
+        mll.build_plan_any = lambda ref, dk, capacity=None, axis=None: F.build_wide_plan_any(ref, dk)
+        try:
+            yield
+        finally:
+            mll.build_plan_any = real
+
+    ds = data.prepare_dataset(data._synthetic_uci("elevators"), "elevators")
+    x, y = torch.from_numpy(ds.train_x).to(dev), torch.from_numpy(ds.train_y).to(dev)
+    n = x.shape[0]
+    golden = np.load(root / "tests" / "fixtures" / "elevators_mixture_golden.npz")
+    init = {k: golden[f"init_{k}"] for k in ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")}
+    cfg = BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100, precond_rank=100,
+                     num_probes=10)
+    model = convert.mixture_model_from_jax(init, golden["weights"], nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                           device=dev)
+    dk = model.dk
+    gen = torch.Generator(device=dev).manual_seed(24)
+    mix = {r: {"build_ms": [], "mvm_c11_graph_ms": [], "step_ms": []} for r in ("old", "new")}
+    with torch.no_grad():
+        ref = (x * model.constrained()["inv_ell"]).contiguous()
+        builds = {"old": lambda: F.build_wide_plan_any(ref, dk), "new": lambda: F.build_plan_any(ref, dk)}
+        plans = {r: b() for r, b in builds.items()}
+        v = torch.randn((n, 11), generator=gen, device=dev)
+        mvms = {r: (lambda p=p: F.apply_plan_any(p, v, dk)) for r, p in plans.items()}
+        mix["mvm_rel"] = float((mvms["new"]() - mvms["old"]()).norm() / mvms["old"]().norm())
+        for r in order:
+            mix[r]["build_ms"].append(_ms(builds[r], 5))
+            mix[r]["mvm_c11_graph_ms"].append(_graph_ms(mvms[r], 10))
+        del plans, mvms
+    z = torch.from_numpy(np.random.default_rng(int(golden["seed_init"])).choice(
+        [-1.0, 1.0], size=(n, cfg.num_probes)).astype(np.float32)).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        model.nlml(x, y, probes=z).backward()
+        opt.step()
+
+    for r in order:
+        with (k12_engine() if r == "old" else contextlib.nullcontext()):
+            mix[r]["step_ms"].append(_ms(step, 3))
+    out["mixture"] = mix
+
+    house = data.load_dataset("houseelectric")
+    dk = matern_kernel(1.5, 1)
+    ell = trainer.median_lengthscale(house.train_x)
+    xtr = (torch.from_numpy(house.train_x).to(dev) / ell).contiguous()
+    xval = (torch.from_numpy(house.val_x).to(dev) / ell).contiguous()
+    n, d = xtr.shape
+    E, a = L._lattice_constants(d, dk.coeffs, dk.variance, dev)[:2]
+    cap = trainer.trim_capacity(int(K.lattice_count(xtr, E, a)), n, d)
+    omega = torch.randn((n, 100), generator=gen, device=dev)
+    cols = torch.randn((n, 101), generator=gen, device=dev)
+
+    def k9_sketch():
+        plan = L.build_wide_plan_join(xtr, dk.coeffs, dk.variance, cap)
+        return [L.apply_plan_cols(plan, omega, dk.coeffs, F._WIDE_CHUNK) for _ in range(2)]
+
+    def chain_sketch():
+        mv = F.make_wide_filter(xtr, dk, cap)
+        return [mv(omega) for _ in range(2)]
+
+    def k9_rect():
+        plan = L.build_wide_plan_join(torch.cat([xtr, xval]), dk.coeffs, dk.variance)
+        v_large = torch.cat([cols, cols.new_zeros((xval.shape[0], 101))])
+        return L.apply_plan_cols(plan, v_large, dk.coeffs, F._WIDE_CHUNK)[n:]
+
+    def chain_rect():
+        return F.lattice_filter_rect(cols, xtr, xval, dk)
+
+    wide = {"capacity": cap, "sketch_contributions": n * (d + 1),
+            "rect_contributions": (n + xval.shape[0]) * (d + 1)}
+    with torch.no_grad():
+        for path, fns in (("sketch", {"old": k9_sketch, "new": chain_sketch}),
+                          ("rect_predict", {"old": k9_rect, "new": chain_rect})):
+            rec = {r: {"ms": [], "peak_extra_gb": []} for r in ("old", "new")}
+            got = {r: fn() for r, fn in fns.items()}
+            first = lambda t: t[0] if isinstance(t, list) else t  # noqa: E731
+            rec["rel"] = float((first(got["new"]) - first(got["old"])).norm() / first(got["old"]).norm())
+            del got
+            for r in order:
+                rec[r]["ms"].append(_ms(fns[r], 2))
+                rec[r]["peak_extra_gb"].append(_peak_extra_gb(fns[r]))
+            wide[path] = rec
+    out["wide"] = wide
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def _dp_rank(axis, case: dict) -> dict:
     """:func:`dp_step`'s rank body: the warm data-parallel NLML and gradient (``data_parallel_loss_fn``, no
     optimizer step) by CUDA events, and by stage: the sharded plan's build (the engine's builder, the join's
@@ -1718,5 +1857,7 @@ if __name__ == "__main__":
         slice_times()
     elif "--unblock" in sys.argv[1:]:
         unblock_times()
+    elif "--routes" in sys.argv[1:]:
+        routes()
     else:
         main()

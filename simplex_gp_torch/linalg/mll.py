@@ -53,17 +53,18 @@ K5 at this rank's slice_idx.  As in JAX, the sharded engine ignores two
 settings: ``grad_mode="deriv_filter"`` runs the exact gradient
 (mll.py:95-106), and ``plan_capacity`` is not applied (mll.py:161-172).
 
-A MixtureKernel (JAX :100-110) takes the stacked mixture plan and K12 for
-every apply, ignores ``plan_capacity``, and always runs the exact gradient,
-whatever ``grad_mode`` says: the backward re-applies through the CG's
-MixturePlan, saved for it (K12, transposed K12, K5 on the stacked
-problem), as the sharded engine reuses its sharded plan.  Its
-preconditioner's exact columns are those of its Matern target
-(``dk.nu``).  The sharded engine takes a mixture as JAX's does (:100-104,
-:164-168): one sharded chain plan per component at ``ref * alpha_j`` (no
-capacity), the components' sharded chain applies summed in component
-order, and in the backward each component's transposed sharded apply and
-K5 on this rank's points (ops/filter.py).
+A MixtureKernel (JAX :100-110) runs on JAX's plan: one untrimmed chain
+plan per component at ``ref * alpha_j`` (ops/filter.py::build_plan_any; it
+ignores ``plan_capacity``), the CG's MVM the weighted sum of the
+components' chain applies in component order, and it always runs the exact
+gradient, whatever ``grad_mode`` says: the backward reuses the CG's J chain
+plans, saved for it, and builds none (per component the chain apply with
+its table, the transposed chain apply and K5 at the component's
+slice_idx).  Its preconditioner's exact columns are those of its Matern
+target (``dk.nu``).  The sharded engine takes a mixture the same way on
+the sharded chain (:100-104, :164-168): one sharded chain plan per
+component, and in the backward each component's transposed sharded apply
+and K5 on this rank's points (ops/filter.py).
 """
 
 from __future__ import annotations
@@ -184,7 +185,7 @@ class _System(NamedTuple):
     solves: torch.Tensor  # (n, 1+p): alpha and the probe solves
     logdet: torch.Tensor  # () log|K_hat| estimate
     probes_right: torch.Tensor  # (n, p) right vectors of the trace backward
-    plan: tuple  # the CG's plan: a ChainPlan (one device's, or a rank's sharded part), a MixturePlan, or a tuple
+    plan: tuple  # the CG's plan: a ChainPlan (one device's, or a rank's sharded part), or a mixture's tuple of them
     iterations: int  # CG iterations
     residual: torch.Tensor  # (1+p,) best relative residuals
 
@@ -199,7 +200,7 @@ def _solve_system(dk, config: BBMMConfig, params: dict, x: torch.Tensor, y: torc
     """Plan, preconditioner, CG solves and the log-det estimate (mll.py:159-240)."""
     axis = config.axis
     ref = x * params["inv_ell"]
-    if axis is None:
+    if axis is None:  # a ChainPlan, or a mixture's J untrimmed ones (filter.py:186-193)
         plan = build_plan_any(ref, dk, config.plan_capacity)
     elif isinstance(dk, MixtureKernel):  # one sharded plan per component, no capacity (mll.py:164-168)
         plan = tuple(build_plan_sharded_chain(ref * a, dk.base.coeffs, dk.base.variance, axis) for a in dk.alphas)
@@ -268,7 +269,7 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
         ctx.grad_mode = config.grad_mode
         ctx.axis = config.axis
         ctx.plan_type = type(sys_.plan)
-        # The exact backward reuses the CG's plan (a chain plan on one device); the deriv-mode one builds its own.
+        # The exact backward reuses the CG's plan (a chain plan, or a mixture's J); the deriv-mode one builds its own.
         kept = _plan_tensors(sys_.plan) if _exact_backward(ctx) else ()
         ctx.save_for_backward(inv_ell, outputscale, x, alpha, sys_.solves[:, 1:], sys_.probes_right, *kept)
         inv_quad = (y * alpha).sum()

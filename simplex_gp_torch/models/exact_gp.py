@@ -12,11 +12,14 @@ Gaussian-mixture lattice kernels:
 (bounded by ``BBMMConfig.plan_capacity``), a rank-k pivoted-Cholesky
 preconditioner, solves alpha = K_hat^{-1} (y - mu) by preconditioned CG at
 the eval tolerance, and forms the LOVE root from a randomized range sketch
-whose two 100-column MVMs reuse that plan (K9, the chunked apply, above 4M
-contribution rows).  ``predict_from_cache`` runs one rectangular filter of
-1+m columns over [train; test], untrimmed, chunked at the same size.
-``kernel="mixture"`` is J RBF lattices at scaled positions targeting
-Matern-nu (ops/kernels.py MixtureKernel), applied together by K12; its
+whose two 100-column MVMs share one wide filter of their own (a join plan
+and K9, or above 4M contribution rows JAX's chunked chain: one chain plan
+applied in 16-column blocks).  ``predict_from_cache`` runs one rectangular
+filter of 1+m columns over [train; test], untrimmed, chunked at the same
+size.  ``kernel="mixture"`` is J RBF lattices at scaled positions targeting
+Matern-nu (ops/kernels.py MixtureKernel): its training and eval CGs run on
+J chain plans, one a component, its sketch and predict below 4M rows on
+the stacked join plan applied by K12; its
 weights are the profile fit, ``mix_weights`` when set, and
 :meth:`SimplexGP.with_fitted_mixture` refits them on a data subset.
 ``prune_thresh`` > 0 screens the ARD dims for inference: the ``_screened``
@@ -212,12 +215,14 @@ class SimplexGP(_RawParams):
         The root comes from a randomized range sketch: Y = K_hat Omega,
         Q = qr(Y), T = Q^T K_hat Q, root_inv = Q U L^{-1/2} for T = U L U^T.
         ``Omega`` (n, m) is ``omega`` when given, else standard normal draws
-        from ``generator``.  The eval CG runs on the sort-chain plan (K3'),
-        as JAX's does; both sketch MVMs share one wide filter of their own
+        from ``generator``.  The eval CG runs on the sort-chain plan (K3'; a
+        mixture's J chain plans), as JAX's does, replayed from a CUDA graph;
+        both sketch MVMs share one wide filter of their own
         (make_wide_filter with the same positions and capacity, as JAX's,
-        exact_gp.py:339), a join plan applied by K9 above 4M contribution
-        rows, else by K3.  The cache also records the CG iteration count and
-        mean final residual.
+        exact_gp.py:339): a join plan applied by K9 (a mixture's stacked
+        plan, by K12), or above 4M contribution rows one chain plan applied
+        in 16-column blocks (a mixture's J).  The cache also records the CG
+        iteration count and mean final residual.
         """
         params = self.constrained()
         ref = x * params["inv_ell"]

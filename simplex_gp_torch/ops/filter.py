@@ -2,21 +2,20 @@
 
 Port of simplex_gp_tpu/ops/filter.py.  :func:`build_plan_any` keeps JAX's
 dispatch (:186-193): the reusable plan of the CG solves is the sort-chain
-plan (K1 + K3'a build, K3'b-d apply) for a DiscretizedKernel, and
-:func:`apply_plan_any` applies a plan by its type.  :func:`_filter_plain`
-keeps JAX's one-shot dispatch (:120-140): values of up to ``_WIDE_COLS`` =
-16 columns go to the one-shot filter K4 (``filter_once``); wider ones to
-the join plan (K1 + K2 build, K9 on its row lists, one window of all the
-columns), or, above ``_JOIN_MAX_ROWS``
-contribution rows n(d+1), to one join plan applied by K9 a window of
-several of JAX's ``_WIDE_CHUNK``-column blocks at a time
-(:func:`lattice_filter_wide_chunked`, :func:`make_wide_filter`; JAX's
-chunked sort-chain filter, here the join
-plan, so the same operator up to 64-bit hash collisions).  ``capacity``
-bounds the plan's table as in JAX (:143-193).  :func:`make_wide_filter`,
-the range sketch's reusable filter, applies its join plan by K9 on the
-plan's row lists at every size (no atomics: two sketches give the same
-bits).
+plan (K1 + K3'a build, K3'b-d apply) for a DiscretizedKernel, and for a
+MixtureKernel a tuple of J untrimmed chain plans, one a component at
+``ref * alpha_j``; :func:`apply_plan_any` applies a plan by its type.
+:func:`_filter_plain` keeps JAX's one-shot dispatch (:120-140): values of
+up to ``_WIDE_COLS`` = 16 columns go to the one-shot filter K4
+(``filter_once``); wider ones to the join plan (K1 + K2 build, K9 on its
+row lists, one window of all the columns), or, above ``_JOIN_MAX_ROWS``
+contribution rows n(d+1), to JAX's chunked chain: one chain plan, applied
+to ``_WIDE_CHUNK``-column blocks by K3'b-d (:func:`lattice_filter_wide_chunked`,
+:func:`make_wide_filter`).  ``capacity`` bounds the plan's table as in JAX
+(:143-193).  :func:`make_wide_filter`, the range sketch's reusable filter,
+applies a join plan by K9 on the plan's row lists below ``_JOIN_MAX_ROWS``
+and the chunked chain above it (no atomics either way: two sketches give
+the same bits).
 
 Two gradients of ``K(ref, ref) @ src``:
   * :class:`LatticeFilterExactGrad` is the exact gradient of the operator
@@ -36,19 +35,22 @@ Two gradients of ``K(ref, ref) @ src``:
     combined with the constant 2 k'(0) (JAX's fix of the reference's -2).
 
 A :class:`~simplex_gp_torch.ops.kernels.MixtureKernel` takes the mixture
-branches of the entry points, dispatched on its type as in JAX (:167-220):
-its plan is the stacked :class:`~simplex_gp_torch.ops.lattice.MixturePlan`
-of the J components at ``ref * alpha_j`` (untrimmed: mixtures ignore
-``capacity``), applied by K12; its gradient is always the exact one, the
-transposed K12 and K5 on the stacked problem, with the position gradient
-sum_j w_j alpha_j K5_j.  A wide value block above ``_JOIN_MAX_ROWS`` goes
-through K9 one component at a time, as JAX's make_wide_filter_any.  The
-sharded engine (``axis``) runs on the sharded sort chain (JAX's
-build_plan_sharded, ops/lattice.py::build_plan_sharded_chain), and takes a
-mixture as JAX does (mll.py:100-104, :164-168): one sharded chain plan per
-component at ``ref * alpha_j``, the weighted sum of the components'
-sharded chain applies in component order, and per component the
-transposed sharded apply and K5 at its slice_idx in the backward.
+branches of the entry points, dispatched on its type as in JAX (:167-220).
+The CG's plan is JAX's: one chain plan per component at ``ref * alpha_j``
+(untrimmed: mixtures ignore ``capacity``), applied as the weighted sum of
+the components' chain applies in component order, and differentiated per
+component by the transposed chain apply and K5 at the component's
+slice_idx, the position gradient sum_j w_j alpha_j K5_j
+(:func:`_mixture_chain_backward`).  With ``axis`` the same on the sharded
+chain (JAX's build_plan_sharded, ops/lattice.py::build_plan_sharded_chain;
+mll.py:100-104, :164-168).  Where JAX's mixture takes a join plan (the
+one-shot exact filter and the rect predict, the range sketch below
+``_JOIN_MAX_ROWS``), the port takes the stacked
+:class:`~simplex_gp_torch.ops.lattice.MixturePlan` of the components with
+its row lists, applied by K12, its gradient the transposed K12 and K5 on
+the stacked problem (:func:`mixture_position_grad`).  Above
+``_JOIN_MAX_ROWS`` a wide block goes through one untrimmed chunked chain
+per component, as JAX's make_wide_filter_any.
 """
 
 from __future__ import annotations
@@ -76,20 +78,23 @@ from .lattice import (
     build_plan_sharded_chain,
     build_wide_plan_join,
     filter_once,
-    mixture_component,
     mixture_positions,
 )
 
 # Widest value block for the one-shot filter; wider blocks take the join plan
 # (filter.py:54, :133).
 _WIDE_COLS = 16
-# Above this many contribution rows n(d+1) a wide block is applied in
-# _WIDE_CHUNK-column blocks (filter.py:61-62), which K9 takes K9_WINDOW = 32
-# columns at a time (ops/lattice.py): two (M, 101) tables of the
-# houseelectric eval would take 16 GB, K9's two (M, 32) ones 5.0 GB at the
-# [train; val] plan's 19.7M rows (JAX's two (M, 8) blocks 1.3 GB).
+# Above this many contribution rows n(d+1) a wide block is applied by one
+# chain plan in _WIDE_CHUNK-column blocks (filter.py:56-62): at the houseelectric
+# eval's [train; val] plan of 19.7M rows the join plan's two (M, 101) tables
+# would take 16 GB, two (M, 16) chain blocks 2.5 GB.
 _JOIN_MAX_ROWS = 4 * 1024 * 1024
-_WIDE_CHUNK = 8
+# JAX's blocks are 8 columns (filter.py:62); these are 16, K3'b's widest single
+# pass.  Columns do not interact, so the output is the 8-column loop's bit for
+# bit, and on an H100 the houseelectric eval's blocks (c = 100 and 101) took
+# 7-8% less time (chip_smoke.py phase 15; PERF.md section 6).  Below
+# _JOIN_MAX_ROWS it sets K9's window, k9_window(16) = 32 columns.
+_WIDE_CHUNK = 16
 
 __all__ = [
     "build_plan_any",
@@ -113,12 +118,12 @@ __all__ = [
 def build_plan_any(ref: torch.Tensor, dk, capacity: Optional[int] = None):
     """Reusable filter plan of ``dk`` at positions ``ref``; pair with :func:`apply_plan_any`.
 
-    The sort-chain ChainPlan (JAX's build_plan), or for a MixtureKernel the
-    stacked MixturePlan of its components, which ignores ``capacity``
-    (filter.py:186-193).
+    The sort-chain ChainPlan (JAX's build_plan), or for a MixtureKernel a
+    tuple of J ChainPlans, one a component at ``ref * alpha_j``, untrimmed:
+    mixture plans ignore ``capacity`` (filter.py:186-193, :174-176).
     """
     if isinstance(dk, MixtureKernel):
-        return build_plan_mixture(ref, dk.alphas, dk.base.coeffs, dk.base.variance)
+        return tuple(build_plan(ref * a, dk.base.coeffs, dk.base.variance) for a in dk.alphas)
     return build_plan(ref, dk.coeffs, dk.variance, capacity)
 
 
@@ -127,7 +132,7 @@ def build_wide_plan_any(ref: torch.Tensor, dk, capacity: Optional[int] = None):
     from one host call, :func:`~simplex_gp_torch.ops.lattice.build_wide_plan_join`), or a mixture's
     stacked MixturePlan, which holds its rows and ignores ``capacity``.
 
-    The plan that K9 applies more than once, and :class:`LatticeFilterExactGrad`'s.
+    The plan that K9 or K12 applies more than once, and :class:`LatticeFilterExactGrad`'s.
     """
     if isinstance(dk, MixtureKernel):
         return build_plan_mixture(ref, dk.alphas, dk.base.coeffs, dk.base.variance)
@@ -135,44 +140,49 @@ def build_wide_plan_any(ref: torch.Tensor, dk, capacity: Optional[int] = None):
 
 
 def apply_plan_any(plan, V: torch.Tensor, dk, transpose: bool = False, return_table: bool = False, axis=None):
-    """K @ V (or K^T @ V) through a plan from :func:`build_plan_any` or :func:`build_wide_plan_any`,
-    or a sharded plan with ``axis``.
+    """K @ V (or K^T @ V) through a plan from :func:`build_plan_any` or :func:`build_wide_plan_any`.
 
-    No outputscale or noise.  With ``axis`` the plan is this rank's part of
-    a sharded chain plan and applies by the sharded chain apply (K3'b by
-    column blocks, the collectives, K3'c on this rank's block, K3'd), or,
-    for a mixture, its tuple of sharded chain plans, one a component
-    (:func:`_apply_sharded_mixture`).  A ChainPlan applies by K3'b-d
-    (apply_plan, lattice.py:1305-1314), transposed by K3'c transposed, its
-    table in final row order; a WidePlan (a join plan with its row lists)
-    by K9 over one window of all V's columns, with no atomics; a mixture
-    applies all its components by K12 (filter.py:196-204).
+    No outputscale or noise.  A ChainPlan applies by K3'b-d (apply_plan,
+    lattice.py:1305-1314), transposed by K3'c transposed, its table in
+    final row order; with ``axis`` it is this rank's part of a sharded chain
+    plan and applies by the sharded chain apply (K3'b by column blocks, the
+    collectives, K3'c on this rank's block, K3'd).  A mixture's tuple of
+    chain plans applies as the weighted sum of its components' chain
+    applies (:func:`_apply_mixture_chains`, filter.py:196-204).  A WidePlan
+    (a join plan with its row lists) applies by K9 over one window of all
+    V's columns, with no atomics; a mixture's stacked MixturePlan by K12.
     """
+    if isinstance(dk, MixtureKernel) and not isinstance(plan, MixturePlan):
+        return _apply_mixture_chains(plan, V, dk, transpose, return_table, axis)
     if axis is not None:
-        if isinstance(dk, MixtureKernel):
-            return _apply_sharded_mixture(plan, V, dk, transpose, return_table, axis)
         return apply_plan_chain(plan, V, dk.coeffs, transpose, return_table, axis)
     if isinstance(plan, ChainPlan):
         return apply_plan_chain(plan, V, dk.coeffs, transpose, return_table)
     if isinstance(plan, WidePlan):
         return apply_plan_rows(plan, V, dk.coeffs, transpose, return_table)
-    if isinstance(dk, MixtureKernel):
+    if isinstance(plan, MixturePlan):
         return apply_plan_mixture(plan, V, dk.base.coeffs, dk.weights, transpose, return_table)
     return apply_plan_join(plan, V, dk.coeffs, transpose, return_table)
 
 
-def _apply_sharded_mixture(plans: tuple, V: torch.Tensor, dk: MixtureKernel, transpose: bool, return_table: bool,
-                           axis):
-    """sum_j w_j K_j @ V (or K_j^T) over a mixture's sharded chain plans, summed in component order as
-    JAX's apply_plan_any (filter.py:196-204); with ``return_table`` also the components' final-order
-    tables, unweighted, as a tuple."""
-    out, tables = None, []
-    for w, plan in zip(dk.weights, plans):
-        res = apply_plan_chain(plan, V, dk.base.coeffs, transpose, return_table, axis)
-        term, table = res if return_table else (res, None)
-        tables.append(table)
+def _weighted_sum(weights, terms) -> torch.Tensor:
+    """sum_j w_j term_j, added in component order as JAX's mixture loops (filter.py:178-182, :199-203)."""
+    out = None
+    for w, term in zip(weights, terms):
         out = w * term if out is None else out + w * term
-    return (out, tuple(tables)) if return_table else out
+    return out
+
+
+def _apply_mixture_chains(plans: tuple, V: torch.Tensor, dk: MixtureKernel, transpose: bool, return_table: bool,
+                          axis):
+    """sum_j w_j K_j @ V (or K_j^T) over a mixture's chain plans, one device's or this rank's sharded parts,
+    summed in component order as JAX's apply_plan_any (filter.py:196-204); with ``return_table`` also the
+    components' final-order tables, unweighted, as a tuple."""
+    if not return_table:
+        return _weighted_sum(dk.weights, (apply_plan_chain(plan, V, dk.base.coeffs, transpose, False, axis)
+                                          for plan in plans))
+    res = [apply_plan_chain(plan, V, dk.base.coeffs, transpose, True, axis) for plan in plans]
+    return _weighted_sum(dk.weights, (out for out, _ in res)), tuple(table for _, table in res)
 
 
 def _chunked(n: int, d: int, c: int) -> bool:
@@ -180,61 +190,71 @@ def _chunked(n: int, d: int, c: int) -> bool:
     return c > _WIDE_COLS and n * (d + 1) > _JOIN_MAX_ROWS
 
 
-def apply_plan_wide(plan, V: torch.Tensor, dk) -> torch.Tensor:
-    """K @ V through a :class:`WidePlan` (a join plan with its row lists): K9 by windows of K9_WINDOW
-    columns, at any size.  JAX's dispatch (filter.py:133-140) chunks only above ``_JOIN_MAX_ROWS`` and
-    applies its join branch whole below; the operator is the same, and on an H100 windows of 32 took
-    the elevators range sketch (c = 100) 0.86-0.87 ms against 0.90-0.91 for one window of 100
-    (kernel_times.py --mixture-sketch; PERF.md section 6).
+def _apply_chain_blocks(plan: ChainPlan, V: torch.Tensor, coeffs: tuple) -> torch.Tensor:
+    """K @ V through one chain plan, ``_WIDE_CHUNK`` columns at a time (JAX's lax.map over the blocks,
+    filter.py:77-84): each block copied contiguous, applied by K3'b-d and written into its columns of the
+    output.  Columns do not interact, so the blocks give the apply of all the columns bit for bit; the
+    peak is the plan and one block's two (Mc, _WIDE_CHUNK) tables."""
+    out = torch.empty(V.shape, dtype=torch.float32, device=V.device)
+    for c0 in range(0, V.shape[-1], _WIDE_CHUNK):
+        out[:, c0:c0 + _WIDE_CHUNK] = apply_plan_chain(plan, V[:, c0:c0 + _WIDE_CHUNK], coeffs)
+    return out
 
-    A mixture's plan goes to K12 on its row lists, or above
-    ``_JOIN_MAX_ROWS`` to K9 one component at a time (make_wide_filter_any,
-    filter.py:207-220).
+
+def apply_plan_wide(plan, V: torch.Tensor, dk) -> torch.Tensor:
+    """K @ V for a wide V through the plan :func:`make_wide_filter` built, by its type.
+
+    A ChainPlan (above ``_JOIN_MAX_ROWS``) by K3'b-d in ``_WIDE_CHUNK``-column
+    blocks, a mixture's tuple of them as the weighted sum of the components'
+    block applies (make_wide_filter_any, filter.py:207-220).  Below it a
+    :class:`WidePlan` (a join plan with its row lists) by K9 in windows of
+    K9_WINDOW columns, and a mixture's MixturePlan by K12 on its row lists.
+    JAX applies its join branch whole; the operator is the same, and on an
+    H100 windows of 32 took the elevators range sketch (c = 100) 0.86-0.87
+    ms against 0.90-0.91 for one window of 100 (kernel_times.py
+    --mixture-sketch; PERF.md section 6).
     """
-    if isinstance(dk, MixtureKernel):
-        n, dp1 = plan.seg_ids.shape[-2:]
-        if not _chunked(n, dp1 - 1, V.shape[-1]):
-            return apply_plan_mixture(plan, V, dk.base.coeffs, dk.weights)
-        return sum(w * apply_plan_cols(mixture_component(plan, j), V, dk.base.coeffs, _WIDE_CHUNK)
-                   for j, w in enumerate(dk.weights))
+    if isinstance(plan, ChainPlan):
+        return _apply_chain_blocks(plan, V, dk.coeffs)
+    if type(plan) is tuple:
+        return _weighted_sum(dk.weights, (_apply_chain_blocks(p, V, dk.base.coeffs) for p in plan))
+    if isinstance(plan, MixturePlan):
+        return apply_plan_mixture(plan, V, dk.base.coeffs, dk.weights)
     return apply_plan_cols(plan, V, dk.coeffs, _WIDE_CHUNK)
 
 
 def lattice_filter_wide_chunked(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel,
                                 capacity: Optional[int] = None) -> torch.Tensor:
-    """K(ref, ref) @ src for a wide src at very large n (filter.py:65-84): one plan, K9.
+    """K(ref, ref) @ src for a wide src at very large n (filter.py:65-84): one chain plan, untrimmed unless
+    given ``capacity``, applied in ``_WIDE_CHUNK``-column blocks.
 
-    Peak memory is the plan and K9's two (M, K9_WINDOW) tables (32 columns,
-    four of JAX's blocks), whatever the column count.  No gradient (the
-    differentiable route is :func:`lattice_filter_exact_grad`, which takes
-    the same branch).
+    Peak memory is the plan and one block's two (Mc, _WIDE_CHUNK) tables,
+    whatever the column count.  No gradient (the differentiable route is
+    :func:`lattice_filter_exact_grad`, which takes the same branch).
     """
-    return apply_plan_cols(build_wide_plan_join(ref, dk.coeffs, dk.variance, capacity), src, dk.coeffs, _WIDE_CHUNK)
+    return _apply_chain_blocks(build_plan(ref, dk.coeffs, dk.variance, capacity), src, dk.coeffs)
 
 
 def make_wide_filter(ref: torch.Tensor, dk, capacity: Optional[int] = None):
-    """Reusable ``mv(V) -> K(ref, ref) @ V`` for wide value blocks (filter.py:87-117).
+    """Reusable ``mv(V) -> K(ref, ref) @ V`` for wide value blocks (filter.py:87-117, :207-220).
 
-    One join plan with its row lists, built now (a :class:`WidePlan`: the
-    range sketch's two MVMs share one build of each), applied by K9 with no
-    atomics (:func:`apply_plan_wide`): above ``_JOIN_MAX_ROWS`` with
-    ``capacity``; below, untrimmed, as JAX's join branch.  A
-    mixture builds its stacked plan, rows and all (K12), or above
-    ``_JOIN_MAX_ROWS`` one untrimmed K9 filter per component
-    (make_wide_filter_any, :207-220).
+    One plan, built now, so the range sketch's two MVMs share one build,
+    applied by :func:`apply_plan_wide`.  Above ``_JOIN_MAX_ROWS`` the chain
+    plan with ``capacity``, or a mixture's J untrimmed chain plans, applied
+    in ``_WIDE_CHUNK``-column blocks; below it, untrimmed as JAX's join
+    branch, a join plan with its row lists (a :class:`WidePlan`, K9) or a
+    mixture's stacked plan, rows and all (K12).
     """
-    large = ref.shape[0] * (ref.shape[-1] + 1) > _JOIN_MAX_ROWS
-    if isinstance(dk, MixtureKernel):
-        if large:
-            mvs = [make_wide_filter(ref * a, dk.base) for a in dk.alphas]
-            return lambda V: sum(w * f(V) for w, f in zip(dk.weights, mvs))
-    plan = build_wide_plan_any(ref, dk, capacity if large else None)
+    if ref.shape[0] * (ref.shape[-1] + 1) > _JOIN_MAX_ROWS:
+        plan = build_plan_any(ref, dk, capacity)
+    else:
+        plan = build_wide_plan_any(ref, dk)
     return lambda V: apply_plan_wide(plan, V, dk)
 
 
 def mixture_position_grad(plan: MixturePlan, ref: torch.Tensor, dk: MixtureKernel, src: torch.Tensor,
                           g: torch.Tensor, table_f: torch.Tensor, table_b: torch.Tensor) -> torch.Tensor:
-    """The gradient of ``<g, K_mix(ref) @ src>`` in ref (n, d): K5 on the stacked problem.
+    """The gradient of ``<g, K_mix(ref) @ src>`` in ref (n, d) on a stacked MixturePlan: K5 on the stacked problem.
 
     K5 runs once over the J n stacked points ``ref * alpha_j`` with the
     stacked seg ids (j M + row) into the stacked blurred tables of the
@@ -256,7 +276,7 @@ def mixture_position_grad(plan: MixturePlan, ref: torch.Tensor, dk: MixtureKerne
 
 def _plan_tensors(plan) -> tuple:
     """A plan's tensors, flat (for ``save_for_backward``): a WidePlan's or a MixturePlan's four fields, then
-    its rows; a tuple of sharded plans (a mixture's ChainPlans), one after another."""
+    its rows; a tuple of chain plans (a mixture's), one after another."""
     if isinstance(plan, (WidePlan, MixturePlan)):
         return (*plan[:4], *plan.rows)
     if type(plan) is tuple:
@@ -277,16 +297,16 @@ def _plan_from_tensors(plan_type, tensors) -> tuple:
     return plan_type(*tensors)
 
 
-def _sharded_mixture_backward(plans: tuple, ref: torch.Tensor, dk: MixtureKernel, src: torch.Tensor,
-                              g: torch.Tensor, tables_f: tuple, axis):
-    """(grad_src, grad_ref) of ``<g, sum_j w_j K_j(ref alpha_j) @ src>`` on a mixture's sharded chain plans.
+def _mixture_chain_backward(plans: tuple, ref: torch.Tensor, dk: MixtureKernel, src: torch.Tensor,
+                            g: torch.Tensor, tables_f: tuple, axis=None):
+    """(grad_src, grad_ref) of ``<g, sum_j w_j K_j(ref alpha_j) @ src>`` on a mixture's chain plans.
 
     Component by component, in order, as JAX's autodiff of the component sum
-    (mll.py:100-104): the transposed sharded chain apply of the cotangent
-    w_j g (which splats every rank's rows), then K5 on this rank's points
-    at ref alpha_j, at the component's slice_idx, with that cotangent and
-    the component's two final-order tables; the position gradient is
-    chained through ref alpha_j, so it is multiplied by alpha_j.
+    (filter.py:196-204; sharded, mll.py:100-104): the transposed chain apply
+    of the cotangent w_j g (K3'c transposed; sharded, it splats every rank's
+    rows), then K5 at ref alpha_j, at the component's slice_idx, with that
+    cotangent and the component's two final-order tables; the position
+    gradient is chained through ref alpha_j, so it is multiplied by alpha_j.
     """
     d = ref.shape[1]
     E = _lattice_constants(d, dk.base.coeffs, dk.base.variance, ref.device)[0]
@@ -294,7 +314,7 @@ def _sharded_mixture_backward(plans: tuple, ref: torch.Tensor, dk: MixtureKernel
     grad_src = grad_ref = None
     for w, a, plan, table_f in zip(dk.weights, dk.alphas, plans, tables_f):
         g_j = (w * g).contiguous()
-        gs, table_b = apply_plan_chain(plan, g_j, dk.base.coeffs, transpose=True, return_table=True, axis=axis)
+        gs, table_b = apply_plan_chain(plan, g_j, dk.base.coeffs, True, True, axis)
         gr = a * lattice_filter_grad((ref * a).to(torch.float32).contiguous(), E, plan.slice_idx, src, g_j, table_f,
                                      table_b, SLICE_NORM(d))
         grad_src = gs if grad_src is None else grad_src + gs
@@ -319,17 +339,17 @@ def filter_backward(plan, ref: torch.Tensor, dk, src: torch.Tensor, g: torch.Ten
     apply is the sharded chain's, which splats every rank's g, and K5 runs
     on this rank's points at its slice_idx against the two global
     (n_lattice, c) final-order tables, so grad_ref holds this rank's rows
-    of the whole gradient.  A
-    mixture runs the transposed K12 and :func:`mixture_position_grad`, or
-    with ``axis`` :func:`_sharded_mixture_backward` (``table_f`` the tuple of
-    its components' tables).
+    of the whole gradient.  A mixture's tuple of chain plans, one device's
+    or sharded, runs :func:`_mixture_chain_backward` (``table_f`` the tuple
+    of its components' tables); its stacked MixturePlan the transposed K12
+    and :func:`mixture_position_grad`.
     """
     d = ref.shape[1]
     g = g.to(torch.float32).contiguous()
-    if isinstance(dk, MixtureKernel) and axis is not None:
-        return _sharded_mixture_backward(plan, ref, dk, src, g, table_f, axis)
+    if isinstance(dk, MixtureKernel) and not isinstance(plan, MixturePlan):
+        return _mixture_chain_backward(plan, ref, dk, src, g, table_f, axis)
     grad_src, table_b = apply_plan_any(plan, g, dk, transpose=True, return_table=True, axis=axis)
-    if isinstance(dk, MixtureKernel):
+    if isinstance(plan, MixturePlan):
         return grad_src, mixture_position_grad(plan, ref, dk, src, g, table_f, table_b)
     E = _lattice_constants(d, dk.coeffs, dk.variance, ref.device)[0]
     seg_ids = plan.slice_idx if isinstance(plan, ChainPlan) else plan.seg_ids
@@ -343,20 +363,22 @@ class LatticeFilterExactGrad(torch.autograd.Function):
 
     Forward: one plan build (with its row lists: a :class:`WidePlan`) and
     one apply that keeps its blurred table (K9 over one window of all
-    columns), or, for a wide src above ``_JOIN_MAX_ROWS``, K9 by windows,
-    which keeps none.  Backward: :func:`filter_backward` on the same plan,
+    columns), or, for a wide src above ``_JOIN_MAX_ROWS``, JAX's chunked
+    chain: one chain plan applied in ``_WIDE_CHUNK``-column blocks, which
+    keeps no table.  Backward: :func:`filter_backward` on the same plan,
     so the positions are not hashed twice and no apply adds with atomics;
-    after the windowed K9 it runs per ``_WIDE_CHUNK``-column block (each
-    block's apply again, for its table), and the position gradients of the
-    blocks add up.  With ``axis`` (a DataAxis; src and ref this
-    rank's rows) the plan is this rank's part of the sharded chain plan and
-    the applies are the sharded chain's, the transposed one included, as
-    JAX's autodiff transposes the collectives of filter_sharded
-    (shard_filter.py:146-155); no capacity, no chunking.
-    A MixtureKernel builds its stacked plan and applies it by K12, keeping
-    the stacked table; no capacity, no chunking (:func:`lattice_filter_exact_grad`
-    sends a wide block above ``_JOIN_MAX_ROWS`` elsewhere).  Second
-    derivatives are not defined (as in JAX's custom VJP filter).
+    after the chunked chain it runs per block (each block's chain apply
+    again, for its table, then the transposed chain apply and K5 at the
+    plan's slice_idx), and the position gradients of the blocks add up.
+    With ``axis`` (a DataAxis; src and ref this rank's rows) the plan is
+    this rank's part of the sharded chain plan and the applies are the
+    sharded chain's, the transposed one included, as JAX's autodiff
+    transposes the collectives of filter_sharded (shard_filter.py:146-155);
+    no capacity, no chunking.  A MixtureKernel builds its stacked plan and
+    applies it by K12, keeping the stacked table; no capacity, no chunking
+    (:func:`lattice_filter_exact_grad` sends a wide block above
+    ``_JOIN_MAX_ROWS`` elsewhere).  Second derivatives are not defined (as
+    in JAX's custom VJP filter).
     """
 
     @staticmethod
@@ -367,12 +389,12 @@ class LatticeFilterExactGrad(torch.autograd.Function):
         elif axis is not None:
             plan = build_plan_sharded_chain(ref, dk.coeffs, dk.variance, axis)
             out, table_f = apply_plan_any(plan, src, dk, return_table=True, axis=axis)
+        elif _chunked(*ref.shape, src.shape[-1]):
+            plan = build_plan(ref, dk.coeffs, dk.variance, capacity)
+            out, table_f = _apply_chain_blocks(plan, src, dk.coeffs), None
         else:
             plan = build_wide_plan_join(ref, dk.coeffs, dk.variance, capacity)
-            if _chunked(*ref.shape, src.shape[-1]):
-                out, table_f = apply_plan_cols(plan, src, dk.coeffs, _WIDE_CHUNK), None
-            else:
-                out, table_f = apply_plan_any(plan, src, dk, return_table=True)
+            out, table_f = apply_plan_any(plan, src, dk, return_table=True)
         ctx.dk = dk
         ctx.axis = axis
         ctx.plan_type = type(plan)
@@ -403,13 +425,13 @@ def lattice_filter_exact_grad(src: torch.Tensor, ref: torch.Tensor, dk, capacity
     With ``axis``, src and ref are this rank's rows and the filter is the
     sharded one (``capacity`` does not apply).  A mixture with ``axis``, or
     with a wide src above ``_JOIN_MAX_ROWS``, is the weighted sum of its
-    components' filters at ``ref * alpha_j`` (each sharded, or K9),
-    differentiated by autograd through the sum and the scaling
-    (filter.py:177-182; JAX's sharded mixture, mll.py:100-104).
+    components' filters at ``ref * alpha_j`` (each sharded, or the untrimmed
+    chunked chain), differentiated by autograd through the sum and the
+    scaling (filter.py:177-182; JAX's sharded mixture, mll.py:100-104).
     """
     if isinstance(dk, MixtureKernel) and (axis is not None or _chunked(*ref.shape, src.shape[-1])):
-        return sum(w * LatticeFilterExactGrad.apply(src, ref * a, dk.base, None, axis)
-                   for w, a in zip(dk.weights, dk.alphas))
+        return _weighted_sum(dk.weights, (LatticeFilterExactGrad.apply(src, ref * a, dk.base, None, axis)
+                                          for a in dk.alphas))
     return LatticeFilterExactGrad.apply(src, ref, dk, capacity, axis)
 
 
@@ -438,9 +460,9 @@ def lattice_filter_rect(src: torch.Tensor, x_from: torch.Tensor, x_to: torch.Ten
 def _filter_plain(src: torch.Tensor, ref: torch.Tensor, dk: DiscretizedKernel) -> torch.Tensor:
     """K(ref, ref) @ src, untrimmed, engine by width and size (filter.py:120-140).
 
-    K4 up to 16 columns; wider, K9 by windows above ``_JOIN_MAX_ROWS`` rows,
-    else a join plan with its row lists and K9 over one window of all the
-    columns (JAX's join apply; no atomics, so the same bits twice).  JAX's
+    K4 up to 16 columns; wider, the chunked chain above ``_JOIN_MAX_ROWS``
+    rows, else a join plan with its row lists and K9 over one window of all
+    the columns (JAX's join apply; no atomics, so the same bits twice).  JAX's
     ``capacity`` argument is left out: no caller here trims these filters.
     """
     if src.shape[-1] > _WIDE_COLS:

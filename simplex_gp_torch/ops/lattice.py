@@ -45,11 +45,14 @@ applies in one call, with no plan and an optional capacity bound (JAX's
 filter_fused, which runs the sort chain; the same operator up to 64-bit hash
 collisions).  :func:`count_lattice_points` is K8, K4's occupancy count.
 
-A :class:`MixturePlan` is the plan of a Gaussian-mixture kernel: J
-component plans of the scaled positions ``x * alpha_j`` (one K1 launch over
-the stacked positions, then K2 per component), stacked into one table, with
-the stacked table's row lists, and :func:`apply_plan_mixture` applies all J
-components at once by K12 (``kernels/mixture.py``).
+A :class:`MixturePlan` is the stacked join plan of a Gaussian-mixture
+kernel: J component plans of the scaled positions ``x * alpha_j`` (one K1
+launch over the stacked positions, then K2 per component), stacked into one
+table, with the stacked table's row lists, and :func:`apply_plan_mixture`
+applies all J components at once by K12 (``kernels/mixture.py``).  It
+serves where JAX's mixture takes a join plan (the one-shot exact filter,
+the rect predict, the range sketch below ``_JOIN_MAX_ROWS``); the mixture's
+CG runs on one chain plan per component (ops/filter.py::build_plan_any).
 
 The host constants below are copied verbatim from the JAX module, where the
 tests hold them equal.

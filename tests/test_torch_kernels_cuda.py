@@ -399,7 +399,8 @@ def test_row_build_matches_plain_at_the_key_bit_edges(cuda_device, J, k, edge):
 @pytest.mark.parametrize("c", [20, 101])
 def test_k9_in_a_cuda_graph_and_the_mixture_branch(cuda_device, monkeypatch, c):
     """One K9 apply captured in a CUDA graph (no host read on its path) replays its eager output bit for bit;
-    the mixture's per-component K9 branch (above _JOIN_MAX_ROWS) against K12 on the same stacked plan."""
+    the mixture's wide filter above _JOIN_MAX_ROWS (one untrimmed chunked chain a component, no K9, no K12)
+    against K12 on the stacked plan of the same positions."""
     dk = _dk("matern", 1)
     x = _positions(2000, 5, 12, cuda_device)
     plan = t_lattice.build_plan_join(x, dk.coeffs, dk.variance)
@@ -419,13 +420,15 @@ def test_k9_in_a_cuda_graph_and_the_mixture_branch(cuda_device, monkeypatch, c):
     torch.cuda.synchronize()
     assert torch.equal(replayed, eager)
     mk = t_kernels.mixture_kernel(1.5, 1, 4)
-    mplan = t_filter.build_plan_any(x, mk)
+    mplan = t_filter.build_wide_plan_any(x, mk)
     want = t_filter.apply_plan_wide(mplan, v, mk)  # K12
-    before = K.lattice_apply_cols.launches
+    before = K.lattice_apply_cols.launches, KM.lattice_mixture_apply.launches, KC.chain_splat.launches
     monkeypatch.setattr(t_filter, "_JOIN_MAX_ROWS", 1000)
-    got = t_filter.apply_plan_wide(mplan, v, mk)
+    got = t_filter.make_wide_filter(x, mk)(v)
     torch.cuda.synchronize()
-    assert K.lattice_apply_cols.launches == before + 4
+    blocks = 4 * -(-c // t_filter._WIDE_CHUNK)
+    assert (K.lattice_apply_cols.launches, KM.lattice_mixture_apply.launches, KC.chain_splat.launches) == (
+        before[0], before[1], before[2] + blocks)
     assert float((got - want).norm() / want.norm()) < 1e-5
 
 
@@ -747,7 +750,8 @@ def test_mixture_apply_bit_equal_to_plain_and_repeated(cuda_device, case, c):
 
 
 def test_mixture_nlml_gradients_repeat_bit_for_bit(cuda_device):
-    """Two mixture NLML gradients at the same inputs are bit-equal: K12 and its transpose have no atomics."""
+    """Two mixture NLML gradients at the same inputs are bit-equal: the CG and its backward run on the J chain
+    plans (the chain apply and its transpose have no atomics), and launch no K12."""
     from simplex_gp_torch.linalg import mll as t_mll
 
     rng = np.random.default_rng(5)
@@ -755,7 +759,7 @@ def test_mixture_nlml_gradients_repeat_bit_for_bit(cuda_device):
     y = torch.from_numpy(rng.normal(size=4000).astype(np.float32)).to(cuda_device)
     z = torch.from_numpy(rng.choice([-1.0, 1.0], size=(4000, 10)).astype(np.float32)).to(cuda_device)
     mk = t_kernels.mixture_kernel(1.5, 1, 8)
-    launches = KM.lattice_mixture_apply.launches
+    launches = KM.lattice_mixture_apply.launches, KC.chain_axes_transpose.launches
     grads = []
     for _ in range(2):
         params = {k: torch.tensor(v, device=cuda_device, requires_grad=True) for k, v in
@@ -763,7 +767,8 @@ def test_mixture_nlml_gradients_repeat_bit_for_bit(cuda_device):
                    ("noise", np.float32(0.2)), ("mean", np.float32(0.0)))}
         loss = t_mll.lattice_nlml(mk, t_mll.BBMMConfig(), params, x, y, z)
         grads.append(torch.autograd.grad(loss, list(params.values())) + (loss.detach(),))
-    assert KM.lattice_mixture_apply.launches > launches
+    assert KM.lattice_mixture_apply.launches == launches[0]
+    assert KC.chain_axes_transpose.launches == launches[1] + 2 * 8  # one a component a backward
     assert all(torch.equal(u, v) for u, v in zip(*grads))
 
 

@@ -148,12 +148,14 @@ def test_mixture_constants_equal_jax(nu, order, components):
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("n,d,c", [(384, 7, 1), (300, 5, 3)])
 def test_plain_k12_matches_jax(n, d, c, transpose):
-    """K12 (plain) through build_plan_any / apply_plan_any against JAX's per-component applies."""
+    """K12 (plain) through build_wide_plan_any / apply_plan_any (the stacked join route, which the one-shot
+    exact filter, the rect predict and the range sketch below _JOIN_MAX_ROWS take) against JAX's
+    per-component chain applies (build_plan_any / apply_plan_any)."""
     x, _, rng = _data(n, d, seed=n)
     v = rng.normal(size=(n, c)).astype(np.float32)
     jm, tm = _kernels(_WEIGHTS6)
     jplan = j_filter.build_plan_any(jnp.asarray(x), jm)
-    plan = t_filter.build_plan_any(torch.from_numpy(x), tm)
+    plan = t_filter.build_wide_plan_any(torch.from_numpy(x), tm)
     assert isinstance(plan, t_lattice.MixturePlan) and plan.seg_ids.shape == (6, n, d + 1)
     got = t_filter.apply_plan_any(plan, torch.from_numpy(v), tm, transpose=transpose).numpy()
     if transpose:  # K^T v is the gradient of <v, K u> in u
@@ -171,7 +173,7 @@ def test_stacked_table_is_the_component_tables():
     x, _, rng = _data(256, 6, seed=3)
     v = torch.from_numpy(rng.normal(size=(256, 2)).astype(np.float32))
     _, tm = _kernels(_WEIGHTS6)
-    plan = t_filter.build_plan_any(torch.from_numpy(x), tm)
+    plan = t_filter.build_wide_plan_any(torch.from_numpy(x), tm)
     M = plan.neighbors.shape[1] // 6
     for transpose in (False, True):
         out, table = t_lattice.apply_plan_mixture(plan, v, tm.coeffs, tm.weights, transpose, return_table=True)
@@ -192,7 +194,7 @@ def test_cpu_tensor_takes_the_plain_route():
     """The wrapper counts only kernel launches; a CPU tensor runs the plain version."""
     x, v, _ = _data(128, 4)
     _, tm = _kernels(_WEIGHTS6)
-    plan = t_filter.build_plan_any(torch.from_numpy(x), tm)
+    plan = t_filter.build_wide_plan_any(torch.from_numpy(x), tm)
     before = KM.lattice_mixture_apply.launches
     out = t_filter.apply_plan_any(plan, torch.from_numpy(v), tm)
     want = KM.mixture_apply_plain(plan.seg_ids, plan.weights, plan.neighbors, torch.from_numpy(v),
@@ -202,13 +204,18 @@ def test_cpu_tensor_takes_the_plain_route():
 
 
 def test_mixture_plan_ignores_capacity():
-    """Mixture plans are untrimmed whatever the capacity (filter.py:174-176)."""
+    """Mixture plans are untrimmed whatever the capacity (filter.py:174-176): the CG's J chain plans
+    (build_plan_any) and the stacked join plan (build_wide_plan_any)."""
     x, _, _ = _data(200, 5)
     _, tm = _kernels(_WEIGHTS6)
-    a = t_filter.build_plan_any(torch.from_numpy(x), tm)
-    b = t_filter.build_plan_any(torch.from_numpy(x), tm, capacity=7)
-    for s, t in zip(a, b):
-        torch.testing.assert_close(s, t, rtol=0, atol=0)
+    for build in (t_filter.build_plan_any, t_filter.build_wide_plan_any):
+        a = build(torch.from_numpy(x), tm)
+        b = build(torch.from_numpy(x), tm, capacity=7)
+        flat_a, flat_b = t_filter._plan_tensors(a), t_filter._plan_tensors(b)
+        assert len(flat_a) == len(flat_b)
+        for s, t in zip(flat_a, flat_b):
+            torch.testing.assert_close(s, t, rtol=0, atol=0)
+    assert all(p.cnt.shape == (200 * 6,) for p in t_filter.build_plan_any(torch.from_numpy(x), tm, capacity=7))
 
 
 # ---- gradients ------------------------------------------------------------------------
@@ -269,24 +276,30 @@ def test_mixture_position_gradient_matches_finite_differences():
 
 
 def test_wide_mixture_above_join_max_rows_goes_through_k9_per_component(monkeypatch):
-    """Above _JOIN_MAX_ROWS a wide block takes K9 per component (make_wide_filter_any), the same operator."""
+    """Above _JOIN_MAX_ROWS a wide block takes one untrimmed chunked chain per component (make_wide_filter_any,
+    filter.py:207-220), the same operator as K12's below it: no K9 and no K12 there, and the exact gradient
+    through the components' chunked chains."""
     x, _, rng = _data(200, 5, seed=5)
     V = torch.from_numpy(rng.normal(size=(200, 20)).astype(np.float32))
     g = torch.from_numpy(rng.normal(size=(200, 20)).astype(np.float32))
     _, tm = _kernels(_WEIGHTS6)
     xt = torch.from_numpy(x)
-    plan = t_filter.build_plan_any(xt, tm)
+    plan = t_filter.build_wide_plan_any(xt, tm)
     want = t_filter.apply_plan_wide(plan, V, tm)  # K12
     xa = xt.clone().requires_grad_(True)
     (g * t_filter.lattice_filter_exact_grad(V, xa, tm)).sum().backward()
-    cols = K.lattice_apply_cols.launches, K.apply_cols_plain
+    calls = []
+    for name in ("apply_plan_cols", "apply_plan_mixture", "build_plan_mixture"):
+        real = getattr(t_filter, name)
+        monkeypatch.setattr(t_filter, name, lambda *a, _real=real, _n=name, **k: calls.append(_n) or _real(*a, **k))
+    launches = K.lattice_apply_cols.launches, KM.lattice_mixture_apply.launches
     monkeypatch.setattr(t_filter, "_JOIN_MAX_ROWS", 1000)  # 200 x 6 rows: above it
-    torch.testing.assert_close(t_filter.apply_plan_wide(plan, V, tm), want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(t_filter.make_wide_filter(xt, tm)(V), want, rtol=1e-5, atol=1e-5)
     xb = xt.clone().requires_grad_(True)
     (g * t_filter.lattice_filter_exact_grad(V, xb, tm)).sum().backward()
     torch.testing.assert_close(xb.grad, xa.grad, rtol=1e-4, atol=1e-5)
-    assert cols[0] == K.lattice_apply_cols.launches  # CPU tensors: the plain K9, no launch
+    assert calls == []
+    assert launches == (K.lattice_apply_cols.launches, KM.lattice_mixture_apply.launches)  # CPU: plain, no launch
 
 
 # ---- the engine and the model against JAX ----------------------------------------------------

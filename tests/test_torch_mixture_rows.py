@@ -25,6 +25,7 @@ from simplex_gp_torch.kernels import chain as KC
 from simplex_gp_torch.kernels import lattice as K
 from simplex_gp_torch.kernels import mixture as KM
 from simplex_gp_torch.linalg import mll as t_mll
+from simplex_gp_torch.ops import filter as t_filter
 from simplex_gp_torch.ops import kernels as t_kernels
 from simplex_gp_torch.ops import lattice as t_lattice
 
@@ -150,16 +151,18 @@ def test_two_cpu_applies_are_bit_equal():
 
 
 def test_one_row_build_serves_the_nlml_and_its_gradient(monkeypatch):
-    """The CG's applies, the backward's forward apply with its table and its transposed apply all read the
-    row lists built once with the CG's plan."""
-    calls = []
-    real = t_lattice.mixture_rows
+    """The NLML's CG and its backward run on the CG's J chain plans, one a component, built once (their run
+    lists built with them) and read by the CG's applies, the backward's forward applies with their tables
+    and its transposed applies: no stacked plan and no stacked row lists are built."""
+    rows_calls, chain_calls = [], []
+    real_rows, real_chain = t_lattice.mixture_rows, t_filter.build_plan
 
     def spy(*args):
-        calls.append(args[0].shape)
-        return real(*args)
+        rows_calls.append(args[0].shape)
+        return real_rows(*args)
 
     monkeypatch.setattr(t_lattice, "mixture_rows", spy)
+    monkeypatch.setattr(t_filter, "build_plan", lambda *a, **k: chain_calls.append(a[0].shape) or real_chain(*a, **k))
     n, d = 300, 4
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
@@ -169,6 +172,8 @@ def test_one_row_build_serves_the_nlml_and_its_gradient(monkeypatch):
               "noise": torch.tensor(0.1)}
     probes = torch.from_numpy(rng.choice([-1.0, 1.0], size=(n, 8)).astype(np.float32))
     cfg = t_mll.BBMMConfig(cg_tolerance=1.0, num_probes=8, precond_rank=20)
-    t_mll.lattice_nlml(mk, cfg, params, x, y, probes).backward()
-    assert calls == [(6, n, d + 1)]
+    loss = t_mll.lattice_nlml(mk, cfg, params, x, y, probes)
+    assert chain_calls == [(n, d)] * 6
+    loss.backward()
+    assert chain_calls == [(n, d)] * 6 and rows_calls == []
     assert torch.isfinite(params["inv_ell"].grad).all()
