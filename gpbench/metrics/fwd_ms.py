@@ -1,0 +1,7 @@
+"""fwd_ms: SimplexGP.nlml's span (closed by a synchronise), mean per step, in ms."""
+
+from gpbench.readers import mean_span_ms
+
+
+def read(ctx):
+    return mean_span_ms(ctx, "nlml")
