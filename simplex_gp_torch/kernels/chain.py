@@ -36,11 +36,11 @@ first (see ``csrc/chain.cu``).
 from __future__ import annotations
 
 import ctypes
-import time
 from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from . import build
 
 __all__ = [
@@ -359,6 +359,8 @@ def chain_build(h1, h2, s, weights, consts, taps, capacity=None, first=None) -> 
     ``torch.sort`` calls (the distinct points by key, the N ranks, the live
     rows' axis keys batched); one host read (n_lattice, which sizes the
     sorts); one workspace and one output allocation; counted once per build.
+    Each stage is a span (``plan.dedup``, ``plan.read``, ... ``plan.run
+    lists``; :mod:`simplex_gp_torch.trace`).
     With ``first`` (a sharded plan's rank, see :func:`chain_build_plain`)
     the dedup and the ranks cover every rank's contributions, and the
     stages from the sort of the ranks on only this rank's window of them:
@@ -391,80 +393,69 @@ def chain_build(h1, h2, s, weights, consts, taps, capacity=None, first=None) -> 
     sizes = dict(sp=Nw, sw=Nw, cnt=Mc, gather=d * Mc, tapw=dp1 * order * Mc, slice_idx=Nw, n_lattice=1)
     out = dict(zip(sizes, torch.empty(sum(sizes.values()), dtype=i32, device=dev).split(list(sizes.values()))))
     n_lattice = out["n_lattice"].view(())
-    _mark("start")
-    build.check(lib.sgp_chain_dedup(h1.data_ptr(), h2.data_ptr(), s.data_ptr(), N, consts.data_ptr(), dp1,
-                                    ws["table"].data_ptr(), slots - 1, ws["rep_of"].data_ptr(),
-                                    ws["uniq_key"].data_ptr(), ws["uniq_h2"].data_ptr(), ws["uniq_rep"].data_ptr(),
-                                    n_lattice.data_ptr(), st), "chain_build (dedup)")
-    _mark("dedup")
-    nl = int(n_lattice)
+    with trace.span("plan.dedup"):
+        build.check(lib.sgp_chain_dedup(h1.data_ptr(), h2.data_ptr(), s.data_ptr(), N, consts.data_ptr(), dp1,
+                                        ws["table"].data_ptr(), slots - 1, ws["rep_of"].data_ptr(),
+                                        ws["uniq_key"].data_ptr(), ws["uniq_h2"].data_ptr(),
+                                        ws["uniq_rep"].data_ptr(), n_lattice.data_ptr(), st), "chain_build (dedup)")
+    with trace.span("plan.read"):
+        nl = int(n_lattice)
+        trace.count("host_read.chain_build")
     live = min(nl, Mc)
-    _mark("read")
-    sk, p = torch.sort(ws["uniq_key"][:nl])  # equal keys' order is fixed by h2 in the rank stage
-    _mark("unique sort")
+    with trace.span("plan.unique sort"):
+        sk, p = torch.sort(ws["uniq_key"][:nl])  # equal keys' order is fixed by h2 in the rank stage
     # The table's slots are free now: the ranks by representative and by contribution take them; an int16
     # sort key (half torch.sort's radix passes) takes the unique keys' bytes.
     rank_by_rep, rank = ws["table"][:N], ws["table"][N:2 * N]
     key16 = ws["uniq_key"].view(torch.int16)[:N] if nl < 2**15 else None
-    build.check(lib.sgp_chain_rank(sk.data_ptr(), p.data_ptr(), ws["uniq_h2"].data_ptr(),
-                                   ws["uniq_rep"].data_ptr(), nl, Mc, ws["rep_of"].data_ptr(), N,
-                                   rank_by_rep.data_ptr(), ws["row_key"].data_ptr(), ws["row_h2"].data_ptr(),
-                                   rank.data_ptr(), None if key16 is None else key16.data_ptr(), st),
-                "chain_build (rank)")
-    _mark("rank")
-    sorted_rank, perm = torch.sort((rank if key16 is None else key16)[lo:lo + Nw], stable=True)
-    _mark("rank sort")
+    with trace.span("plan.rank"):
+        build.check(lib.sgp_chain_rank(sk.data_ptr(), p.data_ptr(), ws["uniq_h2"].data_ptr(),
+                                       ws["uniq_rep"].data_ptr(), nl, Mc, ws["rep_of"].data_ptr(), N,
+                                       rank_by_rep.data_ptr(), ws["row_key"].data_ptr(), ws["row_h2"].data_ptr(),
+                                       rank.data_ptr(), None if key16 is None else key16.data_ptr(), st),
+                    "chain_build (rank)")
+    with trace.span("plan.rank sort"):
+        sorted_rank, perm = torch.sort((rank if key16 is None else key16)[lo:lo + Nw], stable=True)
     sw = out["sw"].view(torch.float32)
-    build.check(lib.sgp_chain_place(perm.data_ptr(), weights.data_ptr(), Nw, dp1, out["sp"].data_ptr(),
-                                    sw.data_ptr(), st), "chain_build (place)")
+    with trace.span("plan.place"):
+        build.check(lib.sgp_chain_place(perm.data_ptr(), weights.data_ptr(), Nw, dp1, out["sp"].data_ptr(),
+                                        sw.data_ptr(), st), "chain_build (place)")
     del perm
-    _mark("place")
     keys, long_info = ws["keys"][:dp1 * live].view(dp1, live), ws["long_info"].view(3, Mc)
-    build.check(lib.sgp_chain_rows(ws["row_key"].data_ptr(), ws["row_h2"].data_ptr(), sorted_rank.data_ptr(),
-                                   int(key16 is not None), live, Nw, Mc, d, consts.data_ptr(), out["cnt"].data_ptr(),
-                                   keys.data_ptr(), long_info.data_ptr(), st), "chain_build (rows)")
+    with trace.span("plan.rows"):
+        build.check(lib.sgp_chain_rows(ws["row_key"].data_ptr(), ws["row_h2"].data_ptr(), sorted_rank.data_ptr(),
+                                       int(key16 is not None), live, Nw, Mc, d, consts.data_ptr(),
+                                       out["cnt"].data_ptr(), keys.data_ptr(), long_info.data_ptr(), st),
+                    "chain_build (rows)")
     del sorted_rank
-    _mark("rows")
-    sorted_keys, order_j = torch.sort(keys[1:], dim=1, stable=True)
-    _mark("axis sort")
+    with trace.span("plan.axis sort"):
+        sorted_keys, order_j = torch.sort(keys[1:], dim=1, stable=True)
     taps_host = (ctypes.c_float * len(taps))(*[float(t) for t in taps])
     tapw = out["tapw"].view(torch.float32).view(dp1, order, Mc)
     gather, slice_idx = out["gather"].view(d, Mc), out["slice_idx"].view(n, dp1)
-    build.check(lib.sgp_chain_finish(keys.data_ptr(), sorted_keys.data_ptr(), order_j.data_ptr(),
-                                     rank[lo:].data_ptr(), live, Mc, d, order, ctypes.addressof(taps_host), Nw,
-                                     tapw.data_ptr(),
-                                     ws["pos"].data_ptr(), gather.data_ptr(), slice_idx.data_ptr(), st),
-                "chain_build (finish)")
-    _mark("finish")
-    lists = run_lists_device(long_info, out["cnt"], Nw)
-    _mark("run lists")
+    with trace.span("plan.finish"):
+        build.check(lib.sgp_chain_finish(keys.data_ptr(), sorted_keys.data_ptr(), order_j.data_ptr(),
+                                         rank[lo:].data_ptr(), live, Mc, d, order, ctypes.addressof(taps_host), Nw,
+                                         tapw.data_ptr(), ws["pos"].data_ptr(), gather.data_ptr(),
+                                         slice_idx.data_ptr(), st), "chain_build (finish)")
+    with trace.span("plan.run lists"):
+        lists = run_lists_device(long_info, out["cnt"], Nw)
     chain_build.launches += 1
     cnt = out["cnt"] if first is None else out["cnt"][:live]
     return ChainPlan(out["sp"], sw, cnt, *lists, gather, tapw, slice_idx, weights, n_lattice)
 
 
-def _mark(stage: str) -> None:
-    """A CUDA event and the host clock after a stage of :func:`chain_build`, while
-    :func:`chain_build_stage_times` listens."""
-    if chain_build.stages is not None:
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        chain_build.stages.append((stage, event, time.perf_counter()))
-
-
 def chain_build_stage_times(build_call) -> dict:
-    """One ``build_call()`` (a :func:`chain_build` on the card) split by its stages: for each, the device ms
-    between its CUDA event and the previous one, and the host ms between the two marks."""
+    """One ``build_call()`` (a :func:`chain_build` on the card) split by its stages, from the stage spans of
+    :mod:`simplex_gp_torch.trace`: for each, the device ms between its CUDA events and its host ms."""
     torch.cuda.synchronize()
-    chain_build.stages = []
-    try:
+    with trace.recording():
+        first = len(trace.records())
         build_call()
         torch.cuda.synchronize()
-        marks = chain_build.stages
-    finally:
-        chain_build.stages = None
-    return {name: dict(device_ms=prev.elapsed_time(ev), host_ms=1e3 * (t - t_prev))
-            for (_, prev, t_prev), (name, ev, t) in zip(marks, marks[1:])}
+        spans = trace.records()[first:]
+    return {r["name"][len("plan."):]: dict(device_ms=r["ms"], host_ms=r["host_ms"])
+            for r in spans if r["name"].startswith("plan.")}
 
 
 def run_lists_device(long_info: torch.Tensor, cnt: torch.Tensor, N: int) -> tuple:
@@ -494,7 +485,6 @@ def run_lists_device(long_info: torch.Tensor, cnt: torch.Tensor, N: int) -> tupl
 
 
 chain_build.launches = 0
-chain_build.stages = None  # a list while chain_build_stage_times listens
 
 
 def _lane_sums(contrib, slot, k, slots):

@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from . import build
 from .chain import _carve, _long_bounds, chain_splat_plain, run_lists
 
@@ -774,6 +775,7 @@ def sharded_rows(seg_ids, weights, n_lattice) -> JoinRows:
     (counted in ``join_rows.launches``).
     """
     nl = int(n_lattice)
+    trace.count("host_read.sharded_rows")
     if not seg_ids.is_cuda:
         return _rows_plain(seg_ids, weights, nl, n_lattice)
     build.require("sharded_rows", (n_lattice, torch.int32))
@@ -1031,6 +1033,7 @@ def lattice_filter_once(x, E, a, oh1, oh2, v, taps, slice_norm, capacity):
                 "lattice_filter_once (insert)")
     lattice_filter_once.launches += 1
     nl = int(count)  # the one host read: it sizes the live rows' buffers
+    trace.count("host_read.filter_once")
     if nl > capacity:
         return torch.full((n, c), float("nan"), device=dev), count
     need = ctypes.c_longlong(0)

@@ -14,7 +14,10 @@ three more that read U themselves (U^T r's block partials, their fold with
 w, then z = r / noise - U G2 with r . z), with the state (the stop flag,
 the iteration counter, the stall guard, the record) on the device.  The
 loop reads one flag back per iteration, as JAX's ``while_loop`` tests its
-condition.  On the CPU the same
+condition, and the whole state once at its end, which gives the iteration
+count and the reason it stopped (:func:`_stop_reason`); a solve records the
+span ``cg``, one ``cg.stop.<reason>`` and its reads
+(:mod:`simplex_gp_torch.trace`).  On the CPU the same
 loop runs the kernels' plain twins, which sum in the kernels' order, so a
 solve repeats bit for bit on either device.  With ``graph`` (a card only)
 the first iteration runs as launched, the second is captured in a CUDA
@@ -42,6 +45,7 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
+from .. import trace
 from ..kernels import cg as K10
 from .pivoted_cholesky import Preconditioner
 
@@ -58,6 +62,7 @@ class CGResult(NamedTuple):
     alphas: Optional[torch.Tensor] = None  # (m, t) step sizes rz/pAp
     betas: Optional[torch.Tensor] = None  # (m, t) conjugacy coefficients rz'/rz
     tmask: Optional[torch.Tensor] = None  # (m, t) bool live-step mask
+    stop: Optional[str] = None  # why the solve stopped (:func:`_stop_reason`)
 
 
 def cg_solve(
@@ -103,9 +108,14 @@ def cg_solve(
         raise ValueError(f"unknown stop_mode {stop_mode!r}")
     if graph and axis is not None:
         raise ValueError("cg_solve: graph=True takes no axis (the sharded loop's collectives are not captured)")
-    loop = CGLoop(matmul, b, tol, max_iters, precond, min_iters, stop_mode, stall_window, tridiag_m, shift, axis)
-    loop.run(graph)
-    return loop.result()
+    with trace.span("cg"):
+        loop = CGLoop(matmul, b, tol, max_iters, precond, min_iters, stop_mode, stall_window, tridiag_m, shift, axis)
+        loop.run(graph)
+        result = loop.result()
+        trace.count(f"cg.stop.{result.stop}")
+        trace.count("host_read.cg_stop", loop.reads)
+        trace.count("host_read.cg_state")
+    return result
 
 
 cg_solve.graph_replays = 0  # iterations run as replays of a captured one (their kernels bypass the wrappers)
@@ -130,10 +140,12 @@ class CGLoop:
         n, t = b.shape
         dev = b.device
         self.matmul, self.precond, self.shift, self.axis = matmul, precond, shift, axis
+        self.reads = 0  # reads of the stop flag
         f32 = dict(dtype=torch.float32, device=dev)
         rp, nb = K10.cg_layout(n, t)
         if axis is not None:  # the ranks' partials stack only if every rank has the same layout
             layouts = axis.all_gather(torch.tensor([[n, nb]], device=dev)).tolist()
+            trace.count("host_read.cg_layout")
             if any(lay != [n, nb] for lay in layouts):
                 raise ValueError(f"cg_solve: the ranks' (rows, blocks) {layouts} differ; shard the rows equally")
         self.fs, self.is_ = K10.cg_state(t, dev)
@@ -222,6 +234,7 @@ class CGLoop:
 
     def stopped(self) -> bool:
         """The device's stop flag (one read back)."""
+        self.reads += 1
         return bool(int(K10.state_views(self.fs, self.is_).stop))
 
     def run(self, graph: bool = False) -> None:
@@ -237,12 +250,32 @@ class CGLoop:
                 replay = capture(self.iteration)
 
     def result(self) -> CGResult:
-        st = K10.state_views(self.fs, self.is_)
-        res_best, iters = st.res_best.clone(), int(st.it)
+        """The solve's result, from one read back of the whole state: the iterations and the stop reason."""
+        res_best = K10.state_views(self.fs, self.is_).res_best.clone()
+        fs, is_ = torch.cat([self.fs.view(torch.int32), self.is_]).cpu().split([self.fs.shape[0], self.is_.shape[0]])
+        st = K10.state_views(fs.view(torch.float32), is_)
+        iters, stop = int(st.it), _stop_reason(self.rules, st)
         if self.rules.m:
             return CGResult(x=self.x_best, iterations=iters, residual_norm=res_best, alphas=self.A, betas=self.B,
-                            tmask=self.TM.bool())
-        return CGResult(x=self.x_best, iterations=iters, residual_norm=res_best)
+                            tmask=self.TM.bool(), stop=stop)
+        return CGResult(x=self.x_best, iterations=iters, residual_norm=res_best, stop=stop)
+
+
+def _stop_reason(rules: K10.CGRules, st) -> str:
+    """Why a solve stopped, from its final state (host copies of K10's views): "max_iters" when a column
+    was still running at the cap; else "tolerance" when the best iterate meets the tolerance (the mean best
+    residual below ``tol``, or every column's below it in the "column" mode, or every column below 1e-10,
+    where a column freezes alone); else "stall" when the stall guard fired (``stall_window`` iterations past
+    the floor without a 1% gain); else "breakdown" (the columns left froze on pap <= 0 or rz < 0)."""
+    if not bool(st.done.bool().all()):
+        return "max_iters"
+    res = st.res_best
+    met = bool((res < rules.tol).all()) if rules.column_mode else float(res.double().mean()) < rules.tol
+    if met or bool((res < 1e-10).all()):
+        return "tolerance"
+    if rules.stall_window > 0 and int(st.since) >= rules.stall_window and int(st.it) >= rules.floor:
+        return "stall"
+    return "breakdown"
 
 
 def capture(fn) -> "torch.cuda.CUDAGraph":

@@ -17,6 +17,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .. import trace
+
 __all__ = [
     "LanczosResult",
     "lanczos",
@@ -100,10 +102,11 @@ def slq_logdet(
     axis=None,
 ) -> torch.Tensor:
     """Stochastic Lanczos quadrature estimate of log|A| from probes z (n, p) (lanczos.py:113)."""
-    res = lanczos(matmul, z, num_iters, axis=axis)
-    quad = _quadrature(tridiag_matrices(res.alphas, res.betas))
-    z_norm2 = (z * z).sum(dim=0)
-    return ((z_norm2 if axis is None else axis.psum(z_norm2)) * quad).mean()
+    with trace.span("slq"):
+        res = lanczos(matmul, z, num_iters, axis=axis)
+        quad = _quadrature(tridiag_matrices(res.alphas, res.betas))
+        z_norm2 = (z * z).sum(dim=0)
+        return ((z_norm2 if axis is None else axis.psum(z_norm2)) * quad).mean()
 
 
 def logdet_from_cg_tridiag(
@@ -119,16 +122,17 @@ def logdet_from_cg_tridiag(
     whose quadrature weight is zero.  Add log|P| for log|K_hat| when the CG
     was preconditioned.
     """
-    m, p = alphas.shape
-    live = tmask
-    live_next = torch.cat([tmask[1:], torch.zeros((1, p), dtype=torch.bool, device=tmask.device)])
-    inv_a = 1.0 / torch.where(live, alphas, 1.0)
-    b_over_a = torch.where(live, betas, 0.0) * inv_a
-    prev_ba = torch.cat([torch.zeros((1, p), dtype=torch.float32, device=alphas.device), b_over_a[:-1]])
-    diag = torch.where(live, inv_a + prev_ba, 1.0)
-    off = torch.where(live & live_next, torch.sqrt(torch.clamp(betas, min=0.0)) * inv_a, 0.0)[:-1]
-    quad = _quadrature(tridiag_matrices(diag.T, off.T))
-    return (z_norm2 * quad).mean()
+    with trace.span("slq"):
+        m, p = alphas.shape
+        live = tmask
+        live_next = torch.cat([tmask[1:], torch.zeros((1, p), dtype=torch.bool, device=tmask.device)])
+        inv_a = 1.0 / torch.where(live, alphas, 1.0)
+        b_over_a = torch.where(live, betas, 0.0) * inv_a
+        prev_ba = torch.cat([torch.zeros((1, p), dtype=torch.float32, device=alphas.device), b_over_a[:-1]])
+        diag = torch.where(live, inv_a + prev_ba, 1.0)
+        off = torch.where(live & live_next, torch.sqrt(torch.clamp(betas, min=0.0)) * inv_a, 0.0)[:-1]
+        quad = _quadrature(tridiag_matrices(diag.T, off.T))
+        return (z_norm2 * quad).mean()
 
 
 def lanczos_root(

@@ -75,6 +75,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import trace
 from ..ops.filter import (
     _filter_plain,
     _plan_from_tensors,
@@ -159,9 +160,12 @@ def build_precond(dk, config: BBMMConfig, params: dict, ref: torch.Tensor, n_glo
     if rank <= 0:
         return None
     s, noise = params["outputscale"], params["noise"]
-    diag = s * torch.ones(ref.shape[0], dtype=torch.float32, device=ref.device)
-    pc = pivoted_cholesky_features(ref, diag, dk.nu, s, rank, config.axis)
-    return make_preconditioner(pc.L, noise, n_global, config.axis)
+    with trace.span("precond"):
+        diag = s * torch.ones(ref.shape[0], dtype=torch.float32, device=ref.device)
+        with trace.span("precond.factor"):
+            pc = pivoted_cholesky_features(ref, diag, dk.nu, s, rank, config.axis)
+        with trace.span("precond.make"):
+            return make_preconditioner(pc.L, noise, n_global, config.axis)
 
 
 def _khat_matmul_diff(params: dict, x: torch.Tensor, dk, V: torch.Tensor, grad_mode: str = "exact",
@@ -254,49 +258,56 @@ class LatticeInvQuadLogdet(torch.autograd.Function):
     and mean final residual of the forward.  With ``config.axis`` both
     outputs are global and the backward's gradients are this rank's partial
     sums (JAX mll.py:267-269): the ranks' gradients add up to the whole.
+    The forward is the span ``nlml`` (:mod:`simplex_gp_torch.trace`), the
+    backward the span ``backward`` with the forward's op id.
     """
 
     @staticmethod
     def forward(ctx, inv_ell, outputscale, noise, y, x, probes, dk, config: BBMMConfig,
                 stats: Optional[dict] = None):
-        params = {"inv_ell": inv_ell, "outputscale": outputscale, "noise": noise}
-        sys_ = _solve_system(dk, config, params, x, y, probes)
-        alpha = sys_.solves[:, 0]
-        if stats is not None:
-            stats["cg_iters"] = sys_.iterations
-            stats["cg_res"] = float(sys_.residual.mean())
-        ctx.dk = dk
-        ctx.grad_mode = config.grad_mode
-        ctx.axis = config.axis
-        ctx.plan_type = type(sys_.plan)
-        # The exact backward reuses the CG's plan (a chain plan, or a mixture's J); the deriv-mode one builds its own.
-        kept = _plan_tensors(sys_.plan) if _exact_backward(ctx) else ()
-        ctx.save_for_backward(inv_ell, outputscale, x, alpha, sys_.solves[:, 1:], sys_.probes_right, *kept)
-        inv_quad = (y * alpha).sum()
-        return inv_quad if config.axis is None else config.axis.psum(inv_quad), sys_.logdet
+        with trace.span("nlml") as span:
+            params = {"inv_ell": inv_ell, "outputscale": outputscale, "noise": noise}
+            sys_ = _solve_system(dk, config, params, x, y, probes)
+            alpha = sys_.solves[:, 0]
+            if stats is not None:
+                stats["cg_iters"] = sys_.iterations
+                stats["cg_res"] = float(sys_.residual.mean())
+                trace.count("host_read.cg_res")
+            ctx.op = span.op if span else None
+            ctx.dk = dk
+            ctx.grad_mode = config.grad_mode
+            ctx.axis = config.axis
+            ctx.plan_type = type(sys_.plan)
+            # The exact backward reuses the CG's plan (a chain plan, or a mixture's J); the deriv-mode one builds
+            # its own.
+            kept = _plan_tensors(sys_.plan) if _exact_backward(ctx) else ()
+            ctx.save_for_backward(inv_ell, outputscale, x, alpha, sys_.solves[:, 1:], sys_.probes_right, *kept)
+            inv_quad = (y * alpha).sum()
+            return inv_quad if config.axis is None else config.axis.psum(inv_quad), sys_.logdet
 
     @staticmethod
     def backward(ctx, a, b):
-        inv_ell, s, x, alpha, z_solves, probes_right, *kept = ctx.saved_tensors
-        p = probes_right.shape[-1]
-        U = torch.cat([(-a) * alpha[:, None], (b / p) * z_solves], dim=-1)
-        V = torch.cat([alpha[:, None], probes_right], dim=-1).contiguous()
-        ref = x * inv_ell
-        if _exact_backward(ctx):
-            plan = _plan_from_tensors(ctx.plan_type, kept)
-            KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True, axis=ctx.axis)
-            # d/dref of s * K(ref) V against U: K5 with the cotangent s U.
-            _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f, ctx.axis)
-        else:
-            # lattice_filter's forward and derivative-tap backward, as JAX's
-            # vjp of _khat_matmul_diff runs them: K4, then K7 against s U.
-            KV = _filter_plain(V, ref, ctx.dk)
-            grad_ref = deriv_filter_grad(ref, ctx.dk, V, s * U)
-        grad_inv_ell = (x * grad_ref).sum(dim=0)
-        grad_s = (U * KV).sum()
-        grad_noise = (U * V).sum()
-        grad_y = 2.0 * a * alpha
-        return grad_inv_ell, grad_s, grad_noise, grad_y, None, None, None, None, None
+        with trace.span("backward", op=ctx.op):
+            inv_ell, s, x, alpha, z_solves, probes_right, *kept = ctx.saved_tensors
+            p = probes_right.shape[-1]
+            U = torch.cat([(-a) * alpha[:, None], (b / p) * z_solves], dim=-1)
+            V = torch.cat([alpha[:, None], probes_right], dim=-1).contiguous()
+            ref = x * inv_ell
+            if _exact_backward(ctx):
+                plan = _plan_from_tensors(ctx.plan_type, kept)
+                KV, table_f = apply_plan_any(plan, V, ctx.dk, return_table=True, axis=ctx.axis)
+                # d/dref of s * K(ref) V against U: K5 with the cotangent s U.
+                _, grad_ref = filter_backward(plan, ref, ctx.dk, V, s * U, table_f, ctx.axis)
+            else:
+                # lattice_filter's forward and derivative-tap backward, as JAX's
+                # vjp of _khat_matmul_diff runs them: K4, then K7 against s U.
+                KV = _filter_plain(V, ref, ctx.dk)
+                grad_ref = deriv_filter_grad(ref, ctx.dk, V, s * U)
+            grad_inv_ell = (x * grad_ref).sum(dim=0)
+            grad_s = (U * KV).sum()
+            grad_noise = (U * V).sum()
+            grad_y = 2.0 * a * alpha
+            return grad_inv_ell, grad_s, grad_noise, grad_y, None, None, None, None, None
 
 
 def _exact_backward(ctx) -> bool:

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import trace
 from ..linalg.cg import cg_solve
 from ..linalg.mll import BBMMConfig, build_precond, lattice_nlml
 from ..ops.filter import apply_plan_any, build_plan_any, lattice_filter_rect, make_wide_filter
@@ -222,64 +223,69 @@ class SimplexGP(_RawParams):
         exact_gp.py:339): a join plan applied by K9 (a mixture's stacked
         plan, by K12), or above 4M contribution rows one chain plan applied
         in 16-column blocks (a mixture's J).  The cache also records the CG
-        iteration count and mean final residual.
+        iteration count and mean final residual.  The call is the span
+        ``posterior_cache`` (:mod:`simplex_gp_torch.trace`), with the plan,
+        the preconditioner, the CG and the sketch as its children.
         """
-        params = self.constrained()
-        ref = x * params["inv_ell"]
-        plan = build_plan_any(ref, self.dk, self.bbmm.plan_capacity)
-        yc = y - params["mean"]
+        with trace.span("posterior_cache"):
+            params = self.constrained()
+            ref = x * params["inv_ell"]
+            plan = build_plan_any(ref, self.dk, self.bbmm.plan_capacity)
+            yc = y - params["mean"]
 
-        P = build_precond(self.dk, self.bbmm, params, ref, x.shape[0])
-        # One plan and hundreds of iterations at houseelectric: replayed from a CUDA graph on the card (the
-        # training CG's 10-13 iterations do not repay the capture).
-        sol = cg_solve(
-            lambda V: apply_plan_any(plan, V, self.dk), yc[:, None], tol=self.eval_cg_tolerance,
-            max_iters=self.bbmm.max_cg_iterations, precond=P,
-            shift=(params["outputscale"], params["noise"]), graph=True,
-        )
-        alpha = sol.x[:, 0]
+            P = build_precond(self.dk, self.bbmm, params, ref, x.shape[0])
+            # One plan and hundreds of iterations at houseelectric: replayed from a CUDA graph on the card (the
+            # training CG's 10-13 iterations do not repay the capture).
+            sol = cg_solve(
+                lambda V: apply_plan_any(plan, V, self.dk), yc[:, None], tol=self.eval_cg_tolerance,
+                max_iters=self.bbmm.max_cg_iterations, precond=P,
+                shift=(params["outputscale"], params["noise"]), graph=True,
+            )
+            alpha = sol.x[:, 0]
 
-        n = x.shape[0]
-        m = min(root_rank or self.bbmm.max_lanczos_iterations, n)
-        if omega is None:
-            omega = torch.randn((n, m), generator=generator, dtype=torch.float32, device=x.device)
-        elif omega.shape != (n, m):
-            raise ValueError(f"omega has shape {tuple(omega.shape)}, expected {(n, m)}")
-        s, noise = params["outputscale"], params["noise"]
+            with trace.span("sketch"):
+                n = x.shape[0]
+                m = min(root_rank or self.bbmm.max_lanczos_iterations, n)
+                if omega is None:
+                    omega = torch.randn((n, m), generator=generator, dtype=torch.float32, device=x.device)
+                elif omega.shape != (n, m):
+                    raise ValueError(f"omega has shape {tuple(omega.shape)}, expected {(n, m)}")
+                s, noise = params["outputscale"], params["noise"]
 
-        kmv = make_wide_filter(ref, self.dk, self.bbmm.plan_capacity)
+                kmv = make_wide_filter(ref, self.dk, self.bbmm.plan_capacity)
 
-        def mv_wide(V):
-            return s * kmv(V) + noise * V
+                def mv_wide(V):
+                    return s * kmv(V) + noise * V
 
-        Q, _ = torch.linalg.qr(mv_wide(omega))
-        T = Q.T @ mv_wide(Q)
-        T = 0.5 * (T + T.T)
-        evals, evecs = torch.linalg.eigh(T)
-        evals = torch.clamp(evals, min=1e-8)
-        root_inv = Q @ (evecs / torch.sqrt(evals)[None, :])
-        return {
-            "alpha": alpha,
-            "root_inv": root_inv,
-            "params": params,
-            "cg_iters": sol.iterations,
-            "cg_res": sol.residual_norm.mean(),
-        }
+                Q, _ = torch.linalg.qr(mv_wide(omega))
+                T = Q.T @ mv_wide(Q)
+                T = 0.5 * (T + T.T)
+                evals, evecs = torch.linalg.eigh(T)
+                evals = torch.clamp(evals, min=1e-8)
+                root_inv = Q @ (evecs / torch.sqrt(evals)[None, :])
+            return {
+                "alpha": alpha,
+                "root_inv": root_inv,
+                "params": params,
+                "cg_iters": sol.iterations,
+                "cg_res": sol.residual_norm.mean(),
+            }
 
     @torch.no_grad()
     def predict_from_cache(self, cache: dict, x: torch.Tensor, x_test: torch.Tensor):
-        """Posterior mean and variance at x_test: one rect filter of 1+m columns."""
-        params = cache["params"]
-        ref = x * params["inv_ell"]
-        ref_test = x_test * params["inv_ell"]
-        s = params["outputscale"]
+        """Posterior mean and variance at x_test: one rect filter of 1+m columns (the span ``predict``)."""
+        with trace.span("predict"):
+            params = cache["params"]
+            ref = x * params["inv_ell"]
+            ref_test = x_test * params["inv_ell"]
+            s = params["outputscale"]
 
-        cols = torch.cat([cache["alpha"][:, None], cache["root_inv"]], dim=-1)
-        F = lattice_filter_rect(cols, ref, ref_test, self.dk)  # (n_test, 1+m)
-        mean = s * F[:, 0] + params["mean"]
-        S = s * F[:, 1:]
-        var = s + params["noise"] - (S * S).sum(dim=-1)
-        return mean, torch.clamp(var, min=1e-8)
+            cols = torch.cat([cache["alpha"][:, None], cache["root_inv"]], dim=-1)
+            F = lattice_filter_rect(cols, ref, ref_test, self.dk)  # (n_test, 1+m)
+            mean = s * F[:, 0] + params["mean"]
+            S = s * F[:, 1:]
+            var = s + params["noise"] - (S * S).sum(dim=-1)
+            return mean, torch.clamp(var, min=1e-8)
 
     # ----- ARD screening -----
 

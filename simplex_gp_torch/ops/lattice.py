@@ -67,6 +67,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels.lattice import (
     JoinRows,
     join_rows,
@@ -326,9 +327,10 @@ def build_plan_chain(x: torch.Tensor, coeffs: tuple, blur_variance: float,
     if not np.allclose(cs, cs[::-1]):
         raise ValueError("chain plan requires symmetric filter taps")
     d = x.shape[1]
-    E, a, _, _, consts = _constants_on(d, (len(coeffs) - 1) // 2, float(blur_variance), _device_key(x.device))
-    h1, h2, weights, s = lattice_geometry(x.to(torch.float32).contiguous(), E, a, with_s=True)
-    return chain_build(h1, h2, s, weights, consts, [float(c) for c in coeffs], capacity)
+    with trace.span("plan"):
+        E, a, _, _, consts = _constants_on(d, (len(coeffs) - 1) // 2, float(blur_variance), _device_key(x.device))
+        h1, h2, weights, s = lattice_geometry(x.to(torch.float32).contiguous(), E, a, with_s=True)
+        return chain_build(h1, h2, s, weights, consts, [float(c) for c in coeffs], capacity)
 
 
 def build_plan_sharded_chain(x_local: torch.Tensor, coeffs: tuple, blur_variance: float, axis) -> ChainPlan:
@@ -352,11 +354,14 @@ def build_plan_sharded_chain(x_local: torch.Tensor, coeffs: tuple, blur_variance
     cs = np.asarray(coeffs, np.float64)
     if not np.allclose(cs, cs[::-1]):
         raise ValueError("chain plan requires symmetric filter taps")
-    n_loc, d = x_local.shape
-    E, a, _, _, consts = _constants_on(d, (len(coeffs) - 1) // 2, float(blur_variance), _device_key(x_local.device))
-    h1, h2, weights, s = lattice_geometry(x_local.to(torch.float32).contiguous(), E, a, with_s=True)
-    h1g, h2g, sg = axis.all_gather_blocks(torch.stack([h1, h2, s])).transpose(0, 1).reshape(3, -1)
-    return chain_build(h1g, h2g, sg, weights, consts, [float(c) for c in coeffs], None, axis.rank * n_loc * (d + 1))
+    with trace.span("plan"):
+        n_loc, d = x_local.shape
+        dev = _device_key(x_local.device)
+        E, a, _, _, consts = _constants_on(d, (len(coeffs) - 1) // 2, float(blur_variance), dev)
+        h1, h2, weights, s = lattice_geometry(x_local.to(torch.float32).contiguous(), E, a, with_s=True)
+        h1g, h2g, sg = axis.all_gather_blocks(torch.stack([h1, h2, s])).transpose(0, 1).reshape(3, -1)
+        taps, first = [float(c) for c in coeffs], axis.rank * n_loc * (d + 1)
+        return chain_build(h1g, h2g, sg, weights, consts, taps, None, first)
 
 
 def apply_plan_chain(plan: ChainPlan, v: torch.Tensor, coeffs: tuple, transpose: bool = False,
@@ -409,11 +414,12 @@ def build_plan_join(x: torch.Tensor, coeffs: tuple, blur_variance: float,
     ``capacity`` (None: n(d+1), the most a plan can occupy) bounds the
     table; pick it from :func:`count_lattice_points` with headroom.
     """
-    n, d = x.shape
-    E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x.device)
-    h1, h2, weights = lattice_geometry(x.to(torch.float32).contiguous(), E, a)
-    seg_ids, neighbors, n_lattice = lattice_dedup_neighbors(h1, h2, oh1, oh2, capacity)
-    return LatticePlan(seg_ids.reshape(n, d + 1), weights, neighbors, n_lattice)
+    with trace.span("plan"):
+        n, d = x.shape
+        E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x.device)
+        h1, h2, weights = lattice_geometry(x.to(torch.float32).contiguous(), E, a)
+        seg_ids, neighbors, n_lattice = lattice_dedup_neighbors(h1, h2, oh1, oh2, capacity)
+        return LatticePlan(seg_ids.reshape(n, d + 1), weights, neighbors, n_lattice)
 
 
 def mixture_positions(x: torch.Tensor, alphas) -> torch.Tensor:
@@ -431,19 +437,20 @@ def build_plan_mixture(x: torch.Tensor, alphas, coeffs: tuple, blur_variance: fl
     neighbours, live counts) and the row lists, built once from it, stay on
     the device.
     """
-    n, d = x.shape
-    J, N = len(alphas), n * (d + 1)
-    E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x.device)
-    h1, h2, weights = lattice_geometry(mixture_positions(x, alphas), E, a)
-    segs, nbs, lives = [], [], []
-    for j in range(J):
-        seg, nb, live = lattice_dedup_neighbors(h1[j * N:(j + 1) * N], h2[j * N:(j + 1) * N], oh1, oh2)
-        segs.append(seg + j * N)
-        nbs.append(nb)
-        lives.append(live)
-    seg_ids, weights = torch.stack(segs).reshape(J, n, d + 1), weights.reshape(J, n, d + 1)
-    neighbors, live = torch.cat(nbs, dim=1), torch.stack(lives)
-    return MixturePlan(seg_ids, weights, neighbors, live, mixture_rows(seg_ids, weights, neighbors, live))
+    with trace.span("plan"):
+        n, d = x.shape
+        J, N = len(alphas), n * (d + 1)
+        E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x.device)
+        h1, h2, weights = lattice_geometry(mixture_positions(x, alphas), E, a)
+        segs, nbs, lives = [], [], []
+        for j in range(J):
+            seg, nb, live = lattice_dedup_neighbors(h1[j * N:(j + 1) * N], h2[j * N:(j + 1) * N], oh1, oh2)
+            segs.append(seg + j * N)
+            nbs.append(nb)
+            lives.append(live)
+        seg_ids, weights = torch.stack(segs).reshape(J, n, d + 1), weights.reshape(J, n, d + 1)
+        neighbors, live = torch.cat(nbs, dim=1), torch.stack(lives)
+        return MixturePlan(seg_ids, weights, neighbors, live, mixture_rows(seg_ids, weights, neighbors, live))
 
 
 def apply_plan_mixture(plan: MixturePlan, v: torch.Tensor, coeffs: tuple, mix_weights, transpose: bool = False,
@@ -485,14 +492,15 @@ def build_plan_sharded_join(x_local: torch.Tensor, coeffs: tuple, blur_variance:
     n_lattice), built once for every K11b apply of the plan.  Every rank must
     pass the same number of points.
     """
-    n_loc, d = x_local.shape
-    dp1 = d + 1
-    E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x_local.device)
-    h1, h2, weights = lattice_geometry(x_local.to(torch.float32).contiguous(), E, a)
-    seg_all, neighbors, n_lattice = lattice_dedup_ordered(axis.all_gather(h1), axis.all_gather(h2), oh1, oh2)
-    start = axis.rank * n_loc * dp1
-    seg_local = seg_all[start:start + n_loc * dp1].reshape(n_loc, dp1)
-    return WidePlan(seg_local, weights, neighbors, n_lattice, sharded_rows(seg_local, weights, n_lattice))
+    with trace.span("plan"):
+        n_loc, d = x_local.shape
+        dp1 = d + 1
+        E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x_local.device)
+        h1, h2, weights = lattice_geometry(x_local.to(torch.float32).contiguous(), E, a)
+        seg_all, neighbors, n_lattice = lattice_dedup_ordered(axis.all_gather(h1), axis.all_gather(h2), oh1, oh2)
+        start = axis.rank * n_loc * dp1
+        seg_local = seg_all[start:start + n_loc * dp1].reshape(n_loc, dp1)
+        return WidePlan(seg_local, weights, neighbors, n_lattice, sharded_rows(seg_local, weights, n_lattice))
 
 
 def apply_plan_join(plan: LatticePlan, v: torch.Tensor, coeffs: tuple, transpose: bool = False,
@@ -541,11 +549,12 @@ def build_wide_plan_join(x: torch.Tensor, coeffs: tuple, blur_variance: float,
     """``wide_plan(build_plan_join(x, ...))`` by K1 and one host call for the rest: K2 and the row lists
     on one workspace (:func:`~simplex_gp_torch.kernels.lattice.lattice_plan_rows`), nothing read on the
     host.  The same plan and rows, field for field."""
-    n, d = x.shape
-    E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x.device)
-    h1, h2, weights = lattice_geometry(x.to(torch.float32).contiguous(), E, a)
-    seg_ids, neighbors, n_lattice, rows = lattice_plan_rows(h1, h2, weights, oh1, oh2, capacity)
-    return WidePlan(seg_ids, weights, neighbors, n_lattice, rows)
+    with trace.span("plan"):
+        n, d = x.shape
+        E, a, oh1, oh2 = _lattice_constants(d, coeffs, blur_variance, x.device)
+        h1, h2, weights = lattice_geometry(x.to(torch.float32).contiguous(), E, a)
+        seg_ids, neighbors, n_lattice, rows = lattice_plan_rows(h1, h2, weights, oh1, oh2, capacity)
+        return WidePlan(seg_ids, weights, neighbors, n_lattice, rows)
 
 
 def apply_plan_rows(plan: WidePlan, v: torch.Tensor, coeffs: tuple, transpose: bool = False,
