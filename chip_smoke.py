@@ -446,6 +446,14 @@ CHAIN_REL = 1e-6
 # is gated bit for bit; so is K13a's backward, which sums in its plain
 # version's order (equal to it too).
 K13_REL = 1e-5
+
+# K14, the SLQ quadrature (phases 4.5, 4.6 and 6.5), on the training CG's records: it solves each probe's
+# leading block in double, so against float64 eigh of the same float32 band (on the CPU) only its output's
+# float32 rounding is left, while the float32 eigh path on the card (cuSOLVER, the port's route before it)
+# carries float32 roundoff of the whole eigendecomposition.  Per probe the kernel may be no further from the
+# float64 value than SLQ_F32_FACTOR times the float32 path, plus one float32 ulp of the value (its own
+# rounding, for a probe the float32 path happens to land on).
+SLQ_F32_FACTOR = 2.0
 # SKIP against JAX on the CPU (golden, JAX's Omega, JAX's signs matched to
 # the port's).  The grid kernels' 30-odd smallest kept eigenvalues lie
 # within float32 roundoff of each other, so two LAPACKs return other
@@ -554,6 +562,8 @@ KERNEL_ROWS = {
     "cg_init_sharded": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/cg.py:113"),
     # The ranks' U^T r added in rank order (JAX's psum of U^T V, pivoted_cholesky.py:237-238).
     "cg_fold_sharded": ("simplex_gp_torch/csrc/cg.cu", "simplex_gp_tpu/linalg/pivoted_cholesky.py:238"),
+    # K14: the quadrature of the CG record's tridiagonals (logdet_from_cg_tridiag :177; slq_logdet's :128).
+    "slq_quadrature": ("simplex_gp_torch/csrc/slq.cu", "simplex_gp_tpu/linalg/lanczos.py:177"),
 }
 
 
@@ -623,6 +633,47 @@ def u_pass_cost(name: str, n: int, k: int, t: int, nb: int) -> tuple:
         "mm_utr": (4 * (n * k + n * t + k * t), 2 * n * k * t),  # torch.mm(U.T, r)
         "mm_ug": (4 * (n * k + k * t + n * t), 2 * n * k * t),  # torch.mm(U, G2)
     }[name]
+
+
+def slq_case(res, timer) -> dict:
+    """K14 on a training CG's record (its probe columns), as logdet_from_cg_tridiag calls it: each probe's leading
+    block, the kernel's error and the float32 eigh path's (on the card) against float64 eigh of the same band on
+    the CPU, a second call's bits and the band form's on cg_band's band, the times of the kernel (launched,
+    graph-replayed), its plain version (the band and the float32 eigh) and the library's eigh alone, and the
+    bound of gpbench/counts.py's SLQ term (a dense eigh of m = min(iterations, 100))."""
+    import torch
+
+    from simplex_gp_torch.kernels import slq as KQ
+
+    rec = (res.alphas[:, 1:], res.betas[:, 1:], res.tmask[:, 1:])
+    diag, off = KQ.cg_band(*rec)
+    got, again, f32 = KQ.slq_quadrature_cg(*rec), KQ.slq_quadrature_cg(*rec), KQ.slq_quadrature_plain(diag, off)
+    dn, on = diag.double().cpu(), off.double().cpu()
+    lam, vec = torch.linalg.eigh(torch.diag_embed(dn) + torch.diag_embed(on, offset=1) + torch.diag_embed(on, offset=-1))
+    want = (vec[:, 0, :] ** 2 * torch.log(torch.clamp(lam, min=float(np.float32(1e-10))))).sum(dim=-1)
+    err, err32 = (got.double().cpu() - want).abs(), (f32.double().cpu() - want).abs()
+    ulp = torch.from_numpy(np.spacing(np.abs(want.numpy()).astype(np.float32)).astype(np.float64))
+    lengths = [int(torch.nonzero(r_ == 0)[0]) + 1 if bool((r_ == 0).any()) else dn.shape[1] for r_ in on]
+    dense = torch.diag_embed(diag) + torch.diag_embed(off, offset=1) + torch.diag_embed(off, offset=-1)
+    p, m, m_counted = diag.shape[0], diag.shape[1], min(res.iterations, 100)
+    return dict(p=p, m=m, cg_iters=res.iterations, block_lengths=lengths, max_abs_err=float(err.max()),
+                kernel_err=err.tolist(), f32_eigh_err=err32.tolist(), ulp=ulp.tolist(),
+                within=bool((err <= SLQ_F32_FACTOR * err32 + ulp).all()),
+                bit_equal=bool(torch.equal(got, again) and torch.equal(got, KQ.slq_quadrature(diag, off))),
+                ms=timer(lambda: KQ.slq_quadrature_cg(*rec), 50),
+                graph_ms=graph_ms(lambda: KQ.slq_quadrature_cg(*rec), 20),
+                plain_ms=timer(lambda: KQ.slq_quadrature_plain(*KQ.cg_band(*rec)), 10),
+                library_ms=timer(lambda: torch.linalg.eigh(dense), 10),
+                **bound(4 * p * m_counted ** 2, 9 * p * m_counted ** 3),
+                shape=f"p={p}, m={m}, blocks {min(lengths)}-{max(lengths)}")
+
+
+def slq_gate(case: dict, expect, tag: str) -> None:
+    expect(case["within"] and case["bit_equal"],
+           f"{tag}: K14 per probe within {SLQ_F32_FACTOR} x the float32 eigh path's error of float64 eigh (+1 ulp): "
+           f"worst {case['max_abs_err']:.3e} against the float32 path's {max(case['f32_eigh_err']):.3e}; blocks "
+           f"{case['block_lengths']} of {case['m']}; a second call and the band form bit-equal {case['bit_equal']}; "
+           f"{case['ms']:.4f} ms (graph {case['graph_ms']:.4f}) against the float32 eigh's {case['plain_ms']:.4f}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -716,6 +767,7 @@ def training_phase(dev, ds, expect, timer):
     from simplex_gp_torch import train as trainer
     from simplex_gp_torch.kernels import chain as KC
     from simplex_gp_torch.kernels import lattice as K
+    from simplex_gp_torch.kernels import slq as KQ
     from simplex_gp_torch.kernels.pivot import pivot_column
     from simplex_gp_torch.linalg import mll
     from simplex_gp_torch.linalg.cg import cg_solve
@@ -837,7 +889,7 @@ def training_phase(dev, ds, expect, timer):
     # The exact backward reuses the CG's chain plan (K3'c transposed); the eval (range sketch and predict) runs
     # K9 on its join plans' row lists.
     kernels = (K.lattice_geometry, K.lattice_dedup_neighbors, K.join_rows, K.lattice_apply_cols, pivot_column,
-               K.lattice_filter_grad, *chain_kernels(), KC.chain_axes_transpose)
+               K.lattice_filter_grad, *chain_kernels(), KC.chain_axes_transpose, KQ.slq_quadrature)
     for fn in kernels:
         fn.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -887,7 +939,7 @@ def training_phase(dev, ds, expect, timer):
     mark(6)
     if ev is not None:
         torch.cuda.synchronize()
-        names = ("plan", "preconditioner", "cg", "slq_eigh", "forward", "backward")
+        names = ("plan", "preconditioner", "cg", "slq", "forward", "backward")
         stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
         a0, a1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a0.record()
@@ -902,6 +954,19 @@ def training_phase(dev, ds, expect, timer):
         print(f"    warm training step {warm:.2f} ms (CUDA events); stages (ms): "
               + json.dumps({k: round(v, 3) for k, v in stages.items()}))
         record.update(step_ms=warm, stages=stages)
+
+    print("training 4.6: K14 slq_quadrature on the step's CG record and on a 100-step record vs float64 eigh")
+    with torch.no_grad():
+        record["slq"] = slq_case(res, timer)
+        slq_gate(record["slq"], expect, "elevators training CG record")
+        # All 100 steps of the record live: the largest block the training path can give, with the repeated
+        # Ritz values of a CG that has lost orthogonality.
+        res100 = cg_solve(lambda V: L.apply_plan_chain(plan, V, dk.coeffs),
+                          torch.cat([(y - params["mean"])[:, None], b], dim=-1), tol=cfg.cg_tolerance, max_iters=100,
+                          min_iters=100, precond=P, tridiag_m=100, shift=(s, noise))
+        record["slq_100"] = slq_case(res100, timer)
+        slq_gate(record["slq_100"], expect, "elevators 100-step CG record")
+    print("    " + json.dumps({k: record[k] for k in ("slq", "slq_100")}))
     return k5, record
 
 
@@ -1553,6 +1618,8 @@ def large_n_phase(dev, expect, timer):
         record["eval_routes"] = wide_routes_check(*routes, dk, torch.from_numpy(ds.val_y).to(dev), expect,
                                                   "houseelectric eval")
     del routes
+    record["slq"] = stages.pop("slq_case")
+    slq_gate(record["slq"], expect, "houseelectric training CG record")
     prof = stages.pop("backward_profile")
     expect(prof["sorts"] == 0 and prof["cumsums"] == 0 and not any(prof["kernels"].values())
            and all(v > 0 for v in prof["chain_kernels"].values()),
@@ -1813,9 +1880,11 @@ def houseelectric_stages(dev, ds, dk, cap, ell):
     ev[7].record()
     torch.cuda.synchronize()
     peaks["training_step"] = torch.cuda.max_memory_allocated() / 1e9
-    names = ("plan", "preconditioner", "cg", "slq_eigh", "forward", "backward", "adam")
+    names = ("plan", "preconditioner", "cg", "slq", "forward", "backward", "adam")
     stages = {nm: ev[i].elapsed_time(ev[i + 1]) for i, nm in enumerate(names)}
     stages["cg_iters"] = res.iterations
+    with torch.no_grad():
+        stages["slq_case"] = slq_case(res, cuda_ms)
     # One training CG iteration's parts at c = 11, by CUDA-graph replay: the MVM, K10's passes over U (U^T R's
     # partials, their fold, R / noise - U G2), and cuBLAS's U^T R and U G2 of the same shapes.
     r11 = res.x.contiguous()
@@ -2917,7 +2986,7 @@ def mixture_phase(dev, ds, expect, timer):
     ev[6].record()
     torch.cuda.synchronize()
     stages = {nm: ev[i].elapsed_time(ev[i + 1])
-              for i, nm in enumerate(("plan", "preconditioner", "cg", "slq_eigh", "forward", "backward"))}
+              for i, nm in enumerate(("plan", "preconditioner", "cg", "slq", "forward", "backward"))}
     stages["cg_iters"] = res.iterations
     # The CG's MVM at c = 11 on the J chain plans and on K12's stacked plan of the same positions, graph-replayed.
     with torch.no_grad():
@@ -3804,6 +3873,7 @@ def chain_phase(dev, ds, expect, timer, stage_times):
                    eval_cg_bit_equal=torch.equal(sol[0], sol[1]))
     expect(rep["nlml_bit_equal"] and rep["cg_iters"][0] == rep["cg_iters"][1],
            f"the NLML at the median init twice: bit-equal, CG iterations {rep['cg_iters']}")
+    expect(rep["slq_logdet_bit_equal"], "the SLQ log-det of two identical solves bit-equal (K14)")
     expect(rep["eval_cg_iters"][0] == rep["eval_cg_iters"][1] and rep["eval_alpha_bit_equal"],
            f"posterior_cache at model_best.pkl twice: eval CG iterations {rep['eval_cg_iters']}, alpha bit-equal")
     print(f"    posterior_cache at model_best.pkl twice: eval CG iterations {rep['eval_cg_iters']}, alpha bit-equal "
@@ -5402,6 +5472,8 @@ def main(argv=None) -> int:
     t_train = time.perf_counter()
     rows["lattice_filter_grad"], training = training_phase(dev, ds, expect, cuda_ms)
     launches["lattice_filter_grad"] = training["trainer_launches"]["lattice_filter_grad"]
+    launches["slq_quadrature"] = training["trainer_launches"]["slq_quadrature"]
+    rows["slq_quadrature"] = dict(training["slq"], record_100=training["slq_100"])
     print(f"training phase: {time.perf_counter() - t_train:.1f} s")
     print("training: " + json.dumps(training))
 
@@ -5421,6 +5493,7 @@ def main(argv=None) -> int:
     for name in ("lattice_apply_cols", "join_rows"):
         rows[name]["houseelectric_trainer_launches"] = large_launches[name]
     rows["lattice_filter_grad"]["houseelectric"] = large["k5"]
+    rows["slq_quadrature"]["houseelectric"] = large["slq"]
     print(f"large-n phase: {time.perf_counter() - t_large:.1f} s")
     print("large n: " + json.dumps(large))
 

@@ -21,6 +21,7 @@
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --slice
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --unblock
     PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --routes
+    PYTHONPATH=<tree> python simplex_gp_torch/kernel_times.py --slq
 
 The second form times K8 ``lattice_count`` and K3'b ``chain_splat``
 instead (:func:`count_splat`); the third K9 ``lattice_apply_cols`` and K7
@@ -67,7 +68,9 @@ chain apply's unblock beside ``torch.cat``, launched and graph-replayed
 (:func:`unblock_times`); the twentieth, in one tree, the old and the new
 route of the mixture's CG (K12's stacked plan, the J chain plans) and of
 the wide filter above _JOIN_MAX_ROWS (K9 on a join plan, the chunked
-chain), in turns (:func:`routes`).  An A/B of the slice runs
+chain), in turns (:func:`routes`); the twenty-first the SLQ quadrature on recorded training CG records at
+the elevators and houseelectric shapes, K14 or, in a tree without it, the batched ``torch.linalg.eigh``
+(:func:`slq_times`).  An A/B of the slice runs
 ``--slice`` and ``--step-grad DIR`` on each tree, then
 ``--compare-step-grad`` on the two DIRs: the houseelectric step's
 gradients bit for bit.
@@ -1813,6 +1816,128 @@ def ski_times(repeats: int = 20, rows=(65536, 191231)) -> dict:
     return out
 
 
+def slq_times(reps: int = 50) -> dict:
+    """The SLQ quadrature on training CG records, through what the tree runs: K14 (``kernels/slq.py``) or,
+    in a tree without it, ``lanczos._quadrature`` (the batched float32 ``torch.linalg.eigh`` of the dense T).
+
+    Records (tridiag_m 100, 10 probes, the step's preconditioned CG at tolerance 1.0): the elevators rows at
+    the golden file's median init, its own stop (~10 live steps) and forced to all 100 steps (min_iters 100);
+    all houseelectric rows over their median lengthscale at capacity 32,768.  Trees that run the same CG get
+    the same band (its checksum is printed, to check that they do).  For each: the
+    quadrature of the band launched (CUDA events over ``reps`` calls) and, K14 only, replayed from a CUDA graph
+    and on the record itself (the form the stage launches)
+    (cuSOLVER reads its info back and does not capture), the whole stage ``logdet_from_cg_tridiag`` by CUDA
+    events and by the host's clock (synchronised each call), one stage under ``torch.profiler`` (device ms by
+    kernel), and the quadratures against float64 eigh of the same band; then K14 alone, graph-replayed, on
+    random SPD bands of 10 probes at lengths 1 to 100.  Prints one JSON line.
+    """
+    import pathlib
+
+    import simplex_gp_torch
+    from simplex_gp_torch import train as trainer
+    from simplex_gp_torch.linalg import lanczos as LZ
+    from simplex_gp_torch.linalg import mll
+    from simplex_gp_torch.linalg.cg import cg_solve
+    from simplex_gp_torch.linalg.pivoted_cholesky import precond_sqrt
+    from simplex_gp_torch.models.components import init_raw_params
+    from simplex_gp_torch.ops.filter import apply_plan_any, build_plan_any
+    from simplex_gp_torch.utils import data
+
+    try:
+        from simplex_gp_torch.kernels import slq as KQ_
+
+        quadrature, route = KQ_.slq_quadrature, "K14 slq_quadrature"
+    except ImportError:
+        KQ_ = None
+        quadrature, route = (lambda d, o: LZ._quadrature(LZ.tridiag_matrices(d, o))), "torch.linalg.eigh"
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    dev = torch.device("cuda:0")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = {"card": _card(), "tree": simplex_gp_torch.__file__, "route": route}
+    tg = np.load(root / "tests" / "fixtures" / "elevators_train_golden.npz")
+    elev = data.prepare_dataset(data._synthetic_uci("elevators"), "elevators")
+    house = data.load_dataset("houseelectric")
+    raw_e = {k: tg[f"init_{k}"] for k in ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean")}
+    raw_h = init_raw_params(11, lengthscale=trainer.median_lengthscale(house.train_x))
+
+    def band(alphas, betas, tmask):  # lanczos.py's band of the record (every tree's arithmetic)
+        m, p = alphas.shape
+        live_next = torch.cat([tmask[1:], torch.zeros((1, p), dtype=torch.bool, device=tmask.device)])
+        inv_a = 1.0 / torch.where(tmask, alphas, 1.0)
+        b_over_a = torch.where(tmask, betas, 0.0) * inv_a
+        prev_ba = torch.cat([torch.zeros((1, p), dtype=torch.float32, device=alphas.device), b_over_a[:-1]])
+        diag = torch.where(tmask, inv_a + prev_ba, 1.0)
+        off = torch.where(tmask & live_next, torch.sqrt(torch.clamp(betas, min=0.0)) * inv_a, 0.0)[:-1]
+        return diag.T, off.T
+
+    for tag, ds, raw, cap, forced in (("elevators", elev, raw_e, None, False),
+                                      ("elevators_100", elev, raw_e, None, True),
+                                      ("houseelectric", house, raw_h, 32768, False)):
+        x, y = torch.from_numpy(ds.train_x).to(dev), torch.from_numpy(ds.train_y).to(dev)
+        n, d = x.shape
+        cfg = mll.BBMMConfig(cg_tolerance=1.0, max_cg_iterations=500, max_lanczos_iterations=100,
+                             precond_rank=100, num_probes=10, plan_capacity=cap)
+        model = simplex_gp_torch.SimplexGP(num_dims=d, kernel="matern", nu=1.5, order=1, min_noise=0.1, bbmm=cfg,
+                                           device=dev)
+        model.load_raw(raw)
+        z = torch.from_numpy(np.random.default_rng(1).choice([-1.0, 1.0], size=(n, 10)).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            params = model.constrained()
+            ref = x * params["inv_ell"]
+            plan = build_plan_any(ref, model.dk, cap)
+            P = mll.build_precond(model.dk, cfg, params, ref, n)
+            res = cg_solve(lambda V: apply_plan_any(plan, V, model.dk),
+                           torch.cat([(y - params["mean"])[:, None], precond_sqrt(P, z)], dim=-1), tol=1.0,
+                           max_iters=100 if forced else 500, min_iters=100 if forced else 10, precond=P,
+                           tridiag_m=100, shift=(params["outputscale"], params["noise"]))
+            rec = (res.alphas[:, 1:].contiguous(), res.betas[:, 1:].contiguous(), res.tmask[:, 1:].contiguous())
+            del plan, P, ref
+            diag, off = band(*rec)
+            z2 = (z * z).sum(0)
+            got = quadrature(diag, off)
+            dn, on = diag.double().cpu(), off.double().cpu()
+            lam, vec = torch.linalg.eigh(torch.diag_embed(dn) + torch.diag_embed(on, offset=1)
+                                         + torch.diag_embed(on, offset=-1))
+            want = (vec[:, 0, :] ** 2 * torch.log(torch.clamp(lam, min=float(np.float32(1e-10))))).sum(dim=-1)
+            # cuSOLVER's eigh reads its info back, so it does not capture (and a failed capture spoils the
+            # handle for the calls after it): K14 alone is replayed.
+            graph = _graph_ms(lambda: quadrature(diag, off), 20) if route.startswith("K14") else None
+
+            def stage():
+                LZ.logdet_from_cg_tridiag(*rec, z2)
+
+            stage()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                stage()
+                torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / reps
+            out[tag] = dict(
+                cg_iters=res.iterations, live_steps=[int(v) for v in rec[2].sum(0)],
+                band_checksum=float(diag.double().sum() + off.double().abs().sum()),
+                quadrature=got.tolist(), f64_abs_err=(got.double().cpu() - want).abs().tolist(),
+                quad_ms=_ms(lambda: quadrature(diag, off), reps), quad_graph_ms=graph,
+                stage_ms=_ms(stage, reps), stage_wall_ms=wall, stage_profile=_device_by_kernel(stage))
+            if hasattr(KQ_, "slq_quadrature_cg"):  # the record form the stage launches, the band formed inside
+                out[tag].update(record_ms=_ms(lambda: KQ_.slq_quadrature_cg(*rec), reps),
+                                record_graph_ms=_graph_ms(lambda: KQ_.slq_quadrature_cg(*rec), 20),
+                                record_equals_band=bool(torch.equal(KQ_.slq_quadrature_cg(*rec), got)))
+        del model, x, y, z, res
+        torch.cuda.empty_cache()
+    if route.startswith("K14"):  # the kernel alone on 10 random SPD bands of each length, graph-replayed
+        gen = torch.Generator(device=dev).manual_seed(3)
+        by_length = {}
+        for L in (1, 11, 22, 38, 64, 100):
+            diag = 1.0 + 10.0 * torch.rand((10, L), generator=gen, device=dev)
+            off = 0.45 * torch.rand((10, L - 1), generator=gen, device=dev)
+            by_length[L] = _graph_ms(lambda: quadrature(diag, off), 20)
+        out["kernel_graph_ms_by_length"] = by_length
+    print(json.dumps(out), flush=True)
+    return out
+
+
 if __name__ == "__main__":
     import sys
 
@@ -1859,5 +1984,7 @@ if __name__ == "__main__":
         unblock_times()
     elif "--routes" in sys.argv[1:]:
         routes()
+    elif "--slq" in sys.argv[1:]:
+        slq_times()
     else:
         main()

@@ -91,6 +91,7 @@ _SIGNATURES = {
     "sgp_cg_precond": [*[_P] * 5, *[_I] * 8, _P, _P],
     "sgp_cg_step_p": [_P, _P, _I, _LL, _LL, _I, *[_P] * 4, _I, _I, _I, _I, *[_P] * 5, _I, _F, _I, _I, _I, _I, _P],
     "sgp_cg_init": [_P, _P, _I, _LL, _LL, _I, _I, _I, _P, _P, _I, _P],
+    "sgp_slq_quadrature": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _I, _I, _P, _P],
 }
 
 _lib = None

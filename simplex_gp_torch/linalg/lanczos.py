@@ -2,9 +2,12 @@
 
 Port of simplex_gp_tpu/linalg/lanczos.py: every probe runs
 its Lanczos recurrence at once as one (n, p) block, with CGS2 full
-reorthogonalization and the breakdown freeze of the JAX package; the small
-(p, m, m) tridiagonal eigenproblems go to batched ``torch.linalg.eigh`` in
-float32 with the same 1e-10 clamp.  ``logdet_from_cg_tridiag`` reads the
+reorthogonalization and the breakdown freeze of the JAX package.  The
+quadrature of the small tridiagonals, e1^T log(T) e1 with the eigenvalues
+clamped at 1e-10, is K14 (``kernels/slq.py``): on a card one launch on the
+band or on the CG record itself, on the CPU batched float32
+``torch.linalg.eigh`` of the dense (p, m, m) T, as JAX computes it.
+``logdet_from_cg_tridiag`` reads the
 tridiagonals that ``cg_solve(..., tridiag_m=m)`` records, which is the
 training path's log-det (slq_mode "cg").  With ``axis`` (a DataAxis) the
 rows are sharded: every reduction over n is an all-reduce (lanczos.py:50-51,
@@ -18,6 +21,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .. import trace
+from ..kernels.slq import slq_quadrature, slq_quadrature_cg
 
 __all__ = [
     "LanczosResult",
@@ -88,13 +92,6 @@ def tridiag_matrices(alphas: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
     return torch.diag_embed(alphas) + torch.diag_embed(betas, offset=1) + torch.diag_embed(betas, offset=-1)
 
 
-def _quadrature(T: torch.Tensor) -> torch.Tensor:
-    """(p,) e1^T log(T) e1 per tridiagonal, eigenvalues clamped at 1e-10."""
-    evals, evecs = torch.linalg.eigh(T)
-    evals = torch.clamp(evals, min=1e-10)
-    return (evecs[:, 0, :] ** 2 * torch.log(evals)).sum(dim=-1)
-
-
 def slq_logdet(
     matmul: Callable[[torch.Tensor], torch.Tensor],
     z: torch.Tensor,
@@ -104,7 +101,7 @@ def slq_logdet(
     """Stochastic Lanczos quadrature estimate of log|A| from probes z (n, p) (lanczos.py:113)."""
     with trace.span("slq"):
         res = lanczos(matmul, z, num_iters, axis=axis)
-        quad = _quadrature(tridiag_matrices(res.alphas, res.betas))
+        quad = slq_quadrature(res.alphas, res.betas)
         z_norm2 = (z * z).sum(dim=0)
         return ((z_norm2 if axis is None else axis.psum(z_norm2)) * quad).mean()
 
@@ -123,16 +120,7 @@ def logdet_from_cg_tridiag(
     was preconditioned.
     """
     with trace.span("slq"):
-        m, p = alphas.shape
-        live = tmask
-        live_next = torch.cat([tmask[1:], torch.zeros((1, p), dtype=torch.bool, device=tmask.device)])
-        inv_a = 1.0 / torch.where(live, alphas, 1.0)
-        b_over_a = torch.where(live, betas, 0.0) * inv_a
-        prev_ba = torch.cat([torch.zeros((1, p), dtype=torch.float32, device=alphas.device), b_over_a[:-1]])
-        diag = torch.where(live, inv_a + prev_ba, 1.0)
-        off = torch.where(live & live_next, torch.sqrt(torch.clamp(betas, min=0.0)) * inv_a, 0.0)[:-1]
-        quad = _quadrature(tridiag_matrices(diag.T, off.T))
-        return (z_norm2 * quad).mean()
+        return (z_norm2 * slq_quadrature_cg(alphas, betas, tmask)).mean()
 
 
 def lanczos_root(

@@ -1690,3 +1690,149 @@ def test_ski_interp_team_kernel_matches_plain(cuda_device, n, g, r, offset):
     want = KS.interp_plain(x, gmin, step, U)
     torch.cuda.synchronize()
     assert float((F - want).norm() / want.norm()) < 1e-5 and torch.equal(KS.ski_interp(x, gmin, step, U), F)
+
+
+def _slq_close(diag, off, got):
+    """K14's output against float64 eigh of the same band (test_torch_slq_quadrature.py's bound), plus the
+    float32 rounding of the output (one ulp)."""
+    from test_torch_slq_quadrature import _eigh64
+
+    want, tol = _eigh64(diag.cpu().numpy(), off.cpu().numpy())
+    ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    err = np.abs(got.cpu().numpy().astype(np.float64) - want)
+    assert np.all(err <= tol + ulp), (err, tol + ulp)
+
+
+@pytest.mark.parametrize("L", [1, 2, 22, 100])
+def test_slq_quadrature_matches_float64_eigh_in_either_layout(cuda_device, L):
+    """K14 on random SPD tridiagonals against float64 eigh; the step-major (m, p) band through its transposed
+    view gives the same bits as the (p, m) rows, and a second call repeats them."""
+    from test_torch_slq_quadrature import _random_band
+
+    from simplex_gp_torch.kernels import slq as KQ
+
+    diag, off = (torch.from_numpy(t).to(cuda_device) for t in _random_band(5, L, seed=L))
+    got = KQ.slq_quadrature(diag, off)
+    stepwise = KQ.slq_quadrature(diag.T.contiguous().T, off.T.contiguous().T)
+    torch.cuda.synchronize()
+    _slq_close(diag, off, got)
+    assert torch.equal(got, stepwise) and torch.equal(got, KQ.slq_quadrature(diag, off))
+
+
+def test_slq_quadrature_on_cg_records_no_worse_than_float32_eigh(cuda_device):
+    """CG records with dead-step padding, a mask that is not a prefix, a zero coupling between live steps and
+    a 100-step record with repeated Ritz values: K14 within the float64 bound, and per probe no further from
+    float64 eigh than twice the float32 eigh path on the card, plus one float32 ulp."""
+    from test_torch_slq_quadrature import _cg_band, _eigh64, _spd
+
+    from simplex_gp_torch.kernels import slq as KQ
+
+    bands = [_cg_band(_spd(96, 9, np.geomspace(1.0, 5.0, 96)), 6, 80, 17, tol=1e-6, max_iters=80)[:2],
+             _cg_band(_spd(150, 2, np.geomspace(0.1, 30.0, 150)), 5, 100, 31, tol=1e-5, max_iters=100)[:2]]
+    evals = np.concatenate([np.geomspace(1e-2, 1.0, 190), [50.0, 80.0, 100.0, 200.0, 400.0, 1e3, 1e3 + 1e-2, 2e3,
+                                                            3e3, 4e3]])
+    bands.append(_cg_band(_spd(200, 11, evals), 2, 100, 23, tol=1e-30, max_iters=100, min_iters=100)[:2])
+    d, o = (t.copy() for t in bands[0])
+    o[0, 3] = 0.0
+    o[1, 6:9] = 0.0
+    d[1, 7] = 1.0
+    bands.append((d, o))
+    for dn, on in bands:
+        diag, off = torch.from_numpy(dn).to(cuda_device), torch.from_numpy(on).to(cuda_device)
+        got = KQ.slq_quadrature(diag, off)
+        f32 = KQ.slq_quadrature_plain(diag, off)
+        torch.cuda.synchronize()
+        _slq_close(diag, off, got)
+        want, _ = _eigh64(dn, on)
+        ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+        err = np.abs(got.cpu().numpy().astype(np.float64) - want)
+        assert np.all(err <= 2.0 * np.abs(f32.cpu().numpy().astype(np.float64) - want) + ulp)
+
+
+def test_slq_quadrature_cg_forms_the_band_bit_for_bit(cuda_device):
+    """The record form (the band formed in the kernel) equals the band form on cg_band's band bit for bit, on
+    CG records with padding, a mask that is not a prefix, a zero beta at a live step and a NaN beta at a dead
+    one, read through the record's step-major layout."""
+    from test_torch_slq_quadrature import _spd
+
+    from simplex_gp_torch.kernels import slq as KQ
+    from simplex_gp_torch.linalg import cg as t_cg
+
+    A = torch.from_numpy(_spd(96, 9, np.geomspace(1.0, 50.0, 96)))
+    z = torch.from_numpy(np.random.default_rng(3).choice([-1.0, 1.0], size=(96, 7)).astype(np.float32))
+    res = t_cg.cg_solve(lambda v: A @ v, z, tol=1e-6, max_iters=60, tridiag_m=60)
+    alphas, betas, tmask = res.alphas.clone(), res.betas.clone(), res.tmask.clone()
+    assert not bool(tmask.all())
+    tmask[5, 1] = False  # a hole
+    betas[3, 2] = 0.0  # a zero coupling at a live step
+    betas[-1, 0] = float("nan")  # a dead step's beta reaches no output
+    rec = tuple(t.to(cuda_device) for t in (alphas, betas, tmask))
+    got = KQ.slq_quadrature_cg(*rec)
+    want = KQ.slq_quadrature(*KQ.cg_band(*rec))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+    wide = tuple(torch.cat([t[:, :1], t], dim=1) for t in rec)  # the CG's y column first, as the NLML slices it
+    assert torch.equal(KQ.slq_quadrature_cg(*(t[:, 1:] for t in wide)), got)
+
+
+def test_slq_path_on_the_card_reads_nothing_back_and_counts_one_launch_a_span(cuda_device, monkeypatch):
+    """logdet_from_cg_tridiag on a CUDA record: no host sync, no torch.linalg.eigh; an NLML under
+    trace.recording(): one ``slq.kernel`` a ``slq`` span, and a NaN band gives NaN."""
+    from simplex_gp_torch import trace
+    from simplex_gp_torch.kernels import slq as KQ
+    from simplex_gp_torch.linalg import lanczos as t_lz
+    from simplex_gp_torch.linalg import mll as t_mll
+
+    rng = np.random.default_rng(6)
+    alphas = torch.from_numpy(rng.uniform(0.5, 2.0, size=(100, 10)).astype(np.float32)).to(cuda_device)
+    betas = torch.from_numpy(rng.uniform(0.0, 0.5, size=(100, 10)).astype(np.float32)).to(cuda_device)
+    tmask = torch.arange(100, device=cuda_device)[:, None] < torch.arange(20, 30, device=cuda_device)[None, :]
+    z2 = torch.full((10,), 4000.0, device=cuda_device)
+    t_lz.logdet_from_cg_tridiag(alphas, betas, tmask, z2)  # the build, outside the check
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.linalg.eigh called on the card path")
+
+    monkeypatch.setattr(torch.linalg, "eigh", refuse)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = t_lz.logdet_from_cg_tridiag(alphas, betas, tmask, z2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.undo()
+    assert torch.isfinite(got) and torch.equal(got, t_lz.logdet_from_cg_tridiag(alphas, betas, tmask, z2))
+
+    x = torch.from_numpy(rng.normal(size=(3000, 5)).astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy(rng.normal(size=3000).astype(np.float32)).to(cuda_device)
+    z = torch.from_numpy(rng.choice([-1.0, 1.0], size=(3000, 10)).astype(np.float32)).to(cuda_device)
+    params = {k: torch.tensor(v, device=cuda_device, requires_grad=True) for k, v in
+              (("inv_ell", np.full(5, 0.8, np.float32)), ("outputscale", np.float32(1.0)),
+               ("noise", np.float32(0.2)), ("mean", np.float32(0.0)))}
+    trace.clear()
+    launches = KQ.slq_quadrature.launches
+    with trace.recording():
+        for _ in range(2):
+            t_mll.lattice_nlml(t_kernels.matern_kernel(1.5, 1), t_mll.BBMMConfig(), params, x, y, z).backward()
+    spans = sum(r["name"] == "slq" for r in trace.records())
+    counted = trace.counters().get("slq.kernel")
+    trace.clear()
+    assert spans == 2 and counted == 2 and KQ.slq_quadrature.launches - launches == 2
+
+    nan = KQ.slq_quadrature(alphas.T.contiguous().clone().fill_(float("nan")), betas.T[:, :99].contiguous())
+    assert torch.isnan(nan).all()
+
+
+def test_slq_quadrature_refuses_wrong_inputs(cuda_device):
+    from simplex_gp_torch.kernels import slq as KQ
+
+    diag, off = torch.ones((4, 10), device=cuda_device), torch.zeros((4, 9), device=cuda_device)
+    for bad in ((diag.double(), off), (diag, off[:, :8]), (diag[0], off[0]), (diag, off.cpu()),
+                (torch.ones((1, KQ.MAX_M + 1), device=cuda_device), torch.zeros((1, KQ.MAX_M), device=cuda_device))):
+        with pytest.raises(ValueError):
+            KQ.slq_quadrature(*bad)
+    assert torch.equal(KQ.slq_quadrature(diag, off), torch.zeros(4, device=cuda_device))
+    a, b, live = diag.T.contiguous(), off.T.contiguous(), torch.ones((10, 4), dtype=torch.bool, device=cuda_device)
+    for bad in ((a, b, live), (a, a, live.int()), (a, a, live[:9]), (a, a.cpu(), live)):
+        with pytest.raises(ValueError):
+            KQ.slq_quadrature_cg(*bad)
